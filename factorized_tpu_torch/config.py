@@ -1,0 +1,121 @@
+"""Typed model configuration for the PyTorch port.
+
+A copy of the fields of ``factorized_tpu.config.MFMConfig`` (the port
+imports nothing of the JAX package), with the pieces serving needs:
+``to_dict`` / ``from_dict`` for checkpoint metadata, ``replace``, the
+derived sizes, and the pinned MOSI config ``best_acc_mosi_config``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import List
+
+
+@dataclass
+class MFMConfig:
+    # dataset-fixed
+    input_dims: List[int] = field(default_factory=lambda: [300, 5, 20])
+    output_dim: int = 1
+    seqlength: int = 20
+
+    # architecture
+    h_dims: List[int] = field(default_factory=lambda: [88, 64, 48])
+    zy_size: int = 32
+    zl_size: int = 32
+    za_size: int = 8
+    zv_size: int = 80
+    fy_size: int = 16
+    fl_size: int = 88
+    fa_size: int = 8
+    fv_size: int = 8
+    memsize: int = 64
+    windowsize: int = 2
+
+    # dropouts
+    zy_to_fy_dropout: float = 0.0
+    zl_to_fl_dropout: float = 0.2
+    za_to_fa_dropout: float = 0.2
+    zv_to_fv_dropout: float = 0.7
+    fy_to_y_dropout: float = 0.0
+
+    # MFN attention/gate networks (NN1 / NN2 / gamma1 / gamma2 / out)
+    att1_shape: int = 128
+    att1_drop: float = 0.5
+    att2_shape: int = 128
+    att2_drop: float = 0.5
+    gamma1_shape: int = 128
+    gamma1_drop: float = 0.5
+    gamma2_shape: int = 128
+    gamma2_drop: float = 0.5
+    out_shape: int = 64
+    out_drop: float = 0.5
+
+    # loss weights
+    lda_mmd: float = 1.0
+    lda_xl: float = 1.0
+    lda_xa: float = 0.01
+    lda_xv: float = 0.5
+
+    # experiment selection
+    model_type: str = "mfm"
+    missing: int = 0
+    zeros: int = 0
+    task: str = "regression"  # regression | classification
+
+    # optimization
+    batchsize: int = 32
+    num_epochs: int = 30
+    lr: float = 1e-3
+    momentum: float = 0.9
+    seed: int = 123
+
+    @property
+    def total_h_dim(self) -> int:
+        return sum(self.h_dims)
+
+    @property
+    def last_mfn_size(self) -> int:
+        return self.total_h_dim + self.memsize
+
+    @property
+    def d_total(self) -> int:
+        return sum(self.input_dims)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "MFMConfig":
+        """Build from a ``to_dict`` mapping (e.g. a checkpoint's
+        ``meta.json``); keys that are not fields are ignored."""
+        names = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+    def replace(self, **kw) -> "MFMConfig":
+        return dataclasses.replace(self, **kw)
+
+    def to_dict(self):
+        return dataclasses.asdict(self)
+
+
+def best_acc_mosi_config(**overrides) -> MFMConfig:
+    """The pinned known-good MOSI MFM config (``mfm_mosi.py:1227-1288``)."""
+    cfg = MFMConfig(
+        input_dims=[300, 5, 20],
+        h_dims=[88, 64, 48],
+        zy_size=32, zl_size=32, za_size=8, zv_size=80,
+        fy_size=16, fl_size=88, fa_size=8, fv_size=8,
+        memsize=64,
+        zy_to_fy_dropout=0.0, zl_to_fl_dropout=0.2,
+        za_to_fa_dropout=0.2, zv_to_fv_dropout=0.7,
+        fy_to_y_dropout=0.0,
+        lda_mmd=1.0, lda_xl=1.0, lda_xa=0.01, lda_xv=0.5,
+        model_type="mfm", missing=0, output_dim=1,
+        windowsize=2, batchsize=32, num_epochs=30,
+        lr=0.01, momentum=0.9,
+        att1_shape=128, att1_drop=0.5,
+        att2_shape=128, att2_drop=0.5,
+        gamma1_shape=128, gamma1_drop=0.5,
+        gamma2_shape=128, gamma2_drop=0.5,
+        out_shape=64, out_drop=0.5,
+    )
+    return cfg.replace(**overrides) if overrides else cfg

@@ -1,0 +1,22 @@
+"""Model registry: string dispatch on ``cfg.model_type`` (port of
+``factorized_tpu/models/registry.py``). Only ``mfm`` is ported."""
+
+from __future__ import annotations
+
+from factorized_tpu_torch.models import mfm
+
+MODELS = {"mfm": (mfm.mfm_init, mfm.mfm_apply)}
+
+# names the JAX package registers that this port does not have yet
+NOT_YET_PORTED = ("kl", "kl_ef", "missing", "m_a", "m_b", "m_c", "m_d",
+                  "s2s", "bm", "mfn")
+
+
+def get_model(name: str):
+    """(init, apply) for a model type."""
+    if name in MODELS:
+        return MODELS[name]
+    if name in NOT_YET_PORTED:
+        raise NotImplementedError(f"model type {name!r} is not yet ported")
+    raise ValueError(f"unknown model type {name!r}; known: "
+                     f"{sorted(MODELS) + list(NOT_YET_PORTED)}")

@@ -1,0 +1,64 @@
+"""Linear / two-layer-MLP / dropout primitives (port of
+``factorized_tpu/ops/core.py``).
+
+Weights are stored ``(d_in, d_out)`` as in the JAX package, so
+``x @ w + b`` needs no transpose and a JAX param tree converts by a
+plain tree map. Random draws take an explicit ``torch.Generator``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def uniform_fan_in(generator: torch.Generator, shape, fan_in: int):
+    """U(-1/sqrt(fan_in), +1/sqrt(fan_in)) — torch's default Linear/LSTM
+    init, drawn on the generator's device."""
+    bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
+    u = torch.rand(shape, generator=generator, dtype=torch.float32,
+                   device=generator.device)
+    return u * (2.0 * bound) - bound
+
+
+def linear_init(generator, d_in: int, d_out: int):
+    return {
+        "w": uniform_fan_in(generator, (d_in, d_out), d_in),
+        "b": uniform_fan_in(generator, (d_out,), d_in),
+    }
+
+
+def linear_apply(params, x):
+    return x @ params["w"] + params["b"]
+
+
+def dropout(x, rate: float, train: bool, generator=None):
+    """Inverted dropout with a static (python float) rate: a no-op in
+    eval mode or at rate <= 0, all zeros at rate >= 1 (as torch's
+    ``nn.Dropout``), else ``x * mask / keep``."""
+    if not train or rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    if generator is None:
+        raise ValueError("train-mode dropout needs a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return x * (mask.to(x.dtype) * (1.0 / keep))
+
+
+def mlp2_init(generator, d_in: int, d_hidden: int, d_out: int):
+    return {
+        "fc1": linear_init(generator, d_in, d_hidden),
+        "fc2": linear_init(generator, d_hidden, d_out),
+    }
+
+
+def mlp2_apply(params, x, *, drop: float = 0.0, train: bool = False,
+               generator=None):
+    """``fc2(dropout(relu(fc1(x))))``; the caller applies the final
+    nonlinearity, which differs per use site."""
+    h = torch.relu(linear_apply(params["fc1"], x))
+    h = dropout(h, drop, train, generator)
+    return linear_apply(params["fc2"], h)

@@ -1,0 +1,175 @@
+"""Block-diagonal fusion of independent LSTM recurrences (port of
+``factorized_tpu/ops/fused.py``).
+
+k independent cells run as one recurrence over the concatenated state,
+with a gate-major layout ``[i of all cells | f | g | o]``, so one
+block-diagonal product per step serves them all. Weights stay per cell
+in the parameter tree; the packed matrices are assembled per call. The
+hoisted input projections and the output projections are plain
+``torch.matmul``; the recurrences run in the CUDA kernels of
+``ops/cuda_mfn.py`` and ``ops/cuda_lstm.py`` (their plain versions on
+the CPU).
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
+from factorized_tpu_torch.ops.lstm import lstm_step
+
+
+def blockdiag(mats: Sequence[torch.Tensor], cols: Sequence[int]):
+    """Block-diagonal assembly: block m at rows after block m-1's and
+    columns ``cols[:m]`` onwards."""
+    c_tot = sum(cols)
+    strips = []
+    c = 0
+    for m, cc in zip(mats, cols):
+        strips.append(F.pad(m, (c, c_tot - c - cc)))
+        c += cc
+    return torch.cat(strips, dim=0)
+
+
+def gate_major_blockdiag(mats: Sequence[torch.Tensor],
+                         h_dims: Sequence[int]):
+    """Per-cell (d_i, 4*h_i) weights -> (sum_d, 4*sum_h) block-diagonal
+    with gate-major columns."""
+    h_tot = sum(h_dims)
+    strips = []
+    col = 0
+    for m, h in zip(mats, h_dims):
+        gates = [F.pad(m[:, g * h:(g + 1) * h], (col, h_tot - col - h))
+                 for g in range(4)]
+        strips.append(torch.cat(gates, dim=1))
+        col += h
+    return torch.cat(strips, dim=0)
+
+
+def gate_major_bias(biases: Sequence[torch.Tensor], h_dims: Sequence[int]):
+    parts = []
+    for g in range(4):
+        parts.extend(b[g * h:(g + 1) * h] for b, h in zip(biases, h_dims))
+    return torch.cat(parts)
+
+
+def repack_gate_major(xprojs: Sequence[torch.Tensor],
+                      h_dims: Sequence[int]):
+    """Per-cell projections (t, n, 4*h_i) -> (t, n, 4*sum_h) gate-major."""
+    parts = []
+    for g in range(4):
+        parts.extend(xp[..., g * h:(g + 1) * h]
+                     for xp, h in zip(xprojs, h_dims))
+    return torch.cat(parts, dim=-1)
+
+
+def hoist_xproj(cell, x):
+    t, n, d = x.shape
+    h4 = cell["wx"].shape[1]
+    return (x.reshape(t * n, d) @ cell["wx"]).reshape(t, n, h4) + cell["b"]
+
+
+def split_heads(h_cat, h_dims: Sequence[int]) -> List[torch.Tensor]:
+    outs = []
+    o = 0
+    for h in h_dims:
+        outs.append(h_cat[..., o:o + h])
+        o += h
+    return outs
+
+
+def decoder_operands(dec_params: Sequence[dict],
+                     hTs: Sequence[torch.Tensor]):
+    """What the decoder kernel takes: the state after the latent-driven
+    step 0, and the packed recurrence. Returns (h0, c0, wsum, b, h_dims)
+    with wsum = wx + wh block-diagonal, gate-major, and b (1, 4H)."""
+    cells = [p["lstm"] for p in dec_params]
+    h_dims = [c["wh"].shape[0] for c in cells]
+    n = hTs[0].shape[0]
+    # step 0: input hT, state 0 — the h @ wh term vanishes
+    wx_bd = gate_major_blockdiag([c["wx"] for c in cells], h_dims)
+    b_cat = gate_major_bias([c["b"] for c in cells], h_dims)
+    hT_cat = torch.cat(list(hTs), dim=1)
+    h0, c0 = lstm_step(hT_cat.new_zeros((n, sum(h_dims))),
+                       hT_cat @ wx_bd + b_cat)
+    # steps >= 1: input == previous hidden -> one (wx + wh) product
+    wsum = gate_major_blockdiag([c["wx"] + c["wh"] for c in cells], h_dims)
+    return (h0.contiguous(), c0.contiguous(), wsum, b_cat.reshape(1, -1),
+            h_dims)
+
+
+def fused_decoder_scan(dec_params: Sequence[dict],
+                       hTs: Sequence[torch.Tensor], t: int):
+    """k autoregressive decoders as one recurrence plus one block output
+    projection. dec_params: [{'lstm': cell, 'fc1': linear}]; hTs: the
+    (n, h_i) latents. Returns the (t, n, d_i) reconstructions."""
+    h0, c0, wsum, b, h_dims = decoder_operands(dec_params, hTs)
+    n, h_tot = h0.shape
+    if t > 1:
+        all_h = cuda_lstm.decoder_lstm(h0, c0, wsum, b, t, h_dims)
+    else:
+        all_h = h0[None]
+
+    d_dims = [p["fc1"]["w"].shape[1] for p in dec_params]
+    w_out = blockdiag([p["fc1"]["w"] for p in dec_params], d_dims)
+    b_out = torch.cat([p["fc1"]["b"] for p in dec_params])
+    recon = (all_h.reshape(t * n, h_tot) @ w_out + b_out).reshape(
+        t, n, sum(d_dims))
+    return split_heads(recon, d_dims)
+
+
+def encode_operands(enc_cells, mfn_params, x_l, x_a, x_v):
+    """What the encode kernel takes. The fused carry is ordered [enc_l,
+    enc_a, enc_v, mfn_l, mfn_a, mfn_v], so the MFN's cStar is the
+    ``[:, z_tot:]`` slice of the fused cell state. Returns (xp, weights,
+    z_tot, h_dims): the gate-major input projections (t, n, 4H) and the
+    packed weights of ``cuda_mfn.W_NAMES``."""
+    mfn_cells = [mfn_params["lstm_l"], mfn_params["lstm_a"],
+                 mfn_params["lstm_v"]]
+    cells = list(enc_cells) + mfn_cells
+    xs = [x_l, x_a, x_v, x_l, x_a, x_v]
+    h_dims = [c["wh"].shape[0] for c in cells]
+    xp = repack_gate_major(
+        [hoist_xproj(c, x) for c, x in zip(cells, xs)], h_dims)
+
+    def b2(p):
+        return p["b"].reshape(1, -1)
+
+    att1, att2 = mfn_params["att1"], mfn_params["att2"]
+    gam1, gam2 = mfn_params["gamma1"], mfn_params["gamma2"]
+    weights = {
+        "wh": gate_major_blockdiag([c["wh"] for c in cells], h_dims),
+        "a1w1": att1["fc1"]["w"], "a1b1": b2(att1["fc1"]),
+        "a1w2": att1["fc2"]["w"], "a1b2": b2(att1["fc2"]),
+        "a2w1": att2["fc1"]["w"], "a2b1": b2(att2["fc1"]),
+        "a2w2": att2["fc2"]["w"], "a2b2": b2(att2["fc2"]),
+        # gamma1 and gamma2 share their input: fc1s side by side
+        "gw1": torch.cat([gam1["fc1"]["w"], gam2["fc1"]["w"]], dim=1),
+        "gb1": torch.cat([b2(gam1["fc1"]), b2(gam2["fc1"])], dim=1),
+        "g1w2": gam1["fc2"]["w"], "g1b2": b2(gam1["fc2"]),
+        "g2w2": gam2["fc2"]["w"], "g2b2": b2(gam2["fc2"]),
+    }
+    weights = {k: v.contiguous() for k, v in weights.items()}
+    return xp, weights, sum(h_dims[:3]), h_dims
+
+
+def fused_mfm_encode(enc_cells, mfn_params, x_l, x_a, x_v, *, mem_dim,
+                     drops, train=False):
+    """The whole MFM encode stage — the 3 unimodal encoder LSTMs, the
+    MFN's 3 modality LSTMs and the delta-memory attention — as one
+    recurrence, eval mode, where every dropout site (``drops``) is the
+    identity. Returns ([enc_h_l, enc_h_a, enc_h_v], mfn_last_hs)."""
+    if train:
+        raise NotImplementedError(
+            "train-mode fused encode (dropout masks and the backward "
+            "kernel) belongs to the training slice, not yet ported")
+    xp, weights, z_tot, h_dims = encode_operands(enc_cells, mfn_params,
+                                                 x_l, x_a, x_v)
+    h_last, mem = cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims)
+    if mem.shape[1] != mem_dim:
+        raise ValueError(f"memory width {mem.shape[1]} != mem_dim {mem_dim}")
+    enc_hs = split_heads(h_last[:, :z_tot], h_dims[:3])
+    return enc_hs, torch.cat([h_last[:, z_tot:], mem], dim=1)

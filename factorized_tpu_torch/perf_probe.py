@@ -1,0 +1,126 @@
+"""Measurements of the port on a CUDA card, for PERF.md.
+
+Run from the repository root on the card:
+``python -m factorized_tpu_torch.perf_probe``. Prints JSON lines:
+
+- ``tile``: each kernel's mean time (CUDA events, 50 launches after
+  warm-up) at the serving shapes (n = 256, t = 20,
+  ``best_acc_mosi_config``) for each batch-row tile and block size the
+  launchers take, so that the defaults in ``ops/cuda_mfn.py`` and
+  ``ops/cuda_lstm.py`` are chosen from a measurement;
+- ``profile``: ``torch.profiler`` over 20 padded 256-row ``predict``
+  calls: wall time, the device time summed over kernels, the share of
+  the wall in which the device was idle, and the largest kernels;
+- ``card``: the ``nvidia-smi`` name and power limit.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from factorized_tpu_torch.config import best_acc_mosi_config
+from factorized_tpu_torch.models import mfm
+from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
+from factorized_tpu_torch.serve import Predictor
+
+N = 256
+
+
+def _ms(fn, reps=50):
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def sweep(cfg, params, dev):
+    x = torch.randn((cfg.seqlength, N, cfg.d_total),
+                    generator=torch.Generator().manual_seed(1)).to(dev)
+    (xp, weights, z_tot, h_dims), (h0, c0, wsum, b, dec_dims) = \
+        mfm.kernel_operands(params, x, cfg)
+    t = cfg.seqlength
+    # block sizes up to the launchers' limit of 512 threads
+    runs = (
+        ("mfm_encode_fwd", cuda_mfn, (128, 256, 512),
+         lambda: cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims)),
+        ("decoder_lstm_fwd", cuda_lstm, (64, 128, 160, 256, 512),
+         lambda: cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b, t, dec_dims)),
+    )
+    for name, module, block_sizes, call in runs:
+        default = (module.ROWS, module.THREADS)
+        try:
+            for rows in (1, 2, 4, 8, 16):
+                for threads in block_sizes:
+                    module.ROWS, module.THREADS = rows, threads
+                    print(json.dumps({
+                        "tile": name, "rows": rows, "threads": threads,
+                        "blocks": -(-N // rows), "ms": _ms(call),
+                        "default": (rows, threads) == default}), flush=True)
+        finally:
+            module.ROWS, module.THREADS = default
+
+
+def profile(cfg, params):
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    predictor = Predictor(cfg, params, batch_size=N)
+    X = np.random.default_rng(0).normal(
+        size=(N, cfg.seqlength, cfg.d_total)).astype(np.float32)
+    for _ in range(3):
+        predictor.predict(X)
+    torch.cuda.synchronize()
+    reps = 20
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            predictor.predict(X)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    # device_time_total sums over calls, in microseconds
+    device_ms = sum(e.device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
+    print(json.dumps({
+        "profile": "predict", "batch": N, "calls": reps,
+        "wall_ms_per_call": wall_ms / reps,
+        "device_ms_per_call": device_ms / reps,
+        "device_idle_share": 1.0 - device_ms / wall_ms,
+        "kernel_launches_per_call": sum(e.count for e in kernels) / reps,
+        "top": [{"name": e.key[:60], "count_per_call": e.count / reps,
+                 "ms_per_call": e.device_time_total / 1e3 / reps}
+                for e in top]}), flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("perf_probe needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(json.dumps({"card": smi.splitlines()[0]}), flush=True)
+    cfg = best_acc_mosi_config()
+    params = mfm.MFM(cfg, seed=0, device="cuda").tree()
+    with torch.inference_mode():
+        sweep(cfg, params, torch.device("cuda"))
+    profile(cfg, params)
+
+
+if __name__ == "__main__":
+    main()
