@@ -17,8 +17,18 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    checks that the serving run launched every kernel;
 5. times each kernel and its plain version with CUDA events, and one
    padded 256-row ``predict`` with its stages;
-6. prints one JSON line on the kernels, the ``nvidia-smi`` line, and last
-   ``{"ok": true, "device": {...}}``.
+6. holds the training kernels (the encode forward with dropout masks and
+   residuals, the encode backward and its weight-gradient reduction, the
+   decoder backward) against their plain versions at the training shapes
+   (n = 32), gradients within rtol 1e-3 / atol 2e-5 (sums over t * n
+   rows in another order), and one train step's gradients on the card
+   against the plain path on the CPU with the same injected draws;
+7. trains MFM for 2 epochs on the synthetic MOSI set through
+   ``trainers.train_mfm``, checks finite, falling train loss and that the
+   run launched every kernel, then times a train step, an epoch, the
+   training kernels and their plain versions, and profiles the step;
+8. prints one JSON line on the five kernels, the ``nvidia-smi`` line, and
+   last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1.
 """
@@ -36,8 +46,11 @@ import numpy as np
 import torch
 
 RTOL, ATOL = 1e-4, 1e-5
+GRAD_RTOL, GRAD_ATOL = 1e-3, 2e-5
 SEED = 0
 N_SERVE = 256
+N_TRAIN = 32
+TRAIN_EPOCHS = 2
 REQUEST_SIZES = (1, 3, 17, 64, 100, 256, 257, 300, 5, 40)
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # and HBM3 bandwidth
@@ -49,17 +62,23 @@ def log(obj):
     print(json.dumps(obj), flush=True)
 
 
-def compare(name, got, want):
-    """Max errors of got against want; raises past RTOL/ATOL."""
+def compare(name, got, want, rtol=RTOL, atol=ATOL):
+    """Max errors of got against want; raises past rtol/atol."""
     diff = (got - want).abs()
     out = {
         "max_abs_err": float(diff.max()),
         "max_rel_err": float((diff / want.abs().clamp_min(1e-3)).max()),
-        "tol_ratio": float((diff / (ATOL + RTOL * want.abs())).max()),
+        "tol_ratio": float((diff / (atol + rtol * want.abs())).max()),
     }
     log({"check": name, **out})
-    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
     return out
+
+
+def compare_all(name, pairs, rtol=RTOL, atol=ATOL):
+    """compare() over (label, got, want) triples; the worst by abs err."""
+    return max((compare(f"{name}.{label}", g, w, rtol, atol)
+                for label, g, w in pairs), key=lambda e: e["max_abs_err"])
 
 
 def cuda_ms(fn, reps, warmup=3):
@@ -250,16 +269,11 @@ def main():
     # diagonal blocks of the recurrent weights) and each input read once,
     # each output written once
     n = N_SERVE
-    s1, s2, s3, s4, mem = cuda_mfn._sizes(weights)
-    m2 = 2 * (sum(h_dims) - z_tot)
-    enc_macs = t * n * (4 * sum(h * h for h in h_dims)
-                        + m2 * s1 + s1 * m2 + m2 * s2 + s2 * mem
-                        + (m2 + mem) * (s3 + s4) + (s3 + s4) * mem)
-    enc_bound = bound(2 * enc_macs, nbytes(xp, *weights.values(), h_last,
-                                           mem_last))
+    enc_bound = bound(2 * t * n * encode_macs_per_row(weights, h_dims, z_tot),
+                      nbytes(xp, *weights.values(), h_last, mem_last))
     dec_macs = (t - 1) * n * 4 * sum(h * h for h in dec_dims)
     dec_bound = bound(2 * dec_macs, nbytes(h0, c0, wsum, b, *outs))
-    kernels = [
+    serve_kernels = [
         {"name": "mfm_encode_fwd", "route": "cuda",
          "source": "factorized_tpu_torch/csrc/mfm_encode_fwd.cu",
          "replaces": "factorized_tpu/ops/pallas_mfn.py:169",
@@ -275,11 +289,254 @@ def main():
          "plain_ms": dec_plain_ms, "bound_ms": dec_bound[0],
          "bound_by": dec_bound[1], "library_ms": None},
     ]
-    log({"kernels": kernels})
+
+    train_kernels = train_phase(cfg, dev, smi)
+    log({"kernels": serve_kernels + train_kernels})
     print(smi, flush=True)
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                 "count": torch.cuda.device_count()}})
     return 0
+
+
+def encode_macs_per_row(weights, h_dims, z_tot):
+    """Multiply-adds of one step of one row of the encode forward."""
+    from factorized_tpu_torch.ops import cuda_mfn
+
+    s1, s2, s3, s4, mem = cuda_mfn.sizes(weights)
+    m2 = 2 * (sum(h_dims) - z_tot)
+    return (4 * sum(h * h for h in h_dims) + m2 * s1 + s1 * m2 + m2 * s2
+            + s2 * mem + (m2 + mem) * (s3 + s4) + (s3 + s4) * mem)
+
+
+def train_phase(cfg, dev, smi):
+    """Steps 6 and 7; returns the kernels-line entries of the three
+    training kernels."""
+    from factorized_tpu_torch.convert import from_state_dict, to_state_dict
+    from factorized_tpu_torch.data import mosi
+    from factorized_tpu_torch.models import mfm
+    from factorized_tpu_torch.models.common import mfn_drops
+    from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
+    from factorized_tpu_torch.train import TrainProgram, make_optimizer
+    from factorized_tpu_torch.trainers import train_mfm
+    from factorized_tpu_torch.utils.logging import RunLogger
+
+    t, n = cfg.seqlength, N_TRAIN
+    params = mfm.MFM(cfg, seed=SEED + 2, device=dev).tree()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    x = torch.randn((t, n, cfg.d_total), generator=gen, device=dev)
+    y = torch.randn((n,), generator=gen, device=dev)
+
+    # ---- 6a. each training kernel against its plain version, n = 32
+    with torch.inference_mode():
+        (xp, weights, z_tot, h_dims), (h0, c0, wsum, b, dec_dims) = \
+            mfm.kernel_operands(params, x, cfg)
+        masks = cuda_mfn.make_dropout_masks(
+            gen, t, n, cuda_mfn.sizes(weights)[:4], mfn_drops(cfg))
+        fwd = cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims)
+        fwd_ref = cuda_mfn.mfm_encode_res_plain(xp, masks, weights, z_tot)
+        torch.cuda.synchronize()
+        err_fwd = compare_all(
+            "mfm_encode_fwd.train",
+            zip(("h_last", "mem_last", "allh", "allc", "allmem", "res"),
+                fwd, fwd_ref))
+        res = fwd_ref[2:]  # the backward kernels read the plain residuals
+        dh = torch.randn((n, sum(h_dims)), generator=gen, device=dev)
+        dmem = torch.randn((n, weights["a2w2"].shape[1]), generator=gen,
+                           device=dev)
+        dxp, deltas = cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem,
+                                           z_tot, h_dims)
+        dxp_ref, deltas_ref = cuda_mfn.mfm_encode_bwd_steps_plain(
+            xp, weights, *res, dh, dmem, z_tot)
+        torch.cuda.synchronize()
+        err_bwd = compare_all("mfm_encode_bwd",
+                              [("dxp", dxp, dxp_ref),
+                               ("deltas", deltas, deltas_ref)],
+                              GRAD_RTOL, GRAD_ATOL)
+        dw = cuda_mfn._launch_dw(weights, res[1], res[2], res[3], deltas_ref,
+                                 z_tot)
+        dw_ref = cuda_mfn.mfm_encode_dw_plain(res[1], res[2], res[3],
+                                              deltas_ref, weights, z_tot)
+        torch.cuda.synchronize()
+        err_dw = compare_all("mfm_encode_dw",
+                             [(k, dw[k], dw_ref[k])
+                              for k in cuda_mfn.DW_NAMES],
+                             GRAD_RTOL, GRAD_ATOL)
+        allh, allc, gates = cuda_lstm.decoder_lstm_plain(h0, c0, wsum, b, t)
+        dallh = torch.randn(allh.shape, generator=gen, device=dev)
+        dec = cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh, dec_dims)
+        dec_ref = cuda_lstm.decoder_lstm_bwd_plain(wsum, gates, allc, dallh)
+        torch.cuda.synchronize()
+        err_decb = compare_all("decoder_lstm_bwd",
+                               zip(("dgates", "dh0", "dc0"), dec, dec_ref),
+                               GRAD_RTOL, GRAD_ATOL)
+
+    # ---- 6b. one train step's gradients: card against the CPU's plain
+    #      path, the same parameters, batch and injected draws
+    cpu = torch.Generator().manual_seed(SEED + 4)
+    draws = {
+        "encode_masks": cuda_mfn.make_dropout_masks(
+            cpu, t, n, cuda_mfn.sizes(weights)[:4], mfn_drops(cfg)),
+        "mmd_noise": torch.randn(mfm.mmd_noise_shape(cfg, n), generator=cpu),
+        "zf_masks": [None] + [
+            (torch.rand((n, f), generator=cpu) >= r).float() / (1.0 - r)
+            for f, r in ((cfg.fl_size, cfg.zl_to_fl_dropout),
+                         (cfg.fa_size, cfg.za_to_fa_dropout),
+                         (cfg.fv_size, cfg.zv_to_fv_dropout))],
+    }
+    program = TrainProgram(mfm.mfm_apply, cfg)
+    grads = {}
+    for where in ("cpu", dev):
+        flat = {k: v.detach().to(where).requires_grad_()
+                for k, v in to_state_dict(params).items()}
+        loss, _ = program.loss_fn(
+            from_state_dict(flat), x.to(where), y.to(where),
+            draws={k: ([m if m is None else m.to(where) for m in v]
+                       if isinstance(v, list) else v.to(where))
+                   for k, v in draws.items()})
+        loss.backward()
+        grads[str(where)] = {k: v.grad.cpu() for k, v in flat.items()}
+    compare_all("train_step_grads_vs_cpu",
+                [(k, grads[str(dev)][k], grads["cpu"][k])
+                 for k in grads["cpu"]], GRAD_RTOL, GRAD_ATOL)
+
+    # ---- 7a. the training path: 2 epochs of synthetic MOSI through the
+    #      trainer, every kernel's count read just after
+    data = mosi.get_data(cfg.seqlength)
+    counted = {"mfm_encode_fwd": (cuda_mfn, "LAUNCHES"),
+               "mfm_encode_bwd": (cuda_mfn, "BWD_LAUNCHES"),
+               "mfm_encode_dw": (cuda_mfn, "DW_LAUNCHES"),
+               "decoder_lstm_fwd": (cuda_lstm, "LAUNCHES"),
+               "decoder_lstm_bwd": (cuda_lstm, "BWD_LAUNCHES")}
+    for module, attr in counted.values():
+        setattr(module, attr, 0)
+    t0 = time.perf_counter()
+    run = train_mfm(*data, cfg.replace(num_epochs=TRAIN_EPOCHS), seed=SEED,
+                    logger=RunLogger(echo=False), device=dev)
+    train_s = time.perf_counter() - t0
+    launches = {k: getattr(m, a) for k, (m, a) in counted.items()}
+    losses = [e["train_loss"] for e in run["history"]]
+    log({"phase": "train", "epochs": TRAIN_EPOCHS, "seconds": train_s,
+         "history": run["history"], "metrics": run["metrics"],
+         "launches": launches})
+    if len(losses) != TRAIN_EPOCHS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"training did not run clean: {run['history']}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train loss did not fall: {losses}")
+    if not np.all(np.isfinite(list(run["metrics"].values()))):
+        raise AssertionError(f"non-finite test metrics {run['metrics']}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"{name} was not launched while training")
+
+    # ---- 7b. times: a step, an epoch, each training kernel and its plain
+    #      version
+    Xb = torch.from_numpy(np.ascontiguousarray(
+        data[0][:19 * n].reshape(19, n, t, -1).transpose(0, 2, 1, 3))).to(dev)
+    yb = torch.from_numpy(data[1][:19 * n].reshape(19, n)).to(dev)
+    tree = mfm.MFM(cfg, seed=SEED, device=dev).tree()
+    opt = make_optimizer(tree, 1e-3)
+    step_ms = cuda_ms(lambda: program.step(tree, opt, Xb[0], yb[0], gen,
+                                           1e-3), 30)
+    epoch_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        program.run_epoch(tree, opt, Xb, yb, gen, 1e-3)
+        epoch_s.append(time.perf_counter() - t0)
+    prof = profile_steps(program, tree, opt, Xb[0], yb[0], gen)
+    log({"phase": "train_times", "batch": n, "nvidia_smi": smi,
+         "step_ms": step_ms, "steps_per_s": 1e3 / step_ms,
+         "epoch_s": float(np.median(epoch_s)), "epoch_batches": 19, **prof})
+
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: cuda_mfn.mfm_encode_res(
+            xp, masks, weights, z_tot, h_dims), 50)
+        fwd_plain_ms = cuda_ms(lambda: cuda_mfn.mfm_encode_res_plain(
+            xp, masks, weights, z_tot), 10)
+        bwd_ms = cuda_ms(lambda: cuda_mfn._launch_bwd(
+            xp, weights, *res, dh, dmem, z_tot, h_dims), 50)
+        bwd_plain_ms = cuda_ms(lambda: cuda_mfn.mfm_encode_bwd_steps_plain(
+            xp, weights, *res, dh, dmem, z_tot), 10)
+        dw_ms = cuda_ms(lambda: cuda_mfn._launch_dw(
+            weights, res[1], res[2], res[3], deltas_ref, z_tot), 50)
+        dw_plain_ms = cuda_ms(lambda: cuda_mfn.mfm_encode_dw_plain(
+            res[1], res[2], res[3], deltas_ref, weights, z_tot), 10)
+        decb_ms = cuda_ms(lambda: cuda_lstm.decoder_lstm_bwd(
+            wsum, gates, allc, dallh, dec_dims), 50)
+        decb_plain_ms = cuda_ms(lambda: cuda_lstm.decoder_lstm_bwd_plain(
+            wsum, gates, allc, dallh), 10)
+
+    # bounds from this run's shapes, as for the forward kernels
+    rows = t * n
+    s1, s2, s3, s4, mem = cuda_mfn.sizes(weights)
+    m2 = 2 * (sum(h_dims) - z_tot)
+    recur = 4 * sum(h * h for h in h_dims)
+    fwd_bound = bound(2 * rows * encode_macs_per_row(weights, h_dims, z_tot),
+                      nbytes(xp, masks, *weights.values(), *fwd))
+    bwd_macs = rows * (2 * recur + (s3 + s4) * mem + s2 * mem
+                       + (m2 + mem) * (s3 + s4) + m2 * s2 + 2 * s1 * m2)
+    used = ("wh", "a1w1", "a1w2", "a2w1", "a2w2", "gw1", "g1w2", "g2w2")
+    bwd_bound = bound(2 * bwd_macs, nbytes(
+        xp, *res, dh, dmem, *[weights[k] for k in used], dxp, deltas))
+    dw_macs = rows * sum(g.numel() for g in dw.values())
+    dw_bound = bound(2 * dw_macs, nbytes(res[1], res[2], res[3], deltas_ref,
+                                         *dw.values()))
+    decb_macs = (t - 1) * n * 4 * sum(h * h for h in dec_dims)
+    decb_bound = bound(2 * decb_macs, nbytes(gates, allc, dallh, wsum, *dec))
+    log({"phase": "train_kernels", "batch": n, "nvidia_smi": smi,
+         "mfm_encode_fwd_train": {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
+                                  "bound_ms": fwd_bound[0],
+                                  "bound_by": fwd_bound[1],
+                                  "max_abs_err": err_fwd["max_abs_err"],
+                                  "launches": launches["mfm_encode_fwd"]}})
+
+    def entry(name, source, replaces, err, ms, plain_ms, bnd):
+        return {"name": name, "route": "cuda",
+                "source": f"factorized_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": err["max_abs_err"], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": None}
+
+    return [
+        entry("mfm_encode_bwd", "mfm_encode_bwd.cu",
+              "factorized_tpu/ops/pallas_mfn.py:269", err_bwd, bwd_ms,
+              bwd_plain_ms, bwd_bound),
+        entry("mfm_encode_dw", "mfm_encode_bwd.cu",
+              "factorized_tpu/ops/pallas_mfn.py:269", err_dw, dw_ms,
+              dw_plain_ms, dw_bound),
+        entry("decoder_lstm_bwd", "decoder_lstm_bwd.cu",
+              "factorized_tpu/ops/pallas_lstm.py:298", err_decb, decb_ms,
+              decb_plain_ms, decb_bound),
+    ]
+
+
+def profile_steps(program, tree, opt, x, y, gen, steps=10):
+    """torch.profiler over train steps: launches per step, device time,
+    and the share of the wall in which the device was idle."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        program.step(tree, opt, x, y, gen, 1e-3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            program.step(tree, opt, x, y, gen, 1e-3)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
+    return {"profiled_steps": steps,
+            "profiled_wall_ms_per_step": wall_ms / steps,
+            "device_ms_per_step": device_ms / steps,
+            "device_idle_share": 1.0 - device_ms / wall_ms,
+            "kernel_launches_per_step": sum(e.count for e in kernels) / steps,
+            "top": [{"name": e.key[:60], "count_per_step": e.count / steps,
+                     "ms_per_step": e.device_time_total / 1e3 / steps}
+                    for e in top]}
 
 
 if __name__ == "__main__":

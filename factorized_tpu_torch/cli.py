@@ -1,12 +1,77 @@
-"""Command line of the port: ``python -m factorized_tpu_torch serve``.
+"""Command line of the port: ``python -m factorized_tpu_torch mosi`` and
+``python -m factorized_tpu_torch serve``.
 
-Only the ``serve`` subcommand is ported (``factorized_tpu/cli.py``'s
-``run_serve``, from a checkpoint of this package).
+Ported subcommands: ``mosi`` with ``--type mfm`` (``factorized_tpu/cli.py``'s
+``run_dataset`` for MOSI, modes ``best`` and ``single``, on the synthetic
+MOSI set) and ``serve`` (``run_serve``, from a checkpoint of this
+package). Both run on the CUDA card unless ``--device`` says otherwise.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+
+# MOSI's task and binary threshold (factorized_tpu/cli.py DATASETS)
+MOSI = dict(task="regression", threshold=0.0, mode="ge",
+            input_dims=[300, 5, 20], output_dim=1)
+
+
+def mosi_config(args):
+    """The configuration of a ``mosi`` run: ``best_acc_mosi_config`` in
+    ``--mode best``, the ``MFMConfig`` defaults in ``--mode single``,
+    with ``--epochs`` and ``--batchsize`` applied."""
+    from factorized_tpu_torch.config import MFMConfig, best_acc_mosi_config
+
+    if args.type != "mfm" or args.missing or args.zeros:
+        raise SystemExit(
+            f"--type {args.type} --missing {args.missing} --zeros "
+            f"{args.zeros} is not yet ported; the port trains --type mfm")
+    if args.mode == "best":
+        cfg = best_acc_mosi_config(model_type=args.type, missing=0, zeros=0)
+        cfg = cfg.replace(input_dims=MOSI["input_dims"])
+    else:
+        cfg = MFMConfig(seqlength=20).replace(
+            model_type=args.type, missing=0, zeros=0,
+            input_dims=MOSI["input_dims"], output_dim=MOSI["output_dim"],
+            task=MOSI["task"])
+    if args.epochs:
+        cfg = cfg.replace(num_epochs=args.epochs)
+    if args.batchsize:
+        cfg = cfg.replace(batchsize=args.batchsize)
+    return cfg
+
+
+def load_mosi(seqlength):
+    from factorized_tpu_torch.data import mosi
+
+    return mosi.get_data(seqlength)
+
+
+def run_mosi(args):
+    from factorized_tpu_torch import resolve_device
+    from factorized_tpu_torch.trainers import train_mfm
+    from factorized_tpu_torch.utils.checkpoint import save_checkpoint
+    from factorized_tpu_torch.utils.logging import RunLogger
+
+    cfg = mosi_config(args)
+    device = resolve_device(args.device)
+    data = load_mosi(cfg.seqlength)
+    logger = RunLogger(args.out, run_id="mosi_0")
+    logger.text(json.dumps(cfg.to_dict()))
+    logger.record("config", **cfg.to_dict())
+    try:
+        res = train_mfm(*data, cfg, lr=args.lr, logger=logger,
+                        seed=args.seed, binary_threshold=MOSI["threshold"],
+                        threshold_mode=MOSI["mode"], device=device)
+        if args.save_ckpt:
+            path = f"{args.out}/ckpt_mosi_0"
+            save_checkpoint(path, res["params"], opt_state=res["opt_state"],
+                            step=res["step"], config=cfg.to_dict())
+            logger.text(f"checkpoint saved to {path}")
+    finally:
+        logger.close()
+    return 0
 
 
 def run_serve(args):
@@ -22,6 +87,29 @@ def run_serve(args):
 def build_parser():
     p = argparse.ArgumentParser(prog="factorized_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
+    sp = sub.add_parser("mosi", help="train MFM on (synthetic) CMU-MOSI")
+    sp.add_argument("--type", default="mfm",
+                    help="model type; only mfm is ported")
+    sp.add_argument("--mode", default="single", choices=["best", "single"],
+                    help="best: best_acc_mosi_config; single: the "
+                         "MFMConfig defaults")
+    sp.add_argument("--missing", type=int, default=0)
+    sp.add_argument("--zeros", type=int, default=0)
+    sp.add_argument("--epochs", type=int, default=None)
+    sp.add_argument("--batchsize", type=int, default=None)
+    sp.add_argument("--lr", type=float, default=None,
+                    help="Adam lr (default 1e-3, torch's)")
+    sp.add_argument("--seed", type=int, default=123)
+    sp.add_argument("--out", default="runs",
+                    help="directory of the JSONL log and the checkpoint")
+    sp.add_argument("--save-ckpt", action="store_true",
+                    help="save the best parameters and the optimizer "
+                         "state under <out>/ckpt_mosi_0")
+    sp.add_argument("--device", default=None,
+                    help="torch device; the CUDA card unless given "
+                         "(e.g. --device cpu)")
+    sp.set_defaults(func=run_mosi)
+
     sp = sub.add_parser("serve", help="JSON-over-HTTP inference endpoint")
     sp.add_argument("--checkpoint", required=True,
                     help="directory written by utils.checkpoint."

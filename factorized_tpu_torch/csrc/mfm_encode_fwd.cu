@@ -1,7 +1,9 @@
-// Fused MFM encode, forward, eval mode.
+// Fused MFM encode, forward, eval and train.
 //
 // Replaces: factorized_tpu/ops/pallas_mfn.py::_fwd_kernel (reached through
-// _fwd_call and mfm_encode_pallas with train=False, with_res=False).
+// _fwd_call, mfm_encode_pallas and its custom_vjp forward _encode_fwd):
+// the eval variant (train=False, with_res=False) and the train variants
+// (dropout masks; with_res, the residuals the backward reads).
 //
 // What it computes, for each of the t steps of a (t, n, 4H) gate-major
 // input projection xp: the six fused LSTM cells [enc_l, enc_a, enc_v,
@@ -10,6 +12,12 @@
 // softmax over cStar; attended = att * cStar; the att2 tanh proposal chat;
 // the merged gamma fc1 on [attended, mem] with two sigmoid heads; and
 // mem = g1 * mem + g2 * chat. It returns h_last (n, H) and mem_last (n, mem).
+// In train mode the relu outputs of the att1, att2 and gamma fc1s are
+// multiplied by the scaled keep-masks (t, n, s1 + s2 + s3 + s4), and with
+// residuals it also writes allh, allc (t, n, H), allmem (t, n, mem) and one
+// (t, n, R) buffer in the JAX package's _RES_NAMES layout: att, r1, kg1,
+// r2, kg2, r3, kg3, chat, g1, g2, with r* the post-dropout activations and
+// kg* = mask * (u > 0).
 //
 // What bounds it on an H100: operations. At the serving batch (n = 256,
 // t = 20, best_acc_mosi_config) the useful work is 3.9 GFLOP in float32
@@ -17,7 +25,10 @@
 // against about 29 MB of traffic, most of it xp; at 67 TFLOP/s of float32
 // outside the tensor cores that is about 59 us. In practice the bound is
 // the serial chain: every step is seven dependent small products, and
-// only n / ROWS blocks have work.
+// only n / ROWS blocks have work. At the training batch (n = 32) the
+// residuals add t * n * (2H + mem + R) floats of writes, 5.9 MB, under
+// 2 us of bandwidth; the bound stays the operations (0.49 GFLOP, about
+// 7 us) and the practice the serial chain, now over 32 / ROWS blocks.
 //
 // What the design does about it: one block owns ROWS batch rows and loops
 // over the t steps itself (blocks run in no order, so the TPU kernel's
@@ -40,7 +51,8 @@ namespace {
 constexpr int kMaxThreads = 512;
 
 struct EncodeArgs {
-  const float* xp;  // (t, n, 4H)
+  const float* xp;     // (t, n, 4H)
+  const float* masks;  // (t, n, S) or null: every site the identity
   const float* wh;  // (H, 4H)
   const float* a1w1;
   const float* a1b1;
@@ -58,11 +70,37 @@ struct EncodeArgs {
   const float* g2b2;
   float* h_last;    // (n, H)
   float* mem_last;  // (n, mem)
+  float* allh;      // (t, n, H), or null when no residuals are written
+  float* allc;      // (t, n, H)
+  float* allmem;    // (t, n, mem)
+  float* res;       // (t, n, R)
   int t, n, H, z_tot, mem, s1, s2, s3, s4;
   Cells cells;
 };
 
-enum Act { kIdentity, kRelu, kTanh };
+// Offsets of the residual buffer's fields (the _RES_NAMES layout).
+struct ResLayout {
+  int att, r1, kg1, r2, kg2, r3, kg3, chat, g1, g2, width;
+};
+
+__device__ __forceinline__ ResLayout res_layout(const EncodeArgs& a) {
+  const int m2 = 2 * (a.H - a.z_tot), s34 = a.s3 + a.s4;
+  ResLayout l;
+  l.att = 0;
+  l.r1 = m2;
+  l.kg1 = l.r1 + a.s1;
+  l.r2 = l.kg1 + a.s1;
+  l.kg2 = l.r2 + a.s2;
+  l.r3 = l.kg2 + a.s2;
+  l.kg3 = l.r3 + s34;
+  l.chat = l.kg3 + s34;
+  l.g1 = l.chat + a.mem;
+  l.g2 = l.g1 + a.mem;
+  l.width = l.g2 + a.mem;
+  return l;
+}
+
+enum Act { kIdentity, kTanh };
 
 // acc[r] += sum_k A[k][r] * W[k][j], with A the feature-major stack of a0
 // (k0 features) over a1 (k1 features) and W row-major with ldw columns.
@@ -99,9 +137,35 @@ __device__ __forceinline__ void store_col(float* out, int j,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     float v = acc[r];
-    if (act == kRelu) v = fmaxf(v, 0.0f);
     if (act == kTanh) v = tanhf(v);
     out[j * R + r] = v;
+  }
+}
+
+// The relu of a dropout site: out[j] = relu(u) * m for each of the R rows,
+// m the row's mask at column mask_col (1 without masks); with residuals
+// also res[r_col + j] = that and res[kg_col + j] = m * (u > 0).
+template <int R>
+__device__ __forceinline__ void store_site(float* out, int j,
+                                           const float (&acc)[R],
+                                           const EncodeArgs& a, int s,
+                                           int row0, int mask_col, int r_col,
+                                           int kg_col, int res_width) {
+  const int S = a.s1 + a.s2 + a.s3 + a.s4;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int row = row0 + r;
+    const size_t at = (size_t)s * a.n + row;
+    const float u = acc[r];
+    float m = 1.0f;
+    if (a.masks != nullptr && row < a.n) m = a.masks[at * S + mask_col + j];
+    const float v = fmaxf(u, 0.0f) * m;
+    out[j * R + r] = v;
+    if (a.res != nullptr && row < a.n) {
+      float* res = a.res + at * res_width;
+      res[r_col + j] = v;
+      res[kg_col + j] = u > 0.0f ? m : 0.0f;
+    }
   }
 }
 
@@ -124,6 +188,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int row0 = blockIdx.x * R;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nthr >> 5;
+  const ResLayout lay = res_layout(a);
 
   for (int i = tid; i < (4 * H + a.mem) * R; i += nthr) smem[i] = 0.0f;
   __syncthreads();
@@ -172,8 +237,15 @@ __global__ void __launch_bounds__(kMaxThreads)
       for (int r = 0; r < R; ++r) {
         const float c = sigmoid(gf[r]) * c_old[j * R + r] +
                         sigmoid(gi[r]) * tanhf(gg[r]);
+        const float h = sigmoid(go[r]) * tanhf(c);
         c_new[j * R + r] = c;
-        h_new[j * R + r] = sigmoid(go[r]) * tanhf(c);
+        h_new[j * R + r] = h;
+        const int row = row0 + r;
+        if (a.allh != nullptr && row < a.n) {
+          const size_t at = ((size_t)s * a.n + row) * H + j;
+          a.allh[at] = h;
+          a.allc[at] = c;
+        }
       }
     }
     __syncthreads();
@@ -185,7 +257,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       float acc[R];
       fill(acc, __ldg(a.a1b1 + j));
       dot_col<R>(cs_prev, M, cs_new, M, a.a1w1, a.s1, j, acc);
-      store_col<R>(r1, j, acc, kRelu);
+      store_site<R>(r1, j, acc, a, s, row0, 0, lay.r1, lay.kg1, lay.width);
     }
     __syncthreads();
 
@@ -213,9 +285,15 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
       for (int o = 16; o > 0; o >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      const int row = row0 + r;
+      float* res = (a.res != nullptr && row < a.n)
+                       ? a.res + ((size_t)s * a.n + row) * lay.width
+                       : nullptr;
       for (int k = lane; k < M2; k += 32) {
         const float cs = k < M ? cs_prev[k * R + r] : cs_new[(k - M) * R + r];
-        att[k * R + r] = att[k * R + r] / sum * cs;
+        const float p = att[k * R + r] / sum;
+        if (res != nullptr) res[lay.att + k] = p;
+        att[k * R + r] = p * cs;
       }
     }
     __syncthreads();
@@ -226,12 +304,14 @@ __global__ void __launch_bounds__(kMaxThreads)
       if (j < a.s2) {
         fill(acc, __ldg(a.a2b1 + j));
         dot_col<R>(att, M2, nullptr, 0, a.a2w1, a.s2, j, acc);
-        store_col<R>(r2, j, acc, kRelu);
+        store_site<R>(r2, j, acc, a, s, row0, a.s1, lay.r2, lay.kg2,
+                      lay.width);
       } else {
         const int jj = j - a.s2;
         fill(acc, __ldg(a.gb1 + jj));
         dot_col<R>(att, M2, mem, a.mem, a.gw1, s34, jj, acc);
-        store_col<R>(r3, jj, acc, kRelu);
+        store_site<R>(r3, jj, acc, a, s, row0, a.s1 + a.s2, lay.r3, lay.kg3,
+                      lay.width);
       }
     }
     __syncthreads();
@@ -260,9 +340,19 @@ __global__ void __launch_bounds__(kMaxThreads)
     // (7) mem = sigmoid(g1 logits) * mem + sigmoid(g2 logits) * chat
     for (int i = tid; i < a.mem * R; i += nthr) {
       const float chat = heads[i];
-      const float q1 = heads[a.mem * R + i];
-      const float q2 = heads[2 * a.mem * R + i];
-      mem[i] = sigmoid(q1) * mem[i] + sigmoid(q2) * chat;
+      const float g1 = sigmoid(heads[a.mem * R + i]);
+      const float g2 = sigmoid(heads[2 * a.mem * R + i]);
+      const float m = g1 * mem[i] + g2 * chat;
+      mem[i] = m;
+      const int j = i / R, row = row0 + (i - j * R);
+      if (a.res != nullptr && row < a.n) {
+        const size_t at = (size_t)s * a.n + row;
+        float* res = a.res + at * lay.width;
+        res[lay.chat + j] = chat;
+        res[lay.g1 + j] = g1;
+        res[lay.g2 + j] = g2;
+        a.allmem[at * a.mem + j] = m;
+      }
     }
     __syncthreads();
     cur ^= 1;
@@ -297,21 +387,25 @@ cudaError_t launch(const EncodeArgs& a, int threads, cudaStream_t stream) {
 }  // namespace
 }  // namespace ftt
 
-// Biases are (1, d) or (d,), all arrays float32 and contiguous. cell_dims
-// (host memory) lists the n_cells fused hidden widths, summing to H; the
-// first cells up to z_tot are the encoders. rows is the batch rows per
-// block (1, 2, 4, 8 or 16), threads a multiple of 32 up to 512.
+// Biases are (1, d) or (d,), all arrays float32 and contiguous. masks is
+// (t, n, s1 + s2 + s3 + s4) or null (eval); allh, allc, allmem and res are
+// all given (residuals written) or all null. cell_dims (host memory) lists
+// the n_cells fused hidden widths, summing to H; the first cells up to
+// z_tot are the encoders. rows is the batch rows per block (1, 2, 4, 8 or
+// 16), threads a multiple of 32 up to 512.
 extern "C" int mfm_encode_fwd(
-    const float* xp, const float* wh, const float* a1w1, const float* a1b1,
-    const float* a1w2, const float* a1b2, const float* a2w1,
-    const float* a2b1, const float* a2w2, const float* a2b2,
+    const float* xp, const float* masks, const float* wh, const float* a1w1,
+    const float* a1b1, const float* a1w2, const float* a1b2,
+    const float* a2w1, const float* a2b1, const float* a2w2, const float* a2b2,
     const float* gw1, const float* gb1, const float* g1w2, const float* g1b2,
     const float* g2w2, const float* g2b2, float* h_last, float* mem_last,
-    int t, int n, int H, int z_tot, int mem, int s1, int s2, int s3, int s4,
+    float* allh, float* allc, float* allmem, float* res, int t, int n,
+    int H, int z_tot, int mem, int s1, int s2, int s3, int s4,
     int n_cells, const int* cell_dims, int rows, int threads, void* stream) {
   using namespace ftt;
   EncodeArgs a;
   a.xp = xp;
+  a.masks = masks;
   a.wh = wh;
   a.a1w1 = a1w1;
   a.a1b1 = a1b1;
@@ -329,6 +423,10 @@ extern "C" int mfm_encode_fwd(
   a.g2b2 = g2b2;
   a.h_last = h_last;
   a.mem_last = mem_last;
+  a.allh = allh;
+  a.allc = allc;
+  a.allmem = allmem;
+  a.res = res;
   a.t = t;
   a.n = n;
   a.H = H;
@@ -340,7 +438,8 @@ extern "C" int mfm_encode_fwd(
   a.s4 = s4;
   if (!make_cells(n_cells, cell_dims, H, &a.cells) || t < 1 || n < 1 ||
       z_tot < 0 || z_tot >= H || threads < 32 || threads > kMaxThreads ||
-      threads % 32 != 0)
+      threads % 32 != 0 ||
+      !((allh && allc && allmem && res) || !(allh || allc || allmem || res)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (rows) {

@@ -23,9 +23,9 @@ def zf_init(generator, z_size, f_size):
     return mlp2_init(generator, z_size, f_size, f_size)
 
 
-def zf_apply(params, z, drop, train, generator=None):
+def zf_apply(params, z, drop, train, generator=None, mask=None):
     return torch.relu(mlp2_apply(params, z, drop=drop, train=train,
-                                 generator=generator))
+                                 generator=generator, mask=mask))
 
 
 # ---- label head (fc2(drop(relu(fc1(fy))))) ------------------------------
@@ -34,9 +34,9 @@ def yhead_init(generator, fy_size, output_dim):
     return mlp2_init(generator, fy_size, fy_size, output_dim)
 
 
-def yhead_apply(params, fy, drop, train, generator=None):
+def yhead_apply(params, fy, drop, train, generator=None, mask=None):
     return mlp2_apply(params, fy, drop=drop, train=train,
-                      generator=generator)
+                      generator=generator, mask=mask)
 
 
 # ---- trios --------------------------------------------------------------
@@ -81,3 +81,9 @@ def mfn_encoder_init(generator, cfg):
 
 def mfn_drops(cfg):
     return (cfg.att1_drop, cfg.att2_drop, cfg.gamma1_drop, cfg.gamma2_drop)
+
+
+def zf_drops(cfg):
+    """The z->f dropout rates in the order zy, zl, za, zv."""
+    return (cfg.zy_to_fy_dropout, cfg.zl_to_fl_dropout,
+            cfg.za_to_fa_dropout, cfg.zv_to_fv_dropout)

@@ -1,5 +1,5 @@
 """The MFM model (port of ``factorized_tpu/models/mfm.py``, the ``mfm``
-family member, eval forward).
+family member, eval and train forward).
 
 Three unimodal encoders give zl/za/zv and the MFN gives zy, all in one
 fused encode; MMD ties the four latents to a Gaussian; the z->f MLPs
@@ -7,6 +7,11 @@ feed the three decoders on [fy, f_m] and the label head fy -> y. The
 port always takes the fused path. ``mfm_apply`` returns
 ``(decoded, mmd, 0.0)`` with ``decoded = [x_l_hat, x_a_hat, x_v_hat,
 y_hat]``.
+
+Every random draw of a train forward has an injection point, in the
+order of the JAX package's ``subkeys(key, 4)``: the encode's dropout
+masks, the MMD Gaussian, the z->f dropout masks and the y-head's. What
+is not handed in is drawn from the ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from factorized_tpu_torch import resolve_device
 from factorized_tpu_torch.models.common import (
     mfn_drops,
     mfn_encoder_init,
+    zf_drops,
     split_modalities,
     trio_decoder_init,
     trio_encoder_init,
@@ -25,7 +31,7 @@ from factorized_tpu_torch.models.common import (
     yhead_apply,
     yhead_init,
 )
-from factorized_tpu_torch.ops.core import linear_apply
+from factorized_tpu_torch.ops.core import dropout, linear_apply
 from factorized_tpu_torch.ops.fused import (blockdiag, decoder_operands,
                                             encode_operands,
                                             fused_decoder_scan,
@@ -35,9 +41,11 @@ _ENCODERS = ("encoder_l", "encoder_a", "encoder_v")
 _DECODERS = ("decoder_l", "decoder_a", "decoder_v")
 
 
-def _zf_all(params, zy, zl, za, zv):
-    """The four z->f MLPs as two block-diagonal products (eval mode: no
-    dropout)."""
+def _zf_all(params, zy, zl, za, zv, cfg=None, *, train=False,
+            generator=None, masks=None):
+    """The four z->f MLPs as two block-diagonal products; in train mode
+    each site's dropout (``zf_drops``) acts on its slice of the hidden
+    layer, with ``masks[i]`` the injected mask of site i (or None)."""
     zf = params["zf"]
     names = ("zy_to_fy", "zl_to_fl", "za_to_fa", "zv_to_fv")
     f_dims = [zf[n]["fc2"]["w"].shape[1] for n in names]
@@ -47,24 +55,34 @@ def _zf_all(params, zy, zl, za, zv):
     b2 = torch.cat([zf[n]["fc2"]["b"] for n in names])
 
     h = torch.relu(torch.cat([zy, zl, za, zv], dim=1) @ w1 + b1)
+    rates = zf_drops(cfg) if train else (0.0,) * 4
+    if any(r > 0.0 for r in rates):
+        masks = masks or (None,) * 4
+        h = torch.cat([dropout(part, rate, True, generator, m)
+                       for part, rate, m in zip(split_heads(h, f_dims),
+                                                rates, masks)], dim=1)
     return tuple(split_heads(torch.relu(h @ w2 + b2), f_dims))
 
 
-def _decode(params, fy, fl, fa, fv, t, cfg):
+def _decode(params, fy, fl, fa, fv, t, cfg, *, train=False, generator=None,
+            y_mask=None):
     dec = params["dec"]
     drives = [torch.cat([fy, f], dim=1) for f in (fl, fa, fv)]
     x_l_hat, x_a_hat, x_v_hat = fused_decoder_scan(
         [dec[k] for k in _DECODERS], drives, t)
-    y_hat = yhead_apply(params["fy_to_y"], fy, cfg.fy_to_y_dropout, False)
+    y_hat = yhead_apply(params["fy_to_y"], fy, cfg.fy_to_y_dropout, train,
+                        generator, y_mask)
     return [x_l_hat, x_a_hat, x_v_hat, y_hat]
 
 
-def _encode_stage(params, x_l, x_a, x_v, cfg):
+def _encode_stage(params, x_l, x_a, x_v, cfg, *, train=False, generator=None,
+                  masks=None):
     """zl/za/zv latents and the MFN's last_hs, from the fused encode."""
     enc = params["enc"]
     (hl, ha, hv), mfn_last = fused_mfm_encode(
         [enc[k]["lstm"] for k in _ENCODERS], params["mfn_enc"]["mfn"],
-        x_l, x_a, x_v, mem_dim=cfg.memsize, drops=mfn_drops(cfg))
+        x_l, x_a, x_v, mem_dim=cfg.memsize, drops=mfn_drops(cfg),
+        train=train, generator=generator, masks=masks)
     zl = linear_apply(enc["encoder_l"]["fc1"], hl)
     za = linear_apply(enc["encoder_a"]["fc1"], ha)
     zv = linear_apply(enc["encoder_v"]["fc1"], hv)
@@ -114,18 +132,20 @@ def mfm_init(generator, cfg):
 
 
 def mfm_apply(params, x, cfg, *, generator=None, train=False,
-              mmd_noise=None):
+              mmd_noise=None, encode_masks=None, zf_masks=None, y_mask=None):
     """x (t, n, d_total) time-major -> (decoded, mmd, 0.0).
 
-    The MMD Gaussian is drawn from ``generator`` (on x's device) unless
-    ``mmd_noise`` (see ``mmd_noise_shape``) is handed in."""
-    if train:
-        raise NotImplementedError(
-            "the train-mode forward (dropout, the backward kernels) "
-            "belongs to the training slice, not yet ported")
+    The draws, each taken from ``generator`` (on x's device) unless
+    handed in: ``encode_masks`` (t, n, att1 + att2 + gamma1 + gamma2
+    widths, see ``cuda_mfn.make_dropout_masks``), ``mmd_noise`` (see
+    ``mmd_noise_shape``), ``zf_masks`` (four scaled keep-masks (n, f_i)
+    or None, order zy, zl, za, zv) and ``y_mask`` (n, fy). Only
+    ``mmd_noise`` is drawn in eval mode."""
     t = x.shape[0]
     x_l, x_a, x_v = split_modalities(x, cfg.input_dims)
-    zl, za, zv, mfn_last = _encode_stage(params, x_l, x_a, x_v, cfg)
+    zl, za, zv, mfn_last = _encode_stage(params, x_l, x_a, x_v, cfg,
+                                         train=train, generator=generator,
+                                         masks=encode_masks)
     zy = linear_apply(params["mfn_enc"]["last_to_zy"], mfn_last)
     if mmd_noise is None:
         if generator is None:
@@ -133,8 +153,10 @@ def mfm_apply(params, x, cfg, *, generator=None, train=False,
         mmd_noise = torch.randn(mmd_noise_shape(cfg, x.shape[1]),
                                 generator=generator, device=x.device)
     mmd = _mmd4(zl, za, zv, zy, mmd_noise)
-    fy, fl, fa, fv = _zf_all(params, zy, zl, za, zv)
-    decoded = _decode(params, fy, fl, fa, fv, t, cfg)
+    fy, fl, fa, fv = _zf_all(params, zy, zl, za, zv, cfg, train=train,
+                             generator=generator, masks=zf_masks)
+    decoded = _decode(params, fy, fl, fa, fv, t, cfg, train=train,
+                      generator=generator, y_mask=y_mask)
     return decoded, mmd, 0.0
 
 
@@ -183,8 +205,9 @@ class MFM(ParamTree):
     """The MFM model as an ``nn.Module`` over the JAX-shaped tree, e.g.
     ``state_dict()['enc.encoder_l.lstm.wx']``. ``params`` (a tree of
     tensors) or a ``seed`` for a fresh init; ``device`` defaults to the
-    CUDA card. Only the eval forward is ported, so the module starts in
-    eval mode."""
+    CUDA card. It starts in eval mode (serving); ``train()`` turns on
+    dropout, and the forward then needs a ``generator`` or the
+    injected draws of ``mfm_apply``."""
 
     def __init__(self, cfg, params=None, *, seed: int = 0, device=None):
         dev = resolve_device(device)
@@ -195,6 +218,6 @@ class MFM(ParamTree):
         self.to(dev)
         self.eval()
 
-    def forward(self, x, *, generator=None, mmd_noise=None):
+    def forward(self, x, *, generator=None, **draws):
         return mfm_apply(self.tree(), x, self.cfg, generator=generator,
-                         train=self.training, mmd_noise=mmd_noise)
+                         train=self.training, **draws)

@@ -1,7 +1,8 @@
 """Build the CUDA sources under ``csrc/`` at first use and load them.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for ``sm_90a`` into one
-shared library with a plain C interface, under ``build/factorized_tpu_torch/``
+One ``nvcc`` process per ``csrc/*.cu``, all started together, compiles
+each source for ``sm_90a``; one more links the objects into one shared
+library with a plain C interface, under ``build/factorized_tpu_torch/``
 at the repository root, named by a hash of the sources and flags; a
 library whose hash matches is reused. It is loaded with ``ctypes``.
 Nothing is compiled or imported when this module is imported, so the
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "factorized_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -53,14 +54,48 @@ def _nvcc() -> str:
         "the CUDA toolkit (nvcc on PATH or under /usr/local/cuda)")
 
 
+def _run_all(cmds, out_stem: Path):
+    """Run the commands at once; (exit codes, their joined output). Each
+    one's output goes to a file beside the build, so no process waits on
+    a full pipe."""
+    outs = [out_stem.with_name(f"{out_stem.name}.{k}.out")
+            for k in range(len(cmds))]
+    try:
+        procs = []
+        for cmd, out in zip(cmds, outs):
+            with open(out, "w") as fh:
+                procs.append(subprocess.Popen(cmd, stdout=fh,
+                                              stderr=subprocess.STDOUT))
+        rcs = [proc.wait() for proc in procs]
+        log = "".join(" ".join(cmd) + "\n" + out.read_text()
+                      for cmd, out in zip(cmds, outs))
+    finally:
+        for out in outs:
+            out.unlink(missing_ok=True)
+    return rcs, log
+
+
 def _build(path: Path):
     path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+    stem = f"{path.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs = [path.with_name(f"{stem}.{src.stem}.o") for src in sources()]
+    tmp = path.with_name(f"{stem}.tmp.so")
+    try:
+        rcs, log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                              str(src)] for src, obj in zip(sources(), objs)],
+                            path.with_name(stem))
+        if any(rcs):
+            raise RuntimeError(f"nvcc failed (exit codes {rcs}):\n{log}")
+        rcs, link_log = _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                                   str(tmp), *map(str, objs)]],
+                                 path.with_name(stem))
+        log += link_log
+        if rcs[0] != 0:
+            raise RuntimeError(f"nvcc link failed (exit {rcs[0]}):\n{log}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     path.with_suffix(".log").write_text(log)
     os.replace(tmp, path)  # atomic: no process loads half a file
 

@@ -33,19 +33,35 @@ def linear_apply(params, x):
     return x @ params["w"] + params["b"]
 
 
-def dropout(x, rate: float, train: bool, generator=None):
+def dropout_mask(generator: torch.Generator, shape, rate: float):
+    """The scaled keep-mask of inverted dropout, drawn on the generator's
+    device: ``1 / keep`` where kept, else 0; all ones at rate <= 0 and
+    all zeros at rate >= 1 (as torch's ``nn.Dropout``)."""
+    device = generator.device
+    if rate <= 0.0:
+        return torch.ones(shape, dtype=torch.float32, device=device)
+    if rate >= 1.0:
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    keep = 1.0 - rate
+    kept = torch.rand(shape, generator=generator, device=device) < keep
+    return kept.to(torch.float32) * (1.0 / keep)
+
+
+def dropout(x, rate: float, train: bool, generator=None, mask=None):
     """Inverted dropout with a static (python float) rate: a no-op in
-    eval mode or at rate <= 0, all zeros at rate >= 1 (as torch's
-    ``nn.Dropout``), else ``x * mask / keep``."""
+    eval mode or at rate <= 0, all zeros at rate >= 1, else ``x * mask``
+    with ``mask`` the scaled keep-mask of ``dropout_mask``, drawn from
+    ``generator`` unless handed in (the injection point of the draw)."""
     if not train or rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    if generator is None:
-        raise ValueError("train-mode dropout needs a torch.Generator")
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
-    return x * (mask.to(x.dtype) * (1.0 / keep))
+    if mask is None:
+        if generator is None:
+            raise ValueError("train-mode dropout needs a torch.Generator "
+                             "or a mask")
+        mask = dropout_mask(generator, x.shape, rate)
+    return x * mask
 
 
 def mlp2_init(generator, d_in: int, d_hidden: int, d_out: int):
@@ -56,9 +72,9 @@ def mlp2_init(generator, d_in: int, d_hidden: int, d_out: int):
 
 
 def mlp2_apply(params, x, *, drop: float = 0.0, train: bool = False,
-               generator=None):
+               generator=None, mask=None):
     """``fc2(dropout(relu(fc1(x))))``; the caller applies the final
     nonlinearity, which differs per use site."""
     h = torch.relu(linear_apply(params["fc1"], x))
-    h = dropout(h, drop, train, generator)
+    h = dropout(h, drop, train, generator, mask)
     return linear_apply(params["fc2"], h)

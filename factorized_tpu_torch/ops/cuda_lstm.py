@@ -1,10 +1,15 @@
-"""The fused decoder recurrence, forward: the CUDA kernel's wrapper and
-its plain PyTorch version (port of the decoder half of
+"""The fused decoder recurrence, forward and backward: the CUDA kernels'
+wrappers and their plain PyTorch versions (port of the decoder half of
 ``ops/pallas_lstm.py``).
 
-``decoder_lstm_fwd`` launches ``csrc/decoder_lstm_fwd.cu`` for a CUDA
-tensor and runs ``decoder_lstm_plain`` for a CPU tensor; there is no
-other route. ``LAUNCHES`` counts the kernel's launches.
+``decoder_lstm_fwd`` launches ``csrc/decoder_lstm_fwd.cu`` and
+``decoder_lstm_bwd`` launches ``csrc/decoder_lstm_bwd.cu`` for CUDA
+tensors; for CPU tensors they run ``decoder_lstm_plain`` and
+``decoder_lstm_bwd_plain``; there is no other route. ``LAUNCHES`` and
+``BWD_LAUNCHES`` count the kernels' launches. ``DecoderLSTM`` is the
+``torch.autograd.Function`` over the pair (JAX: the ``custom_vjp`` of
+``decoder_lstm``); ``dwsum`` and ``db`` are a ``torch.matmul`` and a sum
+outside the kernels, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
@@ -17,8 +22,14 @@ from factorized_tpu_torch.ops import _build
 from factorized_tpu_torch.ops.lstm import lstm_step
 
 LAUNCHES = 0
-ROWS = 4      # batch rows per block
+BWD_LAUNCHES = 0
+# batch rows per block and threads per block: the fastest pairs measured
+# by perf_probe.py (PERF.md), at the serving shapes (n = 256) and, for the
+# backward, the training batch (n = 32: 32 blocks)
+ROWS = 4
 THREADS = 160
+BWD_ROWS = 1
+BWD_THREADS = 512
 
 
 def _check(h0, c0, wsum, b, t, h_dims):
@@ -57,7 +68,11 @@ def decoder_lstm_fwd(h0, c0, wsum, b, t: int, h_dims):
 
 
 def decoder_lstm(h0, c0, wsum, b, t: int, h_dims):
-    """All hidden states (t, n, H); ``allh[0] == h0``."""
+    """All hidden states (t, n, H); ``allh[0] == h0``. Through
+    ``DecoderLSTM`` when a gradient is wanted."""
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (h0, c0, wsum, b)):
+        return DecoderLSTM.apply(h0, c0, wsum, b, t, list(h_dims))
     return decoder_lstm_fwd(h0, c0, wsum, b, t, h_dims)[0]
 
 
@@ -97,3 +112,112 @@ def decoder_lstm_plain(h0, c0, wsum, b, t: int):
         allc.append(c)
         gates.append(g)
     return torch.stack(allh), torch.stack(allc), torch.stack(gates)
+
+
+# -------------------------------------------------------------- backward
+
+def decoder_lstm_bwd(wsum, gates, allc, dallh, h_dims):
+    """BPTT of the recurrence (JAX: ``_dec_bwd_call``), t >= 2: from the
+    forward's ``gates`` and ``allc`` and the cotangent ``dallh`` of every
+    hidden state, ``(dgates (t - 1, n, 4H), dh0, dc0)``; transition i's
+    gate gradient sits in slot i - 1."""
+    if allc.dim() != 3:
+        raise ValueError(f"allc must be (t, n, H), got {tuple(allc.shape)}")
+    t, n, H = allc.shape
+    if t < 2:
+        raise ValueError(f"the backward needs t >= 2, got {t}")
+    if sum(h_dims) != H:
+        raise ValueError(f"h_dims {list(h_dims)} do not sum to H = {H}")
+    want = {"wsum": (H, 4 * H), "gates": (t, n, 4 * H), "allc": (t, n, H),
+            "dallh": (t, n, H)}
+    for name, tensor in (("wsum", wsum), ("gates", gates), ("allc", allc),
+                         ("dallh", dallh)):
+        if tensor.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {tensor.dtype}")
+        if tensor.device != allc.device:
+            raise ValueError(f"{name} is on {tensor.device}, allc on "
+                             f"{allc.device}")
+        if not tensor.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if tuple(tensor.shape) != want[name]:
+            raise ValueError(f"{name} must be {want[name]}, got "
+                             f"{tuple(tensor.shape)}")
+    if allc.device.type == "cpu":
+        return decoder_lstm_bwd_plain(wsum, gates, allc, dallh)
+    if allc.device.type != "cuda":
+        raise ValueError(f"no kernel for device {allc.device}")
+    return _launch_bwd(wsum, gates, allc, dallh, h_dims)
+
+
+def _launch_bwd(wsum, gates, allc, dallh, h_dims):
+    global BWD_LAUNCHES
+    t, n, H = allc.shape
+    fn = _build.kernel(
+        "decoder_lstm_bwd",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p])
+    dgates = torch.empty((t - 1, n, 4 * H), dtype=torch.float32,
+                         device=allc.device)
+    dh0 = torch.empty((n, H), dtype=torch.float32, device=allc.device)
+    dc0 = torch.empty((n, H), dtype=torch.float32, device=allc.device)
+    dims = (ctypes.c_int * len(h_dims))(*h_dims)
+    with torch.cuda.device(allc.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(gates.data_ptr(), allc.data_ptr(), dallh.data_ptr(),
+                 wsum.data_ptr(), dgates.data_ptr(), dh0.data_ptr(),
+                 dc0.data_ptr(), t, n, H, len(h_dims), dims, BWD_ROWS,
+                 BWD_THREADS, stream)
+    _build.check(err, "decoder_lstm_bwd")
+    BWD_LAUNCHES += 1
+    return dgates, dh0, dc0
+
+
+def decoder_lstm_bwd_plain(wsum, gates, allc, dallh):
+    """The same function as the kernel in plain PyTorch, step for step
+    the body of ``_dec_bwd_kernel``."""
+    t = allc.shape[0]
+    dh, dc = dallh[t - 1], torch.zeros_like(allc[0])
+    dgates = [None] * (t - 1)
+    for i in range(t - 1, 0, -1):
+        ig, fg, gg, og = gates[i].chunk(4, dim=-1)
+        si, sf, so = torch.sigmoid(ig), torch.sigmoid(fg), torch.sigmoid(og)
+        tg, tc = torch.tanh(gg), torch.tanh(allc[i])
+        do = dh * tc
+        dc = dc + dh * so * (1.0 - tc * tc)
+        dg = torch.cat([
+            dc * tg * si * (1.0 - si),
+            dc * allc[i - 1] * sf * (1.0 - sf),
+            dc * si * (1.0 - tg * tg),
+            do * so * (1.0 - so),
+        ], dim=-1)
+        dgates[i - 1] = dg
+        dh = dg @ wsum.T + dallh[i - 1]
+        dc = dc * sf
+    return torch.stack(dgates), dh, dc
+
+
+class DecoderLSTM(torch.autograd.Function):
+    """``allh`` of the decoder recurrence with its hand-derived backward."""
+
+    @staticmethod
+    def forward(ctx, h0, c0, wsum, b, t, h_dims):
+        allh, allc, gates = decoder_lstm_fwd(h0, c0, wsum, b, t, h_dims)
+        ctx.save_for_backward(wsum, b, allh, allc, gates)
+        ctx.t, ctx.h_dims = t, list(h_dims)
+        return allh
+
+    @staticmethod
+    def backward(ctx, dallh):
+        wsum, b, allh, allc, gates = ctx.saved_tensors
+        t = ctx.t
+        if t == 1:
+            return (dallh[0], torch.zeros_like(allc[0]),
+                    torch.zeros_like(wsum), torch.zeros_like(b), None, None)
+        dgates, dh0, dc0 = decoder_lstm_bwd(wsum, gates, allc,
+                                            dallh.contiguous(), ctx.h_dims)
+        n, H = dh0.shape
+        B = dgates.reshape((t - 1) * n, 4 * H)
+        dwsum = allh[:t - 1].reshape((t - 1) * n, H).T @ B
+        db = B.sum(0).reshape(b.shape)
+        return dh0, dc0, dwsum, db, None, None

@@ -1,9 +1,24 @@
-"""The fused MFM encode, forward: the CUDA kernel's wrapper and its plain
-PyTorch version (port of the eval forward of ``ops/pallas_mfn.py``).
+"""The fused MFM encode, forward and backward: the CUDA kernels' wrappers
+and their plain PyTorch versions (port of ``ops/pallas_mfn.py``).
 
-``mfm_encode`` launches ``csrc/mfm_encode_fwd.cu`` for a CUDA tensor and
-runs ``mfm_encode_plain`` for a CPU tensor; there is no other route.
-``LAUNCHES`` counts the kernel's launches.
+Three kernels, each with a launch counter:
+
+- ``csrc/mfm_encode_fwd.cu`` (``LAUNCHES``): the forward, eval or train.
+  In train mode it takes the dropout masks and, when a backward follows,
+  writes the residuals (``allh``, ``allc``, ``allmem`` and one
+  ``(t, n, R)`` buffer in the ``RES_NAMES`` layout).
+- ``csrc/mfm_encode_bwd.cu::mfm_encode_bwd`` (``BWD_LAUNCHES``): the
+  reverse-time pass, writing ``dxp`` (= dgates) and each step's deltas
+  in the ``DELTA_NAMES`` layout.
+- ``csrc/mfm_encode_bwd.cu::mfm_encode_dw`` (``DW_LAUNCHES``): the 14
+  non-``wh`` weight and bias gradients, ``A^T delta`` summed over the
+  t * n rows in a fixed order.
+
+A wrapper runs the plain version for CPU tensors and launches the kernel
+for CUDA tensors; there is no other route. ``dWh`` is one
+``torch.matmul`` outside the kernels, as the JAX package leaves it to
+XLA. ``MFMEncode`` is the ``torch.autograd.Function`` over the pair
+(JAX: the ``custom_vjp`` of ``mfm_encode_pallas``).
 """
 
 from __future__ import annotations
@@ -13,25 +28,110 @@ import ctypes
 import torch
 
 from factorized_tpu_torch.ops import _build
+from factorized_tpu_torch.ops.core import dropout_mask
 
 W_NAMES = ("wh", "a1w1", "a1b1", "a1w2", "a1b2", "a2w1", "a2b1",
            "a2w2", "a2b2", "gw1", "gb1", "g1w2", "g1b2", "g2w2", "g2b2")
+DW_NAMES = W_NAMES[1:]
+# residual layout of the train forward, unchanged from the JAX package:
+# r1/r2/r3 are post-dropout relu activations, kg* = mask * (u > 0)
+RES_NAMES = ("att", "r1", "kg1", "r2", "kg2", "r3", "kg3", "chat",
+             "g1", "g2")
+# what the reverse pass writes per step for the weight-gradient sums
+DELTA_NAMES = ("dq1", "dq2", "du3", "dch", "du2", "dlogits", "du1")
+# each in-kernel gradient as A^T @ delta over the t * n rows
+DW_PRODUCTS = {
+    "a1w1": ("cstar", "du1"), "a1b1": ("ones", "du1"),
+    "a1w2": ("r1", "dlogits"), "a1b2": ("ones", "dlogits"),
+    "a2w1": ("attended", "du2"), "a2b1": ("ones", "du2"),
+    "a2w2": ("r2", "dch"), "a2b2": ("ones", "dch"),
+    "gw1": ("both", "du3"), "gb1": ("ones", "du3"),
+    "g1w2": ("r3a", "dq1"), "g1b2": ("ones", "dq1"),
+    "g2w2": ("r3b", "dq2"), "g2b2": ("ones", "dq2"),
+}
 
-LAUNCHES = 0
-# batch rows per block and threads per block: the fastest pair measured
-# at the serving shapes (perf_probe.py, PERF.md)
+LAUNCHES = 0      # mfm_encode_fwd, every variant
+BWD_LAUNCHES = 0  # mfm_encode_bwd
+DW_LAUNCHES = 0   # mfm_encode_dw
+# batch rows per block and threads per block: the fastest pairs measured
+# by perf_probe.py (PERF.md), ROWS at the serving shapes (n = 256: 64
+# blocks), TRAIN_ROWS and BWD_ROWS at the training batch (n = 32: 16 and
+# 32 blocks)
 ROWS = 4
 THREADS = 512
+TRAIN_ROWS = 2
+BWD_ROWS = 1
+BWD_THREADS = 512
 
 
-def _sizes(weights):
+def sizes(weights):
     """(s1, s2, s3, s4, mem): the four MLP widths and the memory width."""
     s3 = weights["g1w2"].shape[0]
     return (weights["a1w1"].shape[1], weights["a2w1"].shape[1], s3,
             weights["gw1"].shape[1] - s3, weights["a2w2"].shape[1])
 
 
-def _check(xp, weights, z_tot, h_dims):
+def _layout(names, widths):
+    offs, o = {}, 0
+    for nm in names:
+        offs[nm] = (o, widths[nm])
+        o += widths[nm]
+    return offs, o
+
+
+def res_layout(weights):
+    """{name: (offset, width)} of the residual buffer, and its width R."""
+    s1, s2, s3, s4, mem = sizes(weights)
+    m2 = weights["a1w1"].shape[0]
+    return _layout(RES_NAMES, dict(att=m2, r1=s1, kg1=s1, r2=s2, kg2=s2,
+                                   r3=s3 + s4, kg3=s3 + s4, chat=mem,
+                                   g1=mem, g2=mem))
+
+
+def delta_layout(weights):
+    """{name: (offset, width)} of the per-step delta buffer, and its
+    width."""
+    s1, s2, s3, s4, mem = sizes(weights)
+    m2 = weights["a1w1"].shape[0]
+    return _layout(DELTA_NAMES, dict(dq1=mem, dq2=mem, du3=s3 + s4,
+                                     dch=mem, du2=s2, dlogits=m2, du1=s1))
+
+
+def make_dropout_masks(generator, t: int, n: int, sizes, drops):
+    """(t, n, sum(sizes)) scaled keep-masks in the site order att1, att2,
+    gamma1, gamma2, on the generator's device; rate-0 sites are all
+    ones (JAX: ``pallas_mfn.make_dropout_masks``)."""
+    return torch.cat([dropout_mask(generator, (t, n, s), rate)
+                      for s, rate in zip(sizes, drops)], dim=2)
+
+
+# ---------------------------------------------------------------- checks
+
+def _check_tensors(named, device, want):
+    for name, tensor in named:
+        if tensor.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {tensor.dtype}")
+        if tensor.device != device:
+            raise ValueError(f"{name} is on {tensor.device}, xp on {device}")
+        if not tensor.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        shape, ok = tuple(tensor.shape), want[name]
+        if shape != ok and not (len(ok) == 1 and shape == (1,) + ok):
+            raise ValueError(f"{name} must be {ok}, got {shape}")
+
+
+def _weight_shapes(weights, H, z_tot):
+    s1, s2, s3, s4, mem = sizes(weights)
+    m2 = 2 * (H - z_tot)
+    return {
+        "wh": (H, 4 * H), "a1w1": (m2, s1), "a1b1": (s1,), "a1w2": (s1, m2),
+        "a1b2": (m2,), "a2w1": (m2, s2), "a2b1": (s2,), "a2w2": (s2, mem),
+        "a2b2": (mem,), "gw1": (m2 + mem, s3 + s4), "gb1": (s3 + s4,),
+        "g1w2": (s3, mem), "g1b2": (mem,), "g2w2": (s4, mem), "g2b2": (mem,),
+    }
+
+
+def _check(xp, weights, z_tot, h_dims, masks=None):
     if xp.dim() != 3 or xp.shape[2] % 4:
         raise ValueError(f"xp must be (t, n, 4H), got {tuple(xp.shape)}")
     t, n, H4 = xp.shape
@@ -41,91 +141,392 @@ def _check(xp, weights, z_tot, h_dims):
     prefix = [sum(h_dims[:k]) for k in range(1, len(h_dims))]
     if z_tot not in prefix:
         raise ValueError(f"z_tot {z_tot} is not a cell boundary of {h_dims}")
-    s1, s2, s3, s4, mem = _sizes(weights)
-    m2 = 2 * (H - z_tot)
-    want = {
-        "wh": (H, H4), "a1w1": (m2, s1), "a1b1": (s1,), "a1w2": (s1, m2),
-        "a1b2": (m2,), "a2w1": (m2, s2), "a2b1": (s2,), "a2w2": (s2, mem),
-        "a2b2": (mem,), "gw1": (m2 + mem, s3 + s4), "gb1": (s3 + s4,),
-        "g1w2": (s3, mem), "g1b2": (mem,), "g2w2": (s4, mem), "g2b2": (mem,),
-    }
-    for name, tensor in [("xp", xp)] + [(k, weights[k]) for k in W_NAMES]:
-        if tensor.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {tensor.dtype}")
-        if tensor.device != xp.device:
-            raise ValueError(f"{name} is on {tensor.device}, xp on "
-                             f"{xp.device}")
-        if not tensor.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if name != "xp":
-            shape = tuple(tensor.shape)
-            ok = want[name]
-            if shape != ok and not (len(ok) == 1 and shape == (1,) + ok):
-                raise ValueError(f"{name} must be {ok}, got {shape}")
+    s1, s2, s3, s4, _ = sizes(weights)
+    want = dict(_weight_shapes(weights, H, z_tot), xp=(t, n, H4),
+                masks=(t, n, s1 + s2 + s3 + s4))
+    named = [("xp", xp)] + [(k, weights[k]) for k in W_NAMES]
+    if masks is not None:
+        named.append(("masks", masks))
+    _check_tensors(named, xp.device, want)
 
 
-def mfm_encode(xp, weights, z_tot: int, h_dims):
-    """Fused encode over time, eval mode. ``xp (t, n, 4H)`` gate-major
-    input projections of the fused cells (``h_dims``, encoders first, up
-    to ``z_tot``); ``weights`` as in ``W_NAMES``, biases ``(1, d)``.
-    Returns ``(h_last (n, H), mem_last (n, mem))``."""
-    _check(xp, weights, z_tot, h_dims)
-    if xp.device.type == "cpu":
-        return mfm_encode_plain(xp, weights, z_tot)
-    if xp.device.type != "cuda":
-        raise ValueError(f"no kernel for device {xp.device}")
-    return _launch(xp, weights, z_tot, h_dims)
+def _route(device):
+    """'cpu' for the plain version, 'cuda' for the kernel; else raise."""
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {device}")
+    return device.type
 
 
-def _launch(xp, weights, z_tot, h_dims):
+# --------------------------------------------------------------- forward
+
+def mfm_encode(xp, weights, z_tot: int, h_dims, masks=None):
+    """Fused encode over time. ``xp (t, n, 4H)`` gate-major input
+    projections of the fused cells (``h_dims``, encoders first, up to
+    ``z_tot``); ``weights`` as in ``W_NAMES``, biases ``(1, d)``;
+    ``masks`` the train-mode dropout masks of ``make_dropout_masks``, or
+    None (eval: every site is the identity). Returns
+    ``(h_last (n, H), mem_last (n, mem))``."""
+    _check(xp, weights, z_tot, h_dims, masks)
+    if _route(xp.device) == "cpu":
+        return mfm_encode_plain(xp, weights, z_tot, masks)
+    return _launch_fwd(xp, masks, weights, z_tot, h_dims, with_res=False)
+
+
+def mfm_encode_res(xp, masks, weights, z_tot: int, h_dims):
+    """The forward that a backward follows (JAX: ``_fwd_call(...,
+    with_res=True)``): ``(h_last, mem_last, allh, allc, allmem, res)``,
+    allh/allc (t, n, H), allmem (t, n, mem), res (t, n, R) in the
+    ``RES_NAMES`` layout. ``masks`` None means all ones."""
+    _check(xp, weights, z_tot, h_dims, masks)
+    if _route(xp.device) == "cpu":
+        return mfm_encode_res_plain(xp, masks, weights, z_tot)
+    return _launch_fwd(xp, masks, weights, z_tot, h_dims, with_res=True)
+
+
+def _launch_fwd(xp, masks, weights, z_tot, h_dims, with_res):
     global LAUNCHES
     t, n, H4 = xp.shape
     H = H4 // 4
-    s1, s2, s3, s4, mem = _sizes(weights)
+    s1, s2, s3, s4, mem = sizes(weights)
     fn = _build.kernel(
         "mfm_encode_fwd",
-        [ctypes.c_void_p] * 18 + [ctypes.c_int] * 10
+        [ctypes.c_void_p] * 23 + [ctypes.c_int] * 10
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
            ctypes.c_void_p])
-    h_last = torch.empty((n, H), dtype=torch.float32, device=xp.device)
-    mem_last = torch.empty((n, mem), dtype=torch.float32, device=xp.device)
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=xp.device)
+
+    h_last, mem_last = empty(n, H), empty(n, mem)
+    outs = [h_last, mem_last]
+    if with_res:
+        outs += [empty(t, n, H), empty(t, n, H), empty(t, n, mem),
+                 empty(t, n, res_layout(weights)[1])]
+        res_ptrs = [o.data_ptr() for o in outs[2:]]
+    else:
+        res_ptrs = [None] * 4
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
+    rows = TRAIN_ROWS if with_res else ROWS
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xp.data_ptr(), *[weights[k].data_ptr() for k in W_NAMES],
-                 h_last.data_ptr(), mem_last.data_ptr(),
+        err = fn(xp.data_ptr(),
+                 None if masks is None else masks.data_ptr(),
+                 *[weights[k].data_ptr() for k in W_NAMES],
+                 h_last.data_ptr(), mem_last.data_ptr(), *res_ptrs,
                  t, n, H, z_tot, mem, s1, s2, s3, s4,
-                 len(h_dims), dims, ROWS, THREADS, stream)
+                 len(h_dims), dims, rows, THREADS, stream)
     _build.check(err, "mfm_encode_fwd")
     LAUNCHES += 1
-    return h_last, mem_last
+    return tuple(outs)
 
 
-def mfm_encode_plain(xp, weights, z_tot: int):
+def _step_plain(h, c, mem, xp_t, masks_t, w, z_tot):
+    """One fused step, as ``_fwd_kernel`` with ``with_res``: returns
+    (new_h, new_c, new_mem, residuals in the RES_NAMES order)."""
+    s1, s2, s3, s4, _ = sizes(w)
+    gates = xp_t + h @ w["wh"]
+    ig, fg, gg, og = gates.chunk(4, dim=-1)
+    new_c = torch.sigmoid(fg) * c + torch.sigmoid(ig) * torch.tanh(gg)
+    new_h = torch.sigmoid(og) * torch.tanh(new_c)
+    if masks_t is None:
+        masks_t = xp_t.new_ones((xp_t.shape[0], s1 + s2 + s3 + s4))
+    m1, m2, m34 = masks_t.split([s1, s2, s3 + s4], dim=1)
+
+    def relu_mask(u, m):
+        return torch.relu(u) * m, torch.where(u > 0.0, m, 0.0)
+
+    cstar = torch.cat([c[:, z_tot:], new_c[:, z_tot:]], dim=1)
+    r1, kg1 = relu_mask(cstar @ w["a1w1"] + w["a1b1"], m1)
+    att = torch.softmax(r1 @ w["a1w2"] + w["a1b2"], dim=1)
+    attended = att * cstar
+    r2, kg2 = relu_mask(attended @ w["a2w1"] + w["a2b1"], m2)
+    chat = torch.tanh(r2 @ w["a2w2"] + w["a2b2"])
+    both = torch.cat([attended, mem], dim=1)
+    r3, kg3 = relu_mask(both @ w["gw1"] + w["gb1"], m34)
+    g1 = torch.sigmoid(r3[:, :s3] @ w["g1w2"] + w["g1b2"])
+    g2 = torch.sigmoid(r3[:, s3:] @ w["g2w2"] + w["g2b2"])
+    new_mem = g1 * mem + g2 * chat
+    return new_h, new_c, new_mem, (att, r1, kg1, r2, kg2, r3, kg3, chat,
+                                   g1, g2)
+
+
+def mfm_encode_plain(xp, weights, z_tot: int, masks=None):
     """The same function as the kernel in plain PyTorch: the scan branch
     of the JAX package's ``fused_mfm_encode`` as a Python loop."""
+    t, n, H4 = xp.shape
+    h = xp.new_zeros((n, H4 // 4))
+    c = xp.new_zeros((n, H4 // 4))
+    mem = xp.new_zeros((n, sizes(weights)[4]))
+    for i in range(t):
+        h, c, mem, _ = _step_plain(h, c, mem, xp[i],
+                                   None if masks is None else masks[i],
+                                   weights, z_tot)
+    return h, mem
+
+
+def mfm_encode_res_plain(xp, masks, weights, z_tot: int):
+    """``mfm_encode_res`` in plain PyTorch."""
+    t, n, H4 = xp.shape
+    h = xp.new_zeros((n, H4 // 4))
+    c = xp.new_zeros((n, H4 // 4))
+    mem = xp.new_zeros((n, sizes(weights)[4]))
+    allh, allc, allmem, res = [], [], [], []
+    for i in range(t):
+        h, c, mem, r = _step_plain(h, c, mem, xp[i],
+                                   None if masks is None else masks[i],
+                                   weights, z_tot)
+        allh.append(h)
+        allc.append(c)
+        allmem.append(mem)
+        res.append(torch.cat(r, dim=1))
+    return (h, mem, torch.stack(allh), torch.stack(allc),
+            torch.stack(allmem), torch.stack(res))
+
+
+# -------------------------------------------------------------- backward
+
+def mfm_encode_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
+                   z_tot: int, h_dims):
+    """The encode's backward (JAX: ``_bwd_call``) from the residuals of
+    ``mfm_encode_res`` and the cotangents of ``h_last`` and ``mem_last``.
+    Returns ``(dxp (t, n, 4H), {name: grad})`` over ``W_NAMES``."""
+    _check(xp, weights, z_tot, h_dims)
+    t, n, H4 = xp.shape
+    H, mem = H4 // 4, sizes(weights)[4]
+    _check_tensors(
+        [("allh", allh), ("allc", allc), ("allmem", allmem), ("res", res),
+         ("dhlast", dhlast), ("dmemlast", dmemlast)], xp.device,
+        {"allh": (t, n, H), "allc": (t, n, H), "allmem": (t, n, mem),
+         "res": (t, n, res_layout(weights)[1]), "dhlast": (n, H),
+         "dmemlast": (n, mem)})
+    if _route(xp.device) == "cpu":
+        return mfm_encode_bwd_plain(xp, weights, allh, allc, allmem, res,
+                                    dhlast, dmemlast, z_tot)
+    dxp, deltas = _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast,
+                              dmemlast, z_tot, h_dims)
+    dweights = _launch_dw(weights, allc, allmem, res, deltas, z_tot)
+    dweights["wh"] = _dwh(allh, dxp)
+    return dxp, dweights
+
+
+def _dwh(allh, dxp):
+    """dWh = sum_{i >= 1} h_{i-1}^T dgates_i, one GEMM outside the
+    kernels (JAX leaves it to XLA)."""
+    t, n, H = allh.shape
+    if t == 1:
+        return allh.new_zeros((H, 4 * H))
+    return allh[:-1].reshape(-1, H).T @ dxp[1:].reshape(-1, 4 * H)
+
+
+def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
+                z_tot, h_dims):
+    """The reverse-time kernel: (dxp, deltas (t, n, D))."""
+    global BWD_LAUNCHES
+    t, n, H4 = xp.shape
+    s1, s2, s3, s4, mem = sizes(weights)
+    fn = _build.kernel(
+        "mfm_encode_bwd",
+        [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+           ctypes.c_void_p])
+    dxp = torch.empty_like(xp)
+    deltas = torch.empty((t, n, delta_layout(weights)[1]),
+                         dtype=torch.float32, device=xp.device)
+    dims = (ctypes.c_int * len(h_dims))(*h_dims)
+    used = ("wh", "a1w1", "a1w2", "a2w1", "a2w2", "gw1", "g1w2", "g2w2")
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(xp.data_ptr(), allh.data_ptr(), allc.data_ptr(),
+                 allmem.data_ptr(), res.data_ptr(), dhlast.data_ptr(),
+                 dmemlast.data_ptr(), *[weights[k].data_ptr() for k in used],
+                 dxp.data_ptr(), deltas.data_ptr(),
+                 t, n, H4 // 4, z_tot, mem, s1, s2, s3, s4,
+                 len(h_dims), dims, BWD_ROWS, BWD_THREADS, stream)
+    _build.check(err, "mfm_encode_bwd")
+    BWD_LAUNCHES += 1
+    return dxp, deltas
+
+
+def _launch_dw(weights, allc, allmem, res, deltas, z_tot):
+    """The weight-gradient reduction kernel: {name: grad} for DW_NAMES,
+    each shaped like its weight."""
+    global DW_LAUNCHES
+    t, n, H = allc.shape
+    s1, s2, s3, s4, mem = sizes(weights)
+    fn = _build.kernel(
+        "mfm_encode_dw",
+        [ctypes.c_void_p] * (4 + len(DW_NAMES)) + [ctypes.c_int] * 9
+        + [ctypes.c_void_p])
+    grads = {k: torch.empty(weights[k].shape, dtype=torch.float32,
+                            device=allc.device) for k in DW_NAMES}
+    with torch.cuda.device(allc.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(allc.data_ptr(), allmem.data_ptr(), res.data_ptr(),
+                 deltas.data_ptr(), *[grads[k].data_ptr() for k in DW_NAMES],
+                 t, n, H, z_tot, mem, s1, s2, s3, s4, stream)
+    _build.check(err, "mfm_encode_dw")
+    DW_LAUNCHES += 1
+    return grads
+
+
+def mfm_encode_bwd_steps_plain(xp, weights, allh, allc, allmem, res,
+                               dhlast, dmemlast, z_tot: int):
+    """The reverse-time pass in plain PyTorch, step for step the body of
+    ``_bwd_kernel``: returns (dxp, deltas (t, n, D)) as the kernel
+    writes them."""
     w = weights
     t, n, H4 = xp.shape
-    H = H4 // 4
-    s1, s2, s3, s4, mem_dim = _sizes(w)
-    h = xp.new_zeros((n, H))
-    c = xp.new_zeros((n, H))
-    mem = xp.new_zeros((n, mem_dim))
-    for i in range(t):
-        gates = xp[i] + h @ w["wh"]
-        ig, fg, gg, og = gates.chunk(4, dim=-1)
-        new_c = torch.sigmoid(fg) * c + torch.sigmoid(ig) * torch.tanh(gg)
-        new_h = torch.sigmoid(og) * torch.tanh(new_c)
-        cstar = torch.cat([c[:, z_tot:], new_c[:, z_tot:]], dim=1)
-        r1 = torch.relu(cstar @ w["a1w1"] + w["a1b1"])
-        att = torch.softmax(r1 @ w["a1w2"] + w["a1b2"], dim=1)
-        attended = att * cstar
-        r2 = torch.relu(attended @ w["a2w1"] + w["a2b1"])
-        chat = torch.tanh(r2 @ w["a2w2"] + w["a2b2"])
-        both = torch.cat([attended, mem], dim=1)
-        r3 = torch.relu(both @ w["gw1"] + w["gb1"])
-        g1 = torch.sigmoid(r3[:, :s3] @ w["g1w2"] + w["g1b2"])
-        g2 = torch.sigmoid(r3[:, s3:] @ w["g2w2"] + w["g2b2"])
-        mem = g1 * mem + g2 * chat
-        h, c = new_h, new_c
-    return h, mem
+    m2 = w["a1w1"].shape[0]
+    M = m2 // 2
+    offs, _ = res_layout(w)
+
+    def get(nm, i):
+        o, wd = offs[nm]
+        return res[i, :, o:o + wd]
+
+    dh, dc, dmem = dhlast, torch.zeros_like(dhlast), dmemlast
+    pad = xp.new_zeros((n, z_tot))
+    dxp, deltas = [None] * t, [None] * t
+    for i in reversed(range(t)):
+        if i > 0:
+            hp, cp, memp = allh[i - 1], allc[i - 1], allmem[i - 1]
+        else:
+            hp, cp, memp = (torch.zeros_like(allh[0]),
+                            torch.zeros_like(allc[0]),
+                            torch.zeros_like(allmem[0]))
+        c_i = allc[i]
+        # gate activations recomputed, as the TPU kernel does
+        ig, fg, gg, og = (xp[i] + hp @ w["wh"]).chunk(4, dim=-1)
+        si, sf, so = torch.sigmoid(ig), torch.sigmoid(fg), torch.sigmoid(og)
+        tg, tc = torch.tanh(gg), torch.tanh(c_i)
+        cstar = torch.cat([cp[:, z_tot:], c_i[:, z_tot:]], dim=1)
+        att = get("att", i)
+        chat, g1, g2 = get("chat", i), get("g1", i), get("g2", i)
+
+        # the memory update and the gamma gates
+        dq1 = dmem * memp * g1 * (1.0 - g1)
+        dq2 = dmem * chat * g2 * (1.0 - g2)
+        dch = dmem * g2 * (1.0 - chat * chat)
+        dmem_prev = dmem * g1
+        du3 = torch.cat([dq1 @ w["g1w2"].T, dq2 @ w["g2w2"].T],
+                        dim=1) * get("kg3", i)
+        dboth = du3 @ w["gw1"].T
+        dmem_prev = dmem_prev + dboth[:, m2:]
+        # att2 / chat
+        du2 = (dch @ w["a2w2"].T) * get("kg2", i)
+        dattended = dboth[:, :m2] + du2 @ w["a2w1"].T
+        # attended = att * cstar and the softmax
+        datt = dattended * cstar
+        dcstar = dattended * att
+        dlogits = att * (datt - torch.sum(datt * att, dim=1, keepdim=True))
+        du1 = (dlogits @ w["a1w2"].T) * get("kg1", i)
+        dcstar = dcstar + du1 @ w["a1w1"].T
+        # cStar feeds the current cell state and the previous one
+        dc_i = dc + torch.cat([pad, dcstar[:, M:]], dim=1)
+        dc_prev_att = torch.cat([pad, dcstar[:, :M]], dim=1)
+        # the LSTM cells
+        do = dh * tc
+        dc_full = dc_i + dh * so * (1.0 - tc * tc)
+        dgates = torch.cat([
+            dc_full * tg * si * (1.0 - si),
+            dc_full * cp * sf * (1.0 - sf),
+            dc_full * si * (1.0 - tg * tg),
+            do * so * (1.0 - so),
+        ], dim=-1)
+        dxp[i] = dgates
+        deltas[i] = torch.cat([dq1, dq2, du3, dch, du2, dlogits, du1], dim=1)
+        dh = dgates @ w["wh"].T
+        dc = dc_full * sf + dc_prev_att
+        dmem = dmem_prev
+    return torch.stack(dxp), torch.stack(deltas)
+
+
+def dw_operands(allc, allmem, res, weights, z_tot: int):
+    """The A operands of ``DW_PRODUCTS`` as (t * n, P) matrices:
+    forward residuals, and cStar, attended and memp rebuilt from the
+    cell states and the memory (zero before step 0)."""
+    t, n, _ = allc.shape
+    offs, _ = res_layout(weights)
+    s3 = weights["g1w2"].shape[0]
+
+    def get(nm):
+        o, wd = offs[nm]
+        return res[..., o:o + wd]
+
+    cp = torch.cat([torch.zeros_like(allc[:1]), allc[:-1]])
+    memp = torch.cat([torch.zeros_like(allmem[:1]), allmem[:-1]])
+    cstar = torch.cat([cp[..., z_tot:], allc[..., z_tot:]], dim=-1)
+    attended = get("att") * cstar
+    ops = {"cstar": cstar, "attended": attended,
+           "both": torch.cat([attended, memp], dim=-1),
+           "r1": get("r1"), "r2": get("r2"),
+           "r3a": get("r3")[..., :s3], "r3b": get("r3")[..., s3:]}
+    return {k: v.reshape(t * n, -1) for k, v in ops.items()}
+
+
+def mfm_encode_dw_plain(allc, allmem, res, deltas, weights, z_tot: int):
+    """The 14 in-kernel weight gradients in plain PyTorch: {name: grad}
+    for DW_NAMES, each shaped like its weight."""
+    t, n, _ = allc.shape
+    A = dw_operands(allc, allmem, res, weights, z_tot)
+    offs, _ = delta_layout(weights)
+    D = deltas.reshape(t * n, -1)
+    grads = {}
+    for name, (a, d) in DW_PRODUCTS.items():
+        o, wd = offs[d]
+        delta = D[:, o:o + wd]
+        g = delta.sum(0) if a == "ones" else A[a].T @ delta
+        grads[name] = g.reshape(weights[name].shape)
+    return grads
+
+
+def mfm_encode_bwd_plain(xp, weights, allh, allc, allmem, res, dhlast,
+                         dmemlast, z_tot: int):
+    """``mfm_encode_bwd`` in plain PyTorch."""
+    dxp, deltas = mfm_encode_bwd_steps_plain(xp, weights, allh, allc,
+                                             allmem, res, dhlast, dmemlast,
+                                             z_tot)
+    dweights = mfm_encode_dw_plain(allc, allmem, res, deltas, weights, z_tot)
+    dweights["wh"] = _dwh(allh, dxp)
+    return dxp, dweights
+
+
+# --------------------------------------------------------------- autograd
+
+class MFMEncode(torch.autograd.Function):
+    """``(h_last, mem_last)`` of the fused encode with its hand-derived
+    backward; the masks get no gradient."""
+
+    @staticmethod
+    def forward(ctx, xp, masks, z_tot, h_dims, *wlist):
+        weights = dict(zip(W_NAMES, wlist))
+        h_last, mem_last, allh, allc, allmem, res = mfm_encode_res(
+            xp, masks, weights, z_tot, h_dims)
+        ctx.save_for_backward(xp, allh, allc, allmem, res, *wlist)
+        ctx.z_tot, ctx.h_dims = z_tot, list(h_dims)
+        ctx.mark_non_differentiable(*(() if masks is None else (masks,)))
+        return h_last, mem_last
+
+    @staticmethod
+    def backward(ctx, dh_last, dmem_last):
+        xp, allh, allc, allmem, res, *wlist = ctx.saved_tensors
+        weights = dict(zip(W_NAMES, wlist))
+        dh_last = (torch.zeros_like(allh[0]) if dh_last is None
+                   else dh_last.contiguous())
+        dmem_last = (torch.zeros_like(allmem[0]) if dmem_last is None
+                     else dmem_last.contiguous())
+        dxp, dweights = mfm_encode_bwd(xp, weights, allh, allc, allmem, res,
+                                       dh_last, dmem_last, ctx.z_tot,
+                                       ctx.h_dims)
+        return (dxp, None, None, None,
+                *[dweights[k].reshape(weights[k].shape) for k in W_NAMES])
+
+
+def encode(xp, weights, z_tot: int, h_dims, masks=None):
+    """``(h_last, mem_last)``: through ``MFMEncode`` when a gradient is
+    wanted, else the forward alone (no residuals written)."""
+    tensors = [xp] + [weights[k] for k in W_NAMES]
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+        return MFMEncode.apply(xp, masks, z_tot, list(h_dims),
+                               *[weights[k] for k in W_NAMES])
+    return mfm_encode(xp, weights, z_tot, h_dims, masks)

@@ -8,7 +8,8 @@ in the parameter tree; the packed matrices are assembled per call. The
 hoisted input projections and the output projections are plain
 ``torch.matmul``; the recurrences run in the CUDA kernels of
 ``ops/cuda_mfn.py`` and ``ops/cuda_lstm.py`` (their plain versions on
-the CPU).
+the CPU), behind ``torch.autograd.Function``s with hand-written
+backward kernels.
 """
 
 from __future__ import annotations
@@ -157,18 +158,28 @@ def encode_operands(enc_cells, mfn_params, x_l, x_a, x_v):
 
 
 def fused_mfm_encode(enc_cells, mfn_params, x_l, x_a, x_v, *, mem_dim,
-                     drops, train=False):
+                     drops, train=False, generator=None, masks=None):
     """The whole MFM encode stage — the 3 unimodal encoder LSTMs, the
     MFN's 3 modality LSTMs and the delta-memory attention — as one
-    recurrence, eval mode, where every dropout site (``drops``) is the
-    identity. Returns ([enc_h_l, enc_h_a, enc_h_v], mfn_last_hs)."""
-    if train:
-        raise NotImplementedError(
-            "train-mode fused encode (dropout masks and the backward "
-            "kernel) belongs to the training slice, not yet ported")
+    recurrence. In train mode with a nonzero rate among ``drops`` (att1,
+    att2, gamma1, gamma2) the dropout masks are ``masks`` when handed in
+    (the injection point), else drawn from ``generator`` by
+    ``cuda_mfn.make_dropout_masks``. Gradients reach the per-cell weights
+    through the packing, which is plain PyTorch. Returns
+    ([enc_h_l, enc_h_a, enc_h_v], mfn_last_hs)."""
     xp, weights, z_tot, h_dims = encode_operands(enc_cells, mfn_params,
                                                  x_l, x_a, x_v)
-    h_last, mem = cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims)
+    if train and any(d > 0.0 for d in drops):
+        if masks is None:
+            if generator is None:
+                raise ValueError("train-mode encode needs a torch.Generator "
+                                 "or masks")
+            t, n, _ = xp.shape
+            masks = cuda_mfn.make_dropout_masks(
+                generator, t, n, cuda_mfn.sizes(weights)[:4], drops)
+    else:
+        masks = None
+    h_last, mem = cuda_mfn.encode(xp, weights, z_tot, h_dims, masks)
     if mem.shape[1] != mem_dim:
         raise ValueError(f"memory width {mem.shape[1]} != mem_dim {mem_dim}")
     enc_hs = split_heads(h_last[:, :z_tot], h_dims[:3])

@@ -4,9 +4,10 @@ Run from the repository root on the card:
 ``python -m factorized_tpu_torch.perf_probe``. Prints JSON lines:
 
 - ``tile``: each kernel's mean time (CUDA events, 50 launches after
-  warm-up) at the serving shapes (n = 256, t = 20,
-  ``best_acc_mosi_config``) for each batch-row tile and block size the
-  launchers take, so that the defaults in ``ops/cuda_mfn.py`` and
+  warm-up) for each batch-row tile and block size the launchers take, the
+  forward kernels at the serving shapes (n = 256, t = 20,
+  ``best_acc_mosi_config``) and the training kernels at the training
+  shapes (n = 32), so that the defaults in ``ops/cuda_mfn.py`` and
   ``ops/cuda_lstm.py`` are chosen from a measurement;
 - ``profile``: ``torch.profiler`` over 20 padded 256-row ``predict``
   calls: wall time, the device time summed over kernels, the share of
@@ -25,10 +26,12 @@ import torch
 
 from factorized_tpu_torch.config import best_acc_mosi_config
 from factorized_tpu_torch.models import mfm
+from factorized_tpu_torch.models.common import mfn_drops
 from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
 from factorized_tpu_torch.serve import Predictor
 
 N = 256
+N_TRAIN = 32
 
 
 def _ms(fn, reps=50):
@@ -45,6 +48,24 @@ def _ms(fn, reps=50):
     return start.elapsed_time(end) / reps
 
 
+def _sweep(name, module, rows_attr, threads_attr, rows_list, block_sizes,
+           n, call):
+    """Time ``call`` for each (rows, threads) set on ``module``."""
+    default = (getattr(module, rows_attr), getattr(module, threads_attr))
+    try:
+        for rows in rows_list:
+            for threads in block_sizes:
+                setattr(module, rows_attr, rows)
+                setattr(module, threads_attr, threads)
+                print(json.dumps({
+                    "tile": name, "n": n, "rows": rows, "threads": threads,
+                    "blocks": -(-n // rows), "ms": _ms(call),
+                    "default": (rows, threads) == default}), flush=True)
+    finally:
+        setattr(module, rows_attr, default[0])
+        setattr(module, threads_attr, default[1])
+
+
 def sweep(cfg, params, dev):
     x = torch.randn((cfg.seqlength, N, cfg.d_total),
                     generator=torch.Generator().manual_seed(1)).to(dev)
@@ -52,24 +73,42 @@ def sweep(cfg, params, dev):
         mfm.kernel_operands(params, x, cfg)
     t = cfg.seqlength
     # block sizes up to the launchers' limit of 512 threads
-    runs = (
-        ("mfm_encode_fwd", cuda_mfn, (128, 256, 512),
-         lambda: cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims)),
-        ("decoder_lstm_fwd", cuda_lstm, (64, 128, 160, 256, 512),
-         lambda: cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b, t, dec_dims)),
-    )
-    for name, module, block_sizes, call in runs:
-        default = (module.ROWS, module.THREADS)
-        try:
-            for rows in (1, 2, 4, 8, 16):
-                for threads in block_sizes:
-                    module.ROWS, module.THREADS = rows, threads
-                    print(json.dumps({
-                        "tile": name, "rows": rows, "threads": threads,
-                        "blocks": -(-N // rows), "ms": _ms(call),
-                        "default": (rows, threads) == default}), flush=True)
-        finally:
-            module.ROWS, module.THREADS = default
+    _sweep("mfm_encode_fwd", cuda_mfn, "ROWS", "THREADS", (1, 2, 4, 8, 16),
+           (128, 256, 512), N,
+           lambda: cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims))
+    _sweep("decoder_lstm_fwd", cuda_lstm, "ROWS", "THREADS",
+           (1, 2, 4, 8, 16), (64, 128, 160, 256, 512), N,
+           lambda: cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b, t, dec_dims))
+
+
+def train_sweep(cfg, params, dev):
+    """The training kernels at n = 32 (the encode backward's shared memory
+    allows at most 8 rows)."""
+    n, t = N_TRAIN, cfg.seqlength
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = torch.randn((t, n, cfg.d_total), generator=g, device=dev)
+    (xp, weights, z_tot, h_dims), (h0, c0, wsum, b, dec_dims) = \
+        mfm.kernel_operands(params, x, cfg)
+    masks = cuda_mfn.make_dropout_masks(g, t, n, cuda_mfn.sizes(weights)[:4],
+                                        mfn_drops(cfg))
+    res = cuda_mfn.mfm_encode_res_plain(xp, masks, weights, z_tot)[2:]
+    dh = torch.randn((n, sum(h_dims)), generator=g, device=dev)
+    dmem = torch.randn((n, weights["a2w2"].shape[1]), generator=g,
+                       device=dev)
+    allh, allc, gates = cuda_lstm.decoder_lstm_plain(h0, c0, wsum, b, t)
+    dallh = torch.randn(allh.shape, generator=g, device=dev)
+    _sweep("mfm_encode_fwd_train", cuda_mfn, "TRAIN_ROWS", "THREADS",
+           (1, 2, 4, 8), (128, 256, 512), n,
+           lambda: cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot,
+                                           h_dims))
+    _sweep("mfm_encode_bwd", cuda_mfn, "BWD_ROWS", "BWD_THREADS",
+           (1, 2, 4, 8), (128, 256, 512), n,
+           lambda: cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem, z_tot,
+                                        h_dims))
+    _sweep("decoder_lstm_bwd", cuda_lstm, "BWD_ROWS", "BWD_THREADS",
+           (1, 2, 4, 8, 16), (64, 128, 160, 256, 512), n,
+           lambda: cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh,
+                                              dec_dims))
 
 
 def profile(cfg, params):
@@ -119,6 +158,7 @@ def main():
     params = mfm.MFM(cfg, seed=0, device="cuda").tree()
     with torch.inference_mode():
         sweep(cfg, params, torch.device("cuda"))
+        train_sweep(cfg, params, torch.device("cuda"))
     profile(cfg, params)
 
 

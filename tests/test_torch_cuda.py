@@ -1,21 +1,27 @@
 """The port's CUDA kernels on the card: each against its plain version,
-the launch counts, and the card's Predictor against the CPU's. Every test
-here is marked ``gpu`` and skips without a CUDA card. Run on the card:
+the launch counts, the card's Predictor against the CPU's, and one train
+step's gradients on the card against the CPU's. Every test here is marked
+``gpu`` and skips without a CUDA card. Run on the card:
 ``python -m pytest tests/test_torch_cuda.py -m gpu``.
 
-Float32 with TF32 off; tolerance rtol 1e-4 / atol 1e-5, since the
-kernels sum in another order than cuBLAS."""
+Float32 with TF32 off; tolerance rtol 1e-4 / atol 1e-5 for forward
+values, since the kernels sum in another order than cuBLAS, and
+rtol 1e-3 / atol 2e-5 for gradients, whose sums run over t * n rows."""
 
 import numpy as np
 import pytest
 import torch
 
 from factorized_tpu_torch.config import MFMConfig, best_acc_mosi_config
+from factorized_tpu_torch.convert import from_state_dict, to_state_dict
 from factorized_tpu_torch.models import mfm
+from factorized_tpu_torch.models.common import mfn_drops
 from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
 from factorized_tpu_torch.serve import Predictor
+from factorized_tpu_torch.train import make_loss_fn
 
 TOL = dict(rtol=1e-4, atol=1e-5)
+GRAD = dict(rtol=1e-3, atol=2e-5)
 
 SMALL = MFMConfig(
     seqlength=6, input_dims=[8, 4, 5], h_dims=[6, 5, 4], memsize=6,
@@ -102,3 +108,109 @@ def test_predictor_on_the_card_matches_the_cpu(cuda):
             cuda_lstm.LAUNCHES - before[1]) == (2, 2)
     y_cpu = Predictor(cfg, params, device="cpu").predict(X)
     np.testing.assert_allclose(y, y_cpu, **TOL)
+
+
+def _train_operands(cfg, n, dev):
+    """The training kernels' inputs at batch n: the encode's operands and
+    masks, the decoder's operands, and cotangents; all on ``dev``."""
+    (xp, weights, z_tot, h_dims), (h0, c0, wsum, b, dec_dims) = \
+        _operands(cfg, n, dev)
+    t = cfg.seqlength
+    g = torch.Generator(device=dev).manual_seed(3)
+    masks = cuda_mfn.make_dropout_masks(g, t, n, cuda_mfn.sizes(weights)[:4],
+                                        mfn_drops(cfg))
+    dh = torch.randn(n, sum(h_dims), generator=g, device=dev)
+    dmem = torch.randn(n, weights["a2w2"].shape[1], generator=g, device=dev)
+    dallh = torch.randn(t, n, sum(dec_dims), generator=g, device=dev)
+    return ((xp, masks, weights, z_tot, h_dims, dh, dmem),
+            (h0, c0, wsum, b, dec_dims, dallh))
+
+
+@pytest.mark.parametrize("cfg,n", [(SMALL, 5), (best_acc_mosi_config(), 32)],
+                         ids=["small", "train"])
+def test_train_kernels_match_plain(cuda, cfg, n):
+    (xp, masks, weights, z_tot, h_dims, dh, dmem), \
+        (h0, c0, wsum, b, dec_dims, dallh) = _train_operands(cfg, n, cuda)
+    t = cfg.seqlength
+    with torch.inference_mode():
+        got = cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims)
+        want = cuda_mfn.mfm_encode_res_plain(xp, masks, weights, z_tot)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **TOL)
+        # the backward kernels on the plain residuals
+        res = want[2:]
+        dxp, deltas = cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem,
+                                           z_tot, h_dims)
+        want_dxp, want_deltas = cuda_mfn.mfm_encode_bwd_steps_plain(
+            xp, weights, *res, dh, dmem, z_tot)
+        torch.testing.assert_close(dxp, want_dxp, **GRAD)
+        torch.testing.assert_close(deltas, want_deltas, **GRAD)
+        dw = cuda_mfn._launch_dw(weights, res[1], res[2], res[3],
+                                 want_deltas, z_tot)
+        want_dw = cuda_mfn.mfm_encode_dw_plain(res[1], res[2], res[3],
+                                               want_deltas, weights, z_tot)
+        for k in cuda_mfn.DW_NAMES:
+            torch.testing.assert_close(dw[k], want_dw[k], **GRAD)
+        # deterministic: a rerun gives the same bits
+        again = cuda_mfn._launch_dw(weights, res[1], res[2], res[3],
+                                    want_deltas, z_tot)
+        assert all(torch.equal(dw[k], again[k]) for k in cuda_mfn.DW_NAMES)
+
+        allh, allc, gates = cuda_lstm.decoder_lstm_plain(h0, c0, wsum, b, t)
+        got = cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh, dec_dims)
+        want = cuda_lstm.decoder_lstm_bwd_plain(wsum, gates, allc, dallh)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **GRAD)
+        torch.cuda.synchronize()
+
+
+def test_each_train_wrapper_call_is_one_launch(cuda):
+    (xp, masks, weights, z_tot, h_dims, dh, dmem), \
+        (h0, c0, wsum, b, dec_dims, dallh) = _train_operands(SMALL, 3, cuda)
+    before = (cuda_mfn.LAUNCHES, cuda_mfn.BWD_LAUNCHES, cuda_mfn.DW_LAUNCHES,
+              cuda_lstm.BWD_LAUNCHES)
+    with torch.inference_mode():
+        outs = cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims)
+        cuda_mfn.mfm_encode_bwd(xp, weights, *outs[2:], dh, dmem, z_tot,
+                                h_dims)
+        allh, allc, gates = cuda_lstm.decoder_lstm_plain(
+            h0, c0, wsum, b, SMALL.seqlength)
+        cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh, dec_dims)
+        cuda_lstm.decoder_lstm_bwd_plain(wsum, gates, allc, dallh)
+    torch.cuda.synchronize()
+    assert (cuda_mfn.LAUNCHES, cuda_mfn.BWD_LAUNCHES, cuda_mfn.DW_LAUNCHES,
+            cuda_lstm.BWD_LAUNCHES) == tuple(x + 1 for x in before)
+
+
+def test_train_step_grads_on_the_card_match_the_cpu(cuda):
+    cfg = SMALL.replace(batchsize=4)
+    n, t = 4, cfg.seqlength
+    params = mfm.MFM(cfg, seed=5, device="cpu").tree()
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(t, n, cfg.d_total, generator=g)
+    y = torch.randn(n, generator=g)
+    draws = {
+        "encode_masks": cuda_mfn.make_dropout_masks(
+            g, t, n, (cfg.att1_shape, cfg.att2_shape, cfg.gamma1_shape,
+                      cfg.gamma2_shape), mfn_drops(cfg)),
+        "mmd_noise": torch.randn(mfm.mmd_noise_shape(cfg, n), generator=g),
+        "zf_masks": [None] + [
+            (torch.rand((n, f), generator=g) >= r).float() / (1.0 - r)
+            for f, r in ((cfg.fl_size, cfg.zl_to_fl_dropout),
+                         (cfg.fa_size, cfg.za_to_fa_dropout),
+                         (cfg.fv_size, cfg.zv_to_fv_dropout))],
+    }
+    loss_fn = make_loss_fn(mfm.mfm_apply, cfg)
+    grads = []
+    for dev in ("cpu", cuda):
+        tree = {k: v.detach().to(dev).requires_grad_()
+                for k, v in to_state_dict(params).items()}
+        loss, _ = loss_fn(from_state_dict(tree), x.to(dev), y.to(dev),
+                          draws={k: ([m if m is None else m.to(dev)
+                                      for m in v] if isinstance(v, list)
+                                     else v.to(dev))
+                                 for k, v in draws.items()})
+        loss.backward()
+        grads.append({k: v.grad.cpu() for k, v in tree.items()})
+    for k in grads[0]:
+        torch.testing.assert_close(grads[1][k], grads[0][k], **GRAD)

@@ -112,9 +112,15 @@ def test_module_state_dict_and_forward():
     again = mfm.MFM(cfg, seed=4, device="cpu")
     for k, v in model.state_dict().items():
         assert torch.equal(v, again.state_dict()[k])
+    # train mode: dropout from the generator, gradients to every parameter
     model.train()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(x, mmd_noise=noise)
+    out_t = model(x, generator=torch.Generator().manual_seed(1),
+                  mmd_noise=noise)
+    again = model(x, generator=torch.Generator().manual_seed(1),
+                  mmd_noise=noise)
+    assert torch.equal(out_t[0][0], again[0][0])
+    (sum(torch.sum(d) for d in out_t[0]) + out_t[1]).backward()
+    assert all(p.grad is not None for p in model.parameters())
 
 
 def test_eval_is_deterministic_per_generator_seed():
