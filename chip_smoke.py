@@ -27,8 +27,21 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    ``trainers.train_mfm``, checks finite, falling train loss and that the
    run launched every kernel, then times a train step, an epoch, the
    training kernels and their plain versions, and profiles the step;
-8. prints one JSON line on the five kernels, the ``nvidia-smi`` line, and
-   last ``{"ok": true, "device": {...}}``.
+8. holds the fused encoder-cell kernels (``multi_lstm_fwd``, eval at
+   n = 256 and train at n = 32, and ``multi_lstm_bwd`` at n = 32) against
+   their plain versions at the widths of ``kl_ef`` and ``missing``, and
+   times them beside the k per-cell ``torch.nn.LSTM`` (cuDNN) calls over
+   the same cells;
+9. serves ``kl_ef`` and ``missing`` from checkpoints over HTTP, replies
+   checked against the CPU; one train step's gradients of each on the
+   card against the CPU with the same injected draws; trains ``kl_ef``
+   through ``trainers.train_beta_vae`` (2 epochs per stage) and
+   ``missing`` through ``trainers.train_mfm_missing`` (2 epochs), checking
+   finite losses, a falling stage-1 and a falling ``missing`` loss and
+   that each path launched every kernel it runs; times and profiles each
+   model's train step;
+10. prints one JSON line on the seven kernels, the ``nvidia-smi`` line,
+    and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1.
 """
@@ -108,6 +121,35 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def counters():
+    """Each kernel's launch counter: {name: (module, attribute)}."""
+    from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
+
+    return {"mfm_encode_fwd": (cuda_mfn, "LAUNCHES"),
+            "mfm_encode_bwd": (cuda_mfn, "BWD_LAUNCHES"),
+            "mfm_encode_dw": (cuda_mfn, "DW_LAUNCHES"),
+            "decoder_lstm_fwd": (cuda_lstm, "LAUNCHES"),
+            "decoder_lstm_bwd": (cuda_lstm, "BWD_LAUNCHES"),
+            "multi_lstm_fwd": (cuda_lstm, "MULTI_LAUNCHES"),
+            "multi_lstm_bwd": (cuda_lstm, "MULTI_BWD_LAUNCHES")}
+
+
+def counted(path, kernels, fn):
+    """Runs fn() with every launch count set to 0 just before and read
+    just after; fails unless each of ``kernels`` was launched. Returns
+    (fn's result, seconds, {kernel: launches})."""
+    for module, attr in counters().values():
+        setattr(module, attr, 0)
+    t0 = time.perf_counter()
+    out = fn()
+    seconds = time.perf_counter() - t0
+    launches = {k: getattr(m, a) for k, (m, a) in counters().items()}
+    for name in kernels:
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was not launched on path {path}")
+    return out, seconds, launches
+
+
 def post(port, x):
     body = json.dumps({"x": x.tolist()}).encode()
     req = urllib.request.Request(
@@ -115,6 +157,73 @@ def post(port, x):
         headers={"Content-Type": "application/json"})
     with urllib.request.urlopen(req, timeout=120) as resp:
         return np.asarray(json.loads(resp.read())["y"], np.float32)
+
+
+def serve_requests(predictor, reference, requests):
+    """Serves ``requests`` over HTTP with micro-batching (the first two
+    alone, the rest concurrently) and checks every reply against the CPU
+    ``reference``. Returns (worst abs error, (batches run, requests
+    served))."""
+    from factorized_tpu_torch.serve import make_server
+
+    expected = [reference.predict(r) for r in requests]
+    server, batcher = make_server(predictor, "127.0.0.1", 0,
+                                  micro_batch=True)
+    port = server.server_address[1]
+    serving = threading.Thread(target=server.serve_forever, daemon=True)
+    serving.start()
+    try:
+        replies = [post(port, requests[0]), post(port, requests[1])]
+        with ThreadPoolExecutor(len(requests) - 2) as pool:
+            replies += list(pool.map(lambda r: post(port, r), requests[2:]))
+        batches = (batcher.batches_run, batcher.requests_served)
+    finally:
+        server.shutdown()
+        server.server_close()
+        batcher.close()
+    serving.join(timeout=10)
+    worst = 0.0
+    for r, y, want in zip(requests, replies, expected):
+        if y.shape != want.shape or not np.isfinite(y).all():
+            raise AssertionError(f"bad reply shape {y.shape} for {r.shape}")
+        np.testing.assert_allclose(y, want, rtol=RTOL, atol=ATOL)
+        worst = max(worst, float(np.abs(y - want).max()))
+    return worst, batches
+
+
+def grads_vs_cpu(label, loss_fn, params, x, y, draws, dev):
+    """One train step's gradients on the card against the CPU's plain
+    path: the same parameters, batch and injected draws (a dict of
+    tensors, or of lists of tensors or None, nested)."""
+    from factorized_tpu_torch.convert import from_state_dict, to_state_dict
+
+    def move(v, where):
+        if isinstance(v, dict):
+            return {k: move(u, where) for k, u in v.items()}
+        if isinstance(v, (list, tuple)):
+            return [move(u, where) for u in v]
+        return None if v is None else v.to(where)
+
+    grads = {}
+    for where in ("cpu", dev):
+        flat = {k: v.detach().to(where).requires_grad_()
+                for k, v in to_state_dict(params).items()}
+        loss, _ = loss_fn(from_state_dict(flat), x.to(where), y.to(where),
+                          draws=move(draws, where))
+        loss.backward()
+        grads[str(where)] = {k: (torch.zeros_like(v) if v.grad is None
+                                 else v.grad).cpu() for k, v in flat.items()}
+    return compare_all(label, [(k, grads[str(dev)][k], grads["cpu"][k])
+                               for k in grads["cpu"]], GRAD_RTOL, GRAD_ATOL)
+
+
+def zf_masks(cfg, n, generator):
+    """Scaled keep-masks of the four z->f sites (zy's rate is 0: None)."""
+    return [None] + [
+        (torch.rand((n, f), generator=generator) >= r).float() / (1.0 - r)
+        for f, r in ((cfg.fl_size, cfg.zl_to_fl_dropout),
+                     (cfg.fa_size, cfg.za_to_fa_dropout),
+                     (cfg.fv_size, cfg.zv_to_fv_dropout))]
 
 
 def main():
@@ -128,7 +237,7 @@ def main():
     from factorized_tpu_torch.models.common import split_modalities
     from factorized_tpu_torch.ops import _build, cuda_lstm, cuda_mfn
     from factorized_tpu_torch.ops.core import linear_apply
-    from factorized_tpu_torch.serve import Predictor, make_server
+    from factorized_tpu_torch.serve import Predictor
     from factorized_tpu_torch.utils.checkpoint import save_checkpoint
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -185,39 +294,15 @@ def main():
         save_checkpoint(ckpt, params, config=cfg.to_dict())
         predictor = Predictor.from_checkpoint(ckpt)
         reference = Predictor.from_checkpoint(ckpt, device="cpu")
-    expected = [reference.predict(r) for r in requests]
-    server, batcher = make_server(predictor, "127.0.0.1", 0,
-                                  micro_batch=True)
-    port = server.server_address[1]
-    serving = threading.Thread(target=server.serve_forever, daemon=True)
-    serving.start()
-    try:
-        cuda_mfn.LAUNCHES = 0
-        cuda_lstm.LAUNCHES = 0
-        replies = [post(port, requests[0]), post(port, requests[1])]
-        with ThreadPoolExecutor(len(requests) - 2) as pool:
-            replies += list(pool.map(lambda r: post(port, r), requests[2:]))
-        launches = {"mfm_encode_fwd": cuda_mfn.LAUNCHES,
-                    "decoder_lstm_fwd": cuda_lstm.LAUNCHES}
-        batches = (batcher.batches_run, batcher.requests_served)
-    finally:
-        server.shutdown()
-        server.server_close()
-        batcher.close()
-    serving.join(timeout=10)
-    worst = 0.0
-    for r, y, want in zip(requests, replies, expected):
-        if y.shape != want.shape or not np.isfinite(y).all():
-            raise AssertionError(f"bad reply shape {y.shape} for {r.shape}")
-        np.testing.assert_allclose(y, want, rtol=RTOL, atol=ATOL)
-        worst = max(worst, float(np.abs(y - want).max()))
+    (worst, batches), _, launches = counted(
+        "serve mfm", ("mfm_encode_fwd", "decoder_lstm_fwd"),
+        lambda: serve_requests(predictor, reference, requests))
+    launches = {k: launches[k] for k in ("mfm_encode_fwd",
+                                         "decoder_lstm_fwd")}
     log({"phase": "serve", "requests": len(requests),
          "samples": int(sum(REQUEST_SIZES)), "batches_run": batches[0],
          "requests_served": batches[1], "max_abs_err_vs_cpu": worst,
          "launches": launches})
-    for name, count in launches.items():
-        if count < 1:
-            raise AssertionError(f"{name} was not launched while serving")
 
     # ---- 5. times
     with torch.inference_mode():
@@ -291,7 +376,8 @@ def main():
     ]
 
     train_kernels = train_phase(cfg, dev, smi)
-    log({"kernels": serve_kernels + train_kernels})
+    variant_kernels = variants_phase(cfg, dev, smi)
+    log({"kernels": serve_kernels + train_kernels + variant_kernels})
     print(smi, flush=True)
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                 "count": torch.cuda.device_count()}})
@@ -311,7 +397,6 @@ def encode_macs_per_row(weights, h_dims, z_tot):
 def train_phase(cfg, dev, smi):
     """Steps 6 and 7; returns the kernels-line entries of the three
     training kernels."""
-    from factorized_tpu_torch.convert import from_state_dict, to_state_dict
     from factorized_tpu_torch.data import mosi
     from factorized_tpu_torch.models import mfm
     from factorized_tpu_torch.models.common import mfn_drops
@@ -377,43 +462,24 @@ def train_phase(cfg, dev, smi):
         "encode_masks": cuda_mfn.make_dropout_masks(
             cpu, t, n, cuda_mfn.sizes(weights)[:4], mfn_drops(cfg)),
         "mmd_noise": torch.randn(mfm.mmd_noise_shape(cfg, n), generator=cpu),
-        "zf_masks": [None] + [
-            (torch.rand((n, f), generator=cpu) >= r).float() / (1.0 - r)
-            for f, r in ((cfg.fl_size, cfg.zl_to_fl_dropout),
-                         (cfg.fa_size, cfg.za_to_fa_dropout),
-                         (cfg.fv_size, cfg.zv_to_fv_dropout))],
+        "zf_masks": zf_masks(cfg, n, cpu),
     }
     program = TrainProgram(mfm.mfm_apply, cfg)
-    grads = {}
-    for where in ("cpu", dev):
-        flat = {k: v.detach().to(where).requires_grad_()
-                for k, v in to_state_dict(params).items()}
-        loss, _ = program.loss_fn(
-            from_state_dict(flat), x.to(where), y.to(where),
-            draws={k: ([m if m is None else m.to(where) for m in v]
-                       if isinstance(v, list) else v.to(where))
-                   for k, v in draws.items()})
-        loss.backward()
-        grads[str(where)] = {k: v.grad.cpu() for k, v in flat.items()}
-    compare_all("train_step_grads_vs_cpu",
-                [(k, grads[str(dev)][k], grads["cpu"][k])
-                 for k in grads["cpu"]], GRAD_RTOL, GRAD_ATOL)
+    grads_vs_cpu("train_step_grads_vs_cpu", program.loss_fn, params, x, y,
+                 draws, dev)
 
     # ---- 7a. the training path: 2 epochs of synthetic MOSI through the
     #      trainer, every kernel's count read just after
     data = mosi.get_data(cfg.seqlength)
-    counted = {"mfm_encode_fwd": (cuda_mfn, "LAUNCHES"),
-               "mfm_encode_bwd": (cuda_mfn, "BWD_LAUNCHES"),
-               "mfm_encode_dw": (cuda_mfn, "DW_LAUNCHES"),
-               "decoder_lstm_fwd": (cuda_lstm, "LAUNCHES"),
-               "decoder_lstm_bwd": (cuda_lstm, "BWD_LAUNCHES")}
-    for module, attr in counted.values():
-        setattr(module, attr, 0)
-    t0 = time.perf_counter()
-    run = train_mfm(*data, cfg.replace(num_epochs=TRAIN_EPOCHS), seed=SEED,
-                    logger=RunLogger(echo=False), device=dev)
-    train_s = time.perf_counter() - t0
-    launches = {k: getattr(m, a) for k, (m, a) in counted.items()}
+    run, train_s, launches = counted(
+        "train mfm", ("mfm_encode_fwd", "mfm_encode_bwd", "mfm_encode_dw",
+                      "decoder_lstm_fwd", "decoder_lstm_bwd"),
+        lambda: train_mfm(*data, cfg.replace(num_epochs=TRAIN_EPOCHS),
+                          seed=SEED, logger=RunLogger(echo=False),
+                          device=dev))
+    launches = {k: launches[k] for k in (
+        "mfm_encode_fwd", "mfm_encode_bwd", "mfm_encode_dw",
+        "decoder_lstm_fwd", "decoder_lstm_bwd")}
     losses = [e["train_loss"] for e in run["history"]]
     log({"phase": "train", "epochs": TRAIN_EPOCHS, "seconds": train_s,
          "history": run["history"], "metrics": run["metrics"],
@@ -424,9 +490,6 @@ def train_phase(cfg, dev, smi):
         raise AssertionError(f"train loss did not fall: {losses}")
     if not np.all(np.isfinite(list(run["metrics"].values()))):
         raise AssertionError(f"non-finite test metrics {run['metrics']}")
-    for name, count in launches.items():
-        if count < 1:
-            raise AssertionError(f"{name} was not launched while training")
 
     # ---- 7b. times: a step, an epoch, each training kernel and its plain
     #      version
@@ -507,6 +570,244 @@ def train_phase(cfg, dev, smi):
         entry("decoder_lstm_bwd", "decoder_lstm_bwd.cu",
               "factorized_tpu/ops/pallas_lstm.py:298", err_decb, decb_ms,
               decb_plain_ms, decb_bound),
+    ]
+
+
+def multi_lstm_phase(cfg, dev, smi):
+    """Step 8: the fused encoder-cell kernels against their plain versions
+    and beside the k per-cell cuDNN LSTMs, at both models' widths.
+    Returns {model type: numbers}."""
+    from factorized_tpu_torch.models import mfm
+    from factorized_tpu_torch.ops import cuda_lstm
+
+    t = cfg.seqlength
+    out = {}
+    for k, model_type in enumerate(("kl_ef", "missing")):
+        params = mfm.MFM(cfg, seed=SEED + 10 + k, device=dev,
+                         model_type=model_type).tree()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 12 + k)
+        x_eval = torch.randn((t, N_SERVE, cfg.d_total), generator=gen,
+                             device=dev)
+        x_train = torch.randn((t, N_TRAIN, cfg.d_total), generator=gen,
+                              device=dev)
+        with torch.inference_mode():
+            xp, wh, h_dims = mfm.multi_lstm_operands(params, x_eval, cfg,
+                                                     model_type)
+            h_last = cuda_lstm.multi_lstm_fwd(xp, wh, h_dims)
+            torch.cuda.synchronize()
+            err_fwd = compare(f"multi_lstm_fwd.{model_type}.h_last",
+                              h_last, cuda_lstm.multi_lstm_plain(xp, wh))
+            fwd_ms = cuda_ms(lambda: cuda_lstm.multi_lstm_fwd(xp, wh,
+                                                              h_dims), 50)
+            fwd_plain_ms = cuda_ms(lambda: cuda_lstm.multi_lstm_plain(xp, wh),
+                                   10)
+            xp32, _, _ = mfm.multi_lstm_operands(params, x_train, cfg,
+                                                 model_type)
+            res = cuda_lstm.multi_lstm_fwd(xp32, wh, h_dims, with_res=True)
+            res_ref = cuda_lstm.multi_lstm_plain(xp32, wh, with_res=True)
+            torch.cuda.synchronize()
+            err_train = compare_all(
+                f"multi_lstm_fwd.{model_type}.train",
+                zip(("h_last", "allh", "allc", "gates"), res, res_ref))
+            train_ms = cuda_ms(lambda: cuda_lstm.multi_lstm_fwd(
+                xp32, wh, h_dims, with_res=True), 50)
+            _, _, allc, gates = res_ref  # the backward reads the plain ones
+            dh = torch.randn((N_TRAIN, sum(h_dims)), generator=gen,
+                             device=dev)
+            dxp = cuda_lstm.multi_lstm_bwd(gates, wh, allc, dh, h_dims)
+            dxp_ref = cuda_lstm.multi_lstm_bwd_plain(gates, wh, allc, dh)
+            torch.cuda.synchronize()
+            err_bwd = compare(f"multi_lstm_bwd.{model_type}.dxp", dxp,
+                              dxp_ref, GRAD_RTOL, GRAD_ATOL)
+            bwd_ms = cuda_ms(lambda: cuda_lstm.multi_lstm_bwd(
+                gates, wh, allc, dh, h_dims), 50)
+            bwd_plain_ms = cuda_ms(lambda: cuda_lstm.multi_lstm_bwd_plain(
+                gates, wh, allc, dh), 10)
+
+        # the yardstick, used nowhere in the port: the same cells as k
+        # cuDNN LSTMs (input projection included), forward at n = 256,
+        # backward at n = 32 as (forward + backward) - forward
+        cells, xs = mfm.fused_cells(params, x_eval, cfg, model_type)
+        xs = [xi.contiguous() for xi in xs]
+        lstms = [torch.nn.LSTM(xi.shape[2], c["wh"].shape[0]).to(dev)
+                 for c, xi in zip(cells, xs)]
+        with torch.inference_mode():
+            lib_fwd_ms = cuda_ms(lambda: [m(xi) for m, xi in zip(lstms, xs)],
+                                 50)
+        xs32 = [xi.detach().contiguous().requires_grad_() for xi in
+                mfm.fused_cells(params, x_train, cfg, model_type)[1]]
+
+        def lib_forward():
+            return [m(xi)[1][0] for m, xi in zip(lstms, xs32)]
+
+        def lib_both():
+            hs = lib_forward()
+            torch.autograd.backward(hs, [torch.ones_like(h) for h in hs])
+
+        lib_bwd_ms = cuda_ms(lib_both, 50) - cuda_ms(lib_forward, 50)
+
+        hh = 4 * sum(h * h for h in h_dims)
+        fwd_bound = bound(2 * t * N_SERVE * hh, nbytes(xp, wh, h_last))
+        train_bound = bound(2 * t * N_TRAIN * hh, nbytes(xp32, wh, *res))
+        bwd_bound = bound(2 * (t - 1) * N_TRAIN * hh,
+                          nbytes(gates, allc, dh, wh, dxp))
+        out[model_type] = {
+            "h_dims": h_dims, "H": sum(h_dims), "nvidia_smi": smi,
+            "fwd": {"n": N_SERVE, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+                    "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
+                    "library_ms": lib_fwd_ms,
+                    "max_abs_err": max(err_fwd["max_abs_err"],
+                                       err_train["max_abs_err"])},
+            "fwd_train": {"n": N_TRAIN, "ms": train_ms,
+                          "bound_ms": train_bound[0],
+                          "bound_by": train_bound[1]},
+            "bwd": {"n": N_TRAIN, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+                    "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
+                    "library_ms": lib_bwd_ms,
+                    "max_abs_err": err_bwd["max_abs_err"]},
+        }
+        log({"phase": "multi_lstm", "model_type": model_type,
+             **out[model_type]})
+    return out
+
+
+def variants_phase(cfg, dev, smi):
+    """Steps 8 and 9; returns the kernels-line entries of the two fused
+    encoder-cell kernels."""
+    from factorized_tpu_torch.data import mosi
+    from factorized_tpu_torch.models import mfm
+    from factorized_tpu_torch.models.common import mfn_drops
+    from factorized_tpu_torch.ops import cuda_mfn
+    from factorized_tpu_torch.serve import Predictor
+    from factorized_tpu_torch.train import TrainProgram, make_optimizer
+    from factorized_tpu_torch.trainers import (train_beta_vae,
+                                               train_mfm_missing)
+    from factorized_tpu_torch.utils.checkpoint import save_checkpoint
+    from factorized_tpu_torch.utils.logging import RunLogger
+
+    kernels = multi_lstm_phase(cfg, dev, smi)
+    t, n = cfg.seqlength, N_TRAIN
+    cfgs = {"kl_ef": cfg.replace(model_type="kl_ef"),
+            "missing": cfg.replace(missing=1)}
+    # the kernels each path runs
+    runs = {"kl_ef": ("multi_lstm_fwd", "decoder_lstm_fwd"),
+            "missing": ("mfm_encode_fwd", "multi_lstm_fwd",
+                        "decoder_lstm_fwd")}
+    trains = {"kl_ef": runs["kl_ef"] + ("multi_lstm_bwd", "decoder_lstm_bwd"),
+              "missing": tuple(counters())}
+    multi = {"multi_lstm_fwd": 0, "multi_lstm_bwd": 0}
+
+    # ---- 9a. serve each model from a checkpoint
+    rng = np.random.default_rng(SEED + 20)
+    requests = [np.round(rng.normal(size=(k, t, cfg.d_total)), 3)
+                .astype(np.float32) for k in (1, 3, 64, 256, 300)]
+    for k, (model_type, mcfg) in enumerate(cfgs.items()):
+        params = mfm.MFM(mcfg, seed=SEED + 21 + k, device="cpu",
+                         model_type=model_type).tree()
+        with tempfile.TemporaryDirectory() as ckpt:
+            save_checkpoint(ckpt, params, config=mcfg.to_dict())
+            predictor = Predictor.from_checkpoint(ckpt, model_type=model_type)
+            reference = Predictor.from_checkpoint(ckpt, model_type=model_type,
+                                                  device="cpu")
+        (worst, batches), _, launches = counted(
+            f"serve {model_type}", runs[model_type],
+            lambda: serve_requests(predictor, reference, requests))
+        multi["multi_lstm_fwd"] += launches["multi_lstm_fwd"]
+        log({"phase": "serve", "model_type": model_type,
+             "requests": len(requests), "batches_run": batches[0],
+             "requests_served": batches[1], "max_abs_err_vs_cpu": worst,
+             "launches": {k: launches[k] for k in runs[model_type]}})
+
+    # ---- 9b. one train step's gradients of each, card against the CPU
+    cpu = torch.Generator().manual_seed(SEED + 30)
+    x = torch.randn((t, n, cfg.d_total), generator=cpu)
+    y = torch.randn((n,), generator=cpu)
+    sizes = (cfg.att1_shape, cfg.att2_shape, cfg.gamma1_shape,
+             cfg.gamma2_shape)
+    step_draws = {
+        "kl_ef": {"zf_masks": zf_masks(cfg, n, cpu)},
+        "missing": {
+            "encode_masks": cuda_mfn.make_dropout_masks(cpu, t, n, sizes,
+                                                        mfn_drops(cfg)),
+            "mmd_noise": torch.randn(mfm.mmd_noise_shape(cfg, n),
+                                     generator=cpu),
+            "zf_masks": [zf_masks(cfg, n, cpu) for _ in range(4)]},
+    }
+    programs = {
+        "kl_ef": TrainProgram(mfm.mfm_kl_ef_apply, cfgs["kl_ef"],
+                              "beta_vae", stage=1),
+        "missing": TrainProgram(mfm.mfm_missing_apply, cfgs["missing"],
+                                "missing"),
+    }
+    for k, model_type in enumerate(cfgs):
+        params = mfm.MFM(cfg, seed=SEED + 31 + k, device="cpu",
+                         model_type=model_type).tree()
+        grads_vs_cpu(f"train_step_grads_vs_cpu.{model_type}",
+                     programs[model_type].loss_fn, params, x, y,
+                     step_draws[model_type], dev)
+
+    # ---- 9c. the training paths on the synthetic MOSI set
+    data = mosi.get_data(t)
+    train_fns = {"kl_ef": train_beta_vae, "missing": train_mfm_missing}
+    for model_type, mcfg in cfgs.items():
+        run, seconds, launches = counted(
+            f"train {model_type}", trains[model_type],
+            lambda: train_fns[model_type](
+                *data, mcfg.replace(num_epochs=TRAIN_EPOCHS), seed=SEED,
+                logger=RunLogger(echo=False), device=dev))
+        for name in multi:
+            multi[name] += launches[name]
+        hist = run["history"]
+        log({"phase": "train", "model_type": model_type,
+             "epochs": TRAIN_EPOCHS, "seconds": seconds, "history": hist,
+             "metrics": run["metrics"],
+             "launches": {k: launches[k] for k in trains[model_type]}})
+        first = [e["train_loss"] for e in hist if e.get("stage", 1) == 1]
+        want = TRAIN_EPOCHS * (2 if model_type == "kl_ef" else 1)
+        losses = [e["train_loss"] for e in hist]
+        if len(hist) != want or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{model_type} did not train clean: {hist}")
+        if not first[-1] < first[0]:
+            raise AssertionError(f"{model_type} loss did not fall: {first}")
+        scores = run["metrics"]
+        flat = [v for m in scores.values()
+                for v in (m.values() if isinstance(m, dict) else [m])]
+        if not np.all(np.isfinite(flat)):
+            raise AssertionError(f"non-finite test metrics {scores}")
+
+    # ---- 9d. each model's train step, timed and profiled
+    Xb = torch.from_numpy(np.ascontiguousarray(
+        data[0][:19 * n].reshape(19, n, t, -1).transpose(0, 2, 1, 3))).to(dev)
+    yb = torch.from_numpy(data[1][:19 * n].reshape(19, n)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    for model_type, program in programs.items():
+        tree = mfm.MFM(cfg, seed=SEED, device=dev,
+                       model_type=model_type).tree()
+        opt = make_optimizer(tree, 1e-3)
+        step_ms = cuda_ms(lambda: program.step(tree, opt, Xb[0], yb[0], gen,
+                                               1e-3), 30)
+        prof = profile_steps(program, tree, opt, Xb[0], yb[0], gen)
+        log({"phase": "train_times", "model_type": model_type, "batch": n,
+             "loss": ("beta_vae stage 1" if model_type == "kl_ef"
+                      else "missing"),
+             "nvidia_smi": smi, "step_ms": step_ms,
+             "steps_per_s": 1e3 / step_ms, **prof})
+
+    def entry(name, source, replaces, numbers):
+        return {"name": name, "route": "cuda",
+                "source": f"factorized_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": multi[name],
+                "max_abs_err": max(kernels[m][numbers]["max_abs_err"]
+                                   for m in kernels),
+                **{key: kernels["kl_ef"][numbers][key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}}
+
+    return [
+        entry("multi_lstm_fwd", "multi_lstm_fwd.cu",
+              "factorized_tpu/ops/pallas_lstm.py:88", "fwd"),
+        entry("multi_lstm_bwd", "multi_lstm_bwd.cu",
+              "factorized_tpu/ops/pallas_lstm.py:116", "bwd"),
     ]
 
 

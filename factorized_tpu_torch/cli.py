@@ -1,10 +1,11 @@
 """Command line of the port: ``python -m factorized_tpu_torch mosi`` and
 ``python -m factorized_tpu_torch serve``.
 
-Ported subcommands: ``mosi`` with ``--type mfm`` (``factorized_tpu/cli.py``'s
-``run_dataset`` for MOSI, modes ``best`` and ``single``, on the synthetic
-MOSI set) and ``serve`` (``run_serve``, from a checkpoint of this
-package). Both run on the CUDA card unless ``--device`` says otherwise.
+Ported subcommands: ``mosi`` (``factorized_tpu/cli.py``'s ``run_dataset``
+for MOSI, modes ``best`` and ``single``, on the synthetic MOSI set) with
+``--type mfm``, ``--type kl_ef`` and ``--missing 1``, and ``serve``
+(``run_serve``, from a checkpoint of this package). Both run on the CUDA
+card unless ``--device`` says otherwise.
 """
 
 from __future__ import annotations
@@ -17,24 +18,53 @@ MOSI = dict(task="regression", threshold=0.0, mode="ge",
             input_dims=[300, 5, 20], output_dim=1)
 
 
+# the trainers of the JAX package's dispatch that the port has
+PORTED_TRAINERS = ("train_mfm", "train_beta_vae", "train_mfm_missing")
+
+
+def trainer_name(cfg):
+    """The trainer the JAX package's ``dispatch_trainer`` picks for
+    ``cfg``, by the same if-chain. One the port does not have, or
+    ``train_mfm`` for ``kl``, exits with "not yet ported"."""
+    kind = cfg.model_type
+    if cfg.missing == 1 and kind in ("bm", "mfm", "s2s"):
+        name = {"bm": "train_basic_missing", "mfm": "train_mfm_missing",
+                "s2s": "train_seq2seq"}[kind]
+    elif cfg.zeros == 1 and kind == "mfm":
+        name = "train_mfm_test_zeros"
+    elif kind in ("mfm", "kl"):
+        name = "train_mfm"
+    elif kind == "kl_ef":
+        name = "train_beta_vae"
+    elif kind in ("m_a", "m_b", "m_c", "m_d"):
+        name = "train_mfm_ablation"
+    else:
+        raise SystemExit(f"no trainer for type={kind!r} "
+                         f"missing={cfg.missing} zeros={cfg.zeros}")
+    if name not in PORTED_TRAINERS or kind == "kl":
+        raise SystemExit(
+            f"--type {kind} --missing {cfg.missing} --zeros {cfg.zeros} "
+            f"({name}) is not yet ported; the port trains --type mfm, "
+            f"--type kl_ef and --missing 1")
+    return name
+
+
 def mosi_config(args):
     """The configuration of a ``mosi`` run: ``best_acc_mosi_config`` in
     ``--mode best``, the ``MFMConfig`` defaults in ``--mode single``,
-    with ``--epochs`` and ``--batchsize`` applied."""
+    with ``--type``, ``--missing``, ``--zeros``, ``--epochs`` and
+    ``--batchsize`` applied."""
     from factorized_tpu_torch.config import MFMConfig, best_acc_mosi_config
 
-    if args.type != "mfm" or args.missing or args.zeros:
-        raise SystemExit(
-            f"--type {args.type} --missing {args.missing} --zeros "
-            f"{args.zeros} is not yet ported; the port trains --type mfm")
+    pick = dict(model_type=args.type, missing=args.missing, zeros=args.zeros)
     if args.mode == "best":
-        cfg = best_acc_mosi_config(model_type=args.type, missing=0, zeros=0)
+        cfg = best_acc_mosi_config(**pick)
         cfg = cfg.replace(input_dims=MOSI["input_dims"])
     else:
         cfg = MFMConfig(seqlength=20).replace(
-            model_type=args.type, missing=0, zeros=0,
-            input_dims=MOSI["input_dims"], output_dim=MOSI["output_dim"],
-            task=MOSI["task"])
+            **pick, input_dims=MOSI["input_dims"],
+            output_dim=MOSI["output_dim"], task=MOSI["task"])
+    trainer_name(cfg)
     if args.epochs:
         cfg = cfg.replace(num_epochs=args.epochs)
     if args.batchsize:
@@ -49,8 +79,7 @@ def load_mosi(seqlength):
 
 
 def run_mosi(args):
-    from factorized_tpu_torch import resolve_device
-    from factorized_tpu_torch.trainers import train_mfm
+    from factorized_tpu_torch import resolve_device, trainers
     from factorized_tpu_torch.utils.checkpoint import save_checkpoint
     from factorized_tpu_torch.utils.logging import RunLogger
 
@@ -61,9 +90,10 @@ def run_mosi(args):
     logger.text(json.dumps(cfg.to_dict()))
     logger.record("config", **cfg.to_dict())
     try:
-        res = train_mfm(*data, cfg, lr=args.lr, logger=logger,
-                        seed=args.seed, binary_threshold=MOSI["threshold"],
-                        threshold_mode=MOSI["mode"], device=device)
+        train = getattr(trainers, trainer_name(cfg))
+        res = train(*data, cfg, lr=args.lr, logger=logger, seed=args.seed,
+                    binary_threshold=MOSI["threshold"],
+                    threshold_mode=MOSI["mode"], device=device)
         if args.save_ckpt:
             path = f"{args.out}/ckpt_mosi_0"
             save_checkpoint(path, res["params"], opt_state=res["opt_state"],
@@ -89,11 +119,12 @@ def build_parser():
     sub = p.add_subparsers(dest="command", required=True)
     sp = sub.add_parser("mosi", help="train MFM on (synthetic) CMU-MOSI")
     sp.add_argument("--type", default="mfm",
-                    help="model type; only mfm is ported")
+                    help="model type; mfm and kl_ef are ported")
     sp.add_argument("--mode", default="single", choices=["best", "single"],
                     help="best: best_acc_mosi_config; single: the "
                          "MFMConfig defaults")
-    sp.add_argument("--missing", type=int, default=0)
+    sp.add_argument("--missing", type=int, default=0,
+                    help="1: train MFM_missing (with --type mfm)")
     sp.add_argument("--zeros", type=int, default=0)
     sp.add_argument("--epochs", type=int, default=None)
     sp.add_argument("--batchsize", type=int, default=None)
@@ -103,7 +134,7 @@ def build_parser():
     sp.add_argument("--out", default="runs",
                     help="directory of the JSONL log and the checkpoint")
     sp.add_argument("--save-ckpt", action="store_true",
-                    help="save the best parameters and the optimizer "
+                    help="save the trained parameters and the optimizer "
                          "state under <out>/ckpt_mosi_0")
     sp.add_argument("--device", default=None,
                     help="torch device; the CUDA card unless given "

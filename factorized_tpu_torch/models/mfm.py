@@ -1,17 +1,25 @@
-"""The MFM model (port of ``factorized_tpu/models/mfm.py``, the ``mfm``
-family member, eval and train forward).
+"""The MFM family (port of ``factorized_tpu/models/mfm.py``): MFM, the
+early-fusion variational MFM_KL_EF (``kl_ef``) and MFM_missing
+(``missing``), eval and train forward.
 
-Three unimodal encoders give zl/za/zv and the MFN gives zy, all in one
-fused encode; MMD ties the four latents to a Gaussian; the z->f MLPs
-feed the three decoders on [fy, f_m] and the label head fy -> y. The
-port always takes the fused path. ``mfm_apply`` returns
-``(decoded, mmd, 0.0)`` with ``decoded = [x_l_hat, x_a_hat, x_v_hat,
-y_hat]``.
+- ``mfm``: three unimodal encoders give zl/za/zv and the MFN gives zy,
+  all in one fused encode; MMD ties the four latents to a Gaussian; the
+  z->f MLPs feed the three decoders on [fy, f_m] and the label head
+  fy -> y. Returns ``(decoded, mmd, 0.0)`` with ``decoded = [x_l_hat,
+  x_a_hat, x_v_hat, y_hat]``.
+- ``kl_ef``: mu/logvar heads per latent, zy from a joint early-fusion
+  encoder; the four encoders run as one fused recurrence; the KLD is
+  the regulariser; decodes from the mean, a quirk of the reference kept
+  as it is. Returns ``(decoded, kld, 0.0)``.
+- ``missing``: MFM plus six surrogate encoders (one fused recurrence)
+  that infer a modality's latent, or zy, from the other two; decodes
+  four ways. Returns ``(decoded, decoded_nol, decoded_noa, decoded_nov,
+  mmd, missing_loss)``.
 
-Every random draw of a train forward has an injection point, in the
-order of the JAX package's ``subkeys(key, 4)``: the encode's dropout
-masks, the MMD Gaussian, the z->f dropout masks and the y-head's. What
-is not handed in is drawn from the ``torch.Generator``.
+The port always takes the fused path. Every random draw of a train
+forward has an injection point, in the order of the JAX package's
+``subkeys``; what is not handed in is drawn from the
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -31,14 +39,21 @@ from factorized_tpu_torch.models.common import (
     yhead_apply,
     yhead_init,
 )
-from factorized_tpu_torch.ops.core import dropout, linear_apply
+from factorized_tpu_torch.ops.core import dropout, linear_apply, linear_init
 from factorized_tpu_torch.ops.fused import (blockdiag, decoder_operands,
                                             encode_operands,
                                             fused_decoder_scan,
-                                            fused_mfm_encode, split_heads)
+                                            fused_lstm_scan,
+                                            fused_mfm_encode, lstm_operands,
+                                            split_heads)
+from factorized_tpu_torch.ops.losses import l2_loss, loss_kld
+from factorized_tpu_torch.ops.lstm import encoder_init
 
 _ENCODERS = ("encoder_l", "encoder_a", "encoder_v")
 _DECODERS = ("decoder_l", "decoder_a", "decoder_v")
+# the surrogate encoders of ``missing``, in the JAX package's order
+_SURROGATES = ("encoder_la_to_v", "encoder_lv_to_a", "encoder_av_to_l",
+               "encoder_la_to_y", "encoder_lv_to_y", "encoder_av_to_y")
 
 
 def _zf_all(params, zy, zl, za, zv, cfg=None, *, train=False,
@@ -147,17 +162,179 @@ def mfm_apply(params, x, cfg, *, generator=None, train=False,
                                          train=train, generator=generator,
                                          masks=encode_masks)
     zy = linear_apply(params["mfn_enc"]["last_to_zy"], mfn_last)
-    if mmd_noise is None:
-        if generator is None:
-            raise ValueError("mfm_apply needs a torch.Generator or mmd_noise")
-        mmd_noise = torch.randn(mmd_noise_shape(cfg, x.shape[1]),
-                                generator=generator, device=x.device)
-    mmd = _mmd4(zl, za, zv, zy, mmd_noise)
+    mmd = _mmd4(zl, za, zv, zy, _mmd_noise(mmd_noise, generator, cfg, x))
     fy, fl, fa, fv = _zf_all(params, zy, zl, za, zv, cfg, train=train,
                              generator=generator, masks=zf_masks)
     decoded = _decode(params, fy, fl, fa, fv, t, cfg, train=train,
                       generator=generator, y_mask=y_mask)
     return decoded, mmd, 0.0
+
+
+def _mmd_noise(noise, generator, cfg, x):
+    """The MMD Gaussian: ``noise`` when handed in, else drawn."""
+    if noise is not None:
+        return noise
+    if generator is None:
+        raise ValueError("the MMD term needs a torch.Generator or mmd_noise")
+    return torch.randn(mmd_noise_shape(cfg, x.shape[1]), generator=generator,
+                       device=x.device)
+
+
+# ------------------------------------------------------- variational heads
+
+def _varhead_init(generator, cfg):
+    """Per-latent mu/logvar projections."""
+    return {
+        "last_to_zl": linear_init(generator, cfg.zl_size, cfg.zl_size),
+        "last_to_za": linear_init(generator, cfg.za_size, cfg.za_size),
+        "last_to_zv": linear_init(generator, cfg.zv_size, cfg.zv_size),
+        "last_to_logvarzl": linear_init(generator, cfg.zl_size, cfg.zl_size),
+        "last_to_logvarza": linear_init(generator, cfg.za_size, cfg.za_size),
+        "last_to_logvarzv": linear_init(generator, cfg.zv_size, cfg.zv_size),
+    }
+
+
+def _var_latents(params, zl_last, za_last, zv_last):
+    vh = params["varhead"]
+    zl = linear_apply(vh["last_to_zl"], zl_last)
+    za = linear_apply(vh["last_to_za"], za_last)
+    zv = linear_apply(vh["last_to_zv"], zv_last)
+    lv_l = linear_apply(vh["last_to_logvarzl"], zl_last)
+    lv_a = linear_apply(vh["last_to_logvarza"], za_last)
+    lv_v = linear_apply(vh["last_to_logvarzv"], zv_last)
+    return zl, za, zv, lv_l, lv_a, lv_v
+
+
+# ------------------------------------------------------------------ kl_ef
+
+def mfm_kl_ef_init(generator, cfg):
+    """The parameter tree, keyed as the JAX package's ``mfm_kl_ef_init``."""
+    last_ef = cfg.zl_size + cfg.za_size + cfg.zv_size
+    return {
+        "enc": trio_encoder_init(generator, cfg),
+        "dec": trio_decoder_init(generator, cfg),
+        "varhead": _varhead_init(generator, cfg),
+        "ef_encoder": encoder_init(generator, cfg.d_total, last_ef),
+        "last_to_zy": linear_init(generator, last_ef, cfg.zy_size),
+        "last_to_logvarzy": linear_init(generator, last_ef, cfg.zy_size),
+        "zf": trio_zf_init(generator, cfg),
+        "fy_to_y": yhead_init(generator, cfg.fy_size, cfg.output_dim),
+    }
+
+
+def _kl_ef_cells(params, x, cfg):
+    """The four fused encoder cells of ``kl_ef`` and their inputs."""
+    enc = params["enc"]
+    cells = ([enc[k]["lstm"] for k in _ENCODERS]
+             + [params["ef_encoder"]["lstm"]])
+    return cells, [*split_modalities(x, cfg.input_dims), x]
+
+
+def mfm_kl_ef_apply(params, x, cfg, *, generator=None, train=False,
+                    zf_masks=None, y_mask=None):
+    """x (t, n, d_total) time-major -> (decoded, kld, 0.0). The draws, in
+    the order of the JAX package's ``subkeys(key, 2)``: ``zf_masks`` and
+    ``y_mask`` as in ``mfm_apply``; the eval forward draws nothing."""
+    t = x.shape[0]
+    enc = params["enc"]
+    hl, ha, hv, h_ef = fused_lstm_scan(*_kl_ef_cells(params, x, cfg))
+    zl, za, zv, lv_l, lv_a, lv_v = _var_latents(
+        params, linear_apply(enc["encoder_l"]["fc1"], hl),
+        linear_apply(enc["encoder_a"]["fc1"], ha),
+        linear_apply(enc["encoder_v"]["fc1"], hv))
+    ef_last = linear_apply(params["ef_encoder"]["fc1"], h_ef)
+    zy = linear_apply(params["last_to_zy"], ef_last)
+    lv_y = linear_apply(params["last_to_logvarzy"], ef_last)
+    kld = (loss_kld(zl, lv_l) + loss_kld(za, lv_a) + loss_kld(zv, lv_v)
+           + loss_kld(zy, lv_y))
+    # decodes from the MEAN latents, as the reference does
+    fy, fl, fa, fv = _zf_all(params, zy, zl, za, zv, cfg, train=train,
+                             generator=generator, masks=zf_masks)
+    decoded = _decode(params, fy, fl, fa, fv, t, cfg, train=train,
+                      generator=generator, y_mask=y_mask)
+    return decoded, kld, 0.0
+
+
+# ---------------------------------------------------------------- missing
+
+def mfm_missing_init(generator, cfg):
+    """The parameter tree, keyed as the JAX package's
+    ``mfm_missing_init``."""
+    d_l, d_a, d_v = cfg.input_dims
+    tree = mfm_init(generator, cfg)
+    widths = ((d_l + d_a, cfg.zv_size), (d_l + d_v, cfg.za_size),
+              (d_a + d_v, cfg.zl_size), (d_l + d_a, cfg.zy_size),
+              (d_l + d_v, cfg.zy_size), (d_a + d_v, cfg.zy_size))
+    for name, (d, h) in zip(_SURROGATES, widths):
+        tree[name] = encoder_init(generator, d, h)
+    return tree
+
+
+def _missing_cells(params, x, cfg):
+    """The six fused surrogate encoder cells of ``missing`` and their
+    inputs."""
+    x_l, x_a, x_v = split_modalities(x, cfg.input_dims)
+    x_la = torch.cat([x_l, x_a], dim=2)
+    x_lv = torch.cat([x_l, x_v], dim=2)
+    x_av = torch.cat([x_a, x_v], dim=2)
+    return ([params[k]["lstm"] for k in _SURROGATES],
+            [x_la, x_lv, x_av, x_la, x_lv, x_av])
+
+
+def mfm_missing_apply(params, x, cfg, *, generator=None, train=False,
+                      encode_masks=None, mmd_noise=None, zf_masks=None,
+                      y_masks=None):
+    """x (t, n, d_total) time-major -> (decoded, decoded_nol, decoded_noa,
+    decoded_nov, mmd, missing_loss). The draws, in the order of the JAX
+    package's ``subkeys(key, 6)``: ``encode_masks`` and ``mmd_noise`` as
+    in ``mfm_apply``, then the four decodes (all present, l missing, a
+    missing, v missing), each with its z->f masks (``zf_masks[k]``, four
+    masks or None as in ``mfm_apply``) and its y-head mask
+    (``y_masks[k]``)."""
+    t = x.shape[0]
+    x_l, x_a, x_v = split_modalities(x, cfg.input_dims)
+    zl, za, zv, mfn_last = _encode_stage(params, x_l, x_a, x_v, cfg,
+                                         train=train, generator=generator,
+                                         masks=encode_masks)
+    zy = linear_apply(params["mfn_enc"]["last_to_zy"], mfn_last)
+    hs = fused_lstm_scan(*_missing_cells(params, x, cfg))
+    zv_nov, za_noa, zl_nol, zy_nov, zy_noa, zy_nol = [
+        linear_apply(params[k]["fc1"], h) for k, h in zip(_SURROGATES, hs)]
+
+    mmd = _mmd4(zl, za, zv, zy, _mmd_noise(mmd_noise, generator, cfg, x))
+    missing_loss = (l2_loss(zv_nov, zv) + l2_loss(za_noa, za)
+                    + l2_loss(zl_nol, zl) + l2_loss(zy_nov, zy)
+                    + l2_loss(zy_noa, zy) + l2_loss(zy_nol, zy))
+    zf_masks = zf_masks or (None,) * 4
+    y_masks = y_masks or (None,) * 4
+
+    def decode(k, zl_, za_, zv_, zy_):
+        fy, fl, fa, fv = _zf_all(params, zy_, zl_, za_, zv_, cfg,
+                                 train=train, generator=generator,
+                                 masks=zf_masks[k])
+        return _decode(params, fy, fl, fa, fv, t, cfg, train=train,
+                       generator=generator, y_mask=y_masks[k])
+
+    decoded = decode(0, zl, za, zv, zy)
+    decoded_nol = decode(1, zl_nol, za, zv, zy_nol)
+    decoded_noa = decode(2, zl, za_noa, zv, zy_noa)
+    decoded_nov = decode(3, zl, za, zv_nov, zy_nov)
+    return decoded, decoded_nol, decoded_noa, decoded_nov, mmd, missing_loss
+
+
+def fused_cells(params, x, cfg, model_type: str):
+    """The fused encoder cells of ``kl_ef`` or ``missing`` and their
+    (t, n, d_i) inputs for ``x``."""
+    cells = {"kl_ef": _kl_ef_cells, "missing": _missing_cells}[model_type]
+    return cells(params, x, cfg)
+
+
+def multi_lstm_operands(params, x, cfg, model_type: str):
+    """What ``cuda_lstm.multi_lstm_fwd`` takes for ``x`` in the forward of
+    ``kl_ef`` or ``missing``: (xp, wh, h_dims). For holding the kernels
+    against their plain versions, and timing them, at the inputs the main
+    path gives them."""
+    return lstm_operands(*fused_cells(params, x, cfg, model_type))
 
 
 def kernel_operands(params, x, cfg):
@@ -202,22 +379,30 @@ class ParamTree(nn.Module):
 
 
 class MFM(ParamTree):
-    """The MFM model as an ``nn.Module`` over the JAX-shaped tree, e.g.
-    ``state_dict()['enc.encoder_l.lstm.wx']``. ``params`` (a tree of
-    tensors) or a ``seed`` for a fresh init; ``device`` defaults to the
-    CUDA card. It starts in eval mode (serving); ``train()`` turns on
-    dropout, and the forward then needs a ``generator`` or the
-    injected draws of ``mfm_apply``."""
+    """A model of the MFM family as an ``nn.Module`` over the JAX-shaped
+    tree, e.g. ``state_dict()['enc.encoder_l.lstm.wx']``; its init and
+    apply come from the registry by ``model_type`` (default
+    ``cfg.model_type``). ``params`` (a tree of tensors) or a ``seed`` for
+    a fresh init; ``device`` defaults to the CUDA card. It starts in eval
+    mode (serving); ``train()`` turns on dropout, and the forward then
+    needs a ``generator`` or the injected draws of the apply function."""
 
-    def __init__(self, cfg, params=None, *, seed: int = 0, device=None):
+    def __init__(self, cfg, params=None, *, seed: int = 0, device=None,
+                 model_type=None):
+        from factorized_tpu_torch.models.registry import get_model
+
         dev = resolve_device(device)
+        name = model_type or cfg.model_type
+        init, apply_fn = get_model(name)
         if params is None:
-            params = mfm_init(torch.Generator().manual_seed(seed), cfg)
+            params = init(torch.Generator().manual_seed(seed), cfg)
         super().__init__(params)
         self.cfg = cfg
+        self.model_type = name
+        self._apply_fn = apply_fn
         self.to(dev)
         self.eval()
 
     def forward(self, x, *, generator=None, **draws):
-        return mfm_apply(self.tree(), x, self.cfg, generator=generator,
-                         train=self.training, **draws)
+        return self._apply_fn(self.tree(), x, self.cfg, generator=generator,
+                              train=self.training, **draws)

@@ -1,15 +1,25 @@
-"""The fused decoder recurrence, forward and backward: the CUDA kernels'
-wrappers and their plain PyTorch versions (port of the decoder half of
+"""The fused LSTM recurrences, forward and backward: the CUDA kernels'
+wrappers and their plain PyTorch versions (port of
 ``ops/pallas_lstm.py``).
 
-``decoder_lstm_fwd`` launches ``csrc/decoder_lstm_fwd.cu`` and
-``decoder_lstm_bwd`` launches ``csrc/decoder_lstm_bwd.cu`` for CUDA
-tensors; for CPU tensors they run ``decoder_lstm_plain`` and
-``decoder_lstm_bwd_plain``; there is no other route. ``LAUNCHES`` and
-``BWD_LAUNCHES`` count the kernels' launches. ``DecoderLSTM`` is the
-``torch.autograd.Function`` over the pair (JAX: the ``custom_vjp`` of
-``decoder_lstm``); ``dwsum`` and ``db`` are a ``torch.matmul`` and a sum
-outside the kernels, as the JAX package leaves them to XLA.
+The autoregressive decoders: ``decoder_lstm_fwd`` launches
+``csrc/decoder_lstm_fwd.cu`` and ``decoder_lstm_bwd`` launches
+``csrc/decoder_lstm_bwd.cu`` (counted in ``LAUNCHES`` and
+``BWD_LAUNCHES``); ``DecoderLSTM`` is the ``torch.autograd.Function`` over
+the pair (JAX: the ``custom_vjp`` of ``decoder_lstm``), with ``dwsum`` and
+``db`` a ``torch.matmul`` and a sum outside the kernels.
+
+The fused encoder cells: ``multi_lstm_fwd`` launches
+``csrc/multi_lstm_fwd.cu`` and ``multi_lstm_bwd`` launches
+``csrc/multi_lstm_bwd.cu`` (counted in ``MULTI_LAUNCHES`` and
+``MULTI_BWD_LAUNCHES``); ``MultiLSTM`` is the Function over the pair (JAX:
+the ``custom_vjp`` of ``multi_lstm``), with ``dWh`` a ``torch.matmul``
+outside the kernels.
+
+Every wrapper runs its plain version (``*_plain``) for CPU tensors and
+launches its kernel for CUDA tensors; there is no other route. The JAX
+package leaves the weight-gradient products to XLA, as the port leaves
+them to ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -19,10 +29,12 @@ import ctypes
 import torch
 
 from factorized_tpu_torch.ops import _build
-from factorized_tpu_torch.ops.lstm import lstm_step
+from factorized_tpu_torch.ops.lstm import lstm_step, recurrent_weight_grad
 
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+MULTI_LAUNCHES = 0
+MULTI_BWD_LAUNCHES = 0
 # batch rows per block and threads per block: the fastest pairs measured
 # by perf_probe.py (PERF.md), at the serving shapes (n = 256) and, for the
 # backward, the training batch (n = 32: 32 blocks)
@@ -30,6 +42,13 @@ ROWS = 4
 THREADS = 160
 BWD_ROWS = 1
 BWD_THREADS = 512
+# the same for the fused encoder cells: MULTI_ROWS for both forward
+# variants (4 rows was fastest at n = 256 and at n = 32), MULTI_BWD_ROWS
+# at the training batch
+MULTI_ROWS = 4
+MULTI_THREADS = 256
+MULTI_BWD_ROWS = 1
+MULTI_BWD_THREADS = 512
 
 
 def _check(h0, c0, wsum, b, t, h_dims):
@@ -52,6 +71,28 @@ def _check(h0, c0, wsum, b, t, h_dims):
         shape, ok = tuple(tensor.shape), want[name]
         if shape != ok and not (name == "b" and shape == (1,) + ok):
             raise ValueError(f"{name} must be {ok}, got {shape}")
+
+
+def _check_tensors(named, want, h_dims, H):
+    """Each (name, tensor) of ``named`` float32, contiguous, shaped as
+    ``want[name]`` and on the first one's device, which must have a route;
+    the fused widths ``h_dims`` sum to the hidden width ``H``."""
+    if sum(h_dims) != H:
+        raise ValueError(f"h_dims {list(h_dims)} do not sum to H = {H}")
+    first, device = named[0][0], named[0][1].device
+    for name, tensor in named:
+        if tensor.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {tensor.dtype}")
+        if tensor.device != device:
+            raise ValueError(f"{name} is on {tensor.device}, {first} on "
+                             f"{device}")
+        if not tensor.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if tuple(tensor.shape) != want[name]:
+            raise ValueError(f"{name} must be {want[name]}, got "
+                             f"{tuple(tensor.shape)}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {device}")
 
 
 def decoder_lstm_fwd(h0, c0, wsum, b, t: int, h_dims):
@@ -126,26 +167,12 @@ def decoder_lstm_bwd(wsum, gates, allc, dallh, h_dims):
     t, n, H = allc.shape
     if t < 2:
         raise ValueError(f"the backward needs t >= 2, got {t}")
-    if sum(h_dims) != H:
-        raise ValueError(f"h_dims {list(h_dims)} do not sum to H = {H}")
-    want = {"wsum": (H, 4 * H), "gates": (t, n, 4 * H), "allc": (t, n, H),
-            "dallh": (t, n, H)}
-    for name, tensor in (("wsum", wsum), ("gates", gates), ("allc", allc),
-                         ("dallh", dallh)):
-        if tensor.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {tensor.dtype}")
-        if tensor.device != allc.device:
-            raise ValueError(f"{name} is on {tensor.device}, allc on "
-                             f"{allc.device}")
-        if not tensor.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if tuple(tensor.shape) != want[name]:
-            raise ValueError(f"{name} must be {want[name]}, got "
-                             f"{tuple(tensor.shape)}")
+    _check_tensors(
+        [("allc", allc), ("wsum", wsum), ("gates", gates), ("dallh", dallh)],
+        {"wsum": (H, 4 * H), "gates": (t, n, 4 * H), "allc": (t, n, H),
+         "dallh": (t, n, H)}, h_dims, H)
     if allc.device.type == "cpu":
         return decoder_lstm_bwd_plain(wsum, gates, allc, dallh)
-    if allc.device.type != "cuda":
-        raise ValueError(f"no kernel for device {allc.device}")
     return _launch_bwd(wsum, gates, allc, dallh, h_dims)
 
 
@@ -221,3 +248,162 @@ class DecoderLSTM(torch.autograd.Function):
         dwsum = allh[:t - 1].reshape((t - 1) * n, H).T @ B
         db = B.sum(0).reshape(b.shape)
         return dh0, dc0, dwsum, db, None, None
+
+
+# ------------------------------------------------- fused encoder cells
+
+def multi_lstm_fwd(xp, wh, h_dims, with_res: bool = False):
+    """k fused LSTM cells over time from a zero state (JAX:
+    ``_enc_fwd_call``): ``xp (t, n, 4H)`` the gate-major input projections,
+    bias included, ``wh (H, 4H)`` the block-diagonal recurrent weight over
+    the cells ``h_dims``. Returns ``h_last (n, H)``, or with ``with_res``
+    ``(h_last, allh, allc, gates)``: (t, n, H), (t, n, H) and the
+    pre-activation gates (t, n, 4H)."""
+    if xp.dim() != 3 or xp.shape[2] % 4:
+        raise ValueError(f"xp must be (t, n, 4H), got {tuple(xp.shape)}")
+    t, n, H4 = xp.shape
+    _check_tensors([("xp", xp), ("wh", wh)],
+                   {"xp": (t, n, H4), "wh": (H4 // 4, H4)}, h_dims, H4 // 4)
+    if xp.device.type == "cpu":
+        return multi_lstm_plain(xp, wh, with_res)
+    return _launch_multi(xp, wh, h_dims, with_res)
+
+
+def _launch_multi(xp, wh, h_dims, with_res):
+    global MULTI_LAUNCHES
+    t, n, H4 = xp.shape
+    H = H4 // 4
+    fn = _build.kernel(
+        "multi_lstm_fwd",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3
+        + [ctypes.c_void_p])
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=xp.device)
+
+    outs = [empty(n, H)]
+    if with_res:
+        outs += [empty(t, n, H), empty(t, n, H), empty(t, n, H4)]
+        res_ptrs = [o.data_ptr() for o in outs[1:]]
+    else:
+        res_ptrs = [None] * 3
+    dims = (ctypes.c_int * len(h_dims))(*h_dims)
+    with torch.cuda.device(xp.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(xp.data_ptr(), wh.data_ptr(), outs[0].data_ptr(), *res_ptrs,
+                 t, n, H, len(h_dims), dims, int(with_res), MULTI_ROWS,
+                 MULTI_THREADS, stream)
+    _build.check(err, "multi_lstm_fwd")
+    MULTI_LAUNCHES += 1
+    return tuple(outs) if with_res else outs[0]
+
+
+def multi_lstm_plain(xp, wh, with_res: bool = False):
+    """The same function as the kernel in plain PyTorch, step for step the
+    body of ``_enc_fwd_kernel``."""
+    t, n, H4 = xp.shape
+    h = xp.new_zeros((n, H4 // 4))
+    c = xp.new_zeros((n, H4 // 4))
+    allh, allc, gates = [], [], []
+    for i in range(t):
+        g = xp[i] + h @ wh
+        h, c = lstm_step(c, g)
+        if with_res:
+            allh.append(h)
+            allc.append(c)
+            gates.append(g)
+    if not with_res:
+        return h
+    return h, torch.stack(allh), torch.stack(allc), torch.stack(gates)
+
+
+def multi_lstm_bwd(gates, wh, allc, dhlast, h_dims):
+    """BPTT of the fused cells (JAX: ``_enc_bwd_call``) from the forward's
+    ``gates`` and ``allc`` and the cotangent ``dhlast (n, H)`` of the last
+    hidden state: ``dxp (t, n, 4H)``, which is dgates."""
+    if allc.dim() != 3:
+        raise ValueError(f"allc must be (t, n, H), got {tuple(allc.shape)}")
+    t, n, H = allc.shape
+    _check_tensors([("allc", allc), ("gates", gates), ("wh", wh),
+                    ("dhlast", dhlast)],
+                   {"allc": (t, n, H), "gates": (t, n, 4 * H),
+                    "wh": (H, 4 * H), "dhlast": (n, H)}, h_dims, H)
+    if allc.device.type == "cpu":
+        return multi_lstm_bwd_plain(gates, wh, allc, dhlast)
+    return _launch_multi_bwd(gates, wh, allc, dhlast, h_dims)
+
+
+def _launch_multi_bwd(gates, wh, allc, dhlast, h_dims):
+    global MULTI_BWD_LAUNCHES
+    t, n, H = allc.shape
+    fn = _build.kernel(
+        "multi_lstm_bwd",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p])
+    dxp = torch.empty_like(gates)
+    dims = (ctypes.c_int * len(h_dims))(*h_dims)
+    with torch.cuda.device(allc.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(gates.data_ptr(), allc.data_ptr(), dhlast.data_ptr(),
+                 wh.data_ptr(), dxp.data_ptr(), t, n, H, len(h_dims), dims,
+                 MULTI_BWD_ROWS, MULTI_BWD_THREADS, stream)
+    _build.check(err, "multi_lstm_bwd")
+    MULTI_BWD_LAUNCHES += 1
+    return dxp
+
+
+def multi_lstm_bwd_plain(gates, wh, allc, dhlast):
+    """The same function as the kernel in plain PyTorch, step for step the
+    body of ``_enc_bwd_kernel``: step 0 reads a zero previous cell
+    state."""
+    t = allc.shape[0]
+    dh, dc = dhlast, torch.zeros_like(dhlast)
+    dxp = [None] * t
+    for i in range(t - 1, -1, -1):
+        cp = allc[i - 1] if i > 0 else torch.zeros_like(allc[0])
+        ig, fg, gg, og = gates[i].chunk(4, dim=-1)
+        si, sf, so = torch.sigmoid(ig), torch.sigmoid(fg), torch.sigmoid(og)
+        tg, tc = torch.tanh(gg), torch.tanh(allc[i])
+        do = dh * tc
+        dc = dc + dh * so * (1.0 - tc * tc)
+        dg = torch.cat([
+            dc * tg * si * (1.0 - si),
+            dc * cp * sf * (1.0 - sf),
+            dc * si * (1.0 - tg * tg),
+            do * so * (1.0 - so),
+        ], dim=-1)
+        dxp[i] = dg
+        dh = dg @ wh.T
+        dc = dc * sf
+    return torch.stack(dxp)
+
+
+class MultiLSTM(torch.autograd.Function):
+    """``h_last`` of the fused encoder cells with its hand-derived
+    backward."""
+
+    @staticmethod
+    def forward(ctx, xp, wh, h_dims):
+        h_last, allh, allc, gates = multi_lstm_fwd(xp, wh, h_dims,
+                                                   with_res=True)
+        ctx.save_for_backward(wh, allh, allc, gates)
+        ctx.h_dims = list(h_dims)
+        return h_last
+
+    @staticmethod
+    def backward(ctx, dhlast):
+        wh, allh, allc, gates = ctx.saved_tensors
+        dxp = multi_lstm_bwd(gates, wh, allc, dhlast.contiguous(),
+                             ctx.h_dims)
+        return dxp, recurrent_weight_grad(allh, dxp), None
+
+
+def multi_lstm(xp, wh, h_dims):
+    """``h_last (n, H)`` of the fused cells: through ``MultiLSTM`` when a
+    gradient is wanted, else the eval forward alone (no residuals
+    written)."""
+    if torch.is_grad_enabled() and (xp.requires_grad or wh.requires_grad):
+        return MultiLSTM.apply(xp, wh, list(h_dims))
+    return multi_lstm_fwd(xp, wh, h_dims)

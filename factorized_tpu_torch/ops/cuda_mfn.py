@@ -29,6 +29,7 @@ import torch
 
 from factorized_tpu_torch.ops import _build
 from factorized_tpu_torch.ops.core import dropout_mask
+from factorized_tpu_torch.ops.lstm import recurrent_weight_grad
 
 W_NAMES = ("wh", "a1w1", "a1b1", "a1w2", "a1b2", "a2w1", "a2b1",
            "a2w2", "a2b2", "gw1", "gb1", "g1w2", "g1b2", "g2w2", "g2b2")
@@ -305,17 +306,9 @@ def mfm_encode_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
     dxp, deltas = _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast,
                               dmemlast, z_tot, h_dims)
     dweights = _launch_dw(weights, allc, allmem, res, deltas, z_tot)
-    dweights["wh"] = _dwh(allh, dxp)
+    # one GEMM outside the kernels (JAX leaves it to XLA)
+    dweights["wh"] = recurrent_weight_grad(allh, dxp)
     return dxp, dweights
-
-
-def _dwh(allh, dxp):
-    """dWh = sum_{i >= 1} h_{i-1}^T dgates_i, one GEMM outside the
-    kernels (JAX leaves it to XLA)."""
-    t, n, H = allh.shape
-    if t == 1:
-        return allh.new_zeros((H, 4 * H))
-    return allh[:-1].reshape(-1, H).T @ dxp[1:].reshape(-1, 4 * H)
 
 
 def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
@@ -487,7 +480,7 @@ def mfm_encode_bwd_plain(xp, weights, allh, allc, allmem, res, dhlast,
                                              allmem, res, dhlast, dmemlast,
                                              z_tot)
     dweights = mfm_encode_dw_plain(allc, allmem, res, deltas, weights, z_tot)
-    dweights["wh"] = _dwh(allh, dxp)
+    dweights["wh"] = recurrent_weight_grad(allh, dxp)
     return dxp, dweights
 
 

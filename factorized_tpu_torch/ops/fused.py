@@ -82,6 +82,25 @@ def split_heads(h_cat, h_dims: Sequence[int]) -> List[torch.Tensor]:
     return outs
 
 
+def lstm_operands(cells: Sequence[dict], xs: Sequence[torch.Tensor]):
+    """What the fused encoder-cell kernel takes for k independent cells
+    ({'wx', 'wh', 'b'}) over the (t, n, d_i) inputs ``xs``: (xp, wh,
+    h_dims), the gate-major input projections (t, n, 4H), bias included,
+    and the block-diagonal recurrent weight (H, 4H)."""
+    h_dims = [c["wh"].shape[0] for c in cells]
+    xp = repack_gate_major(
+        [hoist_xproj(c, x) for c, x in zip(cells, xs)], h_dims)
+    wh = gate_major_blockdiag([c["wh"] for c in cells], h_dims)
+    return xp, wh, h_dims
+
+
+def fused_lstm_scan(cells: Sequence[dict], xs: Sequence[torch.Tensor]):
+    """k independent LSTMs as one recurrence from a zero state. Returns
+    the last hidden states [(n, h_i)]."""
+    xp, wh, h_dims = lstm_operands(cells, xs)
+    return split_heads(cuda_lstm.multi_lstm(xp, wh, h_dims), h_dims)
+
+
 def decoder_operands(dec_params: Sequence[dict],
                      hTs: Sequence[torch.Tensor]):
     """What the decoder kernel takes: the state after the latent-driven

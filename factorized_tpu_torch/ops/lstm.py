@@ -33,6 +33,16 @@ def lstm_step(c_prev, gates):
     return h, c
 
 
+def recurrent_weight_grad(allh, dgates):
+    """dWh = sum_{i >= 1} h_{i-1}^T dgates_i over a zero-state recurrence
+    with all hidden states ``allh (t, n, H)`` and gate gradients
+    ``dgates (t, n, 4H)``: one product, zero when t == 1."""
+    t, n, H = allh.shape
+    if t == 1:
+        return allh.new_zeros((H, 4 * H))
+    return allh[:-1].reshape(-1, H).T @ dgates[1:].reshape(-1, 4 * H)
+
+
 def lstm_scan(cell, x):
     """LSTM over time-major ``x (t, n, d)`` with the input projection
     hoisted into one matmul. Returns (all_h, last_h, last_c)."""

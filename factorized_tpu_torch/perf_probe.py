@@ -1,14 +1,17 @@
 """Measurements of the port on a CUDA card, for PERF.md.
 
 Run from the repository root on the card:
-``python -m factorized_tpu_torch.perf_probe``. Prints JSON lines:
+``python -m factorized_tpu_torch.perf_probe [serve] [train] [multi]
+[profile]`` (all four parts when none is named). Prints JSON lines:
 
 - ``tile``: each kernel's mean time (CUDA events, 50 launches after
   warm-up) for each batch-row tile and block size the launchers take, the
   forward kernels at the serving shapes (n = 256, t = 20,
   ``best_acc_mosi_config``) and the training kernels at the training
-  shapes (n = 32), so that the defaults in ``ops/cuda_mfn.py`` and
-  ``ops/cuda_lstm.py`` are chosen from a measurement;
+  shapes (n = 32); part ``multi`` does the same for the fused
+  encoder-cell kernels at the widths of ``kl_ef`` and ``missing``. So the
+  defaults in ``ops/cuda_mfn.py`` and ``ops/cuda_lstm.py`` are chosen
+  from a measurement;
 - ``profile``: ``torch.profiler`` over 20 padded 256-row ``predict``
   calls: wall time, the device time summed over kernels, the share of
   the wall in which the device was idle, and the largest kernels;
@@ -19,6 +22,7 @@ from __future__ import annotations
 
 import json
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -49,7 +53,7 @@ def _ms(fn, reps=50):
 
 
 def _sweep(name, module, rows_attr, threads_attr, rows_list, block_sizes,
-           n, call):
+           n, call, **tags):
     """Time ``call`` for each (rows, threads) set on ``module``."""
     default = (getattr(module, rows_attr), getattr(module, threads_attr))
     try:
@@ -58,8 +62,9 @@ def _sweep(name, module, rows_attr, threads_attr, rows_list, block_sizes,
                 setattr(module, rows_attr, rows)
                 setattr(module, threads_attr, threads)
                 print(json.dumps({
-                    "tile": name, "n": n, "rows": rows, "threads": threads,
-                    "blocks": -(-n // rows), "ms": _ms(call),
+                    "tile": name, **tags, "n": n, "rows": rows,
+                    "threads": threads, "blocks": -(-n // rows),
+                    "ms": _ms(call),
                     "default": (rows, threads) == default}), flush=True)
     finally:
         setattr(module, rows_attr, default[0])
@@ -111,6 +116,33 @@ def train_sweep(cfg, params, dev):
                                               dec_dims))
 
 
+def multi_sweep(cfg, dev):
+    """The fused encoder-cell kernels at both models' widths: the eval
+    forward at n = 256, the train forward and the backward at n = 32."""
+    t = cfg.seqlength
+    for model_type in ("kl_ef", "missing"):
+        params = mfm.MFM(cfg, seed=0, device=dev, model_type=model_type).tree()
+        g = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn((t, N, cfg.d_total), generator=g, device=dev)
+        xp, wh, h_dims = mfm.multi_lstm_operands(params, x, cfg, model_type)
+        _sweep("multi_lstm_fwd", cuda_lstm, "MULTI_ROWS", "MULTI_THREADS",
+               (1, 2, 4, 8, 16), (128, 256, 512), N,
+               lambda: cuda_lstm.multi_lstm_fwd(xp, wh, h_dims),
+               model_type=model_type)
+        xp = xp[:, :N_TRAIN].contiguous()
+        _, _, allc, gates = cuda_lstm.multi_lstm_plain(xp, wh, with_res=True)
+        dh = torch.randn((N_TRAIN, sum(h_dims)), generator=g, device=dev)
+        _sweep("multi_lstm_fwd_train", cuda_lstm, "MULTI_ROWS",
+               "MULTI_THREADS", (1, 2, 4, 8), (128, 256, 512), N_TRAIN,
+               lambda: cuda_lstm.multi_lstm_fwd(xp, wh, h_dims,
+                                                with_res=True),
+               model_type=model_type)
+        _sweep("multi_lstm_bwd", cuda_lstm, "MULTI_BWD_ROWS",
+               "MULTI_BWD_THREADS", (1, 2, 4, 8), (128, 256, 512), N_TRAIN,
+               lambda: cuda_lstm.multi_lstm_bwd(gates, wh, allc, dh, h_dims),
+               model_type=model_type)
+
+
 def profile(cfg, params):
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -144,7 +176,8 @@ def profile(cfg, params):
                 for e in top]}), flush=True)
 
 
-def main():
+def main(parts=None):
+    parts = set(parts or ("serve", "train", "multi", "profile"))
     if not torch.cuda.is_available():
         raise SystemExit("perf_probe needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -157,10 +190,15 @@ def main():
     cfg = best_acc_mosi_config()
     params = mfm.MFM(cfg, seed=0, device="cuda").tree()
     with torch.inference_mode():
-        sweep(cfg, params, torch.device("cuda"))
-        train_sweep(cfg, params, torch.device("cuda"))
-    profile(cfg, params)
+        if "serve" in parts:
+            sweep(cfg, params, torch.device("cuda"))
+        if "train" in parts:
+            train_sweep(cfg, params, torch.device("cuda"))
+        if "multi" in parts:
+            multi_sweep(cfg, torch.device("cuda"))
+    if "profile" in parts:
+        profile(cfg, params)
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

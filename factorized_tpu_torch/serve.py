@@ -25,7 +25,16 @@ from factorized_tpu_torch.config import MFMConfig
 from factorized_tpu_torch.models import get_model
 
 
+# the standard-return model types the JAX package's Predictor serves
+SUPPORTED = ("mfm", "kl", "kl_ef", "missing", "m_a", "m_b", "m_c", "m_d",
+             "mfn")
+
+
 class Predictor:
+    """Serves ``y_hat`` of a model of the MFM family (``model_type``,
+    default ``cfg.model_type``; ported: ``mfm``, ``kl_ef`` and
+    ``missing``, whose all-present decode gives ``y_hat``)."""
+
     def __init__(self, cfg: MFMConfig, params, model_type: Optional[str] = None,
                  batch_size: int = 256, device=None):
         self.device = resolve_device(device)
@@ -33,6 +42,11 @@ class Predictor:
         self.params = params
         self.batch_size = batch_size
         name = model_type or cfg.model_type
+        if name not in SUPPORTED:
+            raise ValueError(
+                f"Predictor supports the standard-return model types "
+                f"{SUPPORTED}, got {name!r} (s2s/bm have different "
+                f"outputs - load them through their trainers)")
         _, apply_fn = get_model(name)
         self._name = name
 
@@ -59,9 +73,9 @@ class Predictor:
             # way on every call, as the JAX Predictor passes PRNGKey(0)
             gen = torch.Generator(device=self.device).manual_seed(0)
             with torch.inference_mode():
-                decoded, _, _ = apply_fn(params_dev, x, cfg, generator=gen,
-                                         train=False)
-            y_hat = decoded[3]
+                out = apply_fn(params_dev, x, cfg, generator=gen,
+                               train=False)
+            y_hat = out[0][3]
             # scalar regression -> (n,); classification keeps (n, C)
             return (y_hat.squeeze(1)
                     if cfg.task == "regression" and cfg.output_dim == 1
@@ -71,6 +85,9 @@ class Predictor:
 
     @classmethod
     def from_checkpoint(cls, path: str, **kw):
+        """A Predictor over a checkpoint of ``utils.checkpoint``; ``kw`` go
+        to the constructor (e.g. ``model_type="missing"`` for a checkpoint
+        of ``--missing 1``, whose config keeps ``model_type`` "mfm")."""
         from factorized_tpu_torch.utils.checkpoint import restore_checkpoint
 
         state, meta = restore_checkpoint(path)

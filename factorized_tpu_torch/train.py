@@ -1,10 +1,11 @@
 """Training core of the port (port of ``factorized_tpu/train.py``, the
-``"joint"`` variant).
+``"joint"``, ``"beta_vae"`` and ``"missing"`` variants).
 
-A train step is the MFM forward with dropout, the joint loss
-``disc + gen + lda_mmd * mmd`` (the L1 label loss, the three weighted
-reconstruction MSEs and the MMD regulariser), ``backward`` through the
-hand-written backward kernels, and an Adam update with the semantics of
+A train step is the model's forward with dropout, the variant's loss
+(for ``"joint"``: ``disc + gen + lda_mmd * mmd``, the L1 label loss, the
+three weighted reconstruction MSEs and the MMD regulariser),
+``backward`` through the hand-written backward kernels, and an Adam
+update with the semantics of
 ``optax.scale_by_adam(eps=1e-8)`` followed by ``p -= lr * u``. PyTorch
 runs eagerly: an epoch is a Python loop over device-resident batches.
 Parameters are a nested dict of leaf tensors updated in place.
@@ -67,43 +68,87 @@ def _disc(y_hat, y, task: str):
     return l1_loss(torch.squeeze(y_hat, 1), y)
 
 
+# the loss variants of the JAX package that the port has
+VARIANTS = ("joint", "beta_vae", "missing")
+
+
 def _check_variant(variant):
-    if variant != "joint":
+    if variant in ("s2s", "bm"):
         raise NotImplementedError(
-            f"loss variant {variant!r} is not yet ported; only 'joint'")
+            f"loss variant {variant!r} is not yet ported; ported: "
+            f"{VARIANTS}")
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown loss variant {variant!r}")
 
 
-def make_loss_fn(apply_fn, cfg, variant: str = "joint") -> Callable:
+def _gen(decoded, x, cfg):
+    """The three weighted reconstruction MSEs of ``decoded``."""
+    x_l, x_a, x_v = _split_x(x, cfg.input_dims)
+    return (cfg.lda_xl * l2_loss(decoded[0], x_l)
+            + cfg.lda_xa * l2_loss(decoded[1], x_a)
+            + cfg.lda_xv * l2_loss(decoded[2], x_v))
+
+
+def _missing_loss(out, x, y, cfg):
+    """The composite loss of the ``missing`` model's six outputs: the four
+    label losses, six reconstruction MSEs, MMD and the surrogates' loss.
+    It keeps the reference's bug of scoring x_v against the a-missing
+    decode's ``x_v_hat`` where the v-missing one is meant."""
+    decoded, dec_nol, dec_noa, dec_nov, mmd, missing = out
+    x_l, x_a, x_v = _split_x(x, cfg.input_dims)
+    gen = (_gen(decoded, x, cfg)
+           + cfg.lda_xl * l2_loss(dec_nol[0], x_l)
+           + cfg.lda_xa * l2_loss(dec_noa[1], x_a)
+           + cfg.lda_xv * l2_loss(dec_noa[2], x_v))
+    disc = sum(_disc(d[3], y, cfg.task)
+               for d in (decoded, dec_nol, dec_noa, dec_nov))
+    return disc + gen + cfg.lda_mmd * mmd + missing
+
+
+def make_loss_fn(apply_fn, cfg, variant: str = "joint",
+                 stage: int = 0) -> Callable:
     """``loss_fn(params, x, y, *, generator=None, draws=None) -> (loss,
-    tracked)``: ``tracked`` is the label loss, the quantity the reference
-    prints as the epoch's train loss. ``draws`` are the injected random
-    draws of ``apply_fn`` (see ``models.mfm.mfm_apply``)."""
+    tracked)``, ``tracked`` the quantity the reference prints as the
+    epoch's train loss; ``draws`` are the injected random draws of
+    ``apply_fn`` (see ``models.mfm``). The variants of the JAX package's
+    ``make_loss_fn``:
+
+    - ``"joint"``: ``disc + gen + lda_mmd * reg + missing``, tracking
+      the label loss;
+    - ``"beta_vae"``: stage 1 ``gen + lda_mmd * reg``, stage 2
+      ``disc + lda_mmd * reg``, tracking the loss;
+    - ``"missing"``: the composite loss of the ``missing`` model,
+      tracking the all-present decode's x_l MSE."""
     _check_variant(variant)
 
     def loss_fn(params, x, y, *, generator=None, draws=None):
-        decoded, reg, missing = apply_fn(params, x, cfg, generator=generator,
-                                         train=True, **(draws or {}))
-        x_l_hat, x_a_hat, x_v_hat, y_hat = decoded
-        x_l, x_a, x_v = _split_x(x, cfg.input_dims)
-        gen = (cfg.lda_xl * l2_loss(x_l_hat, x_l)
-               + cfg.lda_xa * l2_loss(x_a_hat, x_a)
-               + cfg.lda_xv * l2_loss(x_v_hat, x_v))
-        disc = _disc(y_hat, y, cfg.task)
-        loss = disc + gen + cfg.lda_mmd * reg + missing
-        return loss, disc
+        out = apply_fn(params, x, cfg, generator=generator, train=True,
+                       **(draws or {}))
+        if variant == "missing":
+            x_l = _split_x(x, cfg.input_dims)[0]
+            return _missing_loss(out, x, y, cfg), l2_loss(out[0][0], x_l)
+        decoded, reg, missing = out
+        disc = _disc(decoded[3], y, cfg.task)
+        reg = cfg.lda_mmd * reg
+        if variant == "joint":
+            return disc + _gen(decoded, x, cfg) + reg + missing, disc
+        loss = _gen(decoded, x, cfg) + reg if stage == 1 else disc + reg
+        return loss, loss
 
     return loss_fn
 
 
 def make_eval_fn(apply_fn, cfg, variant: str = "joint") -> Callable:
-    """``eval_fn(params, x, y, *, generator) -> label loss`` in eval
-    mode."""
+    """``eval_fn(params, x, y, *, generator) -> validation loss`` in eval
+    mode: the label loss, or for ``"missing"`` the whole composite loss,
+    as the reference evaluates it."""
     _check_variant(variant)
 
     def eval_fn(params, x, y, *, generator=None):
-        decoded, _, _ = apply_fn(params, x, cfg, generator=generator,
-                                 train=False)
-        return _disc(decoded[3], y, cfg.task)
+        out = apply_fn(params, x, cfg, generator=generator, train=False)
+        if variant == "missing":
+            return _missing_loss(out, x, y, cfg)
+        return _disc(out[0][3], y, cfg.task)
 
     return eval_fn
 
@@ -133,15 +178,16 @@ class TrainProgram:
       tracked loss (a 0-d tensor; the host does not wait for it);
     - ``epoch(params, optimizer, Xb, yb, generator, lr)`` -> the mean
       tracked loss over the nb batches;
-    - ``evaluate(params, x, y, generator)`` -> the full-set label loss;
+    - ``evaluate(params, x, y, generator)`` -> the full-set validation
+      loss of the variant;
     - ``run_epoch(...)`` -> ``epoch`` plus the optional remainder batch,
       as a float.
     """
 
-    def __init__(self, apply_fn, cfg, variant: str = "joint", loss_fn=None,
-                 eval_fn=None):
+    def __init__(self, apply_fn, cfg, variant: str = "joint", stage: int = 0,
+                 loss_fn=None, eval_fn=None):
         self.cfg = cfg
-        self.loss_fn = loss_fn or make_loss_fn(apply_fn, cfg, variant)
+        self.loss_fn = loss_fn or make_loss_fn(apply_fn, cfg, variant, stage)
         self.eval_fn = eval_fn or make_eval_fn(apply_fn, cfg, variant)
 
     def step(self, params, optimizer, x, y, generator, lr):

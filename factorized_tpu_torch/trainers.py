@@ -1,14 +1,15 @@
-"""Experiment-level trainers of the port (port of ``train_mfm`` of
+"""Experiment-level trainers of the port (port of ``train_mfm``,
+``train_beta_vae`` and ``train_mfm_missing`` of
 ``factorized_tpu/trainers.py``, with the semantics of its host loop
 ``_loop_host``).
 
-``train_mfm`` takes numpy arrays shaped like the reference loaders emit
+Each takes numpy arrays shaped like the reference loaders emit
 (batch-major ``(n, t, d)`` X, 1-D y) and an ``MFMConfig``; it trains on
 the card unless ``device`` says otherwise and returns the results dict of
-the JAX package's trainer: test metrics, the best parameters, the
-optimizer state, the per-epoch history, the best validation loss and the
-step count. Every random draw comes from one ``torch.Generator`` seeded
-from ``seed``.
+the JAX package's trainer: test metrics, the parameters it scored, the
+optimizer state, the per-epoch history and the step count, plus the best
+validation loss where the JAX trainer returns one. Every random draw
+comes from one ``torch.Generator`` seeded from ``seed``.
 """
 
 from __future__ import annotations
@@ -20,11 +21,13 @@ import torch
 
 from factorized_tpu_torch import resolve_device
 from factorized_tpu_torch.models import get_model
+from factorized_tpu_torch.models.common import split_modalities
 from factorized_tpu_torch.models.mfm import MFM
+from factorized_tpu_torch.ops.losses import l2_loss
 from factorized_tpu_torch.train import (TrainProgram, make_batches,
                                         make_optimizer,
                                         shuffle_and_time_major)
-from factorized_tpu_torch.utils.checkpoint import BestKeeper
+from factorized_tpu_torch.utils.checkpoint import BestKeeper, to_cpu
 from factorized_tpu_torch.utils.logging import RunLogger
 from factorized_tpu_torch.utils.metrics import score_regression
 from factorized_tpu_torch.utils.scheduler import ReduceLROnPlateau
@@ -68,11 +71,13 @@ def _score(y_hat, y_test, cfg, binary_threshold, threshold_mode):
 
 
 def _loop_host(program, params, optimizer, Xb, yb, remainder, Xv, yv,
-               num_epochs, scheduler, keeper, logger, generator):
+               num_epochs, scheduler, keeper, logger, generator,
+               save_always=False):
     """The per-epoch loop: train epoch -> full-set eval -> ReduceLROnPlateau
     -> best-valid keeper, with a divergence break (a non-finite train or
     valid loss ends the run before the scheduler and the keeper see it).
-    Returns the history."""
+    ``save_always`` keeps every healthy epoch's parameters (the beta-VAE
+    trainer's unconditional save). Returns the history."""
     history = []
     lr = scheduler.lr
     for epoch in range(num_epochs):
@@ -88,10 +93,70 @@ def _loop_host(program, params, optimizer, Xb, yb, remainder, Xv, yv,
             break
         lr = scheduler.step(valid)
         saved = keeper.update(valid, params, epoch)
+        if save_always and not saved:
+            keeper.best = valid
+            keeper.best_params = to_cpu(params)
+            keeper.best_epoch = epoch
+            saved = True
         logger.epoch(epoch, train_loss, valid, saved, lr=lr)
         history.append({"epoch": epoch, "train_loss": train_loss,
                         "valid": valid, "lr": lr})
     return history
+
+
+class _Setup:
+    """What every trainer builds first: the shuffled, time-major data on
+    the device, the model's parameters, its apply function, the generator,
+    Adam and the plateau scheduler."""
+
+    def __init__(self, data, cfg, name, *, lr, seed, include_remainder,
+                 device):
+        self.dev = dev = resolve_device(device)
+        Xtr, ytr, Xv, yv, self.Xte, yte = _prep_data(*data, seed)
+        _, self.apply_fn = get_model(name)
+        self.params = MFM(cfg, seed=seed, device=dev, model_type=name).tree()
+        self.generator = torch.Generator(device=dev).manual_seed(seed)
+        lr = 1e-3 if lr is None else lr
+        self.optimizer = make_optimizer(self.params, lr)
+        self.scheduler = ReduceLROnPlateau(lr)
+        Xb, yb, rem = make_batches(Xtr, _labels(ytr, cfg), cfg.batchsize,
+                                   include_remainder)
+        self.Xb, self.yb = self.on_device(Xb), self.on_device(yb)
+        self.rem = (None if rem is None
+                    else (self.on_device(rem[0]), self.on_device(rem[1])))
+        self.Xv, self.yv = self.on_device(Xv), self.on_device(_labels(yv, cfg))
+        self.yte = _labels(yte, cfg)
+
+    def on_device(self, a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
+
+    def loop(self, program, keeper, num_epochs, logger, save_always=False):
+        return _loop_host(program, self.params, self.optimizer, self.Xb,
+                          self.yb, self.rem, self.Xv, self.yv, num_epochs,
+                          self.scheduler, keeper, logger, self.generator,
+                          save_always)
+
+    def score(self, params, cfg, logger, binary_threshold, threshold_mode):
+        """The test metrics of ``params``' eval forward on the test set."""
+        predict = _std_predict(self.apply_fn, cfg)
+        y_hat = predict(_to_device(params, self.dev),
+                        self.on_device(self.Xte),
+                        torch.Generator(device=self.dev).manual_seed(0))
+        logger.text("scoring y_hat")
+        metrics = _score(y_hat.cpu().numpy(), self.yte, cfg,
+                         binary_threshold, threshold_mode)
+        logger.record("final", **metrics)
+        return metrics
+
+
+def _steps(history):
+    return sum(1 for e in history if not e.get("diverged"))
+
+
+# the model types train_mfm takes, with the standard (decoded, reg,
+# missing) return, as the JAX package's; of these the port has mfm and
+# kl_ef
+STANDARD = ("mfm", "kl", "kl_ef", "m_a", "m_b", "m_c", "m_d")
 
 
 def train_mfm(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg, *,
@@ -103,55 +168,110 @@ def train_mfm(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg, *,
               include_remainder: bool = False,
               model_type: Optional[str] = None,
               device=None):
-    """Joint single-stage training of MFM under Adam (the torch default
-    lr 1e-3 unless ``lr``) with ReduceLROnPlateau on the validation label
-    loss, keeping the best epoch's parameters for the test score."""
-    dev = resolve_device(device)
+    """Joint single-stage training of MFM (or kl_ef) under Adam (the
+    torch default lr 1e-3 unless ``lr``) with ReduceLROnPlateau on the
+    validation label loss, keeping the best epoch's parameters for the
+    test score."""
     logger = logger or RunLogger()
-    Xtr, ytr, Xv, yv, Xte, yte = _prep_data(
-        X_train, y_train, X_valid, y_valid, X_test, y_test, seed)
     name = model_type or cfg.model_type
-    if name != "mfm":
-        raise NotImplementedError(
-            f"training model type {name!r} is not yet ported; only 'mfm'")
-    _, apply_fn = get_model(name)
-    model = MFM(cfg, seed=seed, device=dev)
-    params = model.tree()
-    generator = torch.Generator(device=dev).manual_seed(seed)
-    lr = 1e-3 if lr is None else lr
-    optimizer = make_optimizer(params, lr)
-
-    program = TrainProgram(apply_fn, cfg, "joint")
-    Xb, yb, rem = make_batches(Xtr, _labels(ytr, cfg), cfg.batchsize,
-                               include_remainder)
-
-    def on_device(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    Xb, yb = on_device(Xb), on_device(yb)
-    if rem is not None:
-        rem = (on_device(rem[0]), on_device(rem[1]))
-    Xv, yv_t = on_device(Xv), on_device(_labels(yv, cfg))
-
-    scheduler = ReduceLROnPlateau(lr)
+    if name not in STANDARD:
+        raise ValueError(
+            f"train_mfm cannot train model type {name!r}; expected one "
+            f"of {STANDARD} (use the dedicated trainer otherwise)")
+    run = _Setup((X_train, y_train, X_valid, y_valid, X_test, y_test), cfg,
+                 name, lr=lr, seed=seed,
+                 include_remainder=include_remainder, device=device)
     keeper = BestKeeper("min")
-    history = _loop_host(program, params, optimizer, Xb, yb, rem, Xv, yv_t,
-                         cfg.num_epochs, scheduler, keeper, logger,
-                         generator)
-
+    history = run.loop(TrainProgram(run.apply_fn, cfg, "joint"), keeper,
+                       cfg.num_epochs, logger)
     best_params = (keeper.best_params if keeper.best_params is not None
-                   else params)
-    predict = _std_predict(apply_fn, cfg)
-    y_hat = predict(_to_device(best_params, dev), on_device(Xte),
-                    torch.Generator(device=dev).manual_seed(0))
-    logger.text("scoring y_hat")
-    metrics = _score(y_hat.cpu().numpy(), _labels(yte, cfg), cfg,
-                     binary_threshold, threshold_mode)
-    logger.record("final", **metrics)
-    step = sum(1 for e in history if not e.get("diverged"))
+                   else run.params)
+    metrics = run.score(best_params, cfg, logger, binary_threshold,
+                        threshold_mode)
     return {"metrics": metrics, "params": best_params,
-            "opt_state": optimizer.state_dict(), "history": history,
-            "best_valid": keeper.best, "step": step}
+            "opt_state": run.optimizer.state_dict(), "history": history,
+            "best_valid": keeper.best, "step": _steps(history)}
+
+
+def train_beta_vae(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg,
+                   *, lr: Optional[float] = None,
+                   logger: Optional[RunLogger] = None,
+                   seed: int = 123,
+                   binary_threshold: float = 0.0,
+                   threshold_mode: str = "ge",
+                   include_remainder: bool = False,
+                   device=None):
+    """The two-stage schedule of MFM_KL_EF (``kl_ef``): stage 1 trains
+    ``gen + lda_mmd * kld`` for ``num_epochs``, stage 2 ``disc + lda_mmd *
+    kld`` for ``num_epochs``. One Adam and one ReduceLROnPlateau span both
+    stages (lr decays carry from stage 1 into stage 2); each stage has its
+    own best-keeper, which keeps every epoch (the reference saves
+    unconditionally). The last parameters are the ones scored and
+    returned."""
+    logger = logger or RunLogger()
+    run = _Setup((X_train, y_train, X_valid, y_valid, X_test, y_test), cfg,
+                 "kl_ef", lr=lr, seed=seed,
+                 include_remainder=include_remainder, device=device)
+    history = []
+    for stage in (1, 2):
+        program = TrainProgram(run.apply_fn, cfg, "beta_vae", stage=stage)
+        h = run.loop(program, BestKeeper("min"), cfg.num_epochs, logger,
+                     save_always=True)
+        history.extend({**e, "stage": stage} for e in h)
+        if h and h[-1].get("diverged"):
+            break
+    metrics = run.score(run.params, cfg, logger, binary_threshold,
+                        threshold_mode)
+    return {"metrics": metrics, "params": run.params,
+            "opt_state": run.optimizer.state_dict(), "history": history,
+            "step": _steps(history)}
+
+
+def train_mfm_missing(X_train, y_train, X_valid, y_valid, X_test, y_test,
+                      cfg, *, lr: Optional[float] = None,
+                      logger: Optional[RunLogger] = None,
+                      seed: int = 123,
+                      binary_threshold: float = 0.0,
+                      threshold_mode: str = "ge",
+                      device=None):
+    """MFM_missing (``missing``) under its composite loss, no remainder
+    batch, keeping the best epoch. At test time it logs the reconstruction
+    MSEs of the four decodes (all present, then l, a and v missing) and
+    scores the y_hat of each: ``metrics`` is keyed ``y_hat_nol``,
+    ``y_hat_noa``, ``y_hat_nov`` and ``y_hat``."""
+    logger = logger or RunLogger()
+    run = _Setup((X_train, y_train, X_valid, y_valid, X_test, y_test), cfg,
+                 "missing", lr=lr, seed=seed, include_remainder=False,
+                 device=device)
+    keeper = BestKeeper("min")
+    history = run.loop(TrainProgram(run.apply_fn, cfg, "missing"), keeper,
+                       cfg.num_epochs, logger)
+    best_params = (keeper.best_params if keeper.best_params is not None
+                   else run.params)
+
+    Xte = run.on_device(run.Xte)
+    with torch.no_grad():
+        decoded, nol, noa, nov, _, _ = run.apply_fn(
+            _to_device(best_params, run.dev), Xte, cfg,
+            generator=torch.Generator(device=run.dev).manual_seed(0),
+            train=False)
+    x_l, x_a, x_v = split_modalities(Xte, cfg.input_dims)
+    for tag, dec in (("all present", decoded), ("l missing", nol),
+                     ("a missing", noa), ("v missing", nov)):
+        logger.text(tag, float(l2_loss(dec[0], x_l)),
+                    float(l2_loss(dec[1], x_a)), float(l2_loss(dec[2], x_v)))
+
+    results = {}
+    for tag, dec in (("y_hat_nol", nol), ("y_hat_noa", noa),
+                     ("y_hat_nov", nov), ("y_hat", decoded)):
+        logger.text(f"scoring {tag}")
+        y = dec[3].cpu().numpy()
+        results[tag] = _score(y[:, 0] if cfg.task == "regression" else y,
+                              run.yte, cfg, binary_threshold, threshold_mode)
+    logger.record("final", **results)
+    return {"metrics": results, "params": best_params, "history": history,
+            "opt_state": run.optimizer.state_dict(),
+            "best_valid": keeper.best, "step": _steps(history)}
 
 
 def _to_device(tree, dev):

@@ -182,6 +182,60 @@ def test_each_train_wrapper_call_is_one_launch(cuda):
             cuda_lstm.BWD_LAUNCHES) == tuple(x + 1 for x in before)
 
 
+def _multi_operands(cfg, model_type, n, dev):
+    """The fused encoder-cell kernels' inputs as the ``kl_ef`` or
+    ``missing`` forward builds them, and a cotangent of h_last."""
+    params = mfm.MFM(cfg, seed=0, device=dev, model_type=model_type).tree()
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((cfg.seqlength, n, cfg.d_total), generator=g, device=dev)
+    with torch.inference_mode():
+        xp, wh, h_dims = mfm.multi_lstm_operands(params, x, cfg, model_type)
+    dh = torch.randn((n, sum(h_dims)), generator=g, device=dev)
+    return xp, wh, h_dims, dh
+
+
+@pytest.mark.parametrize("model_type", ["kl_ef", "missing"])
+@pytest.mark.parametrize("cfg,n_eval,n_train",
+                         [(SMALL, 5, 3), (best_acc_mosi_config(), 256, 32)],
+                         ids=["small", "full"])
+def test_multi_lstm_kernels_match_plain(cuda, model_type, cfg, n_eval,
+                                        n_train):
+    xp, wh, h_dims, _ = _multi_operands(cfg, model_type, n_eval, cuda)
+    with torch.inference_mode():
+        torch.testing.assert_close(
+            cuda_lstm.multi_lstm_fwd(xp, wh, h_dims),
+            cuda_lstm.multi_lstm_plain(xp, wh), **TOL)
+    xp, wh, h_dims, dh = _multi_operands(cfg, model_type, n_train, cuda)
+    with torch.inference_mode():
+        got = cuda_lstm.multi_lstm_fwd(xp, wh, h_dims, with_res=True)
+        want = cuda_lstm.multi_lstm_plain(xp, wh, with_res=True)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **TOL)
+        _, _, allc, gates = want
+        dxp = cuda_lstm.multi_lstm_bwd(gates, wh, allc, dh, h_dims)
+        torch.testing.assert_close(
+            dxp, cuda_lstm.multi_lstm_bwd_plain(gates, wh, allc, dh), **GRAD)
+        # deterministic: a rerun gives the same bits
+        assert torch.equal(dxp, cuda_lstm.multi_lstm_bwd(gates, wh, allc, dh,
+                                                         h_dims))
+        torch.cuda.synchronize()
+
+
+def test_each_multi_lstm_call_is_one_launch(cuda):
+    xp, wh, h_dims, dh = _multi_operands(SMALL, "kl_ef", 3, cuda)
+    before = (cuda_lstm.MULTI_LAUNCHES, cuda_lstm.MULTI_BWD_LAUNCHES)
+    with torch.inference_mode():
+        cuda_lstm.multi_lstm(xp, wh, h_dims)
+        _, _, allc, gates = cuda_lstm.multi_lstm_fwd(xp, wh, h_dims,
+                                                     with_res=True)
+        cuda_lstm.multi_lstm_plain(xp, wh, with_res=True)
+        cuda_lstm.multi_lstm_bwd(gates, wh, allc, dh, h_dims)
+        cuda_lstm.multi_lstm_bwd_plain(gates, wh, allc, dh)
+    torch.cuda.synchronize()
+    assert (cuda_lstm.MULTI_LAUNCHES, cuda_lstm.MULTI_BWD_LAUNCHES) == (
+        before[0] + 2, before[1] + 1)
+
+
 def test_train_step_grads_on_the_card_match_the_cpu(cuda):
     cfg = SMALL.replace(batchsize=4)
     n, t = 4, cfg.seqlength

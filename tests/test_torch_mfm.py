@@ -139,7 +139,7 @@ def test_eval_is_deterministic_per_generator_seed():
 def test_registry():
     assert get_model("mfm") == (mfm.mfm_init, mfm.mfm_apply)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_model("kl_ef")
+        get_model("kl")
     with pytest.raises(ValueError, match="unknown model type"):
         get_model("nope")
 

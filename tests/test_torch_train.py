@@ -393,7 +393,7 @@ def test_mosi_cli_trains_and_saves(tmp_path, monkeypatch, capsys):
     assert kinds == ["config", "epoch", "final"]
 
 
-@pytest.mark.parametrize("argv", [["--type", "kl"], ["--missing", "1"],
+@pytest.mark.parametrize("argv", [["--type", "kl"], ["--type", "m_a"],
                                   ["--zeros", "1"]])
 def test_mosi_cli_refuses_what_is_not_ported(argv):
     with pytest.raises(SystemExit, match="not yet ported"):
