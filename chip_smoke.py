@@ -121,6 +121,17 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def diag_bytes(h_dims):
+    """Bytes of the diagonal blocks of a packed gate-major recurrent
+    weight (float32, four gates): the only part the kernels read."""
+    return 4 * 4 * sum(h * h for h in h_dims)
+
+
+def off_diag(weights):
+    """The packed weights but the recurrent one (see diag_bytes)."""
+    return [w for k, w in weights.items() if k != "wh"]
+
+
 def counters():
     """Each kernel's launch counter: {name: (module, attribute)}."""
     from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
@@ -351,13 +362,17 @@ def main():
          "decode_share_of_predict": float(stages[2]) / predict_ms})
 
     # bounds from this run's shapes: useful float32 work (only the
-    # diagonal blocks of the recurrent weights) and each input read once,
-    # each output written once
+    # diagonal blocks of the recurrent weights; no product with the zero
+    # state of step 0) and each input read once, each output written once
     n = N_SERVE
-    enc_bound = bound(2 * t * n * encode_macs_per_row(weights, h_dims, z_tot),
-                      nbytes(xp, *weights.values(), h_last, mem_last))
+    enc_macs = n * (t * encode_macs_per_row(weights, h_dims, z_tot)
+                    - 4 * sum(h * h for h in h_dims))
+    enc_bound = bound(2 * enc_macs,
+                      nbytes(xp, *off_diag(weights), h_last, mem_last)
+                      + diag_bytes(h_dims))
     dec_macs = (t - 1) * n * 4 * sum(h * h for h in dec_dims)
-    dec_bound = bound(2 * dec_macs, nbytes(h0, c0, wsum, b, *outs))
+    dec_bound = bound(2 * dec_macs,
+                      nbytes(h0, c0, b, *outs) + diag_bytes(dec_dims))
     serve_kernels = [
         {"name": "mfm_encode_fwd", "route": "cuda",
          "source": "factorized_tpu_torch/csrc/mfm_encode_fwd.cu",
@@ -528,23 +543,29 @@ def train_phase(cfg, dev, smi):
         decb_plain_ms = cuda_ms(lambda: cuda_lstm.decoder_lstm_bwd_plain(
             wsum, gates, allc, dallh), 10)
 
-    # bounds from this run's shapes, as for the forward kernels
+    # bounds from this run's shapes, as for the forward kernels; the
+    # backward's two recurrent products (the gates recomputed and dh
+    # carried back) vanish at step 0, whose previous state is zero
     rows = t * n
     s1, s2, s3, s4, mem = cuda_mfn.sizes(weights)
     m2 = 2 * (sum(h_dims) - z_tot)
     recur = 4 * sum(h * h for h in h_dims)
-    fwd_bound = bound(2 * rows * encode_macs_per_row(weights, h_dims, z_tot),
-                      nbytes(xp, masks, *weights.values(), *fwd))
-    bwd_macs = rows * (2 * recur + (s3 + s4) * mem + s2 * mem
-                       + (m2 + mem) * (s3 + s4) + m2 * s2 + 2 * s1 * m2)
-    used = ("wh", "a1w1", "a1w2", "a2w1", "a2w2", "gw1", "g1w2", "g2w2")
+    fwd_bound = bound(
+        2 * (rows * encode_macs_per_row(weights, h_dims, z_tot) - n * recur),
+        nbytes(xp, masks, *off_diag(weights), *fwd) + diag_bytes(h_dims))
+    bwd_macs = ((t - 1) * n * 2 * recur
+                + rows * ((s3 + s4) * mem + s2 * mem + (m2 + mem) * (s3 + s4)
+                          + m2 * s2 + 2 * s1 * m2))
+    used = ("a1w1", "a1w2", "a2w1", "a2w2", "gw1", "g1w2", "g2w2")
     bwd_bound = bound(2 * bwd_macs, nbytes(
-        xp, *res, dh, dmem, *[weights[k] for k in used], dxp, deltas))
+        xp, *res, dh, dmem, *[weights[k] for k in used], dxp, deltas)
+        + diag_bytes(h_dims))
     dw_macs = rows * sum(g.numel() for g in dw.values())
     dw_bound = bound(2 * dw_macs, nbytes(res[1], res[2], res[3], deltas_ref,
                                          *dw.values()))
     decb_macs = (t - 1) * n * 4 * sum(h * h for h in dec_dims)
-    decb_bound = bound(2 * decb_macs, nbytes(gates, allc, dallh, wsum, *dec))
+    decb_bound = bound(2 * decb_macs, nbytes(gates, allc, dallh, *dec)
+                       + diag_bytes(dec_dims))
     log({"phase": "train_kernels", "batch": n, "nvidia_smi": smi,
          "mfm_encode_fwd_train": {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
                                   "bound_ms": fwd_bound[0],
@@ -646,11 +667,16 @@ def multi_lstm_phase(cfg, dev, smi):
 
         lib_bwd_ms = cuda_ms(lib_both, 50) - cuda_ms(lib_forward, 50)
 
+        # products over the diagonal blocks only, none with the zero
+        # state of step 0 (forward) or into it (backward)
         hh = 4 * sum(h * h for h in h_dims)
-        fwd_bound = bound(2 * t * N_SERVE * hh, nbytes(xp, wh, h_last))
-        train_bound = bound(2 * t * N_TRAIN * hh, nbytes(xp32, wh, *res))
+        wh_bytes = diag_bytes(h_dims)
+        fwd_bound = bound(2 * (t - 1) * N_SERVE * hh,
+                          nbytes(xp, h_last) + wh_bytes)
+        train_bound = bound(2 * (t - 1) * N_TRAIN * hh,
+                            nbytes(xp32, *res) + wh_bytes)
         bwd_bound = bound(2 * (t - 1) * N_TRAIN * hh,
-                          nbytes(gates, allc, dh, wh, dxp))
+                          nbytes(gates, allc, dh, dxp) + wh_bytes)
         out[model_type] = {
             "h_dims": h_dims, "H": sum(h_dims), "nvidia_smi": smi,
             "fwd": {"n": N_SERVE, "ms": fwd_ms, "plain_ms": fwd_plain_ms,

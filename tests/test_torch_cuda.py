@@ -236,35 +236,66 @@ def test_each_multi_lstm_call_is_one_launch(cuda):
         before[0] + 2, before[1] + 1)
 
 
-def test_train_step_grads_on_the_card_match_the_cpu(cuda):
+def _zf_masks(cfg, n, g):
+    """Scaled keep-masks of the four z->f sites (zy's rate is 0: None)."""
+    return [None] + [
+        (torch.rand((n, f), generator=g) >= r).float() / (1.0 - r)
+        for f, r in ((cfg.fl_size, cfg.zl_to_fl_dropout),
+                     (cfg.fa_size, cfg.za_to_fa_dropout),
+                     (cfg.fv_size, cfg.zv_to_fv_dropout))]
+
+
+def _to(v, dev):
+    """v moved to dev: a tensor, None, or a list or dict of them, nested."""
+    if isinstance(v, dict):
+        return {k: _to(u, dev) for k, u in v.items()}
+    if isinstance(v, list):
+        return [_to(u, dev) for u in v]
+    return None if v is None else v.to(dev)
+
+
+# each model's forward and the loss its trainer takes a step on
+_STEPS = {"mfm": (mfm.mfm_apply, "joint", 0),
+          "kl_ef": (mfm.mfm_kl_ef_apply, "beta_vae", 1),
+          "missing": (mfm.mfm_missing_apply, "missing", 0)}
+
+
+def _step_grads(model_type, devices):
+    """One train step's gradients of ``model_type`` at SMALL on each of
+    ``devices``: the same parameters, batch and injected draws."""
     cfg = SMALL.replace(batchsize=4)
     n, t = 4, cfg.seqlength
-    params = mfm.MFM(cfg, seed=5, device="cpu").tree()
+    params = mfm.MFM(cfg, seed=5, device="cpu", model_type=model_type).tree()
     g = torch.Generator().manual_seed(6)
     x = torch.randn(t, n, cfg.d_total, generator=g)
     y = torch.randn(n, generator=g)
-    draws = {
+    encode = {
         "encode_masks": cuda_mfn.make_dropout_masks(
             g, t, n, (cfg.att1_shape, cfg.att2_shape, cfg.gamma1_shape,
                       cfg.gamma2_shape), mfn_drops(cfg)),
         "mmd_noise": torch.randn(mfm.mmd_noise_shape(cfg, n), generator=g),
-        "zf_masks": [None] + [
-            (torch.rand((n, f), generator=g) >= r).float() / (1.0 - r)
-            for f, r in ((cfg.fl_size, cfg.zl_to_fl_dropout),
-                         (cfg.fa_size, cfg.za_to_fa_dropout),
-                         (cfg.fv_size, cfg.zv_to_fv_dropout))],
     }
-    loss_fn = make_loss_fn(mfm.mfm_apply, cfg)
+    draws = {"mfm": dict(encode, zf_masks=_zf_masks(cfg, n, g)),
+             "kl_ef": {"zf_masks": _zf_masks(cfg, n, g)},
+             "missing": dict(encode, zf_masks=[_zf_masks(cfg, n, g)
+                                               for _ in range(4)])}
+    apply_fn, variant, stage = _STEPS[model_type]
+    loss_fn = make_loss_fn(apply_fn, cfg, variant, stage)
     grads = []
-    for dev in ("cpu", cuda):
+    for dev in devices:
         tree = {k: v.detach().to(dev).requires_grad_()
                 for k, v in to_state_dict(params).items()}
         loss, _ = loss_fn(from_state_dict(tree), x.to(dev), y.to(dev),
-                          draws={k: ([m if m is None else m.to(dev)
-                                      for m in v] if isinstance(v, list)
-                                     else v.to(dev))
-                                 for k, v in draws.items()})
+                          draws=_to(draws[model_type], dev))
         loss.backward()
-        grads.append({k: v.grad.cpu() for k, v in tree.items()})
-    for k in grads[0]:
-        torch.testing.assert_close(grads[1][k], grads[0][k], **GRAD)
+        # stage 1 of kl_ef does not reach the y head: no gradient there
+        grads.append({k: (torch.zeros_like(v) if v.grad is None
+                          else v.grad).cpu() for k, v in tree.items()})
+    return grads
+
+
+@pytest.mark.parametrize("model_type", list(_STEPS))
+def test_train_step_grads_on_the_card_match_the_cpu(cuda, model_type):
+    cpu, card = _step_grads(model_type, ("cpu", cuda))
+    for k in cpu:
+        torch.testing.assert_close(card[k], cpu[k], **GRAD)
