@@ -40,12 +40,20 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    finite losses, a falling stage-1 and a falling ``missing`` loss and
    that each path launched every kernel it runs; times and profiles each
    model's train step;
-10. prints one JSON line on the seven kernels, the ``nvidia-smi`` line,
+10. the probe path: the encode's probe variants (the forward writing its
+    residuals as ten tensors, the backward recomputing att on its chain,
+    the backward taking two reverse steps per iteration) against their
+    plain versions at full width and n = 32, each timed beside the
+    training path's backward; both probe entry points
+    (``factorized_tpu_torch.probes``) run with their repetitions cut,
+    checking that the run launched every variant;
+11. prints one JSON line on the ten kernels, the ``nvidia-smi`` line,
     and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1.
 """
 
+import functools
 import json
 import subprocess
 import sys
@@ -69,6 +77,9 @@ REQUEST_SIZES = (1, 3, 17, 64, 100, 256, 257, 300, 5, 40)
 # and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# the encode's probe variants: no training or serving path runs them
+PROBE_KERNELS = ("mfm_encode_fwd_split", "mfm_encode_bwd_recompute_att",
+                 "mfm_encode_bwd_two_step")
 
 
 def log(obj):
@@ -142,7 +153,10 @@ def counters():
             "decoder_lstm_fwd": (cuda_lstm, "LAUNCHES"),
             "decoder_lstm_bwd": (cuda_lstm, "BWD_LAUNCHES"),
             "multi_lstm_fwd": (cuda_lstm, "MULTI_LAUNCHES"),
-            "multi_lstm_bwd": (cuda_lstm, "MULTI_BWD_LAUNCHES")}
+            "multi_lstm_bwd": (cuda_lstm, "MULTI_BWD_LAUNCHES"),
+            "mfm_encode_fwd_split": (cuda_mfn, "SPLIT_LAUNCHES"),
+            "mfm_encode_bwd_recompute_att": (cuda_mfn, "RECOMPUTE_LAUNCHES"),
+            "mfm_encode_bwd_two_step": (cuda_mfn, "TWO_STEP_LAUNCHES")}
 
 
 def counted(path, kernels, fn):
@@ -392,7 +406,9 @@ def main():
 
     train_kernels = train_phase(cfg, dev, smi)
     variant_kernels = variants_phase(cfg, dev, smi)
-    log({"kernels": serve_kernels + train_kernels + variant_kernels})
+    probe_kernels = probe_phase(cfg, dev, smi)
+    log({"kernels": serve_kernels + train_kernels + variant_kernels
+         + probe_kernels})
     print(smi, flush=True)
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                 "count": torch.cuda.device_count()}})
@@ -720,7 +736,8 @@ def variants_phase(cfg, dev, smi):
             "missing": ("mfm_encode_fwd", "multi_lstm_fwd",
                         "decoder_lstm_fwd")}
     trains = {"kl_ef": runs["kl_ef"] + ("multi_lstm_bwd", "decoder_lstm_bwd"),
-              "missing": tuple(counters())}
+              "missing": tuple(k for k in counters()
+                               if k not in PROBE_KERNELS)}
     multi = {"multi_lstm_fwd": 0, "multi_lstm_bwd": 0}
 
     # ---- 9a. serve each model from a checkpoint
@@ -834,6 +851,155 @@ def variants_phase(cfg, dev, smi):
               "factorized_tpu/ops/pallas_lstm.py:88", "fwd"),
         entry("multi_lstm_bwd", "multi_lstm_bwd.cu",
               "factorized_tpu/ops/pallas_lstm.py:116", "bwd"),
+    ]
+
+
+def probe_phase(cfg, dev, smi):
+    """Step 10; returns the kernels-line entries of the three probe
+    variants."""
+    from factorized_tpu_torch.models import mfm
+    from factorized_tpu_torch.models.common import mfn_drops
+    from factorized_tpu_torch.ops import cuda_mfn
+    from factorized_tpu_torch.probes import (bwd_residual_probe,
+                                             twostep_bwd_probe)
+
+    t, n = cfg.seqlength, N_TRAIN
+    params = mfm.MFM(cfg, seed=SEED + 50, device=dev).tree()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 51)
+    x = torch.randn((t, n, cfg.d_total), generator=gen, device=dev)
+    names = ("h_last", "mem_last", "allh", "allc", "allmem",
+             *cuda_mfn.RES_NAMES)
+
+    def flat(outs):
+        return (*outs[:5], *outs[5])
+
+    # ---- 10a. each variant against its plain version, n = 32
+    with torch.inference_mode():
+        (xp, weights, z_tot, h_dims), _ = mfm.kernel_operands(params, x, cfg)
+        masks = cuda_mfn.make_dropout_masks(
+            gen, t, n, cuda_mfn.sizes(weights)[:4], mfn_drops(cfg))
+        split = cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims,
+                                        "split")
+        split_ref = cuda_mfn.mfm_encode_res_plain(xp, masks, weights, z_tot,
+                                                  "split")
+        torch.cuda.synchronize()
+        err = {"split": compare_all("mfm_encode_fwd.split",
+                                    zip(names, flat(split), flat(split_ref)))}
+        # the backward kernels read the plain residuals, in both layouts
+        res_split = split_ref[2:]
+        res_cat = (*split_ref[2:5], torch.cat(split_ref[5], dim=2))
+        dh = torch.randn((n, sum(h_dims)), generator=gen, device=dev)
+        dmem = torch.randn((n, weights["a2w2"].shape[1]), generator=gen,
+                           device=dev)
+        runs = {"stream": res_cat, "recompute_att": res_split,
+                "two_step": res_cat, "stream_split": res_split}
+        plains = {
+            "stream": cuda_mfn.mfm_encode_bwd_steps_plain,
+            "recompute_att": functools.partial(
+                cuda_mfn.mfm_encode_bwd_steps_plain, recompute_att=True),
+            "two_step": cuda_mfn.mfm_encode_bwd_two_step_plain,
+            "stream_split": cuda_mfn.mfm_encode_bwd_steps_plain}
+
+        def kernel(run):
+            return cuda_mfn._launch_bwd(xp, weights, *runs[run], dh, dmem,
+                                        z_tot, h_dims,
+                                        run.replace("_split", ""))
+
+        for run in runs:
+            got = kernel(run)
+            want = plains[run](xp, weights, *runs[run], dh, dmem, z_tot)
+            torch.cuda.synchronize()
+            err[run] = compare_all(f"mfm_encode_bwd.{run}",
+                                   zip(("dxp", "deltas"), got, want),
+                                   GRAD_RTOL, GRAD_ATOL)
+        dxp, deltas = got
+
+        # ---- 10b. times: each variant beside the training path's kernel,
+        #      in turns (the training path's first and last)
+        order = ("stream", "recompute_att", "two_step", "stream_split",
+                 "stream")
+        ms = {}
+        for run in order:
+            ms.setdefault(run, []).append(
+                cuda_ms(lambda: kernel(run), 50))
+        fwd_ms = {
+            "cat": cuda_ms(lambda: cuda_mfn.mfm_encode_res(
+                xp, masks, weights, z_tot, h_dims), 50),
+            "split": cuda_ms(lambda: cuda_mfn.mfm_encode_res(
+                xp, masks, weights, z_tot, h_dims, "split"), 50)}
+        plain_ms = {
+            "split": cuda_ms(lambda: cuda_mfn.mfm_encode_res_plain(
+                xp, masks, weights, z_tot, "split"), 10),
+            **{run: cuda_ms(lambda: plains[run](
+                xp, weights, *runs[run], dh, dmem, z_tot), 10)
+               for run in ("recompute_att", "two_step")}}
+
+    # bounds from this run's shapes, as for the training kernels; the
+    # recompute adds the logits product (2 t n s1 M2 FLOPs) and reads r1
+    # where the others read att
+    s1, s2, s3, s4, mem = cuda_mfn.sizes(weights)
+    m2 = 2 * (sum(h_dims) - z_tot)
+    rows = t * n
+    recur = 4 * sum(h * h for h in h_dims)
+    fwd_bound = bound(
+        2 * (rows * encode_macs_per_row(weights, h_dims, z_tot) - n * recur),
+        nbytes(xp, masks, *off_diag(weights), *flat(split))
+        + diag_bytes(h_dims))
+    bwd_macs = ((t - 1) * n * 2 * recur
+                + rows * ((s3 + s4) * mem + s2 * mem + (m2 + mem) * (s3 + s4)
+                          + m2 * s2 + 2 * s1 * m2))
+    used = ("a1w1", "a1w2", "a2w1", "a2w2", "gw1", "g1w2", "g2w2")
+    bwd_bytes = (nbytes(xp, *res_cat[:3], dh, dmem,
+                        *[weights[k] for k in used], dxp, deltas)
+                 + diag_bytes(h_dims))
+    fields = dict(zip(cuda_mfn.RES_NAMES, res_split[3]))
+    bounds = {
+        "two_step": bound(2 * bwd_macs,
+                          bwd_bytes + nbytes(*fields.values())),
+        "recompute_att": bound(
+            2 * (bwd_macs + rows * s1 * m2),
+            bwd_bytes + nbytes(weights["a1b2"], *[
+                v for k, v in fields.items() if k != "att"]))}
+
+    # ---- 10c. the probe path: both entry points, repetitions cut
+    kernels = PROBE_KERNELS + ("mfm_encode_fwd", "mfm_encode_bwd",
+                               "mfm_encode_dw")
+    (residual, twostep), seconds, launches = counted(
+        "probes", kernels, lambda: (
+            bwd_residual_probe.main(["--iters", "5", "--groups", "2"]),
+            twostep_bwd_probe.main(["--groups", "2", "--epochs", "2"])))
+    if not twostep["tracked_loss_match"]:
+        raise AssertionError(f"two-step losses differ: {twostep}")
+    for name, diff in residual["max_grad_diff"].items():
+        if not diff < 1e-3:
+            raise AssertionError(f"{name} grads off the plain ones: {diff}")
+    if not np.all(np.isfinite([v for v in residual.values()
+                               if isinstance(v, float)])):
+        raise AssertionError(f"non-finite probe times {residual}")
+    log({"phase": "probes", "batch": n, "nvidia_smi": smi,
+         "seconds": seconds, "launches": {k: launches[k] for k in kernels},
+         "bwd_ms": ms, "fwd_ms": fwd_ms, "plain_ms": plain_ms,
+         "bwd_residual_probe": residual, "twostep_bwd_probe": twostep})
+
+    def entry(name, source, replaces, e, time_ms, plain, bnd):
+        return {"name": name, "route": "cuda",
+                "source": f"factorized_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": e["max_abs_err"], "ms": time_ms,
+                "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": None}
+
+    return [
+        entry("mfm_encode_fwd_split", "mfm_encode_fwd.cu",
+              "scripts/bwd_residual_probe.py:81", err["split"],
+              fwd_ms["split"], plain_ms["split"], fwd_bound),
+        entry("mfm_encode_bwd_recompute_att", "mfm_encode_bwd.cu",
+              "scripts/bwd_residual_probe.py:151", err["recompute_att"],
+              ms["recompute_att"][0], plain_ms["recompute_att"],
+              bounds["recompute_att"]),
+        entry("mfm_encode_bwd_two_step", "mfm_encode_bwd.cu",
+              "scripts/twostep_bwd_probe.py:139", err["two_step"],
+              ms["two_step"][0], plain_ms["two_step"], bounds["two_step"]),
     ]
 
 

@@ -3,7 +3,11 @@
 // Replaces: factorized_tpu/ops/pallas_mfn.py::_fwd_kernel (reached through
 // _fwd_call, mfm_encode_pallas and its custom_vjp forward _encode_fwd):
 // the eval variant (train=False, with_res=False) and the train variants
-// (dropout masks; with_res, the residuals the backward reads).
+// (dropout masks; with_res, the residuals the backward reads). With the
+// residuals split into ten tensors it also replaces
+// scripts/bwd_residual_probe.py::_fwd_res_kernel; with one buffer it is the
+// same function and design as that script's _fwd_cat_kernel (one launch
+// looping over time).
 //
 // What it computes, for each of the t steps of a (t, n, 4H) gate-major
 // input projection xp: the six fused LSTM cells [enc_l, enc_a, enc_v,
@@ -14,10 +18,12 @@
 // mem = g1 * mem + g2 * chat. It returns h_last (n, H) and mem_last (n, mem).
 // In train mode the relu outputs of the att1, att2 and gamma fc1s are
 // multiplied by the scaled keep-masks (t, n, s1 + s2 + s3 + s4), and with
-// residuals it also writes allh, allc (t, n, H), allmem (t, n, mem) and one
-// (t, n, R) buffer in the JAX package's _RES_NAMES layout: att, r1, kg1,
-// r2, kg2, r3, kg3, chat, g1, g2, with r* the post-dropout activations and
-// kg* = mask * (u > 0).
+// residuals it also writes allh, allc (t, n, H), allmem (t, n, mem) and the
+// ten fields of the JAX package's _RES_NAMES: att, r1, kg1, r2, kg2, r3,
+// kg3, chat, g1, g2, with r* the post-dropout activations and kg* = mask *
+// (u > 0). It writes them through a residual-layout table (mfm_res.cuh):
+// one (t, n, R) buffer, as the training path keeps them, or ten
+// (t, n, width) tensors.
 //
 // What bounds it on an H100: operations. At the serving batch (n = 256,
 // t = 20, best_acc_mosi_config) the useful work is 3.9 GFLOP in float32
@@ -44,6 +50,7 @@
 #include <math.h>
 
 #include "lstm_common.cuh"
+#include "mfm_res.cuh"
 
 namespace ftt {
 namespace {
@@ -73,34 +80,27 @@ struct EncodeArgs {
   float* allh;      // (t, n, H), or null when no residuals are written
   float* allc;      // (t, n, H)
   float* allmem;    // (t, n, mem)
-  float* res;       // (t, n, R)
+  ResTable res;     // the ten residual fields (every entry null without)
   int t, n, H, z_tot, mem, s1, s2, s3, s4;
   Cells cells;
 };
 
-// Offsets of the residual buffer's fields (the _RES_NAMES layout).
-struct ResLayout {
-  int att, r1, kg1, r2, kg2, r3, kg3, chat, g1, g2, width;
-};
-
-__device__ __forceinline__ ResLayout res_layout(const EncodeArgs& a) {
-  const int m2 = 2 * (a.H - a.z_tot), s34 = a.s3 + a.s4;
-  ResLayout l;
-  l.att = 0;
-  l.r1 = m2;
-  l.kg1 = l.r1 + a.s1;
-  l.r2 = l.kg1 + a.s1;
-  l.kg2 = l.r2 + a.s2;
-  l.r3 = l.kg2 + a.s2;
-  l.kg3 = l.r3 + s34;
-  l.chat = l.kg3 + s34;
-  l.g1 = l.chat + a.mem;
-  l.g2 = l.g1 + a.mem;
-  l.width = l.g2 + a.mem;
-  return l;
-}
-
 enum Act { kIdentity, kTanh };
+
+// Where the residuals go, a template argument: nowhere (the eval variant
+// carries none of their code), one buffer shared by the ten fields, or ten
+// tensors.
+enum ResKind { kNoRes, kOneBuffer, kTenTensors };
+
+// Column 0 of field f in row `at` (= s * n + b). In one buffer every field
+// shares the pointer and row stride of field 0 (att, at column 0), so the
+// row's address is the same for all fields and only the offsets differ.
+template <int K>
+__device__ __forceinline__ float* field_row(const ResTable& t, int f,
+                                            size_t at) {
+  const ResEntry& e = t.f[K == kOneBuffer ? 0 : f];
+  return e.ptr + at * e.stride + t.f[f].col;
+}
 
 // acc[r] += sum_k A[k][r] * W[k][j], with A the feature-major stack of a0
 // (k0 features) over a1 (k1 features) and W row-major with ldw columns.
@@ -144,13 +144,14 @@ __device__ __forceinline__ void store_col(float* out, int j,
 
 // The relu of a dropout site: out[j] = relu(u) * m for each of the R rows,
 // m the row's mask at column mask_col (1 without masks); with residuals
-// also res[r_col + j] = that and res[kg_col + j] = m * (u > 0).
-template <int R>
+// (K != kNoRes) also column j of field r_field = that and of kg_field =
+// m * (u > 0).
+template <int R, int K>
 __device__ __forceinline__ void store_site(float* out, int j,
                                            const float (&acc)[R],
                                            const EncodeArgs& a, int s,
-                                           int row0, int mask_col, int r_col,
-                                           int kg_col, int res_width) {
+                                           int row0, int mask_col,
+                                           int r_field, int kg_field) {
   const int S = a.s1 + a.s2 + a.s3 + a.s4;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -161,15 +162,14 @@ __device__ __forceinline__ void store_site(float* out, int j,
     if (a.masks != nullptr && row < a.n) m = a.masks[at * S + mask_col + j];
     const float v = fmaxf(u, 0.0f) * m;
     out[j * R + r] = v;
-    if (a.res != nullptr && row < a.n) {
-      float* res = a.res + at * res_width;
-      res[r_col + j] = v;
-      res[kg_col + j] = u > 0.0f ? m : 0.0f;
+    if (K != kNoRes && row < a.n) {
+      field_row<K>(a.res, r_field, at)[j] = v;
+      field_row<K>(a.res, kg_field, at)[j] = u > 0.0f ? m : 0.0f;
     }
   }
 }
 
-template <int R>
+template <int R, int K>
 __global__ void __launch_bounds__(kMaxThreads)
     mfm_encode_fwd_kernel(const EncodeArgs a) {
   extern __shared__ float smem[];
@@ -188,7 +188,6 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int row0 = blockIdx.x * R;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nthr >> 5;
-  const ResLayout lay = res_layout(a);
 
   for (int i = tid; i < (4 * H + a.mem) * R; i += nthr) smem[i] = 0.0f;
   __syncthreads();
@@ -241,7 +240,7 @@ __global__ void __launch_bounds__(kMaxThreads)
         c_new[j * R + r] = c;
         h_new[j * R + r] = h;
         const int row = row0 + r;
-        if (a.allh != nullptr && row < a.n) {
+        if (K != kNoRes && row < a.n) {
           const size_t at = ((size_t)s * a.n + row) * H + j;
           a.allh[at] = h;
           a.allc[at] = c;
@@ -257,7 +256,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       float acc[R];
       fill(acc, __ldg(a.a1b1 + j));
       dot_col<R>(cs_prev, M, cs_new, M, a.a1w1, a.s1, j, acc);
-      store_site<R>(r1, j, acc, a, s, row0, 0, lay.r1, lay.kg1, lay.width);
+      store_site<R, K>(r1, j, acc, a, s, row0, 0, kR1, kKg1);
     }
     __syncthreads();
 
@@ -286,13 +285,13 @@ __global__ void __launch_bounds__(kMaxThreads)
       for (int o = 16; o > 0; o >>= 1)
         sum += __shfl_xor_sync(0xffffffffu, sum, o);
       const int row = row0 + r;
-      float* res = (a.res != nullptr && row < a.n)
-                       ? a.res + ((size_t)s * a.n + row) * lay.width
+      float* res = (K != kNoRes && row < a.n)
+                       ? field_row<K>(a.res, kAtt, (size_t)s * a.n + row)
                        : nullptr;
       for (int k = lane; k < M2; k += 32) {
         const float cs = k < M ? cs_prev[k * R + r] : cs_new[(k - M) * R + r];
         const float p = att[k * R + r] / sum;
-        if (res != nullptr) res[lay.att + k] = p;
+        if (res != nullptr) res[k] = p;
         att[k * R + r] = p * cs;
       }
     }
@@ -304,14 +303,12 @@ __global__ void __launch_bounds__(kMaxThreads)
       if (j < a.s2) {
         fill(acc, __ldg(a.a2b1 + j));
         dot_col<R>(att, M2, nullptr, 0, a.a2w1, a.s2, j, acc);
-        store_site<R>(r2, j, acc, a, s, row0, a.s1, lay.r2, lay.kg2,
-                      lay.width);
+        store_site<R, K>(r2, j, acc, a, s, row0, a.s1, kR2, kKg2);
       } else {
         const int jj = j - a.s2;
         fill(acc, __ldg(a.gb1 + jj));
         dot_col<R>(att, M2, mem, a.mem, a.gw1, s34, jj, acc);
-        store_site<R>(r3, jj, acc, a, s, row0, a.s1 + a.s2, lay.r3, lay.kg3,
-                      lay.width);
+        store_site<R, K>(r3, jj, acc, a, s, row0, a.s1 + a.s2, kR3, kKg3);
       }
     }
     __syncthreads();
@@ -345,12 +342,11 @@ __global__ void __launch_bounds__(kMaxThreads)
       const float m = g1 * mem[i] + g2 * chat;
       mem[i] = m;
       const int j = i / R, row = row0 + (i - j * R);
-      if (a.res != nullptr && row < a.n) {
+      if (K != kNoRes && row < a.n) {
         const size_t at = (size_t)s * a.n + row;
-        float* res = a.res + at * lay.width;
-        res[lay.chat + j] = chat;
-        res[lay.g1 + j] = g1;
-        res[lay.g2 + j] = g2;
+        field_row<K>(a.res, kChat, at)[j] = chat;
+        field_row<K>(a.res, kG1, at)[j] = g1;
+        field_row<K>(a.res, kG2, at)[j] = g2;
         a.allmem[at * a.mem + j] = m;
       }
     }
@@ -369,27 +365,44 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-template <int R>
+template <int R, int K>
 cudaError_t launch(const EncodeArgs& a, int threads, cudaStream_t stream) {
   const int M2 = 2 * (a.H - a.z_tot);
   const size_t floats = (size_t)R * (4 * a.H + a.mem + M2 + a.s1 + a.s2 +
                                      a.s3 + a.s4 + 3 * a.mem);
   const size_t bytes = floats * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      mfm_encode_fwd_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      mfm_encode_fwd_kernel<R, K>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.n + R - 1) / R);
-  mfm_encode_fwd_kernel<R><<<grid, threads, bytes, stream>>>(a);
+  mfm_encode_fwd_kernel<R, K><<<grid, threads, bytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The residuals' kind, read off the table: one buffer when every field
+// has field 0's pointer and row stride.
+template <int R>
+cudaError_t launch_rows(const EncodeArgs& a, int threads,
+                        cudaStream_t stream) {
+  if (a.allh == nullptr) return launch<R, kNoRes>(a, threads, stream);
+  bool one = a.res.f[0].col == 0;
+  for (int k = 1; k < kResFields; ++k)
+    one = one && a.res.f[k].ptr == a.res.f[0].ptr &&
+          a.res.f[k].stride == a.res.f[0].stride;
+  return one ? launch<R, kOneBuffer>(a, threads, stream)
+             : launch<R, kTenTensors>(a, threads, stream);
 }
 
 }  // namespace
 }  // namespace ftt
 
 // Biases are (1, d) or (d,), all arrays float32 and contiguous. masks is
-// (t, n, s1 + s2 + s3 + s4) or null (eval); allh, allc, allmem and res are
-// all given (residuals written) or all null. cell_dims (host memory) lists
+// (t, n, s1 + s2 + s3 + s4) or null (eval). allh, allc, allmem and
+// res_ptrs are all given (residuals written) or all null; res_ptrs,
+// res_strides and res_cols (host memory) are the residual-layout table's
+// ten pointers, row strides and column offsets (mfm_res.cuh), in the
+// _RES_NAMES order. cell_dims (host memory) lists
 // the n_cells fused hidden widths, summing to H; the first cells up to
 // z_tot are the encoders. rows is the batch rows per block (1, 2, 4, 8 or
 // 16), threads a multiple of 32 up to 512.
@@ -399,9 +412,10 @@ extern "C" int mfm_encode_fwd(
     const float* a2w1, const float* a2b1, const float* a2w2, const float* a2b2,
     const float* gw1, const float* gb1, const float* g1w2, const float* g1b2,
     const float* g2w2, const float* g2b2, float* h_last, float* mem_last,
-    float* allh, float* allc, float* allmem, float* res, int t, int n,
-    int H, int z_tot, int mem, int s1, int s2, int s3, int s4,
-    int n_cells, const int* cell_dims, int rows, int threads, void* stream) {
+    float* allh, float* allc, float* allmem, void* const* res_ptrs,
+    const int* res_strides, const int* res_cols, int t, int n, int H,
+    int z_tot, int mem, int s1, int s2, int s3, int s4, int n_cells,
+    const int* cell_dims, int rows, int threads, void* stream) {
   using namespace ftt;
   EncodeArgs a;
   a.xp = xp;
@@ -426,7 +440,6 @@ extern "C" int mfm_encode_fwd(
   a.allh = allh;
   a.allc = allc;
   a.allmem = allmem;
-  a.res = res;
   a.t = t;
   a.n = n;
   a.H = H;
@@ -436,18 +449,22 @@ extern "C" int mfm_encode_fwd(
   a.s2 = s2;
   a.s3 = s3;
   a.s4 = s4;
+  int widths[kResFields];
+  res_widths(H, z_tot, mem, s1, s2, s3, s4, widths);
   if (!make_cells(n_cells, cell_dims, H, &a.cells) || t < 1 || n < 1 ||
       z_tot < 0 || z_tot >= H || threads < 32 || threads > kMaxThreads ||
       threads % 32 != 0 ||
-      !((allh && allc && allmem && res) || !(allh || allc || allmem || res)))
+      !make_res_table(res_ptrs, res_strides, res_cols, widths, &a.res) ||
+      !((allh && allc && allmem && res_ptrs) ||
+        !(allh || allc || allmem || res_ptrs)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (rows) {
-    case 1: return (int)launch<1>(a, threads, st);
-    case 2: return (int)launch<2>(a, threads, st);
-    case 4: return (int)launch<4>(a, threads, st);
-    case 8: return (int)launch<8>(a, threads, st);
-    case 16: return (int)launch<16>(a, threads, st);
+    case 1: return (int)launch_rows<1>(a, threads, st);
+    case 2: return (int)launch_rows<2>(a, threads, st);
+    case 4: return (int)launch_rows<4>(a, threads, st);
+    case 8: return (int)launch_rows<8>(a, threads, st);
+    case 16: return (int)launch_rows<16>(a, threads, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

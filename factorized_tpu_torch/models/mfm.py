@@ -91,13 +91,14 @@ def _decode(params, fy, fl, fa, fv, t, cfg, *, train=False, generator=None,
 
 
 def _encode_stage(params, x_l, x_a, x_v, cfg, *, train=False, generator=None,
-                  masks=None):
+                  masks=None, bwd_variant="stream"):
     """zl/za/zv latents and the MFN's last_hs, from the fused encode."""
     enc = params["enc"]
     (hl, ha, hv), mfn_last = fused_mfm_encode(
         [enc[k]["lstm"] for k in _ENCODERS], params["mfn_enc"]["mfn"],
         x_l, x_a, x_v, mem_dim=cfg.memsize, drops=mfn_drops(cfg),
-        train=train, generator=generator, masks=masks)
+        train=train, generator=generator, masks=masks,
+        bwd_variant=bwd_variant)
     zl = linear_apply(enc["encoder_l"]["fc1"], hl)
     za = linear_apply(enc["encoder_a"]["fc1"], ha)
     zv = linear_apply(enc["encoder_v"]["fc1"], hv)
@@ -147,7 +148,8 @@ def mfm_init(generator, cfg):
 
 
 def mfm_apply(params, x, cfg, *, generator=None, train=False,
-              mmd_noise=None, encode_masks=None, zf_masks=None, y_mask=None):
+              mmd_noise=None, encode_masks=None, zf_masks=None, y_mask=None,
+              bwd_variant="stream"):
     """x (t, n, d_total) time-major -> (decoded, mmd, 0.0).
 
     The draws, each taken from ``generator`` (on x's device) unless
@@ -155,12 +157,15 @@ def mfm_apply(params, x, cfg, *, generator=None, train=False,
     widths, see ``cuda_mfn.make_dropout_masks``), ``mmd_noise`` (see
     ``mmd_noise_shape``), ``zf_masks`` (four scaled keep-masks (n, f_i)
     or None, order zy, zl, za, zv) and ``y_mask`` (n, fy). Only
-    ``mmd_noise`` is drawn in eval mode."""
+    ``mmd_noise`` is drawn in eval mode. ``bwd_variant`` picks the
+    encode's reverse kernel (``cuda_mfn.BWD_VARIANTS``; the probes try
+    the others)."""
     t = x.shape[0]
     x_l, x_a, x_v = split_modalities(x, cfg.input_dims)
     zl, za, zv, mfn_last = _encode_stage(params, x_l, x_a, x_v, cfg,
                                          train=train, generator=generator,
-                                         masks=encode_masks)
+                                         masks=encode_masks,
+                                         bwd_variant=bwd_variant)
     zy = linear_apply(params["mfn_enc"]["last_to_zy"], mfn_last)
     mmd = _mmd4(zl, za, zv, zy, _mmd_noise(mmd_noise, generator, cfg, x))
     fy, fl, fa, fv = _zf_all(params, zy, zl, za, zv, cfg, train=train,

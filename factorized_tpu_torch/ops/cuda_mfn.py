@@ -1,15 +1,22 @@
 """The fused MFM encode, forward and backward: the CUDA kernels' wrappers
 and their plain PyTorch versions (port of ``ops/pallas_mfn.py``).
 
-Three kernels, each with a launch counter:
+Three kernels, each with a launch counter per variant:
 
-- ``csrc/mfm_encode_fwd.cu`` (``LAUNCHES``): the forward, eval or train.
+- ``csrc/mfm_encode_fwd.cu``: the forward, eval or train (``LAUNCHES``).
   In train mode it takes the dropout masks and, when a backward follows,
-  writes the residuals (``allh``, ``allc``, ``allmem`` and one
-  ``(t, n, R)`` buffer in the ``RES_NAMES`` layout).
-- ``csrc/mfm_encode_bwd.cu::mfm_encode_bwd`` (``BWD_LAUNCHES``): the
-  reverse-time pass, writing ``dxp`` (= dgates) and each step's deltas
-  in the ``DELTA_NAMES`` layout.
+  writes the residuals: ``allh``, ``allc``, ``allmem`` and the ten
+  ``RES_NAMES`` fields, as one ``(t, n, R)`` buffer (layout ``"cat"``,
+  the training path's) or as ten ``(t, n, width)`` tensors (layout
+  ``"split"``, ``SPLIT_LAUNCHES``). The kernels read and write the fields
+  through a residual-layout table (``csrc/mfm_res.cuh``).
+- ``csrc/mfm_encode_bwd.cu::mfm_encode_bwd``: the reverse-time pass,
+  writing ``dxp`` (= dgates) and each step's deltas in the
+  ``DELTA_NAMES`` layout. Variants: ``"stream"`` (the training path's,
+  ``BWD_LAUNCHES``), ``"recompute_att"`` (att recomputed from r1 on the
+  chain, ``RECOMPUTE_LAUNCHES``) and ``"two_step"`` (two reverse steps
+  per iteration, t even, ``TWO_STEP_LAUNCHES``); the last two are the
+  probe variants of ``factorized_tpu_torch/probes/``.
 - ``csrc/mfm_encode_bwd.cu::mfm_encode_dw`` (``DW_LAUNCHES``): the 14
   non-``wh`` weight and bias gradients, ``A^T delta`` summed over the
   t * n rows in a fixed order.
@@ -18,7 +25,9 @@ A wrapper runs the plain version for CPU tensors and launches the kernel
 for CUDA tensors; there is no other route. ``dWh`` is one
 ``torch.matmul`` outside the kernels, as the JAX package leaves it to
 XLA. ``MFMEncode`` is the ``torch.autograd.Function`` over the pair
-(JAX: the ``custom_vjp`` of ``mfm_encode_pallas``).
+(JAX: the ``custom_vjp`` of ``mfm_encode_pallas``); ``make_variant``,
+``make_variant_d`` and ``make_variant_two_step`` give the probes'
+layout and variant pairs over it.
 """
 
 from __future__ import annotations
@@ -51,9 +60,16 @@ DW_PRODUCTS = {
     "g2w2": ("r3b", "dq2"), "g2b2": ("ones", "dq2"),
 }
 
-LAUNCHES = 0      # mfm_encode_fwd, every variant
-BWD_LAUNCHES = 0  # mfm_encode_bwd
-DW_LAUNCHES = 0   # mfm_encode_dw
+# the residual layouts and the backward's variants
+LAYOUTS = ("cat", "split")
+BWD_VARIANTS = ("stream", "recompute_att", "two_step")
+
+LAUNCHES = 0            # mfm_encode_fwd: eval, and train in the cat layout
+SPLIT_LAUNCHES = 0      # mfm_encode_fwd: train in the split layout
+BWD_LAUNCHES = 0        # mfm_encode_bwd, stream
+RECOMPUTE_LAUNCHES = 0  # mfm_encode_bwd, recompute_att
+TWO_STEP_LAUNCHES = 0   # mfm_encode_bwd, two_step
+DW_LAUNCHES = 0         # mfm_encode_dw
 # batch rows per block and threads per block: the fastest pairs measured
 # by perf_probe.py (PERF.md), ROWS at the serving shapes (n = 256: 64
 # blocks), TRAIN_ROWS and BWD_ROWS at the training batch (n = 32: 16 and
@@ -87,6 +103,37 @@ def res_layout(weights):
     return _layout(RES_NAMES, dict(att=m2, r1=s1, kg1=s1, r2=s2, kg2=s2,
                                    r3=s3 + s4, kg3=s3 + s4, chat=mem,
                                    g1=mem, g2=mem))
+
+
+def res_fields(res, weights):
+    """{name: (t, n, width) tensor} of residuals in either layout: views
+    of the one buffer (``"cat"``) or the ten tensors (``"split"``, a
+    sequence in the ``RES_NAMES`` order)."""
+    if isinstance(res, torch.Tensor):
+        return {nm: res[..., o:o + w]
+                for nm, (o, w) in res_layout(weights)[0].items()}
+    return dict(zip(RES_NAMES, res))
+
+
+def _res_table(res, weights):
+    """The kernels' residual-layout table for ``res``: ten pointers, row
+    strides and column offsets as ctypes arrays (``csrc/mfm_res.cuh``)."""
+    offs, R = res_layout(weights)
+    if isinstance(res, torch.Tensor):
+        ptrs = [res.data_ptr()] * len(RES_NAMES)
+        strides = [R] * len(RES_NAMES)
+        cols = [offs[nm][0] for nm in RES_NAMES]
+    else:
+        ptrs = [r.data_ptr() for r in res]
+        strides = [offs[nm][1] for nm in RES_NAMES]
+        cols = [0] * len(RES_NAMES)
+    k = len(RES_NAMES)
+    return ((ctypes.c_void_p * k)(*ptrs), (ctypes.c_int * k)(*strides),
+            (ctypes.c_int * k)(*cols))
+
+
+_TABLE = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+          ctypes.POINTER(ctypes.c_int)]
 
 
 def delta_layout(weights):
@@ -151,6 +198,25 @@ def _check(xp, weights, z_tot, h_dims, masks=None):
     _check_tensors(named, xp.device, want)
 
 
+def _check_res(res, weights, t, n, device):
+    """Raises unless ``res`` is one (t, n, R) buffer or ten (t, n, width)
+    tensors in the ``RES_NAMES`` order."""
+    offs, R = res_layout(weights)
+    if isinstance(res, torch.Tensor):
+        _check_tensors([("res", res)], device, {"res": (t, n, R)})
+        return
+    if len(res) != len(RES_NAMES):
+        raise ValueError(f"split residuals must be {len(RES_NAMES)} "
+                         f"tensors, got {len(res)}")
+    _check_tensors(list(zip(RES_NAMES, res)), device,
+                   {nm: (t, n, offs[nm][1]) for nm in RES_NAMES})
+
+
+def _check_choice(name, value, choices):
+    if value not in choices:
+        raise ValueError(f"{name} must be one of {choices}, got {value!r}")
+
+
 def _route(device):
     """'cpu' for the plain version, 'cuda' for the kernel; else raise."""
     if device.type not in ("cpu", "cuda"):
@@ -170,28 +236,33 @@ def mfm_encode(xp, weights, z_tot: int, h_dims, masks=None):
     _check(xp, weights, z_tot, h_dims, masks)
     if _route(xp.device) == "cpu":
         return mfm_encode_plain(xp, weights, z_tot, masks)
-    return _launch_fwd(xp, masks, weights, z_tot, h_dims, with_res=False)
+    return _launch_fwd(xp, masks, weights, z_tot, h_dims)
 
 
-def mfm_encode_res(xp, masks, weights, z_tot: int, h_dims):
+def mfm_encode_res(xp, masks, weights, z_tot: int, h_dims,
+                   layout: str = "cat"):
     """The forward that a backward follows (JAX: ``_fwd_call(...,
-    with_res=True)``): ``(h_last, mem_last, allh, allc, allmem, res)``,
-    allh/allc (t, n, H), allmem (t, n, mem), res (t, n, R) in the
-    ``RES_NAMES`` layout. ``masks`` None means all ones."""
+    with_res=True)``; ``layout="split"``: the probe's ``_fwd_res_call``):
+    ``(h_last, mem_last, allh, allc, allmem, res)``, allh/allc (t, n, H),
+    allmem (t, n, mem), res one (t, n, R) buffer in the ``RES_NAMES``
+    layout or a tuple of the ten fields. ``masks`` None means all
+    ones."""
     _check(xp, weights, z_tot, h_dims, masks)
+    _check_choice("layout", layout, LAYOUTS)
     if _route(xp.device) == "cpu":
-        return mfm_encode_res_plain(xp, masks, weights, z_tot)
-    return _launch_fwd(xp, masks, weights, z_tot, h_dims, with_res=True)
+        return mfm_encode_res_plain(xp, masks, weights, z_tot, layout)
+    return _launch_fwd(xp, masks, weights, z_tot, h_dims, layout)
 
 
-def _launch_fwd(xp, masks, weights, z_tot, h_dims, with_res):
-    global LAUNCHES
+def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None):
+    """The forward kernel; ``layout`` None writes no residuals."""
+    global LAUNCHES, SPLIT_LAUNCHES
     t, n, H4 = xp.shape
     H = H4 // 4
     s1, s2, s3, s4, mem = sizes(weights)
     fn = _build.kernel(
         "mfm_encode_fwd",
-        [ctypes.c_void_p] * 23 + [ctypes.c_int] * 10
+        [ctypes.c_void_p] * 22 + _TABLE + [ctypes.c_int] * 10
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
            ctypes.c_void_p])
 
@@ -200,24 +271,30 @@ def _launch_fwd(xp, masks, weights, z_tot, h_dims, with_res):
 
     h_last, mem_last = empty(n, H), empty(n, mem)
     outs = [h_last, mem_last]
-    if with_res:
-        outs += [empty(t, n, H), empty(t, n, H), empty(t, n, mem),
-                 empty(t, n, res_layout(weights)[1])]
-        res_ptrs = [o.data_ptr() for o in outs[2:]]
+    if layout is None:
+        ptrs, table = [None] * 3, [None] * 3
     else:
-        res_ptrs = [None] * 4
+        offs, R = res_layout(weights)
+        res = (empty(t, n, R) if layout == "cat" else
+               tuple(empty(t, n, offs[nm][1]) for nm in RES_NAMES))
+        outs += [empty(t, n, H), empty(t, n, H), empty(t, n, mem), res]
+        ptrs = [o.data_ptr() for o in outs[2:5]]
+        table = _res_table(res, weights)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
-    rows = TRAIN_ROWS if with_res else ROWS
+    rows = ROWS if layout is None else TRAIN_ROWS
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xp.data_ptr(),
                  None if masks is None else masks.data_ptr(),
                  *[weights[k].data_ptr() for k in W_NAMES],
-                 h_last.data_ptr(), mem_last.data_ptr(), *res_ptrs,
+                 h_last.data_ptr(), mem_last.data_ptr(), *ptrs, *table,
                  t, n, H, z_tot, mem, s1, s2, s3, s4,
                  len(h_dims), dims, rows, THREADS, stream)
     _build.check(err, "mfm_encode_fwd")
-    LAUNCHES += 1
+    if layout == "split":
+        SPLIT_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return tuple(outs)
 
 
@@ -265,7 +342,8 @@ def mfm_encode_plain(xp, weights, z_tot: int, masks=None):
     return h, mem
 
 
-def mfm_encode_res_plain(xp, masks, weights, z_tot: int):
+def mfm_encode_res_plain(xp, masks, weights, z_tot: int,
+                         layout: str = "cat"):
     """``mfm_encode_res`` in plain PyTorch."""
     t, n, H4 = xp.shape
     h = xp.new_zeros((n, H4 // 4))
@@ -279,32 +357,41 @@ def mfm_encode_res_plain(xp, masks, weights, z_tot: int):
         allh.append(h)
         allc.append(c)
         allmem.append(mem)
-        res.append(torch.cat(r, dim=1))
+        res.append(r)
+    fields = tuple(torch.stack(f) for f in zip(*res))
     return (h, mem, torch.stack(allh), torch.stack(allc),
-            torch.stack(allmem), torch.stack(res))
+            torch.stack(allmem),
+            torch.cat(fields, dim=2) if layout == "cat" else fields)
 
 
 # -------------------------------------------------------------- backward
 
 def mfm_encode_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
-                   z_tot: int, h_dims):
+                   z_tot: int, h_dims, variant: str = "stream"):
     """The encode's backward (JAX: ``_bwd_call``) from the residuals of
-    ``mfm_encode_res`` and the cotangents of ``h_last`` and ``mem_last``.
-    Returns ``(dxp (t, n, 4H), {name: grad})`` over ``W_NAMES``."""
+    ``mfm_encode_res``, in either layout, and the cotangents of
+    ``h_last`` and ``mem_last``. ``variant`` picks the reverse kernel:
+    ``"stream"`` (the training path's), ``"recompute_att"`` (att
+    recomputed from r1) or ``"two_step"`` (t even). Returns
+    ``(dxp (t, n, 4H), {name: grad})`` over ``W_NAMES``."""
     _check(xp, weights, z_tot, h_dims)
+    _check_choice("variant", variant, BWD_VARIANTS)
     t, n, H4 = xp.shape
     H, mem = H4 // 4, sizes(weights)[4]
     _check_tensors(
-        [("allh", allh), ("allc", allc), ("allmem", allmem), ("res", res),
+        [("allh", allh), ("allc", allc), ("allmem", allmem),
          ("dhlast", dhlast), ("dmemlast", dmemlast)], xp.device,
         {"allh": (t, n, H), "allc": (t, n, H), "allmem": (t, n, mem),
-         "res": (t, n, res_layout(weights)[1]), "dhlast": (n, H),
-         "dmemlast": (n, mem)})
+         "dhlast": (n, H), "dmemlast": (n, mem)})
+    _check_res(res, weights, t, n, xp.device)
+    if variant == "two_step" and t % 2:
+        raise ValueError(f"the two-step backward needs an even t, got {t}")
     if _route(xp.device) == "cpu":
         return mfm_encode_bwd_plain(xp, weights, allh, allc, allmem, res,
-                                    dhlast, dmemlast, z_tot)
+                                    dhlast, dmemlast, z_tot,
+                                    recompute_att=variant == "recompute_att")
     dxp, deltas = _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast,
-                              dmemlast, z_tot, h_dims)
+                              dmemlast, z_tot, h_dims, variant)
     dweights = _launch_dw(weights, allc, allmem, res, deltas, z_tot)
     # one GEMM outside the kernels (JAX leaves it to XLA)
     dweights["wh"] = recurrent_weight_grad(allh, dxp)
@@ -312,31 +399,40 @@ def mfm_encode_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
 
 
 def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
-                z_tot, h_dims):
+                z_tot, h_dims, variant="stream"):
     """The reverse-time kernel: (dxp, deltas (t, n, D))."""
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, RECOMPUTE_LAUNCHES, TWO_STEP_LAUNCHES
     t, n, H4 = xp.shape
     s1, s2, s3, s4, mem = sizes(weights)
     fn = _build.kernel(
         "mfm_encode_bwd",
-        [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10
+        [ctypes.c_void_p] * 4 + _TABLE + [ctypes.c_void_p] * 13
+        + [ctypes.c_int] * 10
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-           ctypes.c_void_p])
+           ctypes.c_int, ctypes.c_void_p])
     dxp = torch.empty_like(xp)
     deltas = torch.empty((t, n, delta_layout(weights)[1]),
                          dtype=torch.float32, device=xp.device)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
-    used = ("wh", "a1w1", "a1w2", "a2w1", "a2w2", "gw1", "g1w2", "g2w2")
+    used = ("wh", "a1w1", "a1w2", "a1b2", "a2w1", "a2w2", "gw1", "g1w2",
+            "g2w2")
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xp.data_ptr(), allh.data_ptr(), allc.data_ptr(),
-                 allmem.data_ptr(), res.data_ptr(), dhlast.data_ptr(),
-                 dmemlast.data_ptr(), *[weights[k].data_ptr() for k in used],
+                 allmem.data_ptr(), *_res_table(res, weights),
+                 dhlast.data_ptr(), dmemlast.data_ptr(),
+                 *[weights[k].data_ptr() for k in used],
                  dxp.data_ptr(), deltas.data_ptr(),
                  t, n, H4 // 4, z_tot, mem, s1, s2, s3, s4,
-                 len(h_dims), dims, BWD_ROWS, BWD_THREADS, stream)
-    _build.check(err, "mfm_encode_bwd")
-    BWD_LAUNCHES += 1
+                 len(h_dims), dims, BWD_VARIANTS.index(variant), BWD_ROWS,
+                 BWD_THREADS, stream)
+    _build.check(err, f"mfm_encode_bwd ({variant})")
+    if variant == "stream":
+        BWD_LAUNCHES += 1
+    elif variant == "recompute_att":
+        RECOMPUTE_LAUNCHES += 1
+    else:
+        TWO_STEP_LAUNCHES += 1
     return dxp, deltas
 
 
@@ -348,14 +444,16 @@ def _launch_dw(weights, allc, allmem, res, deltas, z_tot):
     s1, s2, s3, s4, mem = sizes(weights)
     fn = _build.kernel(
         "mfm_encode_dw",
-        [ctypes.c_void_p] * (4 + len(DW_NAMES)) + [ctypes.c_int] * 9
+        [ctypes.c_void_p] * 2 + _TABLE
+        + [ctypes.c_void_p] * (1 + len(DW_NAMES)) + [ctypes.c_int] * 9
         + [ctypes.c_void_p])
     grads = {k: torch.empty(weights[k].shape, dtype=torch.float32,
                             device=allc.device) for k in DW_NAMES}
     with torch.cuda.device(allc.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(allc.data_ptr(), allmem.data_ptr(), res.data_ptr(),
-                 deltas.data_ptr(), *[grads[k].data_ptr() for k in DW_NAMES],
+        err = fn(allc.data_ptr(), allmem.data_ptr(),
+                 *_res_table(res, weights), deltas.data_ptr(),
+                 *[grads[k].data_ptr() for k in DW_NAMES],
                  t, n, H, z_tot, mem, s1, s2, s3, s4, stream)
     _build.check(err, "mfm_encode_dw")
     DW_LAUNCHES += 1
@@ -363,19 +461,21 @@ def _launch_dw(weights, allc, allmem, res, deltas, z_tot):
 
 
 def mfm_encode_bwd_steps_plain(xp, weights, allh, allc, allmem, res,
-                               dhlast, dmemlast, z_tot: int):
+                               dhlast, dmemlast, z_tot: int,
+                               recompute_att: bool = False):
     """The reverse-time pass in plain PyTorch, step for step the body of
     ``_bwd_kernel``: returns (dxp, deltas (t, n, D)) as the kernel
-    writes them."""
+    writes them. ``res`` in either layout; ``recompute_att`` takes att
+    from r1, a1w2 and a1b2 instead of the stored field (the probe's
+    variant B)."""
     w = weights
     t, n, H4 = xp.shape
     m2 = w["a1w1"].shape[0]
     M = m2 // 2
-    offs, _ = res_layout(w)
+    fields = res_fields(res, w)
 
     def get(nm, i):
-        o, wd = offs[nm]
-        return res[i, :, o:o + wd]
+        return fields[nm][i]
 
     dh, dc, dmem = dhlast, torch.zeros_like(dhlast), dmemlast
     pad = xp.new_zeros((n, z_tot))
@@ -393,7 +493,10 @@ def mfm_encode_bwd_steps_plain(xp, weights, allh, allc, allmem, res,
         si, sf, so = torch.sigmoid(ig), torch.sigmoid(fg), torch.sigmoid(og)
         tg, tc = torch.tanh(gg), torch.tanh(c_i)
         cstar = torch.cat([cp[:, z_tot:], c_i[:, z_tot:]], dim=1)
-        att = get("att", i)
+        if recompute_att:
+            att = torch.softmax(get("r1", i) @ w["a1w2"] + w["a1b2"], dim=1)
+        else:
+            att = get("att", i)
         chat, g1, g2 = get("chat", i), get("g1", i), get("g2", i)
 
         # the memory update and the gamma gates
@@ -434,26 +537,34 @@ def mfm_encode_bwd_steps_plain(xp, weights, allh, allc, allmem, res,
     return torch.stack(dxp), torch.stack(deltas)
 
 
+def mfm_encode_bwd_two_step_plain(xp, weights, allh, allc, allmem, res,
+                                  dhlast, dmemlast, z_tot: int):
+    """The two-step kernel's plain version. Two reverse steps per
+    iteration (JAX: ``twostep_bwd_probe._bwd2_kernel``) is a schedule of
+    the same function, so this is ``mfm_encode_bwd_steps_plain``; like
+    the kernel, it raises for an odd t."""
+    if xp.shape[0] % 2:
+        raise ValueError(
+            f"the two-step backward needs an even t, got {xp.shape[0]}")
+    return mfm_encode_bwd_steps_plain(xp, weights, allh, allc, allmem, res,
+                                      dhlast, dmemlast, z_tot)
+
+
 def dw_operands(allc, allmem, res, weights, z_tot: int):
     """The A operands of ``DW_PRODUCTS`` as (t * n, P) matrices:
     forward residuals, and cStar, attended and memp rebuilt from the
     cell states and the memory (zero before step 0)."""
     t, n, _ = allc.shape
-    offs, _ = res_layout(weights)
+    fields = res_fields(res, weights)
     s3 = weights["g1w2"].shape[0]
-
-    def get(nm):
-        o, wd = offs[nm]
-        return res[..., o:o + wd]
-
     cp = torch.cat([torch.zeros_like(allc[:1]), allc[:-1]])
     memp = torch.cat([torch.zeros_like(allmem[:1]), allmem[:-1]])
     cstar = torch.cat([cp[..., z_tot:], allc[..., z_tot:]], dim=-1)
-    attended = get("att") * cstar
+    attended = fields["att"] * cstar
     ops = {"cstar": cstar, "attended": attended,
            "both": torch.cat([attended, memp], dim=-1),
-           "r1": get("r1"), "r2": get("r2"),
-           "r3a": get("r3")[..., :s3], "r3b": get("r3")[..., s3:]}
+           "r1": fields["r1"], "r2": fields["r2"],
+           "r3a": fields["r3"][..., :s3], "r3b": fields["r3"][..., s3:]}
     return {k: v.reshape(t * n, -1) for k, v in ops.items()}
 
 
@@ -474,11 +585,12 @@ def mfm_encode_dw_plain(allc, allmem, res, deltas, weights, z_tot: int):
 
 
 def mfm_encode_bwd_plain(xp, weights, allh, allc, allmem, res, dhlast,
-                         dmemlast, z_tot: int):
-    """``mfm_encode_bwd`` in plain PyTorch."""
+                         dmemlast, z_tot: int, recompute_att: bool = False):
+    """``mfm_encode_bwd`` in plain PyTorch (every variant: the two-step
+    one computes the same function as the stream one)."""
     dxp, deltas = mfm_encode_bwd_steps_plain(xp, weights, allh, allc,
                                              allmem, res, dhlast, dmemlast,
-                                             z_tot)
+                                             z_tot, recompute_att)
     dweights = mfm_encode_dw_plain(allc, allmem, res, deltas, weights, z_tot)
     dweights["wh"] = recurrent_weight_grad(allh, dxp)
     return dxp, dweights
@@ -488,38 +600,77 @@ def mfm_encode_bwd_plain(xp, weights, allh, allc, allmem, res, dhlast,
 
 class MFMEncode(torch.autograd.Function):
     """``(h_last, mem_last)`` of the fused encode with its hand-derived
-    backward; the masks get no gradient."""
+    backward; the masks get no gradient. ``layout`` is the residuals'
+    (``LAYOUTS``), ``variant`` the reverse kernel's (``BWD_VARIANTS``)."""
 
     @staticmethod
-    def forward(ctx, xp, masks, z_tot, h_dims, *wlist):
+    def forward(ctx, xp, masks, z_tot, h_dims, layout, variant, *wlist):
         weights = dict(zip(W_NAMES, wlist))
         h_last, mem_last, allh, allc, allmem, res = mfm_encode_res(
-            xp, masks, weights, z_tot, h_dims)
-        ctx.save_for_backward(xp, allh, allc, allmem, res, *wlist)
+            xp, masks, weights, z_tot, h_dims, layout)
+        res = [res] if layout == "cat" else list(res)
+        ctx.save_for_backward(xp, allh, allc, allmem, *wlist, *res)
         ctx.z_tot, ctx.h_dims = z_tot, list(h_dims)
+        ctx.layout, ctx.variant = layout, variant
         ctx.mark_non_differentiable(*(() if masks is None else (masks,)))
         return h_last, mem_last
 
     @staticmethod
     def backward(ctx, dh_last, dmem_last):
-        xp, allh, allc, allmem, res, *wlist = ctx.saved_tensors
+        xp, allh, allc, allmem, *rest = ctx.saved_tensors
+        wlist, res = rest[:len(W_NAMES)], rest[len(W_NAMES):]
         weights = dict(zip(W_NAMES, wlist))
         dh_last = (torch.zeros_like(allh[0]) if dh_last is None
                    else dh_last.contiguous())
         dmem_last = (torch.zeros_like(allmem[0]) if dmem_last is None
                      else dmem_last.contiguous())
-        dxp, dweights = mfm_encode_bwd(xp, weights, allh, allc, allmem, res,
-                                       dh_last, dmem_last, ctx.z_tot,
-                                       ctx.h_dims)
-        return (dxp, None, None, None,
+        dxp, dweights = mfm_encode_bwd(
+            xp, weights, allh, allc, allmem,
+            res[0] if ctx.layout == "cat" else tuple(res), dh_last,
+            dmem_last, ctx.z_tot, ctx.h_dims, ctx.variant)
+        return (dxp, None, None, None, None, None,
                 *[dweights[k].reshape(weights[k].shape) for k in W_NAMES])
 
 
-def encode(xp, weights, z_tot: int, h_dims, masks=None):
+def encode(xp, weights, z_tot: int, h_dims, masks=None, *,
+           layout: str = "cat", variant: str = "stream"):
     """``(h_last, mem_last)``: through ``MFMEncode`` when a gradient is
-    wanted, else the forward alone (no residuals written)."""
+    wanted, else the forward alone (no residuals written). ``layout`` and
+    ``variant`` choose the residual layout and the reverse kernel; the
+    defaults are the training path's."""
+    _check_choice("layout", layout, LAYOUTS)
+    _check_choice("variant", variant, BWD_VARIANTS)
     tensors = [xp] + [weights[k] for k in W_NAMES]
     if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
-        return MFMEncode.apply(xp, masks, z_tot, list(h_dims),
-                               *[weights[k] for k in W_NAMES])
+        return MFMEncode.apply(xp, masks, z_tot, list(h_dims), layout,
+                               variant, *[weights[k] for k in W_NAMES])
     return mfm_encode(xp, weights, z_tot, h_dims, masks)
+
+
+# The probes' encodes, ``encode(xp, masks, weights, z_tot, h_dims) ->
+# (h_last, mem_last)``, named after the JAX probe's constructors.
+
+def make_variant(store_att: bool):
+    """``bwd_residual_probe.make_variant``: the ten residuals split, the
+    backward loading att (variant C) or recomputing it (variant B)."""
+    variant = "stream" if store_att else "recompute_att"
+    return _probe_encode("split", variant)
+
+
+def make_variant_d():
+    """``bwd_residual_probe.make_variant_d``: one residual buffer and the
+    streamed backward, the training path's pair."""
+    return _probe_encode("cat", "stream")
+
+
+def make_variant_two_step():
+    """``twostep_bwd_probe``'s backward: one residual buffer and two
+    reverse steps per iteration (t even)."""
+    return _probe_encode("cat", "two_step")
+
+
+def _probe_encode(layout, variant):
+    def run(xp, masks, weights, z_tot, h_dims):
+        return encode(xp, weights, z_tot, h_dims, masks, layout=layout,
+                      variant=variant)
+    return run

@@ -177,14 +177,16 @@ def encode_operands(enc_cells, mfn_params, x_l, x_a, x_v):
 
 
 def fused_mfm_encode(enc_cells, mfn_params, x_l, x_a, x_v, *, mem_dim,
-                     drops, train=False, generator=None, masks=None):
+                     drops, train=False, generator=None, masks=None,
+                     bwd_variant="stream"):
     """The whole MFM encode stage — the 3 unimodal encoder LSTMs, the
     MFN's 3 modality LSTMs and the delta-memory attention — as one
     recurrence. In train mode with a nonzero rate among ``drops`` (att1,
     att2, gamma1, gamma2) the dropout masks are ``masks`` when handed in
     (the injection point), else drawn from ``generator`` by
     ``cuda_mfn.make_dropout_masks``. Gradients reach the per-cell weights
-    through the packing, which is plain PyTorch. Returns
+    through the packing, which is plain PyTorch; ``bwd_variant`` picks
+    the encode's reverse kernel (``cuda_mfn.BWD_VARIANTS``). Returns
     ([enc_h_l, enc_h_a, enc_h_v], mfn_last_hs)."""
     xp, weights, z_tot, h_dims = encode_operands(enc_cells, mfn_params,
                                                  x_l, x_a, x_v)
@@ -198,7 +200,8 @@ def fused_mfm_encode(enc_cells, mfn_params, x_l, x_a, x_v, *, mem_dim,
                 generator, t, n, cuda_mfn.sizes(weights)[:4], drops)
     else:
         masks = None
-    h_last, mem = cuda_mfn.encode(xp, weights, z_tot, h_dims, masks)
+    h_last, mem = cuda_mfn.encode(xp, weights, z_tot, h_dims, masks,
+                                  variant=bwd_variant)
     if mem.shape[1] != mem_dim:
         raise ValueError(f"memory width {mem.shape[1]} != mem_dim {mem_dim}")
     enc_hs = split_heads(h_last[:, :z_tot], h_dims[:3])

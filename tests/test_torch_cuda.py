@@ -8,6 +8,8 @@ Float32 with TF32 off; tolerance rtol 1e-4 / atol 1e-5 for forward
 values, since the kernels sum in another order than cuBLAS, and
 rtol 1e-3 / atol 2e-5 for gradients, whose sums run over t * n rows."""
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -180,6 +182,160 @@ def test_each_train_wrapper_call_is_one_launch(cuda):
     torch.cuda.synchronize()
     assert (cuda_mfn.LAUNCHES, cuda_mfn.BWD_LAUNCHES, cuda_mfn.DW_LAUNCHES,
             cuda_lstm.BWD_LAUNCHES) == tuple(x + 1 for x in before)
+
+
+# the probe variants: each on the plain version's residuals against its
+# plain version, in both residual layouts, one launch per call
+_PROBE_COUNTERS = ("SPLIT_LAUNCHES", "RECOMPUTE_LAUNCHES",
+                   "TWO_STEP_LAUNCHES", "BWD_LAUNCHES", "DW_LAUNCHES")
+
+
+def _counts():
+    return {k: getattr(cuda_mfn, k) for k in _PROBE_COUNTERS}
+
+
+@pytest.mark.parametrize("cfg,n", [(SMALL, 5), (best_acc_mosi_config(), 32)],
+                         ids=["small", "train"])
+def test_probe_variants_match_plain(cuda, cfg, n):
+    (xp, masks, weights, z_tot, h_dims, dh, dmem), _ = \
+        _train_operands(cfg, n, cuda)
+    with torch.inference_mode():
+        before = _counts()
+        got = cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims,
+                                      "split")
+        assert _counts() == dict(before, SPLIT_LAUNCHES=before[
+            "SPLIT_LAUNCHES"] + 1)
+        want = cuda_mfn.mfm_encode_res_plain(xp, masks, weights, z_tot,
+                                             "split")
+        for g, w in zip(got[:5] + got[5], want[:5] + want[5]):
+            torch.testing.assert_close(g, w, **TOL)
+        for layout, res in (("split", want[2:]),
+                            ("cat", (*want[2:5], torch.cat(want[5], 2)))):
+            for variant, counter in (("stream", "BWD_LAUNCHES"),
+                                     ("recompute_att", "RECOMPUTE_LAUNCHES"),
+                                     ("two_step", "TWO_STEP_LAUNCHES")):
+                before = _counts()
+                dxp, deltas = cuda_mfn._launch_bwd(
+                    xp, weights, *res, dh, dmem, z_tot, h_dims, variant)
+                assert _counts() == dict(before,
+                                         **{counter: before[counter] + 1})
+                want_dxp, want_deltas = cuda_mfn.mfm_encode_bwd_steps_plain(
+                    xp, weights, *res, dh, dmem, z_tot,
+                    recompute_att=variant == "recompute_att")
+                torch.testing.assert_close(dxp, want_dxp, **GRAD)
+                torch.testing.assert_close(deltas, want_deltas, **GRAD)
+            dw = cuda_mfn._launch_dw(weights, res[1], res[2], res[3],
+                                     want_deltas, z_tot)
+            want_dw = cuda_mfn.mfm_encode_dw_plain(res[1], res[2], res[3],
+                                                   want_deltas, weights,
+                                                   z_tot)
+            for k in cuda_mfn.DW_NAMES:
+                torch.testing.assert_close(dw[k], want_dw[k], **GRAD)
+        torch.cuda.synchronize()
+
+
+def test_two_step_needs_an_even_t(cuda):
+    (xp, masks, weights, z_tot, h_dims, dh, dmem), _ = \
+        _train_operands(SMALL.replace(seqlength=5), 3, cuda)
+    outs = cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims)
+    before = _counts()
+    with pytest.raises(ValueError, match="even t"):
+        cuda_mfn.mfm_encode_bwd(xp, weights, *outs[2:], dh, dmem, z_tot,
+                                h_dims, "two_step")
+    assert _counts() == before
+
+
+def test_layouts_and_variants_keep_the_bits(cuda):
+    """The residual layout moves no bit: the split forward writes the cat
+    forward's values, and each kernel reading either layout gives the same
+    bits. The two-step kernel gives the stream kernel's bits; so does the
+    recompute-att one on the kernel forward's residuals, whose att it
+    recomputes in the forward's order of operations."""
+    (xp, masks, weights, z_tot, h_dims, dh, dmem), _ = \
+        _train_operands(best_acc_mosi_config(), 32, cuda)
+    with torch.inference_mode():
+        cat = cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims)
+        split = cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims,
+                                        "split")
+        for a, b in zip(cat[:5], split[:5]):
+            assert torch.equal(a, b)
+        assert torch.equal(cat[5], torch.cat(split[5], dim=2))
+        stream = cuda_mfn._launch_bwd(xp, weights, *cat[2:], dh, dmem, z_tot,
+                                      h_dims)
+        for res, variant in ((cat[2:], "two_step"),
+                             (cat[2:], "recompute_att"),
+                             (split[2:], "stream"),
+                             (split[2:], "recompute_att")):
+            got = cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem, z_tot,
+                                       h_dims, variant)
+            assert torch.equal(got[0], stream[0]), variant
+            assert torch.equal(got[1], stream[1]), variant
+        dw_cat = cuda_mfn._launch_dw(weights, cat[3], cat[4], cat[5],
+                                     stream[1], z_tot)
+        dw_split = cuda_mfn._launch_dw(weights, split[3], split[4], split[5],
+                                       stream[1], z_tot)
+        assert all(torch.equal(dw_cat[k], dw_split[k])
+                   for k in cuda_mfn.DW_NAMES)
+
+
+def _encode_digest(mfn_ops, dev):
+    """sha256 of the encode kernels' outputs on the training path (the
+    forward's eval and train variants, the reverse pass, the weight
+    gradients) at full width, n = 32, t = 20, on numpy-drawn inputs.
+    ``mfn_ops`` is the ``cuda_mfn`` module, so that another build of the
+    package can be given."""
+    cfg = best_acc_mosi_config()
+    h_dims = [cfg.zl_size, cfg.za_size, cfg.zv_size, *cfg.h_dims]
+    H, z_tot, t, n = sum(h_dims), sum(h_dims[:3]), cfg.seqlength, 32
+    m2, mem = 2 * (H - z_tot), cfg.memsize
+    s1, s2, s3, s4 = (cfg.att1_shape, cfg.att2_shape, cfg.gamma1_shape,
+                      cfg.gamma2_shape)
+    rng = np.random.default_rng(7)
+
+    def w(*shape):
+        return torch.from_numpy((0.1 * rng.normal(size=shape))
+                                .astype(np.float32)).to(dev)
+
+    blocks = torch.zeros(H, 4 * H)
+    o = 0
+    for h in h_dims:
+        for g in range(4):
+            blocks[o:o + h, g * H + o:g * H + o + h] = 1.0
+        o += h
+    weights = {
+        "wh": w(H, 4 * H) * blocks.to(dev), "a1w1": w(m2, s1),
+        "a1b1": w(1, s1), "a1w2": w(s1, m2), "a1b2": w(1, m2),
+        "a2w1": w(m2, s2), "a2b1": w(1, s2), "a2w2": w(s2, mem),
+        "a2b2": w(1, mem), "gw1": w(m2 + mem, s3 + s4),
+        "gb1": w(1, s3 + s4), "g1w2": w(s3, mem), "g1b2": w(1, mem),
+        "g2w2": w(s4, mem), "g2b2": w(1, mem)}
+    xp = w(t, n, 4 * H) * 10.0
+    keep = rng.random(size=(t, n, s1 + s2 + s3 + s4)) >= 0.3
+    masks = torch.from_numpy((keep / 0.7).astype(np.float32)).to(dev)
+    dh, dmem = w(n, H) * 10.0, w(n, mem) * 10.0
+    with torch.inference_mode():
+        outs = list(mfn_ops.mfm_encode(xp, weights, z_tot, h_dims))
+        fwd = mfn_ops.mfm_encode_res(xp, masks, weights, z_tot, h_dims)
+        dxp, deltas = mfn_ops._launch_bwd(xp, weights, *fwd[2:], dh, dmem,
+                                          z_tot, h_dims)
+        dw = mfn_ops._launch_dw(weights, fwd[3], fwd[4], fwd[5], deltas,
+                                z_tot)
+        outs += [*fwd, dxp, deltas, *[dw[k] for k in mfn_ops.DW_NAMES]]
+        digest = hashlib.sha256()
+        for x in outs:
+            digest.update(x.contiguous().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+# _encode_digest of the kernels as they were before the residual-layout
+# table, built with nvcc of CUDA 12.8 for sm_90a and run on an NVIDIA H100
+# 80GB HBM3 (PyTorch 2.11): the table must not move a bit
+PRE_TABLE_DIGEST = (
+    "34fb8766e5b5092d5de03ad095d38a272efcda2ad23d63c675f86dc962ed31d3")
+
+
+def test_cat_layout_keeps_the_bits_before_the_table(cuda):
+    assert _encode_digest(cuda_mfn, cuda) == PRE_TABLE_DIGEST
 
 
 def _multi_operands(cfg, model_type, n, dev):

@@ -29,6 +29,7 @@ def _forbidden(name):
 
 def test_the_guard_sees_what_it_guards():
     assert len(FILES) > 10
+    assert any(p.parent.name == "probes" for p in FILES)
     assert _forbidden("jax.numpy") and _forbidden("factorized_tpu.serve")
     assert not _forbidden("factorized_tpu_torch.serve")
 
