@@ -6,7 +6,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the CUDA kernels from ``factorized_tpu_torch/csrc/`` and prints
-   what ``nvcc -Xptxas -v`` reports;
+   what ``nvcc -Xptxas -v`` reports, and a line of the registers, static
+   shared memory, stack and spills of the backward kernels of the encode's
+   four passes and of the decoder;
 3. holds each kernel against its plain PyTorch version on the card at the
    serving shapes (n = 256, t = 20, ``best_acc_mosi_config``), float32
    with TF32 off, within rtol 1e-4 / atol 1e-5 (the sums run in another
@@ -22,7 +24,12 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    decoder backward) against their plain versions at the training shapes
    (n = 32), gradients within rtol 1e-3 / atol 2e-5 (sums over t * n
    rows in another order), and one train step's gradients on the card
-   against the plain path on the CPU with the same injected draws;
+   against the plain path on the CPU with the same injected draws; the
+   kernels whose wrapper calls are host-bound (the encode's four
+   backward passes, its weight-gradient reduction, the decoder backward,
+   the probe variants of the backward) are timed with their calls queued
+   behind a sleeping kernel (``queued_ms``), with a line of each encode
+   pass's ms (torch.profiler) and the knobs in use;
 7. trains MFM for 2 epochs on the synthetic MOSI set through
    ``trainers.train_mfm``, checks finite, falling train loss and that the
    run launched every kernel, then times a train step, an epoch, the
@@ -55,6 +62,7 @@ Any failure raises and exits non-zero; without a CUDA card it exits 1.
 
 import functools
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -72,6 +80,9 @@ SEED = 0
 N_SERVE = 256
 N_TRAIN = 32
 TRAIN_EPOCHS = 2
+# queued_ms's sleeping kernel: about 0.1 s at the H100's clock, far
+# longer than enqueueing 50 wrapper calls
+SLEEP_CYCLES = 200_000_000
 REQUEST_SIZES = (1, 3, 17, 64, 100, 256, 257, 300, 5, 40)
 # H100 SXM peaks (NVIDIA data sheet): float32 outside the tensor cores,
 # and HBM3 bandwidth
@@ -118,6 +129,84 @@ def cuda_ms(fn, reps, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps=50, warmup=3):
+    """Mean device milliseconds of one fn() call: CUDA events around reps
+    calls queued behind a kernel that sleeps until all of them are
+    enqueued, so the card runs them back to back. For a wrapper whose host
+    time per call passes its kernels' device time, where cuda_ms would
+    time the host."""
+    for _ in range(warmup):
+        fn()
+    slept, start, end = (torch.cuda.Event(enable_timing=True)
+                         for _ in range(3))
+    torch.cuda.synchronize()
+    slept.record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if not slept.elapsed_time(start) > enqueue_ms:
+        raise AssertionError(
+            f"the card woke before {reps} calls were enqueued "
+            f"({enqueue_ms} ms): the time would hold the host's")
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps=50, warmup=3):
+    """{kernel name: mean device milliseconds a call} of the kernels fn()
+    launches, over reps calls under torch.profiler: how a call's time
+    splits between its kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.device_time_total / 1e3 / reps
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def ptxas_report(log_text, names):
+    """What ``nvcc -Xptxas -v`` printed for each kernel whose mangled name
+    holds one of ``names``: registers, static shared memory, stack and
+    spills, one entry per template instance."""
+    out, cur = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            hit = next((k for k in names if k in name), None)
+            cur = None
+            if hit is not None:
+                args = re.search(hit + r"I(.*?)EEv", name)
+                cur = {"kernel": hit, "template": (
+                    re.findall(r"L[ib](\d+)E", args.group(1)) if args
+                    else [])}
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def bound(flops, nbytes):
@@ -285,6 +374,11 @@ def main():
     log({"phase": "build", "seconds": time.perf_counter() - t0,
          "library": str(_build.library_path())})
     print(_build.build_log(), flush=True)
+    log({"phase": "ptxas", "note": "dynamic shared memory is sized at "
+         "launch", "kernels": ptxas_report(_build.build_log(), (
+             "gates_kernel", "mem_chain_kernel", "recompute_att_kernel",
+             "product_kernel", "softmax_bwd_kernel", "lstm_chains_kernel",
+             "decoder_lstm_bwd_kernel"))})
 
     # ---- 3. each kernel against its plain version, main-path shapes
     cfg = best_acc_mosi_config()
@@ -546,16 +640,22 @@ def train_phase(cfg, dev, smi):
             xp, masks, weights, z_tot, h_dims), 50)
         fwd_plain_ms = cuda_ms(lambda: cuda_mfn.mfm_encode_res_plain(
             xp, masks, weights, z_tot), 10)
-        bwd_ms = cuda_ms(lambda: cuda_mfn._launch_bwd(
+        bwd_call_ms = cuda_ms(lambda: cuda_mfn._launch_bwd(
             xp, weights, *res, dh, dmem, z_tot, h_dims), 50)
+        bwd_ms = queued_ms(lambda: cuda_mfn._launch_bwd(
+            xp, weights, *res, dh, dmem, z_tot, h_dims))
+        bwd_kernels = device_ms(lambda: cuda_mfn._launch_bwd(
+            xp, weights, *res, dh, dmem, z_tot, h_dims))
         bwd_plain_ms = cuda_ms(lambda: cuda_mfn.mfm_encode_bwd_steps_plain(
             xp, weights, *res, dh, dmem, z_tot), 10)
-        dw_ms = cuda_ms(lambda: cuda_mfn._launch_dw(
-            weights, res[1], res[2], res[3], deltas_ref, z_tot), 50)
+        dw_ms = queued_ms(lambda: cuda_mfn._launch_dw(
+            weights, res[1], res[2], res[3], deltas_ref, z_tot))
         dw_plain_ms = cuda_ms(lambda: cuda_mfn.mfm_encode_dw_plain(
             res[1], res[2], res[3], deltas_ref, weights, z_tot), 10)
-        decb_ms = cuda_ms(lambda: cuda_lstm.decoder_lstm_bwd(
+        decb_call_ms = cuda_ms(lambda: cuda_lstm.decoder_lstm_bwd(
             wsum, gates, allc, dallh, dec_dims), 50)
+        decb_ms = queued_ms(lambda: cuda_lstm.decoder_lstm_bwd(
+            wsum, gates, allc, dallh, dec_dims))
         decb_plain_ms = cuda_ms(lambda: cuda_lstm.decoder_lstm_bwd_plain(
             wsum, gates, allc, dallh), 10)
 
@@ -582,6 +682,23 @@ def train_phase(cfg, dev, smi):
     decb_macs = (t - 1) * n * 4 * sum(h * h for h in dec_dims)
     decb_bound = bound(2 * decb_macs, nbytes(gates, allc, dallh, *dec)
                        + diag_bytes(dec_dims))
+    passes = {name: sum(v for k, v in bwd_kernels.items()
+                        if any(kernel in k for kernel in kernels))
+              for name, kernels in zip(cuda_mfn.BWD_PASSES, (
+                  ("gates_kernel",), ("mem_chain_kernel",),
+                  ("product_kernel", "softmax_bwd_kernel",
+                   "recompute_att_kernel"), ("lstm_chains_kernel",)))}
+    log({"phase": "backward_passes", "batch": n, "nvidia_smi": smi,
+         "mfm_encode_bwd": {
+             "device_ms": bwd_ms, "pass_ms": passes,
+             "call_ms": bwd_call_ms,
+             "knobs": {k: getattr(cuda_mfn, k) for k in (
+                 "BWD_MEM_ROWS", "BWD_CLUSTER", "BWD_CELL_ROWS",
+                 "BWD_TILE_ROWS", "BWD_THREADS")}},
+         "decoder_lstm_bwd": {
+             "device_ms": decb_ms, "call_ms": decb_call_ms,
+             "knobs": {"BWD_ROWS": cuda_lstm.BWD_ROWS,
+                       "BWD_THREADS": cuda_lstm.BWD_THREADS}}})
     log({"phase": "train_kernels", "batch": n, "nvidia_smi": smi,
          "mfm_encode_fwd_train": {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
                                   "bound_ms": fwd_bound[0],
@@ -920,8 +1037,7 @@ def probe_phase(cfg, dev, smi):
                  "stream")
         ms = {}
         for run in order:
-            ms.setdefault(run, []).append(
-                cuda_ms(lambda: kernel(run), 50))
+            ms.setdefault(run, []).append(queued_ms(lambda: kernel(run)))
         fwd_ms = {
             "cat": cuda_ms(lambda: cuda_mfn.mfm_encode_res(
                 xp, masks, weights, z_tot, h_dims), 50),

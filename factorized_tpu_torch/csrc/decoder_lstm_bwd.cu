@@ -20,25 +20,32 @@
 // (1.3 us at 3.35 TB/s), most of it the gates read and dgates written,
 // against 0.06 GFLOP of float32 work (the dh product over the diagonal
 // blocks of wsum, 0.9 us at 67 TFLOP/s). In practice the serial chain of
-// t - 1 dependent steps bounds it.
+// t - 1 dependent steps bounds it: what is left is each step's two block
+// barriers and the dh product's latency from shared memory.
 //
-// What the design does about it: as the forward, one block owns ROWS batch
-// rows and loops over the steps itself; dh, dc and the step's dgates stay
-// in shared memory, feature-major, so each thread computes one hidden
-// unit for all its rows from one load of each weight, reading only the
-// diagonal blocks of wsum (370 KB, in L2). The dh product is against wsum
-// transposed, so a warp computes one unit, its lanes reading the weight
-// row coalesced. Nothing else yet.
+// What the design does about it: the cells are independent chains, so one
+// block owns one cell and ROWS batch rows (cell_bwd.cuh). It keeps the
+// cell's four diagonal blocks of wsum in shared memory, transposed (the
+// 104-unit cell's 169 KiB fits one SM), so the chain reads no weight from
+// L2; the next step's gates, cell states and dallh are copied in with
+// cp.async while the current step runs. A few lanes share each unit of
+// the dh product and shuffles add their partial sums in a fixed order: no
+// atomics, the same bits on every run. Float32 on the CUDA cores: a TF32
+// product keeps about three digits, too few for the gradient tolerances,
+// and a tile of ROWS batch rows is far below wgmma's 64. A launch whose
+// shared memory would pass the card's 227 KB is refused before it starts.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cell_bwd.cuh"
 #include "lstm_common.cuh"
 
 namespace ftt {
 namespace {
 
 constexpr int kMaxThreads = 512;
+constexpr int kOpWidth = 7;  // gates 4h, c, c_prev, dallh_prev: 7h a row
 
 struct DecoderBwdArgs {
   const float* gates;  // (t, n, 4H), slot 0 unused
@@ -52,120 +59,87 @@ struct DecoderBwdArgs {
   Cells cells;
 };
 
+// The operands of transition s (s >= 1) into the buffer at `base`: the
+// cell step's, then dallh[s - 1]; asynchronously.
+template <int R>
+__device__ __forceinline__ void load_step(const DecoderBwdArgs& a, int s,
+                                          float* base, const CellTile& c,
+                                          int row0, int tid, int nthr) {
+  const int H = a.H;
+  const CellStep op = cell_step(base, c.h, R, false);
+  float* const up = op.cp + c.h * R;
+  for (int q = 0; q < 4; ++q)
+    load_rows_async<R>(op.g + q * c.h * R, a.gates, s, a.n, 4 * H,
+                       q * H + c.k0, c.h, row0, tid, nthr);
+  load_rows_async<R>(op.c, a.allc, s, a.n, H, c.k0, c.h, row0, tid, nthr);
+  load_rows_async<R>(op.cp, a.allc, s - 1, a.n, H, c.k0, c.h, row0, tid,
+                     nthr);
+  load_rows_async<R>(up, a.dallh, s - 1, a.n, H, c.k0, c.h, row0, tid, nthr);
+}
+
+// blockIdx.y is the cell, blockIdx.x the row tile.
 template <int R>
 __global__ void __launch_bounds__(kMaxThreads)
     decoder_lstm_bwd_kernel(const DecoderBwdArgs a) {
   extern __shared__ float smem[];
-  const int H = a.H, H4 = 4 * H;
-  // feature-major [unit][R]: dh, dc, then the step's dgates
-  float* const dh = smem;
-  float* const dc = smem + H * R;
-  float* const dg = smem + 2 * H * R;
+  const CellTile c = cell_tile(a.cells, blockIdx.y, blockDim.x);
+  const int h = c.h, H = a.H;
+  float* const w = smem;
+  float* const dh = w + h * c.wp;
+  float* const dc = dh + pad4(h * R);
+  float* const dg = dc + pad4(h * R);
+  // two operand buffers of kOpWidth h R floats: gates, c, c_prev, then
+  // dallh of the step before; step s uses buffer s & 1
+  float* const buf = dg + 4 * h * R;
+  const int step_floats = kOpWidth * h * R;
   const int row0 = blockIdx.x * R;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nthr >> 5;
 
-  const size_t last = (size_t)(a.t - 1) * a.n;
-  for (int i = tid; i < R * H; i += nthr) {
-    const int r = i / H, j = i - r * H, row = row0 + r;
-    dh[j * R + r] = row < a.n ? a.dallh[(last + row) * H + j] : 0.0f;
-    dc[j * R + r] = 0.0f;
-  }
+  load_cell_weights(w, a.wsum, H, c, tid, nthr);
+  load_rows_async<R>(dh, a.dallh, a.t - 1, a.n, H, c.k0, h, row0, tid, nthr);
+  for (int i = tid; i < h * R; i += nthr) dc[i] = 0.0f;
+  load_step<R>(a, a.t - 1, buf + ((a.t - 1) & 1) * step_floats, c, row0,
+               tid, nthr);
+  cp_async_wait_all();
   __syncthreads();
 
   for (int s = a.t - 1; s >= 1; --s) {
-    const size_t base = (size_t)s * a.n, prev = (size_t)(s - 1) * a.n;
-    // (1) each thread one hidden unit: the gate math's backward
-    for (int j = tid; j < H; j += nthr) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int row = row0 + r;
-        float gi = 0.0f, gf = 0.0f, gg = 0.0f, go = 0.0f, cp = 0.0f,
-              ci = 0.0f;
-        if (row < a.n) {
-          const float* g = a.gates + (base + row) * H4 + j;
-          gi = g[0];
-          gf = g[H];
-          gg = g[2 * H];
-          go = g[3 * H];
-          cp = a.allc[(prev + row) * H + j];
-          ci = a.allc[(base + row) * H + j];
-        }
-        const float si = sigmoid(gi), sf = sigmoid(gf), so = sigmoid(go);
-        const float tg = tanhf(gg), tc = tanhf(ci);
-        const float dhv = dh[j * R + r];
-        const float dcv = dc[j * R + r] + dhv * so * (1.0f - tc * tc);
-        const float di = dcv * tg * si * (1.0f - si);
-        const float df = dcv * cp * sf * (1.0f - sf);
-        const float dgg = dcv * si * (1.0f - tg * tg);
-        const float dov = dhv * tc * so * (1.0f - so);
-        dg[j * R + r] = di;
-        dg[(H + j) * R + r] = df;
-        dg[(2 * H + j) * R + r] = dgg;
-        dg[(3 * H + j) * R + r] = dov;
-        if (row < a.n) {
-          float* d = a.dgates + (prev + row) * H4 + j;
-          d[0] = di;
-          d[H] = df;
-          d[2 * H] = dgg;
-          d[3 * H] = dov;
-        }
-        dc[j * R + r] = dcv * sf;
-      }
-    }
+    if (s > 1)
+      load_step<R>(a, s - 1, buf + ((s - 1) & 1) * step_floats, c, row0, tid,
+                   nthr);
+    const CellStep op = cell_step(buf + (s & 1) * step_floats, h, R, false);
+    cell_gate_bwd<R>(op, dh, dc, dg, a.dgates, s - 1, a.n, H, c, row0, tid,
+                     nthr);
     __syncthreads();
-
-    // (2) dh = dgates @ wsum^T over the unit's own cell block, plus the
-    //     cotangent of h_{i-1}: a warp per unit, its lanes reading the
-    //     weight row coalesced, shuffles adding them in a fixed order
-    for (int k = warp; k < H; k += nwarp) {
-      int j0, j1;
-      cell_range(a.cells, k, j0, j1);
-      float acc[R];
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-      const float* w = a.wsum + (size_t)k * H4;
-      for (int q = 0; q < 4; ++q) {
-        for (int j = j0 + lane; j < j1; j += 32) {
-          const float wv = __ldg(w + q * H + j);
-          const float* g = dg + (q * H + j) * R;
-#pragma unroll
-          for (int r = 0; r < R; ++r) acc[r] = fmaf(g[r], wv, acc[r]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        for (int o = 16; o > 0; o >>= 1)
-          acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], o);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int row = row0 + r;
-        if (lane != r) continue;
-        const float up = row < a.n ? a.dallh[(prev + row) * H + k] : 0.0f;
-        dh[k * R + r] = acc[r] + up;
-      }
-    }
+    cell_dh<R>(w, dg, op.cp + h * R, dh, c, lane, warp, nwarp);
+    cp_async_wait_all();
     __syncthreads();
   }
 
-  for (int i = tid; i < R * H; i += nthr) {
-    const int r = i / H, j = i - r * H, row = row0 + r;
+  for (int i = tid; i < R * h; i += nthr) {
+    const int r = i / h, j = i - r * h, row = row0 + r;
     if (row < a.n) {
-      a.dh0[(size_t)row * H + j] = dh[j * R + r];
-      a.dc0[(size_t)row * H + j] = dc[j * R + r];
+      a.dh0[(size_t)row * H + c.k0 + j] = dh[j * R + r];
+      a.dc0[(size_t)row * H + c.k0 + j] = dc[j * R + r];
     }
   }
 }
 
 template <int R>
-cudaError_t launch(const DecoderBwdArgs& a, int threads,
+cudaError_t launch(const DecoderBwdArgs& a, int threads, int* need,
                    cudaStream_t stream) {
-  const size_t bytes = (size_t)R * 6 * a.H * sizeof(float);
+  const size_t bytes = cell_chain_bytes(a.cells, R, threads, kOpWidth);
+  if (bytes > (size_t)kMaxSmemBytes) {
+    need[0] = 1;
+    need[1] = (int)bytes;
+    return cudaErrorInvalidValue;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       decoder_lstm_bwd_kernel<R>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.n + R - 1) / R);
+  const dim3 grid((a.n + R - 1) / R, a.cells.count);
   decoder_lstm_bwd_kernel<R><<<grid, threads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
@@ -176,13 +150,15 @@ cudaError_t launch(const DecoderBwdArgs& a, int threads,
 // All arrays float32 and contiguous, shaped as in DecoderBwdArgs; t >= 2.
 // cell_dims (host memory) lists the n_cells fused hidden widths, summing
 // to H. rows is the batch rows per block (1, 2, 4, 8 or 16), threads a
-// multiple of 32 up to 512.
+// multiple of 32 up to 512. need (host memory, two ints) is left zero,
+// or, when the shared memory a block needs passes the card's, set to
+// {1, bytes} before the launch is refused.
 extern "C" int decoder_lstm_bwd(const float* gates, const float* allc,
                                 const float* dallh, const float* wsum,
                                 float* dgates, float* dh0, float* dc0, int t,
                                 int n, int H, int n_cells,
                                 const int* cell_dims, int rows, int threads,
-                                void* stream) {
+                                int* need, void* stream) {
   using namespace ftt;
   DecoderBwdArgs a;
   a.gates = gates;
@@ -195,16 +171,17 @@ extern "C" int decoder_lstm_bwd(const float* gates, const float* allc,
   a.t = t;
   a.n = n;
   a.H = H;
+  need[0] = need[1] = 0;
   if (!make_cells(n_cells, cell_dims, H, &a.cells) || t < 2 || n < 1 ||
       threads < 32 || threads > kMaxThreads || threads % 32 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (rows) {
-    case 1: return (int)launch<1>(a, threads, st);
-    case 2: return (int)launch<2>(a, threads, st);
-    case 4: return (int)launch<4>(a, threads, st);
-    case 8: return (int)launch<8>(a, threads, st);
-    case 16: return (int)launch<16>(a, threads, st);
+    case 1: return (int)launch<1>(a, threads, need, st);
+    case 2: return (int)launch<2>(a, threads, need, st);
+    case 4: return (int)launch<4>(a, threads, need, st);
+    case 8: return (int)launch<8>(a, threads, need, st);
+    case 16: return (int)launch<16>(a, threads, need, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

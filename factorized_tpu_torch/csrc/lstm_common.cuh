@@ -48,4 +48,80 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// The shared memory a block may use on an H100 (227 KB), the backward
+// kernels' fit gate.
+constexpr int kMaxSmemBytes = 232448;
+
+// An asynchronous 4-byte copy from device memory into shared memory
+// (cp.async): the copy runs while the thread goes on, until
+// cp_async_wait_all; a barrier after the wait shows it to the block.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async8(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+}
+
+// `rows` rows of `len` floats, row r from src + r * ld into dst + r *
+// pitch, asynchronously, in the widest copies (16, 8 or 4 bytes) that
+// every row's start and length allow.
+__device__ __forceinline__ void copy_rows_async(float* dst, int pitch,
+                                                const float* src, size_t ld,
+                                                int rows, int len, int tid,
+                                                int nthr) {
+  const size_t d = reinterpret_cast<size_t>(dst);
+  const size_t s = reinterpret_cast<size_t>(src);
+  int v = 4;
+  while (v > 1 && (pitch % v != 0 || ld % v != 0 || len % v != 0 ||
+                   d % (4 * v) != 0 || s % (4 * v) != 0))
+    v >>= 1;
+  const int per = len / v;
+  for (int e = tid; e < rows * per; e += nthr) {
+    const int r = e / per, c = (e - r * per) * v;
+    float* to = dst + (size_t)r * pitch + c;
+    const float* from = src + r * ld + c;
+    if (v == 4)
+      cp_async16(to, from);
+    else if (v == 2)
+      cp_async8(to, from);
+    else
+      cp_async4(to, from);
+  }
+}
+
+// A row pitch of at least `len` floats for a shared-memory matrix that a
+// warp reads as 32 / unit rows at once, `unit` consecutive floats from
+// each: the pitch modulo 32 banks is an odd multiple of `unit`, so the
+// rows' pieces fall on disjoint banks and no read conflicts. unit = 32
+// needs no padding.
+__host__ __device__ inline int conflict_free_pitch(int len, int unit) {
+  if (unit >= 32) return len;
+  int p = len;
+  while (p % unit != 0 || ((p / unit) & 1) == 0) ++p;
+  return p;
+}
+
+// The largest power of two up to 32 such that `items` outputs, each
+// split over that many lanes, fit in `threads`; at least 1.
+__host__ __device__ inline int lanes_per_output(int items, int threads) {
+  int ks = 32;
+  while (ks > 1 && items * ks > threads) ks >>= 1;
+  return ks;
+}
+
 }  // namespace ftt

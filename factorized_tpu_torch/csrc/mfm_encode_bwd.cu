@@ -1,5 +1,5 @@
-// Fused MFM encode, backward: a reverse-time kernel and a deterministic
-// reduction kernel for the weight gradients.
+// Fused MFM encode, backward: four passes for the reverse pass and a
+// deterministic reduction kernel for the weight gradients.
 //
 // Replaces: factorized_tpu/ops/pallas_mfn.py::_bwd_kernel (reached through
 // _bwd_call and the custom_vjp backward _encode_bwd of mfm_encode_pallas).
@@ -8,95 +8,101 @@
 // _bwd_res_kernel with store_att (variant C); the recompute-att variant is
 // the same kernel without it (variant B); the two-step variant is
 // twostep_bwd_probe.py's _bwd2_kernel. The stream variant on one residual
-// buffer is the same function and design as bwd_residual_probe.py's
+// buffer is the same function as bwd_residual_probe.py's
 // _bwd_stream_kernel (the production kernel's shape).
 //
 // What it computes: from the forward's residuals (allh, allc, allmem and
 // the ten _RES_NAMES fields, read through the residual-layout table of
 // mfm_res.cuh) and the cotangents of h_last and mem_last, BPTT through the
 // memory update, the gamma gates, the att2 proposal, the softmax attention,
-// att1 and the six fused LSTM cells: dxp = dgates (t, n, 4H), and the 14
-// non-wh weight and bias gradients. The TPU kernel sums those 14 in VMEM
-// across its sequential grid. Here:
+// att1 and the six fused LSTM cells: dxp = dgates (t, n, 4H), and, per
+// step, the deltas whose products with forward activations are the 14
+// non-wh weight and bias gradients (dq1, dq2, du3, dch, du2, dlogits, du1:
+// a (t, n, D) buffer). The TPU kernel sums those 14 in VMEM across its
+// sequential grid; here kernel (b) reduces them.
 //
-// (a) mfm_encode_bwd_kernel: one block owns ROWS batch rows and loops from
-//     step t - 1 down to 0, the carries dh, dc and dmem in shared memory.
-//     It writes dxp and, per step, the deltas whose products with forward
-//     activations are the weight gradients (dq1, dq2, du3, dch, du2,
-//     dlogits, du1: a (t, n, D) buffer). Variants (a template argument):
-//     - stream: one step per iteration, att loaded from the residuals;
-//     - recompute-att: att = softmax(r1 @ a1w2 + a1b2) recomputed on the
-//       chain from the stored r1, in the forward's order of operations;
-//     - two-step: steps s and s - 1 as a pair (t even), both steps'
-//       loaded operands fetched at the pair's head into two buffer sets
-//       (the TPU kernel's two steps per grid iteration; on a block that
-//       loops over time, the pair's head is the only difference left).
-//       dxp is one (t, n, 4H) tensor: the TPU kernel's two interleaved
-//       dxp buffers exist only so its grid can stream them.
+// The TPU kernel's one chain of nine dependent phases a step is three
+// chains, and only two of them carry anything from step to step:
+//
+// (1) gates_kernel: gates = xp + h_{s-1} @ wh over the diagonal blocks of
+//     wh, for all t * n rows at once (no carry), into scratch.
+// (2) mem_chain_kernel, serial over t: the memory carry
+//     dmem_prev = dmem * g1 + du3 @ gw1[M2:]^T, where du3 = [dq1 @ g1w2^T,
+//     dq2 @ g2w2^T] * kg3 and dq1, dq2 are elementwise in dmem. Nothing of
+//     the attention branch or the LSTM cells enters it. One thread-block
+//     cluster per tile of batch rows; each block keeps the weight rows of
+//     its own columns of du3 and of the carry in shared memory (all of
+//     g1w2, g2w2 and gw1[M2:] are 128 KiB), copied in once with cp.async.
+//     A step: dq1, dq2, dch elementwise; du3 for the block's columns; a
+//     cluster barrier, the peers' du3 read through distributed shared
+//     memory; the carry's columns; a cluster barrier, the peers' carry
+//     read. With a cluster of one block (the fastest measured at the
+//     training batch: the whole 128 KiB fits one SM) the cluster barriers
+//     are block barriers. Writes the dq1, dq2, dch and du3 deltas.
+// (3) The attention branch, all t * n rows at once (no carry), as
+//     product_kernel in tiles and softmax_bwd_kernel: du2 = dch @ a2w2^T
+//     * kg2; dattended = du3 @ gw1[:M2]^T + du2 @ a2w1^T, with datt =
+//     dattended * cStar and dcstar = dattended * att; the softmax
+//     backward to dlogits; du1 = dlogits @ a1w2^T * kg1; dcstar += du1 @
+//     a1w1^T, into scratch. Writes the du2, dlogits and du1 deltas. The
+//     recompute-att variant first recomputes att = softmax(r1 @ a1w2 +
+//     a1b2) (recompute_att_kernel) in the forward's order of operations,
+//     so it has the bits the forward stored.
+// (4) lstm_chains_kernel, serial over t: one block per (cell, row tile),
+//     the cell's diagonal blocks of wh in shared memory (cell_bwd.cuh):
+//     the gate backward from the precomputed gates, dcstar split between
+//     this step's c and the previous one's (units past z_tot), and dh =
+//     dgates @ W_cell^T. Writes dxp.
+//
+// Variants (the same bits as the stream variant): stream, one step per
+// iteration of the chains, the next step's operands copied in with
+// cp.async during the current one; recompute-att, att recomputed in (3);
+// two-step, the chains taking steps in pairs, both steps' operands loaded
+// at the pair's head (t even). dWh = allh[:-1]^T dxp[1:] is one GEMM
+// outside, as in the JAX package.
+//
+// What bounds it on an H100: operations. At the training batch (n = 32,
+// t = 20, best_acc_mosi_config) the reverse pass does 0.60 GFLOP of useful
+// float32 work (the gate recompute and the transposed products, only the
+// diagonal blocks of wh) against about 17 MB of traffic: 9 us at
+// 67 TFLOP/s against 5 us at 3.35 TB/s. Kernel (b) does 0.38 GFLOP
+// against 9 MB: about 6 us. What is left above the bound is the two
+// serial chains: t steps of three barriers (the memory chain) and of two
+// (the LSTM chains), each around a product that streams the chain's
+// weights from shared memory (the 88-unit cell's 124 KB every step), and
+// the wait for the next step's operands. Float32 on the CUDA cores
+// throughout: a TF32 product keeps about
+// three digits, too few for the gradient tolerances, and a tile of a few
+// batch rows is far below wgmma's 64. Every product of the TPU kernel's
+// body is computed in these kernels, each in a fixed order: no atomics,
+// the same bits on every run. A launch whose shared memory would pass the
+// card's 227 KB, or whose cluster does not fit, is refused before any pass
+// starts.
+//
 // (b) mfm_encode_dw_kernel: each block computes one 32 x 32 tile of one
 //     gradient, A^T delta summed over the t * n rows in a fixed order, A
 //     taken from the residuals (r1, r2, the two halves of r3) or rebuilt
 //     from them (cStar from allc, attended = att * cStar, memp from
-//     allmem). No atomics: a rerun gives the same bits.
-//
-// dWh = allh[:-1]^T dxp[1:] is one GEMM outside, as in the JAX package.
-//
-// What bounds it on an H100: operations. At the training batch (n = 32,
-// t = 20, best_acc_mosi_config) kernel (a) does 0.60 GFLOP of useful
-// float32 work (the gate recompute and the transposed products, only the
-// diagonal blocks of wh) against about 17 MB of traffic: 9 us at
-// 67 TFLOP/s against 5 us at 3.35 TB/s. Kernel (b) does 0.38 GFLOP
-// against 9 MB: about 6 us. In practice (a) is bounded by its serial
-// chain: t steps of nine dependent phases, each a small product with a
-// block barrier, over only n / ROWS blocks. The recompute-att variant adds
-// two phases and 2 t n s1 M2 FLOPs to that chain; its softmax takes a warp
-// per row, so at ROWS = 1 one warp of the block works and the rest wait.
-//
-// What the design does about it: (a) keeps every step intermediate in
-// shared memory, feature-major ([feature][row]), so one weight load feeds
-// ROWS FMAs; the gates are recomputed from hp @ wh + xp as the TPU kernel
-// does (the residuals stay the forward's). The backward's products are
-// against transposed weights (A @ W^T), so a warp computes one output
-// column: its lanes read the weight row coalesced and shuffles add them.
-// (b) runs 335 blocks in parallel, tiles staged through shared memory.
-// Nothing else yet: no tensor cores, TMA or clusters.
+//     allmem). 335 blocks in parallel, tiles staged through shared memory.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cell_bwd.cuh"
 #include "lstm_common.cuh"
 #include "mfm_res.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace ftt {
 namespace {
 
 constexpr int kMaxThreads = 512;
+constexpr int kMaxCluster = 16;
 
-// The variants of kernel (a).
+// The variants of the reverse pass.
 enum Variant { kStream = 0, kRecomputeAtt = 1, kTwoStep = 2 };
-
-struct BwdArgs {
-  const float* xp;        // (t, n, 4H)
-  const float* allh;      // (t, n, H)
-  const float* allc;      // (t, n, H)
-  const float* allmem;    // (t, n, mem)
-  ResTable res;           // the ten residual fields
-  const float* dhlast;    // (n, H)
-  const float* dmemlast;  // (n, mem)
-  const float* wh;        // (H, 4H)
-  const float* a1w1;      // (M2, s1)
-  const float* a1w2;      // (s1, M2)
-  const float* a1b2;      // (M2): read by the recompute-att variant only
-  const float* a2w1;      // (M2, s2)
-  const float* a2w2;      // (s2, mem)
-  const float* gw1;       // (M2 + mem, s3 + s4)
-  const float* g1w2;      // (s3, mem)
-  const float* g2w2;      // (s4, mem)
-  float* dxp;             // (t, n, 4H)
-  float* delta;           // (t, n, D)
-  int t, n, H, z_tot, mem, s1, s2, s3, s4;
-  Cells cells;
-};
 
 // Column offsets of the delta buffer (dq1, dq2, du3, dch, du2, dlogits,
 // du1) and its width D.
@@ -120,31 +126,35 @@ __host__ __device__ inline DeltaLayout delta_layout(int H, int z_tot,
   return l;
 }
 
-// acc[r] += sum_k A[k][r] * w_row[k] over a warp: a row of W against the
-// feature-major A, i.e. one column of A @ W^T. Lane l takes k = l, l + 32,
-// ..., so the warp reads the row coalesced; warp_sum then adds the lanes.
-template <int R>
-__device__ __forceinline__ void warp_dot_row(const float* a, int K,
-                                             const float* __restrict__ w_row,
-                                             int lane, float (&acc)[R]) {
-  for (int k = lane; k < K; k += 32) {
-    const float wv = __ldg(w_row + k);
-    const float* ak = a + k * R;
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = fmaf(ak[r], wv, acc[r]);
-  }
-}
+struct BwdArgs {
+  const float* xp;        // (t, n, 4H)
+  const float* allh;      // (t, n, H)
+  const float* allc;      // (t, n, H)
+  const float* allmem;    // (t, n, mem)
+  ResTable res;           // the ten residual fields
+  const float* dhlast;    // (n, H)
+  const float* dmemlast;  // (n, mem)
+  const float* wh;        // (H, 4H)
+  const float* a1w1;      // (M2, s1)
+  const float* a1w2;      // (s1, M2)
+  const float* a1b2;      // (M2): read by the recompute-att variant only
+  const float* a2w1;      // (M2, s2)
+  const float* a2w2;      // (s2, mem)
+  const float* gw1;       // (M2 + mem, s3 + s4)
+  const float* g1w2;      // (s3, mem)
+  const float* g2w2;      // (s4, mem)
+  float* dxp;             // (t, n, 4H)
+  float* delta;           // (t, n, D)
+  float* gates;           // (t, n, 4H) scratch: pass (1) to pass (4)
+  float* dcstar;          // (t, n, M2) scratch: pass (3) to pass (4)
+  float* datt;            // (t, n, M2) scratch within pass (3)
+  ResEntry att;           // att: the residual field, or recomputed scratch
+  int t, n, H, z_tot, mem, s1, s2, s3, s4, m2;
+  Cells cells;
+  DeltaLayout dl;
+};
 
-// The sum over the warp's lanes, left in every lane. Each butterfly level
-// adds the same two values on both partner lanes, so every lane holds the
-// same bits, and a rerun gives them again.
-template <int R>
-__device__ __forceinline__ void warp_sum(float (&acc)[R]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-    for (int o = 16; o > 0; o >>= 1)
-      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], o);
-}
+using Kernel = void (*)(const BwdArgs);
 
 template <int R>
 __device__ __forceinline__ void zero(float (&acc)[R]) {
@@ -152,80 +162,345 @@ __device__ __forceinline__ void zero(float (&acc)[R]) {
   for (int r = 0; r < R; ++r) acc[r] = 0.0f;
 }
 
-// Row-major rows [row0, row0 + R) of step s (row stride `width`) into
-// feature-major shared memory, columns [col0, col0 + count); zeros past n
-// or when src is null.
+// Flat rows [rr0, rr0 + R) (rr = s n + b) of a (t n, width) tensor,
+// shifted back by `back` rows (n: the step before), columns [col0, col0 +
+// count), into feature-major dst [count][R]; zeros outside [back, rows).
 template <int R>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int s, int n, int width, int col0,
-                                          int count, int row0, int tid,
-                                          int nthr) {
+__device__ __forceinline__ void load_flat(float* dst, const float* src,
+                                          int rows, int back, int width,
+                                          int col0, int count, int rr0,
+                                          int tid, int nthr) {
   for (int i = tid; i < R * count; i += nthr) {
-    const int r = i / count, k = i - r * count, row = row0 + r;
+    const int r = i / count, k = i - r * count, rr = rr0 + r;
     float v = 0.0f;
-    if (src != nullptr && row < n)
-      v = src[((size_t)s * n + row) * width + col0 + k];
+    if (rr < rows && rr >= back)
+      v = src[(size_t)(rr - back) * width + col0 + k];
     dst[k * R + r] = v;
   }
 }
 
-// The shared-memory buffers that every step reuses, feature-major
-// [feature][R].
-struct Smem {
-  float* dh;        // H: the carry into the step
-  float* dc;        // H
-  float* dmem;      // mem: the carry
-  float* dmem_new;  // mem: the carry out of the step
-  float* dq;        // 3 mem: dq1 | dq2 | dch
-  float* du3;       // s34
-  float* du2;       // s2
-  float* datt;      // M2
-  float* dcstar;    // M2
-  float* dlogits;   // M2
-  float* du1;       // s1
-  float* dg;        // 4H: the step's dgates
-};
+// ------------------------------------------------------ pass (1): gates
 
-// What a step reads from shared memory, loaded at its head (phase (0)).
-struct Operands {
-  float* hp;     // H: h of step s - 1
-  float* cstar;  // M2: [c_prev, c_s][:, z:]
-  float* att;    // M2
-};
-
-// (0) the operands of step s: hp, cStar and, but where `r1` is given (the
-//     recompute-att variant, which loads r1 there instead), att; zeros for
-//     the state before step 0. No barrier: the caller's orders them.
+// Block: R flat rows; a thread per gate column, the hidden state before
+// each row's step staged in shared memory; the forward's order of
+// operations (xp, then the cell's rows of wh in order).
 template <int R>
-__device__ __forceinline__ void load_operands(const BwdArgs& a, int s,
-                                              const Operands& op, float* r1,
-                                              int row0, int tid, int nthr) {
-  const int H = a.H, z = a.z_tot, M = H - z;
-  const bool first = s == 0;
-  load_rows<R>(op.hp, first ? nullptr : a.allh, s - 1, a.n, H, 0, H, row0,
-               tid, nthr);
-  load_rows<R>(op.cstar, first ? nullptr : a.allc, s - 1, a.n, H, z, M, row0,
-               tid, nthr);
-  load_rows<R>(op.cstar + M * R, a.allc, s, a.n, H, z, M, row0, tid, nthr);
-  const ResEntry& e = a.res.f[r1 != nullptr ? kR1 : kAtt];
-  load_rows<R>(r1 != nullptr ? r1 : op.att, e.ptr, s, a.n, e.stride, e.col,
-               r1 != nullptr ? a.s1 : 2 * M, row0, tid, nthr);
+__global__ void __launch_bounds__(kMaxThreads) gates_kernel(const BwdArgs a) {
+  extern __shared__ float smem[];
+  float* const hp = smem;  // [H][R]
+  const int H = a.H, H4 = 4 * H, rows = a.t * a.n, rr0 = blockIdx.x * R;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  load_flat<R>(hp, a.allh, rows, a.n, H, 0, H, rr0, tid, nthr);
+  __syncthreads();
+  for (int j = tid; j < H4; j += nthr) {
+    int k0, k1;
+    cell_range(a.cells, j % H, k0, k1);
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      acc[r] = rr0 + r < rows ? a.xp[(size_t)(rr0 + r) * H4 + j] : 0.0f;
+    for (int k = k0; k < k1; ++k) {
+      const float wv = __ldg(a.wh + (size_t)k * H4 + j);
+      const float* hk = hp + k * R;
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = fmaf(hk[r], wv, acc[r]);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      if (rr0 + r < rows) a.gates[(size_t)(rr0 + r) * H4 + j] = acc[r];
+  }
 }
 
-// (0b) the recompute-att variant: att = softmax(r1 @ a1w2 + a1b2) from
-//      the r1 just loaded, with the forward's order of operations (a
-//      thread per logit column over the block's rows, then a warp per row),
-//      so att has the bits the forward stored. Phase (1) reads no att; its
-//      barrier orders the softmax's writes before phase (3).
+// ----------------------------------------------- pass (2): memory chain
+
+// A block's share of the memory chain's columns in a cluster of C: du3
+// columns [u0, u1) and carry columns [m0, m1); ks lanes share an output
+// and p is the weight rows' pitch in shared memory. Sized by the largest
+// share, cu and cm columns.
+struct MemTile {
+  int u0, u1, m0, m1, cu, cm, ks3, p3, ksm, pm;
+};
+
+__host__ __device__ inline MemTile mem_tile(int s34, int mem, int C,
+                                            int rank, int threads) {
+  MemTile m;
+  m.u0 = s34 * rank / C;
+  m.u1 = s34 * (rank + 1) / C;
+  m.m0 = mem * rank / C;
+  m.m1 = mem * (rank + 1) / C;
+  m.cu = (s34 + C - 1) / C;
+  m.cm = (mem + C - 1) / C;
+  m.ks3 = lanes_per_output(m.cu, threads);
+  m.p3 = conflict_free_pitch(mem, m.ks3);
+  m.ksm = lanes_per_output(m.cm, threads);
+  m.pm = conflict_free_pitch(s34, m.ksm);
+  return m;
+}
+
+// Operand floats a row and step: chat, g1, g2, memp (mem each), kg3.
+__host__ __device__ inline int mem_op_width(int mem, int s34) {
+  return 4 * mem + s34;
+}
+
+__host__ __device__ inline size_t mem_chain_floats(int mem, int s34, int C,
+                                                   int R, int threads) {
+  const MemTile m = mem_tile(s34, mem, C, 0, threads);
+  return (size_t)m.cu * m.p3 + (size_t)m.cm * m.pm +
+         (size_t)2 * R * mem_op_width(mem, s34) +
+         (size_t)R * (2 * mem + mem + 2 * mem + s34);
+}
+
+// The operands of step s, row-major [R][chat | g1 | g2 | memp | kg3],
+// asynchronously; zeros past n and for memp before step 0.
 template <int R>
-__device__ __forceinline__ void recompute_att(const BwdArgs& a,
-                                              const Operands& op,
+__device__ __forceinline__ void load_mem_ops(const BwdArgs& a, int s,
+                                             float* o, int row0, int tid,
+                                             int nthr) {
+  const int mem = a.mem, W = mem_op_width(mem, a.s3 + a.s4);
+  for (int i = tid; i < R * W; i += nthr) {
+    const int r = i / W, f = i - r * W, row = row0 + r;
+    const float* src = nullptr;
+    if (row < a.n) {
+      const size_t at = (size_t)s * a.n + row;
+      if (f < mem)
+        src = res_row(a.res.f[kChat], at) + f;
+      else if (f < 2 * mem)
+        src = res_row(a.res.f[kG1], at) + f - mem;
+      else if (f < 3 * mem)
+        src = res_row(a.res.f[kG2], at) + f - 2 * mem;
+      else if (f < 4 * mem)
+        src = s > 0 ? a.allmem + (at - a.n) * mem + f - 3 * mem : nullptr;
+      else
+        src = res_row(a.res.f[kKg3], at) + f - 4 * mem;
+    }
+    if (src != nullptr)
+      cp_async4(o + i, src);
+    else
+      o[i] = 0.0f;
+  }
+}
+
+// acc[r] = sum_k A[r][k] w_row[k], k = slice, slice + ks, ...: one lane's
+// share of an output, A row-major in shared memory; four partial sums
+// (so consecutive loads overlap) added in a fixed order.
+template <int R>
+__device__ __forceinline__ void smem_dot(const float* A, int lda, int K,
+                                         const float* w_row, int slice,
+                                         int ks, float (&acc)[R]) {
+  float p[4][R];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int r = 0; r < R; ++r) p[u][r] = 0.0f;
+  int k = slice;
+  for (; k + 3 * ks < K; k += 4 * ks) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float wv = w_row[k + u * ks];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        p[u][r] = fmaf(A[r * lda + k + u * ks], wv, p[u][r]);
+    }
+  }
+  for (; k < K; k += ks) {
+    const float wv = w_row[k];
+#pragma unroll
+    for (int r = 0; r < R; ++r) p[0][r] = fmaf(A[r * lda + k], wv, p[0][r]);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) acc[r] = (p[0][r] + p[1][r]) + (p[2][r] + p[3][r]);
+}
+
+template <int R>
+__device__ __forceinline__ void lanes_sum(float (&acc)[R], int ks) {
+  for (int o = 1; o < ks; o <<= 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], o);
+  }
+}
+
+// Copies the peers' columns [lo(p), hi(p)) of an [R][width] buffer from
+// their shared memory into this block's.
+template <int R>
+__device__ __forceinline__ void gather_peers(cg::cluster_group& cluster,
+                                             float* buf, int width, int C,
+                                             int rank, int tid, int nthr) {
+  for (int p = 0; p < C; ++p) {
+    if (p == rank) continue;
+    const int lo = width * p / C, cols = width * (p + 1) / C - lo;
+    const float* peer = cluster.map_shared_rank(buf, p);
+    for (int i = tid; i < R * cols; i += nthr) {
+      const int r = i / cols, j = lo + i - r * cols;
+      buf[r * width + j] = peer[r * width + j];
+    }
+  }
+}
+
+// Block: rank `rank` of a cluster of C over R batch rows. P: two-step.
+template <int R, bool P>
+__global__ void __launch_bounds__(kMaxThreads)
+    mem_chain_kernel(const BwdArgs a) {
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int mem = a.mem, s3 = a.s3, s34 = a.s3 + a.s4;
+  const int W = mem_op_width(mem, s34);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarp = nthr >> 5;
+  const int row0 = (blockIdx.x / C) * R;
+  const MemTile m = mem_tile(s34, mem, C, rank, nthr);
+  const DeltaLayout& dl = a.dl;
+
+  float* const w3 = smem;              // [cu][p3]: g1w2 | g2w2 rows
+  float* const wm = w3 + m.cu * m.p3;  // [cm][pm]: gw1 rows M2 + c
+  float* const ops = wm + m.cm * m.pm;  // two [R][W]: step s's at s & 1
+  float* dmem = ops + 2 * R * W;       // [R][mem]: the carry into the step
+  float* dnext = dmem + R * mem;       // [R][mem]: the carry out of it
+  float* const carry = dnext + R * mem;  // [R][mem]: dmem * g1
+  float* const dq = carry + R * mem;     // [R][2 mem]: dq1 | dq2
+  float* const du3 = dq + R * 2 * mem;   // [R][s34]
+
+  const int nu = m.u1 - m.u0, nm = m.m1 - m.m0;
+  // the first `split` of the block's du3 rows come from g1w2, the rest
+  // from g2w2
+  const int split = s3 <= m.u0 ? 0 : (s3 - m.u0 < nu ? s3 - m.u0 : nu);
+  copy_rows_async(w3, m.p3, a.g1w2 + (size_t)m.u0 * mem, mem, split, mem,
+                  tid, nthr);
+  copy_rows_async(w3 + split * m.p3, m.p3,
+                  a.g2w2 + (size_t)(m.u0 + split - s3) * mem, mem,
+                  nu - split, mem, tid, nthr);
+  copy_rows_async(wm, m.pm, a.gw1 + (size_t)(a.m2 + m.m0) * s34, s34, nm,
+                  s34, tid, nthr);
+  for (int i = tid; i < R * mem; i += nthr) {
+    const int r = i / mem, row = row0 + r;
+    dmem[i] = row < a.n ? a.dmemlast[(size_t)row * mem + i - r * mem] : 0.0f;
+  }
+  if (!P) load_mem_ops<R>(a, a.t - 1, ops + ((a.t - 1) & 1) * R * W, row0,
+                         tid, nthr);
+  cp_async_wait_all();
+  __syncthreads();
+
+  for (int s = a.t - 1; s >= 0; --s) {
+    float* const op = ops + (s & 1) * R * W;
+    float* const prev = ops + ((s + 1) & 1) * R * W;
+    if (P) {
+      if (((a.t - 1 - s) & 1) == 0) {
+        load_mem_ops<R>(a, s, op, row0, tid, nthr);
+        if (s > 0) load_mem_ops<R>(a, s - 1, prev, row0, tid, nthr);
+        cp_async_wait_all();
+        __syncthreads();
+      }
+    } else if (s > 0) {
+      load_mem_ops<R>(a, s - 1, prev, row0, tid, nthr);
+    }
+    const size_t base = (size_t)s * a.n;
+
+    // (a) the memory update and the gamma heads, elementwise: dq1, dq2,
+    //     dch and dmem * g1; the block writes its columns' deltas
+    for (int i = tid; i < R * mem; i += nthr) {
+      const int r = i / mem, k = i - r * mem, row = row0 + r;
+      const float* o = op + r * W;
+      const float chat = o[k], g1 = o[mem + k], g2 = o[2 * mem + k];
+      const float memp = o[3 * mem + k], dm = dmem[i];
+      const float q1 = dm * memp * g1 * (1.0f - g1);
+      const float q2 = dm * chat * g2 * (1.0f - g2);
+      const float ch = dm * g2 * (1.0f - chat * chat);
+      dq[r * 2 * mem + k] = q1;
+      dq[r * 2 * mem + mem + k] = q2;
+      carry[i] = dm * g1;
+      if (row < a.n && k >= m.m0 && k < m.m1) {
+        float* d = a.delta + (base + row) * dl.width;
+        d[dl.dq1 + k] = q1;
+        d[dl.dq2 + k] = q2;
+        d[dl.dch + k] = ch;
+      }
+    }
+    __syncthreads();
+
+    // (b) du3 = [dq1 @ g1w2^T, dq2 @ g2w2^T] * kg3 for the block's columns
+    for (int b0 = warp * 32; b0 < nu * m.ks3; b0 += nwarp * 32) {
+      const int item = b0 + lane, jl = item / m.ks3;
+      const int slice = item - jl * m.ks3, j = m.u0 + jl;
+      const bool ok = item < nu * m.ks3;
+      float acc[R];
+      zero(acc);
+      if (ok)
+        smem_dot<R>(dq + (j < s3 ? 0 : mem), 2 * mem, mem, w3 + jl * m.p3,
+                    slice, m.ks3, acc);
+      lanes_sum<R>(acc, m.ks3);
+      if (ok && slice == 0) {
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float v = acc[r] * op[r * W + 4 * mem + j];
+          du3[r * s34 + j] = v;
+          if (row0 + r < a.n)
+            a.delta[(base + row0 + r) * dl.width + dl.du3 + j] = v;
+        }
+      }
+    }
+    if (s == 0) break;  // the carry out of step 0 is not needed
+    if (C > 1) {
+      cluster.sync();
+      gather_peers<R>(cluster, du3, s34, C, rank, tid, nthr);
+    }
+    __syncthreads();
+
+    // (c) the carry's columns: dmem * g1 + du3 @ gw1[M2:]^T
+    for (int b0 = warp * 32; b0 < nm * m.ksm; b0 += nwarp * 32) {
+      const int item = b0 + lane, cl = item / m.ksm;
+      const int slice = item - cl * m.ksm, c = m.m0 + cl;
+      const bool ok = item < nm * m.ksm;
+      float acc[R];
+      zero(acc);
+      if (ok)
+        smem_dot<R>(du3, s34, s34, wm + cl * m.pm, slice, m.ksm, acc);
+      lanes_sum<R>(acc, m.ksm);
+      if (ok && slice == 0) {
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          dnext[r * mem + c] = carry[r * mem + c] + acc[r];
+      }
+    }
+    if (C > 1) {
+      cluster.sync();
+      gather_peers<R>(cluster, dnext, mem, C, rank, tid, nthr);
+    }
+    float* const spent = dmem;
+    dmem = dnext;
+    dnext = spent;
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  // no block leaves while a peer may still read its shared memory
+  if (C > 1) cluster.sync();
+}
+
+// ----------------------------------------- pass (3): attention branch
+//
+// Over all t n flat rows at once (no carry), in five launches: du2;
+// dattended, whose epilogue writes datt and dcstar's first part; the
+// softmax backward to dlogits; du1; dcstar's second part. Each product is
+// A @ W^T in kTile x kTile output tiles: a block copies its tile's rows of
+// A and of W, the whole depth, into shared memory at once with cp.async;
+// kSplit groups of 64 threads each take a quarter of the depth, each
+// thread summing a 4 x 4 tile of outputs in order of k, and the groups'
+// partial tiles are added in a fixed order. The recompute-att variant
+// first writes att into scratch.
+
+constexpr int kTile = 32;  // output tile: kTile x kTile
+constexpr int kSplit = 4;  // groups of 8 x 8 threads, a 4 x 4 tile each
+constexpr int kProductThreads = 64 * kSplit;
+
+// att = softmax(r1 @ a1w2 + a1b2) for R rows, with the forward's order of
+// operations (a thread per logit column over the rows, then a warp per
+// row), so att has the bits the forward stored.
+template <int R>
+__device__ __forceinline__ void recompute_att(const BwdArgs& a, float* att,
                                               const float* r1, int tid,
                                               int nthr, int lane, int warp,
                                               int nwarp) {
-  const int M2 = 2 * (a.H - a.z_tot);
-  float* att = op.att;
-  __syncthreads();
+  const int M2 = a.m2;
   for (int j = tid; j < M2; j += nthr) {
     float acc[R];
     const float b = __ldg(a.a1b2 + j);
@@ -259,355 +534,404 @@ __device__ __forceinline__ void recompute_att(const BwdArgs& a,
   }
 }
 
-// Phases (1)-(8) of reverse step s on its loaded operands: the deltas and
-// dxp written, the carries in `sm` moved to step s - 1.
+// The recompute-att variant's att, R flat rows a block, into the scratch
+// that a.att points at.
 template <int R>
-__device__ __forceinline__ void reverse_step(const BwdArgs& a, int s,
-                                             const Operands& op,
-                                             const Smem& sm, int row0,
-                                             int tid, int nthr, int lane,
-                                             int warp, int nwarp) {
-  const int H = a.H, H4 = 4 * H, z = a.z_tot;
-  const int M = H - z, M2 = 2 * M, mem = a.mem;
-  const int s3 = a.s3, s34 = a.s3 + a.s4;
-  const DeltaLayout dl = delta_layout(H, z, mem, a.s1, a.s2, a.s3, a.s4);
-  const bool first = s == 0;
-  const size_t base = (size_t)s * a.n;
-  float* const dq = sm.dq;
-
-  // (1) the memory update: dq1, dq2, dch and dmem * g1
-  for (int i = tid; i < R * mem; i += nthr) {
-    const int r = i / mem, k = i - r * mem, row = row0 + r;
-    float q1 = 0.0f, q2 = 0.0f, ch = 0.0f, carry = 0.0f;
-    if (row < a.n) {
-      const size_t at = base + row;
-      const float chat = res_row(a.res.f[kChat], at)[k];
-      const float g1 = res_row(a.res.f[kG1], at)[k];
-      const float g2 = res_row(a.res.f[kG2], at)[k];
-      const float memp =
-          first ? 0.0f : a.allmem[((size_t)(s - 1) * a.n + row) * mem + k];
-      const float dm = sm.dmem[k * R + r];
-      q1 = dm * memp * g1 * (1.0f - g1);
-      q2 = dm * chat * g2 * (1.0f - g2);
-      ch = dm * g2 * (1.0f - chat * chat);
-      carry = dm * g1;
-      float* d = a.delta + at * dl.width;
-      d[dl.dq1 + k] = q1;
-      d[dl.dq2 + k] = q2;
-      d[dl.dch + k] = ch;
-    }
-    dq[k * R + r] = q1;
-    dq[(mem + k) * R + r] = q2;
-    dq[(2 * mem + k) * R + r] = ch;
-    sm.dmem_new[k * R + r] = carry;
-  }
+__global__ void __launch_bounds__(kMaxThreads)
+    recompute_att_kernel(const BwdArgs a) {
+  extern __shared__ float smem[];
+  float* const r1 = smem;              // [s1][R]
+  float* const att = r1 + a.s1 * R;    // [M2][R]
+  const int rows = a.t * a.n, rr0 = blockIdx.x * R, M2 = a.m2;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const ResEntry& e = a.res.f[kR1];
+  load_flat<R>(r1, e.ptr, rows, 0, e.stride, e.col, a.s1, rr0, tid, nthr);
   __syncthreads();
-
-  // (2) du3 = [dq1 @ g1w2^T, dq2 @ g2w2^T] * kg3; du2 = dch @ a2w2^T * kg2;
-  //     a warp per output column, lane r writing row r
-  for (int j = warp; j < s34 + a.s2; j += nwarp) {
-    float acc[R];
-    zero(acc);
-    int col, kg, dcol;
-    float* out;
-    if (j < s34) {
-      col = j;
-      kg = kKg3;
-      dcol = dl.du3;
-      out = sm.du3;
-      if (j < s3)
-        warp_dot_row<R>(dq, mem, a.g1w2 + (size_t)j * mem, lane, acc);
-      else
-        warp_dot_row<R>(dq + mem * R, mem, a.g2w2 + (size_t)(j - s3) * mem,
-                        lane, acc);
-    } else {
-      col = j - s34;
-      kg = kKg2;
-      dcol = dl.du2;
-      out = sm.du2;
-      warp_dot_row<R>(dq + 2 * mem * R, mem, a.a2w2 + (size_t)col * mem,
-                      lane, acc);
-    }
-    warp_sum(acc);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = row0 + r;
-      if (lane != r) continue;
-      float v = 0.0f;
-      if (row < a.n) {
-        v = acc[r] * res_row(a.res.f[kg], base + row)[col];
-        a.delta[(base + row) * dl.width + dcol + col] = v;
-      }
-      out[col * R + r] = v;
-    }
-  }
+  recompute_att<R>(a, att, r1, tid, nthr, tid & 31, tid >> 5, nthr >> 5);
   __syncthreads();
-
-  // (3) dboth = du3 @ gw1^T: its first M2 columns plus du2 @ a2w1^T are
-  //     dattended, the rest adds to the memory carry
-  for (int j = warp; j < M2 + mem; j += nwarp) {
-    float acc[R];
-    zero(acc);
-    warp_dot_row<R>(sm.du3, s34, a.gw1 + (size_t)j * s34, lane, acc);
-    if (j < M2)
-      warp_dot_row<R>(sm.du2, a.s2, a.a2w1 + (size_t)j * a.s2, lane, acc);
-    warp_sum(acc);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (lane != r) continue;
-      if (j < M2) {
-        sm.datt[j * R + r] = acc[r] * op.cstar[j * R + r];
-        sm.dcstar[j * R + r] = acc[r] * op.att[j * R + r];
-      } else {
-        sm.dmem_new[(j - M2) * R + r] += acc[r];
-      }
-    }
+  for (int i = tid; i < R * M2; i += nthr) {
+    const int r = i / M2, k = i - r * M2, rr = rr0 + r;
+    if (rr < rows) res_row(a.att, rr)[k] = att[k * R + r];
   }
-  __syncthreads();
-
-  // (4) the softmax: dlogits = att * (datt - sum(datt * att)), a warp
-  //     per row
-  for (int r = warp; r < R; r += nwarp) {
-    float sum = 0.0f;
-    for (int k = lane; k < M2; k += 32)
-      sum += sm.datt[k * R + r] * op.att[k * R + r];
-    for (int o = 16; o > 0; o >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const int row = row0 + r;
-    for (int k = lane; k < M2; k += 32) {
-      float v = 0.0f;
-      if (row < a.n) {
-        v = op.att[k * R + r] * (sm.datt[k * R + r] - sum);
-        a.delta[(base + row) * dl.width + dl.dlogits + k] = v;
-      }
-      sm.dlogits[k * R + r] = v;
-    }
-  }
-  __syncthreads();
-
-  // (5) du1 = dlogits @ a1w2^T * kg1
-  for (int j = warp; j < a.s1; j += nwarp) {
-    float acc[R];
-    zero(acc);
-    warp_dot_row<R>(sm.dlogits, M2, a.a1w2 + (size_t)j * M2, lane, acc);
-    warp_sum(acc);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = row0 + r;
-      if (lane != r) continue;
-      float v = 0.0f;
-      if (row < a.n) {
-        v = acc[r] * res_row(a.res.f[kKg1], base + row)[j];
-        a.delta[(base + row) * dl.width + dl.du1 + j] = v;
-      }
-      sm.du1[j * R + r] = v;
-    }
-  }
-  __syncthreads();
-
-  // (6) dcstar += du1 @ a1w1^T
-  for (int j = warp; j < M2; j += nwarp) {
-    float acc[R];
-    zero(acc);
-    warp_dot_row<R>(sm.du1, a.s1, a.a1w1 + (size_t)j * a.s1, lane, acc);
-    warp_sum(acc);
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (lane == r) sm.dcstar[j * R + r] += acc[r];
-  }
-  __syncthreads();
-
-  // (7) the LSTM cells, each thread one hidden unit: the gates
-  //     recomputed from hp @ wh + xp, cStar's gradient into this step's
-  //     cell state ([:, z:] of c_s) and the previous one (of c_prev)
-  for (int j = tid; j < H; j += nthr) {
-    int k0, k1;
-    cell_range(a.cells, j, k0, k1);
-    float gi[R], gf[R], gg[R], go[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = row0 + r;
-      if (row < a.n) {
-        const float* x = a.xp + (base + row) * H4 + j;
-        gi[r] = x[0];
-        gf[r] = x[H];
-        gg[r] = x[2 * H];
-        go[r] = x[3 * H];
-      } else {
-        gi[r] = gf[r] = gg[r] = go[r] = 0.0f;
-      }
-    }
-    for (int k = k0; k < k1; ++k) {
-      const float* w = a.wh + (size_t)k * H4 + j;
-      const float wi = __ldg(w), wf = __ldg(w + H);
-      const float wg = __ldg(w + 2 * H), wo = __ldg(w + 3 * H);
-      const float* hk = op.hp + k * R;
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float hv = hk[r];
-        gi[r] = fmaf(hv, wi, gi[r]);
-        gf[r] = fmaf(hv, wf, gf[r]);
-        gg[r] = fmaf(hv, wg, gg[r]);
-        go[r] = fmaf(hv, wo, go[r]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int row = row0 + r;
-      const float si = sigmoid(gi[r]), sf = sigmoid(gf[r]);
-      const float so = sigmoid(go[r]), tg = tanhf(gg[r]);
-      float ci = 0.0f, cp = 0.0f;
-      if (row < a.n) {
-        ci = a.allc[(base + row) * H + j];
-        if (!first) cp = a.allc[((size_t)(s - 1) * a.n + row) * H + j];
-      }
-      const float tc = tanhf(ci);
-      const float dcs_i = j >= z ? sm.dcstar[(M + j - z) * R + r] : 0.0f;
-      const float dcs_p = j >= z ? sm.dcstar[(j - z) * R + r] : 0.0f;
-      const float dhv = sm.dh[j * R + r];
-      const float dc_i = sm.dc[j * R + r] + dcs_i;
-      const float dc_full = dc_i + dhv * so * (1.0f - tc * tc);
-      const float di = dc_full * tg * si * (1.0f - si);
-      const float df = dc_full * cp * sf * (1.0f - sf);
-      const float dgg = dc_full * si * (1.0f - tg * tg);
-      const float dov = dhv * tc * so * (1.0f - so);
-      sm.dg[j * R + r] = di;
-      sm.dg[(H + j) * R + r] = df;
-      sm.dg[(2 * H + j) * R + r] = dgg;
-      sm.dg[(3 * H + j) * R + r] = dov;
-      if (row < a.n) {
-        float* d = a.dxp + (base + row) * H4 + j;
-        d[0] = di;
-        d[H] = df;
-        d[2 * H] = dgg;
-        d[3 * H] = dov;
-      }
-      sm.dc[j * R + r] = dc_full * sf + dcs_p;
-    }
-  }
-  __syncthreads();
-
-  // (8) dh = dgates @ wh^T over the unit's own cell block, a warp per
-  //     unit; the memory carry moves on
-  for (int k = warp; k < H; k += nwarp) {
-    int j0, j1;
-    cell_range(a.cells, k, j0, j1);
-    float acc[R];
-    zero(acc);
-    const float* w = a.wh + (size_t)k * H4;
-    for (int q = 0; q < 4; ++q) {
-      for (int j = j0 + lane; j < j1; j += 32) {
-        const float wv = __ldg(w + q * H + j);
-        const float* g = sm.dg + (q * H + j) * R;
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = fmaf(g[r], wv, acc[r]);
-      }
-    }
-    warp_sum(acc);
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (lane == r) sm.dh[k * R + r] = acc[r];
-  }
-  for (int i = tid; i < mem * R; i += nthr) sm.dmem[i] = sm.dmem_new[i];
-  __syncthreads();
 }
 
-template <int R, int V>
-__global__ void __launch_bounds__(kMaxThreads)
-    mfm_encode_bwd_kernel(const BwdArgs a) {
+enum ProductId { kDu2 = 0, kDattended = 1, kDu1 = 2, kDcstarAdd = 3 };
+
+// One A @ W^T term: A's rows from `a` (row stride lda), W (N, K) row-major.
+struct Term {
+  const float* a;
+  int lda;
+  const float* w;
+  int K;
+};
+
+struct ProductSpec {
+  Term term[2];
+  int terms, N;
+};
+
+__host__ __device__ inline ProductSpec product_spec(const BwdArgs& a,
+                                                    int id) {
+  const DeltaLayout& l = a.dl;
+  const int D = l.width, s34 = a.s3 + a.s4;
+  ProductSpec p;
+  p.terms = 1;
+  switch (id) {
+    case kDu2:  // dch @ a2w2^T
+      p.term[0] = {a.delta + l.dch, D, a.a2w2, a.mem};
+      p.N = a.s2;
+      break;
+    case kDattended:  // du3 @ gw1[:M2]^T + du2 @ a2w1^T
+      p.term[0] = {a.delta + l.du3, D, a.gw1, s34};
+      p.term[1] = {a.delta + l.du2, D, a.a2w1, a.s2};
+      p.terms = 2;
+      p.N = a.m2;
+      break;
+    case kDu1:  // dlogits @ a1w2^T
+      p.term[0] = {a.delta + l.dlogits, D, a.a1w2, a.m2};
+      p.N = a.s1;
+      break;
+    default:  // du1 @ a1w1^T
+      p.term[0] = {a.delta + l.du1, D, a.a1w1, a.s1};
+      p.N = a.m2;
+      break;
+  }
+  return p;
+}
+
+// Rows of a staged operand in shared memory: a warp reads 8 rows at once,
+// 4 consecutive floats from each (conflict_free_pitch). The groups'
+// partial tiles reuse the space afterwards.
+__host__ __device__ inline int product_pitch(int K) {
+  return conflict_free_pitch(K, 4);
+}
+
+__host__ __device__ inline size_t product_floats(const ProductSpec& p) {
+  size_t f = 0;
+  for (int o = 0; o < p.terms; ++o)
+    f += (size_t)2 * kTile * product_pitch(p.term[o].K);
+  const size_t parts = (size_t)kSplit * kTile * kTile;
+  return f > parts ? f : parts;
+}
+
+// Where output (m, n) of product P goes: a delta (times its mask-and-relu
+// field), or datt and dcstar's first part, or added to dcstar.
+template <int P>
+__device__ __forceinline__ void product_out(const BwdArgs& a, int m, int n,
+                                            float v) {
+  const DeltaLayout& l = a.dl;
+  float* const d = a.delta + (size_t)m * l.width;
+  if (P == kDu2) {
+    d[l.du2 + n] = v * res_row(a.res.f[kKg2], m)[n];
+  } else if (P == kDattended) {
+    // cStar: c of the step before (zeros before step 0), then c of the
+    // step, past z_tot
+    const int M = a.m2 / 2;
+    float cs;
+    if (n < M)
+      cs = m >= a.n ? a.allc[(size_t)(m - a.n) * a.H + a.z_tot + n] : 0.0f;
+    else
+      cs = a.allc[(size_t)m * a.H + a.z_tot + n - M];
+    a.datt[(size_t)m * a.m2 + n] = v * cs;
+    a.dcstar[(size_t)m * a.m2 + n] = v * res_row(a.att, m)[n];
+  } else if (P == kDu1) {
+    d[l.du1 + n] = v * res_row(a.res.f[kKg1], m)[n];
+  } else {
+    a.dcstar[(size_t)m * a.m2 + n] += v;
+  }
+}
+
+// Block: one kTile x kTile tile of product P's (t n, N) output.
+template <int P>
+__global__ void __launch_bounds__(kProductThreads)
+    product_kernel(const BwdArgs a) {
   extern __shared__ float smem[];
-  const int H = a.H, M2 = 2 * (H - a.z_tot), mem = a.mem;
-  const int s34 = a.s3 + a.s4;
-  // feature-major [feature][R] buffers; each variant's own last
-  Smem sm;
-  Operands op;
-  sm.dh = smem;
-  sm.dc = sm.dh + H * R;
-  op.hp = sm.dc + H * R;
-  sm.dmem = op.hp + H * R;
-  sm.dmem_new = sm.dmem + mem * R;
-  op.cstar = sm.dmem_new + mem * R;
-  op.att = op.cstar + M2 * R;
-  sm.dq = op.att + M2 * R;
-  sm.du3 = sm.dq + 3 * mem * R;
-  sm.du2 = sm.du3 + s34 * R;
-  sm.datt = sm.du2 + a.s2 * R;
-  sm.dcstar = sm.datt + M2 * R;
-  sm.dlogits = sm.dcstar + M2 * R;
-  sm.du1 = sm.dlogits + M2 * R;
-  sm.dg = sm.du1 + a.s1 * R;
-  float* const extra = sm.dg + 4 * H * R;
+  const ProductSpec p = product_spec(a, P);
+  const int rows = a.t * a.n, tiles_n = (p.N + kTile - 1) / kTile;
+  const int m0 = (blockIdx.x / tiles_n) * kTile;
+  const int n0 = (blockIdx.x % tiles_n) * kTile;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  // this thread's group (a quarter of the depth) and its 4 x 4 outputs,
+  // rows ty + 8 i and columns tx + 8 j of the tile
+  const int g = tid / 64, tx = tid % 8, ty = (tid % 64) / 8;
+  const int live_m = rows - m0 < kTile ? rows - m0 : kTile;
+  const int live_n = p.N - n0 < kTile ? p.N - n0 : kTile;
+  float* s = smem;
+  for (int o = 0; o < p.terms; ++o) {
+    const Term& q = p.term[o];
+    const int pitch = product_pitch(q.K);
+    copy_rows_async(s, pitch, q.a + (size_t)m0 * q.lda, q.lda, live_m, q.K,
+                    tid, nthr);
+    copy_rows_async(s + kTile * pitch, pitch, q.w + (size_t)n0 * q.K, q.K,
+                    live_n, q.K, tid, nthr);
+    // rows past the ends read as zeros
+    for (int e = tid; e < (2 * kTile - live_m - live_n) * q.K; e += nthr) {
+      const int i = e / q.K, k = e - i * q.K;
+      const int row = i < kTile - live_m ? live_m + i
+                                         : kTile + live_n + i - (kTile - live_m);
+      s[row * pitch + k] = 0.0f;
+    }
+    s += 2 * kTile * pitch;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  s = smem;
+  for (int o = 0; o < p.terms; ++o) {
+    const int K = p.term[o].K, pitch = product_pitch(K);
+    const float* A = s + ty * pitch;
+    const float* W = s + (kTile + tx) * pitch;
+    for (int k = K * g / kSplit; k < K * (g + 1) / kSplit; ++k) {
+      float av[4], wv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        av[i] = A[8 * i * pitch + k];
+        wv[i] = W[8 * i * pitch + k];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+    }
+    s += 2 * kTile * pitch;
+  }
+  __syncthreads();  // the staged operands are read: reuse the space
+  float* const part = smem + g * kTile * kTile;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      part[(ty + 8 * i) * kTile + tx + 8 * j] = acc[i][j];
+  __syncthreads();
+  for (int e = tid; e < kTile * kTile; e += nthr) {
+    float v = smem[e];
+#pragma unroll
+    for (int q = 1; q < kSplit; ++q) v += smem[q * kTile * kTile + e];
+    const int m = m0 + e / kTile, n = n0 + e % kTile;
+    if (m < rows && n < p.N) product_out<P>(a, m, n, v);
+  }
+}
+
+// dlogits = att * (datt - sum(datt * att)), a warp per flat row.
+__global__ void __launch_bounds__(kMaxThreads)
+    softmax_bwd_kernel(const BwdArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int m = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (m >= a.t * a.n) return;  // the whole warp
+  const int M2 = a.m2;
+  const float* datt = a.datt + (size_t)m * M2;
+  const float* att = res_row(a.att, m);
+  float sum = 0.0f;
+  for (int k = lane; k < M2; k += 32) sum += datt[k] * att[k];
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  float* d = a.delta + (size_t)m * a.dl.width + a.dl.dlogits;
+  for (int k = lane; k < M2; k += 32) d[k] = att[k] * (datt[k] - sum);
+}
+
+// ------------------------------------------------ pass (4): LSTM chains
+
+// Operand floats a row and unit: gates 4, c, c_prev, and dcstar's 2.
+constexpr int kCellOpWidth = 8;
+
+template <int R>
+__device__ __forceinline__ void load_cell_step(const BwdArgs& a, int s,
+                                               const CellStep& op,
+                                               const CellTile& c, int row0,
+                                               int tid, int nthr) {
+  const int H = a.H, M = a.H - a.z_tot;
+  for (int q = 0; q < 4; ++q)
+    load_rows_async<R>(op.g + q * c.h * R, a.gates, s, a.n, 4 * H,
+                       q * H + c.k0, c.h, row0, tid, nthr);
+  load_rows_async<R>(op.c, a.allc, s, a.n, H, c.k0, c.h, row0, tid, nthr);
+  load_rows_async<R>(op.cp, s > 0 ? a.allc : nullptr, s - 1, a.n, H, c.k0,
+                     c.h, row0, tid, nthr);
+  if (op.dcs != nullptr) {
+    load_rows_async<R>(op.dcs, a.dcstar, s, a.n, a.m2, c.k0 - a.z_tot, c.h,
+                       row0, tid, nthr);
+    load_rows_async<R>(op.dcs + c.h * R, a.dcstar, s, a.n, a.m2,
+                       M + c.k0 - a.z_tot, c.h, row0, tid, nthr);
+  }
+}
+
+// blockIdx.y is the cell, blockIdx.x the row tile. P: two-step.
+template <int R, bool P>
+__global__ void __launch_bounds__(kMaxThreads)
+    lstm_chains_kernel(const BwdArgs a) {
+  extern __shared__ float smem[];
+  const CellTile c = cell_tile(a.cells, blockIdx.y, blockDim.x);
+  const int h = c.h;
   const int row0 = blockIdx.x * R;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nthr >> 5;
+  float* const w = smem;
+  float* const dh = w + h * c.wp;
+  float* const dc = dh + pad4(h * R);
+  float* const dg = dc + pad4(h * R);
+  // two operand buffers; step s uses buffer s & 1. cStar covers the cells
+  // past z_tot (a cell boundary)
+  float* const buf = dg + 4 * h * R;
+  const int step_floats = kCellOpWidth * h * R;
+  const bool with_dcs = c.k0 >= a.z_tot;
 
-  // the carries: dh = dh_last, dc = 0, dmem = dmem_last
-  load_rows<R>(sm.dh, a.dhlast, 0, a.n, H, 0, H, row0, tid, nthr);
-  load_rows<R>(sm.dmem, a.dmemlast, 0, a.n, mem, 0, mem, row0, tid, nthr);
-  for (int i = tid; i < H * R; i += nthr) sm.dc[i] = 0.0f;
+  load_cell_weights(w, a.wh, a.H, c, tid, nthr);
+  load_rows_async<R>(dh, a.dhlast, 0, a.n, a.H, c.k0, h, row0, tid, nthr);
+  for (int i = tid; i < h * R; i += nthr) dc[i] = 0.0f;
+  if (!P)
+    load_cell_step<R>(a, a.t - 1,
+                      cell_step(buf + ((a.t - 1) & 1) * step_floats, h, R,
+                                with_dcs), c, row0, tid, nthr);
+  cp_async_wait_all();
   __syncthreads();
 
-  // two-step: steps pair up as (s, s - 1) from t - 1 down (t even); at
-  // the pair's head both steps' operands are loaded, the second set into
-  // `extra`, and the barrier after phase (1) orders both before any read.
-  // One copy of the step body serves both steps of the pair.
-  // recompute-att: r1 is staged in `extra`.
-  Operands op2;
-  op2.hp = extra;
-  op2.cstar = op2.hp + H * R;
-  op2.att = op2.cstar + M2 * R;
-  float* const r1 = V == kRecomputeAtt ? extra : nullptr;
   for (int s = a.t - 1; s >= 0; --s) {
-    const bool second = V == kTwoStep && ((a.t - 1 - s) & 1);
-    if (!second) {
-      load_operands<R>(a, s, op, r1, row0, tid, nthr);
-      if (V == kTwoStep)
-        load_operands<R>(a, s - 1, op2, nullptr, row0, tid, nthr);
+    const CellStep op = cell_step(buf + (s & 1) * step_floats, h, R,
+                                  with_dcs);
+    const CellStep prev = cell_step(buf + ((s + 1) & 1) * step_floats, h, R,
+                                    with_dcs);
+    if (P) {
+      if (((a.t - 1 - s) & 1) == 0) {
+        load_cell_step<R>(a, s, op, c, row0, tid, nthr);
+        if (s > 0) load_cell_step<R>(a, s - 1, prev, c, row0, tid, nthr);
+        cp_async_wait_all();
+        __syncthreads();
+      }
+    } else if (s > 0) {
+      load_cell_step<R>(a, s - 1, prev, c, row0, tid, nthr);
     }
-    if (V == kRecomputeAtt)
-      recompute_att<R>(a, op, r1, tid, nthr, lane, warp, nwarp);
-    // the set picked pointer by pointer: a struct picked whole would be
-    // addressed through the stack
-    Operands cur;
-    cur.hp = second ? op2.hp : op.hp;
-    cur.cstar = second ? op2.cstar : op.cstar;
-    cur.att = second ? op2.att : op.att;
-    reverse_step<R>(a, s, cur, sm, row0, tid, nthr, lane, warp, nwarp);
+    cell_gate_bwd<R>(op, dh, dc, dg, a.dxp, s, a.n, a.H, c, row0, tid,
+                     nthr);
+    if (s == 0) break;  // no dh into the zero state before step 0
+    __syncthreads();
+    cell_dh<R>(w, dg, nullptr, dh, c, lane, warp, nwarp);
+    cp_async_wait_all();
+    __syncthreads();
   }
 }
 
-template <int R, int V>
-cudaError_t launch_bwd(const BwdArgs& a, int threads, cudaStream_t stream) {
-  const int M2 = 2 * (a.H - a.z_tot);
-  size_t floats = (size_t)R * (7 * a.H + 5 * a.mem + 5 * M2 + a.s1 + a.s2 +
-                               a.s3 + a.s4);
-  if (V == kRecomputeAtt) floats += (size_t)R * a.s1;
-  if (V == kTwoStep) floats += (size_t)R * (a.H + 2 * M2);
-  const size_t bytes = floats * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      mfm_encode_bwd_kernel<R, V>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.n + R - 1) / R);
-  mfm_encode_bwd_kernel<R, V><<<grid, threads, bytes, stream>>>(a);
-  return cudaGetLastError();
-}
+// ------------------------------------------------------------ launches
 
-template <int V>
-cudaError_t launch_bwd_rows(const BwdArgs& a, int rows, int threads,
-                            cudaStream_t stream) {
+Kernel gates_for(int rows) {
   switch (rows) {
-    case 1: return launch_bwd<1, V>(a, threads, stream);
-    case 2: return launch_bwd<2, V>(a, threads, stream);
-    case 4: return launch_bwd<4, V>(a, threads, stream);
-    case 8: return launch_bwd<8, V>(a, threads, stream);
-    default: return cudaErrorInvalidValue;
+    case 1: return gates_kernel<1>;
+    case 2: return gates_kernel<2>;
+    case 4: return gates_kernel<4>;
+    case 8: return gates_kernel<8>;
+    default: return nullptr;
   }
+}
+
+template <bool P>
+Kernel mem_chain_rows(int rows) {
+  switch (rows) {
+    case 1: return mem_chain_kernel<1, P>;
+    case 2: return mem_chain_kernel<2, P>;
+    case 4: return mem_chain_kernel<4, P>;
+    case 8: return mem_chain_kernel<8, P>;
+    default: return nullptr;
+  }
+}
+
+Kernel recompute_att_for(int rows) {
+  switch (rows) {
+    case 1: return recompute_att_kernel<1>;
+    case 2: return recompute_att_kernel<2>;
+    case 4: return recompute_att_kernel<4>;
+    case 8: return recompute_att_kernel<8>;
+    default: return nullptr;
+  }
+}
+
+const Kernel kProductKernels[4] = {product_kernel<kDu2>,
+                                   product_kernel<kDattended>,
+                                   product_kernel<kDu1>,
+                                   product_kernel<kDcstarAdd>};
+
+template <bool P>
+Kernel lstm_chains_rows(int rows) {
+  switch (rows) {
+    case 1: return lstm_chains_kernel<1, P>;
+    case 2: return lstm_chains_kernel<2, P>;
+    case 4: return lstm_chains_kernel<4, P>;
+    case 8: return lstm_chains_kernel<8, P>;
+    default: return nullptr;
+  }
+}
+
+// One pass's launch: its kernel, grid, block and shared memory, and its
+// cluster size (0: launched without a cluster).
+struct Pass {
+  Kernel kernel;
+  dim3 grid;
+  int threads;
+  size_t bytes;
+  int cluster;
+};
+
+cudaLaunchConfig_t config(const Pass& p, cudaLaunchAttribute* attr,
+                          cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = p.grid;
+  cfg.blockDim = dim3(p.threads);
+  cfg.dynamicSmemBytes = p.bytes;
+  cfg.stream = stream;
+  if (p.cluster > 0) {
+    attr->id = cudaLaunchAttributeClusterDimension;
+    attr->val.clusterDim.x = p.cluster;
+    attr->val.clusterDim.y = 1;
+    attr->val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  return cfg;
+}
+
+// The fit gate: the pass's shared memory and cluster size against the
+// card's; sets the kernel's attributes. Fills need = {pass, bytes,
+// cluster} and fails if it does not fit.
+cudaError_t prepare(const Pass& p, int index, int* need,
+                    cudaStream_t stream) {
+  if (p.kernel == nullptr) return cudaErrorInvalidValue;
+  const bool too_big = p.bytes > (size_t)kMaxSmemBytes ||
+                       p.cluster > kMaxCluster;
+  cudaError_t err = cudaSuccess;
+  if (!too_big) {
+    err = cudaFuncSetAttribute(p.kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)p.bytes);
+    if (err == cudaSuccess && p.cluster > 8)
+      err = cudaFuncSetAttribute(
+          p.kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  int fits = too_big ? 0 : 1;
+  if (!too_big && p.cluster > 1) {
+    cudaLaunchAttribute attr;
+    const cudaLaunchConfig_t cfg = config(p, &attr, stream);
+    err = cudaOccupancyMaxActiveClusters(&fits, p.kernel, &cfg);
+    if (err != cudaSuccess) return err;
+  }
+  if (fits > 0) return cudaSuccess;
+  need[0] = index;
+  need[1] = (int)p.bytes;
+  need[2] = p.cluster;
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch(const Pass& p, const BwdArgs& a, cudaStream_t stream) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = config(p, &attr, stream);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, p.kernel, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // ------------------------------------------------------------- kernel (b)
 
-constexpr int kTile = 32;        // output tile: kTile x kTile
 constexpr int kDwThreads = 256;  // each thread kTile * kTile / 256 outputs
 constexpr int kProducts = 14;
 
@@ -719,13 +1043,22 @@ __global__ void __launch_bounds__(kDwThreads)
 }  // namespace
 }  // namespace ftt
 
-// Kernel (a). All arrays float32 and contiguous, shaped as in BwdArgs;
-// res_ptrs, res_strides and res_cols (host memory) are the
+// The reverse pass. All arrays float32 and contiguous, shaped as in
+// BwdArgs; res_ptrs, res_strides and res_cols (host memory) are the
 // residual-layout table's ten pointers, row strides and column offsets
 // (mfm_res.cuh), in the _RES_NAMES order. cell_dims (host memory) lists
-// the n_cells fused hidden widths, summing to H. variant is 0 (stream),
-// 1 (recompute-att) or 2 (two-step, t even); rows is the batch rows per
-// block (1, 2, 4 or 8), threads a multiple of 32 up to 512.
+// the n_cells fused hidden widths, summing to H, z_tot one of their
+// boundaries. gates (t, n, 4H), dcstar and datt (t, n, M2) are scratch,
+// and att_scratch (t, n, M2) too for the recompute-att variant (else
+// unused). variant is 0 (stream), 1 (recompute-att) or 2 (two-step, t
+// even). mem_rows and cluster: the memory chain's batch rows per tile (1,
+// 2, 4 or 8) and blocks per cluster (1 to 16); cell_rows: the LSTM chains'
+// batch rows per block; tile_rows: the flat rows per block of the gates
+// pass and of the recompute of att; threads a multiple of 32 up to 512. passes: a mask of the
+// passes to launch (bit k - 1 for pass (k)), 15 for the whole reverse
+// pass. need (host memory, three ints) is left zero, or, when a pass's
+// shared memory or cluster does not fit the card, set to {pass, bytes,
+// cluster} before anything is launched.
 extern "C" int mfm_encode_bwd(
     const float* xp, const float* allh, const float* allc,
     const float* allmem, void* const* res_ptrs, const int* res_strides,
@@ -733,9 +1066,11 @@ extern "C" int mfm_encode_bwd(
     const float* wh, const float* a1w1, const float* a1w2,
     const float* a1b2, const float* a2w1, const float* a2w2,
     const float* gw1, const float* g1w2, const float* g2w2, float* dxp,
-    float* delta, int t, int n, int H, int z_tot, int mem, int s1, int s2,
-    int s3, int s4, int n_cells, const int* cell_dims, int variant,
-    int rows, int threads, void* stream) {
+    float* delta, float* gates, float* dcstar, float* datt,
+    float* att_scratch, int t, int n, int H, int z_tot, int mem, int s1,
+    int s2, int s3, int s4, int n_cells, const int* cell_dims, int variant,
+    int mem_rows, int cluster, int cell_rows, int tile_rows, int threads,
+    int passes, int* need, void* stream) {
   using namespace ftt;
   BwdArgs a;
   a.xp = xp;
@@ -755,6 +1090,8 @@ extern "C" int mfm_encode_bwd(
   a.g2w2 = g2w2;
   a.dxp = dxp;
   a.delta = delta;
+  a.gates = gates;
+  a.dcstar = dcstar;
   a.t = t;
   a.n = n;
   a.H = H;
@@ -764,26 +1101,77 @@ extern "C" int mfm_encode_bwd(
   a.s2 = s2;
   a.s3 = s3;
   a.s4 = s4;
+  a.m2 = 2 * (H - z_tot);
+  a.dl = delta_layout(H, z_tot, mem, s1, s2, s3, s4);
+  need[0] = need[1] = need[2] = 0;
   int widths[kResFields];
   res_widths(H, z_tot, mem, s1, s2, s3, s4, widths);
-  if (!make_cells(n_cells, cell_dims, H, &a.cells) || t < 1 || n < 1 ||
-      z_tot < 0 || z_tot >= H || threads < 32 || threads > kMaxThreads ||
-      threads % 32 != 0 || res_ptrs == nullptr ||
+  bool boundary = false;
+  if (make_cells(n_cells, cell_dims, H, &a.cells))
+    for (int m = 1; m < a.cells.count; ++m)
+      boundary = boundary || a.cells.off[m] == z_tot;
+  if (!boundary || t < 1 || n < 1 || threads < 32 ||
+      threads > kMaxThreads || threads % 32 != 0 || res_ptrs == nullptr ||
       !make_res_table(res_ptrs, res_strides, res_cols, widths, &a.res) ||
-      (variant == kTwoStep && t % 2 != 0))
+      variant < kStream || variant > kTwoStep ||
+      (variant == kTwoStep && t % 2 != 0) || cluster < 1 ||
+      (variant == kRecomputeAtt && att_scratch == nullptr) || passes < 1 ||
+      passes > 15)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (variant) {
-    case kStream: return (int)launch_bwd_rows<kStream>(a, rows, threads, st);
-    case kRecomputeAtt:
-      return (int)launch_bwd_rows<kRecomputeAtt>(a, rows, threads, st);
-    case kTwoStep:
-      return (int)launch_bwd_rows<kTwoStep>(a, rows, threads, st);
-    default: return (int)cudaErrorInvalidValue;
+  const bool pairs = variant == kTwoStep;
+  const bool recompute = variant == kRecomputeAtt;
+  a.datt = datt;
+  a.att = a.res.f[kAtt];
+  if (recompute) a.att = ResEntry{att_scratch, a.m2, 0};
+  const int s34 = s3 + s4, flat = t * n;
+  const int tiles_m = (flat + kTile - 1) / kTile;
+  // the launches in order, each with its pass (1 to 4)
+  Pass p[10];
+  int pass_of[10], count = 0;
+  auto add = [&](int pass, const Pass& launch) {
+    pass_of[count] = pass;
+    p[count++] = launch;
+  };
+  add(1, {gates_for(tile_rows), dim3((flat + tile_rows - 1) / tile_rows),
+          threads, (size_t)tile_rows * H * sizeof(float), 0});
+  add(2, {pairs ? mem_chain_rows<true>(mem_rows)
+                : mem_chain_rows<false>(mem_rows),
+          dim3(((n + mem_rows - 1) / mem_rows) * cluster), threads,
+          mem_chain_floats(mem, s34, cluster, mem_rows, threads) *
+              sizeof(float),
+          cluster});
+  if (recompute)
+    add(3, {recompute_att_for(tile_rows),
+            dim3((flat + tile_rows - 1) / tile_rows), threads,
+            (size_t)tile_rows * (s1 + a.m2) * sizeof(float), 0});
+  for (int id = kDu2; id <= kDcstarAdd; ++id) {
+    const ProductSpec spec = product_spec(a, id);
+    add(3, {kProductKernels[id],
+            dim3(tiles_m * ((spec.N + kTile - 1) / kTile)), kProductThreads,
+            product_floats(spec) * sizeof(float), 0});
+    if (id == kDattended)  // the softmax between dattended and du1
+      add(3, {softmax_bwd_kernel, dim3((flat + threads / 32 - 1) /
+                                       (threads / 32)), threads, 0, 0});
   }
+  add(4, {pairs ? lstm_chains_rows<true>(cell_rows)
+                : lstm_chains_rows<false>(cell_rows),
+          dim3((n + cell_rows - 1) / cell_rows, a.cells.count), threads,
+          cell_chain_bytes(a.cells, cell_rows, threads, kCellOpWidth), 0});
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  for (int k = 0; k < count; ++k) {
+    cudaError_t err = prepare(p[k], pass_of[k], need, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  for (int k = 0; k < count; ++k) {
+    if (!(passes & (1 << (pass_of[k] - 1)))) continue;
+    cudaError_t err = launch(p[k], a, st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }
 
-// Kernel (b). The residuals through the layout table, as for kernel (a).
+// Kernel (b). The residuals through the layout table, as for the reverse
+// pass.
 // The gradients, each (P, Q) row-major, in the order of the JAX package's
 // _W_NAMES without wh: a1w1, a1b1, a1w2, a1b2, a2w1, a2b1, a2w2, a2b2,
 // gw1, gb1, g1w2, g1b2, g2w2, g2b2.

@@ -37,7 +37,8 @@ MULTI_LAUNCHES = 0
 MULTI_BWD_LAUNCHES = 0
 # batch rows per block and threads per block: the fastest pairs measured
 # by perf_probe.py (PERF.md), at the serving shapes (n = 256) and, for the
-# backward, the training batch (n = 32: 32 blocks)
+# backward, the training batch (n = 32; one block per cell and BWD_ROWS
+# rows)
 ROWS = 4
 THREADS = 160
 BWD_ROWS = 1
@@ -49,6 +50,8 @@ MULTI_ROWS = 4
 MULTI_THREADS = 256
 MULTI_BWD_ROWS = 1
 MULTI_BWD_THREADS = 512
+# the shared memory a block may use on an H100 (csrc/lstm_common.cuh)
+MAX_SMEM_BYTES = 232448
 
 
 def _check(h0, c0, wsum, b, t, h_dims):
@@ -183,18 +186,24 @@ def _launch_bwd(wsum, gates, allc, dallh, h_dims):
         "decoder_lstm_bwd",
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-           ctypes.c_void_p])
+           ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     dgates = torch.empty((t - 1, n, 4 * H), dtype=torch.float32,
                          device=allc.device)
     dh0 = torch.empty((n, H), dtype=torch.float32, device=allc.device)
     dc0 = torch.empty((n, H), dtype=torch.float32, device=allc.device)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
+    need = (ctypes.c_int * 2)()
     with torch.cuda.device(allc.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(gates.data_ptr(), allc.data_ptr(), dallh.data_ptr(),
                  wsum.data_ptr(), dgates.data_ptr(), dh0.data_ptr(),
                  dc0.data_ptr(), t, n, H, len(h_dims), dims, BWD_ROWS,
-                 BWD_THREADS, stream)
+                 BWD_THREADS, need, stream)
+    if need[1]:
+        raise ValueError(
+            f"decoder_lstm_bwd needs {need[1]} bytes of shared memory a "
+            f"block, past the card's {MAX_SMEM_BYTES}: cells "
+            f"{list(h_dims)} (largest {max(h_dims)}), {BWD_ROWS} rows")
     _build.check(err, "decoder_lstm_bwd")
     BWD_LAUNCHES += 1
     return dgates, dh0, dc0
@@ -222,6 +231,27 @@ def decoder_lstm_bwd_plain(wsum, gates, allc, dallh):
         dh = dg @ wsum.T + dallh[i - 1]
         dc = dc * sf
     return torch.stack(dgates), dh, dc
+
+
+def decoder_lstm_bwd_cells_plain(wsum, gates, allc, dallh, h_dims):
+    """``decoder_lstm_bwd_plain`` as the kernel splits it: one independent
+    chain per cell of ``h_dims``, each against its own diagonal blocks of
+    ``wsum``."""
+    t, n, H = allc.shape
+    dgates = torch.empty((t - 1, n, 4 * H), dtype=allc.dtype,
+                         device=allc.device)
+    dh0, dc0 = torch.empty_like(allc[0]), torch.empty_like(allc[0])
+    o = 0
+    for h in h_dims:
+        cols = torch.cat([torch.arange(q * H + o, q * H + o + h)
+                          for q in range(4)]).to(allc.device)
+        cell = slice(o, o + h)
+        dg, dh0[:, cell], dc0[:, cell] = decoder_lstm_bwd_plain(
+            wsum[cell][:, cols].contiguous(), gates[..., cols],
+            allc[..., cell], dallh[..., cell])
+        dgates[..., cols] = dg
+        o += h
+    return dgates, dh0, dc0
 
 
 class DecoderLSTM(torch.autograd.Function):

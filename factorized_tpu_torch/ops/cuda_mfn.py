@@ -10,12 +10,17 @@ Three kernels, each with a launch counter per variant:
   the training path's) or as ten ``(t, n, width)`` tensors (layout
   ``"split"``, ``SPLIT_LAUNCHES``). The kernels read and write the fields
   through a residual-layout table (``csrc/mfm_res.cuh``).
-- ``csrc/mfm_encode_bwd.cu::mfm_encode_bwd``: the reverse-time pass,
+- ``csrc/mfm_encode_bwd.cu::mfm_encode_bwd``: the reverse pass,
   writing ``dxp`` (= dgates) and each step's deltas in the
-  ``DELTA_NAMES`` layout. Variants: ``"stream"`` (the training path's,
-  ``BWD_LAUNCHES``), ``"recompute_att"`` (att recomputed from r1 on the
-  chain, ``RECOMPUTE_LAUNCHES``) and ``"two_step"`` (two reverse steps
-  per iteration, t even, ``TWO_STEP_LAUNCHES``); the last two are the
+  ``DELTA_NAMES`` layout, as four kernels launched in order
+  (``BWD_PASSES``): the gates for all steps at once, the memory carry's
+  chain (a thread-block cluster per row tile), the attention branch for
+  all steps at once, and one chain per LSTM cell (the cell's weights in
+  shared memory). ``mfm_encode_bwd_passes_plain`` is the same data flow
+  in plain PyTorch. Variants: ``"stream"`` (the training path's,
+  ``BWD_LAUNCHES``), ``"recompute_att"`` (att recomputed from r1,
+  ``RECOMPUTE_LAUNCHES``) and ``"two_step"`` (the chains take reverse
+  steps in pairs, t even, ``TWO_STEP_LAUNCHES``); the last two are the
   probe variants of ``factorized_tpu_torch/probes/``.
 - ``csrc/mfm_encode_bwd.cu::mfm_encode_dw`` (``DW_LAUNCHES``): the 14
   non-``wh`` weight and bias gradients, ``A^T delta`` summed over the
@@ -72,13 +77,27 @@ TWO_STEP_LAUNCHES = 0   # mfm_encode_bwd, two_step
 DW_LAUNCHES = 0         # mfm_encode_dw
 # batch rows per block and threads per block: the fastest pairs measured
 # by perf_probe.py (PERF.md), ROWS at the serving shapes (n = 256: 64
-# blocks), TRAIN_ROWS and BWD_ROWS at the training batch (n = 32: 16 and
-# 32 blocks)
+# blocks), TRAIN_ROWS at the training batch (n = 32: 16 blocks)
 ROWS = 4
 THREADS = 512
 TRAIN_ROWS = 2
-BWD_ROWS = 1
+# the reverse pass's knobs, at the training batch (perf_probe.py train):
+# the memory chain's batch rows per tile and blocks per cluster, the LSTM
+# chains' batch rows per block, the flat (step, row) rows per block of the
+# gates pass (and of att's recompute), and the threads per block of the
+# chains and of the gates pass (the attention products run 64-thread
+# tiles)
+BWD_MEM_ROWS = 1
+BWD_CLUSTER = 1
+BWD_CELL_ROWS = 2
+BWD_TILE_ROWS = 4
 BWD_THREADS = 512
+# the reverse pass's kernels, in launch order; bit k of a pass mask
+# launches BWD_PASSES[k]
+BWD_PASSES = ("gates", "memory_chain", "attention", "lstm_chains")
+ALL_PASSES = (1 << len(BWD_PASSES)) - 1
+# the shared memory a block may use on an H100 (csrc/lstm_common.cuh)
+MAX_SMEM_BYTES = 232448
 
 
 def sizes(weights):
@@ -399,21 +418,32 @@ def mfm_encode_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
 
 
 def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
-                z_tot, h_dims, variant="stream"):
-    """The reverse-time kernel: (dxp, deltas (t, n, D))."""
+                z_tot, h_dims, variant="stream", passes=ALL_PASSES):
+    """The reverse pass's kernels: (dxp, deltas (t, n, D)). ``passes``
+    masks the kernels launched (``BWD_PASSES``; all of them by default:
+    the others read what an earlier call left in scratch, so a pass can be
+    timed alone). Raises ``ValueError`` before any launch when a pass's
+    shared memory or cluster does not fit the card."""
     global BWD_LAUNCHES, RECOMPUTE_LAUNCHES, TWO_STEP_LAUNCHES
     t, n, H4 = xp.shape
+    H = H4 // 4
     s1, s2, s3, s4, mem = sizes(weights)
+    m2 = 2 * (H - z_tot)
     fn = _build.kernel(
         "mfm_encode_bwd",
-        [ctypes.c_void_p] * 4 + _TABLE + [ctypes.c_void_p] * 13
-        + [ctypes.c_int] * 10
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-           ctypes.c_int, ctypes.c_void_p])
-    dxp = torch.empty_like(xp)
-    deltas = torch.empty((t, n, delta_layout(weights)[1]),
-                         dtype=torch.float32, device=xp.device)
+        [ctypes.c_void_p] * 4 + _TABLE + [ctypes.c_void_p] * 17
+        + [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)]
+        + [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+
+    def empty(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=xp.device)
+
+    dxp, deltas = empty(t, n, H4), empty(t, n, delta_layout(weights)[1])
+    # scratch: the gates, dcstar, datt, and att when it is recomputed
+    gates, dcstar, datt = empty(t, n, H4), empty(t, n, m2), empty(t, n, m2)
+    att = empty(t, n, m2) if variant == "recompute_att" else None
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
+    need = (ctypes.c_int * 3)()
     used = ("wh", "a1w1", "a1w2", "a1b2", "a2w1", "a2w2", "gw1", "g1w2",
             "g2w2")
     with torch.cuda.device(xp.device):
@@ -422,10 +452,20 @@ def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
                  allmem.data_ptr(), *_res_table(res, weights),
                  dhlast.data_ptr(), dmemlast.data_ptr(),
                  *[weights[k].data_ptr() for k in used],
-                 dxp.data_ptr(), deltas.data_ptr(),
-                 t, n, H4 // 4, z_tot, mem, s1, s2, s3, s4,
-                 len(h_dims), dims, BWD_VARIANTS.index(variant), BWD_ROWS,
-                 BWD_THREADS, stream)
+                 dxp.data_ptr(), deltas.data_ptr(), gates.data_ptr(),
+                 dcstar.data_ptr(), datt.data_ptr(),
+                 None if att is None else att.data_ptr(),
+                 t, n, H, z_tot, mem, s1, s2, s3, s4,
+                 len(h_dims), dims, BWD_VARIANTS.index(variant),
+                 BWD_MEM_ROWS, BWD_CLUSTER, BWD_CELL_ROWS, BWD_TILE_ROWS,
+                 BWD_THREADS, passes, need, stream)
+    if need[1]:
+        raise ValueError(
+            f"mfm_encode_bwd: the {BWD_PASSES[need[0] - 1]} pass needs "
+            f"{need[1]} bytes of shared memory a block at a cluster of "
+            f"{need[2]}, past the card's {MAX_SMEM_BYTES} or its cluster "
+            f"limit: cells {list(h_dims)} (largest {max(h_dims)}), "
+            f"H {H}, mem {mem}, s3 + s4 {s3 + s4}, M2 {m2}")
     _build.check(err, f"mfm_encode_bwd ({variant})")
     if variant == "stream":
         BWD_LAUNCHES += 1
@@ -548,6 +588,85 @@ def mfm_encode_bwd_two_step_plain(xp, weights, allh, allc, allmem, res,
             f"the two-step backward needs an even t, got {xp.shape[0]}")
     return mfm_encode_bwd_steps_plain(xp, weights, allh, allc, allmem, res,
                                       dhlast, dmemlast, z_tot)
+
+
+def mfm_encode_bwd_passes_plain(xp, weights, allh, allc, allmem, res,
+                                dhlast, dmemlast, z_tot: int, h_dims,
+                                recompute_att: bool = False):
+    """The reverse pass as the kernel's four passes split it, in plain
+    PyTorch: (dxp, deltas) as ``mfm_encode_bwd_steps_plain`` returns them.
+    (1) the gates of every step at once; (2) the memory carry's chain,
+    which nothing else feeds; (3) the attention branch of every step at
+    once; (4) one chain per LSTM cell, taking only dcstar from the rest."""
+    w = weights
+    t, n, H4 = xp.shape
+    H = H4 // 4
+    s1, s2, s3, s4, mem = sizes(w)
+    m2 = w["a1w1"].shape[0]
+    M = m2 // 2
+    f = res_fields(res, w)
+
+    def before(a):  # each step's previous state, zeros before step 0
+        return torch.cat([torch.zeros_like(a[:1]), a[:-1]])
+
+    # (1) the gates, no carry
+    gates = xp + before(allh) @ w["wh"]
+    # (2) the memory chain: dmem_prev = dmem * g1 + du3 @ gw1[M2:]^T
+    memp = before(allmem)
+    chain = {k: [None] * t for k in ("dq1", "dq2", "dch", "du3")}
+    dmem = dmemlast
+    for i in reversed(range(t)):
+        g1, g2, chat = f["g1"][i], f["g2"][i], f["chat"][i]
+        dq1 = dmem * memp[i] * g1 * (1.0 - g1)
+        dq2 = dmem * chat * g2 * (1.0 - g2)
+        chain["dch"][i] = dmem * g2 * (1.0 - chat * chat)
+        du3 = torch.cat([dq1 @ w["g1w2"].T, dq2 @ w["g2w2"].T],
+                        dim=1) * f["kg3"][i]
+        chain["dq1"][i], chain["dq2"][i], chain["du3"][i] = dq1, dq2, du3
+        dmem = dmem * g1 + du3 @ w["gw1"][m2:].T
+    dq1, dq2, dch, du3 = (torch.stack(chain[k])
+                          for k in ("dq1", "dq2", "dch", "du3"))
+    # (3) the attention branch, no carry
+    cp = before(allc)
+    cstar = torch.cat([cp[..., z_tot:], allc[..., z_tot:]], dim=-1)
+    att = (torch.softmax(f["r1"] @ w["a1w2"] + w["a1b2"], dim=-1)
+           if recompute_att else f["att"])
+    du2 = (dch @ w["a2w2"].T) * f["kg2"]
+    dattended = du3 @ w["gw1"][:m2].T + du2 @ w["a2w1"].T
+    datt = dattended * cstar
+    dlogits = att * (datt - torch.sum(datt * att, dim=-1, keepdim=True))
+    du1 = (dlogits @ w["a1w2"].T) * f["kg1"]
+    dcstar = dattended * att + du1 @ w["a1w1"].T
+    # (4) the LSTM chains, one per cell
+    dxp = torch.empty_like(xp)
+    o = 0
+    for h in h_dims:
+        cols = torch.cat([torch.arange(q * H + o, q * H + o + h)
+                          for q in range(4)]).to(xp.device)
+        wcell = w["wh"][o:o + h][:, cols]
+        if o >= z_tot:
+            dcs_p = dcstar[..., o - z_tot:o - z_tot + h]
+            dcs_i = dcstar[..., M + o - z_tot:M + o - z_tot + h]
+        else:
+            dcs_p = dcs_i = torch.zeros_like(allc[..., o:o + h])
+        dh, dc = dhlast[:, o:o + h], torch.zeros_like(dhlast[:, o:o + h])
+        for i in reversed(range(t)):
+            ig, fg, gg, og = gates[i][:, cols].chunk(4, dim=-1)
+            si, sf, so = (torch.sigmoid(ig), torch.sigmoid(fg),
+                          torch.sigmoid(og))
+            tg, tc = torch.tanh(gg), torch.tanh(allc[i, :, o:o + h])
+            dc_full = dc + dcs_i[i] + dh * so * (1.0 - tc * tc)
+            dg = torch.cat([
+                dc_full * tg * si * (1.0 - si),
+                dc_full * cp[i, :, o:o + h] * sf * (1.0 - sf),
+                dc_full * si * (1.0 - tg * tg),
+                dh * tc * so * (1.0 - so),
+            ], dim=-1)
+            dxp[i][:, cols] = dg
+            dh = dg @ wcell.T
+            dc = dc_full * sf + dcs_p[i]
+        o += h
+    return dxp, torch.cat([dq1, dq2, du3, dch, du2, dlogits, du1], dim=-1)
 
 
 def dw_operands(allc, allmem, res, weights, z_tot: int):

@@ -2,28 +2,41 @@
 
 Run from the repository root on the card:
 ``python -m factorized_tpu_torch.perf_probe [serve] [train] [multi]
-[profile]`` (all four parts when none is named). Prints JSON lines:
+[profile] [times]`` (the first four parts when none is named). Prints
+JSON lines:
 
 - ``tile``: each kernel's mean time (CUDA events, 50 launches after
   warm-up) for each batch-row tile and block size the launchers take, the
   forward kernels at the serving shapes (n = 256, t = 20,
   ``best_acc_mosi_config``) and the training kernels at the training
-  shapes (n = 32); part ``multi`` does the same for the fused
+  shapes (n = 32): the encode backward's knobs (the memory chain's rows
+  per tile and cluster size, the LSTM chains' rows, the batched passes'
+  rows, threads) each on the passes they move, the decoder backward's
+  rows and threads; a setting whose shared memory or cluster does not fit
+  is reported as refused. Part ``multi`` does the same for the fused
   encoder-cell kernels at the widths of ``kl_ef`` and ``missing``. So the
   defaults in ``ops/cuda_mfn.py`` and ``ops/cuda_lstm.py`` are chosen
   from a measurement;
 - ``profile``: ``torch.profiler`` over 20 padded 256-row ``predict``
   calls: wall time, the device time summed over kernels, the share of
   the wall in which the device was idle, and the largest kernels;
+- ``kernel_times`` (part ``times``): each of the main path's kernels at
+  its default knobs, by CUDA events over back-to-back calls and by device
+  time (the calls queued behind a sleeping kernel);
+  it calls only what every build of the port has, so this module run
+  against an earlier build's package (that build first on ``sys.path``)
+  gives the A/B;
 - ``card``: the ``nvidia-smi`` name and power limit.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -52,23 +65,55 @@ def _ms(fn, reps=50):
     return start.elapsed_time(end) / reps
 
 
-def _sweep(name, module, rows_attr, threads_attr, rows_list, block_sizes,
-           n, call, **tags):
-    """Time ``call`` for each (rows, threads) set on ``module``."""
-    default = (getattr(module, rows_attr), getattr(module, threads_attr))
+def _device_ms(fn, reps=50):
+    """Mean device milliseconds of one fn() call: CUDA events around reps
+    calls queued behind a kernel that sleeps (about 0.1 s) until all of
+    them are enqueued, so the card runs them back to back. For wrappers
+    whose host time per call passes their kernels' device time, where
+    ``_ms`` would time the host."""
+    for _ in range(3):
+        fn()
+    slept, start, end = (torch.cuda.Event(enable_timing=True)
+                         for _ in range(3))
+    torch.cuda.synchronize()
+    slept.record()
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    if not slept.elapsed_time(start) > enqueue_ms:
+        raise RuntimeError(f"the card woke before {reps} calls were "
+                           f"enqueued ({enqueue_ms} ms)")
+    return start.elapsed_time(end) / reps
+
+
+def _sweep(name, module, knobs, n, call, timer=_ms, **tags):
+    """Time ``call`` for every combination of ``knobs`` ({attribute:
+    values}) set on ``module``; a combination the card refuses (its
+    shared memory or cluster does not fit) is reported as refused.
+    ``timer`` is ``_ms`` (CUDA events) or ``_device_ms``."""
+    default = {k: getattr(module, k) for k in knobs}
     try:
-        for rows in rows_list:
-            for threads in block_sizes:
-                setattr(module, rows_attr, rows)
-                setattr(module, threads_attr, threads)
-                print(json.dumps({
-                    "tile": name, **tags, "n": n, "rows": rows,
-                    "threads": threads, "blocks": -(-n // rows),
-                    "ms": _ms(call),
-                    "default": (rows, threads) == default}), flush=True)
+        for combo in itertools.product(*knobs.values()):
+            setting = dict(zip(knobs, combo))
+            for k, v in setting.items():
+                setattr(module, k, v)
+            line = {"tile": name, **tags, "n": n,
+                    **{k.lower(): v for k, v in setting.items()},
+                    "default": setting == default,
+                    "timer": timer.__name__.strip("_")}
+            try:
+                line["ms"] = timer(call)
+            except ValueError as e:
+                line["refused"] = str(e)
+            print(json.dumps(line), flush=True)
     finally:
-        setattr(module, rows_attr, default[0])
-        setattr(module, threads_attr, default[1])
+        for k, v in default.items():
+            setattr(module, k, v)
 
 
 def sweep(cfg, params, dev):
@@ -78,17 +123,17 @@ def sweep(cfg, params, dev):
         mfm.kernel_operands(params, x, cfg)
     t = cfg.seqlength
     # block sizes up to the launchers' limit of 512 threads
-    _sweep("mfm_encode_fwd", cuda_mfn, "ROWS", "THREADS", (1, 2, 4, 8, 16),
-           (128, 256, 512), N,
+    _sweep("mfm_encode_fwd", cuda_mfn,
+           {"ROWS": (1, 2, 4, 8, 16), "THREADS": (128, 256, 512)}, N,
            lambda: cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims))
-    _sweep("decoder_lstm_fwd", cuda_lstm, "ROWS", "THREADS",
-           (1, 2, 4, 8, 16), (64, 128, 160, 256, 512), N,
-           lambda: cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b, t, dec_dims))
+    _sweep("decoder_lstm_fwd", cuda_lstm,
+           {"ROWS": (1, 2, 4, 8, 16), "THREADS": (64, 128, 160, 256, 512)},
+           N, lambda: cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b, t,
+                                                 dec_dims))
 
 
 def train_sweep(cfg, params, dev):
-    """The training kernels at n = 32 (the encode backward's shared memory
-    allows at most 8 rows)."""
+    """The training kernels at n = 32."""
     n, t = N_TRAIN, cfg.seqlength
     g = torch.Generator(device=dev).manual_seed(2)
     x = torch.randn((t, n, cfg.d_total), generator=g, device=dev)
@@ -102,18 +147,35 @@ def train_sweep(cfg, params, dev):
                        device=dev)
     allh, allc, gates = cuda_lstm.decoder_lstm_plain(h0, c0, wsum, b, t)
     dallh = torch.randn(allh.shape, generator=g, device=dev)
-    _sweep("mfm_encode_fwd_train", cuda_mfn, "TRAIN_ROWS", "THREADS",
-           (1, 2, 4, 8), (128, 256, 512), n,
+    _sweep("mfm_encode_fwd_train", cuda_mfn,
+           {"TRAIN_ROWS": (1, 2, 4, 8), "THREADS": (128, 256, 512)}, n,
            lambda: cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot,
                                            h_dims))
-    _sweep("mfm_encode_bwd", cuda_mfn, "BWD_ROWS", "BWD_THREADS",
-           (1, 2, 4, 8), (128, 256, 512), n,
-           lambda: cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem, z_tot,
-                                        h_dims))
-    _sweep("decoder_lstm_bwd", cuda_lstm, "BWD_ROWS", "BWD_THREADS",
-           (1, 2, 4, 8, 16), (64, 128, 160, 256, 512), n,
-           lambda: cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh,
-                                              dec_dims))
+
+    def encode_bwd(*names):
+        mask = sum(1 << cuda_mfn.BWD_PASSES.index(nm) for nm in names)
+        return lambda: cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem,
+                                            z_tot, h_dims, passes=mask)
+
+    # each of the reverse pass's knobs timed on the passes it moves, then
+    # the whole pass at the defaults; device time, as a call of these
+    # wrappers is host-bound
+    _sweep("mfm_encode_bwd.memory_chain", cuda_mfn,
+           {"BWD_MEM_ROWS": (1, 2, 4, 8), "BWD_CLUSTER": (1, 2, 4, 8, 16),
+            "BWD_THREADS": (256, 512)}, n, encode_bwd("memory_chain"),
+           _device_ms)
+    _sweep("mfm_encode_bwd.lstm_chains", cuda_mfn,
+           {"BWD_CELL_ROWS": (1, 2, 4, 8), "BWD_THREADS": (128, 256, 512)},
+           n, encode_bwd("lstm_chains"), _device_ms)
+    _sweep("mfm_encode_bwd.gates", cuda_mfn,
+           {"BWD_TILE_ROWS": (1, 2, 4, 8), "BWD_THREADS": (128, 256, 512)},
+           n, encode_bwd("gates"), _device_ms)
+    _sweep("mfm_encode_bwd", cuda_mfn, {"BWD_THREADS": (512,)}, n,
+           encode_bwd(*cuda_mfn.BWD_PASSES), _device_ms)
+    _sweep("decoder_lstm_bwd", cuda_lstm,
+           {"BWD_ROWS": (1, 2, 4, 8, 16), "BWD_THREADS": (128, 256, 512)},
+           n, lambda: cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh,
+                                                 dec_dims), _device_ms)
 
 
 def multi_sweep(cfg, dev):
@@ -125,22 +187,67 @@ def multi_sweep(cfg, dev):
         g = torch.Generator(device=dev).manual_seed(3)
         x = torch.randn((t, N, cfg.d_total), generator=g, device=dev)
         xp, wh, h_dims = mfm.multi_lstm_operands(params, x, cfg, model_type)
-        _sweep("multi_lstm_fwd", cuda_lstm, "MULTI_ROWS", "MULTI_THREADS",
-               (1, 2, 4, 8, 16), (128, 256, 512), N,
+        _sweep("multi_lstm_fwd", cuda_lstm,
+               {"MULTI_ROWS": (1, 2, 4, 8, 16),
+                "MULTI_THREADS": (128, 256, 512)}, N,
                lambda: cuda_lstm.multi_lstm_fwd(xp, wh, h_dims),
                model_type=model_type)
         xp = xp[:, :N_TRAIN].contiguous()
         _, _, allc, gates = cuda_lstm.multi_lstm_plain(xp, wh, with_res=True)
         dh = torch.randn((N_TRAIN, sum(h_dims)), generator=g, device=dev)
-        _sweep("multi_lstm_fwd_train", cuda_lstm, "MULTI_ROWS",
-               "MULTI_THREADS", (1, 2, 4, 8), (128, 256, 512), N_TRAIN,
-               lambda: cuda_lstm.multi_lstm_fwd(xp, wh, h_dims,
-                                                with_res=True),
+        _sweep("multi_lstm_fwd_train", cuda_lstm,
+               {"MULTI_ROWS": (1, 2, 4, 8), "MULTI_THREADS": (128, 256, 512)},
+               N_TRAIN, lambda: cuda_lstm.multi_lstm_fwd(xp, wh, h_dims,
+                                                         with_res=True),
                model_type=model_type)
-        _sweep("multi_lstm_bwd", cuda_lstm, "MULTI_BWD_ROWS",
-               "MULTI_BWD_THREADS", (1, 2, 4, 8), (128, 256, 512), N_TRAIN,
+        _sweep("multi_lstm_bwd", cuda_lstm,
+               {"MULTI_BWD_ROWS": (1, 2, 4, 8),
+                "MULTI_BWD_THREADS": (128, 256, 512)}, N_TRAIN,
                lambda: cuda_lstm.multi_lstm_bwd(gates, wh, allc, dh, h_dims),
                model_type=model_type)
+
+
+def kernel_times(cfg, params, dev):
+    """Each kernel at its default knobs and the main path's shapes, by
+    CUDA events over back-to-back calls and by device time: one JSON line.
+    It calls only what every build of the port has, so that a run of this
+    module against an earlier build of the package compares the two (run
+    them in turns in one call on one card)."""
+    t = cfg.seqlength
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((t, N, cfg.d_total), generator=g, device=dev)
+    (xp, weights, z_tot, h_dims), (h0, c0, wsum, b, dec_dims) = \
+        mfm.kernel_operands(params, x, cfg)
+    x32 = x[:, :N_TRAIN].contiguous()
+    (xt, _, _, _), (h0t, c0t, _, _, _) = mfm.kernel_operands(params, x32,
+                                                             cfg)
+    masks = cuda_mfn.make_dropout_masks(g, t, N_TRAIN,
+                                        cuda_mfn.sizes(weights)[:4],
+                                        mfn_drops(cfg))
+    res = cuda_mfn.mfm_encode_res_plain(xt, masks, weights, z_tot)[2:]
+    _, deltas = cuda_mfn.mfm_encode_bwd_steps_plain(
+        xt, weights, *res, torch.ones_like(res[0][0]),
+        torch.ones_like(res[2][0]), z_tot)
+    allh, allc, gates = cuda_lstm.decoder_lstm_plain(h0t, c0t, wsum, b, t)
+    calls = {
+        "mfm_encode_fwd": lambda: cuda_mfn.mfm_encode(xp, weights, z_tot,
+                                                      h_dims),
+        "mfm_encode_fwd_train": lambda: cuda_mfn.mfm_encode_res(
+            xt, masks, weights, z_tot, h_dims),
+        "mfm_encode_bwd": lambda: cuda_mfn._launch_bwd(
+            xt, weights, *res, torch.ones_like(res[0][0]),
+            torch.ones_like(res[2][0]), z_tot, h_dims),
+        "mfm_encode_dw": lambda: cuda_mfn._launch_dw(
+            weights, res[1], res[2], res[3], deltas, z_tot),
+        "decoder_lstm_fwd": lambda: cuda_lstm.decoder_lstm_fwd(
+            h0, c0, wsum, b, t, dec_dims),
+        "decoder_lstm_bwd": lambda: cuda_lstm.decoder_lstm_bwd(
+            wsum, gates, allc, allh, dec_dims),
+    }
+    print(json.dumps({
+        "kernel_times": {k: {"events_ms": _ms(f), "device_ms": _device_ms(f)}
+                         for k, f in calls.items()},
+        "package": str(Path(cuda_mfn.__file__).parents[1])}), flush=True)
 
 
 def profile(cfg, params):
@@ -178,6 +285,8 @@ def profile(cfg, params):
 
 def main(parts=None):
     parts = set(parts or ("serve", "train", "multi", "profile"))
+    if not parts <= {"serve", "train", "multi", "profile", "times"}:
+        raise SystemExit(f"unknown parts {sorted(parts)}")
     if not torch.cuda.is_available():
         raise SystemExit("perf_probe needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -196,6 +305,8 @@ def main(parts=None):
             train_sweep(cfg, params, torch.device("cuda"))
         if "multi" in parts:
             multi_sweep(cfg, torch.device("cuda"))
+        if "times" in parts:
+            kernel_times(cfg, params, torch.device("cuda"))
     if "profile" in parts:
         profile(cfg, params)
 

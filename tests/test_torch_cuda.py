@@ -279,11 +279,13 @@ def test_layouts_and_variants_keep_the_bits(cuda):
 
 
 def _encode_digest(mfn_ops, dev):
-    """sha256 of the encode kernels' outputs on the training path (the
-    forward's eval and train variants, the reverse pass, the weight
-    gradients) at full width, n = 32, t = 20, on numpy-drawn inputs.
-    ``mfn_ops`` is the ``cuda_mfn`` module, so that another build of the
-    package can be given."""
+    """sha256 of the encode's forward kernel outputs on the training path
+    (its eval and train variants) and of the weight-gradient kernel's on
+    the plain reverse pass's deltas, at full width, n = 32, t = 20, on
+    numpy-drawn inputs. The reverse pass's own kernels are left out: their
+    sums run in another order since its four-pass redesign. ``mfn_ops`` is
+    the ``cuda_mfn`` module, so that another build of the package can be
+    given."""
     cfg = best_acc_mosi_config()
     h_dims = [cfg.zl_size, cfg.za_size, cfg.zv_size, *cfg.h_dims]
     H, z_tot, t, n = sum(h_dims), sum(h_dims[:3]), cfg.seqlength, 32
@@ -316,26 +318,92 @@ def _encode_digest(mfn_ops, dev):
     with torch.inference_mode():
         outs = list(mfn_ops.mfm_encode(xp, weights, z_tot, h_dims))
         fwd = mfn_ops.mfm_encode_res(xp, masks, weights, z_tot, h_dims)
-        dxp, deltas = mfn_ops._launch_bwd(xp, weights, *fwd[2:], dh, dmem,
-                                          z_tot, h_dims)
+        _, deltas = mfn_ops.mfm_encode_bwd_steps_plain(
+            xp, weights, *fwd[2:], dh, dmem, z_tot)
         dw = mfn_ops._launch_dw(weights, fwd[3], fwd[4], fwd[5], deltas,
                                 z_tot)
-        outs += [*fwd, dxp, deltas, *[dw[k] for k in mfn_ops.DW_NAMES]]
+        outs += [*fwd, *[dw[k] for k in mfn_ops.DW_NAMES]]
         digest = hashlib.sha256()
         for x in outs:
             digest.update(x.contiguous().cpu().numpy().tobytes())
     return digest.hexdigest()
 
 
-# _encode_digest of the kernels as they were before the residual-layout
-# table, built with nvcc of CUDA 12.8 for sm_90a and run on an NVIDIA H100
-# 80GB HBM3 (PyTorch 2.11): the table must not move a bit
+# _encode_digest of the forward and weight-gradient kernels as built
+# before the reverse pass's redesign (unchanged since the residual-layout
+# table, which kept the bits of the kernels before it), built with nvcc of
+# CUDA 12.8 for sm_90a and run on an NVIDIA H100 80GB HBM3 (PyTorch 2.11):
+# neither the table nor the redesign may move their bits
 PRE_TABLE_DIGEST = (
-    "34fb8766e5b5092d5de03ad095d38a272efcda2ad23d63c675f86dc962ed31d3")
+    "71f3908b53965b48c27ec197ee3dfe7ef6c3d487827864b71754c3d3ac13380f")
 
 
 def test_cat_layout_keeps_the_bits_before_the_table(cuda):
     assert _encode_digest(cuda_mfn, cuda) == PRE_TABLE_DIGEST
+
+
+def test_redesigned_backward_kernels_rerun_to_the_same_bits(cuda):
+    """The reverse pass's four kernels and the decoder backward sum in a
+    fixed order, with no atomics."""
+    (xp, masks, weights, z_tot, h_dims, dh, dmem), \
+        (h0, c0, wsum, b, dec_dims, dallh) = _train_operands(
+            best_acc_mosi_config(), 32, cuda)
+    with torch.inference_mode():
+        res = cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims)[2:]
+        first = cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem, z_tot,
+                                     h_dims)
+        again = cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem, z_tot,
+                                     h_dims)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+        allh, allc, gates = cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b, 20,
+                                                       dec_dims)
+        first = cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh, dec_dims)
+        again = cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh, dec_dims)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_a_cell_past_shared_memory_raises_and_counts_nothing(cuda):
+    """A 120-unit cell's diagonal blocks (225 KiB) and a block's buffers
+    pass the card's 227 KB: both backward kernels refuse it before any
+    launch, naming the width."""
+    cfg = SMALL.replace(h_dims=[120, 5, 4])
+    (xp, masks, weights, z_tot, h_dims, dh, dmem), _ = \
+        _train_operands(cfg, 3, cuda)
+    with torch.inference_mode():
+        res = cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims)[2:]
+        before = cuda_mfn.BWD_LAUNCHES
+        with pytest.raises(ValueError, match="largest 120"):
+            cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem, z_tot, h_dims)
+        assert cuda_mfn.BWD_LAUNCHES == before
+        t, n, H = cfg.seqlength, 3, 120
+        g = torch.Generator(device=cuda).manual_seed(8)
+        before = cuda_lstm.BWD_LAUNCHES
+        with pytest.raises(ValueError, match="largest 120"):
+            cuda_lstm.decoder_lstm_bwd(
+                torch.randn(H, 4 * H, generator=g, device=cuda),
+                torch.randn(t, n, 4 * H, generator=g, device=cuda),
+                torch.randn(t, n, H, generator=g, device=cuda),
+                torch.randn(t, n, H, generator=g, device=cuda), [H])
+        assert cuda_lstm.BWD_LAUNCHES == before
+
+
+@pytest.mark.parametrize("cluster,rows", [(2, 1), (4, 2), (8, 1)])
+def test_memory_chain_clusters_match_plain(cuda, monkeypatch, cluster, rows):
+    """The memory chain split over a thread-block cluster (its blocks
+    trading du3 and the carry through distributed shared memory) gives the
+    plain reverse pass's values."""
+    monkeypatch.setattr(cuda_mfn, "BWD_CLUSTER", cluster)
+    monkeypatch.setattr(cuda_mfn, "BWD_MEM_ROWS", rows)
+    (xp, masks, weights, z_tot, h_dims, dh, dmem), _ = \
+        _train_operands(best_acc_mosi_config(), 32, cuda)
+    with torch.inference_mode():
+        res = cuda_mfn.mfm_encode_res_plain(xp, masks, weights, z_tot)[2:]
+        got = cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem, z_tot,
+                                   h_dims)
+        want = cuda_mfn.mfm_encode_bwd_steps_plain(xp, weights, *res, dh,
+                                                   dmem, z_tot)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **GRAD)
 
 
 def _multi_operands(cfg, model_type, n, dev):
