@@ -17,19 +17,20 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    HTTP with micro-batching, answers requests of 1 to 300 samples, some
    concurrent, checks every reply against the plain path on the CPU, and
    checks that the serving run launched every kernel;
-5. times each kernel and its plain version with CUDA events, and one
-   padded 256-row ``predict`` with its stages;
+5. times each kernel and its plain version with CUDA events over
+   back-to-back calls (``ms``: a call's time, the host's included), each
+   kernel also with its calls queued behind a sleeping kernel
+   (``device_ms``: the card's time alone, which a host-bound wrapper
+   hides from ``ms``), and one padded 256-row ``predict`` with its
+   stages;
 6. holds the training kernels (the encode forward with dropout masks and
    residuals, the encode backward and its weight-gradient reduction, the
    decoder backward) against their plain versions at the training shapes
    (n = 32), gradients within rtol 1e-3 / atol 2e-5 (sums over t * n
    rows in another order), and one train step's gradients on the card
-   against the plain path on the CPU with the same injected draws; the
-   kernels whose wrapper calls are host-bound (the encode's four
-   backward passes, its weight-gradient reduction, the decoder backward,
-   the probe variants of the backward) are timed with their calls queued
-   behind a sleeping kernel (``queued_ms``), with a line of each encode
-   pass's ms (torch.profiler) and the knobs in use;
+   against the plain path on the CPU with the same injected draws, and a
+   line of the encode backward's time split between its four passes
+   (torch.profiler) with the rows and threads of their blocks;
 7. trains MFM for 2 epochs on the synthetic MOSI set through
    ``trainers.train_mfm``, checks finite, falling train loss and that the
    run launched every kernel, then times a train step, an epoch, the
@@ -158,7 +159,7 @@ def queued_ms(fn, reps=50, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps=50, warmup=3):
+def kernel_split_ms(fn, reps=50, warmup=3):
     """{kernel name: mean device milliseconds a call} of the kernels fn()
     launches, over reps calls under torch.profiler: how a call's time
     splits between its kernels."""
@@ -174,6 +175,13 @@ def device_ms(fn, reps=50, warmup=3):
     return {e.key: e.device_time_total / 1e3 / reps
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def kernel_name(key):
+    """``gates_kernel<4>`` of the profiler's
+    ``void ftt::(anonymous namespace)::gates_kernel<4>(ftt::...)``."""
+    m = re.search(r"(?:^|::)(\w+(?:<[^>]*>)?)\(", key)
+    return m.group(1) if m else key
 
 
 def ptxas_report(log_text, names):
@@ -427,10 +435,14 @@ def main():
     with torch.inference_mode():
         enc_ms = cuda_ms(lambda: cuda_mfn.mfm_encode(xp, weights, z_tot,
                                                      h_dims), 50)
+        enc_dev_ms = queued_ms(lambda: cuda_mfn.mfm_encode(xp, weights,
+                                                           z_tot, h_dims))
         enc_plain_ms = cuda_ms(
             lambda: cuda_mfn.mfm_encode_plain(xp, weights, z_tot), 10)
         dec_ms = cuda_ms(lambda: cuda_lstm.decoder_lstm_fwd(
             h0, c0, wsum, b, t, dec_dims), 50)
+        dec_dev_ms = queued_ms(lambda: cuda_lstm.decoder_lstm_fwd(
+            h0, c0, wsum, b, t, dec_dims))
         dec_plain_ms = cuda_ms(
             lambda: cuda_lstm.decoder_lstm_plain(h0, c0, wsum, b, t), 10)
 
@@ -487,15 +499,17 @@ def main():
          "replaces": "factorized_tpu/ops/pallas_mfn.py:169",
          "launches": launches["mfm_encode_fwd"],
          "max_abs_err": err_enc["max_abs_err"], "ms": enc_ms,
-         "plain_ms": enc_plain_ms, "bound_ms": enc_bound[0],
-         "bound_by": enc_bound[1], "library_ms": None},
+         "device_ms": enc_dev_ms, "plain_ms": enc_plain_ms,
+         "bound_ms": enc_bound[0], "bound_by": enc_bound[1],
+         "library_ms": None},
         {"name": "decoder_lstm_fwd", "route": "cuda",
          "source": "factorized_tpu_torch/csrc/decoder_lstm_fwd.cu",
          "replaces": "factorized_tpu/ops/pallas_lstm.py:272",
          "launches": launches["decoder_lstm_fwd"],
          "max_abs_err": err_dec["max_abs_err"], "ms": dec_ms,
-         "plain_ms": dec_plain_ms, "bound_ms": dec_bound[0],
-         "bound_by": dec_bound[1], "library_ms": None},
+         "device_ms": dec_dev_ms, "plain_ms": dec_plain_ms,
+         "bound_ms": dec_bound[0], "bound_by": dec_bound[1],
+         "library_ms": None},
     ]
 
     train_kernels = train_phase(cfg, dev, smi)
@@ -562,13 +576,13 @@ def train_phase(cfg, dev, smi):
                               [("dxp", dxp, dxp_ref),
                                ("deltas", deltas, deltas_ref)],
                               GRAD_RTOL, GRAD_ATOL)
-        dw = cuda_mfn._launch_dw(weights, res[1], res[2], res[3], deltas_ref,
-                                 z_tot)
+        dw_out = cuda_mfn._launch_dw(weights, res[1], res[2], res[3],
+                                     deltas_ref, z_tot)
         dw_ref = cuda_mfn.mfm_encode_dw_plain(res[1], res[2], res[3],
                                               deltas_ref, weights, z_tot)
         torch.cuda.synchronize()
         err_dw = compare_all("mfm_encode_dw",
-                             [(k, dw[k], dw_ref[k])
+                             [(k, dw_out[k], dw_ref[k])
                               for k in cuda_mfn.DW_NAMES],
                              GRAD_RTOL, GRAD_ATOL)
         allh, allc, gates = cuda_lstm.decoder_lstm_plain(h0, c0, wsum, b, t)
@@ -640,22 +654,27 @@ def train_phase(cfg, dev, smi):
             xp, masks, weights, z_tot, h_dims), 50)
         fwd_plain_ms = cuda_ms(lambda: cuda_mfn.mfm_encode_res_plain(
             xp, masks, weights, z_tot), 10)
-        bwd_call_ms = cuda_ms(lambda: cuda_mfn._launch_bwd(
-            xp, weights, *res, dh, dmem, z_tot, h_dims), 50)
-        bwd_ms = queued_ms(lambda: cuda_mfn._launch_bwd(
-            xp, weights, *res, dh, dmem, z_tot, h_dims))
-        bwd_kernels = device_ms(lambda: cuda_mfn._launch_bwd(
-            xp, weights, *res, dh, dmem, z_tot, h_dims))
+
+        def bwd():
+            return cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem, z_tot,
+                                        h_dims)
+
+        def dw():
+            return cuda_mfn._launch_dw(weights, res[1], res[2], res[3],
+                                       deltas_ref, z_tot)
+
+        def decb():
+            return cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh,
+                                              dec_dims)
+
+        bwd_ms, bwd_dev_ms = cuda_ms(bwd, 50), queued_ms(bwd)
+        bwd_kernels = kernel_split_ms(bwd)
         bwd_plain_ms = cuda_ms(lambda: cuda_mfn.mfm_encode_bwd_steps_plain(
             xp, weights, *res, dh, dmem, z_tot), 10)
-        dw_ms = queued_ms(lambda: cuda_mfn._launch_dw(
-            weights, res[1], res[2], res[3], deltas_ref, z_tot))
+        dw_ms, dw_dev_ms = cuda_ms(dw, 50), queued_ms(dw)
         dw_plain_ms = cuda_ms(lambda: cuda_mfn.mfm_encode_dw_plain(
             res[1], res[2], res[3], deltas_ref, weights, z_tot), 10)
-        decb_call_ms = cuda_ms(lambda: cuda_lstm.decoder_lstm_bwd(
-            wsum, gates, allc, dallh, dec_dims), 50)
-        decb_ms = queued_ms(lambda: cuda_lstm.decoder_lstm_bwd(
-            wsum, gates, allc, dallh, dec_dims))
+        decb_ms, decb_dev_ms = cuda_ms(decb, 50), queued_ms(decb)
         decb_plain_ms = cuda_ms(lambda: cuda_lstm.decoder_lstm_bwd_plain(
             wsum, gates, allc, dallh), 10)
 
@@ -676,29 +695,26 @@ def train_phase(cfg, dev, smi):
     bwd_bound = bound(2 * bwd_macs, nbytes(
         xp, *res, dh, dmem, *[weights[k] for k in used], dxp, deltas)
         + diag_bytes(h_dims))
-    dw_macs = rows * sum(g.numel() for g in dw.values())
+    dw_macs = rows * sum(g.numel() for g in dw_out.values())
     dw_bound = bound(2 * dw_macs, nbytes(res[1], res[2], res[3], deltas_ref,
-                                         *dw.values()))
+                                         *dw_out.values()))
     decb_macs = (t - 1) * n * 4 * sum(h * h for h in dec_dims)
     decb_bound = bound(2 * decb_macs, nbytes(gates, allc, dallh, *dec)
                        + diag_bytes(dec_dims))
     passes = {name: sum(v for k, v in bwd_kernels.items()
                         if any(kernel in k for kernel in kernels))
-              for name, kernels in zip(cuda_mfn.BWD_PASSES, (
-                  ("gates_kernel",), ("mem_chain_kernel",),
-                  ("product_kernel", "softmax_bwd_kernel",
-                   "recompute_att_kernel"), ("lstm_chains_kernel",)))}
+              for name, kernels in cuda_mfn.BWD_PASSES.items()}
+    # the rows a block of each pass takes are the kernels' template
+    # arguments, in their names; no pass runs on a thread-block cluster
     log({"phase": "backward_passes", "batch": n, "nvidia_smi": smi,
          "mfm_encode_bwd": {
-             "device_ms": bwd_ms, "pass_ms": passes,
-             "call_ms": bwd_call_ms,
-             "knobs": {k: getattr(cuda_mfn, k) for k in (
-                 "BWD_MEM_ROWS", "BWD_CLUSTER", "BWD_CELL_ROWS",
-                 "BWD_TILE_ROWS", "BWD_THREADS")}},
+             "ms": bwd_ms, "device_ms": bwd_dev_ms, "pass_ms": passes,
+             "kernel_ms": {kernel_name(k): v
+                           for k, v in bwd_kernels.items()},
+             "threads": cuda_mfn.BWD_THREADS, "cluster": None},
          "decoder_lstm_bwd": {
-             "device_ms": decb_ms, "call_ms": decb_call_ms,
-             "knobs": {"BWD_ROWS": cuda_lstm.BWD_ROWS,
-                       "BWD_THREADS": cuda_lstm.BWD_THREADS}}})
+             "ms": decb_ms, "device_ms": decb_dev_ms,
+             "threads": cuda_lstm.BWD_THREADS}})
     log({"phase": "train_kernels", "batch": n, "nvidia_smi": smi,
          "mfm_encode_fwd_train": {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
                                   "bound_ms": fwd_bound[0],
@@ -706,24 +722,24 @@ def train_phase(cfg, dev, smi):
                                   "max_abs_err": err_fwd["max_abs_err"],
                                   "launches": launches["mfm_encode_fwd"]}})
 
-    def entry(name, source, replaces, err, ms, plain_ms, bnd):
+    def entry(name, source, replaces, err, ms, dev_ms, plain_ms, bnd):
         return {"name": name, "route": "cuda",
                 "source": f"factorized_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": err["max_abs_err"], "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
                 "bound_by": bnd[1], "library_ms": None}
 
     return [
         entry("mfm_encode_bwd", "mfm_encode_bwd.cu",
               "factorized_tpu/ops/pallas_mfn.py:269", err_bwd, bwd_ms,
-              bwd_plain_ms, bwd_bound),
+              bwd_dev_ms, bwd_plain_ms, bwd_bound),
         entry("mfm_encode_dw", "mfm_encode_bwd.cu",
               "factorized_tpu/ops/pallas_mfn.py:269", err_dw, dw_ms,
-              dw_plain_ms, dw_bound),
+              dw_dev_ms, dw_plain_ms, dw_bound),
         entry("decoder_lstm_bwd", "decoder_lstm_bwd.cu",
               "factorized_tpu/ops/pallas_lstm.py:298", err_decb, decb_ms,
-              decb_plain_ms, decb_bound),
+              decb_dev_ms, decb_plain_ms, decb_bound),
     ]
 
 
@@ -753,6 +769,8 @@ def multi_lstm_phase(cfg, dev, smi):
                               h_last, cuda_lstm.multi_lstm_plain(xp, wh))
             fwd_ms = cuda_ms(lambda: cuda_lstm.multi_lstm_fwd(xp, wh,
                                                               h_dims), 50)
+            fwd_dev_ms = queued_ms(lambda: cuda_lstm.multi_lstm_fwd(
+                xp, wh, h_dims))
             fwd_plain_ms = cuda_ms(lambda: cuda_lstm.multi_lstm_plain(xp, wh),
                                    10)
             xp32, _, _ = mfm.multi_lstm_operands(params, x_train, cfg,
@@ -775,6 +793,8 @@ def multi_lstm_phase(cfg, dev, smi):
                               dxp_ref, GRAD_RTOL, GRAD_ATOL)
             bwd_ms = cuda_ms(lambda: cuda_lstm.multi_lstm_bwd(
                 gates, wh, allc, dh, h_dims), 50)
+            bwd_dev_ms = queued_ms(lambda: cuda_lstm.multi_lstm_bwd(
+                gates, wh, allc, dh, h_dims))
             bwd_plain_ms = cuda_ms(lambda: cuda_lstm.multi_lstm_bwd_plain(
                 gates, wh, allc, dh), 10)
 
@@ -812,7 +832,8 @@ def multi_lstm_phase(cfg, dev, smi):
                           nbytes(gates, allc, dh, dxp) + wh_bytes)
         out[model_type] = {
             "h_dims": h_dims, "H": sum(h_dims), "nvidia_smi": smi,
-            "fwd": {"n": N_SERVE, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+            "fwd": {"n": N_SERVE, "ms": fwd_ms, "device_ms": fwd_dev_ms,
+                    "plain_ms": fwd_plain_ms,
                     "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1],
                     "library_ms": lib_fwd_ms,
                     "max_abs_err": max(err_fwd["max_abs_err"],
@@ -820,7 +841,8 @@ def multi_lstm_phase(cfg, dev, smi):
             "fwd_train": {"n": N_TRAIN, "ms": train_ms,
                           "bound_ms": train_bound[0],
                           "bound_by": train_bound[1]},
-            "bwd": {"n": N_TRAIN, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+            "bwd": {"n": N_TRAIN, "ms": bwd_ms, "device_ms": bwd_dev_ms,
+                    "plain_ms": bwd_plain_ms,
                     "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
                     "library_ms": lib_bwd_ms,
                     "max_abs_err": err_bwd["max_abs_err"]},
@@ -960,7 +982,7 @@ def variants_phase(cfg, dev, smi):
                 "max_abs_err": max(kernels[m][numbers]["max_abs_err"]
                                    for m in kernels),
                 **{key: kernels["kl_ef"][numbers][key] for key in (
-                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}}
 
     return [
@@ -1035,14 +1057,19 @@ def probe_phase(cfg, dev, smi):
         #      in turns (the training path's first and last)
         order = ("stream", "recompute_att", "two_step", "stream_split",
                  "stream")
-        ms = {}
+        ms, dev_ms = {}, {}
         for run in order:
-            ms.setdefault(run, []).append(queued_ms(lambda: kernel(run)))
-        fwd_ms = {
-            "cat": cuda_ms(lambda: cuda_mfn.mfm_encode_res(
-                xp, masks, weights, z_tot, h_dims), 50),
-            "split": cuda_ms(lambda: cuda_mfn.mfm_encode_res(
-                xp, masks, weights, z_tot, h_dims, "split"), 50)}
+            ms.setdefault(run, []).append(cuda_ms(lambda: kernel(run), 50))
+            dev_ms.setdefault(run, []).append(queued_ms(lambda: kernel(run)))
+
+        def fwd(layout):
+            return cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims,
+                                           layout)
+
+        fwd_ms = {layout: cuda_ms(lambda: fwd(layout), 50)
+                  for layout in ("cat", "split")}
+        fwd_dev_ms = {layout: queued_ms(lambda: fwd(layout))
+                      for layout in ("cat", "split")}
         plain_ms = {
             "split": cuda_ms(lambda: cuda_mfn.mfm_encode_res_plain(
                 xp, masks, weights, z_tot, "split"), 10),
@@ -1094,28 +1121,31 @@ def probe_phase(cfg, dev, smi):
         raise AssertionError(f"non-finite probe times {residual}")
     log({"phase": "probes", "batch": n, "nvidia_smi": smi,
          "seconds": seconds, "launches": {k: launches[k] for k in kernels},
-         "bwd_ms": ms, "fwd_ms": fwd_ms, "plain_ms": plain_ms,
+         "bwd_ms": ms, "bwd_device_ms": dev_ms, "fwd_ms": fwd_ms,
+         "fwd_device_ms": fwd_dev_ms, "plain_ms": plain_ms,
          "bwd_residual_probe": residual, "twostep_bwd_probe": twostep})
 
-    def entry(name, source, replaces, e, time_ms, plain, bnd):
+    def entry(name, source, replaces, e, time_ms, dev, plain, bnd):
         return {"name": name, "route": "cuda",
                 "source": f"factorized_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": e["max_abs_err"], "ms": time_ms,
-                "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
-                "library_ms": None}
+                "device_ms": dev, "plain_ms": plain, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": None}
 
     return [
         entry("mfm_encode_fwd_split", "mfm_encode_fwd.cu",
               "scripts/bwd_residual_probe.py:81", err["split"],
-              fwd_ms["split"], plain_ms["split"], fwd_bound),
+              fwd_ms["split"], fwd_dev_ms["split"], plain_ms["split"],
+              fwd_bound),
         entry("mfm_encode_bwd_recompute_att", "mfm_encode_bwd.cu",
               "scripts/bwd_residual_probe.py:151", err["recompute_att"],
-              ms["recompute_att"][0], plain_ms["recompute_att"],
-              bounds["recompute_att"]),
+              ms["recompute_att"][0], dev_ms["recompute_att"][0],
+              plain_ms["recompute_att"], bounds["recompute_att"]),
         entry("mfm_encode_bwd_two_step", "mfm_encode_bwd.cu",
               "scripts/twostep_bwd_probe.py:139", err["two_step"],
-              ms["two_step"][0], plain_ms["two_step"], bounds["two_step"]),
+              ms["two_step"][0], dev_ms["two_step"][0], plain_ms["two_step"],
+              bounds["two_step"]),
     ]
 
 

@@ -216,7 +216,8 @@ __device__ __forceinline__ void cell_dh(const float* w, const float* dg,
     }
     float acc[R];
 #pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = (p[0][r] + p[1][r]) + (p[2][r] + p[3][r]);
+    for (int r = 0; r < R; ++r)
+      acc[r] = (p[0][r] + p[1][r]) + (p[2][r] + p[3][r]);
     for (int o = 1; o < ks; o <<= 1) {
 #pragma unroll
       for (int r = 0; r < R; ++r)

@@ -24,7 +24,7 @@
 // barriers and the dh product's latency from shared memory.
 //
 // What the design does about it: the cells are independent chains, so one
-// block owns one cell and ROWS batch rows (cell_bwd.cuh). It keeps the
+// block owns one cell and kRows batch rows (cell_bwd.cuh). It keeps the
 // cell's four diagonal blocks of wsum in shared memory, transposed (the
 // 104-unit cell's 169 KiB fits one SM), so the chain reads no weight from
 // L2; the next step's gates, cell states and dallh are copied in with
@@ -32,7 +32,7 @@
 // the dh product and shuffles add their partial sums in a fixed order: no
 // atomics, the same bits on every run. Float32 on the CUDA cores: a TF32
 // product keeps about three digits, too few for the gradient tolerances,
-// and a tile of ROWS batch rows is far below wgmma's 64. A launch whose
+// and a tile of kRows batch rows is far below wgmma's 64. A launch whose
 // shared memory would pass the card's 227 KB is refused before it starts.
 
 #include <cuda_runtime.h>
@@ -46,6 +46,10 @@ namespace {
 
 constexpr int kMaxThreads = 512;
 constexpr int kOpWidth = 7;  // gates 4h, c, c_prev, dallh_prev: 7h a row
+// Batch rows a block takes: one was the fastest at the training batch
+// (perf_probe.py train, PERF.md), and a block of 8 rows or more does not
+// fit beside the 104-unit cell's weights.
+constexpr int kRows = 1;
 
 struct DecoderBwdArgs {
   const float* gates;  // (t, n, 4H), slot 0 unused
@@ -126,21 +130,20 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-template <int R>
 cudaError_t launch(const DecoderBwdArgs& a, int threads, int* need,
                    cudaStream_t stream) {
-  const size_t bytes = cell_chain_bytes(a.cells, R, threads, kOpWidth);
+  const size_t bytes = cell_chain_bytes(a.cells, kRows, threads, kOpWidth);
   if (bytes > (size_t)kMaxSmemBytes) {
     need[0] = 1;
     need[1] = (int)bytes;
+    need[2] = kMaxSmemBytes;
     return cudaErrorInvalidValue;
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      decoder_lstm_bwd_kernel<R>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const auto kernel = decoder_lstm_bwd_kernel<kRows>;
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.n + R - 1) / R, a.cells.count);
-  decoder_lstm_bwd_kernel<R><<<grid, threads, bytes, stream>>>(a);
+  const dim3 grid((a.n + kRows - 1) / kRows, a.cells.count);
+  kernel<<<grid, threads, bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -149,16 +152,16 @@ cudaError_t launch(const DecoderBwdArgs& a, int threads, int* need,
 
 // All arrays float32 and contiguous, shaped as in DecoderBwdArgs; t >= 2.
 // cell_dims (host memory) lists the n_cells fused hidden widths, summing
-// to H. rows is the batch rows per block (1, 2, 4, 8 or 16), threads a
-// multiple of 32 up to 512. need (host memory, two ints) is left zero,
-// or, when the shared memory a block needs passes the card's, set to
-// {1, bytes} before the launch is refused.
+// to H. threads is a multiple of 32 up to 512. need (host memory, three
+// ints) is left zero, or, when the shared memory a block needs passes the
+// card's, set to {1, bytes, the card's limit} before the launch is
+// refused.
 extern "C" int decoder_lstm_bwd(const float* gates, const float* allc,
                                 const float* dallh, const float* wsum,
                                 float* dgates, float* dh0, float* dc0, int t,
                                 int n, int H, int n_cells,
-                                const int* cell_dims, int rows, int threads,
-                                int* need, void* stream) {
+                                const int* cell_dims, int threads, int* need,
+                                void* stream) {
   using namespace ftt;
   DecoderBwdArgs a;
   a.gates = gates;
@@ -171,17 +174,9 @@ extern "C" int decoder_lstm_bwd(const float* gates, const float* allc,
   a.t = t;
   a.n = n;
   a.H = H;
-  need[0] = need[1] = 0;
+  need[0] = need[1] = need[2] = 0;
   if (!make_cells(n_cells, cell_dims, H, &a.cells) || t < 2 || n < 1 ||
       threads < 32 || threads > kMaxThreads || threads % 32 != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rows) {
-    case 1: return (int)launch<1>(a, threads, need, st);
-    case 2: return (int)launch<2>(a, threads, need, st);
-    case 4: return (int)launch<4>(a, threads, need, st);
-    case 8: return (int)launch<8>(a, threads, need, st);
-    case 16: return (int)launch<16>(a, threads, need, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)launch(a, threads, need, static_cast<cudaStream_t>(stream));
 }

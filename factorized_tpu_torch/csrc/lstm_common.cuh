@@ -4,6 +4,10 @@
 
 #include <cuda_runtime.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace ftt {
 
 constexpr int kMaxCells = 8;
@@ -51,6 +55,26 @@ __device__ __forceinline__ float sigmoid(float x) {
 // The shared memory a block may use on an H100 (227 KB), the backward
 // kernels' fit gate.
 constexpr int kMaxSmemBytes = 232448;
+
+// Lets `kernel` take `bytes` of dynamic shared memory on the current
+// device. The attribute is set only when it must grow, once per (device,
+// kernel) and size, so a wrapper called every step does not pay for it on
+// every call.
+inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
+  static std::mutex mu;
+  static std::map<std::pair<int, const void*>, size_t> allowed;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t& have = allowed[{device, kernel}];
+  if (bytes <= have) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess) have = bytes;
+  return err;
+}
 
 // An asynchronous 4-byte copy from device memory into shared memory
 // (cp.async): the copy runs while the thread goes on, until

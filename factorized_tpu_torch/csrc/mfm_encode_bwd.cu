@@ -29,16 +29,14 @@
 // (2) mem_chain_kernel, serial over t: the memory carry
 //     dmem_prev = dmem * g1 + du3 @ gw1[M2:]^T, where du3 = [dq1 @ g1w2^T,
 //     dq2 @ g2w2^T] * kg3 and dq1, dq2 are elementwise in dmem. Nothing of
-//     the attention branch or the LSTM cells enters it. One thread-block
-//     cluster per tile of batch rows; each block keeps the weight rows of
-//     its own columns of du3 and of the carry in shared memory (all of
-//     g1w2, g2w2 and gw1[M2:] are 128 KiB), copied in once with cp.async.
-//     A step: dq1, dq2, dch elementwise; du3 for the block's columns; a
-//     cluster barrier, the peers' du3 read through distributed shared
-//     memory; the carry's columns; a cluster barrier, the peers' carry
-//     read. With a cluster of one block (the fastest measured at the
-//     training batch: the whole 128 KiB fits one SM) the cluster barriers
-//     are block barriers. Writes the dq1, dq2, dch and du3 deltas.
+//     the attention branch or the LSTM cells enters it. One block per tile
+//     of batch rows keeps g1w2, g2w2 and gw1[M2:] (128 KiB) in shared
+//     memory, copied in once with cp.async. A step: dq1, dq2, dch
+//     elementwise; du3; a block barrier; the carry; a block barrier.
+//     (Splitting the columns over a thread-block cluster, peers trading
+//     du3 and the carry through distributed shared memory, was slower at
+//     every size from 2 to 16 at the training batch: PERF.md.) Writes the
+//     dq1, dq2, dch and du3 deltas.
 // (3) The attention branch, all t * n rows at once (no carry), as
 //     product_kernel in tiles and softmax_bwd_kernel: du2 = dch @ a2w2^T
 //     * kg2; dattended = du3 @ gw1[:M2]^T + du2 @ a2w1^T, with datt =
@@ -76,8 +74,7 @@
 // batch rows is far below wgmma's 64. Every product of the TPU kernel's
 // body is computed in these kernels, each in a fixed order: no atomics,
 // the same bits on every run. A launch whose shared memory would pass the
-// card's 227 KB, or whose cluster does not fit, is refused before any pass
-// starts.
+// card's 227 KB is refused before any pass starts.
 //
 // (b) mfm_encode_dw_kernel: each block computes one 32 x 32 tile of one
 //     gradient, A^T delta summed over the t * n rows in a fixed order, A
@@ -85,7 +82,6 @@
 //     from them (cStar from allc, attended = att * cStar, memp from
 //     allmem). 335 blocks in parallel, tiles staged through shared memory.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -93,13 +89,17 @@
 #include "lstm_common.cuh"
 #include "mfm_res.cuh"
 
-namespace cg = cooperative_groups;
-
 namespace ftt {
 namespace {
 
 constexpr int kMaxThreads = 512;
-constexpr int kMaxCluster = 16;
+// Rows a block takes, the fastest measured at the training batch
+// (perf_probe.py train, PERF.md): flat (step, batch row) rows of the gates
+// pass and of att's recompute, and batch rows of the memory chain and of
+// the LSTM chains.
+constexpr int kTileRows = 4;
+constexpr int kMemRows = 1;
+constexpr int kCellRows = 2;
 
 // The variants of the reverse pass.
 enum Variant { kStream = 0, kRecomputeAtt = 1, kTwoStep = 2 };
@@ -213,26 +213,18 @@ __global__ void __launch_bounds__(kMaxThreads) gates_kernel(const BwdArgs a) {
 
 // ----------------------------------------------- pass (2): memory chain
 
-// A block's share of the memory chain's columns in a cluster of C: du3
-// columns [u0, u1) and carry columns [m0, m1); ks lanes share an output
-// and p is the weight rows' pitch in shared memory. Sized by the largest
-// share, cu and cm columns.
+// The memory chain's two products: ks lanes share an output (a du3
+// column or a carry column) and p is the weight rows' pitch in shared
+// memory.
 struct MemTile {
-  int u0, u1, m0, m1, cu, cm, ks3, p3, ksm, pm;
+  int ks3, p3, ksm, pm;
 };
 
-__host__ __device__ inline MemTile mem_tile(int s34, int mem, int C,
-                                            int rank, int threads) {
+__host__ __device__ inline MemTile mem_tile(int s34, int mem, int threads) {
   MemTile m;
-  m.u0 = s34 * rank / C;
-  m.u1 = s34 * (rank + 1) / C;
-  m.m0 = mem * rank / C;
-  m.m1 = mem * (rank + 1) / C;
-  m.cu = (s34 + C - 1) / C;
-  m.cm = (mem + C - 1) / C;
-  m.ks3 = lanes_per_output(m.cu, threads);
+  m.ks3 = lanes_per_output(s34, threads);
   m.p3 = conflict_free_pitch(mem, m.ks3);
-  m.ksm = lanes_per_output(m.cm, threads);
+  m.ksm = lanes_per_output(mem, threads);
   m.pm = conflict_free_pitch(s34, m.ksm);
   return m;
 }
@@ -242,10 +234,10 @@ __host__ __device__ inline int mem_op_width(int mem, int s34) {
   return 4 * mem + s34;
 }
 
-__host__ __device__ inline size_t mem_chain_floats(int mem, int s34, int C,
-                                                   int R, int threads) {
-  const MemTile m = mem_tile(s34, mem, C, 0, threads);
-  return (size_t)m.cu * m.p3 + (size_t)m.cm * m.pm +
+__host__ __device__ inline size_t mem_chain_floats(int mem, int s34, int R,
+                                                   int threads) {
+  const MemTile m = mem_tile(s34, mem, threads);
+  return (size_t)s34 * m.p3 + (size_t)mem * m.pm +
          (size_t)2 * R * mem_op_width(mem, s34) +
          (size_t)R * (2 * mem + mem + 2 * mem + s34);
 }
@@ -308,7 +300,8 @@ __device__ __forceinline__ void smem_dot(const float* A, int lda, int K,
     for (int r = 0; r < R; ++r) p[0][r] = fmaf(A[r * lda + k], wv, p[0][r]);
   }
 #pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = (p[0][r] + p[1][r]) + (p[2][r] + p[3][r]);
+  for (int r = 0; r < R; ++r)
+    acc[r] = (p[0][r] + p[1][r]) + (p[2][r] + p[3][r]);
 }
 
 template <int R>
@@ -320,58 +313,32 @@ __device__ __forceinline__ void lanes_sum(float (&acc)[R], int ks) {
   }
 }
 
-// Copies the peers' columns [lo(p), hi(p)) of an [R][width] buffer from
-// their shared memory into this block's.
-template <int R>
-__device__ __forceinline__ void gather_peers(cg::cluster_group& cluster,
-                                             float* buf, int width, int C,
-                                             int rank, int tid, int nthr) {
-  for (int p = 0; p < C; ++p) {
-    if (p == rank) continue;
-    const int lo = width * p / C, cols = width * (p + 1) / C - lo;
-    const float* peer = cluster.map_shared_rank(buf, p);
-    for (int i = tid; i < R * cols; i += nthr) {
-      const int r = i / cols, j = lo + i - r * cols;
-      buf[r * width + j] = peer[r * width + j];
-    }
-  }
-}
-
-// Block: rank `rank` of a cluster of C over R batch rows. P: two-step.
+// Block: R batch rows. P: two-step.
 template <int R, bool P>
 __global__ void __launch_bounds__(kMaxThreads)
     mem_chain_kernel(const BwdArgs a) {
   extern __shared__ float smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int mem = a.mem, s3 = a.s3, s34 = a.s3 + a.s4;
   const int W = mem_op_width(mem, s34);
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nthr >> 5;
-  const int row0 = (blockIdx.x / C) * R;
-  const MemTile m = mem_tile(s34, mem, C, rank, nthr);
+  const int row0 = blockIdx.x * R;
+  const MemTile m = mem_tile(s34, mem, nthr);
   const DeltaLayout& dl = a.dl;
 
-  float* const w3 = smem;              // [cu][p3]: g1w2 | g2w2 rows
-  float* const wm = w3 + m.cu * m.p3;  // [cm][pm]: gw1 rows M2 + c
-  float* const ops = wm + m.cm * m.pm;  // two [R][W]: step s's at s & 1
+  float* const w3 = smem;              // [s34][p3]: g1w2 | g2w2 rows
+  float* const wm = w3 + s34 * m.p3;   // [mem][pm]: gw1 rows M2 + c
+  float* const ops = wm + mem * m.pm;  // two [R][W]: step s's at s & 1
   float* dmem = ops + 2 * R * W;       // [R][mem]: the carry into the step
   float* dnext = dmem + R * mem;       // [R][mem]: the carry out of it
   float* const carry = dnext + R * mem;  // [R][mem]: dmem * g1
   float* const dq = carry + R * mem;     // [R][2 mem]: dq1 | dq2
   float* const du3 = dq + R * 2 * mem;   // [R][s34]
 
-  const int nu = m.u1 - m.u0, nm = m.m1 - m.m0;
-  // the first `split` of the block's du3 rows come from g1w2, the rest
-  // from g2w2
-  const int split = s3 <= m.u0 ? 0 : (s3 - m.u0 < nu ? s3 - m.u0 : nu);
-  copy_rows_async(w3, m.p3, a.g1w2 + (size_t)m.u0 * mem, mem, split, mem,
-                  tid, nthr);
-  copy_rows_async(w3 + split * m.p3, m.p3,
-                  a.g2w2 + (size_t)(m.u0 + split - s3) * mem, mem,
-                  nu - split, mem, tid, nthr);
-  copy_rows_async(wm, m.pm, a.gw1 + (size_t)(a.m2 + m.m0) * s34, s34, nm,
-                  s34, tid, nthr);
+  copy_rows_async(w3, m.p3, a.g1w2, mem, s3, mem, tid, nthr);
+  copy_rows_async(w3 + s3 * m.p3, m.p3, a.g2w2, mem, a.s4, mem, tid, nthr);
+  copy_rows_async(wm, m.pm, a.gw1 + (size_t)a.m2 * s34, s34, mem, s34, tid,
+                  nthr);
   for (int i = tid; i < R * mem; i += nthr) {
     const int r = i / mem, row = row0 + r;
     dmem[i] = row < a.n ? a.dmemlast[(size_t)row * mem + i - r * mem] : 0.0f;
@@ -397,7 +364,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     const size_t base = (size_t)s * a.n;
 
     // (a) the memory update and the gamma heads, elementwise: dq1, dq2,
-    //     dch and dmem * g1; the block writes its columns' deltas
+    //     dch and dmem * g1, and their deltas
     for (int i = tid; i < R * mem; i += nthr) {
       const int r = i / mem, k = i - r * mem, row = row0 + r;
       const float* o = op + r * W;
@@ -409,7 +376,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       dq[r * 2 * mem + k] = q1;
       dq[r * 2 * mem + mem + k] = q2;
       carry[i] = dm * g1;
-      if (row < a.n && k >= m.m0 && k < m.m1) {
+      if (row < a.n) {
         float* d = a.delta + (base + row) * dl.width;
         d[dl.dq1 + k] = q1;
         d[dl.dq2 + k] = q2;
@@ -418,15 +385,15 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
     __syncthreads();
 
-    // (b) du3 = [dq1 @ g1w2^T, dq2 @ g2w2^T] * kg3 for the block's columns
-    for (int b0 = warp * 32; b0 < nu * m.ks3; b0 += nwarp * 32) {
-      const int item = b0 + lane, jl = item / m.ks3;
-      const int slice = item - jl * m.ks3, j = m.u0 + jl;
-      const bool ok = item < nu * m.ks3;
+    // (b) du3 = [dq1 @ g1w2^T, dq2 @ g2w2^T] * kg3
+    for (int b0 = warp * 32; b0 < s34 * m.ks3; b0 += nwarp * 32) {
+      const int item = b0 + lane, j = item / m.ks3;
+      const int slice = item - j * m.ks3;
+      const bool ok = item < s34 * m.ks3;
       float acc[R];
       zero(acc);
       if (ok)
-        smem_dot<R>(dq + (j < s3 ? 0 : mem), 2 * mem, mem, w3 + jl * m.p3,
+        smem_dot<R>(dq + (j < s3 ? 0 : mem), 2 * mem, mem, w3 + j * m.p3,
                     slice, m.ks3, acc);
       lanes_sum<R>(acc, m.ks3);
       if (ok && slice == 0) {
@@ -440,21 +407,17 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
     }
     if (s == 0) break;  // the carry out of step 0 is not needed
-    if (C > 1) {
-      cluster.sync();
-      gather_peers<R>(cluster, du3, s34, C, rank, tid, nthr);
-    }
     __syncthreads();
 
-    // (c) the carry's columns: dmem * g1 + du3 @ gw1[M2:]^T
-    for (int b0 = warp * 32; b0 < nm * m.ksm; b0 += nwarp * 32) {
-      const int item = b0 + lane, cl = item / m.ksm;
-      const int slice = item - cl * m.ksm, c = m.m0 + cl;
-      const bool ok = item < nm * m.ksm;
+    // (c) the carry: dmem * g1 + du3 @ gw1[M2:]^T
+    for (int b0 = warp * 32; b0 < mem * m.ksm; b0 += nwarp * 32) {
+      const int item = b0 + lane, c = item / m.ksm;
+      const int slice = item - c * m.ksm;
+      const bool ok = item < mem * m.ksm;
       float acc[R];
       zero(acc);
       if (ok)
-        smem_dot<R>(du3, s34, s34, wm + cl * m.pm, slice, m.ksm, acc);
+        smem_dot<R>(du3, s34, s34, wm + c * m.pm, slice, m.ksm, acc);
       lanes_sum<R>(acc, m.ksm);
       if (ok && slice == 0) {
 #pragma unroll
@@ -462,18 +425,12 @@ __global__ void __launch_bounds__(kMaxThreads)
           dnext[r * mem + c] = carry[r * mem + c] + acc[r];
       }
     }
-    if (C > 1) {
-      cluster.sync();
-      gather_peers<R>(cluster, dnext, mem, C, rank, tid, nthr);
-    }
     float* const spent = dmem;
     dmem = dnext;
     dnext = spent;
     cp_async_wait_all();
     __syncthreads();
   }
-  // no block leaves while a peer may still read its shared memory
-  if (C > 1) cluster.sync();
 }
 
 // ----------------------------------------- pass (3): attention branch
@@ -667,8 +624,9 @@ __global__ void __launch_bounds__(kProductThreads)
     // rows past the ends read as zeros
     for (int e = tid; e < (2 * kTile - live_m - live_n) * q.K; e += nthr) {
       const int i = e / q.K, k = e - i * q.K;
-      const int row = i < kTile - live_m ? live_m + i
-                                         : kTile + live_n + i - (kTile - live_m);
+      const int row = i < kTile - live_m
+                          ? live_m + i
+                          : kTile + live_n + i - (kTile - live_m);
       s[row * pitch + k] = 0.0f;
     }
     s += 2 * kTile * pitch;
@@ -815,118 +773,34 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 // ------------------------------------------------------------ launches
 
-Kernel gates_for(int rows) {
-  switch (rows) {
-    case 1: return gates_kernel<1>;
-    case 2: return gates_kernel<2>;
-    case 4: return gates_kernel<4>;
-    case 8: return gates_kernel<8>;
-    default: return nullptr;
-  }
-}
-
-template <bool P>
-Kernel mem_chain_rows(int rows) {
-  switch (rows) {
-    case 1: return mem_chain_kernel<1, P>;
-    case 2: return mem_chain_kernel<2, P>;
-    case 4: return mem_chain_kernel<4, P>;
-    case 8: return mem_chain_kernel<8, P>;
-    default: return nullptr;
-  }
-}
-
-Kernel recompute_att_for(int rows) {
-  switch (rows) {
-    case 1: return recompute_att_kernel<1>;
-    case 2: return recompute_att_kernel<2>;
-    case 4: return recompute_att_kernel<4>;
-    case 8: return recompute_att_kernel<8>;
-    default: return nullptr;
-  }
-}
-
 const Kernel kProductKernels[4] = {product_kernel<kDu2>,
                                    product_kernel<kDattended>,
                                    product_kernel<kDu1>,
                                    product_kernel<kDcstarAdd>};
 
-template <bool P>
-Kernel lstm_chains_rows(int rows) {
-  switch (rows) {
-    case 1: return lstm_chains_kernel<1, P>;
-    case 2: return lstm_chains_kernel<2, P>;
-    case 4: return lstm_chains_kernel<4, P>;
-    case 8: return lstm_chains_kernel<8, P>;
-    default: return nullptr;
-  }
-}
-
-// One pass's launch: its kernel, grid, block and shared memory, and its
-// cluster size (0: launched without a cluster).
+// One pass's launch: its kernel, grid, block and shared memory.
 struct Pass {
   Kernel kernel;
   dim3 grid;
   int threads;
   size_t bytes;
-  int cluster;
 };
 
-cudaLaunchConfig_t config(const Pass& p, cudaLaunchAttribute* attr,
-                          cudaStream_t stream) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = p.grid;
-  cfg.blockDim = dim3(p.threads);
-  cfg.dynamicSmemBytes = p.bytes;
-  cfg.stream = stream;
-  if (p.cluster > 0) {
-    attr->id = cudaLaunchAttributeClusterDimension;
-    attr->val.clusterDim.x = p.cluster;
-    attr->val.clusterDim.y = 1;
-    attr->val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
+// The fit gate: the pass's shared memory against the card's, and the
+// kernel allowed that much. Fills need = {pass, bytes, the card's limit}
+// and fails if it does not fit.
+cudaError_t prepare(const Pass& p, int index, int* need) {
+  if (p.bytes > (size_t)kMaxSmemBytes) {
+    need[0] = index;
+    need[1] = (int)p.bytes;
+    need[2] = kMaxSmemBytes;
+    return cudaErrorInvalidValue;
   }
-  return cfg;
-}
-
-// The fit gate: the pass's shared memory and cluster size against the
-// card's; sets the kernel's attributes. Fills need = {pass, bytes,
-// cluster} and fails if it does not fit.
-cudaError_t prepare(const Pass& p, int index, int* need,
-                    cudaStream_t stream) {
-  if (p.kernel == nullptr) return cudaErrorInvalidValue;
-  const bool too_big = p.bytes > (size_t)kMaxSmemBytes ||
-                       p.cluster > kMaxCluster;
-  cudaError_t err = cudaSuccess;
-  if (!too_big) {
-    err = cudaFuncSetAttribute(p.kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)p.bytes);
-    if (err == cudaSuccess && p.cluster > 8)
-      err = cudaFuncSetAttribute(
-          p.kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-  }
-  int fits = too_big ? 0 : 1;
-  if (!too_big && p.cluster > 1) {
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = config(p, &attr, stream);
-    err = cudaOccupancyMaxActiveClusters(&fits, p.kernel, &cfg);
-    if (err != cudaSuccess) return err;
-  }
-  if (fits > 0) return cudaSuccess;
-  need[0] = index;
-  need[1] = (int)p.bytes;
-  need[2] = p.cluster;
-  return cudaErrorInvalidValue;
+  return allow_smem(reinterpret_cast<const void*>(p.kernel), p.bytes);
 }
 
 cudaError_t launch(const Pass& p, const BwdArgs& a, cudaStream_t stream) {
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = config(p, &attr, stream);
-  cudaError_t err = cudaLaunchKernelEx(&cfg, p.kernel, a);
-  if (err != cudaSuccess) return err;
+  p.kernel<<<p.grid, p.threads, p.bytes, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -1051,14 +925,10 @@ __global__ void __launch_bounds__(kDwThreads)
 // boundaries. gates (t, n, 4H), dcstar and datt (t, n, M2) are scratch,
 // and att_scratch (t, n, M2) too for the recompute-att variant (else
 // unused). variant is 0 (stream), 1 (recompute-att) or 2 (two-step, t
-// even). mem_rows and cluster: the memory chain's batch rows per tile (1,
-// 2, 4 or 8) and blocks per cluster (1 to 16); cell_rows: the LSTM chains'
-// batch rows per block; tile_rows: the flat rows per block of the gates
-// pass and of the recompute of att; threads a multiple of 32 up to 512. passes: a mask of the
-// passes to launch (bit k - 1 for pass (k)), 15 for the whole reverse
-// pass. need (host memory, three ints) is left zero, or, when a pass's
-// shared memory or cluster does not fit the card, set to {pass, bytes,
-// cluster} before anything is launched.
+// even); threads a multiple of 32 up to 512, the block size of the gates
+// pass, the chains and the softmax. need (host memory, three ints) is left
+// zero, or, when a pass's shared memory does not fit the card, set to
+// {pass, bytes, the card's limit} before anything is launched.
 extern "C" int mfm_encode_bwd(
     const float* xp, const float* allh, const float* allc,
     const float* allmem, void* const* res_ptrs, const int* res_strides,
@@ -1069,8 +939,7 @@ extern "C" int mfm_encode_bwd(
     float* delta, float* gates, float* dcstar, float* datt,
     float* att_scratch, int t, int n, int H, int z_tot, int mem, int s1,
     int s2, int s3, int s4, int n_cells, const int* cell_dims, int variant,
-    int mem_rows, int cluster, int cell_rows, int tile_rows, int threads,
-    int passes, int* need, void* stream) {
+    int threads, int* need, void* stream) {
   using namespace ftt;
   BwdArgs a;
   a.xp = xp;
@@ -1114,9 +983,8 @@ extern "C" int mfm_encode_bwd(
       threads > kMaxThreads || threads % 32 != 0 || res_ptrs == nullptr ||
       !make_res_table(res_ptrs, res_strides, res_cols, widths, &a.res) ||
       variant < kStream || variant > kTwoStep ||
-      (variant == kTwoStep && t % 2 != 0) || cluster < 1 ||
-      (variant == kRecomputeAtt && att_scratch == nullptr) || passes < 1 ||
-      passes > 15)
+      (variant == kTwoStep && t % 2 != 0) ||
+      (variant == kRecomputeAtt && att_scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   const bool pairs = variant == kTwoStep;
   const bool recompute = variant == kRecomputeAtt;
@@ -1132,38 +1000,36 @@ extern "C" int mfm_encode_bwd(
     pass_of[count] = pass;
     p[count++] = launch;
   };
-  add(1, {gates_for(tile_rows), dim3((flat + tile_rows - 1) / tile_rows),
-          threads, (size_t)tile_rows * H * sizeof(float), 0});
-  add(2, {pairs ? mem_chain_rows<true>(mem_rows)
-                : mem_chain_rows<false>(mem_rows),
-          dim3(((n + mem_rows - 1) / mem_rows) * cluster), threads,
-          mem_chain_floats(mem, s34, cluster, mem_rows, threads) *
-              sizeof(float),
-          cluster});
+  add(1, {gates_kernel<kTileRows>,
+          dim3((flat + kTileRows - 1) / kTileRows), threads,
+          (size_t)kTileRows * H * sizeof(float)});
+  add(2, {pairs ? mem_chain_kernel<kMemRows, true>
+                : mem_chain_kernel<kMemRows, false>,
+          dim3((n + kMemRows - 1) / kMemRows), threads,
+          mem_chain_floats(mem, s34, kMemRows, threads) * sizeof(float)});
   if (recompute)
-    add(3, {recompute_att_for(tile_rows),
-            dim3((flat + tile_rows - 1) / tile_rows), threads,
-            (size_t)tile_rows * (s1 + a.m2) * sizeof(float), 0});
+    add(3, {recompute_att_kernel<kTileRows>,
+            dim3((flat + kTileRows - 1) / kTileRows), threads,
+            (size_t)kTileRows * (s1 + a.m2) * sizeof(float)});
   for (int id = kDu2; id <= kDcstarAdd; ++id) {
     const ProductSpec spec = product_spec(a, id);
     add(3, {kProductKernels[id],
             dim3(tiles_m * ((spec.N + kTile - 1) / kTile)), kProductThreads,
-            product_floats(spec) * sizeof(float), 0});
+            product_floats(spec) * sizeof(float)});
     if (id == kDattended)  // the softmax between dattended and du1
       add(3, {softmax_bwd_kernel, dim3((flat + threads / 32 - 1) /
-                                       (threads / 32)), threads, 0, 0});
+                                       (threads / 32)), threads, 0});
   }
-  add(4, {pairs ? lstm_chains_rows<true>(cell_rows)
-                : lstm_chains_rows<false>(cell_rows),
-          dim3((n + cell_rows - 1) / cell_rows, a.cells.count), threads,
-          cell_chain_bytes(a.cells, cell_rows, threads, kCellOpWidth), 0});
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  add(4, {pairs ? lstm_chains_kernel<kCellRows, true>
+                : lstm_chains_kernel<kCellRows, false>,
+          dim3((n + kCellRows - 1) / kCellRows, a.cells.count), threads,
+          cell_chain_bytes(a.cells, kCellRows, threads, kCellOpWidth)});
   for (int k = 0; k < count; ++k) {
-    cudaError_t err = prepare(p[k], pass_of[k], need, st);
+    cudaError_t err = prepare(p[k], pass_of[k], need);
     if (err != cudaSuccess) return (int)err;
   }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   for (int k = 0; k < count; ++k) {
-    if (!(passes & (1 << (pass_of[k] - 1)))) continue;
     cudaError_t err = launch(p[k], a, st);
     if (err != cudaSuccess) return (int)err;
   }

@@ -37,11 +37,10 @@ MULTI_LAUNCHES = 0
 MULTI_BWD_LAUNCHES = 0
 # batch rows per block and threads per block: the fastest pairs measured
 # by perf_probe.py (PERF.md), at the serving shapes (n = 256) and, for the
-# backward, the training batch (n = 32; one block per cell and BWD_ROWS
-# rows)
+# backward, the threads at the training batch (n = 32; one block per cell
+# and batch row, the rows fixed in csrc/decoder_lstm_bwd.cu)
 ROWS = 4
 THREADS = 160
-BWD_ROWS = 1
 BWD_THREADS = 512
 # the same for the fused encoder cells: MULTI_ROWS for both forward
 # variants (4 rows was fastest at n = 256 and at n = 32), MULTI_BWD_ROWS
@@ -50,8 +49,6 @@ MULTI_ROWS = 4
 MULTI_THREADS = 256
 MULTI_BWD_ROWS = 1
 MULTI_BWD_THREADS = 512
-# the shared memory a block may use on an H100 (csrc/lstm_common.cuh)
-MAX_SMEM_BYTES = 232448
 
 
 def _check(h0, c0, wsum, b, t, h_dims):
@@ -185,25 +182,25 @@ def _launch_bwd(wsum, gates, allc, dallh, h_dims):
     fn = _build.kernel(
         "decoder_lstm_bwd",
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     dgates = torch.empty((t - 1, n, 4 * H), dtype=torch.float32,
                          device=allc.device)
     dh0 = torch.empty((n, H), dtype=torch.float32, device=allc.device)
     dc0 = torch.empty((n, H), dtype=torch.float32, device=allc.device)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
-    need = (ctypes.c_int * 2)()
+    need = (ctypes.c_int * 3)()
     with torch.cuda.device(allc.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(gates.data_ptr(), allc.data_ptr(), dallh.data_ptr(),
                  wsum.data_ptr(), dgates.data_ptr(), dh0.data_ptr(),
-                 dc0.data_ptr(), t, n, H, len(h_dims), dims, BWD_ROWS,
-                 BWD_THREADS, need, stream)
+                 dc0.data_ptr(), t, n, H, len(h_dims), dims, BWD_THREADS,
+                 need, stream)
     if need[1]:
         raise ValueError(
             f"decoder_lstm_bwd needs {need[1]} bytes of shared memory a "
-            f"block, past the card's {MAX_SMEM_BYTES}: cells "
-            f"{list(h_dims)} (largest {max(h_dims)}), {BWD_ROWS} rows")
+            f"block, past the card's {need[2]}: cells {list(h_dims)} "
+            f"(largest {max(h_dims)})")
     _build.check(err, "decoder_lstm_bwd")
     BWD_LAUNCHES += 1
     return dgates, dh0, dc0

@@ -14,7 +14,7 @@ Three kernels, each with a launch counter per variant:
   writing ``dxp`` (= dgates) and each step's deltas in the
   ``DELTA_NAMES`` layout, as four kernels launched in order
   (``BWD_PASSES``): the gates for all steps at once, the memory carry's
-  chain (a thread-block cluster per row tile), the attention branch for
+  chain (one block per row tile), the attention branch for
   all steps at once, and one chain per LSTM cell (the cell's weights in
   shared memory). ``mfm_encode_bwd_passes_plain`` is the same data flow
   in plain PyTorch. Variants: ``"stream"`` (the training path's,
@@ -81,23 +81,18 @@ DW_LAUNCHES = 0         # mfm_encode_dw
 ROWS = 4
 THREADS = 512
 TRAIN_ROWS = 2
-# the reverse pass's knobs, at the training batch (perf_probe.py train):
-# the memory chain's batch rows per tile and blocks per cluster, the LSTM
-# chains' batch rows per block, the flat (step, row) rows per block of the
-# gates pass (and of att's recompute), and the threads per block of the
-# chains and of the gates pass (the attention products run 64-thread
-# tiles)
-BWD_MEM_ROWS = 1
-BWD_CLUSTER = 1
-BWD_CELL_ROWS = 2
-BWD_TILE_ROWS = 4
+# threads per block of the reverse pass's gates pass, chains and softmax
+# (the attention products run 256-thread tiles), at the training batch
+# (perf_probe.py train); the rows each pass's block takes are fixed in
+# csrc/mfm_encode_bwd.cu from the same sweep
 BWD_THREADS = 512
-# the reverse pass's kernels, in launch order; bit k of a pass mask
-# launches BWD_PASSES[k]
-BWD_PASSES = ("gates", "memory_chain", "attention", "lstm_chains")
-ALL_PASSES = (1 << len(BWD_PASSES)) - 1
-# the shared memory a block may use on an H100 (csrc/lstm_common.cuh)
-MAX_SMEM_BYTES = 232448
+# the reverse pass's passes, in launch order, each by the names of its
+# CUDA kernels
+BWD_PASSES = {"gates": ("gates_kernel",),
+              "memory_chain": ("mem_chain_kernel",),
+              "attention": ("recompute_att_kernel", "product_kernel",
+                            "softmax_bwd_kernel"),
+              "lstm_chains": ("lstm_chains_kernel",)}
 
 
 def sizes(weights):
@@ -418,12 +413,10 @@ def mfm_encode_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
 
 
 def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
-                z_tot, h_dims, variant="stream", passes=ALL_PASSES):
-    """The reverse pass's kernels: (dxp, deltas (t, n, D)). ``passes``
-    masks the kernels launched (``BWD_PASSES``; all of them by default:
-    the others read what an earlier call left in scratch, so a pass can be
-    timed alone). Raises ``ValueError`` before any launch when a pass's
-    shared memory or cluster does not fit the card."""
+                z_tot, h_dims, variant="stream"):
+    """The reverse pass's kernels: (dxp, deltas (t, n, D)). Raises
+    ``ValueError`` before any launch when a pass's shared memory does not
+    fit the card."""
     global BWD_LAUNCHES, RECOMPUTE_LAUNCHES, TWO_STEP_LAUNCHES
     t, n, H4 = xp.shape
     H = H4 // 4
@@ -433,15 +426,18 @@ def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
         "mfm_encode_bwd",
         [ctypes.c_void_p] * 4 + _TABLE + [ctypes.c_void_p] * 17
         + [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)]
-        + [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        + [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=xp.device)
 
     dxp, deltas = empty(t, n, H4), empty(t, n, delta_layout(weights)[1])
-    # scratch: the gates, dcstar, datt, and att when it is recomputed
-    gates, dcstar, datt = empty(t, n, H4), empty(t, n, m2), empty(t, n, m2)
-    att = empty(t, n, m2) if variant == "recompute_att" else None
+    # one scratch buffer: the gates, dcstar, datt, and att when it is
+    # recomputed
+    recompute = variant == "recompute_att"
+    lengths = [t * n * w for w in [H4, m2, m2] + [m2] * recompute]
+    scratch = empty(sum(lengths)).split(lengths)
+    ptrs = [x.data_ptr() for x in scratch] + [None] * (not recompute)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
     need = (ctypes.c_int * 3)()
     used = ("wh", "a1w1", "a1w2", "a1b2", "a2w1", "a2w2", "gw1", "g1w2",
@@ -452,24 +448,20 @@ def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
                  allmem.data_ptr(), *_res_table(res, weights),
                  dhlast.data_ptr(), dmemlast.data_ptr(),
                  *[weights[k].data_ptr() for k in used],
-                 dxp.data_ptr(), deltas.data_ptr(), gates.data_ptr(),
-                 dcstar.data_ptr(), datt.data_ptr(),
-                 None if att is None else att.data_ptr(),
+                 dxp.data_ptr(), deltas.data_ptr(), *ptrs,
                  t, n, H, z_tot, mem, s1, s2, s3, s4,
                  len(h_dims), dims, BWD_VARIANTS.index(variant),
-                 BWD_MEM_ROWS, BWD_CLUSTER, BWD_CELL_ROWS, BWD_TILE_ROWS,
-                 BWD_THREADS, passes, need, stream)
+                 BWD_THREADS, need, stream)
     if need[1]:
         raise ValueError(
-            f"mfm_encode_bwd: the {BWD_PASSES[need[0] - 1]} pass needs "
-            f"{need[1]} bytes of shared memory a block at a cluster of "
-            f"{need[2]}, past the card's {MAX_SMEM_BYTES} or its cluster "
-            f"limit: cells {list(h_dims)} (largest {max(h_dims)}), "
+            f"mfm_encode_bwd: the {list(BWD_PASSES)[need[0] - 1]} pass needs "
+            f"{need[1]} bytes of shared memory a block, past the card's "
+            f"{need[2]}: cells {list(h_dims)} (largest {max(h_dims)}), "
             f"H {H}, mem {mem}, s3 + s4 {s3 + s4}, M2 {m2}")
     _build.check(err, f"mfm_encode_bwd ({variant})")
     if variant == "stream":
         BWD_LAUNCHES += 1
-    elif variant == "recompute_att":
+    elif recompute:
         RECOMPUTE_LAUNCHES += 1
     else:
         TWO_STEP_LAUNCHES += 1

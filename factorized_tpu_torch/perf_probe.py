@@ -9,23 +9,23 @@ JSON lines:
   warm-up) for each batch-row tile and block size the launchers take, the
   forward kernels at the serving shapes (n = 256, t = 20,
   ``best_acc_mosi_config``) and the training kernels at the training
-  shapes (n = 32): the encode backward's knobs (the memory chain's rows
-  per tile and cluster size, the LSTM chains' rows, the batched passes'
-  rows, threads) each on the passes they move, the decoder backward's
-  rows and threads; a setting whose shared memory or cluster does not fit
-  is reported as refused. Part ``multi`` does the same for the fused
-  encoder-cell kernels at the widths of ``kl_ef`` and ``missing``. So the
-  defaults in ``ops/cuda_mfn.py`` and ``ops/cuda_lstm.py`` are chosen
-  from a measurement;
+  shapes (n = 32); the two backward kernels' threads by device time (the
+  encode's reverse pass split into its passes by torch.profiler); a
+  setting whose shared memory does not fit is reported as refused. Part
+  ``multi`` does the same for the fused encoder-cell kernels at the
+  widths of ``kl_ef`` and ``missing``. So the defaults in
+  ``ops/cuda_mfn.py`` and ``ops/cuda_lstm.py`` are chosen from a
+  measurement;
 - ``profile``: ``torch.profiler`` over 20 padded 256-row ``predict``
   calls: wall time, the device time summed over kernels, the share of
   the wall in which the device was idle, and the largest kernels;
-- ``kernel_times`` (part ``times``): each of the main path's kernels at
-  its default knobs, by CUDA events over back-to-back calls and by device
-  time (the calls queued behind a sleeping kernel);
-  it calls only what every build of the port has, so this module run
-  against an earlier build's package (that build first on ``sys.path``)
-  gives the A/B;
+- ``kernel_times`` and ``step_times`` (part ``times``): each of the main
+  path's kernels at its default knobs, by CUDA events over back-to-back
+  calls and by device time (the calls queued behind a sleeping kernel);
+  each model's train step and the padded 256-row predict. Both call only
+  what every build of the port has, so this module run against an
+  earlier build's package (that build first on ``sys.path``) gives the
+  A/B;
 - ``card``: the ``nvidia-smi`` name and power limit.
 """
 
@@ -91,11 +91,42 @@ def _device_ms(fn, reps=50):
     return start.elapsed_time(end) / reps
 
 
+def _profiled(fn, reps):
+    """fn() reps times under torch.profiler: (wall ms, {kernel name:
+    (device ms, launches)}), both summed over the calls."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device_time_total sums over calls, in microseconds
+    return wall_ms, {e.key: (e.device_time_total / 1e3, e.count)
+                     for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def _pass_ms(fn, reps=50):
+    """The encode's reverse pass: its device time (``_device_ms``) and its
+    split between the passes (``cuda_mfn.BWD_PASSES``) by the names of
+    the kernels torch.profiler saw over reps whole calls."""
+    total = _device_ms(fn, reps)
+    _, kernels = _profiled(fn, reps)
+    return {"ms": total, "pass_ms": {
+        name: sum(ms for k, (ms, _) in kernels.items()
+                  if any(kernel in k for kernel in names)) / reps
+        for name, names in cuda_mfn.BWD_PASSES.items()}}
+
+
 def _sweep(name, module, knobs, n, call, timer=_ms, **tags):
     """Time ``call`` for every combination of ``knobs`` ({attribute:
     values}) set on ``module``; a combination the card refuses (its
-    shared memory or cluster does not fit) is reported as refused.
-    ``timer`` is ``_ms`` (CUDA events) or ``_device_ms``."""
+    shared memory does not fit) is reported as refused. ``timer`` is
+    ``_ms`` (CUDA events), ``_device_ms`` or ``_pass_ms``."""
     default = {k: getattr(module, k) for k in knobs}
     try:
         for combo in itertools.product(*knobs.values()):
@@ -107,7 +138,8 @@ def _sweep(name, module, knobs, n, call, timer=_ms, **tags):
                     "default": setting == default,
                     "timer": timer.__name__.strip("_")}
             try:
-                line["ms"] = timer(call)
+                got = timer(call)
+                line.update(got if isinstance(got, dict) else {"ms": got})
             except ValueError as e:
                 line["refused"] = str(e)
             print(json.dumps(line), flush=True)
@@ -152,28 +184,14 @@ def train_sweep(cfg, params, dev):
            lambda: cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot,
                                            h_dims))
 
-    def encode_bwd(*names):
-        mask = sum(1 << cuda_mfn.BWD_PASSES.index(nm) for nm in names)
-        return lambda: cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem,
-                                            z_tot, h_dims, passes=mask)
-
-    # each of the reverse pass's knobs timed on the passes it moves, then
-    # the whole pass at the defaults; device time, as a call of these
-    # wrappers is host-bound
-    _sweep("mfm_encode_bwd.memory_chain", cuda_mfn,
-           {"BWD_MEM_ROWS": (1, 2, 4, 8), "BWD_CLUSTER": (1, 2, 4, 8, 16),
-            "BWD_THREADS": (256, 512)}, n, encode_bwd("memory_chain"),
-           _device_ms)
-    _sweep("mfm_encode_bwd.lstm_chains", cuda_mfn,
-           {"BWD_CELL_ROWS": (1, 2, 4, 8), "BWD_THREADS": (128, 256, 512)},
-           n, encode_bwd("lstm_chains"), _device_ms)
-    _sweep("mfm_encode_bwd.gates", cuda_mfn,
-           {"BWD_TILE_ROWS": (1, 2, 4, 8), "BWD_THREADS": (128, 256, 512)},
-           n, encode_bwd("gates"), _device_ms)
-    _sweep("mfm_encode_bwd", cuda_mfn, {"BWD_THREADS": (512,)}, n,
-           encode_bwd(*cuda_mfn.BWD_PASSES), _device_ms)
-    _sweep("decoder_lstm_bwd", cuda_lstm,
-           {"BWD_ROWS": (1, 2, 4, 8, 16), "BWD_THREADS": (128, 256, 512)},
+    # the two backward kernels' threads (the rows their blocks take are
+    # fixed in their sources, from this sweep's earlier runs: PERF.md); the
+    # encode's reverse pass split into its passes by torch.profiler. Device
+    # time, as a call of these wrappers is host-bound
+    _sweep("mfm_encode_bwd", cuda_mfn, {"BWD_THREADS": (128, 256, 512)}, n,
+           lambda: cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem, z_tot,
+                                        h_dims), _pass_ms)
+    _sweep("decoder_lstm_bwd", cuda_lstm, {"BWD_THREADS": (128, 256, 512)},
            n, lambda: cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh,
                                                  dec_dims), _device_ms)
 
@@ -250,37 +268,80 @@ def kernel_times(cfg, params, dev):
         "package": str(Path(cuda_mfn.__file__).parents[1])}), flush=True)
 
 
-def profile(cfg, params):
-    from torch.profiler import ProfilerActivity, profile as torch_profile
+def step_times(cfg, dev):
+    """Each model's train step at batch 32 (CUDA events over 30 steps;
+    device ms, launches and the device's idle share under torch.profiler
+    over 10) and the padded 256-row ``predict`` of ``mfm`` (median of 20,
+    host clock) before and after the steps: one JSON line. Like
+    ``kernel_times`` it calls only what every build of the port has, for
+    the A/B."""
+    from factorized_tpu_torch.data import mosi
+    from factorized_tpu_torch.train import TrainProgram, make_optimizer
 
+    t, n = cfg.seqlength, N_TRAIN
+    predictor = Predictor(cfg, mfm.MFM(cfg, seed=0, device=dev).tree(),
+                          batch_size=N)
+    X = np.random.default_rng(0).normal(
+        size=(N, t, cfg.d_total)).astype(np.float32)
+
+    def predict_ms():
+        return predictor.probe(X, reps=20)["median_s"] * 1e3
+
+    before = predict_ms()
+    data = mosi.get_data(t)
+    x = torch.from_numpy(np.ascontiguousarray(
+        data[0][:n].transpose(1, 0, 2))).to(dev)
+    y = torch.from_numpy(data[1][:n]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    programs = {
+        "mfm": TrainProgram(mfm.mfm_apply, cfg),
+        "kl_ef": TrainProgram(mfm.mfm_kl_ef_apply,
+                              cfg.replace(model_type="kl_ef"), "beta_vae",
+                              stage=1),
+        "missing": TrainProgram(mfm.mfm_missing_apply, cfg.replace(missing=1),
+                                "missing"),
+    }
+    out = {}
+    for model_type, program in programs.items():
+        tree = mfm.MFM(cfg, seed=0, device=dev, model_type=model_type).tree()
+        opt = make_optimizer(tree, 1e-3)
+
+        def step():
+            program.step(tree, opt, x, y, gen, 1e-3)
+
+        step_ms = _ms(step, 30)
+        wall_ms, kernels = _profiled(step, 10)
+        device_ms = sum(ms for ms, _ in kernels.values())
+        out[model_type] = {
+            "step_ms": step_ms, "device_ms_per_step": device_ms / 10,
+            "launches_per_step": sum(c for _, c in kernels.values()) / 10,
+            "device_idle_share": 1.0 - device_ms / wall_ms}
+    print(json.dumps({
+        "step_times": out, "predict_ms": before,
+        "predict_ms_after_steps": predict_ms(),
+        "package": str(Path(cuda_mfn.__file__).parents[1])}), flush=True)
+
+
+def profile(cfg, params):
     predictor = Predictor(cfg, params, batch_size=N)
     X = np.random.default_rng(0).normal(
         size=(N, cfg.seqlength, cfg.d_total)).astype(np.float32)
     for _ in range(3):
         predictor.predict(X)
-    torch.cuda.synchronize()
     reps = 20
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            predictor.predict(X)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    # device_time_total sums over calls, in microseconds
-    device_ms = sum(e.device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
+    wall_ms, kernels = _profiled(lambda: predictor.predict(X), reps)
+    device_ms = sum(ms for ms, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda e: -e[1][0])[:8]
     print(json.dumps({
         "profile": "predict", "batch": N, "calls": reps,
         "wall_ms_per_call": wall_ms / reps,
         "device_ms_per_call": device_ms / reps,
         "device_idle_share": 1.0 - device_ms / wall_ms,
-        "kernel_launches_per_call": sum(e.count for e in kernels) / reps,
-        "top": [{"name": e.key[:60], "count_per_call": e.count / reps,
-                 "ms_per_call": e.device_time_total / 1e3 / reps}
-                for e in top]}), flush=True)
+        "kernel_launches_per_call": sum(c for _, c in kernels.values())
+        / reps,
+        "top": [{"name": k[:60], "count_per_call": c / reps,
+                 "ms_per_call": ms / reps} for k, (ms, c) in top]}),
+        flush=True)
 
 
 def main(parts=None):
@@ -307,6 +368,8 @@ def main(parts=None):
             multi_sweep(cfg, torch.device("cuda"))
         if "times" in parts:
             kernel_times(cfg, params, torch.device("cuda"))
+    if "times" in parts:
+        step_times(cfg, torch.device("cuda"))
     if "profile" in parts:
         profile(cfg, params)
 

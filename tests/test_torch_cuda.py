@@ -387,25 +387,6 @@ def test_a_cell_past_shared_memory_raises_and_counts_nothing(cuda):
         assert cuda_lstm.BWD_LAUNCHES == before
 
 
-@pytest.mark.parametrize("cluster,rows", [(2, 1), (4, 2), (8, 1)])
-def test_memory_chain_clusters_match_plain(cuda, monkeypatch, cluster, rows):
-    """The memory chain split over a thread-block cluster (its blocks
-    trading du3 and the carry through distributed shared memory) gives the
-    plain reverse pass's values."""
-    monkeypatch.setattr(cuda_mfn, "BWD_CLUSTER", cluster)
-    monkeypatch.setattr(cuda_mfn, "BWD_MEM_ROWS", rows)
-    (xp, masks, weights, z_tot, h_dims, dh, dmem), _ = \
-        _train_operands(best_acc_mosi_config(), 32, cuda)
-    with torch.inference_mode():
-        res = cuda_mfn.mfm_encode_res_plain(xp, masks, weights, z_tot)[2:]
-        got = cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem, z_tot,
-                                   h_dims)
-        want = cuda_mfn.mfm_encode_bwd_steps_plain(xp, weights, *res, dh,
-                                                   dmem, z_tot)
-        for g, w in zip(got, want):
-            torch.testing.assert_close(g, w, **GRAD)
-
-
 def _multi_operands(cfg, model_type, n, dev):
     """The fused encoder-cell kernels' inputs as the ``kl_ef`` or
     ``missing`` forward builds them, and a cotangent of h_last."""

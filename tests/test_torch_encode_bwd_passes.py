@@ -217,10 +217,10 @@ def fake_card(monkeypatch):
     return calls, state
 
 
-def _launch_encode():
+def _launch_encode(variant="stream"):
     x, w, allh, allc, allmem, cat, ch, cm = _torch(*_encode_case(40, 4))
     return cuda_mfn._launch_bwd(x, w, allh, allc, allmem, cat, ch, cm,
-                                Z_TOT, H_DIMS)
+                                Z_TOT, H_DIMS, variant)
 
 
 def _launch_decoder():
@@ -247,31 +247,43 @@ def test_launchers_match_the_c_prototypes(fake_card, name, launch):
 
 def test_encode_launcher_passes_its_knobs(fake_card, monkeypatch):
     calls, _ = fake_card
-    for knob, value in (("BWD_MEM_ROWS", 2), ("BWD_CLUSTER", 4),
-                        ("BWD_CELL_ROWS", 8), ("BWD_TILE_ROWS", 1),
-                        ("BWD_THREADS", 256)):
-        monkeypatch.setattr(cuda_mfn, knob, value)
-    _launch_encode()
+    monkeypatch.setattr(cuda_mfn, "BWD_THREADS", 256)
+    _launch_encode("two_step")
     args = calls[0][2]
-    # variant, the five knobs and the pass mask precede need and stream
-    assert list(args[-9:-2]) == [0, 2, 4, 8, 1, 256, cuda_mfn.ALL_PASSES]
-    assert cuda_mfn.ALL_PASSES == 2 ** len(cuda_mfn.BWD_PASSES) - 1
+    # the variant and the threads precede need and stream
+    assert list(args[-4:-2]) == [cuda_mfn.BWD_VARIANTS.index("two_step"),
+                                 256]
+
+
+@pytest.mark.parametrize("variant", cuda_mfn.BWD_VARIANTS)
+def test_encode_launcher_carves_its_scratch(fake_card, variant):
+    """The gates (t, n, 4H), dcstar and datt (t, n, M2), and att for the
+    recompute-att variant, lie one after another in one buffer."""
+    calls, _ = fake_card
+    _launch_encode(variant)
+    args = calls[0][2]
+    t, n, H = 4, N, sum(H_DIMS)
+    m2 = 2 * (H - Z_TOT)
+    gates, dcstar, datt, att = args[20:24]
+    assert dcstar - gates == 4 * t * n * 4 * H
+    assert datt - dcstar == 4 * t * n * m2
+    if variant == "recompute_att":
+        assert att - datt == 4 * t * n * m2
+    else:
+        assert att is None
 
 
 @pytest.mark.parametrize("name,launch,module,need", [
-    ("mfm_encode_bwd", _launch_encode, cuda_mfn, (4, 240960, 1)),
-    ("decoder_lstm_bwd", _launch_decoder, cuda_lstm, (1, 240000))])
+    ("mfm_encode_bwd", _launch_encode, cuda_mfn, (4, 240960, 232448)),
+    ("decoder_lstm_bwd", _launch_decoder, cuda_lstm, (1, 240000, 232448))])
 def test_a_refused_fit_raises_and_counts_nothing(fake_card, name, launch,
                                                  module, need):
+    """The error names what the kernel reported: the bytes a block needs
+    and the card's limit."""
     _, state = fake_card
     state["refuse"] = need
     before = module.BWD_LAUNCHES
-    with pytest.raises(ValueError, match=f"{need[1]} bytes of shared memory"):
+    with pytest.raises(ValueError, match=f"{need[1]} bytes of shared memory"
+                       f" a block, past the card's {need[2]}"):
         launch()
     assert module.BWD_LAUNCHES == before
-
-
-def test_the_fit_limit_is_the_kernels():
-    text = (_build.CSRC / "lstm_common.cuh").read_text()
-    limit = int(re.search(r"kMaxSmemBytes = (\d+);", text).group(1))
-    assert cuda_mfn.MAX_SMEM_BYTES == cuda_lstm.MAX_SMEM_BYTES == limit
