@@ -87,7 +87,7 @@ def run_mosi(args):
     device = resolve_device(args.device)
     data = load_mosi(cfg.seqlength)
     logger = RunLogger(args.out, run_id="mosi_0")
-    logger.text(json.dumps(cfg.to_dict()))
+    logger.text(json.dumps(cfg.to_legacy(), default=str))
     logger.record("config", **cfg.to_dict())
     try:
         train = getattr(trainers, trainer_name(cfg))
@@ -96,8 +96,15 @@ def run_mosi(args):
                     threshold_mode=MOSI["mode"], device=device)
         if args.save_ckpt:
             path = f"{args.out}/ckpt_mosi_0"
+            # what a resume reads back: the last epoch's lr and the best
+            # validation loss so far, as the JAX package writes them
+            meta_cfg = cfg.to_dict()
+            if res.get("history"):
+                meta_cfg["_resume_lr"] = res["history"][-1].get("lr")
+            if "best_valid" in res:
+                meta_cfg["_resume_best_valid"] = res["best_valid"]
             save_checkpoint(path, res["params"], opt_state=res["opt_state"],
-                            step=res["step"], config=cfg.to_dict())
+                            step=res["step"], config=meta_cfg)
             logger.text(f"checkpoint saved to {path}")
     finally:
         logger.close()

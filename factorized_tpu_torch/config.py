@@ -2,8 +2,9 @@
 
 A copy of the fields of ``factorized_tpu.config.MFMConfig`` (the port
 imports nothing of the JAX package), with the pieces serving needs:
-``to_dict`` / ``from_dict`` for checkpoint metadata, ``replace``, the
-derived sizes, and the pinned MOSI config ``best_acc_mosi_config``.
+``to_dict`` / ``from_dict`` for checkpoint metadata, ``to_legacy`` for
+the run log's first line, ``replace``, the derived sizes, and the pinned
+MOSI config ``best_acc_mosi_config``.
 """
 
 from __future__ import annotations
@@ -95,6 +96,40 @@ class MFMConfig:
 
     def to_dict(self):
         return dataclasses.asdict(self)
+
+    def to_legacy(self):
+        """The reference's six-dict layout of the config: the model dict,
+        then the att1, att2, gamma1, gamma2 and out MLPs' shapes and
+        dropouts. A run's log opens with it, as the JAX package's does."""
+        config = {
+            "input_dims": list(self.input_dims),
+            "h_dims": list(self.h_dims),
+            "zy_size": self.zy_size, "zl_size": self.zl_size,
+            "za_size": self.za_size, "zv_size": self.zv_size,
+            "fy_size": self.fy_size, "fl_size": self.fl_size,
+            "fa_size": self.fa_size, "fv_size": self.fv_size,
+            "memsize": self.memsize,
+            "zy_to_fy_dropout": self.zy_to_fy_dropout,
+            "zl_to_fl_dropout": self.zl_to_fl_dropout,
+            "za_to_fa_dropout": self.za_to_fa_dropout,
+            "zv_to_fv_dropout": self.zv_to_fv_dropout,
+            "fy_to_y_dropout": self.fy_to_y_dropout,
+            "lda_mmd": self.lda_mmd, "lda_xl": self.lda_xl,
+            "lda_xa": self.lda_xa, "lda_xv": self.lda_xv,
+            "type": self.model_type, "missing": self.missing,
+            "zeros": self.zeros, "output_dim": self.output_dim,
+            "windowsize": self.windowsize, "batchsize": self.batchsize,
+            "num_epochs": self.num_epochs, "lr": self.lr,
+            "momentum": self.momentum,
+        }
+        return [
+            config,
+            {"shapes": self.att1_shape, "drop": self.att1_drop},
+            {"shapes": self.att2_shape, "drop": self.att2_drop},
+            {"shapes": self.gamma1_shape, "drop": self.gamma1_drop},
+            {"shapes": self.gamma2_shape, "drop": self.gamma2_drop},
+            {"shapes": self.out_shape, "drop": self.out_drop},
+        ]
 
 
 def best_acc_mosi_config(**overrides) -> MFMConfig:

@@ -59,6 +59,7 @@ struct DecoderBwdArgs {
   float* dgates;       // (t - 1, n, 4H)
   float* dh0;          // (n, H)
   float* dc0;          // (n, H)
+  long long* clocks;   // the per-phase probe's buffer, or null
   int t, n, H;
   Cells cells;
 };
@@ -107,6 +108,7 @@ __global__ void __launch_bounds__(kMaxThreads)
                tid, nthr);
   cp_async_wait_all();
   __syncthreads();
+  FTT_STAMP(a.clocks, kClockDecoderBwd, 0, 0);
 
   for (int s = a.t - 1; s >= 1; --s) {
     if (s > 1)
@@ -116,9 +118,12 @@ __global__ void __launch_bounds__(kMaxThreads)
     cell_gate_bwd<R>(op, dh, dc, dg, a.dgates, s - 1, a.n, H, c, row0, tid,
                      nthr);
     __syncthreads();
+    FTT_STAMP(a.clocks, kClockDecoderBwd, a.t - s, 0);
     cell_dh<R>(w, dg, op.cp + h * R, dh, c, lane, warp, nwarp);
+    FTT_STAMP(a.clocks, kClockDecoderBwd, a.t - s, 1);
     cp_async_wait_all();
     __syncthreads();
+    FTT_STAMP(a.clocks, kClockDecoderBwd, a.t - s, 2);
   }
 
   for (int i = tid; i < R * h; i += nthr) {
@@ -171,6 +176,7 @@ extern "C" int decoder_lstm_bwd(const float* gates, const float* allc,
   a.dgates = dgates;
   a.dh0 = dh0;
   a.dc0 = dc0;
+  a.clocks = phase_clocks();
   a.t = t;
   a.n = n;
   a.H = H;

@@ -148,4 +148,41 @@ __host__ __device__ inline int lanes_per_output(int items, int threads) {
   return ks;
 }
 
+// The per-phase probe (perf_probe.py phases). Built with
+// FTT_PHASE_CLOCKS, thread 0 of block x = 0 of each grid row y (a chain
+// kernel's cell) stamps clock64() at the end of each phase of each step
+// into the buffer that ftt_set_phase_clocks registered: slot [kernel][y]
+// [step][phase], the step counted from the chain's first (row 0 holds the
+// stamp before it). Without the define the stamps compile to nothing.
+enum ClockKernel {
+  kClockMultiBwd,
+  kClockDecoderBwd,
+  kClockMemChainBwd,
+  kClockCellChainsBwd,
+  kClockEncodeFwd,
+  kClockCellChainsFwd,
+  kClockMemChainFwd,
+  kClockKernels
+};
+constexpr int kClockSteps = 64;
+constexpr int kClockPhases = 8;
+
+// The registered buffer (device memory), or null (errors.cu).
+long long* phase_clocks();
+
+#ifdef FTT_PHASE_CLOCKS
+#define FTT_STAMP(buf, kernel, step, phase)                                \
+  do {                                                                     \
+    if ((buf) != nullptr && blockIdx.x == 0 && blockIdx.y < kMaxCells &&   \
+        threadIdx.x == 0 && (step) < kClockSteps)                          \
+      (buf)[(((kernel) * kMaxCells + blockIdx.y) * kClockSteps + (step)) * \
+                kClockPhases +                                             \
+            (phase)] = clock64();                                          \
+  } while (0)
+#else
+#define FTT_STAMP(buf, kernel, step, phase) \
+  do {                                      \
+  } while (0)
+#endif
+
 }  // namespace ftt

@@ -149,6 +149,7 @@ struct BwdArgs {
   float* dcstar;          // (t, n, M2) scratch: pass (3) to pass (4)
   float* datt;            // (t, n, M2) scratch within pass (3)
   ResEntry att;           // att: the residual field, or recomputed scratch
+  long long* clocks;      // the per-phase probe's buffer, or null
   int t, n, H, z_tot, mem, s1, s2, s3, s4, m2;
   Cells cells;
   DeltaLayout dl;
@@ -347,6 +348,7 @@ __global__ void __launch_bounds__(kMaxThreads)
                          tid, nthr);
   cp_async_wait_all();
   __syncthreads();
+  FTT_STAMP(a.clocks, kClockMemChainBwd, 0, 0);
 
   for (int s = a.t - 1; s >= 0; --s) {
     float* const op = ops + (s & 1) * R * W;
@@ -384,6 +386,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
     }
     __syncthreads();
+    FTT_STAMP(a.clocks, kClockMemChainBwd, a.t - s, 0);
 
     // (b) du3 = [dq1 @ g1w2^T, dq2 @ g2w2^T] * kg3
     for (int b0 = warp * 32; b0 < s34 * m.ks3; b0 += nwarp * 32) {
@@ -408,6 +411,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
     if (s == 0) break;  // the carry out of step 0 is not needed
     __syncthreads();
+    FTT_STAMP(a.clocks, kClockMemChainBwd, a.t - s, 1);
 
     // (c) the carry: dmem * g1 + du3 @ gw1[M2:]^T
     for (int b0 = warp * 32; b0 < mem * m.ksm; b0 += nwarp * 32) {
@@ -430,6 +434,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     dnext = spent;
     cp_async_wait_all();
     __syncthreads();
+    FTT_STAMP(a.clocks, kClockMemChainBwd, a.t - s, 2);
   }
 }
 
@@ -745,6 +750,7 @@ __global__ void __launch_bounds__(kMaxThreads)
                                 with_dcs), c, row0, tid, nthr);
   cp_async_wait_all();
   __syncthreads();
+  FTT_STAMP(a.clocks, kClockCellChainsBwd, 0, 0);
 
   for (int s = a.t - 1; s >= 0; --s) {
     const CellStep op = cell_step(buf + (s & 1) * step_floats, h, R,
@@ -765,9 +771,12 @@ __global__ void __launch_bounds__(kMaxThreads)
                      nthr);
     if (s == 0) break;  // no dh into the zero state before step 0
     __syncthreads();
+    FTT_STAMP(a.clocks, kClockCellChainsBwd, a.t - s, 0);
     cell_dh<R>(w, dg, nullptr, dh, c, lane, warp, nwarp);
+    FTT_STAMP(a.clocks, kClockCellChainsBwd, a.t - s, 1);
     cp_async_wait_all();
     __syncthreads();
+    FTT_STAMP(a.clocks, kClockCellChainsBwd, a.t - s, 2);
   }
 }
 
@@ -961,6 +970,7 @@ extern "C" int mfm_encode_bwd(
   a.delta = delta;
   a.gates = gates;
   a.dcstar = dcstar;
+  a.clocks = phase_clocks();
   a.t = t;
   a.n = n;
   a.H = H;

@@ -81,6 +81,7 @@ struct EncodeArgs {
   float* allc;      // (t, n, H)
   float* allmem;    // (t, n, mem)
   ResTable res;     // the ten residual fields (every entry null without)
+  long long* clocks;  // the per-phase probe's buffer, or null
   int t, n, H, z_tot, mem, s1, s2, s3, s4;
   Cells cells;
 };
@@ -191,6 +192,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   for (int i = tid; i < (4 * H + a.mem) * R; i += nthr) smem[i] = 0.0f;
   __syncthreads();
+  FTT_STAMP(a.clocks, kClockEncodeFwd, 0, 0);
 
   int cur = 0;
   for (int s = 0; s < a.t; ++s) {
@@ -248,6 +250,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
     }
     __syncthreads();
+    FTT_STAMP(a.clocks, kClockEncodeFwd, s + 1, 0);
 
     // (2) att1 fc1 on cStar = [c_prev, c_new][:, z_tot:]
     const float* cs_prev = c_old + a.z_tot * R;
@@ -259,6 +262,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       store_site<R, K>(r1, j, acc, a, s, row0, 0, kR1, kKg1);
     }
     __syncthreads();
+    FTT_STAMP(a.clocks, kClockEncodeFwd, s + 1, 1);
 
     // (3) att1 fc2 -> attention logits
     for (int j = tid; j < M2; j += nthr) {
@@ -268,6 +272,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       store_col<R>(att, j, acc, kIdentity);
     }
     __syncthreads();
+    FTT_STAMP(a.clocks, kClockEncodeFwd, s + 1, 2);
 
     // (4) softmax over each row's logits, max subtracted first, then
     //     attended = att * cStar; one warp per row
@@ -296,6 +301,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
     }
     __syncthreads();
+    FTT_STAMP(a.clocks, kClockEncodeFwd, s + 1, 3);
 
     // (5) att2 fc1 on attended, and the merged gamma fc1 on [attended, mem]
     for (int j = tid; j < a.s2 + s34; j += nthr) {
@@ -312,6 +318,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
     }
     __syncthreads();
+    FTT_STAMP(a.clocks, kClockEncodeFwd, s + 1, 4);
 
     // (6) heads: chat = tanh(r2 @ a2w2 + b); the gamma logits from r3's
     //     two halves
@@ -333,6 +340,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
     }
     __syncthreads();
+    FTT_STAMP(a.clocks, kClockEncodeFwd, s + 1, 5);
 
     // (7) mem = sigmoid(g1 logits) * mem + sigmoid(g2 logits) * chat
     for (int i = tid; i < a.mem * R; i += nthr) {
@@ -351,6 +359,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
     }
     __syncthreads();
+    FTT_STAMP(a.clocks, kClockEncodeFwd, s + 1, 6);
     cur ^= 1;
   }
 
@@ -440,6 +449,7 @@ extern "C" int mfm_encode_fwd(
   a.allh = allh;
   a.allc = allc;
   a.allmem = allmem;
+  a.clocks = phase_clocks();
   a.t = t;
   a.n = n;
   a.H = H;

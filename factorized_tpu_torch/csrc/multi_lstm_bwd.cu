@@ -46,6 +46,7 @@ struct MultiBwdArgs {
   const float* dhlast;  // (n, H)
   const float* wh;      // (H, 4H)
   float* dxp;           // (t, n, 4H)
+  long long* clocks;    // the per-phase probe's buffer, or null
   int t, n, H;
   Cells cells;
 };
@@ -69,6 +70,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     dc[j * R + r] = 0.0f;
   }
   __syncthreads();
+  FTT_STAMP(a.clocks, kClockMultiBwd, 0, 0);
 
   for (int s = a.t - 1; s >= 0; --s) {
     const size_t base = (size_t)s * a.n;
@@ -111,6 +113,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
     }
     __syncthreads();
+    FTT_STAMP(a.clocks, kClockMultiBwd, a.t - s, 0);
     if (s == 0) break;  // dh of the zero initial state is not wanted
 
     // (2) dh = dgates @ wh^T over the unit's own cell block: a warp per
@@ -139,6 +142,7 @@ __global__ void __launch_bounds__(kMaxThreads)
         if (lane == r) dh[k * R + r] = acc[r];
     }
     __syncthreads();
+    FTT_STAMP(a.clocks, kClockMultiBwd, a.t - s, 1);
   }
 }
 
@@ -173,6 +177,7 @@ extern "C" int multi_lstm_bwd(const float* gates, const float* allc,
   a.dhlast = dhlast;
   a.wh = wh;
   a.dxp = dxp;
+  a.clocks = phase_clocks();
   a.t = t;
   a.n = n;
   a.H = H;

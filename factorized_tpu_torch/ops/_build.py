@@ -29,6 +29,19 @@ _lib = None
 _functions = {}
 
 
+def enable_phase_clocks():
+    """Build with ``FTT_PHASE_CLOCKS``: the chain kernels stamp each
+    phase of each step (``csrc/lstm_common.cuh``) for the per-phase probe
+    (``perf_probe.py phases``). Only before the library is loaded; the
+    stamped library is a file of its own (the flags are in its hash)."""
+    global NVCC_FLAGS
+    with _lock:
+        if _lib is not None:
+            raise RuntimeError("the kernels' library is already loaded")
+        if "-DFTT_PHASE_CLOCKS" not in NVCC_FLAGS:
+            NVCC_FLAGS = NVCC_FLAGS + ("-DFTT_PHASE_CLOCKS",)
+
+
 def sources():
     return sorted(CSRC.glob("*.cu"))
 

@@ -2,8 +2,9 @@
 
 Run from the repository root on the card:
 ``python -m factorized_tpu_torch.perf_probe [serve] [train] [multi]
-[profile] [times]`` (the first four parts when none is named). Prints
-JSON lines:
+[profile] [times]`` (the first four parts when none is named), or
+``python -m factorized_tpu_torch.perf_probe phases`` alone. Prints JSON
+lines:
 
 - ``tile``: each kernel's mean time (CUDA events, 50 launches after
   warm-up) for each batch-row tile and block size the launchers take, the
@@ -26,6 +27,14 @@ JSON lines:
   what every build of the port has, so this module run against an
   earlier build's package (that build first on ``sys.path``) gives the
   A/B;
+- ``phases`` (part ``phases``, run alone: it builds the kernels with
+  ``FTT_PHASE_CLOCKS``): one line per chain kernel and cell, the mean
+  SM cycles of each phase of a step over one call's steps, stamped by
+  ``clock64()`` in block x = 0 of each cell (``csrc/lstm_common.cuh``),
+  at the main path's shapes: ``multi_lstm_bwd`` at the widths of
+  ``kl_ef`` and ``missing`` (n = 32), the decoder backward and the
+  encode's reverse pass (n = 32), the encode forward's train (n = 32)
+  and eval (n = 256) variants; with the SM clock read just after;
 - ``card``: the ``nvidia-smi`` name and power limit.
 """
 
@@ -49,6 +58,24 @@ from factorized_tpu_torch.serve import Predictor
 
 N = 256
 N_TRAIN = 32
+# the per-phase probe's buffer: csrc/lstm_common.cuh's ClockKernel order,
+# kMaxCells grid rows, kClockSteps steps, kClockPhases phases
+CLOCK_KERNELS = ("multi_lstm_bwd", "decoder_lstm_bwd", "mem_chain_bwd",
+                 "cell_chains_bwd", "encode_fwd", "cell_chains_fwd",
+                 "mem_chain_fwd")
+CLOCK_ROWS, CLOCK_STEPS, CLOCK_PHASES = 8, 64, 8
+# what each stamped phase of a step ends with, per kernel
+PHASE_NAMES = {
+    "multi_lstm_bwd": ("gate math, barrier", "dh product, barrier"),
+    "decoder_lstm_bwd": ("gate math, barrier", "dh product (thread 0)",
+                         "operand wait, barrier"),
+    "mem_chain_bwd": ("elementwise, barrier", "du3 product, barrier",
+                      "carry product, operand wait, barrier"),
+    "cell_chains_bwd": ("gate math, barrier", "dh product (thread 0)",
+                        "operand wait, barrier"),
+    "encode_fwd": ("LSTM cells", "att1 fc1", "att1 fc2", "softmax",
+                   "att2 fc1 and gamma fc1", "heads", "memory update"),
+}
 
 
 def _ms(fn, reps=50):
@@ -322,6 +349,107 @@ def step_times(cfg, dev):
         "package": str(Path(cuda_mfn.__file__).parents[1])}), flush=True)
 
 
+def _sm_clock():
+    """The SM clock now and its maximum, MHz, by nvidia-smi."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout
+    now, most = out.splitlines()[0].split(",")
+    return float(now), float(most)
+
+
+def phases(cfg, dev):
+    """Part ``phases``: one call of each chain kernel at the main path's
+    shapes with the probe's buffer registered; per kernel and cell the
+    mean cycles of each phase over the call's steps."""
+    import ctypes
+
+    from factorized_tpu_torch.ops import _build
+
+    t = cfg.seqlength
+    params = mfm.MFM(cfg, seed=0, device=dev).tree()
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((t, N, cfg.d_total), generator=g, device=dev)
+    (xp, weights, z_tot, h_dims), (h0, c0, wsum, b, dec_dims) = \
+        mfm.kernel_operands(params, x, cfg)
+    x32 = x[:, :N_TRAIN].contiguous()
+    (xt, _, _, _), (h0t, c0t, _, _, _) = mfm.kernel_operands(params, x32,
+                                                             cfg)
+    masks = cuda_mfn.make_dropout_masks(g, t, N_TRAIN,
+                                        cuda_mfn.sizes(weights)[:4],
+                                        mfn_drops(cfg))
+    res = cuda_mfn.mfm_encode_res_plain(xt, masks, weights, z_tot)[2:]
+    dh = torch.randn((N_TRAIN, sum(h_dims)), generator=g, device=dev)
+    dmem = torch.randn((N_TRAIN, weights["a2w2"].shape[1]), generator=g,
+                       device=dev)
+    allh, allc, gates = cuda_lstm.decoder_lstm_plain(h0t, c0t, wsum, b, t)
+    calls = {
+        "mfm_encode_fwd": (lambda: cuda_mfn.mfm_encode(
+            xp, weights, z_tot, h_dims), h_dims, N),
+        "mfm_encode_fwd_train": (lambda: cuda_mfn.mfm_encode_res(
+            xt, masks, weights, z_tot, h_dims), h_dims, N_TRAIN),
+        "mfm_encode_bwd": (lambda: cuda_mfn._launch_bwd(
+            xt, weights, *res, dh, dmem, z_tot, h_dims), h_dims, N_TRAIN),
+        "decoder_lstm_bwd": (lambda: cuda_lstm.decoder_lstm_bwd(
+            wsum, gates, allc, allh, dec_dims), dec_dims, N_TRAIN),
+    }
+    for model_type in ("kl_ef", "missing"):
+        mparams = mfm.MFM(cfg, seed=0, device=dev,
+                          model_type=model_type).tree()
+        mxp, wh, m_dims = mfm.multi_lstm_operands(mparams, x32, cfg,
+                                                  model_type)
+        _, _, mallc, mgates = cuda_lstm.multi_lstm_plain(mxp, wh,
+                                                         with_res=True)
+        mdh = torch.randn((N_TRAIN, sum(m_dims)), generator=g, device=dev)
+        calls[f"multi_lstm_bwd.{model_type}"] = (
+            lambda mg=mgates, w=wh, mc=mallc, d=mdh, md=m_dims:
+            cuda_lstm.multi_lstm_bwd(mg, w, mc, d, md), m_dims, N_TRAIN)
+
+    shape = (len(CLOCK_KERNELS), CLOCK_ROWS, CLOCK_STEPS, CLOCK_PHASES)
+    buf = torch.zeros(shape, dtype=torch.int64, device=dev)
+    register = _build.kernel("ftt_set_phase_clocks", [ctypes.c_void_p])
+    for call, (fn, dims, n) in calls.items():
+        fn()  # built, attributes set: the stamped call is a steady one
+        torch.cuda.synchronize()
+        buf.zero_()
+        register(buf.data_ptr())
+        try:
+            fn()
+            torch.cuda.synchronize()
+        finally:
+            register(None)
+        clock_mhz, max_mhz = _sm_clock()
+        stamps = buf.cpu().numpy()
+        for k, kernel in enumerate(CLOCK_KERNELS):
+            for y in range(CLOCK_ROWS):
+                rows = stamps[k, y]
+                if rows[0, 0] == 0:
+                    continue
+                prev, per, steps = int(rows[0, 0]), {}, []
+                for i in range(1, CLOCK_STEPS):
+                    if not rows[i].any():
+                        break
+                    start = prev
+                    for p in range(CLOCK_PHASES):
+                        if rows[i, p]:
+                            per.setdefault(p, []).append(int(rows[i, p]) - prev)
+                            prev = int(rows[i, p])
+                    steps.append(prev - start)
+                names = PHASE_NAMES.get(kernel, ())
+                print(json.dumps({
+                    "phases": call, "kernel": kernel, "row": y,
+                    "cell": dims[y] if kernel not in (
+                        "mem_chain_bwd", "mem_chain_fwd", "encode_fwd")
+                    else None, "n": n, "steps": len(steps),
+                    "mean_cycles": {
+                        (names[p] if p < len(names) else str(p)):
+                        float(np.mean(v)) for p, v in sorted(per.items())},
+                    "mean_cycles_per_step": float(np.mean(steps)),
+                    "sm_clock_mhz": clock_mhz, "max_sm_clock_mhz": max_mhz}),
+                    flush=True)
+
+
 def profile(cfg, params):
     predictor = Predictor(cfg, params, batch_size=N)
     X = np.random.default_rng(0).normal(
@@ -346,8 +474,12 @@ def profile(cfg, params):
 
 def main(parts=None):
     parts = set(parts or ("serve", "train", "multi", "profile"))
-    if not parts <= {"serve", "train", "multi", "profile", "times"}:
+    if not parts <= {"serve", "train", "multi", "profile", "times",
+                     "phases"}:
         raise SystemExit(f"unknown parts {sorted(parts)}")
+    if "phases" in parts and parts != {"phases"}:
+        raise SystemExit("part phases runs alone: it builds the kernels "
+                         "with FTT_PHASE_CLOCKS")
     if not torch.cuda.is_available():
         raise SystemExit("perf_probe needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -358,6 +490,13 @@ def main(parts=None):
         capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"card": smi.splitlines()[0]}), flush=True)
     cfg = best_acc_mosi_config()
+    if "phases" in parts:
+        from factorized_tpu_torch.ops import _build
+
+        _build.enable_phase_clocks()
+        with torch.inference_mode():
+            phases(cfg, torch.device("cuda"))
+        return
     params = mfm.MFM(cfg, seed=0, device="cuda").tree()
     with torch.inference_mode():
         if "serve" in parts:
