@@ -7,12 +7,13 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 1. prints the card (``nvidia-smi`` name and power limit);
 2. builds the CUDA kernels from ``factorized_tpu_torch/csrc/`` and prints
    what ``nvcc -Xptxas -v`` reports, and a line of the registers, static
-   shared memory, stack and spills of the backward kernels of the encode's
-   four passes and of the decoder;
+   shared memory, stack and spills of the kernels of the encode's passes,
+   forward and backward, and of the recurrences' backward chain;
 3. holds each kernel against its plain PyTorch version on the card at the
    serving shapes (n = 256, t = 20, ``best_acc_mosi_config``), float32
    with TF32 off, within rtol 1e-4 / atol 1e-5 (the sums run in another
-   order than cuBLAS's);
+   order than cuBLAS's), the encode forward also against the plain mirror
+   of its three passes;
 4. serves the MFM model from a checkpoint of seeded random weights over
    HTTP with micro-batching, answers requests of 1 to 300 samples, some
    concurrent, checks every reply against the plain path on the CPU, and
@@ -30,7 +31,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    rows in another order), and one train step's gradients on the card
    against the plain path on the CPU with the same injected draws, and a
    line of the encode backward's time split between its four passes
-   (torch.profiler) with the rows and threads of their blocks;
+   (torch.profiler) with the rows and threads of their blocks, and a line
+   of the encode forward's time split between its three passes at both
+   batches;
 7. trains MFM for 2 epochs on the synthetic MOSI set through
    ``trainers.train_mfm``, checks finite, falling train loss and that the
    run launched every kernel, then times a train step, an epoch, the
@@ -55,7 +58,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
     training path's backward; both probe entry points
     (``factorized_tpu_torch.probes``) run with their repetitions cut,
     checking that the run launched every variant;
-11. prints one JSON line on the ten kernels, the ``nvidia-smi`` line,
+11. the chains past one block's shared memory: a decoder cell of 160
+    units and a memory chain of mem 128 with both gamma MLPs 128 wide
+    (256 KiB), each kernel on its thread-block cluster against its plain
+    version, the cluster sizes printed;
+12. prints one JSON line on the ten kernels, the ``nvidia-smi`` line,
     and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1.
@@ -384,9 +391,11 @@ def main():
     print(_build.build_log(), flush=True)
     log({"phase": "ptxas", "note": "dynamic shared memory is sized at "
          "launch", "kernels": ptxas_report(_build.build_log(), (
-             "gates_kernel", "mem_chain_kernel", "recompute_att_kernel",
-             "product_kernel", "softmax_bwd_kernel", "lstm_chains_kernel",
-             "decoder_lstm_bwd_kernel"))})
+             "cell_chains_fwd_kernel", "product_fwd_kernel",
+             "softmax_fwd_kernel",
+             "mem_chain_fwd_kernel", "gates_kernel", "mem_chain_kernel",
+             "recompute_att_kernel", "product_kernel", "softmax_bwd_kernel",
+             "lstm_chains_kernel", "lstm_chain_bwd_kernel"))})
 
     # ---- 3. each kernel against its plain version, main-path shapes
     cfg = best_acc_mosi_config()
@@ -401,8 +410,13 @@ def main():
         h_last, mem_last = cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims)
         h_ref, mem_ref = cuda_mfn.mfm_encode_plain(xp, weights, z_tot)
         torch.cuda.synchronize()
+        passes_ref = cuda_mfn.mfm_encode_fwd_passes_plain(xp, weights,
+                                                          z_tot, h_dims)
         err_enc = max(compare("mfm_encode_fwd.h_last", h_last, h_ref),
                       compare("mfm_encode_fwd.mem_last", mem_last, mem_ref),
+                      compare_all("mfm_encode_fwd.passes",
+                                  zip(("h_last", "mem_last"),
+                                      (h_last, mem_last), passes_ref)),
                       key=lambda e: e["max_abs_err"])
 
         outs = cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b, t, dec_dims)
@@ -515,6 +529,7 @@ def main():
     train_kernels = train_phase(cfg, dev, smi)
     variant_kernels = variants_phase(cfg, dev, smi)
     probe_kernels = probe_phase(cfg, dev, smi)
+    cluster_phase(cfg, dev, smi)
     log({"kernels": serve_kernels + train_kernels + variant_kernels
          + probe_kernels})
     print(smi, flush=True)
@@ -558,11 +573,25 @@ def train_phase(cfg, dev, smi):
             gen, t, n, cuda_mfn.sizes(weights)[:4], mfn_drops(cfg))
         fwd = cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims)
         fwd_ref = cuda_mfn.mfm_encode_res_plain(xp, masks, weights, z_tot)
+        passes_ref = cuda_mfn.mfm_encode_fwd_passes_plain(
+            xp, weights, z_tot, h_dims, masks, True)
         torch.cuda.synchronize()
-        err_fwd = compare_all(
-            "mfm_encode_fwd.train",
-            zip(("h_last", "mem_last", "allh", "allc", "allmem", "res"),
-                fwd, fwd_ref))
+        # each field against the steps' plain version and the passes':
+        # allh and allc are pass (1)'s, att to chat pass (2)'s, r3, kg3,
+        # g1, g2, allmem and mem_last pass (3)'s
+        fields = ("h_last", "mem_last", "allh", "allc", "allmem",
+                  *cuda_mfn.RES_NAMES)
+
+        def by_field(outs):
+            return (*outs[:5], *cuda_mfn.res_fields(outs[5], weights)
+                    .values())
+
+        err_fwd = max(
+            compare_all("mfm_encode_fwd.train",
+                        zip(fields, by_field(fwd), by_field(fwd_ref))),
+            compare_all("mfm_encode_fwd.train.passes",
+                        zip(fields, by_field(fwd), by_field(passes_ref))),
+            key=lambda e: e["max_abs_err"])
         res = fwd_ref[2:]  # the backward kernels read the plain residuals
         dh = torch.randn((n, sum(h_dims)), generator=gen, device=dev)
         dmem = torch.randn((n, weights["a2w2"].shape[1]), generator=gen,
@@ -705,16 +734,23 @@ def train_phase(cfg, dev, smi):
                         if any(kernel in k for kernel in kernels))
               for name, kernels in cuda_mfn.BWD_PASSES.items()}
     # the rows a block of each pass takes are the kernels' template
-    # arguments, in their names; no pass runs on a thread-block cluster
+    # arguments, in their names; the chains' clusters as the last call
+    # chose them (1: one block)
+    bwd_clusters = cuda_mfn.CLUSTERS["mfm_encode_bwd"]
     log({"phase": "backward_passes", "batch": n, "nvidia_smi": smi,
          "mfm_encode_bwd": {
              "ms": bwd_ms, "device_ms": bwd_dev_ms, "pass_ms": passes,
              "kernel_ms": {kernel_name(k): v
                            for k, v in bwd_kernels.items()},
-             "threads": cuda_mfn.BWD_THREADS, "cluster": None},
+             "threads": cuda_mfn.BWD_THREADS,
+             "clusters": {"memory_chain": bwd_clusters[0],
+                          "lstm_chains": bwd_clusters[1]}},
          "decoder_lstm_bwd": {
              "ms": decb_ms, "device_ms": decb_dev_ms,
-             "threads": cuda_lstm.BWD_THREADS}})
+             "threads": cuda_lstm.BWD_THREADS,
+             "cluster": cuda_lstm.CLUSTERS["decoder_lstm_bwd"]}})
+    log({"phase": "forward_passes", "nvidia_smi": smi,
+         **forward_passes(cfg, dev)})
     log({"phase": "train_kernels", "batch": n, "nvidia_smi": smi,
          "mfm_encode_fwd_train": {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
                                   "bound_ms": fwd_bound[0],
@@ -737,10 +773,125 @@ def train_phase(cfg, dev, smi):
         entry("mfm_encode_dw", "mfm_encode_bwd.cu",
               "factorized_tpu/ops/pallas_mfn.py:269", err_dw, dw_ms,
               dw_dev_ms, dw_plain_ms, dw_bound),
-        entry("decoder_lstm_bwd", "decoder_lstm_bwd.cu",
+        entry("decoder_lstm_bwd", "lstm_bwd.cu",
               "factorized_tpu/ops/pallas_lstm.py:298", err_decb, decb_ms,
               decb_dev_ms, decb_plain_ms, decb_bound),
     ]
+
+
+def forward_passes(cfg, dev):
+    """The encode forward's call split between its three passes
+    (``cuda_mfn.FWD_PASSES``, torch.profiler over 50 calls), beside its
+    device time (queued calls): eval at n = 256 and train (masks and
+    residuals) at n = 32, with each pass's rows and the chains' clusters."""
+    from factorized_tpu_torch.models import mfm
+    from factorized_tpu_torch.models.common import mfn_drops
+    from factorized_tpu_torch.ops import cuda_mfn
+
+    params = mfm.MFM(cfg, seed=SEED + 5, device=dev).tree()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    out = {}
+    for variant, n in (("eval", N_SERVE), ("train", N_TRAIN)):
+        x = torch.randn((cfg.seqlength, n, cfg.d_total), generator=gen,
+                        device=dev)
+        with torch.inference_mode():
+            (xp, weights, z_tot, h_dims), _ = mfm.kernel_operands(params, x,
+                                                                  cfg)
+            if variant == "eval":
+                def call():
+                    return cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims)
+                rows = (cuda_mfn.CELL_ROWS, cuda_mfn.MEM_ROWS)
+            else:
+                masks = cuda_mfn.make_dropout_masks(
+                    gen, cfg.seqlength, n, cuda_mfn.sizes(weights)[:4],
+                    mfn_drops(cfg))
+
+                def call():
+                    return cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot,
+                                                   h_dims)
+                rows = (cuda_mfn.TRAIN_CELL_ROWS, cuda_mfn.TRAIN_MEM_ROWS)
+            device_ms = queued_ms(call)
+            kernels = kernel_split_ms(call)
+        clusters = cuda_mfn.CLUSTERS["mfm_encode_fwd"]
+        out[variant] = {
+            "n": n, "device_ms": device_ms,
+            "pass_ms": {name: sum(v for k, v in kernels.items()
+                                  if any(kn in k for kn in names))
+                        for name, names in cuda_mfn.FWD_PASSES.items()},
+            "kernel_ms": {kernel_name(k): v for k, v in kernels.items()},
+            "rows": {"lstm_chains": rows[0], "memory_chain": rows[1]},
+            "clusters": {"lstm_chains": clusters[0],
+                         "memory_chain": clusters[1]},
+            "threads": cuda_mfn.THREADS}
+    return out
+
+
+def cluster_phase(cfg, dev, smi):
+    """Step 11: chains whose weights pass one block's shared memory run on
+    thread-block clusters. A decoder cell of 160 units (n = 32, t = 20)
+    through the decoder backward, and the encode at mem 128 with both
+    gamma MLPs 128 wide (256 KiB of memory-chain weights; n = 32, t = 20,
+    ``best_acc_mosi_config``'s other widths) through its forward and
+    backward, each against its plain version, with the clusters chosen."""
+    from factorized_tpu_torch.models import mfm
+    from factorized_tpu_torch.models.common import mfn_drops
+    from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
+
+    t, n, h = cfg.seqlength, N_TRAIN, 160
+    gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+    wsum = 0.1 * torch.randn((h, 4 * h), generator=gen, device=dev)
+    gates = torch.randn((t, n, 4 * h), generator=gen, device=dev)
+    allc = torch.randn((t, n, h), generator=gen, device=dev)
+    dallh = torch.randn((t, n, h), generator=gen, device=dev)
+    with torch.inference_mode():
+        got = cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh, [h])
+        want = cuda_lstm.decoder_lstm_bwd_plain(wsum, gates, allc, dallh)
+        torch.cuda.synchronize()
+        err_dec = compare_all("cluster.decoder_lstm_bwd",
+                              zip(("dgates", "dh0", "dc0"), got, want),
+                              GRAD_RTOL, GRAD_ATOL)
+    dec_cluster = cuda_lstm.CLUSTERS["decoder_lstm_bwd"]
+
+    wide = cfg.replace(memsize=128, gamma1_shape=128, gamma2_shape=128)
+    params = mfm.MFM(wide, seed=SEED + 61, device=dev).tree()
+    x = torch.randn((t, n, wide.d_total), generator=gen, device=dev)
+    with torch.inference_mode():
+        (xp, weights, z_tot, h_dims), _ = mfm.kernel_operands(params, x, wide)
+        masks = cuda_mfn.make_dropout_masks(
+            gen, t, n, cuda_mfn.sizes(weights)[:4], mfn_drops(wide))
+        fwd = cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims)
+        fwd_ref = cuda_mfn.mfm_encode_res_plain(xp, masks, weights, z_tot)
+        torch.cuda.synchronize()
+        err_fwd = compare_all(
+            "cluster.mfm_encode_fwd",
+            zip(("h_last", "mem_last", "allh", "allc", "allmem", "res"),
+                fwd, fwd_ref))
+        fwd_clusters = cuda_mfn.CLUSTERS["mfm_encode_fwd"]
+        dh = torch.randn((n, sum(h_dims)), generator=gen, device=dev)
+        dmem = torch.randn((n, wide.memsize), generator=gen, device=dev)
+        bwd = cuda_mfn._launch_bwd(xp, weights, *fwd_ref[2:], dh, dmem,
+                                   z_tot, h_dims)
+        bwd_ref = cuda_mfn.mfm_encode_bwd_steps_plain(
+            xp, weights, *fwd_ref[2:], dh, dmem, z_tot)
+        torch.cuda.synchronize()
+        err_bwd = compare_all("cluster.mfm_encode_bwd",
+                              zip(("dxp", "deltas"), bwd, bwd_ref),
+                              GRAD_RTOL, GRAD_ATOL)
+        bwd_clusters = cuda_mfn.CLUSTERS["mfm_encode_bwd"]
+    if dec_cluster < 2 or fwd_clusters[1] < 2 or bwd_clusters[0] < 2:
+        raise AssertionError("a chain past one block's shared memory did "
+                             "not run on a cluster")
+    log({"phase": "clusters", "nvidia_smi": smi,
+         "decoder_lstm_bwd": {"cells": [h], "n": n, "cluster": dec_cluster,
+                              "max_abs_err": err_dec["max_abs_err"]},
+         "mfm_encode_fwd": {"mem": 128, "gamma": [128, 128], "n": n,
+                            "clusters": {"lstm_chains": fwd_clusters[0],
+                                         "memory_chain": fwd_clusters[1]},
+                            "max_abs_err": err_fwd["max_abs_err"]},
+         "mfm_encode_bwd": {"mem": 128, "gamma": [128, 128], "n": n,
+                            "clusters": {"memory_chain": bwd_clusters[0],
+                                         "lstm_chains": bwd_clusters[1]},
+                            "max_abs_err": err_bwd["max_abs_err"]}})
 
 
 def multi_lstm_phase(cfg, dev, smi):
@@ -791,6 +942,7 @@ def multi_lstm_phase(cfg, dev, smi):
             torch.cuda.synchronize()
             err_bwd = compare(f"multi_lstm_bwd.{model_type}.dxp", dxp,
                               dxp_ref, GRAD_RTOL, GRAD_ATOL)
+            bwd_cluster = cuda_lstm.CLUSTERS["multi_lstm_bwd"]
             bwd_ms = cuda_ms(lambda: cuda_lstm.multi_lstm_bwd(
                 gates, wh, allc, dh, h_dims), 50)
             bwd_dev_ms = queued_ms(lambda: cuda_lstm.multi_lstm_bwd(
@@ -842,7 +994,8 @@ def multi_lstm_phase(cfg, dev, smi):
                           "bound_ms": train_bound[0],
                           "bound_by": train_bound[1]},
             "bwd": {"n": N_TRAIN, "ms": bwd_ms, "device_ms": bwd_dev_ms,
-                    "plain_ms": bwd_plain_ms,
+                    "plain_ms": bwd_plain_ms, "cluster": bwd_cluster,
+                    "rows": cuda_lstm.MULTI_BWD_ROWS,
                     "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
                     "library_ms": lib_bwd_ms,
                     "max_abs_err": err_bwd["max_abs_err"]},
@@ -988,7 +1141,7 @@ def variants_phase(cfg, dev, smi):
     return [
         entry("multi_lstm_fwd", "multi_lstm_fwd.cu",
               "factorized_tpu/ops/pallas_lstm.py:88", "fwd"),
-        entry("multi_lstm_bwd", "multi_lstm_bwd.cu",
+        entry("multi_lstm_bwd", "lstm_bwd.cu",
               "factorized_tpu/ops/pallas_lstm.py:116", "bwd"),
     ]
 

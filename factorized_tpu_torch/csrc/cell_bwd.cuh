@@ -1,6 +1,6 @@
 // The reverse chain of one LSTM cell of a fused, gate-major,
 // block-diagonal recurrence, shared by the encode backward's LSTM pass
-// (mfm_encode_bwd.cu) and the decoder backward (decoder_lstm_bwd.cu).
+// (mfm_encode_bwd.cu) and the recurrences' backward (lstm_bwd.cu).
 //
 // One block owns one cell (hidden units [k0, k0 + h) of H) and R batch
 // rows. It copies the cell's four h x h diagonal blocks of the recurrent
@@ -10,6 +10,16 @@
 // shared memory. The next step's operands are copied in with cp.async
 // while the current step runs. Nothing is read from L2 on the chain but
 // those operands, and the cells run side by side as independent blocks.
+//
+// A cell whose four blocks pass one block's shared memory (the 120-unit
+// cell's 225 KiB) is split over a thread-block cluster of C blocks: block
+// b holds a run of the cell's 4h gate columns (C = 2: gates [i, f] and [g,
+// o]), does the gate math for all h units redundantly (it needs all four
+// gates of a unit, and is cheap), and forms a partial dh from its own
+// columns. The partials are traded through distributed shared memory and
+// added in rank order, block 0 first, so every block and every rerun has
+// the same bits: one cluster barrier a step, the partials double-buffered
+// by the step's parity. C = 1 is the one-block chain.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -20,45 +30,59 @@
 
 namespace ftt {
 
-// One cell: units [k0, k0 + h); ks lanes share one unit of the dh product
-// and wp is the pitch of the weight's rows (4h floats) in shared memory.
-// The product reads 16 bytes a lane: a quarter warp (8 lanes) reads
-// 8 / ks rows at once, 4 ks floats from each, so the pitch puts those
-// pieces on distinct banks (and keeps rows 16-byte aligned).
+// The gate columns a block of a cluster of C holds: all 4h for C = 1,
+// else the 4h split in C runs of a multiple of 4 columns (the last ones
+// past 4h are zeros).
+__host__ __device__ inline int cell_cols(int h, int C) {
+  return C == 1 ? 4 * h : ((4 * h + C - 1) / C + 3) & ~3;
+}
+
+// One cell: units [k0, k0 + h); the block holds gate columns [c0, c0 +
+// kc) of the cell's 4h; ks lanes share one unit of the dh product and wp
+// is the pitch of the weight's rows (kc floats) in shared memory. The
+// product reads 16 bytes a lane: a quarter warp (8 lanes) reads 8 / ks
+// rows at once, 4 ks floats from each, so the pitch puts those pieces on
+// distinct banks (and keeps rows 16-byte aligned).
 struct CellTile {
-  int k0, h, ks, wp;
+  int k0, h, ks, wp, c0, kc;
 };
 
+template <int C = 1>
 __host__ __device__ inline CellTile cell_tile(const Cells& cells, int m,
-                                              int threads) {
+                                              int threads, int rank = 0) {
   CellTile c;
   c.k0 = cells.off[m];
   c.h = cells.off[m + 1] - c.k0;
   c.ks = lanes_per_output(c.h, threads);
-  c.wp = conflict_free_pitch(4 * c.h, 4 * c.ks < 32 ? 4 * c.ks : 32);
+  c.kc = cell_cols(c.h, C);
+  c.c0 = C == 1 ? 0 : rank * c.kc;
+  c.wp = conflict_free_pitch(c.kc, 4 * c.ks < 32 ? 4 * c.ks : 32);
   return c;
 }
 
 // A buffer's floats rounded up to 16 bytes, so the next starts aligned.
 __host__ __device__ inline int pad4(int floats) { return (floats + 3) & ~3; }
 
-// Shared-memory floats of a block on cell c: the weight, dh, dc and dg
-// (each starting 16-byte aligned), and two buffers of `op_width` operand
-// floats a row.
+// Shared-memory floats of a block on cell c in a cluster of C: the
+// weight, dh, dc and dg (dg over the C blocks' columns; each starting
+// 16-byte aligned), two buffers of `op_width` operand floats a row and,
+// for C > 1, two partial dh.
 __host__ __device__ inline size_t cell_chain_floats(const CellTile& c, int R,
-                                                    int op_width) {
-  return (size_t)c.h * c.wp + 2 * pad4(c.h * R) + (size_t)R * 4 * c.h +
-         (size_t)2 * R * op_width;
+                                                    int op_width, int C) {
+  return (size_t)c.h * c.wp + 2 * pad4(c.h * R) + (size_t)R * C * c.kc +
+         (size_t)2 * R * op_width + (C > 1 ? 2 * pad4(c.h * R) : 0);
 }
 
-// The largest cell_chain_floats over the cells, in bytes: one launch gives
-// every block the same dynamic shared memory.
+// The largest cell_chain_floats over the cells at a cluster of C, in
+// bytes: one launch gives every block the same dynamic shared memory.
 inline size_t cell_chain_bytes(const Cells& cells, int R, int threads,
-                               int op_width_per_unit) {
+                               int op_width_per_unit, int C) {
   size_t most = 0;
   for (int m = 0; m < cells.count; ++m) {
-    const CellTile c = cell_tile(cells, m, threads);
-    const size_t f = cell_chain_floats(c, R, op_width_per_unit * c.h);
+    CellTile c = cell_tile(cells, m, threads);
+    c.kc = cell_cols(c.h, C);
+    c.wp = conflict_free_pitch(c.kc, 4 * c.ks < 32 ? 4 * c.ks : 32);
+    const size_t f = cell_chain_floats(c, R, op_width_per_unit * c.h, C);
     if (f > most) most = f;
   }
   return most * sizeof(float);
@@ -82,15 +106,34 @@ __device__ __forceinline__ void load_rows_async(float* dst, const float* src,
   }
 }
 
-// The cell's four diagonal blocks of W (H, 4H), asynchronously:
-// w[k wp + q h + j] = W[k0 + k][q H + k0 + j], each block's rows copied
-// as contiguous runs.
+// Gate columns [c0, c0 + kc) of the cell's four diagonal blocks of W
+// (H, 4H), asynchronously: w[k wp + jj] = W[k0 + k][q H + k0 + j] for the
+// cell's column c0 + jj = q h + j, each gate's part of a row copied as one
+// run; columns past 4h are zeros. The forward chains (cell_fwd.cuh) take
+// the same layout.
+__device__ __forceinline__ void load_cell_weights(float* w, const float* W,
+                                                  int H, int k0, int h,
+                                                  int c0, int kc, int wp,
+                                                  int tid, int nthr) {
+  for (int q = 0; q < 4; ++q) {
+    const int lo = q * h > c0 ? q * h : c0;
+    const int hi = (q + 1) * h < c0 + kc ? (q + 1) * h : c0 + kc;
+    if (lo < hi)
+      copy_rows_async(w + lo - c0, wp,
+                      W + (size_t)k0 * 4 * H + q * H + k0 + lo - q * h,
+                      (size_t)4 * H, h, hi - lo, tid, nthr);
+  }
+  const int live = 4 * h - c0 < kc ? (4 * h > c0 ? 4 * h - c0 : 0) : kc;
+  for (int i = tid; i < h * (kc - live); i += nthr) {
+    const int k = i / (kc - live);
+    w[k * wp + live + i - k * (kc - live)] = 0.0f;
+  }
+}
+
 __device__ __forceinline__ void load_cell_weights(float* w, const float* W,
                                                   int H, const CellTile& c,
                                                   int tid, int nthr) {
-  for (int q = 0; q < 4; ++q)
-    copy_rows_async(w + q * c.h, c.wp, W + (size_t)c.k0 * 4 * H + q * H + c.k0,
-                    (size_t)4 * H, c.h, c.h, tid, nthr);
+  load_cell_weights(w, W, H, c.k0, c.h, c.c0, c.kc, c.wp, tid, nthr);
 }
 
 // One step's operands in shared memory, feature-major [feature][R].
@@ -116,15 +159,17 @@ __device__ __forceinline__ CellStep cell_step(float* base, int h, int R,
 }
 
 // (1) The gate math's backward for the cell's units and R rows, from the
-// carried dh and dc: writes dg [4h][R] and the rows' dgates into
-// out[slot] of a (*, n, 4H) tensor, and moves dc to the step before.
+// carried dh and dc: writes dg [4h][R] and, where `store`, the rows'
+// dgates into out[slot] of a (*, n, 4H) tensor (one block of a cluster
+// writes them), and moves dc to the step before.
 template <int R>
 __device__ __forceinline__ void cell_gate_bwd(const CellStep& op,
                                               const float* dh, float* dc,
                                               float* dg, float* out,
                                               int slot, int n, int H,
                                               const CellTile& c, int row0,
-                                              int tid, int nthr) {
+                                              int tid, int nthr,
+                                              bool store = true) {
   const int h = c.h;
   for (int i = tid; i < h * R; i += nthr) {
     const int j = i / R, r = i - j * R, row = row0 + r;
@@ -145,7 +190,7 @@ __device__ __forceinline__ void cell_gate_bwd(const CellStep& op,
     dg[(h + j) * R + r] = df;
     dg[(2 * h + j) * R + r] = dgg;
     dg[(3 * h + j) * R + r] = dov;
-    if (row < n) {
+    if (store && row < n) {
       float* d = out + ((size_t)slot * n + row) * 4 * H + c.k0 + j;
       d[0] = di;
       d[H] = df;
@@ -182,8 +227,9 @@ __device__ __forceinline__ void load_row(float (&v)[R], const float* src) {
   }
 }
 
-// (2) dh[k][r] = sum over the cell's 4h gate columns jj of
-// dg[jj][r] * w[k][jj], plus add[k][r] where add is given: ks neighbouring
+// (2) dh[k][r] = sum over the block's gate columns c0 + jj of
+// dg[c0 + jj][r] * w[k][jj], plus add[k][r] where add is given (for a
+// cluster, this block's partial, added up by cluster_dh): ks neighbouring
 // lanes share a unit, each reading four consecutive columns at a time (16
 // bytes of w and of dg) into four partial sums, and shuffles add the
 // lanes' sums; every sum in a fixed order, so a rerun gives the same bits.
@@ -192,7 +238,8 @@ __device__ __forceinline__ void cell_dh(const float* w, const float* dg,
                                         const float* add, float* dh,
                                         const CellTile& c, int lane,
                                         int warp, int nwarp) {
-  const int items = c.h * c.ks, K = 4 * c.h, ks = c.ks;
+  const int items = c.h * c.ks, K = c.kc, ks = c.ks;
+  dg += (size_t)c.c0 * R;
   for (int base = warp * 32; base < items; base += nwarp * 32) {
     const int item = base + lane, k = item / ks, slice = item - k * ks;
     float p[4][R];
@@ -228,6 +275,28 @@ __device__ __forceinline__ void cell_dh(const float* w, const float* dg,
       for (int r = 0; r < R; ++r)
         dh[k * R + r] = add != nullptr ? acc[r] + add[k * R + r] : acc[r];
     }
+  }
+}
+
+// dh = the cluster's partials (`part` in every block, [h][R]) added in
+// rank order, block 0 first, plus add[k][r] where add is given; after a
+// cluster barrier, so every peer's partial of the step is written.
+template <int C, int R>
+__device__ __forceinline__ void cluster_dh(float* dh, const float* part,
+                                           const float* add, int h, int tid,
+                                           int nthr) {
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  cluster.sync();
+  const float* peer[C];
+#pragma unroll
+  for (int b = 0; b < C; ++b)
+    peer[b] = cluster.map_shared_rank(const_cast<float*>(part), b);
+  for (int i = tid; i < h * R; i += nthr) {
+    float v = peer[0][i];
+#pragma unroll
+    for (int b = 1; b < C; ++b) v += peer[b][i];
+    dh[i] = add != nullptr ? v + add[i] : v;
   }
 }
 

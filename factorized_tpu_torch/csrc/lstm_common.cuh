@@ -2,6 +2,7 @@
 // block-diagonal, gate-major recurrent weight, and the gate nonlinearity.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <map>
@@ -74,6 +75,149 @@ inline cudaError_t allow_smem(const void* kernel, size_t bytes) {
                              (int)bytes);
   if (err == cudaSuccess) have = bytes;
   return err;
+}
+
+// Thread-block clusters: a chain whose weights pass one block's shared
+// memory splits them over C blocks of a cluster (C in 1, 2, 4, 8; 8 is the
+// largest portable size), the peers trading through distributed shared
+// memory.
+constexpr int kMaxCluster = 8;
+
+// What a launcher reports through its `fit` array (host memory, six
+// ints): a pass refused before any launch ({1-based pass, the bytes a
+// block needs at the largest cluster, the card's limit, that cluster}),
+// and the clusters it launched its (up to two) chains on.
+enum Fit { kFitPass, kFitBytes, kFitLimit, kFitCluster, kFitChainA,
+           kFitChainB, kFitInts };
+
+inline void clear_fit(int* fit) {
+  for (int k = 0; k < kFitInts; ++k) fit[k] = 0;
+}
+
+// Records a refusal in `fit` and returns the error the launcher gives.
+inline cudaError_t refuse(int* fit, int pass, size_t bytes, int cluster) {
+  fit[kFitPass] = pass;
+  fit[kFitBytes] = (int)bytes;
+  fit[kFitLimit] = kMaxSmemBytes;
+  fit[kFitCluster] = cluster;
+  return cudaErrorInvalidValue;
+}
+
+// The smallest cluster C in 1, 2, 4, 8 whose blocks' shared memory,
+// bytes_at(C), fits one SM; 0 if none does, with the bytes at 8 in *bytes.
+template <typename F>
+inline int smallest_cluster(F bytes_at, size_t* bytes) {
+  for (int C = 1; C <= kMaxCluster; C *= 2) {
+    *bytes = bytes_at(C);
+    if (*bytes <= (size_t)kMaxSmemBytes) return C;
+  }
+  return 0;
+}
+
+// Launches `kernel` on clusters of C blocks along x (a plain launch for
+// C = 1); grid.x must be a multiple of C.
+template <typename Args>
+inline cudaError_t launch_clusters(void (*kernel)(Args), dim3 grid,
+                                   int threads, size_t bytes, int C,
+                                   cudaStream_t stream, const Args& a) {
+  if (C == 1) {
+    kernel<<<grid, threads, bytes, stream>>>(a);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// This block's rank in its cluster of C (0 without one).
+template <int C>
+__device__ __forceinline__ int cluster_rank() {
+  if (C == 1) return 0;
+  return (int)cooperative_groups::this_cluster().block_rank();
+}
+
+// Every block of the cluster has reached this point, its shared memory
+// writes before it visible to the peers (a block barrier for C = 1).
+template <int C>
+__device__ __forceinline__ void cluster_barrier() {
+  if (C == 1)
+    __syncthreads();
+  else
+    cooperative_groups::this_cluster().sync();
+}
+
+// acc[r] = sum_k A[r][k] w_row[k], k = slice, slice + ks, ...: one lane's
+// share of an output, A row-major in shared memory; four partial sums
+// (so consecutive loads overlap) added in a fixed order.
+template <int R>
+__device__ __forceinline__ void smem_dot(const float* A, int lda, int K,
+                                         const float* w_row, int slice,
+                                         int ks, float (&acc)[R]) {
+  float p[4][R];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+#pragma unroll
+    for (int r = 0; r < R; ++r) p[u][r] = 0.0f;
+  int k = slice;
+  for (; k + 3 * ks < K; k += 4 * ks) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float wv = w_row[k + u * ks];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        p[u][r] = fmaf(A[r * lda + k + u * ks], wv, p[u][r]);
+    }
+  }
+  for (; k < K; k += ks) {
+    const float wv = w_row[k];
+#pragma unroll
+    for (int r = 0; r < R; ++r) p[0][r] = fmaf(A[r * lda + k], wv, p[0][r]);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    acc[r] = (p[0][r] + p[1][r]) + (p[2][r] + p[3][r]);
+}
+
+template <int R>
+__device__ __forceinline__ void lanes_sum(float (&acc)[R], int ks) {
+  for (int o = 1; o < ks; o <<= 1) {
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], o);
+  }
+}
+
+// Columns [width p / C, width (p + 1) / C) of every peer p's row-major
+// [R][width] buffer into this block's, after a cluster barrier: the
+// gather of a chain whose columns a cluster of C splits.
+template <int C, int R>
+__device__ __forceinline__ void gather_peers(float* buf, int width,
+                                             int rank, int tid, int nthr) {
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  cluster.sync();
+#pragma unroll
+  for (int p = 0; p < C; ++p) {
+    if (p == rank) continue;
+    const int lo = width * p / C, cols = width * (p + 1) / C - lo;
+    const float* peer = cluster.map_shared_rank(buf, p);
+    for (int i = tid; i < R * cols; i += nthr) {
+      const int r = i / cols, j = lo + i - r * cols;
+      buf[r * width + j] = peer[r * width + j];
+    }
+  }
 }
 
 // An asynchronous 4-byte copy from device memory into shared memory
@@ -159,7 +303,6 @@ enum ClockKernel {
   kClockDecoderBwd,
   kClockMemChainBwd,
   kClockCellChainsBwd,
-  kClockEncodeFwd,
   kClockCellChainsFwd,
   kClockMemChainFwd,
   kClockKernels

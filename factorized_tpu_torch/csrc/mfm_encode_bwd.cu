@@ -33,10 +33,13 @@
 //     of batch rows keeps g1w2, g2w2 and gw1[M2:] (128 KiB) in shared
 //     memory, copied in once with cp.async. A step: dq1, dq2, dch
 //     elementwise; du3; a block barrier; the carry; a block barrier.
-//     (Splitting the columns over a thread-block cluster, peers trading
-//     du3 and the carry through distributed shared memory, was slower at
-//     every size from 2 to 16 at the training batch: PERF.md.) Writes the
-//     dq1, dq2, dch and du3 deltas.
+//     Writes the dq1, dq2, dch and du3 deltas. Where those weights pass
+//     one block's shared memory (2 mem (s3 + s4) floats: 256 KiB at mem
+//     128 and both gamma MLPs 128 wide), a thread-block cluster of the
+//     smallest size that fits splits du3's and the carry's columns, the
+//     peers trading du3 and the carry through distributed shared memory
+//     after a cluster barrier each (at the pinned widths one block fits,
+//     and every cluster was slower: PERF.md).
 // (3) The attention branch, all t * n rows at once (no carry), as
 //     product_kernel in tiles and softmax_bwd_kernel: du2 = dch @ a2w2^T
 //     * kg2; dattended = du3 @ gw1[:M2]^T + du2 @ a2w1^T, with datt =
@@ -50,7 +53,8 @@
 //     the cell's diagonal blocks of wh in shared memory (cell_bwd.cuh):
 //     the gate backward from the precomputed gates, dcstar split between
 //     this step's c and the previous one's (units past z_tot), and dh =
-//     dgates @ W_cell^T. Writes dxp.
+//     dgates @ W_cell^T. Writes dxp. A cell past one block's shared
+//     memory splits its gate columns over a cluster (cell_bwd.cuh).
 //
 // Variants (the same bits as the stream variant): stream, one step per
 // iteration of the chains, the next step's operands copied in with
@@ -214,18 +218,26 @@ __global__ void __launch_bounds__(kMaxThreads) gates_kernel(const BwdArgs a) {
 
 // ----------------------------------------------- pass (2): memory chain
 
-// The memory chain's two products: ks lanes share an output (a du3
-// column or a carry column) and p is the weight rows' pitch in shared
-// memory.
+// A block's share of the memory chain's columns in a cluster of C (all
+// of them for C = 1): du3 columns [u0, u1) and carry columns [m0, m1); ks
+// lanes share an output and p is the weight rows' pitch in shared memory.
+// Sized by the largest share, cu and cm columns.
 struct MemTile {
-  int ks3, p3, ksm, pm;
+  int u0, u1, m0, m1, cu, cm, ks3, p3, ksm, pm;
 };
 
-__host__ __device__ inline MemTile mem_tile(int s34, int mem, int threads) {
+__host__ __device__ inline MemTile mem_tile(int s34, int mem, int C,
+                                            int rank, int threads) {
   MemTile m;
-  m.ks3 = lanes_per_output(s34, threads);
+  m.u0 = s34 * rank / C;
+  m.u1 = s34 * (rank + 1) / C;
+  m.m0 = mem * rank / C;
+  m.m1 = mem * (rank + 1) / C;
+  m.cu = (s34 + C - 1) / C;
+  m.cm = (mem + C - 1) / C;
+  m.ks3 = lanes_per_output(m.cu, threads);
   m.p3 = conflict_free_pitch(mem, m.ks3);
-  m.ksm = lanes_per_output(mem, threads);
+  m.ksm = lanes_per_output(m.cm, threads);
   m.pm = conflict_free_pitch(s34, m.ksm);
   return m;
 }
@@ -235,10 +247,10 @@ __host__ __device__ inline int mem_op_width(int mem, int s34) {
   return 4 * mem + s34;
 }
 
-__host__ __device__ inline size_t mem_chain_floats(int mem, int s34, int R,
-                                                   int threads) {
-  const MemTile m = mem_tile(s34, mem, threads);
-  return (size_t)s34 * m.p3 + (size_t)mem * m.pm +
+__host__ __device__ inline size_t mem_chain_floats(int mem, int s34, int C,
+                                                   int R, int threads) {
+  const MemTile m = mem_tile(s34, mem, C, 0, threads);
+  return (size_t)m.cu * m.p3 + (size_t)m.cm * m.pm +
          (size_t)2 * R * mem_op_width(mem, s34) +
          (size_t)R * (2 * mem + mem + 2 * mem + s34);
 }
@@ -273,73 +285,40 @@ __device__ __forceinline__ void load_mem_ops(const BwdArgs& a, int s,
   }
 }
 
-// acc[r] = sum_k A[r][k] w_row[k], k = slice, slice + ks, ...: one lane's
-// share of an output, A row-major in shared memory; four partial sums
-// (so consecutive loads overlap) added in a fixed order.
-template <int R>
-__device__ __forceinline__ void smem_dot(const float* A, int lda, int K,
-                                         const float* w_row, int slice,
-                                         int ks, float (&acc)[R]) {
-  float p[4][R];
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int r = 0; r < R; ++r) p[u][r] = 0.0f;
-  int k = slice;
-  for (; k + 3 * ks < K; k += 4 * ks) {
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const float wv = w_row[k + u * ks];
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        p[u][r] = fmaf(A[r * lda + k + u * ks], wv, p[u][r]);
-    }
-  }
-  for (; k < K; k += ks) {
-    const float wv = w_row[k];
-#pragma unroll
-    for (int r = 0; r < R; ++r) p[0][r] = fmaf(A[r * lda + k], wv, p[0][r]);
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r)
-    acc[r] = (p[0][r] + p[1][r]) + (p[2][r] + p[3][r]);
-}
-
-template <int R>
-__device__ __forceinline__ void lanes_sum(float (&acc)[R], int ks) {
-  for (int o = 1; o < ks; o <<= 1) {
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], o);
-  }
-}
-
-// Block: R batch rows. P: two-step.
-template <int R, bool P>
+// Block: rank `rank` of a cluster of C over R batch rows. P: two-step.
+template <int R, bool P, int C>
 __global__ void __launch_bounds__(kMaxThreads)
     mem_chain_kernel(const BwdArgs a) {
   extern __shared__ float smem[];
+  const int rank = cluster_rank<C>();
   const int mem = a.mem, s3 = a.s3, s34 = a.s3 + a.s4;
   const int W = mem_op_width(mem, s34);
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nthr >> 5;
-  const int row0 = blockIdx.x * R;
-  const MemTile m = mem_tile(s34, mem, nthr);
+  const int row0 = (blockIdx.x / C) * R;
+  const MemTile m = mem_tile(s34, mem, C, rank, nthr);
   const DeltaLayout& dl = a.dl;
 
-  float* const w3 = smem;              // [s34][p3]: g1w2 | g2w2 rows
-  float* const wm = w3 + s34 * m.p3;   // [mem][pm]: gw1 rows M2 + c
-  float* const ops = wm + mem * m.pm;  // two [R][W]: step s's at s & 1
+  float* const w3 = smem;              // [cu][p3]: g1w2 | g2w2 rows
+  float* const wm = w3 + m.cu * m.p3;  // [cm][pm]: gw1 rows M2 + c
+  float* const ops = wm + m.cm * m.pm;  // two [R][W]: step s's at s & 1
   float* dmem = ops + 2 * R * W;       // [R][mem]: the carry into the step
   float* dnext = dmem + R * mem;       // [R][mem]: the carry out of it
   float* const carry = dnext + R * mem;  // [R][mem]: dmem * g1
   float* const dq = carry + R * mem;     // [R][2 mem]: dq1 | dq2
   float* const du3 = dq + R * 2 * mem;   // [R][s34]
 
-  copy_rows_async(w3, m.p3, a.g1w2, mem, s3, mem, tid, nthr);
-  copy_rows_async(w3 + s3 * m.p3, m.p3, a.g2w2, mem, a.s4, mem, tid, nthr);
-  copy_rows_async(wm, m.pm, a.gw1 + (size_t)a.m2 * s34, s34, mem, s34, tid,
-                  nthr);
+  const int nu = m.u1 - m.u0, nm = m.m1 - m.m0;
+  // the first `split` of the block's du3 rows come from g1w2, the rest
+  // from g2w2
+  const int split = s3 <= m.u0 ? 0 : (s3 - m.u0 < nu ? s3 - m.u0 : nu);
+  copy_rows_async(w3, m.p3, a.g1w2 + (size_t)m.u0 * mem, mem, split, mem,
+                  tid, nthr);
+  copy_rows_async(w3 + split * m.p3, m.p3,
+                  a.g2w2 + (size_t)(m.u0 + split - s3) * mem, mem,
+                  nu - split, mem, tid, nthr);
+  copy_rows_async(wm, m.pm, a.gw1 + (size_t)(a.m2 + m.m0) * s34, s34, nm,
+                  s34, tid, nthr);
   for (int i = tid; i < R * mem; i += nthr) {
     const int r = i / mem, row = row0 + r;
     dmem[i] = row < a.n ? a.dmemlast[(size_t)row * mem + i - r * mem] : 0.0f;
@@ -366,7 +345,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     const size_t base = (size_t)s * a.n;
 
     // (a) the memory update and the gamma heads, elementwise: dq1, dq2,
-    //     dch and dmem * g1, and their deltas
+    //     dch and dmem * g1; the block writes its columns' deltas
     for (int i = tid; i < R * mem; i += nthr) {
       const int r = i / mem, k = i - r * mem, row = row0 + r;
       const float* o = op + r * W;
@@ -378,7 +357,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       dq[r * 2 * mem + k] = q1;
       dq[r * 2 * mem + mem + k] = q2;
       carry[i] = dm * g1;
-      if (row < a.n) {
+      if (row < a.n && k >= m.m0 && k < m.m1) {
         float* d = a.delta + (base + row) * dl.width;
         d[dl.dq1 + k] = q1;
         d[dl.dq2 + k] = q2;
@@ -388,15 +367,15 @@ __global__ void __launch_bounds__(kMaxThreads)
     __syncthreads();
     FTT_STAMP(a.clocks, kClockMemChainBwd, a.t - s, 0);
 
-    // (b) du3 = [dq1 @ g1w2^T, dq2 @ g2w2^T] * kg3
-    for (int b0 = warp * 32; b0 < s34 * m.ks3; b0 += nwarp * 32) {
-      const int item = b0 + lane, j = item / m.ks3;
-      const int slice = item - j * m.ks3;
-      const bool ok = item < s34 * m.ks3;
+    // (b) du3 = [dq1 @ g1w2^T, dq2 @ g2w2^T] * kg3 for the block's columns
+    for (int b0 = warp * 32; b0 < nu * m.ks3; b0 += nwarp * 32) {
+      const int item = b0 + lane, jl = item / m.ks3;
+      const int slice = item - jl * m.ks3, j = m.u0 + jl;
+      const bool ok = item < nu * m.ks3;
       float acc[R];
       zero(acc);
       if (ok)
-        smem_dot<R>(dq + (j < s3 ? 0 : mem), 2 * mem, mem, w3 + j * m.p3,
+        smem_dot<R>(dq + (j < s3 ? 0 : mem), 2 * mem, mem, w3 + jl * m.p3,
                     slice, m.ks3, acc);
       lanes_sum<R>(acc, m.ks3);
       if (ok && slice == 0) {
@@ -410,18 +389,19 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
     }
     if (s == 0) break;  // the carry out of step 0 is not needed
+    if (C > 1) gather_peers<C, R>(du3, s34, rank, tid, nthr);
     __syncthreads();
     FTT_STAMP(a.clocks, kClockMemChainBwd, a.t - s, 1);
 
-    // (c) the carry: dmem * g1 + du3 @ gw1[M2:]^T
-    for (int b0 = warp * 32; b0 < mem * m.ksm; b0 += nwarp * 32) {
-      const int item = b0 + lane, c = item / m.ksm;
-      const int slice = item - c * m.ksm;
-      const bool ok = item < mem * m.ksm;
+    // (c) the carry's columns: dmem * g1 + du3 @ gw1[M2:]^T
+    for (int b0 = warp * 32; b0 < nm * m.ksm; b0 += nwarp * 32) {
+      const int item = b0 + lane, cl = item / m.ksm;
+      const int slice = item - cl * m.ksm, c = m.m0 + cl;
+      const bool ok = item < nm * m.ksm;
       float acc[R];
       zero(acc);
       if (ok)
-        smem_dot<R>(du3, s34, s34, wm + c * m.pm, slice, m.ksm, acc);
+        smem_dot<R>(du3, s34, s34, wm + cl * m.pm, slice, m.ksm, acc);
       lanes_sum<R>(acc, m.ksm);
       if (ok && slice == 0) {
 #pragma unroll
@@ -429,6 +409,7 @@ __global__ void __launch_bounds__(kMaxThreads)
           dnext[r * mem + c] = carry[r * mem + c] + acc[r];
       }
     }
+    if (C > 1) gather_peers<C, R>(dnext, mem, rank, tid, nthr);
     float* const spent = dmem;
     dmem = dnext;
     dnext = spent;
@@ -436,6 +417,8 @@ __global__ void __launch_bounds__(kMaxThreads)
     __syncthreads();
     FTT_STAMP(a.clocks, kClockMemChainBwd, a.t - s, 2);
   }
+  // no block leaves while a peer may still read its shared memory
+  if (C > 1) cluster_barrier<C>();
 }
 
 // ----------------------------------------- pass (3): attention branch
@@ -455,28 +438,35 @@ constexpr int kSplit = 4;  // groups of 8 x 8 threads, a 4 x 4 tile each
 constexpr int kProductThreads = 64 * kSplit;
 
 // att = softmax(r1 @ a1w2 + a1b2) for R rows, with the forward's order of
-// operations (a thread per logit column over the rows, then a warp per
-// row), so att has the bits the forward stored.
+// operations (its tiled product, mfm_encode_fwd.cu, sums each logit in
+// kSplit quarters of the depth, each from zero in order of k, adds the
+// quarters in order and then the bias; then a warp per row), so att has
+// the bits the forward stored.
 template <int R>
 __device__ __forceinline__ void recompute_att(const BwdArgs& a, float* att,
                                               const float* r1, int tid,
                                               int nthr, int lane, int warp,
                                               int nwarp) {
-  const int M2 = a.m2;
+  const int M2 = a.m2, K = a.s1;
   for (int j = tid; j < M2; j += nthr) {
     float acc[R];
+    const float* wj = a.a1w2 + j;
+    for (int g = 0; g < kSplit; ++g) {
+      float part[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) part[r] = 0.0f;
+      for (int k = K * g / kSplit; k < K * (g + 1) / kSplit; ++k) {
+        const float wv = __ldg(wj + (size_t)k * M2);
+        const float* rk = r1 + k * R;
+#pragma unroll
+        for (int r = 0; r < R; ++r) part[r] = fmaf(rk[r], wv, part[r]);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = g == 0 ? part[r] : acc[r] + part[r];
+    }
     const float b = __ldg(a.a1b2 + j);
 #pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = b;
-    const float* wj = a.a1w2 + j;
-    for (int k = 0; k < a.s1; ++k) {
-      const float wv = __ldg(wj + (size_t)k * M2);
-      const float* rk = r1 + k * R;
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = fmaf(rk[r], wv, acc[r]);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) att[j * R + r] = acc[r];
+    for (int r = 0; r < R; ++r) att[j * R + r] = acc[r] + b;
   }
   __syncthreads();
   for (int r = warp; r < R; r += nwarp) {
@@ -721,29 +711,33 @@ __device__ __forceinline__ void load_cell_step(const BwdArgs& a, int s,
   }
 }
 
-// blockIdx.y is the cell, blockIdx.x the row tile. P: two-step.
-template <int R, bool P>
+// blockIdx.y is the cell, blockIdx.x / C the row tile and the rank in
+// the cluster of C its share of the cell's gate columns. P: two-step.
+template <int R, bool P, int C>
 __global__ void __launch_bounds__(kMaxThreads)
     lstm_chains_kernel(const BwdArgs a) {
   extern __shared__ float smem[];
-  const CellTile c = cell_tile(a.cells, blockIdx.y, blockDim.x);
+  const int rank = cluster_rank<C>();
+  const CellTile c = cell_tile<C>(a.cells, blockIdx.y, blockDim.x, rank);
   const int h = c.h;
-  const int row0 = blockIdx.x * R;
+  const int row0 = (blockIdx.x / C) * R;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nthr >> 5;
   float* const w = smem;
   float* const dh = w + h * c.wp;
   float* const dc = dh + pad4(h * R);
-  float* const dg = dc + pad4(h * R);
+  float* const dg = dc + pad4(h * R);  // [C kc][R]: rows past 4h zero
   // two operand buffers; step s uses buffer s & 1. cStar covers the cells
-  // past z_tot (a cell boundary)
-  float* const buf = dg + 4 * h * R;
+  // past z_tot (a cell boundary). Then, for a cluster, two partial dh
+  float* const buf = dg + C * c.kc * R;
   const int step_floats = kCellOpWidth * h * R;
+  float* const part = buf + 2 * step_floats;
   const bool with_dcs = c.k0 >= a.z_tot;
 
   load_cell_weights(w, a.wh, a.H, c, tid, nthr);
   load_rows_async<R>(dh, a.dhlast, 0, a.n, a.H, c.k0, h, row0, tid, nthr);
   for (int i = tid; i < h * R; i += nthr) dc[i] = 0.0f;
+  for (int i = 4 * h * R + tid; i < C * c.kc * R; i += nthr) dg[i] = 0.0f;
   if (!P)
     load_cell_step<R>(a, a.t - 1,
                       cell_step(buf + ((a.t - 1) & 1) * step_floats, h, R,
@@ -768,16 +762,24 @@ __global__ void __launch_bounds__(kMaxThreads)
       load_cell_step<R>(a, s - 1, prev, c, row0, tid, nthr);
     }
     cell_gate_bwd<R>(op, dh, dc, dg, a.dxp, s, a.n, a.H, c, row0, tid,
-                     nthr);
+                     nthr, C == 1 || rank == 0);
     if (s == 0) break;  // no dh into the zero state before step 0
     __syncthreads();
     FTT_STAMP(a.clocks, kClockCellChainsBwd, a.t - s, 0);
-    cell_dh<R>(w, dg, nullptr, dh, c, lane, warp, nwarp);
+    if (C == 1) {
+      cell_dh<R>(w, dg, nullptr, dh, c, lane, warp, nwarp);
+    } else {
+      float* const mine = part + (s & 1) * pad4(h * R);
+      cell_dh<R>(w, dg, nullptr, mine, c, lane, warp, nwarp);
+      cluster_dh<C, R>(dh, mine, nullptr, h, tid, nthr);
+    }
     FTT_STAMP(a.clocks, kClockCellChainsBwd, a.t - s, 1);
     cp_async_wait_all();
     __syncthreads();
     FTT_STAMP(a.clocks, kClockCellChainsBwd, a.t - s, 2);
   }
+  // no block leaves while a peer may still read its partials
+  if (C > 1) cluster_barrier<C>();
 }
 
 // ------------------------------------------------------------ launches
@@ -787,30 +789,45 @@ const Kernel kProductKernels[4] = {product_kernel<kDu2>,
                                    product_kernel<kDu1>,
                                    product_kernel<kDcstarAdd>};
 
-// One pass's launch: its kernel, grid, block and shared memory.
+// The chains' kernels at a cluster of C.
+template <int R, bool P>
+Kernel mem_chain_for(int C) {
+  return C == 1   ? mem_chain_kernel<R, P, 1>
+         : C == 2 ? mem_chain_kernel<R, P, 2>
+         : C == 4 ? mem_chain_kernel<R, P, 4>
+                  : mem_chain_kernel<R, P, 8>;
+}
+
+template <int R, bool P>
+Kernel lstm_chains_for(int C) {
+  return C == 1   ? lstm_chains_kernel<R, P, 1>
+         : C == 2 ? lstm_chains_kernel<R, P, 2>
+         : C == 4 ? lstm_chains_kernel<R, P, 4>
+                  : lstm_chains_kernel<R, P, 8>;
+}
+
+// One pass's launch: its kernel, grid, block and shared memory, and the
+// cluster its blocks run in (1: none).
 struct Pass {
   Kernel kernel;
   dim3 grid;
   int threads;
   size_t bytes;
+  int cluster;
 };
 
 // The fit gate: the pass's shared memory against the card's, and the
-// kernel allowed that much. Fills need = {pass, bytes, the card's limit}
-// and fails if it does not fit.
-cudaError_t prepare(const Pass& p, int index, int* need) {
-  if (p.bytes > (size_t)kMaxSmemBytes) {
-    need[0] = index;
-    need[1] = (int)p.bytes;
-    need[2] = kMaxSmemBytes;
-    return cudaErrorInvalidValue;
-  }
+// kernel allowed that much. Records a refusal in `fit` and fails if it
+// does not fit.
+cudaError_t prepare(const Pass& p, int index, int* fit) {
+  if (p.bytes > (size_t)kMaxSmemBytes)
+    return refuse(fit, index, p.bytes, p.cluster);
   return allow_smem(reinterpret_cast<const void*>(p.kernel), p.bytes);
 }
 
 cudaError_t launch(const Pass& p, const BwdArgs& a, cudaStream_t stream) {
-  p.kernel<<<p.grid, p.threads, p.bytes, stream>>>(a);
-  return cudaGetLastError();
+  return launch_clusters(p.kernel, p.grid, p.threads, p.bytes, p.cluster,
+                         stream, a);
 }
 
 // ------------------------------------------------------------- kernel (b)
@@ -935,9 +952,11 @@ __global__ void __launch_bounds__(kDwThreads)
 // and att_scratch (t, n, M2) too for the recompute-att variant (else
 // unused). variant is 0 (stream), 1 (recompute-att) or 2 (two-step, t
 // even); threads a multiple of 32 up to 512, the block size of the gates
-// pass, the chains and the softmax. need (host memory, three ints) is left
-// zero, or, when a pass's shared memory does not fit the card, set to
-// {pass, bytes, the card's limit} before anything is launched.
+// pass, the chains and the softmax. fit (host memory, six ints,
+// lstm_common.cuh's Fit) gets the clusters the memory chain and the LSTM
+// chains ran on (each the smallest whose blocks fit), or, when a pass's
+// shared memory does not fit the card even at a cluster of 8, the refusal
+// before anything is launched.
 extern "C" int mfm_encode_bwd(
     const float* xp, const float* allh, const float* allc,
     const float* allmem, void* const* res_ptrs, const int* res_strides,
@@ -948,7 +967,7 @@ extern "C" int mfm_encode_bwd(
     float* delta, float* gates, float* dcstar, float* datt,
     float* att_scratch, int t, int n, int H, int z_tot, int mem, int s1,
     int s2, int s3, int s4, int n_cells, const int* cell_dims, int variant,
-    int threads, int* need, void* stream) {
+    int threads, int* fit, void* stream) {
   using namespace ftt;
   BwdArgs a;
   a.xp = xp;
@@ -982,7 +1001,7 @@ extern "C" int mfm_encode_bwd(
   a.s4 = s4;
   a.m2 = 2 * (H - z_tot);
   a.dl = delta_layout(H, z_tot, mem, s1, s2, s3, s4);
-  need[0] = need[1] = need[2] = 0;
+  clear_fit(fit);
   int widths[kResFields];
   res_widths(H, z_tot, mem, s1, s2, s3, s4, widths);
   bool boundary = false;
@@ -1003,6 +1022,23 @@ extern "C" int mfm_encode_bwd(
   if (recompute) a.att = ResEntry{att_scratch, a.m2, 0};
   const int s34 = s3 + s4, flat = t * n;
   const int tiles_m = (flat + kTile - 1) / kTile;
+  // the two chains on the smallest clusters whose blocks fit
+  size_t mem_bytes = 0, cell_bytes = 0;
+  const int Cm = smallest_cluster(
+      [&](int C) {
+        return mem_chain_floats(mem, s34, C, kMemRows, threads) *
+               sizeof(float);
+      },
+      &mem_bytes);
+  if (Cm == 0) return (int)refuse(fit, 2, mem_bytes, kMaxCluster);
+  const int Cc = smallest_cluster(
+      [&](int C) {
+        return cell_chain_bytes(a.cells, kCellRows, threads, kCellOpWidth, C);
+      },
+      &cell_bytes);
+  if (Cc == 0) return (int)refuse(fit, 4, cell_bytes, kMaxCluster);
+  fit[kFitChainA] = Cm;
+  fit[kFitChainB] = Cc;
   // the launches in order, each with its pass (1 to 4)
   Pass p[10];
   int pass_of[10], count = 0;
@@ -1012,30 +1048,30 @@ extern "C" int mfm_encode_bwd(
   };
   add(1, {gates_kernel<kTileRows>,
           dim3((flat + kTileRows - 1) / kTileRows), threads,
-          (size_t)kTileRows * H * sizeof(float)});
-  add(2, {pairs ? mem_chain_kernel<kMemRows, true>
-                : mem_chain_kernel<kMemRows, false>,
-          dim3((n + kMemRows - 1) / kMemRows), threads,
-          mem_chain_floats(mem, s34, kMemRows, threads) * sizeof(float)});
+          (size_t)kTileRows * H * sizeof(float), 1});
+  add(2, {pairs ? mem_chain_for<kMemRows, true>(Cm)
+                : mem_chain_for<kMemRows, false>(Cm),
+          dim3(((n + kMemRows - 1) / kMemRows) * Cm), threads, mem_bytes,
+          Cm});
   if (recompute)
     add(3, {recompute_att_kernel<kTileRows>,
             dim3((flat + kTileRows - 1) / kTileRows), threads,
-            (size_t)kTileRows * (s1 + a.m2) * sizeof(float)});
+            (size_t)kTileRows * (s1 + a.m2) * sizeof(float), 1});
   for (int id = kDu2; id <= kDcstarAdd; ++id) {
     const ProductSpec spec = product_spec(a, id);
     add(3, {kProductKernels[id],
             dim3(tiles_m * ((spec.N + kTile - 1) / kTile)), kProductThreads,
-            product_floats(spec) * sizeof(float)});
+            product_floats(spec) * sizeof(float), 1});
     if (id == kDattended)  // the softmax between dattended and du1
       add(3, {softmax_bwd_kernel, dim3((flat + threads / 32 - 1) /
-                                       (threads / 32)), threads, 0});
+                                       (threads / 32)), threads, 0, 1});
   }
-  add(4, {pairs ? lstm_chains_kernel<kCellRows, true>
-                : lstm_chains_kernel<kCellRows, false>,
-          dim3((n + kCellRows - 1) / kCellRows, a.cells.count), threads,
-          cell_chain_bytes(a.cells, kCellRows, threads, kCellOpWidth)});
+  add(4, {pairs ? lstm_chains_for<kCellRows, true>(Cc)
+                : lstm_chains_for<kCellRows, false>(Cc),
+          dim3(((n + kCellRows - 1) / kCellRows) * Cc, a.cells.count),
+          threads, cell_bytes, Cc});
   for (int k = 0; k < count; ++k) {
-    cudaError_t err = prepare(p[k], pass_of[k], need);
+    cudaError_t err = prepare(p[k], pass_of[k], fit);
     if (err != cudaSuccess) return (int)err;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);

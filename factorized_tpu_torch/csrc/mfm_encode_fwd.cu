@@ -1,4 +1,5 @@
-// Fused MFM encode, forward, eval and train.
+// Fused MFM encode, forward, eval and train: three passes along the
+// step's independent chains.
 //
 // Replaces: factorized_tpu/ops/pallas_mfn.py::_fwd_kernel (reached through
 // _fwd_call, mfm_encode_pallas and its custom_vjp forward _encode_fwd):
@@ -6,49 +7,67 @@
 // (dropout masks; with_res, the residuals the backward reads). With the
 // residuals split into ten tensors it also replaces
 // scripts/bwd_residual_probe.py::_fwd_res_kernel; with one buffer it is the
-// same function and design as that script's _fwd_cat_kernel (one launch
-// looping over time).
+// same function as that script's _fwd_cat_kernel.
 //
 // What it computes, for each of the t steps of a (t, n, 4H) gate-major
-// input projection xp: the six fused LSTM cells [enc_l, enc_a, enc_v,
-// mfn_l, mfn_a, mfn_v] (gates = xp_t + h @ wh, wh block-diagonal and
-// gate-major); cStar = [c_prev, c_new][:, z_tot:]; the att1 relu-MLP with a
-// softmax over cStar; attended = att * cStar; the att2 tanh proposal chat;
-// the merged gamma fc1 on [attended, mem] with two sigmoid heads; and
-// mem = g1 * mem + g2 * chat. It returns h_last (n, H) and mem_last (n, mem).
-// In train mode the relu outputs of the att1, att2 and gamma fc1s are
-// multiplied by the scaled keep-masks (t, n, s1 + s2 + s3 + s4), and with
-// residuals it also writes allh, allc (t, n, H), allmem (t, n, mem) and the
-// ten fields of the JAX package's _RES_NAMES: att, r1, kg1, r2, kg2, r3,
-// kg3, chat, g1, g2, with r* the post-dropout activations and kg* = mask *
-// (u > 0). It writes them through a residual-layout table (mfm_res.cuh):
-// one (t, n, R) buffer, as the training path keeps them, or ten
-// (t, n, width) tensors.
+// input projection xp (pallas_mfn.py::_step_fwd): the six fused LSTM cells
+// [enc_l, enc_a, enc_v, mfn_l, mfn_a, mfn_v] (gates = xp_t + h @ wh, wh
+// block-diagonal and gate-major); cStar = [c_prev, c_new][:, z_tot:]; the
+// att1 relu-MLP with a softmax over cStar; attended = att * cStar; the att2
+// tanh proposal chat; the gamma fc1 on [attended, mem] with two sigmoid
+// heads; and mem = g1 * mem + g2 * chat. It returns h_last (n, H) and
+// mem_last (n, mem). In train mode the relu outputs of the att1, att2 and
+// gamma fc1s are multiplied by the scaled keep-masks (t, n, s1 + s2 + s3 +
+// s4), and with residuals it also writes allh, allc (t, n, H), allmem (t,
+// n, mem) and the ten fields of the JAX package's _RES_NAMES: att, r1,
+// kg1, r2, kg2, r3, kg3, chat, g1, g2, with r* the post-dropout
+// activations and kg* = mask * (u > 0), through the residual-layout table
+// (mfm_res.cuh): one (t, n, R) buffer, as the training path keeps them, or
+// ten (t, n, width) tensors.
 //
 // What bounds it on an H100: operations. At the serving batch (n = 256,
 // t = 20, best_acc_mosi_config) the useful work is 3.9 GFLOP in float32
-// (the per-cell recurrent products plus the attention and gate products)
-// against about 29 MB of traffic, most of it xp; at 67 TFLOP/s of float32
-// outside the tensor cores that is about 59 us. In practice the bound is
-// the serial chain: every step is seven dependent small products, and
-// only n / ROWS blocks have work. At the training batch (n = 32) the
-// residuals add t * n * (2H + mem + R) floats of writes, 5.9 MB, under
-// 2 us of bandwidth; the bound stays the operations (0.49 GFLOP, about
-// 7 us) and the practice the serial chain, now over 32 / ROWS blocks.
+// against about 29 MB of traffic: about 59 us at 67 TFLOP/s. At the
+// training batch (n = 32) 0.49 GFLOP, about 7 us; the residuals add 5.9 MB
+// of writes, under 2 us. In practice the serial chains bound it.
 //
-// What the design does about it: one block owns ROWS batch rows and loops
-// over the t steps itself (blocks run in no order, so the TPU kernel's
-// sequential grid over time becomes this loop). The h/c carries, mem and
-// every step intermediate stay in shared memory, stored feature-major
-// ([feature][row]) so each thread computes one output column for all its
-// rows from one weight load. Weights (2.8 MB) are read from global memory
-// and stay in L2; none of them fits one block's shared memory. The
-// recurrent product reads only the diagonal blocks of wh. Nothing else yet:
-// no tensor cores, TMA or clusters.
+// What the design does about it: the TPU kernel's one chain of seven
+// dependent phases a step is three passes, and only two of them carry
+// anything from step to step. The LSTM cells never read the memory; the
+// attention branch needs only cStar; only the memory's half of the gamma
+// product, the heads and the update are serial in the memory.
+//
+// (1) cell_chains_fwd_kernel, serial over t: one block per (cell, row
+//     tile), the cell's diagonal blocks of wh in shared memory (the
+//     88-unit cell's 124 KB), xp_t copied in with cp.async a step ahead
+//     (cell_fwd.cuh). Writes allc (into scratch for the eval variant),
+//     allh with residuals, and h_last. A cell past one block splits over
+//     a thread-block cluster.
+// (2) The attention branch over every (step, row) pair at once (no
+//     carry), as product_fwd_kernel in tiles and softmax_fwd_kernel:
+//     cStar from allc; u1 = cStar @ a1w1 + b, r1 and kg1; the logits and
+//     their softmax, att; attended; u2, r2 and kg2; pu3 = attended @
+//     gw1[:M2] + gb1, the gamma product's first part, into scratch; chat =
+//     tanh(r2 @ a2w2 + b). Fixed-order tiled products, as the backward's
+//     attention pass.
+// (3) mem_chain_fwd_kernel, serial over t: one block per row tile with
+//     gw1[M2:], g1w2 and g2w2 in shared memory (128 KiB at the pinned
+//     widths, transposed so that a few lanes share an output's depth and
+//     shuffles add their sums in a fixed order): u3 = pu3_t + mem @
+//     gw1[M2:], r3 and kg3; the two heads; mem = g1 * mem + g2 * chat_t,
+//     the next step's pu3, chat and masks copied in with cp.async. Writes
+//     r3, kg3, g1, g2, allmem and mem_last. Past one block's shared memory
+//     its columns split over a cluster, the peers trading r3 and the
+//     memory through distributed shared memory.
+//
+// Float32 on the CUDA cores, every sum in a fixed order: no atomics, the
+// same bits on every run. A launch whose shared memory passes the card's
+// even at clusters of 8 is refused before any pass starts.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cell_fwd.cuh"
 #include "lstm_common.cuh"
 #include "mfm_res.cuh"
 
@@ -60,7 +79,7 @@ constexpr int kMaxThreads = 512;
 struct EncodeArgs {
   const float* xp;     // (t, n, 4H)
   const float* masks;  // (t, n, S) or null: every site the identity
-  const float* wh;  // (H, 4H)
+  const float* wh;     // (H, 4H)
   const float* a1w1;
   const float* a1b1;
   const float* a1w2;
@@ -78,329 +97,612 @@ struct EncodeArgs {
   float* h_last;    // (n, H)
   float* mem_last;  // (n, mem)
   float* allh;      // (t, n, H), or null when no residuals are written
-  float* allc;      // (t, n, H)
-  float* allmem;    // (t, n, mem)
+  float* allc;      // (t, n, H): the output, or scratch without residuals
+  float* allmem;    // (t, n, mem), or null
   ResTable res;     // the ten residual fields (every entry null without)
+  float* pu3;       // (t, n, s3 + s4) scratch: pass (2) to pass (3)
+  float* work;      // (t, n, M2) scratch: the logits, then attended
+  // r1, r2 and chat: the residual fields, or scratch without residuals
+  ResEntry r1, r2, chat;
   long long* clocks;  // the per-phase probe's buffer, or null
-  int t, n, H, z_tot, mem, s1, s2, s3, s4;
+  int t, n, H, z_tot, mem, s1, s2, s3, s4, m2;
   Cells cells;
 };
 
-enum Act { kIdentity, kTanh };
+using Kernel = void (*)(const EncodeArgs);
 
-// Where the residuals go, a template argument: nowhere (the eval variant
-// carries none of their code), one buffer shared by the ten fields, or ten
-// tensors.
-enum ResKind { kNoRes, kOneBuffer, kTenTensors };
+// ------------------------------------------------------ (1) LSTM chains
 
-// Column 0 of field f in row `at` (= s * n + b). In one buffer every field
-// shares the pointer and row stride of field 0 (att, at column 0), so the
-// row's address is the same for all fields and only the offsets differ.
-template <int K>
-__device__ __forceinline__ float* field_row(const ResTable& t, int f,
-                                            size_t at) {
-  const ResEntry& e = t.f[K == kOneBuffer ? 0 : f];
-  return e.ptr + at * e.stride + t.f[f].col;
-}
+// blockIdx.y is the cell, blockIdx.x / C the row tile and the rank in the
+// cluster of C its share of the cell's gate columns.
+template <int R, int C>
+__global__ void __launch_bounds__(kMaxThreads)
+    cell_chains_fwd_kernel(const EncodeArgs a) {
+  extern __shared__ float smem[];
+  const int rank = cluster_rank<C>();
+  const FwdTile c = fwd_tile<C>(a.cells, blockIdx.y, blockDim.x, rank);
+  const int h = c.h, H = a.H;
+  float* const w = smem;
+  float* const hs = w + h * c.wp;         // [h][R]
+  float* const cs = hs + pad4(h * R);     // [h][R]
+  float* const xb = cs + pad4(h * R);     // two [4h][R]: step s's at s & 1
+  float* const part = xb + 8 * h * R;     // [kg kc][R], two for a cluster
+  const int part_floats = c.kg * c.kc * R;
+  const int row0 = (blockIdx.x / C) * R;
+  const int tid = threadIdx.x, nthr = blockDim.x;
 
-// acc[r] += sum_k A[k][r] * W[k][j], with A the feature-major stack of a0
-// (k0 features) over a1 (k1 features) and W row-major with ldw columns.
-template <int R>
-__device__ __forceinline__ void dot_col(const float* a0, int k0,
-                                        const float* a1, int k1,
-                                        const float* __restrict__ w, int ldw,
-                                        int j, float (&acc)[R]) {
-  const float* wj = w + j;
-  for (int k = 0; k < k0; ++k) {
-    const float wv = __ldg(wj + (size_t)k * ldw);
-    const float* a = a0 + k * R;
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = fmaf(a[r], wv, acc[r]);
+  load_cell_weights(w, a.wh, H, c.k0, h, c.c0, c.kc, c.wp, tid, nthr);
+  for (int i = tid; i < h * R; i += nthr) hs[i] = cs[i] = 0.0f;
+  load_gates_async<R>(xb, a.xp, 0, a.n, H, c, row0, tid, nthr);
+  cp_async_wait_all();
+  __syncthreads();
+  FTT_STAMP(a.clocks, kClockCellChainsFwd, 0, 0);
+
+  for (int s = 0; s < a.t; ++s) {
+    if (s + 1 < a.t)
+      load_gates_async<R>(xb + ((s + 1) & 1) * 4 * h * R, a.xp, s + 1, a.n,
+                          H, c, row0, tid, nthr);
+    float* const p = part + (C > 1 ? (s & 1) * part_floats : 0);
+    cell_gates_fwd<R>(w, hs, xb + (s & 1) * 4 * h * R, p, c, tid, nthr);
+    cluster_barrier<C>();
+    FTT_STAMP(a.clocks, kClockCellChainsFwd, s + 1, 0);
+    cell_update_fwd<C, R>(p, hs, cs, c, a.allh, a.allc, s, a.n, H, row0,
+                          C == 1 || rank == 0, tid, nthr);
+    cp_async_wait_all();
+    __syncthreads();
+    FTT_STAMP(a.clocks, kClockCellChainsFwd, s + 1, 1);
   }
-  wj += (size_t)k0 * ldw;
-  for (int k = 0; k < k1; ++k) {
-    const float wv = __ldg(wj + (size_t)k * ldw);
-    const float* a = a1 + k * R;
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = fmaf(a[r], wv, acc[r]);
-  }
-}
 
-template <int R>
-__device__ __forceinline__ void fill(float (&acc)[R], float v) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = v;
-}
-
-template <int R>
-__device__ __forceinline__ void store_col(float* out, int j,
-                                          const float (&acc)[R], Act act) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float v = acc[r];
-    if (act == kTanh) v = tanhf(v);
-    out[j * R + r] = v;
-  }
-}
-
-// The relu of a dropout site: out[j] = relu(u) * m for each of the R rows,
-// m the row's mask at column mask_col (1 without masks); with residuals
-// (K != kNoRes) also column j of field r_field = that and of kg_field =
-// m * (u > 0).
-template <int R, int K>
-__device__ __forceinline__ void store_site(float* out, int j,
-                                           const float (&acc)[R],
-                                           const EncodeArgs& a, int s,
-                                           int row0, int mask_col,
-                                           int r_field, int kg_field) {
-  const int S = a.s1 + a.s2 + a.s3 + a.s4;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = row0 + r;
-    const size_t at = (size_t)s * a.n + row;
-    const float u = acc[r];
-    float m = 1.0f;
-    if (a.masks != nullptr && row < a.n) m = a.masks[at * S + mask_col + j];
-    const float v = fmaxf(u, 0.0f) * m;
-    out[j * R + r] = v;
-    if (K != kNoRes && row < a.n) {
-      field_row<K>(a.res, r_field, at)[j] = v;
-      field_row<K>(a.res, kg_field, at)[j] = u > 0.0f ? m : 0.0f;
+  if (rank == 0) {
+    for (int i = tid; i < R * h; i += nthr) {
+      const int r = i / h, j = i - r * h, row = row0 + r;
+      if (row < a.n) a.h_last[(size_t)row * H + c.k0 + j] = hs[j * R + r];
     }
   }
+  // no block leaves while a peer may still read its gates
+  if (C > 1) cluster_barrier<C>();
 }
 
-template <int R, int K>
-__global__ void __launch_bounds__(kMaxThreads)
-    mfm_encode_fwd_kernel(const EncodeArgs a) {
-  extern __shared__ float smem[];
-  const int H = a.H, H4 = 4 * H;
-  const int M = H - a.z_tot, M2 = 2 * M;
+// --------------------------------------------------- (2) the attention
+//
+// Over all t n flat rows rr = s n + b at once (no carry), in five
+// launches: u1 and its dropout site r1; the logits; the softmax, att and
+// attended; u2 and its site r2 beside pu3; chat. Each product is A @ W in
+// kTile x kTile output tiles: a block copies its tile's rows of A and
+// columns of W, the whole depth, into shared memory at once with
+// cp.async; kSplit groups of 64 threads each take a quarter of the
+// depth, each thread summing a 4 x 4 tile of outputs in order of k, and
+// the groups' partial tiles are added in a fixed order, then the bias.
+
+constexpr int kTile = 32;  // output tile: kTile x kTile
+constexpr int kSplit = 4;  // groups of 8 x 8 threads, a 4 x 4 tile each
+constexpr int kProductThreads = 64 * kSplit;
+
+enum Product { kProdU1, kProdLogits, kProdU2Pu3, kProdChat, kProducts };
+
+// A product's A operand (rows of row stride lda; cStar is built from
+// allc) and its weights: W (K, N0) for the first N0 output columns and W1
+// (K, N - N0) for the rest, row-major with row strides ld0 and ld1.
+struct ProductSpec {
+  const float* a;
+  int lda, K;
+  const float* w0;
+  const float* w1;
+  int ld0, ld1, N0, N;
+};
+
+__host__ __device__ inline ProductSpec product_spec(const EncodeArgs& a,
+                                                   int id) {
   const int s34 = a.s3 + a.s4;
-  // feature-major [feature][R] buffers: h and c twice (this step's and
-  // the last), then mem and the step intermediates
-  float* const hc = smem;
-  float* mem = smem + 4 * H * R;
-  float* att = mem + a.mem * R;    // logits -> attention -> attended
-  float* r1 = att + M2 * R;
-  float* r2 = r1 + a.s1 * R;
-  float* r3 = r2 + a.s2 * R;
-  float* heads = r3 + s34 * R;     // chat | g1 logits | g2 logits
-  const int row0 = blockIdx.x * R;
+  switch (id) {
+    case kProdU1:  // cStar @ a1w1
+      return {nullptr, 0, a.m2, a.a1w1, nullptr, a.s1, 0, a.s1, a.s1};
+    case kProdLogits:  // r1 @ a1w2
+      return {res_row(a.r1, 0), a.r1.stride, a.s1, a.a1w2, nullptr, a.m2,
+              0, a.m2, a.m2};
+    case kProdU2Pu3:  // attended @ [a2w1 | gw1[:M2]]
+      return {a.work, a.m2, a.m2, a.a2w1, a.gw1, a.s2, s34, a.s2,
+              a.s2 + s34};
+    default:  // r2 @ a2w2
+      return {res_row(a.r2, 0), a.r2.stride, a.s2, a.a2w2, nullptr, a.mem,
+              0, a.mem, a.mem};
+  }
+}
+
+// Rows of the staged A in shared memory: a warp reads 8 rows at once, 4
+// consecutive floats from each (conflict_free_pitch); W's staged rows are
+// kTile wide.
+__host__ __device__ inline int product_pitch(int K) {
+  return conflict_free_pitch(K, 4);
+}
+
+__host__ __device__ inline size_t product_floats(int K) {
+  const size_t f = (size_t)kTile * product_pitch(K) + (size_t)K * kTile;
+  const size_t parts = (size_t)kSplit * kTile * kTile;
+  return f > parts ? f : parts;
+}
+
+// cStar of flat row rr: c of the step before past z_tot (zeros before
+// step 0), then c of the step past z_tot.
+__device__ __forceinline__ float cstar_at(const EncodeArgs& a, int rr,
+                                          int k) {
+  const int M = a.H - a.z_tot;
+  if (k >= M) return a.allc[(size_t)rr * a.H + a.z_tot + k - M];
+  return rr >= a.n ? a.allc[(size_t)(rr - a.n) * a.H + a.z_tot + k] : 0.0f;
+}
+
+// A dropout site's relu for output (m, n): writes r = relu(u) * mask into
+// `r` and, with residuals, m * (u > 0) into kg.
+__device__ __forceinline__ void site(const EncodeArgs& a, int m, int n,
+                                     float u, int mask_col,
+                                     const ResEntry& r, int kg_field) {
+  const int S = a.s1 + a.s2 + a.s3 + a.s4;
+  const float mk =
+      a.masks != nullptr ? a.masks[(size_t)m * S + mask_col + n] : 1.0f;
+  res_row(r, m)[n] = fmaxf(u, 0.0f) * mk;
+  if (a.res.f[kg_field].ptr != nullptr)
+    res_row(a.res.f[kg_field], m)[n] = u > 0.0f ? mk : 0.0f;
+}
+
+// Where output (m, n) of product P goes, v its sum without the bias.
+template <int P>
+__device__ __forceinline__ void product_out(const EncodeArgs& a, int m,
+                                            int n, float v) {
+  if (P == kProdU1) {
+    site(a, m, n, v + __ldg(a.a1b1 + n), 0, a.r1, kKg1);
+  } else if (P == kProdLogits) {
+    a.work[(size_t)m * a.m2 + n] = v + __ldg(a.a1b2 + n);
+  } else if (P == kProdU2Pu3) {
+    if (n < a.s2) {
+      site(a, m, n, v + __ldg(a.a2b1 + n), a.s1, a.r2, kKg2);
+    } else {
+      const int j = n - a.s2;
+      a.pu3[(size_t)m * (a.s3 + a.s4) + j] = v + __ldg(a.gb1 + j);
+    }
+  } else {
+    res_row(a.chat, m)[n] = tanhf(v + __ldg(a.a2b2 + n));
+  }
+}
+
+// Block: one kTile x kTile tile of product P's (t n, N) output.
+template <int P>
+__global__ void __launch_bounds__(kProductThreads)
+    product_fwd_kernel(const EncodeArgs a) {
+  extern __shared__ float smem[];
+  const ProductSpec p = product_spec(a, P);
+  const int rows = a.t * a.n, tiles_n = (p.N + kTile - 1) / kTile;
+  const int m0 = (blockIdx.x / tiles_n) * kTile;
+  const int n0 = (blockIdx.x % tiles_n) * kTile;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  // this thread's group (a quarter of the depth) and its 4 x 4 outputs,
+  // rows ty + 8 i and columns tx + 8 j of the tile
+  const int g = tid / 64, tx = tid % 8, ty = (tid % 64) / 8;
+  const int live_m = rows - m0 < kTile ? rows - m0 : kTile;
+  const int live_n = p.N - n0 < kTile ? p.N - n0 : kTile;
+  const int K = p.K, pa = product_pitch(K);
+  float* const As = smem;              // [kTile][pa]: A's rows
+  float* const Ws = As + kTile * pa;   // [K][kTile]: W's columns
+  if (P == kProdU1) {
+    for (int e = tid; e < kTile * K; e += nthr) {
+      const int i = e / K, k = e - i * K;
+      As[i * pa + k] = i < live_m ? cstar_at(a, m0 + i, k) : 0.0f;
+    }
+  } else {
+    copy_rows_async(As, pa, p.a + (size_t)m0 * p.lda, p.lda, live_m, K, tid,
+                    nthr);
+    for (int e = tid; e < (kTile - live_m) * K; e += nthr) {
+      const int i = e / K;
+      As[(live_m + i) * pa + e - i * K] = 0.0f;
+    }
+  }
+  // the tile's columns of W: from w0 up to N0, then from w1
+  const int c0 = p.N0 - n0 > 0 ? (p.N0 - n0 < live_n ? p.N0 - n0 : live_n)
+                               : 0;
+  if (c0 > 0)
+    copy_rows_async(Ws, kTile, p.w0 + n0, p.ld0, K, c0, tid, nthr);
+  if (live_n > c0)
+    copy_rows_async(Ws + c0, kTile, p.w1 + n0 + c0 - p.N0, p.ld1, K,
+                    live_n - c0, tid, nthr);
+  for (int e = tid; e < (kTile - live_n) * K; e += nthr) {
+    const int k = e / (kTile - live_n);
+    Ws[k * kTile + live_n + e - k * (kTile - live_n)] = 0.0f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  const float* A = As + ty * pa;
+  const float* W = Ws + tx;
+  for (int k = K * g / kSplit; k < K * (g + 1) / kSplit; ++k) {
+    float av[4], wv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      av[i] = A[8 * i * pa + k];
+      wv[i] = W[k * kTile + 8 * i];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+  }
+  __syncthreads();  // the staged operands are read: reuse the space
+  float* const part = smem + g * kTile * kTile;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      part[(ty + 8 * i) * kTile + tx + 8 * j] = acc[i][j];
+  __syncthreads();
+  for (int e = tid; e < kTile * kTile; e += nthr) {
+    float v = smem[e];
+#pragma unroll
+    for (int q = 1; q < kSplit; ++q) v += smem[q * kTile * kTile + e];
+    const int m = m0 + e / kTile, n = n0 + e % kTile;
+    if (m < rows && n < p.N) product_out<P>(a, m, n, v);
+  }
+}
+
+// The softmax over each flat row's logits (a.work), max subtracted
+// first: att (with residuals, into its field) and attended = att * cStar
+// over the logits; a warp per row.
+__global__ void __launch_bounds__(kMaxThreads)
+    softmax_fwd_kernel(const EncodeArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int m = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (m >= a.t * a.n) return;  // the whole warp
+  const int M2 = a.m2;
+  float* const x = a.work + (size_t)m * M2;
+  float mx = -INFINITY;
+  for (int k = lane; k < M2; k += 32) mx = fmaxf(mx, x[k]);
+  for (int o = 16; o > 0; o >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  float sum = 0.0f;
+  for (int k = lane; k < M2; k += 32) {
+    const float e = expf(x[k] - mx);
+    x[k] = e;
+    sum += e;
+  }
+  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+  float* const att =
+      a.res.f[kAtt].ptr != nullptr ? res_row(a.res.f[kAtt], m) : nullptr;
+  for (int k = lane; k < M2; k += 32) {
+    const float p = x[k] / sum;
+    if (att != nullptr) att[k] = p;
+    x[k] = p * cstar_at(a, m, k);
+  }
+}
+
+// ----------------------------------------------- (3) the memory chain
+
+// A block's share of the memory chain's columns in a cluster of C (all of
+// them for C = 1): u3 columns [u0, u1) and memory columns [m0, m1); ks
+// lanes share an output and p is the (transposed) weight rows' pitch in
+// shared memory. Sized by the largest share, cu and cm columns.
+struct MemFwdTile {
+  int u0, u1, m0, m1, cu, cm, ksu, pu, ksm, p1, p2;
+};
+
+__host__ __device__ inline MemFwdTile mem_fwd_tile(int s3, int s4, int mem,
+                                                   int C, int rank,
+                                                   int threads) {
+  const int s34 = s3 + s4;
+  MemFwdTile m;
+  m.u0 = s34 * rank / C;
+  m.u1 = s34 * (rank + 1) / C;
+  m.m0 = mem * rank / C;
+  m.m1 = mem * (rank + 1) / C;
+  m.cu = (s34 + C - 1) / C;
+  m.cm = (mem + C - 1) / C;
+  m.ksu = lanes_per_output(m.cu, threads);
+  m.pu = conflict_free_pitch(mem, m.ksu);
+  m.ksm = lanes_per_output(m.cm, threads);
+  m.p1 = conflict_free_pitch(s3, m.ksm);
+  m.p2 = conflict_free_pitch(s4, m.ksm);
+  return m;
+}
+
+// Operand floats a row and step: pu3 (s3 + s4), chat (mem), and the
+// gamma sites' masks (s3 + s4).
+__host__ __device__ inline int mem_fwd_op_width(int mem, int s34) {
+  return 2 * s34 + mem;
+}
+
+// The weights' shares, transposed (each starting 16-byte aligned), the
+// memory before and after the step, r3, and two steps' operands.
+__host__ __device__ inline size_t mem_fwd_floats(int mem, int s3, int s4,
+                                                 int C, int R, int threads) {
+  const int s34 = s3 + s4;
+  const MemFwdTile m = mem_fwd_tile(s3, s4, mem, C, 0, threads);
+  return (size_t)pad4(m.cu * m.pu) + pad4(m.cm * m.p1) + pad4(m.cm * m.p2) +
+         (size_t)R * (2 * mem + s34 + 2 * mem_fwd_op_width(mem, s34));
+}
+
+// Step s's operands, row-major [R][pu3 | chat | masks], asynchronously;
+// ones for the masks without them, zeros past n.
+template <int R>
+__device__ __forceinline__ void load_mem_fwd_ops(const EncodeArgs& a, int s,
+                                                 float* o, int row0, int tid,
+                                                 int nthr) {
+  const int s34 = a.s3 + a.s4, W = mem_fwd_op_width(a.mem, s34);
+  const int S = a.s1 + a.s2 + s34;
+  for (int i = tid; i < W * R; i += nthr) {
+    const int r = i / W, f = i - r * W, row = row0 + r;
+    const size_t at = (size_t)s * a.n + row;
+    if (row >= a.n)
+      o[i] = 0.0f;
+    else if (f < s34)
+      cp_async4(o + i, a.pu3 + at * s34 + f);
+    else if (f < s34 + a.mem)
+      cp_async4(o + i, res_row(a.chat, at) + f - s34);
+    else if (a.masks != nullptr)
+      cp_async4(o + i, a.masks + at * S + a.s1 + a.s2 + f - s34 - a.mem);
+    else
+      o[i] = 1.0f;
+  }
+}
+
+// Block: rank `rank` of a cluster of C over R batch rows.
+template <int R, int C>
+__global__ void __launch_bounds__(kMaxThreads)
+    mem_chain_fwd_kernel(const EncodeArgs a) {
+  extern __shared__ float smem[];
+  const int rank = cluster_rank<C>();
+  const int mem = a.mem, s3 = a.s3, s4 = a.s4, s34 = s3 + s4;
+  const int W = mem_fwd_op_width(mem, s34);
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nthr >> 5;
+  const MemFwdTile m = mem_fwd_tile(s3, s4, mem, C, rank, nthr);
+  const int nu = m.u1 - m.u0, nm = m.m1 - m.m0;
+  const int row0 = (blockIdx.x / C) * R;
+  // the weights transposed: row jl of wu holds gw1[M2 + k][u0 + jl] over
+  // k, row cl of w1 and w2 g1w2[k][m0 + cl] and g2w2[k][m0 + cl]
+  float* const wu = smem;                    // [cu][pu]
+  float* const w1 = wu + pad4(m.cu * m.pu);  // [cm][p1]
+  float* const w2 = w1 + pad4(m.cm * m.p1);  // [cm][p2]
+  float* memp = w2 + pad4(m.cm * m.p2);      // [R][mem]: before the step
+  float* memn = memp + R * mem;              // [R][mem]: after it
+  float* const r3 = memn + R * mem;          // [R][s34]
+  float* const ops = r3 + R * s34;           // two [R][W]: step s's at s & 1
 
-  for (int i = tid; i < (4 * H + a.mem) * R; i += nthr) smem[i] = 0.0f;
+  // coalesced reads of the weights' rows, written transposed
+  const float* gu = a.gw1 + (size_t)a.m2 * s34;
+  for (int i = tid; i < mem * nu; i += nthr) {
+    const int k = i / nu, jl = i - k * nu;
+    wu[jl * m.pu + k] = gu[(size_t)k * s34 + m.u0 + jl];
+  }
+  for (int i = tid; i < s3 * nm; i += nthr) {
+    const int k = i / nm, cl = i - k * nm;
+    w1[cl * m.p1 + k] = a.g1w2[(size_t)k * mem + m.m0 + cl];
+  }
+  for (int i = tid; i < s4 * nm; i += nthr) {
+    const int k = i / nm, cl = i - k * nm;
+    w2[cl * m.p2 + k] = a.g2w2[(size_t)k * mem + m.m0 + cl];
+  }
+  for (int i = tid; i < R * mem; i += nthr) memp[i] = 0.0f;
+  load_mem_fwd_ops<R>(a, 0, ops, row0, tid, nthr);
+  cp_async_wait_all();
   __syncthreads();
-  FTT_STAMP(a.clocks, kClockEncodeFwd, 0, 0);
+  FTT_STAMP(a.clocks, kClockMemChainFwd, 0, 0);
 
-  int cur = 0;
   for (int s = 0; s < a.t; ++s) {
-    const float* xp_s = a.xp + (size_t)s * a.n * H4;
-    const float* h_old = hc + cur * H * R;
-    float* h_new = hc + (cur ^ 1) * H * R;
-    const float* c_old = hc + (2 + cur) * H * R;
-    float* c_new = hc + (2 + (cur ^ 1)) * H * R;
+    if (s + 1 < a.t)
+      load_mem_fwd_ops<R>(a, s + 1, ops + ((s + 1) & 1) * R * W, row0, tid,
+                          nthr);
+    const float* const op = ops + (s & 1) * R * W;
+    const size_t base = (size_t)s * a.n;
 
-    // (1) the six LSTM cells: each thread owns hidden unit j, all 4 gates
-    for (int j = tid; j < H; j += nthr) {
-      int k0, k1;
-      cell_range(a.cells, j, k0, k1);
-      float gi[R], gf[R], gg[R], go[R];
+    // (a) u3 = pu3 + mem @ gw1[M2:] for the block's columns, and its
+    //     relu site: r3 and kg3
+    for (int b0 = warp * 32; b0 < nu * m.ksu; b0 += nwarp * 32) {
+      const int item = b0 + lane, jl = item / m.ksu;
+      const int slice = item - jl * m.ksu, j = m.u0 + jl;
+      const bool ok = item < nu * m.ksu;
+      float acc[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int row = row0 + r;
-        if (row < a.n) {
-          const float* x = xp_s + (size_t)row * H4 + j;
-          gi[r] = x[0];
-          gf[r] = x[H];
-          gg[r] = x[2 * H];
-          go[r] = x[3 * H];
-        } else {
-          gi[r] = gf[r] = gg[r] = go[r] = 0.0f;
-        }
-      }
-      for (int k = k0; k < k1; ++k) {
-        const float* w = a.wh + (size_t)k * H4 + j;
-        const float wi = __ldg(w), wf = __ldg(w + H);
-        const float wg = __ldg(w + 2 * H), wo = __ldg(w + 3 * H);
-        const float* hk = h_old + k * R;
+      for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+      if (ok) smem_dot<R>(memp, mem, mem, wu + jl * m.pu, slice, m.ksu, acc);
+      lanes_sum<R>(acc, m.ksu);
+      if (ok && slice == 0) {
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const float hv = hk[r];
-          gi[r] = fmaf(hv, wi, gi[r]);
-          gf[r] = fmaf(hv, wf, gf[r]);
-          gg[r] = fmaf(hv, wg, gg[r]);
-          go[r] = fmaf(hv, wo, go[r]);
+          const int row = row0 + r;
+          const float u = op[r * W + j] + acc[r];
+          const float mk = op[r * W + s34 + mem + j];
+          const float v = fmaxf(u, 0.0f) * mk;
+          r3[r * s34 + j] = v;
+          if (a.allmem != nullptr && row < a.n) {
+            res_row(a.res.f[kR3], base + row)[j] = v;
+            res_row(a.res.f[kKg3], base + row)[j] = u > 0.0f ? mk : 0.0f;
+          }
         }
       }
+    }
+    if (C > 1) gather_peers<C, R>(r3, s34, rank, tid, nthr);
+    __syncthreads();
+    FTT_STAMP(a.clocks, kClockMemChainFwd, s + 1, 0);
+
+    // (b) the heads for the block's memory columns, g1 = sigmoid(r3[:s3]
+    //     @ g1w2 + b) and g2 likewise, and mem = g1 * mem + g2 * chat
+    for (int b0 = warp * 32; b0 < nm * m.ksm; b0 += nwarp * 32) {
+      const int item = b0 + lane, cl = item / m.ksm;
+      const int slice = item - cl * m.ksm, col = m.m0 + cl;
+      const bool ok = item < nm * m.ksm;
+      float acc1[R], acc2[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const float c = sigmoid(gf[r]) * c_old[j * R + r] +
-                        sigmoid(gi[r]) * tanhf(gg[r]);
-        const float h = sigmoid(go[r]) * tanhf(c);
-        c_new[j * R + r] = c;
-        h_new[j * R + r] = h;
-        const int row = row0 + r;
-        if (K != kNoRes && row < a.n) {
-          const size_t at = ((size_t)s * a.n + row) * H + j;
-          a.allh[at] = h;
-          a.allc[at] = c;
+      for (int r = 0; r < R; ++r) acc1[r] = acc2[r] = 0.0f;
+      if (ok) {
+        smem_dot<R>(r3, s34, s3, w1 + cl * m.p1, slice, m.ksm, acc1);
+        smem_dot<R>(r3 + s3, s34, s4, w2 + cl * m.p2, slice, m.ksm, acc2);
+      }
+      lanes_sum<R>(acc1, m.ksm);
+      lanes_sum<R>(acc2, m.ksm);
+      if (ok && slice == 0) {
+        const float b1 = __ldg(a.g1b2 + col), b2 = __ldg(a.g2b2 + col);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int row = row0 + r;
+          const float g1 = sigmoid(acc1[r] + b1), g2 = sigmoid(acc2[r] + b2);
+          const float chat = op[r * W + s34 + col];
+          const float mn = g1 * memp[r * mem + col] + g2 * chat;
+          memn[r * mem + col] = mn;
+          if (a.allmem != nullptr && row < a.n) {
+            res_row(a.res.f[kG1], base + row)[col] = g1;
+            res_row(a.res.f[kG2], base + row)[col] = g2;
+            a.allmem[(base + row) * mem + col] = mn;
+          }
         }
       }
     }
+    if (C > 1) gather_peers<C, R>(memn, mem, rank, tid, nthr);
+    float* const spent = memp;
+    memp = memn;
+    memn = spent;
+    cp_async_wait_all();
     __syncthreads();
-    FTT_STAMP(a.clocks, kClockEncodeFwd, s + 1, 0);
-
-    // (2) att1 fc1 on cStar = [c_prev, c_new][:, z_tot:]
-    const float* cs_prev = c_old + a.z_tot * R;
-    const float* cs_new = c_new + a.z_tot * R;
-    for (int j = tid; j < a.s1; j += nthr) {
-      float acc[R];
-      fill(acc, __ldg(a.a1b1 + j));
-      dot_col<R>(cs_prev, M, cs_new, M, a.a1w1, a.s1, j, acc);
-      store_site<R, K>(r1, j, acc, a, s, row0, 0, kR1, kKg1);
-    }
-    __syncthreads();
-    FTT_STAMP(a.clocks, kClockEncodeFwd, s + 1, 1);
-
-    // (3) att1 fc2 -> attention logits
-    for (int j = tid; j < M2; j += nthr) {
-      float acc[R];
-      fill(acc, __ldg(a.a1b2 + j));
-      dot_col<R>(r1, a.s1, nullptr, 0, a.a1w2, M2, j, acc);
-      store_col<R>(att, j, acc, kIdentity);
-    }
-    __syncthreads();
-    FTT_STAMP(a.clocks, kClockEncodeFwd, s + 1, 2);
-
-    // (4) softmax over each row's logits, max subtracted first, then
-    //     attended = att * cStar; one warp per row
-    for (int r = warp; r < R; r += nwarp) {
-      float mx = -INFINITY;
-      for (int k = lane; k < M2; k += 32) mx = fmaxf(mx, att[k * R + r]);
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      float sum = 0.0f;
-      for (int k = lane; k < M2; k += 32) {
-        const float e = expf(att[k * R + r] - mx);
-        att[k * R + r] = e;
-        sum += e;
-      }
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      const int row = row0 + r;
-      float* res = (K != kNoRes && row < a.n)
-                       ? field_row<K>(a.res, kAtt, (size_t)s * a.n + row)
-                       : nullptr;
-      for (int k = lane; k < M2; k += 32) {
-        const float cs = k < M ? cs_prev[k * R + r] : cs_new[(k - M) * R + r];
-        const float p = att[k * R + r] / sum;
-        if (res != nullptr) res[k] = p;
-        att[k * R + r] = p * cs;
-      }
-    }
-    __syncthreads();
-    FTT_STAMP(a.clocks, kClockEncodeFwd, s + 1, 3);
-
-    // (5) att2 fc1 on attended, and the merged gamma fc1 on [attended, mem]
-    for (int j = tid; j < a.s2 + s34; j += nthr) {
-      float acc[R];
-      if (j < a.s2) {
-        fill(acc, __ldg(a.a2b1 + j));
-        dot_col<R>(att, M2, nullptr, 0, a.a2w1, a.s2, j, acc);
-        store_site<R, K>(r2, j, acc, a, s, row0, a.s1, kR2, kKg2);
-      } else {
-        const int jj = j - a.s2;
-        fill(acc, __ldg(a.gb1 + jj));
-        dot_col<R>(att, M2, mem, a.mem, a.gw1, s34, jj, acc);
-        store_site<R, K>(r3, jj, acc, a, s, row0, a.s1 + a.s2, kR3, kKg3);
-      }
-    }
-    __syncthreads();
-    FTT_STAMP(a.clocks, kClockEncodeFwd, s + 1, 4);
-
-    // (6) heads: chat = tanh(r2 @ a2w2 + b); the gamma logits from r3's
-    //     two halves
-    for (int j = tid; j < 3 * a.mem; j += nthr) {
-      const int which = j / a.mem, jj = j - which * a.mem;
-      float acc[R];
-      if (which == 0) {
-        fill(acc, __ldg(a.a2b2 + jj));
-        dot_col<R>(r2, a.s2, nullptr, 0, a.a2w2, a.mem, jj, acc);
-        store_col<R>(heads, j, acc, kTanh);
-      } else if (which == 1) {
-        fill(acc, __ldg(a.g1b2 + jj));
-        dot_col<R>(r3, a.s3, nullptr, 0, a.g1w2, a.mem, jj, acc);
-        store_col<R>(heads, j, acc, kIdentity);
-      } else {
-        fill(acc, __ldg(a.g2b2 + jj));
-        dot_col<R>(r3 + a.s3 * R, a.s4, nullptr, 0, a.g2w2, a.mem, jj, acc);
-        store_col<R>(heads, j, acc, kIdentity);
-      }
-    }
-    __syncthreads();
-    FTT_STAMP(a.clocks, kClockEncodeFwd, s + 1, 5);
-
-    // (7) mem = sigmoid(g1 logits) * mem + sigmoid(g2 logits) * chat
-    for (int i = tid; i < a.mem * R; i += nthr) {
-      const float chat = heads[i];
-      const float g1 = sigmoid(heads[a.mem * R + i]);
-      const float g2 = sigmoid(heads[2 * a.mem * R + i]);
-      const float m = g1 * mem[i] + g2 * chat;
-      mem[i] = m;
-      const int j = i / R, row = row0 + (i - j * R);
-      if (K != kNoRes && row < a.n) {
-        const size_t at = (size_t)s * a.n + row;
-        field_row<K>(a.res, kChat, at)[j] = chat;
-        field_row<K>(a.res, kG1, at)[j] = g1;
-        field_row<K>(a.res, kG2, at)[j] = g2;
-        a.allmem[at * a.mem + j] = m;
-      }
-    }
-    __syncthreads();
-    FTT_STAMP(a.clocks, kClockEncodeFwd, s + 1, 6);
-    cur ^= 1;
+    FTT_STAMP(a.clocks, kClockMemChainFwd, s + 1, 1);
   }
 
-  const float* h_fin = hc + cur * H * R;
-  for (int i = tid; i < R * H; i += nthr) {
-    const int r = i / H, j = i - r * H, row = row0 + r;
-    if (row < a.n) a.h_last[(size_t)row * H + j] = h_fin[j * R + r];
+  if (rank == 0) {
+    for (int i = tid; i < R * mem; i += nthr) {
+      const int r = i / mem, row = row0 + r;
+      if (row < a.n) a.mem_last[(size_t)row * mem + i - r * mem] = memp[i];
+    }
   }
-  for (int i = tid; i < R * a.mem; i += nthr) {
-    const int r = i / a.mem, j = i - r * a.mem, row = row0 + r;
-    if (row < a.n) a.mem_last[(size_t)row * a.mem + j] = mem[j * R + r];
-  }
+  // no block leaves while a peer may still read its shared memory
+  if (C > 1) cluster_barrier<C>();
 }
 
-template <int R, int K>
-cudaError_t launch(const EncodeArgs& a, int threads, cudaStream_t stream) {
-  const int M2 = 2 * (a.H - a.z_tot);
-  const size_t floats = (size_t)R * (4 * a.H + a.mem + M2 + a.s1 + a.s2 +
-                                     a.s3 + a.s4 + 3 * a.mem);
-  const size_t bytes = floats * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      mfm_encode_fwd_kernel<R, K>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.n + R - 1) / R);
-  mfm_encode_fwd_kernel<R, K><<<grid, threads, bytes, stream>>>(a);
-  return cudaGetLastError();
-}
+// ------------------------------------------------------------ launches
 
-// The residuals' kind, read off the table: one buffer when every field
-// has field 0's pointer and row stride.
 template <int R>
-cudaError_t launch_rows(const EncodeArgs& a, int threads,
-                        cudaStream_t stream) {
-  if (a.allh == nullptr) return launch<R, kNoRes>(a, threads, stream);
-  bool one = a.res.f[0].col == 0;
-  for (int k = 1; k < kResFields; ++k)
-    one = one && a.res.f[k].ptr == a.res.f[0].ptr &&
-          a.res.f[k].stride == a.res.f[0].stride;
-  return one ? launch<R, kOneBuffer>(a, threads, stream)
-             : launch<R, kTenTensors>(a, threads, stream);
+Kernel cells_for(int C) {
+  return C == 1   ? cell_chains_fwd_kernel<R, 1>
+         : C == 2 ? cell_chains_fwd_kernel<R, 2>
+         : C == 4 ? cell_chains_fwd_kernel<R, 4>
+                  : cell_chains_fwd_kernel<R, 8>;
+}
+
+template <int R>
+Kernel mem_for(int C) {
+  return C == 1   ? mem_chain_fwd_kernel<R, 1>
+         : C == 2 ? mem_chain_fwd_kernel<R, 2>
+         : C == 4 ? mem_chain_fwd_kernel<R, 4>
+                  : mem_chain_fwd_kernel<R, 8>;
+}
+
+// The chains' kernels at their rows (null: rows not offered).
+Kernel cell_kernel(int rows, int C) {
+  switch (rows) {
+    case 1: return cells_for<1>(C);
+    case 2: return cells_for<2>(C);
+    case 4: return cells_for<4>(C);
+    case 8: return cells_for<8>(C);
+    case 16: return cells_for<16>(C);
+    default: return nullptr;
+  }
+}
+
+Kernel mem_kernel(int rows, int C) {
+  switch (rows) {
+    case 1: return mem_for<1>(C);
+    case 2: return mem_for<2>(C);
+    case 4: return mem_for<4>(C);
+    case 8: return mem_for<8>(C);
+    default: return nullptr;
+  }
+}
+
+const Kernel kProductKernels[kProducts] = {
+    product_fwd_kernel<kProdU1>, product_fwd_kernel<kProdLogits>,
+    product_fwd_kernel<kProdU2Pu3>, product_fwd_kernel<kProdChat>};
+
+// One pass's launch.
+struct Pass {
+  Kernel kernel;
+  dim3 grid;
+  int threads;
+  size_t bytes;
+  int cluster;
+};
+
+// A chain's rows and cluster: the given rows, halved while no cluster up
+// to 8 fits them, on the smallest cluster that fits; 0 if none does even
+// at one row, with the bytes there in *bytes.
+template <typename F>
+int fit_chain(F bytes_at, int* rows, size_t* bytes) {
+  for (; *rows >= 1; *rows /= 2) {
+    const int C = smallest_cluster(
+        [&](int c) { return bytes_at(*rows, c); }, bytes);
+    if (C > 0) return C;
+  }
+  return 0;
+}
+
+cudaError_t run(const EncodeArgs& a, int cell_rows, int mem_rows,
+                int threads, int* fit, cudaStream_t stream) {
+  const int flat = a.t * a.n, tiles_m = (flat + kTile - 1) / kTile;
+  size_t cell_bytes = 0, mem_bytes = 0;
+  const int Cc = fit_chain(
+      [&](int rows, int C) {
+        return fwd_chain_bytes(a.cells, rows, threads, C);
+      },
+      &cell_rows, &cell_bytes);
+  if (Cc == 0) return refuse(fit, 1, cell_bytes, kMaxCluster);
+  const int Cm = fit_chain(
+      [&](int rows, int C) {
+        return mem_fwd_floats(a.mem, a.s3, a.s4, C, rows, threads) *
+               sizeof(float);
+      },
+      &mem_rows, &mem_bytes);
+  if (Cm == 0) return refuse(fit, 3, mem_bytes, kMaxCluster);
+  fit[kFitChainA] = Cc;
+  fit[kFitChainB] = Cm;
+  // the passes in order, each with its pass (1 to 3)
+  Pass p[8];
+  int pass_of[8], count = 0;
+  auto add = [&](int pass, const Pass& launch) {
+    pass_of[count] = pass;
+    p[count++] = launch;
+  };
+  add(1, {cell_kernel(cell_rows, Cc),
+          dim3(((a.n + cell_rows - 1) / cell_rows) * Cc, a.cells.count),
+          threads, cell_bytes, Cc});
+  for (int id = kProdU1; id < kProducts; ++id) {
+    const ProductSpec spec = product_spec(a, id);
+    add(2, {kProductKernels[id],
+            dim3(tiles_m * ((spec.N + kTile - 1) / kTile)), kProductThreads,
+            product_floats(spec.K) * sizeof(float), 1});
+    if (id == kProdLogits)  // the softmax between the logits and u2
+      add(2, {softmax_fwd_kernel,
+              dim3((flat + threads / 32 - 1) / (threads / 32)), threads, 0,
+              1});
+  }
+  add(3, {mem_kernel(mem_rows, Cm),
+          dim3(((a.n + mem_rows - 1) / mem_rows) * Cm), threads, mem_bytes,
+          Cm});
+  for (int k = 0; k < count; ++k) {
+    if (p[k].bytes > (size_t)kMaxSmemBytes)
+      return refuse(fit, pass_of[k], p[k].bytes, p[k].cluster);
+    cudaError_t err =
+        allow_smem(reinterpret_cast<const void*>(p[k].kernel), p[k].bytes);
+    if (err != cudaSuccess) return err;
+  }
+  for (int k = 0; k < count; ++k) {
+    cudaError_t err = launch_clusters(p[k].kernel, p[k].grid, p[k].threads,
+                                      p[k].bytes, p[k].cluster, stream, a);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+bool rows_offered(int rows, int most) {
+  for (int r = 1; r <= most; r *= 2)
+    if (rows == r) return true;
+  return false;
 }
 
 }  // namespace
@@ -411,10 +713,19 @@ cudaError_t launch_rows(const EncodeArgs& a, int threads,
 // res_ptrs are all given (residuals written) or all null; res_ptrs,
 // res_strides and res_cols (host memory) are the residual-layout table's
 // ten pointers, row strides and column offsets (mfm_res.cuh), in the
-// _RES_NAMES order. cell_dims (host memory) lists
+// _RES_NAMES order. scratch holds t n (s3 + s4 + M2) floats (pu3, then
+// the logits and attended) and, without residuals, t n (H + mem + s1 + s2)
+// more (the cell states, chat, r1 and r2). cell_dims (host memory) lists
 // the n_cells fused hidden widths, summing to H; the first cells up to
-// z_tot are the encoders. rows is the batch rows per block (1, 2, 4, 8 or
-// 16), threads a multiple of 32 up to 512.
+// z_tot are the encoders. cell_rows is the batch rows of an LSTM chain's
+// block (1, 2, 4, 8 or 16), mem_rows those of a memory chain block (1, 2,
+// 4 or 8), a chain's rows halved where its blocks fit no cluster; threads
+// a multiple of 32 up to 512, the block size of the chains and the
+// softmax (the products run 256-thread tiles). fit (host memory, six
+// ints, lstm_common.cuh's Fit) gets the clusters the LSTM chains and the
+// memory chain ran on, or, when a pass's shared memory passes the card's
+// even at a cluster of 8 and one row, the refusal before anything is
+// launched.
 extern "C" int mfm_encode_fwd(
     const float* xp, const float* masks, const float* wh, const float* a1w1,
     const float* a1b1, const float* a1w2, const float* a1b2,
@@ -422,10 +733,12 @@ extern "C" int mfm_encode_fwd(
     const float* gw1, const float* gb1, const float* g1w2, const float* g1b2,
     const float* g2w2, const float* g2b2, float* h_last, float* mem_last,
     float* allh, float* allc, float* allmem, void* const* res_ptrs,
-    const int* res_strides, const int* res_cols, int t, int n, int H,
-    int z_tot, int mem, int s1, int s2, int s3, int s4, int n_cells,
-    const int* cell_dims, int rows, int threads, void* stream) {
+    const int* res_strides, const int* res_cols, float* scratch, int t,
+    int n, int H, int z_tot, int mem, int s1, int s2, int s3, int s4,
+    int n_cells, const int* cell_dims, int cell_rows, int mem_rows,
+    int threads, int* fit, void* stream) {
   using namespace ftt;
+  clear_fit(fit);
   EncodeArgs a;
   a.xp = xp;
   a.masks = masks;
@@ -447,7 +760,6 @@ extern "C" int mfm_encode_fwd(
   a.h_last = h_last;
   a.mem_last = mem_last;
   a.allh = allh;
-  a.allc = allc;
   a.allmem = allmem;
   a.clocks = phase_clocks();
   a.t = t;
@@ -459,22 +771,31 @@ extern "C" int mfm_encode_fwd(
   a.s2 = s2;
   a.s3 = s3;
   a.s4 = s4;
+  a.m2 = 2 * (H - z_tot);
   int widths[kResFields];
   res_widths(H, z_tot, mem, s1, s2, s3, s4, widths);
+  const bool with_res = allh && allc && allmem && res_ptrs;
   if (!make_cells(n_cells, cell_dims, H, &a.cells) || t < 1 || n < 1 ||
       z_tot < 0 || z_tot >= H || threads < 32 || threads > kMaxThreads ||
-      threads % 32 != 0 ||
+      threads % 32 != 0 || scratch == nullptr ||
       !make_res_table(res_ptrs, res_strides, res_cols, widths, &a.res) ||
-      !((allh && allc && allmem && res_ptrs) ||
-        !(allh || allc || allmem || res_ptrs)))
+      !(with_res || !(allh || allc || allmem || res_ptrs)) ||
+      !rows_offered(cell_rows, 16) || !rows_offered(mem_rows, 8))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rows) {
-    case 1: return (int)launch_rows<1>(a, threads, st);
-    case 2: return (int)launch_rows<2>(a, threads, st);
-    case 4: return (int)launch_rows<4>(a, threads, st);
-    case 8: return (int)launch_rows<8>(a, threads, st);
-    case 16: return (int)launch_rows<16>(a, threads, st);
-    default: return (int)cudaErrorInvalidValue;
+  const size_t flat = (size_t)t * n;
+  a.pu3 = scratch;
+  a.work = a.pu3 + flat * (s3 + s4);
+  if (with_res) {
+    a.allc = allc;
+    a.r1 = a.res.f[kR1];
+    a.r2 = a.res.f[kR2];
+    a.chat = a.res.f[kChat];
+  } else {
+    a.allc = a.work + flat * a.m2;
+    a.chat = ResEntry{a.allc + flat * H, mem, 0};
+    a.r1 = ResEntry{a.chat.ptr + flat * mem, s1, 0};
+    a.r2 = ResEntry{a.r1.ptr + flat * s1, s2, 0};
   }
+  return (int)run(a, cell_rows, mem_rows, threads, fit,
+                  static_cast<cudaStream_t>(stream));
 }

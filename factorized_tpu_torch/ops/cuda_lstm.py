@@ -4,17 +4,26 @@ wrappers and their plain PyTorch versions (port of
 
 The autoregressive decoders: ``decoder_lstm_fwd`` launches
 ``csrc/decoder_lstm_fwd.cu`` and ``decoder_lstm_bwd`` launches
-``csrc/decoder_lstm_bwd.cu`` (counted in ``LAUNCHES`` and
+``csrc/lstm_bwd.cu`` (counted in ``LAUNCHES`` and
 ``BWD_LAUNCHES``); ``DecoderLSTM`` is the ``torch.autograd.Function`` over
 the pair (JAX: the ``custom_vjp`` of ``decoder_lstm``), with ``dwsum`` and
 ``db`` a ``torch.matmul`` and a sum outside the kernels.
 
 The fused encoder cells: ``multi_lstm_fwd`` launches
 ``csrc/multi_lstm_fwd.cu`` and ``multi_lstm_bwd`` launches
-``csrc/multi_lstm_bwd.cu`` (counted in ``MULTI_LAUNCHES`` and
+``csrc/lstm_bwd.cu``'s chain (counted in ``MULTI_LAUNCHES`` and
 ``MULTI_BWD_LAUNCHES``); ``MultiLSTM`` is the Function over the pair (JAX:
 the ``custom_vjp`` of ``multi_lstm``), with ``dWh`` a ``torch.matmul``
 outside the kernels.
+
+Both backward wrappers launch one kernel, ``csrc/lstm_bwd.cu``: one block
+per (cell, row tile) with the cell's diagonal blocks of the recurrent
+weight in shared memory. A cell past one block's shared memory splits its
+gate columns over a thread-block cluster of 2, 4 or 8 blocks, the
+smallest that fits (``CLUSTERS`` records each call's); past 8 the wrappers
+raise ``ValueError`` before any launch. ``decoder_lstm_bwd_cells_plain``,
+``multi_lstm_bwd_cells_plain`` and ``cell_dh_split_plain`` are that data
+flow in plain PyTorch.
 
 Every wrapper runs its plain version (``*_plain``) for CPU tensors and
 launches its kernel for CUDA tensors; there is no other route. The JAX
@@ -38,17 +47,20 @@ MULTI_BWD_LAUNCHES = 0
 # batch rows per block and threads per block: the fastest pairs measured
 # by perf_probe.py (PERF.md), at the serving shapes (n = 256) and, for the
 # backward, the threads at the training batch (n = 32; one block per cell
-# and batch row, the rows fixed in csrc/decoder_lstm_bwd.cu)
+# and batch row, the rows fixed in csrc/lstm_bwd.cu)
 ROWS = 4
 THREADS = 160
 BWD_THREADS = 512
 # the same for the fused encoder cells: MULTI_ROWS for both forward
 # variants (4 rows was fastest at n = 256 and at n = 32), MULTI_BWD_ROWS
-# at the training batch
+# (1, 2 or 4) at the training batch
 MULTI_ROWS = 4
 MULTI_THREADS = 256
-MULTI_BWD_ROWS = 1
-MULTI_BWD_THREADS = 512
+MULTI_BWD_ROWS = 2
+MULTI_BWD_THREADS = 256
+# the thread-block cluster the last call of each backward wrapper ran its
+# chains on (1: one block)
+CLUSTERS = {}
 
 
 def _check(h0, c0, wsum, b, t, h_dims):
@@ -189,21 +201,29 @@ def _launch_bwd(wsum, gates, allc, dallh, h_dims):
     dh0 = torch.empty((n, H), dtype=torch.float32, device=allc.device)
     dc0 = torch.empty((n, H), dtype=torch.float32, device=allc.device)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
-    need = (ctypes.c_int * 3)()
+    fit = (ctypes.c_int * 6)()
     with torch.cuda.device(allc.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(gates.data_ptr(), allc.data_ptr(), dallh.data_ptr(),
                  wsum.data_ptr(), dgates.data_ptr(), dh0.data_ptr(),
                  dc0.data_ptr(), t, n, H, len(h_dims), dims, BWD_THREADS,
-                 need, stream)
-    if need[1]:
-        raise ValueError(
-            f"decoder_lstm_bwd needs {need[1]} bytes of shared memory a "
-            f"block, past the card's {need[2]}: cells {list(h_dims)} "
-            f"(largest {max(h_dims)})")
+                 fit, stream)
+    _fit("decoder_lstm_bwd", fit, h_dims)
     _build.check(err, "decoder_lstm_bwd")
     BWD_LAUNCHES += 1
     return dgates, dh0, dc0
+
+
+def _fit(name, fit, h_dims):
+    """Raise ``ValueError`` for a launch the kernel refused before it
+    started (``fit`` its ``lstm_common.cuh`` Fit array), naming the
+    widths; else record the chain's cluster in ``CLUSTERS``."""
+    if fit[0]:
+        raise ValueError(
+            f"{name} needs {fit[1]} bytes of shared memory a block, past "
+            f"the card's {fit[2]}, even split over a cluster of {fit[3]}: "
+            f"cells {list(h_dims)} (largest {max(h_dims)})")
+    CLUSTERS[name] = fit[4]
 
 
 def decoder_lstm_bwd_plain(wsum, gates, allc, dallh):
@@ -230,6 +250,37 @@ def decoder_lstm_bwd_plain(wsum, gates, allc, dallh):
     return torch.stack(dgates), dh, dc
 
 
+def cell_columns(H, o, h, device):
+    """The gate-major columns of the cell of units [o, o + h) in a fused
+    (*, 4H) tensor."""
+    return torch.cat([torch.arange(q * H + o, q * H + o + h)
+                      for q in range(4)]).to(device)
+
+
+def cluster_columns(h: int, cluster: int) -> int:
+    """The gate columns each block of a cluster holds when a cell's 4h
+    columns are split (``csrc/cell_bwd.cuh``'s ``cell_cols``): all of
+    them for one block, else runs of a multiple of 4, the last ones past
+    4h zero."""
+    if cluster == 1:
+        return 4 * h
+    return ((4 * h + cluster - 1) // cluster + 3) & ~3
+
+
+def cell_dh_split_plain(dg, wcell, cluster: int):
+    """``dg @ wcell.T`` (dg (n, 4h), wcell (h, 4h)) as a cluster of
+    ``cluster`` blocks forms it: block b's partial over its run of gate
+    columns, the partials added in rank order, block 0 first."""
+    h4 = wcell.shape[1]
+    kc = cluster_columns(h4 // 4, cluster)
+    dh = None
+    for b in range(cluster):
+        cols = slice(min(b * kc, h4), min((b + 1) * kc, h4))
+        part = dg[:, cols] @ wcell[:, cols].T
+        dh = part if dh is None else dh + part
+    return dh
+
+
 def decoder_lstm_bwd_cells_plain(wsum, gates, allc, dallh, h_dims):
     """``decoder_lstm_bwd_plain`` as the kernel splits it: one independent
     chain per cell of ``h_dims``, each against its own diagonal blocks of
@@ -240,8 +291,7 @@ def decoder_lstm_bwd_cells_plain(wsum, gates, allc, dallh, h_dims):
     dh0, dc0 = torch.empty_like(allc[0]), torch.empty_like(allc[0])
     o = 0
     for h in h_dims:
-        cols = torch.cat([torch.arange(q * H + o, q * H + o + h)
-                          for q in range(4)]).to(allc.device)
+        cols = cell_columns(H, o, h, allc.device)
         cell = slice(o, o + h)
         dg, dh0[:, cell], dc0[:, cell] = decoder_lstm_bwd_plain(
             wsum[cell][:, cols].contiguous(), gates[..., cols],
@@ -368,14 +418,16 @@ def _launch_multi_bwd(gates, wh, allc, dhlast, h_dims):
         "multi_lstm_bwd",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
         + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 2
-        + [ctypes.c_void_p])
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     dxp = torch.empty_like(gates)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
+    fit = (ctypes.c_int * 6)()
     with torch.cuda.device(allc.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(gates.data_ptr(), allc.data_ptr(), dhlast.data_ptr(),
                  wh.data_ptr(), dxp.data_ptr(), t, n, H, len(h_dims), dims,
-                 MULTI_BWD_ROWS, MULTI_BWD_THREADS, stream)
+                 MULTI_BWD_ROWS, MULTI_BWD_THREADS, fit, stream)
+    _fit("multi_lstm_bwd", fit, h_dims)
     _build.check(err, "multi_lstm_bwd")
     MULTI_BWD_LAUNCHES += 1
     return dxp
@@ -405,6 +457,40 @@ def multi_lstm_bwd_plain(gates, wh, allc, dhlast):
         dh = dg @ wh.T
         dc = dc * sf
     return torch.stack(dxp)
+
+
+def multi_lstm_bwd_cells_plain(gates, wh, allc, dhlast, h_dims,
+                               cluster: int = 1):
+    """``multi_lstm_bwd_plain`` as the kernel splits it: one independent
+    chain per cell of ``h_dims``, each against its own diagonal blocks of
+    ``wh``, its dh product formed as a cluster of ``cluster`` blocks forms
+    it (``cell_dh_split_plain``)."""
+    t, n, H = allc.shape
+    dxp = torch.empty_like(gates)
+    o = 0
+    for h in h_dims:
+        cols = cell_columns(H, o, h, allc.device)
+        wcell = wh[o:o + h][:, cols]
+        dh, dc = dhlast[:, o:o + h], torch.zeros_like(dhlast[:, o:o + h])
+        for i in range(t - 1, -1, -1):
+            c_i = allc[i, :, o:o + h]
+            cp = allc[i - 1, :, o:o + h] if i > 0 else torch.zeros_like(c_i)
+            ig, fg, gg, og = gates[i][:, cols].chunk(4, dim=-1)
+            si, sf, so = (torch.sigmoid(ig), torch.sigmoid(fg),
+                          torch.sigmoid(og))
+            tg, tc = torch.tanh(gg), torch.tanh(c_i)
+            dc = dc + dh * so * (1.0 - tc * tc)
+            dg = torch.cat([
+                dc * tg * si * (1.0 - si),
+                dc * cp * sf * (1.0 - sf),
+                dc * si * (1.0 - tg * tg),
+                dh * tc * so * (1.0 - so),
+            ], dim=-1)
+            dxp[i][:, cols] = dg
+            dh = cell_dh_split_plain(dg, wcell, cluster)
+            dc = dc * sf
+        o += h
+    return dxp
 
 
 class MultiLSTM(torch.autograd.Function):

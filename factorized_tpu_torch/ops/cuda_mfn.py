@@ -9,7 +9,12 @@ Three kernels, each with a launch counter per variant:
   ``RES_NAMES`` fields, as one ``(t, n, R)`` buffer (layout ``"cat"``,
   the training path's) or as ten ``(t, n, width)`` tensors (layout
   ``"split"``, ``SPLIT_LAUNCHES``). The kernels read and write the fields
-  through a residual-layout table (``csrc/mfm_res.cuh``).
+  through a residual-layout table (``csrc/mfm_res.cuh``). One call
+  launches three passes in order (``FWD_PASSES``): one chain per LSTM
+  cell (the cell's weights in shared memory), the attention branch for
+  all steps at once, and the memory's chain (its weights in shared
+  memory); ``mfm_encode_fwd_passes_plain`` is the same data flow in
+  plain PyTorch.
 - ``csrc/mfm_encode_bwd.cu::mfm_encode_bwd``: the reverse pass,
   writing ``dxp`` (= dgates) and each step's deltas in the
   ``DELTA_NAMES`` layout, as four kernels launched in order
@@ -17,7 +22,10 @@ Three kernels, each with a launch counter per variant:
   chain (one block per row tile), the attention branch for
   all steps at once, and one chain per LSTM cell (the cell's weights in
   shared memory). ``mfm_encode_bwd_passes_plain`` is the same data flow
-  in plain PyTorch. Variants: ``"stream"`` (the training path's,
+  in plain PyTorch. A chain whose weights pass one block's shared memory
+  splits them over a thread-block cluster of 2, 4 or 8 blocks, the
+  smallest that fits (``CLUSTERS`` records each call's); past 8 the
+  wrappers raise ``ValueError`` before any launch. Variants: ``"stream"`` (the training path's,
   ``BWD_LAUNCHES``), ``"recompute_att"`` (att recomputed from r1,
   ``RECOMPUTE_LAUNCHES``) and ``"two_step"`` (the chains take reverse
   steps in pairs, t even, ``TWO_STEP_LAUNCHES``); the last two are the
@@ -43,6 +51,7 @@ import torch
 
 from factorized_tpu_torch.ops import _build
 from factorized_tpu_torch.ops.core import dropout_mask
+from factorized_tpu_torch.ops.cuda_lstm import cell_columns
 from factorized_tpu_torch.ops.lstm import recurrent_weight_grad
 
 W_NAMES = ("wh", "a1w1", "a1b1", "a1w2", "a1b2", "a2w1", "a2b1",
@@ -75,12 +84,14 @@ BWD_LAUNCHES = 0        # mfm_encode_bwd, stream
 RECOMPUTE_LAUNCHES = 0  # mfm_encode_bwd, recompute_att
 TWO_STEP_LAUNCHES = 0   # mfm_encode_bwd, two_step
 DW_LAUNCHES = 0         # mfm_encode_dw
-# batch rows per block and threads per block: the fastest pairs measured
-# by perf_probe.py (PERF.md), ROWS at the serving shapes (n = 256: 64
-# blocks), TRAIN_ROWS at the training batch (n = 32: 16 blocks)
-ROWS = 4
+# batch rows a block of the forward's chains takes, the fastest measured
+# by perf_probe.py (PERF.md): an LSTM chain's and the memory chain's,
+# without residuals at the serving batch (n = 256) and with them at the
+# training batch (n = 32); threads per block of the chains and the softmax
+# (the attention's products run 256-thread tiles)
+CELL_ROWS, MEM_ROWS = 8, 2
+TRAIN_CELL_ROWS, TRAIN_MEM_ROWS = 2, 1
 THREADS = 512
-TRAIN_ROWS = 2
 # threads per block of the reverse pass's gates pass, chains and softmax
 # (the attention products run 256-thread tiles), at the training batch
 # (perf_probe.py train); the rows each pass's block takes are fixed in
@@ -93,6 +104,13 @@ BWD_PASSES = {"gates": ("gates_kernel",),
               "attention": ("recompute_att_kernel", "product_kernel",
                             "softmax_bwd_kernel"),
               "lstm_chains": ("lstm_chains_kernel",)}
+# the forward's passes, likewise
+FWD_PASSES = {"lstm_chains": ("cell_chains_fwd_kernel",),
+              "attention": ("product_fwd_kernel", "softmax_fwd_kernel"),
+              "memory_chain": ("mem_chain_fwd_kernel",)}
+# the thread-block clusters the last call of each wrapper ran its chains
+# on, by chain (1: one block)
+CLUSTERS = {}
 
 
 def sizes(weights):
@@ -268,25 +286,45 @@ def mfm_encode_res(xp, masks, weights, z_tot: int, h_dims,
     return _launch_fwd(xp, masks, weights, z_tot, h_dims, layout)
 
 
+def _fit(name, fit, passes, widths):
+    """Raise ``ValueError`` for a launch the kernel refused before it
+    started (``fit`` its ``lstm_common.cuh`` Fit array), naming the pass
+    and the widths; else record the chains' clusters in ``CLUSTERS``."""
+    if fit[0]:
+        raise ValueError(
+            f"{name}: the {passes[fit[0] - 1]} pass needs {fit[1]} bytes of "
+            f"shared memory a block, past the card's {fit[2]}, even split "
+            f"over a cluster of {fit[3]}: {widths}")
+    CLUSTERS[name] = (fit[4], fit[5])
+
+
 def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None):
-    """The forward kernel; ``layout`` None writes no residuals."""
+    """The forward's three passes; ``layout`` None writes no residuals.
+    Raises ``ValueError`` before any launch when a pass does not fit the
+    card."""
     global LAUNCHES, SPLIT_LAUNCHES
     t, n, H4 = xp.shape
     H = H4 // 4
     s1, s2, s3, s4, mem = sizes(weights)
     fn = _build.kernel(
         "mfm_encode_fwd",
-        [ctypes.c_void_p] * 22 + _TABLE + [ctypes.c_int] * 10
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-           ctypes.c_void_p])
+        [ctypes.c_void_p] * 22 + _TABLE + [ctypes.c_void_p]
+        + [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)]
+        + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int),
+                                ctypes.c_void_p])
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=xp.device)
 
     h_last, mem_last = empty(n, H), empty(n, mem)
     outs = [h_last, mem_last]
+    # scratch: pu3, the logits and attended and, without residuals, the
+    # cell states, chat, r1 and r2
+    m2 = 2 * (H - z_tot)
     if layout is None:
         ptrs, table = [None] * 3, [None] * 3
+        scratch = empty(t * n * (s3 + s4 + m2 + H + mem + s1 + s2))
+        rows = (CELL_ROWS, MEM_ROWS)
     else:
         offs, R = res_layout(weights)
         res = (empty(t, n, R) if layout == "cat" else
@@ -294,16 +332,21 @@ def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None):
         outs += [empty(t, n, H), empty(t, n, H), empty(t, n, mem), res]
         ptrs = [o.data_ptr() for o in outs[2:5]]
         table = _res_table(res, weights)
+        scratch = empty(t * n * (s3 + s4 + m2))
+        rows = (TRAIN_CELL_ROWS, TRAIN_MEM_ROWS)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
-    rows = ROWS if layout is None else TRAIN_ROWS
+    fit = (ctypes.c_int * 6)()
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xp.data_ptr(),
                  None if masks is None else masks.data_ptr(),
                  *[weights[k].data_ptr() for k in W_NAMES],
                  h_last.data_ptr(), mem_last.data_ptr(), *ptrs, *table,
-                 t, n, H, z_tot, mem, s1, s2, s3, s4,
-                 len(h_dims), dims, rows, THREADS, stream)
+                 scratch.data_ptr(), t, n, H, z_tot, mem, s1, s2, s3, s4,
+                 len(h_dims), dims, *rows, THREADS, fit, stream)
+    _fit("mfm_encode_fwd", fit, list(FWD_PASSES),
+         f"cells {list(h_dims)} (largest {max(h_dims)}), mem {mem}, "
+         f"s3 + s4 {s3 + s4}")
     _build.check(err, "mfm_encode_fwd")
     if layout == "split":
         SPLIT_LAUNCHES += 1
@@ -378,6 +421,68 @@ def mfm_encode_res_plain(xp, masks, weights, z_tot: int,
             torch.cat(fields, dim=2) if layout == "cat" else fields)
 
 
+def mfm_encode_fwd_passes_plain(xp, weights, z_tot: int, h_dims, masks=None,
+                                with_res: bool = False, layout: str = "cat"):
+    """The forward as the kernel's three passes split it, in plain
+    PyTorch and in their order of summation: (1) one chain per LSTM cell
+    of ``h_dims``, against its own diagonal blocks of ``wh``; (2) the
+    attention branch of every step at once, with the gamma product's part
+    on attended, ``pu3 = attended @ gw1[:M2] + gb1``; (3) the memory's
+    chain, ``u3 = pu3 + mem @ gw1[M2:]``. Returns what
+    ``mfm_encode_plain`` returns or, with ``with_res``, what
+    ``mfm_encode_res_plain`` returns in ``layout``."""
+    w = weights
+    t, n, H4 = xp.shape
+    H = H4 // 4
+    s1, s2, s3, s4, mem = sizes(w)
+    m2 = w["a1w1"].shape[0]
+    if masks is None:
+        masks = xp.new_ones((t, n, s1 + s2 + s3 + s4))
+    m1, mk2, m34 = masks.split([s1, s2, s3 + s4], dim=2)
+    # (1) the LSTM chains, one per cell
+    allh, allc = xp.new_empty((t, n, H)), xp.new_empty((t, n, H))
+    o = 0
+    for h in h_dims:
+        cols = cell_columns(H, o, h, xp.device)
+        wcell = w["wh"][o:o + h][:, cols]
+        hh, cc = xp.new_zeros((n, h)), xp.new_zeros((n, h))
+        for i in range(t):
+            ig, fg, gg, og = (xp[i][:, cols] + hh @ wcell).chunk(4, dim=-1)
+            cc = torch.sigmoid(fg) * cc + torch.sigmoid(ig) * torch.tanh(gg)
+            hh = torch.sigmoid(og) * torch.tanh(cc)
+            allh[i, :, o:o + h], allc[i, :, o:o + h] = hh, cc
+        o += h
+    # (2) the attention branch, no carry
+    cp = torch.cat([torch.zeros_like(allc[:1]), allc[:-1]])
+    cstar = torch.cat([cp[..., z_tot:], allc[..., z_tot:]], dim=-1)
+
+    def relu_mask(u, m):
+        return torch.relu(u) * m, torch.where(u > 0.0, m, 0.0)
+
+    r1, kg1 = relu_mask(cstar @ w["a1w1"] + w["a1b1"], m1)
+    att = torch.softmax(r1 @ w["a1w2"] + w["a1b2"], dim=-1)
+    attended = att * cstar
+    r2, kg2 = relu_mask(attended @ w["a2w1"] + w["a2b1"], mk2)
+    chat = torch.tanh(r2 @ w["a2w2"] + w["a2b2"])
+    pu3 = attended @ w["gw1"][:m2] + w["gb1"]
+    # (3) the memory chain
+    memv = xp.new_zeros((n, mem))
+    chain = {k: [] for k in ("r3", "kg3", "g1", "g2", "mem")}
+    for i in range(t):
+        r3, kg3 = relu_mask(pu3[i] + memv @ w["gw1"][m2:], m34[i])
+        g1 = torch.sigmoid(r3[:, :s3] @ w["g1w2"] + w["g1b2"])
+        g2 = torch.sigmoid(r3[:, s3:] @ w["g2w2"] + w["g2b2"])
+        memv = g1 * memv + g2 * chat[i]
+        for k, v in zip(chain, (r3, kg3, g1, g2, memv)):
+            chain[k].append(v)
+    if not with_res:
+        return allh[-1], memv
+    r3, kg3, g1, g2, allmem = (torch.stack(chain[k]) for k in chain)
+    fields = (att, r1, kg1, r2, kg2, r3, kg3, chat, g1, g2)
+    return (allh[-1], memv, allh, allc, allmem,
+            torch.cat(fields, dim=2) if layout == "cat" else fields)
+
+
 # -------------------------------------------------------------- backward
 
 def mfm_encode_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
@@ -439,7 +544,7 @@ def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
     scratch = empty(sum(lengths)).split(lengths)
     ptrs = [x.data_ptr() for x in scratch] + [None] * (not recompute)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
-    need = (ctypes.c_int * 3)()
+    fit = (ctypes.c_int * 6)()
     used = ("wh", "a1w1", "a1w2", "a1b2", "a2w1", "a2w2", "gw1", "g1w2",
             "g2w2")
     with torch.cuda.device(xp.device):
@@ -451,13 +556,10 @@ def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
                  dxp.data_ptr(), deltas.data_ptr(), *ptrs,
                  t, n, H, z_tot, mem, s1, s2, s3, s4,
                  len(h_dims), dims, BWD_VARIANTS.index(variant),
-                 BWD_THREADS, need, stream)
-    if need[1]:
-        raise ValueError(
-            f"mfm_encode_bwd: the {list(BWD_PASSES)[need[0] - 1]} pass needs "
-            f"{need[1]} bytes of shared memory a block, past the card's "
-            f"{need[2]}: cells {list(h_dims)} (largest {max(h_dims)}), "
-            f"H {H}, mem {mem}, s3 + s4 {s3 + s4}, M2 {m2}")
+                 BWD_THREADS, fit, stream)
+    _fit("mfm_encode_bwd", fit, list(BWD_PASSES),
+         f"cells {list(h_dims)} (largest {max(h_dims)}), H {H}, mem {mem}, "
+         f"s3 + s4 {s3 + s4}, M2 {m2}")
     _build.check(err, f"mfm_encode_bwd ({variant})")
     if variant == "stream":
         BWD_LAUNCHES += 1
@@ -633,8 +735,7 @@ def mfm_encode_bwd_passes_plain(xp, weights, allh, allc, allmem, res,
     dxp = torch.empty_like(xp)
     o = 0
     for h in h_dims:
-        cols = torch.cat([torch.arange(q * H + o, q * H + o + h)
-                          for q in range(4)]).to(xp.device)
+        cols = cell_columns(H, o, h, xp.device)
         wcell = w["wh"][o:o + h][:, cols]
         if o >= z_tot:
             dcs_p = dcstar[..., o - z_tot:o - z_tot + h]

@@ -6,17 +6,18 @@ Run from the repository root on the card:
 ``python -m factorized_tpu_torch.perf_probe phases`` alone. Prints JSON
 lines:
 
-- ``tile``: each kernel's mean time (CUDA events, 50 launches after
-  warm-up) for each batch-row tile and block size the launchers take, the
-  forward kernels at the serving shapes (n = 256, t = 20,
-  ``best_acc_mosi_config``) and the training kernels at the training
-  shapes (n = 32); the two backward kernels' threads by device time (the
-  encode's reverse pass split into its passes by torch.profiler); a
-  setting whose shared memory does not fit is reported as refused. Part
-  ``multi`` does the same for the fused encoder-cell kernels at the
-  widths of ``kl_ef`` and ``missing``. So the defaults in
-  ``ops/cuda_mfn.py`` and ``ops/cuda_lstm.py`` are chosen from a
-  measurement;
+- ``tile``: each kernel's mean time for each batch-row tile and block
+  size the launchers take, the forward kernels at the serving shapes
+  (n = 256, t = 20, ``best_acc_mosi_config``) and the training kernels at
+  the training shapes (n = 32): the decoder forward by CUDA events (50
+  launches after warm-up); the encode forward's chains' rows and threads,
+  one knob at a time, and the backward kernels' threads by device time,
+  the encode's calls split into their passes by torch.profiler; a setting
+  whose shared memory does not fit is reported as refused. Part ``multi``
+  does the same for the fused encoder-cell kernels at the widths of
+  ``kl_ef`` and ``missing`` (the backward by device time). So the
+  defaults in ``ops/cuda_mfn.py`` and ``ops/cuda_lstm.py`` are chosen
+  from a measurement;
 - ``profile``: ``torch.profiler`` over 20 padded 256-row ``predict``
   calls: wall time, the device time summed over kernels, the share of
   the wall in which the device was idle, and the largest kernels;
@@ -61,20 +62,23 @@ N_TRAIN = 32
 # the per-phase probe's buffer: csrc/lstm_common.cuh's ClockKernel order,
 # kMaxCells grid rows, kClockSteps steps, kClockPhases phases
 CLOCK_KERNELS = ("multi_lstm_bwd", "decoder_lstm_bwd", "mem_chain_bwd",
-                 "cell_chains_bwd", "encode_fwd", "cell_chains_fwd",
-                 "mem_chain_fwd")
+                 "cell_chains_bwd", "cell_chains_fwd", "mem_chain_fwd")
 CLOCK_ROWS, CLOCK_STEPS, CLOCK_PHASES = 8, 64, 8
 # what each stamped phase of a step ends with, per kernel
+# (a cluster's chains: "dh product" includes the partials' exchange, the
+# memory chains' products the gather of the peers' columns)
+_CELL_BWD = ("gate math, barrier", "dh product (thread 0)",
+             "operand wait, barrier")
 PHASE_NAMES = {
-    "multi_lstm_bwd": ("gate math, barrier", "dh product, barrier"),
-    "decoder_lstm_bwd": ("gate math, barrier", "dh product (thread 0)",
-                         "operand wait, barrier"),
+    "multi_lstm_bwd": _CELL_BWD,
+    "decoder_lstm_bwd": _CELL_BWD,
     "mem_chain_bwd": ("elementwise, barrier", "du3 product, barrier",
                       "carry product, operand wait, barrier"),
-    "cell_chains_bwd": ("gate math, barrier", "dh product (thread 0)",
-                        "operand wait, barrier"),
-    "encode_fwd": ("LSTM cells", "att1 fc1", "att1 fc2", "softmax",
-                   "att2 fc1 and gamma fc1", "heads", "memory update"),
+    "cell_chains_bwd": _CELL_BWD,
+    "cell_chains_fwd": ("gates product, barrier",
+                        "cell update, operand wait, barrier"),
+    "mem_chain_fwd": ("u3 product and relu, barrier",
+                      "heads and update, operand wait, barrier"),
 }
 
 
@@ -137,16 +141,24 @@ def _profiled(fn, reps):
                      if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
-def _pass_ms(fn, reps=50):
+def _pass_ms(fn, reps=50, passes=None):
     """The encode's reverse pass: its device time (``_device_ms``) and its
-    split between the passes (``cuda_mfn.BWD_PASSES``) by the names of
-    the kernels torch.profiler saw over reps whole calls."""
+    split between the passes (``cuda_mfn.BWD_PASSES``, or ``passes``) by
+    the names of the kernels torch.profiler saw over reps whole calls."""
     total = _device_ms(fn, reps)
     _, kernels = _profiled(fn, reps)
     return {"ms": total, "pass_ms": {
         name: sum(ms for k, (ms, _) in kernels.items()
                   if any(kernel in k for kernel in names)) / reps
-        for name, names in cuda_mfn.BWD_PASSES.items()}}
+        for name, names in (passes or cuda_mfn.BWD_PASSES).items()}}
+
+
+def _fwd_pass_ms(fn, reps=50):
+    """The encode forward's device time and its split between its passes
+    (``cuda_mfn.FWD_PASSES``), with the clusters its chains ran on."""
+    out = _pass_ms(fn, reps, cuda_mfn.FWD_PASSES)
+    out["clusters"] = cuda_mfn.CLUSTERS["mfm_encode_fwd"]
+    return out
 
 
 def _sweep(name, module, knobs, n, call, timer=_ms, **tags):
@@ -182,9 +194,16 @@ def sweep(cfg, params, dev):
         mfm.kernel_operands(params, x, cfg)
     t = cfg.seqlength
     # block sizes up to the launchers' limit of 512 threads
-    _sweep("mfm_encode_fwd", cuda_mfn,
-           {"ROWS": (1, 2, 4, 8, 16), "THREADS": (128, 256, 512)}, N,
-           lambda: cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims))
+    # the forward's passes are independent: each pass's rows alone, the
+    # call split into its passes by torch.profiler
+    def fwd():
+        return cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims)
+
+    for knob, values in (("CELL_ROWS", (2, 4, 8, 16)),
+                         ("MEM_ROWS", (1, 2, 4, 8)),
+                         ("THREADS", (128, 256, 512))):
+        _sweep("mfm_encode_fwd", cuda_mfn, {knob: values}, N, fwd,
+               _fwd_pass_ms)
     _sweep("decoder_lstm_fwd", cuda_lstm,
            {"ROWS": (1, 2, 4, 8, 16), "THREADS": (64, 128, 160, 256, 512)},
            N, lambda: cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b, t,
@@ -206,10 +225,14 @@ def train_sweep(cfg, params, dev):
                        device=dev)
     allh, allc, gates = cuda_lstm.decoder_lstm_plain(h0, c0, wsum, b, t)
     dallh = torch.randn(allh.shape, generator=g, device=dev)
-    _sweep("mfm_encode_fwd_train", cuda_mfn,
-           {"TRAIN_ROWS": (1, 2, 4, 8), "THREADS": (128, 256, 512)}, n,
-           lambda: cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot,
-                                           h_dims))
+    def fwd():
+        return cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims)
+
+    for knob, values in (("TRAIN_CELL_ROWS", (1, 2, 4)),
+                         ("TRAIN_MEM_ROWS", (1, 2)),
+                         ("THREADS", (128, 256, 512))):
+        _sweep("mfm_encode_fwd_train", cuda_mfn, {knob: values}, n, fwd,
+               _fwd_pass_ms)
 
     # the two backward kernels' threads (the rows their blocks take are
     # fixed in their sources, from this sweep's earlier runs: PERF.md); the
@@ -245,11 +268,12 @@ def multi_sweep(cfg, dev):
                N_TRAIN, lambda: cuda_lstm.multi_lstm_fwd(xp, wh, h_dims,
                                                          with_res=True),
                model_type=model_type)
+        # device time: a call of this wrapper is host-bound
         _sweep("multi_lstm_bwd", cuda_lstm,
-               {"MULTI_BWD_ROWS": (1, 2, 4, 8),
+               {"MULTI_BWD_ROWS": (1, 2, 4),
                 "MULTI_BWD_THREADS": (128, 256, 512)}, N_TRAIN,
                lambda: cuda_lstm.multi_lstm_bwd(gates, wh, allc, dh, h_dims),
-               model_type=model_type)
+               _device_ms, model_type=model_type)
 
 
 def kernel_times(cfg, params, dev):
@@ -274,6 +298,10 @@ def kernel_times(cfg, params, dev):
         xt, weights, *res, torch.ones_like(res[0][0]),
         torch.ones_like(res[2][0]), z_tot)
     allh, allc, gates = cuda_lstm.decoder_lstm_plain(h0t, c0t, wsum, b, t)
+    kl = mfm.MFM(cfg, seed=0, device=dev, model_type="kl_ef").tree()
+    kxp, kwh, k_dims = mfm.multi_lstm_operands(kl, x32, cfg, "kl_ef")
+    _, _, kallc, kgates = cuda_lstm.multi_lstm_plain(kxp, kwh, with_res=True)
+    kdh = torch.ones((N_TRAIN, sum(k_dims)), device=dev)
     calls = {
         "mfm_encode_fwd": lambda: cuda_mfn.mfm_encode(xp, weights, z_tot,
                                                       h_dims),
@@ -288,6 +316,8 @@ def kernel_times(cfg, params, dev):
             h0, c0, wsum, b, t, dec_dims),
         "decoder_lstm_bwd": lambda: cuda_lstm.decoder_lstm_bwd(
             wsum, gates, allc, allh, dec_dims),
+        "multi_lstm_bwd": lambda: cuda_lstm.multi_lstm_bwd(
+            kgates, kwh, kallc, kdh, k_dims),
     }
     print(json.dumps({
         "kernel_times": {k: {"events_ms": _ms(f), "device_ms": _device_ms(f)}

@@ -279,13 +279,13 @@ def test_layouts_and_variants_keep_the_bits(cuda):
 
 
 def _encode_digest(mfn_ops, dev):
-    """sha256 of the encode's forward kernel outputs on the training path
-    (its eval and train variants) and of the weight-gradient kernel's on
-    the plain reverse pass's deltas, at full width, n = 32, t = 20, on
-    numpy-drawn inputs. The reverse pass's own kernels are left out: their
-    sums run in another order since its four-pass redesign. ``mfn_ops`` is
-    the ``cuda_mfn`` module, so that another build of the package can be
-    given."""
+    """sha256 of the weight-gradient kernel's outputs on the plain
+    forward's residuals (cat layout, read through the residual-layout
+    table) and the plain reverse pass's deltas, at full width, n = 32,
+    t = 20, on numpy-drawn inputs. The forward's and the reverse pass's
+    own kernels are left out: their sums run in another order since their
+    redesigns. ``mfn_ops`` is the ``cuda_mfn`` module, so that another
+    build of the package can be given."""
     cfg = best_acc_mosi_config()
     h_dims = [cfg.zl_size, cfg.za_size, cfg.zv_size, *cfg.h_dims]
     H, z_tot, t, n = sum(h_dims), sum(h_dims[:3]), cfg.seqlength, 32
@@ -316,26 +316,24 @@ def _encode_digest(mfn_ops, dev):
     masks = torch.from_numpy((keep / 0.7).astype(np.float32)).to(dev)
     dh, dmem = w(n, H) * 10.0, w(n, mem) * 10.0
     with torch.inference_mode():
-        outs = list(mfn_ops.mfm_encode(xp, weights, z_tot, h_dims))
-        fwd = mfn_ops.mfm_encode_res(xp, masks, weights, z_tot, h_dims)
+        fwd = mfn_ops.mfm_encode_res_plain(xp, masks, weights, z_tot)
         _, deltas = mfn_ops.mfm_encode_bwd_steps_plain(
             xp, weights, *fwd[2:], dh, dmem, z_tot)
         dw = mfn_ops._launch_dw(weights, fwd[3], fwd[4], fwd[5], deltas,
                                 z_tot)
-        outs += [*fwd, *[dw[k] for k in mfn_ops.DW_NAMES]]
+        outs = [dw[k] for k in mfn_ops.DW_NAMES]
         digest = hashlib.sha256()
         for x in outs:
             digest.update(x.contiguous().cpu().numpy().tobytes())
     return digest.hexdigest()
 
 
-# _encode_digest of the forward and weight-gradient kernels as built
-# before the reverse pass's redesign (unchanged since the residual-layout
-# table, which kept the bits of the kernels before it), built with nvcc of
-# CUDA 12.8 for sm_90a and run on an NVIDIA H100 80GB HBM3 (PyTorch 2.11):
-# neither the table nor the redesign may move their bits
+# _encode_digest of the weight-gradient kernel, whose code no redesign
+# since the residual-layout table has changed, as built by the parent of
+# the forward's three-pass redesign, with nvcc of CUDA 12.8 for sm_90a on
+# an NVIDIA H100 80GB HBM3 (PyTorch 2.11)
 PRE_TABLE_DIGEST = (
-    "71f3908b53965b48c27ec197ee3dfe7ef6c3d487827864b71754c3d3ac13380f")
+    "24b3d098ce41c3bff65d743071b98b84bba2ce14d614c6d931083a6a6404e047")
 
 
 def test_cat_layout_keeps_the_bits_before_the_table(cuda):
@@ -362,29 +360,145 @@ def test_redesigned_backward_kernels_rerun_to_the_same_bits(cuda):
         assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
-def test_a_cell_past_shared_memory_raises_and_counts_nothing(cuda):
-    """A 120-unit cell's diagonal blocks (225 KiB) and a block's buffers
-    pass the card's 227 KB: both backward kernels refuse it before any
-    launch, naming the width."""
-    cfg = SMALL.replace(h_dims=[120, 5, 4])
+def _chain_operands(h_dims, t, n, dev, seed):
+    """Random operands of the two recurrences' backward chains over the
+    fused cells ``h_dims``: (w, gates, allc, dallh, dhlast), the weight
+    block-diagonal."""
+    H = sum(h_dims)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    blocks = torch.zeros(H, 4 * H, device=dev)
+    o = 0
+    for h in h_dims:
+        for q in range(4):
+            blocks[o:o + h, q * H + o:q * H + o + h] = 1.0
+        o += h
+    w = 0.1 * torch.randn(H, 4 * H, generator=g, device=dev) * blocks
+    return (w, torch.randn(t, n, 4 * H, generator=g, device=dev),
+            torch.randn(t, n, H, generator=g, device=dev),
+            torch.randn(t, n, H, generator=g, device=dev),
+            torch.randn(n, H, generator=g, device=dev))
+
+
+def test_a_cell_past_one_block_runs_on_a_cluster(cuda):
+    """A 120-unit cell's diagonal blocks (225 KiB) and a memory chain of
+    mem 128 with both gamma MLPs 128 wide (256 KiB) pass one block's
+    shared memory: every chain kernel splits them over a cluster of 2,
+    equals its plain version and reruns to the same bits."""
+    cfg = SMALL.replace(h_dims=[120, 5, 4], memsize=128, gamma1_shape=128,
+                        gamma2_shape=128)
     (xp, masks, weights, z_tot, h_dims, dh, dmem), _ = \
         _train_operands(cfg, 3, cuda)
     with torch.inference_mode():
-        res = cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims)[2:]
-        before = cuda_mfn.BWD_LAUNCHES
-        with pytest.raises(ValueError, match="largest 120"):
+        got = cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims)
+        assert min(cuda_mfn.CLUSTERS["mfm_encode_fwd"]) >= 2
+        for g, w in zip(got, cuda_mfn.mfm_encode_plain(xp, weights, z_tot)):
+            torch.testing.assert_close(g, w, **TOL)
+        got = cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims)
+        assert cuda_mfn.CLUSTERS["mfm_encode_fwd"] == (2, 2)
+        want = cuda_mfn.mfm_encode_res_plain(xp, masks, weights, z_tot)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **TOL)
+        again = cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims)
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        res = want[2:]
+        first = cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem, z_tot,
+                                     h_dims)
+        assert cuda_mfn.CLUSTERS["mfm_encode_bwd"] == (2, 2)
+        ref = cuda_mfn.mfm_encode_bwd_steps_plain(xp, weights, *res, dh,
+                                                  dmem, z_tot)
+        for g, w in zip(first, ref):
+            torch.testing.assert_close(g, w, **GRAD)
+        again = cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem, z_tot,
+                                     h_dims)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+        w, gates, allc, dallh, dhlast = _chain_operands([120, 24], 6, 3,
+                                                        cuda, 8)
+        got = cuda_lstm.decoder_lstm_bwd(w, gates, allc, dallh, [120, 24])
+        assert cuda_lstm.CLUSTERS["decoder_lstm_bwd"] == 2
+        for g, r in zip(got, cuda_lstm.decoder_lstm_bwd_plain(
+                w, gates, allc, dallh)):
+            torch.testing.assert_close(g, r, **GRAD)
+        again = cuda_lstm.decoder_lstm_bwd(w, gates, allc, dallh, [120, 24])
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        got = cuda_lstm.multi_lstm_bwd(gates, w, allc, dhlast, [120, 24])
+        assert cuda_lstm.CLUSTERS["multi_lstm_bwd"] == 2
+        torch.testing.assert_close(
+            got, cuda_lstm.multi_lstm_bwd_plain(gates, w, allc, dhlast),
+            **GRAD)
+        assert torch.equal(got, cuda_lstm.multi_lstm_bwd(gates, w, allc,
+                                                         dhlast, [120, 24]))
+        torch.cuda.synchronize()
+
+
+def test_a_cell_past_shared_memory_raises_and_counts_nothing(cuda):
+    """A 400-unit cell's diagonal blocks (2.4 MiB) pass the shared memory
+    of a cluster of 8 blocks: every kernel with a chain refuses it before
+    any launch, naming the width."""
+    cfg = SMALL.replace(h_dims=[400, 5, 4])
+    # the operands come from the plain forward on the CPU: on the card the
+    # decoder's would come from the encode, which refuses this width
+    (xp, masks, weights, z_tot, h_dims, dh, dmem), _ = \
+        _train_operands(cfg, 3, torch.device("cpu"))
+    xp, masks, dh, dmem = (v.to(cuda) for v in (xp, masks, dh, dmem))
+    weights = {k: v.to(cuda) for k, v in weights.items()}
+    counters = (cuda_mfn, "LAUNCHES", "BWD_LAUNCHES"), (
+        cuda_lstm, "BWD_LAUNCHES", "MULTI_BWD_LAUNCHES")
+
+    def counts():
+        return [getattr(m, k) for m, *names in counters for k in names]
+
+    before = counts()
+    with torch.inference_mode():
+        res = cuda_mfn.mfm_encode_res_plain(xp, masks, weights, z_tot)[2:]
+        with pytest.raises(ValueError, match="largest 400"):
+            cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims)
+        with pytest.raises(ValueError, match="cluster of 8"):
             cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem, z_tot, h_dims)
-        assert cuda_mfn.BWD_LAUNCHES == before
-        t, n, H = cfg.seqlength, 3, 120
-        g = torch.Generator(device=cuda).manual_seed(8)
-        before = cuda_lstm.BWD_LAUNCHES
-        with pytest.raises(ValueError, match="largest 120"):
-            cuda_lstm.decoder_lstm_bwd(
-                torch.randn(H, 4 * H, generator=g, device=cuda),
-                torch.randn(t, n, 4 * H, generator=g, device=cuda),
-                torch.randn(t, n, H, generator=g, device=cuda),
-                torch.randn(t, n, H, generator=g, device=cuda), [H])
-        assert cuda_lstm.BWD_LAUNCHES == before
+        w, gates, allc, dallh, dhlast = _chain_operands([400], 4, 3, cuda, 9)
+        with pytest.raises(ValueError, match="largest 400"):
+            cuda_lstm.decoder_lstm_bwd(w, gates, allc, dallh, [400])
+        with pytest.raises(ValueError, match="largest 400"):
+            cuda_lstm.multi_lstm_bwd(gates, w, allc, dhlast, [400])
+    assert counts() == before
+
+
+@pytest.mark.parametrize("cfg,n_eval,n_train",
+                         [(SMALL, 5, 3), (best_acc_mosi_config(), 256, 32)],
+                         ids=["small", "full"])
+def test_encode_forward_passes_match_plain(cuda, cfg, n_eval, n_train):
+    """The forward's three passes, eval and train, both layouts, masks on
+    and off, against the plain mirror of the passes on the card."""
+    (xp, weights, z_tot, h_dims), _ = _operands(cfg, n_eval, cuda)
+    with torch.inference_mode():
+        got = cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims)
+        want = cuda_mfn.mfm_encode_fwd_passes_plain(xp, weights, z_tot,
+                                                    h_dims)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **TOL)
+    (xp, masks, weights, z_tot, h_dims, _, _), _ = \
+        _train_operands(cfg, n_train, cuda)
+    with torch.inference_mode():
+        for m in (masks, None):
+            got = cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims, m)
+            want = cuda_mfn.mfm_encode_fwd_passes_plain(xp, weights, z_tot,
+                                                        h_dims, m)
+            for g, w in zip(got, want):
+                torch.testing.assert_close(g, w, **TOL)
+            for layout in cuda_mfn.LAYOUTS:
+                got = cuda_mfn.mfm_encode_res(xp, m, weights, z_tot, h_dims,
+                                              layout)
+                want = cuda_mfn.mfm_encode_fwd_passes_plain(
+                    xp, weights, z_tot, h_dims, m, True, layout)
+                flat = (lambda o: (*o[:5], *o[5]) if layout == "split"
+                        else o)
+                for g, w in zip(flat(got), flat(want)):
+                    torch.testing.assert_close(g, w, **TOL)
+                again = cuda_mfn.mfm_encode_res(xp, m, weights, z_tot,
+                                                h_dims, layout)
+                assert all(torch.equal(a, b)
+                           for a, b in zip(flat(got), flat(again)))
+        torch.cuda.synchronize()
 
 
 def _multi_operands(cfg, model_type, n, dev):

@@ -1,19 +1,24 @@
-"""The data flow of the redesigned backward kernels, held on the CPU.
+"""The data flow of the redesigned kernels, held on the CPU.
 
 ``cuda_mfn.mfm_encode_bwd_passes_plain`` splits the encode's reverse pass
 as ``csrc/mfm_encode_bwd.cu`` does (the gates of every step at once, the
 memory carry's chain, the attention branch of every step at once, one
-chain per LSTM cell) and ``cuda_lstm.decoder_lstm_bwd_cells_plain`` splits
-the decoder's backward into one chain per cell, as
-``csrc/decoder_lstm_bwd.cu`` does. Each must give what the step-for-step
-plain versions give, and what the JAX package's Pallas kernels give in
-interpret mode. The launchers' ctypes signatures are held against the C
-prototypes, and their fit gate against a refused launch, with the kernel
-call faked: there is no card here.
+chain per LSTM cell); ``cuda_mfn.mfm_encode_fwd_passes_plain`` splits the
+forward as ``csrc/mfm_encode_fwd.cu`` does (one chain per LSTM cell, the
+attention branch of every step at once, the memory's chain); and
+``cuda_lstm.decoder_lstm_bwd_cells_plain`` and
+``multi_lstm_bwd_cells_plain`` split the recurrences' backward into one
+chain per cell, as ``csrc/lstm_bwd.cu`` does, the dh product of a cell on
+a thread-block cluster formed as ``cell_dh_split_plain`` forms it. Each
+must give what the step-for-step plain versions give, and what the JAX
+package's Pallas kernels give in interpret mode. The launchers' ctypes
+signatures are held against the C prototypes, and their fit gate against
+a refused launch, with the kernel call faked: there is no card here.
 
 Inputs are made from a seed with numpy. Tolerances: the split against the
 step-for-step version atol 1e-5 (the same products summed in another
-grouping), against JAX rtol 1e-3 / atol 2e-5 (as
+grouping), against JAX forward rtol 2e-4 / atol 1e-5 and gradients rtol
+1e-3 / atol 2e-5 (as tests/test_torch_kernels.py and
 tests/test_torch_kernels_bwd.py), float32."""
 
 import contextlib
@@ -33,6 +38,7 @@ from factorized_tpu.ops import pallas_lstm, pallas_mfn
 from factorized_tpu_torch.ops import _build, cuda_lstm, cuda_mfn
 
 SPLIT = dict(rtol=0.0, atol=1e-5)
+FWD = dict(rtol=2e-4, atol=1e-5)
 GRAD = dict(rtol=1e-3, atol=2e-5)
 
 # encoders 6/4/5, MFN 6/5/4 (z_tot 15), mem 6, every MLP 8 wide
@@ -152,6 +158,97 @@ def test_decoder_cells_match_the_whole(t):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), **GRAD)
 
 
+@functools.lru_cache(maxsize=None)
+def _forward_case(seed, t, masked):
+    """Numpy (xp, weights, masks) and the JAX forward's outputs (h_last,
+    mem_last, allh, allc, allmem, the residuals in one buffer); all-ones
+    masks when not ``masked``."""
+    xp, weights, _, _, _ = _encode_case(seed, t)
+    S4 = (S,) * 4
+    masks = (np.array(pallas_mfn.make_dropout_masks(
+        jax.random.PRNGKey(seed + 100), t, N, S4, (0.5,) * 4)) if masked
+        else np.ones((t, N, 4 * S), np.float32))
+    fwd = pallas_mfn._fwd_call(jnp.asarray(xp), jnp.asarray(masks),
+                               {k: jnp.asarray(v) for k, v in
+                                weights.items()}, Z_TOT, True, with_res=True)
+    return xp, weights, masks, [np.array(a) for a in fwd]
+
+
+@pytest.mark.parametrize("t", [1, 4, 5])
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("layout", [None, "cat", "split"])
+def test_forward_passes_match_the_steps_and_pallas(t, masked, layout):
+    """The forward's three passes, eval (no residuals) and train in both
+    layouts, with and without masks, against the step-for-step plain
+    versions and the JAX package's ``_fwd_call`` (interpret mode)."""
+    xp, weights, masks, ref = _forward_case(20 + t, t, masked)
+    x, m = torch.from_numpy(xp), torch.from_numpy(masks)
+    w = {k: torch.from_numpy(v) for k, v in weights.items()}
+    if layout is None:
+        got = cuda_mfn.mfm_encode_fwd_passes_plain(
+            x, w, Z_TOT, H_DIMS, m if masked else None)
+        want = cuda_mfn.mfm_encode_plain(x, w, Z_TOT, m if masked else None)
+        ref = ref[:2]
+    else:
+        got = cuda_mfn.mfm_encode_fwd_passes_plain(x, w, Z_TOT, H_DIMS, m,
+                                                   True, layout)
+        want = cuda_mfn.mfm_encode_res_plain(x, m, w, Z_TOT, layout)
+        if layout == "split":
+            got = (*got[:5], torch.cat(got[5], dim=2))
+            want = (*want[:5], torch.cat(want[5], dim=2))
+    assert len(got) == len(want) == len(ref)
+    for g, s, r in zip(got, want, ref):
+        assert g.shape == s.shape == r.shape
+        torch.testing.assert_close(g, s, **SPLIT)
+        np.testing.assert_allclose(g.numpy(), r, **FWD)
+
+
+@pytest.mark.parametrize("h_dims", [[6, 4, 5, 15], [12, 13, 9], [120, 8]],
+                         ids=["kl_ef", "missing", "past_one_block"])
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_multi_cells_match_the_whole_and_pallas(h_dims, cluster):
+    """One chain per cell, each cell's dh product split as a cluster of
+    ``cluster`` blocks forms it, against the whole and ``_enc_bwd_call``
+    (interpret mode); [120, 8] holds a cell past one block's shared
+    memory."""
+    rng = np.random.default_rng(sum(h_dims) + cluster)
+    t, H = 3, sum(h_dims)
+    wh = np.array(jfused.gate_major_blockdiag(
+        [(0.4 * rng.normal(size=(h, 4 * h))).astype(np.float32)
+         for h in h_dims], h_dims))
+    xp = rng.normal(size=(t, N, 4 * H)).astype(np.float32)
+    _, _, allc, gates = pallas_lstm._enc_fwd_call(jnp.asarray(xp),
+                                                  jnp.asarray(wh))
+    dh = rng.normal(size=(N, H)).astype(np.float32)
+    ref = pallas_lstm._enc_bwd_call(gates, jnp.asarray(wh), allc,
+                                    jnp.asarray(dh))
+    tensors = (torch.from_numpy(np.array(gates)), torch.from_numpy(wh),
+               torch.from_numpy(np.array(allc)), torch.from_numpy(dh))
+    got = cuda_lstm.multi_lstm_bwd_cells_plain(*tensors, h_dims, cluster)
+    torch.testing.assert_close(got, cuda_lstm.multi_lstm_bwd_plain(*tensors),
+                               **SPLIT)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **GRAD)
+
+
+@pytest.mark.parametrize("h", [5, 8, 120])
+@pytest.mark.parametrize("cluster", [2, 4])
+def test_gate_split_partials_add_to_the_whole(h, cluster):
+    """A cluster's blocks hold runs of the fewest multiple of 4 gate
+    columns that cover the cell's 4h; their partial dh, added in rank
+    order, are the whole product."""
+    kc = cuda_lstm.cluster_columns(h, cluster)
+    assert kc % 4 == 0 and kc - 4 < 4 * h / cluster <= kc
+    assert cuda_lstm.cluster_columns(h, 1) == 4 * h
+    rng = np.random.default_rng(h * cluster)
+    dg = torch.from_numpy(rng.normal(size=(N, 4 * h)).astype(np.float32))
+    wcell = torch.from_numpy(rng.normal(size=(h, 4 * h)).astype(np.float32))
+    # sums of 4h unit-normal products, of size up to 30 at h = 120, in
+    # another grouping: a relative tolerance as well
+    torch.testing.assert_close(cuda_lstm.cell_dh_split_plain(dg, wcell,
+                                                             cluster),
+                               dg @ wcell.T, rtol=1e-5, atol=1e-5)
+
+
 # ------------------------------------------- launchers, the call faked
 
 def _prototype(name):
@@ -194,7 +291,7 @@ def fake_card(monkeypatch):
     and, when ``refuse`` is set, fills the call's ``need`` array as a
     launch past the card's shared memory does. CPU tensors stand in for
     the card's."""
-    calls, state = [], {"refuse": None}
+    calls, state = [], {"refuse": None, "clusters": (1, 1)}
 
     def kernel(name, argtypes, restype=ctypes.c_int):
         def fn(*args):
@@ -203,6 +300,7 @@ def fake_card(monkeypatch):
                 for k, v in enumerate(state["refuse"]):
                     args[-2][k] = v
                 return 1
+            args[-2][4], args[-2][5] = state["clusters"]
             return 0
         return fn
 
@@ -212,8 +310,12 @@ def fake_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
     for module, counter in ((cuda_mfn, "BWD_LAUNCHES"),
-                            (cuda_lstm, "BWD_LAUNCHES")):
+                            (cuda_mfn, "LAUNCHES"),
+                            (cuda_lstm, "BWD_LAUNCHES"),
+                            (cuda_lstm, "MULTI_BWD_LAUNCHES")):
         monkeypatch.setattr(module, counter, getattr(module, counter))
+    for module in (cuda_mfn, cuda_lstm):
+        monkeypatch.setattr(module, "CLUSTERS", {})
     return calls, state
 
 
@@ -233,9 +335,33 @@ def _launch_decoder():
         DEC_H)
 
 
-@pytest.mark.parametrize("name,launch", [("mfm_encode_bwd", _launch_encode),
-                                         ("decoder_lstm_bwd",
-                                          _launch_decoder)])
+def _launch_forward(layout="cat"):
+    xp, weights, masks, _ = _forward_case(42, 4, True)
+    w = {k: torch.from_numpy(v) for k, v in weights.items()}
+    return cuda_mfn._launch_fwd(torch.from_numpy(xp),
+                                torch.from_numpy(masks), w, Z_TOT, H_DIMS,
+                                layout)
+
+
+def _launch_multi():
+    t, H = 4, sum(DEC_H)
+    g = torch.Generator().manual_seed(43)
+    return cuda_lstm._launch_multi_bwd(
+        torch.randn(t, N, 4 * H, generator=g),
+        torch.randn(H, 4 * H, generator=g),
+        torch.randn(t, N, H, generator=g), torch.randn(N, H, generator=g),
+        DEC_H)
+
+
+LAUNCHERS = [("mfm_encode_bwd", _launch_encode, cuda_mfn, "BWD_LAUNCHES"),
+             ("decoder_lstm_bwd", _launch_decoder, cuda_lstm,
+              "BWD_LAUNCHES"),
+             ("mfm_encode_fwd", _launch_forward, cuda_mfn, "LAUNCHES"),
+             ("multi_lstm_bwd", _launch_multi, cuda_lstm,
+              "MULTI_BWD_LAUNCHES")]
+
+
+@pytest.mark.parametrize("name,launch", [case[:2] for case in LAUNCHERS])
 def test_launchers_match_the_c_prototypes(fake_card, name, launch):
     calls, _ = fake_card
     launch()
@@ -273,17 +399,52 @@ def test_encode_launcher_carves_its_scratch(fake_card, variant):
         assert att is None
 
 
-@pytest.mark.parametrize("name,launch,module,need", [
-    ("mfm_encode_bwd", _launch_encode, cuda_mfn, (4, 240960, 232448)),
-    ("decoder_lstm_bwd", _launch_decoder, cuda_lstm, (1, 240000, 232448))])
+def test_forward_launcher_passes_its_rows(fake_card, monkeypatch):
+    """Without residuals the forward takes the serving batch's rows, with
+    them the training batch's: (LSTM chains, memory chain) and the
+    threads precede fit and stream."""
+    calls, _ = fake_card
+    monkeypatch.setattr(cuda_mfn, "THREADS", 256)
+    _launch_forward(None)
+    _launch_forward("split")
+    assert list(calls[0][2][-5:-2]) == [cuda_mfn.CELL_ROWS,
+                                        cuda_mfn.MEM_ROWS, 256]
+    assert list(calls[1][2][-5:-2]) == [cuda_mfn.TRAIN_CELL_ROWS,
+                                        cuda_mfn.TRAIN_MEM_ROWS, 256]
+
+
+@pytest.mark.parametrize("name,launch,module,counter", LAUNCHERS)
+def test_launchers_record_their_clusters(fake_card, name, launch, module,
+                                         counter):
+    """The clusters the kernel reports it launched its chains on are kept
+    by the wrapper, one per chain."""
+    _, state = fake_card
+    state["clusters"] = (2, 4)
+    before = getattr(module, counter)
+    launch()
+    assert getattr(module, counter) == before + 1
+    assert module.CLUSTERS[name] in ((2, 4), 2)
+
+
+@pytest.mark.parametrize("name,launch,module,counter,need", [
+    ("mfm_encode_bwd", _launch_encode, cuda_mfn, "BWD_LAUNCHES",
+     (4, 240960, 232448, 8)),
+    ("decoder_lstm_bwd", _launch_decoder, cuda_lstm, "BWD_LAUNCHES",
+     (1, 240000, 232448, 8)),
+    ("mfm_encode_fwd", _launch_forward, cuda_mfn, "LAUNCHES",
+     (3, 262144, 232448, 8)),
+    ("multi_lstm_bwd", _launch_multi, cuda_lstm, "MULTI_BWD_LAUNCHES",
+     (1, 250000, 232448, 8))])
 def test_a_refused_fit_raises_and_counts_nothing(fake_card, name, launch,
-                                                 module, need):
+                                                 module, counter, need):
     """The error names what the kernel reported: the bytes a block needs
-    and the card's limit."""
+    and the card's limit at the largest cluster, and the widths."""
     _, state = fake_card
     state["refuse"] = need
-    before = module.BWD_LAUNCHES
+    before = getattr(module, counter)
     with pytest.raises(ValueError, match=f"{need[1]} bytes of shared memory"
-                       f" a block, past the card's {need[2]}"):
+                       f" a block, past the card's {need[2]}, even split "
+                       f"over a cluster of {need[3]}: .*cells"):
         launch()
-    assert module.BWD_LAUNCHES == before
+    assert getattr(module, counter) == before
+    assert name not in module.CLUSTERS

@@ -382,4 +382,4 @@ def test_bwd_wrappers_reject_bad_arguments():
 
 def test_new_sources_join_the_build():
     names = {p.name for p in _build.sources()}
-    assert {"mfm_encode_bwd.cu", "decoder_lstm_bwd.cu"} <= names
+    assert {"mfm_encode_bwd.cu", "lstm_bwd.cu"} <= names
