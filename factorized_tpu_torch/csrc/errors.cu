@@ -17,7 +17,8 @@ extern "C" const char* ftt_error_string(int err) {
 }
 
 // Registers the probe's device buffer of kClockKernels * kMaxCells *
-// kClockSteps * kClockPhases int64 (null: none). Read by the launches that follow.
+// kClockSteps * kClockPhases int64 (null: none), read by the launches
+// that follow.
 extern "C" int ftt_set_phase_clocks(void* buffer) {
   ftt::clocks = static_cast<long long*>(buffer);
   return 0;

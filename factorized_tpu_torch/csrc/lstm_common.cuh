@@ -53,7 +53,7 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-// The shared memory a block may use on an H100 (227 KB), the backward
+// The shared memory a block may use on an H100 (227 KB), the chain
 // kernels' fit gate.
 constexpr int kMaxSmemBytes = 232448;
 

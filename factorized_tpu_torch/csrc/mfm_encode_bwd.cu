@@ -77,8 +77,9 @@
 // three digits, too few for the gradient tolerances, and a tile of a few
 // batch rows is far below wgmma's 64. Every product of the TPU kernel's
 // body is computed in these kernels, each in a fixed order: no atomics,
-// the same bits on every run. A launch whose shared memory would pass the
-// card's 227 KB is refused before any pass starts.
+// the same bits on every run. A chain whose weights pass one block's 227
+// KB splits them over a cluster; a launch whose shared memory would pass
+// the card's even at a cluster of 8 is refused before any pass starts.
 //
 // (b) mfm_encode_dw_kernel: each block computes one 32 x 32 tile of one
 //     gradient, A^T delta summed over the t * n rows in a fixed order, A

@@ -25,11 +25,12 @@ Three kernels, each with a launch counter per variant:
   in plain PyTorch. A chain whose weights pass one block's shared memory
   splits them over a thread-block cluster of 2, 4 or 8 blocks, the
   smallest that fits (``CLUSTERS`` records each call's); past 8 the
-  wrappers raise ``ValueError`` before any launch. Variants: ``"stream"`` (the training path's,
-  ``BWD_LAUNCHES``), ``"recompute_att"`` (att recomputed from r1,
-  ``RECOMPUTE_LAUNCHES``) and ``"two_step"`` (the chains take reverse
-  steps in pairs, t even, ``TWO_STEP_LAUNCHES``); the last two are the
-  probe variants of ``factorized_tpu_torch/probes/``.
+  wrappers raise ``ValueError`` before any launch. Variants:
+  ``"stream"`` (the training path's, ``BWD_LAUNCHES``),
+  ``"recompute_att"`` (att recomputed from r1, ``RECOMPUTE_LAUNCHES``)
+  and ``"two_step"`` (the chains take reverse steps in pairs, t even,
+  ``TWO_STEP_LAUNCHES``); the last two are the probe variants of
+  ``factorized_tpu_torch/probes/``.
 - ``csrc/mfm_encode_bwd.cu::mfm_encode_dw`` (``DW_LAUNCHES``): the 14
   non-``wh`` weight and bias gradients, ``A^T delta`` summed over the
   t * n rows in a fixed order.

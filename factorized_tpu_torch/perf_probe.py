@@ -463,7 +463,8 @@ def phases(cfg, dev):
                     start = prev
                     for p in range(CLOCK_PHASES):
                         if rows[i, p]:
-                            per.setdefault(p, []).append(int(rows[i, p]) - prev)
+                            per.setdefault(p, []).append(
+                                int(rows[i, p]) - prev)
                             prev = int(rows[i, p])
                     steps.append(prev - start)
                 names = PHASE_NAMES.get(kernel, ())
