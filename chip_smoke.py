@@ -783,7 +783,8 @@ def forward_passes(cfg, dev):
     """The encode forward's call split between its three passes
     (``cuda_mfn.FWD_PASSES``, torch.profiler over 50 calls), beside its
     device time (queued calls): eval at n = 256 and train (masks and
-    residuals) at n = 32, with each pass's rows and the chains' clusters."""
+    residuals) at n = 32, each kernel by its name (a chain's template
+    arguments are its rows and cluster) and the chains' clusters."""
     from factorized_tpu_torch.models import mfm
     from factorized_tpu_torch.models.common import mfn_drops
     from factorized_tpu_torch.ops import cuda_mfn
@@ -800,7 +801,6 @@ def forward_passes(cfg, dev):
             if variant == "eval":
                 def call():
                     return cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims)
-                rows = (cuda_mfn.CELL_ROWS, cuda_mfn.MEM_ROWS)
             else:
                 masks = cuda_mfn.make_dropout_masks(
                     gen, cfg.seqlength, n, cuda_mfn.sizes(weights)[:4],
@@ -809,7 +809,6 @@ def forward_passes(cfg, dev):
                 def call():
                     return cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot,
                                                    h_dims)
-                rows = (cuda_mfn.TRAIN_CELL_ROWS, cuda_mfn.TRAIN_MEM_ROWS)
             device_ms = queued_ms(call)
             kernels = kernel_split_ms(call)
         clusters = cuda_mfn.CLUSTERS["mfm_encode_fwd"]
@@ -819,7 +818,6 @@ def forward_passes(cfg, dev):
                                   if any(kn in k for kn in names))
                         for name, names in cuda_mfn.FWD_PASSES.items()},
             "kernel_ms": {kernel_name(k): v for k, v in kernels.items()},
-            "rows": {"lstm_chains": rows[0], "memory_chain": rows[1]},
             "clusters": {"lstm_chains": clusters[0],
                          "memory_chain": clusters[1]},
             "threads": cuda_mfn.THREADS}
@@ -995,7 +993,6 @@ def multi_lstm_phase(cfg, dev, smi):
                           "bound_by": train_bound[1]},
             "bwd": {"n": N_TRAIN, "ms": bwd_ms, "device_ms": bwd_dev_ms,
                     "plain_ms": bwd_plain_ms, "cluster": bwd_cluster,
-                    "rows": cuda_lstm.MULTI_BWD_ROWS,
                     "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1],
                     "library_ms": lib_bwd_ms,
                     "max_abs_err": err_bwd["max_abs_err"]},

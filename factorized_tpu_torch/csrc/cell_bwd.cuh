@@ -159,18 +159,19 @@ __device__ __forceinline__ CellStep cell_step(float* base, int h, int R,
 }
 
 // (1) The gate math's backward for the cell's units and R rows, from the
-// carried dh and dc: writes dg [4h][R] and, where `store`, the rows'
-// dgates into out[slot] of a (*, n, 4H) tensor (one block of a cluster
-// writes them), and moves dc to the step before.
-template <int R>
+// carried dh and dc: writes dg [4h][R] and the rows' dgates into
+// out[slot] of a (*, n, 4H) tensor (in a cluster of C, block 0 writes
+// them), and moves dc to the step before.
+template <int R, int C = 1>
 __device__ __forceinline__ void cell_gate_bwd(const CellStep& op,
                                               const float* dh, float* dc,
                                               float* dg, float* out,
                                               int slot, int n, int H,
                                               const CellTile& c, int row0,
                                               int tid, int nthr,
-                                              bool store = true) {
+                                              int rank = 0) {
   const int h = c.h;
+  const bool store = C == 1 || rank == 0;
   for (int i = tid; i < h * R; i += nthr) {
     const int j = i / R, r = i - j * R, row = row0 + r;
     const float si = sigmoid(op.g[j * R + r]);
@@ -228,18 +229,19 @@ __device__ __forceinline__ void load_row(float (&v)[R], const float* src) {
 }
 
 // (2) dh[k][r] = sum over the block's gate columns c0 + jj of
-// dg[c0 + jj][r] * w[k][jj], plus add[k][r] where add is given (for a
-// cluster, this block's partial, added up by cluster_dh): ks neighbouring
-// lanes share a unit, each reading four consecutive columns at a time (16
-// bytes of w and of dg) into four partial sums, and shuffles add the
-// lanes' sums; every sum in a fixed order, so a rerun gives the same bits.
-template <int R>
+// dg[c0 + jj][r] * w[k][jj] (all 4h for C = 1), plus add[k][r] where add
+// is given (for a cluster, this block's partial, added up by cluster_dh):
+// ks neighbouring lanes share a unit, each reading four consecutive
+// columns at a time (16 bytes of w and of dg) into four partial sums, and
+// shuffles add the lanes' sums; every sum in a fixed order, so a rerun
+// gives the same bits.
+template <int R, int C = 1>
 __device__ __forceinline__ void cell_dh(const float* w, const float* dg,
                                         const float* add, float* dh,
                                         const CellTile& c, int lane,
                                         int warp, int nwarp) {
-  const int items = c.h * c.ks, K = c.kc, ks = c.ks;
-  dg += (size_t)c.c0 * R;
+  const int items = c.h * c.ks, K = C == 1 ? 4 * c.h : c.kc, ks = c.ks;
+  if (C > 1) dg += (size_t)c.c0 * R;
   for (int base = warp * 32; base < items; base += nwarp * 32) {
     const int item = base + lane, k = item / ks, slice = item - k * ks;
     float p[4][R];

@@ -56,9 +56,15 @@ namespace {
 constexpr int kMaxThreads = 512;
 // Batch rows a decoder block takes: one was the fastest at the training
 // batch (perf_probe.py train, PERF.md), and a block of 8 rows or more does
-// not fit beside the 104-unit cell's weights. The encoder cells take the
-// rows their wrapper passes.
+// not fit beside the 104-unit cell's weights.
 constexpr int kDecoderRows = 1;
+// Batch rows an encoder-cell block takes: two was the fastest at the
+// training batch at kl_ef's and missing's widths (PERF.md). perf_probe.py
+// rows sweeps it by rebuilding with -DFTT_MULTI_ROWS=<rows>.
+#ifndef FTT_MULTI_ROWS
+#define FTT_MULTI_ROWS 2
+#endif
+constexpr int kMultiRows = FTT_MULTI_ROWS;
 
 struct ChainBwdArgs {
   const float* gates;   // (t, n, 4H); the decoders' slot 0 unused
@@ -103,9 +109,13 @@ __device__ __forceinline__ void load_step(const ChainBwdArgs& a, int s,
 
 // blockIdx.y is the cell, blockIdx.x / C the row tile and the rank in the
 // cluster of C its share of the cell's gate columns. D: the decoders.
+// __grid_constant__: the cell table is indexed by blockIdx.y, which
+// otherwise makes every thread copy the argument struct to local memory
+// (a stack frame in ptxas's report, about 1% of the decoder chain:
+// PERF.md).
 template <int R, int C, bool D>
 __global__ void __launch_bounds__(kMaxThreads)
-    lstm_chain_bwd_kernel(const ChainBwdArgs a) {
+    lstm_chain_bwd_kernel(const __grid_constant__ ChainBwdArgs a) {
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
   const CellTile c = cell_tile<C>(a.cells, blockIdx.y, blockDim.x, rank);
@@ -115,10 +125,11 @@ __global__ void __launch_bounds__(kMaxThreads)
   float* const w = smem;
   float* const dh = w + h * c.wp;
   float* const dc = dh + pad4(h * R);
-  float* const dg = dc + pad4(h * R);  // [C kc][R]: rows past 4h zero
+  // [4h][R]; for a cluster [C kc][R], the rows past 4h zero
+  float* const dg = dc + pad4(h * R);
   // two operand buffers: gates, c, c_prev (and dallh of the step before);
   // step s uses buffer s & 1; then, for a cluster, two partial dh
-  float* const buf = dg + C * c.kc * R;
+  float* const buf = dg + (C == 1 ? 4 * h : C * c.kc) * R;
   const int step_floats = op_width<D>() * h * R;
   float* const part = buf + 2 * step_floats;
   const int row0 = (blockIdx.x / C) * R;
@@ -129,7 +140,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   load_rows_async<R>(dh, D ? a.dallh : a.dhlast, D ? a.t - 1 : 0, a.n, H,
                      c.k0, h, row0, tid, nthr);
   for (int i = tid; i < h * R; i += nthr) dc[i] = 0.0f;
-  for (int i = 4 * h * R + tid; i < C * c.kc * R; i += nthr) dg[i] = 0.0f;
+  if (C > 1)
+    for (int i = 4 * h * R + tid; i < C * c.kc * R; i += nthr) dg[i] = 0.0f;
   load_step<R, D>(a, a.t - 1, buf + ((a.t - 1) & 1) * step_floats, c, row0,
                   tid, nthr);
   cp_async_wait_all();
@@ -141,8 +153,8 @@ __global__ void __launch_bounds__(kMaxThreads)
       load_step<R, D>(a, s - 1, buf + ((s - 1) & 1) * step_floats, c, row0,
                       tid, nthr);
     const CellStep op = cell_step(buf + (s & 1) * step_floats, h, R, false);
-    cell_gate_bwd<R>(op, dh, dc, dg, a.dgates, s - last, a.n, H, c, row0,
-                     tid, nthr, C == 1 || rank == 0);
+    cell_gate_bwd<R, C>(op, dh, dc, dg, a.dgates, s - last, a.n, H, c,
+                        row0, tid, nthr, rank);
     __syncthreads();
     FTT_STAMP(a.clocks, D ? kClockDecoderBwd : kClockMultiBwd, a.t - s, 0);
     if (!D && s == 0) break;  // no dh into the zero state before step 0
@@ -151,7 +163,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       cell_dh<R>(w, dg, add, dh, c, lane, warp, nwarp);
     } else {
       float* const mine = part + (s & 1) * pad4(h * R);
-      cell_dh<R>(w, dg, nullptr, mine, c, lane, warp, nwarp);
+      cell_dh<R, C>(w, dg, nullptr, mine, c, lane, warp, nwarp);
       cluster_dh<C, R>(dh, mine, add, h, tid, nthr);
     }
     FTT_STAMP(a.clocks, D ? kClockDecoderBwd : kClockMultiBwd, a.t - s, 1);
@@ -233,13 +245,12 @@ extern "C" int decoder_lstm_bwd(const float* gates, const float* allc,
                                          static_cast<cudaStream_t>(stream));
 }
 
-// The same for the encoder cells, t >= 1; rows is the batch rows per block
-// (1, 2 or 4).
+// The same for the encoder cells, t >= 1.
 extern "C" int multi_lstm_bwd(const float* gates, const float* allc,
                               const float* dhlast, const float* wh,
                               float* dxp, int t, int n, int H, int n_cells,
-                              const int* cell_dims, int rows, int threads,
-                              int* fit, void* stream) {
+                              const int* cell_dims, int threads, int* fit,
+                              void* stream) {
   using namespace ftt;
   clear_fit(fit);
   const ChainBwdArgs given = {gates, allc,    nullptr,        dhlast, wh,
@@ -248,11 +259,6 @@ extern "C" int multi_lstm_bwd(const float* gates, const float* allc,
   ChainBwdArgs a;
   if (!valid(given, n_cells, cell_dims, threads, &a) || t < 1)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rows) {
-    case 1: return (int)launch<1, false>(a, threads, fit, st);
-    case 2: return (int)launch<2, false>(a, threads, fit, st);
-    case 4: return (int)launch<4, false>(a, threads, fit, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)launch<kMultiRows, false>(a, threads, fit,
+                                        static_cast<cudaStream_t>(stream));
 }

@@ -358,7 +358,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       dq[r * 2 * mem + k] = q1;
       dq[r * 2 * mem + mem + k] = q2;
       carry[i] = dm * g1;
-      if (row < a.n && k >= m.m0 && k < m.m1) {
+      if (row < a.n && (C == 1 || (k >= m.m0 && k < m.m1))) {
         float* d = a.delta + (base + row) * dl.width;
         d[dl.dq1 + k] = q1;
         d[dl.dq2 + k] = q2;
@@ -727,10 +727,11 @@ __global__ void __launch_bounds__(kMaxThreads)
   float* const w = smem;
   float* const dh = w + h * c.wp;
   float* const dc = dh + pad4(h * R);
-  float* const dg = dc + pad4(h * R);  // [C kc][R]: rows past 4h zero
+  // [4h][R]; for a cluster [C kc][R], the rows past 4h zero
+  float* const dg = dc + pad4(h * R);
   // two operand buffers; step s uses buffer s & 1. cStar covers the cells
   // past z_tot (a cell boundary). Then, for a cluster, two partial dh
-  float* const buf = dg + C * c.kc * R;
+  float* const buf = dg + (C == 1 ? 4 * h : C * c.kc) * R;
   const int step_floats = kCellOpWidth * h * R;
   float* const part = buf + 2 * step_floats;
   const bool with_dcs = c.k0 >= a.z_tot;
@@ -738,7 +739,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   load_cell_weights(w, a.wh, a.H, c, tid, nthr);
   load_rows_async<R>(dh, a.dhlast, 0, a.n, a.H, c.k0, h, row0, tid, nthr);
   for (int i = tid; i < h * R; i += nthr) dc[i] = 0.0f;
-  for (int i = 4 * h * R + tid; i < C * c.kc * R; i += nthr) dg[i] = 0.0f;
+  if (C > 1)
+    for (int i = 4 * h * R + tid; i < C * c.kc * R; i += nthr) dg[i] = 0.0f;
   if (!P)
     load_cell_step<R>(a, a.t - 1,
                       cell_step(buf + ((a.t - 1) & 1) * step_floats, h, R,
@@ -762,8 +764,8 @@ __global__ void __launch_bounds__(kMaxThreads)
     } else if (s > 0) {
       load_cell_step<R>(a, s - 1, prev, c, row0, tid, nthr);
     }
-    cell_gate_bwd<R>(op, dh, dc, dg, a.dxp, s, a.n, a.H, c, row0, tid,
-                     nthr, C == 1 || rank == 0);
+    cell_gate_bwd<R, C>(op, dh, dc, dg, a.dxp, s, a.n, a.H, c, row0, tid,
+                        nthr, rank);
     if (s == 0) break;  // no dh into the zero state before step 0
     __syncthreads();
     FTT_STAMP(a.clocks, kClockCellChainsBwd, a.t - s, 0);
@@ -771,7 +773,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       cell_dh<R>(w, dg, nullptr, dh, c, lane, warp, nwarp);
     } else {
       float* const mine = part + (s & 1) * pad4(h * R);
-      cell_dh<R>(w, dg, nullptr, mine, c, lane, warp, nwarp);
+      cell_dh<R, C>(w, dg, nullptr, mine, c, lane, warp, nwarp);
       cluster_dh<C, R>(dh, mine, nullptr, h, tid, nthr);
     }
     FTT_STAMP(a.clocks, kClockCellChainsBwd, a.t - s, 1);

@@ -75,6 +75,26 @@ namespace ftt {
 namespace {
 
 constexpr int kMaxThreads = 512;
+// Batch rows a block of each chain takes, the fastest measured by
+// perf_probe.py (PERF.md): without residuals at the serving batch (n =
+// 256) and with them at the training batch (n = 32). perf_probe.py rows
+// sweeps them by rebuilding with -D overrides of these macros.
+#ifndef FTT_EVAL_CELL_ROWS
+#define FTT_EVAL_CELL_ROWS 8
+#endif
+#ifndef FTT_EVAL_MEM_ROWS
+#define FTT_EVAL_MEM_ROWS 2
+#endif
+#ifndef FTT_TRAIN_CELL_ROWS
+#define FTT_TRAIN_CELL_ROWS 2
+#endif
+#ifndef FTT_TRAIN_MEM_ROWS
+#define FTT_TRAIN_MEM_ROWS 1
+#endif
+constexpr int kEvalCellRows = FTT_EVAL_CELL_ROWS;
+constexpr int kEvalMemRows = FTT_EVAL_MEM_ROWS;
+constexpr int kTrainCellRows = FTT_TRAIN_CELL_ROWS;
+constexpr int kTrainMemRows = FTT_TRAIN_MEM_ROWS;
 
 struct EncodeArgs {
   const float* xp;     // (t, n, 4H)
@@ -594,28 +614,6 @@ Kernel mem_for(int C) {
                   : mem_chain_fwd_kernel<R, 8>;
 }
 
-// The chains' kernels at their rows (null: rows not offered).
-Kernel cell_kernel(int rows, int C) {
-  switch (rows) {
-    case 1: return cells_for<1>(C);
-    case 2: return cells_for<2>(C);
-    case 4: return cells_for<4>(C);
-    case 8: return cells_for<8>(C);
-    case 16: return cells_for<16>(C);
-    default: return nullptr;
-  }
-}
-
-Kernel mem_kernel(int rows, int C) {
-  switch (rows) {
-    case 1: return mem_for<1>(C);
-    case 2: return mem_for<2>(C);
-    case 4: return mem_for<4>(C);
-    case 8: return mem_for<8>(C);
-    default: return nullptr;
-  }
-}
-
 const Kernel kProductKernels[kProducts] = {
     product_fwd_kernel<kProdU1>, product_fwd_kernel<kProdLogits>,
     product_fwd_kernel<kProdU2Pu3>, product_fwd_kernel<kProdChat>};
@@ -629,35 +627,23 @@ struct Pass {
   int cluster;
 };
 
-// A chain's rows and cluster: the given rows, halved while no cluster up
-// to 8 fits them, on the smallest cluster that fits; 0 if none does even
-// at one row, with the bytes there in *bytes.
-template <typename F>
-int fit_chain(F bytes_at, int* rows, size_t* bytes) {
-  for (; *rows >= 1; *rows /= 2) {
-    const int C = smallest_cluster(
-        [&](int c) { return bytes_at(*rows, c); }, bytes);
-    if (C > 0) return C;
-  }
-  return 0;
-}
-
-cudaError_t run(const EncodeArgs& a, int cell_rows, int mem_rows,
-                int threads, int* fit, cudaStream_t stream) {
+// Pass (1) to (3) with an LSTM chain block on CR batch rows and a memory
+// chain block on MR, each chain on the smallest cluster whose blocks fit.
+template <int CR, int MR>
+cudaError_t run(const EncodeArgs& a, int threads, int* fit,
+                cudaStream_t stream) {
   const int flat = a.t * a.n, tiles_m = (flat + kTile - 1) / kTile;
   size_t cell_bytes = 0, mem_bytes = 0;
-  const int Cc = fit_chain(
-      [&](int rows, int C) {
-        return fwd_chain_bytes(a.cells, rows, threads, C);
-      },
-      &cell_rows, &cell_bytes);
+  const int Cc = smallest_cluster(
+      [&](int C) { return fwd_chain_bytes(a.cells, CR, threads, C); },
+      &cell_bytes);
   if (Cc == 0) return refuse(fit, 1, cell_bytes, kMaxCluster);
-  const int Cm = fit_chain(
-      [&](int rows, int C) {
-        return mem_fwd_floats(a.mem, a.s3, a.s4, C, rows, threads) *
+  const int Cm = smallest_cluster(
+      [&](int C) {
+        return mem_fwd_floats(a.mem, a.s3, a.s4, C, MR, threads) *
                sizeof(float);
       },
-      &mem_rows, &mem_bytes);
+      &mem_bytes);
   if (Cm == 0) return refuse(fit, 3, mem_bytes, kMaxCluster);
   fit[kFitChainA] = Cc;
   fit[kFitChainB] = Cm;
@@ -668,8 +654,8 @@ cudaError_t run(const EncodeArgs& a, int cell_rows, int mem_rows,
     pass_of[count] = pass;
     p[count++] = launch;
   };
-  add(1, {cell_kernel(cell_rows, Cc),
-          dim3(((a.n + cell_rows - 1) / cell_rows) * Cc, a.cells.count),
+  add(1, {cells_for<CR>(Cc),
+          dim3(((a.n + CR - 1) / CR) * Cc, a.cells.count),
           threads, cell_bytes, Cc});
   for (int id = kProdU1; id < kProducts; ++id) {
     const ProductSpec spec = product_spec(a, id);
@@ -681,9 +667,8 @@ cudaError_t run(const EncodeArgs& a, int cell_rows, int mem_rows,
               dim3((flat + threads / 32 - 1) / (threads / 32)), threads, 0,
               1});
   }
-  add(3, {mem_kernel(mem_rows, Cm),
-          dim3(((a.n + mem_rows - 1) / mem_rows) * Cm), threads, mem_bytes,
-          Cm});
+  add(3, {mem_for<MR>(Cm), dim3(((a.n + MR - 1) / MR) * Cm), threads,
+          mem_bytes, Cm});
   for (int k = 0; k < count; ++k) {
     if (p[k].bytes > (size_t)kMaxSmemBytes)
       return refuse(fit, pass_of[k], p[k].bytes, p[k].cluster);
@@ -699,12 +684,6 @@ cudaError_t run(const EncodeArgs& a, int cell_rows, int mem_rows,
   return cudaSuccess;
 }
 
-bool rows_offered(int rows, int most) {
-  for (int r = 1; r <= most; r *= 2)
-    if (rows == r) return true;
-  return false;
-}
-
 }  // namespace
 }  // namespace ftt
 
@@ -717,15 +696,12 @@ bool rows_offered(int rows, int most) {
 // the logits and attended) and, without residuals, t n (H + mem + s1 + s2)
 // more (the cell states, chat, r1 and r2). cell_dims (host memory) lists
 // the n_cells fused hidden widths, summing to H; the first cells up to
-// z_tot are the encoders. cell_rows is the batch rows of an LSTM chain's
-// block (1, 2, 4, 8 or 16), mem_rows those of a memory chain block (1, 2,
-// 4 or 8), a chain's rows halved where its blocks fit no cluster; threads
-// a multiple of 32 up to 512, the block size of the chains and the
-// softmax (the products run 256-thread tiles). fit (host memory, six
-// ints, lstm_common.cuh's Fit) gets the clusters the LSTM chains and the
-// memory chain ran on, or, when a pass's shared memory passes the card's
-// even at a cluster of 8 and one row, the refusal before anything is
-// launched.
+// z_tot are the encoders. threads is a multiple of 32 up to 512, the
+// block size of the chains and the softmax (the products run 256-thread
+// tiles). fit (host memory, six ints, lstm_common.cuh's Fit) gets the
+// clusters the LSTM chains and the memory chain ran on, or, when a pass's
+// shared memory passes the card's even at a cluster of 8, the refusal
+// before anything is launched.
 extern "C" int mfm_encode_fwd(
     const float* xp, const float* masks, const float* wh, const float* a1w1,
     const float* a1b1, const float* a1w2, const float* a1b2,
@@ -735,8 +711,8 @@ extern "C" int mfm_encode_fwd(
     float* allh, float* allc, float* allmem, void* const* res_ptrs,
     const int* res_strides, const int* res_cols, float* scratch, int t,
     int n, int H, int z_tot, int mem, int s1, int s2, int s3, int s4,
-    int n_cells, const int* cell_dims, int cell_rows, int mem_rows,
-    int threads, int* fit, void* stream) {
+    int n_cells, const int* cell_dims, int threads, int* fit,
+    void* stream) {
   using namespace ftt;
   clear_fit(fit);
   EncodeArgs a;
@@ -779,8 +755,7 @@ extern "C" int mfm_encode_fwd(
       z_tot < 0 || z_tot >= H || threads < 32 || threads > kMaxThreads ||
       threads % 32 != 0 || scratch == nullptr ||
       !make_res_table(res_ptrs, res_strides, res_cols, widths, &a.res) ||
-      !(with_res || !(allh || allc || allmem || res_ptrs)) ||
-      !rows_offered(cell_rows, 16) || !rows_offered(mem_rows, 8))
+      !(with_res || !(allh || allc || allmem || res_ptrs)))
     return (int)cudaErrorInvalidValue;
   const size_t flat = (size_t)t * n;
   a.pu3 = scratch;
@@ -796,6 +771,8 @@ extern "C" int mfm_encode_fwd(
     a.r1 = ResEntry{a.chat.ptr + flat * mem, s1, 0};
     a.r2 = ResEntry{a.r1.ptr + flat * s1, s2, 0};
   }
-  return (int)run(a, cell_rows, mem_rows, threads, fit,
-                  static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(with_res
+                   ? run<kTrainCellRows, kTrainMemRows>(a, threads, fit, st)
+                   : run<kEvalCellRows, kEvalMemRows>(a, threads, fit, st));
 }

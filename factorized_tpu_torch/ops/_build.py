@@ -29,17 +29,20 @@ _lib = None
 _functions = {}
 
 
-def enable_phase_clocks():
-    """Build with ``FTT_PHASE_CLOCKS``: the chain kernels stamp each
-    phase of each step (``csrc/lstm_common.cuh``) for the per-phase probe
-    (``perf_probe.py phases``). Only before the library is loaded; the
-    stamped library is a file of its own (the flags are in its hash)."""
+def define(macro: str, value=None):
+    """Build with ``-D<macro>[=<value>]``: ``FTT_PHASE_CLOCKS`` makes the
+    chain kernels stamp each phase of each step (``csrc/lstm_common.cuh``)
+    for the per-phase probe (``perf_probe.py phases``); ``FTT_*_ROWS``
+    overrides a chain's batch rows for the sweep (``perf_probe.py
+    rows``). Only before the library is loaded; such a library is a file
+    of its own (the flags are in its hash)."""
     global NVCC_FLAGS
+    flag = f"-D{macro}" if value is None else f"-D{macro}={value}"
     with _lock:
         if _lib is not None:
             raise RuntimeError("the kernels' library is already loaded")
-        if "-DFTT_PHASE_CLOCKS" not in NVCC_FLAGS:
-            NVCC_FLAGS = NVCC_FLAGS + ("-DFTT_PHASE_CLOCKS",)
+        if flag not in NVCC_FLAGS:
+            NVCC_FLAGS = NVCC_FLAGS + (flag,)
 
 
 def sources():

@@ -52,11 +52,11 @@ ROWS = 4
 THREADS = 160
 BWD_THREADS = 512
 # the same for the fused encoder cells: MULTI_ROWS for both forward
-# variants (4 rows was fastest at n = 256 and at n = 32), MULTI_BWD_ROWS
-# (1, 2 or 4) at the training batch
+# variants (4 rows was fastest at n = 256 and at n = 32), and the
+# backward's threads at the training batch (its rows fixed in
+# csrc/lstm_bwd.cu)
 MULTI_ROWS = 4
 MULTI_THREADS = 256
-MULTI_BWD_ROWS = 2
 MULTI_BWD_THREADS = 256
 # the thread-block cluster the last call of each backward wrapper ran its
 # chains on (1: one block)
@@ -417,8 +417,8 @@ def _launch_multi_bwd(gates, wh, allc, dhlast, h_dims):
     fn = _build.kernel(
         "multi_lstm_bwd",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 2
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+           ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     dxp = torch.empty_like(gates)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
     fit = (ctypes.c_int * 6)()
@@ -426,7 +426,7 @@ def _launch_multi_bwd(gates, wh, allc, dhlast, h_dims):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(gates.data_ptr(), allc.data_ptr(), dhlast.data_ptr(),
                  wh.data_ptr(), dxp.data_ptr(), t, n, H, len(h_dims), dims,
-                 MULTI_BWD_ROWS, MULTI_BWD_THREADS, fit, stream)
+                 MULTI_BWD_THREADS, fit, stream)
     _fit("multi_lstm_bwd", fit, h_dims)
     _build.check(err, "multi_lstm_bwd")
     MULTI_BWD_LAUNCHES += 1

@@ -85,13 +85,10 @@ BWD_LAUNCHES = 0        # mfm_encode_bwd, stream
 RECOMPUTE_LAUNCHES = 0  # mfm_encode_bwd, recompute_att
 TWO_STEP_LAUNCHES = 0   # mfm_encode_bwd, two_step
 DW_LAUNCHES = 0         # mfm_encode_dw
-# batch rows a block of the forward's chains takes, the fastest measured
-# by perf_probe.py (PERF.md): an LSTM chain's and the memory chain's,
-# without residuals at the serving batch (n = 256) and with them at the
-# training batch (n = 32); threads per block of the chains and the softmax
-# (the attention's products run 256-thread tiles)
-CELL_ROWS, MEM_ROWS = 8, 2
-TRAIN_CELL_ROWS, TRAIN_MEM_ROWS = 2, 1
+# threads per block of the forward's chains and softmax (the attention's
+# products run 256-thread tiles), the fastest measured by perf_probe.py
+# (PERF.md); the rows a chain's block takes are fixed in
+# csrc/mfm_encode_fwd.cu, one count without residuals and one with them
 THREADS = 512
 # threads per block of the reverse pass's gates pass, chains and softmax
 # (the attention products run 256-thread tiles), at the training batch
@@ -311,8 +308,7 @@ def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None):
         "mfm_encode_fwd",
         [ctypes.c_void_p] * 22 + _TABLE + [ctypes.c_void_p]
         + [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)]
-        + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int),
-                                ctypes.c_void_p])
+        + [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=xp.device)
@@ -325,7 +321,6 @@ def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None):
     if layout is None:
         ptrs, table = [None] * 3, [None] * 3
         scratch = empty(t * n * (s3 + s4 + m2 + H + mem + s1 + s2))
-        rows = (CELL_ROWS, MEM_ROWS)
     else:
         offs, R = res_layout(weights)
         res = (empty(t, n, R) if layout == "cat" else
@@ -334,7 +329,6 @@ def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None):
         ptrs = [o.data_ptr() for o in outs[2:5]]
         table = _res_table(res, weights)
         scratch = empty(t * n * (s3 + s4 + m2))
-        rows = (TRAIN_CELL_ROWS, TRAIN_MEM_ROWS)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
     fit = (ctypes.c_int * 6)()
     with torch.cuda.device(xp.device):
@@ -344,7 +338,7 @@ def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None):
                  *[weights[k].data_ptr() for k in W_NAMES],
                  h_last.data_ptr(), mem_last.data_ptr(), *ptrs, *table,
                  scratch.data_ptr(), t, n, H, z_tot, mem, s1, s2, s3, s4,
-                 len(h_dims), dims, *rows, THREADS, fit, stream)
+                 len(h_dims), dims, THREADS, fit, stream)
     _fit("mfm_encode_fwd", fit, list(FWD_PASSES),
          f"cells {list(h_dims)} (largest {max(h_dims)}), mem {mem}, "
          f"s3 + s4 {s3 + s4}")

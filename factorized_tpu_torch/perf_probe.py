@@ -3,21 +3,25 @@
 Run from the repository root on the card:
 ``python -m factorized_tpu_torch.perf_probe [serve] [train] [multi]
 [profile] [times]`` (the first four parts when none is named), or
-``python -m factorized_tpu_torch.perf_probe phases`` alone. Prints JSON
-lines:
+``python -m factorized_tpu_torch.perf_probe phases`` or ``... rows``
+alone. Prints JSON lines:
 
 - ``tile``: each kernel's mean time for each batch-row tile and block
   size the launchers take, the forward kernels at the serving shapes
   (n = 256, t = 20, ``best_acc_mosi_config``) and the training kernels at
   the training shapes (n = 32): the decoder forward by CUDA events (50
-  launches after warm-up); the encode forward's chains' rows and threads,
-  one knob at a time, and the backward kernels' threads by device time,
-  the encode's calls split into their passes by torch.profiler; a setting
-  whose shared memory does not fit is reported as refused. Part ``multi``
-  does the same for the fused encoder-cell kernels at the widths of
-  ``kl_ef`` and ``missing`` (the backward by device time). So the
-  defaults in ``ops/cuda_mfn.py`` and ``ops/cuda_lstm.py`` are chosen
-  from a measurement;
+  launches after warm-up); the encode forward's threads and the backward
+  kernels' threads by device time, the encode's calls split into their
+  passes by torch.profiler; a setting whose shared memory does not fit is
+  reported as refused. Part ``multi`` does the same for the fused
+  encoder-cell kernels at the widths of ``kl_ef`` and ``missing`` (the
+  backward by device time). So the defaults in ``ops/cuda_mfn.py`` and
+  ``ops/cuda_lstm.py`` are chosen from a measurement;
+- ``tile`` lines with ``rows`` (part ``rows``, run alone): the chains'
+  batch rows a block, constants in the sources, for each value of
+  ``ROW_SWEEPS`` in a build of its own (``-D<macro>=<rows>``, one
+  process a build): the encode forward's passes and ``multi_lstm_bwd``.
+  So the sources' row constants are chosen from a measurement;
 - ``profile``: ``torch.profiler`` over 20 padded 256-row ``predict``
   calls: wall time, the device time summed over kernels, the share of
   the wall in which the device was idle, and the largest kernels;
@@ -64,6 +68,15 @@ N_TRAIN = 32
 CLOCK_KERNELS = ("multi_lstm_bwd", "decoder_lstm_bwd", "mem_chain_bwd",
                  "cell_chains_bwd", "cell_chains_fwd", "mem_chain_fwd")
 CLOCK_ROWS, CLOCK_STEPS, CLOCK_PHASES = 8, 64, 8
+# the chains' batch rows a block, constants in the sources that a build
+# can override (-D<macro>=<rows>), and the values part rows times: the
+# encode forward's LSTM chains and memory chain without residuals (n =
+# 256) and with them (n = 32), and multi_lstm_bwd's chains (n = 32)
+ROW_SWEEPS = {"FTT_EVAL_CELL_ROWS": (2, 4, 8, 16),
+              "FTT_EVAL_MEM_ROWS": (1, 2, 4, 8),
+              "FTT_TRAIN_CELL_ROWS": (1, 2, 4),
+              "FTT_TRAIN_MEM_ROWS": (1, 2),
+              "FTT_MULTI_ROWS": (1, 2, 4)}
 # what each stamped phase of a step ends with, per kernel
 # (a cluster's chains: "dh product" includes the partials' exchange, the
 # memory chains' products the gather of the peers' columns)
@@ -193,17 +206,14 @@ def sweep(cfg, params, dev):
     (xp, weights, z_tot, h_dims), (h0, c0, wsum, b, dec_dims) = \
         mfm.kernel_operands(params, x, cfg)
     t = cfg.seqlength
-    # block sizes up to the launchers' limit of 512 threads
-    # the forward's passes are independent: each pass's rows alone, the
-    # call split into its passes by torch.profiler
+    # block sizes up to the launchers' limit of 512 threads; the forward's
+    # call split into its passes by torch.profiler (its chains' rows:
+    # part rows)
     def fwd():
         return cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims)
 
-    for knob, values in (("CELL_ROWS", (2, 4, 8, 16)),
-                         ("MEM_ROWS", (1, 2, 4, 8)),
-                         ("THREADS", (128, 256, 512))):
-        _sweep("mfm_encode_fwd", cuda_mfn, {knob: values}, N, fwd,
-               _fwd_pass_ms)
+    _sweep("mfm_encode_fwd", cuda_mfn, {"THREADS": (128, 256, 512)}, N, fwd,
+           _fwd_pass_ms)
     _sweep("decoder_lstm_fwd", cuda_lstm,
            {"ROWS": (1, 2, 4, 8, 16), "THREADS": (64, 128, 160, 256, 512)},
            N, lambda: cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b, t,
@@ -228,11 +238,8 @@ def train_sweep(cfg, params, dev):
     def fwd():
         return cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims)
 
-    for knob, values in (("TRAIN_CELL_ROWS", (1, 2, 4)),
-                         ("TRAIN_MEM_ROWS", (1, 2)),
-                         ("THREADS", (128, 256, 512))):
-        _sweep("mfm_encode_fwd_train", cuda_mfn, {knob: values}, n, fwd,
-               _fwd_pass_ms)
+    _sweep("mfm_encode_fwd_train", cuda_mfn, {"THREADS": (128, 256, 512)}, n,
+           fwd, _fwd_pass_ms)
 
     # the two backward kernels' threads (the rows their blocks take are
     # fixed in their sources, from this sweep's earlier runs: PERF.md); the
@@ -270,10 +277,54 @@ def multi_sweep(cfg, dev):
                model_type=model_type)
         # device time: a call of this wrapper is host-bound
         _sweep("multi_lstm_bwd", cuda_lstm,
-               {"MULTI_BWD_ROWS": (1, 2, 4),
-                "MULTI_BWD_THREADS": (128, 256, 512)}, N_TRAIN,
+               {"MULTI_BWD_THREADS": (128, 256, 512)}, N_TRAIN,
                lambda: cuda_lstm.multi_lstm_bwd(gates, wh, allc, dh, h_dims),
                _device_ms, model_type=model_type)
+
+
+def row_builds():
+    """Part ``rows``: one process a build, each built with one value of
+    every ``ROW_SWEEPS`` macro at once (each macro sizes a different
+    kernel, read apart by its pass), timing the kernels they size
+    (``row_times``)."""
+    for k in range(max(map(len, ROW_SWEEPS.values()))):
+        defines = [f"{m}={v[k]}" for m, v in ROW_SWEEPS.items()
+                   if k < len(v)]
+        subprocess.run([sys.executable, "-m", "factorized_tpu_torch.perf_probe",
+                        "row_times", *defines], check=True)
+
+
+def row_times(cfg, dev, rows):
+    """The kernels whose rows ``ROW_SWEEPS`` sets, in a build with the
+    macros ``rows`` ({macro: value}): the encode forward eval (n = 256)
+    and train (n = 32) split into its passes, and ``multi_lstm_bwd`` at
+    ``kl_ef``'s and ``missing``'s widths (n = 32) by device time."""
+    t = cfg.seqlength
+    params = mfm.MFM(cfg, seed=0, device=dev).tree()
+    g = torch.Generator(device=dev).manual_seed(8)
+    x = torch.randn((t, N, cfg.d_total), generator=g, device=dev)
+    (xp, weights, z_tot, h_dims), _ = mfm.kernel_operands(params, x, cfg)
+    x32 = x[:, :N_TRAIN].contiguous()
+    (xt, _, _, _), _ = mfm.kernel_operands(params, x32, cfg)
+    masks = cuda_mfn.make_dropout_masks(g, t, N_TRAIN,
+                                        cuda_mfn.sizes(weights)[:4],
+                                        mfn_drops(cfg))
+    _sweep("mfm_encode_fwd", cuda_mfn, {}, N,
+           lambda: cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims),
+           _fwd_pass_ms, rows=rows)
+    _sweep("mfm_encode_fwd_train", cuda_mfn, {}, N_TRAIN,
+           lambda: cuda_mfn.mfm_encode_res(xt, masks, weights, z_tot,
+                                           h_dims), _fwd_pass_ms, rows=rows)
+    for model_type in ("kl_ef", "missing"):
+        mparams = mfm.MFM(cfg, seed=0, device=dev,
+                          model_type=model_type).tree()
+        mxp, wh, m_dims = mfm.multi_lstm_operands(mparams, x32, cfg,
+                                                  model_type)
+        _, _, allc, gates = cuda_lstm.multi_lstm_plain(mxp, wh, with_res=True)
+        dh = torch.randn((N_TRAIN, sum(m_dims)), generator=g, device=dev)
+        _sweep("multi_lstm_bwd", cuda_lstm, {}, N_TRAIN,
+               lambda: cuda_lstm.multi_lstm_bwd(gates, wh, allc, dh, m_dims),
+               _device_ms, model_type=model_type, rows=rows)
 
 
 def kernel_times(cfg, params, dev):
@@ -505,12 +556,23 @@ def profile(cfg, params):
 
 def main(parts=None):
     parts = set(parts or ("serve", "train", "multi", "profile"))
+    # row_times (run by part rows) takes the macros of its build
+    rows = {}
+    if "row_times" in parts:
+        for arg in sorted(parts - {"row_times"}):
+            macro, _, value = arg.partition("=")
+            if macro not in ROW_SWEEPS or not value.isdigit():
+                raise SystemExit(f"row_times takes MACRO=ROWS of "
+                                 f"{sorted(ROW_SWEEPS)}, not {arg}")
+            rows[macro] = int(value)
+        parts = {"row_times"}
     if not parts <= {"serve", "train", "multi", "profile", "times",
-                     "phases"}:
+                     "phases", "rows", "row_times"}:
         raise SystemExit(f"unknown parts {sorted(parts)}")
-    if "phases" in parts and parts != {"phases"}:
-        raise SystemExit("part phases runs alone: it builds the kernels "
-                         "with FTT_PHASE_CLOCKS")
+    for alone in ("phases", "rows"):
+        if alone in parts and parts != {alone}:
+            raise SystemExit(f"part {alone} runs alone: it builds the "
+                             f"kernels with its own macros")
     if not torch.cuda.is_available():
         raise SystemExit("perf_probe needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -521,12 +583,21 @@ def main(parts=None):
         capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"card": smi.splitlines()[0]}), flush=True)
     cfg = best_acc_mosi_config()
-    if "phases" in parts:
+    if parts == {"rows"}:
+        row_builds()
+        return
+    if parts & {"phases", "row_times"}:
         from factorized_tpu_torch.ops import _build
 
-        _build.enable_phase_clocks()
+        for macro, value in rows.items():
+            _build.define(macro, value)
+        if "phases" in parts:
+            _build.define("FTT_PHASE_CLOCKS")
         with torch.inference_mode():
-            phases(cfg, torch.device("cuda"))
+            if "phases" in parts:
+                phases(cfg, torch.device("cuda"))
+            else:
+                row_times(cfg, torch.device("cuda"), rows)
         return
     params = mfm.MFM(cfg, seed=0, device="cuda").tree()
     with torch.inference_mode():

@@ -35,6 +35,7 @@ import torch
 
 import factorized_tpu.ops.fused as jfused
 from factorized_tpu.ops import pallas_lstm, pallas_mfn
+from factorized_tpu_torch import perf_probe
 from factorized_tpu_torch.ops import _build, cuda_lstm, cuda_mfn
 
 SPLIT = dict(rtol=0.0, atol=1e-5)
@@ -400,17 +401,30 @@ def test_encode_launcher_carves_its_scratch(fake_card, variant):
 
 
 def test_forward_launcher_passes_its_rows(fake_card, monkeypatch):
-    """Without residuals the forward takes the serving batch's rows, with
-    them the training batch's: (LSTM chains, memory chain) and the
-    threads precede fit and stream."""
+    """The chains' rows are constants in the source, chosen there by
+    whether residuals are written: with and without them the call passes
+    the cell widths and then the threads, no row count, before fit and
+    stream."""
     calls, _ = fake_card
     monkeypatch.setattr(cuda_mfn, "THREADS", 256)
     _launch_forward(None)
     _launch_forward("split")
-    assert list(calls[0][2][-5:-2]) == [cuda_mfn.CELL_ROWS,
-                                        cuda_mfn.MEM_ROWS, 256]
-    assert list(calls[1][2][-5:-2]) == [cuda_mfn.TRAIN_CELL_ROWS,
-                                        cuda_mfn.TRAIN_MEM_ROWS, 256]
+    for _, argtypes, args in calls:
+        assert [_kind(k) for k in argtypes[-4:]] == ["int*", "int", "int*",
+                                                     "ptr"]
+        assert args[-3] == 256
+
+
+@pytest.mark.parametrize("macro", sorted(perf_probe.ROW_SWEEPS))
+def test_row_sweep_macros_are_the_sources_constants(macro):
+    """Each row count the sweep overrides is one macro of one source, a
+    default that a -D flag replaces, and that default is one of the
+    values the sweep times."""
+    found = [int(m.group(1)) for src in _build.sources()
+             for m in re.finditer(rf"#ifndef {macro}\n#define {macro} (\d+)\n"
+                                  rf"#endif", src.read_text())]
+    assert len(found) == 1
+    assert found[0] in perf_probe.ROW_SWEEPS[macro]
 
 
 @pytest.mark.parametrize("name,launch,module,counter", LAUNCHERS)
