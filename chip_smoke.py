@@ -8,7 +8,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 2. builds the CUDA kernels from ``factorized_tpu_torch/csrc/`` and prints
    what ``nvcc -Xptxas -v`` reports, and a line of the registers, static
    shared memory, stack and spills of the kernels of the encode's passes,
-   forward and backward, and of the recurrences' backward chain;
+   forward and backward, and of the recurrences' forward and backward
+   chains;
 3. holds each kernel against its plain PyTorch version on the card at the
    serving shapes (n = 256, t = 20, ``best_acc_mosi_config``), float32
    with TF32 off, within rtol 1e-4 / atol 1e-5 (the sums run in another
@@ -42,15 +43,17 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    n = 256 and train at n = 32, and ``multi_lstm_bwd`` at n = 32) against
    their plain versions at the widths of ``kl_ef`` and ``missing``, and
    times them beside the k per-cell ``torch.nn.LSTM`` (cuDNN) calls over
-   the same cells;
+   the same cells, as the decoder kernels are timed beside one
+   ``torch.nn.LSTM`` per decoder cell;
 9. serves ``kl_ef`` and ``missing`` from checkpoints over HTTP, replies
    checked against the CPU; one train step's gradients of each on the
    card against the CPU with the same injected draws; trains ``kl_ef``
    through ``trainers.train_beta_vae`` (2 epochs per stage) and
    ``missing`` through ``trainers.train_mfm_missing`` (2 epochs), checking
    finite losses, a falling stage-1 and a falling ``missing`` loss and
-   that each path launched every kernel it runs; times and profiles each
-   model's train step;
+   that each path launched every kernel it runs, and that one ``missing``
+   train step launches the decoder forward and backward once each (its
+   four decodes stacked); times and profiles each model's train step;
 10. the probe path: the encode's probe variants (the forward writing its
     residuals as ten tensors, the backward recomputing att on its chain,
     the backward taking two reverse steps per iteration) against their
@@ -61,7 +64,12 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 11. the chains past one block's shared memory: a decoder cell of 160
     units and a memory chain of mem 128 with both gamma MLPs 128 wide
     (256 KiB), each kernel on its thread-block cluster against its plain
-    version, the cluster sizes printed;
+    version, the cluster sizes printed; and the chains past a cluster of
+    8, which read their weights from L2: a 336-unit decoder cell (``fy``
+    80 + ``fl`` 256, a search draw's widest), a 400-unit encode cell with
+    mem 400 and both gamma MLPs 256 wide, and 400-unit ``multi_lstm``
+    cells, each forward and backward against its plain version, with the
+    plan and the L2 launch count each took;
 12. prints one JSON line on the ten kernels, the ``nvidia-smi`` line,
     and last ``{"ok": true, "device": {...}}``.
 
@@ -166,6 +174,16 @@ def queued_ms(fn, reps=50, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+def on_device(event):
+    """Whether a profiler event (of ``key_averages()``) is a kernel or
+    copy on the card. A ``record_function`` range, such as the optimizer's
+    ``Optimizer.step#Adam.step``, shows on the card too, as the span from
+    its first kernel to its last, host-paced gaps included: its kernels are
+    counted already, so it is left out."""
+    return (event.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(event, "is_user_annotation", False))
+
+
 def kernel_split_ms(fn, reps=50, warmup=3):
     """{kernel name: mean device milliseconds a call} of the kernels fn()
     launches, over reps calls under torch.profiler: how a call's time
@@ -181,7 +199,7 @@ def kernel_split_ms(fn, reps=50, warmup=3):
         torch.cuda.synchronize()
     return {e.key: e.device_time_total / 1e3 / reps
             for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA}
+            if on_device(e)}
 
 
 def kernel_name(key):
@@ -247,6 +265,47 @@ def off_diag(weights):
     return [w for k, w in weights.items() if k != "wh"]
 
 
+def decoder_library_ms(h0, c0, wsum, b, t, dec_dims, backward=False):
+    """The yardstick of the decoder kernels, used nowhere in the port: one
+    ``torch.nn.LSTM`` (cuDNN) per decoder cell computes the same t - 1
+    steps from (h0, c0), with a zero input of width 1, ``weight_ih``
+    zero, ``weight_hh`` the cell's diagonal blocks of wsum transposed,
+    ``bias_ih`` its b and ``bias_hh`` zero. Forward ms by CUDA events; with
+    ``backward``, (forward + backward) - forward, the outputs' cotangent
+    all ones."""
+    from factorized_tpu_torch.ops import cuda_lstm
+
+    n, H = h0.shape
+    dev = h0.device
+    lstms, states, o = [], [], 0
+    for h in dec_dims:
+        cols = cuda_lstm.cell_columns(H, o, h, dev)
+        m = torch.nn.LSTM(1, h).to(dev)
+        with torch.no_grad():
+            m.weight_ih_l0.zero_()
+            m.weight_hh_l0.copy_(wsum[o:o + h][:, cols].T)
+            m.bias_ih_l0.copy_(b.reshape(-1)[cols])
+            m.bias_hh_l0.zero_()
+        lstms.append(m)
+        states.append((h0[None, :, o:o + h].clone(),
+                       c0[None, :, o:o + h].clone()))
+        o += h
+    zeros = torch.zeros((t - 1, n, 1), device=dev)
+
+    def forward():
+        return [m(zeros, st)[0] for m, st in zip(lstms, states)]
+
+    if not backward:
+        with torch.inference_mode():
+            return cuda_ms(forward, 50)
+
+    def both():
+        hs = forward()
+        torch.autograd.backward(hs, [torch.ones_like(h) for h in hs])
+
+    return cuda_ms(both, 50) - cuda_ms(forward, 50)
+
+
 def counters():
     """Each kernel's launch counter: {name: (module, attribute)}."""
     from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
@@ -269,6 +328,8 @@ def counted(path, kernels, fn):
     (fn's result, seconds, {kernel: launches})."""
     for module, attr in counters().values():
         setattr(module, attr, 0)
+    for module in {m for m, _ in counters().values()}:
+        module.L2_LAUNCHES.clear()
     t0 = time.perf_counter()
     out = fn()
     seconds = time.perf_counter() - t0
@@ -395,7 +456,8 @@ def main():
              "softmax_fwd_kernel",
              "mem_chain_fwd_kernel", "gates_kernel", "mem_chain_kernel",
              "recompute_att_kernel", "product_kernel", "softmax_bwd_kernel",
-             "lstm_chains_kernel", "lstm_chain_bwd_kernel"))})
+             "lstm_chains_kernel", "lstm_chain_bwd_kernel",
+             "lstm_chain_fwd_kernel"))})
 
     # ---- 3. each kernel against its plain version, main-path shapes
     cfg = best_acc_mosi_config()
@@ -459,7 +521,8 @@ def main():
             h0, c0, wsum, b, t, dec_dims))
         dec_plain_ms = cuda_ms(
             lambda: cuda_lstm.decoder_lstm_plain(h0, c0, wsum, b, t), 10)
-
+    dec_library_ms = decoder_library_ms(h0, c0, wsum, b, t, dec_dims)
+    with torch.inference_mode():
         # one padded forward by stage, CUDA events between the stages
         x_l, x_a, x_v = split_modalities(x, cfg.input_dims)
 
@@ -517,13 +580,13 @@ def main():
          "bound_ms": enc_bound[0], "bound_by": enc_bound[1],
          "library_ms": None},
         {"name": "decoder_lstm_fwd", "route": "cuda",
-         "source": "factorized_tpu_torch/csrc/decoder_lstm_fwd.cu",
+         "source": "factorized_tpu_torch/csrc/lstm_fwd.cu",
          "replaces": "factorized_tpu/ops/pallas_lstm.py:272",
          "launches": launches["decoder_lstm_fwd"],
          "max_abs_err": err_dec["max_abs_err"], "ms": dec_ms,
          "device_ms": dec_dev_ms, "plain_ms": dec_plain_ms,
          "bound_ms": dec_bound[0], "bound_by": dec_bound[1],
-         "library_ms": None},
+         "library_ms": dec_library_ms},
     ]
 
     train_kernels = train_phase(cfg, dev, smi)
@@ -706,6 +769,8 @@ def train_phase(cfg, dev, smi):
         decb_ms, decb_dev_ms = cuda_ms(decb, 50), queued_ms(decb)
         decb_plain_ms = cuda_ms(lambda: cuda_lstm.decoder_lstm_bwd_plain(
             wsum, gates, allc, dallh), 10)
+    decb_library_ms = decoder_library_ms(h0, c0, wsum, b, t, dec_dims,
+                                         backward=True)
 
     # bounds from this run's shapes, as for the forward kernels; the
     # backward's two recurrent products (the gates recomputed and dh
@@ -758,13 +823,14 @@ def train_phase(cfg, dev, smi):
                                   "max_abs_err": err_fwd["max_abs_err"],
                                   "launches": launches["mfm_encode_fwd"]}})
 
-    def entry(name, source, replaces, err, ms, dev_ms, plain_ms, bnd):
+    def entry(name, source, replaces, err, ms, dev_ms, plain_ms, bnd,
+              library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"factorized_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": err["max_abs_err"], "ms": ms,
                 "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-                "bound_by": bnd[1], "library_ms": None}
+                "bound_by": bnd[1], "library_ms": library_ms}
 
     return [
         entry("mfm_encode_bwd", "mfm_encode_bwd.cu",
@@ -775,7 +841,7 @@ def train_phase(cfg, dev, smi):
               dw_dev_ms, dw_plain_ms, dw_bound),
         entry("decoder_lstm_bwd", "lstm_bwd.cu",
               "factorized_tpu/ops/pallas_lstm.py:298", err_decb, decb_ms,
-              decb_dev_ms, decb_plain_ms, decb_bound),
+              decb_dev_ms, decb_plain_ms, decb_bound, decb_library_ms),
     ]
 
 
@@ -879,6 +945,7 @@ def cluster_phase(cfg, dev, smi):
     if dec_cluster < 2 or fwd_clusters[1] < 2 or bwd_clusters[0] < 2:
         raise AssertionError("a chain past one block's shared memory did "
                              "not run on a cluster")
+    l2_phase(cfg, dev, smi)
     log({"phase": "clusters", "nvidia_smi": smi,
          "decoder_lstm_bwd": {"cells": [h], "n": n, "cluster": dec_cluster,
                               "max_abs_err": err_dec["max_abs_err"]},
@@ -890,6 +957,133 @@ def cluster_phase(cfg, dev, smi):
                             "clusters": {"memory_chain": bwd_clusters[0],
                                          "lstm_chains": bwd_clusters[1]},
                             "max_abs_err": err_bwd["max_abs_err"]}})
+
+
+def l2_phase(cfg, dev, smi):
+    """Step 11's second half: the widest chains a search draw makes,
+    past a cluster of 8, whose kernels read their weights from L2 (plan 0,
+    counted in ``L2_LAUNCHES``): a 336-unit decoder cell (``fy`` 80 +
+    ``fl`` 256) through the decoder forward and backward; the encode with
+    a 400-unit MFN cell, mem 400 and both gamma MLPs 256 wide through its
+    forward (eval and train) and backward; 400-unit ``multi_lstm`` cells
+    through its forward (eval and train) and backward. n = 32, t = 20, the
+    other widths ``best_acc_mosi_config``'s; each against its plain
+    version, timed by queued calls (the card's time alone)."""
+    from factorized_tpu_torch.models import mfm
+    from factorized_tpu_torch.models.common import mfn_drops
+    from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
+
+    t, n = cfg.seqlength, N_TRAIN
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    wide = cfg.replace(fy_size=80, fl_size=256, h_dims=[400, 64, 48],
+                       memsize=400, gamma1_shape=256, gamma2_shape=256)
+    params = mfm.MFM(wide, seed=SEED + 71, device=dev).tree()
+    x = torch.randn((t, n, wide.d_total), generator=gen, device=dev)
+    for module in (cuda_lstm, cuda_mfn):
+        module.L2_LAUNCHES.clear()
+    out = {}
+    with torch.inference_mode():
+        (xp, weights, z_tot, h_dims), (h0, c0, wsum, b, dec_dims) = \
+            mfm.kernel_operands(params, x, wide)
+        # the decoder, forward and backward
+        got = cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b, t, dec_dims)
+        allh, allc, gates = cuda_lstm.decoder_lstm_plain(h0, c0, wsum, b, t)
+        err = compare_all("l2.decoder_lstm_fwd",
+                          zip(("allh", "allc", "gates"), got,
+                              (allh, allc, gates)))
+        out["decoder_lstm_fwd"] = {"cells": dec_dims, "err": err,
+                                   "device_ms": queued_ms(
+            lambda: cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b, t, dec_dims))}
+        dallh = torch.randn(allh.shape, generator=gen, device=dev)
+        err = compare_all(
+            "l2.decoder_lstm_bwd",
+            zip(("dgates", "dh0", "dc0"),
+                cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh,
+                                           dec_dims),
+                cuda_lstm.decoder_lstm_bwd_plain(wsum, gates, allc, dallh)),
+            GRAD_RTOL, GRAD_ATOL)
+        out["decoder_lstm_bwd"] = {"cells": dec_dims, "err": err,
+                                   "device_ms": queued_ms(
+            lambda: cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh,
+                                               dec_dims))}
+        # the encode, forward (eval and train) and backward
+        err = compare_all(
+            "l2.mfm_encode_fwd.eval", zip(
+                ("h_last", "mem_last"),
+                cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims),
+                cuda_mfn.mfm_encode_plain(xp, weights, z_tot)))
+        masks = cuda_mfn.make_dropout_masks(
+            gen, t, n, cuda_mfn.sizes(weights)[:4], mfn_drops(wide))
+        fwd_ref = cuda_mfn.mfm_encode_res_plain(xp, masks, weights, z_tot)
+        err = max(err, compare_all(
+            "l2.mfm_encode_fwd.train",
+            zip(("h_last", "mem_last", "allh", "allc", "allmem", "res"),
+                cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims),
+                fwd_ref)), key=lambda e: e["max_abs_err"])
+        out["mfm_encode_fwd"] = {
+            "cells": h_dims, "mem": 400, "gamma": [256, 256], "err": err,
+            "device_ms": queued_ms(lambda: cuda_mfn.mfm_encode_res(
+                xp, masks, weights, z_tot, h_dims))}
+        dh = torch.randn((n, sum(h_dims)), generator=gen, device=dev)
+        dmem = torch.randn((n, 400), generator=gen, device=dev)
+        err = compare_all(
+            "l2.mfm_encode_bwd",
+            zip(("dxp", "deltas"),
+                cuda_mfn._launch_bwd(xp, weights, *fwd_ref[2:], dh, dmem,
+                                     z_tot, h_dims),
+                cuda_mfn.mfm_encode_bwd_steps_plain(
+                    xp, weights, *fwd_ref[2:], dh, dmem, z_tot)),
+            GRAD_RTOL, GRAD_ATOL)
+        out["mfm_encode_bwd"] = {
+            "cells": h_dims, "mem": 400, "gamma": [256, 256], "err": err,
+            "device_ms": queued_ms(lambda: cuda_mfn._launch_bwd(
+                xp, weights, *fwd_ref[2:], dh, dmem, z_tot, h_dims))}
+        # the fused encoder cells, forward (eval and train) and backward
+        m_dims = [400, 24]
+        H = sum(m_dims)
+        block = torch.zeros((H, 4 * H), device=dev)
+        o = 0
+        for h in m_dims:
+            block[o:o + h, cuda_lstm.cell_columns(H, o, h, dev)] = 1.0
+            o += h
+        wh = 0.1 * torch.randn((H, 4 * H), generator=gen, device=dev) * block
+        mxp = torch.randn((t, n, 4 * H), generator=gen, device=dev)
+        err = compare("l2.multi_lstm_fwd.eval",
+                      cuda_lstm.multi_lstm_fwd(mxp, wh, m_dims),
+                      cuda_lstm.multi_lstm_plain(mxp, wh))
+        res = cuda_lstm.multi_lstm_plain(mxp, wh, with_res=True)
+        err = max(err, compare_all(
+            "l2.multi_lstm_fwd.train",
+            zip(("h_last", "allh", "allc", "gates"),
+                cuda_lstm.multi_lstm_fwd(mxp, wh, m_dims, with_res=True),
+                res)), key=lambda e: e["max_abs_err"])
+        out["multi_lstm_fwd"] = {"cells": m_dims, "err": err,
+                                 "device_ms": queued_ms(
+            lambda: cuda_lstm.multi_lstm_fwd(mxp, wh, m_dims,
+                                             with_res=True))}
+        mdh = torch.randn((n, H), generator=gen, device=dev)
+        err = compare("l2.multi_lstm_bwd",
+                      cuda_lstm.multi_lstm_bwd(res[3], wh, res[2], mdh,
+                                               m_dims),
+                      cuda_lstm.multi_lstm_bwd_plain(res[3], wh, res[2],
+                                                     mdh),
+                      GRAD_RTOL, GRAD_ATOL)
+        out["multi_lstm_bwd"] = {"cells": m_dims, "err": err,
+                                 "device_ms": queued_ms(
+            lambda: cuda_lstm.multi_lstm_bwd(res[3], wh, res[2], mdh,
+                                             m_dims))}
+        torch.cuda.synchronize()
+    for name, numbers in out.items():
+        module = cuda_mfn if name.startswith("mfm") else cuda_lstm
+        plan = module.CLUSTERS[name]
+        numbers.update(plan=plan, l2_launches=module.L2_LAUNCHES.get(name, 0),
+                       max_abs_err=numbers.pop("err")["max_abs_err"])
+        if 0 not in (plan if isinstance(plan, tuple) else (plan,)) or \
+                numbers["l2_launches"] < 1:
+            raise AssertionError(f"{name} did not read its weights from L2 "
+                                 f"past a cluster of 8: {numbers}")
+    log({"phase": "weights_from_l2", "nvidia_smi": smi, "n": n, "t": t,
+         **out})
 
 
 def multi_lstm_phase(cfg, dev, smi):
@@ -1116,6 +1310,17 @@ def variants_phase(cfg, dev, smi):
         tree = mfm.MFM(cfg, seed=SEED, device=dev,
                        model_type=model_type).tree()
         opt = make_optimizer(tree, 1e-3)
+        if model_type == "missing":
+            # the four decodes stacked: one decoder launch each way a step
+            _, _, step_launches = counted(
+                "missing step", ("decoder_lstm_fwd", "decoder_lstm_bwd"),
+                lambda: program.step(tree, opt, Xb[0], yb[0], gen, 1e-3))
+            decoder = {k: step_launches[k] for k in ("decoder_lstm_fwd",
+                                                     "decoder_lstm_bwd")}
+            log({"phase": "missing_step_launches", **decoder})
+            if decoder != {"decoder_lstm_fwd": 1, "decoder_lstm_bwd": 1}:
+                raise AssertionError(f"a missing step launched the decoder "
+                                     f"kernels {decoder} times, not once")
         step_ms = cuda_ms(lambda: program.step(tree, opt, Xb[0], yb[0], gen,
                                                1e-3), 30)
         prof = profile_steps(program, tree, opt, Xb[0], yb[0], gen)
@@ -1136,7 +1341,7 @@ def variants_phase(cfg, dev, smi):
                     "library_ms")}}
 
     return [
-        entry("multi_lstm_fwd", "multi_lstm_fwd.cu",
+        entry("multi_lstm_fwd", "lstm_fwd.cu",
               "factorized_tpu/ops/pallas_lstm.py:88", "fwd"),
         entry("multi_lstm_bwd", "lstm_bwd.cu",
               "factorized_tpu/ops/pallas_lstm.py:116", "bwd"),
@@ -1315,7 +1520,7 @@ def profile_steps(program, tree, opt, x, y, gen, steps=10):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if on_device(e)]
     device_ms = sum(e.device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
     return {"profiled_steps": steps,

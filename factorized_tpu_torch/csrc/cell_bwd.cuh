@@ -20,6 +20,13 @@
 // added in rank order, block 0 first, so every block and every rerun has
 // the same bits: one cluster barrier a step, the partials double-buffered
 // by the step's parity. C = 1 is the one-block chain.
+//
+// A cell past a cluster of 8 (L2 = true, C = 1) reads its weights in
+// place from the packed (H, 4H) weight, through L2, with pitch 4H and the
+// gate-major column map that load_cell_weights applies: shared memory
+// holds only the per-row state. In place rather than a gate-major copy:
+// no scratch buffer and no extra launch a call, and a copy would be read
+// from L2 all the same.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -42,22 +49,36 @@ __host__ __device__ inline int cell_cols(int h, int C) {
 // is the pitch of the weight's rows (kc floats) in shared memory. The
 // product reads 16 bytes a lane: a quarter warp (8 lanes) reads 8 / ks
 // rows at once, 4 ks floats from each, so the pitch puts those pieces on
-// distinct banks (and keeps rows 16-byte aligned).
+// distinct banks (and keeps rows 16-byte aligned). Weights read in place
+// (L2): the pitch is 4H and gate q's columns lie gap = H - h further on
+// than in shared memory.
 struct CellTile {
-  int k0, h, ks, wp, c0, kc;
+  int k0, h, ks, wp, c0, kc, gap;
 };
 
-template <int C = 1>
+template <int C = 1, bool L2 = false>
 __host__ __device__ inline CellTile cell_tile(const Cells& cells, int m,
-                                              int threads, int rank = 0) {
+                                              int threads, int rank = 0,
+                                              int H = 0) {
   CellTile c;
   c.k0 = cells.off[m];
   c.h = cells.off[m + 1] - c.k0;
   c.ks = lanes_per_output(c.h, threads);
   c.kc = cell_cols(c.h, C);
   c.c0 = C == 1 ? 0 : rank * c.kc;
-  c.wp = conflict_free_pitch(c.kc, 4 * c.ks < 32 ? 4 * c.ks : 32);
+  c.wp = L2 ? 4 * H : conflict_free_pitch(c.kc, 4 * c.ks < 32 ? 4 * c.ks
+                                                               : 32);
+  c.gap = L2 ? H - c.h : 0;
   return c;
+}
+
+// The cell's weights for a chain: in shared memory at `smem`, or in place
+// in the packed W (H, 4H) from row and column k0.
+template <bool L2>
+__device__ __forceinline__ const float* cell_weights(float* smem,
+                                                     const float* W, int H,
+                                                     int k0) {
+  return L2 ? W + (size_t)k0 * 4 * H + k0 : smem;
 }
 
 // A buffer's floats rounded up to 16 bytes, so the next starts aligned.
@@ -75,14 +96,17 @@ __host__ __device__ inline size_t cell_chain_floats(const CellTile& c, int R,
 
 // The largest cell_chain_floats over the cells at a cluster of C, in
 // bytes: one launch gives every block the same dynamic shared memory.
+// C = kWeightsL2: the per-row state alone, the weights read from L2.
 inline size_t cell_chain_bytes(const Cells& cells, int R, int threads,
                                int op_width_per_unit, int C) {
   size_t most = 0;
   for (int m = 0; m < cells.count; ++m) {
     CellTile c = cell_tile(cells, m, threads);
-    c.kc = cell_cols(c.h, C);
+    c.kc = cell_cols(c.h, C == kWeightsL2 ? 1 : C);
     c.wp = conflict_free_pitch(c.kc, 4 * c.ks < 32 ? 4 * c.ks : 32);
-    const size_t f = cell_chain_floats(c, R, op_width_per_unit * c.h, C);
+    size_t f = cell_chain_floats(c, R, op_width_per_unit * c.h,
+                                 C == kWeightsL2 ? 1 : C);
+    if (C == kWeightsL2) f -= (size_t)c.h * c.wp;
     if (f > most) most = f;
   }
   return most * sizeof(float);
@@ -235,7 +259,7 @@ __device__ __forceinline__ void load_row(float (&v)[R], const float* src) {
 // columns at a time (16 bytes of w and of dg) into four partial sums, and
 // shuffles add the lanes' sums; every sum in a fixed order, so a rerun
 // gives the same bits.
-template <int R, int C = 1>
+template <int R, int C = 1, bool L2 = false>
 __device__ __forceinline__ void cell_dh(const float* w, const float* dg,
                                         const float* add, float* dh,
                                         const CellTile& c, int lane,
@@ -252,8 +276,20 @@ __device__ __forceinline__ void cell_dh(const float* w, const float* dg,
     if (item < items) {
       const float* wk = w + k * c.wp;
       for (int jj = 4 * slice; jj < K; jj += 4 * ks) {
-        const float4 wv = *reinterpret_cast<const float4*>(wk + jj);
-        const float wu[4] = {wv.x, wv.y, wv.z, wv.w};
+        float wu[4];
+        if (L2) {
+          // four columns of the cell, each through the gate-major map
+          // (K = 4h is a multiple of 4, so all four are the cell's)
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            wu[u] = __ldg(wk + jj + u + ((jj + u) / c.h) * c.gap);
+        } else {
+          const float4 wv = *reinterpret_cast<const float4*>(wk + jj);
+          wu[0] = wv.x;
+          wu[1] = wv.y;
+          wu[2] = wv.z;
+          wu[3] = wv.w;
+        }
         float g[4 * R];
         load_row<4 * R>(g, dg + jj * R);
 #pragma unroll

@@ -1,6 +1,7 @@
 // The forward chain of one LSTM cell of a fused, gate-major,
 // block-diagonal recurrence (the encode forward's LSTM pass,
-// mfm_encode_fwd.cu), the counterpart of cell_bwd.cuh.
+// mfm_encode_fwd.cu, and the recurrences' forward, lstm_fwd.cu), the
+// counterpart of cell_bwd.cuh.
 //
 // One block owns one cell (hidden units [k0, k0 + h) of H) and R batch
 // rows. It copies the cell's four h x h diagonal blocks of the recurrent
@@ -17,6 +18,10 @@
 // blocks) and, after one cluster barrier a step, reads the other blocks'
 // columns through distributed shared memory for its redundant update;
 // the gates are double-buffered by the step's parity.
+//
+// A cell past a cluster of 8 (L2 = true, C = 1) reads its weights in
+// place from the packed (H, 4H) weight through L2, as cell_bwd.cuh's
+// chains do: consecutive threads read consecutive columns of one row.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -31,14 +36,16 @@ namespace ftt {
 
 // One cell: units [k0, k0 + h), gate columns [c0, c0 + kc) of the cell's
 // 4h; kg groups split the product's depth; wp the weight rows' pitch (a
-// warp reads consecutive columns of one row).
+// warp reads consecutive columns of one row). Weights read in place (L2):
+// the pitch is 4H and gate q's columns lie gap = H - h further on.
 struct FwdTile {
-  int k0, h, c0, kc, kg, wp;
+  int k0, h, c0, kc, kg, wp, gap;
 };
 
-template <int C = 1>
+template <int C = 1, bool L2 = false>
 __host__ __device__ inline FwdTile fwd_tile(const Cells& cells, int m,
-                                            int threads, int rank = 0) {
+                                            int threads, int rank = 0,
+                                            int H = 0) {
   FwdTile c;
   c.k0 = cells.off[m];
   c.h = cells.off[m + 1] - c.k0;
@@ -46,7 +53,8 @@ __host__ __device__ inline FwdTile fwd_tile(const Cells& cells, int m,
   c.c0 = C == 1 ? 0 : rank * c.kc;
   c.kg = lanes_per_output(c.kc, threads);
   while (c.kg > 1 && c.kg > c.h) c.kg >>= 1;
-  c.wp = c.kc;
+  c.wp = L2 ? 4 * H : c.kc;
+  c.gap = L2 ? H - c.h : 0;
   return c;
 }
 
@@ -59,27 +67,33 @@ __host__ __device__ inline size_t fwd_chain_floats(const FwdTile& c, int R,
          (size_t)(C > 1 ? 2 : 1) * c.kg * c.kc * R;
 }
 
+// The largest fwd_chain_floats over the cells at a cluster of C, in
+// bytes; C = kWeightsL2: the per-row state alone.
 inline size_t fwd_chain_bytes(const Cells& cells, int R, int threads,
                               int C) {
+  const int CC = C == kWeightsL2 ? 1 : C;
   size_t most = 0;
   for (int m = 0; m < cells.count; ++m) {
     FwdTile c = fwd_tile(cells, m, threads);
-    c.kc = cell_cols(c.h, C);
+    c.kc = cell_cols(c.h, CC);
     c.kg = lanes_per_output(c.kc, threads);
     while (c.kg > 1 && c.kg > c.h) c.kg >>= 1;
     c.wp = c.kc;
-    const size_t f = fwd_chain_floats(c, R, C);
+    size_t f = fwd_chain_floats(c, R, CC);
+    if (C == kWeightsL2) f -= (size_t)c.h * c.wp;
     if (f > most) most = f;
   }
   return most * sizeof(float);
 }
 
-// The cell's four gates of step s of xp (t, n, 4H), rows [row0, row0 +
-// R), into feature-major dst [4h][R] (column q h + j), asynchronously;
-// zeros past n.
+// The cell's four gates of step s of xp, rows [row0, row0 + R), into
+// feature-major dst [4h][R] (column q h + j), asynchronously; zeros past
+// n. Step s, row r's 4H gates start at xp + s xs + r xr: (t, n, 4H) with
+// xs = n 4H and xr = 4H, or one broadcast (4H) with both 0.
 template <int R>
 __device__ __forceinline__ void load_gates_async(float* dst, const float* xp,
-                                                 int s, int n, int H,
+                                                 int s, size_t xs, int xr,
+                                                 int n, int H,
                                                  const FwdTile& c, int row0,
                                                  int tid, int nthr) {
   for (int q = 0; q < 4; ++q) {
@@ -87,8 +101,7 @@ __device__ __forceinline__ void load_gates_async(float* dst, const float* xp,
     for (int i = tid; i < c.h * R; i += nthr) {
       const int j = i / R, r = i - j * R, row = row0 + r;
       if (row < n)
-        cp_async4(d + i,
-                  xp + ((size_t)s * n + row) * 4 * H + q * H + c.k0 + j);
+        cp_async4(d + i, xp + s * xs + (size_t)row * xr + q * H + c.k0 + j);
       else
         d[i] = 0.0f;
     }
@@ -98,7 +111,7 @@ __device__ __forceinline__ void load_gates_async(float* dst, const float* xp,
 // (1) Group g's sum of gate column c0 + jj over the depth [h g / kg,
 // h (g + 1) / kg): part[(g kc + jj) R + r], group 0 starting from xp (x,
 // feature-major [4h][R]); every sum in order of k.
-template <int R>
+template <int R, bool L2 = false>
 __device__ __forceinline__ void cell_gates_fwd(const float* w,
                                                const float* hs,
                                                const float* x, float* part,
@@ -112,10 +125,10 @@ __device__ __forceinline__ void cell_gates_fwd(const float* w,
 #pragma unroll
     for (int r = 0; r < R; ++r)
       acc[r] = g == 0 && col < 4 * c.h ? x[col * R + r] : 0.0f;
-    const float* wj = w + jj;
+    const float* wj = w + jj + (L2 ? (jj / c.h) * c.gap : 0);
 #pragma unroll 4
     for (int k = kb; k < ke; ++k) {
-      const float wv = wj[k * c.wp];
+      const float wv = L2 ? __ldg(wj + k * c.wp) : wj[k * c.wp];
       float hv[R];
       load_row<R>(hv, hs + k * R);
 #pragma unroll
@@ -130,13 +143,14 @@ __device__ __forceinline__ void cell_gates_fwd(const float* w,
 // (2) The cell update for all h units and R rows: each gate the group
 // sums of its column (from the block of the cluster that holds it) added
 // in group order; writes h and c, and where `store` (one block of a
-// cluster) c, and h where allh is given, into step s of (t, n, H).
+// cluster) each of allc and allh (step s of (t, n, H)) and gates (step s
+// of (t, n, 4H), the pre-activations) that is given.
 template <int C, int R>
 __device__ __forceinline__ void cell_update_fwd(const float* part, float* hs,
                                                 float* cs, const FwdTile& c,
                                                 float* allh, float* allc,
-                                                int s, int n, int H,
-                                                int row0, bool store,
+                                                float* gates, int s, int n,
+                                                int H, int row0, bool store,
                                                 int tid, int nthr) {
   for (int i = tid; i < c.h * R; i += nthr) {
     const int j = i / R, r = i - j * R;
@@ -161,8 +175,13 @@ __device__ __forceinline__ void cell_update_fwd(const float* part, float* hs,
     const int row = row0 + r;
     if (store && row < n) {
       const size_t at = ((size_t)s * n + row) * H + c.k0 + j;
-      allc[at] = cn;
+      if (allc != nullptr) allc[at] = cn;
       if (allh != nullptr) allh[at] = hn;
+      if (gates != nullptr) {
+        float* gt = gates + ((size_t)s * n + row) * 4 * H + c.k0 + j;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) gt[q * H] = g[q];
+      }
     }
   }
 }

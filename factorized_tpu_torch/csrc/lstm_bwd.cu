@@ -36,8 +36,9 @@
 // weight from L2; the next step's operands are copied in with cp.async
 // while the current step runs. A cell that does not fit one SM, such as
 // kl_ef's 120-unit cell (225 KiB), splits its gate columns over a cluster
-// of 2, 4 or 8 blocks, the smallest that fits; past 8 the launch is
-// refused before it starts. A few lanes share each unit of the dh product
+// of 2, 4 or 8 blocks, the smallest that fits; past 8 (a 336-unit decoder
+// cell of a search draw) the chain reads the weights in place from L2,
+// one block a row tile, chosen from the widths before the launch. A few lanes share each unit of the dh product
 // and shuffles add their partial sums in a fixed order, a cluster's
 // partials add in rank order: no atomics, the same bits on every run.
 // Float32 on the CUDA cores: a TF32 product keeps about three digits, too
@@ -108,22 +109,24 @@ __device__ __forceinline__ void load_step(const ChainBwdArgs& a, int s,
 }
 
 // blockIdx.y is the cell, blockIdx.x / C the row tile and the rank in the
-// cluster of C its share of the cell's gate columns. D: the decoders.
+// cluster of C its share of the cell's gate columns. D: the decoders. L2:
+// the weights read in place (C = 1).
 // __grid_constant__: the cell table is indexed by blockIdx.y, which
 // otherwise makes every thread copy the argument struct to local memory
 // (a stack frame in ptxas's report, about 1% of the decoder chain:
 // PERF.md).
-template <int R, int C, bool D>
+template <int R, int C, bool D, bool L2>
 __global__ void __launch_bounds__(kMaxThreads)
     lstm_chain_bwd_kernel(const __grid_constant__ ChainBwdArgs a) {
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
-  const CellTile c = cell_tile<C>(a.cells, blockIdx.y, blockDim.x, rank);
+  const CellTile c =
+      cell_tile<C, L2>(a.cells, blockIdx.y, blockDim.x, rank, a.H);
   const int h = c.h, H = a.H;
   // the chain's last step: the decoders' transition 1, the cells' step 0
   const int last = D ? 1 : 0;
-  float* const w = smem;
-  float* const dh = w + h * c.wp;
+  const float* const w = cell_weights<L2>(smem, a.w, H, c.k0);
+  float* const dh = smem + (L2 ? 0 : h * c.wp);
   float* const dc = dh + pad4(h * R);
   // [4h][R]; for a cluster [C kc][R], the rows past 4h zero
   float* const dg = dc + pad4(h * R);
@@ -136,7 +139,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nthr >> 5;
 
-  load_cell_weights(w, a.w, H, c, tid, nthr);
+  if (!L2) load_cell_weights(smem, a.w, H, c, tid, nthr);
   load_rows_async<R>(dh, D ? a.dallh : a.dhlast, D ? a.t - 1 : 0, a.n, H,
                      c.k0, h, row0, tid, nthr);
   for (int i = tid; i < h * R; i += nthr) dc[i] = 0.0f;
@@ -160,7 +163,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     if (!D && s == 0) break;  // no dh into the zero state before step 0
     const float* add = D ? op.cp + h * R : nullptr;
     if (C == 1) {
-      cell_dh<R>(w, dg, add, dh, c, lane, warp, nwarp);
+      cell_dh<R, 1, L2>(w, dg, add, dh, c, lane, warp, nwarp);
     } else {
       float* const mine = part + (s & 1) * pad4(h * R);
       cell_dh<R, C>(w, dg, nullptr, mine, c, lane, warp, nwarp);
@@ -191,22 +194,26 @@ size_t chain_bytes(const ChainBwdArgs& a, int threads, int C) {
 }
 
 // The fit gate and the launch: the smallest cluster whose blocks fit,
-// none past 8.
+// else the weights read from L2 (lstm_common.cuh's chain_plan).
 template <int R, bool D>
 cudaError_t launch(const ChainBwdArgs& a, int threads, int* fit,
                    cudaStream_t stream) {
   size_t bytes = 0;
-  const int C = smallest_cluster(
-      [&](int c) { return chain_bytes<R, D>(a, threads, c); }, &bytes);
-  if (C == 0) return refuse(fit, 1, bytes, kMaxCluster);
-  fit[kFitChainA] = C;
-  void (*kernel)(const ChainBwdArgs) =
-      C == 1   ? lstm_chain_bwd_kernel<R, 1, D>
-      : C == 2 ? lstm_chain_bwd_kernel<R, 2, D>
-      : C == 4 ? lstm_chain_bwd_kernel<R, 4, D>
-               : lstm_chain_bwd_kernel<R, 8, D>;
+  auto at = [&](int c) { return chain_bytes<R, D>(a, threads, c); };
+  const int plan = chain_plan(at, [&] { return at(kWeightsL2); }, &bytes);
+  if (plan == kRefused) return refuse(fit, 1, bytes, kWeightsL2);
+  fit[kFitChainA] = plan;
+  using Kernel = void (*)(const ChainBwdArgs);
+  const Kernel kernels[5] = {
+      lstm_chain_bwd_kernel<R, 1, D, true>,
+      lstm_chain_bwd_kernel<R, 1, D, false>,
+      lstm_chain_bwd_kernel<R, 2, D, false>,
+      lstm_chain_bwd_kernel<R, 4, D, false>,
+      lstm_chain_bwd_kernel<R, 8, D, false>};
+  const Kernel kernel = chain_kernel(kernels, plan);
   cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), bytes);
   if (err != cudaSuccess) return err;
+  const int C = plan_blocks(plan);
   const dim3 grid(((a.n + R - 1) / R) * C, a.cells.count);
   return launch_clusters(kernel, grid, threads, bytes, C, stream, a);
 }
@@ -224,9 +231,9 @@ bool valid(const ChainBwdArgs& a, int n_cells, const int* cell_dims,
 // All arrays float32 and contiguous, shaped as in ChainBwdArgs; t >= 2.
 // cell_dims (host memory) lists the n_cells fused hidden widths, summing
 // to H. threads is a multiple of 32 up to 512. fit (host memory, six ints,
-// lstm_common.cuh's Fit) gets the cluster the chain ran on, or, when a
-// block's shared memory passes the card's even at a cluster of 8, the
-// refusal before the launch.
+// lstm_common.cuh's Fit) gets the plan the chain ran on (a cluster, or
+// kWeightsL2), or, when a block's per-row state alone passes the card's
+// shared memory, the refusal before the launch.
 extern "C" int decoder_lstm_bwd(const float* gates, const float* allc,
                                 const float* dallh, const float* wsum,
                                 float* dgates, float* dh0, float* dc0, int t,

@@ -85,8 +85,9 @@ constexpr int kMaxCluster = 8;
 
 // What a launcher reports through its `fit` array (host memory, six
 // ints): a pass refused before any launch ({1-based pass, the bytes a
-// block needs at the largest cluster, the card's limit, that cluster}),
-// and the clusters it launched its (up to two) chains on.
+// block needs, the card's limit, the plan: for a chain kWeightsL2, its
+// per-row state alone passing a block}), and the plans of its (up to
+// two) chains: the cluster, or kWeightsL2.
 enum Fit { kFitPass, kFitBytes, kFitLimit, kFitCluster, kFitChainA,
            kFitChainB, kFitInts };
 
@@ -112,6 +113,39 @@ inline int smallest_cluster(F bytes_at, size_t* bytes) {
     if (*bytes <= (size_t)kMaxSmemBytes) return C;
   }
   return 0;
+}
+
+// A chain's plan, reported in `fit` as its cluster: kWeightsL2 where no
+// cluster of 8 holds its weights, and the chain runs one block per row
+// tile that reads them in place from device memory (through L2) and
+// keeps only the per-row state in shared memory.
+constexpr int kWeightsL2 = 0;
+constexpr int kRefused = -1;
+
+// The smallest cluster whose blocks fit (bytes_at(C)), else kWeightsL2
+// if the per-row state alone (state_bytes()) fits a block, else
+// kRefused; the chosen launch's bytes in *bytes (the state's when
+// refused). Decided from the widths, before any launch.
+template <typename F, typename G>
+inline int chain_plan(F bytes_at, G state_bytes, size_t* bytes) {
+  const int C = smallest_cluster(bytes_at, bytes);
+  if (C != 0) return C;
+  *bytes = state_bytes();
+  return *bytes <= (size_t)kMaxSmemBytes ? kWeightsL2 : kRefused;
+}
+
+// The blocks a cluster of the plan holds (1 for kWeightsL2).
+inline int plan_blocks(int plan) { return plan == kWeightsL2 ? 1 : plan; }
+
+// The kernel of a chain for its plan: kernels[0] reads its weights from
+// L2, kernels[1 + log2 C] holds them in shared memory on clusters of C.
+template <typename K>
+inline K chain_kernel(const K (&kernels)[5], int plan) {
+  return plan == kWeightsL2 ? kernels[0]
+         : plan == 1        ? kernels[1]
+         : plan == 2        ? kernels[2]
+         : plan == 4        ? kernels[3]
+                            : kernels[4];
 }
 
 // Launches `kernel` on clusters of C blocks along x (a plain launch for
@@ -158,13 +192,16 @@ __device__ __forceinline__ void cluster_barrier() {
     cooperative_groups::this_cluster().sync();
 }
 
-// acc[r] = sum_k A[r][k] w_row[k], k = slice, slice + ks, ...: one lane's
-// share of an output, A row-major in shared memory; four partial sums
-// (so consecutive loads overlap) added in a fixed order.
+// acc[r] = sum_k A[r][k] w_row[k ws], k = slice, slice + ks, ...: one
+// lane's share of an output, A row-major in shared memory, w_row's
+// elements ws floats apart (1 in shared memory; a column of a weight read
+// in place from L2); four partial sums (so consecutive loads overlap)
+// added in a fixed order.
 template <int R>
 __device__ __forceinline__ void smem_dot(const float* A, int lda, int K,
                                          const float* w_row, int slice,
-                                         int ks, float (&acc)[R]) {
+                                         int ks, float (&acc)[R],
+                                         int ws = 1) {
   float p[4][R];
 #pragma unroll
   for (int u = 0; u < 4; ++u)
@@ -174,14 +211,14 @@ __device__ __forceinline__ void smem_dot(const float* A, int lda, int K,
   for (; k + 3 * ks < K; k += 4 * ks) {
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const float wv = w_row[k + u * ks];
+      const float wv = w_row[(k + u * ks) * ws];
 #pragma unroll
       for (int r = 0; r < R; ++r)
         p[u][r] = fmaf(A[r * lda + k + u * ks], wv, p[u][r]);
     }
   }
   for (; k < K; k += ks) {
-    const float wv = w_row[k];
+    const float wv = w_row[k * ws];
 #pragma unroll
     for (int r = 0; r < R; ++r) p[0][r] = fmaf(A[r * lda + k], wv, p[0][r]);
   }
@@ -305,6 +342,7 @@ enum ClockKernel {
   kClockCellChainsBwd,
   kClockCellChainsFwd,
   kClockMemChainFwd,
+  kClockLstmFwd,
   kClockKernels
 };
 constexpr int kClockSteps = 64;

@@ -1,0 +1,245 @@
+// The recurrences' forward chains: the fused autoregressive decoders and
+// the fused encoder cells (multi_lstm), one kernel for both; the forward
+// counterpart of lstm_bwd.cu.
+//
+// Replaces: factorized_tpu/ops/pallas_lstm.py::_dec_fwd_kernel (reached
+// through _dec_fwd_call and decoder_lstm) and ::_enc_fwd_kernel (through
+// _enc_fwd_call and multi_lstm).
+//
+// What it computes: an LSTM recurrence over k independent cells fused
+// into one state of H units, gate-major and block-diagonal: for each step
+// s, gates = x_s + h @ W through the LSTM gate math. The decoders (W =
+// wsum = wx + wh) start from the state (h0, c0) that the latent-driven
+// step 0 left (computed outside, as in the JAX package) and run t - 1
+// steps with x_s the broadcast bias b; they write allh and allc (t, n, H)
+// with slot 0 = (h0, c0) and the pre-activation gates (t, n, 4H) with
+// slot 0 zero. The encoder cells (W = wh) start from zeros and run t
+// steps with x_s = xp[s], the hoisted input projections (t, n, 4H); the
+// eval variant writes h_last (n, H) only, the train variant also allh,
+// allc and gates, the residuals the backward (lstm_bwd.cu) reads.
+//
+// What bounds it on an H100: neither resource, narrowly. At the training
+// batch (n = 32, t = 20, best_acc_mosi_config) the decoders (cells 104,
+// 24 and 24) do 0.058 GFLOP over the diagonal blocks (0.9 us at 67
+// TFLOP/s) against 2.5 MB of traffic (0.8 us at 3.35 TB/s); at n = 256,
+// 0.47 GFLOP (7 us) against 19 MB. kl_ef's encoder cells (32, 8, 80 and
+// 120) at n = 256 do 0.90 GFLOP (13 us) against 21 MB. In practice the
+// serial chain of dependent steps bounds it.
+//
+// What the design does about it: the cells are independent chains, so
+// one block (or cluster) owns one cell and R batch rows and walks the
+// steps (cell_fwd.cuh, the encode forward's LSTM pass). It copies the
+// cell's four diagonal blocks of W into shared memory once (the 104-unit
+// decoder cell's 169 KiB), so the chain reads no weight from L2; each
+// step is two barriers: the gates of the block's columns from shared
+// memory, then the cell update, while the next step's x is copied in with
+// cp.async. A cell whose blocks pass one SM (kl_ef's 120-unit cell, 225
+// KiB) splits its gate columns over a thread-block cluster of 2, 4 or 8
+// blocks, the smallest that fits, the peers' gates read through
+// distributed shared memory. Past a cluster of 8 (a 336-unit decoder cell
+// or a 400-unit encoder cell of a search draw) the chain reads the
+// weights in place from L2, one block a row tile, chosen from the widths
+// before the launch. x has a step stride and a row stride, so the
+// decoders read their bias with both 0 and no (t, n, 4H) buffer is made
+// for it. Float32 on the CUDA cores, every sum in a fixed order: the same
+// bits on every run.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+
+#include "cell_fwd.cuh"
+#include "lstm_common.cuh"
+
+namespace ftt {
+namespace {
+
+constexpr int kThreads = 512;
+// Batch rows a block takes, the fastest measured by perf_probe.py rows
+// (PERF.md): the decoders' at the training batch (n = 32, most of their
+// launches), the encoder cells' eval variant at the serving batch (n =
+// 256) and their train variant at the training batch. perf_probe.py rows
+// sweeps them by rebuilding with -D overrides of these macros.
+#ifndef FTT_DECODER_FWD_ROWS
+#define FTT_DECODER_FWD_ROWS 2
+#endif
+#ifndef FTT_MULTI_EVAL_ROWS
+#define FTT_MULTI_EVAL_ROWS 8
+#endif
+#ifndef FTT_MULTI_TRAIN_ROWS
+#define FTT_MULTI_TRAIN_ROWS 2
+#endif
+constexpr int kDecoderFwdRows = FTT_DECODER_FWD_ROWS;
+constexpr int kMultiEvalRows = FTT_MULTI_EVAL_ROWS;
+constexpr int kMultiTrainRows = FTT_MULTI_TRAIN_ROWS;
+
+struct ChainFwdArgs {
+  const float* x;     // encoder cells: xp (t, n, 4H); decoders: b (4H)
+  size_t xs;          // floats from one step's x to the next: n 4H, or 0
+  int xr;             // floats from one row's x to the next: 4H, or 0
+  const float* h0;    // decoders: (n, H); encoder cells: null (zeros)
+  const float* c0;    // decoders: (n, H)
+  const float* w;     // (H, 4H): wsum or wh
+  float* h_last;      // encoder cells: (n, H); decoders: null
+  float* allh;        // (t, n, H), or null (encoder cells' eval variant)
+  float* allc;        // (t, n, H), or null
+  float* gates;       // (t, n, 4H), or null
+  long long* clocks;  // the per-phase probe's buffer, or null
+  int t, n, H;
+  Cells cells;
+};
+
+// blockIdx.y is the cell, blockIdx.x / C the row tile and the rank in the
+// cluster of C its share of the cell's gate columns. D: the decoders
+// (state (h0, c0) in slot 0, steps 1 to t - 1); else a zero state and
+// steps 0 to t - 1. L2: the weights read in place (C = 1).
+// __grid_constant__: the cell table is indexed by blockIdx.y (see
+// lstm_bwd.cu).
+template <int R, int C, bool D, bool L2>
+__global__ void __launch_bounds__(kThreads)
+    lstm_chain_fwd_kernel(const __grid_constant__ ChainFwdArgs a) {
+  extern __shared__ float smem[];
+  const int rank = cluster_rank<C>();
+  const FwdTile c = fwd_tile<C, L2>(a.cells, blockIdx.y, blockDim.x, rank,
+                                    a.H);
+  const int h = c.h, H = a.H;
+  const float* const w = cell_weights<L2>(smem, a.w, H, c.k0);
+  float* const hs = smem + (L2 ? 0 : h * c.wp);  // [h][R]
+  float* const cs = hs + pad4(h * R);            // [h][R]
+  float* const xb = cs + pad4(h * R);  // two [4h][R]: step s's at s & 1
+  float* const part = xb + 8 * h * R;  // [kg kc][R], two for a cluster
+  const int part_floats = c.kg * c.kc * R;
+  const int row0 = (blockIdx.x / C) * R;
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const bool store = C == 1 || rank == 0;
+  const int first = D ? 1 : 0;
+
+  if (!L2)
+    load_cell_weights(smem, a.w, H, c.k0, h, c.c0, c.kc, c.wp, tid, nthr);
+  // the state before the first step; the decoders' slot 0
+  for (int i = tid; i < h * R; i += nthr) {
+    const int j = i / R, r = i - j * R, row = row0 + r;
+    float hv = 0.0f, cv = 0.0f;
+    if (D && row < a.n) {
+      const size_t at = (size_t)row * H + c.k0 + j;
+      hv = a.h0[at];
+      cv = a.c0[at];
+      if (store) {
+        a.allh[at] = hv;
+        a.allc[at] = cv;
+        float* gt = a.gates + (size_t)row * 4 * H + c.k0 + j;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) gt[q * H] = 0.0f;
+      }
+    }
+    hs[i] = hv;
+    cs[i] = cv;
+  }
+  load_gates_async<R>(xb + (first & 1) * 4 * h * R, a.x, first, a.xs, a.xr,
+                      a.n, H, c, row0, tid, nthr);
+  cp_async_wait_all();
+  __syncthreads();
+  FTT_STAMP(a.clocks, kClockLstmFwd, 0, 0);
+
+  for (int s = first; s < a.t; ++s) {
+    if (s + 1 < a.t)
+      load_gates_async<R>(xb + ((s + 1) & 1) * 4 * h * R, a.x, s + 1, a.xs,
+                          a.xr, a.n, H, c, row0, tid, nthr);
+    float* const p = part + (C > 1 ? (s & 1) * part_floats : 0);
+    cell_gates_fwd<R, L2>(w, hs, xb + (s & 1) * 4 * h * R, p, c, tid, nthr);
+    cluster_barrier<C>();
+    FTT_STAMP(a.clocks, kClockLstmFwd, s + 1 - first, 0);
+    cell_update_fwd<C, R>(p, hs, cs, c, a.allh, a.allc, a.gates, s, a.n, H,
+                          row0, store, tid, nthr);
+    cp_async_wait_all();
+    __syncthreads();
+    FTT_STAMP(a.clocks, kClockLstmFwd, s + 1 - first, 1);
+  }
+
+  if (a.h_last != nullptr && store) {
+    for (int i = tid; i < R * h; i += nthr) {
+      const int r = i / h, j = i - r * h, row = row0 + r;
+      if (row < a.n) a.h_last[(size_t)row * H + c.k0 + j] = hs[j * R + r];
+    }
+  }
+  // no block leaves while a peer may still read its gates
+  if (C > 1) cluster_barrier<C>();
+}
+
+// The fit gate and the launch: the smallest cluster whose blocks fit,
+// else the weights read from L2 (lstm_common.cuh's chain_plan).
+template <int R, bool D>
+cudaError_t launch(const ChainFwdArgs& a, int* fit, cudaStream_t stream) {
+  size_t bytes = 0;
+  auto at = [&](int C) { return fwd_chain_bytes(a.cells, R, kThreads, C); };
+  const int plan = chain_plan(at, [&] { return at(kWeightsL2); }, &bytes);
+  if (plan == kRefused) return refuse(fit, 1, bytes, kWeightsL2);
+  fit[kFitChainA] = plan;
+  using Kernel = void (*)(const ChainFwdArgs);
+  const Kernel kernels[5] = {
+      lstm_chain_fwd_kernel<R, 1, D, true>,
+      lstm_chain_fwd_kernel<R, 1, D, false>,
+      lstm_chain_fwd_kernel<R, 2, D, false>,
+      lstm_chain_fwd_kernel<R, 4, D, false>,
+      lstm_chain_fwd_kernel<R, 8, D, false>};
+  const Kernel kernel = chain_kernel(kernels, plan);
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), bytes);
+  if (err != cudaSuccess) return err;
+  const int C = plan_blocks(plan);
+  const dim3 grid(((a.n + R - 1) / R) * C, a.cells.count);
+  return launch_clusters(kernel, grid, kThreads, bytes, C, stream, a);
+}
+
+bool valid(int t, int n, int H, int n_cells, const int* cell_dims,
+           ChainFwdArgs* a) {
+  a->clocks = phase_clocks();
+  a->t = t;
+  a->n = n;
+  a->H = H;
+  return make_cells(n_cells, cell_dims, H, &a->cells) && t >= 1 && n >= 1;
+}
+
+}  // namespace
+}  // namespace ftt
+
+// All arrays float32 and contiguous, shaped as in ChainFwdArgs; b is (1,
+// 4H) or (4H,). cell_dims (host memory) lists the n_cells fused hidden
+// widths, summing to H. fit (host memory, six ints, lstm_common.cuh's
+// Fit) gets the plan the chain ran on (a cluster, or kWeightsL2), or,
+// when a block's per-row state alone passes the card's shared memory,
+// the refusal before the launch.
+extern "C" int decoder_lstm_fwd(const float* h0, const float* c0,
+                                const float* wsum, const float* b,
+                                float* allh, float* allc, float* gates, int t,
+                                int n, int H, int n_cells,
+                                const int* cell_dims, int* fit,
+                                void* stream) {
+  using namespace ftt;
+  clear_fit(fit);
+  ChainFwdArgs a = {b, 0, 0, h0, c0, wsum, nullptr, allh, allc, gates};
+  if (!valid(t, n, H, n_cells, cell_dims, &a) || !allh || !allc || !gates)
+    return (int)cudaErrorInvalidValue;
+  return (int)launch<kDecoderFwdRows, true>(a, fit,
+                                            static_cast<cudaStream_t>(stream));
+}
+
+// The same for the encoder cells: with_res 0 is the eval variant (allh,
+// allc and gates may be null), 1 the train variant.
+extern "C" int multi_lstm_fwd(const float* xp, const float* wh,
+                              float* h_last, float* allh, float* allc,
+                              float* gates, int t, int n, int H, int n_cells,
+                              const int* cell_dims, int with_res, int* fit,
+                              void* stream) {
+  using namespace ftt;
+  clear_fit(fit);
+  ChainFwdArgs a = {xp,     (size_t)n * 4 * H,   4 * H,
+                    nullptr, nullptr,            wh,
+                    h_last, with_res ? allh : nullptr,
+                    with_res ? allc : nullptr,  with_res ? gates : nullptr};
+  if (!valid(t, n, H, n_cells, cell_dims, &a) || h_last == nullptr ||
+      (with_res && (!allh || !allc || !gates)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(with_res ? launch<kMultiTrainRows, false>(a, fit, st)
+                        : launch<kMultiEvalRows, false>(a, fit, st));
+}

@@ -39,7 +39,8 @@
 //     smallest size that fits splits du3's and the carry's columns, the
 //     peers trading du3 and the carry through distributed shared memory
 //     after a cluster barrier each (at the pinned widths one block fits,
-//     and every cluster was slower: PERF.md).
+//     and every cluster was slower: PERF.md). Past a cluster of 8 the
+//     chain reads the weights' rows in place from L2.
 // (3) The attention branch, all t * n rows at once (no carry), as
 //     product_kernel in tiles and softmax_bwd_kernel: du2 = dch @ a2w2^T
 //     * kg2; dattended = du3 @ gw1[:M2]^T + du2 @ a2w1^T, with datt =
@@ -54,7 +55,8 @@
 //     the gate backward from the precomputed gates, dcstar split between
 //     this step's c and the previous one's (units past z_tot), and dh =
 //     dgates @ W_cell^T. Writes dxp. A cell past one block's shared
-//     memory splits its gate columns over a cluster (cell_bwd.cuh).
+//     memory splits its gate columns over a cluster (cell_bwd.cuh), and
+//     past a cluster of 8 reads its weights in place from L2.
 //
 // Variants (the same bits as the stream variant): stream, one step per
 // iteration of the chains, the next step's operands copied in with
@@ -78,8 +80,10 @@
 // batch rows is far below wgmma's 64. Every product of the TPU kernel's
 // body is computed in these kernels, each in a fixed order: no atomics,
 // the same bits on every run. A chain whose weights pass one block's 227
-// KB splits them over a cluster; a launch whose shared memory would pass
-// the card's even at a cluster of 8 is refused before any pass starts.
+// KB splits them over a cluster, and past a cluster of 8 reads them from
+// L2, planned from the widths before any pass starts; a launch is refused
+// only where a chain's per-row state alone passes a block. An attention
+// product whose staged depth passes a block sums it in chunks.
 //
 // (b) mfm_encode_dw_kernel: each block computes one 32 x 32 tile of one
 //     gradient, A^T delta summed over the t * n rows in a fixed order, A
@@ -248,12 +252,15 @@ __host__ __device__ inline int mem_op_width(int mem, int s34) {
   return 4 * mem + s34;
 }
 
+// The weights' shares, two steps' operands and the per-row state; for
+// C = kWeightsL2 the operands and the state alone.
 __host__ __device__ inline size_t mem_chain_floats(int mem, int s34, int C,
                                                    int R, int threads) {
+  const size_t state = (size_t)2 * R * mem_op_width(mem, s34) +
+                       (size_t)R * (2 * mem + mem + 2 * mem + s34);
+  if (C == kWeightsL2) return state;
   const MemTile m = mem_tile(s34, mem, C, 0, threads);
-  return (size_t)m.cu * m.p3 + (size_t)m.cm * m.pm +
-         (size_t)2 * R * mem_op_width(mem, s34) +
-         (size_t)R * (2 * mem + mem + 2 * mem + s34);
+  return (size_t)m.cu * m.p3 + (size_t)m.cm * m.pm + state;
 }
 
 // The operands of step s, row-major [R][chat | g1 | g2 | memp | kg3],
@@ -287,7 +294,8 @@ __device__ __forceinline__ void load_mem_ops(const BwdArgs& a, int s,
 }
 
 // Block: rank `rank` of a cluster of C over R batch rows. P: two-step.
-template <int R, bool P, int C>
+// L2: the weights' rows read in place (C = 1).
+template <int R, bool P, int C, bool L2>
 __global__ void __launch_bounds__(kMaxThreads)
     mem_chain_kernel(const BwdArgs a) {
   extern __shared__ float smem[];
@@ -302,7 +310,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 
   float* const w3 = smem;              // [cu][p3]: g1w2 | g2w2 rows
   float* const wm = w3 + m.cu * m.p3;  // [cm][pm]: gw1 rows M2 + c
-  float* const ops = wm + m.cm * m.pm;  // two [R][W]: step s's at s & 1
+  // two [R][W]: step s's at s & 1
+  float* const ops = L2 ? smem : wm + m.cm * m.pm;
   float* dmem = ops + 2 * R * W;       // [R][mem]: the carry into the step
   float* dnext = dmem + R * mem;       // [R][mem]: the carry out of it
   float* const carry = dnext + R * mem;  // [R][mem]: dmem * g1
@@ -313,13 +322,15 @@ __global__ void __launch_bounds__(kMaxThreads)
   // the first `split` of the block's du3 rows come from g1w2, the rest
   // from g2w2
   const int split = s3 <= m.u0 ? 0 : (s3 - m.u0 < nu ? s3 - m.u0 : nu);
-  copy_rows_async(w3, m.p3, a.g1w2 + (size_t)m.u0 * mem, mem, split, mem,
-                  tid, nthr);
-  copy_rows_async(w3 + split * m.p3, m.p3,
-                  a.g2w2 + (size_t)(m.u0 + split - s3) * mem, mem,
-                  nu - split, mem, tid, nthr);
-  copy_rows_async(wm, m.pm, a.gw1 + (size_t)(a.m2 + m.m0) * s34, s34, nm,
-                  s34, tid, nthr);
+  if (!L2) {
+    copy_rows_async(w3, m.p3, a.g1w2 + (size_t)m.u0 * mem, mem, split, mem,
+                    tid, nthr);
+    copy_rows_async(w3 + split * m.p3, m.p3,
+                    a.g2w2 + (size_t)(m.u0 + split - s3) * mem, mem,
+                    nu - split, mem, tid, nthr);
+    copy_rows_async(wm, m.pm, a.gw1 + (size_t)(a.m2 + m.m0) * s34, s34, nm,
+                    s34, tid, nthr);
+  }
   for (int i = tid; i < R * mem; i += nthr) {
     const int r = i / mem, row = row0 + r;
     dmem[i] = row < a.n ? a.dmemlast[(size_t)row * mem + i - r * mem] : 0.0f;
@@ -375,9 +386,14 @@ __global__ void __launch_bounds__(kMaxThreads)
       const bool ok = item < nu * m.ks3;
       float acc[R];
       zero(acc);
-      if (ok)
-        smem_dot<R>(dq + (j < s3 ? 0 : mem), 2 * mem, mem, w3 + jl * m.p3,
-                    slice, m.ks3, acc);
+      if (ok) {
+        const float* row =
+            !L2 ? w3 + jl * m.p3
+            : j < s3 ? a.g1w2 + (size_t)j * mem
+                     : a.g2w2 + (size_t)(j - s3) * mem;
+        smem_dot<R>(dq + (j < s3 ? 0 : mem), 2 * mem, mem, row, slice,
+                    m.ks3, acc);
+      }
       lanes_sum<R>(acc, m.ks3);
       if (ok && slice == 0) {
 #pragma unroll
@@ -402,7 +418,9 @@ __global__ void __launch_bounds__(kMaxThreads)
       float acc[R];
       zero(acc);
       if (ok)
-        smem_dot<R>(du3, s34, s34, wm + cl * m.pm, slice, m.ksm, acc);
+        smem_dot<R>(du3, s34, s34,
+                    L2 ? a.gw1 + (size_t)(a.m2 + c) * s34 : wm + cl * m.pm,
+                    slice, m.ksm, acc);
       lanes_sum<R>(acc, m.ksm);
       if (ok && slice == 0) {
 #pragma unroll
@@ -567,6 +585,75 @@ __host__ __device__ inline size_t product_floats(const ProductSpec& p) {
   return f > parts ? f : parts;
 }
 
+// A product whose terms' staged operands pass one block (M2 past about
+// 900 at the widest widths) stages each term in the fewest equal depth
+// chunks [K i / nc, K (i + 1) / nc) that fit, one after another.
+__host__ __device__ inline bool product_whole(const ProductSpec& p) {
+  return product_floats(p) * sizeof(float) <= (size_t)kMaxSmemBytes;
+}
+
+__host__ __device__ inline int term_chunks(int K) {
+  int nc = 1;
+  while ((size_t)2 * kTile * product_pitch((K + nc - 1) / nc) *
+             sizeof(float) >
+         (size_t)kMaxSmemBytes)
+    ++nc;
+  return nc;
+}
+
+// The shared memory a product's block takes, chunked or whole.
+__host__ __device__ inline size_t product_bytes(const ProductSpec& p) {
+  if (product_whole(p)) return product_floats(p) * sizeof(float);
+  size_t most = (size_t)kSplit * kTile * kTile;
+  for (int o = 0; o < p.terms; ++o) {
+    const int K = p.term[o].K, nc = term_chunks(K);
+    const size_t f = (size_t)2 * kTile * product_pitch((K + nc - 1) / nc);
+    if (f > most) most = f;
+  }
+  return most * sizeof(float);
+}
+
+// Columns [kb, kb + K) of the tile's rows of A and of W, asynchronously,
+// into s ([kTile][pitch] each, A's first); rows past the ends zeros.
+__device__ __forceinline__ void stage_term(float* s, const Term& q, int kb,
+                                           int K, int m0, int n0,
+                                           int live_m, int live_n, int tid,
+                                           int nthr) {
+  const int pitch = product_pitch(K);
+  copy_rows_async(s, pitch, q.a + (size_t)m0 * q.lda + kb, q.lda, live_m, K,
+                  tid, nthr);
+  copy_rows_async(s + kTile * pitch, pitch, q.w + (size_t)n0 * q.K + kb,
+                  q.K, live_n, K, tid, nthr);
+  for (int e = tid; e < (2 * kTile - live_m - live_n) * K; e += nthr) {
+    const int i = e / K, k = e - i * K;
+    const int row = i < kTile - live_m
+                        ? live_m + i
+                        : kTile + live_n + i - (kTile - live_m);
+    s[row * pitch + k] = 0.0f;
+  }
+}
+
+// Group g's quarter of a staged depth K into this thread's 4 x 4 tile.
+__device__ __forceinline__ void accumulate_term(const float* s, int K, int g,
+                                                int tx, int ty,
+                                                float (&acc)[4][4]) {
+  const int pitch = product_pitch(K);
+  const float* A = s + ty * pitch;
+  const float* W = s + (kTile + tx) * pitch;
+  for (int k = K * g / kSplit; k < K * (g + 1) / kSplit; ++k) {
+    float av[4], wv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      av[i] = A[8 * i * pitch + k];
+      wv[i] = W[8 * i * pitch + k];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+  }
+}
+
 // Where output (m, n) of product P goes: a delta (times its mask-and-relu
 // field), or datt and dcstar's first part, or added to dcstar.
 template <int P>
@@ -594,8 +681,11 @@ __device__ __forceinline__ void product_out(const BwdArgs& a, int m, int n,
   }
 }
 
-// Block: one kTile x kTile tile of product P's (t n, N) output.
-template <int P>
+// Block: one kTile x kTile tile of product P's (t n, N) output. Chunked:
+// each term's depth in term_chunks pieces (else every term's whole depth
+// at once, product_whole, at every width but the widest: a separate
+// instantiation, so the common one carries no chunk arithmetic).
+template <int P, bool Chunked>
 __global__ void __launch_bounds__(kProductThreads)
     product_kernel(const BwdArgs a) {
   extern __shared__ float smem[];
@@ -609,50 +699,40 @@ __global__ void __launch_bounds__(kProductThreads)
   const int g = tid / 64, tx = tid % 8, ty = (tid % 64) / 8;
   const int live_m = rows - m0 < kTile ? rows - m0 : kTile;
   const int live_n = p.N - n0 < kTile ? p.N - n0 : kTile;
-  float* s = smem;
-  for (int o = 0; o < p.terms; ++o) {
-    const Term& q = p.term[o];
-    const int pitch = product_pitch(q.K);
-    copy_rows_async(s, pitch, q.a + (size_t)m0 * q.lda, q.lda, live_m, q.K,
-                    tid, nthr);
-    copy_rows_async(s + kTile * pitch, pitch, q.w + (size_t)n0 * q.K, q.K,
-                    live_n, q.K, tid, nthr);
-    // rows past the ends read as zeros
-    for (int e = tid; e < (2 * kTile - live_m - live_n) * q.K; e += nthr) {
-      const int i = e / q.K, k = e - i * q.K;
-      const int row = i < kTile - live_m
-                          ? live_m + i
-                          : kTile + live_n + i - (kTile - live_m);
-      s[row * pitch + k] = 0.0f;
-    }
-    s += 2 * kTile * pitch;
-  }
-  cp_async_wait_all();
-  __syncthreads();
-
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  s = smem;
-  for (int o = 0; o < p.terms; ++o) {
-    const int K = p.term[o].K, pitch = product_pitch(K);
-    const float* A = s + ty * pitch;
-    const float* W = s + (kTile + tx) * pitch;
-    for (int k = K * g / kSplit; k < K * (g + 1) / kSplit; ++k) {
-      float av[4], wv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        av[i] = A[8 * i * pitch + k];
-        wv[i] = W[8 * i * pitch + k];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+  if (!Chunked) {
+    // every term's whole depth staged at once
+    float* s = smem;
+    for (int o = 0; o < p.terms; ++o) {
+      stage_term(s, p.term[o], 0, p.term[o].K, m0, n0, live_m, live_n, tid,
+                 nthr);
+      s += 2 * kTile * product_pitch(p.term[o].K);
     }
-    s += 2 * kTile * pitch;
+    cp_async_wait_all();
+    __syncthreads();
+    s = smem;
+    for (int o = 0; o < p.terms; ++o) {
+      accumulate_term(s, p.term[o].K, g, tx, ty, acc);
+      s += 2 * kTile * product_pitch(p.term[o].K);
+    }
+  } else {
+    // each term in depth chunks, one staged at a time
+    for (int o = 0; o < p.terms; ++o) {
+      const int KT = p.term[o].K, nc = term_chunks(KT);
+      for (int ch = 0; ch < nc; ++ch) {
+        const int kb = KT * ch / nc, K = KT * (ch + 1) / nc - kb;
+        if (o > 0 || ch > 0) __syncthreads();  // the last chunk is read
+        stage_term(smem, p.term[o], kb, K, m0, n0, live_m, live_n, tid,
+                   nthr);
+        cp_async_wait_all();
+        __syncthreads();
+        accumulate_term(smem, K, g, tx, ty, acc);
+      }
+    }
   }
   __syncthreads();  // the staged operands are read: reuse the space
   float* const part = smem + g * kTile * kTile;
@@ -714,18 +794,20 @@ __device__ __forceinline__ void load_cell_step(const BwdArgs& a, int s,
 
 // blockIdx.y is the cell, blockIdx.x / C the row tile and the rank in
 // the cluster of C its share of the cell's gate columns. P: two-step.
-template <int R, bool P, int C>
+// L2: the weights read in place (C = 1).
+template <int R, bool P, int C, bool L2>
 __global__ void __launch_bounds__(kMaxThreads)
     lstm_chains_kernel(const BwdArgs a) {
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
-  const CellTile c = cell_tile<C>(a.cells, blockIdx.y, blockDim.x, rank);
+  const CellTile c =
+      cell_tile<C, L2>(a.cells, blockIdx.y, blockDim.x, rank, a.H);
   const int h = c.h;
   const int row0 = (blockIdx.x / C) * R;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nthr >> 5;
-  float* const w = smem;
-  float* const dh = w + h * c.wp;
+  const float* const w = cell_weights<L2>(smem, a.wh, a.H, c.k0);
+  float* const dh = smem + (L2 ? 0 : h * c.wp);
   float* const dc = dh + pad4(h * R);
   // [4h][R]; for a cluster [C kc][R], the rows past 4h zero
   float* const dg = dc + pad4(h * R);
@@ -736,7 +818,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   float* const part = buf + 2 * step_floats;
   const bool with_dcs = c.k0 >= a.z_tot;
 
-  load_cell_weights(w, a.wh, a.H, c, tid, nthr);
+  if (!L2) load_cell_weights(smem, a.wh, a.H, c, tid, nthr);
   load_rows_async<R>(dh, a.dhlast, 0, a.n, a.H, c.k0, h, row0, tid, nthr);
   for (int i = tid; i < h * R; i += nthr) dc[i] = 0.0f;
   if (C > 1)
@@ -770,7 +852,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     __syncthreads();
     FTT_STAMP(a.clocks, kClockCellChainsBwd, a.t - s, 0);
     if (C == 1) {
-      cell_dh<R>(w, dg, nullptr, dh, c, lane, warp, nwarp);
+      cell_dh<R, 1, L2>(w, dg, nullptr, dh, c, lane, warp, nwarp);
     } else {
       float* const mine = part + (s & 1) * pad4(h * R);
       cell_dh<R, C>(w, dg, nullptr, mine, c, lane, warp, nwarp);
@@ -787,26 +869,30 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 // ------------------------------------------------------------ launches
 
-const Kernel kProductKernels[4] = {product_kernel<kDu2>,
-                                   product_kernel<kDattended>,
-                                   product_kernel<kDu1>,
-                                   product_kernel<kDcstarAdd>};
+// [chunked][product]
+const Kernel kProductKernels[2][4] = {
+    {product_kernel<kDu2, false>, product_kernel<kDattended, false>,
+     product_kernel<kDu1, false>, product_kernel<kDcstarAdd, false>},
+    {product_kernel<kDu2, true>, product_kernel<kDattended, true>,
+     product_kernel<kDu1, true>, product_kernel<kDcstarAdd, true>}};
 
-// The chains' kernels at a cluster of C.
+// The chains' kernels for a plan (lstm_common.cuh's chain_kernel).
 template <int R, bool P>
-Kernel mem_chain_for(int C) {
-  return C == 1   ? mem_chain_kernel<R, P, 1>
-         : C == 2 ? mem_chain_kernel<R, P, 2>
-         : C == 4 ? mem_chain_kernel<R, P, 4>
-                  : mem_chain_kernel<R, P, 8>;
+Kernel mem_chain_for(int plan) {
+  const Kernel k[5] = {
+      mem_chain_kernel<R, P, 1, true>, mem_chain_kernel<R, P, 1, false>,
+      mem_chain_kernel<R, P, 2, false>, mem_chain_kernel<R, P, 4, false>,
+      mem_chain_kernel<R, P, 8, false>};
+  return chain_kernel(k, plan);
 }
 
 template <int R, bool P>
-Kernel lstm_chains_for(int C) {
-  return C == 1   ? lstm_chains_kernel<R, P, 1>
-         : C == 2 ? lstm_chains_kernel<R, P, 2>
-         : C == 4 ? lstm_chains_kernel<R, P, 4>
-                  : lstm_chains_kernel<R, P, 8>;
+Kernel lstm_chains_for(int plan) {
+  const Kernel k[5] = {
+      lstm_chains_kernel<R, P, 1, true>, lstm_chains_kernel<R, P, 1, false>,
+      lstm_chains_kernel<R, P, 2, false>, lstm_chains_kernel<R, P, 4, false>,
+      lstm_chains_kernel<R, P, 8, false>};
+  return chain_kernel(k, plan);
 }
 
 // One pass's launch: its kernel, grid, block and shared memory, and the
@@ -956,10 +1042,10 @@ __global__ void __launch_bounds__(kDwThreads)
 // unused). variant is 0 (stream), 1 (recompute-att) or 2 (two-step, t
 // even); threads a multiple of 32 up to 512, the block size of the gates
 // pass, the chains and the softmax. fit (host memory, six ints,
-// lstm_common.cuh's Fit) gets the clusters the memory chain and the LSTM
-// chains ran on (each the smallest whose blocks fit), or, when a pass's
-// shared memory does not fit the card even at a cluster of 8, the refusal
-// before anything is launched.
+// lstm_common.cuh's Fit) gets the plans the memory chain and the LSTM
+// chains ran on (each the smallest cluster whose blocks fit, else
+// kWeightsL2), or, when a chain's per-row state alone does not fit a
+// block, the refusal before anything is launched.
 extern "C" int mfm_encode_bwd(
     const float* xp, const float* allh, const float* allc,
     const float* allmem, void* const* res_ptrs, const int* res_strides,
@@ -1025,23 +1111,24 @@ extern "C" int mfm_encode_bwd(
   if (recompute) a.att = ResEntry{att_scratch, a.m2, 0};
   const int s34 = s3 + s4, flat = t * n;
   const int tiles_m = (flat + kTile - 1) / kTile;
-  // the two chains on the smallest clusters whose blocks fit
+  // the two chains on the smallest clusters whose blocks fit, else with
+  // their weights read from L2
   size_t mem_bytes = 0, cell_bytes = 0;
-  const int Cm = smallest_cluster(
-      [&](int C) {
-        return mem_chain_floats(mem, s34, C, kMemRows, threads) *
-               sizeof(float);
-      },
-      &mem_bytes);
-  if (Cm == 0) return (int)refuse(fit, 2, mem_bytes, kMaxCluster);
-  const int Cc = smallest_cluster(
-      [&](int C) {
-        return cell_chain_bytes(a.cells, kCellRows, threads, kCellOpWidth, C);
-      },
-      &cell_bytes);
-  if (Cc == 0) return (int)refuse(fit, 4, cell_bytes, kMaxCluster);
-  fit[kFitChainA] = Cm;
-  fit[kFitChainB] = Cc;
+  auto mem_at = [&](int C) {
+    return mem_chain_floats(mem, s34, C, kMemRows, threads) * sizeof(float);
+  };
+  const int Pm = chain_plan(mem_at, [&] { return mem_at(kWeightsL2); },
+                            &mem_bytes);
+  if (Pm == kRefused) return (int)refuse(fit, 2, mem_bytes, kWeightsL2);
+  auto cells_at = [&](int C) {
+    return cell_chain_bytes(a.cells, kCellRows, threads, kCellOpWidth, C);
+  };
+  const int Pc = chain_plan(cells_at, [&] { return cells_at(kWeightsL2); },
+                            &cell_bytes);
+  if (Pc == kRefused) return (int)refuse(fit, 4, cell_bytes, kWeightsL2);
+  fit[kFitChainA] = Pm;
+  fit[kFitChainB] = Pc;
+  const int Cm = plan_blocks(Pm), Cc = plan_blocks(Pc);
   // the launches in order, each with its pass (1 to 4)
   Pass p[10];
   int pass_of[10], count = 0;
@@ -1052,8 +1139,8 @@ extern "C" int mfm_encode_bwd(
   add(1, {gates_kernel<kTileRows>,
           dim3((flat + kTileRows - 1) / kTileRows), threads,
           (size_t)kTileRows * H * sizeof(float), 1});
-  add(2, {pairs ? mem_chain_for<kMemRows, true>(Cm)
-                : mem_chain_for<kMemRows, false>(Cm),
+  add(2, {pairs ? mem_chain_for<kMemRows, true>(Pm)
+                : mem_chain_for<kMemRows, false>(Pm),
           dim3(((n + kMemRows - 1) / kMemRows) * Cm), threads, mem_bytes,
           Cm});
   if (recompute)
@@ -1062,15 +1149,15 @@ extern "C" int mfm_encode_bwd(
             (size_t)kTileRows * (s1 + a.m2) * sizeof(float), 1});
   for (int id = kDu2; id <= kDcstarAdd; ++id) {
     const ProductSpec spec = product_spec(a, id);
-    add(3, {kProductKernels[id],
+    add(3, {kProductKernels[!product_whole(spec)][id],
             dim3(tiles_m * ((spec.N + kTile - 1) / kTile)), kProductThreads,
-            product_floats(spec) * sizeof(float), 1});
+            product_bytes(spec), 1});
     if (id == kDattended)  // the softmax between dattended and du1
       add(3, {softmax_bwd_kernel, dim3((flat + threads / 32 - 1) /
                                        (threads / 32)), threads, 0, 1});
   }
-  add(4, {pairs ? lstm_chains_for<kCellRows, true>(Cc)
-                : lstm_chains_for<kCellRows, false>(Cc),
+  add(4, {pairs ? lstm_chains_for<kCellRows, true>(Pc)
+                : lstm_chains_for<kCellRows, false>(Pc),
           dim3(((n + kCellRows - 1) / kCellRows) * Cc, a.cells.count),
           threads, cell_bytes, Cc});
   for (int k = 0; k < count; ++k) {

@@ -42,14 +42,16 @@
 //     88-unit cell's 124 KB), xp_t copied in with cp.async a step ahead
 //     (cell_fwd.cuh). Writes allc (into scratch for the eval variant),
 //     allh with residuals, and h_last. A cell past one block splits over
-//     a thread-block cluster.
+//     a thread-block cluster; past a cluster of 8 the chain reads its
+//     weights in place from L2.
 // (2) The attention branch over every (step, row) pair at once (no
 //     carry), as product_fwd_kernel in tiles and softmax_fwd_kernel:
 //     cStar from allc; u1 = cStar @ a1w1 + b, r1 and kg1; the logits and
 //     their softmax, att; attended; u2, r2 and kg2; pu3 = attended @
 //     gw1[:M2] + gb1, the gamma product's first part, into scratch; chat =
 //     tanh(r2 @ a2w2 + b). Fixed-order tiled products, as the backward's
-//     attention pass.
+//     attention pass; a depth past one block's staging (M2 past about
+//     900) is summed in chunks.
 // (3) mem_chain_fwd_kernel, serial over t: one block per row tile with
 //     gw1[M2:], g1w2 and g2w2 in shared memory (128 KiB at the pinned
 //     widths, transposed so that a few lanes share an output's depth and
@@ -58,11 +60,13 @@
 //     the next step's pu3, chat and masks copied in with cp.async. Writes
 //     r3, kg3, g1, g2, allmem and mem_last. Past one block's shared memory
 //     its columns split over a cluster, the peers trading r3 and the
-//     memory through distributed shared memory.
+//     memory through distributed shared memory; past a cluster of 8 the
+//     chain reads its weights in place from L2.
 //
 // Float32 on the CUDA cores, every sum in a fixed order: no atomics, the
-// same bits on every run. A launch whose shared memory passes the card's
-// even at clusters of 8 is refused before any pass starts.
+// same bits on every run. Each chain's plan (a cluster, or its weights
+// from L2) is made from the widths before any pass starts; a launch is
+// refused only where a chain's per-row state alone passes a block.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -134,16 +138,18 @@ using Kernel = void (*)(const EncodeArgs);
 // ------------------------------------------------------ (1) LSTM chains
 
 // blockIdx.y is the cell, blockIdx.x / C the row tile and the rank in the
-// cluster of C its share of the cell's gate columns.
-template <int R, int C>
+// cluster of C its share of the cell's gate columns. L2: the weights read
+// in place (C = 1).
+template <int R, int C, bool L2>
 __global__ void __launch_bounds__(kMaxThreads)
     cell_chains_fwd_kernel(const EncodeArgs a) {
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
-  const FwdTile c = fwd_tile<C>(a.cells, blockIdx.y, blockDim.x, rank);
+  const FwdTile c = fwd_tile<C, L2>(a.cells, blockIdx.y, blockDim.x, rank,
+                                    a.H);
   const int h = c.h, H = a.H;
-  float* const w = smem;
-  float* const hs = w + h * c.wp;         // [h][R]
+  const float* const w = cell_weights<L2>(smem, a.wh, H, c.k0);
+  float* const hs = smem + (L2 ? 0 : h * c.wp);  // [h][R]
   float* const cs = hs + pad4(h * R);     // [h][R]
   float* const xb = cs + pad4(h * R);     // two [4h][R]: step s's at s & 1
   float* const part = xb + 8 * h * R;     // [kg kc][R], two for a cluster
@@ -151,23 +157,26 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int row0 = (blockIdx.x / C) * R;
   const int tid = threadIdx.x, nthr = blockDim.x;
 
-  load_cell_weights(w, a.wh, H, c.k0, h, c.c0, c.kc, c.wp, tid, nthr);
+  if (!L2)
+    load_cell_weights(smem, a.wh, H, c.k0, h, c.c0, c.kc, c.wp, tid, nthr);
   for (int i = tid; i < h * R; i += nthr) hs[i] = cs[i] = 0.0f;
-  load_gates_async<R>(xb, a.xp, 0, a.n, H, c, row0, tid, nthr);
+  const size_t xs = (size_t)a.n * 4 * H;
+  load_gates_async<R>(xb, a.xp, 0, xs, 4 * H, a.n, H, c, row0, tid, nthr);
   cp_async_wait_all();
   __syncthreads();
   FTT_STAMP(a.clocks, kClockCellChainsFwd, 0, 0);
 
   for (int s = 0; s < a.t; ++s) {
     if (s + 1 < a.t)
-      load_gates_async<R>(xb + ((s + 1) & 1) * 4 * h * R, a.xp, s + 1, a.n,
-                          H, c, row0, tid, nthr);
+      load_gates_async<R>(xb + ((s + 1) & 1) * 4 * h * R, a.xp, s + 1, xs,
+                          4 * H, a.n, H, c, row0, tid, nthr);
     float* const p = part + (C > 1 ? (s & 1) * part_floats : 0);
-    cell_gates_fwd<R>(w, hs, xb + (s & 1) * 4 * h * R, p, c, tid, nthr);
+    cell_gates_fwd<R, L2>(w, hs, xb + (s & 1) * 4 * h * R, p, c, tid,
+                          nthr);
     cluster_barrier<C>();
     FTT_STAMP(a.clocks, kClockCellChainsFwd, s + 1, 0);
-    cell_update_fwd<C, R>(p, hs, cs, c, a.allh, a.allc, s, a.n, H, row0,
-                          C == 1 || rank == 0, tid, nthr);
+    cell_update_fwd<C, R>(p, hs, cs, c, a.allh, a.allc, nullptr, s, a.n, H,
+                          row0, C == 1 || rank == 0, tid, nthr);
     cp_async_wait_all();
     __syncthreads();
     FTT_STAMP(a.clocks, kClockCellChainsFwd, s + 1, 1);
@@ -242,6 +251,17 @@ __host__ __device__ inline size_t product_floats(int K) {
   return f > parts ? f : parts;
 }
 
+// The fewest equal depth chunks [K i / nc, K (i + 1) / nc) whose staged
+// operands fit a block: one up to a depth of about 900 floats, more for
+// the attention's products at the widest widths (M2 past 900).
+__host__ __device__ inline int product_chunks(int K) {
+  int nc = 1;
+  while (product_floats((K + nc - 1) / nc) * sizeof(float) >
+         (size_t)kMaxSmemBytes)
+    ++nc;
+  return nc;
+}
+
 // cStar of flat row rr: c of the step before past z_tot (zeros before
 // step 0), then c of the step past z_tot.
 __device__ __forceinline__ float cstar_at(const EncodeArgs& a, int rr,
@@ -284,8 +304,11 @@ __device__ __forceinline__ void product_out(const EncodeArgs& a, int m,
   }
 }
 
-// Block: one kTile x kTile tile of product P's (t n, N) output.
-template <int P>
+// Block: one kTile x kTile tile of product P's (t n, N) output. Chunked:
+// the depth in product_chunks pieces (else whole, at every width but the
+// widest: a separate instantiation, so the common one carries no chunk
+// arithmetic).
+template <int P, bool Chunked>
 __global__ void __launch_bounds__(kProductThreads)
     product_fwd_kernel(const EncodeArgs a) {
   extern __shared__ float smem[];
@@ -299,55 +322,65 @@ __global__ void __launch_bounds__(kProductThreads)
   const int g = tid / 64, tx = tid % 8, ty = (tid % 64) / 8;
   const int live_m = rows - m0 < kTile ? rows - m0 : kTile;
   const int live_n = p.N - n0 < kTile ? p.N - n0 : kTile;
-  const int K = p.K, pa = product_pitch(K);
-  float* const As = smem;              // [kTile][pa]: A's rows
-  float* const Ws = As + kTile * pa;   // [K][kTile]: W's columns
-  if (P == kProdU1) {
-    for (int e = tid; e < kTile * K; e += nthr) {
-      const int i = e / K, k = e - i * K;
-      As[i * pa + k] = i < live_m ? cstar_at(a, m0 + i, k) : 0.0f;
-    }
-  } else {
-    copy_rows_async(As, pa, p.a + (size_t)m0 * p.lda, p.lda, live_m, K, tid,
-                    nthr);
-    for (int e = tid; e < (kTile - live_m) * K; e += nthr) {
-      const int i = e / K;
-      As[(live_m + i) * pa + e - i * K] = 0.0f;
-    }
-  }
   // the tile's columns of W: from w0 up to N0, then from w1
   const int c0 = p.N0 - n0 > 0 ? (p.N0 - n0 < live_n ? p.N0 - n0 : live_n)
                                : 0;
-  if (c0 > 0)
-    copy_rows_async(Ws, kTile, p.w0 + n0, p.ld0, K, c0, tid, nthr);
-  if (live_n > c0)
-    copy_rows_async(Ws + c0, kTile, p.w1 + n0 + c0 - p.N0, p.ld1, K,
-                    live_n - c0, tid, nthr);
-  for (int e = tid; e < (kTile - live_n) * K; e += nthr) {
-    const int k = e / (kTile - live_n);
-    Ws[k * kTile + live_n + e - k * (kTile - live_n)] = 0.0f;
-  }
-  cp_async_wait_all();
-  __syncthreads();
-
+  const int nc = Chunked ? product_chunks(p.K) : 1;
   float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  const float* A = As + ty * pa;
-  const float* W = Ws + tx;
-  for (int k = K * g / kSplit; k < K * (g + 1) / kSplit; ++k) {
-    float av[4], wv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      av[i] = A[8 * i * pa + k];
-      wv[i] = W[k * kTile + 8 * i];
+  // the depth in chunks (one but at the widest widths), each staged
+  // whole: rows [kb, kb + K) of A's columns and of W
+  for (int ch = 0; ch < nc; ++ch) {
+    const int kb = p.K * ch / nc, K = p.K * (ch + 1) / nc - kb;
+    const int pa = product_pitch(K);
+    float* const As = smem;              // [kTile][pa]: A's rows
+    float* const Ws = As + kTile * pa;   // [K][kTile]: W's columns
+    if (ch > 0) __syncthreads();  // the last chunk is read
+    if (P == kProdU1) {
+      for (int e = tid; e < kTile * K; e += nthr) {
+        const int i = e / K, k = e - i * K;
+        As[i * pa + k] = i < live_m ? cstar_at(a, m0 + i, kb + k) : 0.0f;
+      }
+    } else {
+      copy_rows_async(As, pa, p.a + (size_t)m0 * p.lda + kb, p.lda, live_m,
+                      K, tid, nthr);
+      for (int e = tid; e < (kTile - live_m) * K; e += nthr) {
+        const int i = e / K;
+        As[(live_m + i) * pa + e - i * K] = 0.0f;
+      }
     }
+    if (c0 > 0)
+      copy_rows_async(Ws, kTile, p.w0 + (size_t)kb * p.ld0 + n0, p.ld0, K,
+                      c0, tid, nthr);
+    if (live_n > c0)
+      copy_rows_async(Ws + c0, kTile,
+                      p.w1 + (size_t)kb * p.ld1 + n0 + c0 - p.N0, p.ld1, K,
+                      live_n - c0, tid, nthr);
+    for (int e = tid; e < (kTile - live_n) * K; e += nthr) {
+      const int k = e / (kTile - live_n);
+      Ws[k * kTile + live_n + e - k * (kTile - live_n)] = 0.0f;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    const float* A = As + ty * pa;
+    const float* W = Ws + tx;
+    for (int k = K * g / kSplit; k < K * (g + 1) / kSplit; ++k) {
+      float av[4], wv[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 4; ++i) {
+        av[i] = A[8 * i * pa + k];
+        wv[i] = W[k * kTile + 8 * i];
+      }
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+    }
   }
   __syncthreads();  // the staged operands are read: reuse the space
   float* const part = smem + g * kTile * kTile;
@@ -432,13 +465,17 @@ __host__ __device__ inline int mem_fwd_op_width(int mem, int s34) {
 }
 
 // The weights' shares, transposed (each starting 16-byte aligned), the
-// memory before and after the step, r3, and two steps' operands.
+// memory before and after the step, r3, and two steps' operands; for
+// C = kWeightsL2 the per-row state alone.
 __host__ __device__ inline size_t mem_fwd_floats(int mem, int s3, int s4,
                                                  int C, int R, int threads) {
   const int s34 = s3 + s4;
+  const size_t state =
+      (size_t)R * (2 * mem + s34 + 2 * mem_fwd_op_width(mem, s34));
+  if (C == kWeightsL2) return state;
   const MemFwdTile m = mem_fwd_tile(s3, s4, mem, C, 0, threads);
   return (size_t)pad4(m.cu * m.pu) + pad4(m.cm * m.p1) + pad4(m.cm * m.p2) +
-         (size_t)R * (2 * mem + s34 + 2 * mem_fwd_op_width(mem, s34));
+         state;
 }
 
 // Step s's operands, row-major [R][pu3 | chat | masks], asynchronously;
@@ -465,8 +502,10 @@ __device__ __forceinline__ void load_mem_fwd_ops(const EncodeArgs& a, int s,
   }
 }
 
-// Block: rank `rank` of a cluster of C over R batch rows.
-template <int R, int C>
+// Block: rank `rank` of a cluster of C over R batch rows. L2: the weights
+// read in place (C = 1), a column of each (an output's depth) with its
+// elements a row apart.
+template <int R, int C, bool L2>
 __global__ void __launch_bounds__(kMaxThreads)
     mem_chain_fwd_kernel(const EncodeArgs a) {
   extern __shared__ float smem[];
@@ -479,28 +518,36 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int nu = m.u1 - m.u0, nm = m.m1 - m.m0;
   const int row0 = (blockIdx.x / C) * R;
   // the weights transposed: row jl of wu holds gw1[M2 + k][u0 + jl] over
-  // k, row cl of w1 and w2 g1w2[k][m0 + cl] and g2w2[k][m0 + cl]
+  // k, row cl of w1 and w2 g1w2[k][m0 + cl] and g2w2[k][m0 + cl]; read in
+  // place, row jl starts at column jl and its elements lie a row apart
+  const float* gu = a.gw1 + (size_t)a.m2 * s34;
   float* const wu = smem;                    // [cu][pu]
   float* const w1 = wu + pad4(m.cu * m.pu);  // [cm][p1]
   float* const w2 = w1 + pad4(m.cm * m.p1);  // [cm][p2]
-  float* memp = w2 + pad4(m.cm * m.p2);      // [R][mem]: before the step
-  float* memn = memp + R * mem;              // [R][mem]: after it
+  const float* const ru = L2 ? gu : wu;
+  const float* const r1w = L2 ? a.g1w2 : w1;
+  const float* const r2w = L2 ? a.g2w2 : w2;
+  const int pu = L2 ? 1 : m.pu, p1 = L2 ? 1 : m.p1, p2 = L2 ? 1 : m.p2;
+  const int su = L2 ? s34 : 1, sm = L2 ? mem : 1;
+  float* memp = L2 ? smem : w2 + pad4(m.cm * m.p2);  // [R][mem]: before
+  float* memn = memp + R * mem;              // [R][mem]: after the step
   float* const r3 = memn + R * mem;          // [R][s34]
   float* const ops = r3 + R * s34;           // two [R][W]: step s's at s & 1
 
   // coalesced reads of the weights' rows, written transposed
-  const float* gu = a.gw1 + (size_t)a.m2 * s34;
-  for (int i = tid; i < mem * nu; i += nthr) {
-    const int k = i / nu, jl = i - k * nu;
-    wu[jl * m.pu + k] = gu[(size_t)k * s34 + m.u0 + jl];
-  }
-  for (int i = tid; i < s3 * nm; i += nthr) {
-    const int k = i / nm, cl = i - k * nm;
-    w1[cl * m.p1 + k] = a.g1w2[(size_t)k * mem + m.m0 + cl];
-  }
-  for (int i = tid; i < s4 * nm; i += nthr) {
-    const int k = i / nm, cl = i - k * nm;
-    w2[cl * m.p2 + k] = a.g2w2[(size_t)k * mem + m.m0 + cl];
+  if (!L2) {
+    for (int i = tid; i < mem * nu; i += nthr) {
+      const int k = i / nu, jl = i - k * nu;
+      wu[jl * m.pu + k] = gu[(size_t)k * s34 + m.u0 + jl];
+    }
+    for (int i = tid; i < s3 * nm; i += nthr) {
+      const int k = i / nm, cl = i - k * nm;
+      w1[cl * m.p1 + k] = a.g1w2[(size_t)k * mem + m.m0 + cl];
+    }
+    for (int i = tid; i < s4 * nm; i += nthr) {
+      const int k = i / nm, cl = i - k * nm;
+      w2[cl * m.p2 + k] = a.g2w2[(size_t)k * mem + m.m0 + cl];
+    }
   }
   for (int i = tid; i < R * mem; i += nthr) memp[i] = 0.0f;
   load_mem_fwd_ops<R>(a, 0, ops, row0, tid, nthr);
@@ -524,7 +571,8 @@ __global__ void __launch_bounds__(kMaxThreads)
       float acc[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-      if (ok) smem_dot<R>(memp, mem, mem, wu + jl * m.pu, slice, m.ksu, acc);
+      if (ok)
+        smem_dot<R>(memp, mem, mem, ru + jl * pu, slice, m.ksu, acc, su);
       lanes_sum<R>(acc, m.ksu);
       if (ok && slice == 0) {
 #pragma unroll
@@ -555,8 +603,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 #pragma unroll
       for (int r = 0; r < R; ++r) acc1[r] = acc2[r] = 0.0f;
       if (ok) {
-        smem_dot<R>(r3, s34, s3, w1 + cl * m.p1, slice, m.ksm, acc1);
-        smem_dot<R>(r3 + s3, s34, s4, w2 + cl * m.p2, slice, m.ksm, acc2);
+        smem_dot<R>(r3, s34, s3, r1w + cl * p1, slice, m.ksm, acc1, sm);
+        smem_dot<R>(r3 + s3, s34, s4, r2w + cl * p2, slice, m.ksm, acc2, sm);
       }
       lanes_sum<R>(acc1, m.ksm);
       lanes_sum<R>(acc2, m.ksm);
@@ -598,25 +646,33 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 // ------------------------------------------------------------ launches
 
+// The chains' kernels for a plan (lstm_common.cuh's chain_kernel).
 template <int R>
-Kernel cells_for(int C) {
-  return C == 1   ? cell_chains_fwd_kernel<R, 1>
-         : C == 2 ? cell_chains_fwd_kernel<R, 2>
-         : C == 4 ? cell_chains_fwd_kernel<R, 4>
-                  : cell_chains_fwd_kernel<R, 8>;
+Kernel cells_for(int plan) {
+  const Kernel k[5] = {
+      cell_chains_fwd_kernel<R, 1, true>, cell_chains_fwd_kernel<R, 1, false>,
+      cell_chains_fwd_kernel<R, 2, false>, cell_chains_fwd_kernel<R, 4, false>,
+      cell_chains_fwd_kernel<R, 8, false>};
+  return chain_kernel(k, plan);
 }
 
 template <int R>
-Kernel mem_for(int C) {
-  return C == 1   ? mem_chain_fwd_kernel<R, 1>
-         : C == 2 ? mem_chain_fwd_kernel<R, 2>
-         : C == 4 ? mem_chain_fwd_kernel<R, 4>
-                  : mem_chain_fwd_kernel<R, 8>;
+Kernel mem_for(int plan) {
+  const Kernel k[5] = {
+      mem_chain_fwd_kernel<R, 1, true>, mem_chain_fwd_kernel<R, 1, false>,
+      mem_chain_fwd_kernel<R, 2, false>, mem_chain_fwd_kernel<R, 4, false>,
+      mem_chain_fwd_kernel<R, 8, false>};
+  return chain_kernel(k, plan);
 }
 
-const Kernel kProductKernels[kProducts] = {
-    product_fwd_kernel<kProdU1>, product_fwd_kernel<kProdLogits>,
-    product_fwd_kernel<kProdU2Pu3>, product_fwd_kernel<kProdChat>};
+// [chunked][product]
+const Kernel kProductKernels[2][kProducts] = {
+    {product_fwd_kernel<kProdU1, false>, product_fwd_kernel<kProdLogits, false>,
+     product_fwd_kernel<kProdU2Pu3, false>,
+     product_fwd_kernel<kProdChat, false>},
+    {product_fwd_kernel<kProdU1, true>, product_fwd_kernel<kProdLogits, true>,
+     product_fwd_kernel<kProdU2Pu3, true>,
+     product_fwd_kernel<kProdChat, true>}};
 
 // One pass's launch.
 struct Pass {
@@ -628,25 +684,28 @@ struct Pass {
 };
 
 // Pass (1) to (3) with an LSTM chain block on CR batch rows and a memory
-// chain block on MR, each chain on the smallest cluster whose blocks fit.
+// chain block on MR, each chain on the smallest cluster whose blocks fit,
+// else with its weights read from L2.
 template <int CR, int MR>
 cudaError_t run(const EncodeArgs& a, int threads, int* fit,
                 cudaStream_t stream) {
   const int flat = a.t * a.n, tiles_m = (flat + kTile - 1) / kTile;
   size_t cell_bytes = 0, mem_bytes = 0;
-  const int Cc = smallest_cluster(
-      [&](int C) { return fwd_chain_bytes(a.cells, CR, threads, C); },
-      &cell_bytes);
-  if (Cc == 0) return refuse(fit, 1, cell_bytes, kMaxCluster);
-  const int Cm = smallest_cluster(
-      [&](int C) {
-        return mem_fwd_floats(a.mem, a.s3, a.s4, C, MR, threads) *
-               sizeof(float);
-      },
-      &mem_bytes);
-  if (Cm == 0) return refuse(fit, 3, mem_bytes, kMaxCluster);
-  fit[kFitChainA] = Cc;
-  fit[kFitChainB] = Cm;
+  auto cells_at = [&](int C) {
+    return fwd_chain_bytes(a.cells, CR, threads, C);
+  };
+  const int Pc = chain_plan(cells_at, [&] { return cells_at(kWeightsL2); },
+                            &cell_bytes);
+  if (Pc == kRefused) return refuse(fit, 1, cell_bytes, kWeightsL2);
+  auto mem_at = [&](int C) {
+    return mem_fwd_floats(a.mem, a.s3, a.s4, C, MR, threads) * sizeof(float);
+  };
+  const int Pm = chain_plan(mem_at, [&] { return mem_at(kWeightsL2); },
+                            &mem_bytes);
+  if (Pm == kRefused) return refuse(fit, 3, mem_bytes, kWeightsL2);
+  fit[kFitChainA] = Pc;
+  fit[kFitChainB] = Pm;
+  const int Cc = plan_blocks(Pc), Cm = plan_blocks(Pm);
   // the passes in order, each with its pass (1 to 3)
   Pass p[8];
   int pass_of[8], count = 0;
@@ -654,20 +713,21 @@ cudaError_t run(const EncodeArgs& a, int threads, int* fit,
     pass_of[count] = pass;
     p[count++] = launch;
   };
-  add(1, {cells_for<CR>(Cc),
+  add(1, {cells_for<CR>(Pc),
           dim3(((a.n + CR - 1) / CR) * Cc, a.cells.count),
           threads, cell_bytes, Cc});
   for (int id = kProdU1; id < kProducts; ++id) {
     const ProductSpec spec = product_spec(a, id);
-    add(2, {kProductKernels[id],
+    const int nc = product_chunks(spec.K);
+    add(2, {kProductKernels[nc > 1][id],
             dim3(tiles_m * ((spec.N + kTile - 1) / kTile)), kProductThreads,
-            product_floats(spec.K) * sizeof(float), 1});
+            product_floats((spec.K + nc - 1) / nc) * sizeof(float), 1});
     if (id == kProdLogits)  // the softmax between the logits and u2
       add(2, {softmax_fwd_kernel,
               dim3((flat + threads / 32 - 1) / (threads / 32)), threads, 0,
               1});
   }
-  add(3, {mem_for<MR>(Cm), dim3(((a.n + MR - 1) / MR) * Cm), threads,
+  add(3, {mem_for<MR>(Pm), dim3(((a.n + MR - 1) / MR) * Cm), threads,
           mem_bytes, Cm});
   for (int k = 0; k < count; ++k) {
     if (p[k].bytes > (size_t)kMaxSmemBytes)
@@ -699,9 +759,9 @@ cudaError_t run(const EncodeArgs& a, int threads, int* fit,
 // z_tot are the encoders. threads is a multiple of 32 up to 512, the
 // block size of the chains and the softmax (the products run 256-thread
 // tiles). fit (host memory, six ints, lstm_common.cuh's Fit) gets the
-// clusters the LSTM chains and the memory chain ran on, or, when a pass's
-// shared memory passes the card's even at a cluster of 8, the refusal
-// before anything is launched.
+// plans the LSTM chains and the memory chain ran on (a cluster, or
+// kWeightsL2), or, when a chain's per-row state alone passes a block, the
+// refusal before anything is launched.
 extern "C" int mfm_encode_fwd(
     const float* xp, const float* masks, const float* wh, const float* a1w1,
     const float* a1b1, const float* a1w2, const float* a1b2,

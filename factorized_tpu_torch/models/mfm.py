@@ -79,12 +79,17 @@ def _zf_all(params, zy, zl, za, zv, cfg=None, *, train=False,
     return tuple(split_heads(torch.relu(h @ w2 + b2), f_dims))
 
 
-def _decode(params, fy, fl, fa, fv, t, cfg, *, train=False, generator=None,
-            y_mask=None):
+def _reconstruct(params, fy, fl, fa, fv, t):
+    """The three modality decoders over t steps: [x_l_hat, x_a_hat,
+    x_v_hat], each (t, n, d_i)."""
     dec = params["dec"]
     drives = [torch.cat([fy, f], dim=1) for f in (fl, fa, fv)]
-    x_l_hat, x_a_hat, x_v_hat = fused_decoder_scan(
-        [dec[k] for k in _DECODERS], drives, t)
+    return fused_decoder_scan([dec[k] for k in _DECODERS], drives, t)
+
+
+def _decode(params, fy, fl, fa, fv, t, cfg, *, train=False, generator=None,
+            y_mask=None):
+    x_l_hat, x_a_hat, x_v_hat = _reconstruct(params, fy, fl, fa, fv, t)
     y_hat = yhead_apply(params["fy_to_y"], fy, cfg.fy_to_y_dropout, train,
                         generator, y_mask)
     return [x_l_hat, x_a_hat, x_v_hat, y_hat]
@@ -312,19 +317,32 @@ def mfm_missing_apply(params, x, cfg, *, generator=None, train=False,
                     + l2_loss(zy_noa, zy) + l2_loss(zy_nol, zy))
     zf_masks = zf_masks or (None,) * 4
     y_masks = y_masks or (None,) * 4
+    decoded = _decode_stacked(
+        params, [(zl, za, zv, zy), (zl_nol, za, zv, zy_nol),
+                 (zl, za_noa, zv, zy_noa), (zl, za, zv_nov, zy_nov)],
+        t, cfg, train=train, generator=generator, zf_masks=zf_masks,
+        y_masks=y_masks)
+    return (*decoded, mmd, missing_loss)
 
-    def decode(k, zl_, za_, zv_, zy_):
-        fy, fl, fa, fv = _zf_all(params, zy_, zl_, za_, zv_, cfg,
-                                 train=train, generator=generator,
-                                 masks=zf_masks[k])
-        return _decode(params, fy, fl, fa, fv, t, cfg, train=train,
-                       generator=generator, y_mask=y_masks[k])
 
-    decoded = decode(0, zl, za, zv, zy)
-    decoded_nol = decode(1, zl_nol, za, zv, zy_nol)
-    decoded_noa = decode(2, zl, za_noa, zv, zy_noa)
-    decoded_nov = decode(3, zl, za, zv_nov, zy_nov)
-    return decoded, decoded_nol, decoded_noa, decoded_nov, mmd, missing_loss
+def _decode_stacked(params, latents, t, cfg, *, train=False, generator=None,
+                    zf_masks, y_masks):
+    """The decodes of the latent sets ``latents`` [(zl, za, zv, zy)], all
+    over the same decoder parameters: each set's z->f MLPs and y head run
+    per set, in order (the JAX package's order of draws), and the decoder
+    recurrence runs once over the sets stacked along the rows. Returns a
+    decode ``[x_l_hat, x_a_hat, x_v_hat, y_hat]`` per set."""
+    fs, y_hats = [], []
+    for k, (zl, za, zv, zy) in enumerate(latents):
+        fy, fl, fa, fv = _zf_all(params, zy, zl, za, zv, cfg, train=train,
+                                 generator=generator, masks=zf_masks[k])
+        fs.append((fy, fl, fa, fv))
+        y_hats.append(yhead_apply(params["fy_to_y"], fy, cfg.fy_to_y_dropout,
+                                  train, generator, y_masks[k]))
+    recon = _reconstruct(params, *(torch.cat(f) for f in zip(*fs)), t)
+    n = latents[0][0].shape[0]
+    return [[x[:, k * n:(k + 1) * n] for x in recon] + [y_hats[k]]
+            for k in range(len(latents))]
 
 
 def fused_cells(params, x, cfg, model_type: str):

@@ -3,27 +3,30 @@ wrappers and their plain PyTorch versions (port of
 ``ops/pallas_lstm.py``).
 
 The autoregressive decoders: ``decoder_lstm_fwd`` launches
-``csrc/decoder_lstm_fwd.cu`` and ``decoder_lstm_bwd`` launches
+``csrc/lstm_fwd.cu`` and ``decoder_lstm_bwd`` launches
 ``csrc/lstm_bwd.cu`` (counted in ``LAUNCHES`` and
 ``BWD_LAUNCHES``); ``DecoderLSTM`` is the ``torch.autograd.Function`` over
 the pair (JAX: the ``custom_vjp`` of ``decoder_lstm``), with ``dwsum`` and
 ``db`` a ``torch.matmul`` and a sum outside the kernels.
 
-The fused encoder cells: ``multi_lstm_fwd`` launches
-``csrc/multi_lstm_fwd.cu`` and ``multi_lstm_bwd`` launches
-``csrc/lstm_bwd.cu``'s chain (counted in ``MULTI_LAUNCHES`` and
-``MULTI_BWD_LAUNCHES``); ``MultiLSTM`` is the Function over the pair (JAX:
-the ``custom_vjp`` of ``multi_lstm``), with ``dWh`` a ``torch.matmul``
-outside the kernels.
+The fused encoder cells: ``multi_lstm_fwd`` launches ``csrc/lstm_fwd.cu``
+and ``multi_lstm_bwd`` launches ``csrc/lstm_bwd.cu`` (counted in
+``MULTI_LAUNCHES`` and ``MULTI_BWD_LAUNCHES``); ``MultiLSTM`` is the
+Function over the pair (JAX: the ``custom_vjp`` of ``multi_lstm``), with
+``dWh`` a ``torch.matmul`` outside the kernels.
 
-Both backward wrappers launch one kernel, ``csrc/lstm_bwd.cu``: one block
-per (cell, row tile) with the cell's diagonal blocks of the recurrent
-weight in shared memory. A cell past one block's shared memory splits its
-gate columns over a thread-block cluster of 2, 4 or 8 blocks, the
-smallest that fits (``CLUSTERS`` records each call's); past 8 the wrappers
-raise ``ValueError`` before any launch. ``decoder_lstm_bwd_cells_plain``,
-``multi_lstm_bwd_cells_plain`` and ``cell_dh_split_plain`` are that data
-flow in plain PyTorch.
+Each direction is one kernel for both, ``csrc/lstm_fwd.cu`` and
+``csrc/lstm_bwd.cu``: one block per (cell, row tile) with the cell's
+diagonal blocks of the recurrent weight in shared memory. A cell past one
+block's shared memory splits its gate columns over a thread-block cluster
+of 2, 4 or 8 blocks, the smallest that fits; past 8 the chain reads the
+weights in place from L2 (``CLUSTERS`` records each call's plan, 0 for
+L2, and ``L2_LAUNCHES`` counts the launches that read from L2). The plan
+is made from the widths before the launch; the wrappers raise
+``ValueError`` only for a block whose per-row state alone passes the
+card's shared memory. ``decoder_lstm_bwd_cells_plain``,
+``multi_lstm_bwd_cells_plain`` and ``cell_dh_split_plain`` are the
+backward's data flow in plain PyTorch.
 
 Every wrapper runs its plain version (``*_plain``) for CPU tensors and
 launches its kernel for CUDA tensors; there is no other route. The JAX
@@ -44,23 +47,17 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 MULTI_LAUNCHES = 0
 MULTI_BWD_LAUNCHES = 0
-# batch rows per block and threads per block: the fastest pairs measured
-# by perf_probe.py (PERF.md), at the serving shapes (n = 256) and, for the
-# backward, the threads at the training batch (n = 32; one block per cell
-# and batch row, the rows fixed in csrc/lstm_bwd.cu)
-ROWS = 4
-THREADS = 160
+# threads per block of the backward chains at the training batch (n = 32),
+# the fastest measured by perf_probe.py (PERF.md); their rows, and the
+# forward chains' rows and threads, are fixed in csrc/lstm_bwd.cu and
+# csrc/lstm_fwd.cu
 BWD_THREADS = 512
-# the same for the fused encoder cells: MULTI_ROWS for both forward
-# variants (4 rows was fastest at n = 256 and at n = 32), and the
-# backward's threads at the training batch (its rows fixed in
-# csrc/lstm_bwd.cu)
-MULTI_ROWS = 4
-MULTI_THREADS = 256
 MULTI_BWD_THREADS = 256
-# the thread-block cluster the last call of each backward wrapper ran its
-# chains on (1: one block)
+# the plan the last call of each wrapper ran its chain on: the
+# thread-block cluster (1: one block), or 0: the weights read from L2
 CLUSTERS = {}
+# launches of each wrapper whose chain read its weights from L2
+L2_LAUNCHES = {}
 
 
 def _check(h0, c0, wsum, b, t, h_dims):
@@ -135,19 +132,22 @@ def _launch(h0, c0, wsum, b, t, h_dims):
     fn = _build.kernel(
         "decoder_lstm_fwd",
         [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
+        + [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
            ctypes.c_void_p])
     allh = torch.empty((t, n, H), dtype=torch.float32, device=h0.device)
     allc = torch.empty((t, n, H), dtype=torch.float32, device=h0.device)
     gates = torch.empty((t, n, 4 * H), dtype=torch.float32, device=h0.device)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
+    fit = (ctypes.c_int * 6)()
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(h0.data_ptr(), c0.data_ptr(), wsum.data_ptr(), b.data_ptr(),
                  allh.data_ptr(), allc.data_ptr(), gates.data_ptr(),
-                 t, n, H, len(h_dims), dims, ROWS, THREADS, stream)
+                 t, n, H, len(h_dims), dims, fit, stream)
+    _fit("decoder_lstm_fwd", fit, h_dims)
     _build.check(err, "decoder_lstm_fwd")
     LAUNCHES += 1
+    _count_l2("decoder_lstm_fwd")
     return allh, allc, gates
 
 
@@ -211,19 +211,35 @@ def _launch_bwd(wsum, gates, allc, dallh, h_dims):
     _fit("decoder_lstm_bwd", fit, h_dims)
     _build.check(err, "decoder_lstm_bwd")
     BWD_LAUNCHES += 1
+    _count_l2("decoder_lstm_bwd")
     return dgates, dh0, dc0
+
+
+def refusal(fit) -> str:
+    """What a refused launch's ``fit`` array (``lstm_common.cuh``'s Fit)
+    says: the bytes a block needs past the card's, and the plan at which
+    it still did not fit (0: the weights read from L2, the per-row state
+    alone too large)."""
+    where = ("even with its weights read from L2" if fit[3] == 0
+             else f"on a cluster of {fit[3]}")
+    return (f"needs {fit[1]} bytes of shared memory a block, past the "
+            f"card's {fit[2]}, {where}")
 
 
 def _fit(name, fit, h_dims):
     """Raise ``ValueError`` for a launch the kernel refused before it
     started (``fit`` its ``lstm_common.cuh`` Fit array), naming the
-    widths; else record the chain's cluster in ``CLUSTERS``."""
+    widths; else record the chain's plan in ``CLUSTERS``."""
     if fit[0]:
-        raise ValueError(
-            f"{name} needs {fit[1]} bytes of shared memory a block, past "
-            f"the card's {fit[2]}, even split over a cluster of {fit[3]}: "
-            f"cells {list(h_dims)} (largest {max(h_dims)})")
+        raise ValueError(f"{name} {refusal(fit)}: cells {list(h_dims)} "
+                         f"(largest {max(h_dims)})")
     CLUSTERS[name] = fit[4]
+
+
+def _count_l2(name):
+    """Count a launch whose chain read its weights from L2."""
+    if CLUSTERS[name] == 0:
+        L2_LAUNCHES[name] = L2_LAUNCHES.get(name, 0) + 1
 
 
 def decoder_lstm_bwd_plain(wsum, gates, allc, dallh):
@@ -353,8 +369,8 @@ def _launch_multi(xp, wh, h_dims, with_res):
     fn = _build.kernel(
         "multi_lstm_fwd",
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3
-        + [ctypes.c_void_p])
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+           ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 
     def empty(*shape):
         return torch.empty(shape, dtype=torch.float32, device=xp.device)
@@ -366,13 +382,15 @@ def _launch_multi(xp, wh, h_dims, with_res):
     else:
         res_ptrs = [None] * 3
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
+    fit = (ctypes.c_int * 6)()
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(xp.data_ptr(), wh.data_ptr(), outs[0].data_ptr(), *res_ptrs,
-                 t, n, H, len(h_dims), dims, int(with_res), MULTI_ROWS,
-                 MULTI_THREADS, stream)
+                 t, n, H, len(h_dims), dims, int(with_res), fit, stream)
+    _fit("multi_lstm_fwd", fit, h_dims)
     _build.check(err, "multi_lstm_fwd")
     MULTI_LAUNCHES += 1
+    _count_l2("multi_lstm_fwd")
     return tuple(outs) if with_res else outs[0]
 
 
@@ -430,6 +448,7 @@ def _launch_multi_bwd(gates, wh, allc, dhlast, h_dims):
     _fit("multi_lstm_bwd", fit, h_dims)
     _build.check(err, "multi_lstm_bwd")
     MULTI_BWD_LAUNCHES += 1
+    _count_l2("multi_lstm_bwd")
     return dxp
 
 

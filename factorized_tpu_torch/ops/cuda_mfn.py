@@ -24,8 +24,11 @@ Three kernels, each with a launch counter per variant:
   shared memory). ``mfm_encode_bwd_passes_plain`` is the same data flow
   in plain PyTorch. A chain whose weights pass one block's shared memory
   splits them over a thread-block cluster of 2, 4 or 8 blocks, the
-  smallest that fits (``CLUSTERS`` records each call's); past 8 the
-  wrappers raise ``ValueError`` before any launch. Variants:
+  smallest that fits; past 8 it reads them in place from L2
+  (``CLUSTERS`` records each call's plans, 0 for L2; ``L2_LAUNCHES``
+  counts the launches with a chain reading from L2). The plans are made
+  from the widths before any launch; the wrappers raise ``ValueError``
+  only where a chain's per-row state alone passes a block. Variants:
   ``"stream"`` (the training path's, ``BWD_LAUNCHES``),
   ``"recompute_att"`` (att recomputed from r1, ``RECOMPUTE_LAUNCHES``)
   and ``"two_step"`` (the chains take reverse steps in pairs, t even,
@@ -52,7 +55,7 @@ import torch
 
 from factorized_tpu_torch.ops import _build
 from factorized_tpu_torch.ops.core import dropout_mask
-from factorized_tpu_torch.ops.cuda_lstm import cell_columns
+from factorized_tpu_torch.ops.cuda_lstm import cell_columns, refusal
 from factorized_tpu_torch.ops.lstm import recurrent_weight_grad
 
 W_NAMES = ("wh", "a1w1", "a1b1", "a1w2", "a1b2", "a2w1", "a2b1",
@@ -106,9 +109,11 @@ BWD_PASSES = {"gates": ("gates_kernel",),
 FWD_PASSES = {"lstm_chains": ("cell_chains_fwd_kernel",),
               "attention": ("product_fwd_kernel", "softmax_fwd_kernel"),
               "memory_chain": ("mem_chain_fwd_kernel",)}
-# the thread-block clusters the last call of each wrapper ran its chains
-# on, by chain (1: one block)
+# the plans the last call of each wrapper ran its chains on, by chain: the
+# thread-block cluster (1: one block), or 0: the weights read from L2
 CLUSTERS = {}
+# launches of each wrapper with a chain that read its weights from L2
+L2_LAUNCHES = {}
 
 
 def sizes(weights):
@@ -287,19 +292,23 @@ def mfm_encode_res(xp, masks, weights, z_tot: int, h_dims,
 def _fit(name, fit, passes, widths):
     """Raise ``ValueError`` for a launch the kernel refused before it
     started (``fit`` its ``lstm_common.cuh`` Fit array), naming the pass
-    and the widths; else record the chains' clusters in ``CLUSTERS``."""
+    and the widths; else record the chains' plans in ``CLUSTERS``."""
     if fit[0]:
-        raise ValueError(
-            f"{name}: the {passes[fit[0] - 1]} pass needs {fit[1]} bytes of "
-            f"shared memory a block, past the card's {fit[2]}, even split "
-            f"over a cluster of {fit[3]}: {widths}")
+        raise ValueError(f"{name}: the {passes[fit[0] - 1]} pass "
+                         f"{refusal(fit)}: {widths}")
     CLUSTERS[name] = (fit[4], fit[5])
+
+
+def _count_l2(name):
+    """Count a launch with a chain that read its weights from L2."""
+    if 0 in CLUSTERS[name]:
+        L2_LAUNCHES[name] = L2_LAUNCHES.get(name, 0) + 1
 
 
 def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None):
     """The forward's three passes; ``layout`` None writes no residuals.
-    Raises ``ValueError`` before any launch when a pass does not fit the
-    card."""
+    Raises ``ValueError`` before any launch when a chain's per-row state
+    does not fit a block."""
     global LAUNCHES, SPLIT_LAUNCHES
     t, n, H4 = xp.shape
     H = H4 // 4
@@ -347,6 +356,7 @@ def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None):
         SPLIT_LAUNCHES += 1
     else:
         LAUNCHES += 1
+    _count_l2("mfm_encode_fwd")
     return tuple(outs)
 
 
@@ -515,8 +525,8 @@ def mfm_encode_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
 def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
                 z_tot, h_dims, variant="stream"):
     """The reverse pass's kernels: (dxp, deltas (t, n, D)). Raises
-    ``ValueError`` before any launch when a pass's shared memory does not
-    fit the card."""
+    ``ValueError`` before any launch when a chain's per-row state does not
+    fit a block."""
     global BWD_LAUNCHES, RECOMPUTE_LAUNCHES, TWO_STEP_LAUNCHES
     t, n, H4 = xp.shape
     H = H4 // 4
@@ -562,6 +572,7 @@ def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
         RECOMPUTE_LAUNCHES += 1
     else:
         TWO_STEP_LAUNCHES += 1
+    _count_l2("mfm_encode_bwd")
     return dxp, deltas
 
 

@@ -6,29 +6,32 @@ Run from the repository root on the card:
 ``python -m factorized_tpu_torch.perf_probe phases`` or ``... rows``
 alone. Prints JSON lines:
 
-- ``tile``: each kernel's mean time for each batch-row tile and block
-  size the launchers take, the forward kernels at the serving shapes
-  (n = 256, t = 20, ``best_acc_mosi_config``) and the training kernels at
-  the training shapes (n = 32): the decoder forward by CUDA events (50
-  launches after warm-up); the encode forward's threads and the backward
-  kernels' threads by device time, the encode's calls split into their
-  passes by torch.profiler; a setting whose shared memory does not fit is
-  reported as refused. Part ``multi`` does the same for the fused
-  encoder-cell kernels at the widths of ``kl_ef`` and ``missing`` (the
-  backward by device time). So the defaults in ``ops/cuda_mfn.py`` and
-  ``ops/cuda_lstm.py`` are chosen from a measurement;
+- ``tile``: each kernel's mean time for each block size the launchers
+  take, the forward kernels at the serving shapes (n = 256, t = 20,
+  ``best_acc_mosi_config``) and the training kernels at the training
+  shapes (n = 32), by device time: the encode forward's threads and the
+  backward kernels' threads, the encode's calls split into their passes
+  by torch.profiler, and the decoder forward (its rows and threads fixed
+  in its source); a setting whose shared memory does not fit is reported
+  as refused. Part ``multi`` does the same for the fused encoder-cell
+  kernels at the widths of ``kl_ef`` and ``missing``. So the defaults in
+  ``ops/cuda_mfn.py`` and ``ops/cuda_lstm.py`` are chosen from a
+  measurement;
 - ``tile`` lines with ``rows`` (part ``rows``, run alone): the chains'
   batch rows a block, constants in the sources, for each value of
   ``ROW_SWEEPS`` in a build of its own (``-D<macro>=<rows>``, one
-  process a build): the encode forward's passes and ``multi_lstm_bwd``.
-  So the sources' row constants are chosen from a measurement;
+  process a build): the encode forward's passes, the decoder forward,
+  ``multi_lstm_fwd`` and ``multi_lstm_bwd``. So the sources' row
+  constants are chosen from a measurement;
 - ``profile``: ``torch.profiler`` over 20 padded 256-row ``predict``
   calls: wall time, the device time summed over kernels, the share of
   the wall in which the device was idle, and the largest kernels;
 - ``kernel_times`` and ``step_times`` (part ``times``): each of the main
   path's kernels at its default knobs, by CUDA events over back-to-back
   calls and by device time (the calls queued behind a sleeping kernel);
-  each model's train step and the padded 256-row predict. Both call only
+  each model's train step (device ms summed over kernels and copies, the
+  ``record_function`` spans such as Adam's step apart) and the padded
+  256-row predict. Both call only
   what every build of the port has, so this module run against an
   earlier build's package (that build first on ``sys.path``) gives the
   A/B;
@@ -36,10 +39,12 @@ alone. Prints JSON lines:
   ``FTT_PHASE_CLOCKS``): one line per chain kernel and cell, the mean
   SM cycles of each phase of a step over one call's steps, stamped by
   ``clock64()`` in block x = 0 of each cell (``csrc/lstm_common.cuh``),
-  at the main path's shapes: ``multi_lstm_bwd`` at the widths of
-  ``kl_ef`` and ``missing`` (n = 32), the decoder backward and the
-  encode's reverse pass (n = 32), the encode forward's train (n = 32)
-  and eval (n = 256) variants; with the SM clock read just after;
+  at the main path's shapes: ``multi_lstm_bwd`` (n = 32) and
+  ``multi_lstm_fwd`` (eval n = 256, train n = 32) at the widths of
+  ``kl_ef`` and ``missing``, the decoder forward (n = 32 and 256) and
+  backward (n = 32), the encode's reverse pass (n = 32), the encode
+  forward's train (n = 32) and eval (n = 256) variants; with the SM clock
+  read just after;
 - ``card``: the ``nvidia-smi`` name and power limit.
 """
 
@@ -66,17 +71,24 @@ N_TRAIN = 32
 # the per-phase probe's buffer: csrc/lstm_common.cuh's ClockKernel order,
 # kMaxCells grid rows, kClockSteps steps, kClockPhases phases
 CLOCK_KERNELS = ("multi_lstm_bwd", "decoder_lstm_bwd", "mem_chain_bwd",
-                 "cell_chains_bwd", "cell_chains_fwd", "mem_chain_fwd")
+                 "cell_chains_bwd", "cell_chains_fwd", "mem_chain_fwd",
+                 "lstm_fwd")
 CLOCK_ROWS, CLOCK_STEPS, CLOCK_PHASES = 8, 64, 8
 # the chains' batch rows a block, constants in the sources that a build
 # can override (-D<macro>=<rows>), and the values part rows times: the
 # encode forward's LSTM chains and memory chain without residuals (n =
-# 256) and with them (n = 32), and multi_lstm_bwd's chains (n = 32)
+# 256) and with them (n = 32), multi_lstm_bwd's chains (n = 32), and the
+# recurrences' forward chains (csrc/lstm_fwd.cu): the decoders' (n = 32
+# and 256) and the encoder cells' eval (n = 256) and train (n = 32)
+# variants
 ROW_SWEEPS = {"FTT_EVAL_CELL_ROWS": (2, 4, 8, 16),
               "FTT_EVAL_MEM_ROWS": (1, 2, 4, 8),
               "FTT_TRAIN_CELL_ROWS": (1, 2, 4),
               "FTT_TRAIN_MEM_ROWS": (1, 2),
-              "FTT_MULTI_ROWS": (1, 2, 4)}
+              "FTT_MULTI_ROWS": (1, 2, 4),
+              "FTT_DECODER_FWD_ROWS": (1, 2, 4, 8),
+              "FTT_MULTI_EVAL_ROWS": (2, 4, 8, 16),
+              "FTT_MULTI_TRAIN_ROWS": (1, 2, 4)}
 # what each stamped phase of a step ends with, per kernel
 # (a cluster's chains: "dh product" includes the partials' exchange, the
 # memory chains' products the gather of the peers' columns)
@@ -92,6 +104,8 @@ PHASE_NAMES = {
                         "cell update, operand wait, barrier"),
     "mem_chain_fwd": ("u3 product and relu, barrier",
                       "heads and update, operand wait, barrier"),
+    "lstm_fwd": ("gates product, barrier",
+                 "cell update, operand wait, barrier"),
 }
 
 
@@ -135,9 +149,21 @@ def _device_ms(fn, reps=50):
     return start.elapsed_time(end) / reps
 
 
-def _profiled(fn, reps):
+def on_device(event):
+    """Whether a profiler event (of ``key_averages()``) is a kernel or
+    copy on the card. A ``record_function`` range, such as the optimizer's
+    ``Optimizer.step#Adam.step``, shows on the card too, as the span from
+    its first kernel to its last, host-paced gaps included: its kernels are
+    counted already, so it is left out."""
+    return (event.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(event, "is_user_annotation", False))
+
+
+def _profiled(fn, reps, annotations=None):
     """fn() reps times under torch.profiler: (wall ms, {kernel name:
-    (device ms, launches)}), both summed over the calls."""
+    (device ms, launches)}), both summed over the calls; the spans of the
+    ``record_function`` ranges on the card into ``annotations`` (a dict),
+    where given."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
@@ -149,9 +175,12 @@ def _profiled(fn, reps):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device_time_total sums over calls, in microseconds
+    events = prof.key_averages()
+    if annotations is not None:
+        annotations.update({e.key: e.device_time_total / 1e3 for e in events
+                            if getattr(e, "is_user_annotation", False)})
     return wall_ms, {e.key: (e.device_time_total / 1e3, e.count)
-                     for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA}
+                     for e in events if on_device(e)}
 
 
 def _pass_ms(fn, reps=50, passes=None):
@@ -214,10 +243,11 @@ def sweep(cfg, params, dev):
 
     _sweep("mfm_encode_fwd", cuda_mfn, {"THREADS": (128, 256, 512)}, N, fwd,
            _fwd_pass_ms)
-    _sweep("decoder_lstm_fwd", cuda_lstm,
-           {"ROWS": (1, 2, 4, 8, 16), "THREADS": (64, 128, 160, 256, 512)},
-           N, lambda: cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b, t,
-                                                 dec_dims))
+    # the decoder forward's rows and threads are fixed in csrc/lstm_fwd.cu
+    # (part rows sweeps the rows)
+    _sweep("decoder_lstm_fwd", cuda_lstm, {}, N,
+           lambda: cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b, t, dec_dims),
+           _device_ms)
 
 
 def train_sweep(cfg, params, dev):
@@ -262,18 +292,17 @@ def multi_sweep(cfg, dev):
         g = torch.Generator(device=dev).manual_seed(3)
         x = torch.randn((t, N, cfg.d_total), generator=g, device=dev)
         xp, wh, h_dims = mfm.multi_lstm_operands(params, x, cfg, model_type)
-        _sweep("multi_lstm_fwd", cuda_lstm,
-               {"MULTI_ROWS": (1, 2, 4, 8, 16),
-                "MULTI_THREADS": (128, 256, 512)}, N,
-               lambda: cuda_lstm.multi_lstm_fwd(xp, wh, h_dims),
+        # the forward's rows and threads are fixed in csrc/lstm_fwd.cu
+        # (part rows sweeps the rows)
+        _sweep("multi_lstm_fwd", cuda_lstm, {}, N,
+               lambda: cuda_lstm.multi_lstm_fwd(xp, wh, h_dims), _device_ms,
                model_type=model_type)
         xp = xp[:, :N_TRAIN].contiguous()
         _, _, allc, gates = cuda_lstm.multi_lstm_plain(xp, wh, with_res=True)
         dh = torch.randn((N_TRAIN, sum(h_dims)), generator=g, device=dev)
-        _sweep("multi_lstm_fwd_train", cuda_lstm,
-               {"MULTI_ROWS": (1, 2, 4, 8), "MULTI_THREADS": (128, 256, 512)},
-               N_TRAIN, lambda: cuda_lstm.multi_lstm_fwd(xp, wh, h_dims,
-                                                         with_res=True),
+        _sweep("multi_lstm_fwd_train", cuda_lstm, {}, N_TRAIN,
+               lambda: cuda_lstm.multi_lstm_fwd(xp, wh, h_dims,
+                                                with_res=True), _device_ms,
                model_type=model_type)
         # device time: a call of this wrapper is host-bound
         _sweep("multi_lstm_bwd", cuda_lstm,
@@ -297,15 +326,22 @@ def row_builds():
 def row_times(cfg, dev, rows):
     """The kernels whose rows ``ROW_SWEEPS`` sets, in a build with the
     macros ``rows`` ({macro: value}): the encode forward eval (n = 256)
-    and train (n = 32) split into its passes, and ``multi_lstm_bwd`` at
-    ``kl_ef``'s and ``missing``'s widths (n = 32) by device time."""
+    and train (n = 32) split into its passes, and by device time the
+    decoder forward (n = 32 and 256), ``multi_lstm_fwd`` eval (n = 256)
+    and train (n = 32) and ``multi_lstm_bwd`` (n = 32) at ``kl_ef``'s and
+    ``missing``'s widths."""
     t = cfg.seqlength
     params = mfm.MFM(cfg, seed=0, device=dev).tree()
     g = torch.Generator(device=dev).manual_seed(8)
     x = torch.randn((t, N, cfg.d_total), generator=g, device=dev)
-    (xp, weights, z_tot, h_dims), _ = mfm.kernel_operands(params, x, cfg)
+    (xp, weights, z_tot, h_dims), dec = mfm.kernel_operands(params, x, cfg)
     x32 = x[:, :N_TRAIN].contiguous()
-    (xt, _, _, _), _ = mfm.kernel_operands(params, x32, cfg)
+    (xt, _, _, _), dec32 = mfm.kernel_operands(params, x32, cfg)
+    for n, (h0, c0, wsum, b, dec_dims) in ((N_TRAIN, dec32), (N, dec)):
+        _sweep("decoder_lstm_fwd", cuda_lstm, {}, n,
+               lambda: cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b, t,
+                                                  dec_dims),
+               _device_ms, rows=rows)
     masks = cuda_mfn.make_dropout_masks(g, t, N_TRAIN,
                                         cuda_mfn.sizes(weights)[:4],
                                         mfn_drops(cfg))
@@ -318,8 +354,17 @@ def row_times(cfg, dev, rows):
     for model_type in ("kl_ef", "missing"):
         mparams = mfm.MFM(cfg, seed=0, device=dev,
                           model_type=model_type).tree()
+        exp, wh, m_dims = mfm.multi_lstm_operands(mparams, x, cfg,
+                                                  model_type)
+        _sweep("multi_lstm_fwd", cuda_lstm, {}, N,
+               lambda: cuda_lstm.multi_lstm_fwd(exp, wh, m_dims),
+               _device_ms, model_type=model_type, rows=rows)
         mxp, wh, m_dims = mfm.multi_lstm_operands(mparams, x32, cfg,
                                                   model_type)
+        _sweep("multi_lstm_fwd_train", cuda_lstm, {}, N_TRAIN,
+               lambda: cuda_lstm.multi_lstm_fwd(mxp, wh, m_dims,
+                                                with_res=True),
+               _device_ms, model_type=model_type, rows=rows)
         _, _, allc, gates = cuda_lstm.multi_lstm_plain(mxp, wh, with_res=True)
         dh = torch.randn((N_TRAIN, sum(m_dims)), generator=g, device=dev)
         _sweep("multi_lstm_bwd", cuda_lstm, {}, N_TRAIN,
@@ -353,6 +398,9 @@ def kernel_times(cfg, params, dev):
     kxp, kwh, k_dims = mfm.multi_lstm_operands(kl, x32, cfg, "kl_ef")
     _, _, kallc, kgates = cuda_lstm.multi_lstm_plain(kxp, kwh, with_res=True)
     kdh = torch.ones((N_TRAIN, sum(k_dims)), device=dev)
+    kxp256, _, _ = mfm.multi_lstm_operands(kl, x, cfg, "kl_ef")
+    mi = mfm.MFM(cfg, seed=0, device=dev, model_type="missing").tree()
+    mxp, mwh, m_dims = mfm.multi_lstm_operands(mi, x32, cfg, "missing")
     calls = {
         "mfm_encode_fwd": lambda: cuda_mfn.mfm_encode(xp, weights, z_tot,
                                                       h_dims),
@@ -365,6 +413,16 @@ def kernel_times(cfg, params, dev):
             weights, res[1], res[2], res[3], deltas, z_tot),
         "decoder_lstm_fwd": lambda: cuda_lstm.decoder_lstm_fwd(
             h0, c0, wsum, b, t, dec_dims),
+        "decoder_lstm_fwd_n32": lambda: cuda_lstm.decoder_lstm_fwd(
+            h0t, c0t, wsum, b, t, dec_dims),
+        "multi_lstm_fwd": lambda: cuda_lstm.multi_lstm_fwd(
+            kxp256, kwh, k_dims),
+        "multi_lstm_fwd_n32": lambda: cuda_lstm.multi_lstm_fwd(
+            kxp, kwh, k_dims),
+        "multi_lstm_fwd_train": lambda: cuda_lstm.multi_lstm_fwd(
+            kxp, kwh, k_dims, with_res=True),
+        "multi_lstm_fwd_train_missing": lambda: cuda_lstm.multi_lstm_fwd(
+            mxp, mwh, m_dims, with_res=True),
         "decoder_lstm_bwd": lambda: cuda_lstm.decoder_lstm_bwd(
             wsum, gates, allc, allh, dec_dims),
         "multi_lstm_bwd": lambda: cuda_lstm.multi_lstm_bwd(
@@ -418,12 +476,15 @@ def step_times(cfg, dev):
             program.step(tree, opt, x, y, gen, 1e-3)
 
         step_ms = _ms(step, 30)
-        wall_ms, kernels = _profiled(step, 10)
+        spans = {}
+        wall_ms, kernels = _profiled(step, 10, spans)
         device_ms = sum(ms for ms, _ in kernels.values())
         out[model_type] = {
             "step_ms": step_ms, "device_ms_per_step": device_ms / 10,
             "launches_per_step": sum(c for _, c in kernels.values()) / 10,
-            "device_idle_share": 1.0 - device_ms / wall_ms}
+            "device_idle_share": 1.0 - device_ms / wall_ms,
+            "annotation_span_ms_per_step": {k: v / 10
+                                            for k, v in spans.items()}}
     print(json.dumps({
         "step_times": out, "predict_ms": before,
         "predict_ms_after_steps": predict_ms(),
@@ -466,6 +527,10 @@ def phases(cfg, dev):
                        device=dev)
     allh, allc, gates = cuda_lstm.decoder_lstm_plain(h0t, c0t, wsum, b, t)
     calls = {
+        "decoder_lstm_fwd": (lambda: cuda_lstm.decoder_lstm_fwd(
+            h0, c0, wsum, b, t, dec_dims), dec_dims, N),
+        "decoder_lstm_fwd_n32": (lambda: cuda_lstm.decoder_lstm_fwd(
+            h0t, c0t, wsum, b, t, dec_dims), dec_dims, N_TRAIN),
         "mfm_encode_fwd": (lambda: cuda_mfn.mfm_encode(
             xp, weights, z_tot, h_dims), h_dims, N),
         "mfm_encode_fwd_train": (lambda: cuda_mfn.mfm_encode_res(
@@ -486,6 +551,13 @@ def phases(cfg, dev):
         calls[f"multi_lstm_bwd.{model_type}"] = (
             lambda mg=mgates, w=wh, mc=mallc, d=mdh, md=m_dims:
             cuda_lstm.multi_lstm_bwd(mg, w, mc, d, md), m_dims, N_TRAIN)
+        exp, _, _ = mfm.multi_lstm_operands(mparams, x, cfg, model_type)
+        calls[f"multi_lstm_fwd.{model_type}"] = (
+            lambda e=exp, w=wh, md=m_dims: cuda_lstm.multi_lstm_fwd(e, w, md),
+            m_dims, N)
+        calls[f"multi_lstm_fwd_train.{model_type}"] = (
+            lambda e=mxp, w=wh, md=m_dims: cuda_lstm.multi_lstm_fwd(
+                e, w, md, with_res=True), m_dims, N_TRAIN)
 
     shape = (len(CLOCK_KERNELS), CLOCK_ROWS, CLOCK_STEPS, CLOCK_PHASES)
     buf = torch.zeros(shape, dtype=torch.int64, device=dev)

@@ -431,36 +431,62 @@ def test_a_cell_past_one_block_runs_on_a_cluster(cuda):
         torch.cuda.synchronize()
 
 
-def test_a_cell_past_shared_memory_raises_and_counts_nothing(cuda):
-    """A 400-unit cell's diagonal blocks (2.4 MiB) pass the shared memory
-    of a cluster of 8 blocks: every kernel with a chain refuses it before
-    any launch, naming the width."""
-    cfg = SMALL.replace(h_dims=[400, 5, 4])
-    # the operands come from the plain forward on the CPU: on the card the
-    # decoder's would come from the encode, which refuses this width
+def test_a_cell_past_a_cluster_of_8_reads_its_weights_from_l2(cuda):
+    """A 400-unit cell's diagonal blocks (2.4 MiB), and a memory chain of
+    mem 400 with both gamma MLPs 256 wide (1.6 MiB), pass the shared memory
+    of a cluster of 8 blocks: every chain kernel plans to read them from L2
+    (plan 0, counted in ``L2_LAUNCHES``), raises nothing, and equals its
+    plain version."""
+    cfg = SMALL.replace(h_dims=[400, 5, 4], memsize=400, gamma1_shape=256,
+                        gamma2_shape=256)
     (xp, masks, weights, z_tot, h_dims, dh, dmem), _ = \
-        _train_operands(cfg, 3, torch.device("cpu"))
-    xp, masks, dh, dmem = (v.to(cuda) for v in (xp, masks, dh, dmem))
-    weights = {k: v.to(cuda) for k, v in weights.items()}
-    counters = (cuda_mfn, "LAUNCHES", "BWD_LAUNCHES"), (
-        cuda_lstm, "BWD_LAUNCHES", "MULTI_BWD_LAUNCHES")
-
-    def counts():
-        return [getattr(m, k) for m, *names in counters for k in names]
-
-    before = counts()
+        _train_operands(cfg, 3, cuda)
+    w, gates, allc, dallh, dhlast = _chain_operands([400, 24], 4, 3, cuda, 9)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    h0, c0 = (torch.randn(3, 424, generator=g, device=cuda) for _ in "hc")
+    b = torch.randn(1, 4 * 424, generator=g, device=cuda)
+    for module in (cuda_mfn, cuda_lstm):
+        module.L2_LAUNCHES.clear()
     with torch.inference_mode():
-        res = cuda_mfn.mfm_encode_res_plain(xp, masks, weights, z_tot)[2:]
-        with pytest.raises(ValueError, match="largest 400"):
-            cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims)
-        with pytest.raises(ValueError, match="cluster of 8"):
-            cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem, z_tot, h_dims)
-        w, gates, allc, dallh, dhlast = _chain_operands([400], 4, 3, cuda, 9)
-        with pytest.raises(ValueError, match="largest 400"):
-            cuda_lstm.decoder_lstm_bwd(w, gates, allc, dallh, [400])
-        with pytest.raises(ValueError, match="largest 400"):
-            cuda_lstm.multi_lstm_bwd(gates, w, allc, dhlast, [400])
-    assert counts() == before
+        for got, want in zip(
+                cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims),
+                cuda_mfn.mfm_encode_plain(xp, weights, z_tot)):
+            torch.testing.assert_close(got, want, **TOL)
+        assert cuda_mfn.CLUSTERS["mfm_encode_fwd"] == (0, 0)
+        res = cuda_mfn.mfm_encode_res_plain(xp, masks, weights, z_tot)
+        for got, want in zip(
+                cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims),
+                res):
+            torch.testing.assert_close(got, want, **TOL)
+        for got, want in zip(
+                cuda_mfn._launch_bwd(xp, weights, *res[2:], dh, dmem, z_tot,
+                                     h_dims),
+                cuda_mfn.mfm_encode_bwd_steps_plain(xp, weights, *res[2:],
+                                                    dh, dmem, z_tot)):
+            torch.testing.assert_close(got, want, **GRAD)
+        assert cuda_mfn.CLUSTERS["mfm_encode_bwd"] == (0, 0)
+        for got, want in zip(
+                cuda_lstm.decoder_lstm_fwd(h0, c0, w, b, 4, [400, 24]),
+                cuda_lstm.decoder_lstm_plain(h0, c0, w, b, 4)):
+            torch.testing.assert_close(got, want, **TOL)
+        for got, want in zip(
+                cuda_lstm.decoder_lstm_bwd(w, gates, allc, dallh, [400, 24]),
+                cuda_lstm.decoder_lstm_bwd_plain(w, gates, allc, dallh)):
+            torch.testing.assert_close(got, want, **GRAD)
+        for with_res in (False, True):
+            torch.testing.assert_close(
+                cuda_lstm.multi_lstm_fwd(gates, w, [400, 24], with_res),
+                cuda_lstm.multi_lstm_plain(gates, w, with_res), **TOL)
+        torch.testing.assert_close(
+            cuda_lstm.multi_lstm_bwd(gates, w, allc, dhlast, [400, 24]),
+            cuda_lstm.multi_lstm_bwd_plain(gates, w, allc, dhlast), **GRAD)
+        torch.cuda.synchronize()
+    assert cuda_mfn.L2_LAUNCHES == {"mfm_encode_fwd": 2, "mfm_encode_bwd": 1}
+    assert cuda_lstm.L2_LAUNCHES == {"decoder_lstm_fwd": 1,
+                                     "decoder_lstm_bwd": 1,
+                                     "multi_lstm_fwd": 2,
+                                     "multi_lstm_bwd": 1}
+    assert all(cuda_lstm.CLUSTERS[k] == 0 for k in cuda_lstm.L2_LAUNCHES)
 
 
 @pytest.mark.parametrize("cfg,n_eval,n_train",

@@ -13,7 +13,8 @@ a thread-block cluster formed as ``cell_dh_split_plain`` forms it. Each
 must give what the step-for-step plain versions give, and what the JAX
 package's Pallas kernels give in interpret mode. The launchers' ctypes
 signatures are held against the C prototypes, and their fit gate against
-a refused launch, with the kernel call faked: there is no card here.
+a refused launch and a chain planned to read its weights from L2, with
+the kernel call faked: there is no card here.
 
 Inputs are made from a seed with numpy. Tolerances: the split against the
 step-for-step version atol 1e-5 (the same products summed in another
@@ -313,10 +314,13 @@ def fake_card(monkeypatch):
     for module, counter in ((cuda_mfn, "BWD_LAUNCHES"),
                             (cuda_mfn, "LAUNCHES"),
                             (cuda_lstm, "BWD_LAUNCHES"),
-                            (cuda_lstm, "MULTI_BWD_LAUNCHES")):
+                            (cuda_lstm, "MULTI_BWD_LAUNCHES"),
+                            (cuda_lstm, "LAUNCHES"),
+                            (cuda_lstm, "MULTI_LAUNCHES")):
         monkeypatch.setattr(module, counter, getattr(module, counter))
     for module in (cuda_mfn, cuda_lstm):
         monkeypatch.setattr(module, "CLUSTERS", {})
+        monkeypatch.setattr(module, "L2_LAUNCHES", {})
     return calls, state
 
 
@@ -354,15 +358,42 @@ def _launch_multi():
         DEC_H)
 
 
+def _launch_decoder_fwd():
+    t, H = 4, sum(DEC_H)
+    g = torch.Generator().manual_seed(44)
+    return cuda_lstm._launch(
+        torch.randn(N, H, generator=g), torch.randn(N, H, generator=g),
+        torch.randn(H, 4 * H, generator=g), torch.randn(1, 4 * H, generator=g),
+        t, DEC_H)
+
+
+def _launch_multi_fwd(with_res):
+    t, H = 4, sum(DEC_H)
+    g = torch.Generator().manual_seed(45)
+    return cuda_lstm._launch_multi(torch.randn(t, N, 4 * H, generator=g),
+                                   torch.randn(H, 4 * H, generator=g),
+                                   DEC_H, with_res)
+
+
 LAUNCHERS = [("mfm_encode_bwd", _launch_encode, cuda_mfn, "BWD_LAUNCHES"),
              ("decoder_lstm_bwd", _launch_decoder, cuda_lstm,
               "BWD_LAUNCHES"),
              ("mfm_encode_fwd", _launch_forward, cuda_mfn, "LAUNCHES"),
              ("multi_lstm_bwd", _launch_multi, cuda_lstm,
-              "MULTI_BWD_LAUNCHES")]
+              "MULTI_BWD_LAUNCHES"),
+             ("decoder_lstm_fwd", _launch_decoder_fwd, cuda_lstm,
+              "LAUNCHES"),
+             ("multi_lstm_fwd", functools.partial(_launch_multi_fwd, False),
+              cuda_lstm, "MULTI_LAUNCHES"),
+             ("multi_lstm_fwd", functools.partial(_launch_multi_fwd, True),
+              cuda_lstm, "MULTI_LAUNCHES")]
+LAUNCHER_IDS = ["mfm_encode_bwd", "decoder_lstm_bwd", "mfm_encode_fwd",
+                "multi_lstm_bwd", "decoder_lstm_fwd", "multi_lstm_fwd_eval",
+                "multi_lstm_fwd_train"]
 
 
-@pytest.mark.parametrize("name,launch", [case[:2] for case in LAUNCHERS])
+@pytest.mark.parametrize("name,launch", [case[:2] for case in LAUNCHERS],
+                         ids=LAUNCHER_IDS)
 def test_launchers_match_the_c_prototypes(fake_card, name, launch):
     calls, _ = fake_card
     launch()
@@ -427,7 +458,8 @@ def test_row_sweep_macros_are_the_sources_constants(macro):
     assert found[0] in perf_probe.ROW_SWEEPS[macro]
 
 
-@pytest.mark.parametrize("name,launch,module,counter", LAUNCHERS)
+@pytest.mark.parametrize("name,launch,module,counter", LAUNCHERS,
+                         ids=LAUNCHER_IDS)
 def test_launchers_record_their_clusters(fake_card, name, launch, module,
                                          counter):
     """The clusters the kernel reports it launched its chains on are kept
@@ -438,27 +470,55 @@ def test_launchers_record_their_clusters(fake_card, name, launch, module,
     launch()
     assert getattr(module, counter) == before + 1
     assert module.CLUSTERS[name] in ((2, 4), 2)
+    assert module.L2_LAUNCHES == {}
+
+
+@pytest.mark.parametrize("name,launch,module,counter", LAUNCHERS,
+                         ids=LAUNCHER_IDS)
+@pytest.mark.parametrize("plans", [(0, 0), (0, 1), (1, 0)])
+def test_a_chain_past_a_cluster_of_8_reads_from_l2_and_is_counted(
+        fake_card, name, launch, module, counter, plans):
+    """Where the kernel's plan, made from the widths before the launch,
+    reads a chain's weights from L2 (plan 0), the wrapper records the plan,
+    counts the launch in its counter and in ``L2_LAUNCHES``, and nothing
+    raises; a one-chain kernel reports its chain in the first slot."""
+    _, state = fake_card
+    state["clusters"] = plans
+    before = getattr(module, counter)
+    launch()
+    assert getattr(module, counter) == before + 1
+    recorded = module.CLUSTERS[name]
+    assert recorded in (plans, plans[0])
+    l2 = 0 in (recorded if isinstance(recorded, tuple) else (recorded,))
+    assert module.L2_LAUNCHES == ({name: 1} if l2 else {})
 
 
 @pytest.mark.parametrize("name,launch,module,counter,need", [
     ("mfm_encode_bwd", _launch_encode, cuda_mfn, "BWD_LAUNCHES",
-     (4, 240960, 232448, 8)),
+     (4, 240960, 232448, 0)),
     ("decoder_lstm_bwd", _launch_decoder, cuda_lstm, "BWD_LAUNCHES",
-     (1, 240000, 232448, 8)),
+     (1, 240000, 232448, 0)),
     ("mfm_encode_fwd", _launch_forward, cuda_mfn, "LAUNCHES",
-     (3, 262144, 232448, 8)),
+     (3, 262144, 232448, 0)),
     ("multi_lstm_bwd", _launch_multi, cuda_lstm, "MULTI_BWD_LAUNCHES",
-     (1, 250000, 232448, 8))])
+     (1, 250000, 232448, 0)),
+    ("decoder_lstm_fwd", _launch_decoder_fwd, cuda_lstm, "LAUNCHES",
+     (1, 245000, 232448, 0)),
+    ("multi_lstm_fwd", functools.partial(_launch_multi_fwd, True),
+     cuda_lstm, "MULTI_LAUNCHES", (1, 255000, 232448, 0))],
+    ids=LAUNCHER_IDS[:5] + ["multi_lstm_fwd"])
 def test_a_refused_fit_raises_and_counts_nothing(fake_card, name, launch,
                                                  module, counter, need):
-    """The error names what the kernel reported: the bytes a block needs
-    and the card's limit at the largest cluster, and the widths."""
+    """The error names what the kernel reported: the bytes a block's
+    per-row state alone needs with the weights read from L2, the card's
+    limit, and the widths."""
     _, state = fake_card
     state["refuse"] = need
     before = getattr(module, counter)
     with pytest.raises(ValueError, match=f"{need[1]} bytes of shared memory"
-                       f" a block, past the card's {need[2]}, even split "
-                       f"over a cluster of {need[3]}: .*cells"):
+                       f" a block, past the card's {need[2]}, even with its"
+                       f" weights read from L2: .*cells"):
         launch()
     assert getattr(module, counter) == before
     assert name not in module.CLUSTERS
+    assert module.L2_LAUNCHES == {}

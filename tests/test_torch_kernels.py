@@ -157,5 +157,5 @@ def test_library_is_named_by_its_sources():
     assert path.parent == _build.BUILD_DIR
     assert path == _build.library_path()
     assert {p.name for p in _build.sources()} >= {"mfm_encode_fwd.cu",
-                                                  "decoder_lstm_fwd.cu"}
+                                                  "lstm_fwd.cu"}
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

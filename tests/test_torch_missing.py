@@ -31,6 +31,7 @@ from factorized_tpu_torch import cli, train, trainers
 from factorized_tpu_torch.config import MFMConfig
 from factorized_tpu_torch.convert import from_numpy, to_state_dict
 from factorized_tpu_torch.models import get_model, mfm
+from factorized_tpu_torch.ops import cuda_lstm
 from factorized_tpu_torch.serve import Predictor
 from factorized_tpu_torch.utils.checkpoint import restore_checkpoint
 from factorized_tpu_torch.utils.logging import RunLogger
@@ -192,6 +193,45 @@ def test_loss_grads_match_jax(use_pallas):
 def test_loss_grads_match_jax_at_full_width():
     # best_acc_mosi_config widths and rates, t = 20, n = 4, the scan path
     _grads_match(jax_best(missing=1), t=20, n=4, use_pallas=False)
+
+
+@pytest.mark.parametrize("train_mode", [False, True], ids=["eval", "train"])
+def test_stacked_decodes_equal_the_four_separate_ones(monkeypatch,
+                                                      train_mode):
+    """``mfm_missing_apply`` runs its four decodes' recurrence once, over
+    the latent sets stacked along the rows; each decode equals ``_decode``
+    run alone on its set, with the same injected z->f masks in train
+    mode. The stacked products sum over the same depths as the separate
+    ones, so the tolerance is float32 rounding only."""
+    cfg = MFMConfig.from_dict(CFG.to_dict())
+    params = from_numpy(jax.tree.map(np.asarray, _params(CFG)))
+    t, n = 6, 4
+    rng = np.random.default_rng(5)
+    latents = [tuple(torch.from_numpy(rng.normal(size=(n, d))
+                                      .astype(np.float32))
+                     for d in (cfg.zl_size, cfg.za_size, cfg.zv_size,
+                               cfg.zy_size)) for _ in range(4)]
+    masks = (_draws(CFG, jax.random.PRNGKey(6), t, n)["zf_masks"]
+             if train_mode else [None] * 4)
+    rows, decoder_lstm = [], cuda_lstm.decoder_lstm
+
+    def counted(h0, *rest):
+        rows.append(h0.shape[0])
+        return decoder_lstm(h0, *rest)
+
+    monkeypatch.setattr(cuda_lstm, "decoder_lstm", counted)
+    with torch.no_grad():
+        stacked = mfm._decode_stacked(params, latents, t, cfg,
+                                      train=train_mode, zf_masks=masks,
+                                      y_masks=[None] * 4)
+        assert rows == [4 * n]
+        for k, (zl, za, zv, zy) in enumerate(latents):
+            f = mfm._zf_all(params, zy, zl, za, zv, cfg, train=train_mode,
+                            masks=masks[k])
+            alone = mfm._decode(params, *f, t, cfg, train=train_mode)
+            assert len(stacked[k]) == len(alone) == 4
+            for got, want in zip(stacked[k], alone):
+                torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
 def test_eval_loss_is_the_composite_loss():

@@ -263,4 +263,4 @@ def test_wrappers_reject_bad_arguments():
 
 def test_new_sources_join_the_build():
     names = {p.name for p in _build.sources()}
-    assert {"multi_lstm_fwd.cu", "lstm_bwd.cu"} <= names
+    assert {"lstm_fwd.cu", "lstm_bwd.cu"} <= names
