@@ -34,7 +34,12 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    line of the encode backward's time split between its four passes
    (torch.profiler) with the rows and threads of their blocks, and a line
    of the encode forward's time split between its three passes at both
-   batches;
+   batches; the weight-gradient kernel also at step 11's widest encode and
+   at widths whose column offsets are not multiples of four floats, each
+   with the cluster size and copy width it took and a rerun's bits, beside
+   its library yardstick (7 ``torch.mm`` and 7 ``sum(0)``); and the bounds
+   of the decoder forward at n = 32 and of the decoder backward over
+   ``missing``'s 4n stacked rows;
 7. trains MFM for 2 epochs on the synthetic MOSI set through
    ``trainers.train_mfm``, checks finite, falling train loss and that the
    run launched every kernel, then times a train step, an epoch, the
@@ -457,7 +462,7 @@ def main():
              "mem_chain_fwd_kernel", "gates_kernel", "mem_chain_kernel",
              "recompute_att_kernel", "product_kernel", "softmax_bwd_kernel",
              "lstm_chains_kernel", "lstm_chain_bwd_kernel",
-             "lstm_chain_fwd_kernel"))})
+             "lstm_chain_fwd_kernel", "mfm_encode_dw_kernel"))})
 
     # ---- 3. each kernel against its plain version, main-path shapes
     cfg = best_acc_mosi_config()
@@ -614,6 +619,7 @@ def encode_macs_per_row(weights, h_dims, z_tot):
 def train_phase(cfg, dev, smi):
     """Steps 6 and 7; returns the kernels-line entries of the three
     training kernels."""
+    from factorized_tpu_torch import perf_probe
     from factorized_tpu_torch.data import mosi
     from factorized_tpu_torch.models import mfm
     from factorized_tpu_torch.models.common import mfn_drops
@@ -677,6 +683,12 @@ def train_phase(cfg, dev, smi):
                              [(k, dw_out[k], dw_ref[k])
                               for k in cuda_mfn.DW_NAMES],
                              GRAD_RTOL, GRAD_ATOL)
+        dw_plan = dict(cuda_mfn.DW_PLAN)
+        again = cuda_mfn._launch_dw(weights, res[1], res[2], res[3],
+                                    deltas_ref, z_tot)
+        if not all(torch.equal(dw_out[k], again[k])
+                   for k in cuda_mfn.DW_NAMES):
+            raise AssertionError("mfm_encode_dw: a rerun gave other bits")
         allh, allc, gates = cuda_lstm.decoder_lstm_plain(h0, c0, wsum, b, t)
         dallh = torch.randn(allh.shape, generator=gen, device=dev)
         dec = cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh, dec_dims)
@@ -766,6 +778,44 @@ def train_phase(cfg, dev, smi):
         dw_ms, dw_dev_ms = cuda_ms(dw, 50), queued_ms(dw)
         dw_plain_ms = cuda_ms(lambda: cuda_mfn.mfm_encode_dw_plain(
             res[1], res[2], res[3], deltas_ref, weights, z_tot), 10)
+        # the yardstick, used nowhere in the port: 7 torch.mm (cuBLAS) and
+        # 7 sum(0), on operands built here, before the timing
+        dw_ops = cuda_mfn.dw_operands(res[1], res[2], res[3], weights,
+                                      z_tot)
+        lib = functools.partial(perf_probe.dw_library, dw_ops, deltas_ref,
+                                weights)
+        err_lib = compare_all("mfm_encode_dw.library",
+                              [(k, v, dw_ref[k].reshape(v.shape))
+                               for k, v in lib().items()],
+                              GRAD_RTOL, GRAD_ATOL)
+        # its calls stall the host while the card sleeps (queued_ms would
+        # fail): its device ms is torch.profiler's sum over its kernels
+        dw_lib_ms = cuda_ms(lib, 50)
+        dw_lib_dev_ms = sum(kernel_split_ms(lib).values())
+        # the decoder forward at the training batch, for its bound
+        def decf():
+            return cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b, t, dec_dims)
+
+        decf_dev_ms = queued_ms(decf)
+        # the decoder backward over missing's four stacked decodes (4n
+        # rows), for its bound, against its plain version
+        h4, c4 = (torch.randn((4 * n, v.shape[1]), generator=gen,
+                              device=dev) for v in (h0, c0))
+        allh4, allc4, gates4 = cuda_lstm.decoder_lstm_plain(h4, c4, wsum, b,
+                                                            t)
+        dallh4 = torch.randn(allh4.shape, generator=gen, device=dev)
+
+        def decb4():
+            return cuda_lstm.decoder_lstm_bwd(wsum, gates4, allc4, dallh4,
+                                              dec_dims)
+
+        dec4 = decb4()
+        err_decb4 = compare_all(
+            "decoder_lstm_bwd.4n", zip(("dgates", "dh0", "dc0"), dec4,
+                                       cuda_lstm.decoder_lstm_bwd_plain(
+                                           wsum, gates4, allc4, dallh4)),
+            GRAD_RTOL, GRAD_ATOL)
+        decb4_dev_ms = queued_ms(decb4)
         decb_ms, decb_dev_ms = cuda_ms(decb, 50), queued_ms(decb)
         decb_plain_ms = cuda_ms(lambda: cuda_lstm.decoder_lstm_bwd_plain(
             wsum, gates, allc, dallh), 10)
@@ -789,9 +839,14 @@ def train_phase(cfg, dev, smi):
     bwd_bound = bound(2 * bwd_macs, nbytes(
         xp, *res, dh, dmem, *[weights[k] for k in used], dxp, deltas)
         + diag_bytes(h_dims))
-    dw_macs = rows * sum(g.numel() for g in dw_out.values())
-    dw_bound = bound(2 * dw_macs, nbytes(res[1], res[2], res[3], deltas_ref,
-                                         *dw_out.values()))
+    dw_bound = dw_bound_of(res, deltas_ref, dw_out)
+    decf_bound = bound(2 * (t - 1) * n * 4 * sum(h * h for h in dec_dims),
+                       nbytes(h0, c0, b, allh, allc, gates)
+                       + diag_bytes(dec_dims))
+    decb4_bound = bound(2 * (t - 1) * 4 * n * 4 * sum(h * h
+                                                      for h in dec_dims),
+                        nbytes(gates4, allc4, dallh4, *dec4)
+                        + diag_bytes(dec_dims))
     decb_macs = (t - 1) * n * 4 * sum(h * h for h in dec_dims)
     decb_bound = bound(2 * decb_macs, nbytes(gates, allc, dallh, *dec)
                        + diag_bytes(dec_dims))
@@ -816,6 +871,24 @@ def train_phase(cfg, dev, smi):
              "cluster": cuda_lstm.CLUSTERS["decoder_lstm_bwd"]}})
     log({"phase": "forward_passes", "nvidia_smi": smi,
          **forward_passes(cfg, dev)})
+    log({"phase": "weight_gradients", "nvidia_smi": smi,
+         "main": {"n": n, "t": t, **dw_plan, "ms": dw_ms,
+                  "device_ms": dw_dev_ms, "bound_ms": dw_bound[0],
+                  "bound_by": dw_bound[1],
+                  "max_abs_err": err_dw["max_abs_err"]},
+         "library": {"note": "7 torch.mm (TF32 off) + 7 sum(0); building "
+                     "the operands (dw_operands) is not counted",
+                     "ms": dw_lib_ms, "device_ms": dw_lib_dev_ms,
+                     "max_abs_err": err_lib["max_abs_err"]},
+         **dw_widths_phase(cfg, dev)})
+    log({"phase": "decoder_bounds", "nvidia_smi": smi,
+         "decoder_lstm_fwd": {"n": n, "device_ms": decf_dev_ms,
+                              "bound_ms": decf_bound[0],
+                              "bound_by": decf_bound[1]},
+         "decoder_lstm_bwd_4n": {"n": 4 * n, "device_ms": decb4_dev_ms,
+                                 "bound_ms": decb4_bound[0],
+                                 "bound_by": decb4_bound[1],
+                                 "max_abs_err": err_decb4["max_abs_err"]}})
     log({"phase": "train_kernels", "batch": n, "nvidia_smi": smi,
          "mfm_encode_fwd_train": {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
                                   "bound_ms": fwd_bound[0],
@@ -837,12 +910,85 @@ def train_phase(cfg, dev, smi):
               "factorized_tpu/ops/pallas_mfn.py:269", err_bwd, bwd_ms,
               bwd_dev_ms, bwd_plain_ms, bwd_bound),
         entry("mfm_encode_dw", "mfm_encode_bwd.cu",
-              "factorized_tpu/ops/pallas_mfn.py:269", err_dw, dw_ms,
-              dw_dev_ms, dw_plain_ms, dw_bound),
+              "factorized_tpu/ops/pallas_mfn.py:342", err_dw, dw_ms,
+              dw_dev_ms, dw_plain_ms, dw_bound, dw_lib_ms),
         entry("decoder_lstm_bwd", "lstm_bwd.cu",
               "factorized_tpu/ops/pallas_lstm.py:298", err_decb, decb_ms,
               decb_dev_ms, decb_plain_ms, decb_bound, decb_library_ms),
     ]
+
+
+def dw_bound_of(res, deltas, grads):
+    """The weight-gradient kernel's bound: 2 t n FLOPs an output (every
+    output a sum over the t n rows) against allc, allmem, the residuals
+    and the deltas read once and the gradients written once."""
+    rows = deltas.shape[0] * deltas.shape[1]
+    return bound(2 * rows * sum(g.numel() for g in grads.values()),
+                 nbytes(res[1], res[2], res[3], deltas, *grads.values()))
+
+
+def dw_widths_phase(cfg, dev):
+    """The weight-gradient kernel against its plain version beyond the
+    main path: at step 11's widest encode (an MFN cell of 400, mem 400,
+    gamma MLPs 256) and at widths whose column offsets are not multiples
+    of four floats, n = 32, t = 20, on the plain forward's residuals and
+    the plain reverse pass's deltas; each with the cluster size and copy
+    width it took, its device ms and bound, and a rerun's bits."""
+    from factorized_tpu_torch.models import mfm
+    from factorized_tpu_torch.models.common import mfn_drops
+    from factorized_tpu_torch.ops import cuda_mfn
+
+    t, n = cfg.seqlength, N_TRAIN
+    gen = torch.Generator(device=dev).manual_seed(SEED + 80)
+    widths = {
+        "widest": cfg.replace(h_dims=[400, 64, 48], memsize=400,
+                              gamma1_shape=256, gamma2_shape=256),
+        "misaligned": cfg.replace(h_dims=[87, 64, 48], memsize=63,
+                                  att1_shape=127, att2_shape=126,
+                                  gamma1_shape=125, gamma2_shape=129)}
+    out = {}
+    for k, (label, wcfg) in enumerate(widths.items()):
+        params = mfm.MFM(wcfg, seed=SEED + 81 + k, device=dev).tree()
+        x = torch.randn((t, n, wcfg.d_total), generator=gen, device=dev)
+        with torch.inference_mode():
+            (xp, weights, z_tot, h_dims), _ = mfm.kernel_operands(params, x,
+                                                                  wcfg)
+            masks = cuda_mfn.make_dropout_masks(
+                gen, t, n, cuda_mfn.sizes(weights)[:4], mfn_drops(wcfg))
+            res = cuda_mfn.mfm_encode_res_plain(xp, masks, weights,
+                                                z_tot)[2:]
+            dh = torch.randn((n, sum(h_dims)), generator=gen, device=dev)
+            dmem = torch.randn((n, wcfg.memsize), generator=gen, device=dev)
+            _, deltas = cuda_mfn.mfm_encode_bwd_steps_plain(
+                xp, weights, *res, dh, dmem, z_tot)
+
+            def dw():
+                return cuda_mfn._launch_dw(weights, res[1], res[2],
+                                           res[3], deltas, z_tot)
+
+            got, again = dw(), dw()
+            want = cuda_mfn.mfm_encode_dw_plain(res[1], res[2], res[3],
+                                                deltas, weights, z_tot)
+            torch.cuda.synchronize()
+            err = compare_all(f"mfm_encode_dw.{label}",
+                              [(nm, got[nm], want[nm])
+                               for nm in cuda_mfn.DW_NAMES],
+                              GRAD_RTOL, GRAD_ATOL)
+            if not all(torch.equal(got[nm], again[nm])
+                       for nm in cuda_mfn.DW_NAMES):
+                raise AssertionError(f"mfm_encode_dw.{label}: a rerun "
+                                     f"gave other bits")
+            plan = dict(cuda_mfn.DW_PLAN)
+            dev_ms = queued_ms(dw)
+        bnd = dw_bound_of(res, deltas, got)
+        out[label] = {"cells": h_dims, "z_tot": z_tot, "mem": wcfg.memsize,
+                      "mlps": list(cuda_mfn.sizes(weights)[:4]), **plan,
+                      "device_ms": dev_ms, "bound_ms": bnd[0],
+                      "bound_by": bnd[1], "max_abs_err": err["max_abs_err"]}
+    if out["misaligned"]["copy_bytes"] != 4:
+        raise AssertionError(f"misaligned widths took 16-byte copies: "
+                             f"{out['misaligned']}")
+    return out
 
 
 def forward_passes(cfg, dev):

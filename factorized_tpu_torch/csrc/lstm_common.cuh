@@ -282,6 +282,18 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
 }
 
+// Closes the group of the copies issued since the last one; with
+// cp_async_wait<N>, which waits until at most N groups are in flight, a
+// pipeline keeps the next stage's copies running.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // `rows` rows of `len` floats, row r from src + r * ld into dst + r *
 // pitch, asynchronously, in the widest copies (16, 8 or 4 bytes) that
 // every row's start and length allow.
@@ -343,6 +355,7 @@ enum ClockKernel {
   kClockCellChainsFwd,
   kClockMemChainFwd,
   kClockLstmFwd,
+  kClockEncodeDw,
   kClockKernels
 };
 constexpr int kClockSteps = 64;

@@ -69,9 +69,8 @@
 // t = 20, best_acc_mosi_config) the reverse pass does 0.60 GFLOP of useful
 // float32 work (the gate recompute and the transposed products, only the
 // diagonal blocks of wh) against about 17 MB of traffic: 9 us at
-// 67 TFLOP/s against 5 us at 3.35 TB/s. Kernel (b) does 0.38 GFLOP
-// against 9 MB: about 6 us. What is left above the bound is the two
-// serial chains: t steps of three barriers (the memory chain) and of two
+// 67 TFLOP/s against 5 us at 3.35 TB/s. What is left above the bound is
+// the two serial chains: t steps of three barriers (the memory chain) and of two
 // (the LSTM chains), each around a product that streams the chain's
 // weights from shared memory (the 88-unit cell's 124 KB every step), and
 // the wait for the next step's operands. Float32 on the CUDA cores
@@ -85,11 +84,26 @@
 // only where a chain's per-row state alone passes a block. An attention
 // product whose staged depth passes a block sums it in chunks.
 //
-// (b) mfm_encode_dw_kernel: each block computes one 32 x 32 tile of one
-//     gradient, A^T delta summed over the t * n rows in a fixed order, A
-//     taken from the residuals (r1, r2, the two halves of r3) or rebuilt
-//     from them (cStar from allc, attended = att * cStar, memp from
-//     allmem). 335 blocks in parallel, tiles staged through shared memory.
+// (b) mfm_encode_dw_kernel replaces the 14 weight-gradient sums that
+//     _bwd_kernel keeps in VMEM across its grid (pallas_mfn.py:342-372).
+//     They are 7 products A^T delta over the K = t n rows, each bias the
+//     column sum of its weight's delta, A taken from the residuals (r1,
+//     r2, the two halves of r3) or rebuilt from them (cStar from allc,
+//     attended = att * cStar, memp from allmem). Operations bound it: at
+//     the training batch 0.38 GFLOP against 9 MB, 5.7 us at 67 TFLOP/s
+//     against 2.7 us at 3.35 TB/s. So the design keeps the CUDA cores fed
+//     and all SMs busy: 64 x 64 output tiles, each of 256 threads summing
+//     a 4 x 4 micro-tile from float4 reads of chunks of 32 rows that
+//     cp.async stages in shared memory, double-buffered (16-byte copies
+//     where the widths and offsets allow, else a 4-byte instantiation);
+//     operands built per chunk, the previous step a row offset of n and
+//     attended formed once per staged element; the main path's 80 tiles
+//     fill the 132 SMs by splitting K over a thread-block cluster of S
+//     blocks (1, 2, 4 or 8, chosen on the host from the tile count),
+//     whose partial tiles are added in slice order through distributed
+//     shared memory. No atomics, no global scratch, one launch: the same
+//     bits on every run. TF32 tensor cores would keep about three digits,
+//     too few for the gradient tolerances (3xTF32 is the next step).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -920,113 +934,245 @@ cudaError_t launch(const Pass& p, const BwdArgs& a, cudaStream_t stream) {
 }
 
 // ------------------------------------------------------------- kernel (b)
+//
+// The 14 weight and bias gradients as 7 grouped products G = A^T delta
+// over the K = t n flat rows (step i, batch row b at k = i n + b), each
+// bias the column sum of its weight's delta. A block computes one
+// kDwTile x kDwTile tile of one G over a contiguous slice of K; the S
+// blocks of a thread-block cluster take the S slices of one tile and add
+// their partial tiles in slice order through distributed shared memory.
+// Chunks of kDwChunk rows of A, of delta and (for attended columns) of
+// att are staged with cp.async, double-buffered; each of the 256 threads
+// sums a 4 x 4 micro-tile from float4 reads of the staged chunk.
 
-constexpr int kDwThreads = 256;  // each thread kTile * kTile / 256 outputs
-constexpr int kProducts = 14;
+constexpr int kDwProducts = 7;
+constexpr int kDwTile = 64;     // output tile: kDwTile (P) x kDwTile (Q)
+constexpr int kDwChunk = 32;    // rows a stage holds
+constexpr int kDwThreads = 256;  // 16 x 16 threads, a 4 x 4 tile each
+constexpr int kDwMicro = 4;
+constexpr int kDwBiasGroups = kDwThreads / kDwTile;  // row groups of a sum
+// one stage: A, delta and att chunks, each kDwChunk x kDwTile
+constexpr int kDwStageFloats = 3 * kDwChunk * kDwTile;
+static_assert(kDwTile / kDwMicro * (kDwTile / kDwMicro) == kDwThreads,
+              "one micro-tile a thread");
+static_assert(kDwTile * kDwTile + kDwThreads <= 2 * kDwStageFloats,
+              "the partial tiles fit the stages");
 
-// The A operand of a product: a residual field (or a column range of
-// one), ones (a bias), cStar, attended = att * cStar, or
-// [attended, memp].
-enum Operand { kRes, kOnes, kCstar, kAttended, kBoth };
+// A run of an A operand's columns, [previous run's end, end): column p of
+// flat row k is ptr[(k - shift) * stride + col + p], zero where k < shift
+// (shift = n: the previous step's row, zero before step 0).
+struct DwSeg {
+  const float* ptr;
+  int stride, col, shift, end;
+};
 
-struct Product {
-  int operand;
-  ResEntry a;  // the residual columns of kRes
-  int P;       // rows of the gradient (columns of A)
-  int d_col;   // delta column
-  int Q;       // columns of the gradient
-  int tiles_q;
-  float* out;  // (P, Q) row-major
+struct DwProduct {
+  DwSeg seg[3];
+  int att_end;  // A's columns below it are multiplied by att (attended)
+  int P, Q, tiles_q, d_col;
+  float* out;   // (P, Q) row-major
+  float* bias;  // (Q)
 };
 
 struct DwArgs {
-  const float* allc;    // (t, n, H)
-  const float* allmem;  // (t, n, mem)
-  const float* delta;   // (t, n, D)
-  ResEntry att;         // the residual field att
-  Product prod[kProducts];
-  int first_tile[kProducts + 1];
-  int t, n, H, z_tot, mem, delta_width;
+  const float* delta;  // (K, D)
+  int delta_width;
+  ResEntry att;  // the residual field att
+  DwProduct prod[kDwProducts];
+  int first_tile[kDwProducts + 1];
+  int rows;   // K
+  int slice;  // rows a block of a cluster sums: ceil(K / S)
+  long long* clocks;
 };
 
-__device__ __forceinline__ float cstar_at(const DwArgs& a, int i, int b,
-                                          int p) {
-  const int M = a.H - a.z_tot;
-  if (p < M) {
-    return i == 0 ? 0.0f
-                  : a.allc[((size_t)(i - 1) * a.n + b) * a.H + a.z_tot + p];
-  }
-  return a.allc[((size_t)i * a.n + b) * a.H + a.z_tot + p - M];
-}
-
-// A[rr][p] of the product, rr = i * n + b a (step, batch row) pair.
-__device__ __forceinline__ float operand_at(const DwArgs& a,
-                                            const Product& pr, int rr,
-                                            int p) {
-  const int i = rr / a.n, b = rr - i * a.n;
-  const int M2 = 2 * (a.H - a.z_tot);
-  switch (pr.operand) {
-    case kRes:
-      return res_row(pr.a, rr)[p];
-    case kOnes:
-      return 1.0f;
-    case kCstar:
-      return cstar_at(a, i, b, p);
-    case kAttended:
-      return res_row(a.att, rr)[p] * cstar_at(a, i, b, p);
-    default:  // kBoth
-      if (p < M2) return res_row(a.att, rr)[p] * cstar_at(a, i, b, p);
-      return i == 0 ? 0.0f
-                    : a.allmem[((size_t)(i - 1) * a.n + b) * a.mem + p - M2];
+// One copy of W floats into shared memory: asynchronous from src, or
+// zeros where src is null.
+template <int W>
+__device__ __forceinline__ void dw_copy(float* dst, const float* src) {
+  if (src != nullptr) {
+    if (W == 4)
+      cp_async16(dst, src);
+    else
+      cp_async4(dst, src);
+  } else if (W == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  } else {
+    *dst = 0.0f;
   }
 }
 
+// Stages rows [k, k + kDwChunk) of the tile's A columns, of its delta
+// columns and, for its attended columns, of att; rows at or past k1 and
+// columns past P or Q as zeros. V: 16-byte copies, four columns at a time
+// (every run, offset and row stride a multiple of four floats), else
+// 4-byte ones.
+template <bool V>
+__device__ __forceinline__ void dw_stage(const DwArgs& a,
+                                         const DwProduct& pr, float* st,
+                                         int k, int k1, int p0, int q0,
+                                         bool att, int tid) {
+  constexpr int W = V ? 4 : 1;
+  constexpr int kPerRow = kDwTile / W;
+  float* const As = st;
+  float* const Ds = As + kDwChunk * kDwTile;
+  float* const Ts = Ds + kDwChunk * kDwTile;
+  for (int e = tid; e < kDwChunk * kPerRow; e += kDwThreads) {
+    const int r = e / kPerRow, c = (e % kPerRow) * W;
+    const int row = k + r, p = p0 + c, q = q0 + c, at = r * kDwTile + c;
+    const bool in = row < k1;
+    const float* src = nullptr;
+    if (in && p < pr.P) {
+      const DwSeg& s = p < pr.seg[0].end   ? pr.seg[0]
+                       : p < pr.seg[1].end ? pr.seg[1]
+                                           : pr.seg[2];
+      if (row >= s.shift)
+        src = s.ptr + (size_t)(row - s.shift) * s.stride + s.col + p;
+    }
+    dw_copy<W>(As + at, src);
+    dw_copy<W>(Ds + at, in && q < pr.Q ? a.delta +
+                                             (size_t)row * a.delta_width +
+                                             pr.d_col + q
+                                       : nullptr);
+    if (att && p < pr.att_end)
+      dw_copy<W>(Ts + at, in ? res_row(a.att, row) + p : nullptr);
+  }
+}
+
+// A partial tile of a peer of the cluster (this block's own for S = 1).
+template <int S>
+__device__ __forceinline__ const float* dw_peer(float* buf, int s) {
+  if (S == 1) return buf;
+  return cooperative_groups::this_cluster().map_shared_rank(buf, s);
+}
+
+// grid.x: the products' tiles in order, S blocks (a cluster) each; the
+// rank in the cluster is the block's K slice. __grid_constant__: the
+// product table is indexed by block.
+template <int S, bool V>
 __global__ void __launch_bounds__(kDwThreads)
-    mfm_encode_dw_kernel(const DwArgs a) {
-  __shared__ float As[kTile][kTile + 1];
-  __shared__ float Ds[kTile][kTile + 1];
-  const int block = blockIdx.x;
+    mfm_encode_dw_kernel(const __grid_constant__ DwArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const int tile = blockIdx.x / S, rank = cluster_rank<S>();
   int which = 0;
-  while (which + 1 < kProducts && block >= a.first_tile[which + 1]) ++which;
-  const Product pr = a.prod[which];
-  const int local = block - a.first_tile[which];
-  const int p0 = (local / pr.tiles_q) * kTile;
-  const int q0 = (local % pr.tiles_q) * kTile;
-  const int tid = threadIdx.x, tx = tid % kTile, ty = tid / kTile;
-  constexpr int kPer = kTile * kTile / kDwThreads;
-  constexpr int kStride = kDwThreads / kTile;
-  const int rows = a.t * a.n;
+#pragma unroll
+  for (int j = 1; j < kDwProducts; ++j)
+    if (tile >= a.first_tile[j]) which = j;
+  const DwProduct& pr = a.prod[which];
+  const int local = tile - a.first_tile[which];
+  const int p0 = (local / pr.tiles_q) * kDwTile;
+  const int q0 = (local % pr.tiles_q) * kDwTile;
+  const int k0 = rank * a.slice, k1 = min(a.rows, k0 + a.slice);
+  const int chunks = k1 > k0 ? (k1 - k0 + kDwChunk - 1) / kDwChunk : 0;
+  const bool att = p0 < pr.att_end, bias = p0 == 0;
+  const int tid = threadIdx.x;
+  const int tx = tid % (kDwTile / kDwMicro), ty = tid / (kDwTile / kDwMicro);
+  // the bias sums: column tid % kDwTile over every kDwBiasGroups-th row
+  const int bc = tid % kDwTile, bg = tid / kDwTile;
+  const bool attended = att && p0 + bc < pr.att_end;
 
-  float acc[kPer];
+  // each chunk summed from zero, then added to the slice's sums: rounding
+  // grows with kDwChunk + chunks terms, not with the slice's rows
+  float acc[kDwMicro][kDwMicro];
 #pragma unroll
-  for (int u = 0; u < kPer; ++u) acc[u] = 0.0f;
+  for (int i = 0; i < kDwMicro; ++i)
+#pragma unroll
+    for (int j = 0; j < kDwMicro; ++j) acc[i][j] = 0.0f;
+  float bsum = 0.0f;
 
-  for (int rr0 = 0; rr0 < rows; rr0 += kTile) {
-    for (int e = tid; e < kTile * kTile; e += kDwThreads) {
-      const int rr = e / kTile, c = e - rr * kTile, row = rr0 + rr;
-      float av = 0.0f, dv = 0.0f;
-      if (row < rows) {
-        if (p0 + c < pr.P) av = operand_at(a, pr, row, p0 + c);
-        if (q0 + c < pr.Q)
-          dv = a.delta[(size_t)row * a.delta_width + pr.d_col + q0 + c];
-      }
-      As[rr][c] = av;
-      Ds[rr][c] = dv;
-    }
+  FTT_STAMP(a.clocks, kClockEncodeDw, 0, 0);
+  if (chunks > 0) dw_stage<V>(a, pr, smem, k0, k1, p0, q0, att, tid);
+  cp_async_commit();
+  for (int c = 0; c < chunks; ++c) {
+    float* const As = smem + (c & 1) * kDwStageFloats;
+    float* const Ds = As + kDwChunk * kDwTile;
+    const float* const Ts = Ds + kDwChunk * kDwTile;
+    // the next chunk in flight while this one is summed
+    if (c + 1 < chunks)
+      dw_stage<V>(a, pr, smem + ((c + 1) & 1) * kDwStageFloats,
+                  k0 + (c + 1) * kDwChunk, k1, p0, q0, att, tid);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
-    for (int rr = 0; rr < kTile; ++rr) {
-      const float d = Ds[rr][tx];
-#pragma unroll
-      for (int u = 0; u < kPer; ++u)
-        acc[u] = fmaf(As[rr][ty + kStride * u], d, acc[u]);
+    FTT_STAMP(a.clocks, kClockEncodeDw, c + 1, 0);
+    if (att) {  // attended = att * cStar, once per staged element
+      if (attended)
+        for (int e = tid; e < kDwChunk * kDwTile; e += kDwThreads)
+          As[e] *= Ts[e];
+      __syncthreads();
     }
-    __syncthreads();
-  }
+    if (bias) {
+      float part = 0.0f;
+      for (int r = bg; r < kDwChunk; r += kDwBiasGroups)
+        part += Ds[r * kDwTile + bc];
+      bsum += part;
+    }
+    float part[kDwMicro][kDwMicro];
 #pragma unroll
-  for (int u = 0; u < kPer; ++u) {
-    const int p = p0 + ty + kStride * u, q = q0 + tx;
-    if (p < pr.P && q < pr.Q) pr.out[(size_t)p * pr.Q + q] = acc[u];
+    for (int i = 0; i < kDwMicro; ++i)
+#pragma unroll
+      for (int j = 0; j < kDwMicro; ++j) part[i][j] = 0.0f;
+#pragma unroll 8
+    for (int r = 0; r < kDwChunk; ++r) {
+      const float4 av = reinterpret_cast<const float4*>(As + r * kDwTile)[ty];
+      const float4 dv = reinterpret_cast<const float4*>(Ds + r * kDwTile)[tx];
+      const float ar[kDwMicro] = {av.x, av.y, av.z, av.w};
+      const float dr[kDwMicro] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+      for (int i = 0; i < kDwMicro; ++i)
+#pragma unroll
+        for (int j = 0; j < kDwMicro; ++j)
+          part[i][j] = fmaf(ar[i], dr[j], part[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < kDwMicro; ++i)
+#pragma unroll
+      for (int j = 0; j < kDwMicro; ++j) acc[i][j] += part[i][j];
+    __syncthreads();
+    FTT_STAMP(a.clocks, kClockEncodeDw, c + 1, 1);
   }
+
+  // the partial tile and bias sums over the stages, then the cluster's
+  // partials added in slice order, each block writing a share of the rows
+  float* const red = smem;                        // [kDwTile][kDwTile]
+  float* const bred = smem + kDwTile * kDwTile;  // [kDwBiasGroups][kDwTile]
+#pragma unroll
+  for (int i = 0; i < kDwMicro; ++i)
+    reinterpret_cast<float4*>(red + (ty * kDwMicro + i) * kDwTile)[tx] =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  if (bias) bred[tid] = bsum;
+  cluster_barrier<S>();
+  const float* peers[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) peers[s] = dw_peer<S>(red, s);
+  constexpr int kShare = kDwTile / S;
+  for (int e = tid; e < kShare * kDwTile; e += kDwThreads) {
+    const int r = rank * kShare + e / kDwTile, c = e % kDwTile;
+    float v = peers[0][r * kDwTile + c];
+#pragma unroll
+    for (int s = 1; s < S; ++s) v += peers[s][r * kDwTile + c];
+    if (p0 + r < pr.P && q0 + c < pr.Q)
+      pr.out[(size_t)(p0 + r) * pr.Q + q0 + c] = v;
+  }
+  if (bias && rank == 0 && tid < kDwTile && q0 + tid < pr.Q) {
+    float v = 0.0f;
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+      for (int g = 0; g < kDwBiasGroups; ++g)
+        v += peers[s][kDwTile * kDwTile + g * kDwTile + tid];
+    pr.bias[q0 + tid] = v;
+  }
+  // no block leaves while a peer may still read its shared memory
+  if (S > 1) cluster_barrier<S>();
+}
+
+using DwKernel = void (*)(DwArgs);
+
+template <bool V>
+DwKernel dw_kernel_for(int S) {
+  return S == 1   ? mfm_encode_dw_kernel<1, V>
+         : S == 2 ? mfm_encode_dw_kernel<2, V>
+         : S == 4 ? mfm_encode_dw_kernel<4, V>
+                  : mfm_encode_dw_kernel<8, V>;
 }
 
 }  // namespace
@@ -1173,66 +1319,93 @@ extern "C" int mfm_encode_bwd(
 }
 
 // Kernel (b). The residuals through the layout table, as for the reverse
-// pass.
-// The gradients, each (P, Q) row-major, in the order of the JAX package's
-// _W_NAMES without wh: a1w1, a1b1, a1w2, a1b2, a2w1, a2b1, a2w2, a2b2,
-// gw1, gb1, g1w2, g1b2, g2w2, g2b2.
+// pass; delta the reverse pass's (t, n, D) buffer. out: the 14 gradients
+// one after another in the order of the JAX package's _W_NAMES without
+// wh (a1w1, a1b1, a1w2, a1b2, a2w1, a2b1, a2w2, a2b2, gw1, gb1, g1w2,
+// g1b2, g2w2, g2b2), each (P, Q) row-major. cluster: the blocks S (1, 2,
+// 4 or 8) that split K for each output tile. copy (host memory, one int)
+// gets the bytes of the staging copies: 16 where every column offset, row
+// stride and pointer allows, else 4.
 extern "C" int mfm_encode_dw(
     const float* allc, const float* allmem, void* const* res_ptrs,
     const int* res_strides, const int* res_cols, const float* delta,
-    float* d_a1w1, float* d_a1b1, float* d_a1w2, float* d_a1b2,
-    float* d_a2w1, float* d_a2b1, float* d_a2w2, float* d_a2b2,
-    float* d_gw1, float* d_gb1, float* d_g1w2, float* d_g1b2, float* d_g2w2,
-    float* d_g2b2, int t, int n, int H, int z_tot, int mem, int s1, int s2,
-    int s3, int s4, void* stream) {
+    float* out, int t, int n, int H, int z_tot, int mem, int s1, int s2,
+    int s3, int s4, int cluster, int* copy, void* stream) {
   using namespace ftt;
   int widths[kResFields];
   res_widths(H, z_tot, mem, s1, s2, s3, s4, widths);
   ResTable res;
+  const int S = cluster;
   if (t < 1 || n < 1 || z_tot < 0 || z_tot >= H || res_ptrs == nullptr ||
+      !(S == 1 || S == 2 || S == 4 || S == 8) ||
       !make_res_table(res_ptrs, res_strides, res_cols, widths, &res))
     return (int)cudaErrorInvalidValue;
   const DeltaLayout l = delta_layout(H, z_tot, mem, s1, s2, s3, s4);
-  const int m2 = 2 * (H - z_tot), s34 = s3 + s4;
+  const int M = H - z_tot, m2 = 2 * M, s34 = s3 + s4;
   DwArgs a;
-  a.allc = allc;
-  a.allmem = allmem;
   a.delta = delta;
-  a.att = res.f[kAtt];
-  a.t = t;
-  a.n = n;
-  a.H = H;
-  a.z_tot = z_tot;
-  a.mem = mem;
   a.delta_width = l.width;
-  const ResEntry none = {nullptr, 0, 0};
-  ResEntry r3b = res.f[kR3];  // r3's second half feeds g2w2
-  r3b.col += s3;
-  const Product table[kProducts] = {
-      {kCstar, none, m2, l.du1, s1, 0, d_a1w1},
-      {kOnes, none, 1, l.du1, s1, 0, d_a1b1},
-      {kRes, res.f[kR1], s1, l.dlogits, m2, 0, d_a1w2},
-      {kOnes, none, 1, l.dlogits, m2, 0, d_a1b2},
-      {kAttended, none, m2, l.du2, s2, 0, d_a2w1},
-      {kOnes, none, 1, l.du2, s2, 0, d_a2b1},
-      {kRes, res.f[kR2], s2, l.dch, mem, 0, d_a2w2},
-      {kOnes, none, 1, l.dch, mem, 0, d_a2b2},
-      {kBoth, none, m2 + mem, l.du3, s34, 0, d_gw1},
-      {kOnes, none, 1, l.du3, s34, 0, d_gb1},
-      {kRes, res.f[kR3], s3, l.dq1, mem, 0, d_g1w2},
-      {kOnes, none, 1, l.dq1, mem, 0, d_g1b2},
-      {kRes, r3b, s4, l.dq2, mem, 0, d_g2w2},
-      {kOnes, none, 1, l.dq2, mem, 0, d_g2b2},
+  a.att = res.f[kAtt];
+  a.rows = t * n;
+  a.slice = (a.rows + S - 1) / S;
+  a.clocks = phase_clocks();
+  // the A operands' column runs: cStar is the previous step's c past
+  // z_tot, then this step's; memp the previous step's memory
+  const DwSeg c_prev = {allc, H, z_tot, n, M};
+  const DwSeg c_now = {allc, H, z_tot - M, 0, m2};
+  const DwSeg memp = {allmem, mem, -m2, n, m2 + mem};
+  const DwSeg none = {nullptr, 0, 0, 0, 0};
+  auto field = [](const ResEntry& e, int col, int end) {
+    return DwSeg{e.ptr, e.stride, e.col + col, 0, end};
   };
+  struct Spec {
+    DwSeg seg[3];
+    int att_end, P, Q, d_col;
+  };
+  const Spec specs[kDwProducts] = {
+      {{c_prev, c_now, none}, 0, m2, s1, l.du1},                // a1w1
+      {{field(res.f[kR1], 0, s1), none, none}, 0, s1, m2, l.dlogits},
+      {{c_prev, c_now, none}, m2, m2, s2, l.du2},               // a2w1
+      {{field(res.f[kR2], 0, s2), none, none}, 0, s2, mem, l.dch},
+      {{c_prev, c_now, memp}, m2, m2 + mem, s34, l.du3},        // gw1
+      {{field(res.f[kR3], 0, s3), none, none}, 0, s3, mem, l.dq1},
+      {{field(res.f[kR3], s3, s4), none, none}, 0, s4, mem, l.dq2},
+  };
+  size_t at = 0;
   int tiles = 0;
-  for (int k = 0; k < kProducts; ++k) {
-    a.prod[k] = table[k];
-    a.prod[k].tiles_q = (table[k].Q + kTile - 1) / kTile;
+  for (int k = 0; k < kDwProducts; ++k) {
+    const Spec& sp = specs[k];
+    DwProduct& pr = a.prod[k];
+    for (int j = 0; j < 3; ++j) pr.seg[j] = sp.seg[j];
+    pr.att_end = sp.att_end;
+    pr.P = sp.P;
+    pr.Q = sp.Q;
+    pr.d_col = sp.d_col;
+    pr.tiles_q = (sp.Q + kDwTile - 1) / kDwTile;
+    pr.out = out + at;
+    at += (size_t)sp.P * sp.Q;
+    pr.bias = out + at;
+    at += sp.Q;
     a.first_tile[k] = tiles;
-    tiles += ((table[k].P + kTile - 1) / kTile) * a.prod[k].tiles_q;
+    tiles += ((sp.P + kDwTile - 1) / kDwTile) * pr.tiles_q;
   }
-  a.first_tile[kProducts] = tiles;
-  mfm_encode_dw_kernel<<<tiles, kDwThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  a.first_tile[kDwProducts] = tiles;
+  // 16-byte copies where no run, offset or row stride splits four floats
+  auto aligned = [](const void* p, int stride, int col) {
+    return reinterpret_cast<size_t>(p) % 16 == 0 && stride % 4 == 0 &&
+           col % 4 == 0;
+  };
+  bool v4 = M % 4 == 0 && z_tot % 4 == 0 && mem % 4 == 0 && s1 % 4 == 0 &&
+            s2 % 4 == 0 && s3 % 4 == 0 && s4 % 4 == 0 &&
+            aligned(allc, H, 0) && aligned(allmem, mem, 0) &&
+            aligned(delta, l.width, 0);
+  for (int f : {kAtt, kR1, kR2, kR3})
+    v4 = v4 && aligned(res.f[f].ptr, res.f[f].stride, res.f[f].col);
+  *copy = v4 ? 16 : 4;
+  const DwKernel kernel = v4 ? dw_kernel_for<true>(S) : dw_kernel_for<false>(S);
+  const size_t bytes = 2 * kDwStageFloats * sizeof(float);
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_clusters(kernel, dim3(tiles * S), kDwThreads, bytes, S,
+                              static_cast<cudaStream_t>(stream), a);
 }

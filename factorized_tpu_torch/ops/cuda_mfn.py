@@ -35,8 +35,12 @@ Three kernels, each with a launch counter per variant:
   ``TWO_STEP_LAUNCHES``); the last two are the probe variants of
   ``factorized_tpu_torch/probes/``.
 - ``csrc/mfm_encode_bwd.cu::mfm_encode_dw`` (``DW_LAUNCHES``): the 14
-  non-``wh`` weight and bias gradients, ``A^T delta`` summed over the
-  t * n rows in a fixed order.
+  non-``wh`` weight and bias gradients as 7 grouped products ``A^T
+  delta`` over the t * n rows, each bias the column sum of its weight's
+  delta, into one buffer. Each 64 x 64 output tile splits the rows over a
+  thread-block cluster of S blocks (``dw_cluster``), whose partial tiles
+  are added in a fixed order: no atomics, the same bits on every run
+  (``DW_PLAN`` records the last call's S and copy width).
 
 A wrapper runs the plain version for CPU tensors and launches the kernel
 for CUDA tensors; there is no other route. ``dWh`` is one
@@ -50,6 +54,7 @@ layout and variant pairs over it.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -114,6 +119,16 @@ FWD_PASSES = {"lstm_chains": ("cell_chains_fwd_kernel",),
 CLUSTERS = {}
 # launches of each wrapper with a chain that read its weights from L2
 L2_LAUNCHES = {}
+# the weight-gradient kernel's output tile and rows a chunk
+# (csrc/mfm_encode_bwd.cu: kDwTile, kDwChunk), and the blocks a launch
+# aims for, which set the cluster that splits K (dw_cluster): two a SM of
+# the H100's 132 (perf_probe.py train)
+DW_TILE, DW_CHUNK = 64, 32
+DW_BLOCKS = 264
+# the last weight-gradient launch's plan: the cluster size S and the
+# bytes of its staging copies (16, or 4 where the widths or offsets are
+# not multiples of four floats)
+DW_PLAN = {}
 
 
 def sizes(weights):
@@ -576,28 +591,66 @@ def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
     return dxp, deltas
 
 
+def dw_cluster(weights, rows: int) -> int:
+    """The blocks S (1, 2, 4 or 8, a thread-block cluster) over which the
+    weight-gradient kernel splits the ``rows`` = t * n of each output
+    tile: the smallest S whose S x tiles reaches ``DW_BLOCKS``, doubled
+    only while each of its slices keeps a full chunk of rows."""
+    return _dw_cluster(tuple(weights[k].shape for k in DW_NAMES), rows,
+                       DW_BLOCKS)
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_cluster(shapes, rows, blocks):
+    tiles = sum(-(-shape[0] // DW_TILE) * -(-shape[1] // DW_TILE)
+                for shape, (a, _) in zip(shapes, DW_PRODUCTS.values())
+                if a != "ones")
+    S = 1
+    while S < 8 and S * tiles < blocks and rows >= 2 * S * DW_CHUNK:
+        S *= 2
+    return S
+
+
+@functools.lru_cache(maxsize=None)
+def _dw_views(shapes):
+    """The floats of the weight-gradient kernel's output buffer, and each
+    gradient's (shape, stride, offset) in it: one after another in
+    ``DW_NAMES`` order, row-major."""
+    views, at = [], 0
+    for shape in shapes:
+        views.append((shape, (shape[1], 1), at))
+        at += shape.numel()
+    return at, views
+
+
+_DW_ARGTYPES = ([ctypes.c_void_p] * 2 + _TABLE + [ctypes.c_void_p] * 2
+                + [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int),
+                                         ctypes.c_void_p])
+
+
 def _launch_dw(weights, allc, allmem, res, deltas, z_tot):
-    """The weight-gradient reduction kernel: {name: grad} for DW_NAMES,
-    each shaped like its weight."""
+    """The weight-gradient kernel: {name: grad} for DW_NAMES, each shaped
+    like its weight, views in that order of one buffer that the kernel
+    fills."""
     global DW_LAUNCHES
     t, n, H = allc.shape
     s1, s2, s3, s4, mem = sizes(weights)
-    fn = _build.kernel(
-        "mfm_encode_dw",
-        [ctypes.c_void_p] * 2 + _TABLE
-        + [ctypes.c_void_p] * (1 + len(DW_NAMES)) + [ctypes.c_int] * 9
-        + [ctypes.c_void_p])
-    grads = {k: torch.empty(weights[k].shape, dtype=torch.float32,
-                            device=allc.device) for k in DW_NAMES}
+    fn = _build.kernel("mfm_encode_dw", _DW_ARGTYPES)
+    shapes = tuple(weights[k].shape for k in DW_NAMES)
+    total, views = _dw_views(shapes)
+    cluster = _dw_cluster(shapes, t * n, DW_BLOCKS)
+    out = torch.empty(total, dtype=torch.float32, device=allc.device)
+    copy = (ctypes.c_int * 1)()
     with torch.cuda.device(allc.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(allc.data_ptr(), allmem.data_ptr(),
                  *_res_table(res, weights), deltas.data_ptr(),
-                 *[grads[k].data_ptr() for k in DW_NAMES],
-                 t, n, H, z_tot, mem, s1, s2, s3, s4, stream)
+                 out.data_ptr(), t, n, H, z_tot, mem, s1, s2, s3, s4,
+                 cluster, copy, stream)
     _build.check(err, "mfm_encode_dw")
     DW_LAUNCHES += 1
-    return grads
+    DW_PLAN.update(cluster=cluster, copy_bytes=copy[0])
+    return {k: out.as_strided(*view) for k, view in zip(DW_NAMES, views)}
 
 
 def mfm_encode_bwd_steps_plain(xp, weights, allh, allc, allmem, res,

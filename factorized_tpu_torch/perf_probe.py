@@ -11,10 +11,12 @@ alone. Prints JSON lines:
   ``best_acc_mosi_config``) and the training kernels at the training
   shapes (n = 32), by device time: the encode forward's threads and the
   backward kernels' threads, the encode's calls split into their passes
-  by torch.profiler, and the decoder forward (its rows and threads fixed
-  in its source); a setting whose shared memory does not fit is reported
-  as refused. Part ``multi`` does the same for the fused encoder-cell
-  kernels at the widths of ``kl_ef`` and ``missing``. So the defaults in
+  by torch.profiler, the decoder forward (its rows and threads fixed
+  in its source), and the weight-gradient kernel at each ``DW_BLOCKS``
+  (the cluster size that splits its rows, with the copy width it took);
+  a setting whose shared memory does not fit is reported as refused.
+  Part ``multi`` does the same for the fused encoder-cell kernels at the
+  widths of ``kl_ef`` and ``missing``. So the defaults in
   ``ops/cuda_mfn.py`` and ``ops/cuda_lstm.py`` are chosen from a
   measurement;
 - ``tile`` lines with ``rows`` (part ``rows``, run alone): the chains'
@@ -29,12 +31,13 @@ alone. Prints JSON lines:
 - ``kernel_times`` and ``step_times`` (part ``times``): each of the main
   path's kernels at its default knobs, by CUDA events over back-to-back
   calls and by device time (the calls queued behind a sleeping kernel);
-  each model's train step (device ms summed over kernels and copies, the
-  ``record_function`` spans such as Adam's step apart) and the padded
-  256-row predict. Both call only
-  what every build of the port has, so this module run against an
-  earlier build's package (that build first on ``sys.path``) gives the
-  A/B;
+  the weight-gradient kernel's library yardstick (``dw_library``: its
+  device ms by torch.profiler, since its calls stall the host while the
+  card sleeps); each model's train step (device ms summed over kernels
+  and copies, the ``record_function`` spans such as Adam's step apart)
+  and the padded 256-row predict. Both call only what every build of the
+  port has, so this module run against an earlier build's package (that
+  build first on ``sys.path``) gives the A/B;
 - ``phases`` (part ``phases``, run alone: it builds the kernels with
   ``FTT_PHASE_CLOCKS``): one line per chain kernel and cell, the mean
   SM cycles of each phase of a step over one call's steps, stamped by
@@ -43,13 +46,15 @@ alone. Prints JSON lines:
   ``multi_lstm_fwd`` (eval n = 256, train n = 32) at the widths of
   ``kl_ef`` and ``missing``, the decoder forward (n = 32 and 256) and
   backward (n = 32), the encode's reverse pass (n = 32), the encode
-  forward's train (n = 32) and eval (n = 256) variants; with the SM clock
-  read just after;
+  forward's train (n = 32) and eval (n = 256) variants, and the
+  weight-gradient kernel (n = 32, a step being a chunk of its rows: load
+  and sum); with the SM clock read just after;
 - ``card``: the ``nvidia-smi`` name and power limit.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import json
 import subprocess
@@ -72,7 +77,7 @@ N_TRAIN = 32
 # kMaxCells grid rows, kClockSteps steps, kClockPhases phases
 CLOCK_KERNELS = ("multi_lstm_bwd", "decoder_lstm_bwd", "mem_chain_bwd",
                  "cell_chains_bwd", "cell_chains_fwd", "mem_chain_fwd",
-                 "lstm_fwd")
+                 "lstm_fwd", "encode_dw")
 CLOCK_ROWS, CLOCK_STEPS, CLOCK_PHASES = 8, 64, 8
 # the chains' batch rows a block, constants in the sources that a build
 # can override (-D<macro>=<rows>), and the values part rows times: the
@@ -106,6 +111,7 @@ PHASE_NAMES = {
                       "heads and update, operand wait, barrier"),
     "lstm_fwd": ("gates product, barrier",
                  "cell update, operand wait, barrier"),
+    "encode_dw": ("chunk load, barrier", "chunk sum, barrier"),
 }
 
 
@@ -203,11 +209,18 @@ def _fwd_pass_ms(fn, reps=50):
     return out
 
 
+def _planned_ms(fn, reps=50):
+    """``_device_ms`` of the weight-gradient kernel, with the plan its
+    calls took (``cuda_mfn.DW_PLAN``: cluster size and copy bytes)."""
+    return {"ms": _device_ms(fn, reps), **cuda_mfn.DW_PLAN}
+
+
 def _sweep(name, module, knobs, n, call, timer=_ms, **tags):
     """Time ``call`` for every combination of ``knobs`` ({attribute:
     values}) set on ``module``; a combination the card refuses (its
     shared memory does not fit) is reported as refused. ``timer`` is
-    ``_ms`` (CUDA events), ``_device_ms`` or ``_pass_ms``."""
+    ``_ms`` (CUDA events), ``_device_ms``, ``_pass_ms`` or
+    ``_planned_ms``."""
     default = {k: getattr(module, k) for k in knobs}
     try:
         for combo in itertools.product(*knobs.values()):
@@ -281,6 +294,13 @@ def train_sweep(cfg, params, dev):
     _sweep("decoder_lstm_bwd", cuda_lstm, {"BWD_THREADS": (128, 256, 512)},
            n, lambda: cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh,
                                                  dec_dims), _device_ms)
+    # the weight-gradient kernel's blocks a launch aims for, which set the
+    # cluster size S that splits its rows (1, 2, 4 and 8 at these widths)
+    _, deltas = cuda_mfn.mfm_encode_bwd_steps_plain(xp, weights, *res, dh,
+                                                    dmem, z_tot)
+    _sweep("mfm_encode_dw", cuda_mfn, {"DW_BLOCKS": (1, 132, 264, 528)}, n,
+           lambda: cuda_mfn._launch_dw(weights, res[1], res[2], res[3],
+                                       deltas, z_tot), _planned_ms)
 
 
 def multi_sweep(cfg, dev):
@@ -393,6 +413,7 @@ def kernel_times(cfg, params, dev):
     _, deltas = cuda_mfn.mfm_encode_bwd_steps_plain(
         xt, weights, *res, torch.ones_like(res[0][0]),
         torch.ones_like(res[2][0]), z_tot)
+    dw_ops = cuda_mfn.dw_operands(res[1], res[2], res[3], weights, z_tot)
     allh, allc, gates = cuda_lstm.decoder_lstm_plain(h0t, c0t, wsum, b, t)
     kl = mfm.MFM(cfg, seed=0, device=dev, model_type="kl_ef").tree()
     kxp, kwh, k_dims = mfm.multi_lstm_operands(kl, x32, cfg, "kl_ef")
@@ -428,10 +449,36 @@ def kernel_times(cfg, params, dev):
         "multi_lstm_bwd": lambda: cuda_lstm.multi_lstm_bwd(
             kgates, kwh, kallc, kdh, k_dims),
     }
+    times = {k: {"events_ms": _ms(f), "device_ms": _device_ms(f)}
+             for k, f in calls.items()}
+    # the weight-gradient kernel's yardstick, used nowhere in the port: the
+    # 7 products by cuBLAS and the 7 column sums, on operands built
+    # beforehand. Its calls stall the host while the card sleeps, so its
+    # device ms is torch.profiler's sum over its kernels
+    lib = functools.partial(dw_library, dw_ops, deltas, weights)
+    lib()
+    _, kernels = _profiled(lib, 50)
+    times["mfm_encode_dw_library"] = {
+        "events_ms": _ms(lib),
+        "device_ms": sum(ms for ms, _ in kernels.values()) / 50}
     print(json.dumps({
-        "kernel_times": {k: {"events_ms": _ms(f), "device_ms": _device_ms(f)}
-                         for k, f in calls.items()},
+        "kernel_times": times,
         "package": str(Path(cuda_mfn.__file__).parents[1])}), flush=True)
+
+
+def dw_library(operands, deltas, weights):
+    """The weight-gradient kernel's function in one library call a
+    product: ``torch.mm`` (cuBLAS) for each of the 7 weights and
+    ``sum(0)`` for each of the 7 biases, on ``cuda_mfn.dw_operands``'
+    matrices, which the caller builds beforehand (not timed)."""
+    offs, _ = cuda_mfn.delta_layout(weights)
+    D = deltas.reshape(-1, deltas.shape[-1])
+    out = {}
+    for name, (a, d) in cuda_mfn.DW_PRODUCTS.items():
+        o, w = offs[d]
+        out[name] = (D[:, o:o + w].sum(0) if a == "ones"
+                     else torch.mm(operands[a].T, D[:, o:o + w]))
+    return out
 
 
 def step_times(cfg, dev):
@@ -526,7 +573,12 @@ def phases(cfg, dev):
     dmem = torch.randn((N_TRAIN, weights["a2w2"].shape[1]), generator=g,
                        device=dev)
     allh, allc, gates = cuda_lstm.decoder_lstm_plain(h0t, c0t, wsum, b, t)
+    _, deltas = cuda_mfn.mfm_encode_bwd_steps_plain(xt, weights, *res, dh,
+                                                    dmem, z_tot)
     calls = {
+        "mfm_encode_dw": (lambda: cuda_mfn._launch_dw(
+            weights, res[1], res[2], res[3], deltas, z_tot), h_dims,
+            N_TRAIN),
         "decoder_lstm_fwd": (lambda: cuda_lstm.decoder_lstm_fwd(
             h0, c0, wsum, b, t, dec_dims), dec_dims, N),
         "decoder_lstm_fwd_n32": (lambda: cuda_lstm.decoder_lstm_fwd(
@@ -594,7 +646,7 @@ def phases(cfg, dev):
                 print(json.dumps({
                     "phases": call, "kernel": kernel, "row": y,
                     "cell": dims[y] if kernel not in (
-                        "mem_chain_bwd", "mem_chain_fwd", "encode_fwd")
+                        "mem_chain_bwd", "mem_chain_fwd", "encode_dw")
                     else None, "n": n, "steps": len(steps),
                     "mean_cycles": {
                         (names[p] if p < len(names) else str(p)):

@@ -328,12 +328,12 @@ def _encode_digest(mfn_ops, dev):
     return digest.hexdigest()
 
 
-# _encode_digest of the weight-gradient kernel, whose code no redesign
-# since the residual-layout table has changed, as built by the parent of
-# the forward's three-pass redesign, with nvcc of CUDA 12.8 for sm_90a on
-# an NVIDIA H100 80GB HBM3 (PyTorch 2.11)
+# _encode_digest of the weight-gradient kernel (split-K tiles over
+# thread-block clusters, a fixed order of sums), built with nvcc of CUDA
+# 12.8 for sm_90a on an NVIDIA H100 80GB HBM3 (PyTorch 2.11): the cat
+# layout, read through the residual-layout table, gives these bits
 PRE_TABLE_DIGEST = (
-    "24b3d098ce41c3bff65d743071b98b84bba2ce14d614c6d931083a6a6404e047")
+    "a326d4e8d49486c6f62a5ced753f59fd29f04cad864588ce6cca6a56c55e5639")
 
 
 def test_cat_layout_keeps_the_bits_before_the_table(cuda):
@@ -358,6 +358,94 @@ def test_redesigned_backward_kernels_rerun_to_the_same_bits(cuda):
         first = cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh, dec_dims)
         again = cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh, dec_dims)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+# the weight-gradient kernel's widths (H, z_tot, mem, s1, s2, s3, s4): the
+# main path's (best_acc_mosi_config), the widest encode of chip_smoke.py's
+# step 11 (an MFN cell of 400, mem 400, gamma MLPs 256), and widths whose
+# column offsets are not multiples of four floats (4-byte copies)
+DW_MAIN = (320, 120, 64, 128, 128, 128, 128)
+DW_WIDEST = (632, 120, 400, 128, 128, 256, 256)
+DW_ODD = (317, 119, 63, 127, 126, 125, 129)
+
+
+def _dw_operands(widths, t, n, dev, layout="cat", seed=0):
+    """Random operands of the weight-gradient kernel: (weights, allc,
+    allmem, res, deltas), the weights zeros that give only the shapes."""
+    H, z_tot, mem, s1, s2, s3, s4 = widths
+    m2 = 2 * (H - z_tot)
+    shapes = {"wh": (H, 4 * H), "a1w1": (m2, s1), "a1b1": (1, s1),
+              "a1w2": (s1, m2), "a1b2": (1, m2), "a2w1": (m2, s2),
+              "a2b1": (1, s2), "a2w2": (s2, mem), "a2b2": (1, mem),
+              "gw1": (m2 + mem, s3 + s4), "gb1": (1, s3 + s4),
+              "g1w2": (s3, mem), "g1b2": (1, mem), "g2w2": (s4, mem),
+              "g2b2": (1, mem)}
+    weights = {k: torch.zeros(v, device=dev) for k, v in shapes.items()}
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    offs, R = cuda_mfn.res_layout(weights)
+    res = draw(t, n, R)
+    if layout == "split":
+        res = tuple(res[..., o:o + w].contiguous() for o, w in offs.values())
+    return (weights, draw(t, n, H), draw(t, n, mem), res,
+            draw(t, n, cuda_mfn.delta_layout(weights)[1]))
+
+
+@pytest.mark.parametrize("widths,t,n,layout,copy", [
+    (DW_MAIN, 20, 32, "cat", 16), (DW_MAIN, 20, 32, "split", 16),
+    (DW_MAIN, 1, 32, "cat", 16), (DW_MAIN, 20, 1, "cat", 16),
+    (DW_MAIN, 20, 7, "cat", 16), (DW_WIDEST, 20, 32, "cat", 16),
+    (DW_ODD, 20, 32, "cat", 4), (DW_ODD, 3, 5, "split", 4)],
+    ids=["main", "main-split", "t1", "n1", "n7", "widest", "odd",
+         "odd-small"])
+def test_weight_gradient_kernel_matches_plain(cuda, widths, t, n, layout,
+                                              copy):
+    """Against the plain version at the main path's widths, at t = 1, at
+    n = 1, at a t n that is no multiple of the kernel's chunk of rows, at
+    the widest encode and at widths that need 4-byte copies; a rerun gives
+    the same bits; one buffer holds the 14 gradients."""
+    weights, allc, allmem, res, deltas = _dw_operands(widths, t, n, cuda,
+                                                      layout)
+    z_tot = widths[1]
+    before = cuda_mfn.DW_LAUNCHES
+    with torch.inference_mode():
+        got = cuda_mfn._launch_dw(weights, allc, allmem, res, deltas, z_tot)
+        want = cuda_mfn.mfm_encode_dw_plain(allc, allmem, res, deltas,
+                                            weights, z_tot)
+        for k in cuda_mfn.DW_NAMES:
+            assert got[k].shape == weights[k].shape, k
+            torch.testing.assert_close(got[k], want[k], **GRAD)
+        again = cuda_mfn._launch_dw(weights, allc, allmem, res, deltas,
+                                    z_tot)
+        assert all(torch.equal(got[k], again[k]) for k in cuda_mfn.DW_NAMES)
+    torch.cuda.synchronize()
+    assert cuda_mfn.DW_LAUNCHES == before + 2
+    assert cuda_mfn.DW_PLAN == {"cluster": cuda_mfn.dw_cluster(weights,
+                                                               t * n),
+                                "copy_bytes": copy}
+
+
+# shapes at which the host picks each cluster size (dw_cluster)
+@pytest.mark.parametrize("widths,t,n,cluster", [
+    (DW_WIDEST, 20, 32, 1), ((15, 6, 6, 8, 8, 8, 8), 5, 20, 2),
+    (DW_MAIN, 20, 32, 4), ((15, 6, 6, 8, 8, 8, 8), 20, 32, 8)],
+    ids=["S1", "S2", "S4", "S8"])
+def test_weight_gradient_kernel_takes_each_cluster_size(cuda, widths, t, n,
+                                                        cluster):
+    weights, allc, allmem, res, deltas = _dw_operands(widths, t, n, cuda,
+                                                      seed=1)
+    with torch.inference_mode():
+        got = cuda_mfn._launch_dw(weights, allc, allmem, res, deltas,
+                                  widths[1])
+        want = cuda_mfn.mfm_encode_dw_plain(allc, allmem, res, deltas,
+                                            weights, widths[1])
+        for k in cuda_mfn.DW_NAMES:
+            torch.testing.assert_close(got[k], want[k], **GRAD)
+    torch.cuda.synchronize()
+    assert cuda_mfn.DW_PLAN["cluster"] == cluster
 
 
 def _chain_operands(h_dims, t, n, dev, seed):

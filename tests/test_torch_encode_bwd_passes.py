@@ -522,3 +522,152 @@ def test_a_refused_fit_raises_and_counts_nothing(fake_card, name, launch,
     assert getattr(module, counter) == before
     assert name not in module.CLUSTERS
     assert module.L2_LAUNCHES == {}
+
+
+# ------------------------------------------ the weight-gradient kernel
+
+def _dw_case(t, n, widths, seed=50):
+    """Random operands of the weight-gradient kernel as torch tensors on
+    the CPU: (weights, allc, allmem, res, deltas); ``widths`` (H, z_tot,
+    mem, s1, s2, s3, s4)."""
+    H, z_tot, mem, s1, s2, s3, s4 = widths
+    m2 = 2 * (H - z_tot)
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    weights = {"wh": draw(H, 4 * H), "a1w1": draw(m2, s1),
+               "a1b1": draw(1, s1), "a1w2": draw(s1, m2),
+               "a1b2": draw(1, m2), "a2w1": draw(m2, s2),
+               "a2b1": draw(1, s2), "a2w2": draw(s2, mem),
+               "a2b2": draw(1, mem), "gw1": draw(m2 + mem, s3 + s4),
+               "gb1": draw(1, s3 + s4), "g1w2": draw(s3, mem),
+               "g1b2": draw(1, mem), "g2w2": draw(s4, mem),
+               "g2b2": draw(1, mem)}
+    return (weights, draw(t, n, H), draw(t, n, mem),
+            draw(t, n, cuda_mfn.res_layout(weights)[1]),
+            draw(t, n, cuda_mfn.delta_layout(weights)[1]))
+
+
+@pytest.fixture
+def fake_dw(monkeypatch):
+    """Fakes the weight-gradient kernel's library call: records its
+    argtypes and arguments and reports 16-byte copies."""
+    calls = []
+
+    def kernel(name, argtypes, restype=ctypes.c_int):
+        def fn(*args):
+            calls.append((name, list(argtypes), args))
+            args[-2][0] = 16
+            return 0
+        return fn
+
+    monkeypatch.setattr(_build, "kernel", kernel)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(cuda_mfn, "DW_LAUNCHES", cuda_mfn.DW_LAUNCHES)
+    monkeypatch.setattr(cuda_mfn, "DW_PLAN", {})
+    return calls
+
+
+def test_weight_gradient_launcher_fills_one_buffer(fake_dw):
+    """The 14 gradients are contiguous views of one buffer, each shaped
+    like its weight, one after another in ``DW_NAMES`` order (the order
+    in which the kernel writes them); the call passes that buffer, the
+    cluster size ``dw_cluster`` picks and the C prototype's arguments."""
+    widths = (30, 15, 6, 8, 8, 8, 8)
+    weights, allc, allmem, res, deltas = _dw_case(4, N, widths)
+    before = cuda_mfn.DW_LAUNCHES
+    got = cuda_mfn._launch_dw(weights, allc, allmem, res, deltas, widths[1])
+    (name, argtypes, args), = fake_dw
+    assert name == "mfm_encode_dw"
+    assert [_kind(a) for a in argtypes] == _prototype(name)
+    assert len(args) == len(argtypes)
+    assert list(got) == list(cuda_mfn.DW_NAMES)
+    at = args[6]  # out, after allc, allmem, the table and delta
+    for k in cuda_mfn.DW_NAMES:
+        g = got[k]
+        assert g.shape == weights[k].shape and g.is_contiguous(), k
+        assert g.data_ptr() == at, k
+        at += 4 * g.numel()
+    assert len({g.untyped_storage().data_ptr() for g in got.values()}) == 1
+    assert got["g2b2"].untyped_storage().nbytes() == at - args[6]
+    assert args[-3] == cuda_mfn.dw_cluster(weights, 4 * N)
+    assert cuda_mfn.DW_LAUNCHES == before + 1
+    assert cuda_mfn.DW_PLAN == {"cluster": args[-3], "copy_bytes": 16}
+
+
+@pytest.mark.parametrize("widths,t,n,cluster", [
+    ((632, 120, 400, 128, 128, 256, 256), 20, 32, 1),
+    ((15, 6, 6, 8, 8, 8, 8), 5, 20, 2),
+    ((320, 120, 64, 128, 128, 128, 128), 20, 32, 4),
+    ((15, 6, 6, 8, 8, 8, 8), 20, 32, 8),
+    ((320, 120, 64, 128, 128, 128, 128), 1, 1, 1),
+    ((320, 120, 64, 128, 128, 128, 128), 1, 32, 1)],
+    ids=["widest", "small-100-rows", "main", "small", "one-row",
+         "one-step"])
+def test_weight_gradient_cluster_size(widths, t, n, cluster):
+    """The smallest S of 1, 2, 4, 8 whose S x tiles reaches DW_BLOCKS,
+    doubled only while each slice keeps a chunk of rows: the main path's
+    80 tiles of 64 x 64 take S = 4, the widest encode's 350 one block
+    each, and K = t n under two chunks one block."""
+    weights = _dw_case(1, 1, widths)[0]
+    assert cuda_mfn.dw_cluster(weights, t * n) == cluster
+
+
+@pytest.mark.parametrize("name,value", [("kDwTile", cuda_mfn.DW_TILE),
+                                        ("kDwChunk", cuda_mfn.DW_CHUNK)])
+def test_weight_gradient_tile_is_the_sources(name, value):
+    """The tile and chunk that ``dw_cluster`` plans with are the kernel's
+    constants in ``csrc/mfm_encode_bwd.cu``."""
+    src = (_build.CSRC / "mfm_encode_bwd.cu").read_text()
+    assert re.findall(rf"constexpr int {name} = (\d+);", src) == [str(value)]
+
+
+@pytest.mark.parametrize("t", [1, 3])
+def test_weight_gradients_at_unequal_odd_widths_match_pallas(t):
+    """``mfm_encode_dw_plain`` on the plain reverse pass's deltas against
+    the JAX package's ``_bwd_call`` (interpret mode) at widths whose
+    residual and delta columns start at odd offsets: MLPs 7, 9, 5 and 3
+    wide, mem 5."""
+    s1, s2, s3, s4, mem = 7, 9, 5, 3, 5
+    rng = np.random.default_rng(60 + t)
+    H = sum(H_DIMS)
+    m2 = 2 * (H - Z_TOT)
+
+    def w(*shape, scale=0.4):
+        return (scale * rng.normal(size=shape)).astype(np.float32)
+
+    weights = {
+        "wh": np.array(jfused.gate_major_blockdiag(
+            [w(h, 4 * h) for h in H_DIMS], H_DIMS)),
+        "a1w1": w(m2, s1), "a1b1": w(1, s1), "a1w2": w(s1, m2),
+        "a1b2": w(1, m2), "a2w1": w(m2, s2), "a2b1": w(1, s2),
+        "a2w2": w(s2, mem), "a2b2": w(1, mem), "gw1": w(m2 + mem, s3 + s4),
+        "gb1": w(1, s3 + s4), "g1w2": w(s3, mem), "g1b2": w(1, mem),
+        "g2w2": w(s4, mem), "g2b2": w(1, mem)}
+    jw = {k: jnp.asarray(v) for k, v in weights.items()}
+    xp = w(t, N, 4 * H, scale=1.0)
+    masks = np.array(pallas_mfn.make_dropout_masks(
+        jax.random.PRNGKey(t), t, N, (s1, s2, s3, s4), (0.5,) * 4))
+    res = [np.array(a) for a in pallas_mfn._fwd_call(
+        jnp.asarray(xp), jnp.asarray(masks), jw, Z_TOT, True,
+        with_res=True)[2:]]
+    dh, dmem = w(N, H, scale=1.0), w(N, mem, scale=1.0)
+    _, dw_j = pallas_mfn._bwd_call(jnp.asarray(xp), jw,
+                                   *[jnp.asarray(a) for a in res],
+                                   jnp.asarray(dh), jnp.asarray(dmem), Z_TOT)
+    x, wt, allh, allc, allmem, cat, ch, cm = _torch(xp, weights, res, dh,
+                                                    dmem)
+    _, deltas = cuda_mfn.mfm_encode_bwd_steps_plain(x, wt, allh, allc,
+                                                    allmem, cat, ch, cm,
+                                                    Z_TOT)
+    assert cuda_mfn.delta_layout(wt)[0]["dq2"][0] % 2 == 1
+    dw = cuda_mfn.mfm_encode_dw_plain(allc, allmem, cat, deltas, wt, Z_TOT)
+    for k in cuda_mfn.DW_NAMES:
+        assert tuple(dw[k].shape) == dw_j[k].shape, k
+        np.testing.assert_allclose(dw[k].numpy(), np.asarray(dw_j[k]),
+                                   **GRAD)
