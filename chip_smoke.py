@@ -41,9 +41,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    of the decoder forward at n = 32 and of the decoder backward over
    ``missing``'s 4n stacked rows;
 7. trains MFM for 2 epochs on the synthetic MOSI set through
-   ``trainers.train_mfm``, checks finite, falling train loss and that the
-   run launched every kernel, then times a train step, an epoch, the
-   training kernels and their plain versions, and profiles the step;
+   ``trainers.train_mfm`` (the chunked loop: the second epoch a graph
+   replay), checks finite, falling train loss and that the run launched
+   every kernel, then times an eager train step, an epoch, the training
+   kernels and their plain versions, and profiles the step;
 8. holds the fused encoder-cell kernels (``multi_lstm_fwd``, eval at
    n = 256 and train at n = 32, and ``multi_lstm_bwd`` at n = 32) against
    their plain versions at the widths of ``kl_ef`` and ``missing``, and
@@ -75,7 +76,20 @@ Run from the repository root: ``python3 chip_smoke.py``. It
     mem 400 and both gamma MLPs 256 wide, and 400-unit ``multi_lstm``
     cells, each forward and backward against its plain version, with the
     plan and the L2 launch count each took;
-12. prints one JSON line on the ten kernels, the ``nvidia-smi`` line,
+12. the chunked training loop (``trainers._loop``, on the card one CUDA
+    graph replay an epoch after the first): ``mfm``, ``kl_ef`` (both
+    stages) and ``missing`` train 3 epochs (``kl_ef`` 2 a stage) on the
+    synthetic MOSI set at batch 32 through the graph loop and through
+    the host loop (``FACTORIZED_TPU_HOST_LOOP=1``) from one seed: equal
+    histories, best and final parameters, Adam's and the scheduler's
+    state bit for bit, and each kernel's launches equal epoch for epoch;
+    a forced divergence (lr 1e18) truncates both at the same epoch with
+    the same live parameters; two replays of a graph draw different
+    masks, each the eager draw from the same seed, and a replayed epoch
+    consumes the generator as an eager one; per model the epoch s, step
+    ms and device idle share, eager and replayed, the capture's ms and
+    the graph pool's bytes;
+13. prints one JSON line on the ten kernels, the ``nvidia-smi`` line,
     and last ``{"ok": true, "device": {...}}``.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1.
@@ -101,6 +115,9 @@ SEED = 0
 N_SERVE = 256
 N_TRAIN = 32
 TRAIN_EPOCHS = 2
+# epochs of each model in the training-loop phase (kl_ef: one fewer a
+# stage)
+LOOP_EPOCHS = 3
 # queued_ms's sleeping kernel: about 0.1 s at the H100's clock, far
 # longer than enqueueing 50 wrapper calls
 SLEEP_CYCLES = 200_000_000
@@ -598,6 +615,7 @@ def main():
     variant_kernels = variants_phase(cfg, dev, smi)
     probe_kernels = probe_phase(cfg, dev, smi)
     cluster_phase(cfg, dev, smi)
+    loop_phase(cfg, dev, smi)
     log({"kernels": serve_kernels + train_kernels + variant_kernels
          + probe_kernels})
     print(smi, flush=True)
@@ -741,12 +759,12 @@ def train_phase(cfg, dev, smi):
     yb = torch.from_numpy(data[1][:19 * n].reshape(19, n)).to(dev)
     tree = mfm.MFM(cfg, seed=SEED, device=dev).tree()
     opt = make_optimizer(tree, 1e-3)
-    step_ms = cuda_ms(lambda: program.step(tree, opt, Xb[0], yb[0], gen,
-                                           1e-3), 30)
+    step_ms = cuda_ms(lambda: program.step(tree, opt, Xb[0], yb[0], gen),
+                      30)
     epoch_s = []
     for _ in range(3):
         t0 = time.perf_counter()
-        program.run_epoch(tree, opt, Xb, yb, gen, 1e-3)
+        program.run_epoch(tree, opt, Xb, yb, gen)
         epoch_s.append(time.perf_counter() - t0)
     prof = profile_steps(program, tree, opt, Xb[0], yb[0], gen)
     log({"phase": "train_times", "batch": n, "nvidia_smi": smi,
@@ -1460,15 +1478,15 @@ def variants_phase(cfg, dev, smi):
             # the four decodes stacked: one decoder launch each way a step
             _, _, step_launches = counted(
                 "missing step", ("decoder_lstm_fwd", "decoder_lstm_bwd"),
-                lambda: program.step(tree, opt, Xb[0], yb[0], gen, 1e-3))
+                lambda: program.step(tree, opt, Xb[0], yb[0], gen))
             decoder = {k: step_launches[k] for k in ("decoder_lstm_fwd",
                                                      "decoder_lstm_bwd")}
             log({"phase": "missing_step_launches", **decoder})
             if decoder != {"decoder_lstm_fwd": 1, "decoder_lstm_bwd": 1}:
                 raise AssertionError(f"a missing step launched the decoder "
                                      f"kernels {decoder} times, not once")
-        step_ms = cuda_ms(lambda: program.step(tree, opt, Xb[0], yb[0], gen,
-                                               1e-3), 30)
+        step_ms = cuda_ms(lambda: program.step(tree, opt, Xb[0], yb[0],
+                                               gen), 30)
         prof = profile_steps(program, tree, opt, Xb[0], yb[0], gen)
         log({"phase": "train_times", "model_type": model_type, "batch": n,
              "loss": ("beta_vae stage 1" if model_type == "kl_ef"
@@ -1650,19 +1668,326 @@ def probe_phase(cfg, dev, smi):
     ]
 
 
+def per_kernel(delta):
+    """An ``ops.counts.since`` delta by kernel name."""
+    return {name: delta[key] for name, key in counters().items()}
+
+
+def same_bits(a, b):
+    """Equal bit for bit, NaN where NaN."""
+    a, b = (np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor)
+                       else v) for v in (a, b))
+    return a.shape == b.shape and np.array_equal(a, b, equal_nan=True)
+
+
+def trainer_run(trainer, data, mcfg, dev, host, **kw):
+    """One trainer run through the chunked loop (on the card, one graph
+    replay an epoch after the first) or, ``host``, through the per-epoch
+    host loop (``FACTORIZED_TPU_HOST_LOOP=1``), from the seed ``SEED``:
+    (results, the run's ``_Setup``, each epoch's launches by kernel, the
+    chunked loops it made). The host loop's epochs end at their eval."""
+    import os
+
+    from factorized_tpu_torch import train, trainers
+    from factorized_tpu_torch.ops import counts
+    from factorized_tpu_torch.utils.logging import RunLogger
+
+    setups, loops, marks = [], [], []
+    real = (trainers._Setup, trainers.ChunkedLoop,
+            train.TrainProgram.evaluate)
+
+    class Setup(real[0]):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            setups.append(self)
+            marks.append(counts.snapshot())
+
+    class Loop(real[1]):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            loops.append(self)
+
+    def evaluate(self, *a):
+        out = real[2](self, *a)
+        marks.append(counts.snapshot())
+        return out
+
+    trainers._Setup, trainers.ChunkedLoop = Setup, Loop
+    if host:
+        train.TrainProgram.evaluate = evaluate
+        os.environ["FACTORIZED_TPU_HOST_LOOP"] = "1"
+    try:
+        res = trainer(*data, mcfg, seed=SEED, logger=RunLogger(echo=False),
+                      device=dev, **kw)
+    finally:
+        (trainers._Setup, trainers.ChunkedLoop,
+         train.TrainProgram.evaluate) = real
+        os.environ.pop("FACTORIZED_TPU_HOST_LOOP", None)
+    if host:
+        epochs = [counts.since(a, b) for a, b in zip(marks, marks[1:])]
+    else:
+        epochs = [e for loop in loops for e in loop.epoch_launches]
+    return res, setups[0], [per_kernel(e) for e in epochs], loops
+
+
+def loops_agree(label, host, graph):
+    """The graph loop's run against the host loop's: history, best and
+    final parameters, Adam's state and the scheduler's, bit for bit.
+    Returns {what: equal}; raises if any differs."""
+    from factorized_tpu_torch.convert import to_state_dict
+
+    (hres, hset, _, _), (gres, gset, _, _) = host, graph
+
+    def trees(a, b):
+        a, b = to_state_dict(a), to_state_dict(b)
+        return list(a) == list(b) and all(same_bits(a[k], b[k]) for k in a)
+
+    hh, gh = hres["history"], gres["history"]
+    agree = {
+        "history": len(hh) == len(gh) and all(
+            a.keys() == b.keys() and all(same_bits(a[k], b[k]) for k in a)
+            for a, b in zip(hh, gh)),
+        "best_params": trees(hres["params"], gres["params"]),
+        "final_params": trees(hset.params, gset.params),
+        "adam": all(same_bits(v, gset.optimizer.state_dict()["state"][k])
+                    for k, v in hset.optimizer.state_dict()["state"].items()),
+        "scheduler": vars(hset.scheduler) == vars(gset.scheduler),
+    }
+    if not all(agree.values()):
+        diff = float((hset.optimizer.flat - gset.optimizer.flat).abs()
+                     .nan_to_num(nan=float("inf")).max())
+        log({"phase": "train_loop_mismatch", "model": label, **agree,
+             "final_params_max_abs_diff": diff, "host": hh, "graph": gh})
+        raise AssertionError(f"{label}: the graph loop and the host loop "
+                             f"differ: {agree}")
+    return agree
+
+
+def loop_times(program, tree, opt, Xb, yb, Xv, yv, gen):
+    """One model's eager and replayed times at its training batch: epoch s
+    (host clock around an epoch and its eval, ended by a sync; replayed:
+    one ``ChunkedLoop.run(1)``, its host read included), step ms (CUDA
+    events over 30 eager steps and over 30 replays of one step's graph),
+    the device's idle share and device ms (torch.profiler over 10 eager
+    steps and over 3 replayed epochs; a replay's share also against the
+    wall of the epochs timed without it), the epoch graph's capture ms and
+    pool bytes, and the generator's offset over an eager and a replayed
+    epoch (the draws the replay consumed)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from factorized_tpu_torch.train import ChunkedLoop, Graphed
+    from factorized_tpu_torch.utils.checkpoint import BestKeeper
+    from factorized_tpu_torch.utils.scheduler import ReduceLROnPlateau
+
+    x, y = Xb[0], yb[0]
+    nb = Xb.shape[0]
+    opt.set_lr(1e-3)
+    eager_step_ms = cuda_ms(lambda: program.step(tree, opt, x, y, gen), 30)
+    prof = profile_steps(program, tree, opt, x, y, gen)
+
+    def eager_epoch():
+        program.train_epoch(tree, opt, Xb, yb, gen)
+        program.evaluate(tree, Xv, yv, gen)
+
+    eager_epoch_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eager_epoch()
+        torch.cuda.synchronize()
+        eager_epoch_s.append(time.perf_counter() - t0)
+    step_graph = Graphed(lambda: program.step(tree, opt, x, y, gen), (gen,))
+    replay_step_ms = cuda_ms(step_graph, 30)
+
+    loop = ChunkedLoop(program, tree, opt, Xb, yb, None, Xv, yv, gen,
+                       epochs=1)
+    loop.load(ReduceLROnPlateau(1e-3), BestKeeper("min"))
+    loop.run(1)  # the warm-up, eager
+    loop.run(1)  # the capture, then its replay
+    offsets = [gen.get_offset()]
+    eager_epoch()
+    torch.cuda.synchronize()
+    offsets.append(gen.get_offset())
+    loop.run(1)
+    offsets.append(gen.get_offset())
+    replay_epoch_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        loop.run(1)
+        replay_epoch_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            loop.run(1)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in p.key_averages() if on_device(e)]
+    device_ms = sum(e.device_time_total for e in kernels) / 1e3
+    eager = {"epoch_s": float(np.median(eager_epoch_s)),
+             "step_ms": eager_step_ms,
+             "device_idle_share": prof["device_idle_share"],
+             "device_ms_per_step": prof["device_ms_per_step"],
+             "launches_per_step": prof["kernel_launches_per_step"]}
+    # the profiler's tracing of every kernel slows a replay: its wall
+    # reads the idle share high, so the share is also taken against the
+    # epoch's wall without it
+    epoch_s = float(np.median(replay_epoch_s))
+    replayed = {"epoch_s": epoch_s, "step_ms": replay_step_ms,
+                "epoch_ms_per_step": epoch_s * 1e3 / nb,
+                "device_ms_per_epoch": device_ms / 3,
+                "device_idle_share": 1.0 - device_ms / 3 / (epoch_s * 1e3),
+                "device_idle_share_profiled_wall": 1.0 - device_ms / wall_ms,
+                "kernels_seen_per_epoch": sum(e.count for e in kernels) / 3}
+    if not kernels:
+        raise AssertionError("torch.profiler saw no kernel of a replay")
+    return {"eager": eager, "replayed": replayed,
+            "capture_ms": loop.epoch.capture_ms,
+            "graph_pool_bytes": loop.epoch.pool_bytes,
+            "step_capture_ms": step_graph.capture_ms,
+            "step_graph_pool_bytes": step_graph.pool_bytes,
+            "generator_offset_per_epoch": {
+                "eager": offsets[1] - offsets[0],
+                "replayed": offsets[2] - offsets[1]}}
+
+
+def masks_phase(cfg, dev):
+    """Two replays of a graph that draws the encode's dropout masks and
+    the MMD noise draw different ones, each the draw an eager call makes
+    from the same seed at that point."""
+    from factorized_tpu_torch.models import mfm
+    from factorized_tpu_torch.models.common import mfn_drops
+    from factorized_tpu_torch.ops import cuda_mfn
+    from factorized_tpu_torch.train import Graphed
+
+    t, n = cfg.seqlength, N_TRAIN
+    sizes = (cfg.att1_shape, cfg.att2_shape, cfg.gamma1_shape,
+             cfg.gamma2_shape)
+
+    def draw(gen):
+        return torch.cat([
+            cuda_mfn.make_dropout_masks(gen, t, n, sizes,
+                                        mfn_drops(cfg)).reshape(-1),
+            torch.randn(mfm.mmd_noise_shape(cfg, n), generator=gen,
+                        device=dev).reshape(-1)])
+
+    eager_gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    eager = [draw(eager_gen) for _ in range(3)]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    out = torch.empty_like(eager[0])
+    graph = Graphed(lambda: out.copy_(draw(gen)), (gen,))
+    got = []
+    for _ in range(3):  # eager warm-up, capture and replay, replay
+        graph()
+        got.append(out.clone())
+    if torch.equal(got[1], got[2]):
+        raise AssertionError("two replays drew the same masks")
+    if not all(torch.equal(a, b) for a, b in zip(got, eager)):
+        raise AssertionError("the replays' masks are not the eager draws")
+    return {"replays_differ": True, "equal_eager_draws": True,
+            "values_drawn": out.numel()}
+
+
+def loop_phase(cfg, dev, smi):
+    """Step 12: the chunked training loop. ``mfm``, ``kl_ef`` (both
+    stages) and ``missing`` train on the synthetic MOSI set at batch 32
+    through the graph loop and through the host loop from one seed: equal
+    histories, best and final parameters, Adam's state, and each kernel's
+    launches epoch for epoch; a forced divergence truncates both at the
+    same epoch; two replays draw different masks; each model's epoch s,
+    step ms and device idle share, eager and replayed, with the capture's
+    ms and the graph pool's bytes."""
+    from factorized_tpu_torch import trainers
+    from factorized_tpu_torch.data import mosi
+    from factorized_tpu_torch.models import mfm
+    from factorized_tpu_torch.train import TrainProgram, make_optimizer
+
+    t, n = cfg.seqlength, N_TRAIN
+    data = mosi.get_data(t)
+    runs = {
+        "mfm": (trainers.train_mfm, cfg, LOOP_EPOCHS, mfm.mfm_apply,
+                ("joint", 0),
+                ("mfm_encode_fwd", "mfm_encode_bwd", "mfm_encode_dw",
+                 "decoder_lstm_fwd", "decoder_lstm_bwd")),
+        "kl_ef": (trainers.train_beta_vae, cfg.replace(model_type="kl_ef"),
+                  LOOP_EPOCHS - 1, mfm.mfm_kl_ef_apply, ("beta_vae", 1),
+                  ("multi_lstm_fwd", "multi_lstm_bwd", "decoder_lstm_fwd",
+                   "decoder_lstm_bwd")),
+        "missing": (trainers.train_mfm_missing, cfg.replace(missing=1),
+                    LOOP_EPOCHS, mfm.mfm_missing_apply, ("missing", 0),
+                    ("mfm_encode_fwd", "mfm_encode_bwd", "mfm_encode_dw",
+                     "multi_lstm_fwd", "multi_lstm_bwd", "decoder_lstm_fwd",
+                     "decoder_lstm_bwd")),
+    }
+    Xb = torch.from_numpy(np.ascontiguousarray(
+        data[0][:19 * n].reshape(19, n, t, -1).transpose(0, 2, 1, 3))).to(dev)
+    yb = torch.from_numpy(data[1][:19 * n].reshape(19, n)).to(dev)
+    Xv = torch.from_numpy(np.ascontiguousarray(
+        data[2].transpose(1, 0, 2), dtype=np.float32)).to(dev)
+    yv = torch.from_numpy(data[3].astype(np.float32)).to(dev)
+    for model_type, (trainer, mcfg, epochs, apply_fn, (variant, stage),
+                     kernels) in runs.items():
+        mcfg = mcfg.replace(num_epochs=epochs)
+        host = trainer_run(trainer, data, mcfg, dev, True)
+        graph = trainer_run(trainer, data, mcfg, dev, False)
+        agree = loops_agree(model_type, host, graph)
+        if host[2] != graph[2]:
+            raise AssertionError(f"{model_type}: launches per epoch differ: "
+                                 f"host {host[2]}, graph {graph[2]}")
+        for name in kernels:
+            if sum(e[name] for e in graph[2]) < 1:
+                raise AssertionError(f"{name} was not launched by the "
+                                     f"{model_type} graph loop")
+        hist = graph[0]["history"]
+        if len(hist) != epochs * (2 if model_type == "kl_ef" else 1) or \
+                not np.all(np.isfinite([e["train_loss"] for e in hist])):
+            raise AssertionError(f"{model_type} did not train clean: {hist}")
+        program = TrainProgram(apply_fn, mcfg, variant, stage=stage)
+        tree = mfm.MFM(mcfg, seed=SEED, device=dev,
+                       model_type=model_type).tree()
+        opt = make_optimizer(tree, 1e-3)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+        times = loop_times(program, tree, opt, Xb, yb, Xv, yv, gen)
+        offsets = times["generator_offset_per_epoch"]
+        if not offsets["eager"] == offsets["replayed"] > 0:
+            raise AssertionError(f"{model_type}: a replayed epoch drew "
+                                 f"otherwise than an eager one: {offsets}")
+        log({"phase": "train_loop", "model_type": model_type,
+             "nvidia_smi": smi, "batch": n, "epoch_batches": 19,
+             "epochs": epochs, "bitwise": agree,
+             "graphs": [loop.epoch.capture_ms is not None
+                        for loop in graph[3]],
+             "launches_per_epoch": graph[2],
+             "history": hist, **times})
+
+    # a forced divergence truncates both loops at the same epoch, the live
+    # parameters equal (NaN where NaN)
+    mcfg = cfg.replace(num_epochs=LOOP_EPOCHS)
+    host = trainer_run(trainers.train_mfm, data, mcfg, dev, True, lr=1e18)
+    graph = trainer_run(trainers.train_mfm, data, mcfg, dev, False, lr=1e18)
+    agree = loops_agree("mfm diverging", host, graph)
+    if not graph[0]["history"][-1].get("diverged"):
+        raise AssertionError(f"lr 1e18 did not diverge: "
+                             f"{graph[0]['history']}")
+    log({"phase": "train_loop_divergence", "lr": 1e18, "bitwise": agree,
+         "diverged_at": graph[0]["history"][-1]["epoch"],
+         "launches_per_epoch": {"host": host[2], "graph": graph[2]}})
+    log({"phase": "train_loop_masks", **masks_phase(cfg, dev)})
+
+
 def profile_steps(program, tree, opt, x, y, gen, steps=10):
     """torch.profiler over train steps: launches per step, device time,
     and the share of the wall in which the device was idle."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
-        program.step(tree, opt, x, y, gen, 1e-3)
+        program.step(tree, opt, x, y, gen)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            program.step(tree, opt, x, y, gen, 1e-3)
+            program.step(tree, opt, x, y, gen)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()

@@ -128,7 +128,9 @@ def _mmd4(zl, za, zv, zy, noise):
     mask = torch.stack([
         torch.cat([Z.new_ones(d), Z.new_zeros(dmax - d)]) for d in dims])
     R = noise * mask[:, None, :]
-    inv_d2 = Z.new_tensor([1.0 / (d * d) for d in dims])
+    # filled on the device, not copied from the host: a CUDA graph's
+    # capture may not copy from pageable host memory
+    inv_d2 = torch.stack([Z.new_full((), 1.0 / (d * d)) for d in dims])
 
     def kmean(A, B):
         a2 = torch.sum(A * A, dim=2)[:, :, None]

@@ -35,9 +35,10 @@ alone. Prints JSON lines:
   device ms by torch.profiler, since its calls stall the host while the
   card sleeps); each model's train step (device ms summed over kernels
   and copies, the ``record_function`` spans such as Adam's step apart)
-  and the padded 256-row predict. Both call only what every build of the
-  port has, so this module run against an earlier build's package (that
-  build first on ``sys.path``) gives the A/B;
+  and epoch, eager and, where the build has the chunked loop, replayed
+  from CUDA graphs; and the padded 256-row predict. Both call only what
+  every build of the port has, so this module run against an earlier
+  build's package (that build first on ``sys.path``) gives the A/B;
 - ``phases`` (part ``phases``, run alone: it builds the kernels with
   ``FTT_PHASE_CLOCKS``): one line per chain kernel and cell, the mean
   SM cycles of each phase of a step over one call's steps, stamped by
@@ -484,10 +485,16 @@ def dw_library(operands, deltas, weights):
 def step_times(cfg, dev):
     """Each model's train step at batch 32 (CUDA events over 30 steps;
     device ms, launches and the device's idle share under torch.profiler
-    over 10) and the padded 256-row ``predict`` of ``mfm`` (median of 20,
-    host clock) before and after the steps: one JSON line. Like
-    ``kernel_times`` it calls only what every build of the port has, for
-    the A/B."""
+    over 10) and its epoch of 19 batches with the eval (host clock, median
+    of 3), eager; where the build has the chunked loop (``train.Graphed``)
+    the same replayed: a step as one graph's replay (CUDA events over 30),
+    an epoch as one ``ChunkedLoop.run(1)`` (median of 3), the device's
+    idle share over 3 replayed epochs, and the epoch graph's capture ms
+    and pool bytes; and the padded 256-row predict of ``mfm`` (median of
+    20, host clock) before and after the steps: one JSON line. Like
+    ``kernel_times`` it calls only what every build of the port has, or
+    writes null, for the A/B."""
+    from factorized_tpu_torch import train
     from factorized_tpu_torch.data import mosi
     from factorized_tpu_torch.train import TrainProgram, make_optimizer
 
@@ -502,9 +509,16 @@ def step_times(cfg, dev):
 
     before = predict_ms()
     data = mosi.get_data(t)
-    x = torch.from_numpy(np.ascontiguousarray(
-        data[0][:n].transpose(1, 0, 2))).to(dev)
-    y = torch.from_numpy(data[1][:n]).to(dev)
+
+    def on_card(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    Xb = on_card(data[0][:19 * n].reshape(19, n, t, -1)
+                 .transpose(0, 2, 1, 3))
+    yb = on_card(data[1][:19 * n].reshape(19, n))
+    Xv = on_card(data[2].transpose(1, 0, 2).astype(np.float32))
+    yv = on_card(data[3].astype(np.float32))
+    x, y = Xb[0], yb[0]
     gen = torch.Generator(device=dev).manual_seed(6)
     programs = {
         "mfm": TrainProgram(mfm.mfm_apply, cfg),
@@ -518,9 +532,15 @@ def step_times(cfg, dev):
     for model_type, program in programs.items():
         tree = mfm.MFM(cfg, seed=0, device=dev, model_type=model_type).tree()
         opt = make_optimizer(tree, 1e-3)
+        # an earlier build's step takes the lr every call
+        lr = () if hasattr(opt, "set_lr") else (1e-3,)
 
         def step():
-            program.step(tree, opt, x, y, gen, 1e-3)
+            program.step(tree, opt, x, y, gen, *lr)
+
+        def epoch():
+            program.run_epoch(tree, opt, Xb, yb, gen, 1e-3)
+            program.evaluate(tree, Xv, yv, gen)
 
         step_ms = _ms(step, 30)
         spans = {}
@@ -531,11 +551,52 @@ def step_times(cfg, dev):
             "launches_per_step": sum(c for _, c in kernels.values()) / 10,
             "device_idle_share": 1.0 - device_ms / wall_ms,
             "annotation_span_ms_per_step": {k: v / 10
-                                            for k, v in spans.items()}}
+                                            for k, v in spans.items()},
+            "epoch_s": _epoch_s(epoch), "replayed": None}
+        if hasattr(train, "Graphed"):
+            out[model_type]["replayed"] = _replayed_times(
+                program, tree, opt, Xb, yb, Xv, yv, gen, step)
     print(json.dumps({
         "step_times": out, "predict_ms": before,
         "predict_ms_after_steps": predict_ms(),
         "package": str(Path(cuda_mfn.__file__).parents[1])}), flush=True)
+
+
+def _epoch_s(fn, reps=3):
+    """Median host seconds of fn(), each call ended by a sync."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return float(np.median(times))
+
+
+def _replayed_times(program, tree, opt, Xb, yb, Xv, yv, gen, step):
+    """The graph loop's times (see ``step_times``)."""
+    from factorized_tpu_torch.train import ChunkedLoop, Graphed
+    from factorized_tpu_torch.utils.checkpoint import BestKeeper
+    from factorized_tpu_torch.utils.scheduler import ReduceLROnPlateau
+
+    graph_step = Graphed(step, (gen,))
+    step_ms = _ms(graph_step, 30)
+    loop = ChunkedLoop(program, tree, opt, Xb, yb, None, Xv, yv, gen,
+                       epochs=1)
+    loop.load(ReduceLROnPlateau(1e-3), BestKeeper("min"))
+    for _ in range(2):  # the eager warm-up; the capture and its replay
+        loop.run(1)
+    epoch_s = _epoch_s(lambda: loop.run(1))
+    wall_ms, kernels = _profiled(lambda: loop.run(1), 3)
+    device_ms = sum(ms for ms, _ in kernels.values()) / 3
+    # the profiler slows a replay: the share against the unprofiled wall
+    return {"step_ms": step_ms, "epoch_s": epoch_s,
+            "device_ms_per_epoch": device_ms,
+            "device_idle_share": 1.0 - device_ms / (epoch_s * 1e3),
+            "device_idle_share_profiled_wall": 1.0 - 3 * device_ms / wall_ms,
+            "capture_ms": loop.epoch.capture_ms,
+            "graph_pool_bytes": loop.epoch.pool_bytes}
 
 
 def _sm_clock():

@@ -1,7 +1,11 @@
 """Experiment-level trainers of the port (port of ``train_mfm``,
 ``train_beta_vae`` and ``train_mfm_missing`` of
-``factorized_tpu/trainers.py``, with the semantics of its host loop
-``_loop_host``).
+``factorized_tpu/trainers.py``, with its loops: ``_loop`` runs
+``_loop_chunked``, chunks of epochs on the device with one host read a
+chunk, on a CUDA card one graph replay an epoch, unless
+``FACTORIZED_TPU_HOST_LOOP=1`` picks ``_loop_host``, the per-epoch host
+loop; ``FACTORIZED_TPU_EPOCH_CHUNK`` sets the epochs a chunk, 10 by
+default).
 
 Each takes numpy arrays shaped like the reference loaders emit
 (batch-major ``(n, t, d)`` X, 1-D y) and an ``MFMConfig``; it trains on
@@ -14,6 +18,7 @@ comes from one ``torch.Generator`` seeded from ``seed``.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -24,7 +29,8 @@ from factorized_tpu_torch.models import get_model
 from factorized_tpu_torch.models.common import split_modalities
 from factorized_tpu_torch.models.mfm import MFM
 from factorized_tpu_torch.ops.losses import l2_loss
-from factorized_tpu_torch.train import (TrainProgram, make_batches,
+from factorized_tpu_torch.train import (DEFAULT_EPOCH_CHUNK, ChunkedLoop,
+                                        TrainProgram, make_batches,
                                         make_optimizer,
                                         shuffle_and_time_major)
 from factorized_tpu_torch.utils.checkpoint import BestKeeper, to_cpu
@@ -70,14 +76,79 @@ def _score(y_hat, y_test, cfg, binary_threshold, threshold_mode):
     return score_regression(y_hat, y_test, binary_threshold, threshold_mode)
 
 
+def _loop(program, params, optimizer, Xb, yb, remainder, Xv, yv,
+          num_epochs, scheduler, keeper, logger, generator,
+          save_always=False):
+    """The trainer epoch loop: train epoch -> full-set eval -> plateau
+    scheduler -> best-valid keeper, with a divergence break (a non-finite
+    train or valid loss ends the run before the scheduler and the keeper
+    see it). ``save_always`` keeps every healthy epoch's parameters (the
+    beta-VAE trainer's unconditional save). Chunks of epochs on the device
+    (``_loop_chunked``) unless ``FACTORIZED_TPU_HOST_LOOP=1`` picks the
+    per-epoch host loop (``_loop_host``); both give the same run
+    (``tests/test_torch_chunked_loop.py``). Returns the history."""
+    if num_epochs <= 0:
+        return []
+    loop = (_loop_host if os.environ.get("FACTORIZED_TPU_HOST_LOOP", "") == "1"
+            else _loop_chunked)
+    return loop(program, params, optimizer, Xb, yb, remainder, Xv, yv,
+                num_epochs, scheduler, keeper, logger, generator, save_always)
+
+
+def _loop_chunked(program, params, optimizer, Xb, yb, remainder, Xv, yv,
+                  num_epochs, scheduler, keeper, logger, generator,
+                  save_always=False):
+    """Chunked twin of ``_loop_host`` (the JAX package's
+    ``_loop_chunked``): ``train.ChunkedLoop`` runs up to
+    ``DEFAULT_EPOCH_CHUNK`` epochs (``FACTORIZED_TPU_EPOCH_CHUNK``) with
+    the scheduler, the keeper and the divergence gate on the device, then
+    the host reads the chunk's records once, logs them and stops at the
+    first diverged epoch. The host scheduler and keeper are mirrored into
+    the device state before the first chunk and back after the last."""
+    chunk = (int(os.environ.get("FACTORIZED_TPU_EPOCH_CHUNK", 0))
+             or min(num_epochs, DEFAULT_EPOCH_CHUNK))
+    sched_kw = {"mode": scheduler.mode, "factor": scheduler.factor,
+                "patience": scheduler.patience,
+                "threshold": scheduler.threshold,
+                "cooldown": scheduler.cooldown, "min_lr": scheduler.min_lr}
+    loop = ChunkedLoop(program, params, optimizer, Xb, yb, remainder, Xv, yv,
+                       generator, epochs=chunk, mode=keeper.mode,
+                       save_always=save_always, sched_kw=sched_kw)
+    loop.load(scheduler, keeper)
+    history = []
+    any_saved = keeper.best_params is not None
+    diverged = False
+    e = 0
+    while e < num_epochs and not diverged:
+        n = min(chunk, num_epochs - e)
+        for j, (tl, vl, lr, saved, ok) in enumerate(loop.run(n)):
+            ep = e + j
+            tl, vl, lr = float(tl), float(vl), float(lr)
+            if not ok:
+                logger.text(ep, tl, vl, "DIVERGED - aborting run")
+                logger.record("diverged", epoch=ep, train_loss=tl,
+                              valid_loss=vl)
+                history.append({"epoch": ep, "train_loss": tl, "valid": vl,
+                                "diverged": True})
+                diverged = True
+                break
+            saved = bool(saved)
+            if saved:
+                any_saved = True
+                keeper.best_epoch = ep
+            logger.epoch(ep, tl, vl, saved, lr=lr)
+            history.append({"epoch": ep, "train_loss": tl, "valid": vl,
+                            "lr": lr})
+        e += n
+    loop.store(scheduler, keeper, any_saved)
+    return history
+
+
 def _loop_host(program, params, optimizer, Xb, yb, remainder, Xv, yv,
                num_epochs, scheduler, keeper, logger, generator,
                save_always=False):
-    """The per-epoch loop: train epoch -> full-set eval -> ReduceLROnPlateau
-    -> best-valid keeper, with a divergence break (a non-finite train or
-    valid loss ends the run before the scheduler and the keeper see it).
-    ``save_always`` keeps every healthy epoch's parameters (the beta-VAE
-    trainer's unconditional save). Returns the history."""
+    """The per-epoch host loop: an eager epoch, the eval, and the host
+    scheduler and keeper, the host waiting on the card every epoch."""
     history = []
     lr = scheduler.lr
     for epoch in range(num_epochs):
@@ -131,10 +202,9 @@ class _Setup:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
 
     def loop(self, program, keeper, num_epochs, logger, save_always=False):
-        return _loop_host(program, self.params, self.optimizer, self.Xb,
-                          self.yb, self.rem, self.Xv, self.yv, num_epochs,
-                          self.scheduler, keeper, logger, self.generator,
-                          save_always)
+        return _loop(program, self.params, self.optimizer, self.Xb, self.yb,
+                     self.rem, self.Xv, self.yv, num_epochs, self.scheduler,
+                     keeper, logger, self.generator, save_always)
 
     def score(self, params, cfg, logger, binary_threshold, threshold_mode):
         """The test metrics of ``params``' eval forward on the test set."""

@@ -6,7 +6,8 @@ A checkpoint is a directory holding ``state.pt`` (``torch.save`` of
 package's schema: ``step``, ``config``, ``has_opt_state`` and ``format``
 (here ``"torch"``). Every tensor is stored on the CPU. Reading the JAX
 package's Orbax or msgpack directories needs JAX and is not ported.
-``BestKeeper`` keeps the parameters of the best epoch in host memory.
+``BestKeeper`` keeps the parameters of the best epoch in host memory;
+``keeps`` is its rule on tensors, for the chunked training loop.
 """
 
 from __future__ import annotations
@@ -84,3 +85,15 @@ class BestKeeper:
             self.best_params = to_cpu(params)
             self.best_epoch = epoch
         return better
+
+
+def keeps(metric, best, ok, mode: str = "min", save_always: bool = False):
+    """``BestKeeper.update``'s rule on tensors: whether a healthy (``ok``)
+    epoch's ``metric`` replaces ``best``, ``<=`` in mode 'min' and ``>=``
+    in mode 'max'; with ``save_always`` (the beta-VAE trainer's
+    unconditional save) every healthy epoch replaces it."""
+    if mode not in ("min", "max"):
+        raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
+    if save_always:
+        return ok
+    return ok & (metric <= best if mode == "min" else metric >= best)

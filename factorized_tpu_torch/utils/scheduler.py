@@ -1,7 +1,9 @@
-"""The host-side learning-rate scheduler (port of the ``ReduceLROnPlateau``
-class of ``factorized_tpu/utils/scheduler.py``).
+"""The learning-rate scheduler (port of ``factorized_tpu/utils/scheduler.py``):
+the host class ``ReduceLROnPlateau`` and ``plateau_step``, the same
+schedule as a function of tensors that the chunked training loop steps on
+the device (``train.ChunkedLoop``).
 
-It reproduces ``torch.optim.lr_scheduler.ReduceLROnPlateau(optimizer,
+The class reproduces ``torch.optim.lr_scheduler.ReduceLROnPlateau(optimizer,
 'min')`` with torch's defaults (factor 0.1, patience 10, relative
 threshold 1e-4, cooldown 0), with the comparisons and the reduction in
 float32 as the JAX package does, so the two packages step the same
@@ -11,6 +13,40 @@ schedule from the same metrics.
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def plateau_step(state, metric, *, mode: str = "min", factor: float = 0.1,
+                 patience: int = 10, threshold: float = 1e-4,
+                 cooldown: int = 0, min_lr: float = 0.0):
+    """One scheduler step on tensors of one shape: ``state`` is {"lr",
+    "best" (float32), "bad", "cooldown" (int32)}, ``metric`` a float32
+    tensor; returns the new state, nothing changed in place. The update
+    order of ``ReduceLROnPlateau.step``: the is-better test against the
+    old best, the cooldown's decrement clearing the bad-epoch count, the
+    patience overrun reducing the lr and arming the cooldown. The
+    comparisons and the reduction run in float32, as the JAX package's
+    ``plateau_step`` and the host class; ``lr`` keeps its own dtype (the
+    training loop's is float64, so an lr never reduced stays the
+    caller's float bit for bit, as the host class's)."""
+    if mode not in ("min", "max"):
+        raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
+    metric = metric.to(torch.float32)
+    if mode == "min":
+        is_better = metric < state["best"] * (1.0 - threshold)
+    else:
+        is_better = metric > state["best"] * (1.0 + threshold)
+    best = torch.where(is_better, metric, state["best"])
+    bad = torch.where(is_better, 0, state["bad"] + 1)
+    in_cd = state["cooldown"] > 0
+    cd = torch.where(in_cd, state["cooldown"] - 1, state["cooldown"])
+    bad = torch.where(in_cd, 0, bad)
+    reduce_ = bad > patience
+    lr = state["lr"]
+    reduced = torch.clamp_min(lr.to(torch.float32) * factor, min_lr)
+    return {"lr": torch.where(reduce_, reduced.to(lr.dtype), lr),
+            "best": best, "bad": torch.where(reduce_, 0, bad),
+            "cooldown": torch.where(reduce_, cooldown, cd)}
 
 
 class ReduceLROnPlateau:

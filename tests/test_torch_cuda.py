@@ -18,7 +18,7 @@ from factorized_tpu_torch.config import MFMConfig, best_acc_mosi_config
 from factorized_tpu_torch.convert import from_state_dict, to_state_dict
 from factorized_tpu_torch.models import mfm
 from factorized_tpu_torch.models.common import mfn_drops
-from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
+from factorized_tpu_torch.ops import counts, cuda_lstm, cuda_mfn
 from factorized_tpu_torch.serve import Predictor
 from factorized_tpu_torch.train import make_loss_fn
 
@@ -732,3 +732,66 @@ def test_train_step_grads_on_the_card_match_the_cpu(cuda, model_type):
     cpu, card = _step_grads(model_type, ("cpu", cuda))
     for k in cpu:
         torch.testing.assert_close(card[k], cpu[k], **GRAD)
+
+
+def _train_small(cuda, monkeypatch, host, model_type):
+    from factorized_tpu_torch import trainers
+    from factorized_tpu_torch.utils.logging import RunLogger
+
+    rng = np.random.default_rng(7)
+
+    def split(k):
+        X = rng.normal(size=(k, 6, SMALL.d_total)).astype(np.float32)
+        return X, X[:, -1, :3].sum(1).astype(np.float32)
+
+    data = (*split(40), *split(12), *split(10))
+    with monkeypatch.context() as m:
+        m.setenv("FACTORIZED_TPU_EPOCH_CHUNK", "2")
+        if host:
+            m.setenv("FACTORIZED_TPU_HOST_LOOP", "1")
+        else:
+            m.delenv("FACTORIZED_TPU_HOST_LOOP", raising=False)
+        before = counts.snapshot()
+        trainer = (trainers.train_beta_vae if model_type == "kl_ef"
+                   else trainers.train_mfm)
+        res = trainer(*data, SMALL.replace(batchsize=8, num_epochs=3,
+                                           model_type=model_type),
+                      seed=1, device=cuda, logger=RunLogger(echo=False))
+    return res, counts.since(before)
+
+
+@pytest.mark.parametrize("model_type", ["mfm", "kl_ef"])
+def test_graph_loop_equals_the_host_loop(cuda, monkeypatch, model_type):
+    """train_mfm, and train_beta_vae's two stages (one graph each), at
+    small widths, 3 epochs in chunks of 2: each epoch after a program's
+    first one graph replay, against the per-epoch host loop: the same
+    history and returned parameters bit for bit, and the replays count
+    each kernel's launches as the eager epochs do."""
+    host, host_launches = _train_small(cuda, monkeypatch, True, model_type)
+    graph, graph_launches = _train_small(cuda, monkeypatch, False,
+                                         model_type)
+    assert host["history"] == graph["history"]
+    for k, v in to_state_dict(host["params"]).items():
+        assert torch.equal(v, to_state_dict(graph["params"])[k]), k
+    assert graph_launches == host_launches
+    assert graph_launches[(cuda_lstm, "LAUNCHES")] > 0
+
+
+def test_graph_replays_draw_new_masks(cuda):
+    from factorized_tpu_torch.train import Graphed
+
+    def draw(gen):
+        return cuda_mfn.make_dropout_masks(gen, 6, 5, (8, 8, 8, 8),
+                                           (0.5, 0.5, 0.5, 0.5))
+
+    eager_gen = torch.Generator(device=cuda).manual_seed(3)
+    eager = [draw(eager_gen) for _ in range(3)]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    out = torch.empty_like(eager[0])
+    graph = Graphed(lambda: out.copy_(draw(gen)), (gen,))
+    got = []
+    for _ in range(3):  # eager warm-up; capture and replay; replay
+        graph()
+        got.append(out.clone())
+    assert not torch.equal(got[1], got[2])
+    assert all(torch.equal(a, b) for a, b in zip(got, eager))

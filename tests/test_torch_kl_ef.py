@@ -272,7 +272,7 @@ def test_train_beta_vae_two_stages_on_cpu(tmp_path, monkeypatch):
     # one Adam across both stages (4 batches per epoch, 4 epochs)
     assert len(keepers) == 2 and len(schedulers) == 1
     assert [(k.best, k.best_epoch) for k in keepers] == [(2.0, 1), (4.0, 1)]
-    assert res["opt_state"]["state"][0]["step"] == 16
+    assert int(res["opt_state"]["state"]["count"]) == 16
     records = [json.loads(line) for line in
                (tmp_path / "run.jsonl").read_text().splitlines()]
     assert [r["kind"] for r in records] == ["epoch"] * 4 + ["final"]

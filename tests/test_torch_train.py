@@ -178,15 +178,12 @@ def test_adam_matches_optax_scale_by_adam():
         pj = jax.tree.map(lambda p, u_: p - lr * u_, pj, u)
 
     tree = from_numpy(p0)
-    leaves = train.leaves(tree)
-    for leaf in leaves:
-        leaf.requires_grad_()
     optimizer = train.make_optimizer(tree, lrs[0])
     for g, lr in zip(grads, lrs):
-        for leaf, gl in zip(leaves, train.leaves(from_numpy(g))):
-            leaf.grad = gl
-        for group in optimizer.param_groups:
-            group["lr"] = lr
+        # each leaf's grad is a view of the flat Adam's gradient buffer
+        for leaf, gl in zip(train.leaves(tree), train.leaves(from_numpy(g))):
+            leaf.grad.copy_(gl)
+        optimizer.set_lr(lr)
         optimizer.step()
     for a, b in zip(train.leaves(tree), jax.tree.leaves(pj)):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
