@@ -1,10 +1,13 @@
-"""Command line of the port: ``python -m factorized_tpu_torch mosi`` and
-``python -m factorized_tpu_torch serve``.
+"""Command line of the port: ``python -m factorized_tpu_torch mosi``,
+``... test_mosi`` and ``... serve``.
 
 Ported subcommands: ``mosi`` (``factorized_tpu/cli.py``'s ``run_dataset``
 for MOSI, modes ``best`` and ``single``, on the synthetic MOSI set) with
-``--type mfm``, ``--type kl_ef`` and ``--missing 1``, and ``serve``
-(``run_serve``, from a checkpoint of this package). Both run on the CUDA
+``--type mfm``, ``--type kl``, ``--type kl_ef`` and ``--missing 1``;
+``test_mosi`` (``run_test_mosi``: score a checkpoint on the MOSI test
+set, then the latency probe and the on-device latency); and ``serve``
+(``run_serve``, from a checkpoint of this package or an exported
+artifact, with ``--autotune`` and ``--export``). Each runs on the CUDA
 card unless ``--device`` says otherwise.
 """
 
@@ -24,8 +27,8 @@ PORTED_TRAINERS = ("train_mfm", "train_beta_vae", "train_mfm_missing")
 
 def trainer_name(cfg):
     """The trainer the JAX package's ``dispatch_trainer`` picks for
-    ``cfg``, by the same if-chain. One the port does not have, or
-    ``train_mfm`` for ``kl``, exits with "not yet ported"."""
+    ``cfg``, by the same if-chain. One the port does not have exits with
+    "not yet ported"."""
     kind = cfg.model_type
     if cfg.missing == 1 and kind in ("bm", "mfm", "s2s"):
         name = {"bm": "train_basic_missing", "mfm": "train_mfm_missing",
@@ -41,11 +44,11 @@ def trainer_name(cfg):
     else:
         raise SystemExit(f"no trainer for type={kind!r} "
                          f"missing={cfg.missing} zeros={cfg.zeros}")
-    if name not in PORTED_TRAINERS or kind == "kl":
+    if name not in PORTED_TRAINERS:
         raise SystemExit(
             f"--type {kind} --missing {cfg.missing} --zeros {cfg.zeros} "
             f"({name}) is not yet ported; the port trains --type mfm, "
-            f"--type kl_ef and --missing 1")
+            f"--type kl, --type kl_ef and --missing 1")
     return name
 
 
@@ -111,10 +114,66 @@ def run_mosi(args):
     return 0
 
 
-def run_serve(args):
-    from factorized_tpu_torch.serve import Predictor, serve_http
+def run_test_mosi(args):
+    """Score a checkpoint on the MOSI test set (synthetic when the real
+    files are absent, as ``mosi``): regression, or classification of the
+    binarized sentiment ``y >= 0``; then the latency probe and the
+    on-device latency, one JSON line each."""
+    import numpy as np
+
+    from factorized_tpu_torch.serve import Predictor
+    from factorized_tpu_torch.utils.metrics import (score_classification,
+                                                    score_regression)
 
     predictor = Predictor.from_checkpoint(args.checkpoint, device=args.device)
+    _, _, _, _, X_test, y_test = load_mosi(predictor.cfg.seqlength)
+    if args.autotune:
+        tuned = predictor.autotune(X_test)
+        print("autotuned batch sizes:", json.dumps(tuned),
+              "-> using", predictor.batch_size)
+    y_hat = predictor.predict(X_test)
+    if predictor.cfg.task == "regression":
+        score_regression(y_hat, y_test)
+    else:
+        score_classification(y_hat, (y_test >= 0).astype(np.int64))
+    probe = predictor.probe(X_test)
+    print("inference probe:", json.dumps(probe))
+    dev = predictor.device_latency(X_test)
+    print("on-device latency:", json.dumps(dev))
+    return 0
+
+
+def run_serve(args):
+    import numpy as np
+
+    from factorized_tpu_torch.serve import Predictor, serve_http
+
+    if args.exported:
+        if args.export:
+            raise SystemExit(
+                "--export only applies when loading from --checkpoint "
+                "(the artifact is already exported)")
+        predictor = Predictor.from_exported(args.exported, device=args.device)
+        if args.autotune and not predictor._symbolic:
+            raise SystemExit(
+                "this artifact has a fixed batch shape "
+                "(symbolic_batch=False at export time): --autotune "
+                "needs a symbolic-batch artifact or --checkpoint")
+    else:
+        predictor = Predictor.from_checkpoint(args.checkpoint,
+                                              device=args.device)
+    if args.autotune:
+        # tune on synthetic traffic shaped like the model's input
+        d = sum(predictor.cfg.input_dims)
+        X = np.random.default_rng(0).normal(
+            size=(1024, predictor.cfg.seqlength, d)).astype(np.float32)
+        tuned = predictor.autotune(X)
+        print("autotuned batch sizes:", json.dumps(tuned),
+              "-> using", predictor.batch_size)
+    if args.export:
+        out = predictor.export(args.export)
+        print(f"exported artifact to {out}")
+        return 0
     serve_http(predictor, args.host, args.port,
                micro_batch=not args.no_microbatch,
                max_wait_ms=args.max_wait_ms)
@@ -126,7 +185,7 @@ def build_parser():
     sub = p.add_subparsers(dest="command", required=True)
     sp = sub.add_parser("mosi", help="train MFM on (synthetic) CMU-MOSI")
     sp.add_argument("--type", default="mfm",
-                    help="model type; mfm and kl_ef are ported")
+                    help="model type; mfm, kl and kl_ef are ported")
     sp.add_argument("--mode", default="single", choices=["best", "single"],
                     help="best: best_acc_mosi_config; single: the "
                          "MFMConfig defaults")
@@ -148,12 +207,35 @@ def build_parser():
                          "(e.g. --device cpu)")
     sp.set_defaults(func=run_mosi)
 
-    sp = sub.add_parser("serve", help="JSON-over-HTTP inference endpoint")
+    sp = sub.add_parser("test_mosi",
+                        help="score a checkpoint on the MOSI test set")
     sp.add_argument("--checkpoint", required=True,
                     help="directory written by utils.checkpoint."
                          "save_checkpoint")
+    sp.add_argument("--autotune", action="store_true",
+                    help="pick the serving batch size by throughput")
+    sp.add_argument("--device", default=None,
+                    help="torch device; the CUDA card unless given "
+                         "(e.g. --device cpu)")
+    sp.set_defaults(func=run_test_mosi)
+
+    sp = sub.add_parser("serve", help="JSON-over-HTTP inference endpoint")
+    group = sp.add_mutually_exclusive_group(required=True)
+    group.add_argument("--checkpoint",
+                       help="directory written by utils.checkpoint."
+                            "save_checkpoint")
+    group.add_argument("--exported",
+                       help="serve from a Predictor.export artifact (no "
+                            "model code or checkpoint needed)")
+    sp.add_argument("--export", default=None, metavar="DIR",
+                    help="write the forward (weights inside) to DIR by "
+                         "torch.export, then exit; with --autotune the "
+                         "tuned batch size goes into the artifact")
     sp.add_argument("--host", default="127.0.0.1")
     sp.add_argument("--port", type=int, default=8787)
+    sp.add_argument("--autotune", action="store_true",
+                    help="pick the serving batch size by throughput "
+                         "before accepting traffic")
     sp.add_argument("--no-microbatch", action="store_true",
                     help="disable dynamic request coalescing (serialize "
                          "requests behind a device lock instead)")

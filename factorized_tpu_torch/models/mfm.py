@@ -1,12 +1,15 @@
 """The MFM family (port of ``factorized_tpu/models/mfm.py``): MFM, the
-early-fusion variational MFM_KL_EF (``kl_ef``) and MFM_missing
-(``missing``), eval and train forward.
+variational MFM_KL (``kl``), the early-fusion variational MFM_KL_EF
+(``kl_ef``) and MFM_missing (``missing``), eval and train forward.
 
 - ``mfm``: three unimodal encoders give zl/za/zv and the MFN gives zy,
   all in one fused encode; MMD ties the four latents to a Gaussian; the
   z->f MLPs feed the three decoders on [fy, f_m] and the label head
   fy -> y. Returns ``(decoded, mmd, 0.0)`` with ``decoded = [x_l_hat,
   x_a_hat, x_v_hat, y_hat]``.
+- ``kl``: MFM's encode with mu/logvar heads per latent (zy and its
+  logvar from the MFN's last state); the KLD is the regulariser, the
+  decodes read the means. Returns ``(decoded, kld, 0.0)``.
 - ``kl_ef``: mu/logvar heads per latent, zy from a joint early-fusion
   encoder; the four encoders run as one fused recurrence; the KLD is
   the regulariser; decodes from the mean, a quirk of the reference kept
@@ -215,6 +218,47 @@ def _var_latents(params, zl_last, za_last, zv_last):
     lv_a = linear_apply(vh["last_to_logvarza"], za_last)
     lv_v = linear_apply(vh["last_to_logvarzv"], zv_last)
     return zl, za, zv, lv_l, lv_a, lv_v
+
+
+# --------------------------------------------------------------------- kl
+
+def mfm_kl_init(generator, cfg):
+    """The parameter tree, keyed as the JAX package's ``mfm_kl_init``."""
+    return {
+        "enc": trio_encoder_init(generator, cfg),
+        "dec": trio_decoder_init(generator, cfg),
+        "varhead": _varhead_init(generator, cfg),
+        "mfn_enc": mfn_encoder_init(generator, cfg),
+        "last_to_logvarzy": linear_init(generator, cfg.last_mfn_size,
+                                        cfg.zy_size),
+        "zf": trio_zf_init(generator, cfg),
+        "fy_to_y": yhead_init(generator, cfg.fy_size, cfg.output_dim),
+    }
+
+
+def mfm_kl_apply(params, x, cfg, *, generator=None, train=False,
+                 encode_masks=None, zf_masks=None, y_mask=None,
+                 bwd_variant="stream"):
+    """x (t, n, d_total) time-major -> (decoded, kld, 0.0). The draws, in
+    the order of the JAX package's ``subkeys(key, 3)``: ``encode_masks``,
+    ``zf_masks`` and ``y_mask`` as in ``mfm_apply``; the eval forward
+    draws nothing."""
+    t = x.shape[0]
+    x_l, x_a, x_v = split_modalities(x, cfg.input_dims)
+    zl_last, za_last, zv_last, mfn_last = _encode_stage(
+        params, x_l, x_a, x_v, cfg, train=train, generator=generator,
+        masks=encode_masks, bwd_variant=bwd_variant)
+    zl, za, zv, lv_l, lv_a, lv_v = _var_latents(params, zl_last, za_last,
+                                                zv_last)
+    zy = linear_apply(params["mfn_enc"]["last_to_zy"], mfn_last)
+    lv_y = linear_apply(params["last_to_logvarzy"], mfn_last)
+    kld = (loss_kld(zl, lv_l) + loss_kld(za, lv_a) + loss_kld(zv, lv_v)
+           + loss_kld(zy, lv_y))
+    fy, fl, fa, fv = _zf_all(params, zy, zl, za, zv, cfg, train=train,
+                             generator=generator, masks=zf_masks)
+    decoded = _decode(params, fy, fl, fa, fv, t, cfg, train=train,
+                      generator=generator, y_mask=y_mask)
+    return decoded, kld, 0.0
 
 
 # ------------------------------------------------------------------ kl_ef

@@ -1,8 +1,8 @@
 """Model registry: string dispatch on ``cfg.model_type`` (port of
-``factorized_tpu/models/registry.py``). Ported: ``mfm``, ``kl_ef`` and
-``missing``.
+``factorized_tpu/models/registry.py``). Ported: ``mfm``, ``kl``,
+``kl_ef`` and ``missing``.
 
-Apply returns, as in the JAX package: ``mfm`` and ``kl_ef`` give
+Apply returns, as in the JAX package: ``mfm``, ``kl`` and ``kl_ef`` give
 ``(decoded, reg_loss, missing_loss)``; ``missing`` gives ``(decoded,
 nol, noa, nov, mmd, missing_loss)``."""
 
@@ -12,12 +12,13 @@ from factorized_tpu_torch.models import mfm
 
 MODELS = {
     "mfm": (mfm.mfm_init, mfm.mfm_apply),
+    "kl": (mfm.mfm_kl_init, mfm.mfm_kl_apply),
     "kl_ef": (mfm.mfm_kl_ef_init, mfm.mfm_kl_ef_apply),
     "missing": (mfm.mfm_missing_init, mfm.mfm_missing_apply),
 }
 
 # names the JAX package registers that this port does not have yet
-NOT_YET_PORTED = ("kl", "m_a", "m_b", "m_c", "m_d", "s2s", "bm", "mfn")
+NOT_YET_PORTED = ("m_a", "m_b", "m_c", "m_d", "s2s", "bm", "mfn")
 
 
 def get_model(name: str):

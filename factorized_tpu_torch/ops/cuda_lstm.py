@@ -37,6 +37,7 @@ them to ``torch.matmul``.
 from __future__ import annotations
 
 import ctypes
+from typing import List
 
 import torch
 
@@ -360,6 +361,21 @@ def multi_lstm_fwd(xp, wh, h_dims, with_res: bool = False):
     if xp.device.type == "cpu":
         return multi_lstm_plain(xp, wh, with_res)
     return _launch_multi(xp, wh, h_dims, with_res)
+
+
+@torch.library.custom_op("ftt::multi_lstm_eval", mutates_args=())
+def multi_lstm_eval(xp: torch.Tensor, wh: torch.Tensor,
+                    h_dims: List[int]) -> torch.Tensor:
+    """``multi_lstm_fwd``'s ``h_last`` as the custom op
+    ``ftt::multi_lstm_eval``, so that ``torch.export`` keeps the call
+    whole, shape checks and launch plans inside it: the kernel on a CUDA
+    tensor, the plain version on a CPU one."""
+    return multi_lstm_fwd(xp, wh, h_dims)
+
+
+@multi_lstm_eval.register_fake
+def _multi_lstm_eval_shape(xp, wh, h_dims):
+    return xp.new_empty((xp.shape[1], xp.shape[2] // 4))
 
 
 def _launch_multi(xp, wh, h_dims, with_res):

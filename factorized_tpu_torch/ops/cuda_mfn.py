@@ -55,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List, Tuple
 
 import torch
 
@@ -287,6 +288,24 @@ def mfm_encode(xp, weights, z_tot: int, h_dims, masks=None):
     if _route(xp.device) == "cpu":
         return mfm_encode_plain(xp, weights, z_tot, masks)
     return _launch_fwd(xp, masks, weights, z_tot, h_dims)
+
+
+@torch.library.custom_op("ftt::mfm_encode_eval", mutates_args=())
+def mfm_encode_eval(xp: torch.Tensor, weights: List[torch.Tensor],
+                    z_tot: int, h_dims: List[int]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``mfm_encode`` without masks as the custom op ``ftt::mfm_encode_eval``
+    (``weights`` in the ``W_NAMES`` order), so that ``torch.export`` keeps
+    the call whole, shape checks and launch plans inside it: the kernel on
+    a CUDA tensor, the plain version on a CPU one."""
+    return mfm_encode(xp, dict(zip(W_NAMES, weights)), z_tot, h_dims)
+
+
+@mfm_encode_eval.register_fake
+def _mfm_encode_eval_shapes(xp, weights, z_tot, h_dims):
+    n, H = xp.shape[1], xp.shape[2] // 4
+    mem = weights[W_NAMES.index("a2w2")].shape[1]
+    return xp.new_empty((n, H)), xp.new_empty((n, mem))
 
 
 def mfm_encode_res(xp, masks, weights, z_tot: int, h_dims,

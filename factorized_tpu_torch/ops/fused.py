@@ -4,7 +4,9 @@
 k independent cells run as one recurrence over the concatenated state,
 with a gate-major layout ``[i of all cells | f | g | o]``, so one
 block-diagonal product per step serves them all. Weights stay per cell
-in the parameter tree; the packed matrices are assembled per call. The
+in the parameter tree; the training forward assembles the packed
+matrices per call (its gradients flow through them), the serving forward
+once (``models/predict.py``, with ``input_projection``). The
 hoisted input projections and the output projections are plain
 ``torch.matmul``; the recurrences run in the CUDA kernels of
 ``ops/cuda_mfn.py`` and ``ops/cuda_lstm.py`` (their plain versions on
@@ -147,13 +149,26 @@ def encode_operands(enc_cells, mfn_params, x_l, x_a, x_v):
     ``[:, z_tot:]`` slice of the fused cell state. Returns (xp, weights,
     z_tot, h_dims): the gate-major input projections (t, n, 4H) and the
     packed weights of ``cuda_mfn.W_NAMES``."""
-    mfn_cells = [mfn_params["lstm_l"], mfn_params["lstm_a"],
-                 mfn_params["lstm_v"]]
-    cells = list(enc_cells) + mfn_cells
+    cells = encode_cells(enc_cells, mfn_params)
     xs = [x_l, x_a, x_v, x_l, x_a, x_v]
     h_dims = [c["wh"].shape[0] for c in cells]
     xp = repack_gate_major(
         [hoist_xproj(c, x) for c, x in zip(cells, xs)], h_dims)
+    return xp, encode_weights(cells, mfn_params), sum(h_dims[:3]), h_dims
+
+
+def encode_cells(enc_cells, mfn_params):
+    """The six LSTM cells of the fused encode, in the carry's order: the
+    three encoders, then the MFN's l, a and v cells."""
+    return list(enc_cells) + [mfn_params["lstm_l"], mfn_params["lstm_a"],
+                              mfn_params["lstm_v"]]
+
+
+def encode_weights(cells, mfn_params):
+    """The encode kernel's packed weights of ``cuda_mfn.W_NAMES`` for the
+    six ``encode_cells`` and the MFN's attention and gamma MLPs, biases
+    ``(1, d)``, each contiguous."""
+    h_dims = [c["wh"].shape[0] for c in cells]
 
     def b2(p):
         return p["b"].reshape(1, -1)
@@ -172,8 +187,27 @@ def encode_operands(enc_cells, mfn_params, x_l, x_a, x_v):
         "g1w2": gam1["fc2"]["w"], "g1b2": b2(gam1["fc2"]),
         "g2w2": gam2["fc2"]["w"], "g2b2": b2(gam2["fc2"]),
     }
-    weights = {k: v.contiguous() for k, v in weights.items()}
-    return xp, weights, sum(h_dims[:3]), h_dims
+    return {k: v.contiguous() for k, v in weights.items()}
+
+
+def input_projection(cells, rows, d_in: int):
+    """The input projections of k cells as one product: a gate-major
+    ``(d_in, 4H)`` block matrix, cell k's ``wx`` at the input rows
+    ``rows[k]`` (a ``(start, stop)`` range of the input's last axis) and
+    at its own columns of each gate, zeros elsewhere, and the gate-major
+    ``(4H,)`` bias; so ``x @ w + b`` over the whole input equals the k
+    hoisted projections repacked (``hoist_xproj``, ``repack_gate_major``)
+    but for the zero blocks' exact zeros in the sums."""
+    h_dims = [c["wh"].shape[0] for c in cells]
+    H = sum(h_dims)
+    w = cells[0]["wx"].new_zeros((d_in, 4 * H))
+    o = 0
+    for cell, (r0, r1), h in zip(cells, rows, h_dims):
+        for g in range(4):
+            w[r0:r1, g * H + o:g * H + o + h] = \
+                cell["wx"][:, g * h:(g + 1) * h]
+        o += h
+    return w, gate_major_bias([c["b"] for c in cells], h_dims)
 
 
 def fused_mfm_encode(enc_cells, mfn_params, x_l, x_a, x_v, *, mem_dim,

@@ -36,9 +36,13 @@ alone. Prints JSON lines:
   card sleeps); each model's train step (device ms summed over kernels
   and copies, the ``record_function`` spans such as Adam's step apart)
   and epoch, eager and, where the build has the chunked loop, replayed
-  from CUDA graphs; and the padded 256-row predict. Both call only what
-  every build of the port has, so this module run against an earlier
-  build's package (that build first on ``sys.path``) gives the A/B;
+  from CUDA graphs; and the padded 256-row predict; ``predict_times``
+  (part ``times`` too): the padded 256-row predict of each served model
+  with its launches, ``device_latency`` and graph where the build has
+  them. They call only what every build of the port has, so this module
+  run against an earlier build's package (that build first on
+  ``sys.path``, e.g. ``PYTHONPATH=<parent> python
+  factorized_tpu_torch/perf_probe.py times``) gives the A/B;
 - ``phases`` (part ``phases``, run alone: it builds the kernels with
   ``FTT_PHASE_CLOCKS``): one line per chain kernel and cell, the mean
   SM cycles of each phase of a step over one call's steps, stamped by
@@ -70,6 +74,7 @@ from factorized_tpu_torch.config import best_acc_mosi_config
 from factorized_tpu_torch.models import mfm
 from factorized_tpu_torch.models.common import mfn_drops
 from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
+from factorized_tpu_torch.ops.fused import hoist_xproj
 from factorized_tpu_torch.serve import Predictor
 
 N = 256
@@ -421,6 +426,9 @@ def kernel_times(cfg, params, dev):
     _, _, kallc, kgates = cuda_lstm.multi_lstm_plain(kxp, kwh, with_res=True)
     kdh = torch.ones((N_TRAIN, sum(k_dims)), device=dev)
     kxp256, _, _ = mfm.multi_lstm_operands(kl, x, cfg, "kl_ef")
+    # kl_ef's serving forward runs the early-fusion cell alone
+    ef = {k: v.detach() for k, v in kl["ef_encoder"]["lstm"].items()}
+    exp256 = hoist_xproj(ef, x).contiguous()
     mi = mfm.MFM(cfg, seed=0, device=dev, model_type="missing").tree()
     mxp, mwh, m_dims = mfm.multi_lstm_operands(mi, x32, cfg, "missing")
     calls = {
@@ -439,6 +447,8 @@ def kernel_times(cfg, params, dev):
             h0t, c0t, wsum, b, t, dec_dims),
         "multi_lstm_fwd": lambda: cuda_lstm.multi_lstm_fwd(
             kxp256, kwh, k_dims),
+        "multi_lstm_fwd_serve": lambda: cuda_lstm.multi_lstm_fwd(
+            exp256, ef["wh"], [ef["wh"].shape[0]]),
         "multi_lstm_fwd_n32": lambda: cuda_lstm.multi_lstm_fwd(
             kxp, kwh, k_dims),
         "multi_lstm_fwd_train": lambda: cuda_lstm.multi_lstm_fwd(
@@ -559,6 +569,54 @@ def step_times(cfg, dev):
     print(json.dumps({
         "step_times": out, "predict_ms": before,
         "predict_ms_after_steps": predict_ms(),
+        "package": str(Path(cuda_mfn.__file__).parents[1])}), flush=True)
+
+
+# the models the JAX package's Predictor serves that the port has, and
+# the launch counters of the kernels a predict may run
+SERVED = ("mfm", "kl", "kl_ef", "missing")
+PREDICT_COUNTERS = {"mfm_encode_fwd": (cuda_mfn, "LAUNCHES"),
+                    "decoder_lstm_fwd": (cuda_lstm, "LAUNCHES"),
+                    "multi_lstm_fwd": (cuda_lstm, "MULTI_LAUNCHES")}
+
+
+def predict_times(cfg, dev):
+    """The padded 256-row predict of each model of ``SERVED`` (random
+    weights from seed 0; ``missing`` from its ``--missing 1`` config):
+    median host ms of ``Predictor.probe`` over 20 calls, the launches of
+    one predict by kernel, and, where the build has them,
+    ``device_latency`` (100 queued replays) and the graph's capture ms and
+    pool bytes; a model the build does not serve is null. One JSON line.
+    It calls only what every build of the port has, for the A/B."""
+    X = np.random.default_rng(0).normal(
+        size=(N, cfg.seqlength, cfg.d_total)).astype(np.float32)
+    out = {}
+    for model_type in SERVED:
+        mcfg = (cfg.replace(missing=1) if model_type == "missing"
+                else cfg.replace(model_type=model_type))
+        try:
+            params = mfm.MFM(mcfg, seed=0, device=dev,
+                             model_type=model_type).tree()
+            predictor = Predictor(mcfg, params, model_type=model_type,
+                                  batch_size=N)
+        except NotImplementedError:
+            out[model_type] = None
+            continue
+        predict_ms = predictor.probe(X, reps=20)["median_s"] * 1e3
+        before = {k: getattr(m, a) for k, (m, a) in PREDICT_COUNTERS.items()}
+        predictor.predict(X)
+        launches = {k: getattr(m, a) - before[k]
+                    for k, (m, a) in PREDICT_COUNTERS.items()}
+        out[model_type] = {
+            "predict_ms": predict_ms, "launches_per_predict": launches,
+            "device_latency": (predictor.device_latency(X)
+                               if hasattr(predictor, "device_latency")
+                               else None),
+            "graph": (predictor.graph_stats().get(N)
+                      if hasattr(predictor, "graph_stats") else None)}
+        del predictor
+    print(json.dumps({
+        "predict_times": out,
         "package": str(Path(cuda_mfn.__file__).parents[1])}), flush=True)
 
 
@@ -795,6 +853,7 @@ def main(parts=None):
         if "times" in parts:
             kernel_times(cfg, params, torch.device("cuda"))
     if "times" in parts:
+        predict_times(cfg, torch.device("cuda"))
         step_times(cfg, torch.device("cuda"))
     if "profile" in parts:
         profile(cfg, params)

@@ -353,11 +353,14 @@ class Graphed:
     (``ops.counts``). ``capture_ms`` (host clock) and ``pool_bytes`` (the
     device memory the capture reserved, the graph's pool) are kept. A
     failed capture or replay raises: nothing runs fn eagerly in its
-    place."""
+    place. ``capture_error_mode`` is ``torch.cuda.graph``'s: "global"
+    fails the capture on another thread's unsafe CUDA call too,
+    "thread_local" (a server's worker thread) only on this thread's."""
 
-    def __init__(self, fn, generators=()):
+    def __init__(self, fn, generators=(), capture_error_mode="global"):
         self.fn = fn
         self.generators = tuple(generators)
+        self.capture_error_mode = capture_error_mode
         self.stream = torch.cuda.Stream()
         self.graph = None
         self.warm = False
@@ -394,7 +397,9 @@ class Graphed:
         gc.disable()
         try:
             t0 = time.perf_counter()
-            with torch.cuda.graph(graph, stream=self.stream):
+            with torch.cuda.graph(
+                    graph, stream=self.stream,
+                    capture_error_mode=self.capture_error_mode):
                 self.fn()
             self.capture_ms = (time.perf_counter() - t0) * 1e3
         finally:

@@ -35,7 +35,8 @@ from factorized_tpu_torch.train import (DEFAULT_EPOCH_CHUNK, ChunkedLoop,
                                         shuffle_and_time_major)
 from factorized_tpu_torch.utils.checkpoint import BestKeeper, to_cpu
 from factorized_tpu_torch.utils.logging import RunLogger
-from factorized_tpu_torch.utils.metrics import score_regression
+from factorized_tpu_torch.utils.metrics import (score_classification,
+                                                score_regression)
 from factorized_tpu_torch.utils.scheduler import ReduceLROnPlateau
 
 
@@ -71,8 +72,7 @@ def _std_predict(apply_fn, cfg):
 
 def _score(y_hat, y_test, cfg, binary_threshold, threshold_mode):
     if cfg.task == "classification":
-        raise NotImplementedError(
-            "classification scoring is not yet ported")
+        return score_classification(y_hat, y_test)
     return score_regression(y_hat, y_test, binary_threshold, threshold_mode)
 
 
@@ -224,8 +224,8 @@ def _steps(history):
 
 
 # the model types train_mfm takes, with the standard (decoded, reg,
-# missing) return, as the JAX package's; of these the port has mfm and
-# kl_ef
+# missing) return, as the JAX package's; of these the port has mfm, kl
+# and kl_ef
 STANDARD = ("mfm", "kl", "kl_ef", "m_a", "m_b", "m_c", "m_d")
 
 
@@ -238,7 +238,7 @@ def train_mfm(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg, *,
               include_remainder: bool = False,
               model_type: Optional[str] = None,
               device=None):
-    """Joint single-stage training of MFM (or kl_ef) under Adam (the
+    """Joint single-stage training of MFM (or kl, kl_ef) under Adam (the
     torch default lr 1e-3 unless ``lr``) with ReduceLROnPlateau on the
     validation label loss, keeping the best epoch's parameters for the
     test score."""

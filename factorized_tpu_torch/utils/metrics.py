@@ -1,11 +1,14 @@
-"""Regression metrics and the reference-format score printer (port of
-``factorized_tpu/utils/metrics.py``, the regression half).
+"""Regression and classification metrics and the reference-format score
+printers (port of ``factorized_tpu/utils/metrics.py``, all but the
+multi-trait part).
 
 ``score_regression`` prints MAE, Pearson correlation, the 7-class
 ``mult_acc``, the weighted F1 of the rounded values, then the binary
-confusion matrix, report and accuracy at a threshold, in the lines the
-reference's log scrapers parse; it returns the metrics as a dict. Plain
-numpy, no sklearn.
+confusion matrix, report and accuracy at a threshold;
+``score_classification`` prints the confusion matrix, report and
+accuracy of the argmax labels. Both print in the lines the reference's
+log scrapers parse and return the metrics as a dict. Plain numpy, no
+sklearn.
 """
 
 from __future__ import annotations
@@ -155,5 +158,40 @@ def score_regression(predictions, y_test, binary_threshold=0.0,
     print("Classification Report :", file=out)
     print(classification_report(true_label, predicted_label), file=out)
     print("Accuracy ", m["binary_accuracy"], file=out)
+    out.flush()
+    return m
+
+
+def classification_metrics(logits_or_labels, y_test):
+    """argmax if 2-D; returns accuracy + weighted f1."""
+    pred = np.asarray(logits_or_labels)
+    if pred.ndim == 2:
+        pred = np.argmax(pred, axis=1)
+    y_test = np.asarray(y_test)
+    return {
+        "accuracy": accuracy(y_test, pred),
+        "f1_weighted": f1_weighted(y_test, pred),
+    }
+
+
+def score_classification(predictions, y_test, out=None):
+    """Print the reference-format classification score block and return
+    the metrics dict."""
+    out = out or sys.stdout
+    pred = np.asarray(predictions)
+    if not np.isfinite(pred).all():
+        print("predictions non-finite (diverged run) - skipping score",
+              file=out)
+        return {"accuracy": float("nan"), "f1_weighted": float("nan")}
+    if pred.ndim == 2:
+        pred = np.argmax(pred, axis=1)
+    y_test = np.asarray(y_test)
+    m = classification_metrics(pred, y_test)
+    cm, _ = confusion_matrix(y_test, pred)
+    print("Confusion Matrix :", file=out)
+    print(cm, file=out)
+    print("Classification Report :", file=out)
+    print(classification_report(y_test, pred), file=out)
+    print("Accuracy ", m["accuracy"], file=out)
     out.flush()
     return m

@@ -105,11 +105,85 @@ def test_predictor_on_the_card_matches_the_cpu(cuda):
     assert on_card.device.type == "cuda"
     before = (cuda_mfn.LAUNCHES, cuda_lstm.LAUNCHES)
     y = on_card.predict(X)
-    # 300 rows = two padded chunks of 256: one launch of each per chunk
+    # 300 rows = two padded chunks of 256: one encode launch per chunk (a
+    # graph replay adds its capture's counts), and no decoder: y_hat
+    # does not read it
     assert (cuda_mfn.LAUNCHES - before[0],
-            cuda_lstm.LAUNCHES - before[1]) == (2, 2)
+            cuda_lstm.LAUNCHES - before[1]) == (2, 0)
     y_cpu = Predictor(cfg, params, device="cpu").predict(X)
     np.testing.assert_allclose(y, y_cpu, **TOL)
+
+
+@pytest.mark.parametrize("model_type", ["mfm", "kl", "kl_ef", "missing"])
+def test_graph_predictor_matches_the_cpu(cuda, model_type):
+    cfg = best_acc_mosi_config(model_type=model_type)
+    params = mfm.MFM(cfg, seed=4, device="cpu", model_type=model_type).tree()
+    X = np.random.default_rng(1).normal(
+        size=(300, cfg.seqlength, cfg.d_total)).astype(np.float32)
+    on_card = Predictor(cfg, params, model_type=model_type)
+    assert set(on_card.graph_stats()) == {256}
+    before = counts.snapshot()
+    y = on_card.predict(X)
+    launched = {(m.__name__.rsplit(".", 1)[1], a): v for (m, a), v in
+                counts.since(before).items() if isinstance(v, int) and v}
+    kernel = (("cuda_lstm", "MULTI_LAUNCHES") if model_type == "kl_ef"
+              else ("cuda_mfn", "LAUNCHES"))
+    assert launched == {kernel: 2}
+    y_cpu = Predictor(cfg, params, model_type=model_type,
+                      device="cpu").predict(X)
+    np.testing.assert_allclose(y, y_cpu, **TOL)
+    # the same again: the replays read this call's input
+    np.testing.assert_allclose(on_card.predict(X[::-1]), y_cpu[::-1], **TOL)
+
+
+def test_graph_predictor_autotune_keeps_the_winner(cuda):
+    cfg = best_acc_mosi_config()
+    params = mfm.MFM(cfg, seed=5, device="cpu").tree()
+    X = np.random.default_rng(2).normal(
+        size=(100, cfg.seqlength, cfg.d_total)).astype(np.float32)
+    p = Predictor(cfg, params, batch_size=32)
+    want = Predictor(cfg, params, device="cpu").predict(X)
+    rates = p.autotune(X, candidates=(32, 64, 128, 256), reps=1)
+    assert set(rates) == {32, 64, 128}  # 256 > 2 n
+    assert p.batch_size == max(rates, key=rates.get)
+    assert set(p.graph_stats()) == {p.batch_size}
+    np.testing.assert_allclose(p.predict(X), want, **TOL)
+    out = p.device_latency(X, iters=10)
+    assert out["batch"] == p.batch_size and 0 < out["latency_s"]
+
+
+def test_graph_predictor_captures_on_a_worker_thread(cuda):
+    from factorized_tpu_torch.serve import MicroBatcher
+
+    p = Predictor(SMALL, mfm.MFM(SMALL, seed=6, device="cpu").tree(),
+                  batch_size=8)
+    p.batch_size = 16  # no graph yet: the worker's first batch captures it
+    batcher = MicroBatcher(p)
+    try:
+        X = np.random.default_rng(3).normal(
+            size=(5, SMALL.seqlength, SMALL.d_total)).astype(np.float32)
+        y = batcher.submit(X)
+    finally:
+        batcher.close()
+    assert set(p.graph_stats()) == {8, 16}
+    want = Predictor(SMALL, p.params, device="cpu").predict(X)
+    np.testing.assert_allclose(y, want, **TOL)
+
+
+@pytest.mark.parametrize("model_type", ["mfm", "kl_ef"])
+def test_exported_predictor_on_the_card(cuda, tmp_path, model_type):
+    from factorized_tpu_torch.serve import ExportedPredictor
+
+    cfg = best_acc_mosi_config(model_type=model_type)
+    params = mfm.MFM(cfg, seed=7, device="cpu", model_type=model_type).tree()
+    p = Predictor(cfg, params, model_type=model_type)
+    p.export(str(tmp_path / "art"))
+    served = ExportedPredictor(str(tmp_path / "art"))
+    X = np.random.default_rng(4).normal(
+        size=(300, cfg.seqlength, cfg.d_total)).astype(np.float32)
+    np.testing.assert_allclose(served.predict(X), p.predict(X), **TOL)
+    with pytest.raises(ValueError, match="re-export"):
+        ExportedPredictor(str(tmp_path / "art"), device="cpu")
 
 
 def _train_operands(cfg, n, dev):

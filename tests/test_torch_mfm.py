@@ -138,8 +138,9 @@ def test_eval_is_deterministic_per_generator_seed():
 
 def test_registry():
     assert get_model("mfm") == (mfm.mfm_init, mfm.mfm_apply)
+    assert get_model("kl") == (mfm.mfm_kl_init, mfm.mfm_kl_apply)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_model("kl")
+        get_model("m_a")
     with pytest.raises(ValueError, match="unknown model type"):
         get_model("nope")
 

@@ -351,7 +351,7 @@ def test_train_mfm_breaks_on_divergence(monkeypatch):
     assert len(res["history"]) == 1 and res["history"][0]["diverged"]
     assert res["step"] == 0 and res["best_valid"] == float("inf")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        trainers.train_mfm(*_small_data(1), cfg.replace(model_type="kl"),
+        trainers.train_mfm(*_small_data(1), cfg.replace(model_type="m_a"),
                            device="cpu", logger=RunLogger(echo=False))
 
 
@@ -390,7 +390,7 @@ def test_mosi_cli_trains_and_saves(tmp_path, monkeypatch, capsys):
     assert kinds == ["config", "epoch", "final"]
 
 
-@pytest.mark.parametrize("argv", [["--type", "kl"], ["--type", "m_a"],
+@pytest.mark.parametrize("argv", [["--type", "m_b"], ["--type", "m_a"],
                                   ["--zeros", "1"]])
 def test_mosi_cli_refuses_what_is_not_ported(argv):
     with pytest.raises(SystemExit, match="not yet ported"):
