@@ -99,9 +99,26 @@ Run from the repository root: ``python3 chip_smoke.py``. It
     consumes the generator as an eager one; per model the epoch s, step
     ms and device idle share, eager and replayed, the capture's ms and
     the graph pool's bytes;
-13. prints one JSON line on the ten kernels, the ``nvidia-smi`` line,
+13. the ablations ``m_a``..``m_d`` at full width: each kernel at the
+    shapes each one gives it against its plain version, timed beside its
+    bound and library yardstick (the encode with one encoder cell over
+    the whole input, z_tot 32, or none, z_tot 0, eval at n = 256 and
+    train, reverse pass and weight gradients at n = 32; the encoder trio
+    [32, 8, 80]; the decoder trios [104] * 3, [88, 8, 8] and [16] * 3);
+    one train step's gradients on the card against the CPU's with the
+    same injected draws; 2 epochs through ``trainers.train_mfm_ablation``
+    (the second a graph replay), every kernel of the path launched; the
+    trained parameters served from a checkpoint over HTTP against the CPU
+    ``Predictor``, one launch of the serving kernel a padded chunk, the
+    padded 256-row predict's ms and ``device_latency``;
+14. ``--zeros 1``: ``trainers.train_mfm_test_zeros`` for 2 epochs, its
+    three scores against the CPU's ``YHat`` on the same parameters;
+15. the released checkpoints ``factorized_tpu_torch/released/mfn_mae``
+    and ``mfn_acc``: ``test_mosi`` on the card scores as the CPU
+    ``Predictor`` does, within 1e-5, and ``serve`` replies as the CPU;
+16. prints one JSON line on the ten kernels, the ``nvidia-smi`` line,
     and last ``{"ok": true, "device": {...}}``; a ``seconds`` line after
-    each of steps 4, 6, 8, 10, 11 and 12.
+    each of steps 4, 6, 8, 10, 11, 12, 13, 14 and 15.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1.
 """
@@ -850,12 +867,18 @@ def main():
          "bound_ms": dec_bound[0], "bound_by": dec_bound[1],
          "library_ms": dec_library_ms})
 
+    from factorized_tpu_torch.data import mosi
+
+    data = mosi.get_data(cfg.seqlength)
     phases = {6: lambda: train_phase(cfg, dev, smi),
               8: lambda: variants_phase(cfg, dev, smi,
                                         served["kl_ef"]["multi_lstm_fwd"]),
               10: lambda: probe_phase(cfg, dev, smi),
               11: lambda: cluster_phase(cfg, dev, smi),
-              12: lambda: loop_phase(cfg, dev, smi)}
+              12: lambda: loop_phase(cfg, dev, smi),
+              13: lambda: ablation_phase(cfg, dev, smi, data),
+              14: lambda: zeros_phase(cfg, dev, smi, data),
+              15: lambda: released_phase(smi)}
     results = {}
     for step, run in phases.items():
         t0 = time.perf_counter()
@@ -1580,26 +1603,11 @@ def multi_lstm_phase(cfg, dev, smi):
 
         # the yardstick, used nowhere in the port: the same cells as k
         # cuDNN LSTMs (input projection included), forward at n = 256,
-        # backward at n = 32 as (forward + backward) - forward
-        e_xs = [xi.contiguous() for xi in e_xs]
-        e_lstms = [torch.nn.LSTM(xi.shape[2], c["wh"].shape[0]).to(dev)
-                   for c, xi in zip(e_cells, e_xs)]
-        with torch.inference_mode():
-            lib_fwd_ms = cuda_ms(
-                lambda: [m(xi) for m, xi in zip(e_lstms, e_xs)], 50)
-        cells, xs32 = mfm.fused_cells(params, x_train, cfg, model_type)
-        lstms = [torch.nn.LSTM(xi.shape[2], c["wh"].shape[0]).to(dev)
-                 for c, xi in zip(cells, xs32)]
-        xs32 = [xi.detach().contiguous().requires_grad_() for xi in xs32]
-
-        def lib_forward():
-            return [m(xi)[1][0] for m, xi in zip(lstms, xs32)]
-
-        def lib_both():
-            hs = lib_forward()
-            torch.autograd.backward(hs, [torch.ones_like(h) for h in hs])
-
-        lib_bwd_ms = cuda_ms(lib_both, 50) - cuda_ms(lib_forward, 50)
+        # backward at n = 32
+        lib_fwd_ms = cell_library_ms(e_cells, e_xs)
+        lib_bwd_ms = cell_library_ms(*mfm.fused_cells(params, x_train, cfg,
+                                                      model_type),
+                                     backward=True)
 
         # products over the diagonal blocks only, none with the zero
         # state of step 0 (forward) or into it (backward)
@@ -1983,7 +1991,8 @@ def trainer_run(trainer, data, mcfg, dev, host, **kw):
 
 def loops_agree(label, host, graph):
     """The graph loop's run against the host loop's: history, best and
-    final parameters, Adam's state and the scheduler's, bit for bit.
+    final parameters, Adam's state and the scheduler's, bit for bit (the
+    lr as float32).
     Returns {what: equal}; raises if any differs."""
     from factorized_tpu_torch.convert import to_state_dict
 
@@ -1993,16 +2002,26 @@ def loops_agree(label, host, graph):
         a, b = to_state_dict(a), to_state_dict(b)
         return list(a) == list(b) and all(same_bits(a[k], b[k]) for k in a)
 
+    def same(k, a, b):
+        # the host loop records the host scheduler's float, the graph loop
+        # the float32 the step read (as the JAX package's two loops do)
+        if k == "lr":
+            return np.float32(a) == np.float32(b)
+        return same_bits(a, b)
+
+    def sched(s):
+        return {**vars(s), "lr": np.float32(s.lr)}
+
     hh, gh = hres["history"], gres["history"]
     agree = {
         "history": len(hh) == len(gh) and all(
-            a.keys() == b.keys() and all(same_bits(a[k], b[k]) for k in a)
+            a.keys() == b.keys() and all(same(k, a[k], b[k]) for k in a)
             for a, b in zip(hh, gh)),
         "best_params": trees(hres["params"], gres["params"]),
         "final_params": trees(hset.params, gset.params),
         "adam": all(same_bits(v, gset.optimizer.state_dict()["state"][k])
                     for k, v in hset.optimizer.state_dict()["state"].items()),
-        "scheduler": vars(hset.scheduler) == vars(gset.scheduler),
+        "scheduler": sched(hset.scheduler) == sched(gset.scheduler),
     }
     if not all(agree.values()):
         diff = float((hset.optimizer.flat - gset.optimizer.flat).abs()
@@ -2223,6 +2242,526 @@ def loop_phase(cfg, dev, smi):
          "diverged_at": graph[0]["history"][-1]["epoch"],
          "launches_per_epoch": {"host": host[2], "graph": graph[2]}})
     log({"phase": "train_loop_masks", **masks_phase(cfg, dev)})
+
+
+# the ablations: the kernels each one's training path launches, and the
+# one its serving path launches once a padded chunk
+ABLATION_TRAIN = {
+    "m_a": ("mfm_encode_fwd", "mfm_encode_bwd", "mfm_encode_dw",
+            "decoder_lstm_fwd", "decoder_lstm_bwd"),
+    "m_b": ("multi_lstm_fwd", "multi_lstm_bwd", "decoder_lstm_fwd",
+            "decoder_lstm_bwd"),
+    "m_c": ("mfm_encode_fwd", "mfm_encode_bwd", "mfm_encode_dw",
+            "decoder_lstm_fwd", "decoder_lstm_bwd"),
+    "m_d": ("multi_lstm_fwd", "multi_lstm_bwd"),
+}
+ABLATION_SERVE = {"m_a": "mfm_encode_fwd", "m_b": "multi_lstm_fwd",
+                  "m_c": "mfm_encode_fwd", "m_d": "multi_lstm_fwd"}
+ABLATION_SIZES = (1, 3, 64, 256, 300)
+
+
+def timed(fn, plain):
+    """A kernel's ms (CUDA events over 50 back-to-back calls), device ms
+    (50 calls queued behind a sleeping kernel) and its plain version's ms
+    (CUDA events over 10 calls)."""
+    return {"ms": cuda_ms(fn, 50), "device_ms": queued_ms(fn),
+            "plain_ms": cuda_ms(plain, 10)}
+
+
+def cell_library_ms(cells, xs, backward=False):
+    """The yardstick of the fused encoder-cell kernels, used nowhere in the
+    port: one ``torch.nn.LSTM`` (cuDNN) per cell over its input (the input
+    projection included); forward ms, or with ``backward`` (forward +
+    backward) - forward, the last hidden states' cotangent all ones."""
+    dev = xs[0].device
+    lstms = [torch.nn.LSTM(xi.shape[2], c["wh"].shape[0]).to(dev)
+             for c, xi in zip(cells, xs)]
+    # copies outside inference mode, which autograd can record
+    xs = [xi.clone() for xi in xs]
+    if not backward:
+        with torch.inference_mode():
+            return cuda_ms(lambda: [m(xi) for m, xi in zip(lstms, xs)], 50)
+    xs = [xi.requires_grad_() for xi in xs]
+
+    def forward():
+        return [m(xi)[1][0] for m, xi in zip(lstms, xs)]
+
+    def both():
+        hs = forward()
+        torch.autograd.backward(hs, [torch.ones_like(h) for h in hs])
+
+    return cuda_ms(both, 50) - cuda_ms(forward, 50)
+
+
+def ablation_kernels(model_type, cfg, params, dev, smi):
+    """The kernels at the shapes ``model_type`` gives them, against their
+    plain versions and timed beside their bounds and library yardsticks:
+    the encode (m_a: one encoder cell over the whole input, z_tot 32;
+    m_c: none, z_tot 0) eval at n = 256, train forward, reverse pass and
+    weight gradients at n = 32; the encoder trio (m_b, m_d) eval at n =
+    256, train forward and backward at n = 32; the decoder trio forward
+    and backward at n = 32. Returns {kernel: numbers}."""
+    from factorized_tpu_torch.models import ablations
+    from factorized_tpu_torch.models.common import (mfn_drops,
+                                                    split_modalities)
+    from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
+
+    t = cfg.seqlength
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    out = {}
+
+    library = {}  # each yardstick runs after the inference-mode block
+
+    def record(name, n, err, times, bnd, library_ms=None, **extra):
+        out[name] = {"n": n, "max_abs_err": err["max_abs_err"], **times,
+                     "bound_ms": bnd[0], "bound_by": bnd[1],
+                     "library_ms": None, **extra}
+        if library_ms is not None:
+            library[name] = library_ms
+
+    with torch.inference_mode():
+        x256, x32 = (torch.randn((t, n, cfg.d_total), generator=gen,
+                                 device=dev) for n in (N_SERVE, N_TRAIN))
+        ops256 = ablations.kernel_operands(params, x256, cfg, model_type)
+        ops32 = ablations.kernel_operands(params, x32, cfg, model_type)
+        if "encode" in ops256:
+            xp, weights, z_tot, h_dims = ops256["encode"]
+            got = cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims)
+            err = compare_all(f"{model_type}.mfm_encode_fwd.eval", zip(
+                ("h_last", "mem_last"), got,
+                cuda_mfn.mfm_encode_plain(xp, weights, z_tot)))
+            n = N_SERVE
+            bnd = bound(2 * n * (t * encode_macs_per_row(weights, h_dims,
+                                                         z_tot)
+                                 - 4 * sum(h * h for h in h_dims)),
+                        nbytes(xp, *off_diag(weights), *got)
+                        + diag_bytes(h_dims))
+            record("mfm_encode_fwd_eval", n, err, timed(
+                lambda: cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims),
+                lambda: cuda_mfn.mfm_encode_plain(xp, weights, z_tot)), bnd,
+                h_dims=h_dims, z_tot=z_tot,
+                clusters=list(cuda_mfn.CLUSTERS["mfm_encode_fwd"]))
+            xp, weights, z_tot, h_dims = ops32["encode"]
+            n = N_TRAIN
+            masks = cuda_mfn.make_dropout_masks(
+                gen, t, n, cuda_mfn.sizes(weights)[:4], mfn_drops(cfg))
+            fwd = cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims)
+            fwd_ref = cuda_mfn.mfm_encode_res_plain(xp, masks, weights,
+                                                    z_tot)
+            err = compare_all(f"{model_type}.mfm_encode_fwd.train",
+                              zip(("h_last", "mem_last", "allh", "allc",
+                                   "allmem", "res"), fwd, fwd_ref))
+            recur = 4 * sum(h * h for h in h_dims)
+            bnd = bound(2 * (t * n * encode_macs_per_row(weights, h_dims,
+                                                         z_tot) - n * recur),
+                        nbytes(xp, masks, *off_diag(weights), *fwd)
+                        + diag_bytes(h_dims))
+            record("mfm_encode_fwd_train", n, err, timed(
+                lambda: cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot,
+                                                h_dims),
+                lambda: cuda_mfn.mfm_encode_res_plain(xp, masks, weights,
+                                                      z_tot)), bnd)
+            res = fwd_ref[2:]
+            dh = torch.randn((n, sum(h_dims)), generator=gen, device=dev)
+            dmem = torch.randn((n, cfg.memsize), generator=gen, device=dev)
+
+            def bwd():
+                return cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem,
+                                            z_tot, h_dims)
+
+            dxp, deltas = bwd()
+            dxp_ref, deltas_ref = cuda_mfn.mfm_encode_bwd_steps_plain(
+                xp, weights, *res, dh, dmem, z_tot)
+            err = compare_all(f"{model_type}.mfm_encode_bwd",
+                              [("dxp", dxp, dxp_ref),
+                               ("deltas", deltas, deltas_ref)],
+                              GRAD_RTOL, GRAD_ATOL)
+            s1, s2, s3, s4, mem = cuda_mfn.sizes(weights)
+            m2 = 2 * (sum(h_dims) - z_tot)
+            bwd_macs = ((t - 1) * n * 2 * recur
+                        + t * n * ((s3 + s4) * mem + s2 * mem
+                                   + (m2 + mem) * (s3 + s4) + m2 * s2
+                                   + 2 * s1 * m2))
+            used = ("a1w1", "a1w2", "a2w1", "a2w2", "gw1", "g1w2", "g2w2")
+            bnd = bound(2 * bwd_macs, nbytes(
+                xp, *res, dh, dmem, *[weights[k] for k in used], dxp,
+                deltas) + diag_bytes(h_dims))
+            record("mfm_encode_bwd", n, err, timed(
+                bwd, lambda: cuda_mfn.mfm_encode_bwd_steps_plain(
+                    xp, weights, *res, dh, dmem, z_tot)), bnd,
+                clusters=list(cuda_mfn.CLUSTERS["mfm_encode_bwd"]))
+
+            def dw():
+                return cuda_mfn._launch_dw(weights, res[1], res[2], res[3],
+                                           deltas_ref, z_tot)
+
+            dw_out = dw()
+            err = compare_all(f"{model_type}.mfm_encode_dw", [
+                (k, dw_out[k], v) for k, v in cuda_mfn.mfm_encode_dw_plain(
+                    res[1], res[2], res[3], deltas_ref, weights,
+                    z_tot).items()], GRAD_RTOL, GRAD_ATOL)
+            record("mfm_encode_dw", n, err, timed(
+                dw, lambda: cuda_mfn.mfm_encode_dw_plain(
+                    res[1], res[2], res[3], deltas_ref, weights, z_tot)),
+                dw_bound_of(res, deltas_ref, dw_out),
+                plan=dict(cuda_mfn.DW_PLAN))
+        else:
+            enc = params["enc"]
+            cells = [enc[k]["lstm"] for k in
+                     ("encoder_l", "encoder_a", "encoder_v")]
+            xp, wh, h_dims = ops256["multi_lstm"]
+            n = N_SERVE
+            got = cuda_lstm.multi_lstm_fwd(xp, wh, h_dims)
+            err = compare(f"{model_type}.multi_lstm_fwd.eval", got,
+                          cuda_lstm.multi_lstm_plain(xp, wh))
+            hh = 4 * sum(h * h for h in h_dims)
+            bnd = bound(2 * (t - 1) * n * hh,
+                        nbytes(xp, got) + diag_bytes(h_dims))
+            record("multi_lstm_fwd_eval", n, err, timed(
+                lambda: cuda_lstm.multi_lstm_fwd(xp, wh, h_dims),
+                lambda: cuda_lstm.multi_lstm_plain(xp, wh)), bnd,
+                functools.partial(cell_library_ms, cells,
+                                  split_modalities(x256, cfg.input_dims)),
+                h_dims=h_dims, cluster=cuda_lstm.CLUSTERS["multi_lstm_fwd"])
+            xp, wh, h_dims = ops32["multi_lstm"]
+            n = N_TRAIN
+            res = cuda_lstm.multi_lstm_fwd(xp, wh, h_dims, with_res=True)
+            res_ref = cuda_lstm.multi_lstm_plain(xp, wh, with_res=True)
+            err = compare_all(f"{model_type}.multi_lstm_fwd.train",
+                              zip(("h_last", "allh", "allc", "gates"), res,
+                                  res_ref))
+            bnd = bound(2 * (t - 1) * n * hh,
+                        nbytes(xp, *res) + diag_bytes(h_dims))
+            record("multi_lstm_fwd_train", n, err, timed(
+                lambda: cuda_lstm.multi_lstm_fwd(xp, wh, h_dims, True),
+                lambda: cuda_lstm.multi_lstm_plain(xp, wh, True)), bnd)
+            _, _, allc, gates = res_ref
+            dh = torch.randn((n, sum(h_dims)), generator=gen, device=dev)
+            dxp = cuda_lstm.multi_lstm_bwd(gates, wh, allc, dh, h_dims)
+            err = compare(f"{model_type}.multi_lstm_bwd.dxp", dxp,
+                          cuda_lstm.multi_lstm_bwd_plain(gates, wh, allc, dh),
+                          GRAD_RTOL, GRAD_ATOL)
+            bnd = bound(2 * (t - 1) * n * hh,
+                        nbytes(gates, allc, dh, dxp) + diag_bytes(h_dims))
+            record("multi_lstm_bwd", n, err, timed(
+                lambda: cuda_lstm.multi_lstm_bwd(gates, wh, allc, dh, h_dims),
+                lambda: cuda_lstm.multi_lstm_bwd_plain(gates, wh, allc, dh)),
+                bnd, functools.partial(cell_library_ms, cells,
+                                       split_modalities(x32, cfg.input_dims),
+                                       backward=True),
+                cluster=cuda_lstm.CLUSTERS["multi_lstm_bwd"])
+        if "decoder" in ops32:
+            h0, c0, wsum, b, dec_dims = ops32["decoder"]
+            n = N_TRAIN
+            outs = cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b, t, dec_dims)
+            cluster = cuda_lstm.CLUSTERS["decoder_lstm_fwd"]
+            allh, allc, gates = cuda_lstm.decoder_lstm_plain(h0, c0, wsum, b,
+                                                             t)
+            err = compare_all(f"{model_type}.decoder_lstm_fwd",
+                              zip(("allh", "allc", "gates"), outs,
+                                  (allh, allc, gates)))
+            macs = (t - 1) * n * 4 * sum(h * h for h in dec_dims)
+            bnd = bound(2 * macs, nbytes(h0, c0, b, *outs)
+                        + diag_bytes(dec_dims))
+            times = timed(
+                lambda: cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b, t,
+                                                   dec_dims),
+                lambda: cuda_lstm.decoder_lstm_plain(h0, c0, wsum, b, t))
+            lib = functools.partial(decoder_library_ms, h0, c0, wsum, b, t,
+                                    dec_dims)
+            record("decoder_lstm_fwd", n, err, times, bnd, lib,
+                   dec_dims=dec_dims, cluster=cluster)
+            dallh = torch.randn(allh.shape, generator=gen, device=dev)
+            dec = cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh,
+                                             dec_dims)
+            err = compare_all(f"{model_type}.decoder_lstm_bwd",
+                              zip(("dgates", "dh0", "dc0"), dec,
+                                  cuda_lstm.decoder_lstm_bwd_plain(
+                                      wsum, gates, allc, dallh)),
+                              GRAD_RTOL, GRAD_ATOL)
+            bnd = bound(2 * macs, nbytes(gates, allc, dallh, *dec)
+                        + diag_bytes(dec_dims))
+            times = timed(
+                lambda: cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh,
+                                                   dec_dims),
+                lambda: cuda_lstm.decoder_lstm_bwd_plain(wsum, gates, allc,
+                                                         dallh))
+            record("decoder_lstm_bwd", n, err, times, bnd,
+                   functools.partial(decoder_library_ms, h0, c0, wsum, b, t,
+                                     dec_dims, backward=True),
+                   cluster=cuda_lstm.CLUSTERS["decoder_lstm_bwd"])
+    torch.cuda.synchronize()
+    for name, run in library.items():
+        out[name]["library_ms"] = run()
+    log({"phase": "ablation_kernels", "model_type": model_type,
+         "nvidia_smi": smi, **out})
+    return out
+
+
+def ablation_draws(cfg, model_type, n, generator):
+    """Every random draw of one train step of ``model_type``, on the CPU:
+    the MFN's masks, the MMD samples, the z->f and y-head masks."""
+    from factorized_tpu_torch.models.common import mfn_drops
+    from factorized_tpu_torch.ops import cuda_mfn
+
+    t = cfg.seqlength
+
+    def mask(f, rate):
+        return ((torch.rand((n, f), generator=generator) >= rate).float()
+                / (1.0 - rate))
+
+    def noise(*dims):
+        return [torch.randn((n, d), generator=generator) for d in dims]
+
+    encode = cuda_mfn.make_dropout_masks(
+        generator, t, n, (cfg.att1_shape, cfg.att2_shape, cfg.gamma1_shape,
+                          cfg.gamma2_shape), mfn_drops(cfg))
+    y_mask = mask(cfg.fy_size, cfg.fy_to_y_dropout)
+    trio = [mask(cfg.fl_size, cfg.zl_to_fl_dropout),
+            mask(cfg.fa_size, cfg.za_to_fa_dropout),
+            mask(cfg.fv_size, cfg.zv_to_fv_dropout)]
+    return {
+        "m_a": dict(encode_masks=encode,
+                    mmd_noise=noise(cfg.zl_size, cfg.zy_size),
+                    zf_masks=[mask(cfg.fy_size, cfg.zy_to_fy_dropout),
+                              trio[0]], y_mask=y_mask),
+        "m_b": dict(mmd_noise=noise(cfg.zl_size, cfg.za_size, cfg.zv_size),
+                    zf_masks=trio, y_mask=y_mask),
+        "m_c": dict(encode_masks=encode, mmd_noise=noise(cfg.zy_size),
+                    zf_masks=[mask(cfg.fy_size, cfg.zy_to_fy_dropout)],
+                    y_mask=y_mask),
+        "m_d": dict(zf_masks=trio),
+    }[model_type]
+
+
+def ablation_phase(cfg, dev, smi, data):
+    """Step 13: each ablation at full width. Its kernels at its shapes
+    against their plain versions (``ablation_kernels``); one train step's
+    gradients on the card against the CPU's with the same injected draws;
+    2 epochs of synthetic MOSI through ``trainers.train_mfm_ablation``
+    (the chunked loop: the second epoch a graph replay), finite falling
+    losses, every kernel of its path launched; then its trained
+    parameters served from a checkpoint through the ``Predictor``'s graphs
+    over HTTP, each reply against the CPU ``Predictor``, one launch of its
+    serving kernel a padded chunk and no other recurrence, and the padded
+    256-row predict's median ms, ``device_latency``, the capture's ms and
+    pool bytes. Returns {model: {path: launches}, "kernels": ...}."""
+    from factorized_tpu_torch import trainers
+    from factorized_tpu_torch.models import get_model, mfm
+    from factorized_tpu_torch.serve import Predictor
+    from factorized_tpu_torch.train import make_loss_fn
+    from factorized_tpu_torch.utils.checkpoint import save_checkpoint
+    from factorized_tpu_torch.utils.logging import RunLogger
+
+    t, d = cfg.seqlength, cfg.d_total
+    rng = np.random.default_rng(SEED + 80)
+    X = np.round(rng.normal(size=(N_SERVE, t, d)), 3).astype(np.float32)
+    out = {}
+    for k, model_type in enumerate(ABLATION_TRAIN):
+        mcfg = cfg.replace(model_type=model_type)
+        seconds = {}
+        t0 = time.perf_counter()
+        params = mfm.MFM(mcfg, seed=SEED + 90 + k, device=dev).tree()
+        kernels = ablation_kernels(model_type, mcfg, params, dev, smi)
+        seconds["kernels"] = time.perf_counter() - t0
+        # one train step's gradients, card against the CPU
+        cpu = torch.Generator().manual_seed(SEED + 100 + k)
+        x = torch.randn((t, N_TRAIN, d), generator=cpu)
+        y = torch.randn((N_TRAIN,), generator=cpu)
+        t0 = time.perf_counter()
+        grads = grads_vs_cpu(f"{model_type}.train_step_grads_vs_cpu",
+                             make_loss_fn(get_model(model_type)[1], mcfg),
+                             params, x, y,
+                             ablation_draws(mcfg, model_type, N_TRAIN, cpu),
+                             dev)
+        seconds["grads_vs_cpu"] = time.perf_counter() - t0
+        # the training path through the trainer
+        loops = []
+        real = trainers.ChunkedLoop
+
+        class Loop(real):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                loops.append(self)
+
+        trainers.ChunkedLoop = Loop
+        try:
+            run, seconds["train"], launches = counted(
+                f"train {model_type}", ABLATION_TRAIN[model_type],
+                lambda: trainers.train_mfm_ablation(
+                    *data, mcfg.replace(num_epochs=TRAIN_EPOCHS), seed=SEED,
+                    logger=RunLogger(echo=False), device=dev))
+        finally:
+            trainers.ChunkedLoop = real
+        losses = [e["train_loss"] for e in run["history"]]
+        if len(losses) != TRAIN_EPOCHS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"{model_type} did not train clean: "
+                                 f"{run['history']}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"{model_type} train loss did not fall: "
+                                 f"{losses}")
+        if not (len(loops) == 1 and loops[0].epoch.graph is not None):
+            raise AssertionError(f"{model_type}: the second epoch was not "
+                                 f"a graph replay")
+        # serving its trained parameters
+        requests = [np.round(rng.normal(size=(r, t, d)), 3)
+                    .astype(np.float32) for r in ABLATION_SIZES]
+        kernel = ABLATION_SERVE[model_type]
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as ckpt:
+            save_checkpoint(ckpt, run["params"], config=mcfg.to_dict())
+            predictor = Predictor.from_checkpoint(ckpt)
+            reference = Predictor.from_checkpoint(ckpt, device="cpu")
+        expected = split_rows(reference.predict(np.concatenate(requests)),
+                              requests)
+        seconds["serve_setup"] = time.perf_counter() - t0
+        (worst, batches), seconds["http"], served = counted(
+            f"serve {model_type}", (kernel,),
+            lambda: serve_requests(predictor, expected, requests))
+        idle = {name: served[name] for name in SERVE_IDLE
+                if name != kernel and served[name]}
+        if idle:
+            raise AssertionError(f"serving {model_type} launched {idle}")
+        y, _, per_predict = counted(f"predict {model_type}", (kernel,),
+                                    lambda: predictor.predict(X))
+        per_predict = {name: per_predict[name] for name in SERVE_IDLE}
+        if per_predict[kernel] != 1:
+            raise AssertionError(f"one padded predict of {model_type} "
+                                 f"launched {per_predict}")
+        err = compare(f"serve.{model_type}.predict", torch.from_numpy(y),
+                      torch.from_numpy(reference.predict(X)))
+        out[model_type] = {
+            "train": {k: launches[k] for k in ABLATION_TRAIN[model_type]},
+            "serve": {kernel: served[kernel]}, "kernels": kernels}
+        log({"phase": "ablation", "model_type": model_type,
+             "nvidia_smi": smi, "history": run["history"],
+             "metrics": run["metrics"], "train_launches": out[model_type][
+                 "train"], "epoch_launches": [
+                     per_kernel(e) for e in loops[0].epoch_launches],
+             "capture_ms": loops[0].epoch.capture_ms,
+             "graph_pool_bytes": loops[0].epoch.pool_bytes,
+             "grads_max_abs_err": grads["max_abs_err"],
+             "requests": len(requests), "batches_run": batches[0],
+             "max_abs_err_vs_cpu": max(worst, err["max_abs_err"]),
+             "serve_launches": {name: served[name] for name in SERVE_IDLE},
+             "launches_per_padded_predict": per_predict,
+             "predict_ms": median_ms(lambda: predictor.predict(X)),
+             "device_latency": predictor.device_latency(X, iters=100),
+             **predictor.graph_stats()[N_SERVE], "seconds": seconds})
+        del predictor
+    return out
+
+
+def zeros_phase(cfg, dev, smi, data):
+    """Step 14: ``--zeros 1``'s trainer (``train_mfm_test_zeros``) for 2
+    epochs at full width on synthetic MOSI, every kernel of MFM's training
+    path launched; its three scores, each with one modality's slice of the
+    test set zeroed, against the CPU's ``YHat`` on the same parameters,
+    within 1e-5."""
+    from factorized_tpu_torch import trainers
+    from factorized_tpu_torch.models.predict import YHat
+    from factorized_tpu_torch.utils.checkpoint import to_cpu
+    from factorized_tpu_torch.utils.logging import RunLogger
+    from factorized_tpu_torch.utils.metrics import regression_metrics
+
+    mcfg = cfg.replace(zeros=1, num_epochs=TRAIN_EPOCHS)
+    run, seconds, launches = counted(
+        "train zeros", ABLATION_TRAIN["m_a"],
+        lambda: trainers.train_mfm_test_zeros(
+            *data, mcfg, seed=SEED, logger=RunLogger(echo=False),
+            device=dev))
+    d_l, d_a, _ = cfg.input_dims
+    forward = YHat(mcfg, to_cpu(run["params"]), "mfm")
+    worst = 0.0
+    for tag, (lo, hi) in (("y_hat_nol", (0, d_l)),
+                          ("y_hat_noa", (d_l, d_l + d_a)),
+                          ("y_hat_nov", (d_l + d_a, cfg.d_total))):
+        X = np.ascontiguousarray(data[4].swapaxes(0, 1), dtype=np.float32)
+        X[..., lo:hi] = 0.0
+        with torch.no_grad():
+            want = regression_metrics(forward(torch.from_numpy(X)).numpy(),
+                                      data[5])
+        got = run["metrics"][tag]
+        for key, v in want.items():
+            if not abs(got[key] - v) <= 1e-5:
+                raise AssertionError(f"zeros {tag} {key}: the card's "
+                                     f"{got[key]}, the CPU's {v}")
+            worst = max(worst, abs(got[key] - v))
+    log({"phase": "zeros", "nvidia_smi": smi, "seconds": seconds,
+         "history": run["history"], "metrics": run["metrics"],
+         "launches": {k: launches[k] for k in ABLATION_TRAIN["m_a"]},
+         "max_abs_metric_diff_vs_cpu": worst})
+    return {k: launches[k] for k in ABLATION_TRAIN["m_a"]}
+
+
+def released_phase(smi):
+    """Step 15: the released checkpoints ``factorized_tpu_torch/released/
+    mfn_mae`` and ``mfn_acc``: ``test_mosi --checkpoint`` on the card, its
+    printed score (``mfn_mae``: mae and binary accuracy; ``mfn_acc``:
+    accuracy) against the CPU ``Predictor``'s on the same synthetic MOSI
+    test set within 1e-5; and ``serve`` of each over HTTP, every reply
+    against the CPU's. Returns {name: the encode's launches}."""
+    import contextlib
+    import io
+    import os
+
+    from factorized_tpu_torch import cli
+    from factorized_tpu_torch.serve import Predictor
+    from factorized_tpu_torch.utils.metrics import (classification_metrics,
+                                                    regression_metrics)
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "factorized_tpu_torch", "released")
+    _, _, _, _, X_test, y_test = cli.load_mosi(20)
+    rng = np.random.default_rng(SEED + 110)
+    out = {}
+    for name in ("mfn_mae", "mfn_acc"):
+        path = os.path.join(root, name)
+        reference = Predictor.from_checkpoint(path, device="cpu")
+        y_cpu = reference.predict(X_test)
+        if reference.cfg.task == "regression":
+            m = regression_metrics(y_cpu, y_test)
+            want = {"mae": m["mae"], "Accuracy": m["binary_accuracy"]}
+        else:
+            m = classification_metrics(y_cpu, (y_test >= 0).astype(np.int64))
+            want = {"Accuracy": m["accuracy"]}
+        text = io.StringIO()
+
+        def test_mosi():
+            with contextlib.redirect_stdout(text):
+                return cli.main(["test_mosi", "--checkpoint", path])
+
+        rc, seconds, launches = counted(f"test_mosi {name}",
+                                        ("mfm_encode_fwd",), test_mosi)
+        got = {}
+        for line in text.getvalue().splitlines():
+            if line.startswith("mae:"):
+                got["mae"] = float(line.split()[1])
+            elif line.startswith("Accuracy "):
+                got["Accuracy"] = float(line.split()[1])
+        if rc != 0 or set(got) != set(want):
+            raise AssertionError(f"test_mosi {name} gave {rc}: "
+                                 f"{text.getvalue()[-2000:]}")
+        for key, v in want.items():
+            if not abs(got[key] - v) <= 1e-5:
+                raise AssertionError(f"test_mosi {name} {key}: the card's "
+                                     f"{got[key]}, the CPU's {v}")
+        requests = [np.round(rng.normal(size=(r, 20, 325)), 3)
+                    .astype(np.float32) for r in (1, 17, 256, 300)]
+        expected = split_rows(reference.predict(np.concatenate(requests)),
+                              requests)
+        predictor = Predictor.from_checkpoint(path)
+        (worst, batches), _, served = counted(
+            f"serve {name}", ("mfm_encode_fwd",),
+            lambda: serve_requests(predictor, expected, requests))
+        out[name] = launches["mfm_encode_fwd"] + served["mfm_encode_fwd"]
+        log({"phase": "released", "name": name, "nvidia_smi": smi,
+             "test_mosi": got, "cpu": want, "seconds": seconds,
+             "serve_max_abs_err_vs_cpu": worst, "batches_run": batches[0],
+             "launches": {"test_mosi": launches["mfm_encode_fwd"],
+                          "serve": served["mfm_encode_fwd"]}})
+        del predictor
+    return out
 
 
 def profile_steps(program, tree, opt, x, y, gen, steps=10):

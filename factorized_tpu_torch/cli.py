@@ -3,7 +3,8 @@
 
 Ported subcommands: ``mosi`` (``factorized_tpu/cli.py``'s ``run_dataset``
 for MOSI, modes ``best`` and ``single``, on the synthetic MOSI set) with
-``--type mfm``, ``--type kl``, ``--type kl_ef`` and ``--missing 1``;
+``--type mfm``, ``kl``, ``kl_ef``, the ablations ``m_a``..``m_d``,
+``--missing 1`` and ``--zeros 1``;
 ``test_mosi`` (``run_test_mosi``: score a checkpoint on the MOSI test
 set, then the latency probe and the on-device latency); and ``serve``
 (``run_serve``, from a checkpoint of this package or an exported
@@ -22,7 +23,8 @@ MOSI = dict(task="regression", threshold=0.0, mode="ge",
 
 
 # the trainers of the JAX package's dispatch that the port has
-PORTED_TRAINERS = ("train_mfm", "train_beta_vae", "train_mfm_missing")
+PORTED_TRAINERS = ("train_mfm", "train_beta_vae", "train_mfm_missing",
+                   "train_mfm_test_zeros", "train_mfm_ablation")
 
 
 def trainer_name(cfg):
@@ -48,7 +50,8 @@ def trainer_name(cfg):
         raise SystemExit(
             f"--type {kind} --missing {cfg.missing} --zeros {cfg.zeros} "
             f"({name}) is not yet ported; the port trains --type mfm, "
-            f"--type kl, --type kl_ef and --missing 1")
+            f"kl, kl_ef and m_a..m_d, --missing 1 and --zeros 1 (with "
+            f"--type mfm)")
     return name
 
 
@@ -185,13 +188,16 @@ def build_parser():
     sub = p.add_subparsers(dest="command", required=True)
     sp = sub.add_parser("mosi", help="train MFM on (synthetic) CMU-MOSI")
     sp.add_argument("--type", default="mfm",
-                    help="model type; mfm, kl and kl_ef are ported")
+                    help="model type; mfm, kl, kl_ef and m_a..m_d are "
+                         "ported")
     sp.add_argument("--mode", default="single", choices=["best", "single"],
                     help="best: best_acc_mosi_config; single: the "
                          "MFMConfig defaults")
     sp.add_argument("--missing", type=int, default=0,
                     help="1: train MFM_missing (with --type mfm)")
-    sp.add_argument("--zeros", type=int, default=0)
+    sp.add_argument("--zeros", type=int, default=0,
+                    help="1: score with each modality zeroed in turn "
+                         "(with --type mfm)")
     sp.add_argument("--epochs", type=int, default=None)
     sp.add_argument("--batchsize", type=int, default=None)
     sp.add_argument("--lr", type=float, default=None,

@@ -1183,7 +1183,8 @@ DwKernel dw_kernel_for(int S) {
 // residual-layout table's ten pointers, row strides and column offsets
 // (mfm_res.cuh), in the _RES_NAMES order. cell_dims (host memory) lists
 // the n_cells fused hidden widths, summing to H, z_tot one of their
-// boundaries. gates (t, n, 4H), dcstar and datt (t, n, M2) are scratch,
+// boundaries (0 where no encoder cell precedes the MFN's). gates (t, n,
+// 4H), dcstar and datt (t, n, M2) are scratch,
 // and att_scratch (t, n, M2) too for the recompute-att variant (else
 // unused). variant is 0 (stream), 1 (recompute-att) or 2 (two-step, t
 // even); threads a multiple of 32 up to 512, the block size of the gates
@@ -1241,7 +1242,7 @@ extern "C" int mfm_encode_bwd(
   res_widths(H, z_tot, mem, s1, s2, s3, s4, widths);
   bool boundary = false;
   if (make_cells(n_cells, cell_dims, H, &a.cells))
-    for (int m = 1; m < a.cells.count; ++m)
+    for (int m = 0; m < a.cells.count; ++m)
       boundary = boundary || a.cells.off[m] == z_tot;
   if (!boundary || t < 1 || n < 1 || threads < 32 ||
       threads > kMaxThreads || threads % 32 != 0 || res_ptrs == nullptr ||

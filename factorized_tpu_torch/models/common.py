@@ -1,6 +1,6 @@
 """Shared model sub-structures (port of ``factorized_tpu/models/common.py``):
 modality split, z->f feature MLPs, label head, the per-modality
-encoder/decoder trios and the MFN encoder's parameters."""
+encoder/decoder trios and the MFN encoder (``run_mfn``)."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ import torch
 
 from factorized_tpu_torch.ops.core import linear_init, mlp2_apply, mlp2_init
 from factorized_tpu_torch.ops.lstm import decoder_init, encoder_init
-from factorized_tpu_torch.ops.mfn import mfn_init
+from factorized_tpu_torch.ops.mfn import mfn_apply, mfn_init
 
 
 def split_modalities(x, input_dims):
@@ -87,3 +87,13 @@ def zf_drops(cfg):
     """The z->f dropout rates in the order zy, zl, za, zv."""
     return (cfg.zy_to_fy_dropout, cfg.zl_to_fl_dropout,
             cfg.za_to_fa_dropout, cfg.zv_to_fv_dropout)
+
+
+def run_mfn(params, x_l, x_a, x_v, cfg, train=False, generator=None,
+            masks=None):
+    """The MFN trunk of ``params`` (``mfn_encoder_init``'s tree) over the
+    three modalities: last_hs (n, last_mfn_size); ``masks`` the injected
+    dropout masks of ``mfn_apply``."""
+    return mfn_apply(params["mfn"], x_l, x_a, x_v, mem_dim=cfg.memsize,
+                     drops=mfn_drops(cfg), train=train, generator=generator,
+                     masks=masks)

@@ -237,7 +237,7 @@ def _check(xp, weights, z_tot, h_dims, masks=None):
     H = H4 // 4
     if sum(h_dims) != H:
         raise ValueError(f"h_dims {list(h_dims)} do not sum to H = {H}")
-    prefix = [sum(h_dims[:k]) for k in range(1, len(h_dims))]
+    prefix = [sum(h_dims[:k]) for k in range(len(h_dims))]
     if z_tot not in prefix:
         raise ValueError(f"z_tot {z_tot} is not a cell boundary of {h_dims}")
     s1, s2, s3, s4, _ = sizes(weights)
@@ -280,9 +280,9 @@ def _route(device):
 def mfm_encode(xp, weights, z_tot: int, h_dims, masks=None):
     """Fused encode over time. ``xp (t, n, 4H)`` gate-major input
     projections of the fused cells (``h_dims``, encoders first, up to
-    ``z_tot``); ``weights`` as in ``W_NAMES``, biases ``(1, d)``;
-    ``masks`` the train-mode dropout masks of ``make_dropout_masks``, or
-    None (eval: every site is the identity). Returns
+    ``z_tot``, 0 for the MFN alone); ``weights`` as in ``W_NAMES``,
+    biases ``(1, d)``; ``masks`` the train-mode dropout masks of
+    ``make_dropout_masks``, or None (eval: every site is the identity). Returns
     ``(h_last (n, H), mem_last (n, mem))``."""
     _check(xp, weights, z_tot, h_dims, masks)
     if _route(xp.device) == "cpu":

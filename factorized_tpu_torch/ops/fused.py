@@ -143,30 +143,39 @@ def fused_decoder_scan(dec_params: Sequence[dict],
     return split_heads(recon, d_dims)
 
 
-def encode_operands(enc_cells, mfn_params, x_l, x_a, x_v):
-    """What the encode kernel takes. The fused carry is ordered [enc_l,
-    enc_a, enc_v, mfn_l, mfn_a, mfn_v], so the MFN's cStar is the
-    ``[:, z_tot:]`` slice of the fused cell state. Returns (xp, weights,
+def encode_operands(enc_cells, mfn_params, x_l, x_a, x_v, enc_xs=None):
+    """What the encode kernel takes for k encoder cells (k = 0, 1 or 3)
+    and the MFN. The fused carry is ordered [the k encoder cells, mfn_l,
+    mfn_a, mfn_v], so the MFN's cStar is the ``[:, z_tot:]`` slice of the
+    fused cell state, z_tot the encoder cells' widths summed.
+    ``enc_xs`` are the encoder cells' (t, n, d_i) inputs, by default the
+    three modalities (MFM's unimodal encoders). Returns (xp, weights,
     z_tot, h_dims): the gate-major input projections (t, n, 4H) and the
     packed weights of ``cuda_mfn.W_NAMES``."""
+    if enc_xs is None:
+        enc_xs = (x_l, x_a, x_v)
+    if len(enc_xs) != len(enc_cells):
+        raise ValueError(f"{len(enc_cells)} encoder cells, {len(enc_xs)} "
+                         f"inputs")
     cells = encode_cells(enc_cells, mfn_params)
-    xs = [x_l, x_a, x_v, x_l, x_a, x_v]
+    xs = [*enc_xs, x_l, x_a, x_v]
     h_dims = [c["wh"].shape[0] for c in cells]
     xp = repack_gate_major(
         [hoist_xproj(c, x) for c, x in zip(cells, xs)], h_dims)
-    return xp, encode_weights(cells, mfn_params), sum(h_dims[:3]), h_dims
+    z_tot = sum(h_dims[:len(enc_cells)])
+    return xp, encode_weights(cells, mfn_params), z_tot, h_dims
 
 
 def encode_cells(enc_cells, mfn_params):
-    """The six LSTM cells of the fused encode, in the carry's order: the
-    three encoders, then the MFN's l, a and v cells."""
+    """The LSTM cells of the fused encode, in the carry's order: the
+    encoder cells, then the MFN's l, a and v cells."""
     return list(enc_cells) + [mfn_params["lstm_l"], mfn_params["lstm_a"],
                               mfn_params["lstm_v"]]
 
 
 def encode_weights(cells, mfn_params):
     """The encode kernel's packed weights of ``cuda_mfn.W_NAMES`` for the
-    six ``encode_cells`` and the MFN's attention and gamma MLPs, biases
+    ``encode_cells`` and the MFN's attention and gamma MLPs, biases
     ``(1, d)``, each contiguous."""
     h_dims = [c["wh"].shape[0] for c in cells]
 
@@ -212,18 +221,20 @@ def input_projection(cells, rows, d_in: int):
 
 def fused_mfm_encode(enc_cells, mfn_params, x_l, x_a, x_v, *, mem_dim,
                      drops, train=False, generator=None, masks=None,
-                     bwd_variant="stream"):
-    """The whole MFM encode stage — the 3 unimodal encoder LSTMs, the
+                     bwd_variant="stream", enc_xs=None):
+    """The encode stage — k encoder LSTMs (``enc_cells`` over ``enc_xs``,
+    by default MFM's three unimodal encoders over the modalities), the
     MFN's 3 modality LSTMs and the delta-memory attention — as one
-    recurrence. In train mode with a nonzero rate among ``drops`` (att1,
-    att2, gamma1, gamma2) the dropout masks are ``masks`` when handed in
-    (the injection point), else drawn from ``generator`` by
-    ``cuda_mfn.make_dropout_masks``. Gradients reach the per-cell weights
-    through the packing, which is plain PyTorch; ``bwd_variant`` picks
-    the encode's reverse kernel (``cuda_mfn.BWD_VARIANTS``). Returns
-    ([enc_h_l, enc_h_a, enc_h_v], mfn_last_hs)."""
+    recurrence; with no encoder cell it is the MFN alone
+    (``ops.mfn.mfn_apply``). In train mode with a nonzero rate among
+    ``drops`` (att1, att2, gamma1, gamma2) the dropout masks are ``masks``
+    when handed in (the injection point), else drawn from ``generator``
+    by ``cuda_mfn.make_dropout_masks``. Gradients reach the per-cell
+    weights through the packing, which is plain PyTorch; ``bwd_variant``
+    picks the encode's reverse kernel (``cuda_mfn.BWD_VARIANTS``).
+    Returns ([the k encoders' last h], mfn_last_hs)."""
     xp, weights, z_tot, h_dims = encode_operands(enc_cells, mfn_params,
-                                                 x_l, x_a, x_v)
+                                                 x_l, x_a, x_v, enc_xs)
     if train and any(d > 0.0 for d in drops):
         if masks is None:
             if generator is None:
@@ -238,5 +249,5 @@ def fused_mfm_encode(enc_cells, mfn_params, x_l, x_a, x_v, *, mem_dim,
                                   variant=bwd_variant)
     if mem.shape[1] != mem_dim:
         raise ValueError(f"memory width {mem.shape[1]} != mem_dim {mem_dim}")
-    enc_hs = split_heads(h_last[:, :z_tot], h_dims[:3])
+    enc_hs = split_heads(h_last[:, :z_tot], h_dims[:len(enc_cells)])
     return enc_hs, torch.cat([h_last[:, z_tot:], mem], dim=1)

@@ -35,8 +35,10 @@ alone. Prints JSON lines:
   device ms by torch.profiler, since its calls stall the host while the
   card sleeps); each model's train step (device ms summed over kernels
   and copies, the ``record_function`` spans such as Adam's step apart)
-  and epoch, eager and, where the build has the chunked loop, replayed
-  from CUDA graphs; and the padded 256-row predict; ``predict_times``
+  and epoch (``mfm``, ``kl_ef``, ``missing`` and the ablations
+  ``m_a``..``m_d``), eager and, where the build has the chunked loop,
+  replayed from CUDA graphs; and the padded 256-row predict;
+  ``predict_times``
   (part ``times`` too): the padded 256-row predict of each served model
   with its launches, ``device_latency`` and graph where the build has
   them. They call only what every build of the port has, so this module
@@ -71,7 +73,7 @@ import numpy as np
 import torch
 
 from factorized_tpu_torch.config import best_acc_mosi_config
-from factorized_tpu_torch.models import mfm
+from factorized_tpu_torch.models import get_model, mfm
 from factorized_tpu_torch.models.common import mfn_drops
 from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
 from factorized_tpu_torch.ops.fused import hoist_xproj
@@ -79,6 +81,8 @@ from factorized_tpu_torch.serve import Predictor
 
 N = 256
 N_TRAIN = 32
+# the ablations, which part times steps and serves beside the MFM family
+ABLATIONS = ("m_a", "m_b", "m_c", "m_d")
 # the per-phase probe's buffer: csrc/lstm_common.cuh's ClockKernel order,
 # kMaxCells grid rows, kClockSteps steps, kClockPhases phases
 CLOCK_KERNELS = ("multi_lstm_bwd", "decoder_lstm_bwd", "mem_chain_bwd",
@@ -539,6 +543,14 @@ def step_times(cfg, dev):
                                 "missing"),
     }
     out = {}
+    for model_type in ABLATIONS:
+        try:
+            apply_fn = get_model(model_type)[1]
+        except NotImplementedError:  # a build without the ablations
+            out[model_type] = None
+            continue
+        programs[model_type] = TrainProgram(
+            apply_fn, cfg.replace(model_type=model_type))
     for model_type, program in programs.items():
         tree = mfm.MFM(cfg, seed=0, device=dev, model_type=model_type).tree()
         opt = make_optimizer(tree, 1e-3)
@@ -574,7 +586,7 @@ def step_times(cfg, dev):
 
 # the models the JAX package's Predictor serves that the port has, and
 # the launch counters of the kernels a predict may run
-SERVED = ("mfm", "kl", "kl_ef", "missing")
+SERVED = ("mfm", "kl", "kl_ef", "missing", *ABLATIONS)
 PREDICT_COUNTERS = {"mfm_encode_fwd": (cuda_mfn, "LAUNCHES"),
                     "decoder_lstm_fwd": (cuda_lstm, "LAUNCHES"),
                     "multi_lstm_fwd": (cuda_lstm, "MULTI_LAUNCHES")}

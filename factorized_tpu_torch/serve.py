@@ -80,9 +80,10 @@ class Replay:
 
 
 class Predictor:
-    """Serves ``y_hat`` of a model of the MFM family (``model_type``,
-    default ``cfg.model_type``; ported: ``mfm``, ``kl``, ``kl_ef`` and
-    ``missing``, whose all-present decode gives ``y_hat``)."""
+    """Serves ``y_hat`` of a model of the MFM family or an ablation
+    (``model_type``, default ``cfg.model_type``; ported: ``mfm``, ``kl``,
+    ``kl_ef``, ``missing``, whose all-present decode gives ``y_hat``, and
+    ``m_a``..``m_d``)."""
 
     def __init__(self, cfg: MFMConfig, params, model_type: Optional[str] = None,
                  batch_size: int = 256, device=None):

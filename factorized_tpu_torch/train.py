@@ -178,9 +178,11 @@ class FlatAdam:
     reach gets a zero gradient, as under ``jax.grad``, and its moments
     and value move on with the count, as optax's do. ``flat``, ``mu`` and
     ``nu`` are views of one buffer, ``state``, which the chunked loop's
-    divergence gate copies whole. ``lr`` is a 0-d float64 tensor on the
+    divergence gate copies whole. ``lr`` is a 0-d float32 tensor on the
     parameters' device that ``step`` reads, so a captured CUDA graph
-    reads the lr of the moment, not the one of its capture."""
+    reads the lr of the moment, not the one of its capture; float32, as
+    the JAX package's chunked loop keeps it (the product ``lr * u`` is
+    float32 whatever the lr's type, so the update is the same)."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -198,7 +200,7 @@ class FlatAdam:
         self.flat, self.mu, self.nu = self.state.split(n)
         self.grad = torch.zeros(n, dtype=torch.float32, device=dev)
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
-        self.lr = torch.tensor(float(lr), dtype=torch.float64, device=dev)
+        self.lr = torch.tensor(float(lr), dtype=torch.float32, device=dev)
         at = 0
         with torch.no_grad():
             for leaf in ls:
@@ -430,7 +432,9 @@ class ChunkedLoop:
       host loop's break leaves it, as ``lax.cond``'s ``hold``;
     - the best-keeper's select, one ``torch.where(take, flat,
       best_flat)``, and the plateau step, gated by ``ok``;
-    - a row (tracked, valid, lr, saved, ok), float64, into ``records``.
+    - a row (tracked, valid, lr, saved, ok), float64, into ``records``;
+      the lr is the float32 one the step read, as the JAX package's
+      chunked loop records it.
 
     On a CUDA card the body is a ``Graphed``: the first epoch runs
     eagerly, then each epoch is one graph replay. On the CPU each epoch
@@ -503,7 +507,8 @@ class ChunkedLoop:
             for k, v in new.items():
                 self.sched[k].copy_(torch.where(ok, v, self.sched[k]))
             self.alive.copy_(ok)
-            row = torch.stack([acc.double(), valid.double(), self.sched["lr"],
+            row = torch.stack([acc.double(), valid.double(),
+                               self.sched["lr"].double(),
                                take.double(), ok.double()])
             self.records.index_copy_(0, self.slot.view(1), row.view(1, 5))
             self.slot.add_(1)

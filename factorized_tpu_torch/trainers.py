@@ -1,6 +1,7 @@
 """Experiment-level trainers of the port (port of ``train_mfm``,
-``train_beta_vae`` and ``train_mfm_missing`` of
-``factorized_tpu/trainers.py``, with its loops: ``_loop`` runs
+``train_beta_vae``, ``train_mfm_missing``, ``train_mfm_test_zeros`` and
+``train_mfm_ablation`` of ``factorized_tpu/trainers.py``, with its
+loops: ``_loop`` runs
 ``_loop_chunked``, chunks of epochs on the device with one host read a
 chunk, on a CUDA card one graph replay an epoch, unless
 ``FACTORIZED_TPU_HOST_LOOP=1`` picks ``_loop_host``, the per-epoch host
@@ -13,7 +14,10 @@ the card unless ``device`` says otherwise and returns the results dict of
 the JAX package's trainer: test metrics, the parameters it scored, the
 optimizer state, the per-epoch history and the step count, plus the best
 validation loss where the JAX trainer returns one. Every random draw
-comes from one ``torch.Generator`` seeded from ``seed``.
+comes from one ``torch.Generator`` seeded from ``seed``. The test
+scores read ``y_hat`` of the serving forward (``models.predict.YHat``,
+the eval forward's label path); ``train_mfm_missing`` scores the eval
+forward's four decodes.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from factorized_tpu_torch import resolve_device
 from factorized_tpu_torch.models import get_model
 from factorized_tpu_torch.models.common import split_modalities
 from factorized_tpu_torch.models.mfm import MFM
+from factorized_tpu_torch.models.predict import YHat
 from factorized_tpu_torch.ops.losses import l2_loss
 from factorized_tpu_torch.train import (DEFAULT_EPOCH_CHUNK, ChunkedLoop,
                                         TrainProgram, make_batches,
@@ -55,19 +60,13 @@ def _labels(y, cfg):
             else y.astype(np.float32))
 
 
-def _std_predict(apply_fn, cfg):
-    """``predict(params, x, generator)``: y_hat of the eval forward,
+def _predict_y(params, cfg, model_type, X, dev):
+    """y_hat of ``params``' serving forward (``models.predict.YHat``) over
+    the time-major (t, n, d) numpy array ``X`` on ``dev``: a host array,
     squeezed for one-dimensional regression."""
-    squeeze = cfg.task == "regression" and cfg.output_dim == 1
-
-    def predict(params, x, generator):
-        with torch.no_grad():
-            decoded, _, _ = apply_fn(params, x, cfg, generator=generator,
-                                     train=False)
-        y_hat = decoded[3]
-        return torch.squeeze(y_hat, 1) if squeeze else y_hat
-
-    return predict
+    forward = YHat(cfg, _to_device(params, dev), model_type, dev)
+    with torch.no_grad():
+        return forward(torch.from_numpy(X).to(dev)).cpu().numpy()
 
 
 def _score(y_hat, y_test, cfg, binary_threshold, threshold_mode):
@@ -183,6 +182,7 @@ class _Setup:
     def __init__(self, data, cfg, name, *, lr, seed, include_remainder,
                  device):
         self.dev = dev = resolve_device(device)
+        self.name = name
         Xtr, ytr, Xv, yv, self.Xte, yte = _prep_data(*data, seed)
         _, self.apply_fn = get_model(name)
         self.params = MFM(cfg, seed=seed, device=dev, model_type=name).tree()
@@ -206,17 +206,14 @@ class _Setup:
                      self.rem, self.Xv, self.yv, num_epochs, self.scheduler,
                      keeper, logger, self.generator, save_always)
 
-    def score(self, params, cfg, logger, binary_threshold, threshold_mode):
-        """The test metrics of ``params``' eval forward on the test set."""
-        predict = _std_predict(self.apply_fn, cfg)
-        y_hat = predict(_to_device(params, self.dev),
-                        self.on_device(self.Xte),
-                        torch.Generator(device=self.dev).manual_seed(0))
-        logger.text("scoring y_hat")
-        metrics = _score(y_hat.cpu().numpy(), self.yte, cfg,
-                         binary_threshold, threshold_mode)
-        logger.record("final", **metrics)
-        return metrics
+    def score(self, params, cfg, logger, binary_threshold, threshold_mode,
+              tag="y_hat", X=None):
+        """The test metrics of ``params``' y_hat on the test set, or on
+        ``X`` (time-major, e.g. the test set with a modality zeroed)."""
+        y_hat = _predict_y(params, cfg, self.name,
+                           self.Xte if X is None else X, self.dev)
+        logger.text(f"scoring {tag}")
+        return _score(y_hat, self.yte, cfg, binary_threshold, threshold_mode)
 
 
 def _steps(history):
@@ -224,8 +221,7 @@ def _steps(history):
 
 
 # the model types train_mfm takes, with the standard (decoded, reg,
-# missing) return, as the JAX package's; of these the port has mfm, kl
-# and kl_ef
+# missing) return, as the JAX package's
 STANDARD = ("mfm", "kl", "kl_ef", "m_a", "m_b", "m_c", "m_d")
 
 
@@ -238,10 +234,10 @@ def train_mfm(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg, *,
               include_remainder: bool = False,
               model_type: Optional[str] = None,
               device=None):
-    """Joint single-stage training of MFM (or kl, kl_ef) under Adam (the
-    torch default lr 1e-3 unless ``lr``) with ReduceLROnPlateau on the
-    validation label loss, keeping the best epoch's parameters for the
-    test score."""
+    """Joint single-stage training of MFM (or any of ``STANDARD``) under
+    Adam (the torch default lr 1e-3 unless ``lr``) with ReduceLROnPlateau
+    on the validation label loss, keeping the best epoch's parameters for
+    the test score."""
     logger = logger or RunLogger()
     name = model_type or cfg.model_type
     if name not in STANDARD:
@@ -258,6 +254,7 @@ def train_mfm(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg, *,
                    else run.params)
     metrics = run.score(best_params, cfg, logger, binary_threshold,
                         threshold_mode)
+    logger.record("final", **metrics)
     return {"metrics": metrics, "params": best_params,
             "opt_state": run.optimizer.state_dict(), "history": history,
             "best_valid": keeper.best, "step": _steps(history)}
@@ -292,6 +289,7 @@ def train_beta_vae(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg,
             break
     metrics = run.score(run.params, cfg, logger, binary_threshold,
                         threshold_mode)
+    logger.record("final", **metrics)
     return {"metrics": metrics, "params": run.params,
             "opt_state": run.optimizer.state_dict(), "history": history,
             "step": _steps(history)}
@@ -342,6 +340,52 @@ def train_mfm_missing(X_train, y_train, X_valid, y_valid, X_test, y_test,
     return {"metrics": results, "params": best_params, "history": history,
             "opt_state": run.optimizer.state_dict(),
             "best_valid": keeper.best, "step": _steps(history)}
+
+
+def train_mfm_test_zeros(X_train, y_train, X_valid, y_valid, X_test,
+                         y_test, cfg, *, lr: Optional[float] = None,
+                         logger: Optional[RunLogger] = None,
+                         seed: int = 123,
+                         binary_threshold: float = 0.0,
+                         threshold_mode: str = "ge",
+                         device=None):
+    """Plain MFM trained as ``train_mfm`` does, without the remainder
+    batch; at test time each modality's input slice is zeroed in turn and
+    the best parameters' y_hat scored: ``metrics`` is keyed
+    ``y_hat_nol``, ``y_hat_noa`` and ``y_hat_nov``."""
+    logger = logger or RunLogger()
+    run = _Setup((X_train, y_train, X_valid, y_valid, X_test, y_test), cfg,
+                 "mfm", lr=lr, seed=seed, include_remainder=False,
+                 device=device)
+    keeper = BestKeeper("min")
+    history = run.loop(TrainProgram(run.apply_fn, cfg, "joint"), keeper,
+                       cfg.num_epochs, logger)
+    best_params = (keeper.best_params if keeper.best_params is not None
+                   else run.params)
+    d_l, d_a, _ = cfg.input_dims
+    results = {}
+    for tag, (lo, hi) in (("y_hat_nol", (0, d_l)),
+                          ("y_hat_noa", (d_l, d_l + d_a)),
+                          ("y_hat_nov", (d_l + d_a, cfg.d_total))):
+        X = run.Xte.copy()
+        X[..., lo:hi] = 0.0
+        results[tag] = run.score(best_params, cfg, logger, binary_threshold,
+                                 threshold_mode, tag, X)
+    logger.record("final", **results)
+    return {"metrics": results, "params": best_params, "history": history,
+            "opt_state": run.optimizer.state_dict(),
+            "best_valid": keeper.best, "step": _steps(history)}
+
+
+def train_mfm_ablation(X_train, y_train, X_valid, y_valid, X_test, y_test,
+                       cfg, **kw):
+    """The ablations ``m_a``..``m_d``: ``train_mfm``'s joint loss and loop
+    on ``cfg.model_type``."""
+    if cfg.model_type not in ("m_a", "m_b", "m_c", "m_d"):
+        raise ValueError(f"train_mfm_ablation trains m_a..m_d, got "
+                         f"{cfg.model_type!r}")
+    return train_mfm(X_train, y_train, X_valid, y_valid, X_test, y_test,
+                     cfg, model_type=cfg.model_type, **kw)
 
 
 def _to_device(tree, dev):

@@ -27,8 +27,7 @@ def plateau_step(state, metric, *, mode: str = "min", factor: float = 0.1,
     patience overrun reducing the lr and arming the cooldown. The
     comparisons and the reduction run in float32, as the JAX package's
     ``plateau_step`` and the host class; ``lr`` keeps its own dtype (the
-    training loop's is float64, so an lr never reduced stays the
-    caller's float bit for bit, as the host class's)."""
+    chunked training loop's is float32, as the JAX package's)."""
     if mode not in ("min", "max"):
         raise ValueError(f"mode must be 'min' or 'max', got {mode!r}")
     metric = metric.to(torch.float32)

@@ -114,7 +114,14 @@ def _assert_same_runs(monkeypatch, trainer, *args, **kw):
     for a, b in zip(host["history"], chunk["history"]):
         assert a.keys() == b.keys()
         for k in a:
-            assert _same(a[k], b[k]), (k, a, b)
+            if k == "lr":
+                # the host loop records the host class's float, the
+                # chunked one the float32 the step read, as the JAX
+                # package's two loops do
+                assert np.float32(a[k]) == np.float32(b[k]), (a, b)
+                assert b[k] == float(np.float32(b[k])), b
+            else:
+                assert _same(a[k], b[k]), (k, a, b)
     assert host["step"] == chunk["step"]
     if "best_valid" in host:
         assert _same(host["best_valid"], chunk["best_valid"])
@@ -123,7 +130,10 @@ def _assert_same_runs(monkeypatch, trainer, *args, **kw):
     for k, v in host["opt_state"]["state"].items():
         assert _same(v, chunk["opt_state"]["state"][k]), k
     assert host["opt_state"]["lr"] == chunk["opt_state"]["lr"]
-    assert vars(hs.scheduler) == vars(cs.scheduler)
+    host_sched, chunk_sched = vars(hs.scheduler), vars(cs.scheduler)
+    assert np.float32(host_sched.pop("lr")) == np.float32(
+        chunk_sched.pop("lr"))
+    assert host_sched == chunk_sched
     return host, chunk
 
 
@@ -227,7 +237,7 @@ def test_leaves_and_grads_are_views_of_the_flat_buffers():
     # the step moved the leaves through the flat vector
     assert any(not torch.equal(v.detach(), before[k])
                for k, v in to_state_dict(tree).items())
-    assert int(opt.count) == 1 and opt.lr.dtype == torch.float64
+    assert int(opt.count) == 1 and opt.lr.dtype == torch.float32
     _assert_same_trees(opt.tree_of(opt.flat), tree)
 
 
@@ -416,3 +426,26 @@ def test_kl_ef_stage_2_moves_the_decoders_on_one_count():
         want = before[k] - lr * (m / (1 - b1 ** 3)) / (
             torch.sqrt(v / (1 - b2 ** 3)) + eps)
         torch.testing.assert_close(flat[k].detach(), want, **ADAM)
+
+
+@pytest.mark.parametrize("lr", [1e-3, float(np.float32(1e-3) * np.float32(0.1)),
+                                3e-3, 2e-5])
+def test_flat_adam_update_is_the_same_with_a_float64_lr(lr):
+    """The flat Adam keeps its lr in float32, as the JAX package's chunked
+    loop does; ``p -= lr * u`` is taken in float32 whatever the lr's type,
+    so three steps move the parameters, moments and count bit for bit as
+    with the float64 lr the port kept before."""
+    cfg = _cfg()
+    states = []
+    for dtype in (torch.float64, torch.float32):
+        tree = mfm.MFM(cfg, seed=0, device="cpu").tree()
+        opt = train.make_optimizer(tree, lr)
+        opt.lr = torch.tensor(lr, dtype=dtype)
+        program = train.TrainProgram(mfm.mfm_apply, cfg)
+        g = torch.Generator().manual_seed(0)
+        for _ in range(3):
+            x = torch.randn(6, 4, cfg.d_total, generator=g)
+            program.step(tree, opt, x, torch.randn(4, generator=g), g)
+        states.append((opt.state.clone(), int(opt.count)))
+    assert torch.equal(states[0][0], states[1][0])
+    assert states[0][1] == states[1][1] == 3

@@ -16,7 +16,7 @@ import torch
 
 from factorized_tpu_torch.config import MFMConfig, best_acc_mosi_config
 from factorized_tpu_torch.convert import from_state_dict, to_state_dict
-from factorized_tpu_torch.models import mfm
+from factorized_tpu_torch.models import get_model, mfm
 from factorized_tpu_torch.models.common import mfn_drops
 from factorized_tpu_torch.ops import counts, cuda_lstm, cuda_mfn
 from factorized_tpu_torch.serve import Predictor
@@ -114,7 +114,8 @@ def test_predictor_on_the_card_matches_the_cpu(cuda):
     np.testing.assert_allclose(y, y_cpu, **TOL)
 
 
-@pytest.mark.parametrize("model_type", ["mfm", "kl", "kl_ef", "missing"])
+@pytest.mark.parametrize("model_type", ["mfm", "kl", "kl_ef", "missing",
+                                        "m_a", "m_b", "m_c", "m_d"])
 def test_graph_predictor_matches_the_cpu(cuda, model_type):
     cfg = best_acc_mosi_config(model_type=model_type)
     params = mfm.MFM(cfg, seed=4, device="cpu", model_type=model_type).tree()
@@ -126,7 +127,8 @@ def test_graph_predictor_matches_the_cpu(cuda, model_type):
     y = on_card.predict(X)
     launched = {(m.__name__.rsplit(".", 1)[1], a): v for (m, a), v in
                 counts.since(before).items() if isinstance(v, int) and v}
-    kernel = (("cuda_lstm", "MULTI_LAUNCHES") if model_type == "kl_ef"
+    kernel = (("cuda_lstm", "MULTI_LAUNCHES")
+              if model_type in ("kl_ef", "m_b", "m_d")
               else ("cuda_mfn", "LAUNCHES"))
     assert launched == {kernel: 2}
     y_cpu = Predictor(cfg, params, model_type=model_type,
@@ -844,7 +846,10 @@ def test_graph_loop_equals_the_host_loop(cuda, monkeypatch, model_type):
     host, host_launches = _train_small(cuda, monkeypatch, True, model_type)
     graph, graph_launches = _train_small(cuda, monkeypatch, False,
                                          model_type)
-    assert host["history"] == graph["history"]
+    # the lr the host loop records is the host scheduler's float, the
+    # graph loop's the float32 the step read (as the JAX package's loops)
+    assert [dict(e, lr=np.float32(e["lr"])) for e in host["history"]] == \
+        [dict(e, lr=np.float32(e["lr"])) for e in graph["history"]]
     for k, v in to_state_dict(host["params"]).items():
         assert torch.equal(v, to_state_dict(graph["params"])[k]), k
     assert graph_launches == host_launches
@@ -869,3 +874,156 @@ def test_graph_replays_draw_new_masks(cuda):
         got.append(out.clone())
     assert not torch.equal(got[1], got[2])
     assert all(torch.equal(a, b) for a, b in zip(got, eager))
+
+
+# ------------------------------------------------------------ ablations
+
+@pytest.mark.parametrize("model_type", ["m_a", "m_b", "m_c", "m_d"])
+def test_ablation_kernels_match_plain(cuda, model_type):
+    """The kernels at the shapes the ablations give them, full width: the
+    encode with one encoder cell over the whole input (m_a, z_tot 32) or
+    none (m_c, z_tot 0), eval at n = 256 and train, backward and weight
+    gradients at n = 32; the encoder trio [32, 8, 80] (m_b, m_d) and the
+    decoder trios [104] * 3, [88, 8, 8] and [16] * 3, forward and
+    backward at n = 32 (the trio's eval forward at n = 256)."""
+    from factorized_tpu_torch.models import ablations
+
+    cfg = best_acc_mosi_config(model_type=model_type)
+    params = mfm.MFM(cfg, seed=5, device=cuda).tree()
+    g = torch.Generator(device=cuda).manual_seed(6)
+    t = cfg.seqlength
+    with torch.inference_mode():
+        for n in (256, 32):
+            x = torch.randn((t, n, cfg.d_total), generator=g, device=cuda)
+            ops = ablations.kernel_operands(params, x, cfg, model_type)
+            if "encode" in ops:
+                xp, weights, z_tot, h_dims = ops["encode"]
+                assert z_tot == {"m_a": 32, "m_c": 0}[model_type]
+                if n == 256:
+                    for a, b in zip(
+                            cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims),
+                            cuda_mfn.mfm_encode_plain(xp, weights, z_tot)):
+                        torch.testing.assert_close(a, b, **TOL)
+                    continue
+                masks = cuda_mfn.make_dropout_masks(
+                    g, t, n, cuda_mfn.sizes(weights)[:4], mfn_drops(cfg))
+                got = cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot,
+                                              h_dims)
+                want = cuda_mfn.mfm_encode_res_plain(xp, masks, weights,
+                                                     z_tot)
+                for a, b in zip(got, want):
+                    torch.testing.assert_close(a, b, **TOL)
+                res = want[2:]
+                dh = torch.randn((n, sum(h_dims)), generator=g, device=cuda)
+                dmem = torch.randn((n, cfg.memsize), generator=g,
+                                   device=cuda)
+                dxp, dw = cuda_mfn.mfm_encode_bwd(xp, weights, *res, dh,
+                                                  dmem, z_tot, h_dims)
+                want_dxp, want_dw = cuda_mfn.mfm_encode_bwd_plain(
+                    xp, weights, *res, dh, dmem, z_tot)
+                torch.testing.assert_close(dxp, want_dxp, **GRAD)
+                for k in cuda_mfn.W_NAMES:
+                    torch.testing.assert_close(dw[k], want_dw[k], **GRAD)
+            else:
+                xp, wh, h_dims = ops["multi_lstm"]
+                assert h_dims == [32, 8, 80]
+                torch.testing.assert_close(
+                    cuda_lstm.multi_lstm_fwd(xp, wh, h_dims),
+                    cuda_lstm.multi_lstm_plain(xp, wh), **TOL)
+                if n == 256:
+                    continue
+                for a, b in zip(
+                        cuda_lstm.multi_lstm_fwd(xp, wh, h_dims, True),
+                        cuda_lstm.multi_lstm_plain(xp, wh, True)):
+                    torch.testing.assert_close(a, b, **TOL)
+                _, _, allc, gates = cuda_lstm.multi_lstm_plain(xp, wh, True)
+                dh = torch.randn((n, sum(h_dims)), generator=g, device=cuda)
+                torch.testing.assert_close(
+                    cuda_lstm.multi_lstm_bwd(gates, wh, allc, dh, h_dims),
+                    cuda_lstm.multi_lstm_bwd_plain(gates, wh, allc, dh),
+                    **GRAD)
+            if "decoder" not in ops or n == 256:
+                continue
+            h0, c0, wsum, b, dec_dims = ops["decoder"]
+            assert dec_dims == {"m_a": [104] * 3, "m_b": [88, 8, 8],
+                                "m_c": [16] * 3}[model_type]
+            got = cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b, t, dec_dims)
+            want = cuda_lstm.decoder_lstm_plain(h0, c0, wsum, b, t)
+            for a, b_ in zip(got, want):
+                torch.testing.assert_close(a, b_, **TOL)
+            allh, allc, gates = want
+            dallh = torch.randn(allh.shape, generator=g, device=cuda)
+            for a, b_ in zip(
+                    cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh,
+                                               dec_dims),
+                    cuda_lstm.decoder_lstm_bwd_plain(wsum, gates, allc,
+                                                     dallh)):
+                torch.testing.assert_close(a, b_, **GRAD)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("model_type", ["m_a", "m_b", "m_c", "m_d"])
+def test_ablation_train_step_grads_match_the_cpu(cuda, model_type):
+    """One joint train step of each ablation at full width, n = 32, with
+    the same injected draws: the card's gradients against the CPU's."""
+    cfg = best_acc_mosi_config(model_type=model_type)
+    t, n = cfg.seqlength, 32
+    params = mfm.MFM(cfg, seed=7, device="cpu").tree()
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn((t, n, cfg.d_total), generator=g)
+    y = torch.randn((n,), generator=g)
+
+    def mask(f, rate):
+        return (torch.rand((n, f), generator=g) >= rate).float() / (1 - rate)
+
+    encode = cuda_mfn.make_dropout_masks(
+        g, t, n, (cfg.att1_shape, cfg.att2_shape, cfg.gamma1_shape,
+                  cfg.gamma2_shape), mfn_drops(cfg))
+    fy = mask(cfg.fy_size, cfg.fy_to_y_dropout)
+    draws = {
+        "m_a": dict(encode_masks=encode,
+                    mmd_noise=[torch.randn((n, cfg.zl_size), generator=g),
+                               torch.randn((n, cfg.zy_size), generator=g)],
+                    zf_masks=[mask(cfg.fy_size, cfg.zy_to_fy_dropout),
+                              mask(cfg.fl_size, cfg.zl_to_fl_dropout)],
+                    y_mask=fy),
+        "m_b": dict(mmd_noise=[torch.randn((n, z), generator=g) for z in
+                               (cfg.zl_size, cfg.za_size, cfg.zv_size)],
+                    zf_masks=[mask(cfg.fl_size, cfg.zl_to_fl_dropout),
+                              mask(cfg.fa_size, cfg.za_to_fa_dropout),
+                              mask(cfg.fv_size, cfg.zv_to_fv_dropout)],
+                    y_mask=fy),
+        "m_c": dict(encode_masks=encode,
+                    mmd_noise=[torch.randn((n, cfg.zy_size), generator=g)],
+                    zf_masks=[mask(cfg.fy_size, cfg.zy_to_fy_dropout)],
+                    y_mask=fy),
+        "m_d": dict(zf_masks=[mask(cfg.fl_size, cfg.zl_to_fl_dropout),
+                              mask(cfg.fa_size, cfg.za_to_fa_dropout),
+                              mask(cfg.fv_size, cfg.zv_to_fv_dropout)]),
+    }[model_type]
+    loss_fn = make_loss_fn(get_model(model_type)[1], cfg)
+    grads = []
+    for dev in ("cpu", cuda):
+        tree = {k: v.detach().to(dev).requires_grad_()
+                for k, v in to_state_dict(params).items()}
+        loss, _ = loss_fn(from_state_dict(tree), x.to(dev), y.to(dev),
+                          draws=_to(draws, dev))
+        loss.backward()
+        grads.append({k: (torch.zeros_like(v) if v.grad is None
+                          else v.grad).cpu() for k, v in tree.items()})
+    for k in grads[0]:
+        torch.testing.assert_close(grads[1][k], grads[0][k], **GRAD)
+
+
+@pytest.mark.parametrize("name", ["mfn_mae", "mfn_acc"])
+def test_released_checkpoints_on_the_card_match_the_cpu(cuda, name):
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "factorized_tpu_torch", "released",
+        name)
+    X = np.random.default_rng(9).normal(size=(300, 20, 325)).astype(
+        np.float32)
+    y = Predictor.from_checkpoint(path).predict(X)
+    np.testing.assert_allclose(
+        y, Predictor.from_checkpoint(path, device="cpu").predict(X), **TOL)
