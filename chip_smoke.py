@@ -116,9 +116,26 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 15. the released checkpoints ``factorized_tpu_torch/released/mfn_mae``
     and ``mfn_acc``: ``test_mosi`` on the card scores as the CPU
     ``Predictor`` does, within 1e-5, and ``serve`` replies as the CPU;
-16. prints one JSON line on the ten kernels, the ``nvidia-smi`` line,
+16. the chains past the width at which a block's per-row state alone
+    passed its shared memory (a launch refused before this plan): each
+    chain just past it against its plain version (a 600-unit cell in the
+    eval encode and ``multi_lstm_fwd``'s eval at n = 256, 1,400 in the
+    encode backward, 1,700 in ``multi_lstm_bwd``, 2,200 in the 2-row
+    forward chains, 3,000 in the decoder backward, at n = 32; the memory
+    chain at mem 7,400), each with the plan it took (its state in device
+    memory, ``cuda_lstm.SCRATCH``), device ms, events ms, bound, plain ms
+    and the recurrences' per-cell ``nn.LSTM`` yardstick (``c1`` lines);
+    then ``mosi --config`` with a JSON that makes an MFN cell of 1,400, an
+    encoder cell of 600 and a decoder cell of 3,000, 2 epochs: a finite,
+    falling loss and every kernel of the path launched (``c1_train``);
+17. the ``mosi`` command's surface: ``--mode search --trials 3`` for
+    ``mfm`` and ``kl_ef`` against the CPU's draws, ``--save-ckpt`` then
+    ``--resume`` (the restored state bit for bit, the epochs and lr
+    going on) with ``--ckpt-every 1``, and ``--data-root`` on a
+    fabricated MOSI root with ``--feature-selection`` 1 and 0 (``cli``);
+18. prints one JSON line on the ten kernels, the ``nvidia-smi`` line,
     and last ``{"ok": true, "device": {...}}``; a ``seconds`` line after
-    each of steps 4, 6, 8, 10, 11, 12, 13, 14 and 15.
+    each of steps 4, 6, 8, 10, 11, 12, 13, 14, 15, 16 and 17.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1.
 """
@@ -380,6 +397,7 @@ def counted(path, kernels, fn):
         setattr(module, attr, 0)
     for module in {m for m, _ in counters().values()}:
         module.L2_LAUNCHES.clear()
+        module.SCRATCH_LAUNCHES.clear()
     t0 = time.perf_counter()
     out = fn()
     seconds = time.perf_counter() - t0
@@ -878,13 +896,17 @@ def main():
               12: lambda: loop_phase(cfg, dev, smi),
               13: lambda: ablation_phase(cfg, dev, smi, data),
               14: lambda: zeros_phase(cfg, dev, smi, data),
-              15: lambda: released_phase(smi)}
+              15: lambda: released_phase(smi),
+              16: lambda: (c1_phase(cfg, dev, smi),
+                           c1_train_phase(cfg, smi, tmp)),
+              17: lambda: cli_phase(smi, tmp)}
     results = {}
-    for step, run in phases.items():
-        t0 = time.perf_counter()
-        results[step] = run()
-        log({"phase": "seconds", "step": step,
-             "seconds": time.perf_counter() - t0})
+    with tempfile.TemporaryDirectory() as tmp:
+        for step, run in phases.items():
+            t0 = time.perf_counter()
+            results[step] = run()
+            log({"phase": "seconds", "step": step,
+                 "seconds": time.perf_counter() - t0})
     train_kernels, variant_kernels, probe_kernels = (results[6], results[8],
                                                      results[10])
     log({"kernels": serve_kernels + train_kernels + variant_kernels
@@ -2762,6 +2784,484 @@ def released_phase(smi):
                           "serve": served["mfm_encode_fwd"]}})
         del predictor
     return out
+
+
+# Step 16: each chain just past the width at which its per-row state
+# alone passed a block (and the launch was refused before the scratch
+# plan): (label, kernel, cells, n)
+C1_CHAINS = (
+    ("encode_eval", "mfm_encode_fwd", [600, 64, 48], N_SERVE),
+    ("multi_eval", "multi_lstm_fwd", [600, 24], N_SERVE),
+    ("encode_bwd", "mfm_encode_bwd", [1400, 64, 48], N_TRAIN),
+    ("multi_bwd", "multi_lstm_bwd", [1700, 24], N_TRAIN),
+    ("decoder_fwd", "decoder_lstm_fwd", [2200, 24], N_TRAIN),
+    ("multi_train", "multi_lstm_fwd", [2200, 24], N_TRAIN),
+    ("decoder_bwd", "decoder_lstm_bwd", [3000], N_TRAIN),
+)
+# the memory chain past its own limit: R (4 mem + 5 (s3 + s4)) floats a
+# block in the 2-row eval forward, 13 mem + 3 (s3 + s4) in the 1-row
+# backward, against 58,112
+C1_MEM = 7400
+
+
+def block_weight(dims, gen, dev):
+    """A packed gate-major block-diagonal recurrent weight (H, 4H) over the
+    cells ``dims``, each block scaled by 0.5 / sqrt(h)."""
+    from factorized_tpu_torch.ops import cuda_lstm
+
+    H = sum(dims)
+    w = torch.zeros((H, 4 * H), device=dev)
+    o = 0
+    for h in dims:
+        cols = cuda_lstm.cell_columns(H, o, h, dev)
+        w[o:o + h, cols] = (0.5 / h ** 0.5) * torch.randn(
+            (h, 4 * h), generator=gen, device=dev)
+        o += h
+    return w
+
+
+def few_timed(fn, plain):
+    """timed() with fewer calls, for chains of several ms a call."""
+    return {"ms": cuda_ms(fn, 5, warmup=1),
+            "device_ms": queued_ms(fn, reps=5, warmup=1),
+            "plain_ms": cuda_ms(plain, 3, warmup=1)}
+
+
+def c1_phase(cfg, dev, smi):
+    """Step 16's kernels: each chain at a width just past the one at which
+    its per-row state alone passed a block's shared memory, where the
+    launch used to be refused, against its plain version with the
+    step-3/6 tolerances: the plan it took (``cuda_lstm.SCRATCH``, counted
+    in ``SCRATCH_LAUNCHES``), device ms, events ms, bound, plain ms and,
+    for the recurrences, the per-cell ``nn.LSTM`` yardstick."""
+    from factorized_tpu_torch.models import mfm
+    from factorized_tpu_torch.models.common import mfn_drops
+    from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
+
+    t = cfg.seqlength
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    for module in (cuda_lstm, cuda_mfn):
+        module.SCRATCH_LAUNCHES.clear()
+    out, library = {}, {}
+
+    def record(label, name, cells, n, err, times, bnd, lib=None, **kw):
+        module = cuda_mfn if name.startswith("mfm") else cuda_lstm
+        out[label] = {"kernel": name, "cells": cells, "n": n,
+                      "plan": module.CLUSTERS[name],
+                      "max_abs_err": err["max_abs_err"], **times,
+                      "bound_ms": bnd[0], "bound_by": bnd[1],
+                      "library_ms": None, **kw}
+        if lib is not None:
+            library[label] = lib
+
+    def encode_case(h_dims, n, **widths):
+        wide = cfg.replace(h_dims=h_dims, **widths)
+        params = mfm.MFM(wide, seed=SEED + 91, device=dev).tree()
+        x = torch.randn((t, n, wide.d_total), generator=gen, device=dev)
+        (xp, weights, z_tot, dims), _ = mfm.kernel_operands(params, x, wide)
+        return wide, xp, weights, z_tot, dims
+
+    with torch.inference_mode():
+        for label, name, cells, n in C1_CHAINS:
+            H = sum(cells)
+            if name == "mfm_encode_fwd":
+                _, xp, weights, z_tot, dims = encode_case(cells, n)
+                got = cuda_mfn.mfm_encode(xp, weights, z_tot, dims)
+                err = compare_all(f"c1.{label}", zip(
+                    ("h_last", "mem_last"), got,
+                    cuda_mfn.mfm_encode_plain(xp, weights, z_tot)))
+                bnd = bound(2 * n * (t * encode_macs_per_row(
+                    weights, dims, z_tot) - 4 * sum(h * h for h in dims)),
+                    nbytes(xp, *off_diag(weights), *got) + diag_bytes(dims))
+                record(label, name, dims, n, err, few_timed(
+                    lambda: cuda_mfn.mfm_encode(xp, weights, z_tot, dims),
+                    lambda: cuda_mfn.mfm_encode_plain(xp, weights, z_tot)),
+                    bnd)
+            elif name == "mfm_encode_bwd":
+                wide, xp, weights, z_tot, dims = encode_case(cells, n)
+                H = sum(dims)
+                masks = cuda_mfn.make_dropout_masks(
+                    gen, t, n, cuda_mfn.sizes(weights)[:4], mfn_drops(wide))
+                res = cuda_mfn.mfm_encode_res_plain(xp, masks, weights,
+                                                    z_tot)[2:]
+                dh = torch.randn((n, H), generator=gen, device=dev)
+                dmem = torch.randn((n, wide.memsize), generator=gen,
+                                   device=dev)
+
+                def bwd():
+                    return cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem,
+                                                z_tot, dims)
+
+                def bwd_plain():
+                    return cuda_mfn.mfm_encode_bwd_steps_plain(
+                        xp, weights, *res, dh, dmem, z_tot)
+
+                got = bwd()
+                err = compare_all(f"c1.{label}", zip(("dxp", "deltas"), got,
+                                                     bwd_plain()),
+                                  GRAD_RTOL, GRAD_ATOL)
+                s1, s2, s3, s4, mem = cuda_mfn.sizes(weights)
+                m2 = 2 * (H - z_tot)
+                macs = ((t - 1) * n * 2 * 4 * sum(h * h for h in dims)
+                        + t * n * ((s3 + s4) * mem + s2 * mem
+                                   + (m2 + mem) * (s3 + s4) + m2 * s2
+                                   + 2 * s1 * m2))
+                used = ("a1w1", "a1w2", "a2w1", "a2w2", "gw1", "g1w2",
+                        "g2w2")
+                bnd = bound(2 * macs, nbytes(
+                    xp, *res, dh, dmem, *[weights[k] for k in used], *got)
+                    + diag_bytes(dims))
+                record(label, name, dims, n, err, few_timed(bwd, bwd_plain),
+                       bnd)
+            elif name == "multi_lstm_fwd":
+                wh = block_weight(cells, gen, dev)
+                xp = torch.randn((t, n, 4 * H), generator=gen, device=dev)
+                train = label == "multi_train"
+                got = cuda_lstm.multi_lstm_fwd(xp, wh, cells, with_res=train)
+                want = cuda_lstm.multi_lstm_plain(xp, wh, with_res=train)
+                err = compare_all(f"c1.{label}", zip(
+                    ("h_last", "allh", "allc", "gates"),
+                    got if train else [got], want if train else [want]))
+                bnd = bound(2 * (t - 1) * n * 4 * sum(h * h for h in cells),
+                            nbytes(xp, *(got if train else [got]))
+                            + diag_bytes(cells))
+                xs = [torch.randn((t, n, cfg.d_total), generator=gen,
+                                  device=dev) for _ in cells]
+                record(label, name, cells, n, err, few_timed(
+                    lambda: cuda_lstm.multi_lstm_fwd(xp, wh, cells,
+                                                     with_res=train),
+                    lambda: cuda_lstm.multi_lstm_plain(xp, wh,
+                                                       with_res=train)),
+                    bnd, lambda: cell_library_ms(
+                        [{"wh": torch.empty((h, 0))} for h in cells], xs),
+                    with_res=train)
+            elif name == "multi_lstm_bwd":
+                wh = block_weight(cells, gen, dev)
+                xp = torch.randn((t, n, 4 * H), generator=gen, device=dev)
+                _, _, allc, gates = cuda_lstm.multi_lstm_plain(
+                    xp, wh, with_res=True)
+                dh = torch.randn((n, H), generator=gen, device=dev)
+                got = cuda_lstm.multi_lstm_bwd(gates, wh, allc, dh, cells)
+                err = compare(f"c1.{label}", got, cuda_lstm.multi_lstm_bwd_plain(
+                    gates, wh, allc, dh), GRAD_RTOL, GRAD_ATOL)
+                bnd = bound(2 * (t - 1) * n * 4 * sum(h * h for h in cells),
+                            nbytes(gates, allc, dh, got) + diag_bytes(cells))
+                xs = [torch.randn((t, n, cfg.d_total), generator=gen,
+                                  device=dev) for _ in cells]
+                record(label, name, cells, n, err, few_timed(
+                    lambda: cuda_lstm.multi_lstm_bwd(gates, wh, allc, dh,
+                                                     cells),
+                    lambda: cuda_lstm.multi_lstm_bwd_plain(gates, wh, allc,
+                                                           dh)),
+                    bnd, lambda: cell_library_ms(
+                        [{"wh": torch.empty((h, 0))} for h in cells], xs,
+                        backward=True))
+            else:
+                wsum = block_weight(cells, gen, dev)
+                b = 0.1 * torch.randn((1, 4 * H), generator=gen, device=dev)
+                h0 = torch.randn((n, H), generator=gen, device=dev)
+                c0 = torch.randn((n, H), generator=gen, device=dev)
+                allh, allc, gates = cuda_lstm.decoder_lstm_plain(h0, c0,
+                                                                 wsum, b, t)
+                macs = (t - 1) * n * 4 * sum(h * h for h in cells)
+                if name == "decoder_lstm_fwd":
+                    got = cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b, t,
+                                                     cells)
+                    err = compare_all(f"c1.{label}", zip(
+                        ("allh", "allc", "gates"), got, (allh, allc, gates)))
+                    bnd = bound(2 * macs, nbytes(h0, c0, b, *got)
+                                + diag_bytes(cells))
+                    times = few_timed(
+                        lambda: cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b,
+                                                           t, cells),
+                        lambda: cuda_lstm.decoder_lstm_plain(h0, c0, wsum,
+                                                             b, t))
+                    backward = False
+                else:
+                    dallh = torch.randn(allh.shape, generator=gen,
+                                        device=dev)
+                    got = cuda_lstm.decoder_lstm_bwd(wsum, gates, allc,
+                                                     dallh, cells)
+                    err = compare_all(f"c1.{label}", zip(
+                        ("dgates", "dh0", "dc0"), got,
+                        cuda_lstm.decoder_lstm_bwd_plain(wsum, gates, allc,
+                                                         dallh)),
+                        GRAD_RTOL, GRAD_ATOL)
+                    bnd = bound(2 * macs, nbytes(gates, allc, dallh, *got)
+                                + diag_bytes(cells))
+                    times = few_timed(
+                        lambda: cuda_lstm.decoder_lstm_bwd(
+                            wsum, gates, allc, dallh, cells),
+                        lambda: cuda_lstm.decoder_lstm_bwd_plain(
+                            wsum, gates, allc, dallh))
+                    backward = True
+                record(label, name, cells, n, err, times, bnd,
+                       functools.partial(decoder_library_ms, h0, c0, wsum,
+                                         b, t, cells, backward=backward))
+
+        # the memory chain past its limit, forward (eval) and backward
+        n = N_TRAIN
+        wide, xp, weights, z_tot, dims = encode_case(
+            cfg.h_dims, n, memsize=C1_MEM, gamma1_shape=128,
+            gamma2_shape=128)
+        got = cuda_mfn.mfm_encode(xp, weights, z_tot, dims)
+        err = compare_all("c1.memory_eval", zip(
+            ("h_last", "mem_last"), got,
+            cuda_mfn.mfm_encode_plain(xp, weights, z_tot)))
+        bnd = bound(2 * n * (t * encode_macs_per_row(weights, dims, z_tot)
+                             - 4 * sum(h * h for h in dims)),
+                    nbytes(xp, *off_diag(weights), *got) + diag_bytes(dims))
+        record("memory_eval", "mfm_encode_fwd", dims, n, err, few_timed(
+            lambda: cuda_mfn.mfm_encode(xp, weights, z_tot, dims),
+            lambda: cuda_mfn.mfm_encode_plain(xp, weights, z_tot)), bnd,
+            mem=C1_MEM)
+        masks = cuda_mfn.make_dropout_masks(
+            gen, t, n, cuda_mfn.sizes(weights)[:4], mfn_drops(wide))
+        res = cuda_mfn.mfm_encode_res_plain(xp, masks, weights, z_tot)[2:]
+        dh = torch.randn((n, sum(dims)), generator=gen, device=dev)
+        dmem = torch.randn((n, C1_MEM), generator=gen, device=dev)
+        got = cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem, z_tot, dims)
+        err = compare_all("c1.memory_bwd", zip(
+            ("dxp", "deltas"), got, cuda_mfn.mfm_encode_bwd_steps_plain(
+                xp, weights, *res, dh, dmem, z_tot)), GRAD_RTOL, GRAD_ATOL)
+        s1, s2, s3, s4, mem = cuda_mfn.sizes(weights)
+        m2 = 2 * (sum(dims) - z_tot)
+        macs = ((t - 1) * n * 2 * 4 * sum(h * h for h in dims)
+                + t * n * ((s3 + s4) * mem + s2 * mem + (m2 + mem) * (s3 + s4)
+                           + m2 * s2 + 2 * s1 * m2))
+        used = ("a1w1", "a1w2", "a2w1", "a2w2", "gw1", "g1w2", "g2w2")
+        bnd = bound(2 * macs, nbytes(xp, *res, dh, dmem,
+                                     *[weights[k] for k in used], *got)
+                    + diag_bytes(dims))
+        record("memory_bwd", "mfm_encode_bwd", dims, n, err, few_timed(
+            lambda: cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem, z_tot,
+                                         dims),
+            lambda: cuda_mfn.mfm_encode_bwd_steps_plain(
+                xp, weights, *res, dh, dmem, z_tot)), bnd, mem=C1_MEM)
+        torch.cuda.synchronize()
+    # the yardsticks run outside inference mode (their backward records)
+    for label, lib in library.items():
+        out[label]["library_ms"] = lib()
+    for label, numbers in out.items():
+        log({"phase": "c1", "label": label, "nvidia_smi": smi, **numbers})
+        plan = numbers["plan"]
+        if cuda_lstm.SCRATCH not in (plan if isinstance(plan, tuple)
+                                     else (plan,)):
+            raise AssertionError(f"{label} did not keep its state in device "
+                                 f"memory past a block: {numbers}")
+    scratch = {**cuda_mfn.SCRATCH_LAUNCHES, **cuda_lstm.SCRATCH_LAUNCHES}
+    if set(scratch) != {name for _, name, _, _ in C1_CHAINS}:
+        raise AssertionError(f"a chain was not counted on the scratch "
+                             f"plan: {scratch}")
+    return out
+
+
+def epoch_records(path):
+    """The ``epoch`` records of a run's JSONL log, in order."""
+    with open(path) as f:
+        return [r for r in map(json.loads, f) if r["kind"] == "epoch"]
+
+
+def mosi_cli(argv, path, kernels):
+    """``python -m factorized_tpu_torch mosi`` in this process (the card,
+    the build and the kernels' counters shared), counted; fails unless
+    it exits 0 and launches each of ``kernels``. Returns (seconds,
+    launches, scratch launches by kernel)."""
+    from factorized_tpu_torch import cli
+
+    rc, seconds, launches = counted(path, kernels,
+                                    lambda: cli.main(["mosi", *argv]))
+    if rc != 0:
+        raise AssertionError(f"mosi {argv} exited {rc}")
+    from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
+
+    return seconds, {k: launches[k] for k in kernels}, {
+        **cuda_mfn.SCRATCH_LAUNCHES, **cuda_lstm.SCRATCH_LAUNCHES}
+
+
+def finite(records):
+    """Whether every epoch record's losses are finite (and there is one)."""
+    return bool(records) and all(
+        np.isfinite([r["train_loss"], r["valid_loss"]]).all()
+        for r in records)
+
+
+def falling_finite(records, label):
+    """Every epoch's losses finite and the train loss falling."""
+    losses = [r["train_loss"] for r in records]
+    if not finite(records):
+        raise AssertionError(f"{label}: a loss is not finite: {records}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the train loss did not fall: "
+                             f"{losses}")
+    return losses
+
+
+def c1_train_phase(cfg, smi, tmp):
+    """Step 16's run: ``mosi --config <json> --epochs 2`` whose JSON makes
+    an MFN cell of 1,400 units (``h_dims`` [1400, 64, 48]), an encoder
+    cell of 600 (``zl_size``) and a decoder cell of 3,000 (``fy_size`` +
+    ``fv_size``), at batch 128 on the synthetic MOSI set: a finite,
+    falling loss, every kernel of the path launched, and the chains past
+    a block's state on the scratch plan (the eval encode of the
+    validation, the reverse pass, both decoder kernels)."""
+    import os
+
+    wide = cfg.replace(h_dims=[1400, 64, 48], zl_size=600,
+                       fv_size=3000 - cfg.fy_size, batchsize=128)
+    path = os.path.join(tmp, "c1.json")
+    with open(path, "w") as f:
+        json.dump(wide.to_dict(), f)
+    out = os.path.join(tmp, "c1_runs")
+    kernels = ABLATION_TRAIN["m_a"]
+    seconds, launches, scratch = mosi_cli(
+        ["--config", path, "--epochs", "2", "--out", out,
+         "--seed", str(SEED)], "mosi --config (C1 widths)", kernels)
+    losses = falling_finite(epoch_records(os.path.join(out, "mosi_0.jsonl")),
+                            "C1 widths")
+    on_scratch = ("mfm_encode_fwd", "mfm_encode_bwd", "decoder_lstm_fwd",
+                  "decoder_lstm_bwd")
+    if any(scratch.get(k, 0) < 1 for k in on_scratch):
+        raise AssertionError(f"a chain past a block's state did not run on "
+                             f"the scratch plan: {scratch}")
+    decoders = [wide.fy_size + f for f in (wide.fl_size, wide.fa_size,
+                                           wide.fv_size)]
+    log({"phase": "c1_train", "nvidia_smi": smi, "seconds": seconds,
+         "h_dims": wide.h_dims, "zl_size": wide.zl_size,
+         "decoders": decoders, "batchsize": wide.batchsize,
+         "train_loss": losses, "launches": launches,
+         "scratch_launches": scratch})
+
+
+def cli_phase(smi, tmp):
+    """Step 17: the ``mosi`` command's surface on the card.
+
+    - ``--mode search --trials 3 --epochs 2 --seed S`` for ``mfm`` and
+      ``kl_ef``: the ``config`` records equal ``sample_search_config``'s
+      draws from ``random.Random(S)`` on the CPU, each trial's losses
+      finite;
+    - ``--config configs/mosi.json --epochs 2 --save-ckpt``, then
+      ``--resume`` of that checkpoint with ``--epochs 4 --ckpt-every 1``:
+      before the first resumed step the restored parameters and Adam
+      state equal the checkpoint's bit for bit, the ``epoch`` records go
+      on at 2, the first one's lr is the checkpoint's ``_resume_lr``, the
+      losses are finite, and ``ckpt_auto_mosi_0`` is left at step 4;
+    - ``--data-root`` on a fabricated MOSI root (the real files' layout,
+      ``data.mosi.fabricate_root``), with ``--feature-selection`` 1 and
+      0, finite losses."""
+    import os
+    import random
+
+    from factorized_tpu_torch import trainers
+    from factorized_tpu_torch.config import sample_search_config
+    from factorized_tpu_torch.data import mosi
+    from factorized_tpu_torch.train import leaves
+    from factorized_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    seed = SEED + 120
+    for model_type, kernels in (("mfm", ABLATION_TRAIN["m_a"]),
+                                ("kl_ef", ("multi_lstm_fwd", "multi_lstm_bwd",
+                                           "decoder_lstm_fwd",
+                                           "decoder_lstm_bwd"))):
+        seed += 1
+        runs = os.path.join(tmp, f"search_{model_type}")
+        seconds, launches, _ = mosi_cli(
+            ["--mode", "search", "--trials", "3", "--epochs", "2", "--type",
+             model_type, "--seed", str(seed), "--out", runs],
+            f"mosi --mode search --type {model_type}", kernels)
+        rng = random.Random(seed)
+        drawn = []
+        for trial in range(3):
+            want = sample_search_config("mosi", rng, model_type=model_type,
+                                        missing=0, zeros=0).replace(
+                input_dims=[300, 5, 20], num_epochs=2).to_dict()
+            log_path = os.path.join(runs, f"mosi_{trial}.jsonl")
+            with open(log_path) as f:
+                got = next(r for r in map(json.loads, f)
+                           if r["kind"] == "config")
+            got = {k: v for k, v in got.items() if k in want}
+            if got != json.loads(json.dumps(want)):
+                raise AssertionError(f"search {model_type} trial {trial}: "
+                                     f"{got} against the CPU's {want}")
+            records = epoch_records(log_path)
+            if not finite(records):
+                raise AssertionError(f"search {model_type} trial {trial}: "
+                                     f"a loss is not finite")
+            drawn.append({k: want[k] for k in ("h_dims", "memsize",
+                                               "batchsize", "zl_size")})
+        out[f"search_{model_type}"] = {"seconds": seconds, "drawn": drawn,
+                                       "launches": launches}
+
+    # save, then resume: the state before the first resumed step
+    runs = os.path.join(tmp, "resume")
+    config = os.path.join(repo, "configs", "mosi.json")
+    kernels = ABLATION_TRAIN["m_a"]
+    seconds, _, _ = mosi_cli(["--config", config, "--epochs", "2",
+                              "--save-ckpt", "--out", runs],
+                             "mosi --save-ckpt", kernels)
+    ckpt = os.path.join(runs, "ckpt_mosi_0")
+    state, meta = restore_checkpoint(ckpt)
+    seen = {}
+    resume = trainers._maybe_resume
+
+    def checked_resume(resume_from, run, logger):
+        got = resume(resume_from, run, logger)
+        opt = run.optimizer
+        want = state["opt_state"]["state"]
+        seen["same_bits"] = bool(
+            all(torch.equal(a.cpu(), b) for a, b in zip(
+                leaves(run.params), leaves(state["params"])))
+            and torch.equal(opt.flat.cpu(),
+                            opt.flatten(state["params"]).cpu())
+            and torch.equal(opt.mu.cpu(), want["mu"])
+            and torch.equal(opt.nu.cpu(), want["nu"])
+            and int(opt.count) == int(want["count"]))
+        seen["lr"] = float(opt.lr)
+        return got
+
+    trainers._maybe_resume = checked_resume
+    try:
+        more, _, _ = mosi_cli(["--config", config, "--epochs", "4",
+                               "--resume", ckpt, "--ckpt-every", "1",
+                               "--out", runs], "mosi --resume", kernels)
+    finally:
+        trainers._maybe_resume = resume
+    records = epoch_records(os.path.join(runs, "mosi_0.jsonl"))
+    resumed = records[2:]
+    _, auto = restore_checkpoint(os.path.join(runs, "ckpt_auto_mosi_0"))
+    first_lr = meta["config"]["_resume_lr"]
+    if not (seen.get("same_bits") and meta["step"] == 2
+            and [r["epoch"] for r in records] == [0, 1, 2, 3]
+            and resumed[0]["lr"] == first_lr and auto["step"] == 4
+            and finite(records)):
+        raise AssertionError(f"resume: {seen}, step {meta['step']}, "
+                             f"records {records}, auto step {auto['step']}")
+    out["resume"] = {"seconds": [seconds, more], "restored_same_bits": True,
+                     "resume_lr": first_lr, "epochs": [r["epoch"]
+                                                       for r in records],
+                     "train_loss": [r["train_loss"] for r in records],
+                     "ckpt_auto_step": auto["step"]}
+
+    # the real files' reader on a fabricated root
+    root = mosi.fabricate_root(os.path.join(tmp, "mosi_root"))
+    for fs in ("1", "0"):
+        runs = os.path.join(tmp, f"root_fs{fs}")
+        seconds, _, _ = mosi_cli(
+            ["--mode", "best", "--data-root", root, "--feature-selection",
+             fs, "--epochs", "2", "--out", runs],
+            f"mosi --data-root --feature-selection {fs}", kernels)
+        with open(os.path.join(runs, "mosi_0.jsonl")) as f:
+            dims = next(r for r in map(json.loads, f)
+                        if r["kind"] == "config")["input_dims"]
+        records = epoch_records(os.path.join(runs, "mosi_0.jsonl"))
+        if not finite(records):
+            raise AssertionError(f"--data-root fs {fs}: {records}")
+        out[f"data_root_fs{fs}"] = {"seconds": seconds, "input_dims": dims,
+                                    "train_loss": [r["train_loss"]
+                                                   for r in records]}
+    log({"phase": "cli", "nvidia_smi": smi, **out})
 
 
 def profile_steps(program, tree, opt, x, y, gen, steps=10):

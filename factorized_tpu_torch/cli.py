@@ -2,9 +2,12 @@
 ``... test_mosi`` and ``... serve``.
 
 Ported subcommands: ``mosi`` (``factorized_tpu/cli.py``'s ``run_dataset``
-for MOSI, modes ``best`` and ``single``, on the synthetic MOSI set) with
-``--type mfm``, ``kl``, ``kl_ef``, the ablations ``m_a``..``m_d``,
-``--missing 1`` and ``--zeros 1``;
+for MOSI: modes ``single`` (``--config`` or the defaults), ``best`` and
+``search`` with ``--trials``; the real files under ``--data-root`` with
+``--feature-selection`` and ``--normalize-covarep``, else the synthetic
+set; ``--resume``, ``--ckpt-every`` and ``--save-ckpt``) with ``--type
+mfm``, ``kl``, ``kl_ef``, the ablations ``m_a``..``m_d``, ``--missing 1``
+and ``--zeros 1``;
 ``test_mosi`` (``run_test_mosi``: score a checkpoint on the MOSI test
 set, then the latency probe and the on-device latency); and ``serve``
 (``run_serve``, from a checkpoint of this package or an exported
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import random
 
 # MOSI's task and binary threshold (factorized_tpu/cli.py DATASETS)
 MOSI = dict(task="regression", threshold=0.0, mode="ge",
@@ -55,21 +59,38 @@ def trainer_name(cfg):
     return name
 
 
-def mosi_config(args):
-    """The configuration of a ``mosi`` run: ``best_acc_mosi_config`` in
-    ``--mode best``, the ``MFMConfig`` defaults in ``--mode single``,
-    with ``--type``, ``--missing``, ``--zeros``, ``--epochs`` and
-    ``--batchsize`` applied."""
-    from factorized_tpu_torch.config import MFMConfig, best_acc_mosi_config
+def base_config(args):
+    """``--config``'s ``MFMConfig`` (the legacy schema accepted), else the
+    defaults at seqlength 20: ``--mode single``'s base, and in every mode
+    the seqlength the data is cut to."""
+    from factorized_tpu_torch.config import MFMConfig
 
+    return (MFMConfig.from_json(args.config) if args.config
+            else MFMConfig(seqlength=20))
+
+
+def mosi_config(args, base=None, info=None, rng=None):
+    """The configuration of a ``mosi`` trial: a ``sample_search_config``
+    draw from ``rng`` in ``--mode search``, ``best_acc_mosi_config`` in
+    ``--mode best`` and ``base`` (``base_config``) in ``--mode single``,
+    with ``--type``, ``--missing`` and ``--zeros``, the data's input dims
+    (``info``, ``dataset_info``; MOSI's by default) and ``--epochs`` and
+    ``--batchsize`` applied."""
+    from factorized_tpu_torch.config import (best_acc_mosi_config,
+                                             sample_search_config)
+
+    info = info or MOSI
     pick = dict(model_type=args.type, missing=args.missing, zeros=args.zeros)
-    if args.mode == "best":
-        cfg = best_acc_mosi_config(**pick)
-        cfg = cfg.replace(input_dims=MOSI["input_dims"])
+    if args.mode == "search":
+        cfg = sample_search_config("mosi", rng, **pick).replace(
+            input_dims=info["input_dims"])
+    elif args.mode == "best":
+        cfg = best_acc_mosi_config(**pick).replace(
+            input_dims=info["input_dims"])
     else:
-        cfg = MFMConfig(seqlength=20).replace(
-            **pick, input_dims=MOSI["input_dims"],
-            output_dim=MOSI["output_dim"], task=MOSI["task"])
+        cfg = (base or base_config(args)).replace(
+            **pick, input_dims=info["input_dims"],
+            output_dim=info["output_dim"], task=info["task"])
     trainer_name(cfg)
     if args.epochs:
         cfg = cfg.replace(num_epochs=args.epochs)
@@ -78,42 +99,107 @@ def mosi_config(args):
     return cfg
 
 
-def load_mosi(seqlength):
+def load_mosi(seqlength, data_root=None, feature_selection=True,
+              normalize_covarep=False):
     from factorized_tpu_torch.data import mosi
 
-    return mosi.get_data(seqlength)
+    return mosi.get_data(seqlength, feature_selection=feature_selection,
+                         data_root=data_root,
+                         normalize_covarep=normalize_covarep)
+
+
+def dataset_info(data, args):
+    """MOSI's entry with the input dims of the loaded data: on the raw
+    path (``--feature-selection 0``) text 300, covarep 34 and the rest
+    the files' facet (``mfm_mosi.py:60-73``)."""
+    if getattr(args, "feature_selection", 1):
+        return MOSI
+    return dict(MOSI, input_dims=[300, 34, int(data[0].shape[2]) - 334])
+
+
+def make_autosnapshot(out, tag, cfg, every):
+    """``--ckpt-every N``: every N epochs overwrite
+    ``<out>/ckpt_auto_<tag>`` with the current parameters, Adam state,
+    whole-run step, lr and best validation loss, from which ``--resume``
+    goes on. Its cadence (``.every``) aligns the chunked loop's chunks to
+    it. None for N = 0."""
+    if not every:
+        return None
+    import math
+
+    from factorized_tpu_torch.utils.checkpoint import save_checkpoint
+
+    def snap(epoch, params, opt_state, lr, best_valid):
+        if (epoch + 1) % every:
+            return
+        meta = cfg.to_dict()
+        meta["_resume_lr"] = lr
+        if best_valid is not None and math.isfinite(best_valid):
+            meta["_resume_best_valid"] = best_valid
+        save_checkpoint(f"{out}/ckpt_auto_{tag}", params,
+                        opt_state=opt_state, step=epoch + 1, config=meta)
+
+    snap.every = every
+    return snap
 
 
 def run_mosi(args):
+    """The JAX package's ``run_dataset`` for MOSI: one trial in ``--mode
+    single`` and ``best``, ``--trials`` of them in ``--mode search`` (0:
+    until stopped), each a run id ``mosi_<trial>`` with seed ``--seed`` +
+    trial, the draws from one ``random.Random(--seed)``. ``--resume``
+    applies to every trial. mosi's Adam lr is ``--lr`` (1e-3 by default),
+    never the drawn ``cfg.lr``. ``--save-ckpt`` writes the best
+    parameters with the last Adam state and step under
+    ``<out>/ckpt_mosi_<trial>``, as the JAX package does."""
     from factorized_tpu_torch import resolve_device, trainers
     from factorized_tpu_torch.utils.checkpoint import save_checkpoint
     from factorized_tpu_torch.utils.logging import RunLogger
 
-    cfg = mosi_config(args)
+    base = base_config(args)
+    if args.mode == "single":
+        mosi_config(args, base)  # a config no ported trainer takes exits
     device = resolve_device(args.device)
-    data = load_mosi(cfg.seqlength)
-    logger = RunLogger(args.out, run_id="mosi_0")
-    logger.text(json.dumps(cfg.to_legacy(), default=str))
-    logger.record("config", **cfg.to_dict())
-    try:
-        train = getattr(trainers, trainer_name(cfg))
-        res = train(*data, cfg, lr=args.lr, logger=logger, seed=args.seed,
-                    binary_threshold=MOSI["threshold"],
-                    threshold_mode=MOSI["mode"], device=device)
-        if args.save_ckpt:
-            path = f"{args.out}/ckpt_mosi_0"
-            # what a resume reads back: the last epoch's lr and the best
-            # validation loss so far, as the JAX package writes them
-            meta_cfg = cfg.to_dict()
-            if res.get("history"):
-                meta_cfg["_resume_lr"] = res["history"][-1].get("lr")
-            if "best_valid" in res:
-                meta_cfg["_resume_best_valid"] = res["best_valid"]
-            save_checkpoint(path, res["params"], opt_state=res["opt_state"],
-                            step=res["step"], config=meta_cfg)
-            logger.text(f"checkpoint saved to {path}")
-    finally:
-        logger.close()
+    data = load_mosi(base.seqlength, data_root=args.data_root,
+                     feature_selection=bool(args.feature_selection),
+                     normalize_covarep=args.normalize_covarep)
+    info = dataset_info(data, args)
+    rng = random.Random(args.seed)
+    trial = 0
+    while True:
+        cfg = mosi_config(args, base, info, rng)
+        tag = f"mosi_{trial}"
+        logger = RunLogger(args.out, run_id=tag)
+        logger.text(json.dumps(cfg.to_legacy(), default=str))
+        logger.record("config", **cfg.to_dict())
+        try:
+            train = getattr(trainers, trainer_name(cfg))
+            res = train(*data, cfg, lr=args.lr, logger=logger,
+                        seed=args.seed + trial,
+                        binary_threshold=info["threshold"],
+                        threshold_mode=info["mode"],
+                        resume_from=args.resume,
+                        snapshot=make_autosnapshot(args.out, tag, cfg,
+                                                   args.ckpt_every),
+                        device=device)
+            if args.save_ckpt:
+                path = f"{args.out}/ckpt_{tag}"
+                # what a resume reads back: the last epoch's lr and the
+                # best validation loss so far, as the JAX package writes
+                meta_cfg = cfg.to_dict()
+                if res.get("history"):
+                    meta_cfg["_resume_lr"] = res["history"][-1].get("lr")
+                if "best_valid" in res:
+                    meta_cfg["_resume_best_valid"] = res["best_valid"]
+                save_checkpoint(path, res["params"],
+                                opt_state=res["opt_state"],
+                                step=res["step"], config=meta_cfg)
+                logger.text(f"checkpoint saved to {path}")
+        finally:
+            logger.close()
+        trial += 1
+        if args.mode != "search" or (args.trials and trial >= args.trials):
+            break
     return 0
 
 
@@ -186,13 +272,23 @@ def run_serve(args):
 def build_parser():
     p = argparse.ArgumentParser(prog="factorized_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
-    sp = sub.add_parser("mosi", help="train MFM on (synthetic) CMU-MOSI")
+    sp = sub.add_parser("mosi", help="train MFM on CMU-MOSI (the real "
+                                     "files under --data-root, else a "
+                                     "synthetic set)")
+    sp.add_argument("--config", default=None,
+                    help="JSON config (legacy schema accepted): --mode "
+                         "single's configuration; in every mode its "
+                         "seqlength")
     sp.add_argument("--type", default="mfm",
                     help="model type; mfm, kl, kl_ef and m_a..m_d are "
                          "ported")
-    sp.add_argument("--mode", default="single", choices=["best", "single"],
-                    help="best: best_acc_mosi_config; single: the "
-                         "MFMConfig defaults")
+    sp.add_argument("--mode", default="single",
+                    choices=["single", "best", "search"],
+                    help="single: --config or the MFMConfig defaults; "
+                         "best: best_acc_mosi_config; search: random "
+                         "draws of the reference's search space")
+    sp.add_argument("--trials", type=int, default=1,
+                    help="search trials (0 = run until stopped)")
     sp.add_argument("--missing", type=int, default=0,
                     help="1: train MFM_missing (with --type mfm)")
     sp.add_argument("--zeros", type=int, default=0,
@@ -203,11 +299,28 @@ def build_parser():
     sp.add_argument("--lr", type=float, default=None,
                     help="Adam lr (default 1e-3, torch's)")
     sp.add_argument("--seed", type=int, default=123)
+    sp.add_argument("--data-root", default=None,
+                    help="the CMU-MOSI files' directory (the reference's "
+                         "layout); the synthetic set where it is not one")
+    sp.add_argument("--feature-selection", type=int, choices=(0, 1),
+                    default=1, metavar="{0,1}",
+                    help="1: the fs mask's covarep and facet columns "
+                         "(default); 0: raw covarep columns 1:35 and the "
+                         "whole facet (mfm_mosi.py:37,60-73)")
+    sp.add_argument("--normalize-covarep", action="store_true",
+                    help="max-abs normalise covarep by train statistics, "
+                         "as the reference's get_data_missing")
     sp.add_argument("--out", default="runs",
-                    help="directory of the JSONL log and the checkpoint")
+                    help="directory of the JSONL logs and the checkpoints")
     sp.add_argument("--save-ckpt", action="store_true",
-                    help="save the trained parameters and the optimizer "
-                         "state under <out>/ckpt_mosi_0")
+                    help="save each trial's best parameters with the last "
+                         "optimizer state under <out>/ckpt_mosi_<trial>")
+    sp.add_argument("--resume", default=None,
+                    help="checkpoint directory to resume each trial from")
+    sp.add_argument("--ckpt-every", type=int, default=0,
+                    help="every N epochs overwrite <out>/ckpt_auto_mosi_"
+                         "<trial> with the current parameters, optimizer "
+                         "state and step")
     sp.add_argument("--device", default=None,
                     help="torch device; the CUDA card unless given "
                          "(e.g. --device cpu)")

@@ -1,17 +1,21 @@
 """Typed model configuration for the PyTorch port.
 
-A copy of the fields of ``factorized_tpu.config.MFMConfig`` (the port
-imports nothing of the JAX package), with the pieces serving needs:
-``to_dict`` / ``from_dict`` for checkpoint metadata, ``to_legacy`` for
-the run log's first line, ``replace``, the derived sizes, and the pinned
-MOSI config ``best_acc_mosi_config``.
+A copy of ``factorized_tpu.config.MFMConfig``'s fields (the port imports
+nothing of the JAX package), with ``to_dict`` / ``from_dict`` for
+checkpoint metadata, ``from_json`` for the ``configs/*.json`` files (and
+the reference's legacy schema), ``to_legacy`` for the run log's first
+line, ``replace``, the derived sizes, the random-search draw
+``sample_search_config`` (the same draws as the JAX package's for one
+``random.Random``) and the pinned MOSI config ``best_acc_mosi_config``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import random
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 
 @dataclass
@@ -91,6 +95,25 @@ class MFMConfig:
         names = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in names})
 
+    @classmethod
+    def from_json(cls, path: str, **overrides) -> "MFMConfig":
+        """Read a ``configs/*.json`` file: the fields it names (others
+        ignored), the legacy keys ``inputdims`` and ``seqlength`` of the
+        reference's schema, then ``overrides``."""
+        with open(path) as f:
+            raw = json.load(f)
+        kw = {}
+        if "inputdims" in raw:  # legacy schema (reference configs/*.json)
+            kw["input_dims"] = list(raw["inputdims"])
+        if "seqlength" in raw:
+            kw["seqlength"] = raw["seqlength"]
+        names = {f.name for f in dataclasses.fields(cls)}
+        for k, v in raw.items():
+            if k in names:
+                kw[k] = v
+        kw.update(overrides)
+        return cls(**kw)
+
     def replace(self, **kw) -> "MFMConfig":
         return dataclasses.replace(self, **kw)
 
@@ -130,6 +153,84 @@ class MFMConfig:
             {"shapes": self.gamma2_shape, "drop": self.gamma2_drop},
             {"shapes": self.out_shape, "drop": self.out_drop},
         ]
+
+
+# ---- search spaces (the reference's random.choice lists) ---------------
+
+_COMMON = dict(
+    hl=[32, 64, 88, 128, 156, 256],
+    small=[8, 16, 32, 48, 64, 80],
+    zl=[32, 64, 88, 128, 156, 256],
+    mem=[64, 128, 256, 300, 400],
+    drop=[0.0, 0.2, 0.5, 0.7],
+    batch=[32, 64, 128],
+)
+
+
+def sample_search_config(dataset: str, rng: Optional[random.Random] = None,
+                         **overrides) -> MFMConfig:
+    """One random-search draw, the per-dataset choice lists of the
+    reference (``mfm_mosi.py:1302-1353``, ``mfm_moud.py:615-665``,
+    ``mfm_you.py:592-645``, ``mfm_mmmo.py:676-729``), drawn in the JAX
+    package's order, so one ``random.Random(seed)`` gives the same
+    configs in both."""
+    r = rng or random
+    c = _COMMON
+    if dataset in ("mosi_sdk", "mosei_sdk"):
+        # the SDK csd files: the mosi search space, their feature widths
+        # set by the caller from the loaded data
+        dataset = "mosi"
+    if dataset == "mosi":
+        input_dims, output_dim = [300, 5, 20], 1
+        lda_mmd = [10, 50, 100, 200]
+        lda_x = [0.01, 0.1, 0.5, 1.0, 2.0, 5.0, 10.0]
+        lrs = [0.001, 0.002, 0.005, 0.008, 0.01, 0.02]
+        shapes = [32, 64, 128, 256]
+        task = "regression"
+    elif dataset in ("moud", "you", "youtube", "mmmo"):
+        input_dims = [300, 74, 36]
+        output_dim = {"moud": 2, "mmmo": 1}.get(dataset, 3)
+        lda_mmd = [10, 50, 100, 200]
+        lda_x = [0.01, 0.1, 0.5, 1.0, 5.0]
+        lrs = [0.001, 0.002, 0.004, 0.005, 0.008, 0.01, 0.02]
+        shapes = [32, 64, 128]
+        task = "regression" if dataset == "mmmo" else "classification"
+    else:
+        raise ValueError(f"unknown dataset {dataset!r}")
+
+    cfg = MFMConfig(
+        input_dims=input_dims,
+        output_dim=output_dim,
+        task=task,
+        h_dims=[r.choice(c["hl"]), r.choice(c["small"]), r.choice(c["small"])],
+        zy_size=r.choice(c["small"]),
+        zl_size=r.choice(c["zl"]),
+        za_size=r.choice(c["small"]),
+        zv_size=r.choice(c["small"]),
+        fy_size=r.choice(c["small"]),
+        fl_size=r.choice(c["zl"]),
+        fa_size=r.choice(c["small"]),
+        fv_size=r.choice(c["small"]),
+        memsize=r.choice(c["mem"]),
+        zy_to_fy_dropout=r.choice(c["drop"]),
+        zl_to_fl_dropout=r.choice(c["drop"]),
+        za_to_fa_dropout=r.choice(c["drop"]),
+        zv_to_fv_dropout=r.choice(c["drop"]),
+        fy_to_y_dropout=r.choice(c["drop"]),
+        lda_mmd=r.choice(lda_mmd),
+        lda_xl=r.choice(lda_x),
+        lda_xa=r.choice(lda_x),
+        lda_xv=r.choice(lda_x),
+        batchsize=r.choice(c["batch"]),
+        num_epochs=50,
+        lr=r.choice(lrs),
+        att1_shape=r.choice(shapes), att1_drop=r.choice(c["drop"]),
+        att2_shape=r.choice(shapes), att2_drop=r.choice(c["drop"]),
+        gamma1_shape=r.choice(shapes), gamma1_drop=r.choice(c["drop"]),
+        gamma2_shape=r.choice(shapes), gamma2_drop=r.choice(c["drop"]),
+        out_shape=r.choice(shapes), out_drop=r.choice(c["drop"]),
+    )
+    return cfg.replace(**overrides) if overrides else cfg
 
 
 def best_acc_mosi_config(**overrides) -> MFMConfig:

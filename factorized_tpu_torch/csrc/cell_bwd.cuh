@@ -26,7 +26,9 @@
 // gate-major column map that load_cell_weights applies: shared memory
 // holds only the per-row state. In place rather than a gate-major copy:
 // no scratch buffer and no extra launch a call, and a copy would be read
-// from L2 all the same.
+// from L2 all the same. Where even its per-row state passes a block
+// (lstm_common.cuh's kStateScratch), that state lives in a slice of
+// device memory instead, with the same layout and the same steps.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -113,9 +115,10 @@ inline size_t cell_chain_bytes(const Cells& cells, int R, int threads,
 }
 
 // Rows [row0, row0 + R) of step s of a (t, n, width) tensor, columns
-// [col0, col0 + count), into feature-major dst [count][R], asynchronously;
-// zeros where src is null or past n.
-template <int R>
+// [col0, col0 + count), into feature-major dst [count][R], asynchronously
+// (S: by plain copies into the state's scratch); zeros where src is null
+// or past n.
+template <int R, bool S = false>
 __device__ __forceinline__ void load_rows_async(float* dst, const float* src,
                                                 int s, int n, int width,
                                                 int col0, int count, int row0,
@@ -124,7 +127,7 @@ __device__ __forceinline__ void load_rows_async(float* dst, const float* src,
     const int r = i / count, k = i - r * count, row = row0 + r;
     float* d = dst + k * R + r;
     if (src != nullptr && row < n)
-      cp_async4(d, src + ((size_t)s * n + row) * width + col0 + k);
+      copy4<S>(d, src + ((size_t)s * n + row) * width + col0 + k);
     else
       *d = 0.0f;
   }

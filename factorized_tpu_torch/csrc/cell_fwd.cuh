@@ -22,6 +22,9 @@
 // A cell past a cluster of 8 (L2 = true, C = 1) reads its weights in
 // place from the packed (H, 4H) weight through L2, as cell_bwd.cuh's
 // chains do: consecutive threads read consecutive columns of one row.
+// Where even its per-row state passes a block (lstm_common.cuh's
+// kStateScratch), that state lives in a slice of device memory instead,
+// with the same layout and the same steps.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -87,10 +90,11 @@ inline size_t fwd_chain_bytes(const Cells& cells, int R, int threads,
 }
 
 // The cell's four gates of step s of xp, rows [row0, row0 + R), into
-// feature-major dst [4h][R] (column q h + j), asynchronously; zeros past
-// n. Step s, row r's 4H gates start at xp + s xs + r xr: (t, n, 4H) with
-// xs = n 4H and xr = 4H, or one broadcast (4H) with both 0.
-template <int R>
+// feature-major dst [4h][R] (column q h + j), asynchronously (S: by plain
+// copies into the state's scratch); zeros past n. Step s, row r's 4H
+// gates start at xp + s xs + r xr: (t, n, 4H) with xs = n 4H and xr = 4H,
+// or one broadcast (4H) with both 0.
+template <int R, bool S = false>
 __device__ __forceinline__ void load_gates_async(float* dst, const float* xp,
                                                  int s, size_t xs, int xr,
                                                  int n, int H,
@@ -101,7 +105,7 @@ __device__ __forceinline__ void load_gates_async(float* dst, const float* xp,
     for (int i = tid; i < c.h * R; i += nthr) {
       const int j = i / R, r = i - j * R, row = row0 + r;
       if (row < n)
-        cp_async4(d + i, xp + s * xs + (size_t)row * xr + q * H + c.k0 + j);
+        copy4<S>(d + i, xp + s * xs + (size_t)row * xr + q * H + c.k0 + j);
       else
         d[i] = 0.0f;
     }

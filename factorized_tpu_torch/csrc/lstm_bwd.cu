@@ -38,7 +38,11 @@
 // kl_ef's 120-unit cell (225 KiB), splits its gate columns over a cluster
 // of 2, 4 or 8 blocks, the smallest that fits; past 8 (a 336-unit decoder
 // cell of a search draw) the chain reads the weights in place from L2,
-// one block a row tile, chosen from the widths before the launch. A few lanes share each unit of the dh product
+// one block a row tile, chosen from the widths before the launch; past a
+// block's state too (more than about 1,614 units in multi_lstm's 2-row
+// chains, 2,905 in the decoders' 1-row ones) the same chain keeps dh, dc,
+// dg and the two steps' operands in a slice of device memory a block
+// (lstm_common.cuh's kStateScratch). A few lanes share each unit of the dh product
 // and shuffles add their partial sums in a fixed order, a cluster's
 // partials add in rank order: no atomics, the same bits on every run.
 // Float32 on the CUDA cores: a TF32 product keeps about three digits, too
@@ -77,6 +81,8 @@ struct ChainBwdArgs {
   float* dh0;           // decoders: (n, H)
   float* dc0;           // decoders: (n, H)
   long long* clocks;    // the per-phase probe's buffer, or null
+  float* state;         // kStateScratch: the blocks' state slices
+  size_t slice;         // floats a slice
   int t, n, H;
   Cells cells;
 };
@@ -91,33 +97,35 @@ __host__ __device__ constexpr int op_width() {
 // The operands of step s into the buffer at `base`: the cell step's (a
 // zero c_prev before step 0), then for the decoders dallh[s - 1];
 // asynchronously.
-template <int R, bool D>
+template <int R, bool D, bool S>
 __device__ __forceinline__ void load_step(const ChainBwdArgs& a, int s,
                                           float* base, const CellTile& c,
                                           int row0, int tid, int nthr) {
   const int H = a.H;
   const CellStep op = cell_step(base, c.h, R, false);
   for (int q = 0; q < 4; ++q)
-    load_rows_async<R>(op.g + q * c.h * R, a.gates, s, a.n, 4 * H,
-                       q * H + c.k0, c.h, row0, tid, nthr);
-  load_rows_async<R>(op.c, a.allc, s, a.n, H, c.k0, c.h, row0, tid, nthr);
-  load_rows_async<R>(op.cp, s > 0 ? a.allc : nullptr, s - 1, a.n, H, c.k0,
-                     c.h, row0, tid, nthr);
+    load_rows_async<R, S>(op.g + q * c.h * R, a.gates, s, a.n, 4 * H,
+                          q * H + c.k0, c.h, row0, tid, nthr);
+  load_rows_async<R, S>(op.c, a.allc, s, a.n, H, c.k0, c.h, row0, tid, nthr);
+  load_rows_async<R, S>(op.cp, s > 0 ? a.allc : nullptr, s - 1, a.n, H,
+                        c.k0, c.h, row0, tid, nthr);
   if (D)
-    load_rows_async<R>(op.cp + c.h * R, a.dallh, s - 1, a.n, H, c.k0, c.h,
-                       row0, tid, nthr);
+    load_rows_async<R, S>(op.cp + c.h * R, a.dallh, s - 1, a.n, H, c.k0,
+                          c.h, row0, tid, nthr);
 }
 
 // blockIdx.y is the cell, blockIdx.x / C the row tile and the rank in the
 // cluster of C its share of the cell's gate columns. D: the decoders. L2:
-// the weights read in place (C = 1).
+// the weights read in place (C = 1); S: with them the state in the
+// block's scratch slice (kStateScratch).
 // __grid_constant__: the cell table is indexed by blockIdx.y, which
 // otherwise makes every thread copy the argument struct to local memory
 // (a stack frame in ptxas's report, about 1% of the decoder chain:
 // PERF.md).
-template <int R, int C, bool D, bool L2>
+template <int R, int C, bool D, bool L2, bool S = false>
 __global__ void __launch_bounds__(kMaxThreads)
     lstm_chain_bwd_kernel(const __grid_constant__ ChainBwdArgs a) {
+  static_assert(!S || (L2 && C == 1), "the scratch plan reads from L2");
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
   const CellTile c =
@@ -126,7 +134,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   // the chain's last step: the decoders' transition 1, the cells' step 0
   const int last = D ? 1 : 0;
   const float* const w = cell_weights<L2>(smem, a.w, H, c.k0);
-  float* const dh = smem + (L2 ? 0 : h * c.wp);
+  float* const dh =
+      state_base<S>(smem, a.state, a.slice) + (L2 ? 0 : h * c.wp);
   float* const dc = dh + pad4(h * R);
   // [4h][R]; for a cluster [C kc][R], the rows past 4h zero
   float* const dg = dc + pad4(h * R);
@@ -140,21 +149,21 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int lane = tid & 31, warp = tid >> 5, nwarp = nthr >> 5;
 
   if (!L2) load_cell_weights(smem, a.w, H, c, tid, nthr);
-  load_rows_async<R>(dh, D ? a.dallh : a.dhlast, D ? a.t - 1 : 0, a.n, H,
-                     c.k0, h, row0, tid, nthr);
+  load_rows_async<R, S>(dh, D ? a.dallh : a.dhlast, D ? a.t - 1 : 0, a.n,
+                        H, c.k0, h, row0, tid, nthr);
   for (int i = tid; i < h * R; i += nthr) dc[i] = 0.0f;
   if (C > 1)
     for (int i = 4 * h * R + tid; i < C * c.kc * R; i += nthr) dg[i] = 0.0f;
-  load_step<R, D>(a, a.t - 1, buf + ((a.t - 1) & 1) * step_floats, c, row0,
-                  tid, nthr);
+  load_step<R, D, S>(a, a.t - 1, buf + ((a.t - 1) & 1) * step_floats, c,
+                     row0, tid, nthr);
   cp_async_wait_all();
   __syncthreads();
   FTT_STAMP(a.clocks, D ? kClockDecoderBwd : kClockMultiBwd, 0, 0);
 
   for (int s = a.t - 1; s >= last; --s) {
     if (s > last)
-      load_step<R, D>(a, s - 1, buf + ((s - 1) & 1) * step_floats, c, row0,
-                      tid, nthr);
+      load_step<R, D, S>(a, s - 1, buf + ((s - 1) & 1) * step_floats, c,
+                         row0, tid, nthr);
     const CellStep op = cell_step(buf + (s & 1) * step_floats, h, R, false);
     cell_gate_bwd<R, C>(op, dh, dc, dg, a.dgates, s - last, a.n, H, c,
                         row0, tid, nthr, rank);
@@ -193,34 +202,43 @@ size_t chain_bytes(const ChainBwdArgs& a, int threads, int C) {
   return cell_chain_bytes(a.cells, R, threads, op_width<D>(), C);
 }
 
-// The fit gate and the launch: the smallest cluster whose blocks fit,
-// else the weights read from L2 (lstm_common.cuh's chain_plan).
+// The plan and the launch: the smallest cluster whose blocks fit, else
+// the weights read from L2, else with them the state in the scratch
+// (lstm_common.cuh's chain_plan); kNeedScratch, launching nothing, while
+// the scratch is short of what that plan takes.
 template <int R, bool D>
-cudaError_t launch(const ChainBwdArgs& a, int threads, int* fit,
-                   cudaStream_t stream) {
+int launch(ChainBwdArgs a, const Scratch& scratch, int threads, int* fit,
+           cudaStream_t stream) {
   size_t bytes = 0;
   auto at = [&](int c) { return chain_bytes<R, D>(a, threads, c); };
   const int plan = chain_plan(at, [&] { return at(kWeightsL2); }, &bytes);
-  if (plan == kRefused) return refuse(fit, 1, bytes, kWeightsL2);
   fit[kFitChainA] = plan;
+  const int C = plan_blocks(plan);
+  const dim3 grid(((a.n + R - 1) / R) * C, a.cells.count);
+  if (plan == kStateScratch) {
+    a.state = reserve(scratch, (long long)grid.x * grid.y, bytes, &a.slice);
+    if (a.state == nullptr) return kNeedScratch;
+  }
   using Kernel = void (*)(const ChainBwdArgs);
-  const Kernel kernels[5] = {
+  const Kernel kernels[6] = {
       lstm_chain_bwd_kernel<R, 1, D, true>,
       lstm_chain_bwd_kernel<R, 1, D, false>,
       lstm_chain_bwd_kernel<R, 2, D, false>,
       lstm_chain_bwd_kernel<R, 4, D, false>,
-      lstm_chain_bwd_kernel<R, 8, D, false>};
+      lstm_chain_bwd_kernel<R, 8, D, false>,
+      lstm_chain_bwd_kernel<R, 1, D, true, true>};
   const Kernel kernel = chain_kernel(kernels, plan);
+  bytes = plan_smem(plan, bytes);
   cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), bytes);
-  if (err != cudaSuccess) return err;
-  const int C = plan_blocks(plan);
-  const dim3 grid(((a.n + R - 1) / R) * C, a.cells.count);
-  return launch_clusters(kernel, grid, threads, bytes, C, stream, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_clusters(kernel, grid, threads, bytes, C, stream, a);
 }
 
 bool valid(const ChainBwdArgs& a, int n_cells, const int* cell_dims,
-           int threads, ChainBwdArgs* out) {
+           int threads, const Scratch& scratch, ChainBwdArgs* out) {
   *out = a;
+  if (scratch.need == nullptr) return false;
+  *scratch.need = 0;
   return make_cells(n_cells, cell_dims, a.H, &out->cells) && a.n >= 1 &&
          threads >= 32 && threads <= kMaxThreads && threads % 32 == 0;
 }
@@ -230,42 +248,50 @@ bool valid(const ChainBwdArgs& a, int n_cells, const int* cell_dims,
 
 // All arrays float32 and contiguous, shaped as in ChainBwdArgs; t >= 2.
 // cell_dims (host memory) lists the n_cells fused hidden widths, summing
-// to H. threads is a multiple of 32 up to 512. fit (host memory, six ints,
-// lstm_common.cuh's Fit) gets the plan the chain ran on (a cluster, or
-// kWeightsL2), or, when a block's per-row state alone passes the card's
-// shared memory, the refusal before the launch.
+// to H. threads is a multiple of 32 up to 512. state (state_floats
+// floats of device memory, or null) is the scratch of the kStateScratch
+// plan; state_need (host memory, one value) gets the floats the plan
+// takes, and the launcher returns kNeedScratch (-1) without launching
+// while state_floats is short of it. fit (host memory, six ints,
+// lstm_common.cuh's Fit) gets the plan the chain ran on (a cluster,
+// kWeightsL2 or kStateScratch).
 extern "C" int decoder_lstm_bwd(const float* gates, const float* allc,
                                 const float* dallh, const float* wsum,
-                                float* dgates, float* dh0, float* dc0, int t,
-                                int n, int H, int n_cells,
-                                const int* cell_dims, int threads, int* fit,
-                                void* stream) {
+                                float* dgates, float* dh0, float* dc0,
+                                float* state, long long state_floats,
+                                long long* state_need, int t, int n, int H,
+                                int n_cells, const int* cell_dims,
+                                int threads, int* fit, void* stream) {
   using namespace ftt;
   clear_fit(fit);
-  const ChainBwdArgs given = {gates, allc,  dallh,          nullptr, wsum,
-                              dgates, dh0,  dc0,            phase_clocks(),
-                              t,      n,    H,              {}};
+  const Scratch scratch = {state, state_floats, state_need};
+  const ChainBwdArgs given = {gates, allc, dallh, nullptr, wsum,
+                              dgates, dh0, dc0, phase_clocks(),
+                              nullptr, 0, t, n, H, {}};
   ChainBwdArgs a;
-  if (!valid(given, n_cells, cell_dims, threads, &a) || t < 2)
+  if (!valid(given, n_cells, cell_dims, threads, scratch, &a) || t < 2)
     return (int)cudaErrorInvalidValue;
-  return (int)launch<kDecoderRows, true>(a, threads, fit,
-                                         static_cast<cudaStream_t>(stream));
+  return launch<kDecoderRows, true>(a, scratch, threads, fit,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 // The same for the encoder cells, t >= 1.
 extern "C" int multi_lstm_bwd(const float* gates, const float* allc,
                               const float* dhlast, const float* wh,
-                              float* dxp, int t, int n, int H, int n_cells,
+                              float* dxp, float* state,
+                              long long state_floats, long long* state_need,
+                              int t, int n, int H, int n_cells,
                               const int* cell_dims, int threads, int* fit,
                               void* stream) {
   using namespace ftt;
   clear_fit(fit);
-  const ChainBwdArgs given = {gates, allc,    nullptr,        dhlast, wh,
-                              dxp,   nullptr, nullptr,        phase_clocks(),
-                              t,     n,       H,              {}};
+  const Scratch scratch = {state, state_floats, state_need};
+  const ChainBwdArgs given = {gates, allc, nullptr, dhlast, wh,
+                              dxp, nullptr, nullptr, phase_clocks(),
+                              nullptr, 0, t, n, H, {}};
   ChainBwdArgs a;
-  if (!valid(given, n_cells, cell_dims, threads, &a) || t < 1)
+  if (!valid(given, n_cells, cell_dims, threads, scratch, &a) || t < 1)
     return (int)cudaErrorInvalidValue;
-  return (int)launch<kMultiRows, false>(a, threads, fit,
-                                        static_cast<cudaStream_t>(stream));
+  return launch<kMultiRows, false>(a, scratch, threads, fit,
+                                   static_cast<cudaStream_t>(stream));
 }

@@ -85,9 +85,9 @@ constexpr int kMaxCluster = 8;
 
 // What a launcher reports through its `fit` array (host memory, six
 // ints): a pass refused before any launch ({1-based pass, the bytes a
-// block needs, the card's limit, the plan: for a chain kWeightsL2, its
-// per-row state alone passing a block}), and the plans of its (up to
-// two) chains: the cluster, or kWeightsL2.
+// block needs, the card's limit, the pass's cluster}; no width reaches
+// one, each launcher's comment gives the arithmetic), and the plans of
+// its (up to two) chains: the cluster, kWeightsL2 or kStateScratch.
 enum Fit { kFitPass, kFitBytes, kFitLimit, kFitCluster, kFitChainA,
            kFitChainB, kFitInts };
 
@@ -118,34 +118,87 @@ inline int smallest_cluster(F bytes_at, size_t* bytes) {
 // A chain's plan, reported in `fit` as its cluster: kWeightsL2 where no
 // cluster of 8 holds its weights, and the chain runs one block per row
 // tile that reads them in place from device memory (through L2) and
-// keeps only the per-row state in shared memory.
+// keeps only the per-row state in shared memory; kStateScratch where
+// that state alone passes a block too: the same kernel with the state in
+// a slice of device memory a block (a scratch the wrapper allocates),
+// which the block's barriers order as they order shared memory
+// (__syncthreads makes a block's device-memory writes visible to the
+// block), its copies plain loads and stores in place of cp.async. So
+// every width has a plan.
 constexpr int kWeightsL2 = 0;
-constexpr int kRefused = -1;
+constexpr int kStateScratch = -2;
 
 // The smallest cluster whose blocks fit (bytes_at(C)), else kWeightsL2
 // if the per-row state alone (state_bytes()) fits a block, else
-// kRefused; the chosen launch's bytes in *bytes (the state's when
-// refused). Decided from the widths, before any launch.
+// kStateScratch; the chosen launch's bytes in *bytes (for kStateScratch
+// the state's, which its scratch slices hold). Decided from the widths,
+// before any launch.
 template <typename F, typename G>
 inline int chain_plan(F bytes_at, G state_bytes, size_t* bytes) {
   const int C = smallest_cluster(bytes_at, bytes);
   if (C != 0) return C;
   *bytes = state_bytes();
-  return *bytes <= (size_t)kMaxSmemBytes ? kWeightsL2 : kRefused;
+  return *bytes <= (size_t)kMaxSmemBytes ? kWeightsL2 : kStateScratch;
 }
 
-// The blocks a cluster of the plan holds (1 for kWeightsL2).
-inline int plan_blocks(int plan) { return plan == kWeightsL2 ? 1 : plan; }
+// The blocks a cluster of the plan holds (1 for kWeightsL2 and
+// kStateScratch).
+inline int plan_blocks(int plan) { return plan < 1 ? 1 : plan; }
+
+// The dynamic shared memory a chain's launch takes: none where its state
+// lies in the scratch.
+inline size_t plan_smem(int plan, size_t bytes) {
+  return plan == kStateScratch ? 0 : bytes;
+}
 
 // The kernel of a chain for its plan: kernels[0] reads its weights from
-// L2, kernels[1 + log2 C] holds them in shared memory on clusters of C.
+// L2, kernels[1 + log2 C] holds them in shared memory on clusters of C,
+// kernels[5] reads them from L2 and keeps its state in the scratch.
 template <typename K>
-inline K chain_kernel(const K (&kernels)[5], int plan) {
-  return plan == kWeightsL2 ? kernels[0]
-         : plan == 1        ? kernels[1]
-         : plan == 2        ? kernels[2]
-         : plan == 4        ? kernels[3]
-                            : kernels[4];
+inline K chain_kernel(const K (&kernels)[6], int plan) {
+  return plan == kStateScratch ? kernels[5]
+         : plan == kWeightsL2  ? kernels[0]
+         : plan == 1           ? kernels[1]
+         : plan == 2           ? kernels[2]
+         : plan == 4           ? kernels[3]
+                               : kernels[4];
+}
+
+// The device memory the chains on kStateScratch keep their state in:
+// `floats` floats at `ptr`, which the wrapper allocates, and `need` (host
+// memory) the floats a launch's chains take. A launcher reserves each
+// such chain's slices, then returns kNeedScratch, having launched
+// nothing, while the scratch given is smaller than the need; the wrapper
+// then calls it again with a scratch of that size.
+struct Scratch {
+  float* ptr;
+  long long floats;
+  long long* need;
+};
+constexpr int kNeedScratch = -1;
+
+// A chain on kStateScratch's state slices, one for each of `blocks`
+// blocks, each its state bytes rounded up to 16 (so every slice starts
+// 16-byte aligned), after what the launch reserved before: the first
+// slice's address (null while the scratch is short of the need) and the
+// slice's floats in *slice.
+inline float* reserve(const Scratch& s, long long blocks, size_t bytes,
+                      size_t* slice) {
+  *slice = (bytes + 15) / 16 * 4;
+  const long long at = *s.need;
+  *s.need += blocks * (long long)*slice;
+  return s.ptr != nullptr && *s.need <= s.floats ? s.ptr + at : nullptr;
+}
+
+// Where a block of a chain keeps its state: shared memory, or on
+// kStateScratch (S) its slice of the scratch, the block's index along x
+// and y (the row tile and the cell) picking it.
+template <bool S>
+__device__ __forceinline__ float* state_base(float* smem, float* scratch,
+                                             size_t slice) {
+  if (!S) return smem;
+  return scratch +
+         ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * slice;
 }
 
 // Launches `kernel` on clusters of C blocks along x (a plain launch for
@@ -264,6 +317,17 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
                "l"(src));
+}
+
+// One float from device memory into a chain's state: cp.async into shared
+// memory, or a plain copy into its scratch slice (S); either is seen by
+// the block after the wait and barrier that end a step.
+template <bool S>
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  if (S)
+    *dst = *src;
+  else
+    cp_async4(dst, src);
 }
 
 __device__ __forceinline__ void cp_async8(float* dst, const float* src) {

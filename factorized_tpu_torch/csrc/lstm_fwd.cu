@@ -39,7 +39,10 @@
 // distributed shared memory. Past a cluster of 8 (a 336-unit decoder cell
 // or a 400-unit encoder cell of a search draw) the chain reads the
 // weights in place from L2, one block a row tile, chosen from the widths
-// before the launch. x has a step stride and a row stride, so the
+// before the launch; past a block's state too (more than about 518 units
+// in the 8-row eval chains, 2,075 in the 2-row ones) the same chain keeps
+// h, c, the two steps' x and the gates' group sums in a slice of device
+// memory a block (lstm_common.cuh's kStateScratch). x has a step stride and a row stride, so the
 // decoders read their bias with both 0 and no (t, n, 4H) buffer is made
 // for it. Float32 on the CUDA cores, every sum in a fixed order: the same
 // bits on every run.
@@ -85,6 +88,8 @@ struct ChainFwdArgs {
   float* allc;        // (t, n, H), or null
   float* gates;       // (t, n, 4H), or null
   long long* clocks;  // the per-phase probe's buffer, or null
+  float* state;       // kStateScratch: the blocks' state slices
+  size_t slice;       // floats a slice
   int t, n, H;
   Cells cells;
 };
@@ -92,19 +97,22 @@ struct ChainFwdArgs {
 // blockIdx.y is the cell, blockIdx.x / C the row tile and the rank in the
 // cluster of C its share of the cell's gate columns. D: the decoders
 // (state (h0, c0) in slot 0, steps 1 to t - 1); else a zero state and
-// steps 0 to t - 1. L2: the weights read in place (C = 1).
+// steps 0 to t - 1. L2: the weights read in place (C = 1); S: with them
+// the state in the block's scratch slice (kStateScratch).
 // __grid_constant__: the cell table is indexed by blockIdx.y (see
 // lstm_bwd.cu).
-template <int R, int C, bool D, bool L2>
+template <int R, int C, bool D, bool L2, bool S = false>
 __global__ void __launch_bounds__(kThreads)
     lstm_chain_fwd_kernel(const __grid_constant__ ChainFwdArgs a) {
+  static_assert(!S || (L2 && C == 1), "the scratch plan reads from L2");
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
   const FwdTile c = fwd_tile<C, L2>(a.cells, blockIdx.y, blockDim.x, rank,
                                     a.H);
   const int h = c.h, H = a.H;
   const float* const w = cell_weights<L2>(smem, a.w, H, c.k0);
-  float* const hs = smem + (L2 ? 0 : h * c.wp);  // [h][R]
+  float* const base = state_base<S>(smem, a.state, a.slice);
+  float* const hs = base + (L2 ? 0 : h * c.wp);  // [h][R]
   float* const cs = hs + pad4(h * R);            // [h][R]
   float* const xb = cs + pad4(h * R);  // two [4h][R]: step s's at s & 1
   float* const part = xb + 8 * h * R;  // [kg kc][R], two for a cluster
@@ -135,16 +143,16 @@ __global__ void __launch_bounds__(kThreads)
     hs[i] = hv;
     cs[i] = cv;
   }
-  load_gates_async<R>(xb + (first & 1) * 4 * h * R, a.x, first, a.xs, a.xr,
-                      a.n, H, c, row0, tid, nthr);
+  load_gates_async<R, S>(xb + (first & 1) * 4 * h * R, a.x, first, a.xs,
+                         a.xr, a.n, H, c, row0, tid, nthr);
   cp_async_wait_all();
   __syncthreads();
   FTT_STAMP(a.clocks, kClockLstmFwd, 0, 0);
 
   for (int s = first; s < a.t; ++s) {
     if (s + 1 < a.t)
-      load_gates_async<R>(xb + ((s + 1) & 1) * 4 * h * R, a.x, s + 1, a.xs,
-                          a.xr, a.n, H, c, row0, tid, nthr);
+      load_gates_async<R, S>(xb + ((s + 1) & 1) * 4 * h * R, a.x, s + 1,
+                             a.xs, a.xr, a.n, H, c, row0, tid, nthr);
     float* const p = part + (C > 1 ? (s & 1) * part_floats : 0);
     cell_gates_fwd<R, L2>(w, hs, xb + (s & 1) * 4 * h * R, p, c, tid, nthr);
     cluster_barrier<C>();
@@ -166,36 +174,48 @@ __global__ void __launch_bounds__(kThreads)
   if (C > 1) cluster_barrier<C>();
 }
 
-// The fit gate and the launch: the smallest cluster whose blocks fit,
-// else the weights read from L2 (lstm_common.cuh's chain_plan).
+// The plan and the launch: the smallest cluster whose blocks fit, else
+// the weights read from L2, else with them the state in the scratch
+// (lstm_common.cuh's chain_plan); kNeedScratch, launching nothing, while
+// the scratch is short of what that plan takes.
 template <int R, bool D>
-cudaError_t launch(const ChainFwdArgs& a, int* fit, cudaStream_t stream) {
+int launch(ChainFwdArgs a, const Scratch& scratch, int* fit,
+           cudaStream_t stream) {
   size_t bytes = 0;
   auto at = [&](int C) { return fwd_chain_bytes(a.cells, R, kThreads, C); };
   const int plan = chain_plan(at, [&] { return at(kWeightsL2); }, &bytes);
-  if (plan == kRefused) return refuse(fit, 1, bytes, kWeightsL2);
   fit[kFitChainA] = plan;
+  const int C = plan_blocks(plan);
+  const dim3 grid(((a.n + R - 1) / R) * C, a.cells.count);
+  if (plan == kStateScratch) {
+    a.state = reserve(scratch, (long long)grid.x * grid.y, bytes, &a.slice);
+    if (a.state == nullptr) return kNeedScratch;
+  }
   using Kernel = void (*)(const ChainFwdArgs);
-  const Kernel kernels[5] = {
+  const Kernel kernels[6] = {
       lstm_chain_fwd_kernel<R, 1, D, true>,
       lstm_chain_fwd_kernel<R, 1, D, false>,
       lstm_chain_fwd_kernel<R, 2, D, false>,
       lstm_chain_fwd_kernel<R, 4, D, false>,
-      lstm_chain_fwd_kernel<R, 8, D, false>};
+      lstm_chain_fwd_kernel<R, 8, D, false>,
+      lstm_chain_fwd_kernel<R, 1, D, true, true>};
   const Kernel kernel = chain_kernel(kernels, plan);
+  bytes = plan_smem(plan, bytes);
   cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), bytes);
-  if (err != cudaSuccess) return err;
-  const int C = plan_blocks(plan);
-  const dim3 grid(((a.n + R - 1) / R) * C, a.cells.count);
-  return launch_clusters(kernel, grid, kThreads, bytes, C, stream, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_clusters(kernel, grid, kThreads, bytes, C, stream, a);
 }
 
 bool valid(int t, int n, int H, int n_cells, const int* cell_dims,
-           ChainFwdArgs* a) {
+           const Scratch& scratch, ChainFwdArgs* a) {
   a->clocks = phase_clocks();
+  a->state = nullptr;
+  a->slice = 0;
   a->t = t;
   a->n = n;
   a->H = H;
+  if (scratch.need == nullptr) return false;
+  *scratch.need = 0;
   return make_cells(n_cells, cell_dims, H, &a->cells) && t >= 1 && n >= 1;
 }
 
@@ -204,42 +224,50 @@ bool valid(int t, int n, int H, int n_cells, const int* cell_dims,
 
 // All arrays float32 and contiguous, shaped as in ChainFwdArgs; b is (1,
 // 4H) or (4H,). cell_dims (host memory) lists the n_cells fused hidden
-// widths, summing to H. fit (host memory, six ints, lstm_common.cuh's
-// Fit) gets the plan the chain ran on (a cluster, or kWeightsL2), or,
-// when a block's per-row state alone passes the card's shared memory,
-// the refusal before the launch.
+// widths, summing to H. state (state_floats floats of device memory, or
+// null) is the scratch of the kStateScratch plan; state_need (host
+// memory, one value) gets the floats the plan takes, and the launcher
+// returns kNeedScratch (-1) without launching while state_floats is
+// short of it. fit (host memory, six ints, lstm_common.cuh's Fit) gets
+// the plan the chain ran on (a cluster, kWeightsL2 or kStateScratch).
 extern "C" int decoder_lstm_fwd(const float* h0, const float* c0,
                                 const float* wsum, const float* b,
-                                float* allh, float* allc, float* gates, int t,
-                                int n, int H, int n_cells,
-                                const int* cell_dims, int* fit,
+                                float* allh, float* allc, float* gates,
+                                float* state, long long state_floats,
+                                long long* state_need, int t, int n, int H,
+                                int n_cells, const int* cell_dims, int* fit,
                                 void* stream) {
   using namespace ftt;
   clear_fit(fit);
+  const Scratch scratch = {state, state_floats, state_need};
   ChainFwdArgs a = {b, 0, 0, h0, c0, wsum, nullptr, allh, allc, gates};
-  if (!valid(t, n, H, n_cells, cell_dims, &a) || !allh || !allc || !gates)
+  if (!valid(t, n, H, n_cells, cell_dims, scratch, &a) || !allh || !allc ||
+      !gates)
     return (int)cudaErrorInvalidValue;
-  return (int)launch<kDecoderFwdRows, true>(a, fit,
-                                            static_cast<cudaStream_t>(stream));
+  return launch<kDecoderFwdRows, true>(a, scratch, fit,
+                                       static_cast<cudaStream_t>(stream));
 }
 
 // The same for the encoder cells: with_res 0 is the eval variant (allh,
 // allc and gates may be null), 1 the train variant.
 extern "C" int multi_lstm_fwd(const float* xp, const float* wh,
                               float* h_last, float* allh, float* allc,
-                              float* gates, int t, int n, int H, int n_cells,
+                              float* gates, float* state,
+                              long long state_floats, long long* state_need,
+                              int t, int n, int H, int n_cells,
                               const int* cell_dims, int with_res, int* fit,
                               void* stream) {
   using namespace ftt;
   clear_fit(fit);
+  const Scratch scratch = {state, state_floats, state_need};
   ChainFwdArgs a = {xp,     (size_t)n * 4 * H,   4 * H,
                     nullptr, nullptr,            wh,
                     h_last, with_res ? allh : nullptr,
                     with_res ? allc : nullptr,  with_res ? gates : nullptr};
-  if (!valid(t, n, H, n_cells, cell_dims, &a) || h_last == nullptr ||
+  if (!valid(t, n, H, n_cells, cell_dims, scratch, &a) || h_last == nullptr ||
       (with_res && (!allh || !allc || !gates)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(with_res ? launch<kMultiTrainRows, false>(a, fit, st)
-                        : launch<kMultiEvalRows, false>(a, fit, st));
+  return with_res ? launch<kMultiTrainRows, false>(a, scratch, fit, st)
+                  : launch<kMultiEvalRows, false>(a, scratch, fit, st);
 }

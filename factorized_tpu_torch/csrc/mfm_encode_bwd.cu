@@ -40,7 +40,10 @@
 //     peers trading du3 and the carry through distributed shared memory
 //     after a cluster barrier each (at the pinned widths one block fits,
 //     and every cluster was slower: PERF.md). Past a cluster of 8 the
-//     chain reads the weights' rows in place from L2.
+//     chain reads the weights' rows in place from L2, and where its
+//     per-row state passes a block too (13 mem + 3 (s3 + s4) floats a
+//     row: mem past about 4,400) it keeps that state in a slice of device
+//     memory a block (lstm_common.cuh's kStateScratch).
 // (3) The attention branch, all t * n rows at once (no carry), as
 //     product_kernel in tiles and softmax_bwd_kernel: du2 = dch @ a2w2^T
 //     * kg2; dattended = du3 @ gw1[:M2]^T + du2 @ a2w1^T, with datt =
@@ -55,8 +58,13 @@
 //     the gate backward from the precomputed gates, dcstar split between
 //     this step's c and the previous one's (units past z_tot), and dh =
 //     dgates @ W_cell^T. Writes dxp. A cell past one block's shared
-//     memory splits its gate columns over a cluster (cell_bwd.cuh), and
-//     past a cluster of 8 reads its weights in place from L2.
+//     memory splits its gate columns over a cluster (cell_bwd.cuh), past
+//     a cluster of 8 reads its weights in place from L2, and past a
+//     block's per-row state too (more than about 1,320 units) keeps that
+//     state in device memory (kStateScratch).
+// Where H passes the gates pass's staging (kTileRows H floats: H past
+// 14,528) or s1 + M2 the recompute-att pass's, that pass runs one flat
+// row a block, reading its operands in place.
 //
 // Variants (the same bits as the stream variant): stream, one step per
 // iteration of the chains, the next step's operands copied in with
@@ -79,10 +87,10 @@
 // batch rows is far below wgmma's 64. Every product of the TPU kernel's
 // body is computed in these kernels, each in a fixed order: no atomics,
 // the same bits on every run. A chain whose weights pass one block's 227
-// KB splits them over a cluster, and past a cluster of 8 reads them from
-// L2, planned from the widths before any pass starts; a launch is refused
-// only where a chain's per-row state alone passes a block. An attention
-// product whose staged depth passes a block sums it in chunks.
+// KB splits them over a cluster, past a cluster of 8 reads them from L2,
+// and past a block's per-row state too keeps that state in device memory,
+// planned from the widths before any pass starts: no width is refused. An
+// attention product whose staged depth passes a block sums it in chunks.
 //
 // (b) mfm_encode_dw_kernel replaces the 14 weight-gradient sums that
 //     _bwd_kernel keeps in VMEM across its grid (pallas_mfn.py:342-372).
@@ -173,6 +181,11 @@ struct BwdArgs {
   float* datt;            // (t, n, M2) scratch within pass (3)
   ResEntry att;           // att: the residual field, or recomputed scratch
   long long* clocks;      // the per-phase probe's buffer, or null
+  // kStateScratch: the memory chain's and the LSTM chains' state slices
+  float* mem_state;
+  size_t mem_slice;
+  float* cell_state;
+  size_t cell_slice;
   int t, n, H, z_tot, mem, s1, s2, s3, s4, m2;
   Cells cells;
   DeltaLayout dl;
@@ -207,15 +220,22 @@ __device__ __forceinline__ void load_flat(float* dst, const float* src,
 
 // Block: R flat rows; a thread per gate column, the hidden state before
 // each row's step staged in shared memory; the forward's order of
-// operations (xp, then the cell's rows of wh in order).
-template <int R>
+// operations (xp, then the cell's rows of wh in order). G: one flat row
+// (R = 1) whose hidden state is read in place from allh, where H passes
+// the staging (no row before step 0 has one: xp alone).
+template <int R, bool G = false>
 __global__ void __launch_bounds__(kMaxThreads) gates_kernel(const BwdArgs a) {
+  static_assert(!G || R == 1, "in place: one row a block");
   extern __shared__ float smem[];
-  float* const hp = smem;  // [H][R]
   const int H = a.H, H4 = 4 * H, rows = a.t * a.n, rr0 = blockIdx.x * R;
   const int tid = threadIdx.x, nthr = blockDim.x;
-  load_flat<R>(hp, a.allh, rows, a.n, H, 0, H, rr0, tid, nthr);
-  __syncthreads();
+  const float* hp = smem;  // [H][R]
+  if (G) {
+    hp = rr0 >= a.n ? a.allh + (size_t)(rr0 - a.n) * H : nullptr;
+  } else {
+    load_flat<R>(smem, a.allh, rows, a.n, H, 0, H, rr0, tid, nthr);
+    __syncthreads();
+  }
   for (int j = tid; j < H4; j += nthr) {
     int k0, k1;
     cell_range(a.cells, j % H, k0, k1);
@@ -223,7 +243,7 @@ __global__ void __launch_bounds__(kMaxThreads) gates_kernel(const BwdArgs a) {
 #pragma unroll
     for (int r = 0; r < R; ++r)
       acc[r] = rr0 + r < rows ? a.xp[(size_t)(rr0 + r) * H4 + j] : 0.0f;
-    for (int k = k0; k < k1; ++k) {
+    for (int k = k0; k < (hp != nullptr ? k1 : k0); ++k) {
       const float wv = __ldg(a.wh + (size_t)k * H4 + j);
       const float* hk = hp + k * R;
 #pragma unroll
@@ -278,8 +298,9 @@ __host__ __device__ inline size_t mem_chain_floats(int mem, int s34, int C,
 }
 
 // The operands of step s, row-major [R][chat | g1 | g2 | memp | kg3],
-// asynchronously; zeros past n and for memp before step 0.
-template <int R>
+// asynchronously (S: by plain copies into the state's scratch); zeros
+// past n and for memp before step 0.
+template <int R, bool S>
 __device__ __forceinline__ void load_mem_ops(const BwdArgs& a, int s,
                                              float* o, int row0, int tid,
                                              int nthr) {
@@ -301,17 +322,19 @@ __device__ __forceinline__ void load_mem_ops(const BwdArgs& a, int s,
         src = res_row(a.res.f[kKg3], at) + f - 4 * mem;
     }
     if (src != nullptr)
-      cp_async4(o + i, src);
+      copy4<S>(o + i, src);
     else
       o[i] = 0.0f;
   }
 }
 
 // Block: rank `rank` of a cluster of C over R batch rows. P: two-step.
-// L2: the weights' rows read in place (C = 1).
-template <int R, bool P, int C, bool L2>
+// L2: the weights' rows read in place (C = 1); S: with them the state in
+// the block's scratch slice (kStateScratch).
+template <int R, bool P, int C, bool L2, bool S = false>
 __global__ void __launch_bounds__(kMaxThreads)
     mem_chain_kernel(const BwdArgs a) {
+  static_assert(!S || (L2 && C == 1), "the scratch plan reads from L2");
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
   const int mem = a.mem, s3 = a.s3, s34 = a.s3 + a.s4;
@@ -325,7 +348,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   float* const w3 = smem;              // [cu][p3]: g1w2 | g2w2 rows
   float* const wm = w3 + m.cu * m.p3;  // [cm][pm]: gw1 rows M2 + c
   // two [R][W]: step s's at s & 1
-  float* const ops = L2 ? smem : wm + m.cm * m.pm;
+  float* const ops =
+      L2 ? state_base<S>(smem, a.mem_state, a.mem_slice) : wm + m.cm * m.pm;
   float* dmem = ops + 2 * R * W;       // [R][mem]: the carry into the step
   float* dnext = dmem + R * mem;       // [R][mem]: the carry out of it
   float* const carry = dnext + R * mem;  // [R][mem]: dmem * g1
@@ -349,8 +373,9 @@ __global__ void __launch_bounds__(kMaxThreads)
     const int r = i / mem, row = row0 + r;
     dmem[i] = row < a.n ? a.dmemlast[(size_t)row * mem + i - r * mem] : 0.0f;
   }
-  if (!P) load_mem_ops<R>(a, a.t - 1, ops + ((a.t - 1) & 1) * R * W, row0,
-                         tid, nthr);
+  if (!P)
+    load_mem_ops<R, S>(a, a.t - 1, ops + ((a.t - 1) & 1) * R * W, row0, tid,
+                       nthr);
   cp_async_wait_all();
   __syncthreads();
   FTT_STAMP(a.clocks, kClockMemChainBwd, 0, 0);
@@ -360,13 +385,13 @@ __global__ void __launch_bounds__(kMaxThreads)
     float* const prev = ops + ((s + 1) & 1) * R * W;
     if (P) {
       if (((a.t - 1 - s) & 1) == 0) {
-        load_mem_ops<R>(a, s, op, row0, tid, nthr);
-        if (s > 0) load_mem_ops<R>(a, s - 1, prev, row0, tid, nthr);
+        load_mem_ops<R, S>(a, s, op, row0, tid, nthr);
+        if (s > 0) load_mem_ops<R, S>(a, s - 1, prev, row0, tid, nthr);
         cp_async_wait_all();
         __syncthreads();
       }
     } else if (s > 0) {
-      load_mem_ops<R>(a, s - 1, prev, row0, tid, nthr);
+      load_mem_ops<R, S>(a, s - 1, prev, row0, tid, nthr);
     }
     const size_t base = (size_t)s * a.n;
 
@@ -520,16 +545,23 @@ __device__ __forceinline__ void recompute_att(const BwdArgs& a, float* att,
 }
 
 // The recompute-att variant's att, R flat rows a block, into the scratch
-// that a.att points at.
-template <int R>
+// that a.att points at. G: one flat row (R = 1) whose r1 is read in place
+// and att computed in place, where s1 + M2 passes the staging.
+template <int R, bool G = false>
 __global__ void __launch_bounds__(kMaxThreads)
     recompute_att_kernel(const BwdArgs a) {
+  static_assert(!G || R == 1, "in place: one row a block");
   extern __shared__ float smem[];
-  float* const r1 = smem;              // [s1][R]
-  float* const att = r1 + a.s1 * R;    // [M2][R]
   const int rows = a.t * a.n, rr0 = blockIdx.x * R, M2 = a.m2;
   const int tid = threadIdx.x, nthr = blockDim.x;
   const ResEntry& e = a.res.f[kR1];
+  if (G) {  // one row: the feature-major [k][1] layout is the row's own
+    recompute_att<1>(a, res_row(a.att, rr0), res_row(e, rr0), tid, nthr,
+                     tid & 31, tid >> 5, nthr >> 5);
+    return;
+  }
+  float* const r1 = smem;              // [s1][R]
+  float* const att = r1 + a.s1 * R;    // [M2][R]
   load_flat<R>(r1, e.ptr, rows, 0, e.stride, e.col, a.s1, rr0, tid, nthr);
   __syncthreads();
   recompute_att<R>(a, att, r1, tid, nthr, tid & 31, tid >> 5, nthr >> 5);
@@ -786,32 +818,34 @@ __global__ void __launch_bounds__(kMaxThreads)
 // Operand floats a row and unit: gates 4, c, c_prev, and dcstar's 2.
 constexpr int kCellOpWidth = 8;
 
-template <int R>
+template <int R, bool S>
 __device__ __forceinline__ void load_cell_step(const BwdArgs& a, int s,
                                                const CellStep& op,
                                                const CellTile& c, int row0,
                                                int tid, int nthr) {
   const int H = a.H, M = a.H - a.z_tot;
   for (int q = 0; q < 4; ++q)
-    load_rows_async<R>(op.g + q * c.h * R, a.gates, s, a.n, 4 * H,
-                       q * H + c.k0, c.h, row0, tid, nthr);
-  load_rows_async<R>(op.c, a.allc, s, a.n, H, c.k0, c.h, row0, tid, nthr);
-  load_rows_async<R>(op.cp, s > 0 ? a.allc : nullptr, s - 1, a.n, H, c.k0,
-                     c.h, row0, tid, nthr);
+    load_rows_async<R, S>(op.g + q * c.h * R, a.gates, s, a.n, 4 * H,
+                          q * H + c.k0, c.h, row0, tid, nthr);
+  load_rows_async<R, S>(op.c, a.allc, s, a.n, H, c.k0, c.h, row0, tid, nthr);
+  load_rows_async<R, S>(op.cp, s > 0 ? a.allc : nullptr, s - 1, a.n, H,
+                        c.k0, c.h, row0, tid, nthr);
   if (op.dcs != nullptr) {
-    load_rows_async<R>(op.dcs, a.dcstar, s, a.n, a.m2, c.k0 - a.z_tot, c.h,
-                       row0, tid, nthr);
-    load_rows_async<R>(op.dcs + c.h * R, a.dcstar, s, a.n, a.m2,
-                       M + c.k0 - a.z_tot, c.h, row0, tid, nthr);
+    load_rows_async<R, S>(op.dcs, a.dcstar, s, a.n, a.m2, c.k0 - a.z_tot,
+                          c.h, row0, tid, nthr);
+    load_rows_async<R, S>(op.dcs + c.h * R, a.dcstar, s, a.n, a.m2,
+                          M + c.k0 - a.z_tot, c.h, row0, tid, nthr);
   }
 }
 
 // blockIdx.y is the cell, blockIdx.x / C the row tile and the rank in
 // the cluster of C its share of the cell's gate columns. P: two-step.
-// L2: the weights read in place (C = 1).
-template <int R, bool P, int C, bool L2>
+// L2: the weights read in place (C = 1); S: with them the state in the
+// block's scratch slice (kStateScratch).
+template <int R, bool P, int C, bool L2, bool S = false>
 __global__ void __launch_bounds__(kMaxThreads)
     lstm_chains_kernel(const BwdArgs a) {
+  static_assert(!S || (L2 && C == 1), "the scratch plan reads from L2");
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
   const CellTile c =
@@ -821,7 +855,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int tid = threadIdx.x, nthr = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarp = nthr >> 5;
   const float* const w = cell_weights<L2>(smem, a.wh, a.H, c.k0);
-  float* const dh = smem + (L2 ? 0 : h * c.wp);
+  float* const dh = state_base<S>(smem, a.cell_state, a.cell_slice) +
+                    (L2 ? 0 : h * c.wp);
   float* const dc = dh + pad4(h * R);
   // [4h][R]; for a cluster [C kc][R], the rows past 4h zero
   float* const dg = dc + pad4(h * R);
@@ -833,14 +868,15 @@ __global__ void __launch_bounds__(kMaxThreads)
   const bool with_dcs = c.k0 >= a.z_tot;
 
   if (!L2) load_cell_weights(smem, a.wh, a.H, c, tid, nthr);
-  load_rows_async<R>(dh, a.dhlast, 0, a.n, a.H, c.k0, h, row0, tid, nthr);
+  load_rows_async<R, S>(dh, a.dhlast, 0, a.n, a.H, c.k0, h, row0, tid,
+                        nthr);
   for (int i = tid; i < h * R; i += nthr) dc[i] = 0.0f;
   if (C > 1)
     for (int i = 4 * h * R + tid; i < C * c.kc * R; i += nthr) dg[i] = 0.0f;
   if (!P)
-    load_cell_step<R>(a, a.t - 1,
-                      cell_step(buf + ((a.t - 1) & 1) * step_floats, h, R,
-                                with_dcs), c, row0, tid, nthr);
+    load_cell_step<R, S>(a, a.t - 1,
+                         cell_step(buf + ((a.t - 1) & 1) * step_floats, h, R,
+                                   with_dcs), c, row0, tid, nthr);
   cp_async_wait_all();
   __syncthreads();
   FTT_STAMP(a.clocks, kClockCellChainsBwd, 0, 0);
@@ -852,13 +888,13 @@ __global__ void __launch_bounds__(kMaxThreads)
                                     with_dcs);
     if (P) {
       if (((a.t - 1 - s) & 1) == 0) {
-        load_cell_step<R>(a, s, op, c, row0, tid, nthr);
-        if (s > 0) load_cell_step<R>(a, s - 1, prev, c, row0, tid, nthr);
+        load_cell_step<R, S>(a, s, op, c, row0, tid, nthr);
+        if (s > 0) load_cell_step<R, S>(a, s - 1, prev, c, row0, tid, nthr);
         cp_async_wait_all();
         __syncthreads();
       }
     } else if (s > 0) {
-      load_cell_step<R>(a, s - 1, prev, c, row0, tid, nthr);
+      load_cell_step<R, S>(a, s - 1, prev, c, row0, tid, nthr);
     }
     cell_gate_bwd<R, C>(op, dh, dc, dg, a.dxp, s, a.n, a.H, c, row0, tid,
                         nthr, rank);
@@ -893,19 +929,21 @@ const Kernel kProductKernels[2][4] = {
 // The chains' kernels for a plan (lstm_common.cuh's chain_kernel).
 template <int R, bool P>
 Kernel mem_chain_for(int plan) {
-  const Kernel k[5] = {
+  const Kernel k[6] = {
       mem_chain_kernel<R, P, 1, true>, mem_chain_kernel<R, P, 1, false>,
       mem_chain_kernel<R, P, 2, false>, mem_chain_kernel<R, P, 4, false>,
-      mem_chain_kernel<R, P, 8, false>};
+      mem_chain_kernel<R, P, 8, false>,
+      mem_chain_kernel<R, P, 1, true, true>};
   return chain_kernel(k, plan);
 }
 
 template <int R, bool P>
 Kernel lstm_chains_for(int plan) {
-  const Kernel k[5] = {
+  const Kernel k[6] = {
       lstm_chains_kernel<R, P, 1, true>, lstm_chains_kernel<R, P, 1, false>,
       lstm_chains_kernel<R, P, 2, false>, lstm_chains_kernel<R, P, 4, false>,
-      lstm_chains_kernel<R, P, 8, false>};
+      lstm_chains_kernel<R, P, 8, false>,
+      lstm_chains_kernel<R, P, 1, true, true>};
   return chain_kernel(k, plan);
 }
 
@@ -921,7 +959,13 @@ struct Pass {
 
 // The fit gate: the pass's shared memory against the card's, and the
 // kernel allowed that much. Records a refusal in `fit` and fails if it
-// does not fit.
+// does not fit. No width reaches the refusal: the chains' bytes fit by
+// their plans (none on kStateScratch); the gates and recompute-att passes
+// stage a row tile only where it fits, else run in place with none; a
+// product is whole where it fits, else staged in term_chunks pieces, each
+// fitting by construction (at one float of depth a chunk, 2 kTile
+// product_pitch(1) = 256 floats, and the kSplit partial tiles 4,096
+// floats: 16 KiB); the softmax takes none.
 cudaError_t prepare(const Pass& p, int index, int* fit) {
   if (p.bytes > (size_t)kMaxSmemBytes)
     return refuse(fit, index, p.bytes, p.cluster);
@@ -1186,13 +1230,15 @@ DwKernel dw_kernel_for(int S) {
 // boundaries (0 where no encoder cell precedes the MFN's). gates (t, n,
 // 4H), dcstar and datt (t, n, M2) are scratch,
 // and att_scratch (t, n, M2) too for the recompute-att variant (else
-// unused). variant is 0 (stream), 1 (recompute-att) or 2 (two-step, t
-// even); threads a multiple of 32 up to 512, the block size of the gates
-// pass, the chains and the softmax. fit (host memory, six ints,
-// lstm_common.cuh's Fit) gets the plans the memory chain and the LSTM
-// chains ran on (each the smallest cluster whose blocks fit, else
-// kWeightsL2), or, when a chain's per-row state alone does not fit a
-// block, the refusal before anything is launched.
+// unused). state (state_floats floats of device memory, or null) is the
+// scratch of the chains on kStateScratch; state_need (host memory, one
+// value) gets the floats they take, and the launcher returns kNeedScratch
+// (-1) without launching while state_floats is short of it. variant is 0
+// (stream), 1 (recompute-att) or 2 (two-step, t even); threads a multiple
+// of 32 up to 512, the block size of the gates pass, the chains and the
+// softmax. fit (host memory, six ints, lstm_common.cuh's Fit) gets the
+// plans the memory chain and the LSTM chains ran on (each the smallest
+// cluster whose blocks fit, else kWeightsL2, else kStateScratch).
 extern "C" int mfm_encode_bwd(
     const float* xp, const float* allh, const float* allc,
     const float* allmem, void* const* res_ptrs, const int* res_strides,
@@ -1201,10 +1247,12 @@ extern "C" int mfm_encode_bwd(
     const float* a1b2, const float* a2w1, const float* a2w2,
     const float* gw1, const float* g1w2, const float* g2w2, float* dxp,
     float* delta, float* gates, float* dcstar, float* datt,
-    float* att_scratch, int t, int n, int H, int z_tot, int mem, int s1,
+    float* att_scratch, float* state, long long state_floats,
+    long long* state_need, int t, int n, int H, int z_tot, int mem, int s1,
     int s2, int s3, int s4, int n_cells, const int* cell_dims, int variant,
     int threads, int* fit, void* stream) {
   using namespace ftt;
+  const Scratch chains = {state, state_floats, state_need};
   BwdArgs a;
   a.xp = xp;
   a.allh = allh;
@@ -1226,6 +1274,8 @@ extern "C" int mfm_encode_bwd(
   a.gates = gates;
   a.dcstar = dcstar;
   a.clocks = phase_clocks();
+  a.mem_state = a.cell_state = nullptr;
+  a.mem_slice = a.cell_slice = 0;
   a.t = t;
   a.n = n;
   a.H = H;
@@ -1249,8 +1299,10 @@ extern "C" int mfm_encode_bwd(
       !make_res_table(res_ptrs, res_strides, res_cols, widths, &a.res) ||
       variant < kStream || variant > kTwoStep ||
       (variant == kTwoStep && t % 2 != 0) ||
-      (variant == kRecomputeAtt && att_scratch == nullptr))
+      (variant == kRecomputeAtt && att_scratch == nullptr) ||
+      state_need == nullptr)
     return (int)cudaErrorInvalidValue;
+  *state_need = 0;
   const bool pairs = variant == kTwoStep;
   const bool recompute = variant == kRecomputeAtt;
   a.datt = datt;
@@ -1259,23 +1311,38 @@ extern "C" int mfm_encode_bwd(
   const int s34 = s3 + s4, flat = t * n;
   const int tiles_m = (flat + kTile - 1) / kTile;
   // the two chains on the smallest clusters whose blocks fit, else with
-  // their weights read from L2
+  // their weights read from L2, else with them their state in the scratch
   size_t mem_bytes = 0, cell_bytes = 0;
   auto mem_at = [&](int C) {
     return mem_chain_floats(mem, s34, C, kMemRows, threads) * sizeof(float);
   };
   const int Pm = chain_plan(mem_at, [&] { return mem_at(kWeightsL2); },
                             &mem_bytes);
-  if (Pm == kRefused) return (int)refuse(fit, 2, mem_bytes, kWeightsL2);
   auto cells_at = [&](int C) {
     return cell_chain_bytes(a.cells, kCellRows, threads, kCellOpWidth, C);
   };
   const int Pc = chain_plan(cells_at, [&] { return cells_at(kWeightsL2); },
                             &cell_bytes);
-  if (Pc == kRefused) return (int)refuse(fit, 4, cell_bytes, kWeightsL2);
   fit[kFitChainA] = Pm;
   fit[kFitChainB] = Pc;
   const int Cm = plan_blocks(Pm), Cc = plan_blocks(Pc);
+  const dim3 mem_grid(((n + kMemRows - 1) / kMemRows) * Cm);
+  const dim3 cell_grid(((n + kCellRows - 1) / kCellRows) * Cc,
+                       a.cells.count);
+  if (Pm == kStateScratch)
+    a.mem_state = reserve(chains, mem_grid.x, mem_bytes, &a.mem_slice);
+  if (Pc == kStateScratch)
+    a.cell_state = reserve(chains, (long long)cell_grid.x * cell_grid.y,
+                           cell_bytes, &a.cell_slice);
+  if ((Pm == kStateScratch && a.mem_state == nullptr) ||
+      (Pc == kStateScratch && a.cell_state == nullptr))
+    return kNeedScratch;
+  // the gates and recompute-att passes stage a row tile where it fits,
+  // else run one row a block in place
+  const size_t gates_bytes = (size_t)kTileRows * H * sizeof(float);
+  const size_t att_bytes = (size_t)kTileRows * (s1 + a.m2) * sizeof(float);
+  const bool gates_staged = gates_bytes <= (size_t)kMaxSmemBytes;
+  const bool att_staged = att_bytes <= (size_t)kMaxSmemBytes;
   // the launches in order, each with its pass (1 to 4)
   Pass p[10];
   int pass_of[10], count = 0;
@@ -1283,17 +1350,21 @@ extern "C" int mfm_encode_bwd(
     pass_of[count] = pass;
     p[count++] = launch;
   };
-  add(1, {gates_kernel<kTileRows>,
-          dim3((flat + kTileRows - 1) / kTileRows), threads,
-          (size_t)kTileRows * H * sizeof(float), 1});
+  if (gates_staged)
+    add(1, {gates_kernel<kTileRows>,
+            dim3((flat + kTileRows - 1) / kTileRows), threads, gates_bytes,
+            1});
+  else
+    add(1, {gates_kernel<1, true>, dim3(flat), threads, 0, 1});
   add(2, {pairs ? mem_chain_for<kMemRows, true>(Pm)
                 : mem_chain_for<kMemRows, false>(Pm),
-          dim3(((n + kMemRows - 1) / kMemRows) * Cm), threads, mem_bytes,
-          Cm});
-  if (recompute)
+          mem_grid, threads, plan_smem(Pm, mem_bytes), Cm});
+  if (recompute && att_staged)
     add(3, {recompute_att_kernel<kTileRows>,
-            dim3((flat + kTileRows - 1) / kTileRows), threads,
-            (size_t)kTileRows * (s1 + a.m2) * sizeof(float), 1});
+            dim3((flat + kTileRows - 1) / kTileRows), threads, att_bytes,
+            1});
+  else if (recompute)
+    add(3, {recompute_att_kernel<1, true>, dim3(flat), threads, 0, 1});
   for (int id = kDu2; id <= kDcstarAdd; ++id) {
     const ProductSpec spec = product_spec(a, id);
     add(3, {kProductKernels[!product_whole(spec)][id],
@@ -1305,8 +1376,7 @@ extern "C" int mfm_encode_bwd(
   }
   add(4, {pairs ? lstm_chains_for<kCellRows, true>(Pc)
                 : lstm_chains_for<kCellRows, false>(Pc),
-          dim3(((n + kCellRows - 1) / kCellRows) * Cc, a.cells.count),
-          threads, cell_bytes, Cc});
+          cell_grid, threads, plan_smem(Pc, cell_bytes), Cc});
   for (int k = 0; k < count; ++k) {
     cudaError_t err = prepare(p[k], pass_of[k], fit);
     if (err != cudaSuccess) return (int)err;

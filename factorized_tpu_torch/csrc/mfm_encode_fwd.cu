@@ -43,7 +43,10 @@
 //     (cell_fwd.cuh). Writes allc (into scratch for the eval variant),
 //     allh with residuals, and h_last. A cell past one block splits over
 //     a thread-block cluster; past a cluster of 8 the chain reads its
-//     weights in place from L2.
+//     weights in place from L2, and past a block's per-row state too
+//     (more than about 518 units in the 8-row eval chains, 2,075 in the
+//     2-row train chains) keeps that state in a slice of device memory a
+//     block (lstm_common.cuh's kStateScratch).
 // (2) The attention branch over every (step, row) pair at once (no
 //     carry), as product_fwd_kernel in tiles and softmax_fwd_kernel:
 //     cStar from allc; u1 = cStar @ a1w1 + b, r1 and kg1; the logits and
@@ -61,12 +64,14 @@
 //     r3, kg3, g1, g2, allmem and mem_last. Past one block's shared memory
 //     its columns split over a cluster, the peers trading r3 and the
 //     memory through distributed shared memory; past a cluster of 8 the
-//     chain reads its weights in place from L2.
+//     chain reads its weights in place from L2, and where its per-row
+//     state passes a block too (R (4 mem + 5 (s3 + s4)) floats: mem past
+//     about 7,000 at R = 2) keeps it in device memory (kStateScratch).
 //
 // Float32 on the CUDA cores, every sum in a fixed order: no atomics, the
-// same bits on every run. Each chain's plan (a cluster, or its weights
-// from L2) is made from the widths before any pass starts; a launch is
-// refused only where a chain's per-row state alone passes a block.
+// same bits on every run. Each chain's plan (a cluster, its weights from
+// L2, or with them its state in device memory) is made from the widths
+// before any pass starts; no width is refused.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -129,6 +134,11 @@ struct EncodeArgs {
   // r1, r2 and chat: the residual fields, or scratch without residuals
   ResEntry r1, r2, chat;
   long long* clocks;  // the per-phase probe's buffer, or null
+  // kStateScratch: the LSTM chains' and the memory chain's state slices
+  float* cell_state;
+  size_t cell_slice;
+  float* mem_state;
+  size_t mem_slice;
   int t, n, H, z_tot, mem, s1, s2, s3, s4, m2;
   Cells cells;
 };
@@ -139,17 +149,20 @@ using Kernel = void (*)(const EncodeArgs);
 
 // blockIdx.y is the cell, blockIdx.x / C the row tile and the rank in the
 // cluster of C its share of the cell's gate columns. L2: the weights read
-// in place (C = 1).
-template <int R, int C, bool L2>
+// in place (C = 1); S: with them the state in the block's scratch slice
+// (kStateScratch).
+template <int R, int C, bool L2, bool S = false>
 __global__ void __launch_bounds__(kMaxThreads)
     cell_chains_fwd_kernel(const EncodeArgs a) {
+  static_assert(!S || (L2 && C == 1), "the scratch plan reads from L2");
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
   const FwdTile c = fwd_tile<C, L2>(a.cells, blockIdx.y, blockDim.x, rank,
                                     a.H);
   const int h = c.h, H = a.H;
   const float* const w = cell_weights<L2>(smem, a.wh, H, c.k0);
-  float* const hs = smem + (L2 ? 0 : h * c.wp);  // [h][R]
+  float* const hs = state_base<S>(smem, a.cell_state, a.cell_slice) +
+                    (L2 ? 0 : h * c.wp);  // [h][R]
   float* const cs = hs + pad4(h * R);     // [h][R]
   float* const xb = cs + pad4(h * R);     // two [4h][R]: step s's at s & 1
   float* const part = xb + 8 * h * R;     // [kg kc][R], two for a cluster
@@ -161,15 +174,16 @@ __global__ void __launch_bounds__(kMaxThreads)
     load_cell_weights(smem, a.wh, H, c.k0, h, c.c0, c.kc, c.wp, tid, nthr);
   for (int i = tid; i < h * R; i += nthr) hs[i] = cs[i] = 0.0f;
   const size_t xs = (size_t)a.n * 4 * H;
-  load_gates_async<R>(xb, a.xp, 0, xs, 4 * H, a.n, H, c, row0, tid, nthr);
+  load_gates_async<R, S>(xb, a.xp, 0, xs, 4 * H, a.n, H, c, row0, tid,
+                         nthr);
   cp_async_wait_all();
   __syncthreads();
   FTT_STAMP(a.clocks, kClockCellChainsFwd, 0, 0);
 
   for (int s = 0; s < a.t; ++s) {
     if (s + 1 < a.t)
-      load_gates_async<R>(xb + ((s + 1) & 1) * 4 * h * R, a.xp, s + 1, xs,
-                          4 * H, a.n, H, c, row0, tid, nthr);
+      load_gates_async<R, S>(xb + ((s + 1) & 1) * 4 * h * R, a.xp, s + 1,
+                             xs, 4 * H, a.n, H, c, row0, tid, nthr);
     float* const p = part + (C > 1 ? (s & 1) * part_floats : 0);
     cell_gates_fwd<R, L2>(w, hs, xb + (s & 1) * 4 * h * R, p, c, tid,
                           nthr);
@@ -478,25 +492,26 @@ __host__ __device__ inline size_t mem_fwd_floats(int mem, int s3, int s4,
          state;
 }
 
-// Step s's operands, row-major [R][pu3 | chat | masks], asynchronously;
-// ones for the masks without them, zeros past n.
-template <int R>
+// Step s's operands, row-major [R][pu3 | chat | masks], asynchronously
+// (S: by plain copies into the state's scratch); ones for the masks
+// without them, zeros past n.
+template <int R, bool S>
 __device__ __forceinline__ void load_mem_fwd_ops(const EncodeArgs& a, int s,
                                                  float* o, int row0, int tid,
                                                  int nthr) {
   const int s34 = a.s3 + a.s4, W = mem_fwd_op_width(a.mem, s34);
-  const int S = a.s1 + a.s2 + s34;
+  const int sites = a.s1 + a.s2 + s34;
   for (int i = tid; i < W * R; i += nthr) {
     const int r = i / W, f = i - r * W, row = row0 + r;
     const size_t at = (size_t)s * a.n + row;
     if (row >= a.n)
       o[i] = 0.0f;
     else if (f < s34)
-      cp_async4(o + i, a.pu3 + at * s34 + f);
+      copy4<S>(o + i, a.pu3 + at * s34 + f);
     else if (f < s34 + a.mem)
-      cp_async4(o + i, res_row(a.chat, at) + f - s34);
+      copy4<S>(o + i, res_row(a.chat, at) + f - s34);
     else if (a.masks != nullptr)
-      cp_async4(o + i, a.masks + at * S + a.s1 + a.s2 + f - s34 - a.mem);
+      copy4<S>(o + i, a.masks + at * sites + a.s1 + a.s2 + f - s34 - a.mem);
     else
       o[i] = 1.0f;
   }
@@ -504,10 +519,12 @@ __device__ __forceinline__ void load_mem_fwd_ops(const EncodeArgs& a, int s,
 
 // Block: rank `rank` of a cluster of C over R batch rows. L2: the weights
 // read in place (C = 1), a column of each (an output's depth) with its
-// elements a row apart.
-template <int R, int C, bool L2>
+// elements a row apart; S: with them the state in the block's scratch
+// slice (kStateScratch).
+template <int R, int C, bool L2, bool S = false>
 __global__ void __launch_bounds__(kMaxThreads)
     mem_chain_fwd_kernel(const EncodeArgs a) {
+  static_assert(!S || (L2 && C == 1), "the scratch plan reads from L2");
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
   const int mem = a.mem, s3 = a.s3, s4 = a.s4, s34 = s3 + s4;
@@ -529,7 +546,8 @@ __global__ void __launch_bounds__(kMaxThreads)
   const float* const r2w = L2 ? a.g2w2 : w2;
   const int pu = L2 ? 1 : m.pu, p1 = L2 ? 1 : m.p1, p2 = L2 ? 1 : m.p2;
   const int su = L2 ? s34 : 1, sm = L2 ? mem : 1;
-  float* memp = L2 ? smem : w2 + pad4(m.cm * m.p2);  // [R][mem]: before
+  float* memp = L2 ? state_base<S>(smem, a.mem_state, a.mem_slice)
+                  : w2 + pad4(m.cm * m.p2);  // [R][mem]: before
   float* memn = memp + R * mem;              // [R][mem]: after the step
   float* const r3 = memn + R * mem;          // [R][s34]
   float* const ops = r3 + R * s34;           // two [R][W]: step s's at s & 1
@@ -550,15 +568,15 @@ __global__ void __launch_bounds__(kMaxThreads)
     }
   }
   for (int i = tid; i < R * mem; i += nthr) memp[i] = 0.0f;
-  load_mem_fwd_ops<R>(a, 0, ops, row0, tid, nthr);
+  load_mem_fwd_ops<R, S>(a, 0, ops, row0, tid, nthr);
   cp_async_wait_all();
   __syncthreads();
   FTT_STAMP(a.clocks, kClockMemChainFwd, 0, 0);
 
   for (int s = 0; s < a.t; ++s) {
     if (s + 1 < a.t)
-      load_mem_fwd_ops<R>(a, s + 1, ops + ((s + 1) & 1) * R * W, row0, tid,
-                          nthr);
+      load_mem_fwd_ops<R, S>(a, s + 1, ops + ((s + 1) & 1) * R * W, row0,
+                             tid, nthr);
     const float* const op = ops + (s & 1) * R * W;
     const size_t base = (size_t)s * a.n;
 
@@ -649,19 +667,21 @@ __global__ void __launch_bounds__(kMaxThreads)
 // The chains' kernels for a plan (lstm_common.cuh's chain_kernel).
 template <int R>
 Kernel cells_for(int plan) {
-  const Kernel k[5] = {
+  const Kernel k[6] = {
       cell_chains_fwd_kernel<R, 1, true>, cell_chains_fwd_kernel<R, 1, false>,
       cell_chains_fwd_kernel<R, 2, false>, cell_chains_fwd_kernel<R, 4, false>,
-      cell_chains_fwd_kernel<R, 8, false>};
+      cell_chains_fwd_kernel<R, 8, false>,
+      cell_chains_fwd_kernel<R, 1, true, true>};
   return chain_kernel(k, plan);
 }
 
 template <int R>
 Kernel mem_for(int plan) {
-  const Kernel k[5] = {
+  const Kernel k[6] = {
       mem_chain_fwd_kernel<R, 1, true>, mem_chain_fwd_kernel<R, 1, false>,
       mem_chain_fwd_kernel<R, 2, false>, mem_chain_fwd_kernel<R, 4, false>,
-      mem_chain_fwd_kernel<R, 8, false>};
+      mem_chain_fwd_kernel<R, 8, false>,
+      mem_chain_fwd_kernel<R, 1, true, true>};
   return chain_kernel(k, plan);
 }
 
@@ -685,10 +705,12 @@ struct Pass {
 
 // Pass (1) to (3) with an LSTM chain block on CR batch rows and a memory
 // chain block on MR, each chain on the smallest cluster whose blocks fit,
-// else with its weights read from L2.
+// else with its weights read from L2, else with them its state in the
+// scratch; kNeedScratch, launching nothing, while the scratch is short of
+// what those plans take.
 template <int CR, int MR>
-cudaError_t run(const EncodeArgs& a, int threads, int* fit,
-                cudaStream_t stream) {
+int run(EncodeArgs a, const Scratch& scratch, int threads, int* fit,
+        cudaStream_t stream) {
   const int flat = a.t * a.n, tiles_m = (flat + kTile - 1) / kTile;
   size_t cell_bytes = 0, mem_bytes = 0;
   auto cells_at = [&](int C) {
@@ -696,16 +718,24 @@ cudaError_t run(const EncodeArgs& a, int threads, int* fit,
   };
   const int Pc = chain_plan(cells_at, [&] { return cells_at(kWeightsL2); },
                             &cell_bytes);
-  if (Pc == kRefused) return refuse(fit, 1, cell_bytes, kWeightsL2);
   auto mem_at = [&](int C) {
     return mem_fwd_floats(a.mem, a.s3, a.s4, C, MR, threads) * sizeof(float);
   };
   const int Pm = chain_plan(mem_at, [&] { return mem_at(kWeightsL2); },
                             &mem_bytes);
-  if (Pm == kRefused) return refuse(fit, 3, mem_bytes, kWeightsL2);
   fit[kFitChainA] = Pc;
   fit[kFitChainB] = Pm;
   const int Cc = plan_blocks(Pc), Cm = plan_blocks(Pm);
+  const dim3 cell_grid(((a.n + CR - 1) / CR) * Cc, a.cells.count);
+  const dim3 mem_grid(((a.n + MR - 1) / MR) * Cm);
+  if (Pc == kStateScratch)
+    a.cell_state = reserve(scratch, (long long)cell_grid.x * cell_grid.y,
+                           cell_bytes, &a.cell_slice);
+  if (Pm == kStateScratch)
+    a.mem_state = reserve(scratch, mem_grid.x, mem_bytes, &a.mem_slice);
+  if ((Pc == kStateScratch && a.cell_state == nullptr) ||
+      (Pm == kStateScratch && a.mem_state == nullptr))
+    return kNeedScratch;
   // the passes in order, each with its pass (1 to 3)
   Pass p[8];
   int pass_of[8], count = 0;
@@ -713,9 +743,8 @@ cudaError_t run(const EncodeArgs& a, int threads, int* fit,
     pass_of[count] = pass;
     p[count++] = launch;
   };
-  add(1, {cells_for<CR>(Pc),
-          dim3(((a.n + CR - 1) / CR) * Cc, a.cells.count),
-          threads, cell_bytes, Cc});
+  add(1, {cells_for<CR>(Pc), cell_grid, threads,
+          plan_smem(Pc, cell_bytes), Cc});
   for (int id = kProdU1; id < kProducts; ++id) {
     const ProductSpec spec = product_spec(a, id);
     const int nc = product_chunks(spec.K);
@@ -727,21 +756,26 @@ cudaError_t run(const EncodeArgs& a, int threads, int* fit,
               dim3((flat + threads / 32 - 1) / (threads / 32)), threads, 0,
               1});
   }
-  add(3, {mem_for<MR>(Pm), dim3(((a.n + MR - 1) / MR) * Cm), threads,
-          mem_bytes, Cm});
+  add(3, {mem_for<MR>(Pm), mem_grid, threads, plan_smem(Pm, mem_bytes),
+          Cm});
+  // No width reaches this refusal: each chain's bytes fit by its plan
+  // (none on kStateScratch); a product stages product_floats of its depth
+  // in product_chunks pieces, each fitting by construction (at one float
+  // of depth a chunk, kTile (product_pitch(1) + 1) = 160 floats, and the
+  // kSplit partial tiles 4,096 floats: 16 KiB); the softmax takes none.
   for (int k = 0; k < count; ++k) {
     if (p[k].bytes > (size_t)kMaxSmemBytes)
-      return refuse(fit, pass_of[k], p[k].bytes, p[k].cluster);
+      return (int)refuse(fit, pass_of[k], p[k].bytes, p[k].cluster);
     cudaError_t err =
         allow_smem(reinterpret_cast<const void*>(p[k].kernel), p[k].bytes);
-    if (err != cudaSuccess) return err;
+    if (err != cudaSuccess) return (int)err;
   }
   for (int k = 0; k < count; ++k) {
     cudaError_t err = launch_clusters(p[k].kernel, p[k].grid, p[k].threads,
                                       p[k].bytes, p[k].cluster, stream, a);
-    if (err != cudaSuccess) return err;
+    if (err != cudaSuccess) return (int)err;
   }
-  return cudaSuccess;
+  return (int)cudaSuccess;
 }
 
 }  // namespace
@@ -758,10 +792,12 @@ cudaError_t run(const EncodeArgs& a, int threads, int* fit,
 // the n_cells fused hidden widths, summing to H; the first cells up to
 // z_tot are the encoders. threads is a multiple of 32 up to 512, the
 // block size of the chains and the softmax (the products run 256-thread
-// tiles). fit (host memory, six ints, lstm_common.cuh's Fit) gets the
-// plans the LSTM chains and the memory chain ran on (a cluster, or
-// kWeightsL2), or, when a chain's per-row state alone passes a block, the
-// refusal before anything is launched.
+// tiles). state (state_floats floats of device memory, or null) is the
+// scratch of the chains on kStateScratch; state_need (host memory, one
+// value) gets the floats they take, and the launcher returns kNeedScratch
+// (-1) without launching while state_floats is short of it. fit (host
+// memory, six ints, lstm_common.cuh's Fit) gets the plans the LSTM chains
+// and the memory chain ran on (a cluster, kWeightsL2 or kStateScratch).
 extern "C" int mfm_encode_fwd(
     const float* xp, const float* masks, const float* wh, const float* a1w1,
     const float* a1b1, const float* a1w2, const float* a1b2,
@@ -769,12 +805,14 @@ extern "C" int mfm_encode_fwd(
     const float* gw1, const float* gb1, const float* g1w2, const float* g1b2,
     const float* g2w2, const float* g2b2, float* h_last, float* mem_last,
     float* allh, float* allc, float* allmem, void* const* res_ptrs,
-    const int* res_strides, const int* res_cols, float* scratch, int t,
+    const int* res_strides, const int* res_cols, float* scratch,
+    float* state, long long state_floats, long long* state_need, int t,
     int n, int H, int z_tot, int mem, int s1, int s2, int s3, int s4,
     int n_cells, const int* cell_dims, int threads, int* fit,
     void* stream) {
   using namespace ftt;
   clear_fit(fit);
+  const Scratch chains = {state, state_floats, state_need};
   EncodeArgs a;
   a.xp = xp;
   a.masks = masks;
@@ -798,6 +836,8 @@ extern "C" int mfm_encode_fwd(
   a.allh = allh;
   a.allmem = allmem;
   a.clocks = phase_clocks();
+  a.cell_state = a.mem_state = nullptr;
+  a.cell_slice = a.mem_slice = 0;
   a.t = t;
   a.n = n;
   a.H = H;
@@ -813,10 +853,11 @@ extern "C" int mfm_encode_fwd(
   const bool with_res = allh && allc && allmem && res_ptrs;
   if (!make_cells(n_cells, cell_dims, H, &a.cells) || t < 1 || n < 1 ||
       z_tot < 0 || z_tot >= H || threads < 32 || threads > kMaxThreads ||
-      threads % 32 != 0 || scratch == nullptr ||
+      threads % 32 != 0 || scratch == nullptr || state_need == nullptr ||
       !make_res_table(res_ptrs, res_strides, res_cols, widths, &a.res) ||
       !(with_res || !(allh || allc || allmem || res_ptrs)))
     return (int)cudaErrorInvalidValue;
+  *state_need = 0;
   const size_t flat = (size_t)t * n;
   a.pu3 = scratch;
   a.work = a.pu3 + flat * (s3 + s4);
@@ -832,7 +873,7 @@ extern "C" int mfm_encode_fwd(
     a.r2 = ResEntry{a.r1.ptr + flat * s1, s2, 0};
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(with_res
-                   ? run<kTrainCellRows, kTrainMemRows>(a, threads, fit, st)
-                   : run<kEvalCellRows, kEvalMemRows>(a, threads, fit, st));
+  return with_res
+             ? run<kTrainCellRows, kTrainMemRows>(a, chains, threads, fit, st)
+             : run<kEvalCellRows, kEvalMemRows>(a, chains, threads, fit, st);
 }

@@ -82,9 +82,10 @@ def synthetic_segments(n_segments, seed, max_len=40):
     return segs
 
 
-def pad_segments(segs, max_segment_len):
-    """Fixed-length arrays with MOSI semantics: left-pad with zeros,
-    truncate keeping the LAST ``max_segment_len`` words."""
+def pad_segments(segs, max_segment_len, side="left"):
+    """Fixed-length arrays with MOSI semantics: pad zeros (left by
+    default, ``data_loader.py:139-147``), truncate keeping the LAST
+    ``max_segment_len`` words (``data_loader.py:148-152``)."""
     data = {"facet": [], "covarep": [], "text": [], "lengths": [],
             "label": [], "id": []}
     for i, s in enumerate(segs):
@@ -99,9 +100,14 @@ def pad_segments(segs, max_segment_len):
             zt = np.zeros(pad_n, dtype=text.dtype)
             zc = np.zeros((pad_n, covarep.shape[1]), covarep.dtype)
             zf = np.zeros((pad_n, facet.shape[1]), facet.dtype)
-            text = np.concatenate([zt, text])
-            covarep = np.concatenate([zc, covarep])
-            facet = np.concatenate([zf, facet])
+            if side == "left":
+                text = np.concatenate([zt, text])
+                covarep = np.concatenate([zc, covarep])
+                facet = np.concatenate([zf, facet])
+            else:
+                text = np.concatenate([text, zt])
+                covarep = np.concatenate([covarep, zc])
+                facet = np.concatenate([facet, zf])
         data["text"].append(text)
         data["covarep"].append(covarep)
         data["facet"].append(facet)

@@ -21,10 +21,12 @@ diagonal blocks of the recurrent weight in shared memory. A cell past one
 block's shared memory splits its gate columns over a thread-block cluster
 of 2, 4 or 8 blocks, the smallest that fits; past 8 the chain reads the
 weights in place from L2 (``CLUSTERS`` records each call's plan, 0 for
-L2, and ``L2_LAUNCHES`` counts the launches that read from L2). The plan
-is made from the widths before the launch; the wrappers raise
-``ValueError`` only for a block whose per-row state alone passes the
-card's shared memory. ``decoder_lstm_bwd_cells_plain``,
+L2, and ``L2_LAUNCHES`` counts the launches that read from L2); where a
+block's per-row state alone passes the card's shared memory too, the
+chain keeps that state in a scratch of device memory (plan ``SCRATCH``,
+counted in ``SCRATCH_LAUNCHES``; ``launch_chains`` allocates it). The
+plan is made from the widths before the launch, and every width has one.
+``decoder_lstm_bwd_cells_plain``,
 ``multi_lstm_bwd_cells_plain`` and ``cell_dh_split_plain`` are the
 backward's data flow in plain PyTorch.
 
@@ -55,10 +57,38 @@ MULTI_BWD_LAUNCHES = 0
 BWD_THREADS = 512
 MULTI_BWD_THREADS = 256
 # the plan the last call of each wrapper ran its chain on: the
-# thread-block cluster (1: one block), or 0: the weights read from L2
+# thread-block cluster (1: one block), 0: the weights read from L2, or
+# SCRATCH: with them the per-row state in device memory
 CLUSTERS = {}
-# launches of each wrapper whose chain read its weights from L2
+SCRATCH = -2
+# launches of each wrapper whose chain read its weights from L2, and of
+# those whose chain kept its state in device memory
 L2_LAUNCHES = {}
+SCRATCH_LAUNCHES = {}
+# what a launcher returns, having launched nothing, while the scratch it
+# was given is short of what a chain on SCRATCH takes
+# (csrc/lstm_common.cuh's kNeedScratch)
+NEED_SCRATCH = -1
+# the launchers' scratch parameters: the device memory, its floats, and
+# (host memory) the floats the launch takes
+STATE_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong,
+                  ctypes.POINTER(ctypes.c_longlong)]
+
+
+def launch_chains(fn, device, head, tail):
+    """``fn(*head, state, floats, need, *tail)``: a launcher whose chains
+    may keep their per-row state in device memory (plan ``SCRATCH``),
+    called with no scratch and, where it asks for one (``NEED_SCRATCH``,
+    nothing launched), again with a scratch of the floats it needs, on the
+    current stream (the kernel is ordered before any later use of the
+    memory). Returns the launcher's error code."""
+    need = ctypes.c_longlong(0)
+    err = fn(*head, None, 0, ctypes.byref(need), *tail)
+    if err == NEED_SCRATCH:
+        state = torch.empty(need.value, dtype=torch.float32, device=device)
+        err = fn(*head, state.data_ptr(), need.value, ctypes.byref(need),
+                 *tail)
+    return err
 
 
 def _check(h0, c0, wsum, b, t, h_dims):
@@ -132,7 +162,7 @@ def _launch(h0, c0, wsum, b, t, h_dims):
     n, H = h0.shape
     fn = _build.kernel(
         "decoder_lstm_fwd",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+        [ctypes.c_void_p] * 7 + STATE_ARGTYPES + [ctypes.c_int] * 4
         + [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
            ctypes.c_void_p])
     allh = torch.empty((t, n, H), dtype=torch.float32, device=h0.device)
@@ -142,13 +172,15 @@ def _launch(h0, c0, wsum, b, t, h_dims):
     fit = (ctypes.c_int * 6)()
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(h0.data_ptr(), c0.data_ptr(), wsum.data_ptr(), b.data_ptr(),
-                 allh.data_ptr(), allc.data_ptr(), gates.data_ptr(),
-                 t, n, H, len(h_dims), dims, fit, stream)
+        err = launch_chains(
+            fn, h0.device,
+            [h0.data_ptr(), c0.data_ptr(), wsum.data_ptr(), b.data_ptr(),
+             allh.data_ptr(), allc.data_ptr(), gates.data_ptr()],
+            [t, n, H, len(h_dims), dims, fit, stream])
     _fit("decoder_lstm_fwd", fit, h_dims)
     _build.check(err, "decoder_lstm_fwd")
     LAUNCHES += 1
-    _count_l2("decoder_lstm_fwd")
+    _count_plans("decoder_lstm_fwd")
     return allh, allc, gates
 
 
@@ -194,7 +226,7 @@ def _launch_bwd(wsum, gates, allc, dallh, h_dims):
     t, n, H = allc.shape
     fn = _build.kernel(
         "decoder_lstm_bwd",
-        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+        [ctypes.c_void_p] * 7 + STATE_ARGTYPES + [ctypes.c_int] * 4
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     dgates = torch.empty((t - 1, n, 4 * H), dtype=torch.float32,
@@ -205,22 +237,25 @@ def _launch_bwd(wsum, gates, allc, dallh, h_dims):
     fit = (ctypes.c_int * 6)()
     with torch.cuda.device(allc.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(gates.data_ptr(), allc.data_ptr(), dallh.data_ptr(),
-                 wsum.data_ptr(), dgates.data_ptr(), dh0.data_ptr(),
-                 dc0.data_ptr(), t, n, H, len(h_dims), dims, BWD_THREADS,
-                 fit, stream)
+        err = launch_chains(
+            fn, allc.device,
+            [gates.data_ptr(), allc.data_ptr(), dallh.data_ptr(),
+             wsum.data_ptr(), dgates.data_ptr(), dh0.data_ptr(),
+             dc0.data_ptr()],
+            [t, n, H, len(h_dims), dims, BWD_THREADS, fit, stream])
     _fit("decoder_lstm_bwd", fit, h_dims)
     _build.check(err, "decoder_lstm_bwd")
     BWD_LAUNCHES += 1
-    _count_l2("decoder_lstm_bwd")
+    _count_plans("decoder_lstm_bwd")
     return dgates, dh0, dc0
 
 
 def refusal(fit) -> str:
     """What a refused launch's ``fit`` array (``lstm_common.cuh``'s Fit)
     says: the bytes a block needs past the card's, and the plan at which
-    it still did not fit (0: the weights read from L2, the per-row state
-    alone too large)."""
+    it still did not fit (0: the weights read from L2). No width reaches a
+    refusal since every chain has the ``SCRATCH`` plan; the launchers keep
+    the gate against a pass that would pass the card's shared memory."""
     where = ("even with its weights read from L2" if fit[3] == 0
              else f"on a cluster of {fit[3]}")
     return (f"needs {fit[1]} bytes of shared memory a block, past the "
@@ -230,17 +265,25 @@ def refusal(fit) -> str:
 def _fit(name, fit, h_dims):
     """Raise ``ValueError`` for a launch the kernel refused before it
     started (``fit`` its ``lstm_common.cuh`` Fit array), naming the
-    widths; else record the chain's plan in ``CLUSTERS``."""
+    widths; else record the chain's plan in ``CLUSTERS`` (a cluster, 0 or
+    ``SCRATCH``)."""
     if fit[0]:
         raise ValueError(f"{name} {refusal(fit)}: cells {list(h_dims)} "
                          f"(largest {max(h_dims)})")
     CLUSTERS[name] = fit[4]
 
 
-def _count_l2(name):
-    """Count a launch whose chain read its weights from L2."""
-    if CLUSTERS[name] == 0:
-        L2_LAUNCHES[name] = L2_LAUNCHES.get(name, 0) + 1
+def count_plans(plans, name, l2, scratch):
+    """Count a launch of ``name`` whose chains' ``plans`` read weights
+    from L2 (0) into the dict ``l2``, and one with a chain on ``SCRATCH``
+    into ``scratch``."""
+    for plan, counter in ((0, l2), (SCRATCH, scratch)):
+        if plan in plans:
+            counter[name] = counter.get(name, 0) + 1
+
+
+def _count_plans(name):
+    count_plans((CLUSTERS[name],), name, L2_LAUNCHES, SCRATCH_LAUNCHES)
 
 
 def decoder_lstm_bwd_plain(wsum, gates, allc, dallh):
@@ -384,7 +427,7 @@ def _launch_multi(xp, wh, h_dims, with_res):
     H = H4 // 4
     fn = _build.kernel(
         "multi_lstm_fwd",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+        [ctypes.c_void_p] * 6 + STATE_ARGTYPES + [ctypes.c_int] * 4
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 
@@ -401,12 +444,14 @@ def _launch_multi(xp, wh, h_dims, with_res):
     fit = (ctypes.c_int * 6)()
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xp.data_ptr(), wh.data_ptr(), outs[0].data_ptr(), *res_ptrs,
-                 t, n, H, len(h_dims), dims, int(with_res), fit, stream)
+        err = launch_chains(
+            fn, xp.device,
+            [xp.data_ptr(), wh.data_ptr(), outs[0].data_ptr(), *res_ptrs],
+            [t, n, H, len(h_dims), dims, int(with_res), fit, stream])
     _fit("multi_lstm_fwd", fit, h_dims)
     _build.check(err, "multi_lstm_fwd")
     MULTI_LAUNCHES += 1
-    _count_l2("multi_lstm_fwd")
+    _count_plans("multi_lstm_fwd")
     return tuple(outs) if with_res else outs[0]
 
 
@@ -450,7 +495,7 @@ def _launch_multi_bwd(gates, wh, allc, dhlast, h_dims):
     t, n, H = allc.shape
     fn = _build.kernel(
         "multi_lstm_bwd",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+        [ctypes.c_void_p] * 5 + STATE_ARGTYPES + [ctypes.c_int] * 4
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
            ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     dxp = torch.empty_like(gates)
@@ -458,13 +503,15 @@ def _launch_multi_bwd(gates, wh, allc, dhlast, h_dims):
     fit = (ctypes.c_int * 6)()
     with torch.cuda.device(allc.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(gates.data_ptr(), allc.data_ptr(), dhlast.data_ptr(),
-                 wh.data_ptr(), dxp.data_ptr(), t, n, H, len(h_dims), dims,
-                 MULTI_BWD_THREADS, fit, stream)
+        err = launch_chains(
+            fn, allc.device,
+            [gates.data_ptr(), allc.data_ptr(), dhlast.data_ptr(),
+             wh.data_ptr(), dxp.data_ptr()],
+            [t, n, H, len(h_dims), dims, MULTI_BWD_THREADS, fit, stream])
     _fit("multi_lstm_bwd", fit, h_dims)
     _build.check(err, "multi_lstm_bwd")
     MULTI_BWD_LAUNCHES += 1
-    _count_l2("multi_lstm_bwd")
+    _count_plans("multi_lstm_bwd")
     return dxp
 
 

@@ -26,9 +26,11 @@ Three kernels, each with a launch counter per variant:
   splits them over a thread-block cluster of 2, 4 or 8 blocks, the
   smallest that fits; past 8 it reads them in place from L2
   (``CLUSTERS`` records each call's plans, 0 for L2; ``L2_LAUNCHES``
-  counts the launches with a chain reading from L2). The plans are made
-  from the widths before any launch; the wrappers raise ``ValueError``
-  only where a chain's per-row state alone passes a block. Variants:
+  counts the launches with a chain reading from L2), and where a chain's
+  per-row state alone passes a block too, it keeps that state in a
+  scratch of device memory (plan ``cuda_lstm.SCRATCH``,
+  ``SCRATCH_LAUNCHES``). The plans are made from the widths before any
+  launch, and every width has one. Variants:
   ``"stream"`` (the training path's, ``BWD_LAUNCHES``),
   ``"recompute_att"`` (att recomputed from r1, ``RECOMPUTE_LAUNCHES``)
   and ``"two_step"`` (the chains take reverse steps in pairs, t even,
@@ -61,7 +63,9 @@ import torch
 
 from factorized_tpu_torch.ops import _build
 from factorized_tpu_torch.ops.core import dropout_mask
-from factorized_tpu_torch.ops.cuda_lstm import cell_columns, refusal
+from factorized_tpu_torch.ops.cuda_lstm import (STATE_ARGTYPES,
+                                               cell_columns, count_plans,
+                                               launch_chains, refusal)
 from factorized_tpu_torch.ops.lstm import recurrent_weight_grad
 
 W_NAMES = ("wh", "a1w1", "a1b1", "a1w2", "a1b2", "a2w1", "a2b1",
@@ -116,10 +120,13 @@ FWD_PASSES = {"lstm_chains": ("cell_chains_fwd_kernel",),
               "attention": ("product_fwd_kernel", "softmax_fwd_kernel"),
               "memory_chain": ("mem_chain_fwd_kernel",)}
 # the plans the last call of each wrapper ran its chains on, by chain: the
-# thread-block cluster (1: one block), or 0: the weights read from L2
+# thread-block cluster (1: one block), 0: the weights read from L2, or
+# cuda_lstm.SCRATCH: with them the per-row state in device memory
 CLUSTERS = {}
-# launches of each wrapper with a chain that read its weights from L2
+# launches of each wrapper with a chain that read its weights from L2, and
+# with a chain that kept its state in device memory
 L2_LAUNCHES = {}
+SCRATCH_LAUNCHES = {}
 # the weight-gradient kernel's output tile and rows a chunk
 # (csrc/mfm_encode_bwd.cu: kDwTile, kDwChunk), and the blocks a launch
 # aims for, which set the cluster that splits K (dw_cluster): two a SM of
@@ -333,16 +340,14 @@ def _fit(name, fit, passes, widths):
     CLUSTERS[name] = (fit[4], fit[5])
 
 
-def _count_l2(name):
-    """Count a launch with a chain that read its weights from L2."""
-    if 0 in CLUSTERS[name]:
-        L2_LAUNCHES[name] = L2_LAUNCHES.get(name, 0) + 1
+def _count_plans(name):
+    count_plans(CLUSTERS[name], name, L2_LAUNCHES, SCRATCH_LAUNCHES)
 
 
 def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None):
     """The forward's three passes; ``layout`` None writes no residuals.
-    Raises ``ValueError`` before any launch when a chain's per-row state
-    does not fit a block."""
+    A chain on ``cuda_lstm.SCRATCH`` gets its scratch from
+    ``launch_chains``."""
     global LAUNCHES, SPLIT_LAUNCHES
     t, n, H4 = xp.shape
     H = H4 // 4
@@ -350,7 +355,8 @@ def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None):
     fn = _build.kernel(
         "mfm_encode_fwd",
         [ctypes.c_void_p] * 22 + _TABLE + [ctypes.c_void_p]
-        + [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)]
+        + STATE_ARGTYPES + [ctypes.c_int] * 10
+        + [ctypes.POINTER(ctypes.c_int)]
         + [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 
     def empty(*shape):
@@ -376,12 +382,14 @@ def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None):
     fit = (ctypes.c_int * 6)()
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xp.data_ptr(),
-                 None if masks is None else masks.data_ptr(),
-                 *[weights[k].data_ptr() for k in W_NAMES],
-                 h_last.data_ptr(), mem_last.data_ptr(), *ptrs, *table,
-                 scratch.data_ptr(), t, n, H, z_tot, mem, s1, s2, s3, s4,
-                 len(h_dims), dims, THREADS, fit, stream)
+        err = launch_chains(
+            fn, xp.device,
+            [xp.data_ptr(), None if masks is None else masks.data_ptr(),
+             *[weights[k].data_ptr() for k in W_NAMES],
+             h_last.data_ptr(), mem_last.data_ptr(), *ptrs, *table,
+             scratch.data_ptr()],
+            [t, n, H, z_tot, mem, s1, s2, s3, s4, len(h_dims), dims,
+             THREADS, fit, stream])
     _fit("mfm_encode_fwd", fit, list(FWD_PASSES),
          f"cells {list(h_dims)} (largest {max(h_dims)}), mem {mem}, "
          f"s3 + s4 {s3 + s4}")
@@ -390,7 +398,7 @@ def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None):
         SPLIT_LAUNCHES += 1
     else:
         LAUNCHES += 1
-    _count_l2("mfm_encode_fwd")
+    _count_plans("mfm_encode_fwd")
     return tuple(outs)
 
 
@@ -558,9 +566,8 @@ def mfm_encode_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
 
 def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
                 z_tot, h_dims, variant="stream"):
-    """The reverse pass's kernels: (dxp, deltas (t, n, D)). Raises
-    ``ValueError`` before any launch when a chain's per-row state does not
-    fit a block."""
+    """The reverse pass's kernels: (dxp, deltas (t, n, D)). A chain on
+    ``cuda_lstm.SCRATCH`` gets its scratch from ``launch_chains``."""
     global BWD_LAUNCHES, RECOMPUTE_LAUNCHES, TWO_STEP_LAUNCHES
     t, n, H4 = xp.shape
     H = H4 // 4
@@ -569,7 +576,8 @@ def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
     fn = _build.kernel(
         "mfm_encode_bwd",
         [ctypes.c_void_p] * 4 + _TABLE + [ctypes.c_void_p] * 17
-        + [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int)]
+        + STATE_ARGTYPES + [ctypes.c_int] * 10
+        + [ctypes.POINTER(ctypes.c_int)]
         + [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 
     def empty(*shape):
@@ -588,14 +596,15 @@ def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
             "g2w2")
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(xp.data_ptr(), allh.data_ptr(), allc.data_ptr(),
-                 allmem.data_ptr(), *_res_table(res, weights),
-                 dhlast.data_ptr(), dmemlast.data_ptr(),
-                 *[weights[k].data_ptr() for k in used],
-                 dxp.data_ptr(), deltas.data_ptr(), *ptrs,
-                 t, n, H, z_tot, mem, s1, s2, s3, s4,
-                 len(h_dims), dims, BWD_VARIANTS.index(variant),
-                 BWD_THREADS, fit, stream)
+        err = launch_chains(
+            fn, xp.device,
+            [xp.data_ptr(), allh.data_ptr(), allc.data_ptr(),
+             allmem.data_ptr(), *_res_table(res, weights),
+             dhlast.data_ptr(), dmemlast.data_ptr(),
+             *[weights[k].data_ptr() for k in used],
+             dxp.data_ptr(), deltas.data_ptr(), *ptrs],
+            [t, n, H, z_tot, mem, s1, s2, s3, s4, len(h_dims), dims,
+             BWD_VARIANTS.index(variant), BWD_THREADS, fit, stream])
     _fit("mfm_encode_bwd", fit, list(BWD_PASSES),
          f"cells {list(h_dims)} (largest {max(h_dims)}), H {H}, mem {mem}, "
          f"s3 + s4 {s3 + s4}, M2 {m2}")
@@ -606,7 +615,7 @@ def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
         RECOMPUTE_LAUNCHES += 1
     else:
         TWO_STEP_LAUNCHES += 1
-    _count_l2("mfm_encode_bwd")
+    _count_plans("mfm_encode_bwd")
     return dxp, deltas
 
 

@@ -232,9 +232,14 @@ class FlatAdam:
         self.flat.sub_(u.mul_(self.lr))
 
     def flatten(self, tree):
-        """A tree shaped like ``params`` as one vector like ``flat``."""
-        return torch.cat([leaf.detach().reshape(-1) for leaf in
-                          leaves(tree)]).to(self.flat.device)
+        """A tree shaped like ``params`` as one vector like ``flat``, its
+        leaves taken by key in ``params``' order."""
+        def walk(like, t):
+            if isinstance(like, dict):
+                return [x for k, v in like.items() for x in walk(v, t[k])]
+            return [t.detach().reshape(-1)]
+
+        return torch.cat(walk(self.params, tree)).to(self.flat.device)
 
     def tree_of(self, vec):
         """A vector like ``flat`` as a nested dict shaped like ``params``,
@@ -257,6 +262,28 @@ class FlatAdam:
         return {"state": {"count": self.count.clone(), "mu": self.mu.clone(),
                           "nu": self.nu.clone()},
                 "lr": float(self.lr)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state_dict, params=None):
+        """A ``state_dict`` (e.g. restored from a checkpoint, on any
+        device) copied into this optimizer's buffers, and ``params`` (a
+        tree shaped like the parameters) into the leaves: the buffers keep
+        their addresses, which the leaves' views and a captured CUDA graph
+        hold, so nothing is rebound."""
+        st = state_dict["state"]
+        for name, buf in (("mu", self.mu), ("nu", self.nu)):
+            if tuple(st[name].shape) != tuple(buf.shape):
+                raise ValueError(f"{name} is {tuple(st[name].shape)}, this "
+                                 f"optimizer's {tuple(buf.shape)}")
+            buf.copy_(st[name])
+        self.count.copy_(torch.as_tensor(st["count"]).reshape(()))
+        self.set_lr(float(state_dict["lr"]))
+        if params is not None:
+            flat = self.flatten(params)
+            if flat.shape != self.flat.shape:
+                raise ValueError(f"the parameters hold {flat.numel()} "
+                                 f"floats, this optimizer {self.flat.numel()}")
+            self.flat.copy_(flat)
 
 
 def make_optimizer(params, lr: float) -> FlatAdam:

@@ -18,6 +18,21 @@ comes from one ``torch.Generator`` seeded from ``seed``. The test
 scores read ``y_hat`` of the serving forward (``models.predict.YHat``,
 the eval forward's label path); ``train_mfm_missing`` scores the eval
 forward's four decodes.
+
+Each trainer takes ``resume_from``, a checkpoint directory of this
+package's format with the optimizer state (``--save-ckpt``, or the
+auto-snapshot of ``cli.make_autosnapshot``): the run goes on from its
+recorded step, the lr its ``_resume_lr`` (the patience counters
+restart), the keeper's best its ``_resume_best_valid`` with the restored
+parameters; the generator is seeded anew from (seed, start epoch), as
+the JAX package folds the start epoch into its key, so a resumed run
+draws other masks than the uninterrupted one. Epochs are numbered from
+the start of the whole run (the beta-VAE's from its stage's).
+``snapshot`` is called as
+``snapshot(epoch, params, opt_state, lr, best_valid)`` at the end of
+each epoch (the host loop) or each chunk (the chunked loop, whose chunks
+end on the multiples of the snapshot's ``.every``, counted in whole-run
+epochs, so a resumed run has the uninterrupted run's boundaries).
 """
 
 from __future__ import annotations
@@ -38,7 +53,8 @@ from factorized_tpu_torch.train import (DEFAULT_EPOCH_CHUNK, ChunkedLoop,
                                         TrainProgram, make_batches,
                                         make_optimizer,
                                         shuffle_and_time_major)
-from factorized_tpu_torch.utils.checkpoint import BestKeeper, to_cpu
+from factorized_tpu_torch.utils.checkpoint import (BestKeeper,
+                                                   restore_checkpoint, to_cpu)
 from factorized_tpu_torch.utils.logging import RunLogger
 from factorized_tpu_torch.utils.metrics import (score_classification,
                                                 score_regression)
@@ -77,34 +93,46 @@ def _score(y_hat, y_test, cfg, binary_threshold, threshold_mode):
 
 def _loop(program, params, optimizer, Xb, yb, remainder, Xv, yv,
           num_epochs, scheduler, keeper, logger, generator,
-          save_always=False):
+          save_always=False, snapshot=None, first=0):
     """The trainer epoch loop: train epoch -> full-set eval -> plateau
     scheduler -> best-valid keeper, with a divergence break (a non-finite
     train or valid loss ends the run before the scheduler and the keeper
     see it). ``save_always`` keeps every healthy epoch's parameters (the
-    beta-VAE trainer's unconditional save). Chunks of epochs on the device
-    (``_loop_chunked``) unless ``FACTORIZED_TPU_HOST_LOOP=1`` picks the
-    per-epoch host loop (``_loop_host``); both give the same run
-    (``tests/test_torch_chunked_loop.py``). Returns the history."""
+    beta-VAE trainer's unconditional save); ``first`` numbers the first
+    epoch (a resumed run's start); ``snapshot`` see the module's doc.
+    Chunks of epochs on the device (``_loop_chunked``) unless
+    ``FACTORIZED_TPU_HOST_LOOP=1`` picks the per-epoch host loop
+    (``_loop_host``), as does a snapshot with no cadence (``.every``);
+    both give the same run (``tests/test_torch_chunked_loop.py``).
+    Returns the history."""
     if num_epochs <= 0:
         return []
-    loop = (_loop_host if os.environ.get("FACTORIZED_TPU_HOST_LOOP", "") == "1"
-            else _loop_chunked)
+    host = (os.environ.get("FACTORIZED_TPU_HOST_LOOP", "") == "1"
+            or (snapshot is not None and not getattr(snapshot, "every",
+                                                     None)))
+    loop = _loop_host if host else _loop_chunked
     return loop(program, params, optimizer, Xb, yb, remainder, Xv, yv,
-                num_epochs, scheduler, keeper, logger, generator, save_always)
+                num_epochs, scheduler, keeper, logger, generator, save_always,
+                snapshot, first)
 
 
 def _loop_chunked(program, params, optimizer, Xb, yb, remainder, Xv, yv,
                   num_epochs, scheduler, keeper, logger, generator,
-                  save_always=False):
+                  save_always=False, snapshot=None, first=0):
     """Chunked twin of ``_loop_host`` (the JAX package's
     ``_loop_chunked``): ``train.ChunkedLoop`` runs up to
-    ``DEFAULT_EPOCH_CHUNK`` epochs (``FACTORIZED_TPU_EPOCH_CHUNK``) with
-    the scheduler, the keeper and the divergence gate on the device, then
-    the host reads the chunk's records once, logs them and stops at the
-    first diverged epoch. The host scheduler and keeper are mirrored into
-    the device state before the first chunk and back after the last."""
-    chunk = (int(os.environ.get("FACTORIZED_TPU_EPOCH_CHUNK", 0))
+    ``DEFAULT_EPOCH_CHUNK`` epochs (``FACTORIZED_TPU_EPOCH_CHUNK``, or the
+    snapshot's ``.every``) with the scheduler, the keeper and the
+    divergence gate on the device, then the host reads the chunk's
+    records once, logs them, stops at the first diverged epoch and calls
+    the snapshot. Chunk boundaries fall on the multiples of the chunk in
+    whole-run epochs (the snapshot's ``.offset`` is where this loop
+    starts). The host scheduler and keeper are mirrored into the device
+    state before the first chunk and back after the last."""
+    every = getattr(snapshot, "every", None) if snapshot else None
+    offset = getattr(snapshot, "offset", 0) if snapshot else 0
+    chunk = (int(every) if every else
+             int(os.environ.get("FACTORIZED_TPU_EPOCH_CHUNK", 0))
              or min(num_epochs, DEFAULT_EPOCH_CHUNK))
     sched_kw = {"mode": scheduler.mode, "factor": scheduler.factor,
                 "patience": scheduler.patience,
@@ -119,9 +147,9 @@ def _loop_chunked(program, params, optimizer, Xb, yb, remainder, Xv, yv,
     diverged = False
     e = 0
     while e < num_epochs and not diverged:
-        n = min(chunk, num_epochs - e)
+        n = min(chunk - (offset + e) % chunk, num_epochs - e)
         for j, (tl, vl, lr, saved, ok) in enumerate(loop.run(n)):
-            ep = e + j
+            ep = first + e + j
             tl, vl, lr = float(tl), float(vl), float(lr)
             if not ok:
                 logger.text(ep, tl, vl, "DIVERGED - aborting run")
@@ -139,18 +167,24 @@ def _loop_chunked(program, params, optimizer, Xb, yb, remainder, Xv, yv,
             history.append({"epoch": ep, "train_loss": tl, "valid": vl,
                             "lr": lr})
         e += n
+        if not diverged and snapshot is not None:
+            snapshot(e - 1, params, optimizer.state_dict(),
+                     float(optimizer.lr),
+                     float(loop.best) if any_saved else keeper.best)
     loop.store(scheduler, keeper, any_saved)
     return history
 
 
 def _loop_host(program, params, optimizer, Xb, yb, remainder, Xv, yv,
                num_epochs, scheduler, keeper, logger, generator,
-               save_always=False):
+               save_always=False, snapshot=None, first=0):
     """The per-epoch host loop: an eager epoch, the eval, and the host
-    scheduler and keeper, the host waiting on the card every epoch."""
+    scheduler and keeper, the host waiting on the card every epoch; the
+    snapshot called after every epoch."""
     history = []
     lr = scheduler.lr
-    for epoch in range(num_epochs):
+    for e in range(num_epochs):
+        epoch = first + e
         train_loss = program.run_epoch(params, optimizer, Xb, yb, generator,
                                        lr, remainder)
         valid = float(program.evaluate(params, Xv, yv, generator))
@@ -171,7 +205,63 @@ def _loop_host(program, params, optimizer, Xb, yb, remainder, Xv, yv,
         logger.epoch(epoch, train_loss, valid, saved, lr=lr)
         history.append({"epoch": epoch, "train_loss": train_loss,
                         "valid": valid, "lr": lr})
+        if snapshot is not None:
+            snapshot(e, params, optimizer.state_dict(), lr, keeper.best)
     return history
+
+
+def _offset_snapshot(snapshot, start_epoch):
+    """The snapshot with its epochs counted from the whole run's start
+    (``start_epoch`` ahead of the loop's), its cadence (``.every``) kept
+    and the offset recorded (``.offset``), by which the chunked loop
+    aligns its chunks to whole-run epochs."""
+    if snapshot is None or not start_epoch:
+        return snapshot
+
+    def shifted(e, *a):
+        return snapshot(start_epoch + e, *a)
+
+    shifted.every = getattr(snapshot, "every", None)
+    shifted.offset = start_epoch
+    return shifted
+
+
+def _maybe_resume(resume_from, run, logger):
+    """Restore a checkpoint of this package with its optimizer state into
+    ``run``'s parameters and Adam (copied into their buffers) and seed
+    ``run``'s generator anew from (seed, start epoch): (start epoch, the
+    recorded lr, the recorded best validation loss). Epoch 0 and Nones
+    without ``resume_from``."""
+    if not resume_from:
+        return 0, None, None
+    state, meta = restore_checkpoint(resume_from)
+    if "opt_state" not in state:
+        raise ValueError(f"{resume_from} holds no optimizer state: resume "
+                         f"needs a checkpoint saved with it (--save-ckpt or "
+                         f"--ckpt-every)")
+    run.optimizer.load_state_dict(state["opt_state"], params=state["params"])
+    start_epoch = meta.get("step", 0)
+    run.reseed(start_epoch)
+    resume_lr = meta.get("config", {}).get("_resume_lr")
+    resume_best = meta.get("config", {}).get("_resume_best_valid")
+    logger.text(f"resumed from {resume_from} at epoch {start_epoch}"
+                + (f" lr={resume_lr}" if resume_lr else ""))
+    return start_epoch, resume_lr, resume_best
+
+
+def _resume_keeper(keeper, resume_best, params):
+    """The keeper of a resumed run: the recorded best, with the restored
+    parameters as its best parameters."""
+    if resume_best is not None:
+        keeper.best = resume_best
+        keeper.best_params = to_cpu(params)
+    return keeper
+
+
+def _run_seed(*tags):
+    """A generator seed derived from the run's seed and where it starts
+    (the part of the JAX package's ``fold_in``)."""
+    return int(np.random.SeedSequence(list(tags)).generate_state(1)[0])
 
 
 class _Setup:
@@ -186,8 +276,9 @@ class _Setup:
         Xtr, ytr, Xv, yv, self.Xte, yte = _prep_data(*data, seed)
         _, self.apply_fn = get_model(name)
         self.params = MFM(cfg, seed=seed, device=dev, model_type=name).tree()
+        self.seed = seed
         self.generator = torch.Generator(device=dev).manual_seed(seed)
-        lr = 1e-3 if lr is None else lr
+        self.lr = lr = 1e-3 if lr is None else lr
         self.optimizer = make_optimizer(self.params, lr)
         self.scheduler = ReduceLROnPlateau(lr)
         Xb, yb, rem = make_batches(Xtr, _labels(ytr, cfg), cfg.batchsize,
@@ -201,10 +292,40 @@ class _Setup:
     def on_device(self, a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
 
-    def loop(self, program, keeper, num_epochs, logger, save_always=False):
+    def reseed(self, *where):
+        """The generator seeded anew from (seed, *where): a resumed run's
+        start (the beta-VAE's stage and epochs done in it)."""
+        self.generator.manual_seed(_run_seed(self.seed, *where))
+
+    def resume(self, resume_from, logger):
+        """``_maybe_resume`` into this run, the scheduler then starting at
+        the recorded lr (or the given one): (start epoch, recorded
+        best)."""
+        start, resume_lr, resume_best = _maybe_resume(resume_from, self,
+                                                      logger)
+        if resume_from:
+            self.scheduler = ReduceLROnPlateau(resume_lr or self.lr)
+        return start, resume_best
+
+    def single_stage(self, program, cfg, logger, resume_from, snapshot):
+        """A one-stage trainer's run: resumed where ``resume_from`` says,
+        then the loop over the epochs left with the best-keeper: (start
+        epoch, keeper, history)."""
+        start, resume_best = self.resume(resume_from, logger)
+        keeper = _resume_keeper(BestKeeper("min"), resume_best, self.params)
+        history = self.loop(program, keeper, max(cfg.num_epochs - start, 0),
+                            logger, snapshot=snapshot, first=start)
+        return start, keeper, history
+
+    def loop(self, program, keeper, num_epochs, logger, save_always=False,
+             snapshot=None, first=0, offset=None):
+        """``_loop`` over this run, its epochs numbered from ``first`` and
+        the snapshot's from ``offset`` (``first`` unless given)."""
         return _loop(program, self.params, self.optimizer, self.Xb, self.yb,
                      self.rem, self.Xv, self.yv, num_epochs, self.scheduler,
-                     keeper, logger, self.generator, save_always)
+                     keeper, logger, self.generator, save_always,
+                     _offset_snapshot(snapshot, first if offset is None
+                                      else offset), first)
 
     def score(self, params, cfg, logger, binary_threshold, threshold_mode,
               tag="y_hat", X=None):
@@ -233,6 +354,8 @@ def train_mfm(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg, *,
               threshold_mode: str = "ge",
               include_remainder: bool = False,
               model_type: Optional[str] = None,
+              resume_from: Optional[str] = None,
+              snapshot=None,
               device=None):
     """Joint single-stage training of MFM (or any of ``STANDARD``) under
     Adam (the torch default lr 1e-3 unless ``lr``) with ReduceLROnPlateau
@@ -247,9 +370,9 @@ def train_mfm(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg, *,
     run = _Setup((X_train, y_train, X_valid, y_valid, X_test, y_test), cfg,
                  name, lr=lr, seed=seed,
                  include_remainder=include_remainder, device=device)
-    keeper = BestKeeper("min")
-    history = run.loop(TrainProgram(run.apply_fn, cfg, "joint"), keeper,
-                       cfg.num_epochs, logger)
+    start, keeper, history = run.single_stage(
+        TrainProgram(run.apply_fn, cfg, "joint"), cfg, logger, resume_from,
+        snapshot)
     best_params = (keeper.best_params if keeper.best_params is not None
                    else run.params)
     metrics = run.score(best_params, cfg, logger, binary_threshold,
@@ -257,7 +380,7 @@ def train_mfm(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg, *,
     logger.record("final", **metrics)
     return {"metrics": metrics, "params": best_params,
             "opt_state": run.optimizer.state_dict(), "history": history,
-            "best_valid": keeper.best, "step": _steps(history)}
+            "best_valid": keeper.best, "step": start + _steps(history)}
 
 
 def train_beta_vae(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg,
@@ -267,6 +390,8 @@ def train_beta_vae(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg,
                    binary_threshold: float = 0.0,
                    threshold_mode: str = "ge",
                    include_remainder: bool = False,
+                   resume_from: Optional[str] = None,
+                   snapshot=None,
                    device=None):
     """The two-stage schedule of MFM_KL_EF (``kl_ef``): stage 1 trains
     ``gen + lda_mmd * kld`` for ``num_epochs``, stage 2 ``disc + lda_mmd *
@@ -274,16 +399,27 @@ def train_beta_vae(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg,
     stages (lr decays carry from stage 1 into stage 2); each stage has its
     own best-keeper, which keeps every epoch (the reference saves
     unconditionally). The last parameters are the ones scored and
-    returned."""
+    returned. A checkpoint's step counts the epochs of both stages (stage
+    2's are [num_epochs, 2 num_epochs)), as do the snapshots; the history
+    numbers each stage's epochs from its start; a resumed run seeds its
+    generator anew at each stage from (seed, stage, epochs done in it)."""
     logger = logger or RunLogger()
     run = _Setup((X_train, y_train, X_valid, y_valid, X_test, y_test), cfg,
                  "kl_ef", lr=lr, seed=seed,
                  include_remainder=include_remainder, device=device)
+    start, _ = run.resume(resume_from, logger)
     history = []
     for stage in (1, 2):
+        done = min(max(start - (stage - 1) * cfg.num_epochs, 0),
+                   cfg.num_epochs)
+        if cfg.num_epochs - done <= 0:
+            continue
+        if start:
+            run.reseed(stage, done)
         program = TrainProgram(run.apply_fn, cfg, "beta_vae", stage=stage)
-        h = run.loop(program, BestKeeper("min"), cfg.num_epochs, logger,
-                     save_always=True)
+        h = run.loop(program, BestKeeper("min"), cfg.num_epochs - done,
+                     logger, save_always=True, snapshot=snapshot, first=done,
+                     offset=(stage - 1) * cfg.num_epochs + done)
         history.extend({**e, "stage": stage} for e in h)
         if h and h[-1].get("diverged"):
             break
@@ -292,7 +428,7 @@ def train_beta_vae(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg,
     logger.record("final", **metrics)
     return {"metrics": metrics, "params": run.params,
             "opt_state": run.optimizer.state_dict(), "history": history,
-            "step": _steps(history)}
+            "step": start + _steps(history)}
 
 
 def train_mfm_missing(X_train, y_train, X_valid, y_valid, X_test, y_test,
@@ -301,6 +437,8 @@ def train_mfm_missing(X_train, y_train, X_valid, y_valid, X_test, y_test,
                       seed: int = 123,
                       binary_threshold: float = 0.0,
                       threshold_mode: str = "ge",
+                      resume_from: Optional[str] = None,
+                      snapshot=None,
                       device=None):
     """MFM_missing (``missing``) under its composite loss, no remainder
     batch, keeping the best epoch. At test time it logs the reconstruction
@@ -311,9 +449,9 @@ def train_mfm_missing(X_train, y_train, X_valid, y_valid, X_test, y_test,
     run = _Setup((X_train, y_train, X_valid, y_valid, X_test, y_test), cfg,
                  "missing", lr=lr, seed=seed, include_remainder=False,
                  device=device)
-    keeper = BestKeeper("min")
-    history = run.loop(TrainProgram(run.apply_fn, cfg, "missing"), keeper,
-                       cfg.num_epochs, logger)
+    start, keeper, history = run.single_stage(
+        TrainProgram(run.apply_fn, cfg, "missing"), cfg, logger, resume_from,
+        snapshot)
     best_params = (keeper.best_params if keeper.best_params is not None
                    else run.params)
 
@@ -339,7 +477,7 @@ def train_mfm_missing(X_train, y_train, X_valid, y_valid, X_test, y_test,
     logger.record("final", **results)
     return {"metrics": results, "params": best_params, "history": history,
             "opt_state": run.optimizer.state_dict(),
-            "best_valid": keeper.best, "step": _steps(history)}
+            "best_valid": keeper.best, "step": start + _steps(history)}
 
 
 def train_mfm_test_zeros(X_train, y_train, X_valid, y_valid, X_test,
@@ -348,6 +486,8 @@ def train_mfm_test_zeros(X_train, y_train, X_valid, y_valid, X_test,
                          seed: int = 123,
                          binary_threshold: float = 0.0,
                          threshold_mode: str = "ge",
+                         resume_from: Optional[str] = None,
+                         snapshot=None,
                          device=None):
     """Plain MFM trained as ``train_mfm`` does, without the remainder
     batch; at test time each modality's input slice is zeroed in turn and
@@ -357,9 +497,9 @@ def train_mfm_test_zeros(X_train, y_train, X_valid, y_valid, X_test,
     run = _Setup((X_train, y_train, X_valid, y_valid, X_test, y_test), cfg,
                  "mfm", lr=lr, seed=seed, include_remainder=False,
                  device=device)
-    keeper = BestKeeper("min")
-    history = run.loop(TrainProgram(run.apply_fn, cfg, "joint"), keeper,
-                       cfg.num_epochs, logger)
+    start, keeper, history = run.single_stage(
+        TrainProgram(run.apply_fn, cfg, "joint"), cfg, logger, resume_from,
+        snapshot)
     best_params = (keeper.best_params if keeper.best_params is not None
                    else run.params)
     d_l, d_a, _ = cfg.input_dims
@@ -374,7 +514,7 @@ def train_mfm_test_zeros(X_train, y_train, X_valid, y_valid, X_test,
     logger.record("final", **results)
     return {"metrics": results, "params": best_params, "history": history,
             "opt_state": run.optimizer.state_dict(),
-            "best_valid": keeper.best, "step": _steps(history)}
+            "best_valid": keeper.best, "step": start + _steps(history)}
 
 
 def train_mfm_ablation(X_train, y_train, X_valid, y_valid, X_test, y_test,

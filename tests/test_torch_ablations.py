@@ -394,7 +394,7 @@ def _mosi_data(monkeypatch):
                 rng.normal(size=(n,)).astype(np.float32))
 
     monkeypatch.setattr(cli, "load_mosi",
-                        lambda t: (*data(24), *data(8), *data(8)))
+                        lambda t, **kw: (*data(24), *data(8), *data(8)))
 
 
 @pytest.mark.parametrize("model_type", TYPES)

@@ -49,7 +49,7 @@ def test_mosi_run_logs_the_legacy_config_and_saves_the_resume_fields(
                 rng.normal(size=(n,)).astype(np.float32))
 
     monkeypatch.setattr(cli, "load_mosi",
-                        lambda t: (*data(24), *data(8), *data(8)))
+                        lambda t, **kw: (*data(24), *data(8), *data(8)))
     out = tmp_path / "runs"
     argv = ["mosi", "--mode", "best", "--epochs", "2", "--batchsize", "8",
             "--device", "cpu", "--out", str(out), "--save-ckpt"]

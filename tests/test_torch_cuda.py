@@ -653,6 +653,92 @@ def test_a_cell_past_a_cluster_of_8_reads_its_weights_from_l2(cuda):
     assert all(cuda_lstm.CLUSTERS[k] == 0 for k in cuda_lstm.L2_LAUNCHES)
 
 
+# each chain just past the width at which a block's per-row state alone
+# passed its shared memory (chip_smoke.py step 16): (kernel, cells, mem)
+PAST_STATE = {
+    "encode_eval": ("mfm_encode_fwd", [600, 5, 4], 6),
+    "multi_eval": ("multi_lstm_fwd", [600, 24], None),
+    "encode_bwd": ("mfm_encode_bwd", [1400, 5, 4], 6),
+    "multi_bwd": ("multi_lstm_bwd", [1700, 24], None),
+    "decoder_fwd": ("decoder_lstm_fwd", [2200, 24], None),
+    "multi_train": ("multi_lstm_fwd", [2200, 24], None),
+    "decoder_bwd": ("decoder_lstm_bwd", [3000], None),
+    "memory_eval": ("mfm_encode_fwd", [6, 5, 4], 7400),
+    "memory_bwd": ("mfm_encode_bwd", [6, 5, 4], 7400),
+}
+
+
+@pytest.mark.parametrize("case", list(PAST_STATE))
+def test_a_chain_past_a_blocks_state_keeps_it_in_device_memory(cuda, case):
+    """Where even a chain's per-row state passes a block's shared memory
+    (a launch the kernels refused before), the chain reads its weights
+    from L2 and keeps that state in device memory (plan
+    ``cuda_lstm.SCRATCH``, counted in ``SCRATCH_LAUNCHES``), and equals
+    its plain version (t = 4, n = 8)."""
+    name, cells, mem = PAST_STATE[case]
+    t, n = 4, 8
+    with torch.inference_mode():
+        if name.startswith("mfm"):
+            cfg = SMALL.replace(h_dims=cells, memsize=mem, seqlength=t)
+            (xp, masks, weights, z_tot, h_dims, dh, dmem), _ = \
+                _train_operands(cfg, n, cuda)
+            # building the operands ran the eval encode: count from here
+            cuda_mfn.SCRATCH_LAUNCHES.clear()
+            if name == "mfm_encode_fwd":
+                pairs = zip(cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims),
+                            cuda_mfn.mfm_encode_plain(xp, weights, z_tot))
+                tol = TOL
+            else:
+                res = cuda_mfn.mfm_encode_res_plain(xp, masks, weights,
+                                                    z_tot)
+                pairs = zip(cuda_mfn._launch_bwd(xp, weights, *res[2:], dh,
+                                                 dmem, z_tot, h_dims),
+                            cuda_mfn.mfm_encode_bwd_steps_plain(
+                                xp, weights, *res[2:], dh, dmem, z_tot))
+                tol = GRAD
+            plan = cuda_mfn.CLUSTERS[name]
+            counted = cuda_mfn.SCRATCH_LAUNCHES
+        else:
+            w, gates, allc, dallh, dhlast = _chain_operands(cells, t, n,
+                                                            cuda, 11)
+            w = w * (2.0 / max(cells) ** 0.5)
+            H = sum(cells)
+            cuda_lstm.SCRATCH_LAUNCHES.clear()
+            if name == "decoder_lstm_fwd":
+                g = torch.Generator(device=cuda).manual_seed(12)
+                h0, c0 = (torch.randn(n, H, generator=g, device=cuda)
+                          for _ in "hc")
+                b = torch.randn(1, 4 * H, generator=g, device=cuda)
+                pairs = zip(cuda_lstm.decoder_lstm_fwd(h0, c0, w, b, t, cells),
+                            cuda_lstm.decoder_lstm_plain(h0, c0, w, b, t))
+                tol = TOL
+            elif name == "decoder_lstm_bwd":
+                pairs = zip(cuda_lstm.decoder_lstm_bwd(w, gates, allc, dallh,
+                                                       cells),
+                            cuda_lstm.decoder_lstm_bwd_plain(w, gates, allc,
+                                                             dallh))
+                tol = GRAD
+            elif name == "multi_lstm_fwd":
+                train = case == "multi_train"
+                got = cuda_lstm.multi_lstm_fwd(gates, w, cells, train)
+                want = cuda_lstm.multi_lstm_plain(gates, w, train)
+                pairs = zip(got, want) if train else [(got, want)]
+                tol = TOL
+            else:
+                pairs = [(cuda_lstm.multi_lstm_bwd(gates, w, allc, dhlast,
+                                                   cells),
+                          cuda_lstm.multi_lstm_bwd_plain(gates, w, allc,
+                                                         dhlast))]
+                tol = GRAD
+            plan = cuda_lstm.CLUSTERS[name]
+            counted = cuda_lstm.SCRATCH_LAUNCHES
+        for got, want in pairs:
+            torch.testing.assert_close(got, want, **tol)
+        torch.cuda.synchronize()
+    assert cuda_lstm.SCRATCH in (plan if isinstance(plan, tuple) else (plan,))
+    assert counted == {name: 1}
+
+
 @pytest.mark.parametrize("cfg,n_eval,n_train",
                          [(SMALL, 5, 3), (best_acc_mosi_config(), 256, 32)],
                          ids=["small", "full"])

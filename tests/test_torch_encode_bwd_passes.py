@@ -254,8 +254,9 @@ def test_gate_split_partials_add_to_the_whole(h, cluster):
 # ------------------------------------------- launchers, the call faked
 
 def _prototype(name):
-    """The C parameter kinds of ``name``: 'int', 'int*', 'ptr*' (an
-    array of pointers) or 'ptr', from its extern "C" definition."""
+    """The C parameter kinds of ``name``: 'int', 'int*', 'i64', 'i64*',
+    'ptr*' (an array of pointers) or 'ptr', from its extern "C"
+    definition."""
     for src in _build.sources():
         m = re.search(r'extern "C" int ' + name + r"\((.*?)\)\s*\{",
                       src.read_text(), re.S)
@@ -264,7 +265,9 @@ def _prototype(name):
     kinds = []
     for param in m.group(1).split(","):
         param = " ".join(param.split())
-        if "*" not in param:
+        if param.startswith("long long"):
+            kinds.append("i64*" if "*" in param else "i64")
+        elif "*" not in param:
             kinds.append("int")
         elif param.startswith(("const int*", "int*")):
             kinds.append("int*")
@@ -278,6 +281,10 @@ def _prototype(name):
 def _kind(argtype):
     if argtype is ctypes.c_int:
         return "int"
+    if argtype is ctypes.c_longlong:
+        return "i64"
+    if argtype is ctypes.POINTER(ctypes.c_longlong):
+        return "i64*"
     if argtype is ctypes.c_void_p:
         return "ptr"
     if argtype is ctypes.POINTER(ctypes.c_int):
@@ -321,6 +328,7 @@ def fake_card(monkeypatch):
     for module in (cuda_mfn, cuda_lstm):
         monkeypatch.setattr(module, "CLUSTERS", {})
         monkeypatch.setattr(module, "L2_LAUNCHES", {})
+        monkeypatch.setattr(module, "SCRATCH_LAUNCHES", {})
     return calls, state
 
 
@@ -493,6 +501,51 @@ def test_a_chain_past_a_cluster_of_8_reads_from_l2_and_is_counted(
     assert module.L2_LAUNCHES == ({name: 1} if l2 else {})
 
 
+@pytest.mark.parametrize("name,launch,module,counter", LAUNCHERS,
+                         ids=LAUNCHER_IDS)
+def test_a_chain_past_a_blocks_state_gets_its_scratch_and_is_counted(
+        monkeypatch, fake_card, name, launch, module, counter):
+    """Where a chain's plan keeps its per-row state in device memory, the
+    launcher asks for that scratch (``NEED_SCRATCH``, its floats in the
+    need argument) and launches nothing; the wrapper calls it once more
+    with a scratch of that size, records the plan and counts the launch
+    once, in its counter and in ``SCRATCH_LAUNCHES``."""
+    calls = []
+
+    def kernel(kname, argtypes, restype=ctypes.c_int):
+        at = argtypes.index(ctypes.POINTER(ctypes.c_longlong))
+
+        def fn(*args):
+            calls.append((args[at - 2], args[at - 1]))
+            args[at]._obj.value = 1000
+            if args[at - 1] < 1000:
+                return cuda_lstm.NEED_SCRATCH
+            args[-2][4], args[-2][5] = cuda_lstm.SCRATCH, 1
+            return 0
+        return fn
+
+    monkeypatch.setattr(_build, "kernel", kernel)
+    empty = torch.empty
+    sizes = []
+
+    def recording_empty(*shape, **kw):
+        out = empty(*shape, **kw)
+        sizes.append(out.numel())
+        return out
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    before = getattr(module, counter)
+    launch()
+    assert [c[1] for c in calls] == [0, 1000]
+    assert calls[0][0] is None and calls[1][0] is not None
+    assert 1000 in sizes
+    assert getattr(module, counter) == before + 1
+    plan = module.CLUSTERS[name]
+    assert plan in ((cuda_lstm.SCRATCH, 1), cuda_lstm.SCRATCH)
+    assert module.SCRATCH_LAUNCHES == {name: 1}
+    assert module.L2_LAUNCHES == {}
+
+
 @pytest.mark.parametrize("name,launch,module,counter,need", [
     ("mfm_encode_bwd", _launch_encode, cuda_mfn, "BWD_LAUNCHES",
      (4, 240960, 232448, 0)),
@@ -509,9 +562,10 @@ def test_a_chain_past_a_cluster_of_8_reads_from_l2_and_is_counted(
     ids=LAUNCHER_IDS[:5] + ["multi_lstm_fwd"])
 def test_a_refused_fit_raises_and_counts_nothing(fake_card, name, launch,
                                                  module, counter, need):
-    """The error names what the kernel reported: the bytes a block's
-    per-row state alone needs with the weights read from L2, the card's
-    limit, and the widths."""
+    """A refusal the launcher reports (no width reaches one since the
+    chains' scratch plan; the launchers keep the gate) raises, naming what
+    it reported: the bytes a block needs, the card's limit, and the
+    widths."""
     _, state = fake_card
     state["refuse"] = need
     before = getattr(module, counter)

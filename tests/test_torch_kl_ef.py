@@ -313,7 +313,7 @@ def test_mosi_cli_trains_kl_ef_and_saves(tmp_path, monkeypatch, capsys):
                 rng.normal(size=(n,)).astype(np.float32))
 
     monkeypatch.setattr(cli, "load_mosi",
-                        lambda t: (*data(40), *data(10), *data(12)))
+                        lambda t, **kw: (*data(40), *data(10), *data(12)))
     out = tmp_path / "runs"
     assert cli.main(["mosi", "--mode", "best", "--type", "kl_ef",
                      "--epochs", "1", "--batchsize", "16", "--device", "cpu",
