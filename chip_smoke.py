@@ -133,14 +133,29 @@ Run from the repository root: ``python3 chip_smoke.py``. It
     ``--resume`` (the restored state bit for bit, the epochs and lr
     going on) with ``--ckpt-every 1``, and ``--data-root`` on a
     fabricated MOSI root with ``--feature-selection`` 1 and 0 (``cli``);
-18. prints one JSON line on the ten kernels, the ``nvidia-smi`` line,
+18. the missing-modality baselines and the other datasets: ``s2s`` and
+    ``bm`` (``--missing 1``) at full width, one train step's gradients on
+    the card against the CPU's with the same injected draws, 2 epochs
+    through ``trainers.train_seq2seq`` and ``train_basic_missing`` (the
+    second a graph replay), finite falling losses, ``multi_lstm_fwd`` and
+    ``multi_lstm_bwd`` launched (their three encoders, inputs of 305, 320
+    and 25 floats) and for ``s2s`` the decoder kernels (cells [88, 8,
+    8]); then ``moud``, ``you``, ``mmmo`` and ``mosi_acc --mode best
+    --epochs 2`` through the command on their synthetic sets (``you``
+    with a remainder batch of 20 rows in its epoch graph), finite falling
+    losses, MFM's encode and decoder kernels launched, a score block
+    printed; each path's device ms and launches a step and replayed
+    epoch s (``baseline`` and ``dataset_command`` lines);
+19. prints one JSON line on the ten kernels, the ``nvidia-smi`` line,
     and last ``{"ok": true, "device": {...}}``; a ``seconds`` line after
-    each of steps 4, 6, 8, 10, 11, 12, 13, 14, 15, 16 and 17.
+    each of steps 4, 6, 8, 10, 11, 12, 13, 14, 15, 16, 17 and 18.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1.
 """
 
+import contextlib
 import functools
+import io
 import json
 import re
 import subprocess
@@ -899,7 +914,8 @@ def main():
               15: lambda: released_phase(smi),
               16: lambda: (c1_phase(cfg, dev, smi),
                            c1_train_phase(cfg, smi, tmp)),
-              17: lambda: cli_phase(smi, tmp)}
+              17: lambda: cli_phase(smi, tmp),
+              18: lambda: baseline_phase(cfg, dev, smi, data, tmp)}
     results = {}
     with tempfile.TemporaryDirectory() as tmp:
         for step, run in phases.items():
@@ -2556,6 +2572,27 @@ def ablation_draws(cfg, model_type, n, generator):
     }[model_type]
 
 
+@contextlib.contextmanager
+def chunked_loops():
+    """Yields a list that gathers each ``train.ChunkedLoop`` the trainers
+    build while the block runs."""
+    from factorized_tpu_torch import trainers
+
+    loops = []
+    real = trainers.ChunkedLoop
+
+    class Loop(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            loops.append(self)
+
+    trainers.ChunkedLoop = Loop
+    try:
+        yield loops
+    finally:
+        trainers.ChunkedLoop = real
+
+
 def ablation_phase(cfg, dev, smi, data):
     """Step 13: each ablation at full width. Its kernels at its shapes
     against their plain versions (``ablation_kernels``); one train step's
@@ -2598,23 +2635,12 @@ def ablation_phase(cfg, dev, smi, data):
                              dev)
         seconds["grads_vs_cpu"] = time.perf_counter() - t0
         # the training path through the trainer
-        loops = []
-        real = trainers.ChunkedLoop
-
-        class Loop(real):
-            def __init__(self, *a, **kw):
-                super().__init__(*a, **kw)
-                loops.append(self)
-
-        trainers.ChunkedLoop = Loop
-        try:
+        with chunked_loops() as loops:
             run, seconds["train"], launches = counted(
                 f"train {model_type}", ABLATION_TRAIN[model_type],
                 lambda: trainers.train_mfm_ablation(
                     *data, mcfg.replace(num_epochs=TRAIN_EPOCHS), seed=SEED,
                     logger=RunLogger(echo=False), device=dev))
-        finally:
-            trainers.ChunkedLoop = real
         losses = [e["train_loss"] for e in run["history"]]
         if len(losses) != TRAIN_EPOCHS or not np.all(np.isfinite(losses)):
             raise AssertionError(f"{model_type} did not train clean: "
@@ -3062,17 +3088,17 @@ def epoch_records(path):
         return [r for r in map(json.loads, f) if r["kind"] == "epoch"]
 
 
-def mosi_cli(argv, path, kernels):
-    """``python -m factorized_tpu_torch mosi`` in this process (the card,
-    the build and the kernels' counters shared), counted; fails unless
-    it exits 0 and launches each of ``kernels``. Returns (seconds,
-    launches, scratch launches by kernel)."""
+def mosi_cli(argv, path, kernels, command="mosi"):
+    """``python -m factorized_tpu_torch mosi`` (or ``command``) in this
+    process (the card, the build and the kernels' counters shared),
+    counted; fails unless it exits 0 and launches each of ``kernels``.
+    Returns (seconds, launches, scratch launches by kernel)."""
     from factorized_tpu_torch import cli
 
     rc, seconds, launches = counted(path, kernels,
-                                    lambda: cli.main(["mosi", *argv]))
+                                    lambda: cli.main([command, *argv]))
     if rc != 0:
-        raise AssertionError(f"mosi {argv} exited {rc}")
+        raise AssertionError(f"{command} {argv} exited {rc}")
     from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
 
     return seconds, {k: launches[k] for k in kernels}, {
@@ -3262,6 +3288,254 @@ def cli_phase(smi, tmp):
                                     "train_loss": [r["train_loss"]
                                                    for r in records]}
     log({"phase": "cli", "nvidia_smi": smi, **out})
+
+
+# Step 18: the missing-modality baselines' trainers and the kernels their
+# training path launches; the other datasets' commands and MOSI's
+# accuracy variant, all through MFM's encode path
+BASELINE_TRAIN = {"s2s": ABLATION_TRAIN["m_b"], "bm": ABLATION_TRAIN["m_d"]}
+COMMANDS = ("moud", "you", "mmmo", "mosi_acc")
+
+
+@contextlib.contextmanager
+def draws_from(stand_in, source):
+    """``torch.rand`` and ``torch.randn`` asked to draw from the generator
+    ``stand_in`` draw from ``source`` instead (on its device) and bring
+    the draw where it was asked for: a run on the CPU makes the card's
+    draws."""
+    real = torch.rand, torch.randn
+
+    def routed(fn):
+        def draw(*args, generator=None, device=None, **kw):
+            if generator is not stand_in:
+                return fn(*args, generator=generator, device=device, **kw)
+            return fn(*args, generator=source, device=source.device,
+                      **kw).to(device or "cpu")
+        return draw
+
+    torch.rand, torch.randn = routed(real[0]), routed(real[1])
+    try:
+        yield
+    finally:
+        torch.rand, torch.randn = real
+
+
+def replay_vs_cpu(loop, label):
+    """One more epoch of a trainer's chunked loop, its epoch graph
+    captured (the remainder step inside it), replayed on the card against
+    the same epoch run eagerly on the CPU's plain path from the same
+    parameters, Adam state, lr and draws (``draws_from`` a copy of the
+    card's generator): the epoch's tracked loss, then the parameters and
+    Adam's first moment after it, within the gradients' tolerances.
+    Returns the max abs errors."""
+    from factorized_tpu_torch.train import make_optimizer
+
+    opt, (Xb, yb, rem), gen = loop.opt, loop.batches, loop.generator
+    params = opt.tree_of(opt.flat.detach().cpu())
+    cpu_opt = make_optimizer(params, float(opt.lr))
+    cpu_opt.load_state_dict(opt.state_dict())
+    source = torch.Generator(device=gen.device)
+    source.set_state(gen.get_state())
+    stand_in = torch.Generator()
+    with draws_from(stand_in, source):
+        tracked = loop.program.train_epoch(
+            params, cpu_opt, Xb.cpu(), yb.cpu(), stand_in,
+            remainder=None if rem is None else (rem[0].cpu(), rem[1].cpu()))
+    rows = loop.run(1)
+    loss = compare(f"{label}.replayed_epoch_vs_cpu.tracked_loss",
+                   torch.tensor(rows[0, 0], dtype=torch.float32),
+                   tracked.detach().float(), GRAD_RTOL, GRAD_ATOL)
+    state = compare_all(f"{label}.replayed_epoch_vs_cpu", (
+        ("params", opt.flat.cpu(), cpu_opt.flat),
+        ("adam_mu", opt.mu.cpu(), cpu_opt.mu)), GRAD_RTOL, GRAD_ATOL)
+    return {"tracked_loss_abs_err": loss["max_abs_err"],
+            "state_max_abs_err": state["max_abs_err"],
+            "steps": int(Xb.shape[0]) + (rem is not None)}
+
+
+def path_times(loop, steps=5, replays=3):
+    """A training path's times from the chunked loop its trainer ran (its
+    epoch graph captured): device ms and kernel launches a step and the
+    device's idle share (torch.profiler over ``steps`` eager steps on the
+    loop's first batch), replayed epoch s (host clock, median of
+    ``replays`` ``run(1)``s, its host read included) and device ms of a
+    replayed epoch (torch.profiler over one), with the idle share against
+    the unprofiled epoch's wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    Xb, yb, rem = loop.batches
+    prof = profile_steps(loop.program, loop.params, loop.opt, Xb[0], yb[0],
+                         loop.generator, steps)
+    replay_s = []
+    for _ in range(replays):
+        t0 = time.perf_counter()
+        loop.run(1)
+        replay_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        loop.run(1)
+    kernels = [e for e in p.key_averages() if on_device(e)]
+    if not kernels:
+        raise AssertionError("torch.profiler saw no kernel of a replay")
+    device_ms = sum(e.device_time_total for e in kernels) / 1e3
+    epoch_s = float(np.median(replay_s))
+    return {"batches": int(Xb.shape[0]), "batch": int(Xb.shape[2]),
+            "remainder_rows": 0 if rem is None else int(rem[0].shape[1]),
+            "device_ms_per_step": prof["device_ms_per_step"],
+            "launches_per_step": prof["kernel_launches_per_step"],
+            "eager_step_device_idle_share": prof["device_idle_share"],
+            "replayed_epoch_s": epoch_s, "replayed_epoch_s_all": replay_s,
+            "device_ms_per_replayed_epoch": device_ms,
+            "replayed_device_idle_share": 1.0 - device_ms / (epoch_s * 1e3),
+            "kernels_seen_per_replayed_epoch": sum(e.count for e in kernels),
+            "capture_ms": loop.epoch.capture_ms,
+            "graph_pool_bytes": loop.epoch.pool_bytes}
+
+
+def graph_replayed(loops, label):
+    """The one chunked loop of a 2-epoch run, its second epoch a replay."""
+    if not (len(loops) == 1 and loops[0].epoch.graph is not None):
+        raise AssertionError(f"{label}: the second epoch was not a graph "
+                             f"replay")
+    return loops[0]
+
+
+def baseline_phase(cfg, dev, smi, data, tmp):
+    """Step 18. ``s2s`` and ``bm`` (``--missing 1``) at
+    ``best_acc_mosi_config``: one train step's gradients on the card
+    against the CPU's with the same injected draws, then 2 epochs of
+    synthetic MOSI through ``trainers.train_seq2seq`` and
+    ``train_basic_missing`` (the second a graph replay): finite, falling
+    losses and ``multi_lstm_fwd``/``_bwd`` launched, for ``s2s`` the
+    decoder kernels too. Then ``moud``, ``you``, ``mmmo`` and ``mosi_acc
+    --mode best --epochs 2`` through the command on their synthetic sets:
+    finite, falling losses, MFM's encode and decoder kernels launched, a
+    score block printed. The remainder batch of ``you`` (its ragged last
+    batch, a step of its own inside the epoch graph): one train step's
+    gradients at its rows on the card against the CPU's, and a third
+    epoch replayed against the same epoch on the CPU (``replay_vs_cpu``).
+    For each path its device ms and launches a step and its replayed
+    epoch s (``path_times``)."""
+    import os
+
+    from factorized_tpu_torch import trainers
+    from factorized_tpu_torch.cli import DATASETS
+    from factorized_tpu_torch.data import youtube
+    from factorized_tpu_torch.models import baselines, get_model, mfm
+    from factorized_tpu_torch.models.common import mfn_drops
+    from factorized_tpu_torch.ops import cuda_mfn
+    from factorized_tpu_torch.train import make_loss_fn
+    from factorized_tpu_torch.utils.logging import RunLogger
+
+    t, d = cfg.seqlength, cfg.d_total
+    out = {}
+    for k, (model_type, kernels) in enumerate(BASELINE_TRAIN.items()):
+        mcfg = cfg.replace(model_type=model_type, missing=1)
+        seconds = {}
+        params = mfm.MFM(mcfg, seed=SEED + 130 + k, device=dev).tree()
+        cpu = torch.Generator().manual_seed(SEED + 140 + k)
+        x = torch.randn((t, N_TRAIN, d), generator=cpu)
+        y = torch.randn((N_TRAIN,), generator=cpu)
+        t0 = time.perf_counter()
+        grads = grads_vs_cpu(
+            f"{model_type}.train_step_grads_vs_cpu",
+            make_loss_fn(get_model(model_type)[1], mcfg, model_type),
+            params, x, y, baselines.train_draws(mcfg, N_TRAIN, cpu),
+            dev)
+        seconds["grads_vs_cpu"] = time.perf_counter() - t0
+        trainer = {"s2s": trainers.train_seq2seq,
+                   "bm": trainers.train_basic_missing}[model_type]
+        with chunked_loops() as loops:
+            run, seconds["train"], launches = counted(
+                f"train {model_type}", kernels,
+                lambda: trainer(*data, mcfg.replace(num_epochs=TRAIN_EPOCHS),
+                                seed=SEED, logger=RunLogger(echo=False),
+                                device=dev))
+        falling_finite([{"train_loss": e["train_loss"],
+                         "valid_loss": e["valid"]} for e in run["history"]],
+                       model_type)
+        loop = graph_replayed(loops, model_type)
+        epoch_launches = [per_kernel(e) for e in loop.epoch_launches]
+        t0 = time.perf_counter()
+        times = path_times(loop)
+        seconds["times"] = time.perf_counter() - t0
+        out[model_type] = {k: launches[k] for k in kernels}
+        log({"phase": "baseline", "model_type": model_type,
+             "nvidia_smi": smi, "history": run["history"],
+             "metrics": run["metrics"], "train_launches": out[model_type],
+             "epoch_launches": epoch_launches,
+             "grads_max_abs_err": grads["max_abs_err"], **times,
+             "seconds": seconds})
+
+    # the kernels of MFM's training path at the rows of the remainder
+    # batch of `you` (three classes)
+    info = DATASETS["you"]
+    rcfg = cfg.replace(input_dims=info["input_dims"],
+                       output_dim=info["output_dim"], task=info["task"])
+    n_rem = youtube.get_data(t)[0].shape[0] % rcfg.batchsize
+    cpu = torch.Generator().manual_seed(SEED + 150)
+    x = torch.randn((t, n_rem, rcfg.d_total), generator=cpu)
+    y = torch.randint(0, rcfg.output_dim, (n_rem,), generator=cpu,
+                      dtype=torch.int32)
+    t0 = time.perf_counter()
+    remainder_grads = grads_vs_cpu(
+        "you.remainder_rows.train_step_grads_vs_cpu",
+        make_loss_fn(mfm.mfm_apply, rcfg),
+        mfm.MFM(rcfg, seed=SEED + 151, device=dev).tree(), x, y, {
+            "encode_masks": cuda_mfn.make_dropout_masks(
+                cpu, t, n_rem, (rcfg.att1_shape, rcfg.att2_shape,
+                                rcfg.gamma1_shape, rcfg.gamma2_shape),
+                mfn_drops(rcfg)),
+            "mmd_noise": torch.randn(mfm.mmd_noise_shape(rcfg, n_rem),
+                                     generator=cpu),
+            "zf_masks": zf_masks(rcfg, n_rem, cpu)}, dev)
+    remainder_s = time.perf_counter() - t0
+    replayed = {}
+    for name in COMMANDS:
+        runs = os.path.join(tmp, f"command_{name}")
+        kernels = ABLATION_TRAIN["m_a"]
+        argv = ["--mode", "best", "--epochs", str(TRAIN_EPOCHS)]
+        printed = io.StringIO()
+        with chunked_loops() as loops, contextlib.redirect_stdout(printed):
+            seconds, launches, _ = mosi_cli(
+                [*argv, "--seed", str(SEED), "--out", runs],
+                f"{name} {' '.join(argv)}", kernels, command=name)
+        records = epoch_records(os.path.join(runs, f"{name}_0.jsonl"))
+        losses = falling_finite(records, name)
+        if "Accuracy " not in printed.getvalue():
+            raise AssertionError(f"{name}: no score block printed: "
+                                 f"{printed.getvalue()[-2000:]}")
+        loop = graph_replayed(loops, name)
+        t0 = time.perf_counter()
+        checks = {}
+        if loop.batches[2] is not None:
+            replayed[name] = checks["replay_vs_cpu"] = replay_vs_cpu(loop,
+                                                                     name)
+        if name == "you":
+            checks["remainder_grads_max_abs_err"] = \
+                remainder_grads["max_abs_err"]
+            checks["remainder_grads_s"] = remainder_s
+        checks["checks_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        times = path_times(loop)
+        out[name] = launches
+        log({"phase": "dataset_command", "command": [name, *argv],
+             "nvidia_smi": smi,
+             "train_loss": losses,
+             "valid": [r["valid_loss"] for r in records],
+             "lr": [r["lr"] for r in records],
+             "score_lines": [line for line in
+                             printed.getvalue().splitlines()
+                             if line.startswith(("Accuracy", "mae"))],
+             "launches": launches, "epoch_launches": [
+                 per_kernel(e) for e in loop.epoch_launches],
+             **checks, **times,
+             "seconds": {"run": seconds, "times": time.perf_counter() - t0}})
+    if "you" not in replayed:
+        raise AssertionError(f"no replayed epoch with a remainder step was "
+                             f"held against the CPU: {sorted(replayed)}")
+    return out
 
 
 def profile_steps(program, tree, opt, x, y, gen, steps=10):

@@ -35,8 +35,11 @@ from __future__ import annotations
 
 import torch
 
-from factorized_tpu_torch.models.common import (mfn_drops, mfn_encoder_init,
-                                                run_mfn, split_modalities,
+from factorized_tpu_torch.models.common import (encoder_latents, injected,
+                                                mfn_drops, mfn_encoder_init,
+                                                mmd_sum, run_mfn,
+                                                split_modalities,
+                                                trio_decoders,
                                                 trio_encoder_init, yhead_apply,
                                                 yhead_init, zf_apply,
                                                 zf_init)
@@ -44,41 +47,17 @@ from factorized_tpu_torch.ops.core import (linear_apply, linear_init,
                                            mlp2_init)
 from factorized_tpu_torch.ops.fused import (decoder_operands,
                                             encode_operands,
-                                            fused_decoder_scan,
-                                            fused_lstm_scan,
                                             fused_mfm_encode, lstm_operands)
-from factorized_tpu_torch.ops.losses import loss_mmd
 from factorized_tpu_torch.ops.lstm import decoder_init, encoder_init
 
 _ENCODERS = ("encoder_l", "encoder_a", "encoder_v")
 _DECODERS = ("decoder_l", "decoder_a", "decoder_v")
 
 
-def _draws(given, k):
-    """k injected draws, or k Nones to draw each from the generator."""
-    return list(given) if given is not None else [None] * k
-
-
-def _mmd(zs, noises, generator):
-    """The MMD terms of the latents ``zs`` summed, each against its
-    Gaussian sample: the injected one, else drawn."""
-    if generator is None and any(noise is None for noise in noises):
-        raise ValueError("the MMD term needs a torch.Generator or mmd_noise")
-    return sum(loss_mmd(z, generator, noise) for z, noise in zip(zs, noises))
-
-
-def _decoders(params, drives, t):
-    """The three modality decoders as one fused recurrence, each driven by
-    its latent of ``drives``."""
-    return fused_decoder_scan([params[k] for k in _DECODERS], drives, t)
-
-
 def _trio_latents(params, x, cfg):
     """zl, za, zv of the three unimodal encoders, one fused recurrence."""
-    enc = params["enc"]
-    hs = fused_lstm_scan([enc[k]["lstm"] for k in _ENCODERS],
-                         split_modalities(x, cfg.input_dims))
-    return [linear_apply(enc[k]["fc1"], h) for k, h in zip(_ENCODERS, hs)]
+    return encoder_latents(params["enc"], _ENCODERS,
+                           split_modalities(x, cfg.input_dims))
 
 
 def _trio_fs(params, zs, cfg, train, generator, masks):
@@ -122,14 +101,14 @@ def m_a_apply(params, x, cfg, *, generator=None, train=False,
         generator=generator, masks=encode_masks, enc_xs=(x,))
     zl = linear_apply(params["encoder_l"]["fc1"], h_l)
     zy = linear_apply(params["mfn_enc"]["last_to_zy"], mfn_last)
-    mmd = _mmd((zl, zy), _draws(mmd_noise, 2), generator)
-    m_fy, m_fl = _draws(zf_masks, 2)
+    mmd = mmd_sum((zl, zy), injected(mmd_noise, 2), generator)
+    m_fy, m_fl = injected(zf_masks, 2)
     fy = zf_apply(params["zy_to_fy"], zy, cfg.zy_to_fy_dropout, train,
                   generator, m_fy)
     fl = zf_apply(params["zl_to_fl"], zl, cfg.zl_to_fl_dropout, train,
                   generator, m_fl)
     fyfl = torch.cat([fy, fl], dim=1)
-    x_hats = _decoders(params, [fyfl] * 3, t)
+    x_hats = trio_decoders(params, [fyfl] * 3, t)
     y_hat = yhead_apply(params["fy_to_y"], fy, cfg.fy_to_y_dropout, train,
                         generator, y_mask)
     return [*x_hats, y_hat], mmd, 0.0
@@ -162,9 +141,9 @@ def m_b_apply(params, x, cfg, *, generator=None, train=False,
     fv's) and ``y_mask``."""
     t = x.shape[0]
     zs = _trio_latents(params, x, cfg)
-    mmd = _mmd(zs, _draws(mmd_noise, 3), generator)
-    fs = _trio_fs(params, zs, cfg, train, generator, _draws(zf_masks, 3))
-    x_hats = _decoders(params, fs, t)
+    mmd = mmd_sum(zs, injected(mmd_noise, 3), generator)
+    fs = _trio_fs(params, zs, cfg, train, generator, injected(zf_masks, 3))
+    x_hats = trio_decoders(params, fs, t)
     y_hat = yhead_apply(params["fy_to_y"], torch.cat(fs, dim=1),
                         cfg.fy_to_y_dropout, train, generator, y_mask)
     return [*x_hats, y_hat], mmd, 0.0
@@ -195,11 +174,11 @@ def m_c_apply(params, x, cfg, *, generator=None, train=False,
     mfn_last = run_mfn(params["mfn_enc"], x_l, x_a, x_v, cfg, train,
                        generator, encode_masks)
     zy = linear_apply(params["mfn_enc"]["last_to_zy"], mfn_last)
-    mmd = _mmd((zy,), _draws(mmd_noise, 1), generator)
-    (m_fy,) = _draws(zf_masks, 1)
+    mmd = mmd_sum((zy,), injected(mmd_noise, 1), generator)
+    (m_fy,) = injected(zf_masks, 1)
     fy = zf_apply(params["zy_to_fy"], zy, cfg.zy_to_fy_dropout, train,
                   generator, m_fy)
-    x_hats = _decoders(params, [fy] * 3, t)
+    x_hats = trio_decoders(params, [fy] * 3, t)
     y_hat = yhead_apply(params["fy_to_y"], fy, cfg.fy_to_y_dropout, train,
                         generator, y_mask)
     return [*x_hats, y_hat], mmd, 0.0
@@ -226,7 +205,7 @@ def m_d_apply(params, x, cfg, *, generator=None, train=False,
     0.0): the inputs stand as their reconstructions. The draws:
     ``zf_masks`` (fl's, fa's and fv's)."""
     zs = _trio_latents(params, x, cfg)
-    fs = _trio_fs(params, zs, cfg, train, generator, _draws(zf_masks, 3))
+    fs = _trio_fs(params, zs, cfg, train, generator, injected(zf_masks, 3))
     y_hat = linear_apply(params["fs_to_y"], torch.cat(fs, dim=1))
     return [*split_modalities(x, cfg.input_dims), y_hat], 0.0, 0.0
 

@@ -1,12 +1,18 @@
 """Shared model sub-structures (port of ``factorized_tpu/models/common.py``):
 modality split, z->f feature MLPs, label head, the per-modality
-encoder/decoder trios and the MFN encoder (``run_mfn``)."""
+encoder/decoder trios, the MFN encoder (``run_mfn``), the fused latents
+of an encoder trio (``encoder_latents``) and decoder trio
+(``trio_decoders``), and the injected or drawn randomness of the models
+that sum per-latent MMD terms (``injected``, ``mmd_sum``)."""
 
 from __future__ import annotations
 
 import torch
 
-from factorized_tpu_torch.ops.core import linear_init, mlp2_apply, mlp2_init
+from factorized_tpu_torch.ops.core import (linear_apply, linear_init,
+                                           mlp2_apply, mlp2_init)
+from factorized_tpu_torch.ops.fused import fused_decoder_scan, fused_lstm_scan
+from factorized_tpu_torch.ops.losses import loss_mmd
 from factorized_tpu_torch.ops.lstm import decoder_init, encoder_init
 from factorized_tpu_torch.ops.mfn import mfn_apply, mfn_init
 
@@ -97,3 +103,33 @@ def run_mfn(params, x_l, x_a, x_v, cfg, train=False, generator=None,
     return mfn_apply(params["mfn"], x_l, x_a, x_v, mem_dim=cfg.memsize,
                      drops=mfn_drops(cfg), train=train, generator=generator,
                      masks=masks)
+
+
+def encoder_latents(params, names, xs):
+    """The latents of the encoders ``params[name]`` over ``xs``, in the
+    order of ``names``: their LSTMs as one fused recurrence (each cell's
+    input product at its own width), then each ``fc1``."""
+    hs = fused_lstm_scan([params[k]["lstm"] for k in names], xs)
+    return [linear_apply(params[k]["fc1"], h) for k, h in zip(names, hs)]
+
+
+def trio_decoders(params, drives, t):
+    """The three modality decoders ``decoder_l``, ``_a`` and ``_v`` of
+    ``params`` as one fused recurrence, each driven by its latent of
+    ``drives``."""
+    return fused_decoder_scan(
+        [params[k] for k in ("decoder_l", "decoder_a", "decoder_v")],
+        drives, t)
+
+
+def injected(given, k):
+    """k injected draws, or k Nones to draw each from the generator."""
+    return list(given) if given is not None else [None] * k
+
+
+def mmd_sum(zs, noises, generator):
+    """The MMD terms of the latents ``zs`` summed, each against its
+    Gaussian sample: the injected one, else drawn."""
+    if generator is None and any(noise is None for noise in noises):
+        raise ValueError("the MMD term needs a torch.Generator or mmd_noise")
+    return sum(loss_mmd(z, generator, noise) for z, noise in zip(zs, noises))

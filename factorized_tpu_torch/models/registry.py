@@ -1,14 +1,17 @@
 """Model registry: string dispatch on ``cfg.model_type`` (port of
 ``factorized_tpu/models/registry.py``). Ported: ``mfm``, ``kl``,
-``kl_ef``, ``missing`` and the ablations ``m_a``..``m_d``.
+``kl_ef``, ``missing``, the ablations ``m_a``..``m_d`` and the baselines
+``s2s`` and ``bm``.
 
 Apply returns, as in the JAX package: ``mfm``, ``kl``, ``kl_ef`` and the
 ablations give ``(decoded, reg_loss, missing_loss)``; ``missing`` gives
-``(decoded, nol, noa, nov, mmd, missing_loss)``."""
+``(decoded, nol, noa, nov, mmd, missing_loss)``; ``s2s`` gives ``(nol,
+noa, nov, mmd)``, each a one-element list of a reconstruction; ``bm``
+gives ``(y_nol, y_noa, y_nov, mmd)``."""
 
 from __future__ import annotations
 
-from factorized_tpu_torch.models import ablations, mfm
+from factorized_tpu_torch.models import ablations, baselines, mfm
 
 MODELS = {
     "mfm": (mfm.mfm_init, mfm.mfm_apply),
@@ -19,10 +22,12 @@ MODELS = {
     "m_b": (ablations.m_b_init, ablations.m_b_apply),
     "m_c": (ablations.m_c_init, ablations.m_c_apply),
     "m_d": (ablations.m_d_init, ablations.m_d_apply),
+    "s2s": (baselines.seq2seq_init, baselines.seq2seq_apply),
+    "bm": (baselines.basic_missing_init, baselines.basic_missing_apply),
 }
 
 # names the JAX package registers that this port does not have yet
-NOT_YET_PORTED = ("s2s", "bm", "mfn")
+NOT_YET_PORTED = ("mfn",)
 
 
 def get_model(name: str):

@@ -1,5 +1,6 @@
 """Training core of the port (port of ``factorized_tpu/train.py``, the
-``"joint"``, ``"beta_vae"`` and ``"missing"`` variants).
+``"joint"``, ``"beta_vae"``, ``"missing"``, ``"s2s"`` and ``"bm"``
+variants).
 
 A train step is the model's forward with dropout, the variant's loss
 (for ``"joint"``: ``disc + gen + lda_mmd * mmd``, the L1 label loss, the
@@ -77,15 +78,11 @@ def _disc(y_hat, y, task: str):
     return l1_loss(torch.squeeze(y_hat, 1), y)
 
 
-# the loss variants of the JAX package that the port has
-VARIANTS = ("joint", "beta_vae", "missing")
+# the loss variants of the JAX package
+VARIANTS = ("joint", "beta_vae", "missing", "s2s", "bm")
 
 
 def _check_variant(variant):
-    if variant in ("s2s", "bm"):
-        raise NotImplementedError(
-            f"loss variant {variant!r} is not yet ported; ported: "
-            f"{VARIANTS}")
     if variant not in VARIANTS:
         raise ValueError(f"unknown loss variant {variant!r}")
 
@@ -114,6 +111,21 @@ def _missing_loss(out, x, y, cfg):
     return disc + gen + cfg.lda_mmd * mmd + missing
 
 
+def _s2s_gen(out, x, cfg):
+    """The three weighted cross-modal reconstruction MSEs of ``s2s``'s
+    ``(nol, noa, nov, mmd)``."""
+    nol, noa, nov, _ = out
+    return _gen((nol[0], noa[0], nov[0]), x, cfg)
+
+
+def _bm_disc(out, y, cfg):
+    """The three heads' label losses of ``bm``'s ``(y_nol, y_noa, y_nov,
+    mmd)``."""
+    y_nol, y_noa, y_nov, _ = out
+    return (_disc(y_nol, y, cfg.task) + _disc(y_noa, y, cfg.task)
+            + _disc(y_nov, y, cfg.task))
+
+
 def make_loss_fn(apply_fn, cfg, variant: str = "joint",
                  stage: int = 0) -> Callable:
     """``loss_fn(params, x, y, *, generator=None, draws=None) -> (loss,
@@ -127,7 +139,11 @@ def make_loss_fn(apply_fn, cfg, variant: str = "joint",
     - ``"beta_vae"``: stage 1 ``gen + lda_mmd * reg``, stage 2
       ``disc + lda_mmd * reg``, tracking the loss;
     - ``"missing"``: the composite loss of the ``missing`` model,
-      tracking the all-present decode's x_l MSE."""
+      tracking the all-present decode's x_l MSE;
+    - ``"s2s"``: the three cross-modal reconstruction MSEs plus
+      ``lda_mmd * mmd``, tracking the loss;
+    - ``"bm"``: the three heads' label losses plus ``lda_mmd * mmd``,
+      tracking the loss."""
     _check_variant(variant)
 
     def loss_fn(params, x, y, *, generator=None, draws=None):
@@ -136,6 +152,11 @@ def make_loss_fn(apply_fn, cfg, variant: str = "joint",
         if variant == "missing":
             x_l = _split_x(x, cfg.input_dims)[0]
             return _missing_loss(out, x, y, cfg), l2_loss(out[0][0], x_l)
+        if variant in ("s2s", "bm"):
+            part = (_s2s_gen(out, x, cfg) if variant == "s2s"
+                    else _bm_disc(out, y, cfg))
+            loss = part + cfg.lda_mmd * out[3]
+            return loss, loss
         decoded, reg, missing = out
         disc = _disc(decoded[3], y, cfg.task)
         reg = cfg.lda_mmd * reg
@@ -149,14 +170,20 @@ def make_loss_fn(apply_fn, cfg, variant: str = "joint",
 
 def make_eval_fn(apply_fn, cfg, variant: str = "joint") -> Callable:
     """``eval_fn(params, x, y, *, generator) -> validation loss`` in eval
-    mode: the label loss, or for ``"missing"`` the whole composite loss,
-    as the reference evaluates it."""
+    mode, as the reference evaluates it: the label loss; for
+    ``"missing"`` the whole composite loss; for ``"s2s"`` the three
+    reconstruction MSEs without the MMD; for ``"bm"`` the l-missing
+    head's label loss alone."""
     _check_variant(variant)
 
     def eval_fn(params, x, y, *, generator=None):
         out = apply_fn(params, x, cfg, generator=generator, train=False)
         if variant == "missing":
             return _missing_loss(out, x, y, cfg)
+        if variant == "s2s":
+            return _s2s_gen(out, x, cfg)
+        if variant == "bm":
+            return _disc(out[0], y, cfg.task)
         return _disc(out[0][3], y, cfg.task)
 
     return eval_fn

@@ -1,7 +1,8 @@
 """Experiment-level trainers of the port (port of ``train_mfm``,
-``train_beta_vae``, ``train_mfm_missing``, ``train_mfm_test_zeros`` and
-``train_mfm_ablation`` of ``factorized_tpu/trainers.py``, with its
-loops: ``_loop`` runs
+``train_beta_vae``, ``train_mfm_missing``, ``train_mfm_test_zeros``,
+``train_mfm_ablation``, ``train_seq2seq``, ``train_basic_missing`` and
+``train_mfm_acc`` of ``factorized_tpu/trainers.py``, with its loops:
+``_loop`` runs
 ``_loop_chunked``, chunks of epochs on the device with one host read a
 chunk, on a CUDA card one graph replay an epoch, unless
 ``FACTORIZED_TPU_HOST_LOOP=1`` picks ``_loop_host``, the per-epoch host
@@ -17,7 +18,8 @@ validation loss where the JAX trainer returns one. Every random draw
 comes from one ``torch.Generator`` seeded from ``seed``. The test
 scores read ``y_hat`` of the serving forward (``models.predict.YHat``,
 the eval forward's label path); ``train_mfm_missing`` scores the eval
-forward's four decodes.
+forward's four decodes, ``train_basic_missing`` its three heads and
+``train_seq2seq`` its three cross-modal reconstructions.
 
 Each trainer takes ``resume_from``, a checkpoint directory of this
 package's format with the optimizer state (``--save-ckpt``, or the
@@ -179,8 +181,8 @@ def _loop_host(program, params, optimizer, Xb, yb, remainder, Xv, yv,
                num_epochs, scheduler, keeper, logger, generator,
                save_always=False, snapshot=None, first=0):
     """The per-epoch host loop: an eager epoch, the eval, and the host
-    scheduler and keeper, the host waiting on the card every epoch; the
-    snapshot called after every epoch."""
+    scheduler and keeper, the host waiting on
+    the card every epoch; the snapshot called after every epoch."""
     history = []
     lr = scheduler.lr
     for e in range(num_epochs):
@@ -270,9 +272,9 @@ class _Setup:
     Adam and the plateau scheduler."""
 
     def __init__(self, data, cfg, name, *, lr, seed, include_remainder,
-                 device):
+                 device, labels=_labels):
         self.dev = dev = resolve_device(device)
-        self.name = name
+        self.name, self.cfg = name, cfg
         Xtr, ytr, Xv, yv, self.Xte, yte = _prep_data(*data, seed)
         _, self.apply_fn = get_model(name)
         self.params = MFM(cfg, seed=seed, device=dev, model_type=name).tree()
@@ -281,13 +283,13 @@ class _Setup:
         self.lr = lr = 1e-3 if lr is None else lr
         self.optimizer = make_optimizer(self.params, lr)
         self.scheduler = ReduceLROnPlateau(lr)
-        Xb, yb, rem = make_batches(Xtr, _labels(ytr, cfg), cfg.batchsize,
+        Xb, yb, rem = make_batches(Xtr, labels(ytr, cfg), cfg.batchsize,
                                    include_remainder)
         self.Xb, self.yb = self.on_device(Xb), self.on_device(yb)
         self.rem = (None if rem is None
                     else (self.on_device(rem[0]), self.on_device(rem[1])))
-        self.Xv, self.yv = self.on_device(Xv), self.on_device(_labels(yv, cfg))
-        self.yte = _labels(yte, cfg)
+        self.Xv, self.yv = self.on_device(Xv), self.on_device(labels(yv, cfg))
+        self.yte = labels(yte, cfg)
 
     def on_device(self, a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
@@ -307,12 +309,13 @@ class _Setup:
             self.scheduler = ReduceLROnPlateau(resume_lr or self.lr)
         return start, resume_best
 
-    def single_stage(self, program, cfg, logger, resume_from, snapshot):
+    def single_stage(self, program, cfg, logger, resume_from, snapshot,
+                     mode="min"):
         """A one-stage trainer's run: resumed where ``resume_from`` says,
-        then the loop over the epochs left with the best-keeper: (start
-        epoch, keeper, history)."""
+        then the loop over the epochs left with the best-keeper of
+        ``mode``: (start epoch, keeper, history)."""
         start, resume_best = self.resume(resume_from, logger)
-        keeper = _resume_keeper(BestKeeper("min"), resume_best, self.params)
+        keeper = _resume_keeper(BestKeeper(mode), resume_best, self.params)
         history = self.loop(program, keeper, max(cfg.num_epochs - start, 0),
                             logger, snapshot=snapshot, first=start)
         return start, keeper, history
@@ -326,6 +329,16 @@ class _Setup:
                      keeper, logger, self.generator, save_always,
                      _offset_snapshot(snapshot, first if offset is None
                                       else offset), first)
+
+    def eval_apply(self, params, X):
+        """The eval forward of ``params`` over the time-major numpy array
+        ``X`` on the card, its MMD samples drawn from a generator seeded
+        0 (the JAX package's ``PRNGKey(0)`` at test time)."""
+        with torch.no_grad():
+            return self.apply_fn(
+                _to_device(params, self.dev), self.on_device(X), self.cfg,
+                generator=torch.Generator(device=self.dev).manual_seed(0),
+                train=False)
 
     def score(self, params, cfg, logger, binary_threshold, threshold_mode,
               tag="y_hat", X=None):
@@ -455,13 +468,8 @@ def train_mfm_missing(X_train, y_train, X_valid, y_valid, X_test, y_test,
     best_params = (keeper.best_params if keeper.best_params is not None
                    else run.params)
 
-    Xte = run.on_device(run.Xte)
-    with torch.no_grad():
-        decoded, nol, noa, nov, _, _ = run.apply_fn(
-            _to_device(best_params, run.dev), Xte, cfg,
-            generator=torch.Generator(device=run.dev).manual_seed(0),
-            train=False)
-    x_l, x_a, x_v = split_modalities(Xte, cfg.input_dims)
+    decoded, nol, noa, nov, _, _ = run.eval_apply(best_params, run.Xte)
+    x_l, x_a, x_v = split_modalities(run.on_device(run.Xte), cfg.input_dims)
     for tag, dec in (("all present", decoded), ("l missing", nol),
                      ("a missing", noa), ("v missing", nov)):
         logger.text(tag, float(l2_loss(dec[0], x_l)),
@@ -526,6 +534,121 @@ def train_mfm_ablation(X_train, y_train, X_valid, y_valid, X_test, y_test,
                          f"{cfg.model_type!r}")
     return train_mfm(X_train, y_train, X_valid, y_valid, X_test, y_test,
                      cfg, model_type=cfg.model_type, **kw)
+
+
+def train_seq2seq(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg,
+                  *, lr: Optional[float] = None,
+                  logger: Optional[RunLogger] = None,
+                  seed: int = 123,
+                  resume_from: Optional[str] = None,
+                  snapshot=None,
+                  device=None):
+    """The cross-modal translation baseline (``s2s``) under its
+    reconstruction loss, float32 labels (unread), no remainder batch,
+    keeping the best epoch. ``metrics`` are the three test MSEs of each
+    modality reconstructed from the other two: ``x_l_nol_mse``,
+    ``x_a_noa_mse`` and ``x_v_nov_mse``."""
+    logger = logger or RunLogger()
+    run = _Setup((X_train, y_train, X_valid, y_valid, X_test, y_test), cfg,
+                 "s2s", lr=lr, seed=seed, include_remainder=False,
+                 device=device, labels=lambda y, _: y.astype(np.float32))
+    start, keeper, history = run.single_stage(
+        TrainProgram(run.apply_fn, cfg, "s2s"), cfg, logger, resume_from,
+        snapshot)
+    best_params = (keeper.best_params if keeper.best_params is not None
+                   else run.params)
+    nol, noa, nov, _ = run.eval_apply(best_params, run.Xte)
+    x_l, x_a, x_v = split_modalities(run.on_device(run.Xte), cfg.input_dims)
+    mses = {"x_l_nol_mse": float(l2_loss(nol[0], x_l)),
+            "x_a_noa_mse": float(l2_loss(noa[0], x_a)),
+            "x_v_nov_mse": float(l2_loss(nov[0], x_v))}
+    logger.text(mses["x_l_nol_mse"], mses["x_a_noa_mse"], mses["x_v_nov_mse"])
+    logger.record("final", **mses)
+    return {"metrics": mses, "params": best_params, "history": history,
+            "opt_state": run.optimizer.state_dict(),
+            "best_valid": keeper.best, "step": start + _steps(history)}
+
+
+def train_basic_missing(X_train, y_train, X_valid, y_valid, X_test, y_test,
+                        cfg, *, lr: Optional[float] = None,
+                        logger: Optional[RunLogger] = None,
+                        seed: int = 123,
+                        binary_threshold: float = 0.0,
+                        threshold_mode: str = "ge",
+                        resume_from: Optional[str] = None,
+                        snapshot=None,
+                        device=None):
+    """The two-modality baseline (``bm``) under the three heads' label
+    loss, no remainder batch, keeping the best epoch by the l-missing
+    head's validation loss. At test time the eval forward's three heads
+    are scored, squeezed for regression: ``metrics`` is keyed
+    ``y_hat_nol``, ``y_hat_noa`` and ``y_hat_nov``."""
+    logger = logger or RunLogger()
+    run = _Setup((X_train, y_train, X_valid, y_valid, X_test, y_test), cfg,
+                 "bm", lr=lr, seed=seed, include_remainder=False,
+                 device=device)
+    start, keeper, history = run.single_stage(
+        TrainProgram(run.apply_fn, cfg, "bm"), cfg, logger, resume_from,
+        snapshot)
+    best_params = (keeper.best_params if keeper.best_params is not None
+                   else run.params)
+    y_hats = run.eval_apply(best_params, run.Xte)[:3]
+    results = {}
+    for tag, y_hat in zip(("y_hat_nol", "y_hat_noa", "y_hat_nov"), y_hats):
+        logger.text(f"scoring {tag}")
+        y = y_hat.cpu().numpy()
+        results[tag] = _score(y[:, 0] if cfg.task == "regression" else y,
+                              run.yte, cfg, binary_threshold, threshold_mode)
+    logger.record("final", **results)
+    return {"metrics": results, "params": best_params, "history": history,
+            "opt_state": run.optimizer.state_dict(),
+            "best_valid": keeper.best, "step": start + _steps(history)}
+
+
+def _accuracy_device(apply_fn, cfg):
+    """The validation accuracy of both loops, on the device: the eval
+    forward's y_hat argmax (the first index of a tie, as ``np.argmax``)
+    against the labels, a float32 mean."""
+    def eval_fn(params, x, y, *, generator=None):
+        decoded = apply_fn(params, x, cfg, generator=generator,
+                           train=False)[0]
+        return (torch.argmax(decoded[3], dim=1) == y).to(
+            torch.float32).mean()
+
+    return eval_fn
+
+
+def train_mfm_acc(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg,
+                  *, lr: Optional[float] = None,
+                  logger: Optional[RunLogger] = None,
+                  seed: int = 123,
+                  resume_from: Optional[str] = None,
+                  snapshot=None,
+                  device=None):
+    """MOSI's accuracy variant (``mfm_mosi_acc.py:396-503``): MFM as a
+    two-class classifier of labels binarized upstream (``y >= 0``), the
+    joint loss with the cross-entropy label term, no remainder batch, and
+    the validation accuracy kept at its maximum (``BestKeeper("max")``,
+    ``>=``), the plateau scheduler stepping on the same number as a
+    minimum, as the reference does. ``metrics`` is the classification
+    score of the kept parameters' y_hat."""
+    logger = logger or RunLogger()
+    cfg = cfg.replace(task="classification", output_dim=2)
+    run = _Setup((X_train, y_train, X_valid, y_valid, X_test, y_test), cfg,
+                 "mfm", lr=lr, seed=seed, include_remainder=False,
+                 device=device)
+    program = TrainProgram(run.apply_fn, cfg, "joint",
+                           eval_fn=_accuracy_device(run.apply_fn, cfg))
+    start, keeper, history = run.single_stage(
+        program, cfg, logger, resume_from, snapshot, mode="max")
+    best_params = (keeper.best_params if keeper.best_params is not None
+                   else run.params)
+    metrics = score_classification(
+        _predict_y(best_params, cfg, "mfm", run.Xte, run.dev), run.yte)
+    logger.record("final", **metrics)
+    return {"metrics": metrics, "params": best_params, "history": history,
+            "opt_state": run.optimizer.state_dict(),
+            "best_valid": keeper.best, "step": start + _steps(history)}
 
 
 def _to_device(tree, dev):

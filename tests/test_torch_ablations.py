@@ -405,7 +405,7 @@ def test_mosi_cli_trains_an_ablation_and_serves_it(model_type, tmp_path,
     argv = ["mosi", "--mode", "best", "--type", model_type, "--epochs", "1",
             "--batchsize", "8", "--device", "cpu", "--out", str(out),
             "--save-ckpt"]
-    assert cli.trainer_name(cli.mosi_config(
+    assert cli.trainer_name(cli.trial_config(
         cli.build_parser().parse_args(argv))) == "train_mfm_ablation"
     assert cli.main(argv) == 0
     printed = capsys.readouterr().out
@@ -430,7 +430,7 @@ def test_mosi_cli_zeros_scores_three_ways(tmp_path, monkeypatch, capsys):
     out = tmp_path / "runs"
     argv = ["mosi", "--mode", "best", "--zeros", "1", "--epochs", "2",
             "--batchsize", "8", "--device", "cpu", "--out", str(out)]
-    assert cli.trainer_name(cli.mosi_config(
+    assert cli.trainer_name(cli.trial_config(
         cli.build_parser().parse_args(argv))) == "train_mfm_test_zeros"
     assert cli.main(argv) == 0
     printed = capsys.readouterr().out

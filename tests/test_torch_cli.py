@@ -55,7 +55,7 @@ def test_mosi_run_logs_the_legacy_config_and_saves_the_resume_fields(
             "--device", "cpu", "--out", str(out), "--save-ckpt"]
     assert cli.main(argv) == 0
     first = capsys.readouterr().out.splitlines()[0]
-    cfg = cli.mosi_config(cli.build_parser().parse_args(argv))
+    cfg = cli.trial_config(cli.build_parser().parse_args(argv))
     assert first == json.dumps(cfg.to_legacy(), default=str)
     assert json.loads(first) == json.loads(json.dumps(
         jax_best(input_dims=[300, 5, 20], num_epochs=2,

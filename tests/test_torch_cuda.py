@@ -16,7 +16,7 @@ import torch
 
 from factorized_tpu_torch.config import MFMConfig, best_acc_mosi_config
 from factorized_tpu_torch.convert import from_state_dict, to_state_dict
-from factorized_tpu_torch.models import get_model, mfm
+from factorized_tpu_torch.models import baselines, get_model, mfm
 from factorized_tpu_torch.models.common import mfn_drops
 from factorized_tpu_torch.ops import counts, cuda_lstm, cuda_mfn
 from factorized_tpu_torch.serve import Predictor
@@ -1113,3 +1113,50 @@ def test_released_checkpoints_on_the_card_match_the_cpu(cuda, name):
     y = Predictor.from_checkpoint(path).predict(X)
     np.testing.assert_allclose(
         y, Predictor.from_checkpoint(path, device="cpu").predict(X), **TOL)
+
+
+# ------------------------------------------------------------ baselines
+
+@pytest.mark.parametrize("model_type", ["s2s", "bm"])
+def test_baseline_forward_and_grads_match_the_cpu(cuda, model_type):
+    """``s2s`` and ``bm`` at full width, n = 32, the same injected draws:
+    the train forward on the card (its encoder trio through
+    ``multi_lstm_fwd`` over inputs of 305, 320 and 25 floats, ``s2s``'s
+    decoders [88, 8, 8] through ``decoder_lstm_fwd``) against the CPU's
+    plain versions, and the loss's gradients (``multi_lstm_bwd``,
+    ``decoder_lstm_bwd``), each kernel launched once a step."""
+    # bm's three heads drop at zy_to_fy_dropout, 0 in the pinned config
+    cfg = best_acc_mosi_config(model_type=model_type, missing=1,
+                               zy_to_fy_dropout=0.5)
+    t, n = cfg.seqlength, 32
+    params = mfm.MFM(cfg, seed=11, device="cpu").tree()
+    g = torch.Generator().manual_seed(12)
+    x = torch.randn((t, n, cfg.d_total), generator=g)
+    y = torch.randn((n,), generator=g)
+    draws = baselines.train_draws(cfg, n, g)
+    apply_fn = get_model(model_type)[1]
+    loss_fn = make_loss_fn(apply_fn, cfg, model_type)
+    outs, grads = [], []
+    for dev in ("cpu", cuda):
+        before = counts.snapshot()
+        tree = {k: v.detach().to(dev).requires_grad_()
+                for k, v in to_state_dict(params).items()}
+        out = apply_fn(from_state_dict(tree), x.to(dev), cfg, train=True,
+                       **_to(draws, dev))
+        outs.append([(o[0] if isinstance(o, list) else o).detach().cpu()
+                     for o in out])
+        loss, _ = loss_fn(from_state_dict(tree), x.to(dev), y.to(dev),
+                          draws=_to(draws, dev))
+        loss.backward()
+        grads.append({k: (torch.zeros_like(v) if v.grad is None
+                          else v.grad).cpu() for k, v in tree.items()})
+        launched = counts.since(before)
+    for a, b in zip(outs[1], outs[0]):
+        torch.testing.assert_close(a, b, **TOL)
+    for k in grads[0]:
+        torch.testing.assert_close(grads[1][k], grads[0][k], **GRAD)
+    # the forward and the loss's forward, then one backward
+    want = {"MULTI_LAUNCHES": 2, "MULTI_BWD_LAUNCHES": 1,
+            "LAUNCHES": 2 if model_type == "s2s" else 0,
+            "BWD_LAUNCHES": 1 if model_type == "s2s" else 0}
+    assert {k: launched[(cuda_lstm, k)] for k in want} == want

@@ -184,7 +184,7 @@ def test_trainer_name_routes_kl_to_train_mfm():
     for mode in ("best", "single"):
         args = cli.build_parser().parse_args(
             ["mosi", "--mode", mode, "--type", "kl"])
-        cfg = cli.mosi_config(args)
+        cfg = cli.trial_config(args)
         assert cfg.model_type == "kl"
         assert cli.trainer_name(cfg) == "train_mfm"
 

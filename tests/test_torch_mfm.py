@@ -140,7 +140,7 @@ def test_registry():
     assert get_model("mfm") == (mfm.mfm_init, mfm.mfm_apply)
     assert get_model("kl") == (mfm.mfm_kl_init, mfm.mfm_kl_apply)
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_model("s2s")
+        get_model("mfn")
     with pytest.raises(ValueError, match="unknown model type"):
         get_model("nope")
 

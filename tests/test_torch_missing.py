@@ -377,7 +377,7 @@ def test_mosi_cli_picks_the_jax_trainer(mode):
         args = cli.build_parser().parse_args(
             ["mosi", "--mode", mode, "--type", kind, "--missing",
              str(missing), "--zeros", str(zeros)])
-        cfg = cli.mosi_config(args)
+        cfg = cli.trial_config(args)
         assert (cfg.model_type, cfg.missing, cfg.zeros) == (kind, missing,
                                                             zeros)
         assert cli.trainer_name(cfg) == name

@@ -391,26 +391,26 @@ def test_mosi_cli_trains_and_saves(tmp_path, monkeypatch, capsys):
     assert kinds == ["config", "epoch", "final"]
 
 
-# the trainers cli.trainer_name still refuses: train_seq2seq and
-# train_basic_missing; the third case reaches train_seq2seq with --zeros 1
-# set too, as the if-chain takes --missing first
-@pytest.mark.parametrize("argv", [["--type", "s2s", "--missing", "1"],
-                                  ["--type", "bm", "--missing", "1"],
-                                  ["--type", "s2s", "--missing", "1",
-                                   "--zeros", "1"]])
-def test_mosi_cli_refuses_what_is_not_ported(argv):
+# what the mosi command still refuses, before any data loads: lanes of
+# seeds and the two search strategies of the JAX package's parallel/*
+@pytest.mark.parametrize("argv", [["--seeds", "2"],
+                                  ["--mode", "search", "--bucket"],
+                                  ["--mode", "search", "--evolve", "2"]])
+def test_mosi_cli_refuses_what_is_not_ported(argv, monkeypatch):
+    monkeypatch.setattr(cli, "load_mosi", lambda *a, **kw: pytest.fail(
+        "the data loaded before the refusal"))
     with pytest.raises(SystemExit, match="not yet ported"):
         cli.main(["mosi", "--device", "cpu"] + argv)
 
 
 def test_mosi_cli_configs():
     args = cli.build_parser().parse_args(["mosi", "--mode", "single"])
-    cfg = cli.mosi_config(args)
+    cfg = cli.trial_config(args)
     assert cfg.to_dict() == MFMConfig(seqlength=20).replace(
         input_dims=[300, 5, 20]).to_dict()
     args = cli.build_parser().parse_args(
         ["mosi", "--mode", "best", "--epochs", "3", "--batchsize", "8"])
-    cfg = cli.mosi_config(args)
+    cfg = cli.trial_config(args)
     assert (cfg.num_epochs, cfg.batchsize) == (3, 8)
     assert cfg.to_dict() == MFMConfig.from_dict(jax_best().to_dict()).replace(
         num_epochs=3, batchsize=8).to_dict()
