@@ -146,9 +146,28 @@ Run from the repository root: ``python3 chip_smoke.py``. It
     losses, MFM's encode and decoder kernels launched, a score block
     printed; each path's device ms and launches a step and replayed
     epoch s (``baseline`` and ``dataset_command`` lines);
-19. prints one JSON line on the ten kernels, the ``nvidia-smi`` line,
-    and last ``{"ok": true, "device": {...}}``; a ``seconds`` line after
-    each of steps 4, 6, 8, 10, 11, 12, 13, 14, 15, 16, 17 and 18.
+19. the ``predictor`` command's baselines, the flat SGD,
+    ``test_attention`` and ``multitrait``: the encode's kernels at both
+    ``best_mfn_mosi_config``s (train, reverse and weight gradients at
+    n = 128, eval at 256) and ``multi_lstm`` for one 128-unit cell over
+    the 325-float input (n = 32 and 128), each against its plain version
+    with its plan, bound and library yardstick (``predictor_kernels``
+    lines); one train step's gradients of ``eflstm``,
+    ``self_attention``, ``mfn`` (both configs) and ``multitrait``'s MFM
+    on the card against the CPU's; ``predictor --kind eflstm --optimizer
+    sgd``, ``--kind self_attention``, ``--kind mfn --mode best
+    --save-ckpt``, ``test_attention`` and ``multitrait --style pom
+    --save-ckpt`` and ``--style iemocap``, 2 epochs each through the
+    command (finite falling losses, every kernel of the path launched,
+    the second epoch a replay), the ``mfn`` checkpoint scored by
+    ``test_mosi`` and both checkpoints served over HTTP against the CPU,
+    each path's device ms and launches a step and replayed epoch s
+    (``predictor`` lines); the flat SGD's graph loop against its host
+    loop bit for bit (``predictor_sgd_loop``);
+20. prints one JSON line on the ten kernels (their launches with step
+    19's paths counted), the ``nvidia-smi`` line, and last ``{"ok":
+    true, "device": {...}}``; a ``seconds`` line after each of steps 4,
+    6, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18 and 19.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1.
 """
@@ -710,23 +729,26 @@ def serve_exported(art, requests, expected):
 
 
 def test_mosi_check(params, cfg, reference):
-    """``test_mosi`` on a checkpoint of ``params``: the score block, the
+    """``test_mosi`` on a checkpoint of ``params`` (``test_mosi_on``)."""
+    from factorized_tpu_torch.utils.checkpoint import save_checkpoint
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        save_checkpoint(ckpt, params, config=cfg.to_dict())
+        return test_mosi_on(ckpt, cfg.seqlength, reference)
+
+
+def test_mosi_on(ckpt, seqlength, reference):
+    """``test_mosi`` on the checkpoint ``ckpt``: the score block, the
     probe and the on-device latency lines; its mae against the CPU
     ``reference``'s on the same (synthetic MOSI) test set."""
-    import contextlib
-    import io
-
     from factorized_tpu_torch import cli
-    from factorized_tpu_torch.utils.checkpoint import save_checkpoint
     from factorized_tpu_torch.utils.metrics import regression_metrics
 
     out = io.StringIO()
-    with tempfile.TemporaryDirectory() as ckpt:
-        save_checkpoint(ckpt, params, config=cfg.to_dict())
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = cli.main(["test_mosi", "--checkpoint", ckpt])
-        seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["test_mosi", "--checkpoint", ckpt])
+    seconds = time.perf_counter() - t0
     lines = {}
     for line in out.getvalue().splitlines():
         key, _, value = line.partition(":")
@@ -735,7 +757,7 @@ def test_mosi_check(params, cfg, reference):
     if rc != 0 or set(lines) != {"mae", "inference probe",
                                  "on-device latency"}:
         raise AssertionError(f"test_mosi gave {rc}: {out.getvalue()[-2000:]}")
-    _, _, _, _, X_test, y_test = cli.load_mosi(cfg.seqlength)
+    _, _, _, _, X_test, y_test = cli.load_mosi(seqlength)
     want = regression_metrics(reference.predict(X_test), y_test)["mae"]
     mae = float(lines["mae"])
     if not abs(mae - want) <= ATOL + RTOL * abs(want):
@@ -915,7 +937,8 @@ def main():
               16: lambda: (c1_phase(cfg, dev, smi),
                            c1_train_phase(cfg, smi, tmp)),
               17: lambda: cli_phase(smi, tmp),
-              18: lambda: baseline_phase(cfg, dev, smi, data, tmp)}
+              18: lambda: baseline_phase(cfg, dev, smi, data, tmp),
+              19: lambda: predictor_phase(cfg, dev, smi, tmp)}
     results = {}
     with tempfile.TemporaryDirectory() as tmp:
         for step, run in phases.items():
@@ -925,8 +948,12 @@ def main():
                  "seconds": time.perf_counter() - t0})
     train_kernels, variant_kernels, probe_kernels = (results[6], results[8],
                                                      results[10])
-    log({"kernels": serve_kernels + train_kernels + variant_kernels
-         + probe_kernels})
+    kernels = serve_kernels + train_kernels + variant_kernels + probe_kernels
+    # step 19's paths launch the main path's kernels at their shapes
+    for entry in kernels:
+        entry["launches"] += sum(path.get(entry["name"], 0)
+                                 for path in results[19].values())
+    log({"kernels": kernels})
     print(smi, flush=True)
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                 "count": torch.cuda.device_count()}})
@@ -2029,8 +2056,8 @@ def trainer_run(trainer, data, mcfg, dev, host, **kw):
 
 def loops_agree(label, host, graph):
     """The graph loop's run against the host loop's: history, best and
-    final parameters, Adam's state and the scheduler's, bit for bit (the
-    lr as float32).
+    final parameters, the optimizer's state (Adam's or the SGD's trace)
+    and the scheduler's, bit for bit (the lr as float32).
     Returns {what: equal}; raises if any differs."""
     from factorized_tpu_torch.convert import to_state_dict
 
@@ -2057,8 +2084,9 @@ def loops_agree(label, host, graph):
             for a, b in zip(hh, gh)),
         "best_params": trees(hres["params"], gres["params"]),
         "final_params": trees(hset.params, gset.params),
-        "adam": all(same_bits(v, gset.optimizer.state_dict()["state"][k])
-                    for k, v in hset.optimizer.state_dict()["state"].items()),
+        "optimizer": all(
+            same_bits(v, gset.optimizer.state_dict()["state"][k])
+            for k, v in hset.optimizer.state_dict()["state"].items()),
         "scheduler": sched(hset.scheduler) == sched(gset.scheduler),
     }
     if not all(agree.values()):
@@ -2332,16 +2360,38 @@ def cell_library_ms(cells, xs, backward=False):
 
 
 def ablation_kernels(model_type, cfg, params, dev, smi):
-    """The kernels at the shapes ``model_type`` gives them, against their
-    plain versions and timed beside their bounds and library yardsticks:
-    the encode (m_a: one encoder cell over the whole input, z_tot 32;
-    m_c: none, z_tot 0) eval at n = 256, train forward, reverse pass and
-    weight gradients at n = 32; the encoder trio (m_b, m_d) eval at n =
-    256, train forward and backward at n = 32; the decoder trio forward
-    and backward at n = 32. Returns {kernel: numbers}."""
+    """The kernels at the shapes ``model_type`` gives them (``kernels_at``
+    at n = 256 and 32): the encode (m_a: one encoder cell over the whole
+    input, z_tot 32; m_c: none, z_tot 0), the encoder trio (m_b, m_d),
+    the decoder trio."""
     from factorized_tpu_torch.models import ablations
-    from factorized_tpu_torch.models.common import (mfn_drops,
-                                                    split_modalities)
+    from factorized_tpu_torch.models.common import split_modalities
+
+    enc = params.get("enc", {})
+    return kernels_at(
+        model_type, cfg,
+        lambda x: ablations.kernel_operands(params, x, cfg, model_type),
+        dev, smi, N_SERVE, N_TRAIN,
+        cells=lambda x: ([enc[k]["lstm"] for k in
+                          ("encoder_l", "encoder_a", "encoder_v")],
+                         split_modalities(x, cfg.input_dims)))
+
+
+def kernels_at(label, cfg, operands, dev, smi, n_eval, n_train, cells=None,
+               phase="ablation_kernels"):
+    """The kernels at the shapes ``operands(x)`` gives them (a dict as
+    ``ablations.kernel_operands``'), against their plain versions and
+    timed beside their bounds and library yardsticks: the encode eval at
+    ``n_eval`` rows (None: not run), its train forward, reverse pass and
+    weight gradients (beside 7 ``torch.mm`` and 7 ``sum(0)``) at
+    ``n_train``; the fused encoder cells (``multi_lstm``) likewise, beside
+    one ``nn.LSTM`` a cell of ``cells(x)`` (the cells, their inputs); the
+    decoder trio forward and backward at ``n_train``. Each with the plan
+    its chains took (``plan``, the wrapper's ``CLUSTERS`` entry: the
+    cluster, 0 the weights read from L2, ``cuda_lstm.SCRATCH`` the state in
+    device memory). Logs one ``phase`` line; returns {kernel: numbers}."""
+    from factorized_tpu_torch import perf_probe
+    from factorized_tpu_torch.models.common import mfn_drops
     from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
 
     t = cfg.seqlength
@@ -2357,18 +2407,29 @@ def ablation_kernels(model_type, cfg, params, dev, smi):
         if library_ms is not None:
             library[name] = library_ms
 
+    def plan(module, kernel, chains=None):
+        """The last call's plan: the encode's by chain (its launcher
+        reports them in the order ``chains``), the recurrences' one."""
+        entry = module.CLUSTERS[kernel]
+        return dict(zip(chains, entry)) if chains else entry
+
+    fwd_chains = ("lstm_chains", "memory_chain")
+    bwd_chains = ("memory_chain", "lstm_chains")
+
     with torch.inference_mode():
-        x256, x32 = (torch.randn((t, n, cfg.d_total), generator=gen,
-                                 device=dev) for n in (N_SERVE, N_TRAIN))
-        ops256 = ablations.kernel_operands(params, x256, cfg, model_type)
-        ops32 = ablations.kernel_operands(params, x32, cfg, model_type)
-        if "encode" in ops256:
-            xp, weights, z_tot, h_dims = ops256["encode"]
+        x_eval, x_train = (None if n is None else torch.randn(
+            (t, n, cfg.d_total), generator=gen, device=dev)
+            for n in (n_eval, n_train))
+        ops_eval = {} if x_eval is None else operands(x_eval)
+        ops_train = operands(x_train)
+        if "encode" in ops_eval:
+            xp, weights, z_tot, h_dims = ops_eval["encode"]
+            n = n_eval
             got = cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims)
-            err = compare_all(f"{model_type}.mfm_encode_fwd.eval", zip(
+            used_plan = plan(cuda_mfn, "mfm_encode_fwd", fwd_chains)
+            err = compare_all(f"{label}.mfm_encode_fwd.eval", zip(
                 ("h_last", "mem_last"), got,
                 cuda_mfn.mfm_encode_plain(xp, weights, z_tot)))
-            n = N_SERVE
             bnd = bound(2 * n * (t * encode_macs_per_row(weights, h_dims,
                                                          z_tot)
                                  - 4 * sum(h * h for h in h_dims)),
@@ -2377,16 +2438,17 @@ def ablation_kernels(model_type, cfg, params, dev, smi):
             record("mfm_encode_fwd_eval", n, err, timed(
                 lambda: cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims),
                 lambda: cuda_mfn.mfm_encode_plain(xp, weights, z_tot)), bnd,
-                h_dims=h_dims, z_tot=z_tot,
-                clusters=list(cuda_mfn.CLUSTERS["mfm_encode_fwd"]))
-            xp, weights, z_tot, h_dims = ops32["encode"]
-            n = N_TRAIN
+                h_dims=h_dims, z_tot=z_tot, plan=used_plan)
+        if "encode" in ops_train:
+            xp, weights, z_tot, h_dims = ops_train["encode"]
+            n = n_train
             masks = cuda_mfn.make_dropout_masks(
                 gen, t, n, cuda_mfn.sizes(weights)[:4], mfn_drops(cfg))
             fwd = cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims)
+            used_plan = plan(cuda_mfn, "mfm_encode_fwd", fwd_chains)
             fwd_ref = cuda_mfn.mfm_encode_res_plain(xp, masks, weights,
                                                     z_tot)
-            err = compare_all(f"{model_type}.mfm_encode_fwd.train",
+            err = compare_all(f"{label}.mfm_encode_fwd.train",
                               zip(("h_last", "mem_last", "allh", "allc",
                                    "allmem", "res"), fwd, fwd_ref))
             recur = 4 * sum(h * h for h in h_dims)
@@ -2398,7 +2460,8 @@ def ablation_kernels(model_type, cfg, params, dev, smi):
                 lambda: cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot,
                                                 h_dims),
                 lambda: cuda_mfn.mfm_encode_res_plain(xp, masks, weights,
-                                                      z_tot)), bnd)
+                                                      z_tot)), bnd,
+                h_dims=h_dims, z_tot=z_tot, plan=used_plan)
             res = fwd_ref[2:]
             dh = torch.randn((n, sum(h_dims)), generator=gen, device=dev)
             dmem = torch.randn((n, cfg.memsize), generator=gen, device=dev)
@@ -2408,9 +2471,10 @@ def ablation_kernels(model_type, cfg, params, dev, smi):
                                             z_tot, h_dims)
 
             dxp, deltas = bwd()
+            used_plan = plan(cuda_mfn, "mfm_encode_bwd", bwd_chains)
             dxp_ref, deltas_ref = cuda_mfn.mfm_encode_bwd_steps_plain(
                 xp, weights, *res, dh, dmem, z_tot)
-            err = compare_all(f"{model_type}.mfm_encode_bwd",
+            err = compare_all(f"{label}.mfm_encode_bwd",
                               [("dxp", dxp, dxp_ref),
                                ("deltas", deltas, deltas_ref)],
                               GRAD_RTOL, GRAD_ATOL)
@@ -2427,30 +2491,39 @@ def ablation_kernels(model_type, cfg, params, dev, smi):
             record("mfm_encode_bwd", n, err, timed(
                 bwd, lambda: cuda_mfn.mfm_encode_bwd_steps_plain(
                     xp, weights, *res, dh, dmem, z_tot)), bnd,
-                clusters=list(cuda_mfn.CLUSTERS["mfm_encode_bwd"]))
+                plan=used_plan)
 
             def dw():
                 return cuda_mfn._launch_dw(weights, res[1], res[2], res[3],
                                            deltas_ref, z_tot)
 
             dw_out = dw()
-            err = compare_all(f"{model_type}.mfm_encode_dw", [
-                (k, dw_out[k], v) for k, v in cuda_mfn.mfm_encode_dw_plain(
-                    res[1], res[2], res[3], deltas_ref, weights,
-                    z_tot).items()], GRAD_RTOL, GRAD_ATOL)
+            dw_ref = cuda_mfn.mfm_encode_dw_plain(res[1], res[2], res[3],
+                                                  deltas_ref, weights, z_tot)
+            err = compare_all(f"{label}.mfm_encode_dw", [
+                (k, dw_out[k], v) for k, v in dw_ref.items()],
+                GRAD_RTOL, GRAD_ATOL)
+            # the yardstick, used nowhere in the port, on operands built
+            # here, before the timing
+            lib = functools.partial(
+                perf_probe.dw_library, cuda_mfn.dw_operands(
+                    res[1], res[2], res[3], weights, z_tot), deltas_ref,
+                weights)
+            compare_all(f"{label}.mfm_encode_dw.library",
+                        [(k, v, dw_ref[k].reshape(v.shape))
+                         for k, v in lib().items()], GRAD_RTOL, GRAD_ATOL)
             record("mfm_encode_dw", n, err, timed(
                 dw, lambda: cuda_mfn.mfm_encode_dw_plain(
                     res[1], res[2], res[3], deltas_ref, weights, z_tot)),
                 dw_bound_of(res, deltas_ref, dw_out),
+                functools.partial(cuda_ms, lib, 50),
                 plan=dict(cuda_mfn.DW_PLAN))
-        else:
-            enc = params["enc"]
-            cells = [enc[k]["lstm"] for k in
-                     ("encoder_l", "encoder_a", "encoder_v")]
-            xp, wh, h_dims = ops256["multi_lstm"]
-            n = N_SERVE
+        if "multi_lstm" in ops_eval:
+            xp, wh, h_dims = ops_eval["multi_lstm"]
+            n = n_eval
             got = cuda_lstm.multi_lstm_fwd(xp, wh, h_dims)
-            err = compare(f"{model_type}.multi_lstm_fwd.eval", got,
+            used_plan = plan(cuda_lstm, "multi_lstm_fwd")
+            err = compare(f"{label}.multi_lstm_fwd.eval", got,
                           cuda_lstm.multi_lstm_plain(xp, wh))
             hh = 4 * sum(h * h for h in h_dims)
             bnd = bound(2 * (t - 1) * n * hh,
@@ -2458,25 +2531,30 @@ def ablation_kernels(model_type, cfg, params, dev, smi):
             record("multi_lstm_fwd_eval", n, err, timed(
                 lambda: cuda_lstm.multi_lstm_fwd(xp, wh, h_dims),
                 lambda: cuda_lstm.multi_lstm_plain(xp, wh)), bnd,
-                functools.partial(cell_library_ms, cells,
-                                  split_modalities(x256, cfg.input_dims)),
-                h_dims=h_dims, cluster=cuda_lstm.CLUSTERS["multi_lstm_fwd"])
-            xp, wh, h_dims = ops32["multi_lstm"]
-            n = N_TRAIN
+                functools.partial(cell_library_ms, *cells(x_eval)),
+                h_dims=h_dims, plan=used_plan)
+        if "multi_lstm" in ops_train:
+            xp, wh, h_dims = ops_train["multi_lstm"]
+            n = n_train
+            hh = 4 * sum(h * h for h in h_dims)
             res = cuda_lstm.multi_lstm_fwd(xp, wh, h_dims, with_res=True)
+            used_plan = plan(cuda_lstm, "multi_lstm_fwd")
             res_ref = cuda_lstm.multi_lstm_plain(xp, wh, with_res=True)
-            err = compare_all(f"{model_type}.multi_lstm_fwd.train",
+            err = compare_all(f"{label}.multi_lstm_fwd.train",
                               zip(("h_last", "allh", "allc", "gates"), res,
                                   res_ref))
             bnd = bound(2 * (t - 1) * n * hh,
                         nbytes(xp, *res) + diag_bytes(h_dims))
             record("multi_lstm_fwd_train", n, err, timed(
                 lambda: cuda_lstm.multi_lstm_fwd(xp, wh, h_dims, True),
-                lambda: cuda_lstm.multi_lstm_plain(xp, wh, True)), bnd)
+                lambda: cuda_lstm.multi_lstm_plain(xp, wh, True)), bnd,
+                functools.partial(cell_library_ms, *cells(x_train)),
+                h_dims=h_dims, plan=used_plan)
             _, _, allc, gates = res_ref
             dh = torch.randn((n, sum(h_dims)), generator=gen, device=dev)
             dxp = cuda_lstm.multi_lstm_bwd(gates, wh, allc, dh, h_dims)
-            err = compare(f"{model_type}.multi_lstm_bwd.dxp", dxp,
+            used_plan = plan(cuda_lstm, "multi_lstm_bwd")
+            err = compare(f"{label}.multi_lstm_bwd.dxp", dxp,
                           cuda_lstm.multi_lstm_bwd_plain(gates, wh, allc, dh),
                           GRAD_RTOL, GRAD_ATOL)
             bnd = bound(2 * (t - 1) * n * hh,
@@ -2484,18 +2562,17 @@ def ablation_kernels(model_type, cfg, params, dev, smi):
             record("multi_lstm_bwd", n, err, timed(
                 lambda: cuda_lstm.multi_lstm_bwd(gates, wh, allc, dh, h_dims),
                 lambda: cuda_lstm.multi_lstm_bwd_plain(gates, wh, allc, dh)),
-                bnd, functools.partial(cell_library_ms, cells,
-                                       split_modalities(x32, cfg.input_dims),
+                bnd, functools.partial(cell_library_ms, *cells(x_train),
                                        backward=True),
-                cluster=cuda_lstm.CLUSTERS["multi_lstm_bwd"])
-        if "decoder" in ops32:
-            h0, c0, wsum, b, dec_dims = ops32["decoder"]
-            n = N_TRAIN
+                plan=used_plan)
+        if "decoder" in ops_train:
+            h0, c0, wsum, b, dec_dims = ops_train["decoder"]
+            n = n_train
             outs = cuda_lstm.decoder_lstm_fwd(h0, c0, wsum, b, t, dec_dims)
-            cluster = cuda_lstm.CLUSTERS["decoder_lstm_fwd"]
+            used_plan = plan(cuda_lstm, "decoder_lstm_fwd")
             allh, allc, gates = cuda_lstm.decoder_lstm_plain(h0, c0, wsum, b,
                                                              t)
-            err = compare_all(f"{model_type}.decoder_lstm_fwd",
+            err = compare_all(f"{label}.decoder_lstm_fwd",
                               zip(("allh", "allc", "gates"), outs,
                                   (allh, allc, gates)))
             macs = (t - 1) * n * 4 * sum(h * h for h in dec_dims)
@@ -2508,11 +2585,12 @@ def ablation_kernels(model_type, cfg, params, dev, smi):
             lib = functools.partial(decoder_library_ms, h0, c0, wsum, b, t,
                                     dec_dims)
             record("decoder_lstm_fwd", n, err, times, bnd, lib,
-                   dec_dims=dec_dims, cluster=cluster)
+                   dec_dims=dec_dims, plan=used_plan)
             dallh = torch.randn(allh.shape, generator=gen, device=dev)
             dec = cuda_lstm.decoder_lstm_bwd(wsum, gates, allc, dallh,
                                              dec_dims)
-            err = compare_all(f"{model_type}.decoder_lstm_bwd",
+            used_plan = plan(cuda_lstm, "decoder_lstm_bwd")
+            err = compare_all(f"{label}.decoder_lstm_bwd",
                               zip(("dgates", "dh0", "dc0"), dec,
                                   cuda_lstm.decoder_lstm_bwd_plain(
                                       wsum, gates, allc, dallh)),
@@ -2527,12 +2605,11 @@ def ablation_kernels(model_type, cfg, params, dev, smi):
             record("decoder_lstm_bwd", n, err, times, bnd,
                    functools.partial(decoder_library_ms, h0, c0, wsum, b, t,
                                      dec_dims, backward=True),
-                   cluster=cuda_lstm.CLUSTERS["decoder_lstm_bwd"])
+                   plan=used_plan)
     torch.cuda.synchronize()
     for name, run in library.items():
         out[name]["library_ms"] = run()
-    log({"phase": "ablation_kernels", "model_type": model_type,
-         "nvidia_smi": smi, **out})
+    log({"phase": phase, "model_type": label, "nvidia_smi": smi, **out})
     return out
 
 
@@ -3535,6 +3612,265 @@ def baseline_phase(cfg, dev, smi, data, tmp):
     if "you" not in replayed:
         raise AssertionError(f"no replayed epoch with a remainder step was "
                              f"held against the CPU: {sorted(replayed)}")
+    return out
+
+
+# Step 19: the predictor command's baselines (eflstm and self_attention:
+# one multi_lstm cell; mfn: the encode with no encoder cell), the flat SGD,
+# test_attention and multitrait (MFM at a vector output)
+PREDICTOR_TRAIN = {"eflstm": ("multi_lstm_fwd", "multi_lstm_bwd"),
+                   "self_attention": ("multi_lstm_fwd", "multi_lstm_bwd"),
+                   "mfn": ("mfm_encode_fwd", "mfm_encode_bwd",
+                           "mfm_encode_dw")}
+PREDICTOR_HIDDEN = 128
+PREDICTOR_DROP = 0.5
+# the best MFN configs' batch
+N_MFN = 128
+
+
+def serve_check(label, ckpt, kernel, rng):
+    """A checkpoint served through the ``Predictor``'s graphs over HTTP,
+    each reply against the CPU ``Predictor``'s; one launch of ``kernel`` a
+    padded chunk and no other recurrence; the padded 256-row predict's
+    median ms, ``device_latency``, the capture's ms and pool bytes.
+    Returns (the line's numbers, the serving launches of ``kernel``)."""
+    from factorized_tpu_torch.serve import Predictor
+
+    predictor = Predictor.from_checkpoint(ckpt)
+    reference = Predictor.from_checkpoint(ckpt, device="cpu")
+    cfg = predictor.cfg
+    t, d = cfg.seqlength, cfg.d_total
+    requests = [np.round(rng.normal(size=(r, t, d)), 3).astype(np.float32)
+                for r in ABLATION_SIZES]
+    X = np.round(rng.normal(size=(N_SERVE, t, d)), 3).astype(np.float32)
+    expected = split_rows(reference.predict(np.concatenate(requests)),
+                          requests)
+    (worst, batches), seconds, served = counted(
+        f"serve {label}", (kernel,),
+        lambda: serve_requests(predictor, expected, requests))
+    idle = {name: served[name] for name in SERVE_IDLE
+            if name != kernel and served[name]}
+    if idle:
+        raise AssertionError(f"serving {label} launched {idle}")
+    y, _, per_predict = counted(f"predict {label}", (kernel,),
+                                lambda: predictor.predict(X))
+    per_predict = {name: per_predict[name] for name in SERVE_IDLE}
+    if per_predict[kernel] != 1:
+        raise AssertionError(f"one padded predict of {label} launched "
+                             f"{per_predict}")
+    err = compare(f"serve.{label}.predict", torch.from_numpy(y),
+                  torch.from_numpy(reference.predict(X)))
+    return {"reply_shape": list(y.shape), "requests": len(requests),
+            "batches_run": batches[0],
+            "max_abs_err_vs_cpu": max(worst, err["max_abs_err"]),
+            "launches_per_padded_predict": per_predict,
+            "predict_ms": median_ms(lambda: predictor.predict(X)),
+            "device_latency": predictor.device_latency(X, iters=100),
+            **predictor.graph_stats()[N_SERVE], "http_s": seconds,
+            "test_mosi": (test_mosi_on(ckpt, t, reference)
+                          if cfg.model_type == "mfn" else None)}, \
+        served[kernel]
+
+
+def predictor_loss(forward):
+    """``train_predictor``'s regression loss over its ``forward``, with the
+    draws injected: (loss, loss)."""
+    from factorized_tpu_torch.ops.losses import l1_loss
+
+    def loss_fn(params, x, y, draws=None):
+        loss = l1_loss(forward(params, x, True, None, draws), y)
+        return loss, loss
+
+    return loss_fn
+
+
+def command_run(command, argv, run_id, kernels, tmp, printed_key=None):
+    """``python -m factorized_tpu_torch <command> <argv> --epochs 2`` in
+    this process, counted (``mosi_cli``): finite, falling train losses in
+    the run's log, every kernel of ``kernels`` launched, the second epoch
+    a graph replay, ``printed_key`` (a score line's start) printed.
+    Returns (its line's numbers, launches, the chunked loop, --out)."""
+    import os
+
+    runs = os.path.join(tmp, f"{command}_{run_id}")
+    argv = [*argv, "--epochs", str(TRAIN_EPOCHS)]
+    printed = io.StringIO()
+    with chunked_loops() as loops, contextlib.redirect_stdout(printed):
+        seconds, launches, _ = mosi_cli(
+            [*argv, "--seed", str(SEED), "--out", runs],
+            f"{command} {' '.join(argv)}", kernels, command=command)
+    records = epoch_records(os.path.join(runs, f"{run_id}.jsonl"))
+    losses = falling_finite(records, f"{command} {run_id}")
+    score = [line for line in printed.getvalue().splitlines()
+             if line.startswith(printed_key or "mae")]
+    if not score:
+        raise AssertionError(f"{command} {argv}: no score line printed: "
+                             f"{printed.getvalue()[-2000:]}")
+    loop = graph_replayed(loops, f"{command} {run_id}")
+    return {"command": [command, *argv], "train_loss": losses,
+            "valid": [r["valid_loss"] for r in records],
+            "lr": [r["lr"] for r in records], "score_lines": score[:3],
+            "launches": launches,
+            "epoch_launches": [per_kernel(e) for e in loop.epoch_launches],
+            "run_s": seconds}, launches, loop, runs
+
+
+def predictor_phase(cfg, dev, smi, tmp):
+    """Step 19. (a) The kernels at the shapes this step's paths give them
+    (``kernels_at``): the encode's train forward, reverse pass and weight
+    gradients at n = 128 for both ``best_mfn_mosi_config``s and its eval
+    at n = 256 for ``mae``; ``multi_lstm``'s train forward and backward
+    for one 128-unit cell over the 325-float MOSI input at n = 32 and 128.
+    (b) One train step's gradients on the card against the CPU's with the
+    same injected draws: ``eflstm`` and ``self_attention`` (n = 32),
+    ``mfn`` at both configs (n = 128) and ``multitrait``'s MFM at 17
+    traits (n = 32). (c) ``predictor --kind eflstm --optimizer sgd``,
+    ``--kind self_attention`` and ``--kind mfn --mode best --best mae
+    --save-ckpt``, 2 epochs each through the command: finite falling
+    losses, every kernel launched, the second epoch a replay; the flat SGD
+    through the graph loop against the host loop bit for bit; the ``mfn``
+    checkpoint scored by ``test_mosi`` and served against the CPU. (d)
+    ``test_attention``. (e) ``multitrait --style pom --save-ckpt`` and
+    ``--style iemocap``, ``--mode best``: MFM's encode and decoder kernels
+    launched, the ``mae: [..]`` line printed, the ``pom`` checkpoint
+    served (n, 17) against the CPU. (f) For each path its device ms and
+    launches a step, replayed epoch s, idle share, capture ms and pool
+    bytes (``path_times``; ``predictor`` lines). Returns {path:
+    launches}."""
+    import os
+
+    from factorized_tpu_torch import trainers
+    from factorized_tpu_torch.config import best_mfn_mosi_config
+    from factorized_tpu_torch.data import mosi, multitrait
+    from factorized_tpu_torch.models import baselines, mfm
+    from factorized_tpu_torch.models.common import mfn_drops, split_modalities
+    from factorized_tpu_torch.ops import cuda_mfn
+    from factorized_tpu_torch.ops.fused import encode_operands, lstm_operands
+    from factorized_tpu_torch.train import make_loss_fn
+
+    t, d = cfg.seqlength, cfg.d_total
+    rng = np.random.default_rng(SEED + 160)
+    mfn_cfgs = {k: best_mfn_mosi_config(k) for k in ("mae", "acc")}
+    out = {}
+
+    # (a) the kernels at the new shapes
+    t0 = time.perf_counter()
+    for kind, mcfg in mfn_cfgs.items():
+        mfn_params = mfm.MFM(mcfg, seed=SEED + 161, device=dev,
+                             model_type="mfn").tree()["mfn"]
+        kernels_at(
+            f"mfn_{kind}", mcfg,
+            lambda x: {"encode": encode_operands(
+                [], mfn_params, *split_modalities(x, mcfg.input_dims), ())},
+            dev, smi, N_SERVE if kind == "mae" else None, N_MFN,
+            phase="predictor_kernels")
+    cell = {k: v.to(dev) for k, v in baselines.eflstm_init(
+        torch.Generator().manual_seed(SEED + 162), d, PREDICTOR_HIDDEN,
+        1)["lstm"].items()}
+    for n in (N_TRAIN, N_MFN):
+        kernels_at(f"one_cell_n{n}", cfg,
+                   lambda x: {"multi_lstm": lstm_operands([cell], [x])},
+                   dev, smi, None, n, cells=lambda x: ([cell], [x]),
+                   phase="predictor_kernels")
+    log({"phase": "seconds", "step": "19a",
+         "seconds": time.perf_counter() - t0})
+
+    # (b) one train step's gradients, card against the CPU
+    t0 = time.perf_counter()
+    grads = {}
+    cpu = torch.Generator().manual_seed(SEED + 163)
+    for label, kind, pcfg, n in (
+            ("eflstm", "eflstm", cfg, N_TRAIN),
+            ("self_attention", "self_attention", cfg, N_TRAIN),
+            ("mfn_mae", "mfn", mfn_cfgs["mae"], N_MFN),
+            ("mfn_acc", "mfn", mfn_cfgs["acc"], N_MFN)):
+        params, forward = trainers._predictor(
+            kind, pcfg, d, PREDICTOR_HIDDEN, t, PREDICTOR_DROP, SEED)
+        x = torch.randn((t, n, d), generator=cpu)
+        y = torch.randn((n,), generator=cpu)
+        grads[label] = grads_vs_cpu(
+            f"{label}.train_step_grads_vs_cpu", predictor_loss(forward),
+            params, x, y, baselines.predictor_draws(
+                kind, pcfg, n, cpu, h=PREDICTOR_HIDDEN,
+                drop=PREDICTOR_DROP), dev)["max_abs_err"]
+    traits = len(multitrait.POM_TRAITS)
+    mt_cfg = cfg.replace(input_dims=multitrait.INPUT_DIMS,
+                         output_dim=traits)
+    x = torch.randn((t, N_TRAIN, mt_cfg.d_total), generator=cpu)
+    y = torch.randn((N_TRAIN, traits), generator=cpu)
+    grads["multitrait_pom"] = grads_vs_cpu(
+        "multitrait_pom.train_step_grads_vs_cpu",
+        make_loss_fn(mfm.mfm_apply, mt_cfg),
+        mfm.MFM(mt_cfg, seed=SEED + 164, device=dev).tree(), x, y, {
+            "encode_masks": cuda_mfn.make_dropout_masks(
+                cpu, t, N_TRAIN, (mt_cfg.att1_shape, mt_cfg.att2_shape,
+                                  mt_cfg.gamma1_shape, mt_cfg.gamma2_shape),
+                mfn_drops(mt_cfg)),
+            "mmd_noise": torch.randn(mfm.mmd_noise_shape(mt_cfg, N_TRAIN),
+                                     generator=cpu),
+            "zf_masks": zf_masks(mt_cfg, N_TRAIN, cpu)}, dev)["max_abs_err"]
+    log({"phase": "predictor_grads", "nvidia_smi": smi,
+         "max_abs_err": grads, "seconds": time.perf_counter() - t0})
+
+    # (c) the predictor command, (d) test_attention, (e) multitrait
+    runs = {
+        "eflstm_sgd": ("predictor", ["--kind", "eflstm", "--optimizer",
+                                     "sgd", "--mode", "best"], "eflstm_0",
+                       PREDICTOR_TRAIN["eflstm"], None),
+        "self_attention": ("predictor", ["--kind", "self_attention",
+                                         "--mode", "best"],
+                           "self_attention_0",
+                           PREDICTOR_TRAIN["self_attention"], None),
+        "mfn_mae": ("predictor", ["--kind", "mfn", "--mode", "best",
+                                  "--best", "mae", "--save-ckpt"], "mfn_0",
+                    PREDICTOR_TRAIN["mfn"], "mfm_encode_fwd"),
+        "test_attention": ("test_attention", [], "self_attention",
+                           PREDICTOR_TRAIN["self_attention"], None),
+        "multitrait_pom": ("multitrait", ["--style", "pom", "--mode", "best",
+                                          "--save-ckpt"], "pom_0",
+                           ABLATION_TRAIN["m_a"], "mfm_encode_fwd"),
+        "multitrait_iemocap": ("multitrait", ["--style", "iemocap", "--mode",
+                                              "best"], "iemocap_0",
+                               ABLATION_TRAIN["m_a"], None),
+    }
+    for label, (command, argv, run_id, kernels, serving) in runs.items():
+        t0 = time.perf_counter()
+        line, launches, loop, out_dir = command_run(
+            command, argv, run_id, kernels, tmp,
+            "mae: [" if command == "multitrait" else "mae")
+        out[label] = launches
+        if serving is not None:
+            ckpt = os.path.join(out_dir, "ckpt_" + run_id)
+            line["serve"], served = serve_check(label, ckpt, serving, rng)
+            out[f"{label}_serve"] = {serving: served}
+        t1 = time.perf_counter()
+        line.update(path_times(loop))
+        log({"phase": "predictor", "path": label, "nvidia_smi": smi, **line,
+             "grads_max_abs_err": grads.get(label.replace("_sgd", "")),
+             "seconds": {"all": time.perf_counter() - t0,
+                         "times": time.perf_counter() - t1}})
+
+    # the flat SGD: the graph loop against the host loop from one seed
+    t0 = time.perf_counter()
+
+    def eflstm_sgd(*data_cfg, **kw):
+        return trainers.train_predictor(
+            *data_cfg[:6], "eflstm", data_cfg[6], h=PREDICTOR_HIDDEN,
+            drop=PREDICTOR_DROP, lr=cfg.lr, optimizer="sgd", **kw)
+
+    data = mosi.get_data(t)
+    mcfg = cfg.replace(num_epochs=LOOP_EPOCHS)
+    host = trainer_run(eflstm_sgd, data, mcfg, dev, True)
+    graph = trainer_run(eflstm_sgd, data, mcfg, dev, False)
+    agree = loops_agree("eflstm sgd", host, graph)
+    if host[2] != graph[2]:
+        raise AssertionError(f"eflstm sgd: launches per epoch differ: host "
+                             f"{host[2]}, graph {graph[2]}")
+    if set(graph[1].optimizer.state_dict()["state"]) != {"trace"}:
+        raise AssertionError("the eflstm sgd run did not train on FlatSGD")
+    log({"phase": "predictor_sgd_loop", "nvidia_smi": smi, "bitwise": agree,
+         "launches_per_epoch": graph[2], "history": graph[0]["history"],
+         "seconds": time.perf_counter() - t0})
     return out
 
 

@@ -1,5 +1,6 @@
 """Command line of the port: ``python -m factorized_tpu_torch mosi``,
 ``... moud``, ``... you``, ``... mmmo``, ``... mosi_acc``, ``...
+predictor``, ``... test_attention``, ``... multitrait``, ``...
 test_mosi`` and ``... serve``.
 
 Ported subcommands: the datasets ``mosi``, ``moud``, ``you`` and ``mmmo``
@@ -11,13 +12,19 @@ dataset's synthetic set; ``--resume``, ``--ckpt-every`` and
 ``--save-ckpt``) with ``--type mfm``, ``kl``, ``kl_ef``, the ablations
 ``m_a``..``m_d``, ``--missing 1`` (with ``--type mfm``, ``s2s`` or
 ``bm``) and ``--zeros 1``; ``mosi_acc`` (``run_mosi_acc``: MOSI's labels
-binarized ``y >= 0``, the accuracy-keeping trainer); ``test_mosi``
-(``run_test_mosi``: score a checkpoint on the MOSI test set, then the
-latency probe and the on-device latency); and ``serve`` (``run_serve``,
-from a checkpoint of this package or an exported artifact, with
-``--autotune`` and ``--export``). Each runs on the CUDA card unless
-``--device`` says otherwise. ``mosi_sdk``, ``mosei_sdk``, ``--seeds``
-above 1, ``--bucket`` and ``--evolve`` exit with "not yet ported".
+binarized ``y >= 0``, the accuracy-keeping trainer); ``predictor``
+(``run_predictor``: the baselines ``--kind eflstm``, ``mfn`` and
+``self_attention`` through ``train_predictor``, ``--optimizer adam|sgd``,
+``--best mae|acc``); ``test_attention`` (``run_test_attention``);
+``multitrait`` (``run_multitrait``: ``--style pom|iemocap``, a vector
+output MFM); ``test_mosi`` (``run_test_mosi``: score a checkpoint on the
+MOSI test set, then the latency probe and the on-device latency); and
+``serve`` (``run_serve``, from a checkpoint of this package or an
+exported artifact, with ``--autotune`` and ``--export``). Each runs on
+the CUDA card unless ``--device`` says otherwise. ``mosi_sdk``,
+``mosei_sdk``, the multi-trait styles ``mosei_sdk`` and ``pom_sdk``,
+``--seeds`` above 1, ``--bucket`` and ``--evolve`` exit with "not yet
+ported".
 """
 
 from __future__ import annotations
@@ -43,6 +50,9 @@ DATASETS = {
 }
 # the JAX package's dataset subcommands that the port does not have yet
 NOT_YET_PORTED = ("mosi_sdk", "mosei_sdk")
+# the multi-trait styles of the JAX package (those of the SDK's .csd
+# files, "*_sdk", not yet ported)
+MULTITRAIT_STYLES = ("pom", "iemocap", "mosei_sdk", "pom_sdk")
 
 
 # the trainers of the JAX package's dispatch that the port has
@@ -87,10 +97,17 @@ def refuse_unported(args):
                              f"parallel/multiseed.py and multiconfig.py)")
 
 
+def refuse_sdk(name):
+    """Exit with "not yet ported" for a dataset or multi-trait style read
+    from the CMU-MultimodalSDK .csd files (``*_sdk``)."""
+    if name.endswith("_sdk"):
+        raise SystemExit(f"{name} is not yet ported: its reader of the "
+                         f"CMU-MultimodalSDK .csd files is the JAX "
+                         f"package's data/mmsdk.py")
+
+
 def run_not_ported(args):
-    raise SystemExit(f"{args.dataset} is not yet ported: its reader of the "
-                     f"CMU-MultimodalSDK .csd files is the JAX package's "
-                     f"data/mmsdk.py")
+    refuse_sdk(args.dataset)
 
 
 def base_config(args):
@@ -221,34 +238,37 @@ def dispatch_trainer(data, cfg, info, **kw):
     return getattr(trainers, name)(*data, cfg, **kw)
 
 
-def save_run(out, tag, cfg, res, logger):
-    """``--save-ckpt``: a trial's best parameters with the last Adam state
-    and step under ``<out>/ckpt_<tag>``, and what a resume reads back
-    (the last epoch's lr, the best validation number), as the JAX package
-    writes them."""
+def save_run(out, tag, cfg, res, logger,
+             resume=("_resume_lr", "_resume_best_valid")):
+    """``--save-ckpt``: a trial's best parameters with the last optimizer
+    state and step under ``<out>/ckpt_<tag>``, and of what a resume reads
+    back those the JAX package writes for the command (``resume``: the
+    last epoch's lr, the best validation number)."""
     from factorized_tpu_torch.utils.checkpoint import save_checkpoint
 
     path = f"{out}/ckpt_{tag}"
     meta_cfg = cfg.to_dict()
-    if res.get("history"):
+    if res.get("history") and "_resume_lr" in resume:
         meta_cfg["_resume_lr"] = res["history"][-1].get("lr")
-    if "best_valid" in res:
+    if "best_valid" in res and "_resume_best_valid" in resume:
         meta_cfg["_resume_best_valid"] = res["best_valid"]
     save_checkpoint(path, res["params"], opt_state=res["opt_state"],
                     step=res["step"], config=meta_cfg)
     logger.text(f"checkpoint saved to {path}")
 
 
-def run_trials(args, prefix, config_of, train, legacy_line=True):
-    """The JAX package's trial loop of ``run_dataset`` and
-    ``run_mosi_acc``: one trial in ``--mode single`` and ``best``,
-    ``--trials`` of them in ``--mode search`` (0: until stopped), each a
-    run id ``<prefix>_<trial>`` with seed ``--seed`` + trial, its config
-    ``config_of(rng)`` from one ``random.Random(--seed)``, logged (with
-    ``legacy_line`` also as the legacy JSON text) and trained by
-    ``train(cfg, logger=, seed=, resume_from=, snapshot=)``.
-    ``--resume``, ``--ckpt-every`` and ``--save-ckpt`` apply to every
-    trial."""
+def run_trials(args, prefix, config_of, train, legacy_line=True,
+               record=None, save=save_run):
+    """The JAX package's trial loop of ``run_dataset``, ``run_mosi_acc``,
+    ``run_predictor`` and ``run_multitrait``: one trial in ``--mode
+    single`` and ``best``, ``--trials`` of them in ``--mode search`` (0:
+    until stopped), each a run id ``<prefix>_<trial>`` with seed
+    ``--seed`` + trial, its config ``config_of(rng)`` from one
+    ``random.Random(--seed)``, logged (with ``legacy_line`` also as the
+    legacy JSON text; ``record``'s fields ahead of the config's) and
+    trained by ``train(cfg, logger=, seed=, resume_from=, snapshot=)``.
+    ``--resume``, ``--ckpt-every`` and ``--save-ckpt`` (``save(out, tag,
+    cfg, res, logger)``) apply to every trial."""
     from factorized_tpu_torch.utils.logging import RunLogger
 
     rng = random.Random(args.seed)
@@ -259,14 +279,14 @@ def run_trials(args, prefix, config_of, train, legacy_line=True):
         logger = RunLogger(args.out, run_id=tag)
         if legacy_line:
             logger.text(json.dumps(cfg.to_legacy(), default=str))
-        logger.record("config", **cfg.to_dict())
+        logger.record("config", **(record or {}), **cfg.to_dict())
         try:
             res = train(cfg, logger=logger, seed=args.seed + trial,
                         resume_from=args.resume,
                         snapshot=make_autosnapshot(args.out, tag, cfg,
                                                    args.ckpt_every))
             if args.save_ckpt:
-                save_run(args.out, tag, cfg, res, logger)
+                save(args.out, tag, cfg, res, logger)
         finally:
             logger.close()
         trial += 1
@@ -340,6 +360,143 @@ def run_mosi_acc(args):
         legacy_line=False)
 
 
+def run_predictor(args):
+    """The JAX package's ``run_predictor``: the discriminative baselines
+    (``--kind eflstm|mfn|self_attention``) on ``--dataset`` through
+    ``trainers.train_predictor`` in ``run_trials``, run ids
+    ``<kind>_<trial>``: a ``sample_search_config`` draw in ``--mode
+    search``, ``best_mfn_mosi_config(--best)`` for ``--mode best --kind
+    mfn``, else ``best_acc_mosi_config``, each with the dataset's input
+    dims, output dim and task, then ``--epochs`` and ``--batchsize``; the
+    lr ``--lr or cfg.lr or 0.01``. ``--save-ckpt`` is refused for a kind
+    other than ``mfn`` before any data loads; for ``mfn`` it writes
+    ``<out>/ckpt_mfn_<trial>`` with ``model_type`` "mfn", which
+    ``test_mosi`` and ``serve`` read."""
+    from factorized_tpu_torch import resolve_device, trainers
+    from factorized_tpu_torch.config import (best_acc_mosi_config,
+                                             best_mfn_mosi_config,
+                                             sample_search_config)
+
+    refuse_unported(args)
+    refuse_sdk(args.dataset)
+    if args.save_ckpt and args.kind != "mfn":
+        raise SystemExit(
+            "--save-ckpt is only supported for --kind mfn (the "
+            "eflstm/self_attention param shapes are not derivable "
+            "from a config alone); drop the flag")
+    device = resolve_device(args.device)
+    data = load_dataset(args.dataset, 20, args)
+    info = dataset_info(args.dataset, data, args)
+
+    def config_of(rng):
+        if args.mode == "search":
+            cfg = sample_search_config(args.dataset, rng)
+        elif args.mode == "best" and args.kind == "mfn":
+            cfg = best_mfn_mosi_config(args.best)
+        else:
+            cfg = best_acc_mosi_config()
+        return overridden(args, cfg.replace(
+            input_dims=info["input_dims"], output_dim=info["output_dim"],
+            task=info["task"]))
+
+    def train(cfg, **kw):
+        return trainers.train_predictor(
+            *data, args.kind, cfg, h=args.hidden, drop=args.drop,
+            lr=args.lr or cfg.lr or 0.01, optimizer=args.optimizer,
+            binary_threshold=info["threshold"] or 0.0,
+            threshold_mode=info["mode"], device=device, **kw)
+
+    def save(out, tag, cfg, res, logger):
+        save_run(out, tag, cfg.replace(model_type="mfn"), res, logger,
+                 resume=("_resume_lr",))
+
+    return run_trials(args, args.kind, config_of, train, legacy_line=False,
+                      record={"predictor_kind": args.kind}, save=save)
+
+
+def run_test_attention(args):
+    """The JAX package's ``run_test_attention``: ``self_attention`` on MOSI
+    through ``trainers.train_predictor`` at a default ``MFMConfig`` of
+    MOSI's input dims, batch ``--batchsize`` (128) and ``--epochs`` (100),
+    width ``--hidden``, dropout 0.5 and lr ``--lr`` (0.01), under the run
+    id ``self_attention``."""
+    from factorized_tpu_torch import resolve_device, trainers
+    from factorized_tpu_torch.config import MFMConfig
+    from factorized_tpu_torch.utils.logging import RunLogger
+
+    device = resolve_device(args.device)
+    data = load_dataset("mosi", 20, args)
+    cfg = MFMConfig(input_dims=dataset_info("mosi", data, args)["input_dims"],
+                    batchsize=args.batchsize or 128,
+                    num_epochs=args.epochs or 100)
+    logger = RunLogger(args.out, run_id="self_attention")
+    try:
+        trainers.train_predictor(*data, "self_attention", cfg,
+                                 h=args.hidden, drop=0.5,
+                                 lr=args.lr or 0.01, logger=logger,
+                                 seed=args.seed, device=device)
+    finally:
+        logger.close()
+    return 0
+
+
+def run_multitrait(args):
+    """The JAX package's ``run_multitrait`` for the POM- and IEMOCAP-style
+    sets (``--style pom|iemocap``, ``data/multitrait.py``): in
+    ``run_trials`` with run ids ``<style>_<trial>``, a
+    ``sample_search_config("mmmo")`` draw in ``--mode search``,
+    ``best_acc_mosi_config`` in ``--mode best``, ``--config`` (else the
+    defaults at seqlength 20) in ``--mode single``, each of ``--type``
+    with the set's input dims, then ``--epochs`` and ``--batchsize``;
+    trained by ``trainers.train_mfm_multitrait`` at ``--lr`` (1e-3 by
+    default). ``--feature-selection 0`` and ``--normalize-covarep`` are
+    refused before any load, as are the styles read from the SDK's .csd
+    files (``mosei_sdk``, ``pom_sdk``), ``--seeds`` above 1, ``--bucket``
+    and ``--evolve`` ("not yet ported"). ``--save-ckpt`` writes
+    ``<out>/ckpt_<style>_<trial>`` with the output dim the run trained
+    (the number of traits), so ``serve`` replies one column a trait."""
+    import numpy as np
+
+    from factorized_tpu_torch import resolve_device, trainers
+    from factorized_tpu_torch.config import (best_acc_mosi_config,
+                                             sample_search_config)
+    from factorized_tpu_torch.data import multitrait
+
+    if not args.feature_selection or args.normalize_covarep:
+        raise SystemExit(
+            "--feature-selection 0/--normalize-covarep only apply to "
+            "the mosi dataset (reference mfm_mosi.py:37,60-73); the "
+            "multitrait surface has no raw-feature path")
+    refuse_unported(args)
+    refuse_sdk(args.style)
+    base = base_config(args)
+    device = resolve_device(args.device)
+    data = multitrait.get_data(base.seqlength, data_root=args.data_root,
+                               style=args.style)
+    n_traits = int(np.asarray(data[1]).shape[1])
+
+    def config_of(rng):
+        if args.mode == "search":
+            cfg = sample_search_config("mmmo", rng, model_type=args.type)
+        elif args.mode == "best":
+            cfg = best_acc_mosi_config(model_type=args.type)
+        else:
+            cfg = base.replace(model_type=args.type)
+        return overridden(args, cfg.replace(input_dims=multitrait.INPUT_DIMS,
+                                            task="regression"))
+
+    def train(cfg, **kw):
+        return trainers.train_mfm_multitrait(*data, cfg, lr=args.lr,
+                                             device=device, **kw)
+
+    def save(out, tag, cfg, res, logger):
+        save_run(out, tag, cfg.replace(output_dim=n_traits), res, logger,
+                 resume=())
+
+    return run_trials(args, args.style, config_of, train, legacy_line=False,
+                      record={"style": args.style}, save=save)
+
+
 def run_test_mosi(args):
     """Score a checkpoint on the MOSI test set (synthetic when the real
     files are absent, as ``mosi``): regression, or classification of the
@@ -407,7 +564,8 @@ def run_serve(args):
 
 
 def add_training_args(sp):
-    """The arguments of the dataset subcommands and ``mosi_acc``."""
+    """The arguments of the dataset subcommands, ``mosi_acc``,
+    ``predictor``, ``test_attention`` and ``multitrait``."""
     sp.add_argument("--config", default=None,
                     help="JSON config (legacy schema accepted): --mode "
                          "single's configuration; in every mode its "
@@ -431,8 +589,10 @@ def add_training_args(sp):
     sp.add_argument("--epochs", type=int, default=None)
     sp.add_argument("--batchsize", type=int, default=None)
     sp.add_argument("--lr", type=float, default=None,
-                    help="Adam lr of mosi and mmmo (default 1e-3, "
-                         "torch's); moud and you take the config's")
+                    help="lr of mosi, mmmo and multitrait (default 1e-3, "
+                         "torch's Adam); moud and you take the config's; "
+                         "predictor this, else the config's, else 0.01; "
+                         "test_attention this, else 0.01")
     sp.add_argument("--seed", type=int, default=123)
     sp.add_argument("--data-root", default=None,
                     help="the dataset's files (the reference's layout); "
@@ -483,6 +643,39 @@ def build_parser():
                                          "(labels y >= 0)")
     add_training_args(sp)
     sp.set_defaults(func=run_mosi_acc, dataset="mosi")
+
+    sp = sub.add_parser("predictor",
+                        help="the EFLSTM, MFN and SelfAttention baselines")
+    add_training_args(sp)
+    sp.add_argument("--kind", default="mfn",
+                    choices=["eflstm", "mfn", "self_attention"])
+    sp.add_argument("--dataset", default="mosi",
+                    choices=[*DATASETS, *NOT_YET_PORTED],
+                    help="the dataset (the csd ones exit: not yet ported)")
+    sp.add_argument("--hidden", type=int, default=128,
+                    help="LSTM width of eflstm and self_attention")
+    sp.add_argument("--drop", type=float, default=0.5,
+                    help="dropout of eflstm's and self_attention's head")
+    sp.add_argument("--optimizer", default="adam", choices=["adam", "sgd"],
+                    help="the reference's acc variant trains with "
+                         "SGD+momentum (test_mosi_acc.py:285)")
+    sp.add_argument("--best", default="mae", choices=["mae", "acc"],
+                    help="which pinned MFN config --mode best uses")
+    sp.set_defaults(func=run_predictor)
+
+    sp = sub.add_parser("test_attention",
+                        help="the SelfAttention ablation on MOSI")
+    add_training_args(sp)
+    sp.add_argument("--hidden", type=int, default=128)
+    sp.set_defaults(func=run_test_attention)
+
+    sp = sub.add_parser("multitrait",
+                        help="POM/IEMOCAP-style multi-trait regression")
+    add_training_args(sp)
+    sp.add_argument("--style", default="pom", choices=MULTITRAIT_STYLES,
+                    help="pom or iemocap (the csd styles exit: not yet "
+                         "ported)")
+    sp.set_defaults(func=run_multitrait)
 
     sp = sub.add_parser("test_mosi",
                         help="score a checkpoint on the MOSI test set")

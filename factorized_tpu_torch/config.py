@@ -6,7 +6,8 @@ checkpoint metadata, ``from_json`` for the ``configs/*.json`` files (and
 the reference's legacy schema), ``to_legacy`` for the run log's first
 line, ``replace``, the derived sizes, the random-search draw
 ``sample_search_config`` (the same draws as the JAX package's for one
-``random.Random``) and the pinned MOSI config ``best_acc_mosi_config``.
+``random.Random``), the pinned MOSI config ``best_acc_mosi_config`` and
+the pinned MFN-baseline configs ``best_mfn_mosi_config``.
 """
 
 from __future__ import annotations
@@ -254,4 +255,37 @@ def best_acc_mosi_config(**overrides) -> MFMConfig:
         gamma2_shape=128, gamma2_drop=0.5,
         out_shape=64, out_drop=0.5,
     )
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def best_mfn_mosi_config(kind: str = "mae", **overrides) -> MFMConfig:
+    """The recorded best MFN-baseline configs on MOSI
+    (``test_mosi.py:537-547``): kind='mae' -> MAE 0.993 search result,
+    kind='acc' -> 77.0% binary accuracy result."""
+    if kind == "mae":
+        cfg = MFMConfig(
+            input_dims=[300, 5, 20], h_dims=[88, 48, 16], memsize=128,
+            windowsize=2, batchsize=128, num_epochs=100, lr=0.01,
+            momentum=0.9,
+            att1_shape=128, att1_drop=0.0,
+            att2_shape=64, att2_drop=0.2,
+            gamma1_shape=256, gamma1_drop=0.0,
+            gamma2_shape=64, gamma2_drop=0.2,
+            out_shape=64, out_drop=0.5,
+            model_type="mfn",
+        )
+    elif kind == "acc":
+        cfg = MFMConfig(
+            input_dims=[300, 5, 20], h_dims=[64, 8, 80], memsize=400,
+            windowsize=2, batchsize=128, num_epochs=100, lr=0.005,
+            momentum=0.9,
+            att1_shape=128, att1_drop=0.5,
+            att2_shape=128, att2_drop=0.2,
+            gamma1_shape=128, gamma1_drop=0.5,
+            gamma2_shape=128, gamma2_drop=0.5,
+            out_shape=256, out_drop=0.5,
+            model_type="mfn",
+        )
+    else:
+        raise ValueError(f"kind must be 'mae' or 'acc', got {kind!r}")
     return cfg.replace(**overrides) if overrides else cfg

@@ -1,3 +1,4 @@
 """Data adapters of the port: MOSI (``mosi``, the real files and the
-synthetic set), MOUD (``moud``), YouTube (``youtube``) and MMMO
-(``mmmo``), each with its synthetic set where its files are absent."""
+synthetic set), MOUD (``moud``), YouTube (``youtube``), MMMO (``mmmo``)
+and the POM- and IEMOCAP-style multi-trait sets (``multitrait``), each
+with its synthetic set where its files are absent."""

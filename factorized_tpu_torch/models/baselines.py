@@ -1,6 +1,6 @@
-"""The missing-modality baselines (port of ``seq2seq_*`` and
-``basic_missing_*`` of ``factorized_tpu/models/baselines.py``), eval and
-train forward.
+"""The baselines (port of ``seq2seq_*``, ``basic_missing_*``,
+``eflstm_*``, ``mfn_predictor_*`` and ``self_attention_*`` of
+``factorized_tpu/models/baselines.py``), eval and train forward.
 
 - ``s2s`` (reference ``mfm_model.py:887-958``): cross-modal translation
   only. Each modality's latent comes from an encoder over the other two
@@ -11,20 +11,37 @@ train forward.
 - ``bm`` (``mfm_model.py:960-1017``): the label predicted from each pair
   of modalities by its own ``zy``-wide encoder and two-layer head, MMD on
   the three latents. Returns ``(y_hat_nol, y_hat_noa, y_hat_nov, mmd)``.
+- the ``predictor`` command's discriminative baselines, each returning
+  its logits ``(n, output_dim)``: ``eflstm`` (``test_mosi.py:130-156``),
+  one LSTM over the concatenated input, then ``fc2(drop(relu(fc1(h))))``;
+  ``mfn_predictor`` (registered as ``"mfn"``, ``test_mosi.py:269-482``),
+  the MFN (``ops/mfn.py::mfn_apply``, the encode with no encoder cell)
+  and its two-layer ``out`` head; ``self_attention``
+  (``test_attention.py:266-404``), the batch-major Gram matrix of the
+  input, row-scaled by ``alpha (t, 1)``, re-weighting the sequence, then
+  ``eflstm``'s LSTM head. ``eflstm`` and ``self_attention`` take ``d``,
+  ``h`` and ``t`` rather than a config, so they stay out of the registry,
+  as in the JAX package.
 
 The JAX package runs these recurrences through ``lax.scan``; the port
 runs the three encoders of either model as one ``multi_lstm``
-(``fused_lstm_scan``, each cell's input product at its own width) and
-``s2s``'s three decoders as one ``decoder_lstm`` (``fused_decoder_scan``),
-the same function through the hand-written kernels (their plain versions
-on the CPU).
+(``fused_lstm_scan``, each cell's input product at its own width),
+``s2s``'s three decoders as one ``decoder_lstm`` (``fused_decoder_scan``)
+and the one LSTM of ``eflstm`` and ``self_attention`` as a
+``multi_lstm`` of one cell, the same function through the hand-written
+kernels (their plain versions on the CPU). ``self_attention``'s two Gram
+products are plain ``torch.bmm``, as they are plain XLA in the JAX
+package.
 
 Every random draw of a train forward has an injection point, in the
 order of the JAX package's ``subkeys``: ``mmd_noise`` (three Gaussian
 samples, each shaped like its latent, in the order the apply reads the
 latents) and ``zf_masks`` (``s2s``: fl's, fa's and fv's) or ``y_masks``
 (``bm``: the nol, noa and nov heads', all at ``zy_to_fy_dropout``, as in
-the reference); what is not handed in is drawn from the
+the reference); ``mask``, the one dropout mask after ``relu(fc1)`` of
+``eflstm`` and ``self_attention``; ``encode_masks`` (the MFN's four
+sites, ``cuda_mfn.make_dropout_masks``) then ``out_mask`` of
+``mfn_predictor``. What is not handed in is drawn from the
 ``torch.Generator``. In eval mode only the MMD samples are drawn.
 """
 
@@ -33,11 +50,19 @@ from __future__ import annotations
 import torch
 
 from factorized_tpu_torch.models.common import (encoder_latents, injected,
-                                                mmd_sum, split_modalities,
+                                                mfn_drops, mmd_sum, run_mfn,
+                                                split_modalities,
                                                 trio_decoders, zf_apply,
                                                 zf_init)
-from factorized_tpu_torch.ops.core import dropout_mask, mlp2_apply, mlp2_init
-from factorized_tpu_torch.ops.lstm import decoder_init, encoder_init
+from factorized_tpu_torch.ops import cuda_mfn
+from factorized_tpu_torch.ops.core import (dropout, dropout_mask,
+                                           linear_apply, linear_init,
+                                           mlp2_apply, mlp2_init,
+                                           uniform_fan_in)
+from factorized_tpu_torch.ops.fused import fused_lstm_scan
+from factorized_tpu_torch.ops.lstm import (decoder_init, encoder_init,
+                                           lstm_cell_init)
+from factorized_tpu_torch.ops.mfn import mfn_init
 
 _S2S_ENCODERS = ("encoder_la_to_v", "encoder_lv_to_a", "encoder_av_to_l")
 _BM_ENCODERS = ("encoder_la_to_y", "encoder_lv_to_y", "encoder_av_to_y")
@@ -148,3 +173,88 @@ def train_draws(cfg, n, generator):
             "y_masks": [dropout_mask(generator, (n, cfg.fy_size),
                                      cfg.zy_to_fy_dropout)
                         for _ in range(3)]}
+
+
+# ---------------------------------------------------------------- EFLSTM
+
+def eflstm_init(generator, d, h, output_dim):
+    """The parameter tree, keyed as the JAX package's ``eflstm_init``."""
+    return {"lstm": lstm_cell_init(generator, d, h),
+            "fc1": linear_init(generator, h, h),
+            "fc2": linear_init(generator, h, output_dim)}
+
+
+def _lstm_head(params, x, drop, train, generator, mask):
+    """``fc2(drop(relu(fc1(h_last))))`` of the LSTM ``params["lstm"]``
+    over time-major ``x``, its recurrence a ``multi_lstm`` of one cell."""
+    (h_last,) = fused_lstm_scan([params["lstm"]], [x])
+    out = torch.relu(linear_apply(params["fc1"], h_last))
+    out = dropout(out, drop, train, generator, mask)
+    return linear_apply(params["fc2"], out)
+
+
+def eflstm_apply(params, x, drop, *, generator=None, train=False,
+                 mask=None):
+    """x (t, n, d) time-major -> logits (n, output_dim)."""
+    return _lstm_head(params, x, drop, train, generator, mask)
+
+
+# ------------------------------------------------------- MFN predictor
+
+def mfn_predictor_init(generator, cfg):
+    """The parameter tree, keyed as the JAX package's
+    ``mfn_predictor_init``."""
+    return {"mfn": mfn_init(generator, cfg.input_dims, cfg.h_dims,
+                            cfg.memsize, cfg.windowsize, cfg.att1_shape,
+                            cfg.att2_shape, cfg.gamma1_shape,
+                            cfg.gamma2_shape),
+            "out": mlp2_init(generator, cfg.last_mfn_size, cfg.out_shape,
+                             cfg.output_dim)}
+
+
+def mfn_predictor_apply(params, x, cfg, *, generator=None, train=False,
+                        encode_masks=None, out_mask=None):
+    """x (t, n, d_total) time-major -> logits (n, output_dim): the MFN's
+    last_hs through the ``out`` head at ``out_drop``."""
+    x_l, x_a, x_v = split_modalities(x, cfg.input_dims)
+    last = run_mfn(params, x_l, x_a, x_v, cfg, train, generator,
+                   encode_masks)
+    return mlp2_apply(params["out"], last, drop=cfg.out_drop, train=train,
+                      generator=generator, mask=out_mask)
+
+
+# -------------------------------------------------------- SelfAttention
+
+def self_attention_init(generator, d, h, t, output_dim):
+    """The parameter tree, keyed as the JAX package's
+    ``self_attention_init``; ``alpha`` U(-1/sqrt(t), 1/sqrt(t)), as the
+    JAX package draws the memory the reference leaves uninitialised."""
+    return {"alpha": uniform_fan_in(generator, (t, 1), t),
+            "lstm": lstm_cell_init(generator, d, h),
+            "fc1": linear_init(generator, h, h),
+            "fc2": linear_init(generator, h, output_dim)}
+
+
+def self_attention_apply(params, x, drop, *, generator=None, train=False,
+                         mask=None):
+    """x BATCH-major (n, t, d), as the reference keeps this path
+    (``test_attention.py:344``) -> logits (n, output_dim)."""
+    gram = torch.bmm(x, x.transpose(1, 2))  # (n, t, t)
+    attended = torch.bmm(params["alpha"] * gram, x)
+    return _lstm_head(params, attended.transpose(0, 1), drop, train,
+                      generator, mask)
+
+
+def predictor_draws(kind, cfg, n, generator, h=None, drop=0.0):
+    """Draws to inject into one train forward of the predictor ``kind`` at
+    batch n, made from ``generator`` on its device in the order the apply
+    reads them: ``encode_masks`` and ``out_mask`` (``mfn``), or ``mask``
+    (``eflstm``, ``self_attention``: (n, h) at ``drop``)."""
+    if kind == "mfn":
+        return {"encode_masks": cuda_mfn.make_dropout_masks(
+                    generator, cfg.seqlength, n,
+                    (cfg.att1_shape, cfg.att2_shape, cfg.gamma1_shape,
+                     cfg.gamma2_shape), mfn_drops(cfg)),
+                "out_mask": dropout_mask(generator, (n, cfg.out_shape),
+                                         cfg.out_drop)}
+    return {"mask": dropout_mask(generator, (n, h), drop)}

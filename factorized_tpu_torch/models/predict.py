@@ -1,7 +1,8 @@
-"""The serving forward of the MFM family and the ablations: ``y_hat``
-alone, over operands packed once (the port's counterpart of the JAX
-``Predictor``'s jitted forward, in which XLA folds the packing into
-constants and drops what ``y_hat`` does not read).
+"""The serving forward of the MFM family, the ablations and the
+standalone MFN predictor: ``y_hat`` alone, over operands packed once
+(the port's counterpart of the JAX ``Predictor``'s jitted forward, in
+which XLA folds the packing into constants and drops what ``y_hat`` does
+not read).
 
 ``y_hat = decoded[3]`` reads only the label path, so this forward runs
 no MMD draw, no decoder and no latent that the label path does not read
@@ -23,7 +24,11 @@ MFM encode alone). The families:
   ``ftt::multi_lstm_eval`` over one input product, their ``fc1`` heads
   and the three z -> f MLPs each as one block-diagonal product, then
   ``m_b``'s two-layer head over [fl, fa, fv] or ``m_d``'s linear
-  ``fs_to_y``.
+  ``fs_to_y``;
+- ``"mfn_predictor"`` (the model type ``mfn``, the ``predictor``
+  command's MFN, whose output is y_hat): the MFN's three cells' input
+  product, the encode with no encoder cell, then its two-layer ``out``
+  head over [h, mem].
 
 ``YHat`` holds the operands as buffers, so ``torch.export`` carries them
 inside the artifact; the two recurrences are custom ops, the kernels on
@@ -45,7 +50,7 @@ from factorized_tpu_torch.ops.fused import (blockdiag, encode_cells,
 # the model types whose y_hat this forward computes, by family
 FAMILIES = {"mfm": "encode", "kl": "encode", "missing": "encode",
             "m_a": "mfn", "m_c": "mfn", "kl_ef": "early_fusion",
-            "m_b": "trio", "m_d": "trio"}
+            "m_b": "trio", "m_d": "trio", "mfn": "mfn_predictor"}
 _ENCODERS = ("encoder_l", "encoder_a", "encoder_v")
 _TRIO_ZF = ("zl_to_fl", "za_to_fa", "zv_to_fv")
 
@@ -54,8 +59,8 @@ def pack(params, cfg, model_type: str):
     """The operands of ``YHat``'s forward from a parameter tree, packed
     once: ``(operands, h_dims, z_tot)``, operands a dict of contiguous
     tensors (``w_<name>`` the encode's ``cuda_mfn.W_NAMES``; ``zy*``
-    only where a zy head is read; ``y1*`` only for a two-layer label
-    head)."""
+    only where a zy head is read; ``f*`` only where the z -> f MLP is;
+    ``y1*`` only for a two-layer label head)."""
     if model_type not in FAMILIES:
         raise ValueError(f"no y_hat forward for model type {model_type!r}; "
                          f"known: {sorted(FAMILIES)}")
@@ -65,6 +70,12 @@ def pack(params, cfg, model_type: str):
     spans = ((0, d_l), (d_l, d_l + d_a), (d_l + d_a, d_l + d_a + d_v))
     if family == "trio":
         return _pack_trio(params, cfg, model_type, spans)
+    if family == "mfn_predictor":
+        head = params["out"]
+        return _pack_encode(
+            params["mfn"], [], spans, cfg,
+            {"y1w": head["fc1"]["w"], "y1b": head["fc1"]["b"],
+             "y2w": head["fc2"]["w"], "y2b": head["fc2"]["b"]})
     zf = (params["zf"]["zy_to_fy"] if family in ("encode", "early_fusion")
           else params["zy_to_fy"])
     head = params["fy_to_y"]
@@ -80,21 +91,28 @@ def pack(params, cfg, model_type: str):
                    zyw=params["last_to_zy"]["w"],
                    zyb=params["last_to_zy"]["b"])
     else:
-        mfn = params["mfn_enc"]["mfn"]
         encoders = ([params["enc"][k]["lstm"] for k in _ENCODERS]
                     if family == "encode" else [])
-        cells = encode_cells(encoders, mfn)
-        h_dims = [c["wh"].shape[0] for c in cells]
-        z_tot = sum(h_dims[:len(encoders)])
-        wx, bx = input_projection(cells, spans[:len(encoders)] + spans,
-                                  cfg.d_total)
-        ops.update(wx=wx, bx=bx,
-                   zyw=params["mfn_enc"]["last_to_zy"]["w"],
+        ops.update(zyw=params["mfn_enc"]["last_to_zy"]["w"],
                    zyb=params["mfn_enc"]["last_to_zy"]["b"])
-        ops.update({f"w_{k}": v for k, v in
-                    encode_weights(cells, mfn).items()})
+        return _pack_encode(params["mfn_enc"]["mfn"], encoders, spans, cfg,
+                            ops)
     return ({k: v.detach().contiguous() for k, v in ops.items()}, h_dims,
             z_tot)
+
+
+def _pack_encode(mfn, encoders, spans, cfg, ops):
+    """``pack`` of a family that runs the encode: the ``encoders`` (over
+    the modalities) and the MFN's three cells as one input product, and
+    the encode's weights, beside the head's operands ``ops``."""
+    cells = encode_cells(encoders, mfn)
+    h_dims = [c["wh"].shape[0] for c in cells]
+    wx, bx = input_projection(cells, spans[:len(encoders)] + spans,
+                              cfg.d_total)
+    ops = dict(ops, wx=wx, bx=bx)
+    ops.update({f"w_{k}": v for k, v in encode_weights(cells, mfn).items()})
+    return ({k: v.detach().contiguous() for k, v in ops.items()}, h_dims,
+            sum(h_dims[:len(encoders)]))
 
 
 def _pack_trio(params, cfg, model_type, spans):
@@ -147,6 +165,7 @@ class YHat(nn.Module):
         self.family = FAMILIES[model_type]
         self.squeeze = cfg.task == "regression" and cfg.output_dim == 1
         self.zy_head = "zyw" in ops
+        self.zf = "f1w" in ops
         self.two_layer_head = "y1w" in ops
         for k, v in ops.items():
             self.register_buffer(k, v.to(device=device, dtype=torch.float32))
@@ -162,9 +181,10 @@ class YHat(nn.Module):
                 xp, [getattr(self, f"w_{k}") for k in cuda_mfn.W_NAMES],
                 self.z_tot, self.h_dims)
             last = torch.cat([h_last[:, self.z_tot:], mem], dim=1)
-        z = last @ self.zyw + self.zyb if self.zy_head else last
-        f = torch.relu(torch.relu(z @ self.f1w + self.f1b) @ self.f2w
-                       + self.f2b)
+        f = last @ self.zyw + self.zyb if self.zy_head else last
+        if self.zf:
+            f = torch.relu(torch.relu(f @ self.f1w + self.f1b) @ self.f2w
+                           + self.f2b)
         if self.two_layer_head:
             f = torch.relu(f @ self.y1w + self.y1b)
         y = f @ self.y2w + self.y2b

@@ -1,13 +1,17 @@
 """Model registry: string dispatch on ``cfg.model_type`` (port of
 ``factorized_tpu/models/registry.py``). Ported: ``mfm``, ``kl``,
-``kl_ef``, ``missing``, the ablations ``m_a``..``m_d`` and the baselines
-``s2s`` and ``bm``.
+``kl_ef``, ``missing``, the ablations ``m_a``..``m_d``, the baselines
+``s2s`` and ``bm``, and ``mfn``, the standalone MFN predictor. As in the
+JAX package, ``eflstm`` and ``self_attention`` are not registered: their
+trees take ``d``, ``h`` and ``t`` rather than a config
+(``models.baselines``).
 
 Apply returns, as in the JAX package: ``mfm``, ``kl``, ``kl_ef`` and the
 ablations give ``(decoded, reg_loss, missing_loss)``; ``missing`` gives
 ``(decoded, nol, noa, nov, mmd, missing_loss)``; ``s2s`` gives ``(nol,
 noa, nov, mmd)``, each a one-element list of a reconstruction; ``bm``
-gives ``(y_nol, y_noa, y_nov, mmd)``."""
+gives ``(y_nol, y_noa, y_nov, mmd)``; ``mfn`` gives its logits ``(n,
+output_dim)``."""
 
 from __future__ import annotations
 
@@ -24,10 +28,11 @@ MODELS = {
     "m_d": (ablations.m_d_init, ablations.m_d_apply),
     "s2s": (baselines.seq2seq_init, baselines.seq2seq_apply),
     "bm": (baselines.basic_missing_init, baselines.basic_missing_apply),
+    "mfn": (baselines.mfn_predictor_init, baselines.mfn_predictor_apply),
 }
 
 # names the JAX package registers that this port does not have yet
-NOT_YET_PORTED = ("mfn",)
+NOT_YET_PORTED = ()
 
 
 def get_model(name: str):

@@ -5,10 +5,11 @@ variants).
 A train step is the model's forward with dropout, the variant's loss
 (for ``"joint"``: ``disc + gen + lda_mmd * mmd``, the L1 label loss, the
 three weighted reconstruction MSEs and the MMD regulariser),
-``backward`` through the hand-written backward kernels, and one Adam
-update over the flat parameter vector (``FlatAdam``: the semantics of
+``backward`` through the hand-written backward kernels, and one update
+over the flat parameter vector (``FlatAdam``: the semantics of
 ``optax.flatten(optax.scale_by_adam(eps=1e-8))`` followed by ``p -= lr *
-u``). Parameters are a nested dict of leaf tensors, views of that
+u``; ``FlatSGD``: ``optax.flatten(optax.trace(momentum))``).
+Parameters are a nested dict of leaf tensors, views of that
 vector, updated in place. An epoch is a Python loop over device-resident
 batches (``TrainProgram``); ``ChunkedLoop`` is the JAX package's chunked
 loop of whole epochs with the eval, the best-keeper's select, the
@@ -191,42 +192,40 @@ def make_eval_fn(apply_fn, cfg, variant: str = "joint") -> Callable:
 
 # ------------------------------------------------------------ optimizer
 
-class FlatAdam:
-    """Adam over one flat float32 vector: the JAX package's
-    ``optax.flatten(optax.scale_by_adam(eps=1e-8))`` followed by ``p -= lr
-    * u`` (b1 0.9, b2 0.999, bias-corrected, one global step count).
+class _FlatOptimizer:
+    """What the flat optimizers share: the leaves of ``params`` moved into
+    one float32 buffer, ``state``, whose first view is ``flat`` and whose
+    other views are the optimizer's ``slots`` (each as long as ``flat``),
+    so the chunked loop's divergence gate copies the whole state at once.
+    Each leaf stays the same tensor, of the same shape and ``(d_in,
+    d_out)`` layout, requiring grad, with its storage a view of ``flat``
+    and its ``.grad`` a view of ``grad``; so the models, ``convert.py``
+    and the checkpoints see the same nested dict. ``zero_grad`` zeroes
+    ``grad`` (never to None) and backward adds into it in place, so a leaf
+    the loss does not reach gets a zero gradient, as under ``jax.grad``.
+    ``lr`` is a 0-d float32 tensor on the parameters' device that ``step``
+    reads, so a captured CUDA graph reads the lr of the moment, not the
+    one of its capture; float32, as the JAX package's chunked loop keeps
+    it (the product ``lr * u`` is float32 whatever the lr's type, so the
+    update is the same)."""
 
-    Building it moves the leaves of ``params`` into one buffer: each leaf
-    stays the same tensor, of the same shape and ``(d_in, d_out)`` layout,
-    requiring grad, with its storage a view of ``flat`` and its ``.grad``
-    a view of ``grad``; so the models, ``convert.py`` and the checkpoints
-    see the same nested dict. ``zero_grad`` zeroes ``grad`` (never to
-    None) and backward adds into it in place, so a leaf the loss does not
-    reach gets a zero gradient, as under ``jax.grad``, and its moments
-    and value move on with the count, as optax's do. ``flat``, ``mu`` and
-    ``nu`` are views of one buffer, ``state``, which the chunked loop's
-    divergence gate copies whole. ``lr`` is a 0-d float32 tensor on the
-    parameters' device that ``step`` reads, so a captured CUDA graph
-    reads the lr of the moment, not the one of its capture; float32, as
-    the JAX package's chunked loop keeps it (the product ``lr * u`` is
-    float32 whatever the lr's type, so the update is the same)."""
-
-    B1, B2, EPS = 0.9, 0.999, 1e-8
-
-    def __init__(self, params, lr: float):
+    def __init__(self, params, lr: float, slots):
         self.params = params
         ls = leaves(params)
         dev = ls[0].device
         for leaf in ls:
             if leaf.dtype != torch.float32 or leaf.device != dev:
-                raise ValueError(f"FlatAdam takes float32 leaves on one "
-                                 f"device, got {leaf.dtype} on "
-                                 f"{leaf.device}")
+                raise ValueError(f"{type(self).__name__} takes float32 "
+                                 f"leaves on one device, got {leaf.dtype} "
+                                 f"on {leaf.device}")
         n = sum(leaf.numel() for leaf in ls)
-        self.state = torch.zeros(3 * n, dtype=torch.float32, device=dev)
-        self.flat, self.mu, self.nu = self.state.split(n)
+        self.state = torch.zeros((1 + len(slots)) * n, dtype=torch.float32,
+                                 device=dev)
+        self.flat, *views = self.state.split(n)
+        self.slots = dict(zip(slots, views))
+        for name, view in self.slots.items():
+            setattr(self, name, view)
         self.grad = torch.zeros(n, dtype=torch.float32, device=dev)
-        self.count = torch.zeros((), dtype=torch.int32, device=dev)
         self.lr = torch.tensor(float(lr), dtype=torch.float32, device=dev)
         at = 0
         with torch.no_grad():
@@ -243,20 +242,6 @@ class FlatAdam:
 
     def zero_grad(self):
         self.grad.zero_()
-
-    @torch.no_grad()
-    def step(self):
-        """One update from ``grad``, in optax's order: the moments, the
-        count, the bias-corrected update, then ``p -= lr * u``."""
-        g = self.grad
-        self.mu.mul_(self.B1).add_(g, alpha=1.0 - self.B1)
-        self.nu.mul_(self.B2).addcmul_(g, g, value=1.0 - self.B2)
-        self.count.add_(1)
-        c = self.count.to(torch.float32)
-        mu_hat = self.mu / (1.0 - self.B1 ** c)
-        nu_hat = self.nu / (1.0 - self.B2 ** c)
-        u = mu_hat.div_(nu_hat.sqrt_().add_(self.EPS))
-        self.flat.sub_(u.mul_(self.lr))
 
     def flatten(self, tree):
         """A tree shaped like ``params`` as one vector like ``flat``, its
@@ -284,10 +269,9 @@ class FlatAdam:
         return build(self.params, 0)[0]
 
     def state_dict(self):
-        """The state of optax's ``ScaleByAdamState`` (count, mu, nu; the
-        moments flat, in the leaves' order) and the lr, copies."""
-        return {"state": {"count": self.count.clone(), "mu": self.mu.clone(),
-                          "nu": self.nu.clone()},
+        """The optimizer's state as optax keeps it (its slots flat, in the
+        leaves' order) and the lr, copies."""
+        return {"state": {k: v.clone() for k, v in self.slots.items()},
                 "lr": float(self.lr)}
 
     @torch.no_grad()
@@ -298,12 +282,11 @@ class FlatAdam:
         their addresses, which the leaves' views and a captured CUDA graph
         hold, so nothing is rebound."""
         st = state_dict["state"]
-        for name, buf in (("mu", self.mu), ("nu", self.nu)):
+        for name, buf in self.slots.items():
             if tuple(st[name].shape) != tuple(buf.shape):
                 raise ValueError(f"{name} is {tuple(st[name].shape)}, this "
                                  f"optimizer's {tuple(buf.shape)}")
             buf.copy_(st[name])
-        self.count.copy_(torch.as_tensor(st["count"]).reshape(()))
         self.set_lr(float(state_dict["lr"]))
         if params is not None:
             flat = self.flatten(params)
@@ -313,10 +296,81 @@ class FlatAdam:
             self.flat.copy_(flat)
 
 
-def make_optimizer(params, lr: float) -> FlatAdam:
-    """The flat Adam over ``params`` (see ``FlatAdam``), starting at
-    ``lr``; the scheduler changes its lr freely."""
-    return FlatAdam(params, lr)
+class FlatAdam(_FlatOptimizer):
+    """Adam over one flat float32 vector: the JAX package's
+    ``optax.flatten(optax.scale_by_adam(eps=1e-8))`` followed by ``p -= lr
+    * u`` (b1 0.9, b2 0.999, bias-corrected, one global step count).
+    ``flat``, ``mu`` and ``nu`` are views of ``state`` (see
+    ``_FlatOptimizer``); a leaf the loss does not reach still has its
+    moments and value move on with the count, as optax's do. ``count`` is
+    a 0-d int32 tensor beside ``state``, which the divergence gate keeps
+    too."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+
+    def __init__(self, params, lr: float):
+        super().__init__(params, lr, ("mu", "nu"))
+        self.count = torch.zeros((), dtype=torch.int32,
+                                 device=self.flat.device)
+
+    @torch.no_grad()
+    def step(self):
+        """One update from ``grad``, in optax's order: the moments, the
+        count, the bias-corrected update, then ``p -= lr * u``."""
+        g = self.grad
+        self.mu.mul_(self.B1).add_(g, alpha=1.0 - self.B1)
+        self.nu.mul_(self.B2).addcmul_(g, g, value=1.0 - self.B2)
+        self.count.add_(1)
+        c = self.count.to(torch.float32)
+        mu_hat = self.mu / (1.0 - self.B1 ** c)
+        nu_hat = self.nu / (1.0 - self.B2 ** c)
+        u = mu_hat.div_(nu_hat.sqrt_().add_(self.EPS))
+        self.flat.sub_(u.mul_(self.lr))
+
+    def state_dict(self):
+        """The state of optax's ``ScaleByAdamState`` (count, mu, nu) and
+        the lr, copies."""
+        out = super().state_dict()
+        out["state"] = {"count": self.count.clone(), **out["state"]}
+        return out
+
+    @torch.no_grad()
+    def load_state_dict(self, state_dict, params=None):
+        super().load_state_dict(state_dict, params)
+        self.count.copy_(torch.as_tensor(state_dict["state"]["count"])
+                         .reshape(()))
+
+
+class FlatSGD(_FlatOptimizer):
+    """SGD with momentum over one flat float32 vector: the JAX package's
+    ``optax.flatten(optax.trace(decay=momentum))`` followed by ``p -= lr *
+    u``, so ``trace = g + momentum * trace; p -= lr * trace`` (torch's
+    ``SGD(momentum=...)`` without dampening). ``flat`` and ``trace`` are
+    views of ``state`` (see ``_FlatOptimizer``). It keeps no step count:
+    optax's trace has none, and the chunked loop's gate copies one only
+    where the optimizer has it."""
+
+    def __init__(self, params, lr: float, momentum: float = 0.9):
+        super().__init__(params, lr, ("trace",))
+        self.momentum = float(momentum)
+
+    @torch.no_grad()
+    def step(self):
+        self.trace.mul_(self.momentum).add_(self.grad)
+        self.flat.sub_(self.trace * self.lr)
+
+
+def make_optimizer(params, lr: float, name: str = "adam",
+                   momentum: float = 0.9):
+    """The flat optimizer ``name`` over ``params`` (``FlatAdam`` or
+    ``FlatSGD`` with ``momentum``), starting at ``lr``; the scheduler
+    changes its lr freely. An unknown name raises, as the JAX package's
+    ``make_optimizer``."""
+    if name == "adam":
+        return FlatAdam(params, lr)
+    if name == "sgd":
+        return FlatSGD(params, lr, momentum)
+    raise ValueError(f"unknown optimizer {name!r}")
 
 
 def leaves(tree):
@@ -345,7 +399,8 @@ class TrainProgram:
     - ``evaluate(params, x, y, generator)`` -> the full-set validation
       loss of the variant.
 
-    ``optimizer`` is a ``FlatAdam``; an ``lr`` given sets its lr first,
+    ``optimizer`` is a ``FlatAdam`` or ``FlatSGD``; an ``lr`` given sets
+    its lr first,
     else its lr tensor is read as it stands.
     """
 
@@ -471,11 +526,12 @@ class Graphed:
 class ChunkedLoop:
     """The JAX package's chunked training loop
     (``factorized_tpu/train.py::_compile_chunked_loop``) for one program,
-    over device-resident batches, one ``FlatAdam`` and the device state of
+    over device-resident batches, one flat optimizer and the device state of
     the scheduler (``utils.scheduler.plateau_step``) and the best-keeper
     (``utils.checkpoint.keeps``). One epoch (``body``):
 
-    - a copy of the optimizer's state and count, the epoch's start;
+    - a copy of the optimizer's state and count (Adam's; ``FlatSGD`` has
+      none), the epoch's start;
     - the nb train steps on ``Xb[i]``, ``yb[i]``, read in place, and the
       optional remainder step, its tracked loss divided by nb;
     - the full-set eval;
@@ -520,7 +576,9 @@ class ChunkedLoop:
         self.best_flat = torch.zeros_like(optimizer.flat)
         self.alive = zero(torch.bool)
         self.start = torch.empty_like(optimizer.state)
-        self.start_count = torch.empty_like(optimizer.count)
+        self.step_count = getattr(optimizer, "count", None)
+        self.start_count = (None if self.step_count is None
+                            else torch.empty_like(self.step_count))
         self.records = torch.zeros((epochs, 5), dtype=torch.float64,
                                    device=dev)
         self.slot = zero(torch.int64)
@@ -545,7 +603,8 @@ class ChunkedLoop:
     def body(self):
         opt, (Xb, yb, rem), (Xv, yv) = self.opt, self.batches, self.valid_set
         self.start.copy_(opt.state)
-        self.start_count.copy_(opt.count)
+        if self.step_count is not None:
+            self.start_count.copy_(self.step_count)
         acc = self.program.train_epoch(self.params, opt, Xb, yb,
                                        self.generator, remainder=rem)
         valid = self.program.evaluate(self.params, Xv, yv, self.generator)
@@ -553,7 +612,9 @@ class ChunkedLoop:
             alive = self.alive
             ok = alive & torch.isfinite(acc) & torch.isfinite(valid)
             opt.state.copy_(torch.where(alive, opt.state, self.start))
-            opt.count.copy_(torch.where(alive, opt.count, self.start_count))
+            if self.step_count is not None:
+                self.step_count.copy_(torch.where(alive, self.step_count,
+                                                  self.start_count))
             take = keeps(valid, self.best, ok, self.mode, self.save_always)
             self.best.copy_(torch.where(take, valid, self.best))
             self.best_flat.copy_(torch.where(take, opt.flat, self.best_flat))

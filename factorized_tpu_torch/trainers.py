@@ -1,7 +1,8 @@
 """Experiment-level trainers of the port (port of ``train_mfm``,
 ``train_beta_vae``, ``train_mfm_missing``, ``train_mfm_test_zeros``,
-``train_mfm_ablation``, ``train_seq2seq``, ``train_basic_missing`` and
-``train_mfm_acc`` of ``factorized_tpu/trainers.py``, with its loops:
+``train_mfm_ablation``, ``train_seq2seq``, ``train_basic_missing``,
+``train_mfm_acc``, ``train_mfm_multitrait`` and ``train_predictor`` of
+``factorized_tpu/trainers.py``, with its loops:
 ``_loop`` runs
 ``_loop_chunked``, chunks of epochs on the device with one host read a
 chunk, on a CUDA card one graph replay an epoch, unless
@@ -18,8 +19,10 @@ validation loss where the JAX trainer returns one. Every random draw
 comes from one ``torch.Generator`` seeded from ``seed``. The test
 scores read ``y_hat`` of the serving forward (``models.predict.YHat``,
 the eval forward's label path); ``train_mfm_missing`` scores the eval
-forward's four decodes, ``train_basic_missing`` its three heads and
-``train_seq2seq`` its three cross-modal reconstructions.
+forward's four decodes, ``train_basic_missing`` its three heads,
+``train_seq2seq`` its three cross-modal reconstructions and
+``train_predictor`` the eval forward of ``eflstm`` and
+``self_attention``.
 
 Each trainer takes ``resume_from``, a checkpoint directory of this
 package's format with the optimizer state (``--save-ckpt``, or the
@@ -46,11 +49,12 @@ import numpy as np
 import torch
 
 from factorized_tpu_torch import resolve_device
-from factorized_tpu_torch.models import get_model
+from factorized_tpu_torch.models import baselines, get_model
 from factorized_tpu_torch.models.common import split_modalities
 from factorized_tpu_torch.models.mfm import MFM
 from factorized_tpu_torch.models.predict import YHat
-from factorized_tpu_torch.ops.losses import l2_loss
+from factorized_tpu_torch.ops.losses import (cross_entropy_loss, l1_loss,
+                                             l2_loss)
 from factorized_tpu_torch.train import (DEFAULT_EPOCH_CHUNK, ChunkedLoop,
                                         TrainProgram, make_batches,
                                         make_optimizer,
@@ -59,6 +63,7 @@ from factorized_tpu_torch.utils.checkpoint import (BestKeeper,
                                                    restore_checkpoint, to_cpu)
 from factorized_tpu_torch.utils.logging import RunLogger
 from factorized_tpu_torch.utils.metrics import (score_classification,
+                                                score_multitrait,
                                                 score_regression)
 from factorized_tpu_torch.utils.scheduler import ReduceLROnPlateau
 
@@ -269,19 +274,29 @@ def _run_seed(*tags):
 class _Setup:
     """What every trainer builds first: the shuffled, time-major data on
     the device, the model's parameters, its apply function, the generator,
-    Adam and the plateau scheduler."""
+    the flat optimizer (Adam unless ``optimizer`` says ``"sgd"``, with
+    ``cfg.momentum``) and the plateau scheduler. The parameters are the
+    registered model ``name``'s, seeded from ``seed``, unless ``params``
+    (a tree, e.g. of a model the registry does not hold, whose
+    ``apply_fn`` is then None) are given."""
 
     def __init__(self, data, cfg, name, *, lr, seed, include_remainder,
-                 device, labels=_labels):
+                 device, labels=_labels, params=None, optimizer="adam"):
         self.dev = dev = resolve_device(device)
         self.name, self.cfg = name, cfg
         Xtr, ytr, Xv, yv, self.Xte, yte = _prep_data(*data, seed)
-        _, self.apply_fn = get_model(name)
-        self.params = MFM(cfg, seed=seed, device=dev, model_type=name).tree()
+        if params is None:
+            _, self.apply_fn = get_model(name)
+            params = MFM(cfg, seed=seed, device=dev, model_type=name).tree()
+        else:
+            self.apply_fn = None
+            params = _to_device(params, dev)
+        self.params = params
         self.seed = seed
         self.generator = torch.Generator(device=dev).manual_seed(seed)
         self.lr = lr = 1e-3 if lr is None else lr
-        self.optimizer = make_optimizer(self.params, lr)
+        self.optimizer = make_optimizer(self.params, lr, optimizer,
+                                        cfg.momentum)
         self.scheduler = ReduceLROnPlateau(lr)
         Xb, yb, rem = make_batches(Xtr, labels(ytr, cfg), cfg.batchsize,
                                    include_remainder)
@@ -645,6 +660,141 @@ def train_mfm_acc(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg,
                    else run.params)
     metrics = score_classification(
         _predict_y(best_params, cfg, "mfm", run.Xte, run.dev), run.yte)
+    logger.record("final", **metrics)
+    return {"metrics": metrics, "params": best_params, "history": history,
+            "opt_state": run.optimizer.state_dict(),
+            "best_valid": keeper.best, "step": start + _steps(history)}
+
+
+def train_mfm_multitrait(X_train, y_train, X_valid, y_valid, X_test, y_test,
+                         cfg, *, lr: Optional[float] = None,
+                         logger: Optional[RunLogger] = None,
+                         seed: int = 123,
+                         resume_from: Optional[str] = None,
+                         snapshot=None,
+                         device=None):
+    """Multi-trait regression (the reference's POM/IEMOCAP-style
+    experiments, which exist there only as ``check.py``'s aggregation
+    modes): one MFM (``kl`` where ``cfg.model_type`` says so) with
+    ``output_dim`` the number of traits, the joint loss with the L1 label
+    term over the trait vector, float32 label vectors, no remainder
+    batch, Adam (lr 1e-3 unless ``lr``) and the best epoch kept; the test
+    y_hat, one column a trait, scored by ``score_multitrait`` (the
+    bracketed ``mae: [..]`` lines ``check.py`` parses)."""
+    logger = logger or RunLogger()
+    n_traits = np.asarray(y_train).shape[1]
+    cfg = cfg.replace(task="regression", output_dim=n_traits)
+    name = cfg.model_type if cfg.model_type in ("mfm", "kl") else "mfm"
+    run = _Setup((X_train, y_train, X_valid, y_valid, X_test, y_test), cfg,
+                 name, lr=lr, seed=seed, include_remainder=False,
+                 device=device, labels=lambda y, _: y.astype(np.float32))
+    start, keeper, history = run.single_stage(
+        TrainProgram(run.apply_fn, cfg, "joint"), cfg, logger, resume_from,
+        snapshot)
+    best_params = (keeper.best_params if keeper.best_params is not None
+                   else run.params)
+    y_hat = _predict_y(best_params, cfg, name, run.Xte, run.dev)
+    logger.text("scoring y_hat")
+    metrics = score_multitrait(y_hat, run.yte)
+    logger.record("final", **metrics)
+    return {"metrics": metrics, "params": best_params,
+            "opt_state": run.optimizer.state_dict(), "history": history,
+            "best_valid": keeper.best, "step": start + _steps(history)}
+
+
+def _predictor(kind, cfg, d, h, t, drop, seed):
+    """(initial parameters on the CPU, forward) of the predictor ``kind``:
+    ``forward(params, x, train, generator=None, draws=None)`` over the
+    time-major x, its logits squeezed for regression. ``mfn`` is the
+    registered model's, seeded as ``MFM`` seeds one; ``eflstm`` and
+    ``self_attention`` are drawn from a generator seeded ``seed`` (at
+    width ``h``, dropout ``drop``; ``self_attention`` turns the batch
+    batch-major inside its forward, as the JAX trainer does)."""
+    init_gen = torch.Generator().manual_seed(seed)
+    if kind == "mfn":
+        params = MFM(cfg, seed=seed, device="cpu", model_type="mfn").tree()
+
+        def logits(params, x, train, generator, draws):
+            return baselines.mfn_predictor_apply(
+                params, x, cfg, generator=generator, train=train, **draws)
+    elif kind == "eflstm":
+        params = baselines.eflstm_init(init_gen, d, h, cfg.output_dim)
+
+        def logits(params, x, train, generator, draws):
+            return baselines.eflstm_apply(params, x, drop,
+                                          generator=generator, train=train,
+                                          **draws)
+    elif kind == "self_attention":
+        params = baselines.self_attention_init(init_gen, d, h, t,
+                                               cfg.output_dim)
+
+        def logits(params, x, train, generator, draws):
+            return baselines.self_attention_apply(
+                params, x.transpose(0, 1), drop, generator=generator,
+                train=train, **draws)
+    else:
+        raise ValueError(f"unknown predictor kind {kind!r}")
+
+    def forward(params, x, train, generator=None, draws=None):
+        out = logits(params, x, train, generator, draws or {})
+        return out.squeeze(1) if cfg.task == "regression" else out
+
+    return params, forward
+
+
+def train_predictor(X_train, y_train, X_valid, y_valid, X_test, y_test, kind,
+                    cfg, *, h: int = 128,
+                    drop: float = 0.5,
+                    lr: float = 0.01,
+                    optimizer: str = "adam",
+                    logger: Optional[RunLogger] = None,
+                    seed: int = 123,
+                    binary_threshold: float = 0.0,
+                    threshold_mode: str = "ge",
+                    resume_from: Optional[str] = None,
+                    snapshot=None,
+                    device=None):
+    """The discriminative baselines under the task loss alone (L1 for
+    regression, cross-entropy for classification), through the flat
+    ``optimizer`` (``"adam"``, or ``"sgd"`` with ``cfg.momentum``, the
+    reference's ``test_mosi_acc.py:285``) at ``lr`` with the plateau
+    scheduler, no remainder batch, keeping the best epoch: ``kind`` the
+    standalone MFN (``"mfn"``, at ``cfg``'s widths), the early-fusion
+    LSTM (``"eflstm"``) or the Gram-matrix attention ablation
+    (``"self_attention"``), both of width ``h`` with dropout ``drop``.
+    The test score reads the kept parameters' eval forward (for ``mfn``
+    the serving forward, ``models.predict.YHat``)."""
+    logger = logger or RunLogger()
+    _, t, d = np.shape(X_train)
+    params, forward = _predictor(kind, cfg, d, h, t, drop, seed)
+    run = _Setup((X_train, y_train, X_valid, y_valid, X_test, y_test), cfg,
+                 kind, lr=lr, seed=seed, include_remainder=False,
+                 device=device, params=params, optimizer=optimizer)
+
+    def task_loss(pred, y):
+        if cfg.task == "classification":
+            return cross_entropy_loss(pred, y)
+        return l1_loss(pred, y)
+
+    def loss_fn(params, x, y, *, generator=None, draws=None):
+        loss = task_loss(forward(params, x, True, generator, draws), y)
+        return loss, loss
+
+    def eval_fn(params, x, y, *, generator=None):
+        return task_loss(forward(params, x, False), y)
+
+    start, keeper, history = run.single_stage(
+        TrainProgram(None, cfg, loss_fn=loss_fn, eval_fn=eval_fn), cfg,
+        logger, resume_from, snapshot)
+    best_params = (keeper.best_params if keeper.best_params is not None
+                   else run.params)
+    if kind == "mfn":
+        y_hat = _predict_y(best_params, cfg, kind, run.Xte, run.dev)
+    else:
+        with torch.no_grad():
+            y_hat = forward(_to_device(best_params, run.dev),
+                            run.on_device(run.Xte), False).cpu().numpy()
+    metrics = _score(y_hat, run.yte, cfg, binary_threshold, threshold_mode)
     logger.record("final", **metrics)
     return {"metrics": metrics, "params": best_params, "history": history,
             "opt_state": run.optimizer.state_dict(),

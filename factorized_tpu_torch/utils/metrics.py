@@ -1,12 +1,14 @@
-"""Regression and classification metrics and the reference-format score
-printers (port of ``factorized_tpu/utils/metrics.py``, all but the
-multi-trait part).
+"""Regression, classification and multi-trait metrics and the
+reference-format score printers (port of
+``factorized_tpu/utils/metrics.py``).
 
 ``score_regression`` prints MAE, Pearson correlation, the 7-class
 ``mult_acc``, the weighted F1 of the rounded values, then the binary
 confusion matrix, report and accuracy at a threshold;
 ``score_classification`` prints the confusion matrix, report and
-accuracy of the argmax labels. Both print in the lines the reference's
+accuracy of the argmax labels; ``score_multitrait`` the bracketed
+per-trait ``mae: [..]``, ``corr: [..]`` and ``mult_acc: [..]`` lines.
+All print in the lines the reference's
 log scrapers parse and return the metrics as a dict. Plain numpy, no
 sklearn.
 """
@@ -193,5 +195,39 @@ def score_classification(predictions, y_test, out=None):
     print("Classification Report :", file=out)
     print(classification_report(y_test, pred), file=out)
     print("Accuracy ", m["accuracy"], file=out)
+    out.flush()
+    return m
+
+
+def multitrait_metrics(predictions, y_test):
+    """Per-trait regression metrics for multi-trait datasets (the
+    reference's POM/IEMOCAP experiments, whose logs ``check.py:128-164``
+    aggregates): per-column mae / Pearson corr / round-and-compare
+    mult_acc over a (n, n_traits) prediction matrix."""
+    p = np.asarray(predictions)
+    y = np.asarray(y_test)
+    return {
+        "mae": [mae(p[:, i], y[:, i]) for i in range(y.shape[1])],
+        "corr": [pearson_corr(p[:, i], y[:, i]) for i in range(y.shape[1])],
+        "mult_acc": [mult_acc(p[:, i], y[:, i]) for i in range(y.shape[1])],
+    }
+
+
+def score_multitrait(predictions, y_test, out=None):
+    """Print the bracketed multi-trait log lines the reference's
+    ``check.py`` POM/IEMOCAP modes regex-parse (``check.py:132-140``:
+    ``mae: [..]`` with no 'test' in the line, ``corr: [..]``,
+    ``mult_acc: [..]``) and return the per-trait metrics dict."""
+    out = out or sys.stdout
+    p = np.asarray(predictions)
+    if not np.isfinite(p).all():
+        print("predictions non-finite (diverged run) - skipping score",
+              file=out)
+        nan_row = [float("nan")] * np.asarray(y_test).shape[1]
+        return {"mae": nan_row, "corr": nan_row, "mult_acc": nan_row}
+    m = multitrait_metrics(p, y_test)
+    print("mae:", [round(v, 5) for v in m["mae"]], file=out)
+    print("corr:", [round(v, 5) for v in m["corr"]], file=out)
+    print("mult_acc:", [round(v, 5) for v in m["mult_acc"]], file=out)
     out.flush()
     return m

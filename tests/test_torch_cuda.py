@@ -1160,3 +1160,109 @@ def test_baseline_forward_and_grads_match_the_cpu(cuda, model_type):
             "LAUNCHES": 2 if model_type == "s2s" else 0,
             "BWD_LAUNCHES": 1 if model_type == "s2s" else 0}
     assert {k: launched[(cuda_lstm, k)] for k in want} == want
+
+
+@pytest.mark.parametrize("kind,n_train", [("mae", 128), ("acc", 128)])
+def test_mfn_predictor_encode_kernels_match_plain(cuda, kind, n_train):
+    """The encode at ``best_mfn_mosi_config``'s widths, no encoder cell
+    (``acc``: mem 400, att_in 304, gamma_in 704): the train forward with
+    masks and residuals, the reverse pass and the weight gradients at the
+    configs' batch of 128, against their plain versions; for ``mae`` the
+    eval forward at the serving batch of 256 too."""
+    from factorized_tpu_torch.config import best_mfn_mosi_config
+    from factorized_tpu_torch.models.common import split_modalities
+    from factorized_tpu_torch.ops.fused import encode_operands
+
+    cfg = best_mfn_mosi_config(kind)
+    t = cfg.seqlength
+    mfn_params = mfm.MFM(cfg, seed=13, device=cuda,
+                         model_type="mfn").tree()["mfn"]
+    g = torch.Generator(device=cuda).manual_seed(14)
+
+    def operands(n):
+        x = torch.randn((t, n, cfg.d_total), generator=g, device=cuda)
+        return encode_operands([], mfn_params,
+                               *split_modalities(x, cfg.input_dims), ())
+
+    with torch.inference_mode():
+        if kind == "mae":
+            xp, weights, z_tot, h_dims = operands(256)
+            for a, b in zip(cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims),
+                            cuda_mfn.mfm_encode_plain(xp, weights, z_tot)):
+                torch.testing.assert_close(a, b, **TOL)
+        xp, weights, z_tot, h_dims = operands(n_train)
+        masks = cuda_mfn.make_dropout_masks(
+            g, t, n_train, cuda_mfn.sizes(weights)[:4], mfn_drops(cfg))
+        fwd = cuda_mfn.mfm_encode_res(xp, masks, weights, z_tot, h_dims)
+        ref = cuda_mfn.mfm_encode_res_plain(xp, masks, weights, z_tot)
+        for a, b in zip(fwd, ref):
+            torch.testing.assert_close(a, b, **TOL)
+        res = ref[2:]
+        dh = torch.randn((n_train, sum(h_dims)), generator=g, device=cuda)
+        dmem = torch.randn((n_train, cfg.memsize), generator=g, device=cuda)
+        dxp, deltas = cuda_mfn._launch_bwd(xp, weights, *res, dh, dmem,
+                                           z_tot, h_dims)
+        dxp_ref, deltas_ref = cuda_mfn.mfm_encode_bwd_steps_plain(
+            xp, weights, *res, dh, dmem, z_tot)
+        torch.testing.assert_close(dxp, dxp_ref, **GRAD)
+        torch.testing.assert_close(deltas, deltas_ref, **GRAD)
+        dw = cuda_mfn._launch_dw(weights, res[1], res[2], res[3], deltas_ref,
+                                 z_tot)
+        for k, v in cuda_mfn.mfm_encode_dw_plain(
+                res[1], res[2], res[3], deltas_ref, weights, z_tot).items():
+            torch.testing.assert_close(dw[k], v, **GRAD)
+
+
+@pytest.mark.parametrize("n", [32, 128])
+def test_one_cell_multi_lstm_matches_plain(cuda, n):
+    """``eflstm``'s and ``self_attention``'s recurrence: one 128-unit cell
+    over the 325-float MOSI input, train forward and backward."""
+    from factorized_tpu_torch.ops.fused import lstm_operands
+
+    cell = {k: v.to(cuda) for k, v in baselines.eflstm_init(
+        torch.Generator().manual_seed(15), 325, 128, 1)["lstm"].items()}
+    g = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn((20, n, 325), generator=g, device=cuda)
+    with torch.inference_mode():
+        xp, wh, h_dims = lstm_operands([cell], [x])
+        res = cuda_lstm.multi_lstm_fwd(xp, wh, h_dims, with_res=True)
+        ref = cuda_lstm.multi_lstm_plain(xp, wh, with_res=True)
+        for a, b in zip(res, ref):
+            torch.testing.assert_close(a, b, **TOL)
+        _, _, allc, gates = ref
+        dh = torch.randn((n, 128), generator=g, device=cuda)
+        torch.testing.assert_close(
+            cuda_lstm.multi_lstm_bwd(gates, wh, allc, dh, h_dims),
+            cuda_lstm.multi_lstm_bwd_plain(gates, wh, allc, dh), **GRAD)
+
+
+@pytest.mark.parametrize("kind", ["eflstm", "self_attention", "mfn"])
+def test_predictor_grads_on_the_card_match_the_cpu(cuda, kind):
+    """One ``train_predictor`` step's loss and gradients at full width
+    (``mfn``: ``best_mfn_mosi_config("acc")`` at n = 128; the others a
+    128-unit LSTM at n = 32) on the card against the CPU, the same
+    injected draws."""
+    from factorized_tpu_torch import trainers
+    from factorized_tpu_torch.config import best_mfn_mosi_config
+    from factorized_tpu_torch.ops.losses import l1_loss
+
+    cfg = (best_mfn_mosi_config("acc") if kind == "mfn"
+           else best_acc_mosi_config())
+    t, n, d = cfg.seqlength, (128 if kind == "mfn" else 32), cfg.d_total
+    params, forward = trainers._predictor(kind, cfg, d, 128, t, 0.5, 17)
+    g = torch.Generator().manual_seed(18)
+    x = torch.randn((t, n, d), generator=g)
+    y = torch.randn((n,), generator=g)
+    draws = baselines.predictor_draws(kind, cfg, n, g, h=128, drop=0.5)
+    losses, grads = [], []
+    for dev in ("cpu", cuda):
+        tree = {k: v.detach().to(dev).requires_grad_()
+                for k, v in to_state_dict(params).items()}
+        loss = l1_loss(forward(from_state_dict(tree), x.to(dev), True, None,
+                               _to(draws, dev)), y.to(dev))
+        loss.backward()
+        losses.append(loss.detach().cpu())
+        grads.append({k: v.grad.cpu() for k, v in tree.items()})
+    torch.testing.assert_close(losses[1], losses[0], **TOL)
+    for k in grads[0]:
+        torch.testing.assert_close(grads[1][k], grads[0][k], **GRAD)
