@@ -164,10 +164,30 @@ Run from the repository root: ``python3 chip_smoke.py``. It
     each path's device ms and launches a step and replayed epoch s
     (``predictor`` lines); the flat SGD's graph loop against its host
     loop bit for bit (``predictor_sgd_loop``);
-20. prints one JSON line on the ten kernels (their launches with step
-    19's paths counted), the ``nvidia-smi`` line, and last ``{"ok":
-    true, "device": {...}}``; a ``seconds`` line after each of steps 4,
-    6, 8, 10, 11, 12, 13, 14, 15, 16, 17, 18 and 19.
+20. lanes of seeds (``--seeds K``, ``parallel/multiseed.py``): each of
+    the seven kernel entry points over K = 8 lanes in one launch (lane k
+    a model of its own seed) against its lane plain version at full
+    width (the eval encode and ``m_b``'s eval trio at n = 256, the train
+    encode, its reverse pass and weight gradients, the decoder trio and
+    ``m_b``'s trio both ways at n = 32), each timed at 8 lanes, at 1 and
+    without a lane axis, beside its plain version and its bound at 8
+    (``lane_kernels``); one K = 8 ``mfm`` step's gradients on the card
+    against the CPU's with the same injected draws (``lane_grads``);
+    ``mosi --type mfm --seeds 8``, ``mosi --type m_b --seeds 4`` and
+    ``mosi_acc --seeds 4``, ``--mode best --epochs 2``, through the
+    command: every lane's loss finite and falling, each kernel launched
+    once a step for all the lanes, the second epoch a replay, each
+    path's device ms and launches a step, replayed epoch s and idle
+    share (``lanes``); ``--ckpt-every 1`` then ``--resume``, the
+    restored state bit for bit (``lanes_resume``); ``check --dir`` on the
+    ``mfm`` run printing the seeds' best (``lanes_check``); ``mfm`` at K
+    = 1, 2, 4 and 8 (``lane_scaling``);
+21. prints one JSON line on the ten kernels (their launches with the
+    paths of steps 19 and 20 counted) and the seven lane entry points at
+    K = 8 (``<kernel>.lanes8``, their launches step 20's lane launches),
+    the ``nvidia-smi`` line, and last ``{"ok": true, "device":
+    {...}}``; a ``seconds`` line after each of steps 4, 6, 8, 10 to
+    20.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1.
 """
@@ -432,6 +452,7 @@ def counted(path, kernels, fn):
     for module in {m for m, _ in counters().values()}:
         module.L2_LAUNCHES.clear()
         module.SCRATCH_LAUNCHES.clear()
+        module.LANE_LAUNCHES.clear()
     t0 = time.perf_counter()
     out = fn()
     seconds = time.perf_counter() - t0
@@ -938,7 +959,8 @@ def main():
                            c1_train_phase(cfg, smi, tmp)),
               17: lambda: cli_phase(smi, tmp),
               18: lambda: baseline_phase(cfg, dev, smi, data, tmp),
-              19: lambda: predictor_phase(cfg, dev, smi, tmp)}
+              19: lambda: predictor_phase(cfg, dev, smi, tmp),
+              20: lambda: lanes_phase(cfg, dev, smi, tmp)}
     results = {}
     with tempfile.TemporaryDirectory() as tmp:
         for step, run in phases.items():
@@ -949,10 +971,25 @@ def main():
     train_kernels, variant_kernels, probe_kernels = (results[6], results[8],
                                                      results[10])
     kernels = serve_kernels + train_kernels + variant_kernels + probe_kernels
-    # step 19's paths launch the main path's kernels at their shapes
+    # step 19's and step 20's paths launch the main path's kernels at
+    # their shapes (step 20's over lanes)
+    lane_kernels, lane_paths, lane_launches = results[20]
     for entry in kernels:
         entry["launches"] += sum(path.get(entry["name"], 0)
-                                 for path in results[19].values())
+                                 for path in [*results[19].values(),
+                                              *lane_paths.values()])
+    # each kernel entry point over 8 lanes (step 20a's train shapes), its
+    # launches the lane launches of step 20's paths
+    for name, (source, replaces) in LANE_KERNELS.items():
+        k = lane_kernels[name]
+        kernels.append({
+            "name": f"{name}.lanes{k['lanes']}", "route": "cuda",
+            "source": source, "replaces": replaces,
+            "launches": lane_launches.get(name, 0),
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": None})
     log({"kernels": kernels})
     print(smi, flush=True)
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3872,6 +3909,650 @@ def predictor_phase(cfg, dev, smi, tmp):
          "launches_per_epoch": graph[2], "history": graph[0]["history"],
          "seconds": time.perf_counter() - t0})
     return out
+
+
+# ---------------------------------------------------------- 20. lanes
+
+LANES = 8
+# the kernels of a lane path's train step and evaluation: mfm's and m_b's
+LANE_PATHS = {"mfm": ("mfm_encode_fwd", "mfm_encode_bwd", "mfm_encode_dw",
+                      "decoder_lstm_fwd", "decoder_lstm_bwd"),
+              "m_b": ("multi_lstm_fwd", "multi_lstm_bwd", "decoder_lstm_fwd",
+                      "decoder_lstm_bwd")}
+# the seven kernel entry points with a lane axis, each's kernels-line
+# name, source and the TPU kernel it replaces
+LANE_KERNELS = {
+    "mfm_encode_fwd": ("factorized_tpu_torch/csrc/mfm_encode_fwd.cu",
+                       "factorized_tpu/ops/pallas_mfn.py:169"),
+    "mfm_encode_bwd": ("factorized_tpu_torch/csrc/mfm_encode_bwd.cu",
+                       "factorized_tpu/ops/pallas_mfn.py:269"),
+    "mfm_encode_dw": ("factorized_tpu_torch/csrc/mfm_encode_bwd.cu",
+                      "factorized_tpu/ops/pallas_mfn.py:269"),
+    "decoder_lstm_fwd": ("factorized_tpu_torch/csrc/lstm_fwd.cu",
+                         "factorized_tpu/ops/pallas_lstm.py:272"),
+    "decoder_lstm_bwd": ("factorized_tpu_torch/csrc/lstm_bwd.cu",
+                         "factorized_tpu/ops/pallas_lstm.py:298"),
+    "multi_lstm_fwd": ("factorized_tpu_torch/csrc/lstm_fwd.cu",
+                       "factorized_tpu/ops/pallas_lstm.py:88"),
+    "multi_lstm_bwd": ("factorized_tpu_torch/csrc/lstm_bwd.cu",
+                       "factorized_tpu/ops/pallas_lstm.py:116"),
+}
+
+
+def lane_stack(items):
+    """Per-lane operands (tensors, dicts of tensors, or the same plain
+    value in every lane) stacked along a new lane dimension in front."""
+    first = items[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(items).contiguous()
+    if isinstance(first, dict):
+        return {k: lane_stack([it[k] for it in items]) for k in first}
+    return first
+
+
+def lane_first(tree):
+    """The first lane of stacked operands, its lane dimension kept."""
+    if isinstance(tree, torch.Tensor):
+        return tree[:1]
+    if isinstance(tree, dict):
+        return {key: lane_first(v) for key, v in tree.items()}
+    return tree
+
+
+def lane_kernel_phase(cfg, dev, smi, K):
+    """Step 20a: each of the seven kernel entry points over K lanes at
+    ``cfg``'s full width, lane k a model of its own seed and the input
+    shared, in one launch against the lane plain version (each lane's
+    plain version, on the card): the eval encode at n = 256, the train
+    encode (masks, residuals), its reverse pass and weight gradients, the
+    decoder trio both ways and ``m_b``'s encoder trio [32, 8, 80]
+    (``multi_lstm``, train and eval) both ways at n = 32; forward within
+    rtol 1e-4 / atol 1e-5, gradients within rtol 1e-3 / atol 2e-5. Each
+    timed at K lanes and at 1 (device ms, calls queued), beside its
+    single-lane launch (no lane axis), its plain version at K and its
+    bound at K (K times one lane's: K lanes' work and bytes). Returns
+    {kernel: numbers}."""
+    from factorized_tpu_torch.models import ablations, mfm
+    from factorized_tpu_torch.models.common import mfn_drops
+    from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
+
+    t, n, ne = cfg.seqlength, N_TRAIN, N_SERVE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    x = torch.randn((t, n, cfg.d_total), generator=gen, device=dev)
+    xe = torch.randn((t, ne, cfg.d_total), generator=gen, device=dev)
+    out = {}
+    with torch.inference_mode():
+        enc, dec, enc_e, multi, multi_e = [], [], [], [], []
+        for k in range(K):
+            p = mfm.MFM(cfg, seed=SEED + 100 + k, device=dev).tree()
+            e, d = mfm.kernel_operands(p, x, cfg)
+            enc.append(e[:2])
+            dec.append(d[:4])
+            enc_e.append(mfm.encode_operands(
+                [p["enc"][m]["lstm"] for m in mfm._ENCODERS],
+                p["mfn_enc"]["mfn"],
+                *mfm.split_modalities(xe, cfg.input_dims))[:2])
+            pb = mfm.MFM(cfg, seed=SEED + 200 + k, device=dev,
+                         model_type="m_b").tree()
+            multi.append(ablations.kernel_operands(pb, x, cfg,
+                                                   "m_b")["multi_lstm"][:2])
+            multi_e.append(ablations.kernel_operands(
+                pb, xe, cfg, "m_b")["multi_lstm"][:2])
+        z_tot, h_dims, dec_dims = e[2], e[3], d[4]
+        m_dims = ablations.kernel_operands(pb, x, cfg, "m_b")["multi_lstm"][2]
+        xp, w = lane_stack([a[0] for a in enc]), lane_stack([a[1] for a in
+                                                            enc])
+        xpe, we = lane_stack([a[0] for a in enc_e]), lane_stack(
+            [a[1] for a in enc_e])
+        h0, c0, wsum, b = (lane_stack([a[i] for a in dec]) for i in range(4))
+        mxp, mwh = lane_stack([a[0] for a in multi]), lane_stack(
+            [a[1] for a in multi])
+        mxpe, mwhe = lane_stack([a[0] for a in multi_e]), lane_stack(
+            [a[1] for a in multi_e])
+        w0 = {k: v[0] for k, v in w.items()}
+        s1, s2, s3, s4, mem = cuda_mfn.sizes(w0)
+        H = sum(h_dims)
+        masks = lane_stack([cuda_mfn.make_dropout_masks(
+            gen, t, n, (s1, s2, s3, s4), mfn_drops(cfg)) for _ in range(K)])
+
+        def lanes_plain(fn, *args):
+            return cuda_lstm._per_lane(fn, K, *args)
+
+        # the eval encode, n = 256
+        got = cuda_mfn.mfm_encode_lanes(xpe, we, z_tot, h_dims)
+        want = cuda_mfn.mfm_encode_lanes_plain(xpe, we, z_tot)
+        err_eval = compare_all("lanes.mfm_encode_fwd.eval",
+                               zip(("h_last", "mem_last"), got, want))
+        # the train encode, n = 32
+        fwd = cuda_mfn.mfm_encode_res_lanes(xp, masks, w, z_tot, h_dims)
+        fwd_ref = cuda_mfn.mfm_encode_res_lanes_plain(xp, masks, w, z_tot)
+        err_fwd = compare_all("lanes.mfm_encode_fwd.train", zip(
+            ("h_last", "mem_last", "allh", "allc", "allmem", "res"), fwd,
+            fwd_ref))
+        res = fwd_ref[2:]
+        dh = torch.randn((K, n, H), generator=gen, device=dev)
+        dmem = torch.randn((K, n, mem), generator=gen, device=dev)
+        dxp, deltas = cuda_mfn._launch_bwd(xp, w, *res, dh, dmem, z_tot,
+                                           h_dims, lanes=K)
+        bwd_ref = [cuda_mfn.mfm_encode_bwd_steps_plain(
+            xp[k], {m: v[k] for m, v in w.items()}, *(r[k] for r in res),
+            dh[k], dmem[k], z_tot) for k in range(K)]
+        dxp_ref = torch.stack([r[0] for r in bwd_ref])
+        deltas_ref = torch.stack([r[1] for r in bwd_ref])
+        err_bwd = compare_all("lanes.mfm_encode_bwd",
+                              [("dxp", dxp, dxp_ref),
+                               ("deltas", deltas, deltas_ref)],
+                              GRAD_RTOL, GRAD_ATOL)
+        dw = cuda_mfn._launch_dw(w, res[1], res[2], res[3], deltas_ref,
+                                 z_tot, K)
+        dw_ref = [cuda_mfn.mfm_encode_dw_plain(
+            res[1][k], res[2][k], res[3][k], deltas_ref[k],
+            {m: v[k] for m, v in w.items()}, z_tot) for k in range(K)]
+        err_dw = compare_all("lanes.mfm_encode_dw", [
+            (m, dw[m], torch.stack([r[m] for r in dw_ref]))
+            for m in cuda_mfn.DW_NAMES], GRAD_RTOL, GRAD_ATOL)
+        # the decoder trio, n = 32
+        dfwd = cuda_lstm.decoder_lstm_fwd_lanes(h0, c0, wsum, b, t,
+                                                dec_dims)
+        dfwd_ref = cuda_lstm.decoder_lstm_lanes_plain(h0, c0, wsum, b, t)
+        err_decf = compare_all("lanes.decoder_lstm_fwd", zip(
+            ("allh", "allc", "gates"), dfwd, dfwd_ref))
+        allh, allc, gates = dfwd_ref
+        dallh = torch.randn(allh.shape, generator=gen, device=dev)
+        dbwd = cuda_lstm.decoder_lstm_bwd_lanes(wsum, gates, allc, dallh,
+                                                dec_dims)
+        dbwd_ref = cuda_lstm.decoder_lstm_bwd_lanes_plain(wsum, gates, allc,
+                                                          dallh)
+        err_decb = compare_all("lanes.decoder_lstm_bwd", zip(
+            ("dgates", "dh0", "dc0"), dbwd, dbwd_ref), GRAD_RTOL, GRAD_ATOL)
+        # m_b's encoder trio: train (residuals) at n = 32, eval at 256
+        mf = cuda_lstm.multi_lstm_fwd_lanes(mxp, mwh, m_dims, True)
+        mf_ref = cuda_lstm.multi_lstm_lanes_plain(mxp, mwh, True)
+        err_mf = compare_all("lanes.multi_lstm_fwd.train", zip(
+            ("h_last", "allh", "allc", "gates"), mf, mf_ref))
+        mfe = cuda_lstm.multi_lstm_fwd_lanes(mxpe, mwhe, m_dims)
+        mfe_ref = cuda_lstm.multi_lstm_lanes_plain(mxpe, mwhe)
+        err_mfe = compare("lanes.multi_lstm_fwd.eval", mfe, mfe_ref)
+        _, mallh, mallc, mgates = mf_ref
+        dhl = torch.randn(mf_ref[0].shape, generator=gen, device=dev)
+        mb = cuda_lstm.multi_lstm_bwd_lanes(mgates, mwh, mallc, dhl, m_dims)
+        mb_ref = cuda_lstm.multi_lstm_bwd_lanes_plain(mgates, mwh, mallc,
+                                                      dhl)
+        err_mb = compare("lanes.multi_lstm_bwd", mb, mb_ref, GRAD_RTOL,
+                         GRAD_ATOL)
+        torch.cuda.synchronize()
+
+        # each call at K lanes, at 1 lane, and (lane 0) with no lane axis
+        calls = {
+            "mfm_encode_fwd.eval": (
+                lambda o: cuda_mfn.mfm_encode_lanes(o[0], o[1], z_tot,
+                                                    h_dims),
+                (xpe, we),
+                lambda: cuda_mfn.mfm_encode(xpe[0], {m: v[0] for m, v in
+                                                     we.items()}, z_tot,
+                                            h_dims),
+                lambda: cuda_mfn.mfm_encode_lanes_plain(xpe, we, z_tot)),
+            "mfm_encode_fwd": (
+                lambda o: cuda_mfn.mfm_encode_res_lanes(o[0], o[1], o[2],
+                                                        z_tot, h_dims),
+                (xp, masks, w),
+                lambda: cuda_mfn.mfm_encode_res(xp[0], masks[0], w0, z_tot,
+                                                h_dims),
+                lambda: cuda_mfn.mfm_encode_res_lanes_plain(xp, masks, w,
+                                                            z_tot)),
+            "mfm_encode_bwd": (
+                lambda o: cuda_mfn._launch_bwd(*o, z_tot, h_dims,
+                                               lanes=o[0].shape[0]),
+                (xp, w, *res, dh, dmem),
+                lambda: cuda_mfn._launch_bwd(xp[0], w0, *(r[0] for r in res),
+                                             dh[0], dmem[0], z_tot, h_dims),
+                lambda: [cuda_mfn.mfm_encode_bwd_steps_plain(
+                    xp[k], {m: v[k] for m, v in w.items()},
+                    *(r[k] for r in res), dh[k], dmem[k], z_tot)
+                    for k in range(K)]),
+            "mfm_encode_dw": (
+                lambda o: cuda_mfn._launch_dw(o[0], o[1], o[2], o[3], o[4],
+                                              z_tot, o[1].shape[0]),
+                (w, res[1], res[2], res[3], deltas_ref),
+                lambda: cuda_mfn._launch_dw(w0, res[1][0], res[2][0],
+                                            res[3][0], deltas_ref[0],
+                                            z_tot),
+                lambda: [cuda_mfn.mfm_encode_dw_plain(
+                    res[1][k], res[2][k], res[3][k], deltas_ref[k],
+                    {m: v[k] for m, v in w.items()}, z_tot)
+                    for k in range(K)]),
+            "decoder_lstm_fwd": (
+                lambda o: cuda_lstm.decoder_lstm_fwd_lanes(*o, t, dec_dims),
+                (h0, c0, wsum, b),
+                lambda: cuda_lstm.decoder_lstm_fwd(h0[0], c0[0], wsum[0],
+                                                   b[0], t, dec_dims),
+                lambda: cuda_lstm.decoder_lstm_lanes_plain(h0, c0, wsum, b,
+                                                           t)),
+            "decoder_lstm_bwd": (
+                lambda o: cuda_lstm.decoder_lstm_bwd_lanes(*o, dec_dims),
+                (wsum, gates, allc, dallh),
+                lambda: cuda_lstm.decoder_lstm_bwd(wsum[0], gates[0],
+                                                   allc[0], dallh[0],
+                                                   dec_dims),
+                lambda: cuda_lstm.decoder_lstm_bwd_lanes_plain(
+                    wsum, gates, allc, dallh)),
+            "multi_lstm_fwd": (
+                lambda o: cuda_lstm.multi_lstm_fwd_lanes(*o, m_dims, True),
+                (mxp, mwh),
+                lambda: cuda_lstm.multi_lstm_fwd(mxp[0], mwh[0], m_dims,
+                                                 True),
+                lambda: cuda_lstm.multi_lstm_lanes_plain(mxp, mwh, True)),
+            "multi_lstm_fwd.eval": (
+                lambda o: cuda_lstm.multi_lstm_fwd_lanes(*o, m_dims),
+                (mxpe, mwhe),
+                lambda: cuda_lstm.multi_lstm_fwd(mxpe[0], mwhe[0], m_dims),
+                lambda: cuda_lstm.multi_lstm_lanes_plain(mxpe, mwhe)),
+            "multi_lstm_bwd": (
+                lambda o: cuda_lstm.multi_lstm_bwd_lanes(*o, m_dims),
+                (mgates, mwh, mallc, dhl),
+                lambda: cuda_lstm.multi_lstm_bwd(mgates[0], mwh[0],
+                                                 mallc[0], dhl[0], m_dims),
+                lambda: cuda_lstm.multi_lstm_bwd_lanes_plain(mgates, mwh,
+                                                             mallc, dhl)),
+        }
+        times = {}
+        for name, (fn, ops, single, plain) in calls.items():
+            ops1 = tuple(lane_first(o) for o in ops)
+            times[name] = {
+                "device_ms": queued_ms(lambda: fn(ops)),
+                "ms": cuda_ms(lambda: fn(ops), 20),
+                "device_ms_1_lane": queued_ms(lambda: fn(ops1)),
+                "device_ms_no_lane_axis": queued_ms(single),
+                "plain_ms": cuda_ms(plain, 2, warmup=1)}
+
+    # bounds at K lanes: K lanes' useful float32 work and each input read
+    # once, each output written once (as steps 5-8 bound one lane)
+    rows = t * n
+    recur = 4 * sum(h * h for h in h_dims)
+    m2 = 2 * (H - z_tot)
+    dec_mac = (t - 1) * n * 4 * sum(h * h for h in dec_dims)
+    mh = 4 * sum(h * h for h in m_dims)
+    used = ("a1w1", "a1w2", "a2w1", "a2w2", "gw1", "g1w2", "g2w2")
+    bounds = {
+        "mfm_encode_fwd.eval": bound(
+            2 * K * ne * (t * encode_macs_per_row(w0, h_dims, z_tot)
+                          - recur),
+            nbytes(xpe, *off_diag(we), *got) + K * diag_bytes(h_dims)),
+        "mfm_encode_fwd": bound(
+            2 * K * (rows * encode_macs_per_row(w0, h_dims, z_tot)
+                     - n * recur),
+            nbytes(xp, masks, *off_diag(w), *fwd[:5], fwd[5])
+            + K * diag_bytes(h_dims)),
+        "mfm_encode_bwd": bound(
+            2 * K * ((t - 1) * n * 2 * recur
+                     + rows * ((s3 + s4) * mem + s2 * mem
+                               + (m2 + mem) * (s3 + s4) + m2 * s2
+                               + 2 * s1 * m2)),
+            nbytes(xp, *res, dh, dmem, *[w[k] for k in used], dxp, deltas)
+            + K * diag_bytes(h_dims)),
+        "mfm_encode_dw": bound(
+            2 * rows * sum(g.numel() for g in dw.values()),
+            nbytes(res[1], res[2], res[3], deltas_ref, *dw.values())),
+        "decoder_lstm_fwd": bound(2 * K * dec_mac,
+                                  nbytes(h0, c0, b, *dfwd)
+                                  + K * diag_bytes(dec_dims)),
+        "decoder_lstm_bwd": bound(2 * K * dec_mac,
+                                  nbytes(gates, allc, dallh, *dbwd)
+                                  + K * diag_bytes(dec_dims)),
+        "multi_lstm_fwd": bound(2 * K * (t - 1) * n * mh,
+                                nbytes(mxp, *mf) + K * diag_bytes(m_dims)),
+        "multi_lstm_fwd.eval": bound(2 * K * (t - 1) * ne * mh,
+                                     nbytes(mxpe, mfe)
+                                     + K * diag_bytes(m_dims)),
+        "multi_lstm_bwd": bound(2 * K * (t - 1) * n * mh,
+                                nbytes(mgates, mallc, dhl, mb)
+                                + K * diag_bytes(m_dims)),
+    }
+    errs = {"mfm_encode_fwd.eval": err_eval, "mfm_encode_fwd": err_fwd,
+            "mfm_encode_bwd": err_bwd, "mfm_encode_dw": err_dw,
+            "decoder_lstm_fwd": err_decf, "decoder_lstm_bwd": err_decb,
+            "multi_lstm_fwd": err_mf, "multi_lstm_fwd.eval": err_mfe,
+            "multi_lstm_bwd": err_mb}
+    for name in calls:
+        out[name] = {"lanes": K, "max_abs_err": errs[name]["max_abs_err"],
+                     **times[name], "bound_ms": bounds[name][0],
+                     "bound_by": bounds[name][1],
+                     "single_lane_bound_ms": bounds[name][0] / K}
+    log({"phase": "lane_kernels", "nvidia_smi": smi, "lanes": K,
+         "n_train": n, "n_eval": ne, "h_dims": h_dims, "dec_dims": dec_dims,
+         "multi_dims": m_dims, "kernels": out})
+    return out
+
+
+def lane_draws(cfg, K, n, generator):
+    """Every random draw of one train step of K ``mfm`` lanes, on the CPU,
+    each with the lane dimension in front: the encode's dropout masks, the
+    MMD samples and the z->f masks (zy's rate is 0: None)."""
+    from factorized_tpu_torch.models import mfm
+    from factorized_tpu_torch.models.common import mfn_drops
+    from factorized_tpu_torch.ops import cuda_mfn
+
+    sizes = (cfg.att1_shape, cfg.att2_shape, cfg.gamma1_shape,
+             cfg.gamma2_shape)
+    return {
+        "encode_masks": torch.stack([cuda_mfn.make_dropout_masks(
+            generator, cfg.seqlength, n, sizes, mfn_drops(cfg))
+            for _ in range(K)]),
+        "mmd_noise": torch.randn((K, *mfm.mmd_noise_shape(cfg, n)),
+                                 generator=generator),
+        "zf_masks": [None] + [torch.stack(z) for z in zip(
+            *(zf_masks(cfg, n, generator)[1:] for _ in range(K)))]}
+
+
+def lane_grads_vs_cpu(cfg, dev, K):
+    """Step 20b: one train step of K ``mfm`` lanes (``torch.func.vmap``
+    over the joint loss, the lane kernels) on the card against the CPU's
+    lane plain path, the same stacked parameters, batch and injected
+    draws: every lane's gradients within rtol 1e-3 / atol 2e-5."""
+    from factorized_tpu_torch.convert import to_state_dict
+    from factorized_tpu_torch.models import mfm
+    from factorized_tpu_torch.parallel.multiseed import _dims, stack_lanes
+    from factorized_tpu_torch.train import make_loss_fn
+    from torch.utils import _pytree as pytree
+
+    t, n = cfg.seqlength, N_TRAIN
+    cpu = torch.Generator().manual_seed(SEED + 95)
+    x = torch.randn((t, n, cfg.d_total), generator=cpu)
+    y = torch.randn((n,), generator=cpu)
+    stacked = stack_lanes([mfm.MFM(cfg, seed=SEED + 300 + k,
+                                   device="cpu").tree() for k in range(K)],
+                          "cpu")
+    draws = lane_draws(cfg, K, n, cpu)
+    loss_fn = make_loss_fn(mfm.mfm_apply, cfg, "joint")
+    grads = {}
+    for where in ("cpu", dev):
+        p = pytree.tree_map(lambda a: a.detach().to(where).requires_grad_(),
+                            stacked)
+        d = pytree.tree_map(lambda v: None if v is None else v.to(where),
+                            draws)
+
+        def lane(pp, xx, yy, dd):
+            return loss_fn(pp, xx, yy, draws=dd)
+
+        loss, _ = torch.func.vmap(lane, in_dims=(0, None, None, _dims(d)))(
+            p, x.to(where), y.to(where), d)
+        loss.sum().backward()
+        grads[str(where)] = {k: v.grad.cpu()
+                             for k, v in to_state_dict(p).items()}
+    return compare_all(f"lanes.train_step_grads_vs_cpu.K{K}",
+                       [(k, grads[str(dev)][k], grads["cpu"][k])
+                        for k in grads["cpu"]], GRAD_RTOL, GRAD_ATOL)
+
+
+@contextlib.contextmanager
+def lane_loops():
+    """Yields a list that gathers each ``multiseed.LaneLoop`` built while
+    the block runs."""
+    from factorized_tpu_torch.parallel import multiseed
+
+    loops, real = [], multiseed.LaneLoop
+
+    class Loop(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            loops.append(self)
+
+    multiseed.LaneLoop = Loop
+    try:
+        yield loops
+    finally:
+        multiseed.LaneLoop = real
+
+
+def lane_counts():
+    """Both modules' lane launches by kernel, summed."""
+    from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
+
+    out = dict(cuda_mfn.LANE_LAUNCHES)
+    for k, v in cuda_lstm.LANE_LAUNCHES.items():
+        out[k] = out.get(k, 0) + v
+    return out
+
+
+def lane_path_times(loop, steps=3, replays=3):
+    """A lane path's times from its ``LaneLoop`` (its epoch graph
+    captured): device ms and kernel launches a step and the device's idle
+    share (torch.profiler, the card's activity alone, over ``steps`` eager
+    steps of every lane on the first batch), replayed epoch s (host clock,
+    median of ``replays`` ``run(1)``s, the host read included), device ms
+    of a replayed epoch and its idle share against the unprofiled epoch's
+    wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    Xb, yb = loop.batches
+    programs, params, opt = loop.programs, loop.params, loop.opt
+    programs.step(params, opt, Xb[0], yb[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            programs.step(params, opt, Xb[0], yb[0])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if on_device(e)]
+    step_ms = sum(e.device_time_total for e in kernels) / 1e3 / steps
+    replay_s = []
+    for _ in range(replays):
+        t0 = time.perf_counter()
+        loop.run(1)
+        replay_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        loop.run(1)
+    replayed = [e for e in p.key_averages() if on_device(e)]
+    if not replayed:
+        raise AssertionError("torch.profiler saw no kernel of a replay")
+    device_ms = sum(e.device_time_total for e in replayed) / 1e3
+    epoch_s = float(np.median(replay_s))
+    return {"lanes": opt.lanes, "batches": int(Xb.shape[0]),
+            "batch": int(Xb.shape[2]),
+            "device_ms_per_step": step_ms,
+            "launches_per_step": sum(e.count for e in kernels) / steps,
+            "eager_step_device_idle_share": 1.0 - step_ms * steps / wall_ms,
+            "replayed_epoch_s": epoch_s, "replayed_epoch_s_all": replay_s,
+            "device_ms_per_replayed_epoch": device_ms,
+            "replayed_device_idle_share": 1.0 - device_ms / (epoch_s * 1e3),
+            "capture_ms": loop.epoch.capture_ms,
+            "graph_pool_bytes": loop.epoch.pool_bytes}
+
+
+def lane_epoch_launches(loop, kernels, label):
+    """Each kernel's launches in the loop's replayed epoch: once a train
+    step for all the lanes (the forward kernels once more for the
+    evaluation), whatever the lane count."""
+    nb = int(loop.batches[0].shape[0])
+    if loop.epoch.graph is None or len(loop.epoch_launches) < 2:
+        raise AssertionError(f"{label}: the second epoch was not a graph "
+                             f"replay")
+    seen = per_kernel(loop.epoch_launches[1])
+    want = {k: nb + (k in ("mfm_encode_fwd", "decoder_lstm_fwd",
+                           "multi_lstm_fwd")) for k in kernels}
+    got = {k: seen[k] for k in kernels}
+    if got != want:
+        raise AssertionError(f"{label}: a replayed epoch launched {got}, "
+                             f"not {want} ({nb} steps)")
+    return got
+
+
+def lane_command(command, argv, run_id, kernels, tmp, K):
+    """``<command> --seeds K --mode best --epochs 2`` through the command
+    line in this process, counted: every lane's train loss finite and
+    falling, each of ``kernels`` launched once a step for all the lanes
+    (``lane_epoch_launches``), the second epoch a replay, a final record
+    with the seeds' metrics. Returns (its line, the loop, --out)."""
+    import os
+
+    runs = os.path.join(tmp, f"lanes_{command}_{run_id}_{K}")
+    argv = [*argv, "--seeds", str(K), "--mode", "best", "--epochs",
+            str(TRAIN_EPOCHS), "--seed", str(SEED), "--out", runs]
+    printed = io.StringIO()
+    with lane_loops() as loops, contextlib.redirect_stdout(printed):
+        seconds, launches, _ = mosi_cli(argv, f"{command} {argv}", kernels,
+                                        command=command)
+    lane = lane_counts()  # counted() set them to 0 before the run
+    path = os.path.join(runs, f"{run_id}.jsonl")
+    records = epoch_records(path)
+    losses = np.asarray([r["train_loss"] for r in records])
+    valids = np.asarray([r["valid_loss"] for r in records])
+    if (losses.shape != (TRAIN_EPOCHS, K) or not np.isfinite(losses).all()
+            or not np.isfinite(valids).all()):
+        raise AssertionError(f"{command} --seeds {K}: losses {losses}, "
+                             f"valids {valids}")
+    if not (losses[-1] < losses[0]).all():
+        raise AssertionError(f"{command} --seeds {K}: a lane's train loss "
+                             f"did not fall: {losses.tolist()}")
+    with open(path) as f:
+        final = [r for r in map(json.loads, f) if r["kind"] == "final"]
+    if not final or len(final[-1]["per_seed"]) != K:
+        raise AssertionError(f"{command} --seeds {K}: no final record with "
+                             f"{K} seeds")
+    loop, = loops
+    epoch = lane_epoch_launches(loop, kernels, f"{command} --seeds {K}")
+    return {"command": [command, *argv], "train_loss": losses.tolist(),
+            "valid": valids.tolist(), "launches": launches,
+            "lane_launches": lane, "replayed_epoch_launches": epoch,
+            "best_seed": final[-1]["best_seed"],
+            "per_seed": final[-1]["per_seed"], "run_s": seconds}, loop, runs
+
+
+def lane_resume_check(tmp):
+    """Step 20d: ``mosi --seeds 2 --mode best --epochs 2 --ckpt-every 1``,
+    then ``--resume`` of its ``ckpt_auto_mosi_0`` for a third epoch: the
+    snapshot's meta has the JAX package's fields, and the restored
+    parameters, Adam state, best record and lrs equal the snapshot's bit
+    for bit."""
+    import os
+
+    from factorized_tpu_torch.parallel import multiseed
+    from factorized_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    runs = os.path.join(tmp, "lanes_resume")
+    common = ["--seeds", "2", "--mode", "best", "--seed", str(SEED)]
+    with contextlib.redirect_stdout(io.StringIO()):
+        mosi_cli([*common, "--epochs", "2", "--ckpt-every", "1", "--out",
+                  runs], "mosi --seeds 2 --ckpt-every 1", LANE_PATHS["mfm"])
+    ck = os.path.join(runs, "ckpt_auto_mosi_0")
+    state, meta = restore_checkpoint(ck)
+    fields = ("_ms_n_seeds", "_ms_best_valid", "_ms_lrs", "_ms_sched")
+    if meta["step"] != 2 or any(f not in meta["config"] for f in fields):
+        raise AssertionError(f"snapshot meta {meta}")
+    seen = {}
+    real = multiseed._multiseed_resume
+
+    def spy(resume_from, loop, n_seeds, logger):
+        start = real(resume_from, loop, n_seeds, logger)
+        opt = loop.opt
+        seen.update(
+            start=start,
+            params=same_bits(opt.flat, opt.flatten(state["params"]["live"])),
+            best=same_bits(loop.best_flat,
+                           opt.flatten(state["params"]["best"])),
+            mu=same_bits(opt.mu, state["opt_state"]["state"]["mu"]),
+            nu=same_bits(opt.nu, state["opt_state"]["state"]["nu"]),
+            count=int(opt.count) == int(state["opt_state"]["state"]["count"]),
+            lrs=same_bits(opt.lr, torch.tensor(meta["config"]["_ms_lrs"])),
+            best_valid=same_bits(loop.best, torch.tensor(
+                meta["config"]["_ms_best_valid"])))
+        return start
+
+    multiseed._multiseed_resume = spy
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            mosi_cli([*common, "--epochs", "3", "--resume", ck, "--out",
+                      os.path.join(tmp, "lanes_resumed")],
+                     "mosi --seeds 2 --resume", LANE_PATHS["mfm"])
+    finally:
+        multiseed._multiseed_resume = real
+    if not (seen.get("start") == 2 and all(
+            v for k, v in seen.items() if k != "start")):
+        raise AssertionError(f"resume: {seen}")
+    return seen
+
+
+def lanes_phase(cfg, dev, smi, tmp):
+    """Step 20: lanes of seeds (``--seeds K``, ``parallel/multiseed.py``).
+    (a) ``lane_kernel_phase`` at K = 8; (b) ``lane_grads_vs_cpu`` at
+    K = 8; (c) ``mosi --type mfm --seeds 8``, ``mosi --type m_b --seeds
+    4`` and ``mosi_acc --seeds 4``, ``--mode best --epochs 2``, through
+    the command (``lane_command``); (d) ``lane_resume_check``; (e)
+    ``check --dir`` on the ``mfm`` run's directory prints the best of its
+    seeds; (f) ``mfm``'s lane path at K = 1, 2, 4 (built directly) and 8
+    (the command's): device ms and launches a step, replayed epoch s and
+    the idle share (``lane_scaling``). Returns ({kernel: step 20a's
+    numbers}, {path: launches}, {kernel: lane launches})."""
+    import os
+
+    from factorized_tpu_torch import cli
+    from factorized_tpu_torch.data import mosi
+    from factorized_tpu_torch.models import get_model
+    from factorized_tpu_torch.parallel import multiseed
+    from factorized_tpu_torch.train import LaneAdam
+
+    t0 = time.perf_counter()
+    kernels = lane_kernel_phase(cfg, dev, smi, LANES)
+    t1 = time.perf_counter()
+    grads = lane_grads_vs_cpu(cfg, dev, LANES)
+    log({"phase": "lane_grads", "nvidia_smi": smi, "lanes": LANES,
+         "max_abs_err": grads["max_abs_err"],
+         "seconds": time.perf_counter() - t1, "kernels_seconds": t1 - t0})
+    runs, paths, lane_launches = {}, {}, {}
+    for label, (command, argv, run_id, path, K) in {
+            "mfm": ("mosi", ["--type", "mfm"], "mosi_0", "mfm", LANES),
+            "m_b": ("mosi", ["--type", "m_b"], "mosi_0", "m_b", 4),
+            "mosi_acc": ("mosi_acc", [], "mosi_acc_0", "mfm", 4)}.items():
+        line, loop, out = lane_command(command, argv, run_id,
+                                       LANE_PATHS[path], tmp, K)
+        if label == "mfm":
+            t1 = time.perf_counter()
+            line["times"] = times = {K: lane_path_times(loop)}
+            line["times_seconds"] = time.perf_counter() - t1
+        log({"phase": "lanes", "nvidia_smi": smi, "path": label, **line})
+        runs[label], paths[label] = out, line["launches"]
+        for k, v in line["lane_launches"].items():
+            lane_launches[k] = lane_launches.get(k, 0) + v
+    t1 = time.perf_counter()
+    resumed = lane_resume_check(tmp)
+    log({"phase": "lanes_resume", "nvidia_smi": smi, **resumed,
+         "seconds": time.perf_counter() - t1})
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        cli.main(["check", "--dir", runs["mfm"]])
+    with open(os.path.join(runs["mfm"], "mosi_0.jsonl")) as f:
+        final = [r for r in map(json.loads, f) if r["kind"] == "final"][-1]
+    best_mae = min(m["mae"] for m in final["per_seed"])
+    lines = printed.getvalue().splitlines()
+    if f"mae: {best_mae}" not in lines:
+        raise AssertionError(f"check --dir printed {lines}, not the seeds' "
+                             f"best mae {best_mae}")
+    log({"phase": "lanes_check", "nvidia_smi": smi, "printed": lines})
+    # mfm's lane path at K = 1, 2 and 4, built directly
+    data = mosi.get_data(cfg.seqlength)
+    _, apply_fn = get_model("mfm")
+    t1 = time.perf_counter()
+    for K in (1, 2, 4):
+        prep = multiseed.prepare_bucket_data(*data, cfg, seed=SEED,
+                                             device=dev)
+        params = multiseed.init_lanes("mfm", cfg, SEED, K, dev)
+        opt = LaneAdam(params, 1e-3)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        programs = multiseed.LanePrograms(apply_fn, cfg, gen)
+        loop = multiseed.LaneLoop(programs, params, opt, prep["Xb"],
+                                  prep["yb"], prep["Xv"], prep["yv"],
+                                  epochs=1)
+        loop.run(1)
+        loop.run(1)
+        lane_epoch_launches(loop, LANE_PATHS["mfm"], f"mfm K = {K}")
+        times[K] = lane_path_times(loop)
+        del loop, opt, params, programs
+    log({"phase": "lane_scaling", "nvidia_smi": smi, "path": "mfm",
+         "by_lanes": {str(k): times[k] for k in sorted(times)},
+         "seconds": time.perf_counter() - t1})
+    return kernels, paths, lane_launches
 
 
 def profile_steps(program, tree, opt, x, y, gen, steps=10):

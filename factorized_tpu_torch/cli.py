@@ -20,11 +20,15 @@ binarized ``y >= 0``, the accuracy-keeping trainer); ``predictor``
 output MFM); ``test_mosi`` (``run_test_mosi``: score a checkpoint on the
 MOSI test set, then the latency probe and the on-device latency); and
 ``serve`` (``run_serve``, from a checkpoint of this package or an
-exported artifact, with ``--autotune`` and ``--export``). Each runs on
+exported artifact, with ``--autotune`` and ``--export``); ``check``
+(``run_check``: the best metrics of every run log under ``--dir``, the
+port's copy of the JAX package's ``check.py``). ``--seeds K`` above 1
+trains K seeds as lanes of one program on the dataset subcommands and
+``mosi_acc`` (``parallel.multiseed.train_mfm_multiseed``). Each runs on
 the CUDA card unless ``--device`` says otherwise. ``mosi_sdk``,
 ``mosei_sdk``, the multi-trait styles ``mosei_sdk`` and ``pom_sdk``,
-``--seeds`` above 1, ``--bucket`` and ``--evolve`` exit with "not yet
-ported".
+``--bucket``, ``--evolve``, and ``--seeds`` above 1 on ``predictor``,
+``test_attention`` and ``multitrait`` exit with "not yet ported".
 """
 
 from __future__ import annotations
@@ -87,11 +91,12 @@ def trainer_name(cfg):
     return name
 
 
-def refuse_unported(args):
+def refuse_unported(args, seeds: bool = True):
     """Exit with "not yet ported" where ``args`` ask for a search strategy
-    or lanes of seeds the port does not have, before any data loads."""
-    for flag, on in (("--seeds", args.seeds > 1), ("--bucket", args.bucket),
-                     ("--evolve", args.evolve)):
+    the port does not have, or (``seeds``) lanes of seeds on a command
+    that does not take them, before any data loads."""
+    for flag, on in (("--seeds", seeds and args.seeds > 1),
+                     ("--bucket", args.bucket), ("--evolve", args.evolve)):
         if on:
             raise SystemExit(f"{flag} is not yet ported (the JAX package's "
                              f"parallel/multiseed.py and multiconfig.py)")
@@ -252,7 +257,7 @@ def save_run(out, tag, cfg, res, logger,
         meta_cfg["_resume_lr"] = res["history"][-1].get("lr")
     if "best_valid" in res and "_resume_best_valid" in resume:
         meta_cfg["_resume_best_valid"] = res["best_valid"]
-    save_checkpoint(path, res["params"], opt_state=res["opt_state"],
+    save_checkpoint(path, res["params"], opt_state=res.get("opt_state"),
                     step=res["step"], config=meta_cfg)
     logger.text(f"checkpoint saved to {path}")
 
@@ -295,18 +300,51 @@ def run_trials(args, prefix, config_of, train, legacy_line=True,
     return 0
 
 
+def train_lanes(args, data, cfg, prefix, *, logger, seed, resume_from,
+                snapshot, **kw):
+    """``--seeds K``: ``train_mfm_multiseed`` of ``cfg`` over K lanes in
+    place of the trial's trainer, its snapshot every ``--ckpt-every``
+    epochs into ``<out>/ckpt_auto_<prefix>_<trial>`` (the trial from
+    ``seed`` = ``--seed`` + trial), as the JAX package's command runs it;
+    ``kw`` goes to the trainer (lr, threshold, valid metric)."""
+    from factorized_tpu_torch.parallel.multiseed import train_mfm_multiseed
+
+    kw.update(logger=logger, seed=seed, n_seeds=args.seeds,
+              resume_from=resume_from, ckpt_every=args.ckpt_every)
+    if args.ckpt_every:
+        kw["ckpt_dir"] = f"{args.out}/ckpt_auto_{prefix}_{seed - args.seed}"
+    return train_mfm_multiseed(*data, cfg, **kw)
+
+
+def refuse_lanes(args, cfg):
+    """The JAX package's refusal of ``--seeds`` for a type the lane
+    trainer does not train (its semantics would change) or with
+    ``--missing``/``--zeros``."""
+    from factorized_tpu_torch.parallel.multiseed import MULTISEED_TYPES
+
+    if cfg.model_type not in MULTISEED_TYPES or cfg.missing or cfg.zeros:
+        raise SystemExit(
+            f"--seeds {args.seeds} is only supported for model "
+            f"types {'/'.join(MULTISEED_TYPES)} without "
+            f"--missing/--zeros; type {cfg.model_type!r} "
+            f"(missing={cfg.missing}, zeros={cfg.zeros}) would "
+            "otherwise silently train a single seed - drop "
+            "--seeds or switch types")
+
+
 def run_dataset(args):
     """The JAX package's ``run_dataset``: ``run_trials`` of
     ``trial_config`` with run ids ``<dataset>_<trial>``, each through
-    ``dispatch_trainer``. Adam's lr is the config's ``lr`` for the
-    classification sets (``moud``, ``you``: ``mfm_moud.py:466``) and
-    ``--lr`` (1e-3 by default) for ``mosi`` and ``mmmo``
-    (``mfm_mosi.py:403``)."""
+    ``dispatch_trainer``, or with ``--seeds`` above 1 through
+    ``train_lanes`` (``refuse_lanes`` first). Adam's lr is the config's
+    ``lr`` for the classification sets (``moud``, ``you``:
+    ``mfm_moud.py:466``) and ``--lr`` (1e-3 by default) for ``mosi`` and
+    ``mmmo`` (``mfm_mosi.py:403``)."""
     from factorized_tpu_torch import resolve_device
 
-    refuse_unported(args)
+    refuse_unported(args, seeds=False)
     base = base_config(args)
-    if args.mode == "single":
+    if args.mode == "single" and args.seeds <= 1:
         trial_config(args, base)  # a config no ported trainer takes exits
     device = resolve_device(args.device)
     data = load_dataset(args.dataset, base.seqlength, args)
@@ -314,6 +352,13 @@ def run_dataset(args):
 
     def train(cfg, **kw):
         lr = cfg.lr if info["task"] == "classification" else args.lr
+        if args.seeds > 1:
+            refuse_lanes(args, cfg)
+            if info["threshold"] is not None:
+                kw.update(binary_threshold=info["threshold"],
+                          threshold_mode=info["mode"])
+            return train_lanes(args, data, cfg, args.dataset, lr=lr,
+                               device=device, **kw)
         return dispatch_trainer(data, cfg, info, lr=lr, device=device, **kw)
 
     return run_trials(args, args.dataset,
@@ -329,7 +374,9 @@ def run_mosi_acc(args):
     ``best_acc_mosi_config``) in ``--mode single``, each with MOSI's input
     dims; ``--type``, ``--missing`` and ``--zeros`` are not read. The
     logged and saved config is the one handed to the trainer, which
-    trains it as a two-class classifier, as the JAX package records it."""
+    trains it as a two-class classifier, as the JAX package records it.
+    ``--seeds K`` trains K lanes with the accuracy kept (``train_lanes``,
+    lr 1e-3) and, as the JAX command, saves no checkpoint."""
     import numpy as np
 
     from factorized_tpu_torch import resolve_device, trainers
@@ -337,7 +384,7 @@ def run_mosi_acc(args):
                                              best_acc_mosi_config,
                                              sample_search_config)
 
-    refuse_unported(args)
+    refuse_unported(args, seeds=False)
     base = (MFMConfig.from_json(args.config) if args.config
             else best_acc_mosi_config())
     device = resolve_device(args.device)
@@ -353,11 +400,20 @@ def run_mosi_acc(args):
             cfg = best_acc_mosi_config() if args.mode == "best" else base
         return overridden(args, cfg.replace(input_dims=dims))
 
-    return run_trials(
-        args, "mosi_acc", config_of,
-        lambda cfg, **kw: trainers.train_mfm_acc(*data, cfg, device=device,
-                                                 **kw),
-        legacy_line=False)
+    def train(cfg, **kw):
+        if args.seeds > 1:
+            return train_lanes(
+                args, data, cfg.replace(task="classification",
+                                        output_dim=2), "mosi_acc",
+                valid_metric="accuracy", device=device, **kw)
+        return trainers.train_mfm_acc(*data, cfg, device=device, **kw)
+
+    def save(*a):
+        if args.seeds <= 1:  # the JAX command saves no lanes' run
+            save_run(*a)
+
+    return run_trials(args, "mosi_acc", config_of, train, legacy_line=False,
+                      save=save)
 
 
 def run_predictor(args):
@@ -563,6 +619,20 @@ def run_serve(args):
     return 0
 
 
+def run_check(args):
+    """The JAX package's ``check``: the best metrics of every run log
+    under ``--dir`` (``check.check_dir``, ``--condition`` one missing
+    modality's section), or with ``--multitrait`` per trait
+    (``check.best_multitrait``, ``--style pom|ie2``)."""
+    from factorized_tpu_torch.check import best_multitrait, check_dir
+
+    if args.multitrait:
+        best_multitrait(args.dir, style=args.style)
+    else:
+        check_dir(args.dir, condition=args.condition)
+    return 0
+
+
 def add_training_args(sp):
     """The arguments of the dataset subcommands, ``mosi_acc``,
     ``predictor``, ``test_attention`` and ``multitrait``."""
@@ -617,7 +687,9 @@ def add_training_args(sp):
                          "id> with the current parameters, optimizer "
                          "state and step")
     sp.add_argument("--seeds", type=int, default=1,
-                    help="lanes of seeds: not yet ported (above 1 exits)")
+                    help="train K seeds of each trial's config as lanes "
+                         "of one program (the dataset subcommands and "
+                         "mosi_acc; above 1 exits on the others)")
     sp.add_argument("--bucket", action="store_true",
                     help="shape-bucketed search: not yet ported (exits)")
     sp.add_argument("--evolve", type=int, default=0, metavar="RUNGS",
@@ -676,6 +748,17 @@ def build_parser():
                     help="pom or iemocap (the csd styles exit: not yet "
                          "ported)")
     sp.set_defaults(func=run_multitrait)
+
+    sp = sub.add_parser("check", help="the best metrics of the run logs "
+                                      "under --dir")
+    sp.add_argument("--dir", default="runs")
+    sp.add_argument("--condition", default=None, choices=["l", "a", "v"])
+    sp.add_argument("--multitrait", action="store_true",
+                    help="per-trait aggregation (reference pom/ie2 modes)")
+    sp.add_argument("--style", default=None, choices=["pom", "ie2"],
+                    help="multitrait report style: pom = directory-wide "
+                         "with x100 acc row; ie2 = per-file reset")
+    sp.set_defaults(func=run_check)
 
     sp = sub.add_parser("test_mosi",
                         help="score a checkpoint on the MOSI test set")

@@ -122,10 +122,11 @@ __device__ __forceinline__ void load_step(const ChainBwdArgs& a, int s,
 // otherwise makes every thread copy the argument struct to local memory
 // (a stack frame in ptxas's report, about 1% of the decoder chain:
 // PERF.md).
-template <int R, int C, bool D, bool L2, bool S = false>
+template <typename In, int R, int C, bool D, bool L2, bool S = false>
 __global__ void __launch_bounds__(kMaxThreads)
-    lstm_chain_bwd_kernel(const __grid_constant__ ChainBwdArgs a) {
+    lstm_chain_bwd_kernel(const __grid_constant__ In la) {
   static_assert(!S || (L2 && C == 1), "the scratch plan reads from L2");
+  const ChainBwdArgs& a = lane_of(la);
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
   const CellTile c =
@@ -206,9 +207,11 @@ size_t chain_bytes(const ChainBwdArgs& a, int threads, int C) {
 // the weights read from L2, else with them the state in the scratch
 // (lstm_common.cuh's chain_plan); kNeedScratch, launching nothing, while
 // the scratch is short of what that plan takes.
-template <int R, bool D>
-int launch(ChainBwdArgs a, const Scratch& scratch, int threads, int* fit,
-           cudaStream_t stream) {
+// a is lane 0's arguments, lane(k) lane k's (its pointers; the rest is
+// a's).
+template <int R, bool D, typename F>
+int launch(ChainBwdArgs a, F lane, int lanes, const Scratch& scratch,
+           int threads, int* fit, cudaStream_t stream) {
   size_t bytes = 0;
   auto at = [&](int c) { return chain_bytes<R, D>(a, threads, c); };
   const int plan = chain_plan(at, [&] { return at(kWeightsL2); }, &bytes);
@@ -216,28 +219,46 @@ int launch(ChainBwdArgs a, const Scratch& scratch, int threads, int* fit,
   const int C = plan_blocks(plan);
   const dim3 grid(((a.n + R - 1) / R) * C, a.cells.count);
   if (plan == kStateScratch) {
-    a.state = reserve(scratch, (long long)grid.x * grid.y, bytes, &a.slice);
+    a.state = reserve(scratch,
+                      (long long)grid.x * grid.y * lanes_at_once(lanes),
+                      bytes, &a.slice);
     if (a.state == nullptr) return kNeedScratch;
   }
-  using Kernel = void (*)(const ChainBwdArgs);
-  const Kernel kernels[6] = {
-      lstm_chain_bwd_kernel<R, 1, D, true>,
-      lstm_chain_bwd_kernel<R, 1, D, false>,
-      lstm_chain_bwd_kernel<R, 2, D, false>,
-      lstm_chain_bwd_kernel<R, 4, D, false>,
-      lstm_chain_bwd_kernel<R, 8, D, false>,
-      lstm_chain_bwd_kernel<R, 1, D, true, true>};
-  const Kernel kernel = chain_kernel(kernels, plan);
+  using A = ChainBwdArgs;
+  const LaneKernel<A> kernels[6] = {
+      FTT_LANE_KERNEL(A, lstm_chain_bwd_kernel, R, 1, D, true),
+      FTT_LANE_KERNEL(A, lstm_chain_bwd_kernel, R, 1, D, false),
+      FTT_LANE_KERNEL(A, lstm_chain_bwd_kernel, R, 2, D, false),
+      FTT_LANE_KERNEL(A, lstm_chain_bwd_kernel, R, 4, D, false),
+      FTT_LANE_KERNEL(A, lstm_chain_bwd_kernel, R, 8, D, false),
+      FTT_LANE_KERNEL(A, lstm_chain_bwd_kernel, R, 1, D, true, true)};
+  const LaneKernel<A> kernel = chain_kernel(kernels, plan);
   bytes = plan_smem(plan, bytes);
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), bytes);
+  cudaError_t err = allow_lane_smem(kernel, lanes, bytes);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_clusters(kernel, grid, threads, bytes, C, stream, a);
+  auto args = [&](int k) {
+    ChainBwdArgs b = a;
+    const ChainBwdArgs l = lane(k);
+    b.gates = l.gates;
+    b.allc = l.allc;
+    b.dallh = l.dallh;
+    b.dhlast = l.dhlast;
+    b.w = l.w;
+    b.dgates = l.dgates;
+    b.dh0 = l.dh0;
+    b.dc0 = l.dc0;
+    return b;
+  };
+  return (int)launch_lane_kernel(kernel, grid, threads, bytes, C, stream,
+                                 lanes, args);
 }
 
 bool valid(const ChainBwdArgs& a, int n_cells, const int* cell_dims,
-           int threads, const Scratch& scratch, ChainBwdArgs* out) {
+           int threads, int lanes, const long long* lane_strides,
+           const Scratch& scratch, ChainBwdArgs* out) {
   *out = a;
-  if (scratch.need == nullptr) return false;
+  if (scratch.need == nullptr || lanes < 1 || lane_strides == nullptr)
+    return false;
   *scratch.need = 0;
   return make_cells(n_cells, cell_dims, a.H, &out->cells) && a.n >= 1 &&
          threads >= 32 && threads <= kMaxThreads && threads % 32 == 0;
@@ -254,24 +275,39 @@ bool valid(const ChainBwdArgs& a, int n_cells, const int* cell_dims,
 // takes, and the launcher returns kNeedScratch (-1) without launching
 // while state_floats is short of it. fit (host memory, six ints,
 // lstm_common.cuh's Fit) gets the plan the chain ran on (a cluster,
-// kWeightsL2 or kStateScratch).
+// kWeightsL2 or kStateScratch), the same for every lane. Each array is
+// the lane-0 one of `lanes`; lane_strides (host memory) the floats from
+// one lane's array to the next, one for each array argument in order (0:
+// shared), as lstm_fwd.cu's launchers take them.
 extern "C" int decoder_lstm_bwd(const float* gates, const float* allc,
                                 const float* dallh, const float* wsum,
                                 float* dgates, float* dh0, float* dc0,
                                 float* state, long long state_floats,
                                 long long* state_need, int t, int n, int H,
                                 int n_cells, const int* cell_dims,
-                                int threads, int* fit, void* stream) {
+                                int threads, int lanes,
+                                const long long* lane_strides, int* fit,
+                                void* stream) {
   using namespace ftt;
   clear_fit(fit);
   const Scratch scratch = {state, state_floats, state_need};
-  const ChainBwdArgs given = {gates, allc, dallh, nullptr, wsum,
-                              dgates, dh0, dc0, phase_clocks(),
-                              nullptr, 0, t, n, H, {}};
+  const long long* ls = lane_strides;
+  auto lane = [=](int k) {
+    return ChainBwdArgs{at_lane(gates, ls, 0, k), at_lane(allc, ls, 1, k),
+                        at_lane(dallh, ls, 2, k), nullptr,
+                        at_lane(wsum, ls, 3, k),  at_lane(dgates, ls, 4, k),
+                        at_lane(dh0, ls, 5, k),   at_lane(dc0, ls, 6, k),
+                        phase_clocks(),           nullptr,
+                        0,                        t,
+                        n,                        H,
+                        {}};
+  };
   ChainBwdArgs a;
-  if (!valid(given, n_cells, cell_dims, threads, scratch, &a) || t < 2)
+  if (lane_strides == nullptr ||
+      !valid(lane(0), n_cells, cell_dims, threads, lanes, ls, scratch, &a) ||
+      t < 2)
     return (int)cudaErrorInvalidValue;
-  return launch<kDecoderRows, true>(a, scratch, threads, fit,
+  return launch<kDecoderRows, true>(a, lane, lanes, scratch, threads, fit,
                                     static_cast<cudaStream_t>(stream));
 }
 
@@ -281,17 +317,28 @@ extern "C" int multi_lstm_bwd(const float* gates, const float* allc,
                               float* dxp, float* state,
                               long long state_floats, long long* state_need,
                               int t, int n, int H, int n_cells,
-                              const int* cell_dims, int threads, int* fit,
+                              const int* cell_dims, int threads, int lanes,
+                              const long long* lane_strides, int* fit,
                               void* stream) {
   using namespace ftt;
   clear_fit(fit);
   const Scratch scratch = {state, state_floats, state_need};
-  const ChainBwdArgs given = {gates, allc, nullptr, dhlast, wh,
-                              dxp, nullptr, nullptr, phase_clocks(),
-                              nullptr, 0, t, n, H, {}};
+  const long long* ls = lane_strides;
+  auto lane = [=](int k) {
+    return ChainBwdArgs{at_lane(gates, ls, 0, k), at_lane(allc, ls, 1, k),
+                        nullptr,                  at_lane(dhlast, ls, 2, k),
+                        at_lane(wh, ls, 3, k),    at_lane(dxp, ls, 4, k),
+                        nullptr,                  nullptr,
+                        phase_clocks(),           nullptr,
+                        0,                        t,
+                        n,                        H,
+                        {}};
+  };
   ChainBwdArgs a;
-  if (!valid(given, n_cells, cell_dims, threads, scratch, &a) || t < 1)
+  if (lane_strides == nullptr ||
+      !valid(lane(0), n_cells, cell_dims, threads, lanes, ls, scratch, &a) ||
+      t < 1)
     return (int)cudaErrorInvalidValue;
-  return launch<kMultiRows, false>(a, scratch, threads, fit,
+  return launch<kMultiRows, false>(a, lane, lanes, scratch, threads, fit,
                                    static_cast<cudaStream_t>(stream));
 }

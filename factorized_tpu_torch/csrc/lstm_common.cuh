@@ -191,18 +191,77 @@ inline float* reserve(const Scratch& s, long long blocks, size_t bytes,
 }
 
 // Where a block of a chain keeps its state: shared memory, or on
-// kStateScratch (S) its slice of the scratch, the block's index along x
-// and y (the row tile and the cell) picking it.
+// kStateScratch (S) its slice of the scratch, the block's index along x,
+// y and z (the row tile, the cell and the lane) picking it.
 template <bool S>
 __device__ __forceinline__ float* state_base(float* smem, float* scratch,
                                              size_t slice) {
   if (!S) return smem;
   return scratch +
-         ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * slice;
+         (((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
+          blockIdx.x) *
+             slice;
+}
+
+// Lanes: K problems of one shape in one launch, the counterpart of the
+// lane axis that jax.vmap puts in front of a Pallas grid (K seeds of one
+// model, each with its own weights). Each kernel is a template on its
+// argument In, instantiated twice: In = its arguments A, the one-lane
+// launch exactly as before lanes, and In = LaneArgs<A>, whose lane k's
+// blocks are those of blockIdx.z = k and whose arguments are lane[k],
+// read in place (__grid_constant__). Each launcher builds the lanes'
+// arguments from the lane-0 pointers and a per-lane stride a pointer
+// operand (0: the lanes share it). The plan (clusters, scratch, staging)
+// is made from one lane's widths and is the same for every lane. A
+// launch holds up to kMaxLanes lanes (the arguments stay within the 32
+// KB a kernel parameter may take); more lanes take one launch a group of
+// kMaxLanes.
+constexpr int kMaxLanes = 8;
+
+template <typename A>
+struct LaneArgs {
+  A lane[kMaxLanes];
+};
+
+// This block's lane's arguments: the kernel's own for one lane, else its
+// lane's of LaneArgs.
+template <typename A>
+__device__ __forceinline__ const A& lane_of(const A& a) {
+  return a;
+}
+
+template <typename A>
+__device__ __forceinline__ const A& lane_of(const LaneArgs<A>& la) {
+  return la.lane[blockIdx.z];
+}
+
+// A kernel's two instantiations (see kMaxLanes).
+template <typename A>
+struct LaneKernel {
+  void (*one)(A);
+  void (*many)(LaneArgs<A>);
+};
+
+// The LaneKernel of kernel<In, args...>.
+#define FTT_LANE_KERNEL(A, kernel, ...)   \
+  (::ftt::LaneKernel<A>{kernel<A, __VA_ARGS__>, \
+                        kernel<::ftt::LaneArgs<A>, __VA_ARGS__>})
+
+// Lane k's copy of the operand at p, `stride` floats a lane (null stays
+// null).
+template <typename T>
+inline T* at_lane(T* p, const long long* strides, int i, int k) {
+  return p == nullptr ? p : p + strides[i] * k;
+}
+
+// The lanes a launch of `lanes` lanes holds at once: its grid's z.
+inline int lanes_at_once(int lanes) {
+  return lanes < kMaxLanes ? lanes : kMaxLanes;
 }
 
 // Launches `kernel` on clusters of C blocks along x (a plain launch for
-// C = 1); grid.x must be a multiple of C.
+// C = 1); grid.x must be a multiple of C. The cluster is (C, 1, 1), so a
+// lane axis along z is legal.
 template <typename Args>
 inline cudaError_t launch_clusters(void (*kernel)(Args), dim3 grid,
                                    int threads, size_t bytes, int C,
@@ -226,6 +285,46 @@ inline cudaError_t launch_clusters(void (*kernel)(Args), dim3 grid,
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// `kernel` over `lanes` lanes, lane k's arguments make(k): one launch
+// (grid.z the lanes) for each group of up to kMaxLanes, in lane order.
+template <typename A, typename F>
+inline cudaError_t launch_lanes(void (*kernel)(LaneArgs<A>), dim3 grid,
+                                int threads, size_t bytes, int C,
+                                cudaStream_t stream, int lanes, F make) {
+  static_assert(sizeof(LaneArgs<A>) <= 32764,
+                "a kernel parameter holds at most 32,764 bytes");
+  for (int k0 = 0; k0 < lanes; k0 += kMaxLanes) {
+    LaneArgs<A> la;
+    grid.z = lanes_at_once(lanes - k0);
+    for (int k = 0; k < (int)grid.z; ++k) la.lane[k] = make(k0 + k);
+    cudaError_t err =
+        launch_clusters(kernel, grid, threads, bytes, C, stream, la);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+// k over `lanes` lanes, lane j's arguments make(j): for one lane k.one,
+// the launch as before lanes, else launch_lanes of k.many.
+template <typename A, typename F>
+inline cudaError_t launch_lane_kernel(const LaneKernel<A>& k, dim3 grid,
+                                      int threads, size_t bytes, int C,
+                                      cudaStream_t stream, int lanes,
+                                      F make) {
+  if (lanes == 1)
+    return launch_clusters(k.one, grid, threads, bytes, C, stream, make(0));
+  return launch_lanes(k.many, grid, threads, bytes, C, stream, lanes, make);
+}
+
+// allow_smem for the instantiation a launch of `lanes` lanes takes.
+template <typename A>
+inline cudaError_t allow_lane_smem(const LaneKernel<A>& k, int lanes,
+                                   size_t bytes) {
+  return lanes == 1 ? allow_smem(reinterpret_cast<const void*>(k.one), bytes)
+                    : allow_smem(reinterpret_cast<const void*>(k.many),
+                                 bytes);
 }
 
 // This block's rank in its cluster of C (0 without one).
@@ -410,7 +509,8 @@ __host__ __device__ inline int lanes_per_output(int items, int threads) {
 // kernel's cell) stamps clock64() at the end of each phase of each step
 // into the buffer that ftt_set_phase_clocks registered: slot [kernel][y]
 // [step][phase], the step counted from the chain's first (row 0 holds the
-// stamp before it). Without the define the stamps compile to nothing.
+// stamp before it); lane 0 alone stamps. Without the define the stamps
+// compile to nothing.
 enum ClockKernel {
   kClockMultiBwd,
   kClockDecoderBwd,
@@ -432,7 +532,7 @@ long long* phase_clocks();
 #define FTT_STAMP(buf, kernel, step, phase)                                \
   do {                                                                     \
     if ((buf) != nullptr && blockIdx.x == 0 && blockIdx.y < kMaxCells &&   \
-        threadIdx.x == 0 && (step) < kClockSteps)                          \
+        blockIdx.z == 0 && threadIdx.x == 0 && (step) < kClockSteps)       \
       (buf)[(((kernel) * kMaxCells + blockIdx.y) * kClockSteps + (step)) * \
                 kClockPhases +                                             \
             (phase)] = clock64();                                          \

@@ -94,17 +94,20 @@ struct ChainFwdArgs {
   Cells cells;
 };
 
-// blockIdx.y is the cell, blockIdx.x / C the row tile and the rank in the
-// cluster of C its share of the cell's gate columns. D: the decoders
-// (state (h0, c0) in slot 0, steps 1 to t - 1); else a zero state and
-// steps 0 to t - 1. L2: the weights read in place (C = 1); S: with them
-// the state in the block's scratch slice (kStateScratch).
+// blockIdx.z is the lane, blockIdx.y the cell, blockIdx.x / C the row
+// tile and the rank in the cluster of C its share of the cell's gate
+// columns. D: the decoders (state (h0, c0) in slot 0, steps 1 to t - 1);
+// else a zero state and steps 0 to t - 1. L2: the weights read in place
+// (C = 1); S: with them the state in the block's scratch slice
+// (kStateScratch). In: the arguments, one lane's or LaneArgs
+// (lstm_common.cuh).
 // __grid_constant__: the cell table is indexed by blockIdx.y (see
 // lstm_bwd.cu).
-template <int R, int C, bool D, bool L2, bool S = false>
+template <typename In, int R, int C, bool D, bool L2, bool S = false>
 __global__ void __launch_bounds__(kThreads)
-    lstm_chain_fwd_kernel(const __grid_constant__ ChainFwdArgs a) {
+    lstm_chain_fwd_kernel(const __grid_constant__ In la) {
   static_assert(!S || (L2 && C == 1), "the scratch plan reads from L2");
+  const ChainFwdArgs& a = lane_of(la);
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
   const FwdTile c = fwd_tile<C, L2>(a.cells, blockIdx.y, blockDim.x, rank,
@@ -177,10 +180,11 @@ __global__ void __launch_bounds__(kThreads)
 // The plan and the launch: the smallest cluster whose blocks fit, else
 // the weights read from L2, else with them the state in the scratch
 // (lstm_common.cuh's chain_plan); kNeedScratch, launching nothing, while
-// the scratch is short of what that plan takes.
-template <int R, bool D>
-int launch(ChainFwdArgs a, const Scratch& scratch, int* fit,
-           cudaStream_t stream) {
+// the scratch is short of what that plan takes. a is lane 0's arguments,
+// lane(k) lane k's (its pointers; the rest is a's).
+template <int R, bool D, typename F>
+int launch(ChainFwdArgs a, F lane, int lanes, const Scratch& scratch,
+           int* fit, cudaStream_t stream) {
   size_t bytes = 0;
   auto at = [&](int C) { return fwd_chain_bytes(a.cells, R, kThreads, C); };
   const int plan = chain_plan(at, [&] { return at(kWeightsL2); }, &bytes);
@@ -188,33 +192,51 @@ int launch(ChainFwdArgs a, const Scratch& scratch, int* fit,
   const int C = plan_blocks(plan);
   const dim3 grid(((a.n + R - 1) / R) * C, a.cells.count);
   if (plan == kStateScratch) {
-    a.state = reserve(scratch, (long long)grid.x * grid.y, bytes, &a.slice);
+    a.state = reserve(scratch,
+                      (long long)grid.x * grid.y * lanes_at_once(lanes),
+                      bytes, &a.slice);
     if (a.state == nullptr) return kNeedScratch;
   }
-  using Kernel = void (*)(const ChainFwdArgs);
-  const Kernel kernels[6] = {
-      lstm_chain_fwd_kernel<R, 1, D, true>,
-      lstm_chain_fwd_kernel<R, 1, D, false>,
-      lstm_chain_fwd_kernel<R, 2, D, false>,
-      lstm_chain_fwd_kernel<R, 4, D, false>,
-      lstm_chain_fwd_kernel<R, 8, D, false>,
-      lstm_chain_fwd_kernel<R, 1, D, true, true>};
-  const Kernel kernel = chain_kernel(kernels, plan);
+  using A = ChainFwdArgs;
+  const LaneKernel<A> kernels[6] = {
+      FTT_LANE_KERNEL(A, lstm_chain_fwd_kernel, R, 1, D, true),
+      FTT_LANE_KERNEL(A, lstm_chain_fwd_kernel, R, 1, D, false),
+      FTT_LANE_KERNEL(A, lstm_chain_fwd_kernel, R, 2, D, false),
+      FTT_LANE_KERNEL(A, lstm_chain_fwd_kernel, R, 4, D, false),
+      FTT_LANE_KERNEL(A, lstm_chain_fwd_kernel, R, 8, D, false),
+      FTT_LANE_KERNEL(A, lstm_chain_fwd_kernel, R, 1, D, true, true)};
+  const LaneKernel<A> kernel = chain_kernel(kernels, plan);
   bytes = plan_smem(plan, bytes);
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), bytes);
+  cudaError_t err = allow_lane_smem(kernel, lanes, bytes);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_clusters(kernel, grid, kThreads, bytes, C, stream, a);
+  auto args = [&](int k) {
+    ChainFwdArgs b = a;
+    const ChainFwdArgs l = lane(k);
+    b.x = l.x;
+    b.h0 = l.h0;
+    b.c0 = l.c0;
+    b.w = l.w;
+    b.h_last = l.h_last;
+    b.allh = l.allh;
+    b.allc = l.allc;
+    b.gates = l.gates;
+    return b;
+  };
+  return (int)launch_lane_kernel(kernel, grid, kThreads, bytes, C, stream,
+                                 lanes, args);
 }
 
 bool valid(int t, int n, int H, int n_cells, const int* cell_dims,
-           const Scratch& scratch, ChainFwdArgs* a) {
+           int lanes, const long long* lane_strides, const Scratch& scratch,
+           ChainFwdArgs* a) {
   a->clocks = phase_clocks();
   a->state = nullptr;
   a->slice = 0;
   a->t = t;
   a->n = n;
   a->H = H;
-  if (scratch.need == nullptr) return false;
+  if (scratch.need == nullptr || lanes < 1 || lane_strides == nullptr)
+    return false;
   *scratch.need = 0;
   return make_cells(n_cells, cell_dims, H, &a->cells) && t >= 1 && n >= 1;
 }
@@ -222,52 +244,75 @@ bool valid(int t, int n, int H, int n_cells, const int* cell_dims,
 }  // namespace
 }  // namespace ftt
 
-// All arrays float32 and contiguous, shaped as in ChainFwdArgs; b is (1,
-// 4H) or (4H,). cell_dims (host memory) lists the n_cells fused hidden
-// widths, summing to H. state (state_floats floats of device memory, or
-// null) is the scratch of the kStateScratch plan; state_need (host
-// memory, one value) gets the floats the plan takes, and the launcher
-// returns kNeedScratch (-1) without launching while state_floats is
-// short of it. fit (host memory, six ints, lstm_common.cuh's Fit) gets
-// the plan the chain ran on (a cluster, kWeightsL2 or kStateScratch).
+// All arrays float32 and contiguous, shaped as in ChainFwdArgs, each the
+// array of lane 0 of `lanes`: lane k's lies lane_strides[i] k floats on
+// (host memory, one stride for each array argument in order; 0 where the
+// lanes share it). b is (1, 4H) or (4H,). cell_dims (host memory) lists
+// the n_cells fused hidden widths, summing to H. state (state_floats
+// floats of device memory, or null) is the scratch of the kStateScratch
+// plan; state_need (host memory, one value) gets the floats the plan
+// takes, and the launcher returns kNeedScratch (-1) without launching
+// while state_floats is short of it. fit (host memory, six ints,
+// lstm_common.cuh's Fit) gets the plan the chain ran on (a cluster,
+// kWeightsL2 or kStateScratch), the same for every lane.
 extern "C" int decoder_lstm_fwd(const float* h0, const float* c0,
                                 const float* wsum, const float* b,
                                 float* allh, float* allc, float* gates,
                                 float* state, long long state_floats,
                                 long long* state_need, int t, int n, int H,
-                                int n_cells, const int* cell_dims, int* fit,
+                                int n_cells, const int* cell_dims, int lanes,
+                                const long long* lane_strides, int* fit,
                                 void* stream) {
   using namespace ftt;
   clear_fit(fit);
   const Scratch scratch = {state, state_floats, state_need};
+  const long long* ls = lane_strides;
+  auto lane = [=](int k) {
+    return ChainFwdArgs{at_lane(b, ls, 3, k),     0,
+                        0,
+                        at_lane(h0, ls, 0, k),    at_lane(c0, ls, 1, k),
+                        at_lane(wsum, ls, 2, k),  nullptr,
+                        at_lane(allh, ls, 4, k),  at_lane(allc, ls, 5, k),
+                        at_lane(gates, ls, 6, k)};
+  };
   ChainFwdArgs a = {b, 0, 0, h0, c0, wsum, nullptr, allh, allc, gates};
-  if (!valid(t, n, H, n_cells, cell_dims, scratch, &a) || !allh || !allc ||
-      !gates)
+  if (!valid(t, n, H, n_cells, cell_dims, lanes, ls, scratch, &a) || !allh ||
+      !allc || !gates)
     return (int)cudaErrorInvalidValue;
-  return launch<kDecoderFwdRows, true>(a, scratch, fit,
+  return launch<kDecoderFwdRows, true>(a, lane, lanes, scratch, fit,
                                        static_cast<cudaStream_t>(stream));
 }
 
 // The same for the encoder cells: with_res 0 is the eval variant (allh,
-// allc and gates may be null), 1 the train variant.
+// allc and gates may be null), 1 the train variant; lane_strides for xp,
+// wh, h_last, allh, allc and gates.
 extern "C" int multi_lstm_fwd(const float* xp, const float* wh,
                               float* h_last, float* allh, float* allc,
                               float* gates, float* state,
                               long long state_floats, long long* state_need,
                               int t, int n, int H, int n_cells,
-                              const int* cell_dims, int with_res, int* fit,
+                              const int* cell_dims, int with_res, int lanes,
+                              const long long* lane_strides, int* fit,
                               void* stream) {
   using namespace ftt;
   clear_fit(fit);
   const Scratch scratch = {state, state_floats, state_need};
-  ChainFwdArgs a = {xp,     (size_t)n * 4 * H,   4 * H,
-                    nullptr, nullptr,            wh,
-                    h_last, with_res ? allh : nullptr,
-                    with_res ? allc : nullptr,  with_res ? gates : nullptr};
-  if (!valid(t, n, H, n_cells, cell_dims, scratch, &a) || h_last == nullptr ||
-      (with_res && (!allh || !allc || !gates)))
+  const long long* ls = lane_strides;
+  if (!with_res) allh = allc = gates = nullptr;
+  auto lane = [=](int k) {
+    return ChainFwdArgs{at_lane(xp, ls, 0, k),     (size_t)n * 4 * H,
+                        4 * H,
+                        nullptr,                   nullptr,
+                        at_lane(wh, ls, 1, k),     at_lane(h_last, ls, 2, k),
+                        at_lane(allh, ls, 3, k),   at_lane(allc, ls, 4, k),
+                        at_lane(gates, ls, 5, k)};
+  };
+  ChainFwdArgs a = lane(0);
+  if (!valid(t, n, H, n_cells, cell_dims, lanes, ls, scratch, &a) ||
+      h_last == nullptr || (with_res && (!allh || !allc || !gates)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_res ? launch<kMultiTrainRows, false>(a, scratch, fit, st)
-                  : launch<kMultiEvalRows, false>(a, scratch, fit, st);
+  return with_res
+             ? launch<kMultiTrainRows, false>(a, lane, lanes, scratch, fit, st)
+             : launch<kMultiEvalRows, false>(a, lane, lanes, scratch, fit, st);
 }

@@ -191,7 +191,8 @@ struct BwdArgs {
   DeltaLayout dl;
 };
 
-using Kernel = void (*)(const BwdArgs);
+// a kernel's one-lane and lane instantiations (lstm_common.cuh)
+using Kernel = LaneKernel<BwdArgs>;
 
 template <int R>
 __device__ __forceinline__ void zero(float (&acc)[R]) {
@@ -223,8 +224,10 @@ __device__ __forceinline__ void load_flat(float* dst, const float* src,
 // operations (xp, then the cell's rows of wh in order). G: one flat row
 // (R = 1) whose hidden state is read in place from allh, where H passes
 // the staging (no row before step 0 has one: xp alone).
-template <int R, bool G = false>
-__global__ void __launch_bounds__(kMaxThreads) gates_kernel(const BwdArgs a) {
+template <typename In, int R, bool G = false>
+__global__ void __launch_bounds__(kMaxThreads)
+    gates_kernel(const __grid_constant__ In la) {
+  const BwdArgs& a = lane_of(la);
   static_assert(!G || R == 1, "in place: one row a block");
   extern __shared__ float smem[];
   const int H = a.H, H4 = 4 * H, rows = a.t * a.n, rr0 = blockIdx.x * R;
@@ -331,9 +334,10 @@ __device__ __forceinline__ void load_mem_ops(const BwdArgs& a, int s,
 // Block: rank `rank` of a cluster of C over R batch rows. P: two-step.
 // L2: the weights' rows read in place (C = 1); S: with them the state in
 // the block's scratch slice (kStateScratch).
-template <int R, bool P, int C, bool L2, bool S = false>
+template <typename In, int R, bool P, int C, bool L2, bool S = false>
 __global__ void __launch_bounds__(kMaxThreads)
-    mem_chain_kernel(const BwdArgs a) {
+    mem_chain_kernel(const __grid_constant__ In la) {
+  const BwdArgs& a = lane_of(la);
   static_assert(!S || (L2 && C == 1), "the scratch plan reads from L2");
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
@@ -547,9 +551,10 @@ __device__ __forceinline__ void recompute_att(const BwdArgs& a, float* att,
 // The recompute-att variant's att, R flat rows a block, into the scratch
 // that a.att points at. G: one flat row (R = 1) whose r1 is read in place
 // and att computed in place, where s1 + M2 passes the staging.
-template <int R, bool G = false>
+template <typename In, int R, bool G = false>
 __global__ void __launch_bounds__(kMaxThreads)
-    recompute_att_kernel(const BwdArgs a) {
+    recompute_att_kernel(const __grid_constant__ In la) {
+  const BwdArgs& a = lane_of(la);
   static_assert(!G || R == 1, "in place: one row a block");
   extern __shared__ float smem[];
   const int rows = a.t * a.n, rr0 = blockIdx.x * R, M2 = a.m2;
@@ -731,9 +736,10 @@ __device__ __forceinline__ void product_out(const BwdArgs& a, int m, int n,
 // each term's depth in term_chunks pieces (else every term's whole depth
 // at once, product_whole, at every width but the widest: a separate
 // instantiation, so the common one carries no chunk arithmetic).
-template <int P, bool Chunked>
+template <typename In, int P, bool Chunked>
 __global__ void __launch_bounds__(kProductThreads)
-    product_kernel(const BwdArgs a) {
+    product_kernel(const __grid_constant__ In la) {
+  const BwdArgs& a = lane_of(la);
   extern __shared__ float smem[];
   const ProductSpec p = product_spec(a, P);
   const int rows = a.t * a.n, tiles_n = (p.N + kTile - 1) / kTile;
@@ -798,8 +804,10 @@ __global__ void __launch_bounds__(kProductThreads)
 }
 
 // dlogits = att * (datt - sum(datt * att)), a warp per flat row.
+template <typename In>
 __global__ void __launch_bounds__(kMaxThreads)
-    softmax_bwd_kernel(const BwdArgs a) {
+    softmax_bwd_kernel(const __grid_constant__ In la) {
+  const BwdArgs& a = lane_of(la);
   const int lane = threadIdx.x & 31;
   const int m = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (m >= a.t * a.n) return;  // the whole warp
@@ -842,9 +850,10 @@ __device__ __forceinline__ void load_cell_step(const BwdArgs& a, int s,
 // the cluster of C its share of the cell's gate columns. P: two-step.
 // L2: the weights read in place (C = 1); S: with them the state in the
 // block's scratch slice (kStateScratch).
-template <int R, bool P, int C, bool L2, bool S = false>
+template <typename In, int R, bool P, int C, bool L2, bool S = false>
 __global__ void __launch_bounds__(kMaxThreads)
-    lstm_chains_kernel(const BwdArgs a) {
+    lstm_chains_kernel(const __grid_constant__ In la) {
+  const BwdArgs& a = lane_of(la);
   static_assert(!S || (L2 && C == 1), "the scratch plan reads from L2");
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
@@ -921,29 +930,41 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 // [chunked][product]
 const Kernel kProductKernels[2][4] = {
-    {product_kernel<kDu2, false>, product_kernel<kDattended, false>,
-     product_kernel<kDu1, false>, product_kernel<kDcstarAdd, false>},
-    {product_kernel<kDu2, true>, product_kernel<kDattended, true>,
-     product_kernel<kDu1, true>, product_kernel<kDcstarAdd, true>}};
+    {FTT_LANE_KERNEL(BwdArgs, product_kernel, kDu2, false),
+     FTT_LANE_KERNEL(BwdArgs, product_kernel, kDattended, false),
+     FTT_LANE_KERNEL(BwdArgs, product_kernel, kDu1, false),
+     FTT_LANE_KERNEL(BwdArgs, product_kernel, kDcstarAdd, false)},
+    {FTT_LANE_KERNEL(BwdArgs, product_kernel, kDu2, true),
+     FTT_LANE_KERNEL(BwdArgs, product_kernel, kDattended, true),
+     FTT_LANE_KERNEL(BwdArgs, product_kernel, kDu1, true),
+     FTT_LANE_KERNEL(BwdArgs, product_kernel, kDcstarAdd, true)}};
+const Kernel kSoftmaxKernel = {softmax_bwd_kernel<BwdArgs>,
+                               softmax_bwd_kernel<LaneArgs<BwdArgs>>};
 
 // The chains' kernels for a plan (lstm_common.cuh's chain_kernel).
 template <int R, bool P>
 Kernel mem_chain_for(int plan) {
+  using A = BwdArgs;
   const Kernel k[6] = {
-      mem_chain_kernel<R, P, 1, true>, mem_chain_kernel<R, P, 1, false>,
-      mem_chain_kernel<R, P, 2, false>, mem_chain_kernel<R, P, 4, false>,
-      mem_chain_kernel<R, P, 8, false>,
-      mem_chain_kernel<R, P, 1, true, true>};
+      FTT_LANE_KERNEL(A, mem_chain_kernel, R, P, 1, true),
+      FTT_LANE_KERNEL(A, mem_chain_kernel, R, P, 1, false),
+      FTT_LANE_KERNEL(A, mem_chain_kernel, R, P, 2, false),
+      FTT_LANE_KERNEL(A, mem_chain_kernel, R, P, 4, false),
+      FTT_LANE_KERNEL(A, mem_chain_kernel, R, P, 8, false),
+      FTT_LANE_KERNEL(A, mem_chain_kernel, R, P, 1, true, true)};
   return chain_kernel(k, plan);
 }
 
 template <int R, bool P>
 Kernel lstm_chains_for(int plan) {
+  using A = BwdArgs;
   const Kernel k[6] = {
-      lstm_chains_kernel<R, P, 1, true>, lstm_chains_kernel<R, P, 1, false>,
-      lstm_chains_kernel<R, P, 2, false>, lstm_chains_kernel<R, P, 4, false>,
-      lstm_chains_kernel<R, P, 8, false>,
-      lstm_chains_kernel<R, P, 1, true, true>};
+      FTT_LANE_KERNEL(A, lstm_chains_kernel, R, P, 1, true),
+      FTT_LANE_KERNEL(A, lstm_chains_kernel, R, P, 1, false),
+      FTT_LANE_KERNEL(A, lstm_chains_kernel, R, P, 2, false),
+      FTT_LANE_KERNEL(A, lstm_chains_kernel, R, P, 4, false),
+      FTT_LANE_KERNEL(A, lstm_chains_kernel, R, P, 8, false),
+      FTT_LANE_KERNEL(A, lstm_chains_kernel, R, P, 1, true, true)};
   return chain_kernel(k, plan);
 }
 
@@ -966,15 +987,16 @@ struct Pass {
 // fitting by construction (at one float of depth a chunk, 2 kTile
 // product_pitch(1) = 256 floats, and the kSplit partial tiles 4,096
 // floats: 16 KiB); the softmax takes none.
-cudaError_t prepare(const Pass& p, int index, int* fit) {
+cudaError_t prepare(const Pass& p, int index, int lanes, int* fit) {
   if (p.bytes > (size_t)kMaxSmemBytes)
     return refuse(fit, index, p.bytes, p.cluster);
-  return allow_smem(reinterpret_cast<const void*>(p.kernel), p.bytes);
+  return allow_lane_smem(p.kernel, lanes, p.bytes);
 }
 
-cudaError_t launch(const Pass& p, const BwdArgs& a, cudaStream_t stream) {
-  return launch_clusters(p.kernel, p.grid, p.threads, p.bytes, p.cluster,
-                         stream, a);
+template <typename F>
+cudaError_t launch(const Pass& p, int lanes, F lane, cudaStream_t stream) {
+  return launch_lane_kernel(p.kernel, p.grid, p.threads, p.bytes, p.cluster,
+                            stream, lanes, lane);
 }
 
 // ------------------------------------------------------------- kernel (b)
@@ -1092,9 +1114,10 @@ __device__ __forceinline__ const float* dw_peer(float* buf, int s) {
 // grid.x: the products' tiles in order, S blocks (a cluster) each; the
 // rank in the cluster is the block's K slice. __grid_constant__: the
 // product table is indexed by block.
-template <int S, bool V>
+template <typename In, int S, bool V>
 __global__ void __launch_bounds__(kDwThreads)
-    mfm_encode_dw_kernel(const __grid_constant__ DwArgs a) {
+    mfm_encode_dw_kernel(const __grid_constant__ In la) {
+  const DwArgs& a = lane_of(la);
   extern __shared__ __align__(16) float smem[];
   const int tile = blockIdx.x / S, rank = cluster_rank<S>();
   int which = 0;
@@ -1209,14 +1232,14 @@ __global__ void __launch_bounds__(kDwThreads)
   if (S > 1) cluster_barrier<S>();
 }
 
-using DwKernel = void (*)(DwArgs);
+using DwKernel = LaneKernel<DwArgs>;
 
 template <bool V>
 DwKernel dw_kernel_for(int S) {
-  return S == 1   ? mfm_encode_dw_kernel<1, V>
-         : S == 2 ? mfm_encode_dw_kernel<2, V>
-         : S == 4 ? mfm_encode_dw_kernel<4, V>
-                  : mfm_encode_dw_kernel<8, V>;
+  return S == 1   ? FTT_LANE_KERNEL(DwArgs, mfm_encode_dw_kernel, 1, V)
+         : S == 2 ? FTT_LANE_KERNEL(DwArgs, mfm_encode_dw_kernel, 2, V)
+         : S == 4 ? FTT_LANE_KERNEL(DwArgs, mfm_encode_dw_kernel, 4, V)
+                  : FTT_LANE_KERNEL(DwArgs, mfm_encode_dw_kernel, 8, V);
 }
 
 }  // namespace
@@ -1238,7 +1261,12 @@ DwKernel dw_kernel_for(int S) {
 // of 32 up to 512, the block size of the gates pass, the chains and the
 // softmax. fit (host memory, six ints, lstm_common.cuh's Fit) gets the
 // plans the memory chain and the LSTM chains ran on (each the smallest
-// cluster whose blocks fit, else kWeightsL2, else kStateScratch).
+// cluster whose blocks fit, else kWeightsL2, else kStateScratch). Every
+// array is lane 0's of `lanes` (lstm_common.cuh's LaneArgs): lane k's
+// lies lane_strides[i] k floats on (host memory, 31 strides: xp, allh,
+// allc, allmem, the ten residual pointers, dhlast, dmemlast, the nine
+// weights, dxp, delta, gates, dcstar, datt and att_scratch; 0 where the
+// lanes share the array).
 extern "C" int mfm_encode_bwd(
     const float* xp, const float* allh, const float* allc,
     const float* allmem, void* const* res_ptrs, const int* res_strides,
@@ -1250,64 +1278,75 @@ extern "C" int mfm_encode_bwd(
     float* att_scratch, float* state, long long state_floats,
     long long* state_need, int t, int n, int H, int z_tot, int mem, int s1,
     int s2, int s3, int s4, int n_cells, const int* cell_dims, int variant,
-    int threads, int* fit, void* stream) {
+    int threads, int lanes, const long long* lane_strides, int* fit,
+    void* stream) {
   using namespace ftt;
   const Scratch chains = {state, state_floats, state_need};
-  BwdArgs a;
-  a.xp = xp;
-  a.allh = allh;
-  a.allc = allc;
-  a.allmem = allmem;
-  a.dhlast = dhlast;
-  a.dmemlast = dmemlast;
-  a.wh = wh;
-  a.a1w1 = a1w1;
-  a.a1w2 = a1w2;
-  a.a1b2 = a1b2;
-  a.a2w1 = a2w1;
-  a.a2w2 = a2w2;
-  a.gw1 = gw1;
-  a.g1w2 = g1w2;
-  a.g2w2 = g2w2;
-  a.dxp = dxp;
-  a.delta = delta;
-  a.gates = gates;
-  a.dcstar = dcstar;
-  a.clocks = phase_clocks();
-  a.mem_state = a.cell_state = nullptr;
-  a.mem_slice = a.cell_slice = 0;
-  a.t = t;
-  a.n = n;
-  a.H = H;
-  a.z_tot = z_tot;
-  a.mem = mem;
-  a.s1 = s1;
-  a.s2 = s2;
-  a.s3 = s3;
-  a.s4 = s4;
-  a.m2 = 2 * (H - z_tot);
-  a.dl = delta_layout(H, z_tot, mem, s1, s2, s3, s4);
+  const long long* ls = lane_strides;
   clear_fit(fit);
   int widths[kResFields];
   res_widths(H, z_tot, mem, s1, s2, s3, s4, widths);
+  const bool recompute = variant == kRecomputeAtt;
+  // lane k's arguments; false where a field of the table does not fit
+  auto build = [&](int k, BwdArgs* out) {
+    BwdArgs& a = *out;
+    a.xp = at_lane(xp, ls, 0, k);
+    a.allh = at_lane(allh, ls, 1, k);
+    a.allc = at_lane(allc, ls, 2, k);
+    a.allmem = at_lane(allmem, ls, 3, k);
+    a.dhlast = at_lane(dhlast, ls, 14, k);
+    a.dmemlast = at_lane(dmemlast, ls, 15, k);
+    a.wh = at_lane(wh, ls, 16, k);
+    a.a1w1 = at_lane(a1w1, ls, 17, k);
+    a.a1w2 = at_lane(a1w2, ls, 18, k);
+    a.a1b2 = at_lane(a1b2, ls, 19, k);
+    a.a2w1 = at_lane(a2w1, ls, 20, k);
+    a.a2w2 = at_lane(a2w2, ls, 21, k);
+    a.gw1 = at_lane(gw1, ls, 22, k);
+    a.g1w2 = at_lane(g1w2, ls, 23, k);
+    a.g2w2 = at_lane(g2w2, ls, 24, k);
+    a.dxp = at_lane(dxp, ls, 25, k);
+    a.delta = at_lane(delta, ls, 26, k);
+    a.gates = at_lane(gates, ls, 27, k);
+    a.dcstar = at_lane(dcstar, ls, 28, k);
+    a.datt = at_lane(datt, ls, 29, k);
+    a.clocks = phase_clocks();
+    a.mem_state = a.cell_state = nullptr;
+    a.mem_slice = a.cell_slice = 0;
+    a.t = t;
+    a.n = n;
+    a.H = H;
+    a.z_tot = z_tot;
+    a.mem = mem;
+    a.s1 = s1;
+    a.s2 = s2;
+    a.s3 = s3;
+    a.s4 = s4;
+    a.m2 = 2 * (H - z_tot);
+    a.dl = delta_layout(H, z_tot, mem, s1, s2, s3, s4);
+    void* rp[kResFields];
+    for (int f = 0; f < kResFields; ++f)
+      rp[f] = at_lane(static_cast<float*>(res_ptrs[f]), ls, 4 + f, k);
+    if (!make_cells(n_cells, cell_dims, H, &a.cells) ||
+        !make_res_table(rp, res_strides, res_cols, widths, &a.res))
+      return false;
+    a.att = a.res.f[kAtt];
+    if (recompute) a.att = ResEntry{at_lane(att_scratch, ls, 30, k), a.m2, 0};
+    return true;
+  };
+  BwdArgs a;
   bool boundary = false;
-  if (make_cells(n_cells, cell_dims, H, &a.cells))
+  if (lanes >= 1 && ls != nullptr && res_ptrs != nullptr && build(0, &a))
     for (int m = 0; m < a.cells.count; ++m)
       boundary = boundary || a.cells.off[m] == z_tot;
   if (!boundary || t < 1 || n < 1 || threads < 32 ||
-      threads > kMaxThreads || threads % 32 != 0 || res_ptrs == nullptr ||
-      !make_res_table(res_ptrs, res_strides, res_cols, widths, &a.res) ||
+      threads > kMaxThreads || threads % 32 != 0 ||
       variant < kStream || variant > kTwoStep ||
       (variant == kTwoStep && t % 2 != 0) ||
-      (variant == kRecomputeAtt && att_scratch == nullptr) ||
-      state_need == nullptr)
+      (recompute && att_scratch == nullptr) || state_need == nullptr)
     return (int)cudaErrorInvalidValue;
   *state_need = 0;
   const bool pairs = variant == kTwoStep;
-  const bool recompute = variant == kRecomputeAtt;
-  a.datt = datt;
-  a.att = a.res.f[kAtt];
-  if (recompute) a.att = ResEntry{att_scratch, a.m2, 0};
   const int s34 = s3 + s4, flat = t * n;
   const int tiles_m = (flat + kTile - 1) / kTile;
   // the two chains on the smallest clusters whose blocks fit, else with
@@ -1329,11 +1368,14 @@ extern "C" int mfm_encode_bwd(
   const dim3 mem_grid(((n + kMemRows - 1) / kMemRows) * Cm);
   const dim3 cell_grid(((n + kCellRows - 1) / kCellRows) * Cc,
                        a.cells.count);
+  const long long at_once = lanes_at_once(lanes);
   if (Pm == kStateScratch)
-    a.mem_state = reserve(chains, mem_grid.x, mem_bytes, &a.mem_slice);
+    a.mem_state = reserve(chains, (long long)mem_grid.x * at_once,
+                          mem_bytes, &a.mem_slice);
   if (Pc == kStateScratch)
-    a.cell_state = reserve(chains, (long long)cell_grid.x * cell_grid.y,
-                           cell_bytes, &a.cell_slice);
+    a.cell_state =
+        reserve(chains, (long long)cell_grid.x * cell_grid.y * at_once,
+                cell_bytes, &a.cell_slice);
   if ((Pm == kStateScratch && a.mem_state == nullptr) ||
       (Pc == kStateScratch && a.cell_state == nullptr))
     return kNeedScratch;
@@ -1351,39 +1393,50 @@ extern "C" int mfm_encode_bwd(
     p[count++] = launch;
   };
   if (gates_staged)
-    add(1, {gates_kernel<kTileRows>,
+    add(1, {FTT_LANE_KERNEL(BwdArgs, gates_kernel, kTileRows),
             dim3((flat + kTileRows - 1) / kTileRows), threads, gates_bytes,
             1});
   else
-    add(1, {gates_kernel<1, true>, dim3(flat), threads, 0, 1});
+    add(1, {FTT_LANE_KERNEL(BwdArgs, gates_kernel, 1, true), dim3(flat),
+            threads, 0, 1});
   add(2, {pairs ? mem_chain_for<kMemRows, true>(Pm)
                 : mem_chain_for<kMemRows, false>(Pm),
           mem_grid, threads, plan_smem(Pm, mem_bytes), Cm});
   if (recompute && att_staged)
-    add(3, {recompute_att_kernel<kTileRows>,
+    add(3, {FTT_LANE_KERNEL(BwdArgs, recompute_att_kernel, kTileRows),
             dim3((flat + kTileRows - 1) / kTileRows), threads, att_bytes,
             1});
   else if (recompute)
-    add(3, {recompute_att_kernel<1, true>, dim3(flat), threads, 0, 1});
+    add(3, {FTT_LANE_KERNEL(BwdArgs, recompute_att_kernel, 1, true),
+            dim3(flat), threads, 0, 1});
   for (int id = kDu2; id <= kDcstarAdd; ++id) {
     const ProductSpec spec = product_spec(a, id);
     add(3, {kProductKernels[!product_whole(spec)][id],
             dim3(tiles_m * ((spec.N + kTile - 1) / kTile)), kProductThreads,
             product_bytes(spec), 1});
     if (id == kDattended)  // the softmax between dattended and du1
-      add(3, {softmax_bwd_kernel, dim3((flat + threads / 32 - 1) /
-                                       (threads / 32)), threads, 0, 1});
+      add(3, {kSoftmaxKernel, dim3((flat + threads / 32 - 1) /
+                                   (threads / 32)), threads, 0, 1});
   }
   add(4, {pairs ? lstm_chains_for<kCellRows, true>(Pc)
                 : lstm_chains_for<kCellRows, false>(Pc),
           cell_grid, threads, plan_smem(Pc, cell_bytes), Cc});
   for (int k = 0; k < count; ++k) {
-    cudaError_t err = prepare(p[k], pass_of[k], fit);
+    cudaError_t err = prepare(p[k], pass_of[k], lanes, fit);
     if (err != cudaSuccess) return (int)err;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto lane = [&](int k) {
+    BwdArgs b;
+    build(k, &b);
+    b.mem_state = a.mem_state;
+    b.mem_slice = a.mem_slice;
+    b.cell_state = a.cell_state;
+    b.cell_slice = a.cell_slice;
+    return b;
+  };
   for (int k = 0; k < count; ++k) {
-    cudaError_t err = launch(p[k], a, st);
+    cudaError_t err = launch(p[k], lanes, lane, st);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
@@ -1396,87 +1449,114 @@ extern "C" int mfm_encode_bwd(
 // g1b2, g2w2, g2b2), each (P, Q) row-major. cluster: the blocks S (1, 2,
 // 4 or 8) that split K for each output tile. copy (host memory, one int)
 // gets the bytes of the staging copies: 16 where every column offset, row
-// stride and pointer allows, else 4.
+// stride and pointer of every lane allows, else 4. Every array is lane
+// 0's of `lanes`: lane k's lies lane_strides[i] k floats on (host memory,
+// 14 strides: allc, allmem, the ten residual pointers, delta and out).
 extern "C" int mfm_encode_dw(
     const float* allc, const float* allmem, void* const* res_ptrs,
     const int* res_strides, const int* res_cols, const float* delta,
     float* out, int t, int n, int H, int z_tot, int mem, int s1, int s2,
-    int s3, int s4, int cluster, int* copy, void* stream) {
+    int s3, int s4, int cluster, int lanes, const long long* lane_strides,
+    int* copy, void* stream) {
   using namespace ftt;
   int widths[kResFields];
   res_widths(H, z_tot, mem, s1, s2, s3, s4, widths);
-  ResTable res;
   const int S = cluster;
+  const long long* ls = lane_strides;
   if (t < 1 || n < 1 || z_tot < 0 || z_tot >= H || res_ptrs == nullptr ||
-      !(S == 1 || S == 2 || S == 4 || S == 8) ||
-      !make_res_table(res_ptrs, res_strides, res_cols, widths, &res))
+      lanes < 1 || ls == nullptr || !(S == 1 || S == 2 || S == 4 || S == 8))
     return (int)cudaErrorInvalidValue;
   const DeltaLayout l = delta_layout(H, z_tot, mem, s1, s2, s3, s4);
   const int M = H - z_tot, m2 = 2 * M, s34 = s3 + s4;
-  DwArgs a;
-  a.delta = delta;
-  a.delta_width = l.width;
-  a.att = res.f[kAtt];
-  a.rows = t * n;
-  a.slice = (a.rows + S - 1) / S;
-  a.clocks = phase_clocks();
-  // the A operands' column runs: cStar is the previous step's c past
-  // z_tot, then this step's; memp the previous step's memory
-  const DwSeg c_prev = {allc, H, z_tot, n, M};
-  const DwSeg c_now = {allc, H, z_tot - M, 0, m2};
-  const DwSeg memp = {allmem, mem, -m2, n, m2 + mem};
-  const DwSeg none = {nullptr, 0, 0, 0, 0};
-  auto field = [](const ResEntry& e, int col, int end) {
-    return DwSeg{e.ptr, e.stride, e.col + col, 0, end};
-  };
-  struct Spec {
-    DwSeg seg[3];
-    int att_end, P, Q, d_col;
-  };
-  const Spec specs[kDwProducts] = {
-      {{c_prev, c_now, none}, 0, m2, s1, l.du1},                // a1w1
-      {{field(res.f[kR1], 0, s1), none, none}, 0, s1, m2, l.dlogits},
-      {{c_prev, c_now, none}, m2, m2, s2, l.du2},               // a2w1
-      {{field(res.f[kR2], 0, s2), none, none}, 0, s2, mem, l.dch},
-      {{c_prev, c_now, memp}, m2, m2 + mem, s34, l.du3},        // gw1
-      {{field(res.f[kR3], 0, s3), none, none}, 0, s3, mem, l.dq1},
-      {{field(res.f[kR3], s3, s4), none, none}, 0, s4, mem, l.dq2},
-  };
-  size_t at = 0;
-  int tiles = 0;
-  for (int k = 0; k < kDwProducts; ++k) {
-    const Spec& sp = specs[k];
-    DwProduct& pr = a.prod[k];
-    for (int j = 0; j < 3; ++j) pr.seg[j] = sp.seg[j];
-    pr.att_end = sp.att_end;
-    pr.P = sp.P;
-    pr.Q = sp.Q;
-    pr.d_col = sp.d_col;
-    pr.tiles_q = (sp.Q + kDwTile - 1) / kDwTile;
-    pr.out = out + at;
-    at += (size_t)sp.P * sp.Q;
-    pr.bias = out + at;
-    at += sp.Q;
-    a.first_tile[k] = tiles;
-    tiles += ((sp.P + kDwTile - 1) / kDwTile) * pr.tiles_q;
-  }
-  a.first_tile[kDwProducts] = tiles;
   // 16-byte copies where no run, offset or row stride splits four floats
   auto aligned = [](const void* p, int stride, int col) {
     return reinterpret_cast<size_t>(p) % 16 == 0 && stride % 4 == 0 &&
            col % 4 == 0;
   };
   bool v4 = M % 4 == 0 && z_tot % 4 == 0 && mem % 4 == 0 && s1 % 4 == 0 &&
-            s2 % 4 == 0 && s3 % 4 == 0 && s4 % 4 == 0 &&
-            aligned(allc, H, 0) && aligned(allmem, mem, 0) &&
-            aligned(delta, l.width, 0);
-  for (int f : {kAtt, kR1, kR2, kR3})
-    v4 = v4 && aligned(res.f[f].ptr, res.f[f].stride, res.f[f].col);
+            s2 % 4 == 0 && s3 % 4 == 0 && s4 % 4 == 0;
+  int tiles = 0;
+  // lane k's arguments (and whether its copies may be 16-byte ones);
+  // false where a field of the table does not fit
+  auto build = [&](int k, DwArgs* to) {
+    DwArgs& a = *to;
+    const float* lc = at_lane(allc, ls, 0, k);
+    const float* lm = at_lane(allmem, ls, 1, k);
+    const float* ld = at_lane(delta, ls, 12, k);
+    float* lo = at_lane(out, ls, 13, k);
+    void* rp[kResFields];
+    for (int f = 0; f < kResFields; ++f)
+      rp[f] = at_lane(static_cast<float*>(res_ptrs[f]), ls, 2 + f, k);
+    ResTable res;
+    if (!make_res_table(rp, res_strides, res_cols, widths, &res))
+      return false;
+    a.delta = ld;
+    a.delta_width = l.width;
+    a.att = res.f[kAtt];
+    a.rows = t * n;
+    a.slice = (a.rows + S - 1) / S;
+    a.clocks = phase_clocks();
+    // the A operands' column runs: cStar is the previous step's c past
+    // z_tot, then this step's; memp the previous step's memory
+    const DwSeg c_prev = {lc, H, z_tot, n, M};
+    const DwSeg c_now = {lc, H, z_tot - M, 0, m2};
+    const DwSeg memp = {lm, mem, -m2, n, m2 + mem};
+    const DwSeg none = {nullptr, 0, 0, 0, 0};
+    auto field = [](const ResEntry& e, int col, int end) {
+      return DwSeg{e.ptr, e.stride, e.col + col, 0, end};
+    };
+    struct Spec {
+      DwSeg seg[3];
+      int att_end, P, Q, d_col;
+    };
+    const Spec specs[kDwProducts] = {
+        {{c_prev, c_now, none}, 0, m2, s1, l.du1},                // a1w1
+        {{field(res.f[kR1], 0, s1), none, none}, 0, s1, m2, l.dlogits},
+        {{c_prev, c_now, none}, m2, m2, s2, l.du2},               // a2w1
+        {{field(res.f[kR2], 0, s2), none, none}, 0, s2, mem, l.dch},
+        {{c_prev, c_now, memp}, m2, m2 + mem, s34, l.du3},        // gw1
+        {{field(res.f[kR3], 0, s3), none, none}, 0, s3, mem, l.dq1},
+        {{field(res.f[kR3], s3, s4), none, none}, 0, s4, mem, l.dq2},
+    };
+    size_t at = 0;
+    tiles = 0;
+    for (int q = 0; q < kDwProducts; ++q) {
+      const Spec& sp = specs[q];
+      DwProduct& pr = a.prod[q];
+      for (int j = 0; j < 3; ++j) pr.seg[j] = sp.seg[j];
+      pr.att_end = sp.att_end;
+      pr.P = sp.P;
+      pr.Q = sp.Q;
+      pr.d_col = sp.d_col;
+      pr.tiles_q = (sp.Q + kDwTile - 1) / kDwTile;
+      pr.out = lo + at;
+      at += (size_t)sp.P * sp.Q;
+      pr.bias = lo + at;
+      at += sp.Q;
+      a.first_tile[q] = tiles;
+      tiles += ((sp.P + kDwTile - 1) / kDwTile) * pr.tiles_q;
+    }
+    a.first_tile[kDwProducts] = tiles;
+    v4 = v4 && aligned(lc, H, 0) && aligned(lm, mem, 0) &&
+         aligned(ld, l.width, 0);
+    for (int f : {kAtt, kR1, kR2, kR3})
+      v4 = v4 && aligned(res.f[f].ptr, res.f[f].stride, res.f[f].col);
+    return true;
+  };
+  DwArgs a;
+  for (int k = 0; k < lanes; ++k)
+    if (!build(k, &a)) return (int)cudaErrorInvalidValue;
   *copy = v4 ? 16 : 4;
   const DwKernel kernel = v4 ? dw_kernel_for<true>(S) : dw_kernel_for<false>(S);
   const size_t bytes = 2 * kDwStageFloats * sizeof(float);
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), bytes);
+  cudaError_t err = allow_lane_smem(kernel, lanes, bytes);
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_clusters(kernel, dim3(tiles * S), kDwThreads, bytes, S,
-                              static_cast<cudaStream_t>(stream), a);
+  auto args = [&](int k) {
+    DwArgs b;
+    build(k, &b);
+    return b;
+  };
+  return (int)launch_lane_kernel(kernel, dim3(tiles * S), kDwThreads, bytes,
+                                 S, static_cast<cudaStream_t>(stream), lanes,
+                                 args);
 }

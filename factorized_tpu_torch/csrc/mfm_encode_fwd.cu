@@ -143,7 +143,8 @@ struct EncodeArgs {
   Cells cells;
 };
 
-using Kernel = void (*)(const EncodeArgs);
+// a kernel's one-lane and lane instantiations (lstm_common.cuh)
+using Kernel = LaneKernel<EncodeArgs>;
 
 // ------------------------------------------------------ (1) LSTM chains
 
@@ -151,9 +152,10 @@ using Kernel = void (*)(const EncodeArgs);
 // cluster of C its share of the cell's gate columns. L2: the weights read
 // in place (C = 1); S: with them the state in the block's scratch slice
 // (kStateScratch).
-template <int R, int C, bool L2, bool S = false>
+template <typename In, int R, int C, bool L2, bool S = false>
 __global__ void __launch_bounds__(kMaxThreads)
-    cell_chains_fwd_kernel(const EncodeArgs a) {
+    cell_chains_fwd_kernel(const __grid_constant__ In la) {
+  const EncodeArgs& a = lane_of(la);
   static_assert(!S || (L2 && C == 1), "the scratch plan reads from L2");
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
@@ -322,9 +324,10 @@ __device__ __forceinline__ void product_out(const EncodeArgs& a, int m,
 // the depth in product_chunks pieces (else whole, at every width but the
 // widest: a separate instantiation, so the common one carries no chunk
 // arithmetic).
-template <int P, bool Chunked>
+template <typename In, int P, bool Chunked>
 __global__ void __launch_bounds__(kProductThreads)
-    product_fwd_kernel(const EncodeArgs a) {
+    product_fwd_kernel(const __grid_constant__ In la) {
+  const EncodeArgs& a = lane_of(la);
   extern __shared__ float smem[];
   const ProductSpec p = product_spec(a, P);
   const int rows = a.t * a.n, tiles_n = (p.N + kTile - 1) / kTile;
@@ -416,8 +419,10 @@ __global__ void __launch_bounds__(kProductThreads)
 // The softmax over each flat row's logits (a.work), max subtracted
 // first: att (with residuals, into its field) and attended = att * cStar
 // over the logits; a warp per row.
+template <typename In>
 __global__ void __launch_bounds__(kMaxThreads)
-    softmax_fwd_kernel(const EncodeArgs a) {
+    softmax_fwd_kernel(const __grid_constant__ In la) {
+  const EncodeArgs& a = lane_of(la);
   const int lane = threadIdx.x & 31;
   const int m = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (m >= a.t * a.n) return;  // the whole warp
@@ -521,9 +526,10 @@ __device__ __forceinline__ void load_mem_fwd_ops(const EncodeArgs& a, int s,
 // read in place (C = 1), a column of each (an output's depth) with its
 // elements a row apart; S: with them the state in the block's scratch
 // slice (kStateScratch).
-template <int R, int C, bool L2, bool S = false>
+template <typename In, int R, int C, bool L2, bool S = false>
 __global__ void __launch_bounds__(kMaxThreads)
-    mem_chain_fwd_kernel(const EncodeArgs a) {
+    mem_chain_fwd_kernel(const __grid_constant__ In la) {
+  const EncodeArgs& a = lane_of(la);
   static_assert(!S || (L2 && C == 1), "the scratch plan reads from L2");
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
@@ -667,32 +673,42 @@ __global__ void __launch_bounds__(kMaxThreads)
 // The chains' kernels for a plan (lstm_common.cuh's chain_kernel).
 template <int R>
 Kernel cells_for(int plan) {
+  using A = EncodeArgs;
   const Kernel k[6] = {
-      cell_chains_fwd_kernel<R, 1, true>, cell_chains_fwd_kernel<R, 1, false>,
-      cell_chains_fwd_kernel<R, 2, false>, cell_chains_fwd_kernel<R, 4, false>,
-      cell_chains_fwd_kernel<R, 8, false>,
-      cell_chains_fwd_kernel<R, 1, true, true>};
+      FTT_LANE_KERNEL(A, cell_chains_fwd_kernel, R, 1, true),
+      FTT_LANE_KERNEL(A, cell_chains_fwd_kernel, R, 1, false),
+      FTT_LANE_KERNEL(A, cell_chains_fwd_kernel, R, 2, false),
+      FTT_LANE_KERNEL(A, cell_chains_fwd_kernel, R, 4, false),
+      FTT_LANE_KERNEL(A, cell_chains_fwd_kernel, R, 8, false),
+      FTT_LANE_KERNEL(A, cell_chains_fwd_kernel, R, 1, true, true)};
   return chain_kernel(k, plan);
 }
 
 template <int R>
 Kernel mem_for(int plan) {
+  using A = EncodeArgs;
   const Kernel k[6] = {
-      mem_chain_fwd_kernel<R, 1, true>, mem_chain_fwd_kernel<R, 1, false>,
-      mem_chain_fwd_kernel<R, 2, false>, mem_chain_fwd_kernel<R, 4, false>,
-      mem_chain_fwd_kernel<R, 8, false>,
-      mem_chain_fwd_kernel<R, 1, true, true>};
+      FTT_LANE_KERNEL(A, mem_chain_fwd_kernel, R, 1, true),
+      FTT_LANE_KERNEL(A, mem_chain_fwd_kernel, R, 1, false),
+      FTT_LANE_KERNEL(A, mem_chain_fwd_kernel, R, 2, false),
+      FTT_LANE_KERNEL(A, mem_chain_fwd_kernel, R, 4, false),
+      FTT_LANE_KERNEL(A, mem_chain_fwd_kernel, R, 8, false),
+      FTT_LANE_KERNEL(A, mem_chain_fwd_kernel, R, 1, true, true)};
   return chain_kernel(k, plan);
 }
 
 // [chunked][product]
 const Kernel kProductKernels[2][kProducts] = {
-    {product_fwd_kernel<kProdU1, false>, product_fwd_kernel<kProdLogits, false>,
-     product_fwd_kernel<kProdU2Pu3, false>,
-     product_fwd_kernel<kProdChat, false>},
-    {product_fwd_kernel<kProdU1, true>, product_fwd_kernel<kProdLogits, true>,
-     product_fwd_kernel<kProdU2Pu3, true>,
-     product_fwd_kernel<kProdChat, true>}};
+    {FTT_LANE_KERNEL(EncodeArgs, product_fwd_kernel, kProdU1, false),
+     FTT_LANE_KERNEL(EncodeArgs, product_fwd_kernel, kProdLogits, false),
+     FTT_LANE_KERNEL(EncodeArgs, product_fwd_kernel, kProdU2Pu3, false),
+     FTT_LANE_KERNEL(EncodeArgs, product_fwd_kernel, kProdChat, false)},
+    {FTT_LANE_KERNEL(EncodeArgs, product_fwd_kernel, kProdU1, true),
+     FTT_LANE_KERNEL(EncodeArgs, product_fwd_kernel, kProdLogits, true),
+     FTT_LANE_KERNEL(EncodeArgs, product_fwd_kernel, kProdU2Pu3, true),
+     FTT_LANE_KERNEL(EncodeArgs, product_fwd_kernel, kProdChat, true)}};
+const Kernel kSoftmaxKernel = {softmax_fwd_kernel<EncodeArgs>,
+                               softmax_fwd_kernel<LaneArgs<EncodeArgs>>};
 
 // One pass's launch.
 struct Pass {
@@ -707,10 +723,11 @@ struct Pass {
 // chain block on MR, each chain on the smallest cluster whose blocks fit,
 // else with its weights read from L2, else with them its state in the
 // scratch; kNeedScratch, launching nothing, while the scratch is short of
-// what those plans take.
-template <int CR, int MR>
-int run(EncodeArgs a, const Scratch& scratch, int threads, int* fit,
-        cudaStream_t stream) {
+// what those plans take. a is lane 0's arguments, lane(k) lane k's (the
+// chains' scratch a's: each lane's blocks have their own slices).
+template <int CR, int MR, typename F>
+int run(EncodeArgs a, F lane, int lanes, const Scratch& scratch,
+        int threads, int* fit, cudaStream_t stream) {
   const int flat = a.t * a.n, tiles_m = (flat + kTile - 1) / kTile;
   size_t cell_bytes = 0, mem_bytes = 0;
   auto cells_at = [&](int C) {
@@ -728,11 +745,14 @@ int run(EncodeArgs a, const Scratch& scratch, int threads, int* fit,
   const int Cc = plan_blocks(Pc), Cm = plan_blocks(Pm);
   const dim3 cell_grid(((a.n + CR - 1) / CR) * Cc, a.cells.count);
   const dim3 mem_grid(((a.n + MR - 1) / MR) * Cm);
+  const long long at_once = lanes_at_once(lanes);
   if (Pc == kStateScratch)
-    a.cell_state = reserve(scratch, (long long)cell_grid.x * cell_grid.y,
-                           cell_bytes, &a.cell_slice);
+    a.cell_state =
+        reserve(scratch, (long long)cell_grid.x * cell_grid.y * at_once,
+                cell_bytes, &a.cell_slice);
   if (Pm == kStateScratch)
-    a.mem_state = reserve(scratch, mem_grid.x, mem_bytes, &a.mem_slice);
+    a.mem_state = reserve(scratch, (long long)mem_grid.x * at_once,
+                          mem_bytes, &a.mem_slice);
   if ((Pc == kStateScratch && a.cell_state == nullptr) ||
       (Pm == kStateScratch && a.mem_state == nullptr))
     return kNeedScratch;
@@ -752,7 +772,7 @@ int run(EncodeArgs a, const Scratch& scratch, int threads, int* fit,
             dim3(tiles_m * ((spec.N + kTile - 1) / kTile)), kProductThreads,
             product_floats((spec.K + nc - 1) / nc) * sizeof(float), 1});
     if (id == kProdLogits)  // the softmax between the logits and u2
-      add(2, {softmax_fwd_kernel,
+      add(2, {kSoftmaxKernel,
               dim3((flat + threads / 32 - 1) / (threads / 32)), threads, 0,
               1});
   }
@@ -766,13 +786,21 @@ int run(EncodeArgs a, const Scratch& scratch, int threads, int* fit,
   for (int k = 0; k < count; ++k) {
     if (p[k].bytes > (size_t)kMaxSmemBytes)
       return (int)refuse(fit, pass_of[k], p[k].bytes, p[k].cluster);
-    cudaError_t err =
-        allow_smem(reinterpret_cast<const void*>(p[k].kernel), p[k].bytes);
+    cudaError_t err = allow_lane_smem(p[k].kernel, lanes, p[k].bytes);
     if (err != cudaSuccess) return (int)err;
   }
+  auto args = [&](int k) {
+    EncodeArgs b = lane(k);
+    b.cell_state = a.cell_state;
+    b.cell_slice = a.cell_slice;
+    b.mem_state = a.mem_state;
+    b.mem_slice = a.mem_slice;
+    return b;
+  };
   for (int k = 0; k < count; ++k) {
-    cudaError_t err = launch_clusters(p[k].kernel, p[k].grid, p[k].threads,
-                                      p[k].bytes, p[k].cluster, stream, a);
+    cudaError_t err =
+        launch_lane_kernel(p[k].kernel, p[k].grid, p[k].threads,
+                           p[k].bytes, p[k].cluster, stream, lanes, args);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
@@ -798,6 +826,11 @@ int run(EncodeArgs a, const Scratch& scratch, int threads, int* fit,
 // (-1) without launching while state_floats is short of it. fit (host
 // memory, six ints, lstm_common.cuh's Fit) gets the plans the LSTM chains
 // and the memory chain ran on (a cluster, kWeightsL2 or kStateScratch).
+// Every array is lane 0's of `lanes` (lstm_common.cuh's LaneArgs): lane
+// k's lies lane_strides[i] k floats on (host memory, 33 strides: xp,
+// masks, wh, the 14 other weights in the signature's order, h_last,
+// mem_last, allh, allc, allmem, the ten residual pointers and scratch;
+// 0 where the lanes share the array).
 extern "C" int mfm_encode_fwd(
     const float* xp, const float* masks, const float* wh, const float* a1w1,
     const float* a1b1, const float* a1w2, const float* a1b2,
@@ -808,72 +841,93 @@ extern "C" int mfm_encode_fwd(
     const int* res_strides, const int* res_cols, float* scratch,
     float* state, long long state_floats, long long* state_need, int t,
     int n, int H, int z_tot, int mem, int s1, int s2, int s3, int s4,
-    int n_cells, const int* cell_dims, int threads, int* fit,
-    void* stream) {
+    int n_cells, const int* cell_dims, int threads, int lanes,
+    const long long* lane_strides, int* fit, void* stream) {
   using namespace ftt;
   clear_fit(fit);
   const Scratch chains = {state, state_floats, state_need};
-  EncodeArgs a;
-  a.xp = xp;
-  a.masks = masks;
-  a.wh = wh;
-  a.a1w1 = a1w1;
-  a.a1b1 = a1b1;
-  a.a1w2 = a1w2;
-  a.a1b2 = a1b2;
-  a.a2w1 = a2w1;
-  a.a2b1 = a2b1;
-  a.a2w2 = a2w2;
-  a.a2b2 = a2b2;
-  a.gw1 = gw1;
-  a.gb1 = gb1;
-  a.g1w2 = g1w2;
-  a.g1b2 = g1b2;
-  a.g2w2 = g2w2;
-  a.g2b2 = g2b2;
-  a.h_last = h_last;
-  a.mem_last = mem_last;
-  a.allh = allh;
-  a.allmem = allmem;
-  a.clocks = phase_clocks();
-  a.cell_state = a.mem_state = nullptr;
-  a.cell_slice = a.mem_slice = 0;
-  a.t = t;
-  a.n = n;
-  a.H = H;
-  a.z_tot = z_tot;
-  a.mem = mem;
-  a.s1 = s1;
-  a.s2 = s2;
-  a.s3 = s3;
-  a.s4 = s4;
-  a.m2 = 2 * (H - z_tot);
+  const long long* ls = lane_strides;
   int widths[kResFields];
   res_widths(H, z_tot, mem, s1, s2, s3, s4, widths);
   const bool with_res = allh && allc && allmem && res_ptrs;
-  if (!make_cells(n_cells, cell_dims, H, &a.cells) || t < 1 || n < 1 ||
-      z_tot < 0 || z_tot >= H || threads < 32 || threads > kMaxThreads ||
+  if (lanes < 1 || ls == nullptr || t < 1 || n < 1 || z_tot < 0 ||
+      z_tot >= H || threads < 32 || threads > kMaxThreads ||
       threads % 32 != 0 || scratch == nullptr || state_need == nullptr ||
-      !make_res_table(res_ptrs, res_strides, res_cols, widths, &a.res) ||
       !(with_res || !(allh || allc || allmem || res_ptrs)))
     return (int)cudaErrorInvalidValue;
+  // lane k's arguments; false where a field of the table does not fit
+  auto build = [&](int k, EncodeArgs* out) {
+    EncodeArgs& a = *out;
+    a.xp = at_lane(xp, ls, 0, k);
+    a.masks = at_lane(masks, ls, 1, k);
+    a.wh = at_lane(wh, ls, 2, k);
+    a.a1w1 = at_lane(a1w1, ls, 3, k);
+    a.a1b1 = at_lane(a1b1, ls, 4, k);
+    a.a1w2 = at_lane(a1w2, ls, 5, k);
+    a.a1b2 = at_lane(a1b2, ls, 6, k);
+    a.a2w1 = at_lane(a2w1, ls, 7, k);
+    a.a2b1 = at_lane(a2b1, ls, 8, k);
+    a.a2w2 = at_lane(a2w2, ls, 9, k);
+    a.a2b2 = at_lane(a2b2, ls, 10, k);
+    a.gw1 = at_lane(gw1, ls, 11, k);
+    a.gb1 = at_lane(gb1, ls, 12, k);
+    a.g1w2 = at_lane(g1w2, ls, 13, k);
+    a.g1b2 = at_lane(g1b2, ls, 14, k);
+    a.g2w2 = at_lane(g2w2, ls, 15, k);
+    a.g2b2 = at_lane(g2b2, ls, 16, k);
+    a.h_last = at_lane(h_last, ls, 17, k);
+    a.mem_last = at_lane(mem_last, ls, 18, k);
+    a.allh = at_lane(allh, ls, 19, k);
+    a.allmem = at_lane(allmem, ls, 21, k);
+    a.clocks = phase_clocks();
+    a.cell_state = a.mem_state = nullptr;
+    a.cell_slice = a.mem_slice = 0;
+    a.t = t;
+    a.n = n;
+    a.H = H;
+    a.z_tot = z_tot;
+    a.mem = mem;
+    a.s1 = s1;
+    a.s2 = s2;
+    a.s3 = s3;
+    a.s4 = s4;
+    a.m2 = 2 * (H - z_tot);
+    void* rp[kResFields];
+    for (int f = 0; f < kResFields; ++f)
+      rp[f] = res_ptrs ? at_lane(static_cast<float*>(res_ptrs[f]), ls,
+                                 22 + f, k)
+                       : nullptr;
+    if (!make_cells(n_cells, cell_dims, H, &a.cells) ||
+        !make_res_table(res_ptrs ? rp : nullptr, res_strides, res_cols,
+                        widths, &a.res))
+      return false;
+    const size_t flat = (size_t)t * n;
+    a.pu3 = at_lane(scratch, ls, 32, k);
+    a.work = a.pu3 + flat * (s3 + s4);
+    if (with_res) {
+      a.allc = at_lane(allc, ls, 20, k);
+      a.r1 = a.res.f[kR1];
+      a.r2 = a.res.f[kR2];
+      a.chat = a.res.f[kChat];
+    } else {
+      a.allc = a.work + flat * a.m2;
+      a.chat = ResEntry{a.allc + flat * H, mem, 0};
+      a.r1 = ResEntry{a.chat.ptr + flat * mem, s1, 0};
+      a.r2 = ResEntry{a.r1.ptr + flat * s1, s2, 0};
+    }
+    return true;
+  };
+  EncodeArgs a;
+  if (!build(0, &a)) return (int)cudaErrorInvalidValue;
   *state_need = 0;
-  const size_t flat = (size_t)t * n;
-  a.pu3 = scratch;
-  a.work = a.pu3 + flat * (s3 + s4);
-  if (with_res) {
-    a.allc = allc;
-    a.r1 = a.res.f[kR1];
-    a.r2 = a.res.f[kR2];
-    a.chat = a.res.f[kChat];
-  } else {
-    a.allc = a.work + flat * a.m2;
-    a.chat = ResEntry{a.allc + flat * H, mem, 0};
-    a.r1 = ResEntry{a.chat.ptr + flat * mem, s1, 0};
-    a.r2 = ResEntry{a.r1.ptr + flat * s1, s2, 0};
-  }
+  auto lane = [&](int k) {
+    EncodeArgs b;
+    build(k, &b);
+    return b;
+  };
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_res
-             ? run<kTrainCellRows, kTrainMemRows>(a, chains, threads, fit, st)
-             : run<kEvalCellRows, kEvalMemRows>(a, chains, threads, fit, st);
+  return with_res ? run<kTrainCellRows, kTrainMemRows>(a, lane, lanes, chains,
+                                                       threads, fit, st)
+                  : run<kEvalCellRows, kEvalMemRows>(a, lane, lanes, chains,
+                                                     threads, fit, st);
 }

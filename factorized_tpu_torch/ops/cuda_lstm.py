@@ -50,6 +50,13 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 MULTI_LAUNCHES = 0
 MULTI_BWD_LAUNCHES = 0
+# the launches of each kernel with a lane axis (``*_lanes`` wrappers and
+# the lane route under ``torch.func.vmap``), by kernel; they are counted in
+# the counters above too
+LANE_LAUNCHES = {}
+# the lanes one launch holds (csrc/lstm_common.cuh's kMaxLanes); more
+# lanes take one launch a group
+MAX_LANES = 8
 # threads per block of the backward chains at the training batch (n = 32),
 # the fastest measured by perf_probe.py (PERF.md); their rows, and the
 # forward chains' rows and threads, are fixed in csrc/lstm_bwd.cu and
@@ -73,6 +80,29 @@ NEED_SCRATCH = -1
 # (host memory) the floats the launch takes
 STATE_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong,
                   ctypes.POINTER(ctypes.c_longlong)]
+
+
+def lane_launches(lanes: int) -> int:
+    """The launches a call over ``lanes`` lanes takes (1 for none)."""
+    return max(1, -(-lanes // MAX_LANES))
+
+
+def count_lanes(name: str, lanes: int):
+    """Count a lane launch of kernel ``name`` in ``LANE_LAUNCHES``."""
+    if lanes:
+        LANE_LAUNCHES[name] = LANE_LAUNCHES.get(name, 0) + lane_launches(
+            lanes)
+
+
+def lane_strides(tensors, lanes: int):
+    """The launchers' ``lane_strides`` argument: each array's floats from
+    one lane to the next (its leading dimension's stride, 0 where the
+    lanes share it), all 0 without lanes; None stands for no array."""
+    vals = [t.stride(0) if lanes and t is not None else 0 for t in tensors]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+LANE_ARGTYPES = [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]
 
 
 def launch_chains(fn, device, head, tail):
@@ -150,36 +180,46 @@ def decoder_lstm_fwd(h0, c0, wsum, b, t: int, h_dims):
 
 def decoder_lstm(h0, c0, wsum, b, t: int, h_dims):
     """All hidden states (t, n, H); ``allh[0] == h0``. Through
-    ``DecoderLSTM`` when a gradient is wanted."""
+    ``DecoderLSTM`` when a gradient is wanted; under ``torch.func.vmap``
+    through the lane kernels (``VmapDecoderLSTM``)."""
+    if batched(h0, c0, wsum, b):
+        return VmapDecoderLSTM.apply(h0, c0, wsum, b, t, list(h_dims))
     if torch.is_grad_enabled() and any(
             x.requires_grad for x in (h0, c0, wsum, b)):
         return DecoderLSTM.apply(h0, c0, wsum, b, t, list(h_dims))
     return decoder_lstm_fwd(h0, c0, wsum, b, t, h_dims)[0]
 
 
-def _launch(h0, c0, wsum, b, t, h_dims):
+def _launch(h0, c0, wsum, b, t, h_dims, lanes: int = 0):
+    """The decoder forward's kernel; with ``lanes`` every operand has a
+    leading lane dimension and one launch runs them all."""
     global LAUNCHES
-    n, H = h0.shape
+    n, H = h0.shape[-2:]
     fn = _build.kernel(
         "decoder_lstm_fwd",
         [ctypes.c_void_p] * 7 + STATE_ARGTYPES + [ctypes.c_int] * 4
-        + [ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-           ctypes.c_void_p])
-    allh = torch.empty((t, n, H), dtype=torch.float32, device=h0.device)
-    allc = torch.empty((t, n, H), dtype=torch.float32, device=h0.device)
-    gates = torch.empty((t, n, 4 * H), dtype=torch.float32, device=h0.device)
+        + [ctypes.POINTER(ctypes.c_int)] + LANE_ARGTYPES
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    lead = (lanes,) if lanes else ()
+
+    def empty(*shape):
+        return torch.empty(lead + shape, dtype=torch.float32,
+                           device=h0.device)
+
+    allh, allc, gates = empty(t, n, H), empty(t, n, H), empty(t, n, 4 * H)
+    operands = (h0, c0, wsum, b, allh, allc, gates)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
     fit = (ctypes.c_int * 6)()
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch_chains(
-            fn, h0.device,
-            [h0.data_ptr(), c0.data_ptr(), wsum.data_ptr(), b.data_ptr(),
-             allh.data_ptr(), allc.data_ptr(), gates.data_ptr()],
-            [t, n, H, len(h_dims), dims, fit, stream])
+            fn, h0.device, [x.data_ptr() for x in operands],
+            [t, n, H, len(h_dims), dims, max(lanes, 1),
+             lane_strides(operands, lanes), fit, stream])
     _fit("decoder_lstm_fwd", fit, h_dims)
     _build.check(err, "decoder_lstm_fwd")
-    LAUNCHES += 1
+    LAUNCHES += lane_launches(lanes)
+    count_lanes("decoder_lstm_fwd", lanes)
     _count_plans("decoder_lstm_fwd")
     return allh, allc, gates
 
@@ -221,31 +261,34 @@ def decoder_lstm_bwd(wsum, gates, allc, dallh, h_dims):
     return _launch_bwd(wsum, gates, allc, dallh, h_dims)
 
 
-def _launch_bwd(wsum, gates, allc, dallh, h_dims):
+def _launch_bwd(wsum, gates, allc, dallh, h_dims, lanes: int = 0):
     global BWD_LAUNCHES
-    t, n, H = allc.shape
+    t, n, H = allc.shape[-3:]
     fn = _build.kernel(
         "decoder_lstm_bwd",
         [ctypes.c_void_p] * 7 + STATE_ARGTYPES + [ctypes.c_int] * 4
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-           ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
-    dgates = torch.empty((t - 1, n, 4 * H), dtype=torch.float32,
-                         device=allc.device)
-    dh0 = torch.empty((n, H), dtype=torch.float32, device=allc.device)
-    dc0 = torch.empty((n, H), dtype=torch.float32, device=allc.device)
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] + LANE_ARGTYPES
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    lead = (lanes,) if lanes else ()
+
+    def empty(*shape):
+        return torch.empty(lead + shape, dtype=torch.float32,
+                           device=allc.device)
+
+    dgates, dh0, dc0 = empty(t - 1, n, 4 * H), empty(n, H), empty(n, H)
+    operands = (gates, allc, dallh, wsum, dgates, dh0, dc0)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
     fit = (ctypes.c_int * 6)()
     with torch.cuda.device(allc.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch_chains(
-            fn, allc.device,
-            [gates.data_ptr(), allc.data_ptr(), dallh.data_ptr(),
-             wsum.data_ptr(), dgates.data_ptr(), dh0.data_ptr(),
-             dc0.data_ptr()],
-            [t, n, H, len(h_dims), dims, BWD_THREADS, fit, stream])
+            fn, allc.device, [x.data_ptr() for x in operands],
+            [t, n, H, len(h_dims), dims, BWD_THREADS, max(lanes, 1),
+             lane_strides(operands, lanes), fit, stream])
     _fit("decoder_lstm_bwd", fit, h_dims)
     _build.check(err, "decoder_lstm_bwd")
-    BWD_LAUNCHES += 1
+    BWD_LAUNCHES += lane_launches(lanes)
+    count_lanes("decoder_lstm_bwd", lanes)
     _count_plans("decoder_lstm_bwd")
     return dgates, dh0, dc0
 
@@ -421,36 +464,39 @@ def _multi_lstm_eval_shape(xp, wh, h_dims):
     return xp.new_empty((xp.shape[1], xp.shape[2] // 4))
 
 
-def _launch_multi(xp, wh, h_dims, with_res):
+def _launch_multi(xp, wh, h_dims, with_res, lanes: int = 0):
     global MULTI_LAUNCHES
-    t, n, H4 = xp.shape
+    t, n, H4 = xp.shape[-3:]
     H = H4 // 4
     fn = _build.kernel(
         "multi_lstm_fwd",
         [ctypes.c_void_p] * 6 + STATE_ARGTYPES + [ctypes.c_int] * 4
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-           ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] + LANE_ARGTYPES
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    lead = (lanes,) if lanes else ()
 
     def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=xp.device)
+        return torch.empty(lead + shape, dtype=torch.float32,
+                           device=xp.device)
 
     outs = [empty(n, H)]
     if with_res:
         outs += [empty(t, n, H), empty(t, n, H), empty(t, n, H4)]
-        res_ptrs = [o.data_ptr() for o in outs[1:]]
-    else:
-        res_ptrs = [None] * 3
+    res = outs[1:] if with_res else [None] * 3
+    operands = (xp, wh, outs[0], *res)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
     fit = (ctypes.c_int * 6)()
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch_chains(
             fn, xp.device,
-            [xp.data_ptr(), wh.data_ptr(), outs[0].data_ptr(), *res_ptrs],
-            [t, n, H, len(h_dims), dims, int(with_res), fit, stream])
+            [None if x is None else x.data_ptr() for x in operands],
+            [t, n, H, len(h_dims), dims, int(with_res), max(lanes, 1),
+             lane_strides(operands, lanes), fit, stream])
     _fit("multi_lstm_fwd", fit, h_dims)
     _build.check(err, "multi_lstm_fwd")
-    MULTI_LAUNCHES += 1
+    MULTI_LAUNCHES += lane_launches(lanes)
+    count_lanes("multi_lstm_fwd", lanes)
     _count_plans("multi_lstm_fwd")
     return tuple(outs) if with_res else outs[0]
 
@@ -490,27 +536,29 @@ def multi_lstm_bwd(gates, wh, allc, dhlast, h_dims):
     return _launch_multi_bwd(gates, wh, allc, dhlast, h_dims)
 
 
-def _launch_multi_bwd(gates, wh, allc, dhlast, h_dims):
+def _launch_multi_bwd(gates, wh, allc, dhlast, h_dims, lanes: int = 0):
     global MULTI_BWD_LAUNCHES
-    t, n, H = allc.shape
+    t, n, H = allc.shape[-3:]
     fn = _build.kernel(
         "multi_lstm_bwd",
         [ctypes.c_void_p] * 5 + STATE_ARGTYPES + [ctypes.c_int] * 4
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-           ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
-    dxp = torch.empty_like(gates)
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] + LANE_ARGTYPES
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    dxp = torch.empty(((lanes,) if lanes else ()) + (t, n, 4 * H),
+                      dtype=torch.float32, device=allc.device)
+    operands = (gates, allc, dhlast, wh, dxp)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
     fit = (ctypes.c_int * 6)()
     with torch.cuda.device(allc.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch_chains(
-            fn, allc.device,
-            [gates.data_ptr(), allc.data_ptr(), dhlast.data_ptr(),
-             wh.data_ptr(), dxp.data_ptr()],
-            [t, n, H, len(h_dims), dims, MULTI_BWD_THREADS, fit, stream])
+            fn, allc.device, [x.data_ptr() for x in operands],
+            [t, n, H, len(h_dims), dims, MULTI_BWD_THREADS, max(lanes, 1),
+             lane_strides(operands, lanes), fit, stream])
     _fit("multi_lstm_bwd", fit, h_dims)
     _build.check(err, "multi_lstm_bwd")
-    MULTI_BWD_LAUNCHES += 1
+    MULTI_BWD_LAUNCHES += lane_launches(lanes)
+    count_lanes("multi_lstm_bwd", lanes)
     _count_plans("multi_lstm_bwd")
     return dxp
 
@@ -598,7 +646,248 @@ class MultiLSTM(torch.autograd.Function):
 def multi_lstm(xp, wh, h_dims):
     """``h_last (n, H)`` of the fused cells: through ``MultiLSTM`` when a
     gradient is wanted, else the eval forward alone (no residuals
-    written)."""
+    written); under ``torch.func.vmap`` through the lane kernels
+    (``VmapMultiLSTM``)."""
+    if batched(xp, wh):
+        return VmapMultiLSTM.apply(xp, wh, list(h_dims))
     if torch.is_grad_enabled() and (xp.requires_grad or wh.requires_grad):
         return MultiLSTM.apply(xp, wh, list(h_dims))
     return multi_lstm_fwd(xp, wh, h_dims)
+
+
+# ------------------------------------------------------------------ lanes
+#
+# K problems of one shape in one launch: the counterpart of the lane axis
+# that jax.vmap puts in front of each Pallas grid (the JAX package's
+# multi-seed trainer vmaps its whole train step). Every operand has a
+# leading lane dimension K, each lane's slice contiguous; a lane stride of
+# 0 (an ``expand``ed operand) shares one array between the lanes. On the
+# CPU each wrapper runs its ``*_lanes_plain`` version, the single-lane
+# plain version lane by lane.
+
+def batched(*tensors) -> bool:
+    """Whether any of ``tensors`` is a ``torch.func.vmap`` batched tensor
+    (the lane route)."""
+    return any(isinstance(x, torch.Tensor)
+               and torch._C._functorch.is_batchedtensor(x) for x in tensors)
+
+
+def lanes_of(x, dim, lanes: int):
+    """``x`` with its vmapped dimension ``dim`` moved to the front and each
+    lane contiguous, or, where ``dim`` is None (an operand the lanes
+    share), ``x`` expanded to ``lanes`` lanes of stride 0."""
+    if x is None:
+        return None
+    if dim is None:
+        return x.contiguous().expand(lanes, *x.shape)
+    return x.movedim(dim, 0).contiguous()
+
+
+def check_lanes(named):
+    """Each (name, tensor) of ``named`` has the same leading lane count
+    and contiguous lanes; returns that count."""
+    lanes = named[0][1].shape[0]
+    for name, x in named:
+        if x is None:
+            continue
+        if x.dim() < 2 or x.shape[0] != lanes:
+            raise ValueError(f"{name} must have a leading lane dimension "
+                             f"of {lanes}, got {tuple(x.shape)}")
+        if not x[0].is_contiguous():
+            raise ValueError(f"{name}'s lanes must be contiguous")
+    return lanes
+
+
+def _per_lane(fn, lanes, *args):
+    """``fn`` lane by lane over the lane dimension of every tensor of
+    ``args`` (others passed as they are), each output stacked."""
+    outs = [fn(*(a[k] if isinstance(a, torch.Tensor) else a for a in args))
+            for k in range(lanes)]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.stack(outs)
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def decoder_lstm_lanes_plain(h0, c0, wsum, b, t: int):
+    """``decoder_lstm_plain`` lane by lane."""
+    return _per_lane(decoder_lstm_plain, h0.shape[0], h0, c0, wsum, b, t)
+
+
+def decoder_lstm_fwd_lanes(h0, c0, wsum, b, t: int, h_dims):
+    """``decoder_lstm_fwd`` over K lanes in one launch: ``h0``, ``c0``
+    (K, n, H), ``wsum`` (K, H, 4H), ``b`` (K, 4H) or (K, 1, 4H); returns
+    ``(allh, allc, gates)`` each with the lane dimension in front."""
+    lanes = check_lanes([("h0", h0), ("c0", c0), ("wsum", wsum), ("b", b)])
+    _check(h0[0], c0[0], wsum[0], b[0], t, h_dims)
+    if h0.device.type == "cpu":
+        return decoder_lstm_lanes_plain(h0, c0, wsum, b, t)
+    return _launch(h0, c0, wsum, b, t, h_dims, lanes)
+
+
+def decoder_lstm_bwd_lanes_plain(wsum, gates, allc, dallh):
+    """``decoder_lstm_bwd_plain`` lane by lane."""
+    return _per_lane(decoder_lstm_bwd_plain, allc.shape[0], wsum, gates,
+                     allc, dallh)
+
+
+def decoder_lstm_bwd_lanes(wsum, gates, allc, dallh, h_dims):
+    """``decoder_lstm_bwd`` over K lanes in one launch, each operand with
+    the lane dimension in front."""
+    lanes = check_lanes([("allc", allc), ("wsum", wsum), ("gates", gates),
+                         ("dallh", dallh)])
+    t, n, H = allc.shape[1:]
+    if t < 2:
+        raise ValueError(f"the backward needs t >= 2, got {t}")
+    _check_tensors(
+        [("allc", allc[0]), ("wsum", wsum[0]), ("gates", gates[0]),
+         ("dallh", dallh[0])],
+        {"wsum": (H, 4 * H), "gates": (t, n, 4 * H), "allc": (t, n, H),
+         "dallh": (t, n, H)}, h_dims, H)
+    if allc.device.type == "cpu":
+        return decoder_lstm_bwd_lanes_plain(wsum, gates, allc, dallh)
+    return _launch_bwd(wsum, gates, allc, dallh, h_dims, lanes)
+
+
+def multi_lstm_lanes_plain(xp, wh, with_res: bool = False):
+    """``multi_lstm_plain`` lane by lane."""
+    return _per_lane(multi_lstm_plain, xp.shape[0], xp, wh, with_res)
+
+
+def multi_lstm_fwd_lanes(xp, wh, h_dims, with_res: bool = False):
+    """``multi_lstm_fwd`` over K lanes in one launch: ``xp`` (K, t, n,
+    4H), ``wh`` (K, H, 4H); the outputs with the lane dimension in
+    front."""
+    lanes = check_lanes([("xp", xp), ("wh", wh)])
+    t, n, H4 = xp.shape[1:]
+    _check_tensors([("xp", xp[0]), ("wh", wh[0])],
+                   {"xp": (t, n, H4), "wh": (H4 // 4, H4)}, h_dims, H4 // 4)
+    if xp.device.type == "cpu":
+        return multi_lstm_lanes_plain(xp, wh, with_res)
+    return _launch_multi(xp, wh, h_dims, with_res, lanes)
+
+
+def multi_lstm_bwd_lanes_plain(gates, wh, allc, dhlast):
+    """``multi_lstm_bwd_plain`` lane by lane."""
+    return _per_lane(multi_lstm_bwd_plain, allc.shape[0], gates, wh, allc,
+                     dhlast)
+
+
+def multi_lstm_bwd_lanes(gates, wh, allc, dhlast, h_dims):
+    """``multi_lstm_bwd`` over K lanes in one launch."""
+    lanes = check_lanes([("allc", allc), ("gates", gates), ("wh", wh),
+                         ("dhlast", dhlast)])
+    t, n, H = allc.shape[1:]
+    _check_tensors([("allc", allc[0]), ("gates", gates[0]), ("wh", wh[0]),
+                    ("dhlast", dhlast[0])],
+                   {"allc": (t, n, H), "gates": (t, n, 4 * H),
+                    "wh": (H, 4 * H), "dhlast": (n, H)}, h_dims, H)
+    if allc.device.type == "cpu":
+        return multi_lstm_bwd_lanes_plain(gates, wh, allc, dhlast)
+    return _launch_multi_bwd(gates, wh, allc, dhlast, h_dims, lanes)
+
+
+def recurrent_weight_grad_lanes(allh, dgates):
+    """``recurrent_weight_grad`` of each lane, one batched product."""
+    K, t, n, H = allh.shape
+    if t == 1:
+        return allh.new_zeros((K, H, 4 * H))
+    return torch.bmm(allh[:, :-1].reshape(K, -1, H).transpose(1, 2),
+                     dgates[:, 1:].reshape(K, -1, 4 * H))
+
+
+class LaneDecoderLSTM(torch.autograd.Function):
+    """``DecoderLSTM`` over K lanes: every operand and output with the lane
+    dimension in front."""
+
+    @staticmethod
+    def forward(ctx, h0, c0, wsum, b, t, h_dims):
+        allh, allc, gates = decoder_lstm_fwd_lanes(h0, c0, wsum, b, t,
+                                                   h_dims)
+        ctx.save_for_backward(wsum, b, allh, allc, gates)
+        ctx.t, ctx.h_dims = t, list(h_dims)
+        return allh
+
+    @staticmethod
+    def backward(ctx, dallh):
+        wsum, b, allh, allc, gates = ctx.saved_tensors
+        t = ctx.t
+        if t == 1:
+            return (dallh[:, 0], torch.zeros_like(allc[:, 0]),
+                    torch.zeros_like(wsum), torch.zeros_like(b), None, None)
+        dgates, dh0, dc0 = decoder_lstm_bwd_lanes(
+            wsum, gates, allc, dallh.contiguous(), ctx.h_dims)
+        K, _, n, H = allh.shape
+        B = dgates.reshape(K, (t - 1) * n, 4 * H)
+        dwsum = torch.bmm(allh[:, :t - 1].reshape(K, -1, H).transpose(1, 2),
+                          B)
+        db = B.sum(1).reshape(b.shape)
+        return dh0, dc0, dwsum, db, None, None
+
+
+class LaneMultiLSTM(torch.autograd.Function):
+    """``MultiLSTM`` over K lanes."""
+
+    @staticmethod
+    def forward(ctx, xp, wh, h_dims):
+        h_last, allh, allc, gates = multi_lstm_fwd_lanes(xp, wh, h_dims,
+                                                         with_res=True)
+        ctx.save_for_backward(wh, allh, allc, gates)
+        ctx.h_dims = list(h_dims)
+        return h_last
+
+    @staticmethod
+    def backward(ctx, dhlast):
+        wh, allh, allc, gates = ctx.saved_tensors
+        dxp = multi_lstm_bwd_lanes(gates, wh, allc, dhlast.contiguous(),
+                                   ctx.h_dims)
+        return dxp, recurrent_weight_grad_lanes(allh, dxp), None
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        x is not None and x.requires_grad for x in tensors)
+
+
+class VmapDecoderLSTM(torch.autograd.Function):
+    """``decoder_lstm`` under ``torch.func.vmap``: its vmap rule runs the
+    lanes in one launch each way (``LaneDecoderLSTM``, or the lane
+    forward alone where no gradient is wanted). Outside vmap it is the
+    forward alone."""
+
+    @staticmethod
+    def forward(h0, c0, wsum, b, t, h_dims):
+        return decoder_lstm_fwd(h0, c0, wsum, b, t, h_dims)[0]
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, h0, c0, wsum, b, t, h_dims):
+        K = info.batch_size
+        ops = [lanes_of(x, d, K) for x, d in zip((h0, c0, wsum, b),
+                                                  in_dims[:4])]
+        if _wants_grad(*ops):
+            return LaneDecoderLSTM.apply(*ops, t, h_dims), 0
+        return decoder_lstm_fwd_lanes(*ops, t, h_dims)[0], 0
+
+
+class VmapMultiLSTM(torch.autograd.Function):
+    """``multi_lstm`` under ``torch.func.vmap`` (see
+    ``VmapDecoderLSTM``)."""
+
+    @staticmethod
+    def forward(xp, wh, h_dims):
+        return multi_lstm_fwd(xp, wh, h_dims)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, xp, wh, h_dims):
+        K = info.batch_size
+        xp, wh = (lanes_of(x, d, K) for x, d in zip((xp, wh), in_dims[:2]))
+        if _wants_grad(xp, wh):
+            return LaneMultiLSTM.apply(xp, wh, h_dims), 0
+        return multi_lstm_fwd_lanes(xp, wh, h_dims), 0

@@ -63,9 +63,10 @@ import torch
 
 from factorized_tpu_torch.ops import _build
 from factorized_tpu_torch.ops.core import dropout_mask
-from factorized_tpu_torch.ops.cuda_lstm import (STATE_ARGTYPES,
-                                               cell_columns, count_plans,
-                                               launch_chains, refusal)
+from factorized_tpu_torch.ops.cuda_lstm import (
+    LANE_ARGTYPES, STATE_ARGTYPES, batched, cell_columns, check_lanes,
+    count_lanes, count_plans, lane_launches, lane_strides, lanes_of,
+    launch_chains, recurrent_weight_grad_lanes, refusal)
 from factorized_tpu_torch.ops.lstm import recurrent_weight_grad
 
 W_NAMES = ("wh", "a1w1", "a1b1", "a1w2", "a1b2", "a2w1", "a2b1",
@@ -98,6 +99,9 @@ BWD_LAUNCHES = 0        # mfm_encode_bwd, stream
 RECOMPUTE_LAUNCHES = 0  # mfm_encode_bwd, recompute_att
 TWO_STEP_LAUNCHES = 0   # mfm_encode_bwd, two_step
 DW_LAUNCHES = 0         # mfm_encode_dw
+# the launches of each kernel with a lane axis, by kernel (counted in the
+# counters above too; see cuda_lstm's lanes section)
+LANE_LAUNCHES = {}
 # threads per block of the forward's chains and softmax (the attention's
 # products run 256-thread tiles), the fastest measured by perf_probe.py
 # (PERF.md); the rows a chain's block takes are fixed in
@@ -344,23 +348,40 @@ def _count_plans(name):
     count_plans(CLUSTERS[name], name, L2_LAUNCHES, SCRATCH_LAUNCHES)
 
 
-def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None):
+def _lane0(weights, lanes):
+    """Lane 0's weights of a lane call (the widths come from one lane)."""
+    return {k: v[0] for k, v in weights.items()} if lanes else weights
+
+
+def _res_list(res):
+    """The ten residual arrays of ``res`` in the ``RES_NAMES`` order, as
+    the launchers' lane strides list them."""
+    if isinstance(res, torch.Tensor):
+        return [res] * len(RES_NAMES)
+    return list(res)
+
+
+def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None, lanes=0):
     """The forward's three passes; ``layout`` None writes no residuals.
     A chain on ``cuda_lstm.SCRATCH`` gets its scratch from
-    ``launch_chains``."""
+    ``launch_chains``. With ``lanes`` every operand and output has a
+    leading lane dimension and each pass is one launch for them all."""
     global LAUNCHES, SPLIT_LAUNCHES
-    t, n, H4 = xp.shape
+    t, n, H4 = xp.shape[-3:]
     H = H4 // 4
-    s1, s2, s3, s4, mem = sizes(weights)
+    w0 = _lane0(weights, lanes)
+    s1, s2, s3, s4, mem = sizes(w0)
     fn = _build.kernel(
         "mfm_encode_fwd",
         [ctypes.c_void_p] * 22 + _TABLE + [ctypes.c_void_p]
         + STATE_ARGTYPES + [ctypes.c_int] * 10
-        + [ctypes.POINTER(ctypes.c_int)]
-        + [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] + LANE_ARGTYPES
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    lead = (lanes,) if lanes else ()
 
     def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=xp.device)
+        return torch.empty(lead + shape, dtype=torch.float32,
+                           device=xp.device)
 
     h_last, mem_last = empty(n, H), empty(n, mem)
     outs = [h_last, mem_last]
@@ -368,36 +389,40 @@ def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None):
     # cell states, chat, r1 and r2
     m2 = 2 * (H - z_tot)
     if layout is None:
-        ptrs, table = [None] * 3, [None] * 3
+        res_arrays, table = [None] * 3, [None] * 3
+        res_lanes = [None] * len(RES_NAMES)
         scratch = empty(t * n * (s3 + s4 + m2 + H + mem + s1 + s2))
     else:
-        offs, R = res_layout(weights)
+        offs, R = res_layout(w0)
         res = (empty(t, n, R) if layout == "cat" else
                tuple(empty(t, n, offs[nm][1]) for nm in RES_NAMES))
         outs += [empty(t, n, H), empty(t, n, H), empty(t, n, mem), res]
-        ptrs = [o.data_ptr() for o in outs[2:5]]
-        table = _res_table(res, weights)
+        res_arrays = outs[2:5]
+        table = _res_table(res, w0)
+        res_lanes = _res_list(res)
         scratch = empty(t * n * (s3 + s4 + m2))
+    operands = [xp, masks, *[weights[k] for k in W_NAMES], h_last,
+                mem_last, *res_arrays, *res_lanes, scratch]
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
     fit = (ctypes.c_int * 6)()
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch_chains(
             fn, xp.device,
-            [xp.data_ptr(), None if masks is None else masks.data_ptr(),
-             *[weights[k].data_ptr() for k in W_NAMES],
-             h_last.data_ptr(), mem_last.data_ptr(), *ptrs, *table,
-             scratch.data_ptr()],
+            [None if x is None else x.data_ptr() for x in operands[:22]]
+            + [*table, scratch.data_ptr()],
             [t, n, H, z_tot, mem, s1, s2, s3, s4, len(h_dims), dims,
-             THREADS, fit, stream])
+             THREADS, max(lanes, 1), lane_strides(operands, lanes), fit,
+             stream])
     _fit("mfm_encode_fwd", fit, list(FWD_PASSES),
          f"cells {list(h_dims)} (largest {max(h_dims)}), mem {mem}, "
          f"s3 + s4 {s3 + s4}")
     _build.check(err, "mfm_encode_fwd")
     if layout == "split":
-        SPLIT_LAUNCHES += 1
+        SPLIT_LAUNCHES += lane_launches(lanes)
     else:
-        LAUNCHES += 1
+        LAUNCHES += lane_launches(lanes)
+    count_lanes("mfm_encode_fwd", lanes)
     _count_plans("mfm_encode_fwd")
     return tuple(outs)
 
@@ -565,56 +590,63 @@ def mfm_encode_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
 
 
 def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
-                z_tot, h_dims, variant="stream"):
+                z_tot, h_dims, variant="stream", lanes=0):
     """The reverse pass's kernels: (dxp, deltas (t, n, D)). A chain on
-    ``cuda_lstm.SCRATCH`` gets its scratch from ``launch_chains``."""
+    ``cuda_lstm.SCRATCH`` gets its scratch from ``launch_chains``. With
+    ``lanes``, every operand and output has a leading lane dimension."""
     global BWD_LAUNCHES, RECOMPUTE_LAUNCHES, TWO_STEP_LAUNCHES
-    t, n, H4 = xp.shape
+    t, n, H4 = xp.shape[-3:]
     H = H4 // 4
-    s1, s2, s3, s4, mem = sizes(weights)
+    w0 = _lane0(weights, lanes)
+    s1, s2, s3, s4, mem = sizes(w0)
     m2 = 2 * (H - z_tot)
     fn = _build.kernel(
         "mfm_encode_bwd",
         [ctypes.c_void_p] * 4 + _TABLE + [ctypes.c_void_p] * 17
         + STATE_ARGTYPES + [ctypes.c_int] * 10
         + [ctypes.POINTER(ctypes.c_int)]
-        + [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        + [ctypes.c_int] * 2 + LANE_ARGTYPES
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+    lead = (lanes,) if lanes else ()
 
     def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=xp.device)
+        return torch.empty(lead + shape, dtype=torch.float32,
+                           device=xp.device)
 
-    dxp, deltas = empty(t, n, H4), empty(t, n, delta_layout(weights)[1])
+    dxp, deltas = empty(t, n, H4), empty(t, n, delta_layout(w0)[1])
     # one scratch buffer: the gates, dcstar, datt, and att when it is
     # recomputed
     recompute = variant == "recompute_att"
     lengths = [t * n * w for w in [H4, m2, m2] + [m2] * recompute]
-    scratch = empty(sum(lengths)).split(lengths)
-    ptrs = [x.data_ptr() for x in scratch] + [None] * (not recompute)
+    scratch = list(empty(sum(lengths)).split(lengths, dim=-1))
+    scratch += [None] * (not recompute)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
     fit = (ctypes.c_int * 6)()
     used = ("wh", "a1w1", "a1w2", "a1b2", "a2w1", "a2w2", "gw1", "g1w2",
             "g2w2")
+    operands = [xp, allh, allc, allmem, *_res_list(res), dhlast, dmemlast,
+                *[weights[k] for k in used], dxp, deltas, *scratch]
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch_chains(
             fn, xp.device,
             [xp.data_ptr(), allh.data_ptr(), allc.data_ptr(),
-             allmem.data_ptr(), *_res_table(res, weights),
-             dhlast.data_ptr(), dmemlast.data_ptr(),
-             *[weights[k].data_ptr() for k in used],
-             dxp.data_ptr(), deltas.data_ptr(), *ptrs],
+             allmem.data_ptr(), *_res_table(res, w0),
+             *[None if x is None else x.data_ptr() for x in operands[14:]]],
             [t, n, H, z_tot, mem, s1, s2, s3, s4, len(h_dims), dims,
-             BWD_VARIANTS.index(variant), BWD_THREADS, fit, stream])
+             BWD_VARIANTS.index(variant), BWD_THREADS, max(lanes, 1),
+             lane_strides(operands, lanes), fit, stream])
     _fit("mfm_encode_bwd", fit, list(BWD_PASSES),
          f"cells {list(h_dims)} (largest {max(h_dims)}), H {H}, mem {mem}, "
          f"s3 + s4 {s3 + s4}, M2 {m2}")
     _build.check(err, f"mfm_encode_bwd ({variant})")
     if variant == "stream":
-        BWD_LAUNCHES += 1
+        BWD_LAUNCHES += lane_launches(lanes)
     elif recompute:
-        RECOMPUTE_LAUNCHES += 1
+        RECOMPUTE_LAUNCHES += lane_launches(lanes)
     else:
-        TWO_STEP_LAUNCHES += 1
+        TWO_STEP_LAUNCHES += lane_launches(lanes)
+    count_lanes("mfm_encode_bwd", lanes)
     _count_plans("mfm_encode_bwd")
     return dxp, deltas
 
@@ -652,32 +684,41 @@ def _dw_views(shapes):
 
 
 _DW_ARGTYPES = ([ctypes.c_void_p] * 2 + _TABLE + [ctypes.c_void_p] * 2
-                + [ctypes.c_int] * 10 + [ctypes.POINTER(ctypes.c_int),
-                                         ctypes.c_void_p])
+                + [ctypes.c_int] * 10 + LANE_ARGTYPES
+                + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
 
 
-def _launch_dw(weights, allc, allmem, res, deltas, z_tot):
+def _launch_dw(weights, allc, allmem, res, deltas, z_tot, lanes=0):
     """The weight-gradient kernel: {name: grad} for DW_NAMES, each shaped
-    like its weight, views in that order of one buffer that the kernel
-    fills."""
+    like its weight (with ``lanes``, each lane's in front), views in that
+    order of one buffer that the kernel fills."""
     global DW_LAUNCHES
-    t, n, H = allc.shape
-    s1, s2, s3, s4, mem = sizes(weights)
+    t, n, H = allc.shape[-3:]
+    w0 = _lane0(weights, lanes)
+    s1, s2, s3, s4, mem = sizes(w0)
     fn = _build.kernel("mfm_encode_dw", _DW_ARGTYPES)
-    shapes = tuple(weights[k].shape for k in DW_NAMES)
+    shapes = tuple(w0[k].shape for k in DW_NAMES)
     total, views = _dw_views(shapes)
     cluster = _dw_cluster(shapes, t * n, DW_BLOCKS)
-    out = torch.empty(total, dtype=torch.float32, device=allc.device)
+    out = torch.empty(((lanes,) if lanes else ()) + (total,),
+                      dtype=torch.float32, device=allc.device)
+    operands = [allc, allmem, *_res_list(res), deltas, out]
     copy = (ctypes.c_int * 1)()
     with torch.cuda.device(allc.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(allc.data_ptr(), allmem.data_ptr(),
-                 *_res_table(res, weights), deltas.data_ptr(),
+                 *_res_table(res, w0), deltas.data_ptr(),
                  out.data_ptr(), t, n, H, z_tot, mem, s1, s2, s3, s4,
-                 cluster, copy, stream)
+                 cluster, max(lanes, 1), lane_strides(operands, lanes), copy,
+                 stream)
     _build.check(err, "mfm_encode_dw")
-    DW_LAUNCHES += 1
+    DW_LAUNCHES += lane_launches(lanes)
+    count_lanes("mfm_encode_dw", lanes)
     DW_PLAN.update(cluster=cluster, copy_bytes=copy[0])
+    if lanes:
+        return {k: out.as_strided((lanes,) + tuple(shape),
+                                  (total,) + stride, at)
+                for k, (shape, stride, at) in zip(DW_NAMES, views)}
     return {k: out.as_strided(*view) for k, view in zip(DW_NAMES, views)}
 
 
@@ -936,14 +977,174 @@ def encode(xp, weights, z_tot: int, h_dims, masks=None, *,
     """``(h_last, mem_last)``: through ``MFMEncode`` when a gradient is
     wanted, else the forward alone (no residuals written). ``layout`` and
     ``variant`` choose the residual layout and the reverse kernel; the
-    defaults are the training path's."""
+    defaults are the training path's, the only ones of the lane route
+    that ``torch.func.vmap`` takes (``VmapEncode``)."""
     _check_choice("layout", layout, LAYOUTS)
     _check_choice("variant", variant, BWD_VARIANTS)
     tensors = [xp] + [weights[k] for k in W_NAMES]
+    if batched(masks, *tensors):
+        return VmapEncode.apply(xp, masks, z_tot, list(h_dims),
+                                *[weights[k] for k in W_NAMES])
     if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
         return MFMEncode.apply(xp, masks, z_tot, list(h_dims), layout,
                                variant, *[weights[k] for k in W_NAMES])
     return mfm_encode(xp, weights, z_tot, h_dims, masks)
+
+
+# ------------------------------------------------------------------ lanes
+#
+# K encodes of one shape in one launch a pass (see cuda_lstm's lanes
+# section): every operand and output with a leading lane dimension, the
+# residuals in the training path's layout ("cat") and its reverse kernel
+# ("stream"). On the CPU each wrapper runs its ``*_lanes_plain`` version,
+# the single-lane plain version lane by lane.
+
+def _check_lanes(xp, weights, z_tot, h_dims, masks=None):
+    """The lane count, each operand's lanes checked as ``_check`` checks
+    one lane's."""
+    lanes = check_lanes([("xp", xp), ("masks", masks)]
+                        + [(k, weights[k]) for k in W_NAMES])
+    _check(xp[0], _lane0(weights, lanes), z_tot, h_dims,
+           None if masks is None else masks[0])
+    return lanes
+
+
+def _lane(weights, k):
+    return {name: w[k] for name, w in weights.items()}
+
+
+def mfm_encode_lanes_plain(xp, weights, z_tot: int, masks=None):
+    """``mfm_encode_plain`` lane by lane."""
+    outs = [mfm_encode_plain(xp[k], _lane(weights, k), z_tot,
+                             None if masks is None else masks[k])
+            for k in range(xp.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def mfm_encode_lanes(xp, weights, z_tot: int, h_dims, masks=None):
+    """``mfm_encode`` over K lanes in one launch a pass: ``xp`` (K, t, n,
+    4H), each weight (K, ...), ``masks`` (K, t, n, S) or None; returns
+    ``(h_last, mem_last)`` with the lane dimension in front."""
+    lanes = _check_lanes(xp, weights, z_tot, h_dims, masks)
+    if _route(xp.device) == "cpu":
+        return mfm_encode_lanes_plain(xp, weights, z_tot, masks)
+    return _launch_fwd(xp, masks, weights, z_tot, h_dims, lanes=lanes)
+
+
+def mfm_encode_res_lanes_plain(xp, masks, weights, z_tot: int):
+    """``mfm_encode_res_plain`` (layout "cat") lane by lane."""
+    outs = [mfm_encode_res_plain(xp[k], None if masks is None else masks[k],
+                                 _lane(weights, k), z_tot)
+            for k in range(xp.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def mfm_encode_res_lanes(xp, masks, weights, z_tot: int, h_dims):
+    """``mfm_encode_res`` (layout "cat") over K lanes in one launch a
+    pass."""
+    lanes = _check_lanes(xp, weights, z_tot, h_dims, masks)
+    if _route(xp.device) == "cpu":
+        return mfm_encode_res_lanes_plain(xp, masks, weights, z_tot)
+    return _launch_fwd(xp, masks, weights, z_tot, h_dims, "cat", lanes)
+
+
+def mfm_encode_bwd_lanes_plain(xp, weights, allh, allc, allmem, res,
+                               dhlast, dmemlast, z_tot: int):
+    """``mfm_encode_bwd_plain`` lane by lane: (dxp, {name: grad}) with the
+    lane dimension in front."""
+    outs = [mfm_encode_bwd_plain(xp[k], _lane(weights, k), allh[k], allc[k],
+                                 allmem[k], res[k], dhlast[k], dmemlast[k],
+                                 z_tot)
+            for k in range(xp.shape[0])]
+    return (torch.stack([o[0] for o in outs]),
+            {name: torch.stack([o[1][name] for o in outs])
+             for name in W_NAMES})
+
+
+def mfm_encode_bwd_lanes(xp, weights, allh, allc, allmem, res, dhlast,
+                         dmemlast, z_tot: int, h_dims):
+    """``mfm_encode_bwd`` (the "stream" reverse kernel) over K lanes: one
+    launch a pass of the reverse pass, one of the weight gradients, and
+    dWh one batched product."""
+    lanes = _check_lanes(xp, weights, z_tot, h_dims)
+    t, n, H4 = xp.shape[1:]
+    H, mem = H4 // 4, sizes(_lane0(weights, lanes))[4]
+    check_lanes([("allh", allh), ("allc", allc), ("allmem", allmem),
+                 ("res", res), ("dhlast", dhlast), ("dmemlast", dmemlast)])
+    _check_tensors(
+        [("allh", allh[0]), ("allc", allc[0]), ("allmem", allmem[0]),
+         ("dhlast", dhlast[0]), ("dmemlast", dmemlast[0])], xp.device,
+        {"allh": (t, n, H), "allc": (t, n, H), "allmem": (t, n, mem),
+         "dhlast": (n, H), "dmemlast": (n, mem)})
+    _check_res(res[0], _lane0(weights, lanes), t, n, xp.device)
+    if _route(xp.device) == "cpu":
+        return mfm_encode_bwd_lanes_plain(xp, weights, allh, allc, allmem,
+                                          res, dhlast, dmemlast, z_tot)
+    dxp, deltas = _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast,
+                              dmemlast, z_tot, h_dims, lanes=lanes)
+    dweights = _launch_dw(weights, allc, allmem, res, deltas, z_tot, lanes)
+    dweights["wh"] = recurrent_weight_grad_lanes(allh, dxp)
+    return dxp, dweights
+
+
+class LaneMFMEncode(torch.autograd.Function):
+    """``MFMEncode`` over K lanes (residuals "cat", reverse kernel
+    "stream"): every operand and output with the lane dimension in
+    front."""
+
+    @staticmethod
+    def forward(ctx, xp, masks, z_tot, h_dims, *wlist):
+        weights = dict(zip(W_NAMES, wlist))
+        h_last, mem_last, allh, allc, allmem, res = mfm_encode_res_lanes(
+            xp, masks, weights, z_tot, h_dims)
+        ctx.save_for_backward(xp, allh, allc, allmem, res, *wlist)
+        ctx.z_tot, ctx.h_dims = z_tot, list(h_dims)
+        ctx.mark_non_differentiable(*(() if masks is None else (masks,)))
+        return h_last, mem_last
+
+    @staticmethod
+    def backward(ctx, dh_last, dmem_last):
+        xp, allh, allc, allmem, res, *wlist = ctx.saved_tensors
+        weights = dict(zip(W_NAMES, wlist))
+        dh_last = (torch.zeros_like(allh[:, 0]) if dh_last is None
+                   else dh_last.contiguous())
+        dmem_last = (torch.zeros_like(allmem[:, 0]) if dmem_last is None
+                     else dmem_last.contiguous())
+        dxp, dweights = mfm_encode_bwd_lanes(
+            xp, weights, allh, allc, allmem, res, dh_last, dmem_last,
+            ctx.z_tot, ctx.h_dims)
+        return (dxp, None, None, None,
+                *[dweights[k].reshape(weights[k].shape) for k in W_NAMES])
+
+
+class VmapEncode(torch.autograd.Function):
+    """``encode`` under ``torch.func.vmap``: its vmap rule runs the lanes
+    in one launch a pass each way (``LaneMFMEncode``, or the lane eval
+    forward where no gradient is wanted). Outside vmap it is the forward
+    alone."""
+
+    @staticmethod
+    def forward(xp, masks, z_tot, h_dims, *wlist):
+        return mfm_encode(xp, dict(zip(W_NAMES, wlist)), z_tot, h_dims,
+                          masks)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, xp, masks, z_tot, h_dims, *wlist):
+        K = info.batch_size
+        tensors = (xp, masks, *wlist)
+        dims = (in_dims[0], in_dims[1], *in_dims[4:])
+        xp, masks, *wlist = [lanes_of(x, d, K)
+                             for x, d in zip(tensors, dims)]
+        if torch.is_grad_enabled() and any(
+                x.requires_grad for x in (xp, *wlist)):
+            return LaneMFMEncode.apply(xp, masks, z_tot, h_dims,
+                                       *wlist), (0, 0)
+        return mfm_encode_lanes(xp, dict(zip(W_NAMES, wlist)), z_tot,
+                                h_dims, masks), (0, 0)
 
 
 # The probes' encodes, ``encode(xp, masks, weights, z_tot, h_dims) ->

@@ -1,0 +1,486 @@
+"""Lanes of seeds: K models of one configuration trained at once on one
+card (port of ``factorized_tpu/parallel/multiseed.py``, ``--seeds K``).
+
+The reference's production workload is a random search of small models,
+trained one at a time; at batch 32 one model leaves most of the card
+idle. Here K seeds of one configuration train as K lanes of one program:
+the model's train step runs under ``torch.func.vmap`` over the stacked
+``(K, ...)`` parameters, and each recurrent kernel of the step
+(``cuda_mfn``'s encode forward, reverse pass and weight gradients,
+``cuda_lstm``'s decoder and encoder-cell chains, each way) runs all K
+lanes in one launch, its lane axis the grid's z (the kernels' vmap rules:
+``cuda_mfn.VmapEncode``, ``cuda_lstm.VmapDecoderLSTM`` and
+``VmapMultiLSTM``); the glue around them is batched PyTorch. Each lane
+keeps the semantics of ``trainers.train_mfm``: the same loss, Adam
+(``train.LaneAdam``, one lr a lane), its own plateau scheduler
+(``utils.scheduler.plateau_step`` on ``(K,)`` tensors, stepped as a
+minimum whatever the valid metric, a quirk of the reference kept), its
+own best-valid keeper (``>=`` on accuracy, ``<=`` on a loss) and its own
+test score.
+
+An epoch (``LaneLoop.body``) is the train steps over the batches, the
+per-lane evaluation, the per-lane select of the best parameters and the
+per-lane plateau step, all on the device; on a CUDA card the first epoch
+runs eagerly and each later one is one CUDA-graph replay
+(``train.Graphed``), and the host reads a chunk's records once. Every
+random draw (the dropout masks, the MMD samples, the evaluation's draws)
+comes from one ``torch.Generator`` under vmap's ``randomness=
+"different"``: each lane and batch draws its own. ``LanePrograms.step``
+takes the draws of each lane instead where they are handed in (the
+apply functions' injection points with a lane dimension in front).
+"""
+
+from __future__ import annotations
+
+import math
+import warnings
+from typing import Optional
+
+import numpy as np
+import torch
+from torch.utils import _pytree as pytree
+
+from factorized_tpu_torch import resolve_device
+from factorized_tpu_torch.models import get_model
+from factorized_tpu_torch.models.registry import MODELS
+from factorized_tpu_torch.ops import counts
+from factorized_tpu_torch.train import (DEFAULT_EPOCH_CHUNK, Graphed,
+                                        LaneAdam, make_batches, make_eval_fn,
+                                        make_loss_fn, shuffle_and_time_major)
+from factorized_tpu_torch.utils.checkpoint import (restore_checkpoint,
+                                                   save_checkpoint)
+from factorized_tpu_torch.utils.logging import RunLogger
+from factorized_tpu_torch.utils.metrics import (score_classification,
+                                                score_regression)
+from factorized_tpu_torch.utils.scheduler import plateau_step
+
+# Types whose apply returns the standard (decoded, reg, missing) tuple
+# trained with the single-stage joint loss, the only semantics the lane
+# trainer implements; kl_ef (two stages), missing and zeros (their
+# four-way losses), s2s and bm have their own trainers, and routing them
+# here would change their training, so they are refused.
+MULTISEED_TYPES = ("mfm", "kl", "m_a", "m_b", "m_c", "m_d")
+# rows of a test predict at once (the JAX package's
+# FACTORIZED_PREDICT_CHUNK default); the chunk changes no value
+PREDICT_CHUNK = 1024
+
+
+def _run_seed(*tags):
+    """A generator seed from the run's seed and a place in it (the part of
+    the JAX package's ``fold_in``), as the trainers derive theirs."""
+    return int(np.random.SeedSequence(list(tags)).generate_state(1)[0])
+
+
+def prepare_bucket_data(X_train, y_train, X_valid, y_valid, X_test, y_test,
+                        rep, *, seed: int = 123, device=None):
+    """The dataset on the device once for the lane programs: the training
+    set shuffled once (``seed``) and cut into full batches of
+    ``rep.batchsize`` (no remainder batch), the validation and test sets
+    time-major, the labels int32 for classification and float32
+    otherwise. Returns {"Xb", "yb", "Xv", "yv", "Xte"} on the device,
+    "yte" on the host, and "seed", "batchsize", "task"."""
+    dev = resolve_device(device)
+    X_train, y_train = shuffle_and_time_major(X_train, y_train, seed)
+    Xv = np.ascontiguousarray(np.asarray(X_valid).swapaxes(0, 1), np.float32)
+    Xte = np.ascontiguousarray(np.asarray(X_test).swapaxes(0, 1), np.float32)
+    dtype = np.int32 if rep.task == "classification" else np.float32
+    yv, yte = np.asarray(y_valid).astype(dtype), np.asarray(y_test).astype(
+        dtype)
+    Xb, yb, _ = make_batches(X_train, np.asarray(y_train).astype(dtype),
+                             rep.batchsize, False)
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return {"Xb": on(Xb), "yb": on(yb), "Xv": on(Xv), "yv": on(yv),
+            "Xte": on(Xte), "yte": yte, "seed": seed,
+            "batchsize": rep.batchsize, "task": rep.task}
+
+
+def init_lanes(name: str, cfg, seed: int, n_seeds: int, device=None):
+    """K initialisations of model ``name``, lane k's from a generator
+    seeded from (``seed``, k), stacked into one tree of ``(K, ...)``
+    leaves on the device."""
+    init, _ = get_model(name)
+    trees = [init(torch.Generator().manual_seed(_run_seed(seed, k)), cfg)
+             for k in range(n_seeds)]
+    dev = resolve_device(device)
+    return pytree.tree_map(lambda *xs: torch.stack(xs).to(dev), *trees)
+
+
+def stack_lanes(trees, device=None):
+    """Trees of one model, one a lane, as one tree of ``(K, ...)``
+    leaves."""
+    dev = resolve_device(device)
+    return pytree.tree_map(
+        lambda *xs: torch.stack([torch.as_tensor(x) for x in xs]).to(
+            device=dev, dtype=torch.float32), *trees)
+
+
+def take_lane(tree, k: int):
+    """Lane ``k`` of a tree of ``(K, ...)`` leaves, copies on the CPU."""
+    return pytree.tree_map(lambda a: a[k].detach().cpu().clone(), tree)
+
+
+def _dims(tree):
+    """vmap's in_dims for a tree of per-lane tensors (None leaves
+    unbatched)."""
+    return pytree.tree_map(
+        lambda v: 0 if isinstance(v, torch.Tensor) else None, tree)
+
+
+class LanePrograms:
+    """The K-lane programs of one (model, cfg), the JAX package's
+    ``_init_lane_programs``: ``step`` (one train step of every lane),
+    ``epoch``, ``evaluate`` (each lane's validation metric: its label
+    loss, or with ``valid_metric="accuracy"`` its accuracy), ``predict``
+    (each lane's y_hat in chunks of ``PREDICT_CHUNK`` rows) and
+    ``select``. ``generator`` gives every draw (see the module's doc)."""
+
+    def __init__(self, apply_fn, cfg, generator, valid_metric="loss"):
+        if valid_metric not in ("loss", "accuracy"):
+            raise ValueError(f"valid_metric must be 'loss' or 'accuracy', "
+                             f"got {valid_metric!r}")
+        self.cfg, self.apply_fn = cfg, apply_fn
+        self.generator = generator
+        self.valid_metric = valid_metric
+        self.loss_fn = make_loss_fn(apply_fn, cfg, "joint")
+        self.eval_fn = make_eval_fn(apply_fn, cfg, "joint")
+
+    def _vmap(self, fn, in_dims):
+        return torch.func.vmap(fn, in_dims=in_dims, randomness="different")
+
+    def step(self, params, optimizer, x, y, draws=None):
+        """One Adam step of every lane on the shared batch (x, y): the
+        lanes' losses summed, so each lane's gradient is its own loss's.
+        ``draws``: the apply function's injected draws with a lane
+        dimension in front (else drawn). Returns the (K,) tracked
+        losses."""
+        def lane(p, x, y, d):
+            return self.loss_fn(p, x, y, generator=self.generator, draws=d)
+
+        optimizer.zero_grad()
+        draws = draws or {}
+        loss, tracked = self._vmap(lane, (0, None, None, _dims(draws)))(
+            params, x, y, draws)
+        with warnings.catch_warnings():
+            # each leaf's gradient is its lane-major view of the optimizer's
+            # (K, P) buffer, added into in place as the leaf's layout is
+            warnings.filterwarnings("ignore", message="grad and param do "
+                                    "not obey the gradient layout contract")
+            loss.sum().backward()
+        optimizer.step()
+        return tracked.detach()
+
+    def epoch(self, params, optimizer, Xb, yb):
+        """The nb steps over ``Xb[i]``, ``yb[i]``: the (K,) mean tracked
+        loss."""
+        acc = torch.zeros(optimizer.lanes, dtype=torch.float32,
+                          device=Xb.device)
+        for x, y in zip(Xb, yb):
+            acc = acc + self.step(params, optimizer, x, y)
+        return acc / Xb.shape[0]
+
+    def y_hat(self, params, x, generator=None):
+        """Each lane's eval-mode y_hat over ``x`` (t, n, d): (K, n), or
+        (K, n, out) where the output is not one regression column."""
+        cfg = self.cfg
+
+        def lane(p, x):
+            out = self.apply_fn(p, x, cfg, train=False,
+                                generator=generator or self.generator)
+            y_hat = out[0][3]
+            if cfg.task == "regression" and cfg.output_dim == 1:
+                return torch.squeeze(y_hat, 1)
+            return y_hat
+
+        with torch.no_grad():
+            return self._vmap(lane, (0, None))(params, x)
+
+    def evaluate(self, params, Xv, yv):
+        """Each lane's validation metric over the whole set: (K,)."""
+        if self.valid_metric == "accuracy":
+            logits = self.y_hat(params, Xv)
+            return (torch.argmax(logits, dim=2) == yv[None]).to(
+                torch.float32).mean(dim=1)
+
+        def lane(p, x, y):
+            return self.eval_fn(p, x, y, generator=self.generator)
+
+        with torch.no_grad():
+            return self._vmap(lane, (0, None, None))(params, Xv, yv)
+
+    def predict(self, params, X):
+        """Each lane's y_hat over the time-major ``X`` in chunks of
+        ``PREDICT_CHUNK`` rows, draws from a generator seeded 0 (the JAX
+        package's ``PRNGKey(0)``): a host array (K, N[, out])."""
+        gen = torch.Generator(device=X.device).manual_seed(0)
+        parts = [self.y_hat(params, X[:, i:i + PREDICT_CHUNK], gen).cpu()
+                 for i in range(0, X.shape[1], PREDICT_CHUNK)]
+        return torch.cat(parts, dim=1).numpy()
+
+    @staticmethod
+    def select(mask, new, old):
+        """Per lane, ``new`` where ``mask`` else ``old``: (K, P) flat
+        parameters or (K,) values."""
+        m = mask.reshape((mask.shape[0],) + (1,) * (new.dim() - 1))
+        return torch.where(m, new, old)
+
+
+class LaneLoop:
+    """The JAX package's chunk program (``_compile_run_epochs``) over K
+    lanes. One epoch (``body``): the train epoch, the per-lane eval, the
+    per-lane best select (``>=`` on accuracy, ``<=`` on a loss) into
+    ``best_flat`` and ``best``, ``has_best``, and the per-lane plateau
+    step (as a minimum, whatever the metric), its lr the optimizer's;
+    then a row (tracked, valid, lr), float64 over the lanes, into
+    ``records``. On a CUDA card the body is a ``Graphed``: the first
+    epoch eager, each later one a replay; on the CPU it runs eagerly.
+    ``epoch_launches`` holds each epoch's kernel launches."""
+
+    def __init__(self, programs, params, optimizer, Xb, yb, Xv, yv, *,
+                 epochs, valid_metric="loss"):
+        dev = optimizer.flat.device
+        K = optimizer.lanes
+        self.programs, self.params, self.opt = programs, params, optimizer
+        self.batches, self.valid_set = (Xb, yb), (Xv, yv)
+        self.acc_mode = valid_metric == "accuracy"
+        inf = -math.inf if self.acc_mode else math.inf
+        self.best = torch.full((K,), inf, dtype=torch.float32, device=dev)
+        self.best_flat = torch.zeros_like(optimizer.flat)
+        self.has_best = torch.zeros(K, dtype=torch.bool, device=dev)
+        self.sched = {"lr": optimizer.lr,
+                      "best": torch.full((K,), math.inf, dtype=torch.float32,
+                                         device=dev),
+                      "bad": torch.zeros(K, dtype=torch.int32, device=dev),
+                      "cooldown": torch.zeros(K, dtype=torch.int32,
+                                              device=dev)}
+        self.records = torch.zeros((epochs, 3, K), dtype=torch.float64,
+                                   device=dev)
+        self.slot = torch.zeros((), dtype=torch.int64, device=dev)
+        self.epoch = (Graphed(self.body, (programs.generator,))
+                      if dev.type == "cuda" else self.body)
+        self.epoch_launches = []
+
+    def body(self):
+        (Xb, yb), (Xv, yv) = self.batches, self.valid_set
+        tracked = self.programs.epoch(self.params, self.opt, Xb, yb)
+        valids = self.programs.evaluate(self.params, Xv, yv)
+        with torch.no_grad():
+            better = (valids >= self.best if self.acc_mode
+                      else valids <= self.best)
+            self.best_flat.copy_(LanePrograms.select(better, self.opt.flat,
+                                                     self.best_flat))
+            self.best.copy_(torch.where(better, valids, self.best))
+            self.has_best.logical_or_(better)
+            for k, v in plateau_step(self.sched, valids).items():
+                self.sched[k].copy_(v)
+            row = torch.stack([tracked.double(), valids.double(),
+                               self.sched["lr"].double()])
+            self.records.index_copy_(0, self.slot.view(1), row[None])
+            self.slot.add_(1)
+
+    def run(self, n: int):
+        """n epochs, then one read of their records: a (n, 3, K) float64
+        array of (tracked, valid, lr)."""
+        self.slot.zero_()
+        for _ in range(n):
+            before = counts.snapshot()
+            self.epoch()
+            self.epoch_launches.append(counts.since(before))
+        return self.records[:n].cpu().numpy()
+
+    def eval_flat(self):
+        """Each lane's best parameters, a lane with no best yet its live
+        ones: (K, P)."""
+        return LanePrograms.select(self.has_best, self.best_flat,
+                                   self.opt.flat)
+
+
+def sched_to_dicts(sched):
+    """The device plateau state as the snapshot's JSON: one {lr, best,
+    bad, cooldown} dict a lane."""
+    sc = {k: v.detach().cpu().numpy() for k, v in sched.items()}
+    return [{"lr": float(sc["lr"][i]), "best": float(sc["best"][i]),
+             "bad": int(sc["bad"][i]), "cooldown": int(sc["cooldown"][i])}
+            for i in range(sc["lr"].shape[0])]
+
+
+def sched_from_dicts(dicts, sched):
+    """The inverse of ``sched_to_dicts``, copied into the tensors of
+    ``sched``."""
+    for k, dtype in (("lr", torch.float32), ("best", torch.float32),
+                     ("bad", torch.int32), ("cooldown", torch.int32)):
+        sched[k].copy_(torch.tensor([d[k] for d in dicts], dtype=dtype))
+
+
+def _multiseed_snapshot(path, cfg, loop, epoch):
+    """The whole K-seed state under ``path``: live and per-seed-best
+    parameters, Adam's state, each lane's best validation number, lr and
+    scheduler internals (``_ms_n_seeds``, ``_ms_best_valid``, ``_ms_lrs``,
+    ``_ms_sched`` in the config, the JAX package's fields), so a killed
+    run resumes exactly. A lane with no best yet stores its live
+    slice."""
+    opt = loop.opt
+    meta = cfg.to_dict()
+    meta["_ms_n_seeds"] = opt.lanes
+    meta["_ms_best_valid"] = [float(b) for b in loop.best.cpu()]
+    meta["_ms_lrs"] = [float(v) for v in opt.lr.cpu()]
+    meta["_ms_sched"] = sched_to_dicts(loop.sched)
+    state = {"live": opt.tree_of(opt.flat.cpu()),
+             "best": opt.tree_of(loop.eval_flat().cpu())}
+    save_checkpoint(path, state, opt_state=opt.state_dict(), step=epoch + 1,
+                    config=meta)
+
+
+def _multiseed_resume(resume_from, loop, n_seeds, logger):
+    """Restore a ``_multiseed_snapshot`` into ``loop`` (its parameters,
+    Adam, best record and scheduler) and return the epoch it goes on
+    from; refuses another seed count."""
+    state, meta = restore_checkpoint(resume_from)
+    mcfg = meta.get("config", {})
+    ck_seeds = mcfg.get("_ms_n_seeds")
+    if ck_seeds != n_seeds:
+        raise ValueError(
+            f"checkpoint at {resume_from} holds {ck_seeds} seeds but "
+            f"--seeds {n_seeds} was requested; they must match")
+    opt = loop.opt
+    opt.load_state_dict(state["opt_state"], params=state["params"]["live"])
+    with torch.no_grad():
+        loop.best_flat.copy_(opt.flatten(state["params"]["best"]))
+        loop.best.copy_(torch.tensor(mcfg["_ms_best_valid"],
+                                     dtype=torch.float32))
+        # restored lanes without a recorded best hold their live slice
+        # (the snapshot's fallback), so each lane has a best
+        loop.has_best.fill_(True)
+    sched_from_dicts(mcfg["_ms_sched"], loop.sched)
+    start_epoch = int(meta.get("step", 0))
+    logger.text(f"resumed {n_seeds}-seed state from {resume_from} "
+                f"at epoch {start_epoch}")
+    return start_epoch
+
+
+class _Null:
+    def write(self, *a):
+        pass
+
+    def flush(self):
+        pass
+
+
+def train_mfm_multiseed(
+        X_train, y_train, X_valid, y_valid, X_test, y_test, cfg, *,
+        n_seeds: int = 8,
+        lr: Optional[float] = None,
+        logger: Optional[RunLogger] = None,
+        seed: int = 123,
+        binary_threshold: float = 0.0,
+        threshold_mode: str = "ge",
+        model_type: Optional[str] = None,
+        valid_metric: str = "loss",
+        resume_from: Optional[str] = None,
+        ckpt_dir: Optional[str] = None,
+        ckpt_every: int = 0,
+        params=None,
+        device=None):
+    """Train ``n_seeds`` models of one config as lanes of one program (the
+    JAX package's ``train_mfm_multiseed``; one card, no mesh). Returns
+    each seed's test metrics (``results``), the best seed by MAE, or by
+    accuracy for classification (a seed with non-finite metrics never
+    wins), its parameters (``best_params`` and ``params``, so
+    ``--save-ckpt`` saves it) and best validation number, the ``step``
+    and the per-epoch ``history``.
+
+    ``lane_params`` holds every seed's scored parameters, a tree of ``(K,
+    ...)`` leaves on the CPU, and each ``history`` entry the epoch's
+    validation numbers and lrs, one a lane.
+
+    ``valid_metric="accuracy"``: the accuracy-keeping trainer's semantics
+    (keep on the best accuracy with ``>=``, the scheduler stepping on the
+    same number). ``params``: a tree of ``(K, ...)`` leaves to start from
+    (else ``init_lanes``). ``ckpt_dir`` and ``ckpt_every``: every N
+    epochs overwrite ``ckpt_dir`` with the whole K-seed state;
+    ``resume_from``: restore such a snapshot and go on, the generator
+    seeded anew from (seed, start epoch)."""
+    logger = logger or RunLogger()
+    name = model_type or cfg.model_type
+    if name not in MODELS:
+        name = "mfm"
+    if name not in MULTISEED_TYPES:
+        raise ValueError(
+            f"multiseed training supports model types {MULTISEED_TYPES} "
+            f"(single-stage joint loss); {name!r} has different training "
+            "semantics - use its dedicated trainer with one seed")
+    dev = resolve_device(device)
+    prep = prepare_bucket_data(X_train, y_train, X_valid, y_valid, X_test,
+                               y_test, cfg, seed=seed, device=dev)
+    _, apply_fn = get_model(name)
+    lr = 1e-3 if lr is None else lr
+    params = (init_lanes(name, cfg, seed, n_seeds, dev) if params is None
+              else stack_lanes([take_lane(params, k)
+                                for k in range(n_seeds)], dev))
+    opt = LaneAdam(params, lr)
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    programs = LanePrograms(apply_fn, cfg, generator, valid_metric)
+    # chunk boundaries anchored at epoch 0 and aligned to ckpt_every, so a
+    # resumed run re-enters on a boundary
+    chunk = (ckpt_every if (ckpt_dir and ckpt_every)
+             else min(cfg.num_epochs, DEFAULT_EPOCH_CHUNK)) or 1
+    loop = LaneLoop(programs, params, opt, prep["Xb"], prep["yb"],
+                    prep["Xv"], prep["yv"], epochs=chunk,
+                    valid_metric=valid_metric)
+    start_epoch = 0
+    if resume_from:
+        start_epoch = _multiseed_resume(resume_from, loop, n_seeds, logger)
+        generator.manual_seed(_run_seed(seed, start_epoch))
+    history = []
+    e = start_epoch
+    while e < cfg.num_epochs:
+        n = min(chunk - e % chunk, cfg.num_epochs - e)
+        records = loop.run(n).astype(np.float32)
+        for j in range(n):
+            tracked, valids = records[j, 0], records[j, 1]
+            logger.text(e + j, tracked.round(4).tolist(),
+                        valids.round(4).tolist())
+            logger.record("epoch", epoch=e + j, train_loss=tracked.tolist(),
+                          valid_loss=valids.tolist())
+            history.append({"epoch": e + j, "valids": valids.tolist(),
+                            "lrs": records[j, 2].tolist()})
+        e += n
+        if ckpt_dir and ckpt_every and e % ckpt_every == 0:
+            _multiseed_snapshot(ckpt_dir, cfg, loop, e - 1)
+
+    # each seed's test score with its best parameters (a seed that never
+    # improved, only possible with no epoch run, with its live ones)
+    eval_stack = opt.tree_of(loop.eval_flat())
+    preds = programs.predict(eval_stack, prep["Xte"])
+    yte = prep["yte"]
+    best = loop.best.cpu().numpy()
+    results = []
+    for k in range(n_seeds):
+        if cfg.task == "classification":
+            m = score_classification(preds[k], yte, out=_Null())
+        else:
+            m = score_regression(preds[k], yte, binary_threshold,
+                                 threshold_mode, out=_Null())
+        results.append({"seed_index": k, "metrics": m,
+                        "best_valid": float(best[k])})
+    key_metric = "accuracy" if cfg.task == "classification" else "mae"
+    maximize = cfg.task == "classification"
+
+    def rank_val(k):
+        # NaN-safe: a diverged seed never wins the pick
+        v = results[k]["metrics"][key_metric]
+        if not np.isfinite(v):
+            return np.inf
+        return -v if maximize else v
+
+    pick = min(range(n_seeds), key=rank_val)
+    logger.record("final", per_seed=[r["metrics"] for r in results],
+                  best_seed=pick)
+    pick_tree = take_lane(eval_stack, pick)
+    return {"results": results, "best_seed": pick,
+            "best_params": pick_tree, "params": pick_tree,
+            "best_valid": float(best[pick]), "step": cfg.num_epochs,
+            "history": history,
+            "lane_params": pytree.tree_map(lambda a: a.cpu(), eval_stack)}

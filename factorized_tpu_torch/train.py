@@ -360,6 +360,121 @@ class FlatSGD(_FlatOptimizer):
         self.flat.sub_(self.trace * self.lr)
 
 
+class LaneAdam(FlatAdam):
+    """``FlatAdam`` over K lanes of one model (the JAX package's vmapped
+    Adam of ``parallel/multiseed.py``): ``params`` is a tree of ``(K,
+    ...)`` leaves, lane k's parameters at index k of each. ``flat``,
+    ``mu`` and ``nu`` are ``(K, P)`` views of ``state`` (lane k's
+    parameters flat in row k, in the leaves' order) and ``grad`` is ``(K,
+    P)``; each leaf stays the same tensor with its storage a view of its
+    columns of ``flat`` and its ``.grad`` of ``grad``, so the lanes' trees
+    are views too. ``lr`` is a ``(K,)`` float32 device vector, one lr a
+    lane, as the JAX package's ``(K,)`` lr argument; the update is
+    ``FlatAdam``'s, element for element, with lane k's row scaled by
+    ``lr[k]``. The lanes step together: one count."""
+
+    def __init__(self, params, lrs):
+        self.params = params
+        ls = leaves(params)
+        dev, K = ls[0].device, ls[0].shape[0]
+        for leaf in ls:
+            if (leaf.dtype != torch.float32 or leaf.device != dev
+                    or leaf.dim() < 1 or leaf.shape[0] != K):
+                raise ValueError(f"LaneAdam takes float32 leaves on one "
+                                 f"device with {K} lanes in front, got "
+                                 f"{leaf.dtype} {tuple(leaf.shape)} on "
+                                 f"{leaf.device}")
+        self.lanes = K
+        n = sum(leaf[0].numel() for leaf in ls)
+        self.state = torch.zeros((3, K, n), dtype=torch.float32, device=dev)
+        self.flat, self.mu, self.nu = self.state.unbind(0)
+        self.slots = {"mu": self.mu, "nu": self.nu}
+        self.grad = torch.zeros((K, n), dtype=torch.float32, device=dev)
+        self.lr = torch.as_tensor(lrs, dtype=torch.float32).reshape(-1).to(
+            dev).expand(K).clone()
+        self.count = torch.zeros((), dtype=torch.int32, device=dev)
+        at = 0
+        with torch.no_grad():
+            for leaf in ls:
+                k = leaf[0].numel()
+                self.flat[:, at:at + k].copy_(leaf.reshape(K, -1))
+                leaf.data = self.flat[:, at:at + k].view(leaf.shape)
+                leaf.requires_grad_(True)
+                leaf.grad = self.grad[:, at:at + k].view(leaf.shape)
+                at += k
+
+    def set_lr(self, lr):
+        """One lr for every lane, or a sequence of one a lane."""
+        self.lr.copy_(torch.as_tensor(lr, dtype=torch.float32).expand(
+            self.lanes))
+
+    @torch.no_grad()
+    def step(self):
+        """``FlatAdam.step`` with lane k's row of the update scaled by
+        ``lr[k]``."""
+        g = self.grad
+        self.mu.mul_(self.B1).add_(g, alpha=1.0 - self.B1)
+        self.nu.mul_(self.B2).addcmul_(g, g, value=1.0 - self.B2)
+        self.count.add_(1)
+        c = self.count.to(torch.float32)
+        mu_hat = self.mu / (1.0 - self.B1 ** c)
+        nu_hat = self.nu / (1.0 - self.B2 ** c)
+        u = mu_hat.div_(nu_hat.sqrt_().add_(self.EPS))
+        self.flat.sub_(u.mul_(self.lr[:, None]))
+
+    def flatten(self, tree):
+        """A tree of ``(K, ...)`` leaves shaped like ``params`` as one
+        ``(K, P)`` matrix like ``flat``."""
+        def walk(like, t):
+            if isinstance(like, dict):
+                return [x for k, v in like.items() for x in walk(v, t[k])]
+            return [t.detach().reshape(self.lanes, -1)]
+
+        return torch.cat(walk(self.params, tree), dim=1).to(
+            self.flat.device)
+
+    def tree_of(self, mat):
+        """A ``(K, P)`` matrix like ``flat`` as a tree shaped like
+        ``params``, each leaf a copy."""
+        def build(tree, at):
+            out = {}
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    out[k], at = build(v, at)
+                else:
+                    m = v[0].numel()
+                    out[k] = mat[:, at:at + m].reshape(v.shape).clone()
+                    at += m
+            return out, at
+
+        return build(self.params, 0)[0]
+
+    def state_dict(self):
+        """The count, each lane's moments (``(K, P)``) and the lanes'
+        lrs, copies."""
+        return {"state": {"count": self.count.clone(),
+                          **{k: v.clone() for k, v in self.slots.items()}},
+                "lr": [float(v) for v in self.lr]}
+
+    @torch.no_grad()
+    def load_state_dict(self, state_dict, params=None):
+        """``FlatAdam.load_state_dict`` with the lanes' lrs."""
+        st = state_dict["state"]
+        for name, buf in self.slots.items():
+            if tuple(st[name].shape) != tuple(buf.shape):
+                raise ValueError(f"{name} is {tuple(st[name].shape)}, this "
+                                 f"optimizer's {tuple(buf.shape)}")
+            buf.copy_(st[name])
+        self.count.copy_(torch.as_tensor(st["count"]).reshape(()))
+        self.set_lr(state_dict["lr"])
+        if params is not None:
+            flat = self.flatten(params)
+            if flat.shape != self.flat.shape:
+                raise ValueError(f"the parameters are {tuple(flat.shape)}, "
+                                 f"this optimizer's {tuple(self.flat.shape)}")
+            self.flat.copy_(flat)
+
+
 def make_optimizer(params, lr: float, name: str = "adam",
                    momentum: float = 0.9):
     """The flat optimizer ``name`` over ``params`` (``FlatAdam`` or

@@ -12,8 +12,9 @@ arrays:
 - ``--type s2s|bm --missing 1`` reaching ``train_seq2seq`` /
   ``train_basic_missing`` as the JAX package's dispatch does (``s2s``
   without the threshold);
-- ``mosi_sdk``, ``mosei_sdk``, ``--seeds 2``, ``--bucket`` and
-  ``--evolve`` exiting with "not yet ported" before any data loads.
+- ``mosi_sdk``, ``mosei_sdk``, ``--bucket`` and ``--evolve`` (with
+  ``--seeds 2`` too, which the lanes of seeds otherwise take) exiting
+  with "not yet ported" before any data loads.
 
 Exact equality throughout: nothing here is computed in floating point."""
 
@@ -160,8 +161,8 @@ def test_missing_baselines_reach_their_trainers(command, model_type,
 @pytest.mark.parametrize("argv", [
     ["mosi_sdk", "--mode", "best"],
     ["mosei_sdk"],
-    ["moud", "--seeds", "2"],
-    ["mosi_acc", "--seeds", "2"],
+    ["moud", "--seeds", "2", "--mode", "search", "--bucket"],
+    ["mosi_acc", "--seeds", "2", "--mode", "search", "--evolve", "2"],
     ["you", "--mode", "search", "--bucket"],
     ["mmmo", "--mode", "search", "--evolve", "2"],
 ], ids=["mosi_sdk", "mosei_sdk", "moud_seeds", "mosi_acc_seeds", "bucket",

@@ -16,7 +16,7 @@ import torch
 
 from factorized_tpu_torch.config import MFMConfig, best_acc_mosi_config
 from factorized_tpu_torch.convert import from_state_dict, to_state_dict
-from factorized_tpu_torch.models import baselines, get_model, mfm
+from factorized_tpu_torch.models import ablations, baselines, get_model, mfm
 from factorized_tpu_torch.models.common import mfn_drops
 from factorized_tpu_torch.ops import counts, cuda_lstm, cuda_mfn
 from factorized_tpu_torch.serve import Predictor
@@ -1264,5 +1264,158 @@ def test_predictor_grads_on_the_card_match_the_cpu(cuda, kind):
         losses.append(loss.detach().cpu())
         grads.append({k: v.grad.cpu() for k, v in tree.items()})
     torch.testing.assert_close(losses[1], losses[0], **TOL)
+    for k in grads[0]:
+        torch.testing.assert_close(grads[1][k], grads[0][k], **GRAD)
+
+
+# ------------------------------------------------------------------ lanes
+
+def _lane_operands(cfg, K, n, dev):
+    """K lanes of the training kernels' inputs, lane k a model of its own
+    seed over one shared batch, each operand with the lane dimension in
+    front; and m_b's encoder trio's."""
+    t = cfg.seqlength
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((t, n, cfg.d_total), generator=g, device=dev)
+    enc, dec, multi = [], [], []
+    with torch.inference_mode():
+        for k in range(K):
+            p = mfm.MFM(cfg, seed=10 + k, device=dev).tree()
+            e, d = mfm.kernel_operands(p, x, cfg)
+            enc.append(e)
+            dec.append(d)
+            pb = mfm.MFM(cfg, seed=20 + k, device=dev,
+                         model_type="m_b").tree()
+            multi.append(ablations.kernel_operands(pb, x, cfg,
+                                                   "m_b")["multi_lstm"])
+
+    def stack(items):
+        if isinstance(items[0], dict):
+            return {k: stack([it[k] for it in items]) for k in items[0]}
+        return torch.stack(items).contiguous()
+
+    xp, w = stack([e[0] for e in enc]), stack([e[1] for e in enc])
+    z_tot, h_dims = enc[0][2], enc[0][3]
+    h0, c0, wsum, b = (stack([d[i] for d in dec]) for i in range(4))
+    mxp, mwh = stack([m[0] for m in multi]), stack([m[1] for m in multi])
+    w0 = {k: v[0] for k, v in w.items()}
+    masks = stack([cuda_mfn.make_dropout_masks(
+        g, t, n, cuda_mfn.sizes(w0)[:4], mfn_drops(cfg)) for _ in range(K)])
+    return ((xp, masks, w, z_tot, h_dims), (h0, c0, wsum, b, dec[0][4]),
+            (mxp, mwh, multi[0][2]), g)
+
+
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("cfg,n", [(SMALL, 5), (best_acc_mosi_config(), 32)],
+                         ids=["small", "train"])
+def test_lane_kernels_match_plain(cuda, cfg, n, K):
+    """Each of the seven kernel entry points over K lanes in one launch
+    against its plain version lane by lane."""
+    (xp, masks, w, z_tot, h_dims), (h0, c0, wsum, b, dec_dims), \
+        (mxp, mwh, m_dims), g = _lane_operands(cfg, K, n, cuda)
+    t = cfg.seqlength
+    before = counts.snapshot()
+    with torch.inference_mode():
+        for got, want in zip(
+                cuda_mfn.mfm_encode_lanes(xp, w, z_tot, h_dims),
+                cuda_mfn.mfm_encode_lanes_plain(xp, w, z_tot)):
+            torch.testing.assert_close(got, want, **TOL)
+        fwd = cuda_mfn.mfm_encode_res_lanes(xp, masks, w, z_tot, h_dims)
+        ref = cuda_mfn.mfm_encode_res_lanes_plain(xp, masks, w, z_tot)
+        for got, want in zip(fwd, ref):
+            torch.testing.assert_close(got, want, **TOL)
+        res = ref[2:]
+        H, mem = sum(h_dims), w["a2w2"].shape[-1]
+        dh = torch.randn((K, n, H), generator=g, device=cuda)
+        dmem = torch.randn((K, n, mem), generator=g, device=cuda)
+        dxp, deltas = cuda_mfn._launch_bwd(xp, w, *res, dh, dmem, z_tot,
+                                           h_dims, lanes=K)
+        dw = cuda_mfn._launch_dw(w, res[1], res[2], res[3], deltas, z_tot,
+                                 K)
+        for k in range(K):
+            wk = {m: v[k] for m, v in w.items()}
+            rk = [r[k] for r in res]
+            want_dxp, want_deltas = cuda_mfn.mfm_encode_bwd_steps_plain(
+                xp[k], wk, *rk, dh[k], dmem[k], z_tot)
+            torch.testing.assert_close(dxp[k], want_dxp, **GRAD)
+            torch.testing.assert_close(deltas[k], want_deltas, **GRAD)
+            want_dw = cuda_mfn.mfm_encode_dw_plain(rk[1], rk[2], rk[3],
+                                                   deltas[k], wk, z_tot)
+            for m in cuda_mfn.DW_NAMES:
+                torch.testing.assert_close(dw[m][k], want_dw[m], **GRAD)
+        dfwd = cuda_lstm.decoder_lstm_fwd_lanes(h0, c0, wsum, b, t, dec_dims)
+        dref = cuda_lstm.decoder_lstm_lanes_plain(h0, c0, wsum, b, t)
+        for got, want in zip(dfwd, dref):
+            torch.testing.assert_close(got, want, **TOL)
+        allh, allc, gates = dref
+        dallh = torch.randn(allh.shape, generator=g, device=cuda)
+        for got, want in zip(
+                cuda_lstm.decoder_lstm_bwd_lanes(wsum, gates, allc, dallh,
+                                                 dec_dims),
+                cuda_lstm.decoder_lstm_bwd_lanes_plain(wsum, gates, allc,
+                                                       dallh)):
+            torch.testing.assert_close(got, want, **GRAD)
+        mf = cuda_lstm.multi_lstm_fwd_lanes(mxp, mwh, m_dims, True)
+        mref = cuda_lstm.multi_lstm_lanes_plain(mxp, mwh, True)
+        for got, want in zip(mf, mref):
+            torch.testing.assert_close(got, want, **TOL)
+        torch.testing.assert_close(
+            cuda_lstm.multi_lstm_fwd_lanes(mxp, mwh, m_dims),
+            cuda_lstm.multi_lstm_lanes_plain(mxp, mwh), **TOL)
+        dhl = torch.randn(mref[0].shape, generator=g, device=cuda)
+        torch.testing.assert_close(
+            cuda_lstm.multi_lstm_bwd_lanes(mref[3], mwh, mref[2], dhl,
+                                           m_dims),
+            cuda_lstm.multi_lstm_bwd_lanes_plain(mref[3], mwh, mref[2],
+                                                 dhl), **GRAD)
+        torch.cuda.synchronize()
+    # one launch a call for all the lanes
+    delta = counts.since(before)
+    assert delta[(cuda_mfn, "LAUNCHES")] == 2
+    assert delta[(cuda_mfn, "BWD_LAUNCHES")] == 1
+    assert delta[(cuda_mfn, "DW_LAUNCHES")] == 1
+    assert delta[(cuda_lstm, "LAUNCHES")] == 1
+    assert delta[(cuda_lstm, "BWD_LAUNCHES")] == 1
+    assert delta[(cuda_lstm, "MULTI_LAUNCHES")] == 2
+    assert delta[(cuda_lstm, "MULTI_BWD_LAUNCHES")] == 1
+
+
+def test_lane_train_step_grads_on_the_card_match_the_cpu(cuda):
+    """One vmapped train step of 3 ``mfm`` lanes on the card (the lane
+    kernels) against the CPU's, every draw injected, each lane its own:
+    the encode's dropout masks, the MMD sample and the z->f masks."""
+    from factorized_tpu_torch.models.common import zf_drops
+    from factorized_tpu_torch.ops.core import dropout_mask
+    from factorized_tpu_torch.parallel.multiseed import _dims, stack_lanes
+    from torch.utils import _pytree as pytree
+
+    K, n, t = 3, 5, SMALL.seqlength
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn((t, n, SMALL.d_total), generator=g)
+    y = torch.randn((n,), generator=g)
+    stacked = stack_lanes([mfm.MFM(SMALL, seed=30 + k, device="cpu").tree()
+                           for k in range(K)], "cpu")
+    sizes = (SMALL.att1_shape, SMALL.att2_shape, SMALL.gamma1_shape,
+             SMALL.gamma2_shape)
+    f_dims = (SMALL.fy_size, SMALL.fl_size, SMALL.fa_size, SMALL.fv_size)
+    draws = {
+        "encode_masks": torch.stack([cuda_mfn.make_dropout_masks(
+            g, t, n, sizes, mfn_drops(SMALL)) for _ in range(K)]),
+        "mmd_noise": torch.randn((K, *mfm.mmd_noise_shape(SMALL, n)),
+                                 generator=g),
+        "zf_masks": [dropout_mask(g, (K, n, f), r) if r > 0 else None
+                     for f, r in zip(f_dims, zf_drops(SMALL))]}
+    loss_fn = make_loss_fn(mfm.mfm_apply, SMALL, "joint")
+    grads = []
+    for where in ("cpu", cuda):
+        p = pytree.tree_map(lambda a: a.detach().to(where).requires_grad_(),
+                            stacked)
+        d = pytree.tree_map(lambda v: None if v is None else v.to(where),
+                            draws)
+        loss, _ = torch.func.vmap(
+            lambda pp, xx, yy, dd: loss_fn(pp, xx, yy, draws=dd),
+            in_dims=(0, None, None, _dims(d)))(p, x.to(where), y.to(where), d)
+        loss.sum().backward()
+        grads.append({k: v.grad.cpu() for k, v in to_state_dict(p).items()})
     for k in grads[0]:
         torch.testing.assert_close(grads[1][k], grads[0][k], **GRAD)

@@ -265,7 +265,7 @@ def _prototype(name):
     kinds = []
     for param in m.group(1).split(","):
         param = " ".join(param.split())
-        if param.startswith("long long"):
+        if param.removeprefix("const ").startswith("long long"):
             kinds.append("i64*" if "*" in param else "i64")
         elif "*" not in param:
             kinds.append("int")
@@ -416,9 +416,10 @@ def test_encode_launcher_passes_its_knobs(fake_card, monkeypatch):
     monkeypatch.setattr(cuda_mfn, "BWD_THREADS", 256)
     _launch_encode("two_step")
     args = calls[0][2]
-    # the variant and the threads precede need and stream
-    assert list(args[-4:-2]) == [cuda_mfn.BWD_VARIANTS.index("two_step"),
-                                 256]
+    # the variant and the threads precede the lanes (one, no lane axis),
+    # the lane strides, need and stream
+    assert list(args[-6:-3]) == [cuda_mfn.BWD_VARIANTS.index("two_step"),
+                                 256, 1]
 
 
 @pytest.mark.parametrize("variant", cuda_mfn.BWD_VARIANTS)
@@ -442,16 +443,16 @@ def test_encode_launcher_carves_its_scratch(fake_card, variant):
 def test_forward_launcher_passes_its_rows(fake_card, monkeypatch):
     """The chains' rows are constants in the source, chosen there by
     whether residuals are written: with and without them the call passes
-    the cell widths and then the threads, no row count, before fit and
-    stream."""
+    the cell widths and then the threads, no row count, before the lanes
+    (one), the lane strides, fit and stream."""
     calls, _ = fake_card
     monkeypatch.setattr(cuda_mfn, "THREADS", 256)
     _launch_forward(None)
     _launch_forward("split")
     for _, argtypes, args in calls:
-        assert [_kind(k) for k in argtypes[-4:]] == ["int*", "int", "int*",
-                                                     "ptr"]
-        assert args[-3] == 256
+        assert [_kind(k) for k in argtypes[-6:]] == ["int*", "int", "int",
+                                                     "i64*", "int*", "ptr"]
+        assert list(args[-5:-3]) == [256, 1]
 
 
 @pytest.mark.parametrize("macro", sorted(perf_probe.ROW_SWEEPS))
@@ -649,9 +650,11 @@ def test_weight_gradient_launcher_fills_one_buffer(fake_dw):
         at += 4 * g.numel()
     assert len({g.untyped_storage().data_ptr() for g in got.values()}) == 1
     assert got["g2b2"].untyped_storage().nbytes() == at - args[6]
-    assert args[-3] == cuda_mfn.dw_cluster(weights, 4 * N)
+    # the cluster, then the lanes (one) and their strides, copy, stream
+    assert args[-5] == cuda_mfn.dw_cluster(weights, 4 * N)
+    assert args[-4] == 1
     assert cuda_mfn.DW_LAUNCHES == before + 1
-    assert cuda_mfn.DW_PLAN == {"cluster": args[-3], "copy_bytes": 16}
+    assert cuda_mfn.DW_PLAN == {"cluster": args[-5], "copy_bytes": 16}
 
 
 @pytest.mark.parametrize("widths,t,n,cluster", [

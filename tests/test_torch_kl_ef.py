@@ -181,7 +181,10 @@ def test_loss_grads_match_jax_at_full_width():
 def test_train_draws_come_from_the_generator():
     cfg = MFMConfig.from_dict(CFG.to_dict())
     params = mfm.mfm_kl_ef_init(torch.Generator().manual_seed(0), cfg)
-    x = torch.randn(5, 3, cfg.d_total)
+    # a seeded input: with 3% of inputs the units the two seeds' masks
+    # differ on are all zero after the relu, and the decodes agree
+    x = torch.randn(5, 3, cfg.d_total,
+                    generator=torch.Generator().manual_seed(2))
 
     def run(seed):
         return mfm.mfm_kl_ef_apply(

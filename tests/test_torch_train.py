@@ -391,9 +391,11 @@ def test_mosi_cli_trains_and_saves(tmp_path, monkeypatch, capsys):
     assert kinds == ["config", "epoch", "final"]
 
 
-# what the mosi command still refuses, before any data loads: lanes of
-# seeds and the two search strategies of the JAX package's parallel/*
-@pytest.mark.parametrize("argv", [["--seeds", "2"],
+# what the mosi command still refuses, before any data loads: the two
+# search strategies of the JAX package's parallel/multiconfig.py, with
+# lanes of seeds too
+@pytest.mark.parametrize("argv", [["--seeds", "2", "--mode", "search",
+                                   "--bucket"],
                                   ["--mode", "search", "--bucket"],
                                   ["--mode", "search", "--evolve", "2"]])
 def test_mosi_cli_refuses_what_is_not_ported(argv, monkeypatch):
