@@ -171,7 +171,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
     encode, its reverse pass and weight gradients, the decoder trio and
     ``m_b``'s trio both ways at n = 32), each timed at 8 lanes, at 1 and
     without a lane axis, beside its plain version and its bound at 8
-    (``lane_kernels``); one K = 8 ``mfm`` step's gradients on the card
+    (``lane_kernels``, with the library yardstick of each lane by
+    lane, as step 21's); one K = 8 ``mfm`` step's gradients on the card
     against the CPU's with the same injected draws (``lane_grads``);
     ``mosi --type mfm --seeds 8``, ``mosi --type m_b --seeds 4`` and
     ``mosi_acc --seeds 4``, ``--mode best --epochs 2``, through the
@@ -182,12 +183,35 @@ Run from the repository root: ``python3 chip_smoke.py``. It
     restored state bit for bit (``lanes_resume``); ``check --dir`` on the
     ``mfm`` run printing the seeds' best (``lanes_check``); ``mfm`` at K
     = 1, 2, 4 and 8 (``lane_scaling``);
-21. prints one JSON line on the ten kernels (their launches with the
-    paths of steps 19 and 20 counted) and the seven lane entry points at
-    K = 8 (``<kernel>.lanes8``, their launches step 20's lane launches),
-    the ``nvidia-smi`` line, and last ``{"ok": true, "device":
-    {...}}``; a ``seconds`` line after each of steps 4, 6, 8, 10 to
-    20.
+21. the shape-bucketed and evolving searches (``--bucket``,
+    ``--evolve``, ``parallel/multiconfig.py``) and the lane kernels past
+    one launch's 8 lanes: each of the seven entry points at K = 12 (a
+    group of 8 and one of 4), 16 and 32 against its lane plain version
+    lane by lane at step 20's shapes and tolerances, each call launching
+    ``ceil(K / 8)`` times, timed at 16 (with its library yardstick lane
+    by lane: 7 ``torch.bmm`` and 7 sums, one ``nn.LSTM`` per cell and
+    lane) and 32, and the eval encode on the scratch plan at K = 12
+    (``lane_kernels``, ``lane_kernels_past_8`` lines);
+    ``train_evolving_search`` at ``best_acc_mosi_config``, 8 configs x 2
+    seeds, 3 rungs of 2 epochs: finite losses, the survivors' falling,
+    the culls the ranks give, two launches of each kernel a step for all
+    16 lanes, one capture for the whole search, the host ms of each rung
+    boundary, a recycle leaving the survivors bit for bit, a re-seeded
+    generator taking effect at the next replay, a recycled lane's first
+    step a fresh Adam's (``evolve_search``); through the command ``mosi
+    --mode search --evolve 2 --trials 4 --seeds 3 --ckpt-every 1`` (12
+    lanes, its template's shapes and plans), its ``--resume`` repeating
+    the second rung's records bit for bit, ``--bucket --trials 4 --seeds
+    2`` and ``multitrait --style pom --evolve 2`` (``search_command``),
+    ``mosi --type m_b --evolve 2`` over 12 lanes (``search_command``),
+    ``check --dir`` (``search_check``); ``mfm``'s lane path at K = 16 and
+    32 (``lane_scaling_past_8``);
+22. prints one JSON line on the ten kernels (their launches with the
+    paths of steps 19 to 21 counted) and the seven lane entry points at
+    K = 8 (``<kernel>.lanes8``, their launches step 20's lane launches)
+    and K = 16 (``<kernel>.lanes16``, step 21's), the ``nvidia-smi``
+    line, and last ``{"ok": true, "device": {...}}``; a ``seconds`` line
+    after each of steps 4, 6, 8, 10 to 21.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1.
 """
@@ -386,31 +410,37 @@ def off_diag(weights):
     return [w for k, w in weights.items() if k != "wh"]
 
 
-def decoder_library_ms(h0, c0, wsum, b, t, dec_dims, backward=False):
+def decoder_library_ms(h0, c0, wsum, b, t, dec_dims, backward=False,
+                       reps=50):
     """The yardstick of the decoder kernels, used nowhere in the port: one
     ``torch.nn.LSTM`` (cuDNN) per decoder cell computes the same t - 1
     steps from (h0, c0), with a zero input of width 1, ``weight_ih``
     zero, ``weight_hh`` the cell's diagonal blocks of wsum transposed,
-    ``bias_ih`` its b and ``bias_hh`` zero. Forward ms by CUDA events; with
-    ``backward``, (forward + backward) - forward, the outputs' cotangent
-    all ones."""
+    ``bias_ih`` its b and ``bias_hh`` zero; with a lane dimension in front
+    of every operand, one per cell and lane. Forward ms by CUDA events;
+    with ``backward``, (forward + backward) - forward, the outputs'
+    cotangent all ones; ``reps`` calls each."""
     from factorized_tpu_torch.ops import cuda_lstm
 
-    n, H = h0.shape
+    lanes = (h0, c0, wsum, b) if h0.dim() == 3 else (
+        h0[None], c0[None], wsum[None], b[None])
+    n, H = lanes[0].shape[1:]
     dev = h0.device
-    lstms, states, o = [], [], 0
-    for h in dec_dims:
-        cols = cuda_lstm.cell_columns(H, o, h, dev)
-        m = torch.nn.LSTM(1, h).to(dev)
-        with torch.no_grad():
-            m.weight_ih_l0.zero_()
-            m.weight_hh_l0.copy_(wsum[o:o + h][:, cols].T)
-            m.bias_ih_l0.copy_(b.reshape(-1)[cols])
-            m.bias_hh_l0.zero_()
-        lstms.append(m)
-        states.append((h0[None, :, o:o + h].clone(),
-                       c0[None, :, o:o + h].clone()))
-        o += h
+    lstms, states = [], []
+    for h0_k, c0_k, wsum_k, b_k in zip(*lanes):
+        o = 0
+        for h in dec_dims:
+            cols = cuda_lstm.cell_columns(H, o, h, dev)
+            m = torch.nn.LSTM(1, h).to(dev)
+            with torch.no_grad():
+                m.weight_ih_l0.zero_()
+                m.weight_hh_l0.copy_(wsum_k[o:o + h][:, cols].T)
+                m.bias_ih_l0.copy_(b_k.reshape(-1)[cols])
+                m.bias_hh_l0.zero_()
+            lstms.append(m)
+            states.append((h0_k[None, :, o:o + h].clone(),
+                           c0_k[None, :, o:o + h].clone()))
+            o += h
     zeros = torch.zeros((t - 1, n, 1), device=dev)
 
     def forward():
@@ -418,13 +448,13 @@ def decoder_library_ms(h0, c0, wsum, b, t, dec_dims, backward=False):
 
     if not backward:
         with torch.inference_mode():
-            return cuda_ms(forward, 50)
+            return cuda_ms(forward, reps)
 
     def both():
         hs = forward()
         torch.autograd.backward(hs, [torch.ones_like(h) for h in hs])
 
-    return cuda_ms(both, 50) - cuda_ms(forward, 50)
+    return cuda_ms(both, reps) - cuda_ms(forward, reps)
 
 
 def counters():
@@ -960,7 +990,8 @@ def main():
               17: lambda: cli_phase(smi, tmp),
               18: lambda: baseline_phase(cfg, dev, smi, data, tmp),
               19: lambda: predictor_phase(cfg, dev, smi, tmp),
-              20: lambda: lanes_phase(cfg, dev, smi, tmp)}
+              20: lambda: lanes_phase(cfg, dev, smi, tmp),
+              21: lambda: bucket_evolve_phase(cfg, dev, smi, tmp)}
     results = {}
     with tempfile.TemporaryDirectory() as tmp:
         for step, run in phases.items():
@@ -971,25 +1002,30 @@ def main():
     train_kernels, variant_kernels, probe_kernels = (results[6], results[8],
                                                      results[10])
     kernels = serve_kernels + train_kernels + variant_kernels + probe_kernels
-    # step 19's and step 20's paths launch the main path's kernels at
-    # their shapes (step 20's over lanes)
+    # step 19's, 20's and 21's paths launch the main path's kernels at
+    # their shapes (steps 20's and 21's over lanes)
     lane_kernels, lane_paths, lane_launches = results[20]
+    past_kernels, past_paths, past_launches = results[21]
     for entry in kernels:
         entry["launches"] += sum(path.get(entry["name"], 0)
                                  for path in [*results[19].values(),
-                                              *lane_paths.values()])
-    # each kernel entry point over 8 lanes (step 20a's train shapes), its
-    # launches the lane launches of step 20's paths
-    for name, (source, replaces) in LANE_KERNELS.items():
-        k = lane_kernels[name]
-        kernels.append({
-            "name": f"{name}.lanes{k['lanes']}", "route": "cuda",
-            "source": source, "replaces": replaces,
-            "launches": lane_launches.get(name, 0),
-            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-            "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
-            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            "library_ms": None})
+                                              *lane_paths.values(),
+                                              *past_paths.values()])
+    # each kernel entry point over 8 lanes (step 20a's train shapes) and
+    # 16 (step 21a's), its launches the lane launches of step 20's and of
+    # step 21's paths
+    for lanes, launched in ((lane_kernels, lane_launches),
+                            (past_kernels, past_launches)):
+        for name, (source, replaces) in LANE_KERNELS.items():
+            k = lanes[name]
+            kernels.append({
+                "name": f"{name}.lanes{k['lanes']}", "route": "cuda",
+                "source": source, "replaces": replaces,
+                "launches": launched.get(name, 0),
+                "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                "device_ms": k["device_ms"], "plain_ms": k["plain_ms"],
+                "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+                "library_ms": k["library_ms"]})
     log({"kernels": kernels})
     print(smi, flush=True)
     log({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2371,11 +2407,12 @@ def timed(fn, plain):
             "plain_ms": cuda_ms(plain, 10)}
 
 
-def cell_library_ms(cells, xs, backward=False):
+def cell_library_ms(cells, xs, backward=False, reps=50):
     """The yardstick of the fused encoder-cell kernels, used nowhere in the
     port: one ``torch.nn.LSTM`` (cuDNN) per cell over its input (the input
     projection included); forward ms, or with ``backward`` (forward +
-    backward) - forward, the last hidden states' cotangent all ones."""
+    backward) - forward, the last hidden states' cotangent all ones;
+    ``reps`` calls each."""
     dev = xs[0].device
     lstms = [torch.nn.LSTM(xi.shape[2], c["wh"].shape[0]).to(dev)
              for c, xi in zip(cells, xs)]
@@ -2383,7 +2420,8 @@ def cell_library_ms(cells, xs, backward=False):
     xs = [xi.clone() for xi in xs]
     if not backward:
         with torch.inference_mode():
-            return cuda_ms(lambda: [m(xi) for m, xi in zip(lstms, xs)], 50)
+            return cuda_ms(lambda: [m(xi) for m, xi in zip(lstms, xs)],
+                           reps)
     xs = [xi.requires_grad_() for xi in xs]
 
     def forward():
@@ -2393,7 +2431,7 @@ def cell_library_ms(cells, xs, backward=False):
         hs = forward()
         torch.autograd.backward(hs, [torch.ones_like(h) for h in hs])
 
-    return cuda_ms(both, 50) - cuda_ms(forward, 50)
+    return cuda_ms(both, reps) - cuda_ms(forward, reps)
 
 
 def ablation_kernels(model_type, cfg, params, dev, smi):
@@ -3959,19 +3997,21 @@ def lane_first(tree):
     return tree
 
 
-def lane_kernel_phase(cfg, dev, smi, K):
-    """Step 20a: each of the seven kernel entry points over K lanes at
-    ``cfg``'s full width, lane k a model of its own seed and the input
-    shared, in one launch against the lane plain version (each lane's
-    plain version, on the card): the eval encode at n = 256, the train
-    encode (masks, residuals), its reverse pass and weight gradients, the
-    decoder trio both ways and ``m_b``'s encoder trio [32, 8, 80]
-    (``multi_lstm``, train and eval) both ways at n = 32; forward within
-    rtol 1e-4 / atol 1e-5, gradients within rtol 1e-3 / atol 2e-5. Each
-    timed at K lanes and at 1 (device ms, calls queued), beside its
-    single-lane launch (no lane axis), its plain version at K and its
-    bound at K (K times one lane's: K lanes' work and bytes). Returns
-    {kernel: numbers}."""
+def lane_kernel_phase(cfg, dev, smi, K, timing=True, library=False):
+    """Step 20a (and 21a past 8 lanes): each of the seven kernel entry
+    points over K lanes at ``cfg``'s full width, lane k a model of its own
+    seed and the input shared, against the lane plain version (each
+    lane's plain version, on the card): the eval encode at n = 256, the
+    train encode (masks, residuals), its reverse pass and weight
+    gradients, the decoder trio both ways and ``m_b``'s encoder trio [32,
+    8, 80] (``multi_lstm``, train and eval) both ways at n = 32; forward
+    within rtol 1e-4 / atol 1e-5, gradients within rtol 1e-3 / atol 2e-5.
+    Each call launches ``cuda_lstm.lane_launches(K)`` times (one launch
+    holds 8 lanes), counted. With ``timing``, each timed at K lanes and at
+    1 (device ms, calls queued), beside its single-lane launch (no lane
+    axis), its plain version at K and its bound at K (K times one lane's:
+    K lanes' work and bytes); with ``library`` also its library yardstick
+    lane by lane (``lane_library_ms``). Returns {kernel: numbers}."""
     from factorized_tpu_torch.models import ablations, mfm
     from factorized_tpu_torch.models.common import mfn_drops
     from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
@@ -4157,13 +4197,37 @@ def lane_kernel_phase(cfg, dev, smi, K):
         }
         times = {}
         for name, (fn, ops, single, plain) in calls.items():
+            kernel = name.split(".")[0]
+            before = lane_counts().get(kernel, 0)
+            fn(ops)
+            launched = lane_counts().get(kernel, 0) - before
+            if launched != cuda_lstm.lane_launches(K):
+                raise AssertionError(
+                    f"{name} over {K} lanes launched {launched} times, not "
+                    f"{cuda_lstm.lane_launches(K)}")
+            times[name] = {"launches_per_call": launched}
+            if not timing:
+                continue
             ops1 = tuple(lane_first(o) for o in ops)
-            times[name] = {
-                "device_ms": queued_ms(lambda: fn(ops)),
+            # as many launches queued behind the sleeping kernel as at 8
+            # lanes: a lane launch's arguments (up to 32 KB) fill CUDA's
+            # launch queue, and a full queue stalls the host
+            times[name].update({
+                "device_ms": queued_ms(lambda: fn(ops),
+                                       reps=50 // launched),
                 "ms": cuda_ms(lambda: fn(ops), 20),
                 "device_ms_1_lane": queued_ms(lambda: fn(ops1)),
                 "device_ms_no_lane_axis": queued_ms(single),
-                "plain_ms": cuda_ms(plain, 2, warmup=1)}
+                # past 8 lanes the plain versions take 0.1 to 0.6 s a call
+                "plain_ms": (cuda_ms(plain, 2, warmup=1) if K <= 8
+                             else cuda_ms(plain, 1, warmup=0))})
+    if library:
+        cells = [pb["enc"][m]["lstm"] for m in mfm._ENCODERS] * K
+        lib = lane_library_ms(K, w, res, deltas_ref, z_tot,
+                              (h0, c0, wsum, b, t, dec_dims), cells,
+                              mfm.split_modalities(x, cfg.input_dims) * K,
+                              mfm.split_modalities(xe, cfg.input_dims) * K,
+                              dw_ref)
 
     # bounds at K lanes: K lanes' useful float32 work and each input read
     # once, each output written once (as steps 5-8 bound one lane)
@@ -4217,11 +4281,51 @@ def lane_kernel_phase(cfg, dev, smi, K):
         out[name] = {"lanes": K, "max_abs_err": errs[name]["max_abs_err"],
                      **times[name], "bound_ms": bounds[name][0],
                      "bound_by": bounds[name][1],
-                     "single_lane_bound_ms": bounds[name][0] / K}
+                     "single_lane_bound_ms": bounds[name][0] / K,
+                     "library_ms": lib.get(name) if library else None}
     log({"phase": "lane_kernels", "nvidia_smi": smi, "lanes": K,
          "n_train": n, "n_eval": ne, "h_dims": h_dims, "dec_dims": dec_dims,
          "multi_dims": m_dims, "kernels": out})
     return out
+
+
+def lane_library_ms(K, w, res, deltas, z_tot, dec, cells, xs, xs_eval,
+                    dw_ref):
+    """The lane kernels' library yardsticks, used nowhere in the port, by
+    the one-lane rows' recipe lane by lane: the weight gradients as 7
+    ``torch.bmm`` and 7 sums over the lanes' stacked operands (built
+    before the timing; held against the plain version), the decoders and
+    ``m_b``'s trio as one ``torch.nn.LSTM`` (cuDNN) per cell and lane
+    (``decoder_library_ms``, ``cell_library_ms``). {call name: ms}."""
+    from factorized_tpu_torch.ops import cuda_mfn
+
+    ops = [cuda_mfn.dw_operands(res[1][k], res[2][k], res[3][k],
+                                {m: v[k] for m, v in w.items()}, z_tot)
+           for k in range(K)]
+    A = {a: torch.stack([o[a] for o in ops]) for a in ops[0]}
+    offs, _ = cuda_mfn.delta_layout({m: v[0] for m, v in w.items()})
+    D = deltas.reshape(K, -1, deltas.shape[-1])
+
+    def dw():
+        out = {}
+        for name, (a, d) in cuda_mfn.DW_PRODUCTS.items():
+            o, wd = offs[d]
+            out[name] = (D[:, :, o:o + wd].sum(1) if a == "ones" else
+                         torch.bmm(A[a].transpose(1, 2), D[:, :, o:o + wd]))
+        return out
+
+    compare_all(f"lanes{K}.mfm_encode_dw.library", [
+        (k, v, torch.stack([r[k] for r in dw_ref]).reshape(v.shape))
+        for k, v in dw().items()], GRAD_RTOL, GRAD_ATOL)
+    # 10 calls each: the cuDNN calls of K lanes take 3 to 36 ms
+    return {"mfm_encode_dw": cuda_ms(dw, 20),
+            "decoder_lstm_fwd": decoder_library_ms(*dec, reps=10),
+            "decoder_lstm_bwd": decoder_library_ms(*dec, backward=True,
+                                                   reps=10),
+            "multi_lstm_fwd": cell_library_ms(cells, xs, reps=10),
+            "multi_lstm_fwd.eval": cell_library_ms(cells, xs_eval, reps=10),
+            "multi_lstm_bwd": cell_library_ms(cells, xs, backward=True,
+                                              reps=10)}
 
 
 def lane_draws(cfg, K, n, generator):
@@ -4287,8 +4391,8 @@ def lane_grads_vs_cpu(cfg, dev, K):
 @contextlib.contextmanager
 def lane_loops():
     """Yields a list that gathers each ``multiseed.LaneLoop`` built while
-    the block runs."""
-    from factorized_tpu_torch.parallel import multiseed
+    the block runs (by ``multiseed`` or ``multiconfig``)."""
+    from factorized_tpu_torch.parallel import multiconfig, multiseed
 
     loops, real = [], multiseed.LaneLoop
 
@@ -4297,11 +4401,11 @@ def lane_loops():
             super().__init__(*a, **kw)
             loops.append(self)
 
-    multiseed.LaneLoop = Loop
+    multiseed.LaneLoop = multiconfig.LaneLoop = Loop
     try:
         yield loops
     finally:
-        multiseed.LaneLoop = real
+        multiseed.LaneLoop = multiconfig.LaneLoop = real
 
 
 def lane_counts():
@@ -4361,17 +4465,21 @@ def lane_path_times(loop, steps=3, replays=3):
             "graph_pool_bytes": loop.epoch.pool_bytes}
 
 
-def lane_epoch_launches(loop, kernels, label):
-    """Each kernel's launches in the loop's replayed epoch: once a train
-    step for all the lanes (the forward kernels once more for the
-    evaluation), whatever the lane count."""
+def lane_epoch_launches(loop, kernels, label, epoch=1):
+    """Each kernel's launches in the loop's replayed epoch ``epoch``: one
+    launch a group of 8 lanes (``cuda_lstm.lane_launches``) a train step
+    for all the lanes (the forward kernels once more for the
+    evaluation)."""
+    from factorized_tpu_torch.ops import cuda_lstm
+
     nb = int(loop.batches[0].shape[0])
-    if loop.epoch.graph is None or len(loop.epoch_launches) < 2:
-        raise AssertionError(f"{label}: the second epoch was not a graph "
+    if loop.epoch.graph is None or len(loop.epoch_launches) <= epoch:
+        raise AssertionError(f"{label}: epoch {epoch} was not a graph "
                              f"replay")
-    seen = per_kernel(loop.epoch_launches[1])
-    want = {k: nb + (k in ("mfm_encode_fwd", "decoder_lstm_fwd",
-                           "multi_lstm_fwd")) for k in kernels}
+    seen = per_kernel(loop.epoch_launches[epoch])
+    groups = cuda_lstm.lane_launches(loop.opt.lanes)
+    want = {k: groups * (nb + (k in ("mfm_encode_fwd", "decoder_lstm_fwd",
+                                     "multi_lstm_fwd"))) for k in kernels}
     got = {k: seen[k] for k in kernels}
     if got != want:
         raise AssertionError(f"{label}: a replayed epoch launched {got}, "
@@ -4454,7 +4562,7 @@ def lane_resume_check(tmp):
                            opt.flatten(state["params"]["best"])),
             mu=same_bits(opt.mu, state["opt_state"]["state"]["mu"]),
             nu=same_bits(opt.nu, state["opt_state"]["state"]["nu"]),
-            count=int(opt.count) == int(state["opt_state"]["state"]["count"]),
+            count=same_bits(opt.count, state["opt_state"]["state"]["count"]),
             lrs=same_bits(opt.lr, torch.tensor(meta["config"]["_ms_lrs"])),
             best_valid=same_bits(loop.best, torch.tensor(
                 meta["config"]["_ms_best_valid"])))
@@ -4476,7 +4584,8 @@ def lane_resume_check(tmp):
 
 def lanes_phase(cfg, dev, smi, tmp):
     """Step 20: lanes of seeds (``--seeds K``, ``parallel/multiseed.py``).
-    (a) ``lane_kernel_phase`` at K = 8; (b) ``lane_grads_vs_cpu`` at
+    (a) ``lane_kernel_phase`` at K = 8, with the library yardsticks lane
+    by lane; (b) ``lane_grads_vs_cpu`` at
     K = 8; (c) ``mosi --type mfm --seeds 8``, ``mosi --type m_b --seeds
     4`` and ``mosi_acc --seeds 4``, ``--mode best --epochs 2``, through
     the command (``lane_command``); (d) ``lane_resume_check``; (e)
@@ -4494,7 +4603,7 @@ def lanes_phase(cfg, dev, smi, tmp):
     from factorized_tpu_torch.train import LaneAdam
 
     t0 = time.perf_counter()
-    kernels = lane_kernel_phase(cfg, dev, smi, LANES)
+    kernels = lane_kernel_phase(cfg, dev, smi, LANES, library=True)
     t1 = time.perf_counter()
     grads = lane_grads_vs_cpu(cfg, dev, LANES)
     log({"phase": "lane_grads", "nvidia_smi": smi, "lanes": LANES,
@@ -4553,6 +4662,425 @@ def lanes_phase(cfg, dev, smi, tmp):
          "by_lanes": {str(k): times[k] for k in sorted(times)},
          "seconds": time.perf_counter() - t1})
     return kernels, paths, lane_launches
+
+
+# step 21: lane counts past one launch's 8 lanes: a group of 8 and one of
+# 4, two groups, four
+LANES_PAST = (12, 16, 32)
+# step 21(b): the evolving search at the main path's width
+EVOLVE_CONFIGS, EVOLVE_SEEDS, EVOLVE_RUNGS = 8, 2, 3
+
+
+def scratch_lanes_check(cfg, dev, K):
+    """Step 21a: the eval encode on the scratch plan (an MFN cell of 600
+    units, whose per-row state passes a block: ``cuda_lstm.SCRATCH``) over
+    K lanes, lane k a model of its own seed, against the lane plain
+    version: the groups of 8 lanes of a call share one scratch reservation
+    sized for 8, so a group that overwrote another's state would show."""
+    from factorized_tpu_torch.models import mfm
+    from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
+
+    wide = cfg.replace(h_dims=[600, 64, 48])
+    t, n = wide.seqlength, N_TRAIN
+    gen = torch.Generator(device=dev).manual_seed(SEED + 140)
+    x = torch.randn((t, n, wide.d_total), generator=gen, device=dev)
+    with torch.inference_mode():
+        ops = [mfm.kernel_operands(mfm.MFM(wide, seed=SEED + 150 + k,
+                                           device=dev).tree(), x, wide)[0]
+               for k in range(K)]
+        xp, w = lane_stack([o[0] for o in ops]), lane_stack([o[1]
+                                                            for o in ops])
+        z_tot, h_dims = ops[0][2], ops[0][3]
+        cuda_mfn.SCRATCH_LAUNCHES.clear()
+        got = cuda_mfn.mfm_encode_lanes(xp, w, z_tot, h_dims)
+        plan = cuda_mfn.CLUSTERS["mfm_encode_fwd"]
+        if cuda_lstm.SCRATCH not in plan:
+            raise AssertionError(f"the {h_dims} encode took plan {plan}, "
+                                 f"not the scratch plan")
+        err = compare_all(f"lanes{K}.scratch.mfm_encode_fwd.eval", zip(
+            ("h_last", "mem_last"), got,
+            cuda_mfn.mfm_encode_lanes_plain(xp, w, z_tot)))
+    return {"lanes": K, "h_dims": h_dims, "n": n, "plan": list(plan),
+            "scratch_launches": dict(cuda_mfn.SCRATCH_LAUNCHES),
+            "max_abs_err": err["max_abs_err"]}
+
+
+@contextlib.contextmanager
+def patched(*triples):
+    """Sets each (object, attribute, value) for the block, then puts the
+    old values back."""
+    old = [(o, a, getattr(o, a)) for o, a, _ in triples]
+    for o, a, v in triples:
+        setattr(o, a, v)
+    try:
+        yield
+    finally:
+        for o, a, v in old:
+            setattr(o, a, v)
+
+
+def recycle_checks(loop, template, L, seed):
+    """Step 21b on the search's captured loop, from one state copied back
+    into its buffers before each run: lanes ``L`` recycled then one
+    replayed epoch leaves every other lane's parameters bit for bit those
+    of the same epoch with no recycle; a generator re-seeded between
+    replays gives the next replay its draws (the same seed twice the same
+    epoch, another seed another); a recycled lane's first step equals a
+    fresh ``LaneAdam``'s first step on the same parameters and batch."""
+    from factorized_tpu_torch.models import get_model
+    from factorized_tpu_torch.parallel import multiconfig as mc
+    from factorized_tpu_torch.train import LaneAdam
+
+    program, init = loop.programs, get_model(template.model_type)[0]
+    host = mc._host_state(program.state())
+
+    def start(recycle):
+        program.load_state(host)
+        if recycle:
+            mc.recycle_lanes(program.state(), L, cfg=template, init=init,
+                             lrs_new=[1e-3] * len(L), seed=seed)
+
+    def replay(s, recycle):
+        start(recycle)
+        program.generator.manual_seed(s)
+        loop.run(1)
+        return loop.opt.flat.clone()
+
+    keep = [k for k in range(loop.opt.lanes) if k not in L]
+    a, b, c, d = (replay(seed, True), replay(seed, False),
+                  replay(seed, False), replay(seed + 1, False))
+    out = {"survivors_unperturbed": same_bits(a[keep], b[keep]),
+           "reseeded_replay_repeats": same_bits(b, c),
+           "another_seed_differs": not same_bits(b, d),
+           "recycled_lanes_restarted": not same_bits(a[L], b[L])}
+    start(True)
+    opt = loop.opt
+    fresh = LaneAdam(opt.tree_of(opt.flat), opt.lr.clone())
+    Xb, yb = loop.batches
+    for o in (opt, fresh):
+        program.generator.manual_seed(seed)
+        program.step(o.params, o, Xb[0], yb[0], hps=loop.hps)
+    out["recycled_first_step_is_fresh"] = (
+        same_bits(opt.flat[L], fresh.flat[L])
+        and same_bits(opt.mu[L], fresh.mu[L])
+        and same_bits(opt.nu[L], fresh.nu[L])
+        and opt.count[L].tolist() == [1] * len(L))
+    if not all(out.values()):
+        raise AssertionError(f"recycle checks: {out}")
+    return out
+
+
+def evolve_search_check(cfg, dev, smi, data):
+    """Step 21b: ``multiconfig.train_evolving_search`` at ``cfg``'s width,
+    ``EVOLVE_CONFIGS`` configs x ``EVOLVE_SEEDS`` seeds = 16 lanes,
+    ``EVOLVE_RUNGS`` rungs of 2 epochs, on the synthetic MOSI set: every
+    lane's losses finite and the survivors' falling, the culls those the
+    rung scores rank, each kernel launched twice (``lane_launches(16)``)
+    a train step for all the lanes in every replayed epoch, one LaneLoop
+    and one graph capture for the whole search; the host ms of each rung
+    boundary (rank, score the finished lanes, recycle), then
+    ``recycle_checks``. Returns (its line, launches, lane launches)."""
+    import random
+
+    from factorized_tpu_torch import train
+    from factorized_tpu_torch.parallel import multiconfig as mc
+    from factorized_tpu_torch.utils.logging import RunLogger
+
+    template = cfg.replace(num_epochs=TRAIN_EPOCHS)
+    K = EVOLVE_CONFIGS * EVOLVE_SEEDS
+    records, captures = [], []
+    marks = {"calls": [], "score_ms": [], "recycle_ms": []}
+
+    class Log(RunLogger):
+        def record(self, kind, **fields):
+            records.append(dict(kind=kind, **fields))
+
+    def capture(self):
+        captures.append(self)
+        real["capture"](self)
+
+    def bucket(*a, **kw):
+        marks["calls"].append([time.perf_counter()])
+        out = real["bucket"](*a, **kw)
+        marks["calls"][-1].append(time.perf_counter())
+        return out
+
+    def timer(name, key):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = real[name](*a, **kw)
+            torch.cuda.synchronize()
+            marks[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    real = {"capture": train.Graphed._capture,
+            "bucket": mc.train_config_bucket,
+            "score": mc.score_bucket_lanes, "recycle": mc.recycle_lanes}
+    with lane_loops() as loops, patched(
+            (train.Graphed, "_capture", capture),
+            (mc, "train_config_bucket", bucket),
+            (mc, "score_bucket_lanes", timer("score", "score_ms")),
+            (mc, "recycle_lanes", timer("recycle", "recycle_ms"))):
+        res, seconds, launches = counted(
+            "evolve", LANE_PATHS["mfm"], lambda: mc.train_evolving_search(
+                *data, template, "mosi", n_configs=EVOLVE_CONFIGS,
+                rungs=EVOLVE_RUNGS, cull_frac=0.5,
+                seeds_per_config=EVOLVE_SEEDS, rng=random.Random(SEED),
+                seed=SEED, logger=Log(echo=False), device=dev))
+    lane = lane_counts()
+    epochs = EVOLVE_RUNGS * TRAIN_EPOCHS
+    if len(loops) != 1 or len(captures) != 1:
+        raise AssertionError(f"the search built {len(loops)} loops and "
+                             f"captured {len(captures)} graphs, not 1 and 1")
+    loop, = loops
+    if len(loop.epoch_launches) != epochs:
+        raise AssertionError(f"{len(loop.epoch_launches)} epochs ran")
+    replayed = [lane_epoch_launches(loop, LANE_PATHS["mfm"],
+                                    "evolve search", epoch=e)
+                for e in range(1, epochs)]
+    losses = np.asarray([r["train_loss"] for r in records
+                         if r["kind"] == "epoch"])
+    valids = np.asarray([r["valid_loss"] for r in records
+                         if r["kind"] == "epoch"])
+    if (losses.shape != (epochs, K) or not np.isfinite(losses).all()
+            or not np.isfinite(valids).all()):
+        raise AssertionError(f"evolve: losses {losses}")
+    n_cull = int(0.5 * EVOLVE_CONFIGS)
+    for r in res["rungs"][:-1]:
+        want = sorted(int(c) for c in np.argsort(r["scores"])[-n_cull:])
+        if sorted(r["culled"]) != want:
+            raise AssertionError(f"rung {r['rung']} culled {r['culled']}, "
+                                 f"its scores rank {want}")
+    culled = {c for r in res["rungs"] for c in r["culled"]}
+    survivors = [k for k in range(K) if k // EVOLVE_SEEDS not in culled]
+    if not survivors or not (losses[-1, survivors]
+                             < losses[0, survivors]).all():
+        raise AssertionError(f"evolve: survivors {survivors} losses "
+                             f"{losses[:, survivors].tolist()}")
+    boundary_ms = [(marks["calls"][i + 1][0] - marks["calls"][i][1]) * 1e3
+                   for i in range(len(marks["calls"]) - 1)]
+    t1 = time.perf_counter()
+    checks = recycle_checks(loop, template, [0, 1], SEED + 7)
+    return {"lanes": K, "configs": EVOLVE_CONFIGS, "seeds": EVOLVE_SEEDS,
+            "rungs": [{k: v for k, v in r.items() if k != "configs"}
+                      for r in res["rungs"]],
+            "explored_configs": res["explored_configs"],
+            "best": {"rung": res["best"]["rung"],
+                     "metrics": res["best"]["metrics"]},
+            "survivors": survivors, "train_loss": losses.tolist(),
+            "captures": len(captures), "capture_ms": loop.epoch.capture_ms,
+            "graph_pool_bytes": loop.epoch.pool_bytes,
+            "replayed_epoch_launches": replayed[0],
+            "rung_boundary_host_ms": boundary_ms,
+            "score_host_ms": marks["score_ms"],
+            "recycle_host_ms": marks["recycle_ms"],
+            "launches": launches, "run_s": seconds, **checks,
+            "recycle_checks_s": time.perf_counter() - t1}, launches, lane
+
+
+def run_records(path):
+    """Every record of a run's JSONL log, its time stamp dropped."""
+    with open(path) as f:
+        return [{k: v for k, v in r.items() if k != "ts"}
+                for r in map(json.loads, f)]
+
+
+def search_command(command, argv, run_ids, kernels, runs, label):
+    """``<command> <argv> --out runs`` through the command line in this
+    process, counted (``mosi_cli``): every lane's losses finite in each of
+    ``run_ids``' logs, a ``final`` record in each, every replayed epoch of
+    every LaneLoop launching each of ``kernels`` once a group of 8 lanes a
+    step. Returns (its line, launches, lane launches, {run id: records})."""
+    import os
+
+    from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
+
+    printed = io.StringIO()
+    with lane_loops() as loops, contextlib.redirect_stdout(printed):
+        seconds, launches, _ = mosi_cli([*argv, "--out", runs], label,
+                                        kernels, command=command)
+    lane = lane_counts()
+    logs = {r: run_records(os.path.join(runs, f"{r}.jsonl"))
+            for r in run_ids}
+    for run_id, recs in logs.items():
+        epochs = [r for r in recs if r["kind"] == "epoch"]
+        if not epochs or not np.isfinite([[r["train_loss"], r["valid_loss"]]
+                                          for r in epochs]).all():
+            raise AssertionError(f"{label} {run_id}: losses {epochs}")
+        if not any(r["kind"] == "final" for r in recs):
+            raise AssertionError(f"{label} {run_id}: no final record")
+    for loop in loops:
+        for e in range(1, len(loop.epoch_launches)):
+            lane_epoch_launches(loop, kernels, label, epoch=e)
+    return ({"command": [command, *argv], "run_s": seconds,
+             "launches": launches, "lane_launches": lane,
+             "loops": [{"lanes": lp.opt.lanes,
+                        "epochs": len(lp.epoch_launches),
+                        "capture_ms": lp.epoch.capture_ms}
+                       for lp in loops],
+             "plans": {"cuda_mfn": dict(cuda_mfn.CLUSTERS),
+                       "cuda_lstm": dict(cuda_lstm.CLUSTERS)},
+             "printed": printed.getvalue().splitlines()[-2:]},
+            launches, lane, logs)
+
+
+def search_commands(smi, tmp):
+    """Step 21c: ``mosi --mode search --evolve 2 --trials 4 --seeds 3
+    --epochs 2 --ckpt-every 1`` (12 lanes), its shapes and plans; then
+    ``--resume`` of its rung-boundary snapshot, whose records from the
+    second rung on equal the uninterrupted run's bit for bit; ``mosi
+    --mode search --bucket --trials 4 --seeds 2 --epochs 2``;
+    ``multitrait --style pom --mode search --evolve 2 --trials 4 --epochs
+    2`` (a vector head ranked by ``mae_mean``); ``mosi --type m_b --mode
+    search --evolve 2 --trials 3 --seeds 4`` (``m_b``'s trio over 12
+    lanes); ``check --dir`` over the evolve run printing its finished
+    lanes' best MAE. Returns ({path: launches}, lane launches summed)."""
+    import os
+
+    from factorized_tpu_torch import cli
+
+    common = ["--mode", "search", "--epochs", str(TRAIN_EPOCHS), "--seed",
+              str(SEED)]
+    evolve = [*common, "--evolve", "2", "--trials", "4", "--seeds", "3"]
+    runs = os.path.join(tmp, "evolve")
+    paths, lanes = {}, {}
+
+    def add(label, line, launches, lane):
+        paths[label] = launches
+        for k, v in lane.items():
+            lanes[k] = lanes.get(k, 0) + v
+        log({"phase": "search_command", "nvidia_smi": smi, "path": label,
+             **line})
+
+    line, launches, lane, logs = search_command(
+        "mosi", [*evolve, "--ckpt-every", "1"], ["mosi_evolve0"],
+        LANE_PATHS["mfm"], runs, "mosi --evolve 2")
+    recs = logs["mosi_evolve0"]
+    meta = recs[0]
+    if meta["kind"] != "search_meta" or [r["kind"] for r in recs].count(
+            "final") != 2:
+        raise AssertionError(f"evolve records {[r['kind'] for r in recs]}")
+    line["template"] = {k: meta["template"][k] for k in (
+        "h_dims", "memsize", "zy_size", "zl_size", "za_size", "zv_size",
+        "fy_size", "fl_size", "fa_size", "fv_size", "att1_shape",
+        "att2_shape", "gamma1_shape", "gamma2_shape", "batchsize")}
+    add("evolve", line, launches, lane)
+    # the records after the rung-boundary snapshot (the second rung on)
+    first = [r["kind"] for r in recs].index("rung") + 1
+    ck = os.path.join(runs, "ckpt_auto_mosi_evolve0")
+    line, launches, lane, logs = search_command(
+        "mosi", [*evolve, "--resume", ck], ["mosi_evolve0"],
+        LANE_PATHS["mfm"], os.path.join(tmp, "evolve_resumed"),
+        "mosi --evolve 2 --resume")
+    resumed = [r for r in logs["mosi_evolve0"]
+               if r["kind"] not in ("search_meta",)]
+    if resumed != recs[first:] or not resumed:
+        raise AssertionError("the resumed search's records differ from the "
+                             "uninterrupted run's")
+    line["records_equal"] = len(resumed)
+    add("evolve_resume", line, launches, lane)
+    line, launches, lane, logs = search_command(
+        "mosi", [*common, "--bucket", "--trials", "4", "--seeds", "2"],
+        [], LANE_PATHS["mfm"], os.path.join(tmp, "bucket"), "mosi --bucket")
+    bucket_logs = sorted(p for p in os.listdir(os.path.join(tmp, "bucket"))
+                         if p.startswith("mosi_r0b"))
+    for name in bucket_logs:
+        recs_b = run_records(os.path.join(tmp, "bucket", name))
+        final = [r for r in recs_b if r["kind"] == "final"]
+        n_cfg = sum(r["kind"] == "config" for r in recs_b)
+        if len(final) != 1 or len(final[0]["per_lane"]) != 2 * n_cfg:
+            raise AssertionError(f"bucket {name}: {final}")
+    line["buckets"] = bucket_logs
+    add("bucket", line, launches, lane)
+    line, launches, lane, logs = search_command(
+        "multitrait", ["--style", "pom", *common, "--evolve", "2",
+                       "--trials", "4"], ["pom_evolve0"], LANE_PATHS["mfm"],
+        os.path.join(tmp, "multitrait_evolve"), "multitrait --evolve 2")
+    last = logs["pom_evolve0"][-1]
+    if last["kind"] != "evolve_final" or not np.isfinite(
+            last["best_metrics"]["mae_mean"]):
+        raise AssertionError(f"multitrait evolve: {last}")
+    line["best_mae_mean"] = last["best_metrics"]["mae_mean"]
+    add("multitrait_evolve", line, launches, lane)
+    # m_b's encoder trio (multi_lstm) over 12 lanes
+    line, launches, lane, _ = search_command(
+        "mosi", [*common, "--type", "m_b", "--evolve", "2", "--trials", "3",
+                 "--seeds", "4"], ["mosi_evolve0"], LANE_PATHS["m_b"],
+        os.path.join(tmp, "evolve_m_b"), "mosi --type m_b --evolve 2")
+    add("evolve_m_b", line, launches, lane)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        cli.main(["check", "--dir", runs])
+    best = min(m["mae"] for r in recs if r["kind"] == "final"
+               for m in r["per_lane"])
+    lines = printed.getvalue().splitlines()
+    if f"mae: {best}" not in lines:
+        raise AssertionError(f"check --dir printed {lines}, not the "
+                             f"finished lanes' best mae {best}")
+    log({"phase": "search_check", "nvidia_smi": smi, "printed": lines})
+    return paths, lanes
+
+
+def lane_loop_times(cfg, dev, data, K):
+    """``mfm``'s lane path at K lanes built directly (step 20f's
+    ``lane_scaling``): two epochs, the second a replay launching each
+    kernel once a group of 8 lanes a step, then ``lane_path_times``."""
+    from factorized_tpu_torch.models import get_model
+    from factorized_tpu_torch.parallel import multiseed
+    from factorized_tpu_torch.train import LaneAdam
+
+    _, apply_fn = get_model("mfm")
+    prep = multiseed.prepare_bucket_data(*data, cfg, seed=SEED, device=dev)
+    params = multiseed.init_lanes("mfm", cfg, SEED, K, dev)
+    opt = LaneAdam(params, 1e-3)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    programs = multiseed.LanePrograms(apply_fn, cfg, gen)
+    loop = multiseed.LaneLoop(programs, params, opt, prep["Xb"], prep["yb"],
+                              prep["Xv"], prep["yv"], epochs=1)
+    loop.run(1)
+    loop.run(1)
+    lane_epoch_launches(loop, LANE_PATHS["mfm"], f"mfm K = {K}")
+    return lane_path_times(loop)
+
+
+def bucket_evolve_phase(cfg, dev, smi, tmp):
+    """Step 21: the shape-bucketed and evolving searches
+    (``parallel/multiconfig.py``) and the lane kernels past 8 lanes. (a)
+    ``lane_kernel_phase`` at K = 12 (checked, launches counted), 16
+    (also timed, with the library yardsticks) and 32 (timed), and
+    ``scratch_lanes_check`` at 12; (b) ``evolve_search_check``; (c)
+    ``search_commands``; (d) ``mfm``'s lane path at K = 16 and 32
+    (``lane_loop_times``). Returns ({kernel: 21a's numbers at 16}, {path:
+    launches}, {kernel: lane launches})."""
+    from factorized_tpu_torch.data import mosi
+
+    t0 = time.perf_counter()
+    kernels = {}
+    for K in LANES_PAST:
+        kernels[K] = lane_kernel_phase(cfg, dev, smi, K, timing=K != 12,
+                                       library=K == 16)
+    scratch = scratch_lanes_check(cfg, dev, LANES_PAST[0])
+    log({"phase": "lane_kernels_past_8", "nvidia_smi": smi,
+         "scratch": scratch, "seconds": time.perf_counter() - t0})
+    data = mosi.get_data(cfg.seqlength)
+    t0 = time.perf_counter()
+    line, launches, lane = evolve_search_check(cfg, dev, smi, data)
+    log({"phase": "evolve_search", "nvidia_smi": smi, **line,
+         "seconds": time.perf_counter() - t0})
+    paths, lanes = {"evolve_search": launches}, dict(lane)
+    t0 = time.perf_counter()
+    command_paths, command_lanes = search_commands(smi, tmp)
+    paths.update(command_paths)
+    for k, v in command_lanes.items():
+        lanes[k] = lanes.get(k, 0) + v
+    log({"phase": "seconds", "step": "21c", "seconds":
+         time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    times = {str(K): lane_loop_times(cfg, dev, data, K) for K in (16, 32)}
+    log({"phase": "lane_scaling_past_8", "nvidia_smi": smi, "path": "mfm",
+         "by_lanes": times, "seconds": time.perf_counter() - t0})
+    return kernels[16], paths, lanes
 
 
 def profile_steps(program, tree, opt, x, y, gen, steps=10):

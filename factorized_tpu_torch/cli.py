@@ -24,11 +24,16 @@ exported artifact, with ``--autotune`` and ``--export``); ``check``
 (``run_check``: the best metrics of every run log under ``--dir``, the
 port's copy of the JAX package's ``check.py``). ``--seeds K`` above 1
 trains K seeds as lanes of one program on the dataset subcommands and
-``mosi_acc`` (``parallel.multiseed.train_mfm_multiseed``). Each runs on
-the CUDA card unless ``--device`` says otherwise. ``mosi_sdk``,
-``mosei_sdk``, the multi-trait styles ``mosei_sdk`` and ``pom_sdk``,
-``--bucket``, ``--evolve``, and ``--seeds`` above 1 on ``predictor``,
-``test_attention`` and ``multitrait`` exit with "not yet ported".
+``mosi_acc`` (``parallel.multiseed.train_mfm_multiseed``). ``--mode
+search --bucket`` (``run_bucket_search``) and ``--mode search --evolve
+RUNGS`` with ``--cull-frac`` (``run_evolve_search``,
+``run_multitrait_evolve``) train the search's draws as lanes of one
+program, ``--seeds`` lanes a config (``parallel.multiconfig``), on the
+dataset subcommands and ``multitrait``. Each runs on the CUDA card
+unless ``--device`` says otherwise. ``mosi_sdk``, ``mosei_sdk`` and the
+multi-trait styles ``mosei_sdk`` and ``pom_sdk`` exit with "not yet
+ported"; ``predictor`` and ``test_attention`` refuse ``--seeds`` above
+1, ``--bucket`` and ``--evolve`` (each trains one model).
 """
 
 from __future__ import annotations
@@ -91,15 +96,26 @@ def trainer_name(cfg):
     return name
 
 
-def refuse_unported(args, seeds: bool = True):
-    """Exit with "not yet ported" where ``args`` ask for a search strategy
-    the port does not have, or (``seeds``) lanes of seeds on a command
-    that does not take them, before any data loads."""
-    for flag, on in (("--seeds", seeds and args.seeds > 1),
-                     ("--bucket", args.bucket), ("--evolve", args.evolve)):
+def refuse_lane_flags(args):
+    """Exit, before any data loads, where ``args`` ask ``predictor`` or
+    ``test_attention`` for lanes (``--seeds`` above 1, ``--bucket``,
+    ``--evolve``): the command trains one model, and the JAX package's
+    reads none of the three."""
+    for flag, on in (("--seeds", args.seeds > 1), ("--bucket", args.bucket),
+                     ("--evolve", args.evolve)):
         if on:
-            raise SystemExit(f"{flag} is not yet ported (the JAX package's "
-                             f"parallel/multiseed.py and multiconfig.py)")
+            raise SystemExit(f"{flag} does not apply to {args.command}: "
+                             f"the command trains one model (drop {flag})")
+
+
+def refuse_off_search(args):
+    """The JAX package's refusal of ``--bucket``/``--evolve`` outside
+    ``--mode search``, which would never run them."""
+    if args.mode != "search" and (args.evolve or args.bucket):
+        flag = "--evolve" if args.evolve else "--bucket"
+        raise SystemExit(
+            f"{flag} only applies to --mode search (got --mode "
+            f"{args.mode}); add --mode search or drop {flag}")
 
 
 def refuse_sdk(name):
@@ -342,13 +358,18 @@ def run_dataset(args):
     ``mmmo`` (``mfm_mosi.py:403``)."""
     from factorized_tpu_torch import resolve_device
 
-    refuse_unported(args, seeds=False)
+    refuse_off_search(args)
     base = base_config(args)
     if args.mode == "single" and args.seeds <= 1:
         trial_config(args, base)  # a config no ported trainer takes exits
     device = resolve_device(args.device)
     data = load_dataset(args.dataset, base.seqlength, args)
     info = dataset_info(args.dataset, data, args)
+    rng = random.Random(args.seed)
+    if args.mode == "search" and args.evolve:
+        return run_evolve_search(args, data, info, rng, device)
+    if args.mode == "search" and args.bucket:
+        return run_bucket_search(args, data, info, rng, device)
 
     def train(cfg, **kw):
         lr = cfg.lr if info["task"] == "classification" else args.lr
@@ -363,6 +384,153 @@ def run_dataset(args):
 
     return run_trials(args, args.dataset,
                       lambda rng: trial_config(args, base, info, rng), train)
+
+
+def run_bucket_search(args, data, info, rng, device, sample_fn=None,
+                      prefix=None):
+    """``--mode search --bucket``, the JAX package's ``run_bucket_search``:
+    each round draws ``--trials`` configs (0: endless rounds of 16),
+    groups them by shape (``multiconfig.bucket_configs``) and trains each
+    group as one program of configs x ``--seeds`` lanes
+    (``train_config_bucket``), run ids ``<prefix>_r<round>b<bucket>``, one
+    ``config`` record a trial. ``moud``/``you`` take each config's lr,
+    the others ``--lr``. ``sample_fn``/``prefix``: another surface's draw
+    and run ids (``multitrait``)."""
+    from factorized_tpu_torch.config import sample_search_config
+    from factorized_tpu_torch.parallel.multiconfig import (
+        bucket_configs, train_config_bucket)
+    from factorized_tpu_torch.utils.logging import RunLogger
+
+    prefix = prefix or args.dataset
+    if sample_fn is None:
+        def sample_fn():
+            cfg = sample_search_config(args.dataset, rng,
+                                       model_type=args.type,
+                                       missing=args.missing,
+                                       zeros=args.zeros)
+            return cfg.replace(input_dims=info["input_dims"])
+
+    n = args.trials or 16
+    round_i = 0
+    while True:
+        cfgs = [overridden(args, sample_fn()) for _ in range(n)]
+        buckets = bucket_configs(cfgs)
+        print(f"bucket search round {round_i}: {len(cfgs)} configs -> "
+              f"{len(buckets)} shape buckets "
+              f"(sizes {[len(b) for b in buckets]})")
+        for bi, idxs in enumerate(buckets):
+            bucket = [cfgs[i] for i in idxs]
+            logger = RunLogger(args.out, run_id=f"{prefix}_r{round_i}b{bi}")
+            for c in bucket:
+                logger.record("config", **c.to_dict())
+            kw = dict(logger=logger, seed=args.seed + round_i,
+                      seeds_per_config=max(args.seeds, 1), device=device)
+            if info["task"] == "classification":
+                kw["use_config_lr"] = True
+            else:
+                kw["lr"] = args.lr
+            if info["threshold"] is not None:
+                kw.update(binary_threshold=info["threshold"],
+                          threshold_mode=info["mode"])
+            try:
+                train_config_bucket(*data, bucket, **kw)
+            finally:
+                logger.close()
+        round_i += 1
+        if args.trials:
+            break
+    return 0
+
+
+def _evolve_rounds(args, data, dataset, rng, make_template, prefix,
+                   best_str, device, extra_kw=None, meta_extra=None):
+    """The round loop of every ``--evolve`` surface, the JAX package's
+    ``_evolve_rounds``: each round draws a template (``--epochs`` and
+    ``--batchsize`` applied) and runs ``--evolve`` rungs over ``--trials``
+    configs (0: endless rounds of 16) x ``--seeds`` lanes
+    (``train_evolving_search``), run id ``<prefix>_evolve<round>``, its
+    log opening with a ``search_meta`` record; ``--ckpt-every`` snapshots
+    at every rung boundary into ``<out>/ckpt_auto_<prefix>_evolve<round>``
+    and ``--resume`` restores round 0."""
+    from factorized_tpu_torch.parallel.multiconfig import (
+        train_evolving_search)
+    from factorized_tpu_torch.utils.logging import RunLogger
+
+    n = args.trials or 16
+    round_i = 0
+    while True:
+        template = overridden(args, make_template())
+        logger = RunLogger(args.out, run_id=f"{prefix}_evolve{round_i}")
+        # "search_meta", not "config": check counts "config" records as
+        # trials, and the search logs one per explored config
+        logger.record("search_meta", evolve_rungs=args.evolve,
+                      cull_frac=args.cull_frac, n_configs=n,
+                      template=template.to_dict(), **(meta_extra or {}))
+        kw = dict(n_configs=n, rungs=args.evolve, cull_frac=args.cull_frac,
+                  rng=rng, logger=logger, seed=args.seed + round_i,
+                  seeds_per_config=max(args.seeds, 1), device=device)
+        if args.ckpt_every:
+            # a rung boundary is the only point where the state holds
+            kw["ckpt_dir"] = f"{args.out}/ckpt_auto_{prefix}_evolve{round_i}"
+        if args.resume and round_i == 0:
+            kw["resume_from"] = args.resume
+        kw.update(extra_kw or {})
+        try:
+            res = train_evolving_search(*data, template, dataset, **kw)
+        finally:
+            logger.close()
+        print(f"{prefix} evolve round {round_i}: explored "
+              f"{res['explored_configs']} configs over {args.evolve} "
+              f"rungs; best {best_str(res)} (rung {res['best']['rung']})")
+        round_i += 1
+        if args.trials:
+            break
+    return 0
+
+
+def run_evolve_search(args, data, info, rng, device):
+    """``--mode search --evolve RUNGS`` on a dataset subcommand, the JAX
+    package's ``run_evolve_search``: the template a draw of the dataset's
+    space, ``moud``/``you`` each config's lr and the others ``--lr``, the
+    dataset's threshold."""
+    from factorized_tpu_torch.config import sample_search_config
+
+    def make_template():
+        t = sample_search_config(args.dataset, rng, model_type=args.type,
+                                 missing=args.missing, zeros=args.zeros)
+        return t.replace(input_dims=info["input_dims"])
+
+    extra = ({"use_config_lr": True} if info["task"] == "classification"
+             else {"lr": args.lr})
+    if info["threshold"] is not None:
+        extra.update(binary_threshold=info["threshold"],
+                     threshold_mode=info["mode"])
+    return _evolve_rounds(args, data, args.dataset, rng, make_template,
+                          args.dataset,
+                          lambda res: str(res["best"]["metrics"]), device,
+                          extra_kw=extra)
+
+
+def run_multitrait_evolve(args, data, input_dims, rng, device):
+    """``multitrait --mode search --evolve RUNGS``, the JAX package's
+    ``run_multitrait_evolve``: draws of the ``mmmo`` space with a vector
+    head of the set's traits, ranked by the mean test MAE over the
+    traits, at ``--lr``."""
+    import numpy as np
+
+    from factorized_tpu_torch.config import sample_search_config
+
+    n_traits = int(np.asarray(data[1]).shape[1])
+
+    def make_template():
+        return sample_search_config("mmmo", rng, model_type=args.type).replace(
+            input_dims=list(input_dims), task="regression",
+            output_dim=n_traits)
+
+    return _evolve_rounds(
+        args, data, "mmmo", rng, make_template, args.style,
+        lambda res: f"mean-MAE {res['best']['metrics']['mae_mean']:.4f}",
+        device, extra_kw={"lr": args.lr}, meta_extra={"style": args.style})
 
 
 def run_mosi_acc(args):
@@ -384,7 +552,13 @@ def run_mosi_acc(args):
                                              best_acc_mosi_config,
                                              sample_search_config)
 
-    refuse_unported(args, seeds=False)
+    if args.evolve or args.bucket:
+        flag = "--evolve" if args.evolve else "--bucket"
+        raise SystemExit(
+            f"{flag} is not wired to the mosi_acc surface; use the "
+            "dataset subcommands (e.g. `mosi --mode search "
+            f"{flag} ...`) or scripts/release_best.py --evolve for the "
+            "classification search")
     base = (MFMConfig.from_json(args.config) if args.config
             else best_acc_mosi_config())
     device = resolve_device(args.device)
@@ -433,7 +607,7 @@ def run_predictor(args):
                                              best_mfn_mosi_config,
                                              sample_search_config)
 
-    refuse_unported(args)
+    refuse_lane_flags(args)
     refuse_sdk(args.dataset)
     if args.save_ckpt and args.kind != "mfn":
         raise SystemExit(
@@ -475,11 +649,13 @@ def run_test_attention(args):
     through ``trainers.train_predictor`` at a default ``MFMConfig`` of
     MOSI's input dims, batch ``--batchsize`` (128) and ``--epochs`` (100),
     width ``--hidden``, dropout 0.5 and lr ``--lr`` (0.01), under the run
-    id ``self_attention``."""
+    id ``self_attention``; ``--seeds`` above 1, ``--bucket`` and
+    ``--evolve`` are refused before any load (one model)."""
     from factorized_tpu_torch import resolve_device, trainers
     from factorized_tpu_torch.config import MFMConfig
     from factorized_tpu_torch.utils.logging import RunLogger
 
+    refuse_lane_flags(args)
     device = resolve_device(args.device)
     data = load_dataset("mosi", 20, args)
     cfg = MFMConfig(input_dims=dataset_info("mosi", data, args)["input_dims"],
@@ -505,12 +681,17 @@ def run_multitrait(args):
     defaults at seqlength 20) in ``--mode single``, each of ``--type``
     with the set's input dims, then ``--epochs`` and ``--batchsize``;
     trained by ``trainers.train_mfm_multitrait`` at ``--lr`` (1e-3 by
-    default). ``--feature-selection 0`` and ``--normalize-covarep`` are
-    refused before any load, as are the styles read from the SDK's .csd
-    files (``mosei_sdk``, ``pom_sdk``), ``--seeds`` above 1, ``--bucket``
-    and ``--evolve`` ("not yet ported"). ``--save-ckpt`` writes
-    ``<out>/ckpt_<style>_<trial>`` with the output dim the run trained
-    (the number of traits), so ``serve`` replies one column a trait."""
+    default). ``--mode search --evolve RUNGS`` runs
+    ``run_multitrait_evolve`` and ``--mode search --bucket``
+    ``run_bucket_search`` over draws of the ``mmmo`` space with a vector
+    head (``--seeds`` lanes a config). Refused before any load, with the
+    JAX package's words: ``--feature-selection 0`` and
+    ``--normalize-covarep``, ``--bucket``/``--evolve`` outside ``--mode
+    search`` and ``--seeds`` above 1 without them; and the styles read
+    from the SDK's .csd files (``mosei_sdk``, ``pom_sdk``: "not yet
+    ported"). ``--save-ckpt`` writes ``<out>/ckpt_<style>_<trial>`` with
+    the output dim the run trained (the number of traits), so ``serve``
+    replies one column a trait."""
     import numpy as np
 
     from factorized_tpu_torch import resolve_device, trainers
@@ -523,13 +704,37 @@ def run_multitrait(args):
             "--feature-selection 0/--normalize-covarep only apply to "
             "the mosi dataset (reference mfm_mosi.py:37,60-73); the "
             "multitrait surface has no raw-feature path")
-    refuse_unported(args)
+    refuse_off_search(args)
+    if args.seeds > 1 and not (args.mode == "search"
+                               and (args.bucket or args.evolve)):
+        raise SystemExit(
+            f"--seeds {args.seeds} on the multitrait surface only "
+            "applies to --mode search with --bucket or --evolve "
+            "(those lanes run seeds_per_config); other modes train "
+            "one seed - drop --seeds or add --bucket/--evolve")
     refuse_sdk(args.style)
     base = base_config(args)
     device = resolve_device(args.device)
     data = multitrait.get_data(base.seqlength, data_root=args.data_root,
                                style=args.style)
     n_traits = int(np.asarray(data[1]).shape[1])
+    rng = random.Random(args.seed)
+    if args.mode == "search" and args.evolve:
+        return run_multitrait_evolve(args, data, multitrait.INPUT_DIMS, rng,
+                                     device)
+    if args.mode == "search" and args.bucket:
+        info = dict(task="regression", threshold=None, mode="ge",
+                    input_dims=list(multitrait.INPUT_DIMS),
+                    output_dim=n_traits)
+
+        def sample_mt():
+            return sample_search_config("mmmo", rng,
+                                        model_type=args.type).replace(
+                input_dims=list(multitrait.INPUT_DIMS), task="regression",
+                output_dim=n_traits)
+
+        return run_bucket_search(args, data, info, rng, device,
+                                 sample_fn=sample_mt, prefix=args.style)
 
     def config_of(rng):
         if args.mode == "search":
@@ -554,9 +759,13 @@ def run_multitrait(args):
 
 
 def run_test_mosi(args):
-    """Score a checkpoint on the MOSI test set (synthetic when the real
-    files are absent, as ``mosi``): regression, or classification of the
-    binarized sentiment ``y >= 0``; then the latency probe and the
+    """Score a checkpoint on the MOSI test set, loaded as ``mosi`` loads it
+    (``load_dataset``: the files under ``--data-root`` with
+    ``--feature-selection`` and ``--normalize-covarep``, else the
+    synthetic set) at t = 20, as the JAX package's ``run_test_mosi``; a
+    checkpoint trained at another seqlength is scored at its own (the JAX
+    command would feed it 20 steps): regression, or classification of
+    the binarized sentiment ``y >= 0``; then the latency probe and the
     on-device latency, one JSON line each."""
     import numpy as np
 
@@ -565,7 +774,8 @@ def run_test_mosi(args):
                                                     score_regression)
 
     predictor = Predictor.from_checkpoint(args.checkpoint, device=args.device)
-    _, _, _, _, X_test, y_test = load_mosi(predictor.cfg.seqlength)
+    _, _, _, _, X_test, y_test = load_dataset("mosi", predictor.cfg.seqlength,
+                                              args)
     if args.autotune:
         tuned = predictor.autotune(X_test)
         print("autotuned batch sizes:", json.dumps(tuned),
@@ -633,6 +843,22 @@ def run_check(args):
     return 0
 
 
+def add_data_args(sp):
+    """``--data-root``, ``--feature-selection`` and
+    ``--normalize-covarep``: how ``load_dataset`` reads the data."""
+    sp.add_argument("--data-root", default=None,
+                    help="the dataset's files (the reference's layout); "
+                         "the synthetic set where it is not a directory")
+    sp.add_argument("--feature-selection", type=int, choices=(0, 1),
+                    default=1, metavar="{0,1}",
+                    help="mosi only: 1 the fs mask's covarep and facet "
+                         "columns (default); 0 raw covarep columns 1:35 "
+                         "and the whole facet (mfm_mosi.py:37,60-73)")
+    sp.add_argument("--normalize-covarep", action="store_true",
+                    help="mosi only: max-abs normalise covarep by train "
+                         "statistics, as the reference's get_data_missing")
+
+
 def add_training_args(sp):
     """The arguments of the dataset subcommands, ``mosi_acc``,
     ``predictor``, ``test_attention`` and ``multitrait``."""
@@ -664,17 +890,7 @@ def add_training_args(sp):
                          "predictor this, else the config's, else 0.01; "
                          "test_attention this, else 0.01")
     sp.add_argument("--seed", type=int, default=123)
-    sp.add_argument("--data-root", default=None,
-                    help="the dataset's files (the reference's layout); "
-                         "the synthetic set where it is not a directory")
-    sp.add_argument("--feature-selection", type=int, choices=(0, 1),
-                    default=1, metavar="{0,1}",
-                    help="mosi only: 1 the fs mask's covarep and facet "
-                         "columns (default); 0 raw covarep columns 1:35 "
-                         "and the whole facet (mfm_mosi.py:37,60-73)")
-    sp.add_argument("--normalize-covarep", action="store_true",
-                    help="mosi only: max-abs normalise covarep by train "
-                         "statistics, as the reference's get_data_missing")
+    add_data_args(sp)
     sp.add_argument("--out", default="runs",
                     help="directory of the JSONL logs and the checkpoints")
     sp.add_argument("--save-ckpt", action="store_true",
@@ -689,12 +905,24 @@ def add_training_args(sp):
     sp.add_argument("--seeds", type=int, default=1,
                     help="train K seeds of each trial's config as lanes "
                          "of one program (the dataset subcommands and "
-                         "mosi_acc; above 1 exits on the others)")
+                         "mosi_acc); with --bucket/--evolve the lanes of "
+                         "each config (multitrait too); predictor and "
+                         "test_attention refuse it")
     sp.add_argument("--bucket", action="store_true",
-                    help="shape-bucketed search: not yet ported (exits)")
+                    help="with --mode search: group the --trials draws by "
+                         "shape and train each group as one program of "
+                         "configs x --seeds lanes, each lane its own "
+                         "dropouts, loss weights and lr (the dataset "
+                         "subcommands and multitrait)")
     sp.add_argument("--evolve", type=int, default=0, metavar="RUNGS",
-                    help="successive-halving search: not yet ported "
-                         "(above 0 exits)")
+                    help="with --mode search: successive halving over one "
+                         "drawn shape, --trials configs x --seeds lanes, "
+                         "RUNGS rungs of --epochs, the worst --cull-frac "
+                         "of the configs re-drawn in place each rung (the "
+                         "dataset subcommands and multitrait)")
+    sp.add_argument("--cull-frac", type=float, default=0.5,
+                    help="share of the configs re-drawn each --evolve "
+                         "rung (default 0.5)")
     sp.add_argument("--device", default=None,
                     help="torch device; the CUDA card unless given "
                          "(e.g. --device cpu)")
@@ -767,6 +995,7 @@ def build_parser():
                          "save_checkpoint")
     sp.add_argument("--autotune", action="store_true",
                     help="pick the serving batch size by throughput")
+    add_data_args(sp)
     sp.add_argument("--device", default=None,
                     help="torch device; the CUDA card unless given "
                          "(e.g. --device cpu)")

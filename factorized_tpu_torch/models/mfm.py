@@ -42,7 +42,8 @@ from factorized_tpu_torch.models.common import (
     yhead_apply,
     yhead_init,
 )
-from factorized_tpu_torch.ops.core import dropout, linear_apply, linear_init
+from factorized_tpu_torch.ops.core import (dropout, linear_apply, linear_init,
+                                           rate_active)
 from factorized_tpu_torch.ops.fused import (blockdiag, decoder_operands,
                                             encode_operands,
                                             fused_decoder_scan,
@@ -74,7 +75,7 @@ def _zf_all(params, zy, zl, za, zv, cfg=None, *, train=False,
 
     h = torch.relu(torch.cat([zy, zl, za, zv], dim=1) @ w1 + b1)
     rates = zf_drops(cfg) if train else (0.0,) * 4
-    if any(r > 0.0 for r in rates):
+    if any(rate_active(r, train) for r in rates):
         masks = masks or (None,) * 4
         h = torch.cat([dropout(part, rate, True, generator, m)
                        for part, rate, m in zip(split_heads(h, f_dims),

@@ -33,11 +33,33 @@ def linear_apply(params, x):
     return x @ params["w"] + params["b"]
 
 
-def dropout_mask(generator: torch.Generator, shape, rate: float):
+def rate_is_static(rate) -> bool:
+    """True where a dropout rate is a plain python number; False for a
+    tensor (a lane's rate under ``torch.func.vmap`` in the config-bucketed
+    search, ``parallel/multiconfig.py``). The JAX package's
+    ``rate_is_static``."""
+    return isinstance(rate, (int, float))
+
+
+def rate_active(rate, train: bool) -> bool:
+    """Whether a dropout site runs: always for a tensor rate (its value is
+    the lane's, known only at run time), else only above 0."""
+    return bool(train) and (not rate_is_static(rate) or rate > 0.0)
+
+
+def dropout_mask(generator: torch.Generator, shape, rate):
     """The scaled keep-mask of inverted dropout, drawn on the generator's
-    device: ``1 / keep`` where kept, else 0; all ones at rate <= 0 and
-    all zeros at rate >= 1 (as torch's ``nn.Dropout``)."""
+    device: ``1 / keep`` where kept, else 0. A float rate gives all ones
+    at rate <= 0 (nothing drawn) and all zeros at rate >= 1 (as torch's
+    ``nn.Dropout``). A tensor rate always draws: at 0 the mask is exactly
+    ones (keep 1, scale 1), at 1 or more exactly zeros (the keep floor
+    of 1e-6 lets a draw survive, and its scale is then 0, not 1e6)."""
     device = generator.device
+    if not rate_is_static(rate):
+        keep = torch.clamp(1.0 - rate, min=1e-6)
+        kept = torch.rand(shape, generator=generator, device=device) < keep
+        scale = torch.where(rate >= 1.0, torch.zeros_like(keep), 1.0 / keep)
+        return kept.to(torch.float32) * scale
     if rate <= 0.0:
         return torch.ones(shape, dtype=torch.float32, device=device)
     if rate >= 1.0:
@@ -47,14 +69,16 @@ def dropout_mask(generator: torch.Generator, shape, rate: float):
     return kept.to(torch.float32) * (1.0 / keep)
 
 
-def dropout(x, rate: float, train: bool, generator=None, mask=None):
-    """Inverted dropout with a static (python float) rate: a no-op in
-    eval mode or at rate <= 0, all zeros at rate >= 1, else ``x * mask``
-    with ``mask`` the scaled keep-mask of ``dropout_mask``, drawn from
-    ``generator`` unless handed in (the injection point of the draw)."""
-    if not train or rate <= 0.0:
+def dropout(x, rate, train: bool, generator=None, mask=None):
+    """Inverted dropout: a no-op in eval mode, else ``x * mask`` with
+    ``mask`` the scaled keep-mask of ``dropout_mask``, drawn from
+    ``generator`` unless handed in (the injection point of the draw). A
+    float rate (static) is a no-op at rate <= 0 and gives zeros at rate
+    >= 1; a tensor rate (the JAX package's traced one) always runs the
+    site, and its rate 0 gives ``x`` exactly."""
+    if not rate_active(rate, train):
         return x
-    if rate >= 1.0:
+    if rate_is_static(rate) and rate >= 1.0:
         return torch.zeros_like(x)
     if mask is None:
         if generator is None:

@@ -209,8 +209,11 @@ def delta_layout(weights):
 
 def make_dropout_masks(generator, t: int, n: int, sizes, drops):
     """(t, n, sum(sizes)) scaled keep-masks in the site order att1, att2,
-    gamma1, gamma2, on the generator's device; rate-0 sites are all
-    ones (JAX: ``pallas_mfn.make_dropout_masks``)."""
+    gamma1, gamma2, on the generator's device; a float rate of 0 gives
+    all ones. A rate may be a tensor, a lane's own under
+    ``torch.func.vmap`` (the config-bucketed search): its site always
+    draws, exactly all ones at 0 and zeros at 1 (``core.dropout_mask``;
+    JAX: ``pallas_mfn.make_dropout_masks``)."""
     return torch.cat([dropout_mask(generator, (t, n, s), rate)
                       for s, rate in zip(sizes, drops)], dim=2)
 

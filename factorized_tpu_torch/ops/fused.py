@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
+from factorized_tpu_torch.ops.core import rate_active
 from factorized_tpu_torch.ops.lstm import lstm_step
 
 
@@ -226,8 +227,9 @@ def fused_mfm_encode(enc_cells, mfn_params, x_l, x_a, x_v, *, mem_dim,
     by default MFM's three unimodal encoders over the modalities), the
     MFN's 3 modality LSTMs and the delta-memory attention — as one
     recurrence; with no encoder cell it is the MFN alone
-    (``ops.mfn.mfn_apply``). In train mode with a nonzero rate among
-    ``drops`` (att1, att2, gamma1, gamma2) the dropout masks are ``masks``
+    (``ops.mfn.mfn_apply``). In train mode with a site among ``drops``
+    (att1, att2, gamma1, gamma2) that runs (``core.rate_active``: a float
+    above 0, or a lane's tensor rate) the dropout masks are ``masks``
     when handed in (the injection point), else drawn from ``generator``
     by ``cuda_mfn.make_dropout_masks``. Gradients reach the per-cell
     weights through the packing, which is plain PyTorch; ``bwd_variant``
@@ -235,7 +237,7 @@ def fused_mfm_encode(enc_cells, mfn_params, x_l, x_a, x_v, *, mem_dim,
     Returns ([the k encoders' last h], mfn_last_hs)."""
     xp, weights, z_tot, h_dims = encode_operands(enc_cells, mfn_params,
                                                  x_l, x_a, x_v, enc_xs)
-    if train and any(d > 0.0 for d in drops):
+    if any(rate_active(d, train) for d in drops):
         if masks is None:
             if generator is None:
                 raise ValueError("train-mode encode needs a torch.Generator "

@@ -71,6 +71,27 @@ def _run_seed(*tags):
     return int(np.random.SeedSequence(list(tags)).generate_state(1)[0])
 
 
+def data_fingerprint(X_train, X_valid, X_test, device, y_train=None,
+                     y_valid=None, y_test=None):
+    """A cheap identity of the dataset arrays and the device (the JAX
+    package's ``data_fingerprint``, the device in the mesh's place): each
+    array's shape and dtype with a hash of its first two rows, the labels
+    hashed whole."""
+    import hashlib
+
+    def sig(a, full=False):
+        if a is None:
+            return None
+        a = np.asarray(a)
+        sample = a if full else a[:2]
+        probe = np.ascontiguousarray(sample).tobytes() if a.size else b""
+        return (tuple(a.shape), str(a.dtype),
+                hashlib.sha1(probe).hexdigest()[:16])
+
+    return (sig(X_train), sig(X_valid), sig(X_test), sig(y_train, True),
+            sig(y_valid, True), sig(y_test, True), str(device))
+
+
 def prepare_bucket_data(X_train, y_train, X_valid, y_valid, X_test, y_test,
                         rep, *, seed: int = 123, device=None):
     """The dataset on the device once for the lane programs: the training
@@ -78,8 +99,10 @@ def prepare_bucket_data(X_train, y_train, X_valid, y_valid, X_test, y_test,
     ``rep.batchsize`` (no remainder batch), the validation and test sets
     time-major, the labels int32 for classification and float32
     otherwise. Returns {"Xb", "yb", "Xv", "yv", "Xte"} on the device,
-    "yte" on the host, and "seed", "batchsize", "task"."""
+    "yte" on the host, and "seed", "batchsize", "task" and the arrays'
+    ``data_fingerprint``."""
     dev = resolve_device(device)
+    arrays = (X_train, X_valid, X_test, y_train, y_valid, y_test)
     X_train, y_train = shuffle_and_time_major(X_train, y_train, seed)
     Xv = np.ascontiguousarray(np.asarray(X_valid).swapaxes(0, 1), np.float32)
     Xte = np.ascontiguousarray(np.asarray(X_test).swapaxes(0, 1), np.float32)
@@ -92,9 +115,12 @@ def prepare_bucket_data(X_train, y_train, X_valid, y_valid, X_test, y_test,
     def on(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    return {"Xb": on(Xb), "yb": on(yb), "Xv": on(Xv), "yv": on(yv),
+    Xb = on(Xb)
+    return {"Xb": Xb, "yb": on(yb), "Xv": on(Xv), "yv": on(yv),
             "Xte": on(Xte), "yte": yte, "seed": seed,
-            "batchsize": rep.batchsize, "task": rep.task}
+            "batchsize": rep.batchsize, "task": rep.task,
+            "fingerprint": data_fingerprint(*arrays[:3], Xb.device,
+                                            *arrays[3:])}
 
 
 def init_lanes(name: str, cfg, seed: int, n_seeds: int, device=None):
@@ -122,6 +148,17 @@ def take_lane(tree, k: int):
     return pytree.tree_map(lambda a: a[k].detach().cpu().clone(), tree)
 
 
+def take_lanes(tree, idxs):
+    """Lanes ``idxs`` (a sequence or an index tensor) of a tree of ``(K,
+    ...)`` leaves: a tree of ``(len(idxs), ...)`` leaves on the tree's
+    device (the JAX package's ``_take_lanes``)."""
+    def take(a):
+        idx = torch.as_tensor(idxs, dtype=torch.long).to(a.device)
+        return a.detach().index_select(0, idx)
+
+    return pytree.tree_map(take, tree)
+
+
 def _dims(tree):
     """vmap's in_dims for a tree of per-lane tensors (None leaves
     unbatched)."""
@@ -135,7 +172,11 @@ class LanePrograms:
     ``epoch``, ``evaluate`` (each lane's validation metric: its label
     loss, or with ``valid_metric="accuracy"`` its accuracy), ``predict``
     (each lane's y_hat in chunks of ``PREDICT_CHUNK`` rows) and
-    ``select``. ``generator`` gives every draw (see the module's doc)."""
+    ``select``. ``generator`` gives every draw (see the module's doc).
+    ``step`` and ``epoch`` take an optional ``(K, n_hp)`` matrix of lane
+    values, lane k's row handed to ``lane_loss`` under vmap (the
+    config-bucketed search's ``multiconfig.ConfigBucketProgram``); the
+    evaluation and the predict stay on ``cfg``."""
 
     def __init__(self, apply_fn, cfg, generator, valid_metric="loss"):
         if valid_metric not in ("loss", "accuracy"):
@@ -150,19 +191,26 @@ class LanePrograms:
     def _vmap(self, fn, in_dims):
         return torch.func.vmap(fn, in_dims=in_dims, randomness="different")
 
-    def step(self, params, optimizer, x, y, draws=None):
+    def lane_loss(self, hp):
+        """The loss of a lane whose values are ``hp`` (None: ``cfg``'s)."""
+        return self.loss_fn
+
+    def step(self, params, optimizer, x, y, draws=None, hps=None):
         """One Adam step of every lane on the shared batch (x, y): the
         lanes' losses summed, so each lane's gradient is its own loss's.
         ``draws``: the apply function's injected draws with a lane
-        dimension in front (else drawn). Returns the (K,) tracked
+        dimension in front (else drawn); ``hps``: the ``(K, n_hp)`` lane
+        values (else every lane ``cfg``'s). Returns the (K,) tracked
         losses."""
-        def lane(p, x, y, d):
-            return self.loss_fn(p, x, y, generator=self.generator, draws=d)
+        def lane(p, x, y, d, hp):
+            return self.lane_loss(hp)(p, x, y, generator=self.generator,
+                                      draws=d)
 
         optimizer.zero_grad()
         draws = draws or {}
-        loss, tracked = self._vmap(lane, (0, None, None, _dims(draws)))(
-            params, x, y, draws)
+        loss, tracked = self._vmap(
+            lane, (0, None, None, _dims(draws), None if hps is None else 0))(
+            params, x, y, draws, hps)
         with warnings.catch_warnings():
             # each leaf's gradient is its lane-major view of the optimizer's
             # (K, P) buffer, added into in place as the leaf's layout is
@@ -172,13 +220,13 @@ class LanePrograms:
         optimizer.step()
         return tracked.detach()
 
-    def epoch(self, params, optimizer, Xb, yb):
-        """The nb steps over ``Xb[i]``, ``yb[i]``: the (K,) mean tracked
-        loss."""
+    def epoch(self, params, optimizer, Xb, yb, hps=None):
+        """The nb steps over ``Xb[i]``, ``yb[i]`` (``hps`` as ``step``'s):
+        the (K,) mean tracked loss."""
         acc = torch.zeros(optimizer.lanes, dtype=torch.float32,
                           device=Xb.device)
         for x, y in zip(Xb, yb):
-            acc = acc + self.step(params, optimizer, x, y)
+            acc = acc + self.step(params, optimizer, x, y, hps=hps)
         return acc / Xb.shape[0]
 
     def y_hat(self, params, x, generator=None):
@@ -236,14 +284,18 @@ class LaneLoop:
     then a row (tracked, valid, lr), float64 over the lanes, into
     ``records``. On a CUDA card the body is a ``Graphed``: the first
     epoch eager, each later one a replay; on the CPU it runs eagerly.
-    ``epoch_launches`` holds each epoch's kernel launches."""
+    ``epoch_launches`` holds each epoch's kernel launches. ``hps``: a
+    ``(K, n_hp)`` device matrix of lane values that the steps read (the
+    graph reads the buffer, so values written into it in place take
+    effect at the next replay)."""
 
     def __init__(self, programs, params, optimizer, Xb, yb, Xv, yv, *,
-                 epochs, valid_metric="loss"):
+                 epochs, valid_metric="loss", hps=None):
         dev = optimizer.flat.device
         K = optimizer.lanes
         self.programs, self.params, self.opt = programs, params, optimizer
         self.batches, self.valid_set = (Xb, yb), (Xv, yv)
+        self.hps = hps
         self.acc_mode = valid_metric == "accuracy"
         inf = -math.inf if self.acc_mode else math.inf
         self.best = torch.full((K,), inf, dtype=torch.float32, device=dev)
@@ -264,7 +316,8 @@ class LaneLoop:
 
     def body(self):
         (Xb, yb), (Xv, yv) = self.batches, self.valid_set
-        tracked = self.programs.epoch(self.params, self.opt, Xb, yb)
+        tracked = self.programs.epoch(self.params, self.opt, Xb, yb,
+                                      self.hps)
         valids = self.programs.evaluate(self.params, Xv, yv)
         with torch.no_grad():
             better = (valids >= self.best if self.acc_mode

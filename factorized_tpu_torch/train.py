@@ -371,7 +371,10 @@ class LaneAdam(FlatAdam):
     are views too. ``lr`` is a ``(K,)`` float32 device vector, one lr a
     lane, as the JAX package's ``(K,)`` lr argument; the update is
     ``FlatAdam``'s, element for element, with lane k's row scaled by
-    ``lr[k]``. The lanes step together: one count."""
+    ``lr[k]``. Each lane keeps its own step count (``count`` is ``(K,)``,
+    the JAX package's ``vmap(optimizer.init)``), so ``reset_lanes`` can
+    restart a lane (a recycled trial of the evolving search) at count 0
+    while the others step on."""
 
     def __init__(self, params, lrs):
         self.params = params
@@ -392,7 +395,7 @@ class LaneAdam(FlatAdam):
         self.grad = torch.zeros((K, n), dtype=torch.float32, device=dev)
         self.lr = torch.as_tensor(lrs, dtype=torch.float32).reshape(-1).to(
             dev).expand(K).clone()
-        self.count = torch.zeros((), dtype=torch.int32, device=dev)
+        self.count = torch.zeros(K, dtype=torch.int32, device=dev)
         at = 0
         with torch.no_grad():
             for leaf in ls:
@@ -410,32 +413,42 @@ class LaneAdam(FlatAdam):
 
     @torch.no_grad()
     def step(self):
-        """``FlatAdam.step`` with lane k's row of the update scaled by
-        ``lr[k]``."""
+        """``FlatAdam.step`` with lane k's row bias-corrected by its own
+        count and scaled by ``lr[k]``."""
         g = self.grad
         self.mu.mul_(self.B1).add_(g, alpha=1.0 - self.B1)
         self.nu.mul_(self.B2).addcmul_(g, g, value=1.0 - self.B2)
         self.count.add_(1)
-        c = self.count.to(torch.float32)
+        c = self.count.to(torch.float32)[:, None]
         mu_hat = self.mu / (1.0 - self.B1 ** c)
         nu_hat = self.nu / (1.0 - self.B2 ** c)
         u = mu_hat.div_(nu_hat.sqrt_().add_(self.EPS))
         self.flat.sub_(u.mul_(self.lr[:, None]))
 
+    @torch.no_grad()
+    def reset_lanes(self, lanes):
+        """Lanes ``lanes`` (a sequence or a device index tensor) back to a
+        fresh Adam: their moments and counts zeroed in place, the other
+        lanes untouched (the JAX package's ``opt.init`` of a recycled
+        lane)."""
+        idx = torch.as_tensor(lanes, dtype=torch.long).to(self.flat.device)
+        for buf in (self.mu, self.nu, self.count):
+            buf.index_fill_(0, idx, 0)
+
     def flatten(self, tree):
-        """A tree of ``(K, ...)`` leaves shaped like ``params`` as one
-        ``(K, P)`` matrix like ``flat``."""
+        """A tree of ``(J, ...)`` leaves shaped like ``params`` but for
+        the lane count as one ``(J, P)`` matrix like ``flat``'s rows."""
         def walk(like, t):
             if isinstance(like, dict):
                 return [x for k, v in like.items() for x in walk(v, t[k])]
-            return [t.detach().reshape(self.lanes, -1)]
+            return [t.detach().reshape(t.shape[0], -1)]
 
         return torch.cat(walk(self.params, tree), dim=1).to(
             self.flat.device)
 
     def tree_of(self, mat):
-        """A ``(K, P)`` matrix like ``flat`` as a tree shaped like
-        ``params``, each leaf a copy."""
+        """A ``(J, P)`` matrix of rows like ``flat``'s as a tree shaped
+        like ``params`` but for the lane count, each leaf a copy."""
         def build(tree, at):
             out = {}
             for k, v in tree.items():
@@ -443,15 +456,16 @@ class LaneAdam(FlatAdam):
                     out[k], at = build(v, at)
                 else:
                     m = v[0].numel()
-                    out[k] = mat[:, at:at + m].reshape(v.shape).clone()
+                    out[k] = mat[:, at:at + m].reshape(
+                        (mat.shape[0], *v.shape[1:])).clone()
                     at += m
             return out, at
 
         return build(self.params, 0)[0]
 
     def state_dict(self):
-        """The count, each lane's moments (``(K, P)``) and the lanes'
-        lrs, copies."""
+        """Each lane's count (``(K,)``) and moments (``(K, P)``) and the
+        lanes' lrs, copies."""
         return {"state": {"count": self.count.clone(),
                           **{k: v.clone() for k, v in self.slots.items()}},
                 "lr": [float(v) for v in self.lr]}
@@ -465,7 +479,9 @@ class LaneAdam(FlatAdam):
                 raise ValueError(f"{name} is {tuple(st[name].shape)}, this "
                                  f"optimizer's {tuple(buf.shape)}")
             buf.copy_(st[name])
-        self.count.copy_(torch.as_tensor(st["count"]).reshape(()))
+        # a snapshot from before the per-lane counts holds one for all
+        self.count.copy_(torch.as_tensor(st["count"]).reshape(-1).expand(
+            self.lanes))
         self.set_lr(state_dict["lr"])
         if params is not None:
             flat = self.flatten(params)

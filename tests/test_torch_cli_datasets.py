@@ -12,9 +12,10 @@ arrays:
 - ``--type s2s|bm --missing 1`` reaching ``train_seq2seq`` /
   ``train_basic_missing`` as the JAX package's dispatch does (``s2s``
   without the threshold);
-- ``mosi_sdk``, ``mosei_sdk``, ``--bucket`` and ``--evolve`` (with
-  ``--seeds 2`` too, which the lanes of seeds otherwise take) exiting
-  with "not yet ported" before any data loads.
+- ``mosi_sdk`` and ``mosei_sdk`` exiting with "not yet ported" and
+  ``mosi_acc --evolve`` with the JAX package's refusal, before any data
+  loads; ``--mode search --bucket`` and ``--evolve`` (with ``--seeds
+  2`` too) reaching the bucket and evolving trainers.
 
 Exact equality throughout: nothing here is computed in floating point."""
 
@@ -158,22 +159,61 @@ def test_missing_baselines_reach_their_trainers(command, model_type,
     assert "include_remainder" not in kw
 
 
-@pytest.mark.parametrize("argv", [
-    ["mosi_sdk", "--mode", "best"],
-    ["mosei_sdk"],
-    ["moud", "--seeds", "2", "--mode", "search", "--bucket"],
-    ["mosi_acc", "--seeds", "2", "--mode", "search", "--evolve", "2"],
-    ["you", "--mode", "search", "--bucket"],
-    ["mmmo", "--mode", "search", "--evolve", "2"],
+# argv, then the refusal's words before any load, or None where the
+# command now runs: the search's trainer then gets the draws
+@pytest.mark.parametrize("argv,refusal", [
+    (["mosi_sdk", "--mode", "best"], "not yet ported"),
+    (["mosei_sdk"], "not yet ported"),
+    (["moud", "--seeds", "2", "--mode", "search", "--bucket"], None),
+    (["mosi_acc", "--seeds", "2", "--mode", "search", "--evolve", "2"],
+     "is not wired to the mosi_acc surface"),
+    (["you", "--mode", "search", "--bucket"], None),
+    (["mmmo", "--mode", "search", "--evolve", "2"], None),
 ], ids=["mosi_sdk", "mosei_sdk", "moud_seeds", "mosi_acc_seeds", "bucket",
         "evolve"])
-def test_what_is_not_ported_exits_before_loading(argv, monkeypatch):
-    def load(*a, **kw):
-        raise AssertionError("the data loaded before the refusal")
+def test_what_is_not_ported_exits_before_loading(argv, refusal,
+                                                 monkeypatch, tmp_path):
+    from factorized_tpu_torch.parallel import multiconfig
+
+    calls = []
+
+    def load(name, seqlength, args):
+        if refusal:
+            raise AssertionError("the data loaded before the refusal")
+        return _data(410)
+
+    def trainer(name):
+        def train(*a, **kw):
+            calls.append((name, a[6], kw))
+            if name == "train_config_bucket":
+                return {"results": []}
+            return {"explored_configs": 3, "best": {"metrics": {},
+                                                    "rung": 1}}
+        return train
 
     monkeypatch.setattr(cli, "load_dataset", load)
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(argv + ["--device", "cpu"])
+    for name in ("train_config_bucket", "train_evolving_search"):
+        monkeypatch.setattr(multiconfig, name, trainer(name))
+    argv = argv + ["--device", "cpu", "--out", str(tmp_path)]
+    if refusal:
+        with pytest.raises(SystemExit, match=refusal):
+            cli.main(argv)
+        assert not calls
+        return
+    assert cli.main(argv + ["--trials", "3", "--epochs", "1"]) == 0
+    seeds = 2 if "--seeds" in argv else 1
+    for name, cfgs, kw in calls:
+        assert kw["seeds_per_config"] == seeds
+        assert kw["device"].type == "cpu"
+        if name == "train_config_bucket":
+            assert all(c.num_epochs == 1 for c in cfgs)
+            assert kw.get("use_config_lr") == (argv[0] in ("moud", "you"))
+        else:
+            assert (cfgs.num_epochs, kw["rungs"], kw["n_configs"]) == (1, 2,
+                                                                       3)
+            assert kw["binary_threshold"] == 3.5
+    assert sum(len(c) if n == "train_config_bucket" else 3
+               for n, c, _ in calls) == 3
 
 
 def test_feature_flags_apply_to_mosi_alone():

@@ -221,15 +221,29 @@ def test_multitrait_trials_are_the_jax_command(run, recorded, tmp_path,
     (["predictor", "--kind", "self_attention", "--save-ckpt"],
      "only supported for --kind mfn"),
     (["predictor", "--dataset", "mosei_sdk"], "not yet ported"),
-    (["predictor", "--seeds", "2"], "not yet ported"),
+    (["predictor", "--seeds", "2"], "the command trains one model"),
+    (["predictor", "--mode", "search", "--bucket"],
+     "--bucket does not apply to predictor: the command trains one model"),
+    (["predictor", "--mode", "search", "--evolve", "2"],
+     "--evolve does not apply to predictor: the command trains one model"),
+    (["test_attention", "--seeds", "3"],
+     "--seeds does not apply to test_attention: the command trains one"),
+    (["test_attention", "--mode", "search", "--bucket"],
+     "the command trains one model"),
+    (["test_attention", "--evolve", "2"], "the command trains one model"),
     (["multitrait", "--style", "mosei_sdk"], "not yet ported"),
     (["multitrait", "--style", "pom_sdk"], "not yet ported"),
-    (["multitrait", "--mode", "search", "--evolve", "2"], "not yet ported"),
-    (["multitrait", "--mode", "search", "--bucket"], "not yet ported"),
-    (["multitrait", "--seeds", "2"], "not yet ported"),
+    (["multitrait", "--mode", "best", "--evolve", "2"],
+     "--evolve only applies to --mode search"),
+    (["multitrait", "--bucket"], "--bucket only applies to --mode search"),
+    (["multitrait", "--seeds", "2"],
+     "--seeds 2 on the multitrait surface only applies to --mode search "
+     "with --bucket or --evolve"),
     (["multitrait", "--feature-selection", "0"], "only apply to the mosi"),
     (["multitrait", "--normalize-covarep"], "only apply to the mosi"),
 ], ids=["eflstm_save", "self_attention_save", "mosei_sdk", "seeds",
+        "predictor_bucket", "predictor_evolve", "test_attention_seeds",
+        "test_attention_bucket", "test_attention_evolve",
         "mosei_sdk_style", "pom_sdk_style", "evolve", "bucket",
         "multitrait_seeds", "feature_selection", "normalize_covarep"])
 def test_refusals_come_before_any_load(argv, message, monkeypatch, tmp_path):
@@ -249,7 +263,7 @@ def test_predictor_mfn_save_ckpt_is_scored_by_test_mosi(monkeypatch,
                                                         tmp_path, capsys):
     data = _data(325, seed=2, n=(16, 8, 12))
     monkeypatch.setattr(cli, "load_dataset", lambda *a: data)
-    monkeypatch.setattr(cli, "load_mosi", lambda t: data)
+    monkeypatch.setattr(cli, "load_mosi", lambda t, **kw: data)
     out = tmp_path / "runs"
     assert cli.main(["predictor", "--kind", "mfn", "--mode", "best",
                      "--epochs", "1", "--batchsize", "8", "--device", "cpu",
@@ -312,7 +326,7 @@ def test_an_mfn_checkpoint_serves_and_scores_as_the_jax_predictor(
 
     y = rng.normal(size=(19,)).astype(np.float32)
     data = (X, y, X, y, X, y)
-    monkeypatch.setattr(cli, "load_mosi", lambda t: data)
+    monkeypatch.setattr(cli, "load_mosi", lambda t, **kw: data)
     assert cli.main(["test_mosi", "--checkpoint", ckpt, "--device",
                      "cpu"]) == 0
     printed = capsys.readouterr().out

@@ -1305,12 +1305,12 @@ def _lane_operands(cfg, K, n, dev):
             (mxp, mwh, multi[0][2]), g)
 
 
-@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("K", [1, 4, 12])
 @pytest.mark.parametrize("cfg,n", [(SMALL, 5), (best_acc_mosi_config(), 32)],
                          ids=["small", "train"])
 def test_lane_kernels_match_plain(cuda, cfg, n, K):
-    """Each of the seven kernel entry points over K lanes in one launch
-    against its plain version lane by lane."""
+    """Each of the seven kernel entry points over K lanes in one launch a
+    group of 8 lanes against its plain version lane by lane."""
     (xp, masks, w, z_tot, h_dims), (h0, c0, wsum, b, dec_dims), \
         (mxp, mwh, m_dims), g = _lane_operands(cfg, K, n, cuda)
     t = cfg.seqlength
@@ -1369,15 +1369,16 @@ def test_lane_kernels_match_plain(cuda, cfg, n, K):
             cuda_lstm.multi_lstm_bwd_lanes_plain(mref[3], mwh, mref[2],
                                                  dhl), **GRAD)
         torch.cuda.synchronize()
-    # one launch a call for all the lanes
+    # one launch a call for 8 lanes
     delta = counts.since(before)
-    assert delta[(cuda_mfn, "LAUNCHES")] == 2
-    assert delta[(cuda_mfn, "BWD_LAUNCHES")] == 1
-    assert delta[(cuda_mfn, "DW_LAUNCHES")] == 1
-    assert delta[(cuda_lstm, "LAUNCHES")] == 1
-    assert delta[(cuda_lstm, "BWD_LAUNCHES")] == 1
-    assert delta[(cuda_lstm, "MULTI_LAUNCHES")] == 2
-    assert delta[(cuda_lstm, "MULTI_BWD_LAUNCHES")] == 1
+    groups = cuda_lstm.lane_launches(K)
+    assert delta[(cuda_mfn, "LAUNCHES")] == 2 * groups
+    assert delta[(cuda_mfn, "BWD_LAUNCHES")] == groups
+    assert delta[(cuda_mfn, "DW_LAUNCHES")] == groups
+    assert delta[(cuda_lstm, "LAUNCHES")] == groups
+    assert delta[(cuda_lstm, "BWD_LAUNCHES")] == groups
+    assert delta[(cuda_lstm, "MULTI_LAUNCHES")] == 2 * groups
+    assert delta[(cuda_lstm, "MULTI_BWD_LAUNCHES")] == groups
 
 
 def test_lane_train_step_grads_on_the_card_match_the_cpu(cuda):

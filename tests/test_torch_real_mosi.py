@@ -93,3 +93,100 @@ def test_segment_average_is_the_native_kernels(case):
     empty = np.minimum(ends, 40) <= np.maximum(starts, 0)
     assert (got[empty] == 0).all()
     assert not np.isnan(got).any() and not np.isneginf(got).any()
+
+
+def _scores(printed):
+    """The score lines of a ``test_mosi`` printout, ``name: value``."""
+    out = {}
+    for line in printed.splitlines():
+        name, sep, value = line.partition(": ")
+        if sep and name in ("mae", "corr", "mult_acc", "mult_f_score",
+                            "binary_accuracy", "binary_f1"):
+            out[name] = float(value)
+    return out
+
+
+@pytest.mark.parametrize("flags", [[], ["--normalize-covarep"],
+                                   ["--feature-selection", "0"]],
+                         ids=["fs", "norm", "raw"])
+def test_test_mosi_scores_the_files_under_data_root_as_jax(root, flags,
+                                                           tmp_path, capsys,
+                                                           monkeypatch):
+    """``test_mosi --data-root R`` scores a checkpoint on R's test set,
+    read with ``--feature-selection`` and ``--normalize-covarep``: its
+    printout is the JAX package's metrics of the checkpoint's predictions
+    on the JAX reader's test set of R, line for line, and the JAX
+    command's scores of the same parameters are within 1e-6. The
+    correlation is held by the first check alone: the untrained head's
+    predictions spread by about 1e-4 over the 8 test segments, so the two
+    packages' correlations part by 1e-5 where the predictions part by
+    1e-8."""
+    import io
+
+    import jax
+
+    from factorized_tpu import cli as jax_cli
+    from factorized_tpu import serve as jax_serve
+    from factorized_tpu.config import MFMConfig as JaxConfig
+    from factorized_tpu.models import get_model as jax_get_model
+    from factorized_tpu.utils import metrics as jmetrics
+    from factorized_tpu.utils.checkpoint import \
+        save_checkpoint as jax_save
+    from factorized_tpu_torch import cli
+    from factorized_tpu_torch.convert import from_numpy
+    from factorized_tpu_torch.serve import Predictor
+    from factorized_tpu_torch.utils.checkpoint import save_checkpoint
+
+    # the latency probes that follow the score time many batch sizes (JAX
+    # compiles each); they weigh on no score
+    for cls in (jax_serve.Predictor, Predictor):
+        monkeypatch.setattr(cls, "probe", lambda self, X: {})
+        monkeypatch.setattr(cls, "device_latency", lambda self, X: {})
+    fs = "--feature-selection" not in flags
+    cfg = JaxConfig(input_dims=list(mosi.input_dims(fs)), h_dims=[6, 5, 4],
+                    memsize=6, zy_size=5, zl_size=6, za_size=4, zv_size=5,
+                    fy_size=4, fl_size=5, fa_size=4, fv_size=3,
+                    att1_shape=8, att2_shape=8, gamma1_shape=8,
+                    gamma2_shape=8)
+    params = jax.tree.map(np.asarray, jax_get_model("mfm")[0](
+        jax.random.PRNGKey(3), cfg))
+    jax_save(str(tmp_path / "jax"), params, config=cfg.to_dict())
+    ckpt = str(tmp_path / "port")
+    save_checkpoint(ckpt, from_numpy(params), config=cfg.to_dict())
+    args = ["--data-root", root, *flags]
+    assert cli.main(["test_mosi", "--checkpoint", ckpt, "--device", "cpu",
+                     *args]) == 0
+    printed = capsys.readouterr().out
+    _, _, _, _, X_test, y_test = jax_mosi.get_data(
+        20, fs, root, "--normalize-covarep" in flags)
+    want = io.StringIO()
+    jmetrics.score_regression(Predictor.from_checkpoint(
+        ckpt, device="cpu").predict(X_test), y_test, out=want)
+    assert want.getvalue() in printed
+    got = _scores(printed)
+    assert jax_cli.main(["test_mosi", "--checkpoint", str(tmp_path / "jax"),
+                         *args]) == 0
+    jax_scores = _scores(capsys.readouterr().out)
+    assert set(got) == set(jax_scores) and "mae" in got
+    for k, v in jax_scores.items():
+        if k != "corr":
+            np.testing.assert_allclose(got[k], v, err_msg=k, rtol=0.0,
+                                       atol=1e-6)
+    # the synthetic set (no --data-root) scores apart
+    assert cli.main(["test_mosi", "--checkpoint", ckpt, "--device", "cpu",
+                     *flags]) == 0
+    assert _scores(capsys.readouterr().out) != got
+
+
+def test_test_mosi_parses_the_data_flags():
+    from factorized_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(
+        ["test_mosi", "--checkpoint", "ck", "--data-root", "/data/mosi",
+         "--feature-selection", "0", "--normalize-covarep", "--device",
+         "cpu"])
+    assert (args.data_root, args.feature_selection, args.normalize_covarep,
+            args.device) == ("/data/mosi", 0, True, "cpu")
+    args = cli.build_parser().parse_args(["test_mosi", "--checkpoint", "ck"])
+    assert (args.data_root, args.feature_selection,
+            args.normalize_covarep) == (None, 1, False)

@@ -280,7 +280,7 @@ def _test_mosi(tmp_path, monkeypatch, capsys, cfg, params, data):
     Predictor's predictions on the test set."""
     ckpt = str(tmp_path / "ckpt")
     save_checkpoint(ckpt, params, config=cfg.to_dict())
-    monkeypatch.setattr(cli, "load_mosi", lambda t: data)
+    monkeypatch.setattr(cli, "load_mosi", lambda t, **kw: data)
     assert cli.main(["test_mosi", "--checkpoint", ckpt, "--device",
                      "cpu"]) == 0
     printed = capsys.readouterr().out

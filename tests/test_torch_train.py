@@ -391,18 +391,45 @@ def test_mosi_cli_trains_and_saves(tmp_path, monkeypatch, capsys):
     assert kinds == ["config", "epoch", "final"]
 
 
-# what the mosi command still refuses, before any data loads: the two
-# search strategies of the JAX package's parallel/multiconfig.py, with
-# lanes of seeds too
+# the two search strategies of the JAX package's parallel/multiconfig.py
+# on the mosi command, with lanes of seeds too: each reaches its trainer
+# with the lanes, the --lr and the threshold of the JAX command
 @pytest.mark.parametrize("argv", [["--seeds", "2", "--mode", "search",
                                    "--bucket"],
                                   ["--mode", "search", "--bucket"],
                                   ["--mode", "search", "--evolve", "2"]])
-def test_mosi_cli_refuses_what_is_not_ported(argv, monkeypatch):
-    monkeypatch.setattr(cli, "load_mosi", lambda *a, **kw: pytest.fail(
-        "the data loaded before the refusal"))
-    with pytest.raises(SystemExit, match="not yet ported"):
-        cli.main(["mosi", "--device", "cpu"] + argv)
+def test_mosi_cli_refuses_what_is_not_ported(argv, monkeypatch, tmp_path):
+    from factorized_tpu_torch.parallel import multiconfig
+
+    calls = []
+
+    def train(*a, **kw):
+        calls.append((a[6], kw))
+        if "--bucket" in argv:
+            return {"results": []}
+        return {"explored_configs": 2, "best": {"metrics": {}, "rung": 1}}
+
+    name = ("train_config_bucket" if "--bucket" in argv
+            else "train_evolving_search")
+    rng = np.random.default_rng(1)
+
+    def data(n):
+        return (rng.normal(size=(n, 20, 325)).astype(np.float32),
+                rng.normal(size=(n,)).astype(np.float32))
+
+    monkeypatch.setattr(multiconfig, name, train)
+    monkeypatch.setattr(cli, "load_mosi", lambda t, **kw: (
+        *data(40), *data(10), *data(12)))
+    assert cli.main(["mosi", "--device", "cpu", "--trials", "2", "--epochs",
+                     "1", "--lr", "0.002", "--out", str(tmp_path)] + argv) \
+        == 0
+    assert calls
+    for cfgs, kw in calls:
+        assert kw["seeds_per_config"] == (2 if "--seeds" in argv else 1)
+        assert kw["lr"] == 0.002 and "use_config_lr" not in kw
+        assert (kw["binary_threshold"], kw["threshold_mode"]) == (0.0, "ge")
+    if "--evolve" in argv:
+        assert calls[0][1]["rungs"] == 2 and calls[0][1]["n_configs"] == 2
 
 
 def test_mosi_cli_configs():
