@@ -50,7 +50,7 @@ Run from the repository root: ``python3 chip_smoke.py``. It
    with the cluster size and copy width it took and a rerun's bits, beside
    its library yardstick (7 ``torch.mm`` and 7 ``sum(0)``); and the bounds
    of the decoder forward at n = 32 and of the decoder backward over
-   ``missing``'s 4n stacked rows;
+   ``missing``'s 4n stacked rows, the latter with its library yardstick;
 7. trains MFM for 2 epochs on the synthetic MOSI set through
    ``trainers.train_mfm`` (the chunked loop: the second epoch a graph
    replay), checks finite, falling train loss and that the run launched
@@ -188,9 +188,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
     one launch's 8 lanes: each of the seven entry points at K = 12 (a
     group of 8 and one of 4), 16 and 32 against its lane plain version
     lane by lane at step 20's shapes and tolerances, each call launching
-    ``ceil(K / 8)`` times, timed at 16 (with its library yardstick lane
-    by lane: 7 ``torch.bmm`` and 7 sums, one ``nn.LSTM`` per cell and
-    lane) and 32, and the eval encode on the scratch plan at K = 12
+    ``ceil(K / 8)`` times, timed at 16 and 32 with its library yardstick
+    lane by lane (7 ``torch.bmm`` and 7 sums, one ``nn.LSTM`` per cell and
+    lane), and the eval encode on the scratch plan at K = 12
     (``lane_kernels``, ``lane_kernels_past_8`` lines);
     ``train_evolving_search`` at ``best_acc_mosi_config``, 8 configs x 2
     seeds, 3 rungs of 2 epochs: finite losses, the survivors' falling,
@@ -207,11 +207,32 @@ Run from the repository root: ``python3 chip_smoke.py``. It
     ``check --dir`` (``search_check``); ``mfm``'s lane path at K = 16 and
     32 (``lane_scaling_past_8``);
 22. prints one JSON line on the ten kernels (their launches with the
-    paths of steps 19 to 21 counted) and the seven lane entry points at
-    K = 8 (``<kernel>.lanes8``, their launches step 20's lane launches)
-    and K = 16 (``<kernel>.lanes16``, step 21's), the ``nvidia-smi``
-    line, and last ``{"ok": true, "device": {...}}``; a ``seconds`` line
-    after each of steps 4, 6, 8, 10 to 21.
+    paths of steps 19 to 21 and 23 counted) and the seven lane entry
+    points at K = 8 (``<kernel>.lanes8``, their launches step 20's and
+    23's lane launches) and K = 16 (``<kernel>.lanes16``, step 21's), the
+    ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``; a
+    ``seconds`` line after each of steps 4, 6, 8, 10 to 21 and 23;
+23. (run before step 22 prints) the CMU-MultimodalSDK sets
+    (``data/mmsdk.py``) at ``best_acc_mosi_config``'s full width and their
+    published feature widths, fabricated from the seed as ``.csd``
+    sequences (CMU-MOSEI's 3,228 videos and about 23,500 segments; MOSI's
+    93 and 2,199; the one cut: a few audio and visual rows a word), as
+    files where h5py imports, else through a stand-in of ``read_csd`` so
+    that everything below the read runs (``"h5py"`` on each ``sdk``
+    line): ``mosei_sdk --type mfm --mode best --epochs 2 --save-ckpt``
+    through the command, its read and alignment and a cache hit (host
+    seconds), finite falling losses, every kernel of the path once a step
+    of the replayed epoch, device ms and launches a step, replayed epoch s,
+    the capture's ms and pool bytes, the eval encode at the validation and
+    test row counts against its plain version, the checkpoint served on
+    the test set against the CPU; at MOSI's size ``mosi_sdk --seeds 4``,
+    ``--mode search --evolve 2 --trials 4``, ``multitrait --style
+    mosei_sdk`` and ``pom_sdk``, ``predictor --dataset mosi_sdk --kind
+    mfn`` and ``--kind eflstm --split 40,10``, and ``--profile`` (the
+    trace names the path's kernels, a replay's too); ``warmup``, each
+    leg's seconds; the FLOPs of a ``mfm`` step (``utils/flops.py``) and
+    their share of the float32 peak (``sdk``, ``sdk_warmup``,
+    ``sdk_flops`` lines).
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1.
 """
@@ -991,7 +1012,8 @@ def main():
               18: lambda: baseline_phase(cfg, dev, smi, data, tmp),
               19: lambda: predictor_phase(cfg, dev, smi, tmp),
               20: lambda: lanes_phase(cfg, dev, smi, tmp),
-              21: lambda: bucket_evolve_phase(cfg, dev, smi, tmp)}
+              21: lambda: bucket_evolve_phase(cfg, dev, smi, tmp),
+              23: lambda: sdk_phase(cfg, dev, smi, tmp)}
     results = {}
     with tempfile.TemporaryDirectory() as tmp:
         for step, run in phases.items():
@@ -1002,18 +1024,22 @@ def main():
     train_kernels, variant_kernels, probe_kernels = (results[6], results[8],
                                                      results[10])
     kernels = serve_kernels + train_kernels + variant_kernels + probe_kernels
-    # step 19's, 20's and 21's paths launch the main path's kernels at
-    # their shapes (steps 20's and 21's over lanes)
+    # step 19's, 20's, 21's and 23's paths launch the main path's kernels
+    # at their shapes (steps 20's, 21's and some of 23's over lanes)
     lane_kernels, lane_paths, lane_launches = results[20]
     past_kernels, past_paths, past_launches = results[21]
+    sdk_paths, sdk_lanes = results[23]
     for entry in kernels:
         entry["launches"] += sum(path.get(entry["name"], 0)
                                  for path in [*results[19].values(),
                                               *lane_paths.values(),
-                                              *past_paths.values()])
+                                              *past_paths.values(),
+                                              *sdk_paths.values()])
+    lane_launches = {k: lane_launches.get(k, 0) + sdk_lanes.get(k, 0)
+                     for k in {*lane_launches, *sdk_lanes}}
     # each kernel entry point over 8 lanes (step 20a's train shapes) and
-    # 16 (step 21a's), its launches the lane launches of step 20's and of
-    # step 21's paths
+    # 16 (step 21a's), its launches the lane launches of step 20's and
+    # 23's paths (up to 8 lanes: one launch a call) and of step 21's
     for lanes, launched in ((lane_kernels, lane_launches),
                             (past_kernels, past_launches)):
         for name, (source, replaces) in LANE_KERNELS.items():
@@ -1254,6 +1280,8 @@ def train_phase(cfg, dev, smi):
             wsum, gates, allc, dallh), 10)
     decb_library_ms = decoder_library_ms(h0, c0, wsum, b, t, dec_dims,
                                          backward=True)
+    decb4_library_ms = decoder_library_ms(h4, c4, wsum, b, t, dec_dims,
+                                          backward=True)
     decf_library_ms = decoder_library_ms(h0, c0, wsum, b, t, dec_dims)
 
     # bounds from this run's shapes, as for the forward kernels; the
@@ -1322,6 +1350,7 @@ def train_phase(cfg, dev, smi):
          "decoder_lstm_bwd_4n": {"n": 4 * n, "device_ms": decb4_dev_ms,
                                  "bound_ms": decb4_bound[0],
                                  "bound_by": decb4_bound[1],
+                                 "library_ms": decb4_library_ms,
                                  "max_abs_err": err_decb4["max_abs_err"]}})
     log({"phase": "train_kernels", "batch": n, "nvidia_smi": smi,
          "mfm_encode_fwd_train": {"ms": fwd_ms, "plain_ms": fwd_plain_ms,
@@ -3505,14 +3534,16 @@ def replay_vs_cpu(loop, label):
             "steps": int(Xb.shape[0]) + (rem is not None)}
 
 
-def path_times(loop, steps=5, replays=3):
+def path_times(loop, steps=5, replays=3, profile_replay=True):
     """A training path's times from the chunked loop its trainer ran (its
     epoch graph captured): device ms and kernel launches a step and the
     device's idle share (torch.profiler over ``steps`` eager steps on the
     loop's first batch), replayed epoch s (host clock, median of
-    ``replays`` ``run(1)``s, its host read included) and device ms of a
-    replayed epoch (torch.profiler over one), with the idle share against
-    the unprofiled epoch's wall."""
+    ``replays`` ``run(1)``s, its host read included) and, with
+    ``profile_replay``, device ms of a replayed epoch (torch.profiler over
+    one), with the idle share against the unprofiled epoch's wall (None
+    without: at MOSEI's 415 steps the profiler's host work on a replay's
+    389,000 kernels takes about 45 s)."""
     from torch.profiler import ProfilerActivity, profile
 
     Xb, yb, rem = loop.batches
@@ -3523,15 +3554,17 @@ def path_times(loop, steps=5, replays=3):
         t0 = time.perf_counter()
         loop.run(1)
         replay_s.append(time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as p:
-        loop.run(1)
-    kernels = [e for e in p.key_averages() if on_device(e)]
-    if not kernels:
-        raise AssertionError("torch.profiler saw no kernel of a replay")
-    device_ms = sum(e.device_time_total for e in kernels) / 1e3
     epoch_s = float(np.median(replay_s))
+    kernels, device_ms = [], None
+    if profile_replay:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as p:
+            loop.run(1)
+        kernels = [e for e in p.key_averages() if on_device(e)]
+        if not kernels:
+            raise AssertionError("torch.profiler saw no kernel of a replay")
+        device_ms = sum(e.device_time_total for e in kernels) / 1e3
     return {"batches": int(Xb.shape[0]), "batch": int(Xb.shape[2]),
             "remainder_rows": 0 if rem is None else int(rem[0].shape[1]),
             "device_ms_per_step": prof["device_ms_per_step"],
@@ -3539,8 +3572,11 @@ def path_times(loop, steps=5, replays=3):
             "eager_step_device_idle_share": prof["device_idle_share"],
             "replayed_epoch_s": epoch_s, "replayed_epoch_s_all": replay_s,
             "device_ms_per_replayed_epoch": device_ms,
-            "replayed_device_idle_share": 1.0 - device_ms / (epoch_s * 1e3),
-            "kernels_seen_per_replayed_epoch": sum(e.count for e in kernels),
+            "replayed_device_idle_share": (
+                None if device_ms is None else 1.0 - device_ms / (epoch_s
+                                                                  * 1e3)),
+            "kernels_seen_per_replayed_epoch": (
+                sum(e.count for e in kernels) if profile_replay else None),
             "capture_ms": loop.epoch.capture_ms,
             "graph_pool_bytes": loop.epoch.pool_bytes}
 
@@ -4468,8 +4504,8 @@ def lane_path_times(loop, steps=3, replays=3):
 def lane_epoch_launches(loop, kernels, label, epoch=1):
     """Each kernel's launches in the loop's replayed epoch ``epoch``: one
     launch a group of 8 lanes (``cuda_lstm.lane_launches``) a train step
-    for all the lanes (the forward kernels once more for the
-    evaluation)."""
+    for all the lanes (the forward kernels once more for the evaluation);
+    of a one-model ``ChunkedLoop``, one a step."""
     from factorized_tpu_torch.ops import cuda_lstm
 
     nb = int(loop.batches[0].shape[0])
@@ -4477,7 +4513,7 @@ def lane_epoch_launches(loop, kernels, label, epoch=1):
         raise AssertionError(f"{label}: epoch {epoch} was not a graph "
                              f"replay")
     seen = per_kernel(loop.epoch_launches[epoch])
-    groups = cuda_lstm.lane_launches(loop.opt.lanes)
+    groups = cuda_lstm.lane_launches(getattr(loop.opt, "lanes", 0))
     want = {k: groups * (nb + (k in ("mfm_encode_fwd", "decoder_lstm_fwd",
                                      "multi_lstm_fwd"))) for k in kernels}
     got = {k: seen[k] for k in kernels}
@@ -5047,8 +5083,8 @@ def lane_loop_times(cfg, dev, data, K):
 def bucket_evolve_phase(cfg, dev, smi, tmp):
     """Step 21: the shape-bucketed and evolving searches
     (``parallel/multiconfig.py``) and the lane kernels past 8 lanes. (a)
-    ``lane_kernel_phase`` at K = 12 (checked, launches counted), 16
-    (also timed, with the library yardsticks) and 32 (timed), and
+    ``lane_kernel_phase`` at K = 12 (checked, launches counted), 16 and
+    32 (also timed, with the library yardsticks), and
     ``scratch_lanes_check`` at 12; (b) ``evolve_search_check``; (c)
     ``search_commands``; (d) ``mfm``'s lane path at K = 16 and 32
     (``lane_loop_times``). Returns ({kernel: 21a's numbers at 16}, {path:
@@ -5059,7 +5095,7 @@ def bucket_evolve_phase(cfg, dev, smi, tmp):
     kernels = {}
     for K in LANES_PAST:
         kernels[K] = lane_kernel_phase(cfg, dev, smi, K, timing=K != 12,
-                                       library=K == 16)
+                                       library=K in (16, 32))
     scratch = scratch_lanes_check(cfg, dev, LANES_PAST[0])
     log({"phase": "lane_kernels_past_8", "nvidia_smi": smi,
          "scratch": scratch, "seconds": time.perf_counter() - t0})
@@ -5081,6 +5117,389 @@ def bucket_evolve_phase(cfg, dev, smi, tmp):
     log({"phase": "lane_scaling_past_8", "nvidia_smi": smi, "path": "mfm",
          "by_lanes": times, "seconds": time.perf_counter() - t0})
     return kernels[16], paths, lanes
+
+
+# ------------------------------------------- 23. the CMU-MultimodalSDK sets
+
+# each set as step 23 fabricates it: its .csd file names (data/mmsdk.py),
+# videos and segments (CMU-MOSEI's published 3,228 videos and about 23,500
+# segments; CMU-MOSI's 93 and 2,199; the multi-trait sets at MOSI's), the
+# published feature widths (GloVe 300, COVAREP 74, FACET 35 for FACET 4.2
+# or 47 for MOSI's), the label columns and their range
+SDK_SETS = {
+    "mosei": dict(files="MOSEI_FILES", videos=3228, segments=23500,
+                  dims=(300, 74, 35), labels=7, low=-3.0, high=3.0),
+    "mosi": dict(files="DEFAULT_FILES", videos=93, segments=2199,
+                 dims=(300, 74, 47), labels=1, low=-3.0, high=3.0),
+    "mosei_traits": dict(files="MOSEI_FILES", videos=93, segments=2199,
+                         dims=(300, 74, 35), labels=7, low=-3.0, high=3.0),
+    "pom_traits": dict(files="POM_FILES", videos=93, segments=2199,
+                       dims=(300, 74, 35), labels=17, low=1.0, high=7.0),
+}
+# the one cut: rows a word of the audio and visual sequences (the real
+# files' 100 Hz COVAREP and 30 fps FACET give tens a word; the alignment
+# that averages them is host work)
+SDK_FRAMES = (3, 2)
+SDK_WORDS = (8, 33)  # words a segment, uniform (the last 20 are kept)
+# the main path's kernels and, by name, the device kernels of each in a
+# trace (step 2's ptxas names)
+TRACE_KERNELS = {"mfm_encode_fwd": ("cell_chains_fwd_kernel",
+                                    "mem_chain_fwd_kernel"),
+                 "mfm_encode_bwd": ("gates_kernel", "mem_chain_kernel",
+                                    "lstm_chains_kernel"),
+                 "mfm_encode_dw": ("mfm_encode_dw_kernel",),
+                 "decoder_lstm_fwd": ("lstm_chain_fwd_kernel",),
+                 "decoder_lstm_bwd": ("lstm_chain_bwd_kernel",)}
+# the card's float32 peak outside the tensor cores (FLOP/s, PEAK_FLOPS's)
+FP32_PEAK = 67e12
+
+
+def sdk_segments(videos, segments, dims, labels, low, high, seed, **_):
+    """A set's four sequences as ``mmsdk.read_csd`` returns them,
+    {segment_id: (features float32, intervals float64)}, made in bulk from
+    ``seed``: ``segments`` spread over ``videos`` (at least one each),
+    ``SDK_WORDS`` words a segment of 0.3 s each, ``SDK_FRAMES`` audio and
+    visual rows a word, a few audio values -inf or NaN, one label row a
+    segment, uniform in [low, high)."""
+    rng = np.random.default_rng(seed)
+    per_video = 1 + rng.multinomial(segments - videos,
+                                    np.full(videos, 1.0 / videos))
+    words = rng.integers(*SDK_WORDS, size=segments)
+    total = int(words.sum())
+    fa, fv = SDK_FRAMES
+    text = rng.standard_normal((total, dims[0]), dtype=np.float32)
+    audio = rng.standard_normal((total * fa, dims[1]), dtype=np.float32)
+    audio[rng.random(audio.shape) < 1e-4] = -np.inf
+    audio[rng.random(audio.shape) < 1e-4] = np.nan
+    visual = rng.standard_normal((total * fv, dims[2]), dtype=np.float32)
+    label = rng.uniform(low, high, (segments, 1, labels))
+    seqs = {"text": {}, "audio": {}, "visual": {}, "labels": {}}
+    at, k = 0, 0
+    for v, n_seg in enumerate(per_video):
+        for s in range(n_seg):
+            n = int(words[k])
+            start = 0.3 * np.arange(n)
+            seg_id = f"v{v:05d}[{s}]"
+            seqs["text"][seg_id] = (text[at:at + n],
+                                    np.stack([start, start + 0.3], 1))
+            for key, rows, feats in (("audio", fa, audio),
+                                     ("visual", fv, visual)):
+                t0 = 0.3 / rows * np.arange(n * rows)
+                seqs[key][seg_id] = (feats[at * rows:(at + n) * rows],
+                                     np.stack([t0, t0 + 0.3 / rows], 1))
+            seqs["labels"][seg_id] = (label[k], np.array([[0.0, 0.3 * n]]))
+            at += n
+            k += 1
+    return seqs
+
+
+@contextlib.contextmanager
+def sdk_root(root, files, seqs, h5):
+    """A directory of the set's .csd files: written by h5py where it
+    imports (``h5``); else empty files of those names, and
+    ``mmsdk.read_csd`` serving each one's sequence, so that everything
+    below the read (alignment, split, cache, the command) runs as it is."""
+    import os
+
+    from factorized_tpu_torch.data import mmsdk
+
+    os.makedirs(root, exist_ok=True)
+    paths = {os.path.join(root, files[kind]): seq
+             for kind, seq in seqs.items()}
+    if h5:
+        import h5py
+
+        for path, seq in paths.items():
+            with h5py.File(path, "w") as f:
+                data = f.create_group("sequence").create_group("data")
+                for seg_id, (feats, ivs) in seq.items():
+                    g = data.create_group(seg_id)
+                    g.create_dataset("features", data=feats)
+                    g.create_dataset("intervals", data=ivs)
+        yield root
+        return
+    for path in paths:
+        open(path, "w").close()
+    real = mmsdk.read_csd
+    mmsdk.read_csd = paths.__getitem__
+    try:
+        yield root
+    finally:
+        mmsdk.read_csd = real
+
+
+def eval_encode_check(loop, sets):
+    """The eval encode of ``loop``'s trained parameters over each of
+    ``sets`` ({name: (n, t, d) rows}) at once, against its plain version
+    at step 3's tolerances; each call's device ms."""
+    from factorized_tpu_torch.models import mfm
+    from factorized_tpu_torch.ops import cuda_mfn
+
+    out = {}
+    cfg, params = loop.program.cfg, loop.params
+    with torch.inference_mode():
+        for name, X in sets.items():
+            x = torch.from_numpy(X).to("cuda").transpose(0, 1).contiguous()
+            (xp, weights, z_tot, h_dims), _ = mfm.kernel_operands(params, x,
+                                                                  cfg)
+            got = cuda_mfn.mfm_encode(xp, weights, z_tot, h_dims)
+            want = cuda_mfn.mfm_encode_plain(xp, weights, z_tot)
+            err = compare_all(f"sdk.eval_encode.{name}",
+                              zip(("h_last", "mem_last"), got, want))
+            out[name] = {"rows": int(X.shape[0]),
+                         "max_abs_err": err["max_abs_err"],
+                         "device_ms": queued_ms(lambda: cuda_mfn.mfm_encode(
+                             xp, weights, z_tot, h_dims), reps=10)}
+    return out
+
+
+def trace_kernels(directory, nb):
+    """The kernels a ``--profile`` trace names: device events by kernel
+    of the path (``TRACE_KERNELS``); fails unless each appears, and unless
+    the weight gradients' kernel appears once a step of both epochs (the
+    eager one and the replay: a graph's replays show in the trace)."""
+    import glob
+
+    (path,) = glob.glob(f"{directory}/*.pt.trace.json")
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel"]
+    counts = {kernel: {n: sum(n in e.get("name", "") for e in events)
+                       for n in names}
+              for kernel, names in TRACE_KERNELS.items()}
+    missing = [n for names in counts.values() for n, c in names.items()
+               if not c]
+    if missing:
+        raise AssertionError(f"the trace names no {missing}")
+    dw = counts["mfm_encode_dw"]["mfm_encode_dw_kernel"]
+    if dw < 2 * nb:
+        raise AssertionError(f"the trace shows {dw} weight-gradient "
+                             f"kernels in 2 epochs of {nb} steps: the "
+                             f"replay is not in it")
+    import os
+
+    return {"file_bytes": os.path.getsize(path),
+            "kernel_events": len(events), "by_kernel": counts}
+
+
+def sdk_flops(cfg, dev, mosei_cfg, mosei_step_ms):
+    """The model FLOPs of a ``mfm`` train step (``utils/flops.py``) and the
+    executed FLOPs of the plain path, at ``cfg`` (its step's device ms
+    measured here, ``profile_steps``) and at the MOSEI run's config (its
+    step's device ms given), each with its share of the card's float32
+    peak over the step's device time."""
+    from factorized_tpu_torch.models import get_model, mfm
+    from factorized_tpu_torch.train import TrainProgram, make_optimizer
+    from factorized_tpu_torch.utils.flops import model_train_flops_per_step
+
+    _, apply_fn = get_model("mfm")
+    tree = mfm.MFM(cfg, seed=SEED, device=dev).tree()
+    opt = make_optimizer(tree, 1e-3)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((cfg.seqlength, cfg.batchsize, cfg.d_total),
+                    generator=gen, device=dev)
+    y = torch.randn((cfg.batchsize,), generator=gen, device=dev)
+    step_ms = profile_steps(TrainProgram(apply_fn, cfg), tree, opt, x, y,
+                            gen)["device_ms_per_step"]
+    out = {}
+    for label, c, ms in (("best_acc_mosi_config", cfg, step_ms),
+                         ("mosei_sdk", mosei_cfg, mosei_step_ms)):
+        model = model_train_flops_per_step(c)
+        out[label] = {
+            "input_dims": c.input_dims, "batch": c.batchsize,
+            "model_flops": model,
+            "executed_flops_plain": model_train_flops_per_step(c, fused=True),
+            "step_device_ms": ms,
+            "fp32_peak_share": model / (ms * 1e-3) / FP32_PEAK}
+    return out
+
+
+def sdk_phase(cfg, dev, smi, tmp):
+    """Step 23: the CMU-MultimodalSDK sets (``data/mmsdk.py``, ``--split``,
+    ``multitrait --style mosei_sdk|pom_sdk``, ``predictor --dataset
+    *_sdk``) at their published sizes and widths, fabricated from ``SEED``
+    (``sdk_segments``; the one cut ``SDK_FRAMES``), as .csd files where
+    h5py imports, else through ``read_csd``'s stand-in (``sdk_root``).
+    (a) MOSEI: the read and alignment, then a cache hit, host seconds;
+    ``mosei_sdk --type mfm --mode best --epochs 2 --save-ckpt`` through
+    the command: finite falling losses, every kernel of the path once a
+    step of the replayed epoch, the path's device ms and launches a step,
+    replayed epoch s, the capture's ms and pool bytes (``path_times``);
+    the eval encode of the trained parameters at the validation and test
+    row counts against its plain version; the checkpoint served on the
+    test set against the CPU ``Predictor``. (b) At MOSI's size, 2 epochs
+    each: ``mosi_sdk --seeds 4``, ``mosi_sdk --mode search --evolve 2
+    --trials 4``, ``multitrait --style mosei_sdk`` and ``pom_sdk``,
+    ``predictor --dataset mosi_sdk --kind mfn --mode best`` and ``--kind
+    eflstm --split 40,10`` (its batches the split's), ``mosi_sdk --mode
+    best --profile`` (the trace names the path's kernels, the replay's
+    too). (c) ``warmup``, each leg's seconds. (d) The FLOPs of a ``mfm``
+    step and their share of the float32 peak. Returns ({path: launches},
+    {kernel: lane launches})."""
+    import importlib.util
+    import os
+
+    from factorized_tpu_torch import cli
+    from factorized_tpu_torch.data import mmsdk
+    from factorized_tpu_torch.serve import Predictor
+
+    h5 = importlib.util.find_spec("h5py") is not None
+    # a directory of this step's own: the commands' run ids repeat earlier
+    # steps' (predictor's mfn_0), and a run log is appended to
+    tmp = os.path.join(tmp, "sdk")
+    paths, lanes = {}, {}
+    mfm_path = LANE_PATHS["mfm"]
+
+    def make(name, seed):
+        spec = SDK_SETS[name]
+        t0 = time.perf_counter()
+        seqs = sdk_segments(**spec, seed=seed)
+        return spec, seqs, time.perf_counter() - t0
+
+    # (a) MOSEI at its published size
+    spec, seqs, made_s = make("mosei", SEED + 230)
+    files = getattr(mmsdk, spec["files"])
+    root = os.path.join(tmp, "mosei_sdk")
+    t0 = time.perf_counter()
+    with sdk_root(root, files, seqs, h5):
+        written_s = time.perf_counter() - t0
+        del seqs
+        t0 = time.perf_counter()
+        data = mmsdk.get_data(cfg.seqlength, data_root=root, files=files)
+        read_align_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hit = mmsdk.get_data(cfg.seqlength, data_root=root, files=files)
+        cache_hit_s = time.perf_counter() - t0
+        for a, b in zip(data, hit):
+            if not np.array_equal(a, b):
+                raise AssertionError("the cache hit differs from the read")
+        del hit
+        line, launches, loop, runs = command_run(
+            "mosei_sdk", ["--type", "mfm", "--mode", "best", "--data-root",
+                          root, "--save-ckpt"], "mosei_sdk_0", mfm_path, tmp)
+    paths["mosei_sdk"] = launches
+    line["replayed_epoch_launches"] = lane_epoch_launches(
+        loop, mfm_path, "mosei_sdk")
+    t0 = time.perf_counter()
+    line["times"] = path_times(loop, replays=2, profile_replay=False)
+    line["times_seconds"] = time.perf_counter() - t0
+    line["eval_encode"] = eval_encode_check(loop, {"valid": data[2],
+                                                   "test": data[4]})
+    mosei_cfg = loop.program.cfg
+    line["valid_rows_at_once"] = int(loop.valid_set[0].shape[1])
+    ckpt = os.path.join(runs, "ckpt_mosei_sdk_0")
+    predictor = Predictor.from_checkpoint(ckpt)
+    y, _, served = counted("serve mosei_sdk", ("mfm_encode_fwd",),
+                           lambda: predictor.predict(data[4]))
+    chunks = -(-data[4].shape[0] // predictor.batch_size)
+    if served["mfm_encode_fwd"] != chunks or y.shape != data[5].shape:
+        raise AssertionError(f"serving the mosei_sdk checkpoint: {y.shape}, "
+                             f"launches {served}, {chunks} chunks")
+    reference = Predictor.from_checkpoint(ckpt, device="cpu")
+    line["served"] = {
+        "input_dims": predictor.cfg.input_dims, "rows": int(y.shape[0]),
+        "encode_launches": served["mfm_encode_fwd"],
+        "max_abs_err_vs_cpu": compare(
+            "serve.mosei_sdk", torch.from_numpy(y[:N_SERVE]),
+            torch.from_numpy(reference.predict(data[4][:N_SERVE])))[
+                "max_abs_err"]}
+    log({"phase": "sdk", "set": "mosei", "nvidia_smi": smi, "h5py": h5,
+         "videos": spec["videos"], "segments": spec["segments"],
+         "rows": [int(data[i].shape[0]) for i in (0, 2, 4)],
+         "input_dims": data.input_dims, "array_bytes": sum(
+             a.nbytes for a in data),
+         "cut": f"{SDK_FRAMES[0]} audio and {SDK_FRAMES[1]} visual rows a "
+                f"word (the real files give tens)",
+         "fabricate_s": made_s, "write_s": written_s,
+         "read_align_s": read_align_s, "cache_hit_s": cache_hit_s, **line})
+    del data, loop, predictor, reference
+
+    # (b) at MOSI's size
+    t0 = time.perf_counter()
+    spec, seqs, _ = make("mosi", SEED + 231)
+    root = os.path.join(tmp, "mosi_sdk")
+    with sdk_root(root, mmsdk.DEFAULT_FILES, seqs, h5):
+        runs = {}
+        lane_line, _, _ = lane_command("mosi_sdk", ["--type", "mfm",
+                                                    "--data-root", root],
+                                       "mosi_sdk_0", mfm_path, tmp, 4)
+        runs["seeds_4"] = (lane_line, lane_line["launches"],
+                           lane_line["lane_launches"])
+        evolve = search_command(
+            "mosi_sdk", ["--mode", "search", "--evolve", "2", "--trials",
+                         "4", "--epochs", str(TRAIN_EPOCHS), "--seed",
+                         str(SEED), "--data-root", root],
+            ["mosi_sdk_evolve0"], mfm_path,
+            os.path.join(tmp, "sdk_evolve"), "mosi_sdk --evolve 2")
+        runs["evolve"] = evolve[:3]
+        for label, argv, run_id, kernels in (
+                ("predictor_mfn", ["--dataset", "mosi_sdk", "--kind", "mfn",
+                                   "--mode", "best"], "mfn_0",
+                 mfm_path[:3]),
+                ("predictor_eflstm_split", ["--dataset", "mosi_sdk", "--kind",
+                                            "eflstm", "--split", "40,10"],
+                 "eflstm_0", ("multi_lstm_fwd", "multi_lstm_bwd"))):
+            got, launches, loop, _ = command_run(
+                "predictor", [*argv, "--data-root", root], run_id, kernels,
+                tmp)
+            if label.endswith("split"):
+                split = mmsdk.get_data(20, data_root=root, split=(40, 10))
+                nb = split[0].shape[0] // loop.batches[0].shape[2]
+                if loop.batches[0].shape[0] != nb:
+                    raise AssertionError(f"--split 40,10 trained "
+                                         f"{loop.batches[0].shape[0]} "
+                                         f"batches, not {nb}")
+                got["split_rows"] = [int(split[i].shape[0])
+                                     for i in (0, 2, 4)]
+            got["epoch_launches"] = lane_epoch_launches(loop, kernels,
+                                                              label)
+            runs[label] = (got, launches, {})
+        prof = os.path.join(tmp, "sdk_profile")
+        got, launches, loop, _ = command_run(
+            "mosi_sdk", ["--type", "mfm", "--mode", "best", "--data-root",
+                         root, "--profile", prof], "mosi_sdk_0", mfm_path,
+            tmp)
+        got["trace"] = trace_kernels(prof, int(loop.batches[0].shape[0]))
+        runs["profile"] = (got, launches, {})
+    del seqs
+    for name, style, seed in (("mosei_traits", "mosei_sdk", SEED + 232),
+                              ("pom_traits", "pom_sdk", SEED + 233)):
+        spec, seqs, _ = make(name, seed)
+        root = os.path.join(tmp, name)
+        with sdk_root(root, getattr(mmsdk, spec["files"]), seqs, h5):
+            got, launches, loop, _ = command_run(
+                "multitrait", ["--style", style, "--mode", "best",
+                               "--data-root", root], f"{style}_0", mfm_path,
+                tmp, printed_key="mae: [")
+        got["traits"] = spec["labels"]
+        runs[f"multitrait_{style}"] = (got, launches, {})
+    for label, (got, launches, lane) in runs.items():
+        log({"phase": "sdk", "set": "mosi_size", "run": label,
+             "nvidia_smi": smi, "h5py": h5, **got})
+        paths[f"sdk_{label}"] = launches
+        for k, v in lane.items():
+            lanes[k] = lanes.get(k, 0) + v
+    log({"phase": "seconds", "step": "23b",
+         "seconds": time.perf_counter() - t0})
+
+    # (c) warmup
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc, seconds, launches = counted("warmup", mfm_path,
+                                        lambda: cli.main(["warmup"]))
+    legs = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r"^warmup (\S+)\s+([0-9.]+)s\s+ok$", printed.getvalue(), re.M)}
+    if rc != 0 or len(legs) != 5:
+        raise AssertionError(f"warmup exited {rc}: {printed.getvalue()}")
+    paths["warmup"] = launches
+    log({"phase": "sdk_warmup", "nvidia_smi": smi, "legs_s": legs,
+         "seconds": seconds})
+
+    # (d) FLOPs
+    log({"phase": "sdk_flops", "nvidia_smi": smi,
+         "fp32_peak_flops": FP32_PEAK, **sdk_flops(
+             cfg, dev, mosei_cfg, line["times"]["device_ms_per_step"])})
+    return paths, lanes
 
 
 def profile_steps(program, tree, opt, x, y, gen, steps=10):

@@ -1,45 +1,53 @@
 """Command line of the port: ``python -m factorized_tpu_torch mosi``,
-``... moud``, ``... you``, ``... mmmo``, ``... mosi_acc``, ``...
-predictor``, ``... test_attention``, ``... multitrait``, ``...
-test_mosi`` and ``... serve``.
+``... moud``, ``... you``, ``... mmmo``, ``... mosi_sdk``, ``...
+mosei_sdk``, ``... mosi_acc``, ``... predictor``, ``... test_attention``,
+``... multitrait``, ``... check``, ``... test_mosi``, ``... serve`` and
+``... warmup``.
 
-Ported subcommands: the datasets ``mosi``, ``moud``, ``you`` and ``mmmo``
-(``factorized_tpu/cli.py``'s ``run_dataset`` over its ``DATASETS``
-table: modes ``single`` (``--config`` or the defaults), ``best`` and
-``search`` with ``--trials``; the real files under ``--data-root``, for
-MOSI with ``--feature-selection`` and ``--normalize-covarep``, else each
-dataset's synthetic set; ``--resume``, ``--ckpt-every`` and
-``--save-ckpt``) with ``--type mfm``, ``kl``, ``kl_ef``, the ablations
-``m_a``..``m_d``, ``--missing 1`` (with ``--type mfm``, ``s2s`` or
-``bm``) and ``--zeros 1``; ``mosi_acc`` (``run_mosi_acc``: MOSI's labels
-binarized ``y >= 0``, the accuracy-keeping trainer); ``predictor``
-(``run_predictor``: the baselines ``--kind eflstm``, ``mfn`` and
-``self_attention`` through ``train_predictor``, ``--optimizer adam|sgd``,
-``--best mae|acc``); ``test_attention`` (``run_test_attention``);
-``multitrait`` (``run_multitrait``: ``--style pom|iemocap``, a vector
-output MFM); ``test_mosi`` (``run_test_mosi``: score a checkpoint on the
-MOSI test set, then the latency probe and the on-device latency); and
-``serve`` (``run_serve``, from a checkpoint of this package or an
-exported artifact, with ``--autotune`` and ``--export``); ``check``
-(``run_check``: the best metrics of every run log under ``--dir``, the
-port's copy of the JAX package's ``check.py``). ``--seeds K`` above 1
-trains K seeds as lanes of one program on the dataset subcommands and
-``mosi_acc`` (``parallel.multiseed.train_mfm_multiseed``). ``--mode
-search --bucket`` (``run_bucket_search``) and ``--mode search --evolve
-RUNGS`` with ``--cull-frac`` (``run_evolve_search``,
+The subcommands: the datasets ``mosi``, ``moud``, ``you``, ``mmmo``,
+``mosi_sdk`` and ``mosei_sdk`` (``factorized_tpu/cli.py``'s
+``run_dataset`` over its ``DATASETS`` table: modes ``single``
+(``--config`` or the defaults), ``best`` and ``search`` with
+``--trials``; the real files under ``--data-root``, for MOSI with
+``--feature-selection`` and ``--normalize-covarep``, else each dataset's
+synthetic set; the ``*_sdk`` sets only from their CMU-MultimodalSDK
+``.csd`` files under ``--data-root`` (``data/mmsdk.py``, read through
+h5py), split by video with ``--split N_TRAIN,N_VALID``, their input dims
+those of the files; ``--resume``, ``--ckpt-every`` and ``--save-ckpt``)
+with ``--type mfm``, ``kl``, ``kl_ef``, the ablations ``m_a``..``m_d``,
+``--missing 1`` (with ``--type mfm``, ``s2s`` or ``bm``) and ``--zeros
+1``; ``mosi_acc`` (``run_mosi_acc``: MOSI's labels binarized ``y >= 0``,
+the accuracy-keeping trainer); ``predictor`` (``run_predictor``: the
+baselines ``--kind eflstm``, ``mfn`` and ``self_attention`` through
+``train_predictor`` on ``--dataset``, ``--optimizer adam|sgd``, ``--best
+mae|acc``); ``test_attention`` (``run_test_attention``); ``multitrait``
+(``run_multitrait``: ``--style pom|iemocap``, and from the ``.csd``
+files ``mosei_sdk`` (7 columns) and ``pom_sdk`` (17), a vector output
+MFM); ``test_mosi`` (``run_test_mosi``: score a checkpoint on the MOSI
+test set, then the latency probe and the on-device latency); ``serve``
+(``run_serve``, from a checkpoint of this package or an exported
+artifact, with ``--autotune`` and ``--export``); ``check`` (``run_check``:
+the best metrics of every run log under ``--dir``, the port's copy of the
+JAX package's ``check.py``); and ``warmup`` (``warmup.run_warmup``: the
+kernels' library built and the main programs run once). ``--seeds K``
+above 1 trains K seeds as lanes of one program on the dataset
+subcommands and ``mosi_acc`` (``parallel.multiseed.train_mfm_multiseed``).
+``--mode search --bucket`` (``run_bucket_search``) and ``--mode search
+--evolve RUNGS`` with ``--cull-frac`` (``run_evolve_search``,
 ``run_multitrait_evolve``) train the search's draws as lanes of one
 program, ``--seeds`` lanes a config (``parallel.multiconfig``), on the
-dataset subcommands and ``multitrait``. Each runs on the CUDA card
-unless ``--device`` says otherwise. ``mosi_sdk``, ``mosei_sdk`` and the
-multi-trait styles ``mosei_sdk`` and ``pom_sdk`` exit with "not yet
-ported"; ``predictor`` and ``test_attention`` refuse ``--seeds`` above
-1, ``--bucket`` and ``--evolve`` (each trains one model).
+dataset subcommands and ``multitrait``. ``--profile DIR`` wraps the whole
+command in ``utils.profiling.trace``. Each runs on the CUDA card unless
+``--device`` says otherwise; ``predictor`` and ``test_attention`` refuse
+``--seeds`` above 1, ``--bucket`` and ``--evolve`` (each trains one
+model).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import random
 
 # each dataset's task, binary threshold and its mode, input dims, output
@@ -56,44 +64,36 @@ DATASETS = {
                 include_remainder=True),
     "mmmo": dict(task="regression", threshold=3.5, mode="gt",
                  input_dims=[300, 74, 36], output_dim=1),
+    # MOSI and MOSEI from the CMU-MultimodalSDK .csd files (MOSEI's label
+    # column 0, the sentiment); their input dims are the files'
+    # (dataset_info)
+    "mosi_sdk": dict(task="regression", threshold=0.0, mode="ge",
+                     input_dims=[300, 74, 47], output_dim=1),
+    "mosei_sdk": dict(task="regression", threshold=0.0, mode="ge",
+                      input_dims=[300, 74, 35], output_dim=1),
 }
-# the JAX package's dataset subcommands that the port does not have yet
-NOT_YET_PORTED = ("mosi_sdk", "mosei_sdk")
-# the multi-trait styles of the JAX package (those of the SDK's .csd
-# files, "*_sdk", not yet ported)
+# the multi-trait styles: synthetic or CSV sets, and the .csd files' (MOSEI
+# with its 7 label columns, POM with its 17)
 MULTITRAIT_STYLES = ("pom", "iemocap", "mosei_sdk", "pom_sdk")
-
-
-# the trainers of the JAX package's dispatch that the port has
-PORTED_TRAINERS = ("train_mfm", "train_beta_vae", "train_mfm_missing",
-                   "train_mfm_test_zeros", "train_mfm_ablation",
-                   "train_seq2seq", "train_basic_missing", "train_mfm_acc")
 
 
 def trainer_name(cfg):
     """The trainer the JAX package's ``dispatch_trainer`` picks for
-    ``cfg``, by the same if-chain. One the port does not have exits with
-    "not yet ported"."""
+    ``cfg``, by the same if-chain; a type it has none for exits."""
     kind = cfg.model_type
     if cfg.missing == 1 and kind in ("bm", "mfm", "s2s"):
-        name = {"bm": "train_basic_missing", "mfm": "train_mfm_missing",
+        return {"bm": "train_basic_missing", "mfm": "train_mfm_missing",
                 "s2s": "train_seq2seq"}[kind]
-    elif cfg.zeros == 1 and kind == "mfm":
-        name = "train_mfm_test_zeros"
-    elif kind in ("mfm", "kl"):
-        name = "train_mfm"
-    elif kind == "kl_ef":
-        name = "train_beta_vae"
-    elif kind in ("m_a", "m_b", "m_c", "m_d"):
-        name = "train_mfm_ablation"
-    else:
-        raise SystemExit(f"no trainer for type={kind!r} "
-                         f"missing={cfg.missing} zeros={cfg.zeros}")
-    if name not in PORTED_TRAINERS:
-        raise SystemExit(
-            f"--type {kind} --missing {cfg.missing} --zeros {cfg.zeros} "
-            f"({name}) is not yet ported")
-    return name
+    if cfg.zeros == 1 and kind == "mfm":
+        return "train_mfm_test_zeros"
+    if kind in ("mfm", "kl"):
+        return "train_mfm"
+    if kind == "kl_ef":
+        return "train_beta_vae"
+    if kind in ("m_a", "m_b", "m_c", "m_d"):
+        return "train_mfm_ablation"
+    raise SystemExit(f"no trainer for type={kind!r} "
+                     f"missing={cfg.missing} zeros={cfg.zeros}")
 
 
 def refuse_lane_flags(args):
@@ -118,17 +118,30 @@ def refuse_off_search(args):
             f"{args.mode}); add --mode search or drop {flag}")
 
 
-def refuse_sdk(name):
-    """Exit with "not yet ported" for a dataset or multi-trait style read
-    from the CMU-MultimodalSDK .csd files (``*_sdk``)."""
-    if name.endswith("_sdk"):
-        raise SystemExit(f"{name} is not yet ported: its reader of the "
-                         f"CMU-MultimodalSDK .csd files is the JAX "
-                         f"package's data/mmsdk.py")
+def parse_split(arg):
+    """``--split "52,10"`` -> (52, 10): the train and valid video counts
+    of the SDK sets, the rest test; None without the flag."""
+    if arg is None:
+        return None
+    try:
+        n_tr, n_va = (int(p) for p in arg.split(","))
+    except ValueError:
+        raise SystemExit(
+            f"--split must be N_TRAIN,N_VALID video counts, got {arg!r}")
+    return (n_tr, n_va)
 
 
-def run_not_ported(args):
-    refuse_sdk(args.dataset)
+def check_data_args(name, args):
+    """Exit before any data loads where ``--split`` is malformed, or where
+    ``name``, a set read from the .csd files (``*_sdk``), has no
+    ``--data-root`` directory."""
+    parse_split(getattr(args, "split", None))
+    if name.endswith("_sdk") and not (args.data_root
+                                      and os.path.isdir(args.data_root)):
+        raise SystemExit(
+            f"{name} needs --data-root pointing at a directory of "
+            f"CMU-MultimodalSDK .csd files (read through h5py), got "
+            f"{args.data_root!r}")
 
 
 def base_config(args):
@@ -187,8 +200,10 @@ def load_mosi(seqlength, data_root=None, feature_selection=True,
 
 def load_dataset(name, seqlength, args):
     """The six arrays of dataset ``name``: its real files under
-    ``--data-root``, else its synthetic set. ``--feature-selection 0``
-    and ``--normalize-covarep`` apply to MOSI alone
+    ``--data-root``, else its synthetic set; the ``*_sdk`` sets from their
+    .csd files alone (``mmsdk.get_data``, MOSEI's file names for
+    ``mosei_sdk``), split by ``--split``. ``--feature-selection 0`` and
+    ``--normalize-covarep`` apply to MOSI alone
     (``mfm_mosi.py:37,60-73``)."""
     feature_selection = bool(args.feature_selection)
     if name == "mosi":
@@ -201,6 +216,14 @@ def load_dataset(name, seqlength, args):
         raise SystemExit(
             f"{flag} only applies to the mosi dataset (reference "
             f"mfm_mosi.py:37,60-73); got dataset={name!r}")
+    if name.endswith("_sdk"):
+        from factorized_tpu_torch.data import mmsdk
+
+        files = mmsdk.MOSEI_FILES if name == "mosei_sdk" else None
+        return mmsdk.get_data(seqlength, data_root=args.data_root,
+                              files=files,
+                              split=parse_split(getattr(args, "split",
+                                                        None)))
     from factorized_tpu_torch.data import mmmo, moud, youtube
 
     reader = {"moud": moud, "you": youtube, "mmmo": mmmo}[name]
@@ -208,10 +231,14 @@ def load_dataset(name, seqlength, args):
 
 
 def dataset_info(name, data, args):
-    """The ``DATASETS`` entry of ``name``; on MOSI's raw path
-    (``--feature-selection 0``) with the loaded data's input dims: text
-    300, covarep 34 and the rest the files' facet (``mfm_mosi.py:60-73``)."""
+    """The ``DATASETS`` entry of ``name`` with the loaded data's input
+    dims where the reader gives them (``mmsdk.SdkSplits.input_dims``), or
+    on MOSI's raw path (``--feature-selection 0``): text 300, covarep 34
+    and the rest the files' facet (``mfm_mosi.py:60-73``)."""
     info = DATASETS[name]
+    dims = getattr(data, "input_dims", None)
+    if dims:
+        return dict(info, input_dims=list(dims))
     if name != "mosi" or args.feature_selection:
         return info
     return dict(info, input_dims=[300, 34, int(data[0].shape[2]) - 334])
@@ -350,7 +377,9 @@ def refuse_lanes(args, cfg):
 
 def run_dataset(args):
     """The JAX package's ``run_dataset``: ``run_trials`` of
-    ``trial_config`` with run ids ``<dataset>_<trial>``, each through
+    ``trial_config`` (the input dims ``dataset_info``'s, those of the
+    .csd files for the ``*_sdk`` sets) with run ids
+    ``<dataset>_<trial>``, each through
     ``dispatch_trainer``, or with ``--seeds`` above 1 through
     ``train_lanes`` (``refuse_lanes`` first). Adam's lr is the config's
     ``lr`` for the classification sets (``moud``, ``you``:
@@ -359,6 +388,7 @@ def run_dataset(args):
     from factorized_tpu_torch import resolve_device
 
     refuse_off_search(args)
+    check_data_args(args.dataset, args)
     base = base_config(args)
     if args.mode == "single" and args.seeds <= 1:
         trial_config(args, base)  # a config no ported trainer takes exits
@@ -387,7 +417,7 @@ def run_dataset(args):
 
 
 def run_bucket_search(args, data, info, rng, device, sample_fn=None,
-                      prefix=None):
+                      prefix=None, record=None):
     """``--mode search --bucket``, the JAX package's ``run_bucket_search``:
     each round draws ``--trials`` configs (0: endless rounds of 16),
     groups them by shape (``multiconfig.bucket_configs``) and trains each
@@ -395,7 +425,8 @@ def run_bucket_search(args, data, info, rng, device, sample_fn=None,
     (``train_config_bucket``), run ids ``<prefix>_r<round>b<bucket>``, one
     ``config`` record a trial. ``moud``/``you`` take each config's lr,
     the others ``--lr``. ``sample_fn``/``prefix``: another surface's draw
-    and run ids (``multitrait``)."""
+    and run ids (``multitrait``); ``record``: fields ahead of each
+    config's in its record (the .csd styles' trait names)."""
     from factorized_tpu_torch.config import sample_search_config
     from factorized_tpu_torch.parallel.multiconfig import (
         bucket_configs, train_config_bucket)
@@ -422,7 +453,7 @@ def run_bucket_search(args, data, info, rng, device, sample_fn=None,
             bucket = [cfgs[i] for i in idxs]
             logger = RunLogger(args.out, run_id=f"{prefix}_r{round_i}b{bi}")
             for c in bucket:
-                logger.record("config", **c.to_dict())
+                logger.record("config", **(record or {}), **c.to_dict())
             kw = dict(logger=logger, seed=args.seed + round_i,
                       seeds_per_config=max(args.seeds, 1), device=device)
             if info["task"] == "classification":
@@ -511,11 +542,12 @@ def run_evolve_search(args, data, info, rng, device):
                           extra_kw=extra)
 
 
-def run_multitrait_evolve(args, data, input_dims, rng, device):
+def run_multitrait_evolve(args, data, input_dims, rng, device, meta):
     """``multitrait --mode search --evolve RUNGS``, the JAX package's
     ``run_multitrait_evolve``: draws of the ``mmmo`` space with a vector
     head of the set's traits, ranked by the mean test MAE over the
-    traits, at ``--lr``."""
+    traits, at ``--lr``; ``meta``: the ``search_meta`` record's fields
+    (the style, and the .csd styles' traits)."""
     import numpy as np
 
     from factorized_tpu_torch.config import sample_search_config
@@ -530,7 +562,7 @@ def run_multitrait_evolve(args, data, input_dims, rng, device):
     return _evolve_rounds(
         args, data, "mmmo", rng, make_template, args.style,
         lambda res: f"mean-MAE {res['best']['metrics']['mae_mean']:.4f}",
-        device, extra_kw={"lr": args.lr}, meta_extra={"style": args.style})
+        device, extra_kw={"lr": args.lr}, meta_extra=meta)
 
 
 def run_mosi_acc(args):
@@ -592,7 +624,8 @@ def run_mosi_acc(args):
 
 def run_predictor(args):
     """The JAX package's ``run_predictor``: the discriminative baselines
-    (``--kind eflstm|mfn|self_attention``) on ``--dataset`` through
+    (``--kind eflstm|mfn|self_attention``) on ``--dataset`` (a ``*_sdk``
+    set split by ``--split``, which the JAX command does not read) through
     ``trainers.train_predictor`` in ``run_trials``, run ids
     ``<kind>_<trial>``: a ``sample_search_config`` draw in ``--mode
     search``, ``best_mfn_mosi_config(--best)`` for ``--mode best --kind
@@ -608,7 +641,7 @@ def run_predictor(args):
                                              sample_search_config)
 
     refuse_lane_flags(args)
-    refuse_sdk(args.dataset)
+    check_data_args(args.dataset, args)
     if args.save_ckpt and args.kind != "mfn":
         raise SystemExit(
             "--save-ckpt is only supported for --kind mfn (the "
@@ -687,9 +720,13 @@ def run_multitrait(args):
     head (``--seeds`` lanes a config). Refused before any load, with the
     JAX package's words: ``--feature-selection 0`` and
     ``--normalize-covarep``, ``--bucket``/``--evolve`` outside ``--mode
-    search`` and ``--seeds`` above 1 without them; and the styles read
-    from the SDK's .csd files (``mosei_sdk``, ``pom_sdk``: "not yet
-    ported"). ``--save-ckpt`` writes ``<out>/ckpt_<style>_<trial>`` with
+    search`` and ``--seeds`` above 1 without them; a malformed
+    ``--split`` and a ``*_sdk`` style without a ``--data-root`` directory.
+    The styles ``mosei_sdk`` and ``pom_sdk`` read the SDK's .csd files
+    (``mmsdk.get_data`` with ``label_mode="vector"`` and ``--split``), the
+    input dims the files', and record their trait names in each config
+    record (``traits``; in the ``--evolve`` log's ``search_meta``).
+    ``--save-ckpt`` writes ``<out>/ckpt_<style>_<trial>`` with
     the output dim the run trained (the number of traits), so ``serve``
     replies one column a trait."""
     import numpy as np
@@ -712,29 +749,45 @@ def run_multitrait(args):
             "applies to --mode search with --bucket or --evolve "
             "(those lanes run seeds_per_config); other modes train "
             "one seed - drop --seeds or add --bucket/--evolve")
-    refuse_sdk(args.style)
+    check_data_args(args.style, args)
     base = base_config(args)
     device = resolve_device(args.device)
-    data = multitrait.get_data(base.seqlength, data_root=args.data_root,
-                               style=args.style)
+    record = {"style": args.style}
+    if args.style.endswith("_sdk"):
+        from factorized_tpu_torch.data import mmsdk
+
+        sdk = args.style == "mosei_sdk"
+        data = mmsdk.get_data(base.seqlength, data_root=args.data_root,
+                              files=mmsdk.MOSEI_FILES if sdk
+                              else mmsdk.POM_FILES,
+                              label_mode="vector",
+                              split=parse_split(args.split))
+        input_dims = list(data.input_dims)
+        # the per-trait metric lists are positional: name the columns
+        record["traits"] = mmsdk.MOSEI_TRAITS if sdk else multitrait.POM_TRAITS
+    else:
+        data = multitrait.get_data(base.seqlength, data_root=args.data_root,
+                                   style=args.style)
+        input_dims = list(multitrait.INPUT_DIMS)
     n_traits = int(np.asarray(data[1]).shape[1])
     rng = random.Random(args.seed)
     if args.mode == "search" and args.evolve:
-        return run_multitrait_evolve(args, data, multitrait.INPUT_DIMS, rng,
-                                     device)
+        return run_multitrait_evolve(args, data, input_dims, rng, device,
+                                     record)
     if args.mode == "search" and args.bucket:
         info = dict(task="regression", threshold=None, mode="ge",
-                    input_dims=list(multitrait.INPUT_DIMS),
-                    output_dim=n_traits)
+                    input_dims=input_dims, output_dim=n_traits)
 
         def sample_mt():
             return sample_search_config("mmmo", rng,
                                         model_type=args.type).replace(
-                input_dims=list(multitrait.INPUT_DIMS), task="regression",
+                input_dims=input_dims, task="regression",
                 output_dim=n_traits)
 
-        return run_bucket_search(args, data, info, rng, device,
-                                 sample_fn=sample_mt, prefix=args.style)
+        return run_bucket_search(
+            args, data, info, rng, device, sample_fn=sample_mt,
+            prefix=args.style,
+            record={k: v for k, v in record.items() if k == "traits"})
 
     def config_of(rng):
         if args.mode == "search":
@@ -743,7 +796,7 @@ def run_multitrait(args):
             cfg = best_acc_mosi_config(model_type=args.type)
         else:
             cfg = base.replace(model_type=args.type)
-        return overridden(args, cfg.replace(input_dims=multitrait.INPUT_DIMS,
+        return overridden(args, cfg.replace(input_dims=input_dims,
                                             task="regression"))
 
     def train(cfg, **kw):
@@ -755,7 +808,7 @@ def run_multitrait(args):
                  resume=())
 
     return run_trials(args, args.style, config_of, train, legacy_line=False,
-                      record={"style": args.style}, save=save)
+                      record=record, save=save)
 
 
 def run_test_mosi(args):
@@ -776,6 +829,12 @@ def run_test_mosi(args):
     predictor = Predictor.from_checkpoint(args.checkpoint, device=args.device)
     _, _, _, _, X_test, y_test = load_dataset("mosi", predictor.cfg.seqlength,
                                               args)
+    if X_test.shape[2] != sum(predictor.cfg.input_dims):
+        # a checkpoint of another set (the .csd sets' widths): serve it
+        raise SystemExit(
+            f"the checkpoint takes {sum(predictor.cfg.input_dims)} floats a "
+            f"step (input dims {predictor.cfg.input_dims}) and the MOSI test "
+            f"set {X_test.shape[2]}: test_mosi scores MOSI checkpoints")
     if args.autotune:
         tuned = predictor.autotune(X_test)
         print("autotuned batch sizes:", json.dumps(tuned),
@@ -857,6 +916,10 @@ def add_data_args(sp):
     sp.add_argument("--normalize-covarep", action="store_true",
                     help="mosi only: max-abs normalise covarep by train "
                          "statistics, as the reference's get_data_missing")
+    sp.add_argument("--profile", default=None, metavar="DIR",
+                    help="trace the whole command with torch.profiler into "
+                         "DIR (a Chrome trace; TensorBoard or "
+                         "chrome://tracing opens it)")
 
 
 def add_training_args(sp):
@@ -902,6 +965,10 @@ def add_training_args(sp):
                     help="every N epochs overwrite <out>/ckpt_auto_<run "
                          "id> with the current parameters, optimizer "
                          "state and step")
+    sp.add_argument("--split", default=None, metavar="N_TRAIN,N_VALID",
+                    help="the *_sdk sets' video split (default: 52,10 on "
+                         "MOSI's 93 videos, the same shares on any other "
+                         "count); the rest is test")
     sp.add_argument("--seeds", type=int, default=1,
                     help="train K seeds of each trial's config as lanes "
                          "of one program (the dataset subcommands and "
@@ -931,14 +998,14 @@ def add_training_args(sp):
 def build_parser():
     p = argparse.ArgumentParser(prog="factorized_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
-    for name in (*DATASETS, *NOT_YET_PORTED):
+    for name in DATASETS:
         sp = sub.add_parser(name, help=(
+            f"train on {name} from its CMU-MultimodalSDK .csd files under "
+            f"--data-root (needs h5py)" if name.endswith("_sdk") else
             f"train on {name} (its files under --data-root, else a "
-            f"synthetic set)" if name in DATASETS else
-            f"{name}: not yet ported (exits)"))
+            f"synthetic set)"))
         add_training_args(sp)
-        sp.set_defaults(func=run_dataset if name in DATASETS
-                        else run_not_ported, dataset=name)
+        sp.set_defaults(func=run_dataset, dataset=name)
     sp = sub.add_parser("mosi_acc", help="MOSI's binary-accuracy variant "
                                          "(labels y >= 0)")
     add_training_args(sp)
@@ -949,9 +1016,9 @@ def build_parser():
     add_training_args(sp)
     sp.add_argument("--kind", default="mfn",
                     choices=["eflstm", "mfn", "self_attention"])
-    sp.add_argument("--dataset", default="mosi",
-                    choices=[*DATASETS, *NOT_YET_PORTED],
-                    help="the dataset (the csd ones exit: not yet ported)")
+    sp.add_argument("--dataset", default="mosi", choices=list(DATASETS),
+                    help="the dataset (the *_sdk ones from their .csd files "
+                         "under --data-root)")
     sp.add_argument("--hidden", type=int, default=128,
                     help="LSTM width of eflstm and self_attention")
     sp.add_argument("--drop", type=float, default=0.5,
@@ -973,8 +1040,9 @@ def build_parser():
                         help="POM/IEMOCAP-style multi-trait regression")
     add_training_args(sp)
     sp.add_argument("--style", default="pom", choices=MULTITRAIT_STYLES,
-                    help="pom or iemocap (the csd styles exit: not yet "
-                         "ported)")
+                    help="pom or iemocap (synthetic, or CSVs under "
+                         "--data-root), mosei_sdk or pom_sdk (.csd files "
+                         "under --data-root)")
     sp.set_defaults(func=run_multitrait)
 
     sp = sub.add_parser("check", help="the best metrics of the run logs "
@@ -1028,11 +1096,31 @@ def build_parser():
                     help="torch device; the CUDA card unless given "
                          "(e.g. --device cpu)")
     sp.set_defaults(func=run_serve)
+
+    sp = sub.add_parser(
+        "warmup", help="build the kernels' library (or find it built) and "
+                       "run the main programs once: the MOSI trainer, 8 "
+                       "lanes of seeds, the released checkpoints' serving")
+    sp.add_argument("--device", default=None,
+                    help="torch device; the CUDA card unless given "
+                         "(e.g. --device cpu)")
+    sp.set_defaults(func=run_warmup)
     return p
+
+
+def run_warmup(args):
+    from factorized_tpu_torch.warmup import run_warmup as warm
+
+    return warm(args)
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    if getattr(args, "profile", None):
+        from factorized_tpu_torch.utils.profiling import trace
+
+        with trace(args.profile):
+            return args.func(args)
     return args.func(args)
 
 

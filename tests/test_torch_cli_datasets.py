@@ -12,9 +12,9 @@ arrays:
 - ``--type s2s|bm --missing 1`` reaching ``train_seq2seq`` /
   ``train_basic_missing`` as the JAX package's dispatch does (``s2s``
   without the threshold);
-- ``mosi_sdk`` and ``mosei_sdk`` exiting with "not yet ported" and
-  ``mosi_acc --evolve`` with the JAX package's refusal, before any data
-  loads; ``--mode search --bucket`` and ``--evolve`` (with ``--seeds
+- ``mosi_sdk`` with a malformed ``--split``, ``mosei_sdk`` without a
+  ``--data-root`` directory and ``mosi_acc --evolve`` (the JAX package's
+  refusal) exiting before any data loads; ``--mode search --bucket`` and ``--evolve`` (with ``--seeds
   2`` too) reaching the bucket and evolving trainers.
 
 Exact equality throughout: nothing here is computed in floating point."""
@@ -162,8 +162,9 @@ def test_missing_baselines_reach_their_trainers(command, model_type,
 # argv, then the refusal's words before any load, or None where the
 # command now runs: the search's trainer then gets the draws
 @pytest.mark.parametrize("argv,refusal", [
-    (["mosi_sdk", "--mode", "best"], "not yet ported"),
-    (["mosei_sdk"], "not yet ported"),
+    (["mosi_sdk", "--mode", "best", "--split", "52"],
+     "--split must be N_TRAIN,N_VALID video counts"),
+    (["mosei_sdk"], "mosei_sdk needs --data-root pointing at a directory"),
     (["moud", "--seeds", "2", "--mode", "search", "--bucket"], None),
     (["mosi_acc", "--seeds", "2", "--mode", "search", "--evolve", "2"],
      "is not wired to the mosi_acc surface"),

@@ -9,8 +9,9 @@ commands against the JAX command line, and the checkpoints they save.
   ``--lr`` for ``multitrait``), widths, optimizers, thresholds and resume
   paths, under the same run ids, ``config`` records and printed lines.
 - ``--save-ckpt`` refused for ``eflstm`` before any data loads; the
-  csd datasets and styles, ``--evolve``, ``--bucket``, ``--seeds 2`` and
-  the MOSI-only feature flags exiting before any load.
+  .csd datasets and styles without a ``--data-root`` directory or with a
+  malformed ``--split``, ``--evolve``, ``--bucket``, ``--seeds 2`` and the
+  MOSI-only feature flags exiting before any load.
 - A ``predictor --kind mfn --save-ckpt`` run and a ``multitrait
   --save-ckpt`` run through the real trainers (one epoch on small
   arrays): the checkpoints' configs, ``test_mosi`` on the ``mfn`` one,
@@ -220,7 +221,7 @@ def test_multitrait_trials_are_the_jax_command(run, recorded, tmp_path,
      "only supported for --kind mfn"),
     (["predictor", "--kind", "self_attention", "--save-ckpt"],
      "only supported for --kind mfn"),
-    (["predictor", "--dataset", "mosei_sdk"], "not yet ported"),
+    (["predictor", "--dataset", "mosei_sdk"], "mosei_sdk needs --data-root"),
     (["predictor", "--seeds", "2"], "the command trains one model"),
     (["predictor", "--mode", "search", "--bucket"],
      "--bucket does not apply to predictor: the command trains one model"),
@@ -231,8 +232,10 @@ def test_multitrait_trials_are_the_jax_command(run, recorded, tmp_path,
     (["test_attention", "--mode", "search", "--bucket"],
      "the command trains one model"),
     (["test_attention", "--evolve", "2"], "the command trains one model"),
-    (["multitrait", "--style", "mosei_sdk"], "not yet ported"),
-    (["multitrait", "--style", "pom_sdk"], "not yet ported"),
+    (["multitrait", "--style", "mosei_sdk", "--split", "40;10"],
+     "--split must be N_TRAIN,N_VALID video counts, got '40;10'"),
+    (["multitrait", "--style", "pom_sdk", "--data-root", "no_such_dir"],
+     "pom_sdk needs --data-root pointing at a directory"),
     (["multitrait", "--mode", "best", "--evolve", "2"],
      "--evolve only applies to --mode search"),
     (["multitrait", "--bucket"], "--bucket only applies to --mode search"),
