@@ -126,7 +126,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
     memory, ``cuda_lstm.SCRATCH``), device ms, events ms, bound, plain ms
     and the recurrences' per-cell ``nn.LSTM`` yardstick (``c1`` lines);
     then ``mosi --config`` with a JSON that makes an MFN cell of 1,400, an
-    encoder cell of 600 and a decoder cell of 3,000, 2 epochs: a finite,
+    encoder cell of 600 and a decoder cell of 3,000, 2 epochs, on the
+    fused path (forced: the config passes the FLOPs crossover): a finite,
     falling loss and every kernel of the path launched (``c1_train``);
 17. the ``mosi`` command's surface: ``--mode search --trials 3`` for
     ``mfm`` and ``kl_ef`` against the CPU's draws, ``--save-ckpt`` then
@@ -232,7 +233,25 @@ Run from the repository root: ``python3 chip_smoke.py``. It
     trace names the path's kernels, a replay's too); ``warmup``, each
     leg's seconds; the FLOPs of a ``mfm`` step (``utils/flops.py``) and
     their share of the float32 peak (``sdk``, ``sdk_warmup``,
-    ``sdk_flops`` lines).
+    ``sdk_flops`` lines);
+24. (run before step 22 prints) the modular path above the FLOPs
+    crossover (``models/mfm.py::fused_active``): (a) at the scale
+    probe's configs A and B (``benchprog.scale_candidates``), one on
+    either side of the crossover, one train step of ``mfm`` through each
+    path with ``FUSED`` forced, the same seeded draws: the losses and
+    every gradient of the modular step against the fused kernels' within
+    rtol 1e-3 / atol 2e-5 (TF32 off), the chain kernels' launch counts 0
+    on the modular step and 1 each on the fused one, the plans the
+    launchers reported against ``benchprog.active_paths`` (``modular``
+    lines); (b) ``benchprog.scale_cfg`` on the path the gate picks:
+    ``make_chunk`` at ``SCALE_E`` epochs of ``SCALE_NB`` batches (the
+    second epoch a capture and its replay), then ``SCALE_E`` more
+    replays: ``active_paths`` against the launch counts, finite losses,
+    the step's device ms (a replayed epoch by CUDA events over its
+    batches), its model FLOPs and their share of the float32 peak,
+    replay s, capture s, graph pool bytes and peak device memory
+    (``scale_chunk``); and ``warmup``'s three bench legs, each leg's
+    seconds and launches (``bench_legs``).
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1.
 """
@@ -1013,7 +1032,8 @@ def main():
               19: lambda: predictor_phase(cfg, dev, smi, tmp),
               20: lambda: lanes_phase(cfg, dev, smi, tmp),
               21: lambda: bucket_evolve_phase(cfg, dev, smi, tmp),
-              23: lambda: sdk_phase(cfg, dev, smi, tmp)}
+              23: lambda: sdk_phase(cfg, dev, smi, tmp),
+              24: lambda: modular_phase(dev, smi)}
     results = {}
     with tempfile.TemporaryDirectory() as tmp:
         for step, run in phases.items():
@@ -3311,8 +3331,12 @@ def c1_train_phase(cfg, smi, tmp):
     ``fv_size``), at batch 128 on the synthetic MOSI set: a finite,
     falling loss, every kernel of the path launched, and the chains past
     a block's state on the scratch plan (the eval encode of the
-    validation, the reverse pass, both decoder kernels)."""
+    validation, the reverse pass, both decoder kernels). Its step's
+    estimated FLOPs pass the crossover, so the gate would train it on the
+    modular path: the run forces the fused one (``models.mfm.FUSED``)."""
     import os
+
+    from factorized_tpu_torch.models import mfm
 
     wide = cfg.replace(h_dims=[1400, 64, 48], zl_size=600,
                        fv_size=3000 - cfg.fy_size, batchsize=128)
@@ -3321,9 +3345,14 @@ def c1_train_phase(cfg, smi, tmp):
         json.dump(wide.to_dict(), f)
     out = os.path.join(tmp, "c1_runs")
     kernels = ABLATION_TRAIN["m_a"]
-    seconds, launches, scratch = mosi_cli(
-        ["--config", path, "--epochs", "2", "--out", out,
-         "--seed", str(SEED)], "mosi --config (C1 widths)", kernels)
+    gate_fused = mfm.fused_active(wide)
+    saved, mfm.FUSED = mfm.FUSED, True
+    try:
+        seconds, launches, scratch = mosi_cli(
+            ["--config", path, "--epochs", "2", "--out", out,
+             "--seed", str(SEED)], "mosi --config (C1 widths)", kernels)
+    finally:
+        mfm.FUSED = saved
     losses = falling_finite(epoch_records(os.path.join(out, "mosi_0.jsonl")),
                             "C1 widths")
     on_scratch = ("mfm_encode_fwd", "mfm_encode_bwd", "decoder_lstm_fwd",
@@ -3336,6 +3365,7 @@ def c1_train_phase(cfg, smi, tmp):
     log({"phase": "c1_train", "nvidia_smi": smi, "seconds": seconds,
          "h_dims": wide.h_dims, "zl_size": wide.zl_size,
          "decoders": decoders, "batchsize": wide.batchsize,
+         "gate_fused": gate_fused, "forced_fused": True,
          "train_loss": losses, "launches": launches,
          "scratch_launches": scratch})
 
@@ -5489,7 +5519,7 @@ def sdk_phase(cfg, dev, smi, tmp):
                                         lambda: cli.main(["warmup"]))
     legs = {m.group(1): float(m.group(2)) for m in re.finditer(
         r"^warmup (\S+)\s+([0-9.]+)s\s+ok$", printed.getvalue(), re.M)}
-    if rc != 0 or len(legs) != 5:
+    if rc != 0 or len(legs) != 8:
         raise AssertionError(f"warmup exited {rc}: {printed.getvalue()}")
     paths["warmup"] = launches
     log({"phase": "sdk_warmup", "nvidia_smi": smi, "legs_s": legs,
@@ -5500,6 +5530,159 @@ def sdk_phase(cfg, dev, smi, tmp):
          "fp32_peak_flops": FP32_PEAK, **sdk_flops(
              cfg, dev, mosei_cfg, line["times"]["device_ms_per_step"])})
     return paths, lanes
+
+
+# the chain kernels' launch counters a train step of mfm reads
+CHAIN_KERNELS = ("mfm_encode_fwd", "mfm_encode_bwd", "mfm_encode_dw",
+                 "decoder_lstm_fwd", "decoder_lstm_bwd")
+# step 24(a): a config either side of the crossover
+CROSSOVER_SIDES = ("A_b256_h256", "B_b512_h512")
+
+
+def chain_counts(fn):
+    """fn() with every launch count set to 0 just before and read just
+    after: (fn's result, {chain kernel: launches})."""
+    for module, attr in counters().values():
+        setattr(module, attr, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: getattr(m, a) for k, (m, a) in counters().items()
+                 if k in CHAIN_KERNELS}
+
+
+def modular_phase(dev, smi):
+    """Step 24 (see the module's docstring)."""
+    from factorized_tpu_torch import benchprog, warmup
+    from factorized_tpu_torch.convert import from_state_dict, to_state_dict
+    from factorized_tpu_torch.perf_probe import reported_plans
+    from factorized_tpu_torch.models import mfm
+    from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
+    from factorized_tpu_torch.train import make_loss_fn
+    from factorized_tpu_torch.utils.flops import model_train_flops_per_step
+
+    # (a) each path's train step either side of the crossover
+    candidates = benchprog.scale_candidates()
+    saved = mfm.FUSED
+    for name in CROSSOVER_SIDES:
+        cfg = candidates[name]
+        gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+        x = torch.randn((cfg.seqlength, cfg.batchsize, cfg.d_total),
+                        generator=gen, device=dev)
+        y = torch.randn((cfg.batchsize,), generator=gen, device=dev)
+        params = mfm.MFM(cfg, seed=SEED, device=dev).tree()
+        runs = {}
+        try:
+            for fused in (True, False):
+                mfm.FUSED = fused
+                paths = benchprog.active_paths(cfg)
+                flat = {k: v.detach().clone().requires_grad_()
+                        for k, v in to_state_dict(params).items()}
+
+                def step():
+                    loss, _ = make_loss_fn(mfm.mfm_apply, cfg)(
+                        from_state_dict(flat), x, y,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            SEED + 25))
+                    loss.backward()
+                    return loss.detach()
+
+                cuda_mfn.CLUSTERS.clear()
+                cuda_lstm.CLUSTERS.clear()
+                loss, launches = chain_counts(step)
+                reported = reported_plans(paths)
+                if any((n > 0) != fused for n in launches.values()):
+                    raise AssertionError(
+                        f"{name}: FUSED = {fused} launched {launches}")
+                if any(reported[k] != v for k, v in paths.items()
+                       if k != "fused_blockdiag"):
+                    raise AssertionError(f"{name}: plans {reported}, "
+                                         f"active_paths {paths}")
+                runs[fused] = (float(loss), {k: v.grad.clone() for k, v in
+                                             flat.items()}, launches, paths)
+        finally:
+            mfm.FUSED = saved
+        (loss_f, grads_f, launches_f, paths_f), (loss_m, grads_m,
+                                                 launches_m, paths_m) = (
+            runs[True], runs[False])
+        loss_err = compare(f"modular.{name}.loss", torch.tensor(loss_m),
+                           torch.tensor(loss_f), GRAD_RTOL, GRAD_ATOL)
+        err = compare_all(f"modular.{name}.grads",
+                          [(k, grads_m[k], grads_f[k]) for k in grads_f],
+                          GRAD_RTOL, GRAD_ATOL)
+        log({"phase": "modular", "config": name, "nvidia_smi": smi,
+             "batch": cfg.batchsize,
+             "step_flops_estimate": mfm._step_flops_estimate(cfg),
+             "crossover": mfm._FUSED_FLOPS_CROSSOVER,
+             "gate_fused": mfm.fused_active(cfg),
+             "loss_fused": loss_f, "loss_modular": loss_m,
+             "loss_abs_err": loss_err["max_abs_err"],
+             "grads_max_abs_err": err["max_abs_err"],
+             "grads_tol_ratio": err["tol_ratio"],
+             "launches_fused": launches_f, "launches_modular": launches_m,
+             "active_paths_fused": paths_f,
+             "active_paths_modular": paths_m})
+        del params, runs, grads_f, grads_m
+        torch.cuda.empty_cache()
+
+    # (b) the scale config on the gate's path, then the bench legs
+    scfg = benchprog.scale_cfg()
+    paths = benchprog.active_paths(scfg)
+    torch.cuda.reset_peak_memory_stats()
+    program, params, opt = benchprog.build_train_state(scfg, seed=SEED,
+                                                       device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    t, B, d = scfg.seqlength, scfg.batchsize, scfg.d_total
+    sX = torch.randn((benchprog.SCALE_NB, t, B, d), generator=gen,
+                     device=dev)
+    sy = torch.randn((benchprog.SCALE_NB, B), generator=gen, device=dev)
+    chunk = benchprog.make_chunk(program, e=benchprog.SCALE_E)
+    t0 = time.perf_counter()
+    trs, launches = chain_counts(lambda: chunk(params, opt, sX, sy, gen,
+                                               1e-3))
+    first_s = time.perf_counter() - t0
+    if any((n > 0) != paths["fused_blockdiag"] for n in launches.values()):
+        raise AssertionError(f"scale_cfg: active_paths {paths}, launches "
+                             f"{launches}")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    trs_again = chunk(params, opt, sX, sy, gen)
+    end.record()
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    losses = torch.cat([trs, trs_again]).tolist()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"scale_cfg: losses {losses}")
+    (graph, _), = chunk.graphs.values()
+    step_ms = start.elapsed_time(end) / (benchprog.SCALE_E
+                                         * benchprog.SCALE_NB)
+    flops = model_train_flops_per_step(scfg)
+    log({"phase": "scale_chunk", "nvidia_smi": smi, "batch": B,
+         "epochs": 2 * benchprog.SCALE_E, "batches": benchprog.SCALE_NB,
+         "gate_fused": mfm.fused_active(scfg), "active_paths": paths,
+         "launches": launches, "losses": losses,
+         "step_device_ms": step_ms, "model_flops": flops,
+         "f32_peak_share": flops / (step_ms * 1e-3) / PEAK_F32_FLOPS,
+         "first_chunk_s": first_s, "replay_chunk_s": replay_s,
+         "replay_epoch_s": replay_s / benchprog.SCALE_E,
+         "capture_s": graph.capture_ms / 1e3,
+         "graph_pool_bytes": graph.pool_bytes,
+         "peak_memory_bytes": torch.cuda.max_memory_allocated()})
+    del program, params, opt, chunk, graph, sX, sy
+    torch.cuda.empty_cache()
+    legs = {}
+    for name, fn in warmup.bench_legs(dev):
+        t0 = time.perf_counter()
+        _, launches = chain_counts(fn)
+        legs[name] = {"seconds": time.perf_counter() - t0,
+                      "launches": launches}
+    scale_fused = mfm.fused_active(scfg)
+    for name, leg in legs.items():
+        fused = scale_fused if name == "bench_scale_chunk" else True
+        if any((n > 0) != fused for n in leg["launches"].values()):
+            raise AssertionError(f"{name}: launches {leg['launches']}")
+    log({"phase": "bench_legs", "nvidia_smi": smi, "legs": legs})
 
 
 def profile_steps(program, tree, opt, x, y, gen, steps=10):

@@ -19,9 +19,17 @@ variational MFM_KL (``kl``), the early-fusion variational MFM_KL_EF
   four ways. Returns ``(decoded, decoded_nol, decoded_noa, decoded_nov,
   mmd, missing_loss)``.
 
-The port always takes the fused path. Every random draw of a train
-forward has an injection point, in the order of the JAX package's
-``subkeys``; what is not handed in is drawn from the
+Each config takes one of two paths, picked from ``cfg`` alone before
+any launch (``fused_active``, the JAX package's gate and switch
+``FUSED``): below the FLOPs crossover the fused path (the encode kernel,
+the decoder kernel and, for ``kl_ef`` and ``missing``, the fused
+encoder-cell kernel, ``ops/fused.py``); at or above it the modular path
+of the JAX package, one recurrence per module in plain PyTorch
+(``ops/lstm.py``'s ``encoder_apply`` and ``decoder_apply``,
+``ops/mfn.py::mfn_scan``), whose products are cuBLAS's. Both paths
+compute the same function. Every random draw of a train forward has an
+injection point, in the order of the JAX package's ``subkeys``, and the
+same shape on both paths; what is not handed in is drawn from the
 ``torch.Generator``.
 """
 
@@ -51,7 +59,60 @@ from factorized_tpu_torch.ops.fused import (blockdiag, decoder_operands,
                                             fused_mfm_encode, lstm_operands,
                                             split_heads)
 from factorized_tpu_torch.ops.losses import l2_loss, loss_kld
-from factorized_tpu_torch.ops.lstm import encoder_init
+from factorized_tpu_torch.ops.lstm import (decoder_apply, encoder_apply,
+                                           encoder_init)
+from factorized_tpu_torch.ops.mfn import mfn_scan
+
+# The fused path against the modular one (the JAX package's switch):
+# "auto" picks by the closed-form FLOPs of a train step
+# (_step_flops_estimate) against _FUSED_FLOPS_CROSSOVER; True forces the
+# fused path, False the modular one.
+FUSED = "auto"
+
+# The geometric midpoint, in _step_flops_estimate's FLOPs, between the
+# largest config at which the fused path's train step took fewer device
+# ms than the modular path's and the smallest at which it took more, on
+# an H100 80GB HBM3 at 700.00 W (``perf_probe.py scale``, PERF.md section
+# 6): A_b256_h256 (7.958e10: fused 15.72 ms, modular 23.06 ms) and
+# B_b512_h512 (5.801e11: fused 166.20 ms, its chains' weights read from
+# L2, modular 39.93 ms).
+_FUSED_FLOPS_CROSSOVER = 2.1485901408992645e11
+
+
+def _step_flops_estimate(cfg) -> float:
+    """The closed-form estimate of one train step's model FLOPs that
+    feeds the gate (the JAX package's, term for term: the trio and MFN
+    LSTMs, the MFN's MLPs, the decoders and their output products, x3 for
+    the backward); ``utils/flops.py`` counts them exactly."""
+    t, n = cfg.seqlength, cfg.batchsize
+    d_l, d_a, d_v = cfg.input_dims
+    zs = (cfg.zl_size, cfg.za_size, cfg.zv_size)
+    per_t = 0.0
+    for d, z in zip((d_l, d_a, d_v), zs):
+        per_t += 4 * z * (d + z)
+    for d, h in zip((d_l, d_a, d_v), cfg.h_dims):
+        per_t += 4 * h * (d + h)
+    att_in = 2 * sum(cfg.h_dims)
+    g_in = att_in + cfg.memsize
+    per_t += att_in * cfg.att1_shape + cfg.att1_shape * att_in
+    per_t += att_in * cfg.att2_shape + cfg.att2_shape * cfg.memsize
+    per_t += g_in * cfg.gamma1_shape + cfg.gamma1_shape * cfg.memsize
+    per_t += g_in * cfg.gamma2_shape + cfg.gamma2_shape * cfg.memsize
+    for d, f in zip((d_l, d_a, d_v),
+                    (cfg.fl_size, cfg.fa_size, cfg.fv_size)):
+        hd = cfg.fy_size + f
+        per_t += 4 * hd * 2 * hd + hd * d
+    return 3.0 * 2.0 * n * t * per_t
+
+
+def fused_active(cfg) -> bool:
+    """Whether the fused path runs at this config (see ``FUSED``)."""
+    if FUSED is True:
+        return True
+    if not FUSED:
+        return False
+    return _step_flops_estimate(cfg) < _FUSED_FLOPS_CROSSOVER
+
 
 _ENCODERS = ("encoder_l", "encoder_a", "encoder_v")
 _DECODERS = ("decoder_l", "decoder_a", "decoder_v")
@@ -83,17 +144,21 @@ def _zf_all(params, zy, zl, za, zv, cfg=None, *, train=False,
     return tuple(split_heads(torch.relu(h @ w2 + b2), f_dims))
 
 
-def _reconstruct(params, fy, fl, fa, fv, t):
+def _reconstruct(params, fy, fl, fa, fv, t, cfg):
     """The three modality decoders over t steps: [x_l_hat, x_a_hat,
-    x_v_hat], each (t, n, d_i)."""
+    x_v_hat], each (t, n, d_i); one fused recurrence, or each decoder's
+    own on the modular path."""
     dec = params["dec"]
     drives = [torch.cat([fy, f], dim=1) for f in (fl, fa, fv)]
+    if not fused_active(cfg):
+        return [decoder_apply(dec[k], drive, t)
+                for k, drive in zip(_DECODERS, drives)]
     return fused_decoder_scan([dec[k] for k in _DECODERS], drives, t)
 
 
 def _decode(params, fy, fl, fa, fv, t, cfg, *, train=False, generator=None,
             y_mask=None):
-    x_l_hat, x_a_hat, x_v_hat = _reconstruct(params, fy, fl, fa, fv, t)
+    x_l_hat, x_a_hat, x_v_hat = _reconstruct(params, fy, fl, fa, fv, t, cfg)
     y_hat = yhead_apply(params["fy_to_y"], fy, cfg.fy_to_y_dropout, train,
                         generator, y_mask)
     return [x_l_hat, x_a_hat, x_v_hat, y_hat]
@@ -101,8 +166,17 @@ def _decode(params, fy, fl, fa, fv, t, cfg, *, train=False, generator=None,
 
 def _encode_stage(params, x_l, x_a, x_v, cfg, *, train=False, generator=None,
                   masks=None, bwd_variant="stream"):
-    """zl/za/zv latents and the MFN's last_hs, from the fused encode."""
+    """zl/za/zv latents and the MFN's last_hs: from the fused encode, or on
+    the modular path from the three encoders and ``mfn_scan`` (the same
+    ``masks``; ``bwd_variant`` is the fused encode's)."""
     enc = params["enc"]
+    if not fused_active(cfg):
+        zl, za, zv = [encoder_apply(enc[k], x)
+                      for k, x in zip(_ENCODERS, (x_l, x_a, x_v))]
+        mfn_last = mfn_scan(params["mfn_enc"]["mfn"], x_l, x_a, x_v,
+                            mem_dim=cfg.memsize, drops=mfn_drops(cfg),
+                            train=train, generator=generator, masks=masks)
+        return zl, za, zv, mfn_last
     (hl, ha, hv), mfn_last = fused_mfm_encode(
         [enc[k]["lstm"] for k in _ENCODERS], params["mfn_enc"]["mfn"],
         x_l, x_a, x_v, mem_dim=cfg.memsize, drops=mfn_drops(cfg),
@@ -293,13 +367,15 @@ def mfm_kl_ef_apply(params, x, cfg, *, generator=None, train=False,
     the order of the JAX package's ``subkeys(key, 2)``: ``zf_masks`` and
     ``y_mask`` as in ``mfm_apply``; the eval forward draws nothing."""
     t = x.shape[0]
-    enc = params["enc"]
-    hl, ha, hv, h_ef = fused_lstm_scan(*_kl_ef_cells(params, x, cfg))
-    zl, za, zv, lv_l, lv_a, lv_v = _var_latents(
-        params, linear_apply(enc["encoder_l"]["fc1"], hl),
-        linear_apply(enc["encoder_a"]["fc1"], ha),
-        linear_apply(enc["encoder_v"]["fc1"], hv))
-    ef_last = linear_apply(params["ef_encoder"]["fc1"], h_ef)
+    encoders = [params["enc"][k] for k in _ENCODERS] + [params["ef_encoder"]]
+    cells, xs = _kl_ef_cells(params, x, cfg)
+    if fused_active(cfg):
+        lasts = [linear_apply(p["fc1"], h)
+                 for p, h in zip(encoders, fused_lstm_scan(cells, xs))]
+    else:
+        lasts = [encoder_apply(p, xi) for p, xi in zip(encoders, xs)]
+    zl, za, zv, lv_l, lv_a, lv_v = _var_latents(params, *lasts[:3])
+    ef_last = lasts[3]
     zy = linear_apply(params["last_to_zy"], ef_last)
     lv_y = linear_apply(params["last_to_logvarzy"], ef_last)
     kld = (loss_kld(zl, lv_l) + loss_kld(za, lv_a) + loss_kld(zv, lv_v)
@@ -354,9 +430,14 @@ def mfm_missing_apply(params, x, cfg, *, generator=None, train=False,
                                          train=train, generator=generator,
                                          masks=encode_masks)
     zy = linear_apply(params["mfn_enc"]["last_to_zy"], mfn_last)
-    hs = fused_lstm_scan(*_missing_cells(params, x, cfg))
-    zv_nov, za_noa, zl_nol, zy_nov, zy_noa, zy_nol = [
-        linear_apply(params[k]["fc1"], h) for k, h in zip(_SURROGATES, hs)]
+    cells, xs = _missing_cells(params, x, cfg)
+    if fused_active(cfg):
+        surrogates = [linear_apply(params[k]["fc1"], h) for k, h in zip(
+            _SURROGATES, fused_lstm_scan(cells, xs))]
+    else:
+        surrogates = [encoder_apply(params[k], xi)
+                      for k, xi in zip(_SURROGATES, xs)]
+    zv_nov, za_noa, zl_nol, zy_nov, zy_noa, zy_nol = surrogates
 
     mmd = _mmd4(zl, za, zv, zy, _mmd_noise(mmd_noise, generator, cfg, x))
     missing_loss = (l2_loss(zv_nov, zv) + l2_loss(za_noa, za)
@@ -377,8 +458,9 @@ def _decode_stacked(params, latents, t, cfg, *, train=False, generator=None,
     """The decodes of the latent sets ``latents`` [(zl, za, zv, zy)], all
     over the same decoder parameters: each set's z->f MLPs and y head run
     per set, in order (the JAX package's order of draws), and the decoder
-    recurrence runs once over the sets stacked along the rows. Returns a
-    decode ``[x_l_hat, x_a_hat, x_v_hat, y_hat]`` per set."""
+    recurrence runs once over the sets stacked along the rows (on the
+    modular path, once per set, as the JAX package's). Returns a decode
+    ``[x_l_hat, x_a_hat, x_v_hat, y_hat]`` per set."""
     fs, y_hats = [], []
     for k, (zl, za, zv, zy) in enumerate(latents):
         fy, fl, fa, fv = _zf_all(params, zy, zl, za, zv, cfg, train=train,
@@ -386,7 +468,10 @@ def _decode_stacked(params, latents, t, cfg, *, train=False, generator=None,
         fs.append((fy, fl, fa, fv))
         y_hats.append(yhead_apply(params["fy_to_y"], fy, cfg.fy_to_y_dropout,
                                   train, generator, y_masks[k]))
-    recon = _reconstruct(params, *(torch.cat(f) for f in zip(*fs)), t)
+    if not fused_active(cfg):
+        return [[*_reconstruct(params, *f, t, cfg), y]
+                for f, y in zip(fs, y_hats)]
+    recon = _reconstruct(params, *(torch.cat(f) for f in zip(*fs)), t, cfg)
     n = latents[0][0].shape[0]
     return [[x[:, k * n:(k + 1) * n] for x in recon] + [y_hats[k]]
             for k in range(len(latents))]

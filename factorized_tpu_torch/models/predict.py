@@ -33,6 +33,14 @@ MFM encode alone). The families:
 ``YHat`` holds the operands as buffers, so ``torch.export`` carries them
 inside the artifact; the two recurrences are custom ops, the kernels on
 the card and their plain versions on the CPU.
+
+Serving follows the training path's gate (``models/mfm.py::
+fused_active``), as the JAX ``Predictor`` does: at a config at or above
+the FLOPs crossover the ``"encode"`` family runs the modular MFN
+(``ops/mfn.py::mfn_scan``) and ``"early_fusion"`` the early-fusion
+cell's own recurrence (``ops/lstm.py::lstm_scan``), plain PyTorch over
+the parameters as they are (``YHat.recurrence``), then the same heads.
+Below it nothing changes.
 """
 
 from __future__ import annotations
@@ -41,11 +49,15 @@ import torch
 from torch import nn
 
 # importing the two wrapper modules registers the ftt:: custom ops
+from factorized_tpu_torch.models.common import split_modalities
+from factorized_tpu_torch.models.mfm import ParamTree, fused_active
 from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn  # noqa: F401
 from factorized_tpu_torch.ops.fused import (blockdiag, encode_cells,
                                             encode_weights,
                                             gate_major_blockdiag,
                                             input_projection)
+from factorized_tpu_torch.ops.lstm import lstm_scan
+from factorized_tpu_torch.ops.mfn import mfn_scan
 
 # the model types whose y_hat this forward computes, by family
 FAMILIES = {"mfm": "encode", "kl": "encode", "missing": "encode",
@@ -53,6 +65,14 @@ FAMILIES = {"mfm": "encode", "kl": "encode", "missing": "encode",
             "m_b": "trio", "m_d": "trio", "mfn": "mfn_predictor"}
 _ENCODERS = ("encoder_l", "encoder_a", "encoder_v")
 _TRIO_ZF = ("zl_to_fl", "za_to_fa", "zv_to_fv")
+# the families whose recurrence follows the gate
+GATED = ("encode", "early_fusion")
+
+
+def modular(cfg, model_type: str) -> bool:
+    """Whether ``YHat`` serves ``model_type`` at ``cfg`` on the modular
+    path (``fused_active`` is false for a gated family)."""
+    return FAMILIES.get(model_type) in GATED and not fused_active(cfg)
 
 
 def pack(params, cfg, model_type: str):
@@ -60,7 +80,8 @@ def pack(params, cfg, model_type: str):
     once: ``(operands, h_dims, z_tot)``, operands a dict of contiguous
     tensors (``w_<name>`` the encode's ``cuda_mfn.W_NAMES``; ``zy*``
     only where a zy head is read; ``f*`` only where the z -> f MLP is;
-    ``y1*`` only for a two-layer label head)."""
+    ``y1*`` only for a two-layer label head) and, on the modular path,
+    ``"recurrence"`` the tree of its recurrence's parameters."""
     if model_type not in FAMILIES:
         raise ValueError(f"no y_hat forward for model type {model_type!r}; "
                          f"known: {sorted(FAMILIES)}")
@@ -86,10 +107,16 @@ def pack(params, cfg, model_type: str):
     if family == "early_fusion":
         cell, fc1 = params["ef_encoder"]["lstm"], params["ef_encoder"]["fc1"]
         h_dims, z_tot = [cell["wh"].shape[0]], 0
-        ops.update(wx=cell["wx"], bx=cell["b"], wh=cell["wh"],
-                   e1w=fc1["w"], e1b=fc1["b"],
+        ops.update(dict(recurrence=cell) if modular(cfg, model_type)
+                   else dict(wx=cell["wx"], bx=cell["b"], wh=cell["wh"]))
+        ops.update(e1w=fc1["w"], e1b=fc1["b"],
                    zyw=params["last_to_zy"]["w"],
                    zyb=params["last_to_zy"]["b"])
+    elif modular(cfg, model_type):
+        ops.update(zyw=params["mfn_enc"]["last_to_zy"]["w"],
+                   zyb=params["mfn_enc"]["last_to_zy"]["b"],
+                   recurrence=params["mfn_enc"]["mfn"])
+        h_dims, z_tot = [], 0
     else:
         encoders = ([params["enc"][k]["lstm"] for k in _ENCODERS]
                     if family == "encode" else [])
@@ -97,8 +124,14 @@ def pack(params, cfg, model_type: str):
                    zyb=params["mfn_enc"]["last_to_zy"]["b"])
         return _pack_encode(params["mfn_enc"]["mfn"], encoders, spans, cfg,
                             ops)
-    return ({k: v.detach().contiguous() for k, v in ops.items()}, h_dims,
-            z_tot)
+    return ({k: _detached(v) for k, v in ops.items()}, h_dims, z_tot)
+
+
+def _detached(tree):
+    """A tensor, or each leaf of a tree, detached and contiguous."""
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    return tree.detach().contiguous()
 
 
 def _pack_encode(mfn, encoders, spans, cfg, ops):
@@ -167,10 +200,18 @@ class YHat(nn.Module):
         self.zy_head = "zyw" in ops
         self.zf = "f1w" in ops
         self.two_layer_head = "y1w" in ops
+        self.modular = "recurrence" in ops
+        if self.modular:
+            self.recurrence = ParamTree(ops.pop("recurrence")).to(device)
+            self.recurrence.requires_grad_(False)
+        self.input_dims = list(cfg.input_dims)
+        self.mem_dim = cfg.memsize
         for k, v in ops.items():
             self.register_buffer(k, v.to(device=device, dtype=torch.float32))
 
     def forward(self, x):
+        if self.modular:
+            return self._head(self._modular_last(x))
         t, n, d = x.shape
         xp = (x.reshape(t * n, d) @ self.wx + self.bx).reshape(t, n, -1)
         if self.family in ("early_fusion", "trio"):
@@ -181,6 +222,18 @@ class YHat(nn.Module):
                 xp, [getattr(self, f"w_{k}") for k in cuda_mfn.W_NAMES],
                 self.z_tot, self.h_dims)
             last = torch.cat([h_last[:, self.z_tot:], mem], dim=1)
+        return self._head(last)
+
+    def _modular_last(self, x):
+        """The gated family's last state on the modular path."""
+        tree = self.recurrence.tree()
+        if self.family == "early_fusion":
+            _, h, _ = lstm_scan(tree, x)
+            return h @ self.e1w + self.e1b
+        return mfn_scan(tree, *split_modalities(x, self.input_dims),
+                        mem_dim=self.mem_dim, drops=(0.0,) * 4)
+
+    def _head(self, last):
         f = last @ self.zyw + self.zyb if self.zy_head else last
         if self.zf:
             f = torch.relu(torch.relu(f @ self.f1w + self.f1b) @ self.f2w

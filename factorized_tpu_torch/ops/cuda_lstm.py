@@ -82,6 +82,116 @@ STATE_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong,
                   ctypes.POINTER(ctypes.c_longlong)]
 
 
+# ----------------------------------------------------------------- plans
+# The launchers' plan arithmetic in Python (csrc/lstm_common.cuh's
+# chain_plan over the byte counts of csrc/cell_fwd.cuh's fwd_chain_bytes
+# and csrc/cell_bwd.cuh's cell_chain_bytes, at the sources' rows and
+# threads), so that a chain's plan is known from the widths before any
+# launch (benchprog.active_paths); chip_smoke.py step 24 holds it against
+# the plans the launchers report in CLUSTERS. The shared memory a block
+# may take (kMaxSmemBytes), the largest cluster, and the rows a block of
+# csrc/lstm_fwd.cu (decoders; encoder cells train, eval) and
+# csrc/lstm_bwd.cu (decoders, encoder cells) takes
+MAX_SMEM_BYTES = 232448
+MAX_CLUSTER = 8
+FWD_THREADS = 512
+DECODER_FWD_ROWS, MULTI_TRAIN_ROWS, MULTI_EVAL_ROWS = 2, 2, 8
+DECODER_BWD_ROWS, MULTI_BWD_ROWS = 1, 2
+
+
+def pad4(floats: int) -> int:
+    """Floats rounded up to 16 bytes."""
+    return (floats + 3) & ~3
+
+
+def cell_cols(h: int, C: int) -> int:
+    """The gate columns a block of a cluster of C holds of a cell of h."""
+    return 4 * h if C == 1 else ((4 * h + C - 1) // C + 3) & ~3
+
+
+def lanes_per_output(items: int, threads: int) -> int:
+    ks = 32
+    while ks > 1 and items * ks > threads:
+        ks >>= 1
+    return ks
+
+
+def conflict_free_pitch(length: int, unit: int) -> int:
+    if unit >= 32:
+        return length
+    p = length
+    while p % unit or (p // unit) % 2 == 0:
+        p += 1
+    return p
+
+
+def fwd_chain_bytes(h_dims, rows: int, threads: int, C: int) -> int:
+    """A forward chain's shared memory a block on a cluster of C (0: the
+    weights read from L2, the per-row state alone), the largest cell's."""
+    CC = 1 if C == 0 else C
+    most = 0
+    for h in h_dims:
+        kc = cell_cols(h, CC)
+        kg = lanes_per_output(kc, threads)
+        while kg > 1 and kg > h:
+            kg >>= 1
+        f = (h * kc + 2 * pad4(h * rows) + 2 * 4 * h * rows
+             + (2 if CC > 1 else 1) * kg * kc * rows)
+        most = max(most, f - (h * kc if C == 0 else 0))
+    return 4 * most
+
+
+def cell_chain_bytes(h_dims, rows: int, threads: int, op_width: int,
+                     C: int) -> int:
+    """A backward chain's shared memory a block, likewise (``op_width``
+    operand floats a row and unit)."""
+    CC = 1 if C == 0 else C
+    most = 0
+    for h in h_dims:
+        ks = lanes_per_output(h, threads)
+        kc = cell_cols(h, CC)
+        wp = conflict_free_pitch(kc, min(4 * ks, 32))
+        f = (h * wp + 2 * pad4(h * rows) + rows * CC * kc
+             + 2 * rows * op_width * h
+             + (2 * pad4(h * rows) if CC > 1 else 0))
+        most = max(most, f - (h * wp if C == 0 else 0))
+    return 4 * most
+
+
+def chain_plan(bytes_at) -> int:
+    """The smallest cluster whose blocks' bytes (``bytes_at(C)``) fit,
+    else 0 (weights from L2) where the per-row state alone
+    (``bytes_at(0)``) fits, else ``SCRATCH``."""
+    C = 1
+    while C <= MAX_CLUSTER:
+        if bytes_at(C) <= MAX_SMEM_BYTES:
+            return C
+        C *= 2
+    return 0 if bytes_at(0) <= MAX_SMEM_BYTES else SCRATCH
+
+
+def decoder_plans(h_dims):
+    """The plans of the decoder recurrence's forward and backward chains
+    over the fused cells ``h_dims``, as ``CLUSTERS`` records them."""
+    return {
+        "decoder_lstm_fwd": chain_plan(lambda C: fwd_chain_bytes(
+            h_dims, DECODER_FWD_ROWS, FWD_THREADS, C)),
+        "decoder_lstm_bwd": chain_plan(lambda C: cell_chain_bytes(
+            h_dims, DECODER_BWD_ROWS, BWD_THREADS, 7, C))}
+
+
+def multi_plans(h_dims, train: bool = True):
+    """The plans of the fused encoder cells' forward (train or eval rows)
+    and, in training, backward chains."""
+    rows = MULTI_TRAIN_ROWS if train else MULTI_EVAL_ROWS
+    plans = {"multi_lstm_fwd": chain_plan(lambda C: fwd_chain_bytes(
+        h_dims, rows, FWD_THREADS, C))}
+    if train:
+        plans["multi_lstm_bwd"] = chain_plan(lambda C: cell_chain_bytes(
+            h_dims, MULTI_BWD_ROWS, MULTI_BWD_THREADS, 6, C))
+    return plans
+
+
 def lane_launches(lanes: int) -> int:
     """The launches a call over ``lanes`` lanes takes (1 for none)."""
     return max(1, -(-lanes // MAX_LANES))

@@ -64,9 +64,10 @@ import torch
 from factorized_tpu_torch.ops import _build
 from factorized_tpu_torch.ops.core import dropout_mask
 from factorized_tpu_torch.ops.cuda_lstm import (
-    LANE_ARGTYPES, STATE_ARGTYPES, batched, cell_columns, check_lanes,
-    count_lanes, count_plans, lane_launches, lane_strides, lanes_of,
-    launch_chains, recurrent_weight_grad_lanes, refusal)
+    LANE_ARGTYPES, STATE_ARGTYPES, batched, cell_chain_bytes, cell_columns,
+    chain_plan, check_lanes, conflict_free_pitch, count_lanes, count_plans,
+    fwd_chain_bytes, lane_launches, lane_strides, lanes_of, lanes_per_output,
+    launch_chains, pad4, recurrent_weight_grad_lanes, refusal)
 from factorized_tpu_torch.ops.lstm import recurrent_weight_grad
 
 W_NAMES = ("wh", "a1w1", "a1b1", "a1w2", "a1b2", "a2w1", "a2b1",
@@ -148,6 +149,59 @@ def sizes(weights):
     s3 = weights["g1w2"].shape[0]
     return (weights["a1w1"].shape[1], weights["a2w1"].shape[1], s3,
             weights["gw1"].shape[1] - s3, weights["a2w2"].shape[1])
+
+
+# the rows a block of the forward's LSTM and memory chains take without
+# residuals (eval) and with them (train), and of the reverse pass's
+# memory and LSTM chains (csrc/mfm_encode_fwd.cu, csrc/mfm_encode_bwd.cu),
+# and the operand floats a row and unit of the reverse LSTM chains: the
+# plans' arithmetic (encode_plans)
+EVAL_ROWS, TRAIN_ROWS = (8, 2), (2, 1)
+BWD_MEM_ROWS, BWD_CELL_ROWS, BWD_CELL_OP_WIDTH = 1, 2, 8
+
+
+def _mem_fwd_bytes(mem, s3, s4, C, rows, threads):
+    """The forward's memory chain, a block on a cluster of C (0: L2)."""
+    s34 = s3 + s4
+    state = rows * (2 * mem + s34 + 2 * (2 * s34 + mem))
+    if C == 0:
+        return 4 * state
+    cu, cm = -(-s34 // C), -(-mem // C)
+    pu = conflict_free_pitch(mem, lanes_per_output(cu, threads))
+    ksm = lanes_per_output(cm, threads)
+    return 4 * (pad4(cu * pu) + pad4(cm * conflict_free_pitch(s3, ksm))
+                + pad4(cm * conflict_free_pitch(s4, ksm)) + state)
+
+
+def _mem_bwd_bytes(mem, s34, C, rows, threads):
+    """The reverse pass's memory chain, likewise."""
+    state = 2 * rows * (4 * mem + s34) + rows * (5 * mem + s34)
+    if C == 0:
+        return 4 * state
+    cu, cm = -(-s34 // C), -(-mem // C)
+    return 4 * (cu * conflict_free_pitch(mem, lanes_per_output(cu, threads))
+                + cm * conflict_free_pitch(s34, lanes_per_output(cm, threads))
+                + state)
+
+
+def encode_plans(h_dims, s3: int, s4: int, mem: int, train: bool = True):
+    """The plans of the encode's chains for the fused cells ``h_dims``,
+    gamma widths s3, s4 and memory ``mem``, before any launch (the
+    launchers' arithmetic, ``cuda_lstm.chain_plan``), as ``CLUSTERS``
+    records them: ``mfm_encode_fwd`` (LSTM chains, memory chain) with the
+    train or eval rows and, in training, ``mfm_encode_bwd`` (memory chain,
+    LSTM chains)."""
+    cr, mr = TRAIN_ROWS if train else EVAL_ROWS
+    plans = {"mfm_encode_fwd": (
+        chain_plan(lambda C: fwd_chain_bytes(h_dims, cr, THREADS, C)),
+        chain_plan(lambda C: _mem_fwd_bytes(mem, s3, s4, C, mr, THREADS)))}
+    if train:
+        plans["mfm_encode_bwd"] = (
+            chain_plan(lambda C: _mem_bwd_bytes(mem, s3 + s4, C,
+                                                BWD_MEM_ROWS, BWD_THREADS)),
+            chain_plan(lambda C: cell_chain_bytes(
+                h_dims, BWD_CELL_ROWS, BWD_THREADS, BWD_CELL_OP_WIDTH, C)))
+    return plans
 
 
 def _layout(names, widths):

@@ -2,7 +2,7 @@
 
 Run from the repository root on the card:
 ``python -m factorized_tpu_torch.perf_probe [serve] [train] [multi]
-[profile] [times]`` (the first four parts when none is named), or
+[profile] [times] [scale]`` (the first four parts when none is named), or
 ``python -m factorized_tpu_torch.perf_probe phases`` or ``... rows``
 alone. Prints JSON lines:
 
@@ -56,6 +56,22 @@ alone. Prints JSON lines:
   forward's train (n = 32) and eval (n = 256) variants, and the
   weight-gradient kernel (n = 32, a step being a chunk of its rows: load
   and sum); with the SM clock read just after;
+- ``scale`` (part ``scale``): the sweep of the fused path against the
+  modular one (``models/mfm.py::FUSED`` forced) over
+  ``best_acc_mosi_config`` and the scale probe's configs A to E
+  (``benchprog.scale_candidates``), one line a config and path: the
+  train step's device ms (one step's CUDA graph, its replays queued
+  behind a sleeping kernel, or back to back by CUDA events where
+  enqueueing the graph stalls the host while the card sleeps: the
+  ``timing`` key), the chain kernels' launches a step, the
+  plans ``benchprog.active_paths`` gives and those the launchers
+  reported (``CLUSTERS``), the model FLOPs (``utils/flops.py``) and
+  their share of the float32 peak, ``_step_flops_estimate`` (the gate's
+  measure), the eager step's and the capture's host ms, the graph pool's
+  bytes and the peak device memory; then one ``scale_crossover`` line:
+  the largest config at which the fused step took fewer device ms, the
+  smallest at which it took more, and the geometric midpoint of their
+  estimates (``_FUSED_FLOPS_CROSSOVER``);
 - ``card``: the ``nvidia-smi`` name and power limit.
 """
 
@@ -809,6 +825,156 @@ def profile(cfg, params):
         flush=True)
 
 
+# the card's float32 peak without tensor cores, FLOP/s (PERF.md section 6)
+F32_PEAK = 67e12
+# the chain kernels' launch counters: {name: (module, attribute)}
+CHAIN_COUNTERS = {"mfm_encode_fwd": (cuda_mfn, "LAUNCHES"),
+                  "mfm_encode_bwd": (cuda_mfn, "BWD_LAUNCHES"),
+                  "mfm_encode_dw": (cuda_mfn, "DW_LAUNCHES"),
+                  "decoder_lstm_fwd": (cuda_lstm, "LAUNCHES"),
+                  "decoder_lstm_bwd": (cuda_lstm, "BWD_LAUNCHES")}
+
+
+def chain_launches(fn):
+    """fn() and the chain kernels' launches it counted, by kernel."""
+    before = {k: getattr(m, a) for k, (m, a) in CHAIN_COUNTERS.items()}
+    fn()
+    return {k: getattr(m, a) - before[k]
+            for k, (m, a) in CHAIN_COUNTERS.items()}
+
+
+def reported_plans(paths):
+    """The plans the launchers reported for the kernels of ``paths`` (an
+    ``active_paths``), as they record them in ``CLUSTERS``."""
+    return {k: (cuda_mfn.CLUSTERS if k.startswith("mfm") else
+                cuda_lstm.CLUSTERS).get(k) for k in paths
+            if k != "fused_blockdiag"}
+
+
+def scale_point(name, cfg, fused, dev, smi):
+    """One train step of ``mfm`` at ``cfg`` on the path ``fused`` forces
+    (see the module's docstring, part ``scale``): a dict."""
+    import gc
+
+    from factorized_tpu_torch import benchprog
+    from factorized_tpu_torch.train import Graphed
+    from factorized_tpu_torch.utils.flops import model_train_flops_per_step
+
+    saved = mfm.FUSED
+    mfm.FUSED = fused
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        paths = benchprog.active_paths(cfg)
+        program, params, opt = benchprog.build_train_state(cfg, seed=0,
+                                                           device=dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        t, n = cfg.seqlength, cfg.batchsize
+        x = torch.randn((t, n, cfg.d_total), generator=gen, device=dev)
+        y = torch.randn((n,), generator=gen, device=dev)
+        loss = torch.zeros((), device=dev)
+
+        def step():
+            loss.copy_(program.step(params, opt, x, y, gen))
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cuda_mfn.CLUSTERS.clear()
+        cuda_lstm.CLUSTERS.clear()
+        launches = chain_launches(step)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        reported = reported_plans(paths)
+        graph = Graphed(step, (gen,))
+        graph()  # eager, on the graph's stream
+        graph()  # the capture and a replay
+        reps = 2 if eager_ms > 1000 else 5 if eager_ms > 100 else 20
+        try:
+            device_ms, timing = _device_ms(graph, reps), "queued"
+        except RuntimeError:
+            # a graph this large stalls the host while the card sleeps:
+            # back-to-back replays, each longer than its launch, keep the
+            # card busy
+            device_ms, timing = _ms(graph, reps), "events"
+        model_flops = model_train_flops_per_step(cfg)
+        out = {
+            "scale": name, "fused": fused, "nvidia_smi": smi,
+            "batch": n, "h_dims": list(cfg.h_dims), "mem": cfg.memsize,
+            "mlp": cfg.att1_shape,
+            "step_flops_estimate": mfm._step_flops_estimate(cfg),
+            "model_flops": model_flops, "step_device_ms": device_ms,
+            "timing": timing,
+            "f32_peak_share": model_flops / (device_ms * 1e-3) / F32_PEAK,
+            "chain_launches_per_step": launches,
+            "active_paths": paths, "reported_plans": reported,
+            "plans_match": all(reported[k] == v for k, v in paths.items()
+                               if k != "fused_blockdiag"),
+            "launches_match": all((k > 0) == fused
+                                  for k in launches.values()),
+            "eager_step_ms": eager_ms, "capture_ms": graph.capture_ms,
+            "graph_pool_bytes": graph.pool_bytes,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "loss": float(loss)}
+        del graph, program, params, opt
+        return out
+    finally:
+        mfm.FUSED = saved
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def scale_sweep(dev, smi):
+    """Part ``scale``: a line a config and path, then the crossover."""
+    from factorized_tpu_torch import benchprog
+    from factorized_tpu_torch.ops import _build
+
+    _build.load_library()  # the eager steps' times hold no build
+    configs = {"best_acc_mosi_config": best_acc_mosi_config(),
+               **benchprog.scale_candidates()}
+    points = {}
+    for name, cfg in configs.items():
+        for fused in (True, False):
+            try:
+                point = scale_point(name, cfg, fused, dev, smi)
+            except Exception as e:  # print every config it ran
+                point = {"scale": name, "fused": fused,
+                         "error": f"{type(e).__name__}: {e}"}
+            points[name, fused] = point
+            print(json.dumps(point), flush=True)
+    print(json.dumps(crossover(points, configs)), flush=True)
+
+
+def crossover(points, configs):
+    """The ``scale_crossover`` line of ``scale_sweep``'s points
+    ({(name, fused): point}): by ``_step_flops_estimate``, the largest
+    config whose fused step took fewer device ms than its modular one,
+    the smallest whose took more, and the geometric midpoint of the two
+    estimates; where one path wins at every config measured, twice the
+    largest estimate (fused) or half the smallest (modular)."""
+    est = {name: mfm._step_flops_estimate(cfg)
+           for name, cfg in configs.items()}
+    wins = {name: points[name, True]["step_device_ms"]
+            < points[name, False]["step_device_ms"]
+            for name in configs
+            if "error" not in points[name, True]
+            and "error" not in points[name, False]}
+    fused_wins = [n for n in wins if wins[n]]
+    modular_wins = [n for n in wins if not wins[n]]
+    below = max(fused_wins, key=est.get, default=None)
+    above = min(modular_wins, key=est.get, default=None)
+    if above is None:
+        value = 2.0 * max(est[n] for n in wins)
+    elif below is None:
+        value = est[above] / 2.0
+    else:
+        value = (est[below] * est[above]) ** 0.5
+    return {"scale_crossover": value, "fused_wins_at": fused_wins,
+            "modular_wins_at": modular_wins, "largest_fused_win": below,
+            "smallest_modular_win": above,
+            "ordered": below is None or above is None
+            or est[below] < est[above]}
+
+
 def main(parts=None):
     parts = set(parts or ("serve", "train", "multi", "profile"))
     # row_times (run by part rows) takes the macros of its build
@@ -822,7 +988,7 @@ def main(parts=None):
             rows[macro] = int(value)
         parts = {"row_times"}
     if not parts <= {"serve", "train", "multi", "profile", "times",
-                     "phases", "rows", "row_times"}:
+                     "phases", "rows", "row_times", "scale"}:
         raise SystemExit(f"unknown parts {sorted(parts)}")
     for alone in ("phases", "rows"):
         if alone in parts and parts != {alone}:
@@ -869,6 +1035,8 @@ def main(parts=None):
         step_times(cfg, torch.device("cuda"))
     if "profile" in parts:
         profile(cfg, params)
+    if "scale" in parts:
+        scale_sweep(torch.device("cuda"), smi.splitlines()[0])
 
 
 if __name__ == "__main__":

@@ -8,9 +8,8 @@ fused)``:
 - ``fused=False``, the model FLOPs: the products the reference's own
   per-modality layers do (``mfm_model.py:469-555`` and siblings), forward,
   backward and update, with no block-diagonal padding. The JAX package
-  counts them by tracing its modular path; the port has no modular path
-  (its models run the fused operands only), so ``model_products`` lists
-  them in closed form from ``cfg``, layer by layer, as that path computes
+  counts them by tracing its modular path; ``model_products`` lists them
+  in closed form from ``cfg``, layer by layer, as that path computes
   them: each encoder LSTM's hoisted input product and t recurrent ones
   (the first on the zero state too), the MFN's per-step cells and four
   two-layer MLPs, the decoders' first step and t - 1 steps on ``W_x +
@@ -21,9 +20,13 @@ fused)``:
   by ``k x n`` costs ``2 m k n``, and its backward one more such product
   for each operand that needs a gradient (the data and the MMD's Gaussian
   sample do not; a decoder whose reconstruction no loss reads gets
-  none). The same number as the JAX package's, to the FLOP
-  (``tests/test_torch_flops.py``).
-- ``fused=True``, the executed FLOPs of the port's own plain path: one
+  none). The same number as the JAX package's, to the FLOP; the port's
+  own modular path (``models/mfm.py::FUSED`` = False) runs the same
+  products, and counted by ``count_gemm_flops`` they equal these but for
+  the gradient of each encoder LSTM's zero state at step 0, which
+  autograd does not take (``tests/test_torch_flops.py``).
+- ``fused=True``, the executed FLOPs of the port's own plain path (the
+  fused or the modular one, as the gate picks at ``cfg``): one
   train step (``train.TrainProgram.step``) on the CPU, counted by
   ``count_gemm_flops``. It includes the block-diagonal zeros of the fused
   operands (``ops/fused.py``), the hoisted input projections as the

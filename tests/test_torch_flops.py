@@ -108,3 +108,42 @@ def test_products_name_their_layers_and_refuse_what_no_trainer_runs():
         model_products(best_acc_mosi_config(**TINY), "s2s", "joint")
     with pytest.raises(ValueError, match="no model FLOPs"):
         model_products(best_acc_mosi_config(**TINY), "eflstm")
+
+
+MODULAR = [("mfm", "joint"), ("kl", "joint"), ("kl_ef", "beta_vae"),
+           ("missing", "missing")]
+
+
+@pytest.mark.parametrize("model,composition", MODULAR,
+                         ids=[m for m, _ in MODULAR])
+def test_model_flops_equal_the_modular_step_counted(model, composition):
+    # one train step of the port's modular path (models/mfm.py::FUSED =
+    # False) on the CPU, counted, against the closed form: the same
+    # products but for the gradient of each encoder LSTM's zero state at
+    # step 0, which autograd does not take (h_0 is a constant) and the
+    # JAX package's scan does (its body is the same at every step)
+    from factorized_tpu_torch.models import get_model, mfm
+    from factorized_tpu_torch.train import TrainProgram, make_optimizer
+
+    cfg = best_acc_mosi_config(**TINY)
+    if model == "missing":
+        cfg = cfg.replace(missing=1)
+    init, apply_fn = get_model(model)
+    params = init(torch.Generator().manual_seed(0), cfg)
+    program = TrainProgram(apply_fn, cfg, composition)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((cfg.seqlength, cfg.batchsize, cfg.d_total),
+                    generator=gen)
+    saved = mfm.FUSED
+    mfm.FUSED = False
+    try:
+        counted = count_gemm_flops(program.step, params,
+                                   make_optimizer(params, 1e-3), x,
+                                   torch.zeros(cfg.batchsize), gen)
+    finally:
+        mfm.FUSED = saved
+    zero_state = sum(p.train_flops() // 3 for p in model_products(
+        cfg, model, composition) if p.layer.endswith(".wh")
+        and p.m == cfg.batchsize) // cfg.seqlength
+    assert counted == model_train_flops_per_step(
+        cfg, model=model, composition=composition) - zero_state > 0
