@@ -208,11 +208,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
     ``check --dir`` (``search_check``); ``mfm``'s lane path at K = 16 and
     32 (``lane_scaling_past_8``);
 22. prints one JSON line on the ten kernels (their launches with the
-    paths of steps 19 to 21 and 23 counted) and the seven lane entry
+    paths of steps 19 to 21, 23 and 25 counted) and the seven lane entry
     points at K = 8 (``<kernel>.lanes8``, their launches step 20's and
     23's lane launches) and K = 16 (``<kernel>.lanes16``, step 21's), the
     ``nvidia-smi`` line, and last ``{"ok": true, "device": {...}}``; a
-    ``seconds`` line after each of steps 4, 6, 8, 10 to 21 and 23;
+    ``seconds`` line after each of steps 4, 6, 8, 10 to 21 and 23 to 25;
 23. (run before step 22 prints) the CMU-MultimodalSDK sets
     (``data/mmsdk.py``) at ``best_acc_mosi_config``'s full width and their
     published feature widths, fabricated from the seed as ``.csd``
@@ -252,6 +252,19 @@ Run from the repository root: ``python3 chip_smoke.py``. It
     replay s, capture s, graph pool bytes and peak device memory
     (``scale_chunk``); and ``warmup``'s three bench legs, each leg's
     seconds and launches (``bench_legs``).
+25. (run before step 22 prints) the JAX package's checkpoints read by
+    the port, with no Orbax, tensorstore, zstd or msgpack package
+    (``installed`` records which of them import): ``best/mfn_mae`` and
+    ``best/mfn_acc`` read by ``restore_checkpoint`` (seconds), every leaf
+    bit for bit ``released/``'s; ``test_mosi --checkpoint best/<name>``
+    on the card, the release's scores within 1e-6 (MAE 0.6101879 and
+    binary accuracy 0.8250729; accuracy 0.7813411), the eval encode
+    counted; each served over HTTP against the CPU ``Predictor`` over
+    ``released/`` (``jax_checkpoint`` lines); the C++ segment average
+    (``native.py``) built with the host compiler and held bit for bit
+    against ``data/segavg.py`` on 93 fabricated videos at the real MOSI
+    files' FACET scale, empty, reversed, clipped and NaN / -inf / +inf
+    windows included, the ms of both (``segavg`` line).
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1.
 """
@@ -830,10 +843,12 @@ def test_mosi_check(params, cfg, reference):
 
 def test_mosi_on(ckpt, seqlength, reference):
     """``test_mosi`` on the checkpoint ``ckpt``: the score block, the
-    probe and the on-device latency lines; its mae against the CPU
+    probe and the on-device latency lines; its mae (a regression) or its
+    accuracy on the binarized labels (a classification) against the CPU
     ``reference``'s on the same (synthetic MOSI) test set."""
     from factorized_tpu_torch import cli
-    from factorized_tpu_torch.utils.metrics import regression_metrics
+    from factorized_tpu_torch.utils.metrics import (classification_metrics,
+                                                    regression_metrics)
 
     out = io.StringIO()
     t0 = time.perf_counter()
@@ -845,15 +860,28 @@ def test_mosi_on(ckpt, seqlength, reference):
         key, _, value = line.partition(":")
         if key in ("mae", "inference probe", "on-device latency"):
             lines[key] = value.strip()
-    if rc != 0 or set(lines) != {"mae", "inference probe",
-                                 "on-device latency"}:
+        elif line.startswith("Accuracy "):
+            lines["accuracy"] = line.split()[1]
+    regression = reference.cfg.task == "regression"
+    want_lines = {"accuracy", "inference probe", "on-device latency"} | (
+        {"mae"} if regression else set())
+    if rc != 0 or set(lines) != want_lines:
         raise AssertionError(f"test_mosi gave {rc}: {out.getvalue()[-2000:]}")
     _, _, _, _, X_test, y_test = cli.load_mosi(seqlength)
-    want = regression_metrics(reference.predict(X_test), y_test)["mae"]
-    mae = float(lines["mae"])
-    if not abs(mae - want) <= ATOL + RTOL * abs(want):
-        raise AssertionError(f"test_mosi mae {mae}, the CPU's {want}")
-    return {"rc": rc, "seconds": seconds, "mae": mae, "cpu_mae": want,
+    y_cpu = reference.predict(X_test)
+    if regression:
+        m = regression_metrics(y_cpu, y_test)
+        got, want = float(lines["mae"]), m["mae"]
+    else:
+        m = classification_metrics(y_cpu, (y_test >= 0).astype(np.int64))
+        got, want = float(lines["accuracy"]), m["accuracy"]
+    if not abs(got - want) <= ATOL + RTOL * abs(want):
+        raise AssertionError(f"test_mosi {'mae' if regression else 'acc'} "
+                             f"{got}, the CPU's {want}")
+    return {"rc": rc, "seconds": seconds,
+            "mae": float(lines["mae"]) if regression else None,
+            "cpu_mae": m["mae"] if regression else None,
+            "accuracy": float(lines["accuracy"]),
             "probe": json.loads(lines["inference probe"]),
             "device_latency": json.loads(lines["on-device latency"])}
 
@@ -1033,7 +1061,8 @@ def main():
               20: lambda: lanes_phase(cfg, dev, smi, tmp),
               21: lambda: bucket_evolve_phase(cfg, dev, smi, tmp),
               23: lambda: sdk_phase(cfg, dev, smi, tmp),
-              24: lambda: modular_phase(dev, smi)}
+              24: lambda: modular_phase(dev, smi),
+              25: lambda: jax_checkpoint_phase(smi)}
     results = {}
     with tempfile.TemporaryDirectory() as tmp:
         for step, run in phases.items():
@@ -1044,8 +1073,8 @@ def main():
     train_kernels, variant_kernels, probe_kernels = (results[6], results[8],
                                                      results[10])
     kernels = serve_kernels + train_kernels + variant_kernels + probe_kernels
-    # step 19's, 20's, 21's and 23's paths launch the main path's kernels
-    # at their shapes (steps 20's, 21's and some of 23's over lanes)
+    # step 19's, 20's, 21's, 23's and 25's paths launch the main path's
+    # kernels at their shapes (steps 20's, 21's and some of 23's over lanes)
     lane_kernels, lane_paths, lane_launches = results[20]
     past_kernels, past_paths, past_launches = results[21]
     sdk_paths, sdk_lanes = results[23]
@@ -1054,7 +1083,8 @@ def main():
                                  for path in [*results[19].values(),
                                               *lane_paths.values(),
                                               *past_paths.values(),
-                                              *sdk_paths.values()])
+                                              *sdk_paths.values(),
+                                              results[25]])
     lane_launches = {k: lane_launches.get(k, 0) + sdk_lanes.get(k, 0)
                      for k in {*lane_launches, *sdk_lanes}}
     # each kernel entry point over 8 lanes (step 20a's train shapes) and
@@ -3013,6 +3043,142 @@ def released_phase(smi):
     return out
 
 
+# Step 25: the release's scores on the synthetic MOSI test set
+# (VALIDATION.md §4), within 1e-6
+RELEASE_SCORES = {"mfn_mae": {"mae": 0.6101879, "accuracy": 0.8250729},
+                  "mfn_acc": {"accuracy": 0.7813411}}
+# the real MOSI files' scale for the segment average: CMU-MOSI's 93
+# videos, FACET's 43 feature columns at 30 fps, about 280 words a video
+SEGAVG_VIDEOS, SEGAVG_DIM, SEGAVG_FPS = 93, 43, 30
+
+
+def jax_checkpoint_phase(smi):
+    """Step 25: the JAX package's checkpoints read by the port. For
+    ``best/mfn_mae`` and ``best/mfn_acc`` (Orbax stores: OCDBT, zarr
+    chunks in zstd frames): the read by ``restore_checkpoint`` (no Orbax,
+    tensorstore or zstd package needed; its seconds), every leaf
+    bit for bit ``factorized_tpu_torch/released/<name>``'s; ``test_mosi
+    --checkpoint best/<name>`` on the card through ``test_mosi_on``, its
+    scores the release's within 1e-6, the eval encode launched and
+    counted; ``Predictor.from_checkpoint("best/<name>")`` served over
+    HTTP, every reply against the CPU ``Predictor`` over ``released/``.
+    Then ``segavg_check``. Returns {"mfm_encode_fwd": launches}."""
+    import importlib.util
+    import os
+
+    from factorized_tpu_torch.convert import to_state_dict
+    from factorized_tpu_torch.serve import Predictor
+    from factorized_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    rng = np.random.default_rng(SEED + 250)
+    installed = {m: importlib.util.find_spec(m) is not None
+                 for m in ("orbax", "tensorstore", "zstandard", "msgpack")}
+    total = 0
+    for name, scores in RELEASE_SCORES.items():
+        path = os.path.join(root, "best", name)
+        released = os.path.join(root, "factorized_tpu_torch", "released",
+                                name)
+        t0 = time.perf_counter()
+        state, meta = restore_checkpoint(path)
+        read_s = time.perf_counter() - t0
+        kept, kept_meta = restore_checkpoint(released)
+        got, want = to_state_dict(state["params"]), to_state_dict(
+            kept["params"])
+        if sorted(got) != sorted(want) or len(got) != 77:
+            raise AssertionError(f"best/{name} holds {sorted(got)}")
+        for k, v in want.items():
+            if got[k].dtype != v.dtype or not torch.equal(got[k], v):
+                raise AssertionError(f"best/{name} leaf {k} differs from "
+                                     f"released/{name}")
+        if (meta["format"] != "orbax" or meta["step"] != kept_meta["step"]
+                or meta["config"] != kept_meta["config"]):
+            raise AssertionError(f"best/{name} meta {meta}")
+        reference = Predictor.from_checkpoint(released, device="cpu")
+        scored, _, launches = counted(
+            f"test_mosi best/{name}", ("mfm_encode_fwd",),
+            lambda: test_mosi_on(path, 20, reference))
+        for key, v in scores.items():
+            if not abs(scored[key] - v) <= 1e-6:
+                raise AssertionError(f"test_mosi best/{name} {key} "
+                                     f"{scored[key]}, the release's {v}")
+        requests = [np.round(rng.normal(size=(r, 20, 325)), 3)
+                    .astype(np.float32) for r in (1, 17, 256, 300)]
+        expected = split_rows(reference.predict(np.concatenate(requests)),
+                              requests)
+        predictor = Predictor.from_checkpoint(path)
+        (worst, batches), _, served = counted(
+            f"serve best/{name}", ("mfm_encode_fwd",),
+            lambda: serve_requests(predictor, expected, requests))
+        del predictor
+        n = launches["mfm_encode_fwd"] + served["mfm_encode_fwd"]
+        total += n
+        log({"phase": "jax_checkpoint", "name": name, "nvidia_smi": smi,
+             "installed": installed, "read_s": read_s, "leaves": len(got),
+             "test_mosi": {k: scored[k] for k in ("mae", "accuracy")},
+             "release": scores, "test_mosi_s": scored["seconds"],
+             "serve_max_abs_err_vs_cpu": worst, "batches_run": batches[0],
+             "launches": {"test_mosi": launches["mfm_encode_fwd"],
+                          "serve": served["mfm_encode_fwd"]}})
+    segavg_check(smi)
+    return {"mfm_encode_fwd": total}
+
+
+def segavg_frames(rng):
+    """One video's FACET rows and word windows, fabricated at the real
+    files' scale: 3,000 to 9,000 rows, about 280 words of 0.1 to 1 s at
+    30 fps, with every kind of window: empty, reversed, clipped at either
+    end, and over NaN, -inf and +inf rows."""
+    n = int(rng.integers(3000, 9000))
+    feats = rng.standard_normal((n, SEGAVG_DIM)).astype(np.float32)
+    feats[rng.integers(0, n, 4)] = np.nan
+    feats[rng.integers(0, n, 2), rng.integers(0, SEGAVG_DIM, 2)] = -np.inf
+    feats[rng.integers(0, n, 2), rng.integers(0, SEGAVG_DIM, 2)] = np.inf
+    words = int(rng.integers(200, 360))
+    t = np.sort(rng.uniform(0, n / SEGAVG_FPS, words))
+    starts = (t * SEGAVG_FPS).astype(np.int64)
+    ends = ((t + rng.uniform(0.1, 1.0, words)) * SEGAVG_FPS).astype(np.int64)
+    ends[:3] = starts[:3]                            # empty
+    ends[3:5] = starts[3:5] - 2                      # reversed
+    starts[5], ends[-1] = -7, n + 40                 # clipped
+    return feats, starts, ends
+
+
+def segavg_check(smi):
+    """The C++ segment average (``native.py``, built here with the host
+    compiler) against its numpy version (``data/segavg.py``) bit for bit
+    on ``SEGAVG_VIDEOS`` fabricated videos, as the real MOSI reader calls
+    it (once a video); the build's seconds and each version's ms over all
+    the videos."""
+    from factorized_tpu_torch import native
+    from factorized_tpu_torch.data.segavg import segment_average
+
+    rng = np.random.default_rng(SEED + 251)
+    videos = [segavg_frames(rng) for _ in range(SEGAVG_VIDEOS)]
+    t0 = time.perf_counter()
+    native.load_library()
+    build_s = time.perf_counter() - t0
+    native_s = plain_s = 0.0
+    for feats, starts, ends in videos:
+        t0 = time.perf_counter()
+        got = native.segment_average(feats, starts, ends)
+        native_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = segment_average(feats, starts, ends)
+        plain_s += time.perf_counter() - t0
+        if got.dtype != want.dtype or not np.array_equal(
+                got.view(np.uint32), want.view(np.uint32)):
+            raise AssertionError("the C++ segment average differs from "
+                                 "data/segavg.py")
+    log({"phase": "segavg", "nvidia_smi": smi, "compiler":
+         native.compiler(), "library": str(native.library_path()),
+         "build_s": build_s, "videos": SEGAVG_VIDEOS,
+         "frames": sum(len(v[0]) for v in videos),
+         "words": sum(len(v[1]) for v in videos), "dim": SEGAVG_DIM,
+         "native_ms": native_s * 1e3, "plain_ms": plain_s * 1e3,
+         "bit_equal": True})
+
+
 # Step 16: each chain just past the width at which its per-row state
 # alone passed a block (and the launch was refused before the scratch
 # plan): (label, kernel, cells, n)
@@ -4348,7 +4514,9 @@ def lane_kernel_phase(cfg, dev, smi, K, timing=True, library=False):
                      **times[name], "bound_ms": bounds[name][0],
                      "bound_by": bounds[name][1],
                      "single_lane_bound_ms": bounds[name][0] / K,
-                     "library_ms": lib.get(name) if library else None}
+                     "library_ms": lib.get(name) if library else None,
+                     "library_device_ms": (lib.get(f"{name}.device")
+                                           if library else None)}
     log({"phase": "lane_kernels", "nvidia_smi": smi, "lanes": K,
          "n_train": n, "n_eval": ne, "h_dims": h_dims, "dec_dims": dec_dims,
          "multi_dims": m_dims, "kernels": out})
@@ -4383,8 +4551,11 @@ def lane_library_ms(K, w, res, deltas, z_tot, dec, cells, xs, xs_eval,
     compare_all(f"lanes{K}.mfm_encode_dw.library", [
         (k, v, torch.stack([r[k] for r in dw_ref]).reshape(v.shape))
         for k, v in dw().items()], GRAD_RTOL, GRAD_ATOL)
-    # 10 calls each: the cuDNN calls of K lanes take 3 to 36 ms
+    # 10 calls each: the cuDNN calls of K lanes take 3 to 36 ms; the
+    # weight gradients' products also by device time (20 calls of 14
+    # launches queued, as the kernel's own device ms are taken)
     return {"mfm_encode_dw": cuda_ms(dw, 20),
+            "mfm_encode_dw.device": queued_ms(dw, reps=20),
             "decoder_lstm_fwd": decoder_library_ms(*dec, reps=10),
             "decoder_lstm_bwd": decoder_library_ms(*dec, backward=True,
                                                    reps=10),

@@ -25,8 +25,8 @@ mae|acc``); ``test_attention`` (``run_test_attention``); ``multitrait``
 files ``mosei_sdk`` (7 columns) and ``pom_sdk`` (17), a vector output
 MFM); ``test_mosi`` (``run_test_mosi``: score a checkpoint on the MOSI
 test set, then the latency probe and the on-device latency); ``serve``
-(``run_serve``, from a checkpoint of this package or an exported
-artifact, with ``--autotune`` and ``--export``); ``check`` (``run_check``:
+(``run_serve``, from a checkpoint of this package or of the JAX package
+(Orbax or msgpack, read without either) or an exported artifact, with ``--autotune`` and ``--export``); ``check`` (``run_check``:
 the best metrics of every run log under ``--dir``, the port's copy of the
 JAX package's ``check.py``); and ``warmup`` (``warmup.run_warmup``: the
 kernels' library built and the main programs run once). ``--seeds K``
@@ -960,7 +960,8 @@ def add_training_args(sp):
                     help="save each trial's best parameters with the last "
                          "optimizer state under <out>/ckpt_<run id>")
     sp.add_argument("--resume", default=None,
-                    help="checkpoint directory to resume each trial from")
+                    help="checkpoint directory to resume each trial "
+                         "from (this package's or the JAX package's)")
     sp.add_argument("--ckpt-every", type=int, default=0,
                     help="every N epochs overwrite <out>/ckpt_auto_<run "
                          "id> with the current parameters, optimizer "
@@ -1060,7 +1061,8 @@ def build_parser():
                         help="score a checkpoint on the MOSI test set")
     sp.add_argument("--checkpoint", required=True,
                     help="directory written by utils.checkpoint."
-                         "save_checkpoint")
+                         "save_checkpoint or by the JAX package's (Orbax "
+                         "or msgpack)")
     sp.add_argument("--autotune", action="store_true",
                     help="pick the serving batch size by throughput")
     add_data_args(sp)
@@ -1073,7 +1075,8 @@ def build_parser():
     group = sp.add_mutually_exclusive_group(required=True)
     group.add_argument("--checkpoint",
                        help="directory written by utils.checkpoint."
-                            "save_checkpoint")
+                            "save_checkpoint or by the JAX package's "
+                            "(Orbax or msgpack)")
     group.add_argument("--exported",
                        help="serve from a Predictor.export artifact (no "
                             "model code or checkpoint needed)")

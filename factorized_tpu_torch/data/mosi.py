@@ -7,7 +7,8 @@ The real pipeline (``data_loader.py`` + ``mfm_mosi.py:41-126``):
 - word-aligned transcript rows (``data_loader.py:104-115``);
 - FACET visual features averaged over each word's frame window at 30 fps
   (``data_loader.py:62-80``), COVAREP audio at 100 Hz with NaN and -inf
-  zeroed (``data_loader.py:83-101``), through ``segavg.segment_average``;
+  zeroed (``data_loader.py:83-101``), through ``native.segment_average``
+  (C++; ``segavg.segment_average`` is its numpy twin);
 - videos sorted by id, split 52 train / 10 valid / the rest test
   (``data_loader.py:118-128``);
 - segments left-padded with zeros and truncated keeping the last
@@ -35,7 +36,7 @@ import numpy as np
 
 from factorized_tpu_torch.data import synthetic
 from factorized_tpu_torch.data.batcher import compute_train_max
-from factorized_tpu_torch.data.segavg import segment_average
+from factorized_tpu_torch.native import segment_average
 
 INPUT_DIMS_FS = [300, 5, 20]
 SEQLENGTH = 20

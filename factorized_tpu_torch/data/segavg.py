@@ -1,7 +1,7 @@
-"""The word-window average of the real MOSI pipeline: a numpy copy of
-``factorized_tpu/native.py::segment_average`` with the arithmetic of the
-JAX package's native kernel (``native/segavg.cpp``), which the port does
-not build or bind.
+"""The word-window average of the real MOSI pipeline in numpy: the plain
+version of ``factorized_tpu_torch/native.py::segment_average`` (the C++
+of ``csrc/segavg.cpp``, which the reader calls), with its arithmetic, so
+the tests hold the two equal bit for bit.
 
 For each word's frame window ``[start, end)``, clipped to the feature
 rows: the mean of its rows, each column summed in float64 in frame order

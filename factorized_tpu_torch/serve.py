@@ -118,7 +118,8 @@ class Predictor:
 
     @classmethod
     def from_checkpoint(cls, path: str, **kw):
-        """A Predictor over a checkpoint of ``utils.checkpoint``; ``kw`` go
+        """A Predictor over a checkpoint of ``utils.checkpoint``: the
+        port's, or the JAX package's Orbax or msgpack directory; ``kw`` go
         to the constructor (e.g. ``model_type="missing"`` for a checkpoint
         of ``--missing 1``, whose config keeps ``model_type`` "mfm")."""
         from factorized_tpu_torch.utils.checkpoint import restore_checkpoint

@@ -274,20 +274,53 @@ class _FlatOptimizer:
         return {"state": {k: v.clone() for k, v in self.slots.items()},
                 "lr": float(self.lr)}
 
+    def laid_out(self, vec, params):
+        """A slot ``vec`` (``flat``'s shape) laid out over the leaves of
+        ``params`` (a tree shaped like the parameters) in that tree's key
+        order, laid out again in this optimizer's: a checkpoint's slots
+        follow its own parameters' order (the JAX package's
+        ``ravel_pytree`` sorts the keys), which need not be this
+        optimizer's."""
+        at = 0
+
+        def split(tree):
+            nonlocal at
+            out = {}
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    out[k] = split(v)
+                else:
+                    n = v.numel() // max(1, vec[..., 0].numel())
+                    out[k] = vec[..., at:at + n].reshape(v.shape)
+                    at += n
+            return out
+
+        tree = split(params)
+        if at != vec.shape[-1]:
+            raise ValueError(f"a slot of {vec.shape[-1]} floats (a lane) "
+                             f"for parameters of {at}")
+        return self.flatten(tree)
+
+    def _load_slots(self, st, params):
+        for name, buf in self.slots.items():
+            if tuple(st[name].shape) != tuple(buf.shape):
+                raise ValueError(f"{name} is {tuple(st[name].shape)}, this "
+                                 f"optimizer's {tuple(buf.shape)}")
+            buf.copy_(st[name] if params is None
+                      else self.laid_out(st[name], params))
+
     @torch.no_grad()
     def load_state_dict(self, state_dict, params=None):
         """A ``state_dict`` (e.g. restored from a checkpoint, on any
         device) copied into this optimizer's buffers, and ``params`` (a
         tree shaped like the parameters) into the leaves: the buffers keep
         their addresses, which the leaves' views and a captured CUDA graph
-        hold, so nothing is rebound."""
-        st = state_dict["state"]
-        for name, buf in self.slots.items():
-            if tuple(st[name].shape) != tuple(buf.shape):
-                raise ValueError(f"{name} is {tuple(st[name].shape)}, this "
-                                 f"optimizer's {tuple(buf.shape)}")
-            buf.copy_(st[name])
-        self.set_lr(float(state_dict["lr"]))
+        hold, so nothing is rebound. With ``params`` the slots are read in
+        its key order (``laid_out``); an lr of None leaves this
+        optimizer's."""
+        self._load_slots(state_dict["state"], params)
+        if state_dict["lr"] is not None:
+            self.set_lr(float(state_dict["lr"]))
         if params is not None:
             flat = self.flatten(params)
             if flat.shape != self.flat.shape:
@@ -474,15 +507,12 @@ class LaneAdam(FlatAdam):
     def load_state_dict(self, state_dict, params=None):
         """``FlatAdam.load_state_dict`` with the lanes' lrs."""
         st = state_dict["state"]
-        for name, buf in self.slots.items():
-            if tuple(st[name].shape) != tuple(buf.shape):
-                raise ValueError(f"{name} is {tuple(st[name].shape)}, this "
-                                 f"optimizer's {tuple(buf.shape)}")
-            buf.copy_(st[name])
+        self._load_slots(st, params)
         # a snapshot from before the per-lane counts holds one for all
         self.count.copy_(torch.as_tensor(st["count"]).reshape(-1).expand(
             self.lanes))
-        self.set_lr(state_dict["lr"])
+        if state_dict["lr"] is not None:
+            self.set_lr(state_dict["lr"])
         if params is not None:
             flat = self.flatten(params)
             if flat.shape != self.flat.shape:

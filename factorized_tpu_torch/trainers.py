@@ -234,7 +234,8 @@ def _offset_snapshot(snapshot, start_epoch):
 
 
 def _maybe_resume(resume_from, run, logger):
-    """Restore a checkpoint of this package with its optimizer state into
+    """Restore a checkpoint with its optimizer state (this package's, or
+    the JAX package's Orbax or msgpack one: ``restore_checkpoint``) into
     ``run``'s parameters and Adam (copied into their buffers) and seed
     ``run``'s generator anew from (seed, start epoch): (start epoch, the
     recorded lr, the recorded best validation loss). Epoch 0 and Nones

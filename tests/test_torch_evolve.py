@@ -15,7 +15,9 @@ port through ``params=`` and ``init_lanes=``. Held, with the bounds of
 relative) and culls, the explored count, the best record (its rung,
 config, best validation number, metrics and parameters), every epoch's
 lrs, the record kinds of the two logs, and ``check --dir`` printing the
-same lines over either log as the JAX package's ``check``.
+same lines over either log as the JAX package's ``check``. The JAX
+search also writes its rung-boundary snapshot (Orbax), which the port
+resumes to the JAX search's second rung, best record and parameters.
 
 The port alone: a recycle leaves the survivors' parameters bit for bit
 those of a run with no recycle; it resets the lane's records and Adam
@@ -149,7 +151,8 @@ def runs(tmp_path_factory):
         mp.setattr(jmc.ConfigBucketProgram, "run_epochs", spy_run)
         want = jmc.train_evolving_search(*_data(), CFG, "mosi",
                                          rng=random.Random(SEED),
-                                         logger=jlog, **kw)
+                                         logger=jlog,
+                                         ckpt_dir=str(out / "jax_ck"), **kw)
     jlog.close()
     first, recycled = _jax_inits()
     plog = RunLogger(str(out / "port"), run_id="mosi_evolve0", echo=False)
@@ -219,6 +222,49 @@ def test_the_logs_read_as_the_jax_logs(runs, capsys):
             else:
                 assert printed == port_printed
         assert "mae: " in printed
+
+
+def test_the_port_resumes_the_jax_snapshot(runs):
+    """The JAX search's snapshot at its rung boundary (Orbax, after the
+    culls' recycles: the live, per-lane best and overall best parameters,
+    the ``(K, P)`` Adam state, the search's RNG and books) resumed by the
+    port, with another RNG: the second rung's culls and scores, the best
+    record and its parameters are the JAX search's."""
+    from factorized_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    _, want, _, out = runs
+    ck = str(out / "jax_ck")
+    state, meta = restore_checkpoint(ck)
+    assert meta["format"] == "orbax"
+    assert meta["config"]["_ev"]["rung_next"] == 1
+    assert sorted(state["params"]) == ["best", "live", "overall"]
+    _, recycled = _jax_inits()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mc, "resample_values", _quiet(mc))
+        got = mc.train_evolving_search(
+            *_data(), _port_cfg(), "mosi", n_configs=N_CONFIGS, rungs=RUNGS,
+            cull_frac=0.5, seeds_per_config=1, seed=SEED,
+            use_config_lr=True, rng=random.Random(999),
+            logger=RunLogger(echo=False), resume_from=ck,
+            init_lanes=recycled, device="cpu")
+    assert got["explored_configs"] == want["explored_configs"]
+    assert len(got["rungs"]) == len(want["rungs"]) == RUNGS
+    for g, w in zip(got["rungs"], want["rungs"]):
+        assert (g["rung"], g["culled"], g["configs"]) == (
+            w["rung"], w["culled"], w["configs"])
+        np.testing.assert_allclose(g["scores"], w["scores"], **LOSSES)
+    gb, wb = got["best"], want["best"]
+    assert (gb["rung"], gb["config"]) == (wb["rung"], wb["config"])
+    np.testing.assert_allclose(gb["best_valid"], wb["best_valid"], **LOSSES)
+    for k, v in wb["metrics"].items():
+        np.testing.assert_allclose(gb["metrics"][k], v, err_msg=k,
+                                   **(CORR if k == "corr" else METRICS))
+    flat_j = to_state_dict(jax.tree.map(np.asarray, want["params"]))
+    flat_p = to_state_dict(got["params"])
+    assert set(flat_p) == set(flat_j)
+    for k, v in flat_j.items():
+        np.testing.assert_allclose(flat_p[k].numpy(), v, err_msg=k,
+                                   **PARAMS)
 
 
 # ---- the port alone --------------------------------------------------------

@@ -21,7 +21,9 @@ of 1e-3 in both packages); the
 accuracy-keeping mode at K = 2. Then the port alone: the lane plain
 kernels against their single-lane twins lane by lane, a snapshot at
 epoch 2 resumed against the uninterrupted run bit for bit (the meta with
-the JAX package's field names), the refusals of the trainer and of the
+the JAX package's field names), the JAX run's own snapshot of the K = 2
+case (Orbax, at epoch 2) resumed by the port against the rest of the JAX
+run, the refusals of the trainer and of the
 command with the JAX package's messages, and ``mosi --seeds 2 --mode best
 --epochs 2 --device cpu`` through the command.
 """
@@ -124,10 +126,11 @@ def _data(case, n_train=48, n_valid=16, n_test=20):
     return (*split(n_train), *split(n_valid), *split(n_test))
 
 
-def _jax_run(case):
+def _jax_run(case, ckpt_dir=None):
     """The JAX package's run of ``case``, its K initial parameter sets, the
     lanes' scored parameters (what its test predict reads) and each
-    epoch's lrs (the chunk program's third output)."""
+    epoch's lrs (the chunk program's third output); with ``ckpt_dir``, a
+    snapshot every 2 epochs there (its own ``save_checkpoint``)."""
     name, K, metric, sched = CASES[case]
     jcfg = _cfg(case)
     init = jax.tree.map(np.asarray, jms.MultiSeedProgram.vinit(
@@ -165,7 +168,10 @@ def _jax_run(case):
                 jms.plateau_step, **sched))
         res = jms.train_mfm_multiseed(*_data(case), jcfg, n_seeds=K,
                                       model_type=name, seed=SEED,
-                                      logger=log, valid_metric=metric)
+                                      logger=log, valid_metric=metric,
+                                      ckpt_dir=ckpt_dir,
+                                      ckpt_every=2 if ckpt_dir else 0)
+    seen["snapshot"] = ckpt_dir
     return init, res, seen, log
 
 
@@ -183,14 +189,20 @@ def _port_run(case, init, **kw):
     return res, log
 
 
+# the case whose JAX run also writes a snapshot, which the port resumes
+SNAPSHOT_CASE = "accuracy"
+
+
 @pytest.fixture(scope="module")
-def runs():
+def runs(tmp_path_factory):
     """One JAX run and one port run of each case, shared by the module."""
     cache = {}
 
     def get(case):
         if case not in cache:
-            init, want, seen, jlog = _jax_run(case)
+            init, want, seen, jlog = _jax_run(
+                case, str(tmp_path_factory.mktemp("jax_snapshot"))
+                if case == SNAPSHOT_CASE else None)
             got, plog = _port_run(case, init)
             cache[case] = (got, plog, want, seen, jlog, init)
         return cache[case]
@@ -338,6 +350,45 @@ def test_a_resumed_snapshot_is_the_uninterrupted_run(runs, tmp_path):
             *_data("mfm"), MFMConfig.from_dict(_cfg("mfm").to_dict()),
             n_seeds=2, seed=SEED, logger=Recorder(), resume_from=ck,
             device="cpu")
+
+
+def test_the_port_resumes_the_jax_snapshot(runs):
+    """The JAX run of the K = 2 case wrote a snapshot at epoch 2 (Orbax,
+    its ``(K, P)`` Adam state in ``ravel_pytree``'s order, the lanes'
+    lrs, scheduler and best records); the port resumes it for the third
+    epoch: that epoch's per-lane numbers and lrs, every lane's scored
+    parameters and each seed's scores are the JAX run's."""
+    from factorized_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    _, _, want, seen, jlog, init = runs(SNAPSHOT_CASE)
+    K = CASES[SNAPSHOT_CASE][1]
+    state, meta = restore_checkpoint(seen["snapshot"])
+    assert (meta["format"], meta["step"]) == ("orbax", 2)
+    assert state["opt_state"]["state"]["mu"].shape[0] == K == 2
+    assert state["opt_state"]["lr"] == meta["config"]["_ms_lrs"]
+    got, plog = _port_run(SNAPSHOT_CASE, init, resume_from=seen["snapshot"])
+    assert (f"resumed {K}-seed state from {seen['snapshot']} at epoch 2",) \
+        in plog.lines
+    g_epochs, w_epochs = plog.kind("epoch"), jlog.kind("epoch")
+    assert [r["epoch"] for r in g_epochs] == [2]
+    for k in ("train_loss", "valid_loss"):
+        np.testing.assert_allclose(g_epochs[0][k], w_epochs[2][k],
+                                   err_msg=k, **LOSSES)
+    assert np.array_equal(np.float32(got["history"][0]["lrs"]),
+                          seen["lrs"][2])
+    flat_j = to_state_dict(seen["lanes"])
+    flat_p = to_state_dict(got["lane_params"])
+    assert set(flat_p) == set(flat_j)
+    for k, v in flat_j.items():
+        np.testing.assert_allclose(flat_p[k].numpy(), v, err_msg=k,
+                                   **PARAMS)
+    assert got["best_seed"] == want["best_seed"]
+    for g, w in zip(got["results"], want["results"]):
+        np.testing.assert_allclose(g["best_valid"], w["best_valid"],
+                                   **LOSSES)
+        for k, v in w["metrics"].items():
+            np.testing.assert_allclose(g["metrics"][k], v, err_msg=k,
+                                       **(CORR if k == "corr" else METRICS))
 
 
 @pytest.mark.parametrize("model_type", ["kl_ef", "missing", "s2s", "bm"])

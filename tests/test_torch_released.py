@@ -1,15 +1,18 @@
 """The released checkpoints ``best/mfn_mae`` and ``best/mfn_acc``,
 converted once into the port's format.
 
-``best/*`` are Orbax stores whose data files are zstd frames; reading
-them needs ``orbax`` (with ``tensorstore`` and ``zstandard``), which a
-serving host of the port need not have. ``convert_released`` reads each
-through the JAX package's ``restore_checkpoint`` and writes it with
+``best/*`` are Orbax stores whose data files are zstd frames. The port
+reads them itself (``factorized_tpu_torch.utils.checkpoint.
+restore_checkpoint``, through its own zstd, OCDBT, zarr and Orbax
+readers; ``tests/test_torch_jax_checkpoint.py``), so ``serve``,
+``test_mosi`` and ``Predictor.from_checkpoint`` take ``best/<name>`` as it
+is. The conversion kept under ``factorized_tpu_torch/released/`` stays
+as the bit-for-bit witness of those reads: ``convert_released`` reads
+each store through the JAX package's ``restore_checkpoint`` (Orbax, with
+``tensorstore`` and ``zstandard``) and writes it with
 ``factorized_tpu_torch.utils.checkpoint.save_checkpoint`` (``state.pt``,
 and ``meta.json`` with ``"format": "torch"``, the step and the config
-copied) under ``factorized_tpu_torch/released/``, where the two
-directories are kept in the repository. To write them anew, from the
-repository root::
+copied). To write them anew, from the repository root::
 
     python tests/test_torch_released.py
 

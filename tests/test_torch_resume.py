@@ -301,7 +301,10 @@ def test_a_mid_run_snapshot_resumes_on_the_uninterrupted_boundaries(
 
 def test_load_state_dict_copies_into_the_buffers():
     """The restored leaves, moments, count and lr go into the flat
-    buffers: every address stays, the leaves' views see the new values."""
+    buffers: every address stays, the leaves' views see the new values.
+    The moments are read in the key order of the tree handed with them
+    (a checkpoint's own parameters; the JAX package's are sorted) and laid
+    out in the optimizer's."""
     params = {"a": {"w": torch.zeros(3, 2)}, "b": torch.zeros(4)}
     opt = train.FlatAdam(params, 1e-3)
     before = [opt.state.data_ptr(), params["a"]["w"].data_ptr(),
@@ -316,7 +319,10 @@ def test_load_state_dict_copies_into_the_buffers():
                       opt.mu.data_ptr(), opt.count.data_ptr()]
     assert torch.equal(params["a"]["w"], torch.ones(3, 2))
     assert torch.equal(params["b"], torch.full((4,), 2.0))
-    assert torch.equal(opt.mu, state["state"]["mu"])
+    # the tree's order is b (4 floats), then a/w (6): the optimizer's a/w, b
+    mu = state["state"]["mu"]
+    assert torch.equal(opt.mu, torch.cat([mu[4:], mu[:4]]))
+    assert torch.equal(opt.tree_of(opt.mu)["b"], mu[:4])
     assert int(opt.count) == 7 and float(opt.lr) == np.float32(2e-3)
     with pytest.raises(ValueError, match="mu"):
         opt.load_state_dict({**state, "state": {**state["state"],

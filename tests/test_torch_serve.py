@@ -195,9 +195,15 @@ def test_checkpoint_round_trip(tmp_path, predictor):
     direct = Predictor(CFG, model.tree(), batch_size=8, device="cpu")
     X = _x(5)
     np.testing.assert_array_equal(p.predict(X), direct.predict(X))
+    # a JAX package's format is read from its own files (state/ for
+    # Orbax), which this directory lacks; an unknown format is refused
     (tmp_path / "ckpt" / "meta.json").write_text(
         json.dumps(dict(meta, format="orbax")))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(FileNotFoundError, match="_METADATA"):
+        restore_checkpoint(path)
+    (tmp_path / "ckpt" / "meta.json").write_text(
+        json.dumps(dict(meta, format="pickle")))
+    with pytest.raises(ValueError, match="format 'pickle'"):
         restore_checkpoint(path)
 
 
