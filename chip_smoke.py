@@ -265,6 +265,23 @@ Run from the repository root: ``python3 chip_smoke.py``. It
     against ``data/segavg.py`` on 93 fabricated videos at the real MOSI
     files' FACET scale, empty, reversed, clipped and NaN / -inf / +inf
     windows included, the ms of both (``segavg`` line).
+26. (run before step 22 prints) beyond one process, each rank a
+    subprocess (``parallel/multiprocess.py``; ``tests/torch_ranks.py``
+    for 26b and 26c), so no process group
+    outlives the step: (a) ``verify_multiprocess`` with two gloo ranks on
+    the card, each at batch 16, against one process at batch 32, at
+    ``best_acc_mosi_config`` (dropout and the MMD on), 2 epochs of 19
+    batches: the parameters within rtol 1e-3 / atol 2e-5, the ranks bit
+    for bit each other's, each rank's launches of the training kernels
+    beside the single process's (``distributed_dp``); (b) ``mosi --seeds
+    8 --seed-parallel --multihost`` with ``WORLD_SIZE=1`` under NCCL
+    (a world of one: NCCL joined, no collective issued) against
+    ``--seeds 8``, bit for bit, one capture each, then two gloo
+    ranks of 4 lanes on the card against the 8 lanes within 1e-5
+    relative (``distributed_lanes``); (c) ``tp_param_shardings`` over two
+    gloo ranks on the card: one epoch against the replicated epoch in
+    this process (``distributed_tp``). Each sub-step's seconds. NCCL
+    between two cards needs a second card.
 
 Any failure raises and exits non-zero; without a CUDA card it exits 1.
 """
@@ -1062,7 +1079,8 @@ def main():
               21: lambda: bucket_evolve_phase(cfg, dev, smi, tmp),
               23: lambda: sdk_phase(cfg, dev, smi, tmp),
               24: lambda: modular_phase(dev, smi),
-              25: lambda: jax_checkpoint_phase(smi)}
+              25: lambda: jax_checkpoint_phase(smi),
+              26: lambda: distributed_phase(cfg, smi, tmp)}
     results = {}
     with tempfile.TemporaryDirectory() as tmp:
         for step, run in phases.items():
@@ -1073,20 +1091,22 @@ def main():
     train_kernels, variant_kernels, probe_kernels = (results[6], results[8],
                                                      results[10])
     kernels = serve_kernels + train_kernels + variant_kernels + probe_kernels
-    # step 19's, 20's, 21's, 23's and 25's paths launch the main path's
+    # step 19's, 20's, 21's, 23's, 25's and 26's paths launch the main path's
     # kernels at their shapes (steps 20's, 21's and some of 23's over lanes)
     lane_kernels, lane_paths, lane_launches = results[20]
     past_kernels, past_paths, past_launches = results[21]
     sdk_paths, sdk_lanes = results[23]
+    dist_plain, dist_lanes = results[26]
     for entry in kernels:
         entry["launches"] += sum(path.get(entry["name"], 0)
                                  for path in [*results[19].values(),
                                               *lane_paths.values(),
                                               *past_paths.values(),
                                               *sdk_paths.values(),
-                                              results[25]])
+                                              results[25], dist_plain])
     lane_launches = {k: lane_launches.get(k, 0) + sdk_lanes.get(k, 0)
-                     for k in {*lane_launches, *sdk_lanes}}
+                     + dist_lanes.get(k, 0)
+                     for k in {*lane_launches, *sdk_lanes, *dist_lanes}}
     # each kernel entry point over 8 lanes (step 20a's train shapes) and
     # 16 (step 21a's), its launches the lane launches of step 20's and
     # 23's paths (up to 8 lanes: one launch a call) and of step 21's
@@ -4789,8 +4809,8 @@ def lane_resume_check(tmp):
     seen = {}
     real = multiseed._multiseed_resume
 
-    def spy(resume_from, loop, n_seeds, logger):
-        start = real(resume_from, loop, n_seeds, logger)
+    def spy(resume_from, loop, n_seeds, logger, *lanes):
+        start = real(resume_from, loop, n_seeds, logger, *lanes)
         opt = loop.opt
         seen.update(
             start=start,
@@ -5883,6 +5903,274 @@ def profile_steps(program, tree, opt, x, y, gen, steps=10):
             "top": [{"name": e.key[:60], "count_per_step": e.count / steps,
                      "ms_per_step": e.device_time_total / 1e3 / steps}
                     for e in top]}
+
+
+# ---- step 26: beyond one process (its ranks are subprocesses, so no
+#      process group outlives the step)
+
+DP_BATCHES = 19  # the batches of 32 in an epoch of synthetic MOSI
+
+
+def rank_cli(device, argv, out, world=None):
+    """A rank of step 26b: the command line ``argv`` (its JSONL under
+    ``out``) with ``world`` (torchrun's variables) set first and the
+    CUDA-graph captures counted. Returns the exit code, the captures, the
+    launches and rank 0's epoch and final records."""
+    import os
+
+    from factorized_tpu_torch import cli, train
+    from factorized_tpu_torch.ops import counts
+    from factorized_tpu_torch.parallel.sharding import is_writer
+
+    os.environ.update(world or {})
+    captures = []
+    capture = train.Graphed._capture
+
+    def counting(self):
+        captures.append(1)
+        return capture(self)
+
+    train.Graphed._capture = counting
+    before = counts.snapshot()
+    rc = cli.main(argv)
+    records = None
+    if is_writer():
+        with open(os.path.join(out, "mosi_0.jsonl")) as f:
+            records = [{k: v for k, v in r.items() if k != "ts"}
+                       for r in map(json.loads, f)
+                       if r["kind"] in ("epoch", "final")]
+    return {"rc": rc, "captures": len(captures),
+            "launches": counts.named(counts.since(before)),
+            "records": records}
+
+
+def tp_epoch(device, tp, batches):
+    """One epoch of ``best_acc_mosi_config`` from seeded parameters on
+    ``batches`` seeded batches of 32: in this process, or with ``tp`` the
+    text decoder's weights cut over the ``model`` axis of a ``("data",
+    "model")`` mesh of the world. Returns the whole parameters, the
+    epoch's loss and the launches."""
+    from factorized_tpu_torch.config import best_acc_mosi_config
+    from factorized_tpu_torch.convert import to_state_dict
+    from factorized_tpu_torch.models import get_model
+    from factorized_tpu_torch.ops import counts
+    from factorized_tpu_torch.parallel import sharding
+    from factorized_tpu_torch.train import FlatAdam, TrainProgram
+    from torch.utils import _pytree
+
+    cfg = best_acc_mosi_config()
+    dev = torch.device(device)
+    init, apply_fn = get_model("mfm")
+    tree = init(torch.Generator().manual_seed(SEED + 7), cfg)
+    params = _pytree.tree_map(lambda a: a.to(dev), tree)
+    rng = np.random.default_rng(SEED + 7)
+    Xb = torch.from_numpy(rng.normal(size=(
+        batches, cfg.seqlength, N_TRAIN, cfg.d_total)).astype(np.float32))
+    yb = torch.from_numpy(rng.normal(size=(batches, N_TRAIN)).astype(
+        np.float32))
+    tpar = None
+    if tp:
+        mesh = sharding.make_mesh(axes=("data", "model"), device=dev)
+        dp = sharding.DataParallel(mesh)
+        Xb, yb = dp.epoch_batches(Xb, yb)
+        tpar = sharding.tp_param_shardings(mesh, dp.params(params))
+        params = tpar.params
+        program = dp.program(tpar.apply(apply_fn), cfg)
+    else:
+        program = TrainProgram(apply_fn, cfg)
+    opt = FlatAdam(params, 1e-3)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    before = counts.snapshot()
+    acc = float(program.epoch(params, opt, Xb.to(dev), yb.to(dev), gen))
+    out = opt.tree_of(opt.flat)
+    if tpar is not None:
+        out = tpar.full(out)
+    return {"params": {k: v.detach().cpu()
+                       for k, v in to_state_dict(out).items()},
+            "acc": acc, "launches": counts.named(counts.since(before)),
+            "sharded": sorted(tpar.sharded) if tpar else []}
+
+
+def tp_rank(device, batches):
+    """A rank of step 26c (``tp_epoch`` with ``tp``)."""
+    return tp_epoch(device, True, batches)
+
+
+def by_kernel(launches):
+    """A rank's launches (``counts.named``) by kernel name: (plain counts, lane
+    counts)."""
+    plain = {name: launches[f"{m.__name__.rsplit('.', 1)[-1]}.{a}"]
+             for name, (m, a) in counters().items()}
+    lanes = {}
+    for key in ("cuda_mfn.LANE_LAUNCHES", "cuda_lstm.LANE_LAUNCHES"):
+        for k, v in launches.get(key, {}).items():
+            lanes[k] = lanes.get(k, 0) + v
+    return plain, lanes
+
+
+TRAIN_KERNELS = ("mfm_encode_fwd", "mfm_encode_bwd", "mfm_encode_dw",
+                 "decoder_lstm_fwd", "decoder_lstm_bwd")
+
+
+def records_close(got, want, label, exact=False):
+    """Two runs' epoch and final records: equal, or within C's bounds
+    (losses 1e-5 relative, metrics 1e-5 relative + 1e-6)."""
+    if exact:
+        if got != want:
+            raise AssertionError(f"{label}: the records differ: {got} "
+                                 f"against {want}")
+        return 0.0
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        if g["kind"] != w["kind"]:
+            raise AssertionError(f"{label}: {g['kind']} against {w['kind']}")
+        pairs = ([(g[k], w[k], 0.0) for k in ("train_loss", "valid_loss")]
+                 if g["kind"] == "epoch" else
+                 [(gm[k], wm[k], 1e-6) for gm, wm in zip(
+                     g["per_seed"], w["per_seed"], strict=True)
+                  for k in wm if isinstance(wm[k], float)])
+        for a, b, atol in pairs:
+            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+            err = np.abs(a - b)
+            worst = max(worst, float(err.max()))
+            if not (err <= 1e-5 * np.abs(b) + atol).all():
+                raise AssertionError(f"{label}: {a} against {b}")
+    return worst
+
+
+def distributed_phase(cfg, smi, tmp):
+    """Step 26; returns the launches of its runs by kernel name (plain,
+    lanes)."""
+    import importlib.util
+    import os
+
+    from factorized_tpu_torch.parallel import multiprocess
+    from factorized_tpu_torch.parallel.sharding import free_port
+
+    here = os.path.abspath(__file__)
+    # the ranks of 26b and 26c: tests/torch_ranks.py, each a process
+    spec = importlib.util.spec_from_file_location(
+        "torch_ranks", os.path.join(os.path.dirname(here), "tests",
+                                    "torch_ranks.py"))
+    torch_ranks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(torch_ranks)
+    run_ranks = torch_ranks.run_ranks
+    plain, lanes = {}, {}
+
+    def add(launches):
+        p, ln = by_kernel(launches)
+        for k, v in p.items():
+            plain[k] = plain.get(k, 0) + v
+        for k, v in ln.items():
+            lanes[k] = lanes.get(k, 0) + v
+        return p, ln
+
+    # ---- 26a. two gloo ranks on the card, batch 16 each, against one
+    #      process at batch 32: best_acc_mosi_config, 2 epochs of 19
+    t0 = time.perf_counter()
+    rep = multiprocess.verify_multiprocess(
+        2, 1, epochs=2, timeout=600, atol=GRAD_ATOL, rtol=GRAD_RTOL,
+        device="cuda:0", backend="gloo", config="best")
+    ranks = [add(r)[0] for r in rep["launches"]]
+    single = add(rep["single_launches"])[0]
+    for who, counted_ in [*enumerate(ranks), ("single", single)]:
+        for name in TRAIN_KERNELS:
+            if counted_[name] < 1:
+                raise AssertionError(f"26a: {name} not launched by {who}")
+    log({"phase": "distributed_dp", "nvidia_smi": smi,
+         "config": "best_acc_mosi_config", "ranks": 2, "backend": "gloo",
+         "rows_a_rank": cfg.batchsize // 2, "epochs": 2,
+         "batches": multiprocess.payload("best")[1],
+         "max_abs_diff_vs_single_process":
+             rep["max_abs_diff_vs_single_process"],
+         "rtol": GRAD_RTOL, "atol": GRAD_ATOL,
+         "tol_ratio": rep["tol_ratio"],
+         "ranks_bitwise_equal": rep["ranks_bitwise_equal"],
+         "accs": rep["accs"],
+         "launches_by_rank": [{k: c[k] for k in TRAIN_KERNELS}
+                              for c in ranks],
+         "launches_single": {k: single[k] for k in TRAIN_KERNELS},
+         "seconds": time.perf_counter() - t0})
+
+    # ---- 26b. --seed-parallel --seeds 8 --multihost, WORLD_SIZE=1 under
+    #      NCCL, against --seeds 8 (both at once, each its own process);
+    #      then two gloo ranks of 4 lanes on the card
+    t0 = time.perf_counter()
+    argv = ["mosi", "--mode", "best", "--seeds", "8", "--epochs",
+            str(TRAIN_EPOCHS), "--seed", str(SEED)]
+    outs = [os.path.join(tmp, f"sp{i}") for i in range(3)]
+    world = {"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    sp_argv = [*argv, "--seed-parallel", "--multihost"]
+    with ThreadPoolExecutor(2) as ex:
+        one = ex.submit(run_ranks, f"{here}:rank_cli", 1,
+                        {"argv": [*sp_argv, "--out", outs[0]],
+                         "out": outs[0], "world": world},
+                        device="cuda", timeout=600)
+        ref = ex.submit(run_ranks, f"{here}:rank_cli", 1,
+                        {"argv": [*argv, "--out", outs[1]], "out": outs[1]},
+                        device="cuda", timeout=600)
+        (one,), (ref,) = one.result(), ref.result()
+    two = run_ranks(
+        f"{here}:rank_cli", 2, {"argv": [*sp_argv, "--out", outs[2]],
+                                "out": outs[2]},
+        device="cuda:0", backend="gloo", timeout=600)
+    for run in (one, ref, *two):
+        if run["rc"] != 0 or run["captures"] != 1:
+            raise AssertionError(f"26b: rc {run['rc']}, {run['captures']} "
+                                 "captures (one wanted)")
+        add(run["launches"])
+    records_close(one["records"], ref["records"], "26b world of one",
+                  exact=True)
+    worst = records_close(two[0]["records"], ref["records"],
+                          "26b two gloo ranks")
+    epochs = [r for r in ref["records"] if r["kind"] == "epoch"]
+    if not np.isfinite([r["train_loss"] for r in epochs]).all():
+        raise AssertionError(f"26b: losses {epochs}")
+    log({"phase": "distributed_lanes", "nvidia_smi": smi, "seeds": 8,
+         # a world of one issues no collective: NCCL joined, not used
+         "world_of_one": {"backend": "nccl", "collectives": 0,
+                          "bitwise_seeds_8": True},
+         "captures": [one["captures"], ref["captures"],
+                      *[r["captures"] for r in two]],
+         "two_gloo_ranks_max_abs_diff": worst,
+         "lane_launches": {"world_of_one": by_kernel(
+             one["launches"])[1], "one_process": by_kernel(
+             ref["launches"])[1], "by_rank": [by_kernel(r["launches"])[1]
+                                              for r in two]},
+         "train_loss": [r["train_loss"] for r in epochs],
+         "seconds": time.perf_counter() - t0})
+
+    # ---- 26c. tensor parallelism over two gloo ranks on the card: one
+    #      epoch against the replicated one in this process
+    t0 = time.perf_counter()
+    tps = run_ranks(f"{here}:tp_rank", 2,
+                                 {"batches": DP_BATCHES}, device="cuda:0",
+                                 backend="gloo", timeout=600)
+    want = tp_epoch("cuda", False, DP_BATCHES)
+    add(want["launches"])
+    worst = 0.0
+    keys = sorted(want["params"])
+    for r in tps:
+        add(r["launches"])
+        flat = [torch.cat([p[k].flatten() for k in keys])
+                for p in (r["params"], want["params"])]
+        worst = max(worst, compare("26c parameters", *flat, GRAD_RTOL,
+                                   GRAD_ATOL)["max_abs_err"])
+        if not np.isclose(r["acc"], want["acc"], rtol=1e-5, atol=0.0):
+            raise AssertionError(f"26c: loss {r['acc']} against "
+                                 f"{want['acc']}")
+    if not all(torch.equal(tps[0]["params"][k], tps[1]["params"][k])
+               for k in want["params"]):
+        raise AssertionError("26c: the ranks' parameters differ")
+    log({"phase": "distributed_tp", "nvidia_smi": smi, "mesh": [1, 2],
+         "sharded": tps[0]["sharded"], "max_abs_err": worst,
+         "rtol": GRAD_RTOL, "atol": GRAD_ATOL,
+         "acc": [r["acc"] for r in tps], "acc_replicated": want["acc"],
+         "launches_by_rank": [{k: by_kernel(r["launches"])[0][k]
+                               for k in TRAIN_KERNELS} for r in tps],
+         "seconds": time.perf_counter() - t0})
+    return plain, lanes
 
 
 if __name__ == "__main__":

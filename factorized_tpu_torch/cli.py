@@ -36,7 +36,11 @@ subcommands and ``mosi_acc`` (``parallel.multiseed.train_mfm_multiseed``).
 --evolve RUNGS`` with ``--cull-frac`` (``run_evolve_search``,
 ``run_multitrait_evolve``) train the search's draws as lanes of one
 program, ``--seeds`` lanes a config (``parallel.multiconfig``), on the
-dataset subcommands and ``multitrait``. ``--profile DIR`` wraps the whole
+dataset subcommands and ``multitrait``. ``--seed-parallel`` shares
+those lanes out over the world's ranks (``seed_parallel_mesh``) and
+``--multihost`` joins the world first (``parallel.sharding.
+init_distributed``: torchrun's or the JAX package's variables); rank 0
+alone writes the logs and checkpoints. ``--profile DIR`` wraps the whole
 command in ``utils.profiling.trace``. Each runs on the CUDA card unless
 ``--device`` says otherwise; ``predictor`` and ``test_attention`` refuse
 ``--seeds`` above 1, ``--bucket`` and ``--evolve`` (each trains one
@@ -49,6 +53,7 @@ import argparse
 import json
 import os
 import random
+import sys
 
 # each dataset's task, binary threshold and its mode, input dims, output
 # dim and whether the trainers take the ragged remainder batch
@@ -94,6 +99,40 @@ def trainer_name(cfg):
         return "train_mfm_ablation"
     raise SystemExit(f"no trainer for type={kind!r} "
                      f"missing={cfg.missing} zeros={cfg.zeros}")
+
+
+def seed_parallel_mesh(n_lanes, device=None):
+    """The mesh of ``--seed-parallel`` (the JAX package's
+    ``_seed_parallel_mesh``) over the world's ranks: 1-D over the lanes,
+    or 2-D ``("seed", "batch")`` where the world exceeds and divides the
+    lanes (each lane group then trains data-parallel over the spare
+    ranks); where the lanes do not divide the world, the largest slice of
+    it that divides them."""
+    from factorized_tpu_torch.parallel.sharding import make_mesh, world_size
+
+    n_dev = world_size()
+    if n_dev > n_lanes and n_dev % n_lanes == 0:
+        return make_mesh(n_dev, axes=("seed", "batch"),
+                         shape=(n_lanes, n_dev // n_lanes), device=device)
+    if n_lanes % n_dev:
+        d = max(k for k in range(1, min(n_lanes, n_dev) + 1)
+                if n_lanes % k == 0)
+        print(f"--seed-parallel: {n_lanes} lanes do not divide "
+              f"{n_dev} devices; using {d} device(s) for this program",
+              file=sys.stderr)
+        return make_mesh(d, device=device)
+    return make_mesh(device=device)
+
+
+def run_logger(args, run_id):
+    """The run's logger: its JSONL under ``--out`` and its lines on rank 0
+    of the world, nothing on the other ranks."""
+    from factorized_tpu_torch.parallel.sharding import is_writer
+    from factorized_tpu_torch.utils.logging import RunLogger
+
+    if is_writer():
+        return RunLogger(args.out, run_id=run_id)
+    return RunLogger(run_id=run_id, echo=False)
 
 
 def refuse_lane_flags(args):
@@ -254,10 +293,11 @@ def make_autosnapshot(out, tag, cfg, every):
         return None
     import math
 
+    from factorized_tpu_torch.parallel.sharding import is_writer
     from factorized_tpu_torch.utils.checkpoint import save_checkpoint
 
     def snap(epoch, params, opt_state, lr, best_valid):
-        if (epoch + 1) % every:
+        if (epoch + 1) % every or not is_writer():
             return
         meta = cfg.to_dict()
         meta["_resume_lr"] = lr
@@ -316,15 +356,15 @@ def run_trials(args, prefix, config_of, train, legacy_line=True,
     legacy JSON text; ``record``'s fields ahead of the config's) and
     trained by ``train(cfg, logger=, seed=, resume_from=, snapshot=)``.
     ``--resume``, ``--ckpt-every`` and ``--save-ckpt`` (``save(out, tag,
-    cfg, res, logger)``) apply to every trial."""
-    from factorized_tpu_torch.utils.logging import RunLogger
+    cfg, res, logger)``) apply to every trial, on rank 0 alone."""
+    from factorized_tpu_torch.parallel.sharding import is_writer
 
     rng = random.Random(args.seed)
     trial = 0
     while True:
         cfg = config_of(rng)
         tag = f"{prefix}_{trial}"
-        logger = RunLogger(args.out, run_id=tag)
+        logger = run_logger(args, tag)
         if legacy_line:
             logger.text(json.dumps(cfg.to_legacy(), default=str))
         logger.record("config", **(record or {}), **cfg.to_dict())
@@ -333,7 +373,7 @@ def run_trials(args, prefix, config_of, train, legacy_line=True,
                         resume_from=args.resume,
                         snapshot=make_autosnapshot(args.out, tag, cfg,
                                                    args.ckpt_every))
-            if args.save_ckpt:
+            if args.save_ckpt and is_writer():
                 save(args.out, tag, cfg, res, logger)
         finally:
             logger.close()
@@ -349,11 +389,14 @@ def train_lanes(args, data, cfg, prefix, *, logger, seed, resume_from,
     place of the trial's trainer, its snapshot every ``--ckpt-every``
     epochs into ``<out>/ckpt_auto_<prefix>_<trial>`` (the trial from
     ``seed`` = ``--seed`` + trial), as the JAX package's command runs it;
-    ``kw`` goes to the trainer (lr, threshold, valid metric)."""
+    ``kw`` goes to the trainer (lr, threshold, valid metric, device);
+    ``--seed-parallel`` shares the lanes out over the world's ranks."""
     from factorized_tpu_torch.parallel.multiseed import train_mfm_multiseed
 
     kw.update(logger=logger, seed=seed, n_seeds=args.seeds,
               resume_from=resume_from, ckpt_every=args.ckpt_every)
+    if args.seed_parallel:
+        kw["mesh"] = seed_parallel_mesh(args.seeds, kw.get("device"))
     if args.ckpt_every:
         kw["ckpt_dir"] = f"{args.out}/ckpt_auto_{prefix}_{seed - args.seed}"
     return train_mfm_multiseed(*data, cfg, **kw)
@@ -430,7 +473,6 @@ def run_bucket_search(args, data, info, rng, device, sample_fn=None,
     from factorized_tpu_torch.config import sample_search_config
     from factorized_tpu_torch.parallel.multiconfig import (
         bucket_configs, train_config_bucket)
-    from factorized_tpu_torch.utils.logging import RunLogger
 
     prefix = prefix or args.dataset
     if sample_fn is None:
@@ -451,7 +493,7 @@ def run_bucket_search(args, data, info, rng, device, sample_fn=None,
               f"(sizes {[len(b) for b in buckets]})")
         for bi, idxs in enumerate(buckets):
             bucket = [cfgs[i] for i in idxs]
-            logger = RunLogger(args.out, run_id=f"{prefix}_r{round_i}b{bi}")
+            logger = run_logger(args, f"{prefix}_r{round_i}b{bi}")
             for c in bucket:
                 logger.record("config", **(record or {}), **c.to_dict())
             kw = dict(logger=logger, seed=args.seed + round_i,
@@ -463,6 +505,9 @@ def run_bucket_search(args, data, info, rng, device, sample_fn=None,
             if info["threshold"] is not None:
                 kw.update(binary_threshold=info["threshold"],
                           threshold_mode=info["mode"])
+            if args.seed_parallel:
+                kw["mesh"] = seed_parallel_mesh(
+                    len(bucket) * max(args.seeds, 1), device)
             try:
                 train_config_bucket(*data, bucket, **kw)
             finally:
@@ -485,13 +530,12 @@ def _evolve_rounds(args, data, dataset, rng, make_template, prefix,
     and ``--resume`` restores round 0."""
     from factorized_tpu_torch.parallel.multiconfig import (
         train_evolving_search)
-    from factorized_tpu_torch.utils.logging import RunLogger
 
     n = args.trials or 16
     round_i = 0
     while True:
         template = overridden(args, make_template())
-        logger = RunLogger(args.out, run_id=f"{prefix}_evolve{round_i}")
+        logger = run_logger(args, f"{prefix}_evolve{round_i}")
         # "search_meta", not "config": check counts "config" records as
         # trials, and the search logs one per explored config
         logger.record("search_meta", evolve_rungs=args.evolve,
@@ -505,6 +549,8 @@ def _evolve_rounds(args, data, dataset, rng, make_template, prefix,
             kw["ckpt_dir"] = f"{args.out}/ckpt_auto_{prefix}_evolve{round_i}"
         if args.resume and round_i == 0:
             kw["resume_from"] = args.resume
+        if args.seed_parallel:
+            kw["mesh"] = seed_parallel_mesh(n * max(args.seeds, 1), device)
         kw.update(extra_kw or {})
         try:
             res = train_evolving_search(*data, template, dataset, **kw)
@@ -686,7 +732,6 @@ def run_test_attention(args):
     ``--evolve`` are refused before any load (one model)."""
     from factorized_tpu_torch import resolve_device, trainers
     from factorized_tpu_torch.config import MFMConfig
-    from factorized_tpu_torch.utils.logging import RunLogger
 
     refuse_lane_flags(args)
     device = resolve_device(args.device)
@@ -694,7 +739,7 @@ def run_test_attention(args):
     cfg = MFMConfig(input_dims=dataset_info("mosi", data, args)["input_dims"],
                     batchsize=args.batchsize or 128,
                     num_epochs=args.epochs or 100)
-    logger = RunLogger(args.out, run_id="self_attention")
+    logger = run_logger(args, "self_attention")
     try:
         trainers.train_predictor(*data, "self_attention", cfg,
                                  h=args.hidden, drop=0.5,
@@ -904,7 +949,8 @@ def run_check(args):
 
 def add_data_args(sp):
     """``--data-root``, ``--feature-selection`` and
-    ``--normalize-covarep``: how ``load_dataset`` reads the data."""
+    ``--normalize-covarep``: how ``load_dataset`` reads the data; and
+    ``--profile``, ``--seed-parallel`` and ``--multihost``."""
     sp.add_argument("--data-root", default=None,
                     help="the dataset's files (the reference's layout); "
                          "the synthetic set where it is not a directory")
@@ -920,6 +966,25 @@ def add_data_args(sp):
                     help="trace the whole command with torch.profiler into "
                          "DIR (a Chrome trace; TensorBoard or "
                          "chrome://tracing opens it)")
+    add_parallel_args(sp)
+
+
+def add_parallel_args(sp):
+    """``--seed-parallel`` and ``--multihost``, on every command whose JAX
+    parser has them."""
+    sp.add_argument("--seed-parallel", action="store_true",
+                    help="with --seeds > 1, --bucket or --evolve: share "
+                         "the lanes out over the world's ranks (one a "
+                         "device; 2-D seed x batch where the ranks "
+                         "outnumber and divide the lanes)")
+    sp.add_argument("--multihost", action="store_true",
+                    help="join the world of ranks (torch.distributed) "
+                         "before anything runs: the coordinator, world "
+                         "size and rank from torchrun's MASTER_ADDR/"
+                         "MASTER_PORT/WORLD_SIZE/RANK or the JAX "
+                         "package's JAX_COORDINATOR_ADDRESS/"
+                         "JAX_NUM_PROCESSES/JAX_PROCESS_ID; each rank on "
+                         "cuda:LOCAL_RANK (gloo with --device cpu)")
 
 
 def add_training_args(sp):
@@ -1119,12 +1184,22 @@ def run_warmup(args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if getattr(args, "profile", None):
-        from factorized_tpu_torch.utils.profiling import trace
+    joined = False
+    if getattr(args, "multihost", False):
+        # before any device is touched: the rank's card becomes current
+        from factorized_tpu_torch.parallel import sharding
 
-        with trace(args.profile):
-            return args.func(args)
-    return args.func(args)
+        joined = sharding.init_distributed(device=args.device)
+    try:
+        if getattr(args, "profile", None):
+            from factorized_tpu_torch.utils.profiling import trace
+
+            with trace(args.profile):
+                return args.func(args)
+        return args.func(args)
+    finally:
+        if joined:
+            sharding.dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -63,6 +63,7 @@ from factorized_tpu_torch.ops.fused import fused_lstm_scan
 from factorized_tpu_torch.ops.lstm import (decoder_init, encoder_init,
                                            lstm_cell_init)
 from factorized_tpu_torch.ops.mfn import mfn_init
+from factorized_tpu_torch.ops.rows import draw
 
 _S2S_ENCODERS = ("encoder_la_to_v", "encoder_lv_to_a", "encoder_av_to_l")
 _BM_ENCODERS = ("encoder_la_to_y", "encoder_lv_to_y", "encoder_av_to_y")
@@ -158,8 +159,7 @@ def train_draws(cfg, n, generator):
     in the order the apply reads them: ``mmd_noise`` and ``zf_masks``
     (``s2s``) or ``y_masks`` (``bm``)."""
     def noise(z):
-        return torch.randn((n, z), generator=generator,
-                           device=generator.device)
+        return draw(torch.randn, generator, (n, z), whole=True)
 
     if cfg.model_type == "s2s":
         return {"mmd_noise": [noise(z) for z in (cfg.zv_size, cfg.za_size,

@@ -61,6 +61,7 @@ from factorized_tpu_torch.ops.fused import (blockdiag, decoder_operands,
 from factorized_tpu_torch.ops.losses import l2_loss, loss_kld
 from factorized_tpu_torch.ops.lstm import (decoder_apply, encoder_apply,
                                            encoder_init)
+from factorized_tpu_torch.ops.rows import draw, gather_rows
 from factorized_tpu_torch.ops.mfn import mfn_scan
 
 # The fused path against the modular one (the JAX package's switch):
@@ -197,8 +198,9 @@ def _mmd4(zl, za, zv, zy, noise):
     """Sum of the four MMD terms, batched: the latents padded to a common
     width and stacked; ``noise`` (4, n, dmax) is the Gaussian sample,
     zeroed here on each latent's padded dims. The kernel exponent divides
-    by d**2, as the JAX package does."""
-    zs = (zl, za, zv, zy)
+    by d**2, as the JAX package does. Under a data group the terms are the
+    whole batch's (``ops.rows``: ``noise`` holds all the rows)."""
+    zs = [gather_rows(z) for z in (zl, za, zv, zy)]
     dims = [z.shape[1] for z in zs]
     dmax = max(dims)
     Z = torch.stack([torch.nn.functional.pad(z, (0, dmax - d))
@@ -266,8 +268,8 @@ def _mmd_noise(noise, generator, cfg, x):
         return noise
     if generator is None:
         raise ValueError("the MMD term needs a torch.Generator or mmd_noise")
-    return torch.randn(mmd_noise_shape(cfg, x.shape[1]), generator=generator,
-                       device=x.device)
+    return draw(torch.randn, generator, mmd_noise_shape(cfg, x.shape[1]),
+                rows=1, whole=True)
 
 
 # ------------------------------------------------------- variational heads

@@ -12,6 +12,8 @@ import math
 
 import torch
 
+from factorized_tpu_torch.ops.rows import draw
+
 
 def uniform_fan_in(generator: torch.Generator, shape, fan_in: int):
     """U(-1/sqrt(fan_in), +1/sqrt(fan_in)) — torch's default Linear/LSTM
@@ -47,17 +49,18 @@ def rate_active(rate, train: bool) -> bool:
     return bool(train) and (not rate_is_static(rate) or rate > 0.0)
 
 
-def dropout_mask(generator: torch.Generator, shape, rate):
+def dropout_mask(generator: torch.Generator, shape, rate, rows=0):
     """The scaled keep-mask of inverted dropout, drawn on the generator's
     device: ``1 / keep`` where kept, else 0. A float rate gives all ones
     at rate <= 0 (nothing drawn) and all zeros at rate >= 1 (as torch's
     ``nn.Dropout``). A tensor rate always draws: at 0 the mask is exactly
     ones (keep 1, scale 1), at 1 or more exactly zeros (the keep floor
-    of 1e-6 lets a draw survive, and its scale is then 0, not 1e6)."""
+    of 1e-6 lets a draw survive, and its scale is then 0, not 1e6).
+    ``rows`` is the batch axis of ``shape`` (``ops.rows.draw``)."""
     device = generator.device
     if not rate_is_static(rate):
         keep = torch.clamp(1.0 - rate, min=1e-6)
-        kept = torch.rand(shape, generator=generator, device=device) < keep
+        kept = draw(torch.rand, generator, shape, rows) < keep
         scale = torch.where(rate >= 1.0, torch.zeros_like(keep), 1.0 / keep)
         return kept.to(torch.float32) * scale
     if rate <= 0.0:
@@ -65,7 +68,7 @@ def dropout_mask(generator: torch.Generator, shape, rate):
     if rate >= 1.0:
         return torch.zeros(shape, dtype=torch.float32, device=device)
     keep = 1.0 - rate
-    kept = torch.rand(shape, generator=generator, device=device) < keep
+    kept = draw(torch.rand, generator, shape, rows) < keep
     return kept.to(torch.float32) * (1.0 / keep)
 
 

@@ -60,3 +60,14 @@ def restore(snap: dict):
             getattr(m, a).update(v)
         else:
             setattr(m, a, v)
+
+
+def named(delta: dict) -> dict:
+    """``delta`` (of ``since``) keyed ``"module.COUNTER"`` (``"cuda_mfn.
+    LAUNCHES"``; a per-kernel counter, such as ``LANE_LAUNCHES``, as a
+    dict of its nonzero counts): picklable, for a result written by
+    another process."""
+    return {f"{m.__name__.rsplit('.', 1)[-1]}.{a}":
+            ({k: int(n) for k, n in v.items() if n} if isinstance(v, dict)
+             else int(v))
+            for (m, a), v in delta.items()}

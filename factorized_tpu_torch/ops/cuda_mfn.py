@@ -268,7 +268,7 @@ def make_dropout_masks(generator, t: int, n: int, sizes, drops):
     ``torch.func.vmap`` (the config-bucketed search): its site always
     draws, exactly all ones at 0 and zeros at 1 (``core.dropout_mask``;
     JAX: ``pallas_mfn.make_dropout_masks``)."""
-    return torch.cat([dropout_mask(generator, (t, n, s), rate)
+    return torch.cat([dropout_mask(generator, (t, n, s), rate, rows=1)
                       for s, rate in zip(sizes, drops)], dim=2)
 
 

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from factorized_tpu_torch.ops.rows import draw, gather_rows, row_sum
+
 
 def compute_kernel(x, y):
     """Kernel matrix (n_x, n_y): exp(-sqdist(x_i, y_j) / dim^2)."""
@@ -21,18 +23,21 @@ def compute_kernel(x, y):
 
 def loss_mmd(z, generator=None, noise=None):
     """MMD(z, N(0, I)) against a Gaussian sample of z's shape: ``noise``
-    when handed in, else drawn from ``generator``."""
+    when handed in, else drawn from ``generator``. Under a data group it
+    is the MMD of the whole batch's z (``ops.rows``)."""
     if noise is None:
-        noise = torch.randn(z.shape, generator=generator, dtype=z.dtype,
-                            device=z.device)
+        noise = draw(torch.randn, generator, z.shape, whole=True)
+    z = gather_rows(z)
     return (torch.mean(compute_kernel(noise, noise))
             + torch.mean(compute_kernel(z, z))
             - 2.0 * torch.mean(compute_kernel(noise, z)))
 
 
 def loss_kld(mu, logvar):
-    """Summed KL( N(mu, exp(logvar)) || N(0, I) )."""
-    return -0.5 * torch.sum(1.0 + logvar - mu * mu - torch.exp(logvar))
+    """Summed KL( N(mu, exp(logvar)) || N(0, I) ) (under a data group
+    this rank's part, ``ops.rows.row_sum``)."""
+    return row_sum(-0.5 * torch.sum(1.0 + logvar - mu * mu
+                                    - torch.exp(logvar)))
 
 
 def l1_loss(pred, target):

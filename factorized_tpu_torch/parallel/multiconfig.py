@@ -1,5 +1,5 @@
 """Shape-bucketed and evolving searches: many search trials trained as
-lanes of one program on one card (port of
+lanes of one program (port of
 ``factorized_tpu/parallel/multiconfig.py``, ``--bucket``, ``--evolve``
 and ``--cull-frac``).
 
@@ -38,8 +38,12 @@ sets the seed and offset that the next replay reads, which
 boundary (``_evolve_snapshot``) resumes to the uninterrupted run bit for
 bit.
 
-One card: there is no ``mesh`` argument (the JAX package's shards the
-lane axis over chips).
+Across ranks (``mesh=``): as ``parallel/multiseed.py``'s lanes, each
+rank trains its share of the K lanes (a ``"batch"`` axis splits each
+lane group's batch too), lane k initialised and drawing as in one
+process; records, scores and parameters are gathered, every rank
+returns the whole result and rank 0 alone writes the logs and
+snapshots. A culled lane is recycled by the rank that holds it.
 """
 
 from __future__ import annotations
@@ -56,10 +60,12 @@ from torch.utils import _pytree as pytree
 from factorized_tpu_torch import resolve_device
 from factorized_tpu_torch.config import MFMConfig, sample_search_config
 from factorized_tpu_torch.models import get_model
+from factorized_tpu_torch.parallel import sharding
 from factorized_tpu_torch.parallel.multiseed import (
-    DEFAULT_EPOCH_CHUNK, MULTISEED_TYPES, LaneLoop, LanePrograms, _Null,
-    _run_seed, data_fingerprint, prepare_bucket_data, sched_from_dicts,
-    sched_to_dicts, stack_lanes, take_lane, take_lanes)
+    DEFAULT_EPOCH_CHUNK, MULTISEED_TYPES, LaneLoop, LanePrograms, LaneShard,
+    _Null, _run_seed, data_fingerprint, lane_state, opt_state_lanes,
+    prepare_bucket_data, sched_from_dicts, sched_to_dicts, stack_lanes,
+    take_lane, take_lanes)
 from factorized_tpu_torch.train import LaneAdam, make_loss_fn
 from factorized_tpu_torch.utils.checkpoint import (restore_checkpoint,
                                                    save_checkpoint)
@@ -194,7 +200,7 @@ class ConfigBucketProgram(LanePrograms):
         if state.get("loop") is loop:
             return
         if "opt" in state:
-            state = _host_state(state)
+            state = host_lanes(_host_state(state), self.shard)
         opt = loop.opt
         opt.load_state_dict(state["opt_state"], params=state["params"])
         with torch.no_grad():
@@ -219,14 +225,31 @@ class ConfigBucketProgram(LanePrograms):
 
 def _host_state(state):
     """A live ``state`` (``ConfigBucketProgram.state``) as host copies:
-    the form a snapshot restores."""
-    opt = state["opt"]
-    return {"params": opt.tree_of(opt.flat.cpu()),
-            "opt_state": opt.state_dict(),
-            "sched": sched_to_dicts(state["sched"]),
-            "best": [float(b) for b in state["best"].cpu()],
-            "best_params": opt.tree_of(state["best_flat"].cpu()),
-            "has_best": [bool(b) for b in state["has_best"].cpu()]}
+    the form a snapshot restores; sharded, every rank's lanes gathered
+    (all K)."""
+    loop = state["loop"]
+    st = lane_state(loop, loop.programs.shard)
+    return {"params": loop.opt.tree_of(st["flat"]),
+            "opt_state": st["opt_state"],
+            "sched": sched_to_dicts(st["sched"]),
+            "best": [float(b) for b in st["best"]],
+            "best_params": loop.opt.tree_of(st["best_flat"]),
+            "has_best": [bool(b) for b in st["has_best"]]}
+
+
+def host_lanes(state, shard):
+    """This rank's lanes of a host ``state`` of all K (``_host_state``, a
+    snapshot's); the state itself unsharded."""
+    if shard is None or shard.group is None:
+        return state
+    lanes = shard.lanes
+    sl = slice(lanes.start, lanes.stop)
+    return {"params": take_lanes(state["params"], lanes),
+            "opt_state": opt_state_lanes(state["opt_state"], lanes),
+            "sched": list(state["sched"])[sl],
+            "best": list(state["best"])[sl],
+            "best_params": take_lanes(state["best_params"], lanes),
+            "has_best": list(state["has_best"])[sl]}
 
 
 def train_config_bucket(
@@ -248,10 +271,12 @@ def train_config_bucket(
     defer_scoring: bool = False,
     params=None,
     device=None,
+    mesh=None,
+    shard: Optional[LaneShard] = None,
 ):
     """Train a bucket of same-shape configs, K = ``len(cfgs) *
     seeds_per_config`` lanes of one program (the JAX package's
-    ``train_config_bucket``; one card, no mesh). The configs may differ in
+    ``train_config_bucket``). The configs may differ in
     any ``HP_FIELDS`` value and in ``lr``: ``use_config_lr`` gives each
     lane its config's lr (``moud``/``you``, ``mfm_moud.py:466``), else
     every lane takes ``lr`` (1e-3 by default, ``mfm_mosi.py:403``).
@@ -272,6 +297,11 @@ def train_config_bucket(
     (every lane's scored parameters on the CPU)} (+ "state"). With
     ``defer_scoring`` (which needs ``return_state``) no lane is scored:
     the results carry ``best_valid`` alone, for ``score_bucket_lanes``.
+
+    ``mesh``: a ``sharding.Mesh`` sharing out the lanes (the module's
+    doc); every rank returns the whole result. ``shard``: the
+    ``LaneShard`` of a caller that shares the result itself
+    (``train_evolving_search``).
     """
     logger = logger or RunLogger()
     if defer_scoring and not return_state:
@@ -291,18 +321,24 @@ def train_config_bucket(
             f"{MULTISEED_TYPES}; got {rep.model_type!r}")
     name = rep.model_type
     K = len(cfgs) * seeds_per_config
+    outer = shard is None
+    shard = shard or LaneShard(mesh, K, f"lanes={K} (configs x seeds)")
+    if not shard.member:
+        return shard.share_result(None)
+    logger = shard.logger(logger)
     dev = resolve_device(device)
     if prep is None:
         prep = prepare_bucket_data(X_train, y_train, X_valid, y_valid,
                                    X_test, y_test, rep, seed=seed,
-                                   device=dev)
+                                   device=dev, mesh=mesh)
     elif prep["seed"] != seed or prep["batchsize"] != rep.batchsize \
             or prep["task"] != rep.task:
         raise ValueError(
             "prep= was built for a different seed/batchsize/task than "
             "this bucket; rebuild it with prepare_bucket_data(...)")
     elif prep["fingerprint"] != data_fingerprint(
-            X_train, X_valid, X_test, prep["Xb"].device, y_train, y_valid,
+            X_train, X_valid, X_test,
+            prep["Xb"].device if mesh is None else mesh, y_train, y_valid,
             y_test):
         raise ValueError(
             "prep= was built from different dataset arrays (or another "
@@ -318,31 +354,37 @@ def train_config_bucket(
     elif program.valid_metric != valid_metric:
         raise ValueError(f"program= keeps {program.valid_metric!r}, this "
                          f"bucket {valid_metric!r}")
+    shard.bind(program)
     if use_config_lr:
         lane_lr = np.repeat([float(c.lr) for c in cfgs], seeds_per_config)
     else:
         lane_lr = np.full(K, 1e-3 if lr is None else lr)
-    lane_lr = lane_lr.astype(np.float32)
+    lane_lr = lane_lr.astype(np.float32)[shard.lo:shard.hi]
     chunk = min(rep.num_epochs, DEFAULT_EPOCH_CHUNK) or 1
     if state_in is None:
         if params is None:
             params = stack_lanes([init(torch.Generator().manual_seed(
-                _run_seed(seed, k)), rep) for k in range(K)], dev)
+                _run_seed(seed, k)), rep) for k in shard.lanes], dev)
+        else:
+            params = take_lanes(params, shard.lanes)
         program.bind(params, lane_lr, prep, chunk)
         program.start(params, lane_lr)
     else:
+        if "opt" not in state_in:
+            state_in = host_lanes(state_in, shard)
         program.bind(state_in["params"], lane_lr, prep, chunk)
         program.load_state(state_in)
     loop = program.loop
     with torch.no_grad():
-        loop.hps.copy_(torch.from_numpy(hp_matrix(cfgs, seeds_per_config)))
+        loop.hps.copy_(torch.from_numpy(
+            hp_matrix(cfgs, seeds_per_config)[shard.lo:shard.hi]))
     program.generator.manual_seed(_run_seed(seed, key_salt))
 
     history = []
     e = 0
     while e < rep.num_epochs:
         n = min(chunk - e % chunk, rep.num_epochs - e)
-        records = loop.run(n).astype(np.float32)
+        records = shard.gather(loop.run(n), dim=2).astype(np.float32)
         for j in range(n):
             ep = epoch_offset + e + j
             tracked, valids = records[j, 0], records[j, 1]
@@ -355,18 +397,19 @@ def train_config_bucket(
         e += n
 
     state_out = program.state()
-    best_h = loop.best.cpu().numpy()
+    best_h = shard.gather(loop.best.cpu()).numpy()
     if defer_scoring:
         results = [{"config_index": k // seeds_per_config,
                     "seed_index": k % seeds_per_config,
                     "best_valid": float(best_h[k])} for k in range(K)]
-        return {"results": results, "best_lane": None,
-                "best_params": None, "params": None, "history": history,
-                "state": state_out}
+        out = {"results": results, "best_lane": None, "best_params": None,
+               "params": None, "history": history, "state": state_out}
+        return shard.share_result(out) if outer else out
     # a lane with no best yet (no epoch run, or just recycled) is scored
     # with its live parameters
-    eval_stack = loop.opt.tree_of(loop.eval_flat())
-    preds = program.predict(eval_stack, prep["Xte"])
+    preds = shard.gather(program.predict(loop.opt.tree_of(loop.eval_flat()),
+                                         prep["Xte"]))
+    eval_stack = loop.opt.tree_of(shard.gather(loop.eval_flat().cpu()))
     yte = prep["yte"]
     multi = rep.output_dim > 1 and rep.task == "regression"
     results = []
@@ -402,7 +445,7 @@ def train_config_bucket(
            "lane_params": pytree.tree_map(lambda a: a.cpu(), eval_stack)}
     if return_state:
         out["state"] = state_out
-    return out
+    return shard.share_result(out) if outer else out
 
 
 def _score_pred(pred, yte, rep, binary_threshold, threshold_mode):
@@ -424,15 +467,31 @@ def score_bucket_lanes(program, state, lanes, Xte_d, yte, rep,
     parameters (a lane with no best its live ones) gathered into one
     ``(len(lanes), ...)`` tree, one predict at that width, metrics per
     lane. Returns (metrics list, the gathered tree); ``take_lane(tree,
-    pos)`` is lane ``lanes[pos]``'s parameters."""
+    pos)`` is lane ``lanes[pos]``'s parameters. Sharded, each rank scores
+    the lanes it holds and the scores and trees are gathered (the tree
+    on the host)."""
     opt = state["opt"]
     eval_flat = LanePrograms.select(state["has_best"], state["best_flat"],
                                     opt.flat)
-    sub = take_lanes(opt.tree_of(eval_flat), lanes)
-    preds = program.predict(sub, Xte_d)
-    metrics = [_score_pred(preds[i], yte, rep, binary_threshold,
-                           threshold_mode) for i in range(len(lanes))]
-    return metrics, sub
+    shard = program.shard
+    if shard is None or shard.group is None:
+        sub = take_lanes(opt.tree_of(eval_flat), lanes)
+        preds = program.predict(sub, Xte_d)
+        metrics = [_score_pred(preds[i], yte, rep, binary_threshold,
+                               threshold_mode) for i in range(len(lanes))]
+        return metrics, sub
+    mine = shard.mine(lanes)
+    scored = []
+    if mine:
+        sub = take_lanes(opt.tree_of(eval_flat),
+                         [lanes[p] - shard.lo for p in mine])
+        preds = program.predict(sub, Xte_d)
+        scored = [(p, _score_pred(preds[i], yte, rep, binary_threshold,
+                                  threshold_mode), take_lane(sub, i))
+                  for i, p in enumerate(mine)]
+    scored = sorted(shard.gather_list(scored), key=lambda r: r[0])
+    return ([m for _, m, _ in scored],
+            stack_lanes([tree for _, _, tree in scored], "cpu"))
 
 
 # ---- the evolving search (successive halving with lanes recycled) -------
@@ -458,16 +517,24 @@ def recycle_lanes(state, lane_indices, *, cfg, init, lrs_new, seed: int,
     had been culled."""
     opt = state["opt"]
     dev = opt.flat.device
-    lanes = torch.tensor([int(k) for k in lane_indices], dtype=torch.long,
-                         device=dev)
+    shard = state["loop"].programs.shard
+    pos = (list(range(len(lane_indices))) if shard is None
+           else shard.mine(lane_indices))
+    if not pos:
+        return state
+    lo = 0 if shard is None else shard.lo
+    lanes = torch.tensor([int(lane_indices[p]) - lo for p in pos],
+                         dtype=torch.long, device=dev)
     if fresh is None:
         fresh = stack_lanes([init(torch.Generator().manual_seed(
-            _run_seed(seed, int(k))), cfg) for k in lane_indices], dev)
+            _run_seed(seed, int(lane_indices[p]))), cfg) for p in pos], dev)
+    elif len(pos) != len(lane_indices):
+        fresh = take_lanes(fresh, pos)
     ConfigBucketProgram.recycle(state, lanes, fresh)
     best_fill = -math.inf if valid_metric == "accuracy" else math.inf
+    lrs = np.asarray(lrs_new, np.float32)[pos]
     _reset_books(state["sched"], state["best"], state["has_best"], lanes,
-                 torch.tensor(np.asarray(lrs_new, np.float32), device=dev),
-                 best_fill)
+                 torch.tensor(lrs, device=dev), best_fill)
     return state
 
 
@@ -500,8 +567,11 @@ def _evolve_snapshot(path, template, state, cfgs, rung_next, rng,
     """The whole search at a rung boundary under ``path``: the live, the
     per-lane best and the overall best parameters, Adam, the lanes'
     configs, lrs, scheduler and best records, the draws' RNG and the
-    search's books (the JAX package's ``_ev`` meta)."""
+    search's books (the JAX package's ``_ev`` meta). Sharded, every
+    rank's lanes are gathered and the writer alone writes."""
     host = _host_state(state)
+    if not sharding.is_writer():
+        return
     tree = {"live": host["params"], "best": host["best_params"]}
     if overall is not None:
         tree["overall"] = overall["params"]
@@ -582,10 +652,11 @@ def train_evolving_search(
     params=None,
     init_lanes=None,
     device=None,
+    mesh=None,
 ):
     """Successive halving over the values of one shape, culled lanes
     recycled into fresh trials (the JAX package's
-    ``train_evolving_search``; one card, no mesh). K = ``n_configs *
+    ``train_evolving_search``). K = ``n_configs *
     seeds_per_config`` lanes hold ``template`` and ``n_configs - 1``
     draws of ``resample_values``; each rung (``template.num_epochs``
     epochs, ``train_config_bucket`` on the one program) ranks the configs
@@ -598,6 +669,8 @@ def train_evolving_search(
     ``params``: the first rung's parameters (a tree of ``(K, ...)``
     leaves); ``init_lanes(lanes, rung)``: a recycled lanes' parameters (a
     tree of ``(len(lanes), ...)`` leaves) in place of their seeded draw.
+    ``mesh``: a ``sharding.Mesh`` sharing out the lanes (the module's
+    doc); every rank returns the whole result.
 
     Returns {"best": the overall best finished lane (metrics, best_valid,
     config, rung, params), "rungs": each rung's scores, culls and configs,
@@ -612,6 +685,11 @@ def train_evolving_search(
         raise ValueError(
             f"the evolving search supports model types "
             f"{MULTISEED_TYPES}; got {rep.model_type!r}")
+    K = n_configs * seeds_per_config
+    shard = LaneShard(mesh, K, f"lanes={K} (configs x seeds)")
+    if not shard.member:
+        return shard.share_result(None)
+    logger = shard.logger(logger)
     init, apply_fn = get_model(rep.model_type)
     dev = resolve_device(device)
     program = program or ConfigBucketProgram(
@@ -630,8 +708,7 @@ def train_evolving_search(
         return a > b if maximize else a < b
 
     data = (X_train, y_train, X_valid, y_valid, X_test, y_test)
-    prep = prepare_bucket_data(*data, rep, seed=seed, device=dev)
-    K = n_configs * seeds_per_config
+    prep = prepare_bucket_data(*data, rep, seed=seed, device=dev, mesh=mesh)
     state = None
     start_rung = 0
     explored = n_configs
@@ -658,7 +735,8 @@ def train_evolving_search(
             threshold_mode=threshold_mode, valid_metric=valid_metric,
             state_in=state, return_state=True, key_salt=777 + rung,
             epoch_offset=rung * rep.num_epochs, program=program, prep=prep,
-            defer_scoring=True, params=params, device=dev)
+            defer_scoring=True, params=params, device=dev, mesh=mesh,
+            shard=shard)
         state = out["state"]
         cfg_snapshot = [c.to_dict() for c in cfgs]
 
@@ -735,5 +813,6 @@ def train_evolving_search(
     logger.record("evolve_final", explored_configs=explored,
                   best_rung=overall["rung"], best_metrics=overall["metrics"],
                   best_config=overall["config"])
-    return {"best": overall, "rungs": rung_logs,
-            "explored_configs": explored, "params": overall["params"]}
+    return shard.share_result({"best": overall, "rungs": rung_logs,
+                               "explored_configs": explored,
+                               "params": overall["params"]})

@@ -2,7 +2,7 @@
 
 Run from the repository root on the card:
 ``python -m factorized_tpu_torch.perf_probe [serve] [train] [multi]
-[profile] [times] [scale]`` (the first four parts when none is named), or
+[profile] [times] [scale] [lanes]`` (the first four parts when none is named), or
 ``python -m factorized_tpu_torch.perf_probe phases`` or ``... rows``
 alone. Prints JSON lines:
 
@@ -45,6 +45,13 @@ alone. Prints JSON lines:
   run against an earlier build's package (that build first on
   ``sys.path``, e.g. ``PYTHONPATH=<parent> python
   factorized_tpu_torch/perf_probe.py times``) gives the A/B;
+- ``lane_times`` (part ``lanes``): ``mfm``'s lane path (``--seeds K``)
+  at K = 8, 16 and 32, its ``LaneLoop`` built directly on 19 batches of
+  32 of synthetic MOSI: device ms and launches a step of every lane
+  (torch.profiler over 3 eager steps), the replayed epoch's host s
+  (median of 3) and device ms, and the epoch graph's capture ms and pool
+  bytes. Like ``step_times`` it calls only what every lane build has, for
+  the A/B;
 - ``phases`` (part ``phases``, run alone: it builds the kernels with
   ``FTT_PHASE_CLOCKS``): one line per chain kernel and cell, the mean
   SM cycles of each phase of a step over one call's steps, stamped by
@@ -685,6 +692,49 @@ def _replayed_times(program, tree, opt, Xb, yb, Xv, yv, gen, step):
             "graph_pool_bytes": loop.epoch.pool_bytes}
 
 
+def lane_times(cfg, dev, lanes=(8, 16, 32)):
+    """Part ``lanes`` (see the module's doc): one JSON line."""
+    from factorized_tpu_torch.data import mosi
+    from factorized_tpu_torch.parallel import multiseed
+    from factorized_tpu_torch.train import LaneAdam
+
+    data = mosi.get_data(cfg.seqlength)
+    _, apply_fn = get_model("mfm")
+    out = {}
+    for K in lanes:
+        prep = multiseed.prepare_bucket_data(*data, cfg, seed=0, device=dev)
+        params = multiseed.init_lanes("mfm", cfg, 0, K, dev)
+        opt = LaneAdam(params, 1e-3)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        programs = multiseed.LanePrograms(apply_fn, cfg, gen)
+        loop = multiseed.LaneLoop(programs, params, opt, prep["Xb"],
+                                  prep["yb"], prep["Xv"], prep["yv"],
+                                  epochs=1)
+        loop.run(1)  # eager
+        loop.run(1)  # the capture and its replay
+        Xb, yb = loop.batches
+
+        def step():
+            programs.step(params, opt, Xb[0], yb[0])
+
+        step()
+        _, kernels = _profiled(step, 3)
+        epoch_s = _epoch_s(lambda: loop.run(1))
+        _, replayed = _profiled(lambda: loop.run(1), 1)
+        out[str(K)] = {
+            "device_ms_per_step": sum(ms for ms, _ in kernels.values()) / 3,
+            "launches_per_step": sum(c for _, c in kernels.values()) / 3,
+            "replayed_epoch_s": epoch_s,
+            "device_ms_per_replayed_epoch": sum(
+                ms for ms, _ in replayed.values()),
+            "capture_ms": loop.epoch.capture_ms,
+            "graph_pool_bytes": loop.epoch.pool_bytes}
+        del loop, opt, params, programs
+    print(json.dumps({
+        "lane_times": out,
+        "package": str(Path(cuda_mfn.__file__).parents[1])}), flush=True)
+
+
 def _sm_clock():
     """The SM clock now and its maximum, MHz, by nvidia-smi."""
     out = subprocess.run(
@@ -988,7 +1038,7 @@ def main(parts=None):
             rows[macro] = int(value)
         parts = {"row_times"}
     if not parts <= {"serve", "train", "multi", "profile", "times",
-                     "phases", "rows", "row_times", "scale"}:
+                     "phases", "rows", "row_times", "scale", "lanes"}:
         raise SystemExit(f"unknown parts {sorted(parts)}")
     for alone in ("phases", "rows"):
         if alone in parts and parts != {alone}:
@@ -1037,6 +1087,8 @@ def main(parts=None):
         profile(cfg, params)
     if "scale" in parts:
         scale_sweep(torch.device("cuda"), smi.splitlines()[0])
+    if "lanes" in parts:
+        lane_times(cfg, torch.device("cuda"))
 
 
 if __name__ == "__main__":

@@ -563,20 +563,42 @@ class TrainProgram:
     ``optimizer`` is a ``FlatAdam`` or ``FlatSGD``; an ``lr`` given sets
     its lr first,
     else its lr tensor is read as it stands.
+
+    ``data``: the data group of a data-parallel step
+    (``parallel.sharding.Group``, ``DataParallel.program``), None for one
+    process. Each rank's ``x``, ``y`` are its rows of the global batch;
+    its loss is scaled by its share and computed under the group
+    (``ops.rows``: the global batch's draws, the MMD of the whole batch),
+    and between ``backward`` and the update the flat gradient is summed
+    over the group in place, in one all-reduce (the tracked loss in a
+    second, of a few floats), so every rank applies the update of the
+    global batch. The step runs eagerly
+    (``collective``: ``ChunkedLoop`` captures no graph of it).
     """
 
     def __init__(self, apply_fn, cfg, variant: str = "joint", stage: int = 0,
-                 loss_fn=None, eval_fn=None):
+                 loss_fn=None, eval_fn=None, data=None):
         self.cfg = cfg
         self.loss_fn = loss_fn or make_loss_fn(apply_fn, cfg, variant, stage)
         self.eval_fn = eval_fn or make_eval_fn(apply_fn, cfg, variant)
+        self.data = data
+        self.collective = data is not None
 
     def step(self, params, optimizer, x, y, generator, lr=None):
         if lr is not None:
             optimizer.set_lr(lr)
         optimizer.zero_grad()
-        loss, tracked = self.loss_fn(params, x, y, generator=generator)
-        loss.backward()
+        data = self.data
+        if data is None:
+            loss, tracked = self.loss_fn(params, x, y, generator=generator)
+            loss.backward()
+        else:
+            with data.rows():
+                loss, tracked = self.loss_fn(params, x, y,
+                                             generator=generator)
+                (loss * data.share).backward()
+            data.all_reduce_(optimizer.grad)
+            tracked = data.all_reduce_(tracked.detach() * data.share)
         optimizer.step()
         return tracked.detach()
 
@@ -708,8 +730,9 @@ class ChunkedLoop:
       chunked loop records it.
 
     On a CUDA card the body is a ``Graphed``: the first epoch runs
-    eagerly, then each epoch is one graph replay. On the CPU each epoch
-    runs the body eagerly. ``load`` mirrors the host scheduler and keeper
+    eagerly, then each epoch is one graph replay. On the CPU, and for a
+    data-parallel program (its steps all-reduce), each epoch runs the
+    body eagerly. ``load`` mirrors the host scheduler and keeper
     in, ``run(n)`` runs n epochs and reads their records once, ``store``
     mirrors them back out. ``epoch_launches`` holds each epoch's kernel
     launches (``ops.counts.since``)."""
@@ -743,7 +766,8 @@ class ChunkedLoop:
         self.records = torch.zeros((epochs, 5), dtype=torch.float64,
                                    device=dev)
         self.slot = zero(torch.int64)
-        self.epoch = (Graphed(self.body, (generator,)) if dev.type == "cuda"
+        self.epoch = (Graphed(self.body, (generator,))
+                      if dev.type == "cuda" and not program.collective
                       else self.body)
         self.epoch_launches = []
 

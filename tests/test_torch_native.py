@@ -10,7 +10,17 @@ maps +-inf to +-3.4e38 as the C++ does (numpy's ``nan_to_num`` gives the
 float32 maximum); a failed build raises naming the compiler and its
 output, with no fall back to numpy; the library sits under
 ``build/factorized_tpu_torch/`` apart from the kernels' (whose hash
-covers ``csrc/*.cu*`` only)."""
+covers ``csrc/*.cu*`` only).
+
+The JAX package's library is compiled for this module from its own
+``native/segavg.cpp`` with its Makefile's flags (``jax_segavg``), so the
+comparison never reads the numpy fall back that ``factorized_tpu.native``
+takes where its own build of ``native/libsegavg.so`` is missing or was
+half written by another process."""
+
+import os
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -45,8 +55,34 @@ def _bits(a):
     return a.view(np.uint32)
 
 
+# native/Makefile's CXXFLAGS
+JAX_CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17")
+
+
+@pytest.fixture(scope="module")
+def jax_segavg(tmp_path_factory):
+    """``factorized_tpu.native`` loading a library compiled here from the
+    JAX package's ``native/segavg.cpp`` (written under a temporary name,
+    then renamed), its state put back afterwards."""
+    src = os.path.join(os.path.dirname(jax_native._LIB_PATH), "segavg.cpp")
+    out = tmp_path_factory.mktemp("jax_native") / "libsegavg.so"
+    part = out.with_name(out.name + f".{os.getpid()}.part")
+    cxx = shutil.which("g++") or shutil.which("c++")
+    subprocess.run([cxx, *JAX_CXXFLAGS, "-o", str(part), src], check=True,
+                   capture_output=True, timeout=120)
+    os.replace(part, out)
+    saved = jax_native._LIB_PATH, jax_native._lib
+    jax_native._LIB_PATH, jax_native._lib = str(out), None
+    try:
+        assert jax_native.available()
+        yield jax_native
+    finally:
+        jax_native._LIB_PATH, jax_native._lib = saved
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_the_segment_average_is_the_numpy_and_jax_versions(seed):
+def test_the_segment_average_is_the_numpy_and_jax_versions(seed,
+                                                           jax_segavg):
     feats, starts, ends = _windows(seed)
     got = native.segment_average(feats, starts, ends)
     plain = segment_average(feats, starts, ends)
@@ -54,7 +90,7 @@ def test_the_segment_average_is_the_numpy_and_jax_versions(seed):
     assert got.shape == (len(starts), feats.shape[1])
     assert np.array_equal(_bits(got), _bits(plain))
     assert np.array_equal(_bits(got), _bits(
-        jax_native.segment_average(feats, starts, ends)))
+        jax_segavg.segment_average(feats, starts, ends)))
     assert got[7, 0] == np.inf and got[8, 0] == got[9, 0] == 0.0
     assert not np.isnan(got).any()
     assert not got[:6].any()                   # empty and reversed: zeros
