@@ -4258,8 +4258,12 @@ def lane_kernel_phase(cfg, dev, smi, K, timing=True, library=False):
     gradients, the decoder trio both ways and ``m_b``'s encoder trio [32,
     8, 80] (``multi_lstm``, train and eval) both ways at n = 32; forward
     within rtol 1e-4 / atol 1e-5, gradients within rtol 1e-3 / atol 2e-5.
-    Each call launches ``cuda_lstm.lane_launches(K)`` times (one launch
-    holds 8 lanes), counted. With ``timing``, each timed at K lanes and at
+    Each call launches ``cuda_lstm.lane_launches(K, kernel)`` times (one
+    launch for any K for the encode's reverse pass and weight gradients,
+    else one a group of 8 lanes), counted; lane k of those two kernels'
+    K-lane call, and of a one-lane call with the lane axis, equals lane
+    k's call with no lane axis bit for bit (``lane_bits``), each call's
+    plan logged. With ``timing``, each timed at K lanes and at
     1 (device ms, calls queued), beside its single-lane launch (no lane
     axis), its plain version at K and its bound at K (K times one lane's:
     K lanes' work and bytes); with ``library`` also its library yardstick
@@ -4343,6 +4347,8 @@ def lane_kernel_phase(cfg, dev, smi, K, timing=True, library=False):
         err_dw = compare_all("lanes.mfm_encode_dw", [
             (m, dw[m], torch.stack([r[m] for r in dw_ref]))
             for m in cuda_mfn.DW_NAMES], GRAD_RTOL, GRAD_ATOL)
+        bits = lane_bits(K, xp, w, res, dh, dmem, deltas_ref, z_tot, h_dims,
+                         (dxp, deltas), dw)
         # the decoder trio, n = 32
         dfwd = cuda_lstm.decoder_lstm_fwd_lanes(h0, c0, wsum, b, t,
                                                 dec_dims)
@@ -4453,10 +4459,10 @@ def lane_kernel_phase(cfg, dev, smi, K, timing=True, library=False):
             before = lane_counts().get(kernel, 0)
             fn(ops)
             launched = lane_counts().get(kernel, 0) - before
-            if launched != cuda_lstm.lane_launches(K):
+            if launched != cuda_lstm.lane_launches(K, kernel):
                 raise AssertionError(
                     f"{name} over {K} lanes launched {launched} times, not "
-                    f"{cuda_lstm.lane_launches(K)}")
+                    f"{cuda_lstm.lane_launches(K, kernel)}")
             times[name] = {"launches_per_call": launched}
             if not timing:
                 continue
@@ -4539,7 +4545,55 @@ def lane_kernel_phase(cfg, dev, smi, K, timing=True, library=False):
                                            if library else None)}
     log({"phase": "lane_kernels", "nvidia_smi": smi, "lanes": K,
          "n_train": n, "n_eval": ne, "h_dims": h_dims, "dec_dims": dec_dims,
-         "multi_dims": m_dims, "kernels": out})
+         "multi_dims": m_dims, "lane_bits": bits, "kernels": out})
+    return out
+
+
+def lane_bits(K, xp, w, res, dh, dmem, deltas, z_tot, h_dims, bwd, dw):
+    """Lane k of the reverse pass's and the weight gradients' K-lane calls
+    (``bwd``: (dxp, deltas), ``dw``: {name: grad}) and of a one-lane call
+    with the lane axis against lane k's call with no lane axis, bit for
+    bit (each lane's arithmetic does not depend on K); each call's plan:
+    the chains' rows with the blocks the card holds at once and the waves
+    they take, the weight gradients' cluster, and the launches. Raises
+    where a bit differs."""
+    from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
+
+    def plans(lanes):
+        return {"rows": {c: {k: p[k] for k in ("rows", "wave", "waves")}
+                         for c, p in cuda_mfn.BWD_PLAN.items()},
+                "dw": dict(cuda_mfn.DW_PLAN),
+                "launches": {k: cuda_lstm.lane_launches(lanes, k)
+                             for k in cuda_lstm.STRIDED_LANES}}
+
+    cuda_mfn._launch_bwd(xp, w, *res, dh, dmem, z_tot, h_dims, lanes=K)
+    cuda_mfn._launch_dw(w, res[1], res[2], res[3], deltas, z_tot, K)
+    out = {"lanes": K, "plan": plans(K)}
+    one = [lane_first(o) for o in (xp, w, *res, dh, dmem, deltas)]
+    one_bwd = cuda_mfn._launch_bwd(*one[:8], z_tot, h_dims, lanes=1)
+    one_dw = cuda_mfn._launch_dw(one[1], *one[3:6], one[8], z_tot, 1)
+    out["one_lane_plan"] = plans(1)
+    differ = []
+    for k in range(K):
+        wk = {m: v[k] for m, v in w.items()}
+        dxp, dl = cuda_mfn._launch_bwd(xp[k], wk, *(r[k] for r in res),
+                                       dh[k], dmem[k], z_tot, h_dims)
+        g = cuda_mfn._launch_dw(wk, res[1][k], res[2][k], res[3][k],
+                                deltas[k], z_tot)
+        got = [("dxp", bwd[0][k], dxp), ("deltas", bwd[1][k], dl)] + [
+            (m, dw[m][k], g[m]) for m in cuda_mfn.DW_NAMES]
+        if k == 0:
+            got += [("one_lane.dxp", one_bwd[0][0], dxp),
+                    ("one_lane.deltas", one_bwd[1][0], dl)] + [
+                (f"one_lane.{m}", one_dw[m][0], g[m])
+                for m in cuda_mfn.DW_NAMES]
+        differ += [f"lane {k} {label}" for label, a, b in got
+                   if not torch.equal(a, b)]
+    out["no_lane_axis_plan"] = plans(0)
+    if differ:
+        raise AssertionError(f"over {K} lanes the bits differ from one "
+                             f"lane's: {differ[:8]}")
+    out["same_bits"] = True
     return out
 
 
@@ -4723,10 +4777,11 @@ def lane_path_times(loop, steps=3, replays=3):
 
 
 def lane_epoch_launches(loop, kernels, label, epoch=1):
-    """Each kernel's launches in the loop's replayed epoch ``epoch``: one
-    launch a group of 8 lanes (``cuda_lstm.lane_launches``) a train step
-    for all the lanes (the forward kernels once more for the evaluation);
-    of a one-model ``ChunkedLoop``, one a step."""
+    """Each kernel's launches in the loop's replayed epoch ``epoch``:
+    ``cuda_lstm.lane_launches(lanes, kernel)`` a train step for all the
+    lanes (one for the encode's reverse pass and weight gradients, else
+    one a group of 8 lanes; the forward kernels once more for the
+    evaluation); of a one-model ``ChunkedLoop``, one a step."""
     from factorized_tpu_torch.ops import cuda_lstm
 
     nb = int(loop.batches[0].shape[0])
@@ -4734,9 +4789,10 @@ def lane_epoch_launches(loop, kernels, label, epoch=1):
         raise AssertionError(f"{label}: epoch {epoch} was not a graph "
                              f"replay")
     seen = per_kernel(loop.epoch_launches[epoch])
-    groups = cuda_lstm.lane_launches(getattr(loop.opt, "lanes", 0))
-    want = {k: groups * (nb + (k in ("mfm_encode_fwd", "decoder_lstm_fwd",
-                                     "multi_lstm_fwd"))) for k in kernels}
+    lanes = getattr(loop.opt, "lanes", 0)
+    want = {k: cuda_lstm.lane_launches(lanes, k)
+            * (nb + (k in ("mfm_encode_fwd", "decoder_lstm_fwd",
+                           "multi_lstm_fwd"))) for k in kernels}
     got = {k: seen[k] for k in kernels}
     if got != want:
         raise AssertionError(f"{label}: a replayed epoch launched {got}, "
@@ -5032,8 +5088,9 @@ def evolve_search_check(cfg, dev, smi, data):
     ``EVOLVE_CONFIGS`` configs x ``EVOLVE_SEEDS`` seeds = 16 lanes,
     ``EVOLVE_RUNGS`` rungs of 2 epochs, on the synthetic MOSI set: every
     lane's losses finite and the survivors' falling, the culls those the
-    rung scores rank, each kernel launched twice (``lane_launches(16)``)
-    a train step for all the lanes in every replayed epoch, one LaneLoop
+    rung scores rank, each kernel launched ``lane_launches(16, kernel)``
+    times (twice; the encode's reverse pass and weight gradients once) a
+    train step for all the lanes in every replayed epoch, one LaneLoop
     and one graph capture for the whole search; the host ms of each rung
     boundary (rank, score the finished lanes, recycle), then
     ``recycle_checks``. Returns (its line, launches, lane launches)."""
@@ -5147,8 +5204,9 @@ def search_command(command, argv, run_ids, kernels, runs, label):
     """``<command> <argv> --out runs`` through the command line in this
     process, counted (``mosi_cli``): every lane's losses finite in each of
     ``run_ids``' logs, a ``final`` record in each, every replayed epoch of
-    every LaneLoop launching each of ``kernels`` once a group of 8 lanes a
-    step. Returns (its line, launches, lane launches, {run id: records})."""
+    every LaneLoop launching each of ``kernels`` as ``lane_epoch_launches``
+    counts a step. Returns (its line, launches, lane launches, {run id:
+    records})."""
     import os
 
     from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn

@@ -86,14 +86,36 @@ __device__ __forceinline__ const float* cell_weights(float* smem,
 // A buffer's floats rounded up to 16 bytes, so the next starts aligned.
 __host__ __device__ inline int pad4(int floats) { return (floats + 3) & ~3; }
 
+// The layout of dg, the gate gradients of R rows: gate columns in groups
+// of four, a group's four columns of R rows contiguous (column jj, row r
+// at (jj / 4) dg_group(R) + (jj % 4) R + r), so cell_dh reads a group as R
+// float4. From R = 4 on a group is padded by four floats: the ks lanes of
+// a unit read ks groups at once, which 4 R floats apart would share their
+// banks (a 2-way conflict at R = 4, 4-way at 8); 4 R + 4 apart they do
+// not.
+__host__ __device__ constexpr int dg_group(int R) {
+  return R >= 4 ? 4 * R + 4 : 4 * R;
+}
+
+// Column col, row r of dg.
+__host__ __device__ constexpr int dg_at(int col, int r, int R) {
+  return (col >> 2) * dg_group(R) + (col & 3) * R + r;
+}
+
+// The floats of dg's first `cols` columns (a multiple of four).
+__host__ __device__ constexpr int dg_floats(int cols, int R) {
+  return cols / 4 * dg_group(R);
+}
+
 // Shared-memory floats of a block on cell c in a cluster of C: the
 // weight, dh, dc and dg (dg over the C blocks' columns; each starting
 // 16-byte aligned), two buffers of `op_width` operand floats a row and,
 // for C > 1, two partial dh.
 __host__ __device__ inline size_t cell_chain_floats(const CellTile& c, int R,
                                                     int op_width, int C) {
-  return (size_t)c.h * c.wp + 2 * pad4(c.h * R) + (size_t)R * C * c.kc +
-         (size_t)2 * R * op_width + (C > 1 ? 2 * pad4(c.h * R) : 0);
+  return (size_t)c.h * c.wp + 2 * pad4(c.h * R) +
+         (size_t)dg_floats(C * c.kc, R) + (size_t)2 * R * op_width +
+         (C > 1 ? 2 * pad4(c.h * R) : 0);
 }
 
 // The largest cell_chain_floats over the cells at a cluster of C, in
@@ -186,7 +208,7 @@ __device__ __forceinline__ CellStep cell_step(float* base, int h, int R,
 }
 
 // (1) The gate math's backward for the cell's units and R rows, from the
-// carried dh and dc: writes dg [4h][R] and the rows' dgates into
+// carried dh and dc: writes dg (4h columns, dg_at) and the rows' dgates into
 // out[slot] of a (*, n, 4H) tensor (in a cluster of C, block 0 writes
 // them), and moves dc to the step before.
 template <int R, int C = 1>
@@ -214,10 +236,10 @@ __device__ __forceinline__ void cell_gate_bwd(const CellStep& op,
     const float df = dcv * cp * sf * (1.0f - sf);
     const float dgg = dcv * si * (1.0f - tg * tg);
     const float dov = dhv * tc * so * (1.0f - so);
-    dg[j * R + r] = di;
-    dg[(h + j) * R + r] = df;
-    dg[(2 * h + j) * R + r] = dgg;
-    dg[(3 * h + j) * R + r] = dov;
+    dg[dg_at(j, r, R)] = di;
+    dg[dg_at(h + j, r, R)] = df;
+    dg[dg_at(2 * h + j, r, R)] = dgg;
+    dg[dg_at(3 * h + j, r, R)] = dov;
     if (store && row < n) {
       float* d = out + ((size_t)slot * n + row) * 4 * H + c.k0 + j;
       d[0] = di;
@@ -268,7 +290,7 @@ __device__ __forceinline__ void cell_dh(const float* w, const float* dg,
                                         const CellTile& c, int lane,
                                         int warp, int nwarp) {
   const int items = c.h * c.ks, K = C == 1 ? 4 * c.h : c.kc, ks = c.ks;
-  if (C > 1) dg += (size_t)c.c0 * R;
+  if (C > 1) dg += dg_floats(c.c0, R);
   for (int base = warp * 32; base < items; base += nwarp * 32) {
     const int item = base + lane, k = item / ks, slice = item - k * ks;
     float p[4][R];
@@ -294,7 +316,7 @@ __device__ __forceinline__ void cell_dh(const float* w, const float* dg,
           wu[3] = wv.w;
         }
         float g[4 * R];
-        load_row<4 * R>(g, dg + jj * R);
+        load_row<4 * R>(g, dg + dg_floats(jj, R));
 #pragma unroll
         for (int u = 0; u < 4; ++u)
 #pragma unroll

@@ -138,11 +138,11 @@ __global__ void __launch_bounds__(kMaxThreads)
   float* const dh =
       state_base<S>(smem, a.state, a.slice) + (L2 ? 0 : h * c.wp);
   float* const dc = dh + pad4(h * R);
-  // [4h][R]; for a cluster [C kc][R], the rows past 4h zero
+  // 4h columns (dg_at); for a cluster C kc, the columns past 4h zero
   float* const dg = dc + pad4(h * R);
   // two operand buffers: gates, c, c_prev (and dallh of the step before);
   // step s uses buffer s & 1; then, for a cluster, two partial dh
-  float* const buf = dg + (C == 1 ? 4 * h : C * c.kc) * R;
+  float* const buf = dg + dg_floats(C == 1 ? 4 * h : C * c.kc, R);
   const int step_floats = op_width<D>() * h * R;
   float* const part = buf + 2 * step_floats;
   const int row0 = (blockIdx.x / C) * R;
@@ -154,7 +154,9 @@ __global__ void __launch_bounds__(kMaxThreads)
                         H, c.k0, h, row0, tid, nthr);
   for (int i = tid; i < h * R; i += nthr) dc[i] = 0.0f;
   if (C > 1)
-    for (int i = 4 * h * R + tid; i < C * c.kc * R; i += nthr) dg[i] = 0.0f;
+    for (int i = dg_floats(4 * h, R) + tid; i < dg_floats(C * c.kc, R);
+         i += nthr)
+      dg[i] = 0.0f;
   load_step<R, D, S>(a, a.t - 1, buf + ((a.t - 1) & 1) * step_floats, c,
                      row0, tid, nthr);
   cp_async_wait_all();

@@ -215,7 +215,9 @@ __device__ __forceinline__ float* state_base(float* smem, float* scratch,
 // is made from one lane's widths and is the same for every lane. A
 // launch holds up to kMaxLanes lanes (the arguments stay within the 32
 // KB a kernel parameter may take); more lanes take one launch a group of
-// kMaxLanes.
+// kMaxLanes. The encode backward's kernels (mfm_encode_bwd.cu) take lanes
+// by stride instead: lane 0's arguments and each array's lane stride, one
+// launch for any number.
 constexpr int kMaxLanes = 8;
 
 template <typename A>

@@ -105,13 +105,26 @@
 //     cp.async stages in shared memory, double-buffered (16-byte copies
 //     where the widths and offsets allow, else a 4-byte instantiation);
 //     operands built per chunk, the previous step a row offset of n and
-//     attended formed once per staged element; the main path's 80 tiles
-//     fill the 132 SMs by splitting K over a thread-block cluster of S
-//     blocks (1, 2, 4 or 8, chosen on the host from the tile count),
-//     whose partial tiles are added in slice order through distributed
-//     shared memory. No atomics, no global scratch, one launch: the same
-//     bits on every run. TF32 tensor cores would keep about three digits,
-//     too few for the gradient tolerances (3xTF32 is the next step).
+//     attended formed once per staged element. K is cut into S slices
+//     (1, 2, 4 or 8, chosen on the host from one lane's tile count, so
+//     the same at every lane count), each slice's chunks summed from zero
+//     and the slices' partial tiles added in slice order by a
+//     thread-block cluster of S blocks, one slice each, through
+//     distributed shared memory. No atomics, no global scratch, one
+//     launch for any lane count: the same bits on every run and at every
+//     lane count. TF32 tensor cores would keep about three digits, too
+//     few for the gradient tolerances (3xTF32 is the next step).
+//
+// Lanes: K problems of one shape (K seeds' or configs' encodes) in one
+// launch of each kernel, whatever K: lane 0's arguments and each array's
+// floats from one lane's to the next (0 where the lanes share it), lane
+// k's blocks those of blockIdx.z = k, which add k strides to each pointer
+// (BwdLanes; DwArgs' lane fields). A lane's blocks do the one-lane
+// launch's arithmetic, so lane k's bits do not depend on K. The chains'
+// batch rows a block are chosen on the host from K and n
+// (cuda_mfn.bwd_plan) among the instantiated counts, and each row's sums
+// keep their order at every count: a product's split over a block's
+// threads follows the columns and the threads, not the rows.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -124,13 +137,19 @@ namespace ftt {
 namespace {
 
 constexpr int kMaxThreads = 512;
-// Rows a block takes, the fastest measured at the training batch
-// (perf_probe.py train, PERF.md): flat (step, batch row) rows of the gates
-// pass and of att's recompute, and batch rows of the memory chain and of
-// the LSTM chains.
+// Flat (step, batch row) rows a block of the gates pass and of att's
+// recompute takes, the fastest measured at the training batch
+// (perf_probe.py train, PERF.md).
 constexpr int kTileRows = 4;
-constexpr int kMemRows = 1;
-constexpr int kCellRows = 2;
+// Batch rows a block of the memory chain and of the LSTM chains takes:
+// one of these instantiated counts, chosen on the host (cuda_mfn.bwd_plan,
+// which lists the same counts); one lane at the training batch takes the
+// first of each, the fastest measured there, and the two-step variant
+// takes only those.
+constexpr int kMemRowCounts[] = {1, 2, 4, 8, 16};
+constexpr int kCellRowCounts[] = {2, 4, 8, 16};
+constexpr int kMemRows = kMemRowCounts[0];
+constexpr int kCellRows = kCellRowCounts[0];
 
 // The variants of the reverse pass.
 enum Variant { kStream = 0, kRecomputeAtt = 1, kTwoStep = 2 };
@@ -191,8 +210,76 @@ struct BwdArgs {
   DeltaLayout dl;
 };
 
-// a kernel's one-lane and lane instantiations (lstm_common.cuh)
-using Kernel = LaneKernel<BwdArgs>;
+// The lane strides of the reverse pass's arrays, in the launcher's
+// lane_strides order: xp, allh, allc, allmem, the ten residual fields,
+// dhlast, dmemlast, the nine weights, dxp, delta, gates, dcstar, datt and
+// att (the residual field's stride, or the recomputed scratch's).
+enum BwdLane {
+  kLaneXp,
+  kLaneAllh,
+  kLaneAllc,
+  kLaneAllmem,
+  kLaneRes,
+  kLaneDhlast = kLaneRes + kResFields,
+  kLaneDmemlast,
+  kLaneWh,
+  kLaneA1w1,
+  kLaneA1w2,
+  kLaneA1b2,
+  kLaneA2w1,
+  kLaneA2w2,
+  kLaneGw1,
+  kLaneG1w2,
+  kLaneG2w2,
+  kLaneDxp,
+  kLaneDelta,
+  kLaneGates,
+  kLaneDcstar,
+  kLaneDatt,
+  kLaneAtt,
+  kBwdLanes
+};
+
+// Every kernel's argument: lane 0's arguments and the lane strides.
+struct BwdLanes {
+  BwdArgs a;
+  long long stride[kBwdLanes];
+};
+
+using Kernel = void (*)(BwdLanes);
+
+// This block's lane's arguments (blockIdx.z = k): lane 0's with k strides
+// added to each pointer. The cell table is read from `la.a.cells`, in
+// place: a block indexes it by its cell.
+__device__ __forceinline__ BwdArgs lane_args(const BwdLanes& la) {
+  BwdArgs a = la.a;
+  const long long z = blockIdx.z;
+  const long long* s = la.stride;
+  a.xp += z * s[kLaneXp];
+  a.allh += z * s[kLaneAllh];
+  a.allc += z * s[kLaneAllc];
+  a.allmem += z * s[kLaneAllmem];
+#pragma unroll
+  for (int f = 0; f < kResFields; ++f) a.res.f[f].ptr += z * s[kLaneRes + f];
+  a.dhlast += z * s[kLaneDhlast];
+  a.dmemlast += z * s[kLaneDmemlast];
+  a.wh += z * s[kLaneWh];
+  a.a1w1 += z * s[kLaneA1w1];
+  a.a1w2 += z * s[kLaneA1w2];
+  a.a1b2 += z * s[kLaneA1b2];
+  a.a2w1 += z * s[kLaneA2w1];
+  a.a2w2 += z * s[kLaneA2w2];
+  a.gw1 += z * s[kLaneGw1];
+  a.g1w2 += z * s[kLaneG1w2];
+  a.g2w2 += z * s[kLaneG2w2];
+  a.dxp += z * s[kLaneDxp];
+  a.delta += z * s[kLaneDelta];
+  a.gates += z * s[kLaneGates];
+  a.dcstar += z * s[kLaneDcstar];
+  a.datt += z * s[kLaneDatt];
+  a.att.ptr += z * s[kLaneAtt];
+  return a;
+}
 
 template <int R>
 __device__ __forceinline__ void zero(float (&acc)[R]) {
@@ -224,10 +311,10 @@ __device__ __forceinline__ void load_flat(float* dst, const float* src,
 // operations (xp, then the cell's rows of wh in order). G: one flat row
 // (R = 1) whose hidden state is read in place from allh, where H passes
 // the staging (no row before step 0 has one: xp alone).
-template <typename In, int R, bool G = false>
+template <int R, bool G = false>
 __global__ void __launch_bounds__(kMaxThreads)
-    gates_kernel(const __grid_constant__ In la) {
-  const BwdArgs& a = lane_of(la);
+    gates_kernel(const __grid_constant__ BwdLanes la) {
+  const BwdArgs a = lane_args(la);
   static_assert(!G || R == 1, "in place: one row a block");
   extern __shared__ float smem[];
   const int H = a.H, H4 = 4 * H, rows = a.t * a.n, rr0 = blockIdx.x * R;
@@ -241,7 +328,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
   for (int j = tid; j < H4; j += nthr) {
     int k0, k1;
-    cell_range(a.cells, j % H, k0, k1);
+    cell_range(la.a.cells, j % H, k0, k1);
     float acc[R];
 #pragma unroll
     for (int r = 0; r < R; ++r)
@@ -334,10 +421,10 @@ __device__ __forceinline__ void load_mem_ops(const BwdArgs& a, int s,
 // Block: rank `rank` of a cluster of C over R batch rows. P: two-step.
 // L2: the weights' rows read in place (C = 1); S: with them the state in
 // the block's scratch slice (kStateScratch).
-template <typename In, int R, bool P, int C, bool L2, bool S = false>
+template <int R, bool P, int C, bool L2, bool S = false>
 __global__ void __launch_bounds__(kMaxThreads)
-    mem_chain_kernel(const __grid_constant__ In la) {
-  const BwdArgs& a = lane_of(la);
+    mem_chain_kernel(const __grid_constant__ BwdLanes la) {
+  const BwdArgs a = lane_args(la);
   static_assert(!S || (L2 && C == 1), "the scratch plan reads from L2");
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
@@ -551,10 +638,10 @@ __device__ __forceinline__ void recompute_att(const BwdArgs& a, float* att,
 // The recompute-att variant's att, R flat rows a block, into the scratch
 // that a.att points at. G: one flat row (R = 1) whose r1 is read in place
 // and att computed in place, where s1 + M2 passes the staging.
-template <typename In, int R, bool G = false>
+template <int R, bool G = false>
 __global__ void __launch_bounds__(kMaxThreads)
-    recompute_att_kernel(const __grid_constant__ In la) {
-  const BwdArgs& a = lane_of(la);
+    recompute_att_kernel(const __grid_constant__ BwdLanes la) {
+  const BwdArgs a = lane_args(la);
   static_assert(!G || R == 1, "in place: one row a block");
   extern __shared__ float smem[];
   const int rows = a.t * a.n, rr0 = blockIdx.x * R, M2 = a.m2;
@@ -736,10 +823,10 @@ __device__ __forceinline__ void product_out(const BwdArgs& a, int m, int n,
 // each term's depth in term_chunks pieces (else every term's whole depth
 // at once, product_whole, at every width but the widest: a separate
 // instantiation, so the common one carries no chunk arithmetic).
-template <typename In, int P, bool Chunked>
+template <int P, bool Chunked>
 __global__ void __launch_bounds__(kProductThreads)
-    product_kernel(const __grid_constant__ In la) {
-  const BwdArgs& a = lane_of(la);
+    product_kernel(const __grid_constant__ BwdLanes la) {
+  const BwdArgs a = lane_args(la);
   extern __shared__ float smem[];
   const ProductSpec p = product_spec(a, P);
   const int rows = a.t * a.n, tiles_n = (p.N + kTile - 1) / kTile;
@@ -804,10 +891,9 @@ __global__ void __launch_bounds__(kProductThreads)
 }
 
 // dlogits = att * (datt - sum(datt * att)), a warp per flat row.
-template <typename In>
 __global__ void __launch_bounds__(kMaxThreads)
-    softmax_bwd_kernel(const __grid_constant__ In la) {
-  const BwdArgs& a = lane_of(la);
+    softmax_bwd_kernel(const __grid_constant__ BwdLanes la) {
+  const BwdArgs a = lane_args(la);
   const int lane = threadIdx.x & 31;
   const int m = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (m >= a.t * a.n) return;  // the whole warp
@@ -850,15 +936,15 @@ __device__ __forceinline__ void load_cell_step(const BwdArgs& a, int s,
 // the cluster of C its share of the cell's gate columns. P: two-step.
 // L2: the weights read in place (C = 1); S: with them the state in the
 // block's scratch slice (kStateScratch).
-template <typename In, int R, bool P, int C, bool L2, bool S = false>
+template <int R, bool P, int C, bool L2, bool S = false>
 __global__ void __launch_bounds__(kMaxThreads)
-    lstm_chains_kernel(const __grid_constant__ In la) {
-  const BwdArgs& a = lane_of(la);
+    lstm_chains_kernel(const __grid_constant__ BwdLanes la) {
+  const BwdArgs a = lane_args(la);
   static_assert(!S || (L2 && C == 1), "the scratch plan reads from L2");
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
   const CellTile c =
-      cell_tile<C, L2>(a.cells, blockIdx.y, blockDim.x, rank, a.H);
+      cell_tile<C, L2>(la.a.cells, blockIdx.y, blockDim.x, rank, a.H);
   const int h = c.h;
   const int row0 = (blockIdx.x / C) * R;
   const int tid = threadIdx.x, nthr = blockDim.x;
@@ -867,11 +953,11 @@ __global__ void __launch_bounds__(kMaxThreads)
   float* const dh = state_base<S>(smem, a.cell_state, a.cell_slice) +
                     (L2 ? 0 : h * c.wp);
   float* const dc = dh + pad4(h * R);
-  // [4h][R]; for a cluster [C kc][R], the rows past 4h zero
+  // 4h columns (dg_at); for a cluster C kc, the columns past 4h zero
   float* const dg = dc + pad4(h * R);
   // two operand buffers; step s uses buffer s & 1. cStar covers the cells
   // past z_tot (a cell boundary). Then, for a cluster, two partial dh
-  float* const buf = dg + (C == 1 ? 4 * h : C * c.kc) * R;
+  float* const buf = dg + dg_floats(C == 1 ? 4 * h : C * c.kc, R);
   const int step_floats = kCellOpWidth * h * R;
   float* const part = buf + 2 * step_floats;
   const bool with_dcs = c.k0 >= a.z_tot;
@@ -881,7 +967,9 @@ __global__ void __launch_bounds__(kMaxThreads)
                         nthr);
   for (int i = tid; i < h * R; i += nthr) dc[i] = 0.0f;
   if (C > 1)
-    for (int i = 4 * h * R + tid; i < C * c.kc * R; i += nthr) dg[i] = 0.0f;
+    for (int i = dg_floats(4 * h, R) + tid; i < dg_floats(C * c.kc, R);
+         i += nthr)
+      dg[i] = 0.0f;
   if (!P)
     load_cell_step<R, S>(a, a.t - 1,
                          cell_step(buf + ((a.t - 1) & 1) * step_floats, h, R,
@@ -930,46 +1018,71 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 // [chunked][product]
 const Kernel kProductKernels[2][4] = {
-    {FTT_LANE_KERNEL(BwdArgs, product_kernel, kDu2, false),
-     FTT_LANE_KERNEL(BwdArgs, product_kernel, kDattended, false),
-     FTT_LANE_KERNEL(BwdArgs, product_kernel, kDu1, false),
-     FTT_LANE_KERNEL(BwdArgs, product_kernel, kDcstarAdd, false)},
-    {FTT_LANE_KERNEL(BwdArgs, product_kernel, kDu2, true),
-     FTT_LANE_KERNEL(BwdArgs, product_kernel, kDattended, true),
-     FTT_LANE_KERNEL(BwdArgs, product_kernel, kDu1, true),
-     FTT_LANE_KERNEL(BwdArgs, product_kernel, kDcstarAdd, true)}};
-const Kernel kSoftmaxKernel = {softmax_bwd_kernel<BwdArgs>,
-                               softmax_bwd_kernel<LaneArgs<BwdArgs>>};
+    {product_kernel<kDu2, false>, product_kernel<kDattended, false>,
+     product_kernel<kDu1, false>, product_kernel<kDcstarAdd, false>},
+    {product_kernel<kDu2, true>, product_kernel<kDattended, true>,
+     product_kernel<kDu1, true>, product_kernel<kDcstarAdd, true>}};
 
 // The chains' kernels for a plan (lstm_common.cuh's chain_kernel).
 template <int R, bool P>
 Kernel mem_chain_for(int plan) {
-  using A = BwdArgs;
-  const Kernel k[6] = {
-      FTT_LANE_KERNEL(A, mem_chain_kernel, R, P, 1, true),
-      FTT_LANE_KERNEL(A, mem_chain_kernel, R, P, 1, false),
-      FTT_LANE_KERNEL(A, mem_chain_kernel, R, P, 2, false),
-      FTT_LANE_KERNEL(A, mem_chain_kernel, R, P, 4, false),
-      FTT_LANE_KERNEL(A, mem_chain_kernel, R, P, 8, false),
-      FTT_LANE_KERNEL(A, mem_chain_kernel, R, P, 1, true, true)};
+  const Kernel k[6] = {mem_chain_kernel<R, P, 1, true>,
+                       mem_chain_kernel<R, P, 1, false>,
+                       mem_chain_kernel<R, P, 2, false>,
+                       mem_chain_kernel<R, P, 4, false>,
+                       mem_chain_kernel<R, P, 8, false>,
+                       mem_chain_kernel<R, P, 1, true, true>};
   return chain_kernel(k, plan);
 }
 
 template <int R, bool P>
 Kernel lstm_chains_for(int plan) {
-  using A = BwdArgs;
-  const Kernel k[6] = {
-      FTT_LANE_KERNEL(A, lstm_chains_kernel, R, P, 1, true),
-      FTT_LANE_KERNEL(A, lstm_chains_kernel, R, P, 1, false),
-      FTT_LANE_KERNEL(A, lstm_chains_kernel, R, P, 2, false),
-      FTT_LANE_KERNEL(A, lstm_chains_kernel, R, P, 4, false),
-      FTT_LANE_KERNEL(A, lstm_chains_kernel, R, P, 8, false),
-      FTT_LANE_KERNEL(A, lstm_chains_kernel, R, P, 1, true, true)};
+  const Kernel k[6] = {lstm_chains_kernel<R, P, 1, true>,
+                       lstm_chains_kernel<R, P, 1, false>,
+                       lstm_chains_kernel<R, P, 2, false>,
+                       lstm_chains_kernel<R, P, 4, false>,
+                       lstm_chains_kernel<R, P, 8, false>,
+                       lstm_chains_kernel<R, P, 1, true, true>};
   return chain_kernel(k, plan);
 }
 
-// One pass's launch: its kernel, grid, block and shared memory, and the
-// cluster its blocks run in (1: none).
+// The memory chain's kernel at R rows a block and a plan: null for a
+// count with no instantiation (kMemRowCounts; the two-step variant,
+// `pairs`, kMemRows only).
+Kernel mem_chain_rows(int R, bool pairs, int plan) {
+  if (pairs) return R == kMemRows ? mem_chain_for<kMemRows, true>(plan)
+                                  : nullptr;
+  static_assert(sizeof(kMemRowCounts) == 5 * sizeof(int), "the switch");
+  switch (R) {
+    case kMemRowCounts[0]: return mem_chain_for<kMemRowCounts[0], false>(plan);
+    case kMemRowCounts[1]: return mem_chain_for<kMemRowCounts[1], false>(plan);
+    case kMemRowCounts[2]: return mem_chain_for<kMemRowCounts[2], false>(plan);
+    case kMemRowCounts[3]: return mem_chain_for<kMemRowCounts[3], false>(plan);
+    case kMemRowCounts[4]: return mem_chain_for<kMemRowCounts[4], false>(plan);
+    default: return nullptr;
+  }
+}
+
+// The LSTM chains' likewise (kCellRowCounts; two-step: kCellRows).
+Kernel lstm_chains_rows(int R, bool pairs, int plan) {
+  if (pairs) return R == kCellRows ? lstm_chains_for<kCellRows, true>(plan)
+                                   : nullptr;
+  static_assert(sizeof(kCellRowCounts) == 4 * sizeof(int), "the switch");
+  switch (R) {
+    case kCellRowCounts[0]:
+      return lstm_chains_for<kCellRowCounts[0], false>(plan);
+    case kCellRowCounts[1]:
+      return lstm_chains_for<kCellRowCounts[1], false>(plan);
+    case kCellRowCounts[2]:
+      return lstm_chains_for<kCellRowCounts[2], false>(plan);
+    case kCellRowCounts[3]:
+      return lstm_chains_for<kCellRowCounts[3], false>(plan);
+    default: return nullptr;
+  }
+}
+
+// One pass's launch: its kernel, grid (z: the lanes), block and shared
+// memory, and the cluster its blocks run in (1: none).
 struct Pass {
   Kernel kernel;
   dim3 grid;
@@ -987,16 +1100,10 @@ struct Pass {
 // fitting by construction (at one float of depth a chunk, 2 kTile
 // product_pitch(1) = 256 floats, and the kSplit partial tiles 4,096
 // floats: 16 KiB); the softmax takes none.
-cudaError_t prepare(const Pass& p, int index, int lanes, int* fit) {
+cudaError_t prepare(const Pass& p, int index, int* fit) {
   if (p.bytes > (size_t)kMaxSmemBytes)
     return refuse(fit, index, p.bytes, p.cluster);
-  return allow_lane_smem(p.kernel, lanes, p.bytes);
-}
-
-template <typename F>
-cudaError_t launch(const Pass& p, int lanes, F lane, cudaStream_t stream) {
-  return launch_lane_kernel(p.kernel, p.grid, p.threads, p.bytes, p.cluster,
-                            stream, lanes, lane);
+  return allow_smem(reinterpret_cast<const void*>(p.kernel), p.bytes);
 }
 
 // ------------------------------------------------------------- kernel (b)
@@ -1004,12 +1111,14 @@ cudaError_t launch(const Pass& p, int lanes, F lane, cudaStream_t stream) {
 // The 14 weight and bias gradients as 7 grouped products G = A^T delta
 // over the K = t n flat rows (step i, batch row b at k = i n + b), each
 // bias the column sum of its weight's delta. A block computes one
-// kDwTile x kDwTile tile of one G over a contiguous slice of K; the S
-// blocks of a thread-block cluster take the S slices of one tile and add
-// their partial tiles in slice order through distributed shared memory.
-// Chunks of kDwChunk rows of A, of delta and (for attended columns) of
-// att are staged with cp.async, double-buffered; each of the 256 threads
-// sums a 4 x 4 micro-tile from float4 reads of the staged chunk.
+// kDwTile x kDwTile tile of one G. K is cut into S contiguous slices,
+// one for each block of a thread-block cluster of S; each slice's chunks
+// of kDwChunk rows are summed from zero and added in order, and the
+// slices' partial tiles are then added in slice order through
+// distributed shared memory. Chunks of A, of delta and (for attended
+// columns) of att are staged with cp.async, double-buffered; each of the
+// 256 threads sums a 4 x 4 micro-tile from float4 reads of the staged
+// chunk.
 
 constexpr int kDwProducts = 7;
 constexpr int kDwTile = 64;     // output tile: kDwTile (P) x kDwTile (Q)
@@ -1026,9 +1135,11 @@ static_assert(kDwTile * kDwTile + kDwThreads <= 2 * kDwStageFloats,
 
 // A run of an A operand's columns, [previous run's end, end): column p of
 // flat row k is ptr[(k - shift) * stride + col + p], zero where k < shift
-// (shift = n: the previous step's row, zero before step 0).
+// (shift = n: the previous step's row, zero before step 0); lane k's
+// array lies k lane floats on.
 struct DwSeg {
   const float* ptr;
+  long long lane;
   int stride, col, shift, end;
 };
 
@@ -1040,14 +1151,21 @@ struct DwProduct {
   float* bias;  // (Q)
 };
 
+// The kernel's argument, read in place (__grid_constant__: the product
+// table is indexed by block). Lane k's arrays lie k lane strides on:
+// delta_lane, att_lane and out_lane (the 14 gradients' buffer), each
+// run's own.
 struct DwArgs {
   const float* delta;  // (K, D)
+  long long delta_lane;
   int delta_width;
   ResEntry att;  // the residual field att
+  long long att_lane;
+  long long out_lane;
   DwProduct prod[kDwProducts];
   int first_tile[kDwProducts + 1];
   int rows;   // K
-  int slice;  // rows a block of a cluster sums: ceil(K / S)
+  int slice;  // rows a slice: ceil(K / S)
   long long* clocks;
 };
 
@@ -1067,16 +1185,27 @@ __device__ __forceinline__ void dw_copy(float* dst, const float* src) {
   }
 }
 
-// Stages rows [k, k + kDwChunk) of the tile's A columns, of its delta
-// columns and, for its attended columns, of att; rows at or past k1 and
-// columns past P or Q as zeros. V: 16-byte copies, four columns at a time
-// (every run, offset and row stride a multiple of four floats), else
-// 4-byte ones.
+// A block's lane's arrays: each A run's, delta's and att's first float,
+// k lane strides on (formed once a block).
+struct DwLane {
+  const float* seg0;
+  const float* seg1;
+  const float* seg2;
+  const float* delta;
+  const float* att;
+};
+
+// Stages rows [k, k + kDwChunk) capped at k1 of the tile's A columns, of
+// its delta columns and, for its attended columns, of att; rows at or
+// past k1 and columns past P or Q as zeros. V: 16-byte copies, four
+// columns at a time (every run, offset, row stride and lane stride a
+// multiple of four floats), else 4-byte ones.
 template <bool V>
 __device__ __forceinline__ void dw_stage(const DwArgs& a,
-                                         const DwProduct& pr, float* st,
-                                         int k, int k1, int p0, int q0,
-                                         bool att, int tid) {
+                                         const DwProduct& pr,
+                                         const DwLane& L, float* st, int k,
+                                         int k1, int p0, int q0, bool att,
+                                         int tid) {
   constexpr int W = V ? 4 : 1;
   constexpr int kPerRow = kDwTile / W;
   float* const As = st;
@@ -1088,19 +1217,21 @@ __device__ __forceinline__ void dw_stage(const DwArgs& a,
     const bool in = row < k1;
     const float* src = nullptr;
     if (in && p < pr.P) {
-      const DwSeg& s = p < pr.seg[0].end   ? pr.seg[0]
-                       : p < pr.seg[1].end ? pr.seg[1]
-                                           : pr.seg[2];
-      if (row >= s.shift)
-        src = s.ptr + (size_t)(row - s.shift) * s.stride + s.col + p;
+      const bool first = p < pr.seg[0].end, second = p < pr.seg[1].end;
+      const DwSeg& g = first ? pr.seg[0] : second ? pr.seg[1] : pr.seg[2];
+      const float* base = first ? L.seg0 : second ? L.seg1 : L.seg2;
+      if (row >= g.shift)
+        src = base + (size_t)(row - g.shift) * g.stride + g.col + p;
     }
     dw_copy<W>(As + at, src);
-    dw_copy<W>(Ds + at, in && q < pr.Q ? a.delta +
+    dw_copy<W>(Ds + at, in && q < pr.Q ? L.delta +
                                              (size_t)row * a.delta_width +
                                              pr.d_col + q
                                        : nullptr);
     if (att && p < pr.att_end)
-      dw_copy<W>(Ts + at, in ? res_row(a.att, row) + p : nullptr);
+      dw_copy<W>(Ts + at, in ? L.att + (size_t)row * a.att.stride +
+                                   a.att.col + p
+                             : nullptr);
   }
 }
 
@@ -1111,15 +1242,17 @@ __device__ __forceinline__ const float* dw_peer(float* buf, int s) {
   return cooperative_groups::this_cluster().map_shared_rank(buf, s);
 }
 
-// grid.x: the products' tiles in order, S blocks (a cluster) each; the
-// rank in the cluster is the block's K slice. __grid_constant__: the
-// product table is indexed by block.
-template <typename In, int S, bool V>
-__global__ void __launch_bounds__(kDwThreads)
-    mfm_encode_dw_kernel(const __grid_constant__ In la) {
-  const DwArgs& a = lane_of(la);
+// grid.x: the products' tiles in order, S blocks (a cluster) each, the
+// rank in the cluster the block's slice; grid.z the lanes. Registers are
+// capped for kDwBlocksPerSm blocks an SM (63 registers).
+constexpr int kDwBlocksPerSm = 4;
+
+template <int S, bool V>
+__global__ void __launch_bounds__(kDwThreads, kDwBlocksPerSm)
+    mfm_encode_dw_kernel(const __grid_constant__ DwArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int tile = blockIdx.x / S, rank = cluster_rank<S>();
+  const long long z = blockIdx.z;
   int which = 0;
 #pragma unroll
   for (int j = 1; j < kDwProducts; ++j)
@@ -1137,6 +1270,11 @@ __global__ void __launch_bounds__(kDwThreads)
   const int bc = tid % kDwTile, bg = tid / kDwTile;
   const bool attended = att && p0 + bc < pr.att_end;
 
+  const DwLane L = {pr.seg[0].ptr + z * pr.seg[0].lane,
+                    pr.seg[1].ptr + z * pr.seg[1].lane,
+                    pr.seg[2].ptr + z * pr.seg[2].lane,
+                    a.delta + z * a.delta_lane, a.att.ptr + z * a.att_lane};
+
   // each chunk summed from zero, then added to the slice's sums: rounding
   // grows with kDwChunk + chunks terms, not with the slice's rows
   float acc[kDwMicro][kDwMicro];
@@ -1147,7 +1285,7 @@ __global__ void __launch_bounds__(kDwThreads)
   float bsum = 0.0f;
 
   FTT_STAMP(a.clocks, kClockEncodeDw, 0, 0);
-  if (chunks > 0) dw_stage<V>(a, pr, smem, k0, k1, p0, q0, att, tid);
+  if (chunks > 0) dw_stage<V>(a, pr, L, smem, k0, k1, p0, q0, att, tid);
   cp_async_commit();
   for (int c = 0; c < chunks; ++c) {
     float* const As = smem + (c & 1) * kDwStageFloats;
@@ -1155,7 +1293,7 @@ __global__ void __launch_bounds__(kDwThreads)
     const float* const Ts = Ds + kDwChunk * kDwTile;
     // the next chunk in flight while this one is summed
     if (c + 1 < chunks)
-      dw_stage<V>(a, pr, smem + ((c + 1) & 1) * kDwStageFloats,
+      dw_stage<V>(a, pr, L, smem + ((c + 1) & 1) * kDwStageFloats,
                   k0 + (c + 1) * kDwChunk, k1, p0, q0, att, tid);
     cp_async_commit();
     cp_async_wait<1>();
@@ -1218,7 +1356,7 @@ __global__ void __launch_bounds__(kDwThreads)
 #pragma unroll
     for (int s = 1; s < S; ++s) v += peers[s][r * kDwTile + c];
     if (p0 + r < pr.P && q0 + c < pr.Q)
-      pr.out[(size_t)(p0 + r) * pr.Q + q0 + c] = v;
+      pr.out[z * a.out_lane + (size_t)(p0 + r) * pr.Q + q0 + c] = v;
   }
   if (bias && rank == 0 && tid < kDwTile && q0 + tid < pr.Q) {
     float v = 0.0f;
@@ -1226,20 +1364,20 @@ __global__ void __launch_bounds__(kDwThreads)
     for (int s = 0; s < S; ++s)
       for (int g = 0; g < kDwBiasGroups; ++g)
         v += peers[s][kDwTile * kDwTile + g * kDwTile + tid];
-    pr.bias[q0 + tid] = v;
+    pr.bias[z * a.out_lane + q0 + tid] = v;
   }
   // no block leaves while a peer may still read its shared memory
   if (S > 1) cluster_barrier<S>();
 }
 
-using DwKernel = LaneKernel<DwArgs>;
+using DwKernel = void (*)(DwArgs);
 
 template <bool V>
 DwKernel dw_kernel_for(int S) {
-  return S == 1   ? FTT_LANE_KERNEL(DwArgs, mfm_encode_dw_kernel, 1, V)
-         : S == 2 ? FTT_LANE_KERNEL(DwArgs, mfm_encode_dw_kernel, 2, V)
-         : S == 4 ? FTT_LANE_KERNEL(DwArgs, mfm_encode_dw_kernel, 4, V)
-                  : FTT_LANE_KERNEL(DwArgs, mfm_encode_dw_kernel, 8, V);
+  return S == 1   ? mfm_encode_dw_kernel<1, V>
+         : S == 2 ? mfm_encode_dw_kernel<2, V>
+         : S == 4 ? mfm_encode_dw_kernel<4, V>
+                  : mfm_encode_dw_kernel<8, V>;
 }
 
 }  // namespace
@@ -1259,14 +1397,17 @@ DwKernel dw_kernel_for(int S) {
 // (-1) without launching while state_floats is short of it. variant is 0
 // (stream), 1 (recompute-att) or 2 (two-step, t even); threads a multiple
 // of 32 up to 512, the block size of the gates pass, the chains and the
-// softmax. fit (host memory, six ints, lstm_common.cuh's Fit) gets the
-// plans the memory chain and the LSTM chains ran on (each the smallest
-// cluster whose blocks fit, else kWeightsL2, else kStateScratch). Every
-// array is lane 0's of `lanes` (lstm_common.cuh's LaneArgs): lane k's
-// lies lane_strides[i] k floats on (host memory, 31 strides: xp, allh,
-// allc, allmem, the ten residual pointers, dhlast, dmemlast, the nine
-// weights, dxp, delta, gates, dcstar, datt and att_scratch; 0 where the
-// lanes share the array).
+// softmax. mem_rows and cell_rows: the batch rows a block of the memory
+// chain and of the LSTM chains takes, one of kMemRowCounts and of
+// kCellRowCounts (the two-step variant: kMemRows and kCellRows); another
+// count is refused. fit (host memory, six ints, lstm_common.cuh's Fit)
+// gets the plans the memory chain and the LSTM chains ran on (each the
+// smallest cluster whose blocks fit, else kWeightsL2, else
+// kStateScratch). Every array is lane 0's of `lanes`, each pass one
+// launch for them all: lane k's lies lane_strides[i] k floats on (host
+// memory, 31 strides: xp, allh, allc, allmem, the ten residual pointers,
+// dhlast, dmemlast, the nine weights, dxp, delta, gates, dcstar, datt and
+// att_scratch; 0 where the lanes share the array).
 extern "C" int mfm_encode_bwd(
     const float* xp, const float* allh, const float* allc,
     const float* allmem, void* const* res_ptrs, const int* res_strides,
@@ -1278,8 +1419,8 @@ extern "C" int mfm_encode_bwd(
     float* att_scratch, float* state, long long state_floats,
     long long* state_need, int t, int n, int H, int z_tot, int mem, int s1,
     int s2, int s3, int s4, int n_cells, const int* cell_dims, int variant,
-    int threads, int lanes, const long long* lane_strides, int* fit,
-    void* stream) {
+    int threads, int mem_rows, int cell_rows, int lanes,
+    const long long* lane_strides, int* fit, void* stream) {
   using namespace ftt;
   const Scratch chains = {state, state_floats, state_need};
   const long long* ls = lane_strides;
@@ -1287,94 +1428,90 @@ extern "C" int mfm_encode_bwd(
   int widths[kResFields];
   res_widths(H, z_tot, mem, s1, s2, s3, s4, widths);
   const bool recompute = variant == kRecomputeAtt;
-  // lane k's arguments; false where a field of the table does not fit
-  auto build = [&](int k, BwdArgs* out) {
-    BwdArgs& a = *out;
-    a.xp = at_lane(xp, ls, 0, k);
-    a.allh = at_lane(allh, ls, 1, k);
-    a.allc = at_lane(allc, ls, 2, k);
-    a.allmem = at_lane(allmem, ls, 3, k);
-    a.dhlast = at_lane(dhlast, ls, 14, k);
-    a.dmemlast = at_lane(dmemlast, ls, 15, k);
-    a.wh = at_lane(wh, ls, 16, k);
-    a.a1w1 = at_lane(a1w1, ls, 17, k);
-    a.a1w2 = at_lane(a1w2, ls, 18, k);
-    a.a1b2 = at_lane(a1b2, ls, 19, k);
-    a.a2w1 = at_lane(a2w1, ls, 20, k);
-    a.a2w2 = at_lane(a2w2, ls, 21, k);
-    a.gw1 = at_lane(gw1, ls, 22, k);
-    a.g1w2 = at_lane(g1w2, ls, 23, k);
-    a.g2w2 = at_lane(g2w2, ls, 24, k);
-    a.dxp = at_lane(dxp, ls, 25, k);
-    a.delta = at_lane(delta, ls, 26, k);
-    a.gates = at_lane(gates, ls, 27, k);
-    a.dcstar = at_lane(dcstar, ls, 28, k);
-    a.datt = at_lane(datt, ls, 29, k);
-    a.clocks = phase_clocks();
-    a.mem_state = a.cell_state = nullptr;
-    a.mem_slice = a.cell_slice = 0;
-    a.t = t;
-    a.n = n;
-    a.H = H;
-    a.z_tot = z_tot;
-    a.mem = mem;
-    a.s1 = s1;
-    a.s2 = s2;
-    a.s3 = s3;
-    a.s4 = s4;
-    a.m2 = 2 * (H - z_tot);
-    a.dl = delta_layout(H, z_tot, mem, s1, s2, s3, s4);
-    void* rp[kResFields];
-    for (int f = 0; f < kResFields; ++f)
-      rp[f] = at_lane(static_cast<float*>(res_ptrs[f]), ls, 4 + f, k);
-    if (!make_cells(n_cells, cell_dims, H, &a.cells) ||
-        !make_res_table(rp, res_strides, res_cols, widths, &a.res))
-      return false;
-    a.att = a.res.f[kAtt];
-    if (recompute) a.att = ResEntry{at_lane(att_scratch, ls, 30, k), a.m2, 0};
-    return true;
-  };
-  BwdArgs a;
+  const bool pairs = variant == kTwoStep;
+  if (lanes < 1 || lanes > 65535 || ls == nullptr || res_ptrs == nullptr ||
+      state_need == nullptr)
+    return (int)cudaErrorInvalidValue;
+  // lane 0's arguments and the lanes' strides
+  BwdLanes la;
+  BwdArgs& a = la.a;
+  a.xp = xp;
+  a.allh = allh;
+  a.allc = allc;
+  a.allmem = allmem;
+  a.dhlast = dhlast;
+  a.dmemlast = dmemlast;
+  a.wh = wh;
+  a.a1w1 = a1w1;
+  a.a1w2 = a1w2;
+  a.a1b2 = a1b2;
+  a.a2w1 = a2w1;
+  a.a2w2 = a2w2;
+  a.gw1 = gw1;
+  a.g1w2 = g1w2;
+  a.g2w2 = g2w2;
+  a.dxp = dxp;
+  a.delta = delta;
+  a.gates = gates;
+  a.dcstar = dcstar;
+  a.datt = datt;
+  a.clocks = phase_clocks();
+  a.mem_state = a.cell_state = nullptr;
+  a.mem_slice = a.cell_slice = 0;
+  a.t = t;
+  a.n = n;
+  a.H = H;
+  a.z_tot = z_tot;
+  a.mem = mem;
+  a.s1 = s1;
+  a.s2 = s2;
+  a.s3 = s3;
+  a.s4 = s4;
+  a.m2 = 2 * (H - z_tot);
+  a.dl = delta_layout(H, z_tot, mem, s1, s2, s3, s4);
+  for (int i = 0; i < kLaneAtt; ++i) la.stride[i] = ls[i];
+  la.stride[kLaneAtt] = recompute ? ls[kLaneAtt] : ls[kLaneRes + kAtt];
   bool boundary = false;
-  if (lanes >= 1 && ls != nullptr && res_ptrs != nullptr && build(0, &a))
+  if (make_cells(n_cells, cell_dims, H, &a.cells) &&
+      make_res_table(res_ptrs, res_strides, res_cols, widths, &a.res))
     for (int m = 0; m < a.cells.count; ++m)
       boundary = boundary || a.cells.off[m] == z_tot;
+  a.att = recompute ? ResEntry{att_scratch, a.m2, 0} : a.res.f[kAtt];
   if (!boundary || t < 1 || n < 1 || threads < 32 ||
       threads > kMaxThreads || threads % 32 != 0 ||
-      variant < kStream || variant > kTwoStep ||
-      (variant == kTwoStep && t % 2 != 0) ||
-      (recompute && att_scratch == nullptr) || state_need == nullptr)
+      variant < kStream || variant > kTwoStep || (pairs && t % 2 != 0) ||
+      (recompute && att_scratch == nullptr) ||
+      mem_chain_rows(mem_rows, pairs, 1) == nullptr ||
+      lstm_chains_rows(cell_rows, pairs, 1) == nullptr)
     return (int)cudaErrorInvalidValue;
   *state_need = 0;
-  const bool pairs = variant == kTwoStep;
   const int s34 = s3 + s4, flat = t * n;
   const int tiles_m = (flat + kTile - 1) / kTile;
   // the two chains on the smallest clusters whose blocks fit, else with
   // their weights read from L2, else with them their state in the scratch
   size_t mem_bytes = 0, cell_bytes = 0;
   auto mem_at = [&](int C) {
-    return mem_chain_floats(mem, s34, C, kMemRows, threads) * sizeof(float);
+    return mem_chain_floats(mem, s34, C, mem_rows, threads) * sizeof(float);
   };
   const int Pm = chain_plan(mem_at, [&] { return mem_at(kWeightsL2); },
                             &mem_bytes);
   auto cells_at = [&](int C) {
-    return cell_chain_bytes(a.cells, kCellRows, threads, kCellOpWidth, C);
+    return cell_chain_bytes(a.cells, cell_rows, threads, kCellOpWidth, C);
   };
   const int Pc = chain_plan(cells_at, [&] { return cells_at(kWeightsL2); },
                             &cell_bytes);
   fit[kFitChainA] = Pm;
   fit[kFitChainB] = Pc;
   const int Cm = plan_blocks(Pm), Cc = plan_blocks(Pc);
-  const dim3 mem_grid(((n + kMemRows - 1) / kMemRows) * Cm);
-  const dim3 cell_grid(((n + kCellRows - 1) / kCellRows) * Cc,
-                       a.cells.count);
-  const long long at_once = lanes_at_once(lanes);
+  const dim3 mem_grid(((n + mem_rows - 1) / mem_rows) * Cm, 1, lanes);
+  const dim3 cell_grid(((n + cell_rows - 1) / cell_rows) * Cc,
+                       a.cells.count, lanes);
   if (Pm == kStateScratch)
-    a.mem_state = reserve(chains, (long long)mem_grid.x * at_once,
-                          mem_bytes, &a.mem_slice);
+    a.mem_state = reserve(chains, (long long)mem_grid.x * lanes, mem_bytes,
+                          &a.mem_slice);
   if (Pc == kStateScratch)
     a.cell_state =
-        reserve(chains, (long long)cell_grid.x * cell_grid.y * at_once,
+        reserve(chains, (long long)cell_grid.x * cell_grid.y * lanes,
                 cell_bytes, &a.cell_slice);
   if ((Pm == kStateScratch && a.mem_state == nullptr) ||
       (Pc == kStateScratch && a.cell_state == nullptr))
@@ -1385,6 +1522,7 @@ extern "C" int mfm_encode_bwd(
   const size_t att_bytes = (size_t)kTileRows * (s1 + a.m2) * sizeof(float);
   const bool gates_staged = gates_bytes <= (size_t)kMaxSmemBytes;
   const bool att_staged = att_bytes <= (size_t)kMaxSmemBytes;
+  const unsigned rows_tiles = (flat + kTileRows - 1) / kTileRows;
   // the launches in order, each with its pass (1 to 4)
   Pass p[10];
   int pass_of[10], count = 0;
@@ -1393,53 +1531,75 @@ extern "C" int mfm_encode_bwd(
     p[count++] = launch;
   };
   if (gates_staged)
-    add(1, {FTT_LANE_KERNEL(BwdArgs, gates_kernel, kTileRows),
-            dim3((flat + kTileRows - 1) / kTileRows), threads, gates_bytes,
-            1});
+    add(1, {gates_kernel<kTileRows>, dim3(rows_tiles, 1, lanes), threads,
+            gates_bytes, 1});
   else
-    add(1, {FTT_LANE_KERNEL(BwdArgs, gates_kernel, 1, true), dim3(flat),
-            threads, 0, 1});
-  add(2, {pairs ? mem_chain_for<kMemRows, true>(Pm)
-                : mem_chain_for<kMemRows, false>(Pm),
-          mem_grid, threads, plan_smem(Pm, mem_bytes), Cm});
+    add(1, {gates_kernel<1, true>, dim3(flat, 1, lanes), threads, 0, 1});
+  add(2, {mem_chain_rows(mem_rows, pairs, Pm), mem_grid, threads,
+          plan_smem(Pm, mem_bytes), Cm});
   if (recompute && att_staged)
-    add(3, {FTT_LANE_KERNEL(BwdArgs, recompute_att_kernel, kTileRows),
-            dim3((flat + kTileRows - 1) / kTileRows), threads, att_bytes,
-            1});
+    add(3, {recompute_att_kernel<kTileRows>, dim3(rows_tiles, 1, lanes),
+            threads, att_bytes, 1});
   else if (recompute)
-    add(3, {FTT_LANE_KERNEL(BwdArgs, recompute_att_kernel, 1, true),
-            dim3(flat), threads, 0, 1});
+    add(3, {recompute_att_kernel<1, true>, dim3(flat, 1, lanes), threads, 0,
+            1});
   for (int id = kDu2; id <= kDcstarAdd; ++id) {
     const ProductSpec spec = product_spec(a, id);
     add(3, {kProductKernels[!product_whole(spec)][id],
-            dim3(tiles_m * ((spec.N + kTile - 1) / kTile)), kProductThreads,
-            product_bytes(spec), 1});
+            dim3(tiles_m * ((spec.N + kTile - 1) / kTile), 1, lanes),
+            kProductThreads, product_bytes(spec), 1});
     if (id == kDattended)  // the softmax between dattended and du1
-      add(3, {kSoftmaxKernel, dim3((flat + threads / 32 - 1) /
-                                   (threads / 32)), threads, 0, 1});
+      add(3, {softmax_bwd_kernel,
+              dim3((flat + threads / 32 - 1) / (threads / 32), 1, lanes),
+              threads, 0, 1});
   }
-  add(4, {pairs ? lstm_chains_for<kCellRows, true>(Pc)
-                : lstm_chains_for<kCellRows, false>(Pc),
-          cell_grid, threads, plan_smem(Pc, cell_bytes), Cc});
+  add(4, {lstm_chains_rows(cell_rows, pairs, Pc), cell_grid, threads,
+          plan_smem(Pc, cell_bytes), Cc});
   for (int k = 0; k < count; ++k) {
-    cudaError_t err = prepare(p[k], pass_of[k], lanes, fit);
+    cudaError_t err = prepare(p[k], pass_of[k], fit);
     if (err != cudaSuccess) return (int)err;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto lane = [&](int k) {
-    BwdArgs b;
-    build(k, &b);
-    b.mem_state = a.mem_state;
-    b.mem_slice = a.mem_slice;
-    b.cell_state = a.cell_state;
-    b.cell_slice = a.cell_slice;
-    return b;
-  };
   for (int k = 0; k < count; ++k) {
-    cudaError_t err = launch(p[k], lanes, lane, st);
+    cudaError_t err = launch_clusters(p[k].kernel, p[k].grid, p[k].threads,
+                                      p[k].bytes, p[k].cluster, st, la);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
+}
+
+// The blocks of the reverse pass's memory chain (chain 0) or LSTM chains
+// (chain 1) at `rows` rows a block on chain plan `plan` (a cluster of 1,
+// 2, 4 or 8, kWeightsL2 or kStateScratch), `threads` threads and `smem`
+// bytes of dynamic shared memory, that the current card holds at once
+// (*wave): its SMs times the blocks the occupancy calculator gives an SM
+// for that instantiation, its registers counted. The lane plan's waves
+// (cuda_mfn.bwd_plan). Refuses a count or plan with no instantiation.
+extern "C" int mfm_encode_bwd_wave(int chain, int rows, int plan,
+                                   int threads, long long smem, int* wave) {
+  using namespace ftt;
+  if (wave == nullptr || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0 || smem < 0 || smem > kMaxSmemBytes ||
+      !(plan == kStateScratch || plan == kWeightsL2 || plan == 1 ||
+        plan == 2 || plan == 4 || plan == 8))
+    return (int)cudaErrorInvalidValue;
+  const Kernel k = chain == 0   ? mem_chain_rows(rows, false, plan)
+                   : chain == 1 ? lstm_chains_rows(rows, false, plan)
+                                : nullptr;
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  const void* f = reinterpret_cast<const void*>(k);
+  int device = 0, sms = 0, blocks = 0;
+  cudaError_t err = allow_smem(f, (size_t)smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, threads,
+                                                        (size_t)smem);
+  if (err != cudaSuccess) return (int)err;
+  *wave = sms * blocks;
+  return blocks > 0 ? (int)cudaSuccess : (int)cudaErrorInvalidConfiguration;
 }
 
 // Kernel (b). The residuals through the layout table, as for the reverse
@@ -1447,11 +1607,13 @@ extern "C" int mfm_encode_bwd(
 // one after another in the order of the JAX package's _W_NAMES without
 // wh (a1w1, a1b1, a1w2, a1b2, a2w1, a2b1, a2w2, a2b2, gw1, gb1, g1w2,
 // g1b2, g2w2, g2b2), each (P, Q) row-major. cluster: the blocks S (1, 2,
-// 4 or 8) that split K for each output tile. copy (host memory, one int)
-// gets the bytes of the staging copies: 16 where every column offset, row
-// stride and pointer of every lane allows, else 4. Every array is lane
-// 0's of `lanes`: lane k's lies lane_strides[i] k floats on (host memory,
-// 14 strides: allc, allmem, the ten residual pointers, delta and out).
+// 4 or 8, else refused) of the thread-block cluster that splits each
+// tile's K, one slice each, their partial tiles added in slice order.
+// copy (host memory, one int) gets the bytes of the staging copies: 16
+// where every column offset, row stride, pointer and lane stride allows,
+// else 4. Every array is lane 0's of `lanes`, in one launch: lane k's
+// lies lane_strides[i] k floats on (host memory, 14 strides: allc,
+// allmem, the ten residual pointers, delta and out).
 extern "C" int mfm_encode_dw(
     const float* allc, const float* allmem, void* const* res_ptrs,
     const int* res_strides, const int* res_cols, const float* delta,
@@ -1464,99 +1626,86 @@ extern "C" int mfm_encode_dw(
   const int S = cluster;
   const long long* ls = lane_strides;
   if (t < 1 || n < 1 || z_tot < 0 || z_tot >= H || res_ptrs == nullptr ||
-      lanes < 1 || ls == nullptr || !(S == 1 || S == 2 || S == 4 || S == 8))
+      lanes < 1 || lanes > 65535 || ls == nullptr ||
+      !(S == 1 || S == 2 || S == 4 || S == 8))
+    return (int)cudaErrorInvalidValue;
+  ResTable res;
+  if (!make_res_table(res_ptrs, res_strides, res_cols, widths, &res))
     return (int)cudaErrorInvalidValue;
   const DeltaLayout l = delta_layout(H, z_tot, mem, s1, s2, s3, s4);
   const int M = H - z_tot, m2 = 2 * M, s34 = s3 + s4;
-  // 16-byte copies where no run, offset or row stride splits four floats
-  auto aligned = [](const void* p, int stride, int col) {
+  const long long lc = ls[0], lm = ls[1], ld = ls[12], lo = ls[13];
+  DwArgs a;
+  a.delta = delta;
+  a.delta_lane = ld;
+  a.delta_width = l.width;
+  a.att = res.f[kAtt];
+  a.att_lane = ls[2 + kAtt];
+  a.out_lane = lo;
+  a.rows = t * n;
+  a.slice = (a.rows + S - 1) / S;
+  a.clocks = phase_clocks();
+  // the A operands' column runs: cStar is the previous step's c past
+  // z_tot, then this step's; memp the previous step's memory
+  const DwSeg c_prev = {allc, lc, H, z_tot, n, M};
+  const DwSeg c_now = {allc, lc, H, z_tot - M, 0, m2};
+  const DwSeg memp = {allmem, lm, mem, -m2, n, m2 + mem};
+  const DwSeg none = {nullptr, 0, 0, 0, 0, 0};
+  auto field = [&](int f, int col, int end) {
+    const ResEntry& e = res.f[f];
+    return DwSeg{e.ptr, ls[2 + f], e.stride, e.col + col, 0, end};
+  };
+  struct Spec {
+    DwSeg seg[3];
+    int att_end, P, Q, d_col;
+  };
+  const Spec specs[kDwProducts] = {
+      {{c_prev, c_now, none}, 0, m2, s1, l.du1},                // a1w1
+      {{field(kR1, 0, s1), none, none}, 0, s1, m2, l.dlogits},  // a1w2
+      {{c_prev, c_now, none}, m2, m2, s2, l.du2},               // a2w1
+      {{field(kR2, 0, s2), none, none}, 0, s2, mem, l.dch},     // a2w2
+      {{c_prev, c_now, memp}, m2, m2 + mem, s34, l.du3},        // gw1
+      {{field(kR3, 0, s3), none, none}, 0, s3, mem, l.dq1},     // g1w2
+      {{field(kR3, s3, s4), none, none}, 0, s4, mem, l.dq2},    // g2w2
+  };
+  size_t at = 0;
+  int tiles = 0;
+  for (int q = 0; q < kDwProducts; ++q) {
+    const Spec& sp = specs[q];
+    DwProduct& pr = a.prod[q];
+    for (int j = 0; j < 3; ++j) pr.seg[j] = sp.seg[j];
+    pr.att_end = sp.att_end;
+    pr.P = sp.P;
+    pr.Q = sp.Q;
+    pr.d_col = sp.d_col;
+    pr.tiles_q = (sp.Q + kDwTile - 1) / kDwTile;
+    pr.out = out + at;
+    at += (size_t)sp.P * sp.Q;
+    pr.bias = out + at;
+    at += sp.Q;
+    a.first_tile[q] = tiles;
+    tiles += ((sp.P + kDwTile - 1) / kDwTile) * pr.tiles_q;
+  }
+  a.first_tile[kDwProducts] = tiles;
+  // 16-byte copies where no run, offset, row stride or lane stride splits
+  // four floats
+  auto aligned = [&](const void* p, int stride, int col, long long lane) {
     return reinterpret_cast<size_t>(p) % 16 == 0 && stride % 4 == 0 &&
-           col % 4 == 0;
+           col % 4 == 0 && (lanes == 1 || lane % 4 == 0);
   };
   bool v4 = M % 4 == 0 && z_tot % 4 == 0 && mem % 4 == 0 && s1 % 4 == 0 &&
-            s2 % 4 == 0 && s3 % 4 == 0 && s4 % 4 == 0;
-  int tiles = 0;
-  // lane k's arguments (and whether its copies may be 16-byte ones);
-  // false where a field of the table does not fit
-  auto build = [&](int k, DwArgs* to) {
-    DwArgs& a = *to;
-    const float* lc = at_lane(allc, ls, 0, k);
-    const float* lm = at_lane(allmem, ls, 1, k);
-    const float* ld = at_lane(delta, ls, 12, k);
-    float* lo = at_lane(out, ls, 13, k);
-    void* rp[kResFields];
-    for (int f = 0; f < kResFields; ++f)
-      rp[f] = at_lane(static_cast<float*>(res_ptrs[f]), ls, 2 + f, k);
-    ResTable res;
-    if (!make_res_table(rp, res_strides, res_cols, widths, &res))
-      return false;
-    a.delta = ld;
-    a.delta_width = l.width;
-    a.att = res.f[kAtt];
-    a.rows = t * n;
-    a.slice = (a.rows + S - 1) / S;
-    a.clocks = phase_clocks();
-    // the A operands' column runs: cStar is the previous step's c past
-    // z_tot, then this step's; memp the previous step's memory
-    const DwSeg c_prev = {lc, H, z_tot, n, M};
-    const DwSeg c_now = {lc, H, z_tot - M, 0, m2};
-    const DwSeg memp = {lm, mem, -m2, n, m2 + mem};
-    const DwSeg none = {nullptr, 0, 0, 0, 0};
-    auto field = [](const ResEntry& e, int col, int end) {
-      return DwSeg{e.ptr, e.stride, e.col + col, 0, end};
-    };
-    struct Spec {
-      DwSeg seg[3];
-      int att_end, P, Q, d_col;
-    };
-    const Spec specs[kDwProducts] = {
-        {{c_prev, c_now, none}, 0, m2, s1, l.du1},                // a1w1
-        {{field(res.f[kR1], 0, s1), none, none}, 0, s1, m2, l.dlogits},
-        {{c_prev, c_now, none}, m2, m2, s2, l.du2},               // a2w1
-        {{field(res.f[kR2], 0, s2), none, none}, 0, s2, mem, l.dch},
-        {{c_prev, c_now, memp}, m2, m2 + mem, s34, l.du3},        // gw1
-        {{field(res.f[kR3], 0, s3), none, none}, 0, s3, mem, l.dq1},
-        {{field(res.f[kR3], s3, s4), none, none}, 0, s4, mem, l.dq2},
-    };
-    size_t at = 0;
-    tiles = 0;
-    for (int q = 0; q < kDwProducts; ++q) {
-      const Spec& sp = specs[q];
-      DwProduct& pr = a.prod[q];
-      for (int j = 0; j < 3; ++j) pr.seg[j] = sp.seg[j];
-      pr.att_end = sp.att_end;
-      pr.P = sp.P;
-      pr.Q = sp.Q;
-      pr.d_col = sp.d_col;
-      pr.tiles_q = (sp.Q + kDwTile - 1) / kDwTile;
-      pr.out = lo + at;
-      at += (size_t)sp.P * sp.Q;
-      pr.bias = lo + at;
-      at += sp.Q;
-      a.first_tile[q] = tiles;
-      tiles += ((sp.P + kDwTile - 1) / kDwTile) * pr.tiles_q;
-    }
-    a.first_tile[kDwProducts] = tiles;
-    v4 = v4 && aligned(lc, H, 0) && aligned(lm, mem, 0) &&
-         aligned(ld, l.width, 0);
-    for (int f : {kAtt, kR1, kR2, kR3})
-      v4 = v4 && aligned(res.f[f].ptr, res.f[f].stride, res.f[f].col);
-    return true;
-  };
-  DwArgs a;
-  for (int k = 0; k < lanes; ++k)
-    if (!build(k, &a)) return (int)cudaErrorInvalidValue;
+            s2 % 4 == 0 && s3 % 4 == 0 && s4 % 4 == 0 &&
+            aligned(allc, H, 0, lc) && aligned(allmem, mem, 0, lm) &&
+            aligned(delta, l.width, 0, ld);
+  for (int f : {kAtt, kR1, kR2, kR3})
+    v4 = v4 && aligned(res.f[f].ptr, res.f[f].stride, res.f[f].col,
+                       ls[2 + f]);
   *copy = v4 ? 16 : 4;
   const DwKernel kernel = v4 ? dw_kernel_for<true>(S) : dw_kernel_for<false>(S);
   const size_t bytes = 2 * kDwStageFloats * sizeof(float);
-  cudaError_t err = allow_lane_smem(kernel, lanes, bytes);
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), bytes);
   if (err != cudaSuccess) return (int)err;
-  auto args = [&](int k) {
-    DwArgs b;
-    build(k, &b);
-    return b;
-  };
-  return (int)launch_lane_kernel(kernel, dim3(tiles * S), kDwThreads, bytes,
-                                 S, static_cast<cudaStream_t>(stream), lanes,
-                                 args);
+  return (int)launch_clusters(kernel, dim3(tiles * S, 1, lanes), kDwThreads,
+                              bytes, S, static_cast<cudaStream_t>(stream),
+                              a);
 }

@@ -55,8 +55,11 @@ MULTI_BWD_LAUNCHES = 0
 # the counters above too
 LANE_LAUNCHES = {}
 # the lanes one launch holds (csrc/lstm_common.cuh's kMaxLanes); more
-# lanes take one launch a group
+# lanes take one launch a group, but for the kernels of STRIDED_LANES,
+# whose blocks find their lane's arrays by stride: one launch for any
+# count (csrc/mfm_encode_bwd.cu)
 MAX_LANES = 8
+STRIDED_LANES = ("mfm_encode_bwd", "mfm_encode_dw")
 # threads per block of the backward chains at the training batch (n = 32),
 # the fastest measured by perf_probe.py (PERF.md); their rows, and the
 # forward chains' rows and threads, are fixed in csrc/lstm_bwd.cu and
@@ -141,6 +144,13 @@ def fwd_chain_bytes(h_dims, rows: int, threads: int, C: int) -> int:
     return 4 * most
 
 
+def dg_floats(cols: int, rows: int) -> int:
+    """The floats of a backward chain's gate gradients, ``cols`` columns
+    of ``rows`` rows in groups of four columns, a group padded by four
+    floats from 4 rows on (csrc/cell_bwd.cuh's dg_floats)."""
+    return cols // 4 * (4 * rows + (4 if rows >= 4 else 0))
+
+
 def cell_chain_bytes(h_dims, rows: int, threads: int, op_width: int,
                      C: int) -> int:
     """A backward chain's shared memory a block, likewise (``op_width``
@@ -151,7 +161,7 @@ def cell_chain_bytes(h_dims, rows: int, threads: int, op_width: int,
         ks = lanes_per_output(h, threads)
         kc = cell_cols(h, CC)
         wp = conflict_free_pitch(kc, min(4 * ks, 32))
-        f = (h * wp + 2 * pad4(h * rows) + rows * CC * kc
+        f = (h * wp + 2 * pad4(h * rows) + dg_floats(CC * kc, rows)
              + 2 * rows * op_width * h
              + (2 * pad4(h * rows) if CC > 1 else 0))
         most = max(most, f - (h * wp if C == 0 else 0))
@@ -192,8 +202,12 @@ def multi_plans(h_dims, train: bool = True):
     return plans
 
 
-def lane_launches(lanes: int) -> int:
-    """The launches a call over ``lanes`` lanes takes (1 for none)."""
+def lane_launches(lanes: int, kernel: str = None) -> int:
+    """The launches a call of ``kernel`` over ``lanes`` lanes takes (1 for
+    none): one a group of ``MAX_LANES``, or one for any count for the
+    kernels of ``STRIDED_LANES``."""
+    if kernel in STRIDED_LANES:
+        return 1
     return max(1, -(-lanes // MAX_LANES))
 
 
@@ -201,7 +215,7 @@ def count_lanes(name: str, lanes: int):
     """Count a lane launch of kernel ``name`` in ``LANE_LAUNCHES``."""
     if lanes:
         LANE_LAUNCHES[name] = LANE_LAUNCHES.get(name, 0) + lane_launches(
-            lanes)
+            lanes, name)
 
 
 def lane_strides(tensors, lanes: int):

@@ -40,9 +40,13 @@ Three kernels, each with a launch counter per variant:
   non-``wh`` weight and bias gradients as 7 grouped products ``A^T
   delta`` over the t * n rows, each bias the column sum of its weight's
   delta, into one buffer. Each 64 x 64 output tile splits the rows over a
-  thread-block cluster of S blocks (``dw_cluster``), whose partial tiles
-  are added in a fixed order: no atomics, the same bits on every run
-  (``DW_PLAN`` records the last call's S and copy width).
+  thread-block cluster of S blocks (``dw_cluster``, from one lane's
+  tiles), whose partial tiles are added in a fixed order: no atomics, the
+  same bits on every run and at every lane count (``DW_PLAN`` records the
+  last call's S and copy width). Over lanes the reverse pass and the
+  weight gradients launch once a pass for any lane count, the chains'
+  rows a block chosen by ``bwd_plan`` (``BWD_PLAN`` records the last
+  call's).
 
 A wrapper runs the plain version for CPU tensors and launches the kernel
 for CUDA tensors; there is no other route. ``dWh`` is one
@@ -64,10 +68,11 @@ import torch
 from factorized_tpu_torch.ops import _build
 from factorized_tpu_torch.ops.core import dropout_mask
 from factorized_tpu_torch.ops.cuda_lstm import (
-    LANE_ARGTYPES, STATE_ARGTYPES, batched, cell_chain_bytes, cell_columns,
-    chain_plan, check_lanes, conflict_free_pitch, count_lanes, count_plans,
-    fwd_chain_bytes, lane_launches, lane_strides, lanes_of, lanes_per_output,
-    launch_chains, pad4, recurrent_weight_grad_lanes, refusal)
+    LANE_ARGTYPES, SCRATCH, STATE_ARGTYPES, batched, cell_chain_bytes,
+    cell_columns, chain_plan, check_lanes, conflict_free_pitch, count_lanes,
+    count_plans, fwd_chain_bytes, lane_launches, lane_strides, lanes_of,
+    lanes_per_output, launch_chains, pad4, recurrent_weight_grad_lanes,
+    refusal)
 from factorized_tpu_torch.ops.lstm import recurrent_weight_grad
 
 W_NAMES = ("wh", "a1w1", "a1b1", "a1w2", "a1b2", "a2w1", "a2b1",
@@ -133,15 +138,17 @@ CLUSTERS = {}
 L2_LAUNCHES = {}
 SCRATCH_LAUNCHES = {}
 # the weight-gradient kernel's output tile and rows a chunk
-# (csrc/mfm_encode_bwd.cu: kDwTile, kDwChunk), and the blocks a launch
-# aims for, which set the cluster that splits K (dw_cluster): two a SM of
-# the H100's 132 (perf_probe.py train)
+# (csrc/mfm_encode_bwd.cu: kDwTile, kDwChunk), and the blocks one lane's
+# launch aims for, which set the cluster that splits K (dw_cluster): two
+# a SM of the H100's 132 (perf_probe.py train)
 DW_TILE, DW_CHUNK = 64, 32
 DW_BLOCKS = 264
 # the last weight-gradient launch's plan: the cluster size S and the
 # bytes of its staging copies (16, or 4 where the widths or offsets are
 # not multiples of four floats)
 DW_PLAN = {}
+# the last reverse pass's plan (bwd_plan), by chain
+BWD_PLAN = {}
 
 
 def sizes(weights):
@@ -157,7 +164,13 @@ def sizes(weights):
 # and the operand floats a row and unit of the reverse LSTM chains: the
 # plans' arithmetic (encode_plans)
 EVAL_ROWS, TRAIN_ROWS = (8, 2), (2, 1)
-BWD_MEM_ROWS, BWD_CELL_ROWS, BWD_CELL_OP_WIDTH = 1, 2, 8
+# the reverse pass's chains take one of these row counts a block
+# (csrc/mfm_encode_bwd.cu: kMemRowCounts, kCellRowCounts), chosen by
+# bwd_plan; the first of each is one lane's at the training batch, the
+# fastest measured there (perf_probe.py rows)
+BWD_MEM_ROW_COUNTS, BWD_CELL_ROW_COUNTS = (1, 2, 4, 8, 16), (2, 4, 8, 16)
+BWD_MEM_ROWS, BWD_CELL_ROWS = BWD_MEM_ROW_COUNTS[0], BWD_CELL_ROW_COUNTS[0]
+BWD_CELL_OP_WIDTH = 8
 
 
 def _mem_fwd_bytes(mem, s3, s4, C, rows, threads):
@@ -202,6 +215,90 @@ def encode_plans(h_dims, s3: int, s4: int, mem: int, train: bool = True):
             chain_plan(lambda C: cell_chain_bytes(
                 h_dims, BWD_CELL_ROWS, BWD_THREADS, BWD_CELL_OP_WIDTH, C)))
     return plans
+
+
+def bwd_plan(h_dims, s3: int, s4: int, mem: int, n: int, lanes: int = 1,
+             wave=None):
+    """The reverse pass's rows a block, chosen from the lanes and the
+    batch: for the memory chain and for the LSTM chains, the row count R
+    (``BWD_MEM_ROW_COUNTS``, ``BWD_CELL_ROW_COUNTS``) whose blocks, lanes
+    x ceil(n / R) row tiles x chains x the plan's cluster, take the fewest
+    waves of what the card holds at once, the smallest such R.
+    ``wave(chain, R, plan, smem_bytes)`` gives those blocks (default
+    ``chain_wave``: the current card's occupancy, registers counted). Only
+    an R whose chain plan sums in the order of the first count's is taken
+    (the same cluster; one block, weights from L2 or the scratch plan
+    alike), so lane k's bits do not depend on the lanes. One lane
+    (``lanes`` <= 1) takes the first counts at any batch, with no wave
+    asked for ("wave" and "waves" None): the one-model path keeps the rows
+    measured fastest there. {chain: {"rows", "plan", "row_tiles",
+    "padded_rows", "blocks", "wave", "waves"}}; the launcher passes the
+    rows."""
+    return _bwd_plan(tuple(h_dims), s3 + s4, mem, n, max(lanes, 1),
+                     wave or chain_wave)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan(h_dims, s34, mem, n, lanes, wave):
+    def mem_at(R):
+        return lambda C: _mem_bwd_bytes(mem, s34, C, R, BWD_THREADS)
+
+    def cells_at(R):
+        return lambda C: cell_chain_bytes(h_dims, R, BWD_THREADS,
+                                          BWD_CELL_OP_WIDTH, C)
+
+    return {"memory_chain": _rows_plan("memory_chain", mem_at,
+                                       BWD_MEM_ROW_COUNTS, n, lanes, 1,
+                                       wave),
+            "lstm_chains": _rows_plan("lstm_chains", cells_at,
+                                      BWD_CELL_ROW_COUNTS, n, lanes,
+                                      len(h_dims), wave)}
+
+
+def _rows_plan(chain, bytes_at, counts, n, lanes, chains, wave):
+    base, best = chain_plan(bytes_at(counts[0])), None
+    for R in counts if lanes > 1 else counts[:1]:
+        at = bytes_at(R)
+        plan = chain_plan(at)
+        if plan != base and not (plan <= 0 and base <= 0):
+            continue  # another cluster: another order of summation
+        tiles = -(-n // R)
+        blocks = lanes * tiles * chains * max(plan, 1)
+        held = waves = None
+        if lanes > 1:
+            held = wave(chain, R, plan, 0 if plan == SCRATCH else at(plan))
+            waves = -(-blocks // held)
+        if best is None or waves < best["waves"]:
+            best = {"rows": R, "plan": plan, "row_tiles": tiles,
+                    "padded_rows": tiles * R, "blocks": blocks,
+                    "wave": held, "waves": waves}
+    return best
+
+
+def chain_wave(chain: str, rows: int, plan: int, smem_bytes: int) -> int:
+    """The blocks of the reverse pass's ``chain`` (``"memory_chain"`` or
+    ``"lstm_chains"``) at ``rows`` rows a block on chain plan ``plan``,
+    ``BWD_THREADS`` threads and ``smem_bytes`` of dynamic shared memory
+    that the current card holds at once: its SMs times what the CUDA
+    occupancy calculator gives an SM for that instantiation, threads,
+    shared memory and registers counted (csrc/mfm_encode_bwd.cu's
+    ``mfm_encode_bwd_wave``)."""
+    return _chain_wave(torch.cuda.current_device(), chain, rows, plan,
+                       smem_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_wave(device, chain, rows, plan, smem_bytes):
+    fn = _build.kernel("mfm_encode_bwd_wave",
+                       [ctypes.c_int] * 4
+                       + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)])
+    held = (ctypes.c_int * 1)()
+    with torch.cuda.device(device):
+        err = fn(("memory_chain", "lstm_chains").index(chain), rows, plan,
+                 BWD_THREADS, smem_bytes, held)
+    _build.check(err, f"mfm_encode_bwd_wave ({chain}, {rows} rows, plan "
+                      f"{plan}, {smem_bytes} bytes)")
+    return held[0]
 
 
 def _layout(names, widths):
@@ -662,7 +759,7 @@ def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
         [ctypes.c_void_p] * 4 + _TABLE + [ctypes.c_void_p] * 17
         + STATE_ARGTYPES + [ctypes.c_int] * 10
         + [ctypes.POINTER(ctypes.c_int)]
-        + [ctypes.c_int] * 2 + LANE_ARGTYPES
+        + [ctypes.c_int] * 4 + LANE_ARGTYPES
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     lead = (lanes,) if lanes else ()
 
@@ -679,6 +776,13 @@ def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
     scratch += [None] * (not recompute)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
     fit = (ctypes.c_int * 6)()
+    # the rows a block of each chain (the probes' two-step variant: the
+    # first counts, its only instantiations)
+    plan = bwd_plan(h_dims, s3, s4, mem, n, lanes)
+    if variant == "two_step":
+        plan = {c: dict(p, rows=r) for (c, p), r in
+                zip(plan.items(), (BWD_MEM_ROWS, BWD_CELL_ROWS))}
+    rows = [plan[c]["rows"] for c in ("memory_chain", "lstm_chains")]
     used = ("wh", "a1w1", "a1w2", "a1b2", "a2w1", "a2w2", "gw1", "g1w2",
             "g2w2")
     operands = [xp, allh, allc, allmem, *_res_list(res), dhlast, dmemlast,
@@ -691,30 +795,34 @@ def _launch_bwd(xp, weights, allh, allc, allmem, res, dhlast, dmemlast,
              allmem.data_ptr(), *_res_table(res, w0),
              *[None if x is None else x.data_ptr() for x in operands[14:]]],
             [t, n, H, z_tot, mem, s1, s2, s3, s4, len(h_dims), dims,
-             BWD_VARIANTS.index(variant), BWD_THREADS, max(lanes, 1),
-             lane_strides(operands, lanes), fit, stream])
+             BWD_VARIANTS.index(variant), BWD_THREADS, *rows,
+             max(lanes, 1), lane_strides(operands, lanes), fit, stream])
     _fit("mfm_encode_bwd", fit, list(BWD_PASSES),
          f"cells {list(h_dims)} (largest {max(h_dims)}), H {H}, mem {mem}, "
          f"s3 + s4 {s3 + s4}, M2 {m2}")
     _build.check(err, f"mfm_encode_bwd ({variant})")
     if variant == "stream":
-        BWD_LAUNCHES += lane_launches(lanes)
+        BWD_LAUNCHES += 1
     elif recompute:
-        RECOMPUTE_LAUNCHES += lane_launches(lanes)
+        RECOMPUTE_LAUNCHES += 1
     else:
-        TWO_STEP_LAUNCHES += lane_launches(lanes)
+        TWO_STEP_LAUNCHES += 1
     count_lanes("mfm_encode_bwd", lanes)
     _count_plans("mfm_encode_bwd")
+    BWD_PLAN.clear()
+    BWD_PLAN.update(plan)
     return dxp, deltas
 
 
 def dw_cluster(weights, rows: int) -> int:
     """The blocks S (1, 2, 4 or 8, a thread-block cluster) over which the
     weight-gradient kernel splits the ``rows`` = t * n of each output
-    tile: the smallest S whose S x tiles reaches ``DW_BLOCKS``, doubled
-    only while each of its slices keeps a full chunk of rows."""
-    return _dw_cluster(tuple(weights[k].shape for k in DW_NAMES), rows,
-                       DW_BLOCKS)
+    tile, from one lane's tiles (one weight's shape, lanes in front or
+    not): the smallest S whose S x tiles reaches ``DW_BLOCKS``, doubled
+    only while each of its slices keeps a full chunk of rows. Every lane
+    count takes this S, so lane k's sums do not depend on the lanes."""
+    return _dw_cluster(tuple(tuple(weights[k].shape[-2:]) for k in DW_NAMES),
+                       rows, DW_BLOCKS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -756,7 +864,7 @@ def _launch_dw(weights, allc, allmem, res, deltas, z_tot, lanes=0):
     fn = _build.kernel("mfm_encode_dw", _DW_ARGTYPES)
     shapes = tuple(w0[k].shape for k in DW_NAMES)
     total, views = _dw_views(shapes)
-    cluster = _dw_cluster(shapes, t * n, DW_BLOCKS)
+    cluster = dw_cluster(w0, t * n)
     out = torch.empty(((lanes,) if lanes else ()) + (total,),
                       dtype=torch.float32, device=allc.device)
     operands = [allc, allmem, *_res_list(res), deltas, out]
@@ -769,7 +877,7 @@ def _launch_dw(weights, allc, allmem, res, deltas, z_tot, lanes=0):
                  cluster, max(lanes, 1), lane_strides(operands, lanes), copy,
                  stream)
     _build.check(err, "mfm_encode_dw")
-    DW_LAUNCHES += lane_launches(lanes)
+    DW_LAUNCHES += 1
     count_lanes("mfm_encode_dw", lanes)
     DW_PLAN.update(cluster=cluster, copy_bytes=copy[0])
     if lanes:

@@ -46,12 +46,21 @@ alone. Prints JSON lines:
   ``sys.path``, e.g. ``PYTHONPATH=<parent> python
   factorized_tpu_torch/perf_probe.py times``) gives the A/B;
 - ``lane_times`` (part ``lanes``): ``mfm``'s lane path (``--seeds K``)
-  at K = 8, 16 and 32, its ``LaneLoop`` built directly on 19 batches of
-  32 of synthetic MOSI: device ms and launches a step of every lane
+  at K = 1, 8, 16 and 32, its ``LaneLoop`` built directly on 19 batches
+  of 32 of synthetic MOSI: device ms and launches a step of every lane
   (torch.profiler over 3 eager steps), the replayed epoch's host s
   (median of 3) and device ms, and the epoch graph's capture ms and pool
-  bytes. Like ``step_times`` it calls only what every lane build has, for
-  the A/B;
+  bytes; and ``lane_kernels``, the encode's reverse pass and weight
+  gradients over K lanes at the training shapes (``lane_kernel_times``):
+  device ms and events ms, launches a call, the plan each call took
+  (``cuda_mfn.BWD_PLAN``'s rows, the blocks the card holds at once and
+  the waves they take; ``DW_PLAN``), the bound, and for the
+  weight gradients the library's 7 ``torch.bmm`` and 7 sums; and
+  ``mfn_kernels``, the same two kernels for one model with no lane axis
+  at n = 128 for both ``best_mfn_mosi_config``s (``mfn_kernel_times``:
+  device ms, the plan). Like ``step_times`` it calls only what every
+  lane build has (a plan the build does not record is null), for the
+  A/B;
 - ``phases`` (part ``phases``, run alone: it builds the kernels with
   ``FTT_PHASE_CLOCKS``): one line per chain kernel and cell, the mean
   SM cycles of each phase of a step over one call's steps, stamped by
@@ -692,7 +701,146 @@ def _replayed_times(program, tree, opt, Xb, yb, Xv, yv, gen, step):
             "graph_pool_bytes": loop.epoch.pool_bytes}
 
 
-def lane_times(cfg, dev, lanes=(8, 16, 32)):
+# the card's float32 peak and memory rate, for the lane kernels' bounds
+PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+
+
+def _bound(flops, nbytes):
+    ops_ms, bytes_ms = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def lane_kernel_times(cfg, dev, K):
+    """The encode's reverse pass (``_launch_bwd``) and weight gradients
+    (``_launch_dw``) over K lanes at n = 32, lane k a model of seed k:
+    {kernel: numbers} (see the module's doc). The bound counts K lanes'
+    useful float32 work (the recurrent products on the diagonal blocks,
+    none into step 0's zero state) at 67 TFLOP/s against each input read
+    once and each output written once at 3.35 TB/s."""
+    t, n = cfg.seqlength, N_TRAIN
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((t, n, cfg.d_total), generator=g, device=dev)
+    ops = [mfm.kernel_operands(mfm.MFM(cfg, seed=k, device=dev).tree(), x,
+                               cfg)[0] for k in range(K)]
+    z_tot, h_dims = ops[0][2], ops[0][3]
+    xp = torch.stack([o[0] for o in ops])
+    w = {m: torch.stack([o[1][m] for o in ops]) for m in ops[0][1]}
+    w0 = {m: v[0] for m, v in w.items()}
+    s1, s2, s3, s4, mem = cuda_mfn.sizes(w0)
+    masks = torch.stack([cuda_mfn.make_dropout_masks(
+        g, t, n, (s1, s2, s3, s4), mfn_drops(cfg)) for _ in range(K)])
+    res = [r.contiguous() for r in cuda_mfn.mfm_encode_res_lanes_plain(
+        xp, masks, w, z_tot)[2:]]
+    dh = torch.randn((K, n, sum(h_dims)), generator=g, device=dev)
+    dmem = torch.randn((K, n, mem), generator=g, device=dev)
+    dxp, deltas = cuda_mfn._launch_bwd(xp, w, *res, dh, dmem, z_tot, h_dims,
+                                       lanes=K)
+    dw = cuda_mfn._launch_dw(w, res[1], res[2], res[3], deltas, z_tot, K)
+    rows, H = t * n, sum(h_dims)
+    m2 = 2 * (H - z_tot)
+    recur = 4 * sum(h * h for h in h_dims)
+    used = ("wh", "a1w1", "a1w2", "a1b2", "a2w1", "a2w2", "gw1", "g1w2",
+            "g2w2")
+    bounds = {
+        "mfm_encode_bwd": _bound(
+            2 * K * ((t - 1) * n * 2 * recur
+                     + rows * ((s3 + s4) * mem + s2 * mem
+                               + (m2 + mem) * (s3 + s4) + m2 * s2
+                               + 2 * s1 * m2)),
+            _nbytes(xp, *res, dh, dmem, *[w[k] for k in used], dxp, deltas)
+            + K * 16 * sum(h * h for h in h_dims)),
+        "mfm_encode_dw": _bound(
+            2 * rows * sum(v.numel() for v in dw.values()),
+            _nbytes(res[1], res[2], res[3], deltas, *dw.values()))}
+    # the library's weight gradients: 7 torch.bmm and 7 sums over the
+    # lanes' operands, built before the timing
+    A = [cuda_mfn.dw_operands(res[1][k], res[2][k], res[3][k],
+                              {m: v[k] for m, v in w.items()}, z_tot)
+         for k in range(K)]
+    A = {a: torch.stack([o[a] for o in A]) for a in A[0]}
+    offs, _ = cuda_mfn.delta_layout(w0)
+    D = deltas.reshape(K, rows, -1)
+
+    def library():
+        return {name: (D[:, :, o:o + wd].sum(1) if a == "ones" else
+                       torch.bmm(A[a].transpose(1, 2), D[:, :, o:o + wd]))
+                for name, (a, d) in cuda_mfn.DW_PRODUCTS.items()
+                for o, wd in [offs[d]]}
+
+    calls = {"mfm_encode_bwd": (lambda: cuda_mfn._launch_bwd(
+        xp, w, *res, dh, dmem, z_tot, h_dims, lanes=K), "BWD_LAUNCHES"),
+             "mfm_encode_dw": (lambda: cuda_mfn._launch_dw(
+                 w, res[1], res[2], res[3], deltas, z_tot, K),
+                 "DW_LAUNCHES")}
+    out = {}
+    for name, (fn, counter) in calls.items():
+        before = getattr(cuda_mfn, counter)
+        fn()
+        launches = getattr(cuda_mfn, counter) - before
+        if name == "mfm_encode_dw":
+            plan = dict(cuda_mfn.DW_PLAN)
+        else:
+            plan = {c: {k: p.get(k) for k in ("rows", "wave", "waves")}
+                    for c, p in getattr(cuda_mfn, "BWD_PLAN",
+                                        {}).items()} or None
+        out[name] = {"lanes": K, "launches_per_call": launches,
+                     "plan": plan, "device_ms": _device_ms(fn, 20),
+                     "ms": _ms(fn, 20), "bound_ms": bounds[name][0],
+                     "bound_by": bounds[name][1]}
+    out["mfm_encode_dw"]["library_device_ms"] = _device_ms(library, 20)
+    out["mfm_encode_dw"]["library_ms"] = _ms(library, 20)
+    return out
+
+
+def mfn_kernel_times(dev, n=128):
+    """The encode's reverse pass and weight gradients of one model, no
+    lane axis, at n rows (the ``best_mfn_mosi_config`` runs' batch) for
+    both ``best_mfn_mosi_config``s: {kind: {kernel: {"device_ms",
+    "plan"}}}."""
+    from factorized_tpu_torch.config import best_mfn_mosi_config
+    from factorized_tpu_torch.models.common import split_modalities
+    from factorized_tpu_torch.ops.fused import encode_operands
+
+    out = {}
+    for kind in ("mae", "acc"):
+        cfg = best_mfn_mosi_config(kind)
+        t = cfg.seqlength
+        g = torch.Generator(device=dev).manual_seed(13)
+        x = torch.randn((t, n, cfg.d_total), generator=g, device=dev)
+        params = mfm.MFM(cfg, seed=0, device=dev,
+                         model_type="mfn").tree()["mfn"]
+        xp, w, z_tot, h_dims = encode_operands(
+            [], params, *split_modalities(x, cfg.input_dims), ())
+        masks = cuda_mfn.make_dropout_masks(
+            g, t, n, cuda_mfn.sizes(w)[:4], mfn_drops(cfg))
+        res = cuda_mfn.mfm_encode_res_plain(xp, masks, w, z_tot)[2:]
+        dh, dmem = torch.ones_like(res[0][0]), torch.ones_like(res[2][0])
+        _, deltas = cuda_mfn._launch_bwd(xp, w, *res, dh, dmem, z_tot,
+                                         h_dims)
+
+        def bwd():
+            return cuda_mfn._launch_bwd(xp, w, *res, dh, dmem, z_tot,
+                                        h_dims)
+
+        def dw():
+            return cuda_mfn._launch_dw(w, res[1], res[2], res[3], deltas,
+                                       z_tot)
+
+        out[kind] = {"mfm_encode_bwd": {"device_ms": _device_ms(bwd, 20)},
+                     "mfm_encode_dw": {"device_ms": _device_ms(dw, 20)}}
+        out[kind]["mfm_encode_bwd"]["plan"] = {
+            c: p["rows"] for c, p in getattr(cuda_mfn, "BWD_PLAN",
+                                             {}).items()} or None
+        out[kind]["mfm_encode_dw"]["plan"] = dict(cuda_mfn.DW_PLAN)
+    return out
+
+
+def lane_times(cfg, dev, lanes=(1, 8, 16, 32)):
     """Part ``lanes`` (see the module's doc): one JSON line."""
     from factorized_tpu_torch.data import mosi
     from factorized_tpu_torch.parallel import multiseed
@@ -700,8 +848,10 @@ def lane_times(cfg, dev, lanes=(8, 16, 32)):
 
     data = mosi.get_data(cfg.seqlength)
     _, apply_fn = get_model("mfm")
-    out = {}
+    out, lane_kernels = {}, {}
     for K in lanes:
+        with torch.inference_mode():
+            lane_kernels[str(K)] = lane_kernel_times(cfg, dev, K)
         prep = multiseed.prepare_bucket_data(*data, cfg, seed=0, device=dev)
         params = multiseed.init_lanes("mfm", cfg, 0, K, dev)
         opt = LaneAdam(params, 1e-3)
@@ -730,8 +880,11 @@ def lane_times(cfg, dev, lanes=(8, 16, 32)):
             "capture_ms": loop.epoch.capture_ms,
             "graph_pool_bytes": loop.epoch.pool_bytes}
         del loop, opt, params, programs
+    with torch.inference_mode():
+        mfn_kernels = mfn_kernel_times(dev)
     print(json.dumps({
-        "lane_times": out,
+        "lane_times": out, "lane_kernels": lane_kernels,
+        "mfn_kernels": mfn_kernels,
         "package": str(Path(cuda_mfn.__file__).parents[1])}), flush=True)
 
 

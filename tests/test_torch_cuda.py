@@ -1310,7 +1310,8 @@ def _lane_operands(cfg, K, n, dev):
                          ids=["small", "train"])
 def test_lane_kernels_match_plain(cuda, cfg, n, K):
     """Each of the seven kernel entry points over K lanes in one launch a
-    group of 8 lanes against its plain version lane by lane."""
+    group of 8 lanes (the encode's reverse pass and weight gradients in
+    one launch) against its plain version lane by lane."""
     (xp, masks, w, z_tot, h_dims), (h0, c0, wsum, b, dec_dims), \
         (mxp, mwh, m_dims), g = _lane_operands(cfg, K, n, cuda)
     t = cfg.seqlength
@@ -1369,16 +1370,51 @@ def test_lane_kernels_match_plain(cuda, cfg, n, K):
             cuda_lstm.multi_lstm_bwd_lanes_plain(mref[3], mwh, mref[2],
                                                  dhl), **GRAD)
         torch.cuda.synchronize()
-    # one launch a call for 8 lanes
+    # one launch a call for 8 lanes; the encode's reverse pass and weight
+    # gradients one for any count
     delta = counts.since(before)
     groups = cuda_lstm.lane_launches(K)
     assert delta[(cuda_mfn, "LAUNCHES")] == 2 * groups
-    assert delta[(cuda_mfn, "BWD_LAUNCHES")] == groups
-    assert delta[(cuda_mfn, "DW_LAUNCHES")] == groups
+    assert delta[(cuda_mfn, "BWD_LAUNCHES")] == 1
+    assert delta[(cuda_mfn, "DW_LAUNCHES")] == 1
     assert delta[(cuda_lstm, "LAUNCHES")] == groups
     assert delta[(cuda_lstm, "BWD_LAUNCHES")] == groups
     assert delta[(cuda_lstm, "MULTI_LAUNCHES")] == 2 * groups
     assert delta[(cuda_lstm, "MULTI_BWD_LAUNCHES")] == groups
+
+
+@pytest.mark.parametrize("K", [8, 32])
+def test_the_lane_plan_takes_the_cards_occupancy(cuda, K):
+    """The reverse pass's lane plan at the main widths counts its waves in
+    what the card's occupancy calculator says an SM holds of each chain's
+    instantiation (registers counted): a whole number of blocks an SM, no
+    more than its threads and shared memory allow; the rows the fewest of
+    those waves take, the smallest such count."""
+    cfg = best_acc_mosi_config()
+    h_dims = [cfg.zl_size, cfg.za_size, cfg.zv_size, *cfg.h_dims]
+    s3, s4, mem, n = (cfg.gamma1_shape, cfg.gamma2_shape, cfg.memsize,
+                      cfg.batchsize)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    asked = []
+
+    def wave(chain, R, plan, smem):
+        held = cuda_mfn.chain_wave(chain, R, plan, smem)
+        assert held % sms == 0 and held > 0
+        assert held // sms <= min(2048 // cuda_mfn.BWD_THREADS,
+                                  233472 // (smem + 1024))
+        asked.append((chain, R, held))
+        return held
+
+    plan = cuda_mfn.bwd_plan(h_dims, s3, s4, mem, n, K, wave)
+    assert plan == cuda_mfn.bwd_plan(h_dims, s3, s4, mem, n, K)
+    for chain, p in plan.items():
+        mine = [(R, -(-K * -(-n // R) * (1 if chain == "memory_chain"
+                                         else len(h_dims))
+                      * max(p["plan"], 1) // held))
+                for c, R, held in asked if c == chain]
+        fewest = min(w for _, w in mine)
+        assert p["waves"] == fewest
+        assert p["rows"] == min(R for R, w in mine if w == fewest)
 
 
 def test_lane_train_step_grads_on_the_card_match_the_cpu(cuda):

@@ -416,10 +416,12 @@ def test_encode_launcher_passes_its_knobs(fake_card, monkeypatch):
     monkeypatch.setattr(cuda_mfn, "BWD_THREADS", 256)
     _launch_encode("two_step")
     args = calls[0][2]
-    # the variant and the threads precede the lanes (one, no lane axis),
-    # the lane strides, need and stream
-    assert list(args[-6:-3]) == [cuda_mfn.BWD_VARIANTS.index("two_step"),
-                                 256, 1]
+    # the variant, the threads and the chains' rows (one lane's: the
+    # two-step variant's only ones) precede the lanes (one, no lane axis),
+    # the lane strides, fit and stream
+    assert list(args[-8:-3]) == [cuda_mfn.BWD_VARIANTS.index("two_step"),
+                                 256, cuda_mfn.BWD_MEM_ROWS,
+                                 cuda_mfn.BWD_CELL_ROWS, 1]
 
 
 @pytest.mark.parametrize("variant", cuda_mfn.BWD_VARIANTS)

@@ -1,0 +1,307 @@
+"""The lane plans of the encode backward's two lane kernels, plain
+arithmetic on the CPU: ``cuda_mfn.bwd_plan`` (the rows a block of the
+reverse pass's memory chain and LSTM chains) and ``cuda_mfn.dw_cluster``
+(the cluster of the weight gradients), the launches their launchers
+count, and the rows they pass, the kernel call faked (there is no card
+here). On the card ``bwd_plan`` takes what the card holds at once from
+the CUDA occupancy calculator (``cuda_mfn.chain_wave``); here each test
+hands it a stand-in, and ``tests/test_torch_cuda.py`` holds the plan
+against the card's own occupancy."""
+
+import contextlib
+import ctypes
+import math
+import re
+import types
+
+import pytest
+import torch
+
+from factorized_tpu_torch.config import best_acc_mosi_config
+from factorized_tpu_torch.ops import _build, cuda_lstm, cuda_mfn
+
+LANES = (1, 2, 4, 8, 16, 32, 64)
+CFG = best_acc_mosi_config()
+# the encode's fused cells at best_acc_mosi_config: the encoders' LSTMs,
+# then the MFN's
+H_DIMS = [CFG.zl_size, CFG.za_size, CFG.zv_size, *CFG.h_dims]
+H, Z_TOT = sum(H_DIMS), CFG.zl_size + CFG.za_size + CFG.zv_size
+MEM, N, T = CFG.memsize, CFG.batchsize, CFG.seqlength
+S1, S2, S3, S4 = (CFG.att1_shape, CFG.att2_shape, CFG.gamma1_shape,
+                  CFG.gamma2_shape)
+
+
+def _weights(lanes=0):
+    m2 = 2 * (H - Z_TOT)
+    shapes = {"wh": (H, 4 * H), "a1w1": (m2, S1), "a1b1": (1, S1),
+              "a1w2": (S1, m2), "a1b2": (1, m2), "a2w1": (m2, S2),
+              "a2b1": (1, S2), "a2w2": (S2, MEM), "a2b2": (1, MEM),
+              "gw1": (m2 + MEM, S3 + S4), "gb1": (1, S3 + S4),
+              "g1w2": (S3, MEM), "g1b2": (1, MEM), "g2w2": (S4, MEM),
+              "g2b2": (1, MEM)}
+    lead = (lanes,) if lanes else ()
+    return {k: torch.zeros(lead + s) for k, s in shapes.items()}
+
+
+def _bytes(chain, R, C):
+    """A chain's shared memory a block at R rows on a cluster of C."""
+    if chain == "memory_chain":
+        return cuda_mfn._mem_bwd_bytes(MEM, S3 + S4, C, R,
+                                       cuda_mfn.BWD_THREADS)
+    return cuda_lstm.cell_chain_bytes(H_DIMS, R, cuda_mfn.BWD_THREADS,
+                                      cuda_mfn.BWD_CELL_OP_WIDTH, C)
+
+
+# stand-ins for what the card holds at once: 132 SMs, each holding one
+# block, or as many as 228 KB of shared memory allow, or fewer for the
+# wider row counts (as registers may have it)
+WAVES = {
+    "one_a_sm": lambda chain, R, plan, smem: 132,
+    "by_shared_memory": lambda chain, R, plan, smem: 132 * min(
+        4, 233472 // (smem + 1024)),
+    "fewer_for_more_rows": lambda chain, R, plan, smem: 132 * (
+        4 if R <= 2 else 2 if R <= 4 else 1),
+}
+
+
+def _plan(K, n=N, wave=WAVES["by_shared_memory"]):
+    return cuda_mfn.bwd_plan(H_DIMS, S3, S4, MEM, n, K, wave)
+
+
+def test_the_main_widths_are_the_ones_measured():
+    """The encode the plans below are made for: 6 cells, 320 units."""
+    assert H_DIMS == [32, 8, 80, 88, 64, 48] and (MEM, S3, S4) == (64, 128,
+                                                                   128)
+
+
+@pytest.mark.parametrize("K", LANES)
+def test_one_lane_keeps_todays_rows_and_slices(K):
+    """One lane takes the measured one-lane rows (the memory chain 1 row a
+    block, the LSTM chains 2) at any batch, the training batch of 32 and
+    the 128 of the ``best_mfn_mosi_config`` runs alike, and asks the card
+    nothing; the weight gradients' cluster of 4 is the same at every K,
+    so every lane sums in the one-lane order."""
+    def unasked(*args):
+        raise AssertionError(f"one lane asked for a wave: {args}")
+
+    for n in (1, 32, 128, 1000):
+        for lanes in (0, 1):
+            one = _plan(lanes, n, unasked)
+            assert one["memory_chain"]["rows"] == cuda_mfn.BWD_MEM_ROWS == 1
+            assert one["lstm_chains"]["rows"] == cuda_mfn.BWD_CELL_ROWS == 2
+            assert one["lstm_chains"]["waves"] is None
+    assert cuda_mfn.dw_cluster(_weights(), T * N) == 4
+    assert cuda_mfn.dw_cluster(_weights(K), T * N) == 4
+
+
+def _waves(chain, R, K, chains, wave):
+    """(chain plan, waves, blocks, wave) of a chain at R rows over K
+    lanes, what the card holds at once given by ``wave``."""
+    plan = cuda_lstm.chain_plan(lambda C: _bytes(chain, R, C))
+    smem = 0 if plan == cuda_lstm.SCRATCH else _bytes(chain, R, plan)
+    held = wave(chain, R, plan, smem)
+    blocks = K * math.ceil(N / R) * chains * max(plan, 1)
+    return plan, math.ceil(blocks / held), blocks, held
+
+
+@pytest.mark.parametrize("K", LANES)
+def test_the_chains_blocks_stay_within_the_waves_the_plan_aims_at(K):
+    """Each chain's blocks are K x row tiles x chains x the cluster, and
+    they take the fewest waves of what the card holds at once (whatever
+    the card reports for each row count, plan and shared memory) that any
+    row count of the one-lane order of summation reaches, one wave
+    wherever one is reachable; the smallest such count. One lane takes
+    the first count."""
+    chains = {"memory_chain": 1, "lstm_chains": len(H_DIMS)}
+    counts = {"memory_chain": cuda_mfn.BWD_MEM_ROW_COUNTS,
+              "lstm_chains": cuda_mfn.BWD_CELL_ROW_COUNTS}
+    for name, wave in WAVES.items():
+        for chain, p in _plan(K, wave=wave).items():
+            if K == 1:
+                assert p["rows"] == counts[chain][0], name
+                continue
+            first = _waves(chain, counts[chain][0], K, chains[chain],
+                           wave)[0]
+            plan, waves, blocks, held = _waves(chain, p["rows"], K,
+                                               chains[chain], wave)
+            assert (p["plan"], p["waves"], p["blocks"], p["wave"]) == (
+                plan, waves, blocks, held), name
+            assert plan == first  # the one-lane order of summation
+            reach = {R: _waves(chain, R, K, chains[chain], wave)
+                     for R in counts[chain]}
+            reach = {R: w[1] for R, w in reach.items() if w[0] == first}
+            assert waves == min(reach.values()), name
+            assert p["rows"] == min(R for R, w in reach.items()
+                                    if w == waves), name
+
+
+@pytest.mark.parametrize("K", LANES)
+@pytest.mark.parametrize("n", [1, 5, 32, 100])
+def test_the_rows_tile_the_batch(K, n):
+    """R divides the padded rows the row tiles cover, which hold the
+    batch with less than one tile to spare."""
+    for wave in WAVES.values():
+        for p in _plan(K, n, wave).values():
+            R, padded = p["rows"], p["padded_rows"]
+            assert padded % R == 0 and padded == p["row_tiles"] * R
+            assert n <= padded < n + R
+
+
+def test_no_count_that_sums_in_another_order_is_taken():
+    """At the main widths 16 rows of an LSTM chain pass one block's
+    shared memory and would take a cluster of 2, which sums dh in
+    another order: no lane count takes them, however many blocks the card
+    holds; likewise a memory chain past a block at its first count keeps
+    its cluster."""
+    at16 = cuda_lstm.chain_plan(lambda C: cuda_lstm.cell_chain_bytes(
+        H_DIMS, 16, cuda_mfn.BWD_THREADS, cuda_mfn.BWD_CELL_OP_WIDTH, C))
+    assert at16 == 2
+    for wave in WAVES.values():
+        for K in LANES:
+            assert _plan(K, wave=wave)["lstm_chains"]["rows"] != 16
+        wide = cuda_mfn.bwd_plan(H_DIMS, 600, 600, 128, N, 32,
+                                 wave)["memory_chain"]
+        assert wide["plan"] == cuda_mfn.bwd_plan(
+            H_DIMS, 600, 600, 128, N, 1, wave)["memory_chain"]["plan"]
+
+
+@pytest.mark.parametrize("K", LANES)
+def test_the_weight_gradients_blocks(K):
+    """K x tiles x S blocks, S one lane's cluster at every K (one slice
+    of each tile's rows a block of the cluster): the smallest whose S x
+    80 tiles reach ``DW_BLOCKS``, each slice a full chunk of rows."""
+    w = _weights(K)
+    tiles = sum(math.ceil(w[k].shape[-2] / cuda_mfn.DW_TILE)
+                * math.ceil(w[k].shape[-1] / cuda_mfn.DW_TILE)
+                for k in ("a1w1", "a1w2", "a2w1", "a2w2", "gw1", "g1w2",
+                          "g2w2"))
+    assert tiles == 80
+    S = cuda_mfn.dw_cluster(w, T * N)
+    assert S == cuda_mfn.dw_cluster(_weights(), T * N) == 4
+    assert S * tiles >= cuda_mfn.DW_BLOCKS > S // 2 * tiles
+    assert T * N >= 2 * S * cuda_mfn.DW_CHUNK
+
+
+def test_the_row_counts_are_the_sources():
+    """The counts the plan chooses among are the ones the source
+    instantiates."""
+    src = (_build.CSRC / "mfm_encode_bwd.cu").read_text()
+    for name, counts in (("kMemRowCounts", cuda_mfn.BWD_MEM_ROW_COUNTS),
+                         ("kCellRowCounts", cuda_mfn.BWD_CELL_ROW_COUNTS)):
+        m = re.search(rf"constexpr int {name}\[\] = \{{([\d, ]+)\}};", src)
+        assert tuple(int(v) for v in m.group(1).split(",")) == counts
+
+
+# the argument types of each faked library function
+ARGTYPES = {}
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    """The kernels' library faked: each call recorded, fit and copy
+    reported as a launch on one block and 16-byte copies. CPU tensors
+    stand in for the card's."""
+    calls = []
+
+    def kernel(name, argtypes, restype=ctypes.c_int):
+        ARGTYPES[name] = list(argtypes)
+
+        def fn(*args):
+            calls.append((name, args))
+            if name == "mfm_encode_bwd_wave":
+                args[-1][0] = WAVES["by_shared_memory"](
+                    ("memory_chain", "lstm_chains")[args[0]], *args[1:3],
+                    args[4])
+                return 0
+            args[-2][0] = 16 if name == "mfm_encode_dw" else 0
+            if name == "mfm_encode_bwd":
+                args[-2][4] = args[-2][5] = 1
+            return 0
+        return fn
+
+    monkeypatch.setattr(_build, "kernel", kernel)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    for cached in (cuda_mfn._bwd_plan, cuda_mfn._chain_wave):
+        cached.cache_clear()
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    for name in ("BWD_LAUNCHES", "DW_LAUNCHES", "CLUSTERS", "L2_LAUNCHES",
+                 "SCRATCH_LAUNCHES", "BWD_PLAN", "DW_PLAN"):
+        value = getattr(cuda_mfn, name)
+        monkeypatch.setattr(cuda_mfn, name,
+                            value if isinstance(value, int) else {})
+    monkeypatch.setattr(cuda_lstm, "LANE_LAUNCHES", {})
+    yield calls
+    for cached in (cuda_mfn._bwd_plan, cuda_mfn._chain_wave):
+        cached.cache_clear()
+
+
+@pytest.mark.parametrize("K", [2, 8, 9, 32])
+def test_each_lane_kernel_counts_one_launch_a_call(fake_library, K):
+    """The reverse pass and the weight gradients over K lanes: one launch
+    each, counted once, and the chains' rows of ``bwd_plan`` passed; the
+    kernels launched a group of 8 lanes at a time count one a group."""
+    t, n = 2, 3
+    w = _weights(K)
+    m2 = w["a1w1"].shape[1]
+    R = cuda_mfn.res_layout({k: v[0] for k, v in w.items()})[1]
+    D = cuda_mfn.delta_layout({k: v[0] for k, v in w.items()})[1]
+    z = torch.zeros
+    before = (cuda_mfn.BWD_LAUNCHES, cuda_mfn.DW_LAUNCHES)
+    dxp, deltas = cuda_mfn._launch_bwd(
+        z(K, t, n, 4 * H), w, z(K, t, n, H), z(K, t, n, H), z(K, t, n, MEM),
+        z(K, t, n, R), z(K, n, H), z(K, n, MEM), Z_TOT, H_DIMS, lanes=K)
+    assert deltas.shape == (K, t, n, D) and m2 == 2 * (H - Z_TOT)
+    cuda_mfn._launch_dw(w, z(K, t, n, H), z(K, t, n, MEM), z(K, t, n, R),
+                        deltas, Z_TOT, K)
+    assert (cuda_mfn.BWD_LAUNCHES, cuda_mfn.DW_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    assert cuda_lstm.LANE_LAUNCHES == {"mfm_encode_bwd": 1,
+                                       "mfm_encode_dw": 1}
+    asked = [args for name, args in fake_library
+             if name == "mfm_encode_bwd_wave"]
+    (bname, bargs), (dname, dargs) = [c for c in fake_library
+                                      if c[0] != "mfm_encode_bwd_wave"]
+    plan = _plan(K, n)
+    # the variant, the threads, the two chains' rows, the lanes
+    assert list(bargs[-8:-3]) == [0, cuda_mfn.BWD_THREADS,
+                                  plan["memory_chain"]["rows"],
+                                  plan["lstm_chains"]["rows"], K]
+    assert cuda_mfn.BWD_PLAN == plan
+    # the card was asked, once for each row count and chain, for the
+    # chain's instantiation at the launch's threads and shared memory
+    expect = []
+    for c, (chain, counts) in enumerate((
+            ("memory_chain", cuda_mfn.BWD_MEM_ROW_COUNTS),
+            ("lstm_chains", cuda_mfn.BWD_CELL_ROW_COUNTS))):
+        for R in counts:
+            p = cuda_lstm.chain_plan(lambda C: _bytes(chain, R, C))
+            if p == cuda_lstm.chain_plan(lambda C: _bytes(chain, counts[0],
+                                                          C)):
+                smem = 0 if p == cuda_lstm.SCRATCH else _bytes(chain, R, p)
+                expect.append([c, R, p, cuda_mfn.BWD_THREADS, smem])
+    assert [list(a[:5]) for a in asked] == expect
+    assert list(dargs[-5:-3]) == [cuda_mfn.dw_cluster(w, t * n), K]
+    for name in cuda_lstm.STRIDED_LANES:
+        assert cuda_lstm.lane_launches(K, name) == 1
+    assert cuda_lstm.lane_launches(K, "decoder_lstm_bwd") == math.ceil(K / 8)
+
+
+def test_the_wave_query_matches_its_c_prototype(fake_library):
+    """``chain_wave`` calls ``mfm_encode_bwd_wave`` with the types of its
+    C prototype and reads the blocks it writes."""
+    cuda_mfn.chain_wave("lstm_chains", 4, 1, 1000)
+    src = (_build.CSRC / "mfm_encode_bwd.cu").read_text()
+    m = re.search(r'extern "C" int mfm_encode_bwd_wave\((.*?)\)\s*\{', src,
+                  re.S)
+    kinds = [" ".join(p.split()).rsplit(" ", 1)[0]
+             for p in m.group(1).split(",")]
+    assert kinds == ["int"] * 4 + ["long long", "int*"]
+    assert ARGTYPES["mfm_encode_bwd_wave"] == (
+        [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)])
+    (name, args), = fake_library
+    assert list(args[:5]) == [1, 4, 1, cuda_mfn.BWD_THREADS, 1000]
+    assert cuda_mfn.chain_wave("lstm_chains", 4, 1, 1000) == 132 * 4
+    assert len(fake_library) == 1  # asked once

@@ -15,7 +15,9 @@ train 3 epochs of K = 3 lanes; the port's run must give (the bounds of
 - each seed's test metrics within 1e-6, the correlation within 1e-6
   plus 1e-5 relative; the best seed equal.
 
-Covered: ``mfm``, ``kl`` and ``m_b``; ``m_b`` once more with a scheduler
+Covered: ``mfm``, ``kl`` and the four ablations ``m_a`` to ``m_d``
+(``m_c``'s correlation NaN in both packages, held equal as NaN); ``m_b``
+once more with a scheduler
 that cuts the lr in some lanes only (patience 0 and a relative threshold
 of 1e-3 in both packages); the
 accuracy-keeping mode at K = 2. Then the port alone: the lane plain
@@ -72,7 +74,8 @@ CFG = JaxConfig(
 # 1e-3, which the lanes' first improvements straddle (7.5e-4, 8.7e-4 and
 # 1.4e-3), so the lr of two lanes is cut at epoch 1 and of the third at 2
 CASES = {"mfm": ("mfm", 3, "loss", None), "kl": ("kl", 3, "loss", None),
-         "m_b": ("m_b", 3, "loss", None),
+         "m_a": ("m_a", 3, "loss", None), "m_b": ("m_b", 3, "loss", None),
+         "m_c": ("m_c", 3, "loss", None), "m_d": ("m_d", 3, "loss", None),
          "cut": ("m_b", 3, "loss", dict(patience=0, threshold=1e-3)),
          "accuracy": ("m_d", 2, "accuracy", None)}
 

@@ -298,6 +298,76 @@ def test_an_evolving_search_over_ranks_is_one_process(two, snapshot):
     _same_search(_evolve("cpu", resume_from=f"{snapshot}/evolve"), want)
 
 
+def test_calm_at_seed_3_parts_by_adams_first_step_alone():
+    """ROADMAP C1, a conditioning limit and no fault: at ``CALM``, K = 4
+    lanes from the JAX package's init at seed 3, the two packages' step-0
+    gradients agree within 1e-5 of each leaf's largest (2.1e-6 at worst:
+    float32 sums in other orders through the backward). Lane
+    1's y head sees 8 rows whose fy are bit for bit equal and whose L1
+    cotangents are +1/8 and -1/8, four each, so its ``fc1.w`` gradient is
+    exactly 0; the port gets 0 there, the JAX package a rounding residue
+    (8.75e-10 at [0, 3], under one ulp of the terms, about 0.027), and
+    Adam's first step, ``g / (sqrt(v) + eps)`` at count 1, makes that
+    8.05e-5 of the parameter, which later steps carry unchanged (the
+    head's units see no gradient). The lanes part there and nowhere
+    else."""
+    import jax
+
+    from factorized_tpu.config import MFMConfig as JaxConfig
+    from factorized_tpu.models import get_model as jax_get_model
+    from factorized_tpu.parallel import multiseed as jms
+    from factorized_tpu.train import make_loss_fn, make_optimizer
+    from factorized_tpu_torch.models import get_model
+    from factorized_tpu_torch.train import LaneAdam
+
+    seed, lr, leaf, lane, at = 3, 1e-3, "fy_to_y.fc1.w", 1, (0, 3)
+    jcfg = JaxConfig(**CALM.to_dict())
+    init_fn, apply_fn = jax_get_model("mfm")
+    init = jax.tree.map(np.asarray, jms.MultiSeedProgram.vinit(
+        init_fn, jcfg, jax.random.PRNGKey(seed), K))
+    prep = multiseed.prepare_bucket_data(*_data(), CALM, seed=seed,
+                                         device="cpu")
+    x, y = prep["Xb"][0], prep["yb"][0]
+    keys = jax.random.split(jax.random.PRNGKey(0), K)
+    loss = make_loss_fn(apply_fn, jcfg, "joint")
+    grads = jax.jit(jax.vmap(jax.grad(lambda p, x, y, k: loss(p, x, y, k)[0]),
+                             in_axes=(0, None, None, 0)))(
+        init, x.numpy(), y.numpy(), keys)
+    opt = make_optimizer("adam", lr)
+    program = jms.MultiSeedProgram(apply_fn, jcfg, opt)
+    stepped = program.epoch(init, jax.vmap(opt.init)(init), x.numpy()[None],
+                            y.numpy()[None], keys,
+                            np.full((K,), lr, np.float32))[0]
+    params = multiseed.stack_lanes([multiseed.take_lane(from_numpy(init), k)
+                                    for k in range(K)], "cpu")
+    programs = multiseed.LanePrograms(get_model("mfm")[1], CALM,
+                                      torch.Generator().manual_seed(seed))
+    programs.step(params, LaneAdam(params, lr), x, y)
+    got = to_state_dict(params)
+    g_jax = to_state_dict(jax.tree.map(np.asarray, grads))
+    p_jax = to_state_dict(jax.tree.map(np.asarray, stepped))
+    for k, g in g_jax.items():
+        assert (np.abs(got[k].grad.numpy() - g).max()
+                <= LOSSES["rtol"] * np.abs(g).max()), k
+    # lane 1's head: every fc1.w gradient 0 in the port, a residue under
+    # one ulp of the terms in the JAX package, 8.75e-10 at its largest
+    g_port, g_ref = got[leaf].grad.numpy()[lane], g_jax[leaf][lane]
+    assert not g_port.any()
+    assert np.abs(g_ref).max() == np.abs(g_ref[at]) > 8e-10
+    assert np.abs(g_ref).max() < np.spacing(np.float32(0.027))
+    # count 1: the bias-corrected m / (sqrt(v) + eps) is g / (|g| + eps),
+    # elementwise the whole parting (to the parameters' rounding)
+    want = lr * np.abs(g_ref) / (np.abs(g_ref) + 1e-8)
+    parted = np.abs(got[leaf].detach().numpy() - p_jax[leaf])
+    np.testing.assert_allclose(parted[lane], want, rtol=1e-3, atol=1e-7)
+    assert want[at] > 10 * PARAMS["atol"]
+    for k, p in p_jax.items():
+        d = np.abs(got[k].detach().numpy() - p)
+        if k == leaf:
+            d[lane] = 0.0
+        assert d.max() <= PARAMS["atol"], k
+
+
 def test_a_sharded_snapshot_resumes_unsharded(two, snapshot):
     full = _lanes("cpu", cfg=CALM)
     _same_lanes(two[0]["calm"], full)
