@@ -183,7 +183,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
     share (``lanes``); ``--ckpt-every 1`` then ``--resume``, the
     restored state bit for bit (``lanes_resume``); ``check --dir`` on the
     ``mfm`` run printing the seeds' best (``lanes_check``); ``mfm`` at K
-    = 1, 2, 4 and 8 (``lane_scaling``);
+    = 1, 2, 4 and 8 (``lane_scaling``); one K = 8 step of ``m_a``,
+    ``m_c``, ``kl_ef`` (stages 1 and 2) and ``missing`` each
+    (``lane_models``): the gradients against the CPU's, the step's
+    launches, and every lane kernel call of the step replayed lane by
+    lane with no lane axis, lane k bit for bit;
 21. the shape-bucketed and evolving searches (``--bucket``,
     ``--evolve``, ``parallel/multiconfig.py``) and the lane kernels past
     one launch's 8 lanes: each of the seven entry points at K = 12 (a
@@ -4699,6 +4703,221 @@ def lane_grads_vs_cpu(cfg, dev, K):
                         for k in grads["cpu"]], GRAD_RTOL, GRAD_ATOL)
 
 
+# step 20g: the lanes of the models whose train steps reach the encode
+# forward and the LSTM chain backward at widths mfm's and m_b's lanes do
+# not: m_a and m_c (the encode with one encoder cell or none), kl_ef's
+# two stages (multi_lstm both ways; stage 1 also the decoders) and missing
+# (the decoders over 4n rows); each with the kernels its step launches
+LANE_MODELS = {
+    "m_a": ("mfm_encode_fwd", "mfm_encode_bwd", "mfm_encode_dw",
+            "decoder_lstm_fwd", "decoder_lstm_bwd"),
+    "m_c": ("mfm_encode_fwd", "mfm_encode_bwd", "mfm_encode_dw",
+            "decoder_lstm_fwd", "decoder_lstm_bwd"),
+    "kl_ef.1": ("multi_lstm_fwd", "multi_lstm_bwd", "decoder_lstm_fwd",
+                "decoder_lstm_bwd"),
+    "kl_ef.2": ("multi_lstm_fwd", "multi_lstm_bwd"),
+    "missing": ("mfm_encode_fwd", "mfm_encode_bwd", "mfm_encode_dw",
+                "decoder_lstm_fwd", "decoder_lstm_bwd"),
+}
+
+
+def lane_model(cfg, name, n, generator):
+    """(model_type, its cfg, its loss, one lane's draws) of a
+    ``LANE_MODELS`` entry: one train step's loss with every random draw
+    injected, made on the CPU from ``generator``."""
+    from factorized_tpu_torch.models import get_model, mfm
+    from factorized_tpu_torch.models.common import mfn_drops
+    from factorized_tpu_torch.ops import cuda_mfn
+    from factorized_tpu_torch.train import make_loss_fn
+
+    model_type = name.split(".")[0]
+    if model_type in ("m_a", "m_c"):
+        mcfg = cfg.replace(model_type=model_type)
+        return (model_type, mcfg,
+                make_loss_fn(get_model(model_type)[1], mcfg),
+                ablation_draws(mcfg, model_type, n, generator))
+    if model_type == "kl_ef":
+        mcfg = cfg.replace(model_type="kl_ef")
+        return (model_type, mcfg,
+                make_loss_fn(mfm.mfm_kl_ef_apply, mcfg, "beta_vae",
+                             stage=int(name[-1])),
+                {"zf_masks": zf_masks(cfg, n, generator)})
+    mcfg = cfg.replace(missing=1)
+    sizes = (cfg.att1_shape, cfg.att2_shape, cfg.gamma1_shape,
+             cfg.gamma2_shape)
+    return (model_type, mcfg,
+            make_loss_fn(mfm.mfm_missing_apply, mcfg, "missing"),
+            {"encode_masks": cuda_mfn.make_dropout_masks(
+                generator, cfg.seqlength, n, sizes, mfn_drops(cfg)),
+             "mmd_noise": torch.randn(mfm.mmd_noise_shape(cfg, n),
+                                      generator=generator),
+             "zf_masks": [zf_masks(cfg, n, generator) for _ in range(4)]})
+
+
+def lane_launchers():
+    """The lane wrappers' launchers, by kernel: {kernel: (module, name)};
+    each takes ``lanes`` (0: no lane axis)."""
+    from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
+
+    return {"mfm_encode_fwd": (cuda_mfn, "_launch_fwd"),
+            "mfm_encode_bwd": (cuda_mfn, "_launch_bwd"),
+            "mfm_encode_dw": (cuda_mfn, "_launch_dw"),
+            "decoder_lstm_fwd": (cuda_lstm, "_launch"),
+            "decoder_lstm_bwd": (cuda_lstm, "_launch_bwd"),
+            "multi_lstm_fwd": (cuda_lstm, "_launch_multi"),
+            "multi_lstm_bwd": (cuda_lstm, "_launch_multi_bwd")}
+
+
+def tree_map(fn, tree):
+    """``fn`` over the tensors of nested dicts, lists and tuples; other
+    leaves kept."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return tree
+
+
+def tree_leaves(tree, prefix=""):
+    """The tensors of a nested output, each with its path: [(path,
+    tensor)]."""
+    if isinstance(tree, torch.Tensor):
+        return [(prefix, tree)]
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return []
+    return [leaf for k, v in items
+            for leaf in tree_leaves(v, f"{prefix}.{k}" if prefix else str(k))]
+
+
+@contextlib.contextmanager
+def captured_lane_calls():
+    """Yields a list that gathers each lane launch made while the block
+    runs: (kernel, launcher, its bound arguments, lanes, its outputs
+    cloned). Calls without a lane axis are not gathered."""
+    import inspect
+
+    calls, real = [], []
+    for kernel, (module, attr) in lane_launchers().items():
+        fn = getattr(module, attr)
+        real.append((module, attr, fn))
+
+        def wrapped(*a, _kernel=kernel, _fn=fn, **kw):
+            out = _fn(*a, **kw)
+            bound = inspect.signature(_fn).bind(*a, **kw)
+            bound.apply_defaults()
+            lanes = bound.arguments["lanes"]
+            if lanes:
+                calls.append((_kernel, _fn, bound, lanes,
+                              tree_map(lambda v: v.detach().clone(), out)))
+            return out
+
+        setattr(module, attr, wrapped)
+    try:
+        yield calls
+    finally:
+        for module, attr, fn in real:
+            setattr(module, attr, fn)
+
+
+def lane_replays(calls, axis=False):
+    """Each gathered K-lane launch (``captured_lane_calls``) replayed lane
+    by lane, lane k's operands alone (``axis``: with a lane axis of one,
+    else none), its outputs held against lane k's of the K-lane launch
+    bit for bit. Raises where a bit differs; returns {kernel: {"calls",
+    "lanes"}}."""
+    out, differ = {}, []
+    for kernel, fn, bound, lanes, got in calls:
+        for k in range(lanes):
+            def lane(v, k=k):
+                return v[k:k + 1] if axis else v[k]
+
+            args = {name: (value if name == "lanes" else tree_map(lane, value))
+                    for name, value in bound.arguments.items()}
+            args["lanes"] = 1 if axis else 0
+            one = dict(tree_leaves(fn(**args)))
+            for path, v in tree_leaves(got):
+                w = one[path][0] if axis else one[path]
+                if not torch.equal(v[k], w):
+                    differ.append(f"{kernel} lane {k} of {lanes} {path}")
+        seen = out.setdefault(kernel, {"calls": 0, "lanes": lanes})
+        seen["calls"] += 1
+    if differ:
+        raise AssertionError(f"lane k of a K-lane launch differs from its "
+                             f"one-lane call: {differ[:8]}")
+    return out
+
+
+def lane_model_check(cfg, dev, name, K, seed):
+    """Step 20g (and 21's lane bits past 8): one train step of K lanes of
+    a ``LANE_MODELS`` model (``torch.func.vmap`` over its loss, the lane
+    kernels), lane k a model of its own seed with draws of its own, on
+    the card against the CPU's lane plain path: every lane's gradients
+    within rtol 1e-3 / atol 2e-5; the kernels the step launched, counted
+    from 0 (each a lane launch); every K-lane kernel call of the card's
+    step replayed lane by lane with no lane axis, lane k bit for bit
+    (``lane_replays``)."""
+    from factorized_tpu_torch.convert import to_state_dict
+    from factorized_tpu_torch.models import mfm
+    from factorized_tpu_torch.parallel.multiseed import _dims, stack_lanes
+    from torch.utils import _pytree as pytree
+
+    t, n = cfg.seqlength, N_TRAIN
+    cpu = torch.Generator().manual_seed(seed)
+    x = torch.randn((t, n, cfg.d_total), generator=cpu)
+    y = torch.randn((n,), generator=cpu)
+    draws = [lane_model(cfg, name, n, cpu)[3] for _ in range(K)]
+    model_type, mcfg, loss_fn, _ = lane_model(cfg, name, n, cpu)
+    draws = pytree.tree_map(
+        lambda *v: None if v[0] is None else torch.stack(v), *draws)
+    stacked = stack_lanes([mfm.MFM(mcfg, seed=seed + 1 + k, device="cpu",
+                                   model_type=model_type).tree()
+                           for k in range(K)], "cpu")
+    grads, replays = {}, None
+    for where in ("cpu", dev):
+        p = pytree.tree_map(lambda a: a.detach().to(where).requires_grad_(),
+                            stacked)
+        d = pytree.tree_map(lambda v: None if v is None else v.to(where),
+                            draws)
+
+        def lane(pp, xx, yy, dd):
+            return loss_fn(pp, xx, yy, draws=dd)
+
+        def step():
+            loss, _ = torch.func.vmap(lane, in_dims=(0, None, None,
+                                                     _dims(d)))(
+                p, x.to(where), y.to(where), d)
+            loss.sum().backward()
+
+        if where == "cpu":
+            step()
+        else:
+            with captured_lane_calls() as calls:
+                _, seconds, launches = counted(f"{name} lanes",
+                                               LANE_MODELS[name], step)
+            lane_launched = lane_counts()
+            replays = lane_replays(calls)
+        grads[str(where)] = {k: (torch.zeros_like(v) if v.grad is None
+                                 else v.grad).cpu()
+                             for k, v in to_state_dict(p).items()}
+    err = compare_all(f"lanes.{name}.K{K}.train_step_grads_vs_cpu",
+                      [(k, grads[str(dev)][k], grads["cpu"][k])
+                       for k in grads["cpu"]], GRAD_RTOL, GRAD_ATOL)
+    for kernel in LANE_MODELS[name]:
+        if lane_launched.get(kernel, 0) < 1:
+            raise AssertionError(f"{name} over {K} lanes launched no lane "
+                                 f"{kernel}")
+    return {"model": name, "lanes": K, "max_abs_err": err["max_abs_err"],
+            "seconds": seconds,
+            "launches": {k: launches[k] for k in LANE_MODELS[name]},
+            "lane_launches": lane_launched, "lane_bits": replays}
+
+
 @contextlib.contextmanager
 def lane_loops():
     """Yields a list that gathers each ``multiseed.LaneLoop`` built while
@@ -4905,8 +5124,10 @@ def lanes_phase(cfg, dev, smi, tmp):
     ``check --dir`` on the ``mfm`` run's directory prints the best of its
     seeds; (f) ``mfm``'s lane path at K = 1, 2, 4 (built directly) and 8
     (the command's): device ms and launches a step, replayed epoch s and
-    the idle share (``lane_scaling``). Returns ({kernel: step 20a's
-    numbers}, {path: launches}, {kernel: lane launches})."""
+    the idle share (``lane_scaling``); (g) ``lane_model_check`` of each
+    ``LANE_MODELS`` model at K = 8 (``lane_models`` lines). Returns
+    ({kernel: step 20a's numbers}, {path: launches}, {kernel: lane
+    launches})."""
     import os
 
     from factorized_tpu_torch import cli
@@ -4974,12 +5195,18 @@ def lanes_phase(cfg, dev, smi, tmp):
     log({"phase": "lane_scaling", "nvidia_smi": smi, "path": "mfm",
          "by_lanes": {str(k): times[k] for k in sorted(times)},
          "seconds": time.perf_counter() - t1})
+    for i, name in enumerate(LANE_MODELS):
+        log({"phase": "lane_models", "nvidia_smi": smi,
+             **lane_model_check(cfg, dev, name, LANES, SEED + 400 + 10 * i)})
     return kernels, paths, lane_launches
 
 
 # step 21: lane counts past one launch's 8 lanes: a group of 8 and one of
 # 4, two groups, four
 LANES_PAST = (12, 16, 32)
+# step 21a: a model of step 20g whose lanes reach both the encoder cells'
+# and the decoders' chain backward, past 8 lanes
+LANE_MODEL_PAST_8 = "kl_ef.1"
 # step 21(b): the evolving search at the main path's width
 EVOLVE_CONFIGS, EVOLVE_SEEDS, EVOLVE_RUNGS = 8, 2, 3
 
@@ -5363,8 +5590,8 @@ def bucket_evolve_phase(cfg, dev, smi, tmp):
     """Step 21: the shape-bucketed and evolving searches
     (``parallel/multiconfig.py``) and the lane kernels past 8 lanes. (a)
     ``lane_kernel_phase`` at K = 12 (checked, launches counted), 16 and
-    32 (also timed, with the library yardsticks), and
-    ``scratch_lanes_check`` at 12; (b) ``evolve_search_check``; (c)
+    32 (also timed, with the library yardsticks), ``scratch_lanes_check``
+    at 12, and ``lane_model_check`` of ``LANE_MODEL_PAST_8`` at 12; (b) ``evolve_search_check``; (c)
     ``search_commands``; (d) ``mfm``'s lane path at K = 16 and 32
     (``lane_loop_times``). Returns ({kernel: 21a's numbers at 16}, {path:
     launches}, {kernel: lane launches})."""
@@ -5376,8 +5603,11 @@ def bucket_evolve_phase(cfg, dev, smi, tmp):
         kernels[K] = lane_kernel_phase(cfg, dev, smi, K, timing=K != 12,
                                        library=K in (16, 32))
     scratch = scratch_lanes_check(cfg, dev, LANES_PAST[0])
+    model = lane_model_check(cfg, dev, LANE_MODEL_PAST_8, LANES_PAST[0],
+                             SEED + 480)
     log({"phase": "lane_kernels_past_8", "nvidia_smi": smi,
-         "scratch": scratch, "seconds": time.perf_counter() - t0})
+         "scratch": scratch, "lane_model": model,
+         "seconds": time.perf_counter() - t0})
     data = mosi.get_data(cfg.seqlength)
     t0 = time.perf_counter()
     line, launches, lane = evolve_search_check(cfg, dev, smi, data)
