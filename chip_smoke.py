@@ -193,10 +193,13 @@ Run from the repository root: ``python3 chip_smoke.py``. It
     one launch's 8 lanes: each of the seven entry points at K = 12 (a
     group of 8 and one of 4), 16 and 32 against its lane plain version
     lane by lane at step 20's shapes and tolerances, each call launching
-    ``ceil(K / 8)`` times, timed at 16 and 32 with its library yardstick
+    once (the encode's kernels and the chains' backward) or ``ceil(K /
+    8)`` times (the recurrences' forward), lane k of the former bit for
+    bit its one-lane call, timed at 16 and 32 with its library yardstick
     lane by lane (7 ``torch.bmm`` and 7 sums, one ``nn.LSTM`` per cell and
-    lane), and the eval encode on the scratch plan at K = 12
-    (``lane_kernels``, ``lane_kernels_past_8`` lines);
+    lane), the eval encode on the scratch plan at K = 12, and step 20g's
+    check of ``kl_ef`` stage 1 at K = 12 (``lane_kernels``,
+    ``lane_kernels_past_8`` lines);
     ``train_evolving_search`` at ``best_acc_mosi_config``, 8 configs x 2
     seeds, 3 rungs of 2 epochs: finite losses, the survivors' falling,
     the culls the ranks give, two launches of each kernel a step for all
@@ -4263,15 +4266,15 @@ def lane_kernel_phase(cfg, dev, smi, K, timing=True, library=False):
     8, 80] (``multi_lstm``, train and eval) both ways at n = 32; forward
     within rtol 1e-4 / atol 1e-5, gradients within rtol 1e-3 / atol 2e-5.
     Each call launches ``cuda_lstm.lane_launches(K, kernel)`` times (one
-    launch for any K for the encode's reverse pass and weight gradients,
-    else one a group of 8 lanes), counted; lane k of those two kernels'
-    K-lane call, and of a one-lane call with the lane axis, equals lane
-    k's call with no lane axis bit for bit (``lane_bits``), each call's
-    plan logged. With ``timing``, each timed at K lanes and at
-    1 (device ms, calls queued), beside its single-lane launch (no lane
-    axis), its plain version at K and its bound at K (K times one lane's:
-    K lanes' work and bytes); with ``library`` also its library yardstick
-    lane by lane (``lane_library_ms``). Returns {kernel: numbers}."""
+    launch for any K for the encode's kernels and the chains' backward,
+    else one a group of 8 lanes), counted; lane k of each of those
+    kernels' K-lane calls equals lane k's call with a lane axis of one
+    and with none bit for bit (``lane_bits``), each call's plan logged.
+    With ``timing``, each timed at K lanes and at 1 (device ms, calls
+    queued), beside its single-lane launch (no lane axis), its plain
+    version at K and its bound at K (K times one lane's: K lanes' work and
+    bytes); with ``library`` also its library yardstick lane by lane
+    (``lane_library_ms``). Returns {kernel: numbers}."""
     from factorized_tpu_torch.models import ablations, mfm
     from factorized_tpu_torch.models.common import mfn_drops
     from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
@@ -4351,8 +4354,6 @@ def lane_kernel_phase(cfg, dev, smi, K, timing=True, library=False):
         err_dw = compare_all("lanes.mfm_encode_dw", [
             (m, dw[m], torch.stack([r[m] for r in dw_ref]))
             for m in cuda_mfn.DW_NAMES], GRAD_RTOL, GRAD_ATOL)
-        bits = lane_bits(K, xp, w, res, dh, dmem, deltas_ref, z_tot, h_dims,
-                         (dxp, deltas), dw)
         # the decoder trio, n = 32
         dfwd = cuda_lstm.decoder_lstm_fwd_lanes(h0, c0, wsum, b, t,
                                                 dec_dims)
@@ -4457,6 +4458,7 @@ def lane_kernel_phase(cfg, dev, smi, K, timing=True, library=False):
                 lambda: cuda_lstm.multi_lstm_bwd_lanes_plain(mgates, mwh,
                                                              mallc, dhl)),
         }
+        bits = lane_bits(K, calls)
         times = {}
         for name, (fn, ops, single, plain) in calls.items():
             kernel = name.split(".")[0]
@@ -4553,52 +4555,50 @@ def lane_kernel_phase(cfg, dev, smi, K, timing=True, library=False):
     return out
 
 
-def lane_bits(K, xp, w, res, dh, dmem, deltas, z_tot, h_dims, bwd, dw):
-    """Lane k of the reverse pass's and the weight gradients' K-lane calls
-    (``bwd``: (dxp, deltas), ``dw``: {name: grad}) and of a one-lane call
-    with the lane axis against lane k's call with no lane axis, bit for
-    bit (each lane's arithmetic does not depend on K); each call's plan:
-    the chains' rows with the blocks the card holds at once and the waves
-    they take, the weight gradients' cluster, and the launches. Raises
-    where a bit differs."""
+# the calls of lane_kernel_phase whose kernels take lanes by stride:
+# lane k of each K-lane call bit for bit its one-lane call (lane_bits)
+LANE_BIT_CALLS = ("mfm_encode_fwd.eval", "mfm_encode_fwd", "mfm_encode_bwd",
+                  "mfm_encode_dw", "decoder_lstm_bwd", "multi_lstm_bwd")
+
+
+def lane_plan(kernel):
+    """The plan the last call of ``kernel`` took: the chains' rows, plan,
+    the blocks the card holds at once and the waves they take, or the
+    weight gradients' cluster and copy width."""
     from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
 
-    def plans(lanes):
-        return {"rows": {c: {k: p[k] for k in ("rows", "wave", "waves")}
-                         for c, p in cuda_mfn.BWD_PLAN.items()},
-                "dw": dict(cuda_mfn.DW_PLAN),
-                "launches": {k: cuda_lstm.lane_launches(lanes, k)
-                             for k in cuda_lstm.STRIDED_LANES}}
+    def rows(p):
+        return {k: p[k] for k in ("rows", "plan", "wave", "waves")}
 
-    cuda_mfn._launch_bwd(xp, w, *res, dh, dmem, z_tot, h_dims, lanes=K)
-    cuda_mfn._launch_dw(w, res[1], res[2], res[3], deltas, z_tot, K)
-    out = {"lanes": K, "plan": plans(K)}
-    one = [lane_first(o) for o in (xp, w, *res, dh, dmem, deltas)]
-    one_bwd = cuda_mfn._launch_bwd(*one[:8], z_tot, h_dims, lanes=1)
-    one_dw = cuda_mfn._launch_dw(one[1], *one[3:6], one[8], z_tot, 1)
-    out["one_lane_plan"] = plans(1)
-    differ = []
-    for k in range(K):
-        wk = {m: v[k] for m, v in w.items()}
-        dxp, dl = cuda_mfn._launch_bwd(xp[k], wk, *(r[k] for r in res),
-                                       dh[k], dmem[k], z_tot, h_dims)
-        g = cuda_mfn._launch_dw(wk, res[1][k], res[2][k], res[3][k],
-                                deltas[k], z_tot)
-        got = [("dxp", bwd[0][k], dxp), ("deltas", bwd[1][k], dl)] + [
-            (m, dw[m][k], g[m]) for m in cuda_mfn.DW_NAMES]
-        if k == 0:
-            got += [("one_lane.dxp", one_bwd[0][0], dxp),
-                    ("one_lane.deltas", one_bwd[1][0], dl)] + [
-                (f"one_lane.{m}", one_dw[m][0], g[m])
-                for m in cuda_mfn.DW_NAMES]
-        differ += [f"lane {k} {label}" for label, a, b in got
-                   if not torch.equal(a, b)]
-    out["no_lane_axis_plan"] = plans(0)
-    if differ:
-        raise AssertionError(f"over {K} lanes the bits differ from one "
-                             f"lane's: {differ[:8]}")
-    out["same_bits"] = True
-    return out
+    if kernel == "mfm_encode_dw":
+        return dict(cuda_mfn.DW_PLAN)
+    if kernel in cuda_lstm.BWD_PLAN:
+        return rows(cuda_lstm.BWD_PLAN[kernel])
+    plan = cuda_mfn.FWD_PLAN if kernel == "mfm_encode_fwd" else \
+        cuda_mfn.BWD_PLAN
+    return {c: rows(p) for c, p in plan.items()}
+
+
+def lane_bits(K, calls):
+    """Lane k of each ``LANE_BIT_CALLS`` call of ``lane_kernel_phase``
+    (``calls``: {name: (fn over operands, the K lanes' operands, ...)})
+    over K lanes, against lane k's call with a lane axis of one (K = 1)
+    and with none, bit for bit (``lane_replays``: each lane's arithmetic
+    does not depend on K); each K-lane call's plan and launches. Raises
+    where a bit differs."""
+    from factorized_tpu_torch.ops import cuda_lstm
+
+    plans = {}
+    with captured_lane_calls() as got:
+        for name in LANE_BIT_CALLS:
+            fn, ops = calls[name][:2]
+            fn(ops)
+            kernel = name.split(".")[0]
+            plans[name] = {"plan": lane_plan(kernel),
+                           "launches": cuda_lstm.lane_launches(K, kernel)}
+    return {"lanes": K, "calls": plans,
+            "one_lane": lane_replays(got, axis=True),
+            "no_lane_axis": lane_replays(got), "same_bits": True}
 
 
 def lane_library_ms(K, w, res, deltas, z_tot, dec, cells, xs, xs_eval,
@@ -5201,8 +5201,8 @@ def lanes_phase(cfg, dev, smi, tmp):
     return kernels, paths, lane_launches
 
 
-# step 21: lane counts past one launch's 8 lanes: a group of 8 and one of
-# 4, two groups, four
+# step 21: lane counts past 8 (for lstm_fwd.cu's kernels, one launch a
+# group of 8: a group of 8 and one of 4, two groups, four)
 LANES_PAST = (12, 16, 32)
 # step 21a: a model of step 20g whose lanes reach both the encoder cells'
 # and the decoders' chain backward, past 8 lanes

@@ -141,6 +141,13 @@ inline int chain_plan(F bytes_at, G state_bytes, size_t* bytes) {
   return *bytes <= (size_t)kMaxSmemBytes ? kWeightsL2 : kStateScratch;
 }
 
+// Whether `plan` is one a launcher reports: a cluster of 1, 2, 4 or 8,
+// kWeightsL2 or kStateScratch.
+inline bool known_plan(int plan) {
+  return plan == kStateScratch || plan == kWeightsL2 || plan == 1 ||
+         plan == 2 || plan == 4 || plan == 8;
+}
+
 // The blocks a cluster of the plan holds (1 for kWeightsL2 and
 // kStateScratch).
 inline int plan_blocks(int plan) { return plan < 1 ? 1 : plan; }
@@ -162,6 +169,34 @@ inline K chain_kernel(const K (&kernels)[6], int plan) {
          : plan == 2           ? kernels[2]
          : plan == 4           ? kernels[3]
                                : kernels[4];
+}
+
+// Whether R is one of a kernel's instantiated row counts.
+template <size_t N>
+constexpr bool listed(const int (&counts)[N], int R) {
+  for (size_t i = 0; i < N; ++i)
+    if (counts[i] == R) return true;
+  return false;
+}
+
+// The blocks of `kernel` at `threads` threads and `smem` bytes of dynamic
+// shared memory that the current card holds at once (*wave): its SMs times
+// the blocks the occupancy calculator gives an SM, registers counted. The
+// lane plans' waves (the launchers' *_wave entry points).
+inline cudaError_t blocks_at_once(const void* kernel, int threads,
+                                  size_t smem, int* wave) {
+  int device = 0, sms = 0, blocks = 0;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return err;
+  *wave = sms * blocks;
+  return blocks > 0 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
 // The device memory the chains on kStateScratch keep their state in:
@@ -205,19 +240,21 @@ __device__ __forceinline__ float* state_base(float* smem, float* scratch,
 
 // Lanes: K problems of one shape in one launch, the counterpart of the
 // lane axis that jax.vmap puts in front of a Pallas grid (K seeds of one
-// model, each with its own weights). Each kernel is a template on its
-// argument In, instantiated twice: In = its arguments A, the one-lane
-// launch exactly as before lanes, and In = LaneArgs<A>, whose lane k's
-// blocks are those of blockIdx.z = k and whose arguments are lane[k],
-// read in place (__grid_constant__). Each launcher builds the lanes'
-// arguments from the lane-0 pointers and a per-lane stride a pointer
-// operand (0: the lanes share it). The plan (clusters, scratch, staging)
-// is made from one lane's widths and is the same for every lane. A
-// launch holds up to kMaxLanes lanes (the arguments stay within the 32
-// KB a kernel parameter may take); more lanes take one launch a group of
-// kMaxLanes. The encode backward's kernels (mfm_encode_bwd.cu) take lanes
-// by stride instead: lane 0's arguments and each array's lane stride, one
-// launch for any number.
+// model, each with its own weights), lane k's blocks those of blockIdx.z
+// = k. The encode's kernels (mfm_encode_fwd.cu, mfm_encode_bwd.cu) and the
+// chains' backward (lstm_bwd.cu) take lanes by stride: lane 0's arguments
+// and each array's lane stride, one launch a pass for any number, the
+// rows a block planned on the host from the lane count. The recurrences'
+// forward (lstm_fwd.cu) alone still takes the older form below: each
+// kernel a template on its argument In, instantiated twice: In = its
+// arguments A, the one-lane launch exactly as before lanes, and In =
+// LaneArgs<A>, whose lane k's arguments are lane[k], read in place
+// (__grid_constant__), built by the launcher from the lane-0 pointers and
+// a per-lane stride a pointer operand (0: the lanes share it). A launch
+// holds up to kMaxLanes lanes (the arguments stay within the 32 KB a
+// kernel parameter may take); more lanes take one launch a group of
+// kMaxLanes. In either form the plan (clusters, scratch, staging) is
+// made from one lane's widths and is the same for every lane.
 constexpr int kMaxLanes = 8;
 
 template <typename A>

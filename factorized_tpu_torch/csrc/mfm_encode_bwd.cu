@@ -1580,26 +1580,14 @@ extern "C" int mfm_encode_bwd_wave(int chain, int rows, int plan,
   using namespace ftt;
   if (wave == nullptr || threads < 32 || threads > kMaxThreads ||
       threads % 32 != 0 || smem < 0 || smem > kMaxSmemBytes ||
-      !(plan == kStateScratch || plan == kWeightsL2 || plan == 1 ||
-        plan == 2 || plan == 4 || plan == 8))
+      !known_plan(plan))
     return (int)cudaErrorInvalidValue;
   const Kernel k = chain == 0   ? mem_chain_rows(rows, false, plan)
                    : chain == 1 ? lstm_chains_rows(rows, false, plan)
                                 : nullptr;
   if (k == nullptr) return (int)cudaErrorInvalidValue;
-  const void* f = reinterpret_cast<const void*>(k);
-  int device = 0, sms = 0, blocks = 0;
-  cudaError_t err = allow_smem(f, (size_t)smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&device);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, f, threads,
-                                                        (size_t)smem);
-  if (err != cudaSuccess) return (int)err;
-  *wave = sms * blocks;
-  return blocks > 0 ? (int)cudaSuccess : (int)cudaErrorInvalidConfiguration;
+  return (int)blocks_at_once(reinterpret_cast<const void*>(k), threads,
+                             (size_t)smem, wave);
 }
 
 // Kernel (b). The residuals through the layout table, as for the reverse

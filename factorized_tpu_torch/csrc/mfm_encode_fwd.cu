@@ -72,6 +72,18 @@
 // same bits on every run. Each chain's plan (a cluster, its weights from
 // L2, or with them its state in device memory) is made from the widths
 // before any pass starts; no width is refused.
+//
+// Lanes: K problems of one shape (K seeds' or configs' encodes) in one
+// launch of each kernel, whatever K: lane 0's arguments and each array's
+// floats from one lane's to the next (0 where the lanes share it), lane
+// k's blocks those of blockIdx.z = k, which add k strides to each pointer
+// (FwdLanes). A lane's blocks do the one-lane launch's arithmetic, so lane
+// k's bits do not depend on K. The chains' batch rows a block are chosen
+// on the host from K and n (cuda_mfn.fwd_plan) among the instantiated
+// counts, and each row's sums keep their order at every count: a
+// product's split over a block's threads (cell_fwd.cuh's kg, the memory
+// chain's lanes an output) follows the columns and the threads, not the
+// rows.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -84,8 +96,13 @@ namespace ftt {
 namespace {
 
 constexpr int kMaxThreads = 512;
-// Batch rows a block of each chain takes, the fastest measured by
-// perf_probe.py (PERF.md): without residuals at the serving batch (n =
+// Batch rows a block of the LSTM chains and of the memory chain takes:
+// one of these instantiated counts, chosen on the host (cuda_mfn.fwd_plan,
+// which lists the same counts).
+constexpr int kCellRowCounts[] = {2, 4, 8, 16};
+constexpr int kMemRowCounts[] = {1, 2, 4, 8, 16};
+// The counts one lane takes, at any batch: the fastest measured by
+// perf_probe.py (PERF.md), without residuals at the serving batch (n =
 // 256) and with them at the training batch (n = 32). perf_probe.py rows
 // sweeps them by rebuilding with -D overrides of these macros.
 #ifndef FTT_EVAL_CELL_ROWS
@@ -104,6 +121,11 @@ constexpr int kEvalCellRows = FTT_EVAL_CELL_ROWS;
 constexpr int kEvalMemRows = FTT_EVAL_MEM_ROWS;
 constexpr int kTrainCellRows = FTT_TRAIN_CELL_ROWS;
 constexpr int kTrainMemRows = FTT_TRAIN_MEM_ROWS;
+static_assert(listed(kCellRowCounts, kEvalCellRows) &&
+                  listed(kCellRowCounts, kTrainCellRows) &&
+                  listed(kMemRowCounts, kEvalMemRows) &&
+                  listed(kMemRowCounts, kTrainMemRows),
+              "one lane's rows are instantiated counts");
 
 struct EncodeArgs {
   const float* xp;     // (t, n, 4H)
@@ -143,8 +165,75 @@ struct EncodeArgs {
   Cells cells;
 };
 
-// a kernel's one-lane and lane instantiations (lstm_common.cuh)
-using Kernel = LaneKernel<EncodeArgs>;
+// The lane strides of the forward's arrays: the launcher's lane_strides
+// order (xp, masks, the 15 weights, h_last, mem_last, allh, allc, allmem,
+// the ten residual pointers), then the scratch's carvings (pu3, work) and
+// r1, r2 and chat (the residual fields' strides, or the scratch's).
+enum FwdLane {
+  kLaneXp,
+  kLaneMasks,
+  kLaneWeights,
+  kLaneHLast = kLaneWeights + 15,
+  kLaneMemLast,
+  kLaneAllh,
+  kLaneAllc,
+  kLaneAllmem,
+  kLaneRes,
+  kLanePu3 = kLaneRes + kResFields,
+  kLaneWork,
+  kLaneR1,
+  kLaneR2,
+  kLaneChat,
+  kFwdLanes
+};
+
+// Every kernel's argument: lane 0's arguments and the lane strides.
+struct FwdLanes {
+  EncodeArgs a;
+  long long stride[kFwdLanes];
+};
+
+using Kernel = void (*)(FwdLanes);
+
+// This block's lane's arguments (blockIdx.z = k): lane 0's with k strides
+// added to each pointer (a null one has stride 0 and stays null). The cell
+// table is read from `la.a.cells`, in place: a block indexes it by its
+// cell.
+__device__ __forceinline__ EncodeArgs lane_args(const FwdLanes& la) {
+  EncodeArgs a = la.a;
+  const long long z = blockIdx.z;
+  const long long* s = la.stride;
+  a.xp += z * s[kLaneXp];
+  a.masks += z * s[kLaneMasks];
+  a.wh += z * s[kLaneWeights];
+  a.a1w1 += z * s[kLaneWeights + 1];
+  a.a1b1 += z * s[kLaneWeights + 2];
+  a.a1w2 += z * s[kLaneWeights + 3];
+  a.a1b2 += z * s[kLaneWeights + 4];
+  a.a2w1 += z * s[kLaneWeights + 5];
+  a.a2b1 += z * s[kLaneWeights + 6];
+  a.a2w2 += z * s[kLaneWeights + 7];
+  a.a2b2 += z * s[kLaneWeights + 8];
+  a.gw1 += z * s[kLaneWeights + 9];
+  a.gb1 += z * s[kLaneWeights + 10];
+  a.g1w2 += z * s[kLaneWeights + 11];
+  a.g1b2 += z * s[kLaneWeights + 12];
+  a.g2w2 += z * s[kLaneWeights + 13];
+  a.g2b2 += z * s[kLaneWeights + 14];
+  a.h_last += z * s[kLaneHLast];
+  a.mem_last += z * s[kLaneMemLast];
+  a.allh += z * s[kLaneAllh];
+  a.allc += z * s[kLaneAllc];
+  a.allmem += z * s[kLaneAllmem];
+#pragma unroll
+  for (int f = 0; f < kResFields; ++f) a.res.f[f].ptr += z * s[kLaneRes + f];
+  a.pu3 += z * s[kLanePu3];
+  a.work += z * s[kLaneWork];
+  a.r1.ptr += z * s[kLaneR1];
+  a.r2.ptr += z * s[kLaneR2];
+  a.chat.ptr += z * s[kLaneChat];
+  return a;
+}
 
 // ------------------------------------------------------ (1) LSTM chains
 
@@ -152,14 +241,13 @@ using Kernel = LaneKernel<EncodeArgs>;
 // cluster of C its share of the cell's gate columns. L2: the weights read
 // in place (C = 1); S: with them the state in the block's scratch slice
 // (kStateScratch).
-template <typename In, int R, int C, bool L2, bool S = false>
-__global__ void __launch_bounds__(kMaxThreads)
-    cell_chains_fwd_kernel(const __grid_constant__ In la) {
-  const EncodeArgs& a = lane_of(la);
+template <int R, int C, bool L2, bool S>
+__device__ __forceinline__ void cell_chains_fwd(const EncodeArgs& a,
+                                                const Cells& cells) {
   static_assert(!S || (L2 && C == 1), "the scratch plan reads from L2");
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
-  const FwdTile c = fwd_tile<C, L2>(a.cells, blockIdx.y, blockDim.x, rank,
+  const FwdTile c = fwd_tile<C, L2>(cells, blockIdx.y, blockDim.x, rank,
                                     a.H);
   const int h = c.h, H = a.H;
   const float* const w = cell_weights<L2>(smem, a.wh, H, c.k0);
@@ -206,6 +294,19 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
   // no block leaves while a peer may still read its gates
   if (C > 1) cluster_barrier<C>();
+}
+
+// Each kernel of the forward is instantiated for lanes by stride (Z) and,
+// at one lane's row counts, for one lane's arguments read in place (the
+// launch as it was before lanes: no copy of the arguments, so the same
+// code as a model without lanes).
+template <int R, int C, bool L2, bool S = false, bool Z = true>
+__global__ void __launch_bounds__(kMaxThreads)
+    cell_chains_fwd_kernel(const __grid_constant__ FwdLanes la) {
+  if (Z)
+    cell_chains_fwd<R, C, L2, S>(lane_args(la), la.a.cells);
+  else
+    cell_chains_fwd<R, C, L2, S>(la.a, la.a.cells);
 }
 
 // --------------------------------------------------- (2) the attention
@@ -324,10 +425,8 @@ __device__ __forceinline__ void product_out(const EncodeArgs& a, int m,
 // the depth in product_chunks pieces (else whole, at every width but the
 // widest: a separate instantiation, so the common one carries no chunk
 // arithmetic).
-template <typename In, int P, bool Chunked>
-__global__ void __launch_bounds__(kProductThreads)
-    product_fwd_kernel(const __grid_constant__ In la) {
-  const EncodeArgs& a = lane_of(la);
+template <int P, bool Chunked>
+__device__ __forceinline__ void product_fwd(const EncodeArgs& a) {
   extern __shared__ float smem[];
   const ProductSpec p = product_spec(a, P);
   const int rows = a.t * a.n, tiles_n = (p.N + kTile - 1) / kTile;
@@ -416,13 +515,19 @@ __global__ void __launch_bounds__(kProductThreads)
   }
 }
 
+template <int P, bool Chunked, bool Z>
+__global__ void __launch_bounds__(kProductThreads)
+    product_fwd_kernel(const __grid_constant__ FwdLanes la) {
+  if (Z)
+    product_fwd<P, Chunked>(lane_args(la));
+  else
+    product_fwd<P, Chunked>(la.a);
+}
+
 // The softmax over each flat row's logits (a.work), max subtracted
 // first: att (with residuals, into its field) and attended = att * cStar
 // over the logits; a warp per row.
-template <typename In>
-__global__ void __launch_bounds__(kMaxThreads)
-    softmax_fwd_kernel(const __grid_constant__ In la) {
-  const EncodeArgs& a = lane_of(la);
+__device__ __forceinline__ void softmax_fwd(const EncodeArgs& a) {
   const int lane = threadIdx.x & 31;
   const int m = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (m >= a.t * a.n) return;  // the whole warp
@@ -446,6 +551,15 @@ __global__ void __launch_bounds__(kMaxThreads)
     if (att != nullptr) att[k] = p;
     x[k] = p * cstar_at(a, m, k);
   }
+}
+
+template <bool Z>
+__global__ void __launch_bounds__(kMaxThreads)
+    softmax_fwd_kernel(const __grid_constant__ FwdLanes la) {
+  if (Z)
+    softmax_fwd(lane_args(la));
+  else
+    softmax_fwd(la.a);
 }
 
 // ----------------------------------------------- (3) the memory chain
@@ -526,10 +640,8 @@ __device__ __forceinline__ void load_mem_fwd_ops(const EncodeArgs& a, int s,
 // read in place (C = 1), a column of each (an output's depth) with its
 // elements a row apart; S: with them the state in the block's scratch
 // slice (kStateScratch).
-template <typename In, int R, int C, bool L2, bool S = false>
-__global__ void __launch_bounds__(kMaxThreads)
-    mem_chain_fwd_kernel(const __grid_constant__ In la) {
-  const EncodeArgs& a = lane_of(la);
+template <int R, int C, bool L2, bool S>
+__device__ __forceinline__ void mem_chain_fwd(const EncodeArgs& a) {
   static_assert(!S || (L2 && C == 1), "the scratch plan reads from L2");
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
@@ -668,49 +780,99 @@ __global__ void __launch_bounds__(kMaxThreads)
   if (C > 1) cluster_barrier<C>();
 }
 
+template <int R, int C, bool L2, bool S = false, bool Z = true>
+__global__ void __launch_bounds__(kMaxThreads)
+    mem_chain_fwd_kernel(const __grid_constant__ FwdLanes la) {
+  if (Z)
+    mem_chain_fwd<R, C, L2, S>(lane_args(la));
+  else
+    mem_chain_fwd<R, C, L2, S>(la.a);
+}
+
 // ------------------------------------------------------------ launches
 
-// The chains' kernels for a plan (lstm_common.cuh's chain_kernel).
-template <int R>
+// The chains' kernels for a plan (lstm_common.cuh's chain_kernel); Z:
+// lanes by stride.
+template <int R, bool Z = true>
 Kernel cells_for(int plan) {
-  using A = EncodeArgs;
-  const Kernel k[6] = {
-      FTT_LANE_KERNEL(A, cell_chains_fwd_kernel, R, 1, true),
-      FTT_LANE_KERNEL(A, cell_chains_fwd_kernel, R, 1, false),
-      FTT_LANE_KERNEL(A, cell_chains_fwd_kernel, R, 2, false),
-      FTT_LANE_KERNEL(A, cell_chains_fwd_kernel, R, 4, false),
-      FTT_LANE_KERNEL(A, cell_chains_fwd_kernel, R, 8, false),
-      FTT_LANE_KERNEL(A, cell_chains_fwd_kernel, R, 1, true, true)};
+  const Kernel k[6] = {cell_chains_fwd_kernel<R, 1, true, false, Z>,
+                       cell_chains_fwd_kernel<R, 1, false, false, Z>,
+                       cell_chains_fwd_kernel<R, 2, false, false, Z>,
+                       cell_chains_fwd_kernel<R, 4, false, false, Z>,
+                       cell_chains_fwd_kernel<R, 8, false, false, Z>,
+                       cell_chains_fwd_kernel<R, 1, true, true, Z>};
   return chain_kernel(k, plan);
 }
 
-template <int R>
+template <int R, bool Z = true>
 Kernel mem_for(int plan) {
-  using A = EncodeArgs;
-  const Kernel k[6] = {
-      FTT_LANE_KERNEL(A, mem_chain_fwd_kernel, R, 1, true),
-      FTT_LANE_KERNEL(A, mem_chain_fwd_kernel, R, 1, false),
-      FTT_LANE_KERNEL(A, mem_chain_fwd_kernel, R, 2, false),
-      FTT_LANE_KERNEL(A, mem_chain_fwd_kernel, R, 4, false),
-      FTT_LANE_KERNEL(A, mem_chain_fwd_kernel, R, 8, false),
-      FTT_LANE_KERNEL(A, mem_chain_fwd_kernel, R, 1, true, true)};
+  const Kernel k[6] = {mem_chain_fwd_kernel<R, 1, true, false, Z>,
+                       mem_chain_fwd_kernel<R, 1, false, false, Z>,
+                       mem_chain_fwd_kernel<R, 2, false, false, Z>,
+                       mem_chain_fwd_kernel<R, 4, false, false, Z>,
+                       mem_chain_fwd_kernel<R, 8, false, false, Z>,
+                       mem_chain_fwd_kernel<R, 1, true, true, Z>};
   return chain_kernel(k, plan);
 }
 
-// [chunked][product]
-const Kernel kProductKernels[2][kProducts] = {
-    {FTT_LANE_KERNEL(EncodeArgs, product_fwd_kernel, kProdU1, false),
-     FTT_LANE_KERNEL(EncodeArgs, product_fwd_kernel, kProdLogits, false),
-     FTT_LANE_KERNEL(EncodeArgs, product_fwd_kernel, kProdU2Pu3, false),
-     FTT_LANE_KERNEL(EncodeArgs, product_fwd_kernel, kProdChat, false)},
-    {FTT_LANE_KERNEL(EncodeArgs, product_fwd_kernel, kProdU1, true),
-     FTT_LANE_KERNEL(EncodeArgs, product_fwd_kernel, kProdLogits, true),
-     FTT_LANE_KERNEL(EncodeArgs, product_fwd_kernel, kProdU2Pu3, true),
-     FTT_LANE_KERNEL(EncodeArgs, product_fwd_kernel, kProdChat, true)}};
-const Kernel kSoftmaxKernel = {softmax_fwd_kernel<EncodeArgs>,
-                               softmax_fwd_kernel<LaneArgs<EncodeArgs>>};
+// The LSTM chains' kernel at R rows a block and a plan: null for a count
+// with no instantiation (kCellRowCounts; for one lane's arguments in
+// place, `one`, only one lane's counts).
+Kernel cells_kernel(int R, int plan, bool one = false) {
+  static_assert(sizeof(kCellRowCounts) == 4 * sizeof(int), "the switch");
+  if (one)
+    return R == kTrainCellRows  ? cells_for<kTrainCellRows, false>(plan)
+           : R == kEvalCellRows ? cells_for<kEvalCellRows, false>(plan)
+                                : nullptr;
+  switch (R) {
+    case kCellRowCounts[0]: return cells_for<kCellRowCounts[0]>(plan);
+    case kCellRowCounts[1]: return cells_for<kCellRowCounts[1]>(plan);
+    case kCellRowCounts[2]: return cells_for<kCellRowCounts[2]>(plan);
+    case kCellRowCounts[3]: return cells_for<kCellRowCounts[3]>(plan);
+    default: return nullptr;
+  }
+}
 
-// One pass's launch.
+// The memory chain's likewise (kMemRowCounts).
+Kernel mem_kernel(int R, int plan, bool one = false) {
+  static_assert(sizeof(kMemRowCounts) == 5 * sizeof(int), "the switch");
+  if (one)
+    return R == kTrainMemRows  ? mem_for<kTrainMemRows, false>(plan)
+           : R == kEvalMemRows ? mem_for<kEvalMemRows, false>(plan)
+                               : nullptr;
+  switch (R) {
+    case kMemRowCounts[0]: return mem_for<kMemRowCounts[0]>(plan);
+    case kMemRowCounts[1]: return mem_for<kMemRowCounts[1]>(plan);
+    case kMemRowCounts[2]: return mem_for<kMemRowCounts[2]>(plan);
+    case kMemRowCounts[3]: return mem_for<kMemRowCounts[3]>(plan);
+    case kMemRowCounts[4]: return mem_for<kMemRowCounts[4]>(plan);
+    default: return nullptr;
+  }
+}
+
+// [lanes by stride][chunked][product]
+const Kernel kProductKernels[2][2][kProducts] = {
+    {{product_fwd_kernel<kProdU1, false, false>,
+      product_fwd_kernel<kProdLogits, false, false>,
+      product_fwd_kernel<kProdU2Pu3, false, false>,
+      product_fwd_kernel<kProdChat, false, false>},
+     {product_fwd_kernel<kProdU1, true, false>,
+      product_fwd_kernel<kProdLogits, true, false>,
+      product_fwd_kernel<kProdU2Pu3, true, false>,
+      product_fwd_kernel<kProdChat, true, false>}},
+    {{product_fwd_kernel<kProdU1, false, true>,
+      product_fwd_kernel<kProdLogits, false, true>,
+      product_fwd_kernel<kProdU2Pu3, false, true>,
+      product_fwd_kernel<kProdChat, false, true>},
+     {product_fwd_kernel<kProdU1, true, true>,
+      product_fwd_kernel<kProdLogits, true, true>,
+      product_fwd_kernel<kProdU2Pu3, true, true>,
+      product_fwd_kernel<kProdChat, true, true>}}};
+const Kernel kSoftmaxKernels[2] = {softmax_fwd_kernel<false>,
+                                   softmax_fwd_kernel<true>};
+
+// One pass's launch: its kernel, grid (z: the lanes), block and shared
+// memory, and the cluster its blocks run in (1: none).
 struct Pass {
   Kernel kernel;
   dim3 grid;
@@ -719,40 +881,46 @@ struct Pass {
   int cluster;
 };
 
-// Pass (1) to (3) with an LSTM chain block on CR batch rows and a memory
-// chain block on MR, each chain on the smallest cluster whose blocks fit,
-// else with its weights read from L2, else with them its state in the
-// scratch; kNeedScratch, launching nothing, while the scratch is short of
-// what those plans take. a is lane 0's arguments, lane(k) lane k's (the
-// chains' scratch a's: each lane's blocks have their own slices).
-template <int CR, int MR, typename F>
-int run(EncodeArgs a, F lane, int lanes, const Scratch& scratch,
-        int threads, int* fit, cudaStream_t stream) {
+// The LSTM chains' and the memory chain's shared memory a block at CR and
+// MR rows on a cluster of C (kWeightsL2: the per-row state alone).
+size_t cells_bytes(const EncodeArgs& a, int CR, int threads, int C) {
+  return fwd_chain_bytes(a.cells, CR, threads, C);
+}
+
+size_t mem_bytes_at(const EncodeArgs& a, int MR, int threads, int C) {
+  return mem_fwd_floats(a.mem, a.s3, a.s4, C, MR, threads) * sizeof(float);
+}
+
+// Pass (1) to (3) over every lane, each one launch: an LSTM chain block on
+// CR batch rows and a memory chain block on MR, each chain on the smallest
+// cluster whose blocks fit, else with its weights read from L2, else with
+// them its state in the scratch; kNeedScratch, launching nothing, while
+// the scratch is short of what those plans take (every lane's blocks their
+// own slices). One lane at one lane's counts (`one`) takes the kernels
+// that read its arguments in place.
+int run(FwdLanes la, int CR, int MR, int lanes, bool one,
+        const Scratch& scratch, int threads, int* fit, cudaStream_t stream) {
+  EncodeArgs& a = la.a;
   const int flat = a.t * a.n, tiles_m = (flat + kTile - 1) / kTile;
   size_t cell_bytes = 0, mem_bytes = 0;
-  auto cells_at = [&](int C) {
-    return fwd_chain_bytes(a.cells, CR, threads, C);
-  };
+  auto cells_at = [&](int C) { return cells_bytes(a, CR, threads, C); };
   const int Pc = chain_plan(cells_at, [&] { return cells_at(kWeightsL2); },
                             &cell_bytes);
-  auto mem_at = [&](int C) {
-    return mem_fwd_floats(a.mem, a.s3, a.s4, C, MR, threads) * sizeof(float);
-  };
+  auto mem_at = [&](int C) { return mem_bytes_at(a, MR, threads, C); };
   const int Pm = chain_plan(mem_at, [&] { return mem_at(kWeightsL2); },
                             &mem_bytes);
   fit[kFitChainA] = Pc;
   fit[kFitChainB] = Pm;
   const int Cc = plan_blocks(Pc), Cm = plan_blocks(Pm);
-  const dim3 cell_grid(((a.n + CR - 1) / CR) * Cc, a.cells.count);
-  const dim3 mem_grid(((a.n + MR - 1) / MR) * Cm);
-  const long long at_once = lanes_at_once(lanes);
+  const dim3 cell_grid(((a.n + CR - 1) / CR) * Cc, a.cells.count, lanes);
+  const dim3 mem_grid(((a.n + MR - 1) / MR) * Cm, 1, lanes);
   if (Pc == kStateScratch)
-    a.cell_state =
-        reserve(scratch, (long long)cell_grid.x * cell_grid.y * at_once,
-                cell_bytes, &a.cell_slice);
+    a.cell_state = reserve(scratch,
+                           (long long)cell_grid.x * cell_grid.y * lanes,
+                           cell_bytes, &a.cell_slice);
   if (Pm == kStateScratch)
-    a.mem_state = reserve(scratch, (long long)mem_grid.x * at_once,
-                          mem_bytes, &a.mem_slice);
+    a.mem_state = reserve(scratch, (long long)mem_grid.x * lanes, mem_bytes,
+                          &a.mem_slice);
   if ((Pc == kStateScratch && a.cell_state == nullptr) ||
       (Pm == kStateScratch && a.mem_state == nullptr))
     return kNeedScratch;
@@ -763,21 +931,22 @@ int run(EncodeArgs a, F lane, int lanes, const Scratch& scratch,
     pass_of[count] = pass;
     p[count++] = launch;
   };
-  add(1, {cells_for<CR>(Pc), cell_grid, threads,
+  add(1, {cells_kernel(CR, Pc, one), cell_grid, threads,
           plan_smem(Pc, cell_bytes), Cc});
   for (int id = kProdU1; id < kProducts; ++id) {
     const ProductSpec spec = product_spec(a, id);
     const int nc = product_chunks(spec.K);
-    add(2, {kProductKernels[nc > 1][id],
-            dim3(tiles_m * ((spec.N + kTile - 1) / kTile)), kProductThreads,
+    add(2, {kProductKernels[!one][nc > 1][id],
+            dim3(tiles_m * ((spec.N + kTile - 1) / kTile), 1, lanes),
+            kProductThreads,
             product_floats((spec.K + nc - 1) / nc) * sizeof(float), 1});
     if (id == kProdLogits)  // the softmax between the logits and u2
-      add(2, {kSoftmaxKernel,
-              dim3((flat + threads / 32 - 1) / (threads / 32)), threads, 0,
-              1});
+      add(2, {kSoftmaxKernels[!one],
+              dim3((flat + threads / 32 - 1) / (threads / 32), 1, lanes),
+              threads, 0, 1});
   }
-  add(3, {mem_for<MR>(Pm), mem_grid, threads, plan_smem(Pm, mem_bytes),
-          Cm});
+  add(3, {mem_kernel(MR, Pm, one), mem_grid, threads,
+          plan_smem(Pm, mem_bytes), Cm});
   // No width reaches this refusal: each chain's bytes fit by its plan
   // (none on kStateScratch); a product stages product_floats of its depth
   // in product_chunks pieces, each fitting by construction (at one float
@@ -786,21 +955,13 @@ int run(EncodeArgs a, F lane, int lanes, const Scratch& scratch,
   for (int k = 0; k < count; ++k) {
     if (p[k].bytes > (size_t)kMaxSmemBytes)
       return (int)refuse(fit, pass_of[k], p[k].bytes, p[k].cluster);
-    cudaError_t err = allow_lane_smem(p[k].kernel, lanes, p[k].bytes);
+    cudaError_t err =
+        allow_smem(reinterpret_cast<const void*>(p[k].kernel), p[k].bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  auto args = [&](int k) {
-    EncodeArgs b = lane(k);
-    b.cell_state = a.cell_state;
-    b.cell_slice = a.cell_slice;
-    b.mem_state = a.mem_state;
-    b.mem_slice = a.mem_slice;
-    return b;
-  };
   for (int k = 0; k < count; ++k) {
-    cudaError_t err =
-        launch_lane_kernel(p[k].kernel, p[k].grid, p[k].threads,
-                           p[k].bytes, p[k].cluster, stream, lanes, args);
+    cudaError_t err = launch_clusters(p[k].kernel, p[k].grid, p[k].threads,
+                                      p[k].bytes, p[k].cluster, stream, la);
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;
@@ -820,17 +981,21 @@ int run(EncodeArgs a, F lane, int lanes, const Scratch& scratch,
 // the n_cells fused hidden widths, summing to H; the first cells up to
 // z_tot are the encoders. threads is a multiple of 32 up to 512, the
 // block size of the chains and the softmax (the products run 256-thread
-// tiles). state (state_floats floats of device memory, or null) is the
-// scratch of the chains on kStateScratch; state_need (host memory, one
-// value) gets the floats they take, and the launcher returns kNeedScratch
-// (-1) without launching while state_floats is short of it. fit (host
-// memory, six ints, lstm_common.cuh's Fit) gets the plans the LSTM chains
-// and the memory chain ran on (a cluster, kWeightsL2 or kStateScratch).
-// Every array is lane 0's of `lanes` (lstm_common.cuh's LaneArgs): lane
-// k's lies lane_strides[i] k floats on (host memory, 33 strides: xp,
-// masks, wh, the 14 other weights in the signature's order, h_last,
-// mem_last, allh, allc, allmem, the ten residual pointers and scratch;
-// 0 where the lanes share the array).
+// tiles). cell_rows and mem_rows: the batch rows a block of the LSTM
+// chains and of the memory chain takes, one of kCellRowCounts and of
+// kMemRowCounts; 0 takes one lane's count of the variant (kEvalCellRows
+// and kEvalMemRows without residuals, kTrainCellRows and kTrainMemRows
+// with them); another count is refused. state (state_floats floats of
+// device memory, or null) is the scratch of the chains on kStateScratch;
+// state_need (host memory, one value) gets the floats they take, and the
+// launcher returns kNeedScratch (-1) without launching while state_floats
+// is short of it. fit (host memory, six ints, lstm_common.cuh's Fit) gets
+// the plans the LSTM chains and the memory chain ran on (a cluster,
+// kWeightsL2 or kStateScratch). Every array is lane 0's of `lanes`, each
+// pass one launch for them all: lane k's lies lane_strides[i] k floats on
+// (host memory, 33 strides: xp, masks, wh, the 14 other weights in the
+// signature's order, h_last, mem_last, allh, allc, allmem, the ten
+// residual pointers and scratch; 0 where the lanes share the array).
 extern "C" int mfm_encode_fwd(
     const float* xp, const float* masks, const float* wh, const float* a1w1,
     const float* a1b1, const float* a1w2, const float* a1b2,
@@ -841,8 +1006,9 @@ extern "C" int mfm_encode_fwd(
     const int* res_strides, const int* res_cols, float* scratch,
     float* state, long long state_floats, long long* state_need, int t,
     int n, int H, int z_tot, int mem, int s1, int s2, int s3, int s4,
-    int n_cells, const int* cell_dims, int threads, int lanes,
-    const long long* lane_strides, int* fit, void* stream) {
+    int n_cells, const int* cell_dims, int threads, int cell_rows,
+    int mem_rows, int lanes, const long long* lane_strides, int* fit,
+    void* stream) {
   using namespace ftt;
   clear_fit(fit);
   const Scratch chains = {state, state_floats, state_need};
@@ -850,84 +1016,95 @@ extern "C" int mfm_encode_fwd(
   int widths[kResFields];
   res_widths(H, z_tot, mem, s1, s2, s3, s4, widths);
   const bool with_res = allh && allc && allmem && res_ptrs;
-  if (lanes < 1 || ls == nullptr || t < 1 || n < 1 || z_tot < 0 ||
-      z_tot >= H || threads < 32 || threads > kMaxThreads ||
+  const int CR =
+      cell_rows != 0 ? cell_rows : with_res ? kTrainCellRows : kEvalCellRows;
+  const int MR =
+      mem_rows != 0 ? mem_rows : with_res ? kTrainMemRows : kEvalMemRows;
+  if (lanes < 1 || lanes > 65535 || ls == nullptr || t < 1 || n < 1 ||
+      z_tot < 0 || z_tot >= H || threads < 32 || threads > kMaxThreads ||
       threads % 32 != 0 || scratch == nullptr || state_need == nullptr ||
-      !(with_res || !(allh || allc || allmem || res_ptrs)))
+      !(with_res || !(allh || allc || allmem || res_ptrs)) ||
+      cells_kernel(CR, 1) == nullptr || mem_kernel(MR, 1) == nullptr)
     return (int)cudaErrorInvalidValue;
-  // lane k's arguments; false where a field of the table does not fit
-  auto build = [&](int k, EncodeArgs* out) {
-    EncodeArgs& a = *out;
-    a.xp = at_lane(xp, ls, 0, k);
-    a.masks = at_lane(masks, ls, 1, k);
-    a.wh = at_lane(wh, ls, 2, k);
-    a.a1w1 = at_lane(a1w1, ls, 3, k);
-    a.a1b1 = at_lane(a1b1, ls, 4, k);
-    a.a1w2 = at_lane(a1w2, ls, 5, k);
-    a.a1b2 = at_lane(a1b2, ls, 6, k);
-    a.a2w1 = at_lane(a2w1, ls, 7, k);
-    a.a2b1 = at_lane(a2b1, ls, 8, k);
-    a.a2w2 = at_lane(a2w2, ls, 9, k);
-    a.a2b2 = at_lane(a2b2, ls, 10, k);
-    a.gw1 = at_lane(gw1, ls, 11, k);
-    a.gb1 = at_lane(gb1, ls, 12, k);
-    a.g1w2 = at_lane(g1w2, ls, 13, k);
-    a.g1b2 = at_lane(g1b2, ls, 14, k);
-    a.g2w2 = at_lane(g2w2, ls, 15, k);
-    a.g2b2 = at_lane(g2b2, ls, 16, k);
-    a.h_last = at_lane(h_last, ls, 17, k);
-    a.mem_last = at_lane(mem_last, ls, 18, k);
-    a.allh = at_lane(allh, ls, 19, k);
-    a.allmem = at_lane(allmem, ls, 21, k);
-    a.clocks = phase_clocks();
-    a.cell_state = a.mem_state = nullptr;
-    a.cell_slice = a.mem_slice = 0;
-    a.t = t;
-    a.n = n;
-    a.H = H;
-    a.z_tot = z_tot;
-    a.mem = mem;
-    a.s1 = s1;
-    a.s2 = s2;
-    a.s3 = s3;
-    a.s4 = s4;
-    a.m2 = 2 * (H - z_tot);
-    void* rp[kResFields];
-    for (int f = 0; f < kResFields; ++f)
-      rp[f] = res_ptrs ? at_lane(static_cast<float*>(res_ptrs[f]), ls,
-                                 22 + f, k)
-                       : nullptr;
-    if (!make_cells(n_cells, cell_dims, H, &a.cells) ||
-        !make_res_table(res_ptrs ? rp : nullptr, res_strides, res_cols,
-                        widths, &a.res))
-      return false;
-    const size_t flat = (size_t)t * n;
-    a.pu3 = at_lane(scratch, ls, 32, k);
-    a.work = a.pu3 + flat * (s3 + s4);
-    if (with_res) {
-      a.allc = at_lane(allc, ls, 20, k);
-      a.r1 = a.res.f[kR1];
-      a.r2 = a.res.f[kR2];
-      a.chat = a.res.f[kChat];
-    } else {
-      a.allc = a.work + flat * a.m2;
-      a.chat = ResEntry{a.allc + flat * H, mem, 0};
-      a.r1 = ResEntry{a.chat.ptr + flat * mem, s1, 0};
-      a.r2 = ResEntry{a.r1.ptr + flat * s1, s2, 0};
-    }
-    return true;
-  };
-  EncodeArgs a;
-  if (!build(0, &a)) return (int)cudaErrorInvalidValue;
+  // lane 0's arguments and the lanes' strides
+  FwdLanes la;
+  EncodeArgs& a = la.a;
+  const float* const w[15] = {wh,   a1w1, a1b1, a1w2, a1b2, a2w1, a2b1, a2w2,
+                              a2b2, gw1,  gb1,  g1w2, g1b2, g2w2, g2b2};
+  const float** const to[15] = {&a.wh,   &a.a1w1, &a.a1b1, &a.a1w2,
+                                &a.a1b2, &a.a2w1, &a.a2b1, &a.a2w2,
+                                &a.a2b2, &a.gw1,  &a.gb1,  &a.g1w2,
+                                &a.g1b2, &a.g2w2, &a.g2b2};
+  for (int i = 0; i < 15; ++i) *to[i] = w[i];
+  a.xp = xp;
+  a.masks = masks;
+  a.h_last = h_last;
+  a.mem_last = mem_last;
+  a.allh = allh;
+  a.allmem = allmem;
+  a.clocks = phase_clocks();
+  a.cell_state = a.mem_state = nullptr;
+  a.cell_slice = a.mem_slice = 0;
+  a.t = t;
+  a.n = n;
+  a.H = H;
+  a.z_tot = z_tot;
+  a.mem = mem;
+  a.s1 = s1;
+  a.s2 = s2;
+  a.s3 = s3;
+  a.s4 = s4;
+  a.m2 = 2 * (H - z_tot);
+  if (!make_cells(n_cells, cell_dims, H, &a.cells) ||
+      !make_res_table(res_ptrs, res_strides, res_cols, widths, &a.res))
+    return (int)cudaErrorInvalidValue;
+  const size_t flat = (size_t)t * n;
+  a.pu3 = scratch;
+  a.work = a.pu3 + flat * (s3 + s4);
+  const long long scratch_stride = ls[kLaneRes + kResFields];
+  for (int i = 0; i < kLanePu3; ++i) la.stride[i] = ls[i];
+  la.stride[kLanePu3] = la.stride[kLaneWork] = scratch_stride;
+  if (with_res) {
+    a.allc = allc;
+    a.r1 = a.res.f[kR1];
+    a.r2 = a.res.f[kR2];
+    a.chat = a.res.f[kChat];
+    la.stride[kLaneR1] = ls[kLaneRes + kR1];
+    la.stride[kLaneR2] = ls[kLaneRes + kR2];
+    la.stride[kLaneChat] = ls[kLaneRes + kChat];
+  } else {
+    a.allc = a.work + flat * a.m2;
+    a.chat = ResEntry{a.allc + flat * H, mem, 0};
+    a.r1 = ResEntry{a.chat.ptr + flat * mem, s1, 0};
+    a.r2 = ResEntry{a.r1.ptr + flat * s1, s2, 0};
+    la.stride[kLaneAllc] = la.stride[kLaneR1] = la.stride[kLaneR2] =
+        la.stride[kLaneChat] = scratch_stride;
+  }
   *state_need = 0;
-  auto lane = [&](int k) {
-    EncodeArgs b;
-    build(k, &b);
-    return b;
-  };
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_res ? run<kTrainCellRows, kTrainMemRows>(a, lane, lanes, chains,
-                                                       threads, fit, st)
-                  : run<kEvalCellRows, kEvalMemRows>(a, lane, lanes, chains,
-                                                     threads, fit, st);
+  const bool one = lanes == 1 && cells_kernel(CR, 1, true) != nullptr &&
+                   mem_kernel(MR, 1, true) != nullptr;
+  return run(la, CR, MR, lanes, one, chains, threads, fit,
+             static_cast<cudaStream_t>(stream));
+}
+
+// The blocks of the forward's LSTM chains (chain 0) or memory chain (chain
+// 1) at `rows` rows a block on chain plan `plan` (a cluster of 1, 2, 4 or
+// 8, kWeightsL2 or kStateScratch), `threads` threads and `smem` bytes of
+// dynamic shared memory, that the current card holds at once (*wave): its
+// SMs times the blocks the occupancy calculator gives an SM for that
+// instantiation, its registers counted. The lane plan's waves
+// (cuda_mfn.fwd_plan). Refuses a count or plan with no instantiation.
+extern "C" int mfm_encode_fwd_wave(int chain, int rows, int plan,
+                                   int threads, long long smem, int* wave) {
+  using namespace ftt;
+  if (wave == nullptr || threads < 32 || threads > kMaxThreads ||
+      threads % 32 != 0 || smem < 0 || smem > kMaxSmemBytes ||
+      !known_plan(plan))
+    return (int)cudaErrorInvalidValue;
+  const Kernel k = chain == 0   ? cells_kernel(rows, plan)
+                   : chain == 1 ? mem_kernel(rows, plan)
+                                : nullptr;
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)blocks_at_once(reinterpret_cast<const void*>(k), threads,
+                             (size_t)smem, wave);
 }

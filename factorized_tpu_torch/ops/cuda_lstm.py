@@ -39,6 +39,7 @@ them to ``torch.matmul``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List
 
 import torch
@@ -54,16 +55,16 @@ MULTI_BWD_LAUNCHES = 0
 # the lane route under ``torch.func.vmap``), by kernel; they are counted in
 # the counters above too
 LANE_LAUNCHES = {}
-# the lanes one launch holds (csrc/lstm_common.cuh's kMaxLanes); more
-# lanes take one launch a group, but for the kernels of STRIDED_LANES,
-# whose blocks find their lane's arrays by stride: one launch for any
-# count (csrc/mfm_encode_bwd.cu)
+# the lanes one launch of csrc/lstm_fwd.cu's kernels holds
+# (csrc/lstm_common.cuh's kMaxLanes), more lanes one launch a group; the
+# kernels of STRIDED_LANES find their lane's arrays by stride: one launch
+# a pass for any count
 MAX_LANES = 8
-STRIDED_LANES = ("mfm_encode_bwd", "mfm_encode_dw")
+STRIDED_LANES = ("mfm_encode_fwd", "mfm_encode_bwd", "mfm_encode_dw",
+                 "decoder_lstm_bwd", "multi_lstm_bwd")
 # threads per block of the backward chains at the training batch (n = 32),
-# the fastest measured by perf_probe.py (PERF.md); their rows, and the
-# forward chains' rows and threads, are fixed in csrc/lstm_bwd.cu and
-# csrc/lstm_fwd.cu
+# the fastest measured by perf_probe.py (PERF.md); the forward chains'
+# rows and threads are fixed in csrc/lstm_fwd.cu
 BWD_THREADS = 512
 MULTI_BWD_THREADS = 256
 # the plan the last call of each wrapper ran its chain on: the
@@ -99,7 +100,14 @@ MAX_SMEM_BYTES = 232448
 MAX_CLUSTER = 8
 FWD_THREADS = 512
 DECODER_FWD_ROWS, MULTI_TRAIN_ROWS, MULTI_EVAL_ROWS = 2, 2, 8
+# the backward chains take one of these row counts a block
+# (csrc/lstm_bwd.cu: kDecoderRowCounts, kMultiRowCounts), chosen by
+# chain_bwd_plan; one lane takes DECODER_BWD_ROWS and MULTI_BWD_ROWS, the
+# fastest measured at the training batch (perf_probe.py rows)
+DECODER_BWD_ROW_COUNTS, MULTI_BWD_ROW_COUNTS = (1, 2, 4), (1, 2, 4, 8)
 DECODER_BWD_ROWS, MULTI_BWD_ROWS = 1, 2
+# the last call's plan of each backward chain kernel (chain_bwd_plan)
+BWD_PLAN = {}
 
 
 def pad4(floats: int) -> int:
@@ -202,10 +210,118 @@ def multi_plans(h_dims, train: bool = True):
     return plans
 
 
+def rows_plan(chain, bytes_at, counts, n, lanes, chains, wave, first=None):
+    """A chain's rows a block over ``lanes`` lanes, chosen among ``counts``
+    (ascending, the kernel's instantiated ones; ``bytes_at(R)(C)`` its
+    shared memory a block at R rows on a cluster of C): one lane the
+    one-lane count ``first`` (default ``counts[0]``) at any batch, asking
+    the card nothing; more lanes the R whose blocks, lanes x ceil(n / R)
+    row tiles x ``chains`` x the plan's cluster, take the fewest waves of
+    what the card holds at once (``wave(chain, R, plan, smem_bytes)``),
+    the smallest such R, among the counts whose chain plan sums in the
+    order of the one-lane count's (the same cluster; one block, weights
+    from L2 or the scratch plan alike). {"rows", "plan", "row_tiles",
+    "padded_rows", "blocks", "wave", "waves"} ("wave" and "waves" None for
+    one lane)."""
+    first = counts[0] if first is None else first
+    base, best = chain_plan(bytes_at(first)), None
+    for R in counts if lanes > 1 else (first,):
+        at = bytes_at(R)
+        plan = chain_plan(at)
+        if plan != base and not (plan <= 0 and base <= 0):
+            continue  # another cluster: another order of summation
+        tiles = -(-n // R)
+        blocks = lanes * tiles * chains * max(plan, 1)
+        held = waves = None
+        if lanes > 1:
+            held = wave(chain, R, plan, 0 if plan == SCRATCH else at(plan))
+            waves = -(-blocks // held)
+        if best is None or waves < best["waves"]:
+            best = {"rows": R, "plan": plan, "row_tiles": tiles,
+                    "padded_rows": tiles * R, "blocks": blocks,
+                    "wave": held, "waves": waves}
+    return best
+
+
+# the entry points that say what the card holds at once of a chain kernel,
+# by kernel: the C function and its chains, in the order of its `chain`
+# argument (csrc/mfm_encode_fwd.cu, csrc/mfm_encode_bwd.cu,
+# csrc/lstm_bwd.cu)
+WAVE_EXPORTS = {
+    "mfm_encode_fwd": ("mfm_encode_fwd_wave",
+                       ("lstm_chains", "memory_chain")),
+    "mfm_encode_bwd": ("mfm_encode_bwd_wave",
+                       ("memory_chain", "lstm_chains")),
+    "lstm_chain_bwd": ("lstm_chain_bwd_wave",
+                       ("multi_lstm_bwd", "decoder_lstm_bwd")),
+}
+
+
+def chain_wave(kernel: str, chain: str, rows: int, plan: int, threads: int,
+               smem_bytes: int) -> int:
+    """The blocks of ``kernel``'s (a ``WAVE_EXPORTS`` key) ``chain`` at
+    ``rows`` rows a block on chain plan ``plan``, ``threads`` threads and
+    ``smem_bytes`` of dynamic shared memory that the current card holds at
+    once: its SMs times what the CUDA occupancy calculator gives an SM for
+    that instantiation, threads, shared memory and registers counted."""
+    return _chain_wave(torch.cuda.current_device(), kernel, chain, rows,
+                       plan, threads, smem_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_wave(device, kernel, chain, rows, plan, threads, smem_bytes):
+    export, chains = WAVE_EXPORTS[kernel]
+    fn = _build.kernel(export, [ctypes.c_int] * 4
+                       + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)])
+    held = (ctypes.c_int * 1)()
+    with torch.cuda.device(device):
+        err = fn(chains.index(chain), rows, plan, threads, smem_bytes, held)
+    _build.check(err, f"{export} ({chain}, {rows} rows, plan {plan}, "
+                      f"{smem_bytes} bytes)")
+    return held[0]
+
+
+def lstm_bwd_wave(chain: str, rows: int, plan: int, smem_bytes: int) -> int:
+    """``chain_wave`` of the backward chain ``"decoder_lstm_bwd"`` or
+    ``"multi_lstm_bwd"`` at its wrapper's threads."""
+    threads = BWD_THREADS if chain == "decoder_lstm_bwd" else \
+        MULTI_BWD_THREADS
+    return chain_wave("lstm_chain_bwd", chain, rows, plan, threads,
+                      smem_bytes)
+
+
+def chain_bwd_plan(h_dims, n: int, lanes: int = 1, decoder: bool = True,
+                   wave=None):
+    """The rows a block of the decoders' (``decoder``) or the encoder
+    cells' backward chain over the fused cells ``h_dims`` and ``n`` batch
+    rows, chosen from the lanes by ``rows_plan``: one lane
+    ``DECODER_BWD_ROWS`` or ``MULTI_BWD_ROWS``, more lanes among
+    ``DECODER_BWD_ROW_COUNTS`` or ``MULTI_BWD_ROW_COUNTS``, a wave from
+    ``wave`` (default ``lstm_bwd_wave``: the current card's occupancy).
+    The launcher passes the rows."""
+    threads = BWD_THREADS if decoder else MULTI_BWD_THREADS
+    return _chain_bwd_plan(tuple(h_dims), n, max(lanes, 1), decoder,
+                           threads, wave or lstm_bwd_wave)
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_bwd_plan(h_dims, n, lanes, decoder, threads, wave):
+    def bytes_at(R):
+        return lambda C: cell_chain_bytes(h_dims, R, threads,
+                                          7 if decoder else 6, C)
+
+    if decoder:
+        return rows_plan("decoder_lstm_bwd", bytes_at,
+                         DECODER_BWD_ROW_COUNTS, n, lanes, len(h_dims),
+                         wave, DECODER_BWD_ROWS)
+    return rows_plan("multi_lstm_bwd", bytes_at, MULTI_BWD_ROW_COUNTS, n,
+                     lanes, len(h_dims), wave, MULTI_BWD_ROWS)
+
+
 def lane_launches(lanes: int, kernel: str = None) -> int:
     """The launches a call of ``kernel`` over ``lanes`` lanes takes (1 for
-    none): one a group of ``MAX_LANES``, or one for any count for the
-    kernels of ``STRIDED_LANES``."""
+    none): one for any count for the kernels of ``STRIDED_LANES``, else
+    one a group of ``MAX_LANES``."""
     if kernel in STRIDED_LANES:
         return 1
     return max(1, -(-lanes // MAX_LANES))
@@ -386,13 +502,16 @@ def decoder_lstm_bwd(wsum, gates, allc, dallh, h_dims):
 
 
 def _launch_bwd(wsum, gates, allc, dallh, h_dims, lanes: int = 0):
+    """The decoder backward's kernel; with ``lanes`` every operand has a
+    leading lane dimension and one launch runs them all, the rows a block
+    ``chain_bwd_plan``'s (one lane: the source's own count)."""
     global BWD_LAUNCHES
     t, n, H = allc.shape[-3:]
     fn = _build.kernel(
         "decoder_lstm_bwd",
         [ctypes.c_void_p] * 7 + STATE_ARGTYPES + [ctypes.c_int] * 4
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] + LANE_ARGTYPES
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 2
+        + LANE_ARGTYPES + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     lead = (lanes,) if lanes else ()
 
     def empty(*shape):
@@ -403,18 +522,27 @@ def _launch_bwd(wsum, gates, allc, dallh, h_dims, lanes: int = 0):
     operands = (gates, allc, dallh, wsum, dgates, dh0, dc0)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
     fit = (ctypes.c_int * 6)()
+    plan = chain_bwd_plan(h_dims, n, lanes, decoder=True)
     with torch.cuda.device(allc.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch_chains(
             fn, allc.device, [x.data_ptr() for x in operands],
-            [t, n, H, len(h_dims), dims, BWD_THREADS, max(lanes, 1),
-             lane_strides(operands, lanes), fit, stream])
+            [t, n, H, len(h_dims), dims, BWD_THREADS, _rows_arg(plan, lanes),
+             max(lanes, 1), lane_strides(operands, lanes), fit, stream])
     _fit("decoder_lstm_bwd", fit, h_dims)
     _build.check(err, "decoder_lstm_bwd")
-    BWD_LAUNCHES += lane_launches(lanes)
+    BWD_LAUNCHES += lane_launches(lanes, "decoder_lstm_bwd")
     count_lanes("decoder_lstm_bwd", lanes)
     _count_plans("decoder_lstm_bwd")
+    BWD_PLAN["decoder_lstm_bwd"] = plan
     return dgates, dh0, dc0
+
+
+def _rows_arg(plan, lanes):
+    """A launcher's rows argument: the plan's over lanes, 0 for one lane
+    (the source's one-lane count, which a build may override:
+    ``perf_probe.py rows``)."""
+    return plan["rows"] if lanes > 1 else 0
 
 
 def refusal(fit) -> str:
@@ -661,29 +789,33 @@ def multi_lstm_bwd(gates, wh, allc, dhlast, h_dims):
 
 
 def _launch_multi_bwd(gates, wh, allc, dhlast, h_dims, lanes: int = 0):
+    """The encoder cells' backward kernel, as ``_launch_bwd``."""
     global MULTI_BWD_LAUNCHES
     t, n, H = allc.shape[-3:]
     fn = _build.kernel(
         "multi_lstm_bwd",
         [ctypes.c_void_p] * 5 + STATE_ARGTYPES + [ctypes.c_int] * 4
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] + LANE_ARGTYPES
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 2
+        + LANE_ARGTYPES + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     dxp = torch.empty(((lanes,) if lanes else ()) + (t, n, 4 * H),
                       dtype=torch.float32, device=allc.device)
     operands = (gates, allc, dhlast, wh, dxp)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
     fit = (ctypes.c_int * 6)()
+    plan = chain_bwd_plan(h_dims, n, lanes, decoder=False)
     with torch.cuda.device(allc.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch_chains(
             fn, allc.device, [x.data_ptr() for x in operands],
-            [t, n, H, len(h_dims), dims, MULTI_BWD_THREADS, max(lanes, 1),
+            [t, n, H, len(h_dims), dims, MULTI_BWD_THREADS,
+             _rows_arg(plan, lanes), max(lanes, 1),
              lane_strides(operands, lanes), fit, stream])
     _fit("multi_lstm_bwd", fit, h_dims)
     _build.check(err, "multi_lstm_bwd")
-    MULTI_BWD_LAUNCHES += lane_launches(lanes)
+    MULTI_BWD_LAUNCHES += lane_launches(lanes, "multi_lstm_bwd")
     count_lanes("multi_lstm_bwd", lanes)
     _count_plans("multi_lstm_bwd")
+    BWD_PLAN["multi_lstm_bwd"] = plan
     return dxp
 
 

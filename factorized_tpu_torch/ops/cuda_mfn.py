@@ -43,10 +43,10 @@ Three kernels, each with a launch counter per variant:
   thread-block cluster of S blocks (``dw_cluster``, from one lane's
   tiles), whose partial tiles are added in a fixed order: no atomics, the
   same bits on every run and at every lane count (``DW_PLAN`` records the
-  last call's S and copy width). Over lanes the reverse pass and the
-  weight gradients launch once a pass for any lane count, the chains'
-  rows a block chosen by ``bwd_plan`` (``BWD_PLAN`` records the last
-  call's).
+  last call's S and copy width). Over lanes the forward, the reverse pass
+  and the weight gradients launch once a pass for any lane count, the
+  chains' rows a block chosen by ``fwd_plan`` and ``bwd_plan``
+  (``FWD_PLAN`` and ``BWD_PLAN`` record the last call's).
 
 A wrapper runs the plain version for CPU tensors and launches the kernel
 for CUDA tensors; there is no other route. ``dWh`` is one
@@ -67,12 +67,13 @@ import torch
 
 from factorized_tpu_torch.ops import _build
 from factorized_tpu_torch.ops.core import dropout_mask
+from factorized_tpu_torch.ops import cuda_lstm
 from factorized_tpu_torch.ops.cuda_lstm import (
-    LANE_ARGTYPES, SCRATCH, STATE_ARGTYPES, batched, cell_chain_bytes,
-    cell_columns, chain_plan, check_lanes, conflict_free_pitch, count_lanes,
-    count_plans, fwd_chain_bytes, lane_launches, lane_strides, lanes_of,
+    LANE_ARGTYPES, STATE_ARGTYPES, batched, cell_chain_bytes, cell_columns,
+    chain_plan, check_lanes, conflict_free_pitch, count_lanes, count_plans,
+    fwd_chain_bytes, lane_launches, lane_strides, lanes_of,
     lanes_per_output, launch_chains, pad4, recurrent_weight_grad_lanes,
-    refusal)
+    refusal, rows_plan)
 from factorized_tpu_torch.ops.lstm import recurrent_weight_grad
 
 W_NAMES = ("wh", "a1w1", "a1b1", "a1w2", "a1b2", "a2w1", "a2b1",
@@ -110,8 +111,7 @@ DW_LAUNCHES = 0         # mfm_encode_dw
 LANE_LAUNCHES = {}
 # threads per block of the forward's chains and softmax (the attention's
 # products run 256-thread tiles), the fastest measured by perf_probe.py
-# (PERF.md); the rows a chain's block takes are fixed in
-# csrc/mfm_encode_fwd.cu, one count without residuals and one with them
+# (PERF.md); the rows a chain's block takes are fwd_plan's
 THREADS = 512
 # threads per block of the reverse pass's gates pass, chains and softmax
 # (the attention products run 256-thread tiles), at the training batch
@@ -147,8 +147,10 @@ DW_BLOCKS = 264
 # bytes of its staging copies (16, or 4 where the widths or offsets are
 # not multiples of four floats)
 DW_PLAN = {}
-# the last reverse pass's plan (bwd_plan), by chain
+# the last reverse pass's plan (bwd_plan) and the last forward's
+# (fwd_plan), by chain
 BWD_PLAN = {}
+FWD_PLAN = {}
 
 
 def sizes(weights):
@@ -158,16 +160,19 @@ def sizes(weights):
             weights["gw1"].shape[1] - s3, weights["a2w2"].shape[1])
 
 
-# the rows a block of the forward's LSTM and memory chains take without
-# residuals (eval) and with them (train), and of the reverse pass's
-# memory and LSTM chains (csrc/mfm_encode_fwd.cu, csrc/mfm_encode_bwd.cu),
-# and the operand floats a row and unit of the reverse LSTM chains: the
-# plans' arithmetic (encode_plans)
+# the forward's LSTM chains and memory chain take one of these row counts
+# a block (csrc/mfm_encode_fwd.cu: kCellRowCounts, kMemRowCounts), chosen
+# by fwd_plan; one lane takes EVAL_ROWS without residuals and TRAIN_ROWS
+# with them (LSTM chains, memory chain; kEval*Rows, kTrain*Rows), the
+# fastest measured at the serving and the training batch (perf_probe.py
+# rows)
+FWD_CELL_ROW_COUNTS, FWD_MEM_ROW_COUNTS = (2, 4, 8, 16), (1, 2, 4, 8, 16)
 EVAL_ROWS, TRAIN_ROWS = (8, 2), (2, 1)
 # the reverse pass's chains take one of these row counts a block
 # (csrc/mfm_encode_bwd.cu: kMemRowCounts, kCellRowCounts), chosen by
 # bwd_plan; the first of each is one lane's at the training batch, the
-# fastest measured there (perf_probe.py rows)
+# fastest measured there (perf_probe.py rows); the operand floats a row
+# and unit of the reverse LSTM chains
 BWD_MEM_ROW_COUNTS, BWD_CELL_ROW_COUNTS = (1, 2, 4, 8, 16), (2, 4, 8, 16)
 BWD_MEM_ROWS, BWD_CELL_ROWS = BWD_MEM_ROW_COUNTS[0], BWD_CELL_ROW_COUNTS[0]
 BWD_CELL_OP_WIDTH = 8
@@ -220,85 +225,84 @@ def encode_plans(h_dims, s3: int, s4: int, mem: int, train: bool = True):
 def bwd_plan(h_dims, s3: int, s4: int, mem: int, n: int, lanes: int = 1,
              wave=None):
     """The reverse pass's rows a block, chosen from the lanes and the
-    batch: for the memory chain and for the LSTM chains, the row count R
-    (``BWD_MEM_ROW_COUNTS``, ``BWD_CELL_ROW_COUNTS``) whose blocks, lanes
-    x ceil(n / R) row tiles x chains x the plan's cluster, take the fewest
-    waves of what the card holds at once, the smallest such R.
-    ``wave(chain, R, plan, smem_bytes)`` gives those blocks (default
-    ``chain_wave``: the current card's occupancy, registers counted). Only
-    an R whose chain plan sums in the order of the first count's is taken
-    (the same cluster; one block, weights from L2 or the scratch plan
-    alike), so lane k's bits do not depend on the lanes. One lane
-    (``lanes`` <= 1) takes the first counts at any batch, with no wave
-    asked for ("wave" and "waves" None): the one-model path keeps the rows
-    measured fastest there. {chain: {"rows", "plan", "row_tiles",
-    "padded_rows", "blocks", "wave", "waves"}}; the launcher passes the
-    rows."""
+    batch by ``cuda_lstm.rows_plan``: for the memory chain and for the
+    LSTM chains, one lane the first count at any batch (the one-model path
+    keeps the rows measured fastest there), more lanes the count
+    (``BWD_MEM_ROW_COUNTS``, ``BWD_CELL_ROW_COUNTS``) whose blocks take the
+    fewest waves of what the card holds at once among those that sum in
+    the one-lane order, so lane k's bits do not depend on the lanes.
+    ``wave(chain, R, plan, smem_bytes)`` gives what the card holds
+    (default ``chain_wave``: its occupancy, registers counted). {chain:
+    {"rows", "plan", "row_tiles", "padded_rows", "blocks", "wave",
+    "waves"}}; the launcher passes the rows."""
     return _bwd_plan(tuple(h_dims), s3 + s4, mem, n, max(lanes, 1),
-                     wave or chain_wave)
+                     BWD_THREADS, wave or chain_wave)
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_plan(h_dims, s34, mem, n, lanes, wave):
+def _bwd_plan(h_dims, s34, mem, n, lanes, threads, wave):
     def mem_at(R):
-        return lambda C: _mem_bwd_bytes(mem, s34, C, R, BWD_THREADS)
+        return lambda C: _mem_bwd_bytes(mem, s34, C, R, threads)
 
     def cells_at(R):
-        return lambda C: cell_chain_bytes(h_dims, R, BWD_THREADS,
+        return lambda C: cell_chain_bytes(h_dims, R, threads,
                                           BWD_CELL_OP_WIDTH, C)
 
-    return {"memory_chain": _rows_plan("memory_chain", mem_at,
-                                       BWD_MEM_ROW_COUNTS, n, lanes, 1,
-                                       wave),
-            "lstm_chains": _rows_plan("lstm_chains", cells_at,
-                                      BWD_CELL_ROW_COUNTS, n, lanes,
-                                      len(h_dims), wave)}
+    return {"memory_chain": rows_plan("memory_chain", mem_at,
+                                      BWD_MEM_ROW_COUNTS, n, lanes, 1,
+                                      wave),
+            "lstm_chains": rows_plan("lstm_chains", cells_at,
+                                     BWD_CELL_ROW_COUNTS, n, lanes,
+                                     len(h_dims), wave)}
 
 
-def _rows_plan(chain, bytes_at, counts, n, lanes, chains, wave):
-    base, best = chain_plan(bytes_at(counts[0])), None
-    for R in counts if lanes > 1 else counts[:1]:
-        at = bytes_at(R)
-        plan = chain_plan(at)
-        if plan != base and not (plan <= 0 and base <= 0):
-            continue  # another cluster: another order of summation
-        tiles = -(-n // R)
-        blocks = lanes * tiles * chains * max(plan, 1)
-        held = waves = None
-        if lanes > 1:
-            held = wave(chain, R, plan, 0 if plan == SCRATCH else at(plan))
-            waves = -(-blocks // held)
-        if best is None or waves < best["waves"]:
-            best = {"rows": R, "plan": plan, "row_tiles": tiles,
-                    "padded_rows": tiles * R, "blocks": blocks,
-                    "wave": held, "waves": waves}
-    return best
+def fwd_plan(h_dims, s3: int, s4: int, mem: int, n: int, lanes: int = 1,
+             train: bool = True, wave=None):
+    """The forward's rows a block, as ``bwd_plan`` chooses the reverse
+    pass's: for the LSTM chains and the memory chain, one lane
+    ``TRAIN_ROWS`` with residuals (``train``) or ``EVAL_ROWS`` without at
+    any batch (the one-model path and serving keep them), more lanes the
+    count of ``FWD_CELL_ROW_COUNTS`` and ``FWD_MEM_ROW_COUNTS`` whose
+    blocks take the fewest waves among those that sum in the one-lane
+    order; ``wave`` default ``fwd_chain_wave``. {chain: {"rows", "plan",
+    "row_tiles", "padded_rows", "blocks", "wave", "waves"}}; the launcher
+    passes the rows."""
+    return _fwd_plan(tuple(h_dims), s3, s4, mem, n, max(lanes, 1), train,
+                     THREADS, wave or fwd_chain_wave)
+
+
+@functools.lru_cache(maxsize=None)
+def _fwd_plan(h_dims, s3, s4, mem, n, lanes, train, threads, wave):
+    cr, mr = TRAIN_ROWS if train else EVAL_ROWS
+
+    def cells_at(R):
+        return lambda C: fwd_chain_bytes(h_dims, R, threads, C)
+
+    def mem_at(R):
+        return lambda C: _mem_fwd_bytes(mem, s3, s4, C, R, threads)
+
+    return {"lstm_chains": rows_plan("lstm_chains", cells_at,
+                                     FWD_CELL_ROW_COUNTS, n, lanes,
+                                     len(h_dims), wave, cr),
+            "memory_chain": rows_plan("memory_chain", mem_at,
+                                      FWD_MEM_ROW_COUNTS, n, lanes, 1, wave,
+                                      mr)}
 
 
 def chain_wave(chain: str, rows: int, plan: int, smem_bytes: int) -> int:
-    """The blocks of the reverse pass's ``chain`` (``"memory_chain"`` or
-    ``"lstm_chains"``) at ``rows`` rows a block on chain plan ``plan``,
-    ``BWD_THREADS`` threads and ``smem_bytes`` of dynamic shared memory
-    that the current card holds at once: its SMs times what the CUDA
-    occupancy calculator gives an SM for that instantiation, threads,
-    shared memory and registers counted (csrc/mfm_encode_bwd.cu's
-    ``mfm_encode_bwd_wave``)."""
-    return _chain_wave(torch.cuda.current_device(), chain, rows, plan,
-                       smem_bytes)
+    """What the current card holds at once of the reverse pass's ``chain``
+    (``"memory_chain"`` or ``"lstm_chains"``) at ``BWD_THREADS`` threads
+    (``cuda_lstm.chain_wave`` over ``mfm_encode_bwd_wave``)."""
+    return cuda_lstm.chain_wave("mfm_encode_bwd", chain, rows, plan,
+                                BWD_THREADS, smem_bytes)
 
 
-@functools.lru_cache(maxsize=None)
-def _chain_wave(device, chain, rows, plan, smem_bytes):
-    fn = _build.kernel("mfm_encode_bwd_wave",
-                       [ctypes.c_int] * 4
-                       + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)])
-    held = (ctypes.c_int * 1)()
-    with torch.cuda.device(device):
-        err = fn(("memory_chain", "lstm_chains").index(chain), rows, plan,
-                 BWD_THREADS, smem_bytes, held)
-    _build.check(err, f"mfm_encode_bwd_wave ({chain}, {rows} rows, plan "
-                      f"{plan}, {smem_bytes} bytes)")
-    return held[0]
+def fwd_chain_wave(chain: str, rows: int, plan: int,
+                   smem_bytes: int) -> int:
+    """The same for the forward's ``chain`` (``"lstm_chains"`` or
+    ``"memory_chain"``) at ``THREADS`` threads (``mfm_encode_fwd_wave``)."""
+    return cuda_lstm.chain_wave("mfm_encode_fwd", chain, rows, plan, THREADS,
+                                smem_bytes)
 
 
 def _layout(names, widths):
@@ -519,7 +523,9 @@ def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None, lanes=0):
     """The forward's three passes; ``layout`` None writes no residuals.
     A chain on ``cuda_lstm.SCRATCH`` gets its scratch from
     ``launch_chains``. With ``lanes`` every operand and output has a
-    leading lane dimension and each pass is one launch for them all."""
+    leading lane dimension and each pass is one launch for them all, the
+    chains' rows a block ``fwd_plan``'s (one lane: the source's own
+    counts)."""
     global LAUNCHES, SPLIT_LAUNCHES
     t, n, H4 = xp.shape[-3:]
     H = H4 // 4
@@ -529,7 +535,7 @@ def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None, lanes=0):
         "mfm_encode_fwd",
         [ctypes.c_void_p] * 22 + _TABLE + [ctypes.c_void_p]
         + STATE_ARGTYPES + [ctypes.c_int] * 10
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] + LANE_ARGTYPES
+        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3 + LANE_ARGTYPES
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     lead = (lanes,) if lanes else ()
 
@@ -537,6 +543,11 @@ def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None, lanes=0):
         return torch.empty(lead + shape, dtype=torch.float32,
                            device=xp.device)
 
+    plan = fwd_plan(h_dims, s3, s4, mem, n, lanes, layout is not None)
+    # one lane: 0, the source's counts (which a build may override:
+    # perf_probe.py rows)
+    rows = [plan[c]["rows"] if lanes > 1 else 0
+            for c in ("lstm_chains", "memory_chain")]
     h_last, mem_last = empty(n, H), empty(n, mem)
     outs = [h_last, mem_last]
     # scratch: pu3, the logits and attended and, without residuals, the
@@ -566,18 +577,20 @@ def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None, lanes=0):
             [None if x is None else x.data_ptr() for x in operands[:22]]
             + [*table, scratch.data_ptr()],
             [t, n, H, z_tot, mem, s1, s2, s3, s4, len(h_dims), dims,
-             THREADS, max(lanes, 1), lane_strides(operands, lanes), fit,
-             stream])
+             THREADS, *rows, max(lanes, 1), lane_strides(operands, lanes),
+             fit, stream])
     _fit("mfm_encode_fwd", fit, list(FWD_PASSES),
          f"cells {list(h_dims)} (largest {max(h_dims)}), mem {mem}, "
          f"s3 + s4 {s3 + s4}")
     _build.check(err, "mfm_encode_fwd")
     if layout == "split":
-        SPLIT_LAUNCHES += lane_launches(lanes)
+        SPLIT_LAUNCHES += lane_launches(lanes, "mfm_encode_fwd")
     else:
-        LAUNCHES += lane_launches(lanes)
+        LAUNCHES += lane_launches(lanes, "mfm_encode_fwd")
     count_lanes("mfm_encode_fwd", lanes)
     _count_plans("mfm_encode_fwd")
+    FWD_PLAN.clear()
+    FWD_PLAN.update(plan)
     return tuple(outs)
 
 

@@ -50,17 +50,20 @@ alone. Prints JSON lines:
   of 32 of synthetic MOSI: device ms and launches a step of every lane
   (torch.profiler over 3 eager steps), the replayed epoch's host s
   (median of 3) and device ms, and the epoch graph's capture ms and pool
-  bytes; and ``lane_kernels``, the encode's reverse pass and weight
-  gradients over K lanes at the training shapes (``lane_kernel_times``):
-  device ms and events ms, launches a call, the plan each call took
-  (``cuda_mfn.BWD_PLAN``'s rows, the blocks the card holds at once and
-  the waves they take; ``DW_PLAN``), the bound, and for the
-  weight gradients the library's 7 ``torch.bmm`` and 7 sums; and
-  ``mfn_kernels``, the same two kernels for one model with no lane axis
-  at n = 128 for both ``best_mfn_mosi_config``s (``mfn_kernel_times``:
-  device ms, the plan). Like ``step_times`` it calls only what every
-  lane build has (a plan the build does not record is null), for the
-  A/B;
+  bytes; and ``lane_kernels``, the lane kernels over K lanes
+  (``lane_kernel_times``): the encode's reverse pass and weight
+  gradients at the training shapes, the encode forward's train (n = 32)
+  and eval (n = 256) variants, the decoders' chain backward at n = 32
+  and 4n = 128 and the encoder cells' (``m_b``'s and ``kl_ef``'s) at n =
+  32: device ms and events ms, launches a call, the plan each call took
+  (``cuda_mfn.FWD_PLAN``'s, ``BWD_PLAN``'s and ``cuda_lstm.BWD_PLAN``'s
+  rows, the blocks the card holds at once and the waves they take;
+  ``DW_PLAN``), the bound, and for the weight gradients the library's 7
+  ``torch.bmm`` and 7 sums; and ``mfn_kernels``, the encode's reverse
+  pass and weight gradients for one model with no lane axis at n = 128
+  for both ``best_mfn_mosi_config``s (``mfn_kernel_times``: device ms,
+  the plan). Like ``step_times`` it calls only what every lane build has
+  (a plan the build does not record is null), for the A/B;
 - ``phases`` (part ``phases``, run alone: it builds the kernels with
   ``FTT_PHASE_CLOCKS``): one line per chain kernel and cell, the mean
   SM cycles of each phase of a step over one call's steps, stamped by
@@ -71,7 +74,9 @@ alone. Prints JSON lines:
   backward (n = 32), the encode's reverse pass (n = 32), the encode
   forward's train (n = 32) and eval (n = 256) variants, and the
   weight-gradient kernel (n = 32, a step being a chunk of its rows: load
-  and sum); with the SM clock read just after;
+  and sum); over lanes the decoder backward at K = 2 and 8 and the encode
+  forward at 8 (lane 0's blocks stamp); with the SM clock read just
+  after;
 - ``scale`` (part ``scale``): the sweep of the fused path against the
   modular one (``models/mfm.py::FUSED`` forced) over
   ``best_acc_mosi_config`` and the scale probe's configs A to E
@@ -130,7 +135,7 @@ CLOCK_ROWS, CLOCK_STEPS, CLOCK_PHASES = 8, 64, 8
 # variants
 ROW_SWEEPS = {"FTT_EVAL_CELL_ROWS": (2, 4, 8, 16),
               "FTT_EVAL_MEM_ROWS": (1, 2, 4, 8),
-              "FTT_TRAIN_CELL_ROWS": (1, 2, 4),
+              "FTT_TRAIN_CELL_ROWS": (2, 4, 8),
               "FTT_TRAIN_MEM_ROWS": (1, 2),
               "FTT_MULTI_ROWS": (1, 2, 4),
               "FTT_DECODER_FWD_ROWS": (1, 2, 4, 8),
@@ -715,13 +720,128 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def _plan_of(kernel):
+    """The plan the last call of ``kernel`` took (rows, wave and waves of
+    each chain; the weight gradients' cluster and copy width), or None
+    where the build records none."""
+    if kernel == "mfm_encode_dw":
+        return dict(cuda_mfn.DW_PLAN)
+    keep = ("rows", "wave", "waves")
+    if kernel in ("decoder_lstm_bwd", "multi_lstm_bwd"):
+        plan = getattr(cuda_lstm, "BWD_PLAN", {}).get(kernel)
+        return plan and {k: plan.get(k) for k in keep}
+    plans = getattr(cuda_mfn, "FWD_PLAN" if kernel.startswith(
+        "mfm_encode_fwd") else "BWD_PLAN", {})
+    return {c: {k: p.get(k) for k in keep}
+            for c, p in plans.items()} or None
+
+
+def _diag_bytes(h_dims):
+    """Bytes of a packed recurrent weight's diagonal blocks (float32, four
+    gates): the only part the kernels read."""
+    return 16 * sum(h * h for h in h_dims)
+
+
+def _chain_bwd_bound(K, t, n, h_dims, tensors):
+    """A chain backward's bound over K lanes: the dh products on the
+    diagonal blocks over t - 1 steps against ``tensors`` (its inputs and
+    outputs) and the diagonal blocks, once each."""
+    return _bound(2 * K * (t - 1) * n * 4 * sum(h * h for h in h_dims),
+                  _nbytes(*tensors) + K * _diag_bytes(h_dims))
+
+
+def _chain_lanes(cfg, dev, K, t, n, g):
+    """The chain backward's operands over K lanes, lane k a model of seed
+    k: {call: (fn, counter, bound)} for the decoders at n rows and the
+    encoder cells of ``m_b`` and ``kl_ef`` (their forward's residuals from
+    the plain lane versions)."""
+    from factorized_tpu_torch.models import ablations
+
+    x = torch.randn((t, n, cfg.d_total), generator=g, device=dev)
+    dec = [mfm.kernel_operands(mfm.MFM(cfg, seed=k, device=dev).tree(), x,
+                               cfg)[1] for k in range(K)]
+    h0, c0, wsum, b = (torch.stack([d[i] for d in dec]) for i in range(4))
+    dec_dims = dec[0][4]
+    allh, allc, gates = cuda_lstm.decoder_lstm_lanes_plain(h0, c0, wsum, b,
+                                                           t)
+    dallh = torch.randn(allh.shape, generator=g, device=dev)
+    calls = {f"decoder_lstm_bwd.n{n}": (
+        lambda: cuda_lstm._launch_bwd(wsum, gates, allc, dallh, dec_dims,
+                                      K), "BWD_LAUNCHES",
+        _chain_bwd_bound(K, t, n, dec_dims,
+                         [gates, allc, dallh, gates[:, 1:], allc[:, 0],
+                          allc[:, 0]]))}
+    if n != N_TRAIN:
+        return calls
+    for model_type in ("m_b", "kl_ef"):
+        ops = []
+        for k in range(K):
+            p = mfm.MFM(cfg.replace(model_type=model_type), seed=k,
+                        device=dev).tree()
+            ops.append(ablations.kernel_operands(p, x, cfg, "m_b")[
+                "multi_lstm"] if model_type == "m_b" else
+                mfm.multi_lstm_operands(p, x, cfg, model_type))
+        xp, wh = torch.stack([o[0] for o in ops]), torch.stack(
+            [o[1] for o in ops])
+        dims = ops[0][2]
+        h_last, _, mallc, mgates = cuda_lstm.multi_lstm_lanes_plain(
+            xp, wh, True)
+        dhl = torch.randn(h_last.shape, generator=g, device=dev)
+        calls[f"multi_lstm_bwd.{model_type}"] = (
+            lambda xp=xp, wh=wh, mallc=mallc, mgates=mgates, dhl=dhl,
+            dims=dims: cuda_lstm._launch_multi_bwd(mgates, wh, mallc, dhl,
+                                                   dims, K),
+            "MULTI_BWD_LAUNCHES",
+            _chain_bwd_bound(K, t, n, dims, [mgates, mallc, dhl, mgates]))
+    return calls
+
+
+def _encode_fwd_lanes(cfg, dev, K, t, g):
+    """The encode forward over K lanes, lane k a model of seed k: the
+    train variant (masks, residuals "cat") at n = 32 and the eval variant
+    at n = 256, {call: (fn, counter, bound)}; the bound K lanes' useful
+    float32 work (no recurrent product into step 0's zero state) against
+    the inputs, the weights off the recurrent diagonal, the diagonal
+    blocks and the outputs, once each."""
+    out = {}
+    for train, n in ((True, N_TRAIN), (False, N)):
+        x = torch.randn((t, n, cfg.d_total), generator=g, device=dev)
+        ops = [mfm.kernel_operands(mfm.MFM(cfg, seed=k, device=dev).tree(),
+                                   x, cfg)[0] for k in range(K)]
+        z_tot, h_dims = ops[0][2], ops[0][3]
+        xp = torch.stack([o[0] for o in ops])
+        w = {m: torch.stack([o[1][m] for o in ops]) for m in ops[0][1]}
+        s1, s2, s3, s4, mem = cuda_mfn.sizes({m: v[0] for m, v in w.items()})
+        masks = torch.stack([cuda_mfn.make_dropout_masks(
+            g, t, n, (s1, s2, s3, s4), mfn_drops(cfg)) for _ in range(K)]
+            ) if train else None
+        layout = "cat" if train else None
+        outs = cuda_mfn._launch_fwd(xp, masks, w, z_tot, h_dims, layout, K)
+        H = sum(h_dims)
+        m2 = 2 * (H - z_tot)
+        recur = 4 * sum(h * h for h in h_dims)
+        macs = (recur + m2 * s1 + s1 * m2 + m2 * s2 + s2 * mem
+                + (m2 + mem) * (s3 + s4) + (s3 + s4) * mem)
+        off = [v for k, v in w.items() if k != "wh"]
+        bound = _bound(2 * K * (t * n * macs - n * recur),
+                       _nbytes(xp, *([masks] if train else []), *off, *outs)
+                       + K * _diag_bytes(h_dims))
+        out["mfm_encode_fwd" + ("" if train else ".eval")] = (
+            lambda xp=xp, masks=masks, w=w, layout=layout: cuda_mfn._launch_fwd(
+                xp, masks, w, z_tot, h_dims, layout, K), "LAUNCHES", bound)
+    return out
+
+
 def lane_kernel_times(cfg, dev, K):
-    """The encode's reverse pass (``_launch_bwd``) and weight gradients
-    (``_launch_dw``) over K lanes at n = 32, lane k a model of seed k:
-    {kernel: numbers} (see the module's doc). The bound counts K lanes'
-    useful float32 work (the recurrent products on the diagonal blocks,
-    none into step 0's zero state) at 67 TFLOP/s against each input read
-    once and each output written once at 3.35 TB/s."""
+    """The lane kernels over K lanes, lane k a model of seed k: the
+    encode's reverse pass (``_launch_bwd``) and weight gradients
+    (``_launch_dw``) at n = 32; the encode forward, train at n = 32 and
+    eval at n = 256; the decoders' chain backward at n = 32 and 4n = 128
+    and the encoder cells' (``m_b``'s and ``kl_ef``'s) at n = 32: {call:
+    numbers} (see the module's doc). The bound counts K lanes' useful
+    float32 work (the recurrent products on the diagonal blocks, none into
+    step 0's zero state) at 67 TFLOP/s against each input read once and
+    each output written once at 3.35 TB/s."""
     t, n = cfg.seqlength, N_TRAIN
     g = torch.Generator(device=dev).manual_seed(11)
     x = torch.randn((t, n, cfg.d_total), generator=g, device=dev)
@@ -773,25 +893,28 @@ def lane_kernel_times(cfg, dev, K):
                 for o, wd in [offs[d]]}
 
     calls = {"mfm_encode_bwd": (lambda: cuda_mfn._launch_bwd(
-        xp, w, *res, dh, dmem, z_tot, h_dims, lanes=K), "BWD_LAUNCHES"),
+        xp, w, *res, dh, dmem, z_tot, h_dims, lanes=K), "BWD_LAUNCHES",
+        bounds["mfm_encode_bwd"]),
              "mfm_encode_dw": (lambda: cuda_mfn._launch_dw(
                  w, res[1], res[2], res[3], deltas, z_tot, K),
-                 "DW_LAUNCHES")}
+                 "DW_LAUNCHES", bounds["mfm_encode_dw"])}
+    calls.update(_encode_fwd_lanes(cfg, dev, K, t, g))
+    for rows in (n, 4 * n):
+        calls.update(_chain_lanes(cfg, dev, K, t, rows, g))
     out = {}
-    for name, (fn, counter) in calls.items():
-        before = getattr(cuda_mfn, counter)
+    for name, (fn, counter, bound) in calls.items():
+        kernel = name.split(".")[0]
+        module = cuda_mfn if kernel.startswith("mfm") else cuda_lstm
+        before = getattr(module, counter)
         fn()
-        launches = getattr(cuda_mfn, counter) - before
-        if name == "mfm_encode_dw":
-            plan = dict(cuda_mfn.DW_PLAN)
-        else:
-            plan = {c: {k: p.get(k) for k in ("rows", "wave", "waves")}
-                    for c, p in getattr(cuda_mfn, "BWD_PLAN",
-                                        {}).items()} or None
+        launches = getattr(module, counter) - before
+        # as many launches queued behind the sleeping kernel as at 8 lanes
+        # (a launch of 8-lane groups holds up to 32 KB of arguments)
         out[name] = {"lanes": K, "launches_per_call": launches,
-                     "plan": plan, "device_ms": _device_ms(fn, 20),
-                     "ms": _ms(fn, 20), "bound_ms": bounds[name][0],
-                     "bound_by": bounds[name][1]}
+                     "plan": _plan_of(kernel),
+                     "device_ms": _device_ms(fn, 20 // launches),
+                     "ms": _ms(fn, 20), "bound_ms": bound[0],
+                     "bound_by": bound[1]}
     out["mfm_encode_dw"]["library_device_ms"] = _device_ms(library, 20)
     out["mfm_encode_dw"]["library_ms"] = _ms(library, 20)
     return out
@@ -900,7 +1023,8 @@ def _sm_clock():
 
 def phases(cfg, dev):
     """Part ``phases``: one call of each chain kernel at the main path's
-    shapes with the probe's buffer registered; per kernel and cell the
+    shapes with the probe's buffer registered, and of the decoders' chain
+    backward and the encode forward over lanes; per kernel and cell the
     mean cycles of each phase over the call's steps."""
     import ctypes
 
@@ -942,6 +1066,24 @@ def phases(cfg, dev):
         "decoder_lstm_bwd": (lambda: cuda_lstm.decoder_lstm_bwd(
             wsum, gates, allc, allh, dec_dims), dec_dims, N_TRAIN),
     }
+    # over lanes (lane 0 stamps, one model's operands in every lane): the
+    # decoders' chain backward at K = 2 and 8 and the encode forward at 8,
+    # the rows their plans take there
+    def lanes(K, *tensors):
+        return [a.expand(K, *a.shape) for a in tensors]
+
+    for K in (2, 8):
+        calls[f"decoder_lstm_bwd.lanes{K}"] = (
+            lambda K=K: cuda_lstm.decoder_lstm_bwd_lanes(
+                *lanes(K, wsum, gates, allc, allh), dec_dims), dec_dims,
+            N_TRAIN)
+    lw = {k: v.expand(8, *v.shape) for k, v in weights.items()}
+    calls["mfm_encode_fwd.lanes8"] = (lambda: cuda_mfn.mfm_encode_lanes(
+        *lanes(8, xp), lw, z_tot, h_dims), h_dims, N)
+    calls["mfm_encode_fwd_train.lanes8"] = (
+        lambda: cuda_mfn.mfm_encode_res_lanes(*lanes(8, xt, masks), lw,
+                                              z_tot, h_dims), h_dims,
+        N_TRAIN)
     for model_type in ("kl_ef", "missing"):
         mparams = mfm.MFM(cfg, seed=0, device=dev,
                           model_type=model_type).tree()

@@ -7,6 +7,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from factorized_tpu.config import MFMConfig as JaxConfig
 from factorized_tpu.config import best_acc_mosi_config as jax_best
@@ -22,6 +23,16 @@ CONFIGS = {
     "missing": dict(missing=1, zl_size=24, att1_shape=64, gamma2_drop=0.3,
                     lr=5e-4),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on few cores; with one torch
+    thread each, the small CPU ops here do not wait on one another."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))

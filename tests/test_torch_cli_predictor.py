@@ -30,6 +30,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from factorized_tpu import cli as jax_cli
 from factorized_tpu import trainers as jtrainers
@@ -48,6 +49,16 @@ from factorized_tpu_torch.utils.checkpoint import (restore_checkpoint,
 
 SERVE = dict(rtol=1e-5, atol=1e-6)
 TRAINERS = ("train_predictor", "train_mfm_multitrait")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on few cores; with one torch
+    thread each, the small CPU ops here do not wait on one another."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
 
 
 def _data(d_total, seed=0, n=(6, 4, 4), traits=0):

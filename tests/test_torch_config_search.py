@@ -14,6 +14,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from factorized_tpu import cli as jax_cli
 from factorized_tpu.config import MFMConfig as JaxConfig
@@ -30,6 +31,16 @@ OVERRIDES = {
     "missing": dict(model_type="mfm", missing=1, zeros=0, num_epochs=3,
                     batchsize=16),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers on few cores; with one torch
+    thread each, the small CPU ops here do not wait on one another."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=lambda p: Path(p).stem)

@@ -1370,17 +1370,17 @@ def test_lane_kernels_match_plain(cuda, cfg, n, K):
             cuda_lstm.multi_lstm_bwd_lanes_plain(mref[3], mwh, mref[2],
                                                  dhl), **GRAD)
         torch.cuda.synchronize()
-    # one launch a call for 8 lanes; the encode's reverse pass and weight
-    # gradients one for any count
+    # the recurrences' forward one launch a call for 8 lanes; the encode's
+    # kernels and the chains' backward one for any count
     delta = counts.since(before)
     groups = cuda_lstm.lane_launches(K)
-    assert delta[(cuda_mfn, "LAUNCHES")] == 2 * groups
+    assert delta[(cuda_mfn, "LAUNCHES")] == 2
     assert delta[(cuda_mfn, "BWD_LAUNCHES")] == 1
     assert delta[(cuda_mfn, "DW_LAUNCHES")] == 1
     assert delta[(cuda_lstm, "LAUNCHES")] == groups
-    assert delta[(cuda_lstm, "BWD_LAUNCHES")] == groups
+    assert delta[(cuda_lstm, "BWD_LAUNCHES")] == 1
     assert delta[(cuda_lstm, "MULTI_LAUNCHES")] == 2 * groups
-    assert delta[(cuda_lstm, "MULTI_BWD_LAUNCHES")] == groups
+    assert delta[(cuda_lstm, "MULTI_BWD_LAUNCHES")] == 1
 
 
 @pytest.mark.parametrize("K", [8, 32])
@@ -1415,6 +1415,36 @@ def test_the_lane_plan_takes_the_cards_occupancy(cuda, K):
         fewest = min(w for _, w in mine)
         assert p["waves"] == fewest
         assert p["rows"] == min(R for R, w in mine if w == fewest)
+
+
+@pytest.mark.parametrize("K", [8, 32])
+def test_the_forward_and_chain_lane_plans_take_the_cards_occupancy(cuda,
+                                                                   K):
+    """The encode forward's lane plans (train at n = 32, eval at 256) and
+    the chains' backward's (the decoders at n = 32, m_b's encoder cells)
+    count their waves in what the card's occupancy calculator says an SM
+    holds: a whole number of blocks an SM, and the plan the same as with
+    the default query."""
+    cfg = best_acc_mosi_config()
+    h_dims = [cfg.zl_size, cfg.za_size, cfg.zv_size, *cfg.h_dims]
+    s3, s4, mem = cfg.gamma1_shape, cfg.gamma2_shape, cfg.memsize
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+
+    def checked(query):
+        def wave(chain, R, plan, smem):
+            held = query(chain, R, plan, smem)
+            assert held % sms == 0 and held > 0
+            return held
+        return wave
+
+    for train, n in ((True, 32), (False, 256)):
+        plan = cuda_mfn.fwd_plan(h_dims, s3, s4, mem, n, K, train,
+                                 checked(cuda_mfn.fwd_chain_wave))
+        assert plan == cuda_mfn.fwd_plan(h_dims, s3, s4, mem, n, K, train)
+    for decoder, dims in ((True, [104, 24, 24]), (False, [32, 8, 80])):
+        plan = cuda_lstm.chain_bwd_plan(dims, 32, K, decoder,
+                                        checked(cuda_lstm.lstm_bwd_wave))
+        assert plan == cuda_lstm.chain_bwd_plan(dims, 32, K, decoder)
 
 
 def test_lane_train_step_grads_on_the_card_match_the_cpu(cuda):

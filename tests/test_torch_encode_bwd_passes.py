@@ -443,18 +443,19 @@ def test_encode_launcher_carves_its_scratch(fake_card, variant):
 
 
 def test_forward_launcher_passes_its_rows(fake_card, monkeypatch):
-    """The chains' rows are constants in the source, chosen there by
-    whether residuals are written: with and without them the call passes
-    the cell widths and then the threads, no row count, before the lanes
-    (one), the lane strides, fit and stream."""
+    """Without a lane axis the chains' rows are the source's one-lane
+    constants, chosen there by whether residuals are written: with and
+    without them the call passes the cell widths, the threads and 0 for
+    each chain's rows (the LSTM chains', the memory chain's) before the
+    lanes (one), the lane strides, fit and stream."""
     calls, _ = fake_card
     monkeypatch.setattr(cuda_mfn, "THREADS", 256)
     _launch_forward(None)
     _launch_forward("split")
     for _, argtypes, args in calls:
-        assert [_kind(k) for k in argtypes[-6:]] == ["int*", "int", "int",
-                                                     "i64*", "int*", "ptr"]
-        assert list(args[-5:-3]) == [256, 1]
+        assert [_kind(k) for k in argtypes[-8:]] == [
+            "int*", "int", "int", "int", "int", "i64*", "int*", "ptr"]
+        assert list(args[-7:-3]) == [256, 0, 0, 1]
 
 
 @pytest.mark.parametrize("macro", sorted(perf_probe.ROW_SWEEPS))

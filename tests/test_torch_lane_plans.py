@@ -1,14 +1,18 @@
-"""The lane plans of the encode backward's two lane kernels, plain
+"""The lane plans of the kernels that take lanes by stride, plain
 arithmetic on the CPU: ``cuda_mfn.bwd_plan`` (the rows a block of the
-reverse pass's memory chain and LSTM chains) and ``cuda_mfn.dw_cluster``
-(the cluster of the weight gradients), the launches their launchers
-count, and the rows they pass, the kernel call faked (there is no card
-here). On the card ``bwd_plan`` takes what the card holds at once from
-the CUDA occupancy calculator (``cuda_mfn.chain_wave``); here each test
-hands it a stand-in, and ``tests/test_torch_cuda.py`` holds the plan
-against the card's own occupancy."""
+reverse pass's memory chain and LSTM chains), ``cuda_mfn.dw_cluster``
+(the cluster of the weight gradients), ``cuda_mfn.fwd_plan`` (the encode
+forward's LSTM chains and memory chain, train and eval) and
+``cuda_lstm.chain_bwd_plan`` (the decoders' and the encoder cells' chain
+backward), the launches their launchers count, and the rows they pass,
+the kernel call faked (there is no card here). On the card the plans take
+what the card holds at once from the CUDA occupancy calculator
+(``cuda_lstm.chain_wave`` over each kernel's ``*_wave`` entry point);
+here each test hands them a stand-in, and ``tests/test_torch_cuda.py``
+holds the plans against the card's own occupancy."""
 
 import contextlib
+import functools
 import ctypes
 import math
 import re
@@ -194,6 +198,11 @@ def test_the_row_counts_are_the_sources():
 
 # the argument types of each faked library function
 ARGTYPES = {}
+# the wave queries' chains, by C entry point
+EXPORTS = dict(cuda_lstm.WAVE_EXPORTS.values())
+# the plans and wave queries cached across calls
+CACHED = (cuda_mfn._bwd_plan, cuda_mfn._fwd_plan, cuda_lstm._chain_bwd_plan,
+          cuda_lstm._chain_wave)
 
 
 @pytest.fixture
@@ -208,13 +217,13 @@ def fake_library(monkeypatch):
 
         def fn(*args):
             calls.append((name, args))
-            if name == "mfm_encode_bwd_wave":
+            if name in EXPORTS:
                 args[-1][0] = WAVES["by_shared_memory"](
-                    ("memory_chain", "lstm_chains")[args[0]], *args[1:3],
-                    args[4])
+                    EXPORTS[name][args[0]], *args[1:3], args[4])
                 return 0
-            args[-2][0] = 16 if name == "mfm_encode_dw" else 0
-            if name == "mfm_encode_bwd":
+            if name == "mfm_encode_dw":
+                args[-2][0] = 16
+            else:
                 args[-2][4] = args[-2][5] = 1
             return 0
         return fn
@@ -223,18 +232,23 @@ def fake_library(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device",
                         lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
-    for cached in (cuda_mfn._bwd_plan, cuda_mfn._chain_wave):
+    for cached in CACHED:
         cached.cache_clear()
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=0))
-    for name in ("BWD_LAUNCHES", "DW_LAUNCHES", "CLUSTERS", "L2_LAUNCHES",
-                 "SCRATCH_LAUNCHES", "BWD_PLAN", "DW_PLAN"):
-        value = getattr(cuda_mfn, name)
-        monkeypatch.setattr(cuda_mfn, name,
-                            value if isinstance(value, int) else {})
-    monkeypatch.setattr(cuda_lstm, "LANE_LAUNCHES", {})
+    for module, names in (
+            (cuda_mfn, ("LAUNCHES", "BWD_LAUNCHES", "DW_LAUNCHES",
+                        "CLUSTERS", "L2_LAUNCHES", "SCRATCH_LAUNCHES",
+                        "BWD_PLAN", "DW_PLAN", "FWD_PLAN")),
+            (cuda_lstm, ("BWD_LAUNCHES", "MULTI_BWD_LAUNCHES", "CLUSTERS",
+                         "L2_LAUNCHES", "SCRATCH_LAUNCHES", "BWD_PLAN",
+                         "LANE_LAUNCHES"))):
+        for name in names:
+            value = getattr(module, name)
+            monkeypatch.setattr(module, name,
+                                value if isinstance(value, int) else {})
     yield calls
-    for cached in (cuda_mfn._bwd_plan, cuda_mfn._chain_wave):
+    for cached in CACHED:
         cached.cache_clear()
 
 
@@ -286,7 +300,7 @@ def test_each_lane_kernel_counts_one_launch_a_call(fake_library, K):
     assert list(dargs[-5:-3]) == [cuda_mfn.dw_cluster(w, t * n), K]
     for name in cuda_lstm.STRIDED_LANES:
         assert cuda_lstm.lane_launches(K, name) == 1
-    assert cuda_lstm.lane_launches(K, "decoder_lstm_bwd") == math.ceil(K / 8)
+    assert cuda_lstm.lane_launches(K, "decoder_lstm_fwd") == math.ceil(K / 8)
 
 
 def test_the_wave_query_matches_its_c_prototype(fake_library):
@@ -305,3 +319,284 @@ def test_the_wave_query_matches_its_c_prototype(fake_library):
     assert list(args[:5]) == [1, 4, 1, cuda_mfn.BWD_THREADS, 1000]
     assert cuda_mfn.chain_wave("lstm_chains", 4, 1, 1000) == 132 * 4
     assert len(fake_library) == 1  # asked once
+
+
+# ------------------------------- the encode forward and the chain backward
+#
+# The forward's chains at the train (n = 32) and eval (n = 256) batches;
+# the decoders' chain backward at best_acc_mosi_config's decoders (n = 32)
+# and at missing's four stacked decodes (4n = 128); the encoder cells'
+# backward at m_b's, kl_ef's (its 120-unit cell on a cluster of 2) and
+# missing's widths
+DEC_DIMS = [104, 24, 24]
+MULTI_DIMS = {"m_b": [32, 8, 80], "kl_ef": [32, 8, 80, 120],
+              "missing": [80, 8, 32, 32, 32, 32]}
+FWD_CASES = [(True, 32), (False, 256)]
+CHAIN_CASES = [(True, DEC_DIMS, 32), (True, DEC_DIMS, 128),
+               (True, [104, 104, 104], 32)] + [
+    (False, dims, 32) for dims in MULTI_DIMS.values()]
+CHAIN_IDS = ["decoders", "decoders_4n", "m_a_decoders",
+             *[f"multi_{m}" for m in MULTI_DIMS]]
+
+
+def _fwd_bytes(chain, R, C):
+    """The forward's chain's shared memory a block at R rows on a cluster
+    of C."""
+    if chain == "memory_chain":
+        return cuda_mfn._mem_fwd_bytes(MEM, S3, S4, C, R, cuda_mfn.THREADS)
+    return cuda_lstm.fwd_chain_bytes(H_DIMS, R, cuda_mfn.THREADS, C)
+
+
+def _chain_bytes(decoder, dims):
+    threads = (cuda_lstm.BWD_THREADS if decoder
+               else cuda_lstm.MULTI_BWD_THREADS)
+    return lambda R, C: cuda_lstm.cell_chain_bytes(
+        dims, R, threads, 7 if decoder else 6, C)
+
+
+def _fwd_plan(K, n, train, wave=WAVES["by_shared_memory"]):
+    return cuda_mfn.fwd_plan(H_DIMS, S3, S4, MEM, n, K, train, wave)
+
+
+def _chain_plan(K, decoder, dims, n, wave=WAVES["by_shared_memory"]):
+    return cuda_lstm.chain_bwd_plan(dims, n, K, decoder, wave)
+
+
+def _held_to(p, chain, K, n, chains, counts, first, bytes_at, wave):
+    """A plan of ``cuda_lstm.rows_plan`` against the rule: one lane the
+    one-lane count; more lanes the fewest waves of what ``wave`` says the
+    card holds, among the counts of the one-lane plan, the smallest such
+    count, with its blocks, wave and waves as they should be."""
+    def plan_at(R):
+        return cuda_lstm.chain_plan(lambda C: bytes_at(R, C))
+
+    if K <= 1:
+        assert p["rows"] == first and p["waves"] is None
+        return
+    reach = {}
+    for R in counts:
+        plan = plan_at(R)
+        if plan != plan_at(first) and not (plan <= 0 and plan_at(first) <= 0):
+            continue
+        smem = 0 if plan == cuda_lstm.SCRATCH else bytes_at(R, plan)
+        held = wave(chain, R, plan, smem)
+        blocks = K * math.ceil(n / R) * chains * max(plan, 1)
+        reach[R] = (plan, math.ceil(blocks / held), blocks, held)
+    fewest = min(w[1] for w in reach.values())
+    R = min(R for R, w in reach.items() if w[1] == fewest)
+    assert p["rows"] == R
+    assert (p["plan"], p["waves"], p["blocks"], p["wave"]) == reach[R]
+
+
+@pytest.mark.parametrize("K", LANES)
+def test_one_lane_keeps_todays_forward_and_chain_rows(K):
+    """One lane takes the source's one-lane rows at any batch, asking the
+    card nothing: the forward's LSTM chains and memory chain 2 / 1 rows a
+    block with residuals (train) and 8 / 2 without (eval, serving), the
+    decoders' chain backward 1 and the encoder cells' 2; so the one-model
+    path, serving and ``Predictor`` do not move. At every K a plan keeps
+    the cluster of the one-lane plan."""
+    def unasked(*args):
+        raise AssertionError(f"one lane asked for a wave: {args}")
+
+    for n in (1, 32, 128, 256, 1000):
+        for lanes in (0, 1):
+            for train, rows in ((True, cuda_mfn.TRAIN_ROWS),
+                                (False, cuda_mfn.EVAL_ROWS)):
+                p = _fwd_plan(lanes, n, train, unasked)
+                assert (p["lstm_chains"]["rows"],
+                        p["memory_chain"]["rows"]) == rows
+            for decoder, dims, _ in CHAIN_CASES:
+                p = _chain_plan(lanes, decoder, dims, n, unasked)
+                assert p["rows"] == (1 if decoder else 2)
+    assert cuda_mfn.TRAIN_ROWS == (2, 1) and cuda_mfn.EVAL_ROWS == (8, 2)
+    assert (cuda_lstm.DECODER_BWD_ROWS, cuda_lstm.MULTI_BWD_ROWS) == (1, 2)
+    for train, n in FWD_CASES:
+        many, one = _fwd_plan(K, n, train), _fwd_plan(1, n, train)
+        for chain in many:
+            assert many[chain]["plan"] == one[chain]["plan"]
+    for decoder, dims, n in CHAIN_CASES:
+        assert (_chain_plan(K, decoder, dims, n)["plan"]
+                == _chain_plan(1, decoder, dims, n)["plan"])
+
+
+@pytest.mark.parametrize("K", [2, 3, 4, 8, 12, 16, 32])
+@pytest.mark.parametrize("wave", sorted(WAVES))
+def test_the_forward_blocks_stay_within_the_waves_the_plan_aims_at(K, wave):
+    """The forward's chains over K lanes, train at n = 32 and eval at n =
+    256: the fewest waves of what the card holds at once among the
+    instantiated counts of the one-lane plan, the smallest such count."""
+    held = WAVES[wave]
+    for train, n in FWD_CASES:
+        cr, mr = cuda_mfn.TRAIN_ROWS if train else cuda_mfn.EVAL_ROWS
+        p = _fwd_plan(K, n, train, held)
+        _held_to(p["lstm_chains"], "lstm_chains", K, n, len(H_DIMS),
+                 cuda_mfn.FWD_CELL_ROW_COUNTS, cr,
+                 functools.partial(_fwd_bytes, "lstm_chains"), held)
+        _held_to(p["memory_chain"], "memory_chain", K, n, 1,
+                 cuda_mfn.FWD_MEM_ROW_COUNTS, mr,
+                 functools.partial(_fwd_bytes, "memory_chain"), held)
+
+
+@pytest.mark.parametrize("K", [2, 3, 4, 8, 12, 16, 32])
+@pytest.mark.parametrize("case", CHAIN_CASES, ids=CHAIN_IDS)
+def test_the_chain_backward_blocks_stay_within_the_waves_the_plan_aims_at(
+        K, case):
+    """The decoders' and the encoder cells' chain backward over K lanes,
+    held to the same rule for every stand-in of the card."""
+    decoder, dims, n = case
+    for held in WAVES.values():
+        _held_to(_chain_plan(K, decoder, dims, n, held),
+                 "decoder_lstm_bwd" if decoder else "multi_lstm_bwd", K, n,
+                 len(dims),
+                 cuda_lstm.DECODER_BWD_ROW_COUNTS if decoder
+                 else cuda_lstm.MULTI_BWD_ROW_COUNTS,
+                 1 if decoder else 2, _chain_bytes(decoder, dims), held)
+
+
+@pytest.mark.parametrize("K", LANES)
+@pytest.mark.parametrize("n", [1, 5, 32, 100, 256])
+def test_the_forward_and_chain_rows_tile_the_batch(K, n):
+    """Every plan's rows divide the padded rows its row tiles cover, which
+    hold the batch with less than one tile to spare."""
+    plans = [p for train in (True, False)
+             for p in _fwd_plan(K, n, train).values()]
+    plans += [_chain_plan(K, decoder, dims, n)
+              for decoder, dims, _ in CHAIN_CASES]
+    for p in plans:
+        R, padded = p["rows"], p["padded_rows"]
+        assert padded % R == 0 and padded == p["row_tiles"] * R
+        assert n <= padded < n + R
+
+
+def test_no_forward_or_chain_count_that_sums_in_another_order_is_taken():
+    """At the main widths the forward's memory chain at 16 rows passes
+    one block and would take a cluster of 2, which sums in another order:
+    no lane count takes it; the decoders' 104-unit cell has no count past
+    4 (8 rows do not fit beside its weights); kl_ef's 120-unit cell keeps
+    its cluster of 2 at every count it takes."""
+    assert cuda_lstm.chain_plan(lambda C: _fwd_bytes("memory_chain", 16,
+                                                     C)) == 2
+    assert cuda_lstm.chain_plan(lambda C: _fwd_bytes("memory_chain", 8,
+                                                     C)) == 1
+    assert max(cuda_lstm.DECODER_BWD_ROW_COUNTS) == 4
+    assert cuda_lstm.chain_plan(lambda C: _chain_bytes(True, DEC_DIMS)(
+        8, C)) == 2
+    kl = MULTI_DIMS["kl_ef"]
+    assert _chain_plan(1, False, kl, N)["plan"] == 2
+    for wave in WAVES.values():
+        for K in LANES:
+            for train, n in FWD_CASES:
+                assert _fwd_plan(K, n, train, wave)["memory_chain"][
+                    "rows"] != 16
+            assert _chain_plan(K, False, kl, N, wave)["plan"] == 2
+            assert _chain_plan(K, True, DEC_DIMS, N, wave)["rows"] <= 4
+
+
+@pytest.mark.parametrize("source,name,counts", [
+    ("mfm_encode_fwd.cu", "kCellRowCounts", cuda_mfn.FWD_CELL_ROW_COUNTS),
+    ("mfm_encode_fwd.cu", "kMemRowCounts", cuda_mfn.FWD_MEM_ROW_COUNTS),
+    ("lstm_bwd.cu", "kDecoderRowCounts", cuda_lstm.DECODER_BWD_ROW_COUNTS),
+    ("lstm_bwd.cu", "kMultiRowCounts", cuda_lstm.MULTI_BWD_ROW_COUNTS)])
+def test_the_forward_and_chain_row_counts_are_the_sources(source, name,
+                                                          counts):
+    """The counts the new plans choose among are the ones each source
+    instantiates, and one lane's counts are among them."""
+    src = (_build.CSRC / source).read_text()
+    m = re.search(rf"constexpr int {name}\[\] = \{{([\d, ]+)\}};", src)
+    assert tuple(int(v) for v in m.group(1).split(",")) == counts
+    assert list(counts) == sorted(counts)
+    firsts = {"kCellRowCounts": (cuda_mfn.TRAIN_ROWS[0],
+                                 cuda_mfn.EVAL_ROWS[0]),
+              "kMemRowCounts": (cuda_mfn.TRAIN_ROWS[1],
+                                cuda_mfn.EVAL_ROWS[1]),
+              "kDecoderRowCounts": (cuda_lstm.DECODER_BWD_ROWS,),
+              "kMultiRowCounts": (cuda_lstm.MULTI_BWD_ROWS,)}[name]
+    assert set(firsts) <= set(counts)
+
+
+def _encode_lanes(K, t, n):
+    z = torch.zeros
+    w = _weights(K)
+    S = S1 + S2 + S3 + S4
+    return z(K, t, n, 4 * H), z(K, t, n, S), w
+
+
+@pytest.mark.parametrize("K", [1, 2, 8, 9, 32])
+def test_the_forward_and_chain_backward_count_one_launch_a_call(
+        fake_library, K):
+    """The encode forward (train and eval), the decoders' and the encoder
+    cells' chain backward over K lanes: one launch each, counted once, in
+    ``LANE_LAUNCHES`` too, and listed in ``STRIDED_LANES``; the rows each
+    plan chose passed (0 for one lane, the source's own counts) and
+    recorded in ``FWD_PLAN`` and ``BWD_PLAN``."""
+    t, n = 2, 3
+    for name in ("mfm_encode_fwd", "decoder_lstm_bwd", "multi_lstm_bwd"):
+        assert name in cuda_lstm.STRIDED_LANES
+    xp, masks, w = _encode_lanes(K, t, n)
+    for train in (True, False):
+        before = cuda_mfn.LAUNCHES
+        cuda_mfn._launch_fwd(xp, masks if train else None, w, Z_TOT, H_DIMS,
+                             "cat" if train else None, K)
+        assert cuda_mfn.LAUNCHES == before + 1
+        plan = _fwd_plan(K, n, train)
+        assert cuda_mfn.FWD_PLAN == plan
+        args = fake_library[-1][1]
+        want = [plan[c]["rows"] if K > 1 else 0
+                for c in ("lstm_chains", "memory_chain")]
+        # the threads, the two chains' rows, the lanes
+        assert list(args[-7:-3]) == [cuda_mfn.THREADS, *want, K]
+    z = torch.zeros
+    Hd, Hm = sum(DEC_DIMS), sum(MULTI_DIMS["kl_ef"])
+    cuda_lstm._launch_bwd(z(K, 4 * Hd, Hd).transpose(1, 2).contiguous(),
+                          z(K, t, n, 4 * Hd), z(K, t, n, Hd),
+                          z(K, t, n, Hd), DEC_DIMS, K)
+    dec_args = fake_library[-1][1]
+    cuda_lstm._launch_multi_bwd(z(K, t, n, 4 * Hm), z(K, Hm, 4 * Hm),
+                                z(K, t, n, Hm), z(K, n, Hm),
+                                MULTI_DIMS["kl_ef"], K)
+    multi_args = fake_library[-1][1]
+    assert (cuda_lstm.BWD_LAUNCHES, cuda_lstm.MULTI_BWD_LAUNCHES) == (1, 1)
+    for args, decoder, dims, name, threads in (
+            (dec_args, True, DEC_DIMS, "decoder_lstm_bwd",
+             cuda_lstm.BWD_THREADS),
+            (multi_args, False, MULTI_DIMS["kl_ef"], "multi_lstm_bwd",
+             cuda_lstm.MULTI_BWD_THREADS)):
+        plan = _chain_plan(K, decoder, dims, n)
+        assert cuda_lstm.BWD_PLAN[name] == plan
+        # the threads, the rows, the lanes
+        assert list(args[-6:-3]) == [threads, plan["rows"] if K > 1 else 0,
+                                     K]
+    assert cuda_lstm.LANE_LAUNCHES == (
+        {"mfm_encode_fwd": 2, "decoder_lstm_bwd": 1, "multi_lstm_bwd": 1}
+        if K else {})
+
+
+@pytest.mark.parametrize("kernel,query,chain,threads", [
+    ("mfm_encode_fwd_wave", lambda: cuda_mfn.fwd_chain_wave,
+     "memory_chain", lambda: cuda_mfn.THREADS),
+    ("lstm_chain_bwd_wave", lambda: cuda_lstm.lstm_bwd_wave,
+     "decoder_lstm_bwd", lambda: cuda_lstm.BWD_THREADS),
+    ("lstm_chain_bwd_wave", lambda: cuda_lstm.lstm_bwd_wave,
+     "multi_lstm_bwd", lambda: cuda_lstm.MULTI_BWD_THREADS)],
+    ids=["fwd_memory_chain", "decoders", "encoder_cells"])
+def test_the_new_wave_queries_match_their_c_prototypes(
+        fake_library, kernel, query, chain, threads):
+    """``fwd_chain_wave`` and ``lstm_bwd_wave`` call their C entry points
+    with the types of the prototypes, the chain's index, the rows, the
+    plan, the wrapper's threads and the bytes, and read the blocks each
+    writes; each asked once."""
+    query()(chain, 4, 1, 1000)
+    src = "\n".join(p.read_text() for p in _build.sources())
+    m = re.search(rf'extern "C" int {kernel}\((.*?)\)\s*\{{', src, re.S)
+    kinds = [" ".join(p.split()).rsplit(" ", 1)[0]
+             for p in m.group(1).split(",")]
+    assert kinds == ["int"] * 4 + ["long long", "int*"]
+    assert ARGTYPES[kernel] == (
+        [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.POINTER(ctypes.c_int)])
+    (name, args), = fake_library
+    assert name == kernel
+    index = EXPORTS[kernel].index(chain)
+    assert list(args[:5]) == [index, 4, 1, threads(), 1000]
+    assert query()(chain, 4, 1, 1000) == 132 * 4
+    assert len(fake_library) == 1
