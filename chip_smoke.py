@@ -4768,31 +4768,13 @@ def lane_launchers():
             "multi_lstm_bwd": (cuda_lstm, "_launch_multi_bwd")}
 
 
-def tree_map(fn, tree):
+def tensor_map(fn, tree):
     """``fn`` over the tensors of nested dicts, lists and tuples; other
     leaves kept."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return tree
+    from torch.utils import _pytree as pytree
 
-
-def tree_leaves(tree, prefix=""):
-    """The tensors of a nested output, each with its path: [(path,
-    tensor)]."""
-    if isinstance(tree, torch.Tensor):
-        return [(prefix, tree)]
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, (list, tuple)):
-        items = enumerate(tree)
-    else:
-        return []
-    return [leaf for k, v in items
-            for leaf in tree_leaves(v, f"{prefix}.{k}" if prefix else str(k))]
+    return pytree.tree_map(
+        lambda v: fn(v) if isinstance(v, torch.Tensor) else v, tree)
 
 
 @contextlib.contextmanager
@@ -4814,7 +4796,7 @@ def captured_lane_calls():
             lanes = bound.arguments["lanes"]
             if lanes:
                 calls.append((_kernel, _fn, bound, lanes,
-                              tree_map(lambda v: v.detach().clone(), out)))
+                              tensor_map(lambda v: v.detach().clone(), out)))
             return out
 
         setattr(module, attr, wrapped)
@@ -4831,20 +4813,21 @@ def lane_replays(calls, axis=False):
     else none), its outputs held against lane k's of the K-lane launch
     bit for bit. Raises where a bit differs; returns {kernel: {"calls",
     "lanes"}}."""
+    from torch.utils import _pytree as pytree
+
     out, differ = {}, []
     for kernel, fn, bound, lanes, got in calls:
         for k in range(lanes):
             def lane(v, k=k):
                 return v[k:k + 1] if axis else v[k]
 
-            args = {name: (value if name == "lanes" else tree_map(lane, value))
+            args = {name: tensor_map(lane, value)
                     for name, value in bound.arguments.items()}
             args["lanes"] = 1 if axis else 0
-            one = dict(tree_leaves(fn(**args)))
-            for path, v in tree_leaves(got):
-                w = one[path][0] if axis else one[path]
-                if not torch.equal(v[k], w):
-                    differ.append(f"{kernel} lane {k} of {lanes} {path}")
+            one = pytree.tree_leaves(fn(**args))
+            for i, (v, w) in enumerate(zip(pytree.tree_leaves(got), one)):
+                if not torch.equal(v[k], w[0] if axis else w):
+                    differ.append(f"{kernel} lane {k} of {lanes} output {i}")
         seen = out.setdefault(kernel, {"calls": 0, "lanes": lanes})
         seen["calls"] += 1
     if differ:
@@ -4998,7 +4981,7 @@ def lane_path_times(loop, steps=3, replays=3):
 def lane_epoch_launches(loop, kernels, label, epoch=1):
     """Each kernel's launches in the loop's replayed epoch ``epoch``:
     ``cuda_lstm.lane_launches(lanes, kernel)`` a train step for all the
-    lanes (one for the encode's reverse pass and weight gradients, else
+    lanes (one for the encode's kernels and the chains' backward, else
     one a group of 8 lanes; the forward kernels once more for the
     evaluation); of a one-model ``ChunkedLoop``, one a step."""
     from factorized_tpu_torch.ops import cuda_lstm
@@ -5567,7 +5550,8 @@ def search_commands(smi, tmp):
 def lane_loop_times(cfg, dev, data, K):
     """``mfm``'s lane path at K lanes built directly (step 20f's
     ``lane_scaling``): two epochs, the second a replay launching each
-    kernel once a group of 8 lanes a step, then ``lane_path_times``."""
+    kernel ``cuda_lstm.lane_launches(K, kernel)`` times a step, then
+    ``lane_path_times``."""
     from factorized_tpu_torch.models import get_model
     from factorized_tpu_torch.parallel import multiseed
     from factorized_tpu_torch.train import LaneAdam

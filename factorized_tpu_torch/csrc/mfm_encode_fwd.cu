@@ -319,9 +319,19 @@ __global__ void __launch_bounds__(kMaxThreads)
 // cp.async; kSplit groups of 64 threads each take a quarter of the
 // depth, each thread summing a 4 x 4 tile of outputs in order of k, and
 // the groups' partial tiles are added in a fixed order, then the bias.
+// Over lanes, where a product's K t n rows make at least kWideBlocks wide
+// tiles, a block takes kWideTile x kWideTile outputs where they fit at one
+// lane's chunks: each thread sums an 8 x 8 tile, four times the
+// multiply-adds of a 4 x 4 tile for twice the shared-memory reads (W's 8
+// columns as two 16-byte reads); each output's sum is the same (its
+// group's share of the depth in order of k, the groups added in order),
+// so the same bits. Fewer wide tiles leave SMs idle (perf_probe.py lanes,
+// PERF.md).
 
-constexpr int kTile = 32;  // output tile: kTile x kTile
-constexpr int kSplit = 4;  // groups of 8 x 8 threads, a 4 x 4 tile each
+constexpr int kTile = 32;      // output tile: kTile x kTile
+constexpr int kWideTile = 64;  // over lanes: kWideTile x kWideTile
+constexpr int kWideBlocks = 264;  // two an SM of an H100's 132
+constexpr int kSplit = 4;  // groups of 8 x 8 threads, a T / 8 square each
 constexpr int kProductThreads = 64 * kSplit;
 
 enum Product { kProdU1, kProdLogits, kProdU2Pu3, kProdChat, kProducts };
@@ -362,15 +372,17 @@ __host__ __device__ inline int product_pitch(int K) {
   return conflict_free_pitch(K, 4);
 }
 
-__host__ __device__ inline size_t product_floats(int K) {
-  const size_t f = (size_t)kTile * product_pitch(K) + (size_t)K * kTile;
-  const size_t parts = (size_t)kSplit * kTile * kTile;
+__host__ __device__ inline size_t product_floats(int K, int T = kTile) {
+  const size_t f = (size_t)T * product_pitch(K) + (size_t)K * T;
+  const size_t parts = (size_t)kSplit * T * T;
   return f > parts ? f : parts;
 }
 
 // The fewest equal depth chunks [K i / nc, K (i + 1) / nc) whose staged
-// operands fit a block: one up to a depth of about 900 floats, more for
-// the attention's products at the widest widths (M2 past 900).
+// operands fit a block of kTile outputs: one up to a depth of about 900
+// floats, more for the attention's products at the widest widths (M2
+// past 900). The depth's split between the groups follows the chunks, so
+// a wide tile takes the same chunks.
 __host__ __device__ inline int product_chunks(int K) {
   int nc = 1;
   while (product_floats((K + nc - 1) / nc) * sizeof(float) >
@@ -421,107 +433,120 @@ __device__ __forceinline__ void product_out(const EncodeArgs& a, int m,
   }
 }
 
-// Block: one kTile x kTile tile of product P's (t n, N) output. Chunked:
-// the depth in product_chunks pieces (else whole, at every width but the
-// widest: a separate instantiation, so the common one carries no chunk
-// arithmetic).
-template <int P, bool Chunked>
+// Block: one T x T tile of product P's (t n, N) output (T kTile or
+// kWideTile). Chunked: the depth in product_chunks pieces (else whole, at
+// every width but the widest: a separate instantiation, so the common one
+// carries no chunk arithmetic).
+template <int P, bool Chunked, int T>
 __device__ __forceinline__ void product_fwd(const EncodeArgs& a) {
+  constexpr int M = T / 8;  // a thread's outputs: M x M
   extern __shared__ float smem[];
   const ProductSpec p = product_spec(a, P);
-  const int rows = a.t * a.n, tiles_n = (p.N + kTile - 1) / kTile;
-  const int m0 = (blockIdx.x / tiles_n) * kTile;
-  const int n0 = (blockIdx.x % tiles_n) * kTile;
+  const int rows = a.t * a.n, tiles_n = (p.N + T - 1) / T;
+  const int m0 = (blockIdx.x / tiles_n) * T;
+  const int n0 = (blockIdx.x % tiles_n) * T;
   const int tid = threadIdx.x, nthr = blockDim.x;
-  // this thread's group (a quarter of the depth) and its 4 x 4 outputs,
-  // rows ty + 8 i and columns tx + 8 j of the tile
+  // this thread's group (a quarter of the depth) and its M x M outputs:
+  // rows ty + 8 i of the tile, and columns tx + 8 j (kTile) or tx M + j
+  // (kWideTile: W's as two 16-byte reads)
   const int g = tid / 64, tx = tid % 8, ty = (tid % 64) / 8;
-  const int live_m = rows - m0 < kTile ? rows - m0 : kTile;
-  const int live_n = p.N - n0 < kTile ? p.N - n0 : kTile;
+  const int live_m = rows - m0 < T ? rows - m0 : T;
+  const int live_n = p.N - n0 < T ? p.N - n0 : T;
   // the tile's columns of W: from w0 up to N0, then from w1
   const int c0 = p.N0 - n0 > 0 ? (p.N0 - n0 < live_n ? p.N0 - n0 : live_n)
                                : 0;
   const int nc = Chunked ? product_chunks(p.K) : 1;
-  float acc[4][4];
+  float acc[M][M];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < M; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+    for (int j = 0; j < M; ++j) acc[i][j] = 0.0f;
   // the depth in chunks (one but at the widest widths), each staged
   // whole: rows [kb, kb + K) of A's columns and of W
   for (int ch = 0; ch < nc; ++ch) {
     const int kb = p.K * ch / nc, K = p.K * (ch + 1) / nc - kb;
     const int pa = product_pitch(K);
-    float* const As = smem;              // [kTile][pa]: A's rows
-    float* const Ws = As + kTile * pa;   // [K][kTile]: W's columns
+    float* const As = smem;          // [T][pa]: A's rows
+    float* const Ws = As + T * pa;   // [K][T]: W's columns
     if (ch > 0) __syncthreads();  // the last chunk is read
     if (P == kProdU1) {
-      for (int e = tid; e < kTile * K; e += nthr) {
+      for (int e = tid; e < T * K; e += nthr) {
         const int i = e / K, k = e - i * K;
         As[i * pa + k] = i < live_m ? cstar_at(a, m0 + i, kb + k) : 0.0f;
       }
     } else {
       copy_rows_async(As, pa, p.a + (size_t)m0 * p.lda + kb, p.lda, live_m,
                       K, tid, nthr);
-      for (int e = tid; e < (kTile - live_m) * K; e += nthr) {
+      for (int e = tid; e < (T - live_m) * K; e += nthr) {
         const int i = e / K;
         As[(live_m + i) * pa + e - i * K] = 0.0f;
       }
     }
     if (c0 > 0)
-      copy_rows_async(Ws, kTile, p.w0 + (size_t)kb * p.ld0 + n0, p.ld0, K,
-                      c0, tid, nthr);
+      copy_rows_async(Ws, T, p.w0 + (size_t)kb * p.ld0 + n0, p.ld0, K, c0,
+                      tid, nthr);
     if (live_n > c0)
-      copy_rows_async(Ws + c0, kTile,
-                      p.w1 + (size_t)kb * p.ld1 + n0 + c0 - p.N0, p.ld1, K,
-                      live_n - c0, tid, nthr);
-    for (int e = tid; e < (kTile - live_n) * K; e += nthr) {
-      const int k = e / (kTile - live_n);
-      Ws[k * kTile + live_n + e - k * (kTile - live_n)] = 0.0f;
+      copy_rows_async(Ws + c0, T, p.w1 + (size_t)kb * p.ld1 + n0 + c0 - p.N0,
+                      p.ld1, K, live_n - c0, tid, nthr);
+    for (int e = tid; e < (T - live_n) * K; e += nthr) {
+      const int k = e / (T - live_n);
+      Ws[k * T + live_n + e - k * (T - live_n)] = 0.0f;
     }
     cp_async_wait_all();
     __syncthreads();
 
     const float* A = As + ty * pa;
-    const float* W = Ws + tx;
+    const float* W = Ws + (T == kTile ? tx : tx * M);
     for (int k = K * g / kSplit; k < K * (g + 1) / kSplit; ++k) {
-      float av[4], wv[4];
+      float av[M], wv[M];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        av[i] = A[8 * i * pa + k];
-        wv[i] = W[k * kTile + 8 * i];
+      for (int i = 0; i < M; ++i) av[i] = A[8 * i * pa + k];
+      if (T == kTile) {
+#pragma unroll
+        for (int j = 0; j < M; ++j) wv[j] = W[k * T + 8 * j];
+      } else {
+#pragma unroll
+        for (int j = 0; j < M; j += 4) {
+          const float4 q = *reinterpret_cast<const float4*>(W + k * T + j);
+          wv[j] = q.x;
+          wv[j + 1] = q.y;
+          wv[j + 2] = q.z;
+          wv[j + 3] = q.w;
+        }
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < M; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < M; ++j)
           acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
     }
   }
   __syncthreads();  // the staged operands are read: reuse the space
-  float* const part = smem + g * kTile * kTile;
+  float* const part = smem + g * T * T;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < M; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      part[(ty + 8 * i) * kTile + tx + 8 * j] = acc[i][j];
+    for (int j = 0; j < M; ++j)
+      part[(ty + 8 * i) * T + (T == kTile ? tx + 8 * j : tx * M + j)] =
+          acc[i][j];
   __syncthreads();
-  for (int e = tid; e < kTile * kTile; e += nthr) {
+  for (int e = tid; e < T * T; e += nthr) {
     float v = smem[e];
 #pragma unroll
-    for (int q = 1; q < kSplit; ++q) v += smem[q * kTile * kTile + e];
-    const int m = m0 + e / kTile, n = n0 + e % kTile;
+    for (int q = 1; q < kSplit; ++q) v += smem[q * T * T + e];
+    const int m = m0 + e / T, n = n0 + e % T;
     if (m < rows && n < p.N) product_out<P>(a, m, n, v);
   }
 }
 
-template <int P, bool Chunked, bool Z>
+// Z: lanes by stride; T: the tile (kWideTile only with Z).
+template <int P, bool Chunked, bool Z, int T = kTile>
 __global__ void __launch_bounds__(kProductThreads)
     product_fwd_kernel(const __grid_constant__ FwdLanes la) {
   if (Z)
-    product_fwd<P, Chunked>(lane_args(la));
+    product_fwd<P, Chunked, T>(lane_args(la));
   else
-    product_fwd<P, Chunked>(la.a);
+    product_fwd<P, Chunked, T>(la.a);
 }
 
 // The softmax over each flat row's logits (a.work), max subtracted
@@ -850,24 +875,23 @@ Kernel mem_kernel(int R, int plan, bool one = false) {
   }
 }
 
-// [lanes by stride][chunked][product]
-const Kernel kProductKernels[2][2][kProducts] = {
-    {{product_fwd_kernel<kProdU1, false, false>,
-      product_fwd_kernel<kProdLogits, false, false>,
-      product_fwd_kernel<kProdU2Pu3, false, false>,
-      product_fwd_kernel<kProdChat, false, false>},
-     {product_fwd_kernel<kProdU1, true, false>,
-      product_fwd_kernel<kProdLogits, true, false>,
-      product_fwd_kernel<kProdU2Pu3, true, false>,
-      product_fwd_kernel<kProdChat, true, false>}},
-    {{product_fwd_kernel<kProdU1, false, true>,
-      product_fwd_kernel<kProdLogits, false, true>,
-      product_fwd_kernel<kProdU2Pu3, false, true>,
-      product_fwd_kernel<kProdChat, false, true>},
-     {product_fwd_kernel<kProdU1, true, true>,
-      product_fwd_kernel<kProdLogits, true, true>,
-      product_fwd_kernel<kProdU2Pu3, true, true>,
-      product_fwd_kernel<kProdChat, true, true>}}};
+// [one lane's in place, lanes by stride, lanes by stride in wide tiles]
+// [chunked][product]
+template <bool Z, int T>
+struct ProductTable {
+  Kernel k[2][kProducts] = {
+      {product_fwd_kernel<kProdU1, false, Z, T>,
+       product_fwd_kernel<kProdLogits, false, Z, T>,
+       product_fwd_kernel<kProdU2Pu3, false, Z, T>,
+       product_fwd_kernel<kProdChat, false, Z, T>},
+      {product_fwd_kernel<kProdU1, true, Z, T>,
+       product_fwd_kernel<kProdLogits, true, Z, T>,
+       product_fwd_kernel<kProdU2Pu3, true, Z, T>,
+       product_fwd_kernel<kProdChat, true, Z, T>}};
+};
+const ProductTable<false, kTile> kOneLaneProducts{};
+const ProductTable<true, kTile> kLaneProducts{};
+const ProductTable<true, kWideTile> kWideProducts{};
 const Kernel kSoftmaxKernels[2] = {softmax_fwd_kernel<false>,
                                    softmax_fwd_kernel<true>};
 
@@ -901,7 +925,7 @@ size_t mem_bytes_at(const EncodeArgs& a, int MR, int threads, int C) {
 int run(FwdLanes la, int CR, int MR, int lanes, bool one,
         const Scratch& scratch, int threads, int* fit, cudaStream_t stream) {
   EncodeArgs& a = la.a;
-  const int flat = a.t * a.n, tiles_m = (flat + kTile - 1) / kTile;
+  const int flat = a.t * a.n;
   size_t cell_bytes = 0, mem_bytes = 0;
   auto cells_at = [&](int C) { return cells_bytes(a, CR, threads, C); };
   const int Pc = chain_plan(cells_at, [&] { return cells_at(kWeightsL2); },
@@ -935,11 +959,22 @@ int run(FwdLanes la, int CR, int MR, int lanes, bool one,
           plan_smem(Pc, cell_bytes), Cc});
   for (int id = kProdU1; id < kProducts; ++id) {
     const ProductSpec spec = product_spec(a, id);
-    const int nc = product_chunks(spec.K);
-    add(2, {kProductKernels[!one][nc > 1][id],
-            dim3(tiles_m * ((spec.N + kTile - 1) / kTile), 1, lanes),
-            kProductThreads,
-            product_floats((spec.K + nc - 1) / nc) * sizeof(float), 1});
+    const int nc = product_chunks(spec.K), K = (spec.K + nc - 1) / nc;
+    auto tiles = [&](int T) {
+      return ((flat + T - 1) / T) * ((spec.N + T - 1) / T);
+    };
+    // over lanes wide tiles where they are many and fit at one lane's
+    // chunks
+    const bool wide = !one && (long long)tiles(kWideTile) * lanes >=
+                                  kWideBlocks &&
+                      product_floats(K, kWideTile) * sizeof(float) <=
+                          (size_t)kMaxSmemBytes;
+    const int T = wide ? kWideTile : kTile;
+    const auto& products = one    ? kOneLaneProducts.k
+                           : wide ? kWideProducts.k
+                                  : kLaneProducts.k;
+    add(2, {products[nc > 1][id], dim3(tiles(T), 1, lanes), kProductThreads,
+            product_floats(K, T) * sizeof(float), 1});
     if (id == kProdLogits)  // the softmax between the logits and u2
       add(2, {kSoftmaxKernels[!one],
               dim3((flat + threads / 32 - 1) / (threads / 32), 1, lanes),

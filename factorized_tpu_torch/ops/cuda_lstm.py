@@ -527,7 +527,7 @@ def _launch_bwd(wsum, gates, allc, dallh, h_dims, lanes: int = 0):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch_chains(
             fn, allc.device, [x.data_ptr() for x in operands],
-            [t, n, H, len(h_dims), dims, BWD_THREADS, _rows_arg(plan, lanes),
+            [t, n, H, len(h_dims), dims, BWD_THREADS, rows_arg(plan, lanes),
              max(lanes, 1), lane_strides(operands, lanes), fit, stream])
     _fit("decoder_lstm_bwd", fit, h_dims)
     _build.check(err, "decoder_lstm_bwd")
@@ -538,7 +538,7 @@ def _launch_bwd(wsum, gates, allc, dallh, h_dims, lanes: int = 0):
     return dgates, dh0, dc0
 
 
-def _rows_arg(plan, lanes):
+def rows_arg(plan, lanes):
     """A launcher's rows argument: the plan's over lanes, 0 for one lane
     (the source's one-lane count, which a build may override:
     ``perf_probe.py rows``)."""
@@ -808,7 +808,7 @@ def _launch_multi_bwd(gates, wh, allc, dhlast, h_dims, lanes: int = 0):
         err = launch_chains(
             fn, allc.device, [x.data_ptr() for x in operands],
             [t, n, H, len(h_dims), dims, MULTI_BWD_THREADS,
-             _rows_arg(plan, lanes), max(lanes, 1),
+             rows_arg(plan, lanes), max(lanes, 1),
              lane_strides(operands, lanes), fit, stream])
     _fit("multi_lstm_bwd", fit, h_dims)
     _build.check(err, "multi_lstm_bwd")

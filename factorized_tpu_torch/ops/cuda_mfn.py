@@ -73,7 +73,7 @@ from factorized_tpu_torch.ops.cuda_lstm import (
     chain_plan, check_lanes, conflict_free_pitch, count_lanes, count_plans,
     fwd_chain_bytes, lane_launches, lane_strides, lanes_of,
     lanes_per_output, launch_chains, pad4, recurrent_weight_grad_lanes,
-    refusal, rows_plan)
+    refusal, rows_arg, rows_plan)
 from factorized_tpu_torch.ops.lstm import recurrent_weight_grad
 
 W_NAMES = ("wh", "a1w1", "a1b1", "a1w2", "a1b2", "a2w1", "a2b1",
@@ -544,10 +544,7 @@ def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None, lanes=0):
                            device=xp.device)
 
     plan = fwd_plan(h_dims, s3, s4, mem, n, lanes, layout is not None)
-    # one lane: 0, the source's counts (which a build may override:
-    # perf_probe.py rows)
-    rows = [plan[c]["rows"] if lanes > 1 else 0
-            for c in ("lstm_chains", "memory_chain")]
+    rows = [rows_arg(plan[c], lanes) for c in ("lstm_chains", "memory_chain")]
     h_last, mem_last = empty(n, H), empty(n, mem)
     outs = [h_last, mem_last]
     # scratch: pu3, the logits and attended and, without residuals, the

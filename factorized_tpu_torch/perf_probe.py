@@ -58,12 +58,14 @@ alone. Prints JSON lines:
   32: device ms and events ms, launches a call, the plan each call took
   (``cuda_mfn.FWD_PLAN``'s, ``BWD_PLAN``'s and ``cuda_lstm.BWD_PLAN``'s
   rows, the blocks the card holds at once and the waves they take;
-  ``DW_PLAN``), the bound, and for the weight gradients the library's 7
-  ``torch.bmm`` and 7 sums; and ``mfn_kernels``, the encode's reverse
-  pass and weight gradients for one model with no lane axis at n = 128
-  for both ``best_mfn_mosi_config``s (``mfn_kernel_times``: device ms,
-  the plan). Like ``step_times`` it calls only what every lane build has
-  (a plan the build does not record is null), for the A/B;
+  ``DW_PLAN``), the bound, for the encode forward each of its kernels'
+  device ms (``split_ms``, torch.profiler), and for the weight gradients
+  the library's 7 ``torch.bmm`` and 7 sums; and ``mfn_kernels``, the
+  encode's reverse pass and weight gradients for one model with no lane
+  axis at n = 128 for both ``best_mfn_mosi_config``s
+  (``mfn_kernel_times``: device ms, the plan). Like ``step_times`` it
+  calls only what every lane build has (a plan the build does not record
+  is null), for the A/B;
 - ``phases`` (part ``phases``, run alone: it builds the kernels with
   ``FTT_PHASE_CLOCKS``): one line per chain kernel and cell, the mean
   SM cycles of each phase of a step over one call's steps, stamped by
@@ -736,6 +738,13 @@ def _plan_of(kernel):
             for c, p in plans.items()} or None
 
 
+def _split_ms(fn, reps=10):
+    """Device ms a call of each kernel that ``fn`` launches, by the name
+    torch.profiler gives it (its template arguments kept)."""
+    _, kernels = _profiled(fn, reps)
+    return {k: ms / reps for k, (ms, _) in kernels.items()}
+
+
 def _diag_bytes(h_dims):
     """Bytes of a packed recurrent weight's diagonal blocks (float32, four
     gates): the only part the kernels read."""
@@ -915,6 +924,8 @@ def lane_kernel_times(cfg, dev, K):
                      "device_ms": _device_ms(fn, 20 // launches),
                      "ms": _ms(fn, 20), "bound_ms": bound[0],
                      "bound_by": bound[1]}
+        if kernel == "mfm_encode_fwd":  # its passes' kernels apart
+            out[name]["split_ms"] = _split_ms(fn)
     out["mfm_encode_dw"]["library_device_ms"] = _device_ms(library, 20)
     out["mfm_encode_dw"]["library_ms"] = _ms(library, 20)
     return out

@@ -1309,9 +1309,9 @@ def _lane_operands(cfg, K, n, dev):
 @pytest.mark.parametrize("cfg,n", [(SMALL, 5), (best_acc_mosi_config(), 32)],
                          ids=["small", "train"])
 def test_lane_kernels_match_plain(cuda, cfg, n, K):
-    """Each of the seven kernel entry points over K lanes in one launch a
-    group of 8 lanes (the encode's reverse pass and weight gradients in
-    one launch) against its plain version lane by lane."""
+    """Each of the seven kernel entry points over K lanes, one launch a
+    call (the recurrences' forward one a group of 8 lanes), against its
+    plain version lane by lane."""
     (xp, masks, w, z_tot, h_dims), (h0, c0, wsum, b, dec_dims), \
         (mxp, mwh, m_dims), g = _lane_operands(cfg, K, n, cuda)
     t = cfg.seqlength

@@ -256,7 +256,8 @@ def fake_library(monkeypatch):
 def test_each_lane_kernel_counts_one_launch_a_call(fake_library, K):
     """The reverse pass and the weight gradients over K lanes: one launch
     each, counted once, and the chains' rows of ``bwd_plan`` passed; the
-    kernels launched a group of 8 lanes at a time count one a group."""
+    recurrences' forward, launched a group of 8 lanes at a time, counts
+    one a group."""
     t, n = 2, 3
     w = _weights(K)
     m2 = w["a1w1"].shape[1]
