@@ -184,18 +184,16 @@ Run from the repository root: ``python3 chip_smoke.py``. It
     restored state bit for bit (``lanes_resume``); ``check --dir`` on the
     ``mfm`` run printing the seeds' best (``lanes_check``); ``mfm`` at K
     = 1, 2, 4 and 8 (``lane_scaling``); one K = 8 step of ``m_a``,
-    ``m_c``, ``kl_ef`` (stages 1 and 2) and ``missing`` each
-    (``lane_models``): the gradients against the CPU's, the step's
+    ``m_c``, ``kl``, ``m_d``, ``kl_ef`` (stages 1 and 2) and ``missing``
+    each (``lane_models``): the gradients against the CPU's, the step's
     launches, and every lane kernel call of the step replayed lane by
     lane with no lane axis, lane k bit for bit;
 21. the shape-bucketed and evolving searches (``--bucket``,
     ``--evolve``, ``parallel/multiconfig.py``) and the lane kernels past
-    one launch's 8 lanes: each of the seven entry points at K = 12 (a
-    group of 8 and one of 4), 16 and 32 against its lane plain version
-    lane by lane at step 20's shapes and tolerances, each call launching
-    once (the encode's kernels and the chains' backward) or ``ceil(K /
-    8)`` times (the recurrences' forward), lane k of the former bit for
-    bit its one-lane call, timed at 16 and 32 with its library yardstick
+    8 lanes: each of the seven entry points at K = 12, 16 and 32 against
+    its lane plain version lane by lane at step 20's shapes and
+    tolerances, each call launching once, lane k bit for bit its one-lane
+    call, timed at 16 and 32 with its library yardstick
     lane by lane (7 ``torch.bmm`` and 7 sums, one ``nn.LSTM`` per cell and
     lane), the eval encode on the scratch plan at K = 12, and step 20g's
     check of ``kl_ef`` stage 1 at K = 12 (``lane_kernels``,
@@ -4265,16 +4263,16 @@ def lane_kernel_phase(cfg, dev, smi, K, timing=True, library=False):
     gradients, the decoder trio both ways and ``m_b``'s encoder trio [32,
     8, 80] (``multi_lstm``, train and eval) both ways at n = 32; forward
     within rtol 1e-4 / atol 1e-5, gradients within rtol 1e-3 / atol 2e-5.
-    Each call launches ``cuda_lstm.lane_launches(K, kernel)`` times (one
-    launch for any K for the encode's kernels and the chains' backward,
-    else one a group of 8 lanes), counted; lane k of each of those
-    kernels' K-lane calls equals lane k's call with a lane axis of one
-    and with none bit for bit (``lane_bits``), each call's plan logged.
+    Each call launches once for any K, counted; lane k of each kernel's
+    K-lane calls equals lane k's call with a lane axis of one and with
+    none bit for bit (``lane_bits``), each call's plan logged.
     With ``timing``, each timed at K lanes and at 1 (device ms, calls
     queued), beside its single-lane launch (no lane axis), its plain
     version at K and its bound at K (K times one lane's: K lanes' work and
     bytes); with ``library`` also its library yardstick lane by lane
-    (``lane_library_ms``). Returns {kernel: numbers}."""
+    (``lane_library_ms``). Returns {kernel: numbers}; ``missing``'s
+    decoder forward over 4n rows (``decoder_lstm_fwd.4n``) is checked and
+    timed beside them."""
     from factorized_tpu_torch.models import ablations, mfm
     from factorized_tpu_torch.models.common import mfn_drops
     from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
@@ -4283,14 +4281,16 @@ def lane_kernel_phase(cfg, dev, smi, K, timing=True, library=False):
     gen = torch.Generator(device=dev).manual_seed(SEED + 90)
     x = torch.randn((t, n, cfg.d_total), generator=gen, device=dev)
     xe = torch.randn((t, ne, cfg.d_total), generator=gen, device=dev)
+    x4 = torch.randn((t, 4 * n, cfg.d_total), generator=gen, device=dev)
     out = {}
     with torch.inference_mode():
-        enc, dec, enc_e, multi, multi_e = [], [], [], [], []
+        enc, dec, dec4, enc_e, multi, multi_e = [], [], [], [], [], []
         for k in range(K):
             p = mfm.MFM(cfg, seed=SEED + 100 + k, device=dev).tree()
             e, d = mfm.kernel_operands(p, x, cfg)
             enc.append(e[:2])
             dec.append(d[:4])
+            dec4.append(mfm.kernel_operands(p, x4, cfg)[1][:4])
             enc_e.append(mfm.encode_operands(
                 [p["enc"][m]["lstm"] for m in mfm._ENCODERS],
                 p["mfn_enc"]["mfn"],
@@ -4308,6 +4308,8 @@ def lane_kernel_phase(cfg, dev, smi, K, timing=True, library=False):
         xpe, we = lane_stack([a[0] for a in enc_e]), lane_stack(
             [a[1] for a in enc_e])
         h0, c0, wsum, b = (lane_stack([a[i] for a in dec]) for i in range(4))
+        h04, c04, _, b4 = (lane_stack([a[i] for a in dec4])
+                           for i in range(4))
         mxp, mwh = lane_stack([a[0] for a in multi]), lane_stack(
             [a[1] for a in multi])
         mxpe, mwhe = lane_stack([a[0] for a in multi_e]), lane_stack(
@@ -4360,6 +4362,12 @@ def lane_kernel_phase(cfg, dev, smi, K, timing=True, library=False):
         dfwd_ref = cuda_lstm.decoder_lstm_lanes_plain(h0, c0, wsum, b, t)
         err_decf = compare_all("lanes.decoder_lstm_fwd", zip(
             ("allh", "allc", "gates"), dfwd, dfwd_ref))
+        # missing's four decodes stacked: the decoders over 4n rows
+        dfwd4 = cuda_lstm.decoder_lstm_fwd_lanes(h04, c04, wsum, b4, t,
+                                                 dec_dims)
+        err_decf4 = compare_all("lanes.decoder_lstm_fwd.4n", zip(
+            ("allh", "allc", "gates"), dfwd4,
+            cuda_lstm.decoder_lstm_lanes_plain(h04, c04, wsum, b4, t)))
         allh, allc, gates = dfwd_ref
         dallh = torch.randn(allh.shape, generator=gen, device=dev)
         dbwd = cuda_lstm.decoder_lstm_bwd_lanes(wsum, gates, allc, dallh,
@@ -4431,6 +4439,13 @@ def lane_kernel_phase(cfg, dev, smi, K, timing=True, library=False):
                                                    b[0], t, dec_dims),
                 lambda: cuda_lstm.decoder_lstm_lanes_plain(h0, c0, wsum, b,
                                                            t)),
+            "decoder_lstm_fwd.4n": (
+                lambda o: cuda_lstm.decoder_lstm_fwd_lanes(*o, t, dec_dims),
+                (h04, c04, wsum, b4),
+                lambda: cuda_lstm.decoder_lstm_fwd(h04[0], c04[0], wsum[0],
+                                                   b4[0], t, dec_dims),
+                lambda: cuda_lstm.decoder_lstm_lanes_plain(h04, c04, wsum,
+                                                           b4, t)),
             "decoder_lstm_bwd": (
                 lambda o: cuda_lstm.decoder_lstm_bwd_lanes(*o, dec_dims),
                 (wsum, gates, allc, dallh),
@@ -4465,20 +4480,16 @@ def lane_kernel_phase(cfg, dev, smi, K, timing=True, library=False):
             before = lane_counts().get(kernel, 0)
             fn(ops)
             launched = lane_counts().get(kernel, 0) - before
-            if launched != cuda_lstm.lane_launches(K, kernel):
+            if launched != 1:
                 raise AssertionError(
                     f"{name} over {K} lanes launched {launched} times, not "
-                    f"{cuda_lstm.lane_launches(K, kernel)}")
+                    f"once")
             times[name] = {"launches_per_call": launched}
             if not timing:
                 continue
             ops1 = tuple(lane_first(o) for o in ops)
-            # as many launches queued behind the sleeping kernel as at 8
-            # lanes: a lane launch's arguments (up to 32 KB) fill CUDA's
-            # launch queue, and a full queue stalls the host
             times[name].update({
-                "device_ms": queued_ms(lambda: fn(ops),
-                                       reps=50 // launched),
+                "device_ms": queued_ms(lambda: fn(ops)),
                 "ms": cuda_ms(lambda: fn(ops), 20),
                 "device_ms_1_lane": queued_ms(lambda: fn(ops1)),
                 "device_ms_no_lane_axis": queued_ms(single),
@@ -4524,6 +4535,9 @@ def lane_kernel_phase(cfg, dev, smi, K, timing=True, library=False):
         "decoder_lstm_fwd": bound(2 * K * dec_mac,
                                   nbytes(h0, c0, b, *dfwd)
                                   + K * diag_bytes(dec_dims)),
+        "decoder_lstm_fwd.4n": bound(2 * K * 4 * dec_mac,
+                                     nbytes(h04, c04, b4, *dfwd4)
+                                     + K * diag_bytes(dec_dims)),
         "decoder_lstm_bwd": bound(2 * K * dec_mac,
                                   nbytes(gates, allc, dallh, *dbwd)
                                   + K * diag_bytes(dec_dims)),
@@ -4538,7 +4552,8 @@ def lane_kernel_phase(cfg, dev, smi, K, timing=True, library=False):
     }
     errs = {"mfm_encode_fwd.eval": err_eval, "mfm_encode_fwd": err_fwd,
             "mfm_encode_bwd": err_bwd, "mfm_encode_dw": err_dw,
-            "decoder_lstm_fwd": err_decf, "decoder_lstm_bwd": err_decb,
+            "decoder_lstm_fwd": err_decf, "decoder_lstm_fwd.4n": err_decf4,
+            "decoder_lstm_bwd": err_decb,
             "multi_lstm_fwd": err_mf, "multi_lstm_fwd.eval": err_mfe,
             "multi_lstm_bwd": err_mb}
     for name in calls:
@@ -4555,10 +4570,12 @@ def lane_kernel_phase(cfg, dev, smi, K, timing=True, library=False):
     return out
 
 
-# the calls of lane_kernel_phase whose kernels take lanes by stride:
+# the calls of lane_kernel_phase (every kernel takes its lanes by stride):
 # lane k of each K-lane call bit for bit its one-lane call (lane_bits)
 LANE_BIT_CALLS = ("mfm_encode_fwd.eval", "mfm_encode_fwd", "mfm_encode_bwd",
-                  "mfm_encode_dw", "decoder_lstm_bwd", "multi_lstm_bwd")
+                  "mfm_encode_dw", "decoder_lstm_fwd", "decoder_lstm_fwd.4n",
+                  "decoder_lstm_bwd", "multi_lstm_fwd", "multi_lstm_fwd.eval",
+                  "multi_lstm_bwd")
 
 
 def lane_plan(kernel):
@@ -4572,8 +4589,10 @@ def lane_plan(kernel):
 
     if kernel == "mfm_encode_dw":
         return dict(cuda_mfn.DW_PLAN)
-    if kernel in cuda_lstm.BWD_PLAN:
+    if kernel in ("decoder_lstm_bwd", "multi_lstm_bwd"):
         return rows(cuda_lstm.BWD_PLAN[kernel])
+    if kernel in ("decoder_lstm_fwd", "multi_lstm_fwd"):
+        return rows(cuda_lstm.FWD_PLAN[kernel])
     plan = cuda_mfn.FWD_PLAN if kernel == "mfm_encode_fwd" else \
         cuda_mfn.BWD_PLAN
     return {c: rows(p) for c, p in plan.items()}
@@ -4586,16 +4605,16 @@ def lane_bits(K, calls):
     and with none, bit for bit (``lane_replays``: each lane's arithmetic
     does not depend on K); each K-lane call's plan and launches. Raises
     where a bit differs."""
-    from factorized_tpu_torch.ops import cuda_lstm
-
     plans = {}
     with captured_lane_calls() as got:
         for name in LANE_BIT_CALLS:
             fn, ops = calls[name][:2]
+            before = lane_counts()
             fn(ops)
             kernel = name.split(".")[0]
             plans[name] = {"plan": lane_plan(kernel),
-                           "launches": cuda_lstm.lane_launches(K, kernel)}
+                           "launches": lane_counts()[kernel]
+                           - before.get(kernel, 0)}
     return {"lanes": K, "calls": plans,
             "one_lane": lane_replays(got, axis=True),
             "no_lane_axis": lane_replays(got), "same_bits": True}
@@ -4703,16 +4722,21 @@ def lane_grads_vs_cpu(cfg, dev, K):
                         for k in grads["cpu"]], GRAD_RTOL, GRAD_ATOL)
 
 
-# step 20g: the lanes of the models whose train steps reach the encode
-# forward and the LSTM chain backward at widths mfm's and m_b's lanes do
-# not: m_a and m_c (the encode with one encoder cell or none), kl_ef's
-# two stages (multi_lstm both ways; stage 1 also the decoders) and missing
-# (the decoders over 4n rows); each with the kernels its step launches
+# step 20g: the lanes of the models whose train steps reach the lane
+# kernels at widths or through losses mfm's and m_b's lanes do not: m_a
+# and m_c (the encode with one encoder cell or none), kl (the encode and
+# the decoders under the KL term), m_d (the encoder trio alone, no
+# decoder), kl_ef's two stages (multi_lstm both ways; stage 1 also the
+# decoders) and missing (the decoders over 4n rows); each with the kernels
+# its step launches
 LANE_MODELS = {
     "m_a": ("mfm_encode_fwd", "mfm_encode_bwd", "mfm_encode_dw",
             "decoder_lstm_fwd", "decoder_lstm_bwd"),
     "m_c": ("mfm_encode_fwd", "mfm_encode_bwd", "mfm_encode_dw",
             "decoder_lstm_fwd", "decoder_lstm_bwd"),
+    "kl": ("mfm_encode_fwd", "mfm_encode_bwd", "mfm_encode_dw",
+           "decoder_lstm_fwd", "decoder_lstm_bwd"),
+    "m_d": ("multi_lstm_fwd", "multi_lstm_bwd"),
     "kl_ef.1": ("multi_lstm_fwd", "multi_lstm_bwd", "decoder_lstm_fwd",
                 "decoder_lstm_bwd"),
     "kl_ef.2": ("multi_lstm_fwd", "multi_lstm_bwd"),
@@ -4731,11 +4755,19 @@ def lane_model(cfg, name, n, generator):
     from factorized_tpu_torch.train import make_loss_fn
 
     model_type = name.split(".")[0]
-    if model_type in ("m_a", "m_c"):
+    if model_type in ("m_a", "m_c", "m_d"):
         mcfg = cfg.replace(model_type=model_type)
         return (model_type, mcfg,
                 make_loss_fn(get_model(model_type)[1], mcfg),
                 ablation_draws(mcfg, model_type, n, generator))
+    if model_type == "kl":
+        mcfg = cfg.replace(model_type="kl")
+        sizes = (cfg.att1_shape, cfg.att2_shape, cfg.gamma1_shape,
+                 cfg.gamma2_shape)
+        return (model_type, mcfg, make_loss_fn(get_model("kl")[1], mcfg),
+                {"encode_masks": cuda_mfn.make_dropout_masks(
+                    generator, cfg.seqlength, n, sizes, mfn_drops(cfg)),
+                 "zf_masks": zf_masks(cfg, n, generator)})
     if model_type == "kl_ef":
         mcfg = cfg.replace(model_type="kl_ef")
         return (model_type, mcfg,
@@ -4979,22 +5011,16 @@ def lane_path_times(loop, steps=3, replays=3):
 
 
 def lane_epoch_launches(loop, kernels, label, epoch=1):
-    """Each kernel's launches in the loop's replayed epoch ``epoch``:
-    ``cuda_lstm.lane_launches(lanes, kernel)`` a train step for all the
-    lanes (one for the encode's kernels and the chains' backward, else
-    one a group of 8 lanes; the forward kernels once more for the
+    """Each kernel's launches in the loop's replayed epoch ``epoch``: one
+    a train step for all the lanes (the forward kernels once more for the
     evaluation); of a one-model ``ChunkedLoop``, one a step."""
-    from factorized_tpu_torch.ops import cuda_lstm
-
     nb = int(loop.batches[0].shape[0])
     if loop.epoch.graph is None or len(loop.epoch_launches) <= epoch:
         raise AssertionError(f"{label}: epoch {epoch} was not a graph "
                              f"replay")
     seen = per_kernel(loop.epoch_launches[epoch])
-    lanes = getattr(loop.opt, "lanes", 0)
-    want = {k: cuda_lstm.lane_launches(lanes, k)
-            * (nb + (k in ("mfm_encode_fwd", "decoder_lstm_fwd",
-                           "multi_lstm_fwd"))) for k in kernels}
+    want = {k: nb + (k in ("mfm_encode_fwd", "decoder_lstm_fwd",
+                           "multi_lstm_fwd")) for k in kernels}
     got = {k: seen[k] for k in kernels}
     if got != want:
         raise AssertionError(f"{label}: a replayed epoch launched {got}, "
@@ -5184,8 +5210,7 @@ def lanes_phase(cfg, dev, smi, tmp):
     return kernels, paths, lane_launches
 
 
-# step 21: lane counts past 8 (for lstm_fwd.cu's kernels, one launch a
-# group of 8: a group of 8 and one of 4, two groups, four)
+# step 21: lane counts past 8, one launch a call at each
 LANES_PAST = (12, 16, 32)
 # step 21a: a model of step 20g whose lanes reach both the encoder cells'
 # and the decoders' chain backward, past 8 lanes
@@ -5198,8 +5223,9 @@ def scratch_lanes_check(cfg, dev, K):
     """Step 21a: the eval encode on the scratch plan (an MFN cell of 600
     units, whose per-row state passes a block: ``cuda_lstm.SCRATCH``) over
     K lanes, lane k a model of its own seed, against the lane plain
-    version: the groups of 8 lanes of a call share one scratch reservation
-    sized for 8, so a group that overwrote another's state would show."""
+    version: every lane's blocks keep their state in slices of one
+    scratch reservation, so a lane that overwrote another's state would
+    show."""
     from factorized_tpu_torch.models import mfm
     from factorized_tpu_torch.ops import cuda_lstm, cuda_mfn
 
@@ -5298,9 +5324,8 @@ def evolve_search_check(cfg, dev, smi, data):
     ``EVOLVE_CONFIGS`` configs x ``EVOLVE_SEEDS`` seeds = 16 lanes,
     ``EVOLVE_RUNGS`` rungs of 2 epochs, on the synthetic MOSI set: every
     lane's losses finite and the survivors' falling, the culls those the
-    rung scores rank, each kernel launched ``lane_launches(16, kernel)``
-    times (twice; the encode's reverse pass and weight gradients once) a
-    train step for all the lanes in every replayed epoch, one LaneLoop
+    rung scores rank, each kernel launched once a train step for all the
+    lanes in every replayed epoch, one LaneLoop
     and one graph capture for the whole search; the host ms of each rung
     boundary (rank, score the finished lanes, recycle), then
     ``recycle_checks``. Returns (its line, launches, lane launches)."""
@@ -5550,8 +5575,7 @@ def search_commands(smi, tmp):
 def lane_loop_times(cfg, dev, data, K):
     """``mfm``'s lane path at K lanes built directly (step 20f's
     ``lane_scaling``): two epochs, the second a replay launching each
-    kernel ``cuda_lstm.lane_launches(K, kernel)`` times a step, then
-    ``lane_path_times``."""
+    kernel once a step, then ``lane_path_times``."""
     from factorized_tpu_torch.models import get_model
     from factorized_tpu_torch.parallel import multiseed
     from factorized_tpu_torch.train import LaneAdam

@@ -241,62 +241,15 @@ __device__ __forceinline__ float* state_base(float* smem, float* scratch,
 // Lanes: K problems of one shape in one launch, the counterpart of the
 // lane axis that jax.vmap puts in front of a Pallas grid (K seeds of one
 // model, each with its own weights), lane k's blocks those of blockIdx.z
-// = k. The encode's kernels (mfm_encode_fwd.cu, mfm_encode_bwd.cu) and the
-// chains' backward (lstm_bwd.cu) take lanes by stride: lane 0's arguments
-// and each array's lane stride, one launch a pass for any number, the
-// rows a block planned on the host from the lane count. The recurrences'
-// forward (lstm_fwd.cu) alone still takes the older form below: each
-// kernel a template on its argument In, instantiated twice: In = its
-// arguments A, the one-lane launch exactly as before lanes, and In =
-// LaneArgs<A>, whose lane k's arguments are lane[k], read in place
-// (__grid_constant__), built by the launcher from the lane-0 pointers and
-// a per-lane stride a pointer operand (0: the lanes share it). A launch
-// holds up to kMaxLanes lanes (the arguments stay within the 32 KB a
-// kernel parameter may take); more lanes take one launch a group of
-// kMaxLanes. In either form the plan (clusters, scratch, staging) is
-// made from one lane's widths and is the same for every lane.
-constexpr int kMaxLanes = 8;
-
-template <typename A>
-struct LaneArgs {
-  A lane[kMaxLanes];
-};
-
-// This block's lane's arguments: the kernel's own for one lane, else its
-// lane's of LaneArgs.
-template <typename A>
-__device__ __forceinline__ const A& lane_of(const A& a) {
-  return a;
-}
-
-template <typename A>
-__device__ __forceinline__ const A& lane_of(const LaneArgs<A>& la) {
-  return la.lane[blockIdx.z];
-}
-
-// A kernel's two instantiations (see kMaxLanes).
-template <typename A>
-struct LaneKernel {
-  void (*one)(A);
-  void (*many)(LaneArgs<A>);
-};
-
-// The LaneKernel of kernel<In, args...>.
-#define FTT_LANE_KERNEL(A, kernel, ...)   \
-  (::ftt::LaneKernel<A>{kernel<A, __VA_ARGS__>, \
-                        kernel<::ftt::LaneArgs<A>, __VA_ARGS__>})
-
-// Lane k's copy of the operand at p, `stride` floats a lane (null stays
-// null).
-template <typename T>
-inline T* at_lane(T* p, const long long* strides, int i, int k) {
-  return p == nullptr ? p : p + strides[i] * k;
-}
-
-// The lanes a launch of `lanes` lanes holds at once: its grid's z.
-inline int lanes_at_once(int lanes) {
-  return lanes < kMaxLanes ? lanes : kMaxLanes;
-}
+// = k. Every kernel (mfm_encode_fwd.cu, mfm_encode_bwd.cu, lstm_fwd.cu,
+// lstm_bwd.cu) takes its lanes by stride: its argument holds lane 0's
+// arguments and each array's floats from one lane's to the next (0 where
+// the lanes share it), and a block adds blockIdx.z strides to each
+// pointer; one launch a pass for any number of lanes. The plan (clusters,
+// scratch, staging) is made from one lane's widths and is the same for
+// every lane; the rows a block are planned on the host from the lane
+// count. At one lane's rows each kernel keeps an instantiation that reads
+// its arguments in place, the launch as it was before lanes.
 
 // Launches `kernel` on clusters of C blocks along x (a plain launch for
 // C = 1); grid.x must be a multiple of C. The cluster is (C, 1, 1), so a
@@ -324,46 +277,6 @@ inline cudaError_t launch_clusters(void (*kernel)(Args), dim3 grid,
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
-}
-
-// `kernel` over `lanes` lanes, lane k's arguments make(k): one launch
-// (grid.z the lanes) for each group of up to kMaxLanes, in lane order.
-template <typename A, typename F>
-inline cudaError_t launch_lanes(void (*kernel)(LaneArgs<A>), dim3 grid,
-                                int threads, size_t bytes, int C,
-                                cudaStream_t stream, int lanes, F make) {
-  static_assert(sizeof(LaneArgs<A>) <= 32764,
-                "a kernel parameter holds at most 32,764 bytes");
-  for (int k0 = 0; k0 < lanes; k0 += kMaxLanes) {
-    LaneArgs<A> la;
-    grid.z = lanes_at_once(lanes - k0);
-    for (int k = 0; k < (int)grid.z; ++k) la.lane[k] = make(k0 + k);
-    cudaError_t err =
-        launch_clusters(kernel, grid, threads, bytes, C, stream, la);
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
-// k over `lanes` lanes, lane j's arguments make(j): for one lane k.one,
-// the launch as before lanes, else launch_lanes of k.many.
-template <typename A, typename F>
-inline cudaError_t launch_lane_kernel(const LaneKernel<A>& k, dim3 grid,
-                                      int threads, size_t bytes, int C,
-                                      cudaStream_t stream, int lanes,
-                                      F make) {
-  if (lanes == 1)
-    return launch_clusters(k.one, grid, threads, bytes, C, stream, make(0));
-  return launch_lanes(k.many, grid, threads, bytes, C, stream, lanes, make);
-}
-
-// allow_smem for the instantiation a launch of `lanes` lanes takes.
-template <typename A>
-inline cudaError_t allow_lane_smem(const LaneKernel<A>& k, int lanes,
-                                   size_t bytes) {
-  return lanes == 1 ? allow_smem(reinterpret_cast<const void*>(k.one), bytes)
-                    : allow_smem(reinterpret_cast<const void*>(k.many),
-                                 bytes);
 }
 
 // This block's rank in its cluster of C (0 without one).

@@ -46,6 +46,18 @@
 // decoders read their bias with both 0 and no (t, n, 4H) buffer is made
 // for it. Float32 on the CUDA cores, every sum in a fixed order: the same
 // bits on every run.
+//
+// Lanes: K problems of one shape (K seeds' or configs' recurrences) in one
+// launch, whatever K: lane 0's arguments and each array's floats from one
+// lane's to the next (0 where the lanes share it), lane k's blocks those
+// of blockIdx.z = k, which add k strides to each pointer
+// (ChainFwdLanes), as lstm_bwd.cu's chains. A lane's blocks do the
+// one-lane launch's arithmetic, so lane k's bits do not depend on K. The
+// batch rows a block are chosen on the host from K and n
+// (cuda_lstm.chain_fwd_plan) among the instantiated counts; the gates
+// product's split of a column's depth over kg groups follows the cell's
+// columns and the threads, not the rows (cell_fwd.cuh's fwd_tile), so
+// each row's sums keep their order at every count.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,11 +70,19 @@ namespace ftt {
 namespace {
 
 constexpr int kThreads = 512;
-// Batch rows a block takes, the fastest measured by perf_probe.py rows
-// (PERF.md): the decoders' at the training batch (n = 32, most of their
-// launches), the encoder cells' eval variant at the serving batch (n =
-// 256) and their train variant at the training batch. perf_probe.py rows
-// sweeps them by rebuilding with -D overrides of these macros.
+// Batch rows a block of the decoders' and of the encoder cells' chains
+// takes: one of these instantiated counts, chosen on the host
+// (cuda_lstm.chain_fwd_plan, which lists the same counts). A decoder block
+// of 16 rows does not fit beside the 104-unit cell's weights, nor an
+// encoder-cell block of 32 beside an 80-unit cell's.
+constexpr int kDecoderFwdRowCounts[] = {1, 2, 4, 8};
+constexpr int kMultiFwdRowCounts[] = {1, 2, 4, 8, 16};
+// The counts one lane takes, at any batch, the fastest measured by
+// perf_probe.py rows (PERF.md): the decoders' at the training batch (n =
+// 32, most of their launches), the encoder cells' eval variant at the
+// serving batch (n = 256) and their train variant at the training batch.
+// perf_probe.py rows sweeps them by rebuilding with -D overrides of these
+// macros.
 #ifndef FTT_DECODER_FWD_ROWS
 #define FTT_DECODER_FWD_ROWS 2
 #endif
@@ -75,6 +95,10 @@ constexpr int kThreads = 512;
 constexpr int kDecoderFwdRows = FTT_DECODER_FWD_ROWS;
 constexpr int kMultiEvalRows = FTT_MULTI_EVAL_ROWS;
 constexpr int kMultiTrainRows = FTT_MULTI_TRAIN_ROWS;
+static_assert(listed(kDecoderFwdRowCounts, kDecoderFwdRows) &&
+                  listed(kMultiFwdRowCounts, kMultiEvalRows) &&
+                  listed(kMultiFwdRowCounts, kMultiTrainRows),
+              "one lane's rows are an instantiated count");
 
 struct ChainFwdArgs {
   const float* x;     // encoder cells: xp (t, n, 4H); decoders: b (4H)
@@ -94,23 +118,59 @@ struct ChainFwdArgs {
   Cells cells;
 };
 
+// The lane strides of the chain's arrays (ChainFwdArgs' pointers).
+enum ChainFwdLane {
+  kLaneX,
+  kLaneH0,
+  kLaneC0,
+  kLaneW,
+  kLaneHLast,
+  kLaneAllh,
+  kLaneAllc,
+  kLaneGates,
+  kChainFwdLanes
+};
+
+// The kernel's argument: lane 0's arguments and the lane strides.
+struct ChainFwdLanes {
+  ChainFwdArgs a;
+  long long stride[kChainFwdLanes];
+};
+
+using Kernel = void (*)(ChainFwdLanes);
+
+// This block's lane's arguments (blockIdx.z = k): lane 0's with k strides
+// added to each pointer (a null one has stride 0 and stays null). The cell
+// table is read from `la.a.cells`, in place: a block indexes it by its
+// cell.
+__device__ __forceinline__ ChainFwdArgs lane_args(const ChainFwdLanes& la) {
+  ChainFwdArgs a = la.a;
+  const long long z = blockIdx.z;
+  const long long* s = la.stride;
+  a.x += z * s[kLaneX];
+  a.h0 += z * s[kLaneH0];
+  a.c0 += z * s[kLaneC0];
+  a.w += z * s[kLaneW];
+  a.h_last += z * s[kLaneHLast];
+  a.allh += z * s[kLaneAllh];
+  a.allc += z * s[kLaneAllc];
+  a.gates += z * s[kLaneGates];
+  return a;
+}
+
 // blockIdx.z is the lane, blockIdx.y the cell, blockIdx.x / C the row
 // tile and the rank in the cluster of C its share of the cell's gate
 // columns. D: the decoders (state (h0, c0) in slot 0, steps 1 to t - 1);
 // else a zero state and steps 0 to t - 1. L2: the weights read in place
 // (C = 1); S: with them the state in the block's scratch slice
-// (kStateScratch). In: the arguments, one lane's or LaneArgs
-// (lstm_common.cuh).
-// __grid_constant__: the cell table is indexed by blockIdx.y (see
-// lstm_bwd.cu).
-template <typename In, int R, int C, bool D, bool L2, bool S = false>
-__global__ void __launch_bounds__(kThreads)
-    lstm_chain_fwd_kernel(const __grid_constant__ In la) {
+// (kStateScratch).
+template <int R, int C, bool D, bool L2, bool S>
+__device__ __forceinline__ void lstm_chain_fwd(const ChainFwdArgs& a,
+                                               const Cells& cells) {
   static_assert(!S || (L2 && C == 1), "the scratch plan reads from L2");
-  const ChainFwdArgs& a = lane_of(la);
   extern __shared__ float smem[];
   const int rank = cluster_rank<C>();
-  const FwdTile c = fwd_tile<C, L2>(a.cells, blockIdx.y, blockDim.x, rank,
+  const FwdTile c = fwd_tile<C, L2>(cells, blockIdx.y, blockDim.x, rank,
                                     a.H);
   const int h = c.h, H = a.H;
   const float* const w = cell_weights<L2>(smem, a.w, H, c.k0);
@@ -177,142 +237,217 @@ __global__ void __launch_bounds__(kThreads)
   if (C > 1) cluster_barrier<C>();
 }
 
-// The plan and the launch: the smallest cluster whose blocks fit, else
-// the weights read from L2, else with them the state in the scratch
-// (lstm_common.cuh's chain_plan); kNeedScratch, launching nothing, while
-// the scratch is short of what that plan takes. a is lane 0's arguments,
-// lane(k) lane k's (its pointers; the rest is a's).
-template <int R, bool D, typename F>
-int launch(ChainFwdArgs a, F lane, int lanes, const Scratch& scratch,
-           int* fit, cudaStream_t stream) {
+// Instantiated for lanes by stride (Z) and, at one lane's row counts, for
+// one lane's arguments read in place (the launch as it was before lanes:
+// no copy of the arguments, so the same code as a model without lanes).
+// __grid_constant__: the cell table is indexed by blockIdx.y (see
+// lstm_bwd.cu).
+template <int R, int C, bool D, bool L2, bool S = false, bool Z = true>
+__global__ void __launch_bounds__(kThreads)
+    lstm_chain_fwd_kernel(const __grid_constant__ ChainFwdLanes la) {
+  if (Z)
+    lstm_chain_fwd<R, C, D, L2, S>(lane_args(la), la.a.cells);
+  else
+    lstm_chain_fwd<R, C, D, L2, S>(la.a, la.a.cells);
+}
+
+// The kernel of a chain at R rows a block for a plan (lstm_common.cuh's
+// chain_kernel); Z: lanes by stride.
+template <int R, bool D, bool Z = true>
+Kernel chain_for(int plan) {
+  const Kernel k[6] = {lstm_chain_fwd_kernel<R, 1, D, true, false, Z>,
+                       lstm_chain_fwd_kernel<R, 1, D, false, false, Z>,
+                       lstm_chain_fwd_kernel<R, 2, D, false, false, Z>,
+                       lstm_chain_fwd_kernel<R, 4, D, false, false, Z>,
+                       lstm_chain_fwd_kernel<R, 8, D, false, false, Z>,
+                       lstm_chain_fwd_kernel<R, 1, D, true, true, Z>};
+  return chain_kernel(k, plan);
+}
+
+// The decoders' (D) or the encoder cells' kernel at R rows a block and a
+// plan: null for a count with no instantiation (kDecoderFwdRowCounts,
+// kMultiFwdRowCounts; for one lane's arguments in place, `one`, only one
+// lane's counts).
+Kernel chain_rows(bool D, int R, int plan, bool one = false) {
+  static_assert(sizeof(kDecoderFwdRowCounts) == 4 * sizeof(int) &&
+                    sizeof(kMultiFwdRowCounts) == 5 * sizeof(int),
+                "the switches");
+  if (one) {
+    if (D)
+      return R == kDecoderFwdRows
+                 ? chain_for<kDecoderFwdRows, true, false>(plan)
+                 : nullptr;
+    if (R == kMultiTrainRows)
+      return chain_for<kMultiTrainRows, false, false>(plan);
+    return R == kMultiEvalRows ? chain_for<kMultiEvalRows, false, false>(plan)
+                               : nullptr;
+  }
+  if (D) {
+    switch (R) {
+      case kDecoderFwdRowCounts[0]:
+        return chain_for<kDecoderFwdRowCounts[0], true>(plan);
+      case kDecoderFwdRowCounts[1]:
+        return chain_for<kDecoderFwdRowCounts[1], true>(plan);
+      case kDecoderFwdRowCounts[2]:
+        return chain_for<kDecoderFwdRowCounts[2], true>(plan);
+      case kDecoderFwdRowCounts[3]:
+        return chain_for<kDecoderFwdRowCounts[3], true>(plan);
+      default: return nullptr;
+    }
+  }
+  switch (R) {
+    case kMultiFwdRowCounts[0]:
+      return chain_for<kMultiFwdRowCounts[0], false>(plan);
+    case kMultiFwdRowCounts[1]:
+      return chain_for<kMultiFwdRowCounts[1], false>(plan);
+    case kMultiFwdRowCounts[2]:
+      return chain_for<kMultiFwdRowCounts[2], false>(plan);
+    case kMultiFwdRowCounts[3]:
+      return chain_for<kMultiFwdRowCounts[3], false>(plan);
+    case kMultiFwdRowCounts[4]:
+      return chain_for<kMultiFwdRowCounts[4], false>(plan);
+    default: return nullptr;
+  }
+}
+
+// The plan and the launch of every lane's chains at R rows a block: the
+// smallest cluster whose blocks fit, else the weights read from L2, else
+// with them the state in the scratch (lstm_common.cuh's chain_plan);
+// kNeedScratch, launching nothing, while the scratch is short of what that
+// plan takes (every lane's blocks their own slices). One lane at one
+// lane's count takes the kernel that reads its arguments in place.
+int launch(ChainFwdLanes la, bool D, int R, int lanes,
+           const Scratch& scratch, int* fit, cudaStream_t stream) {
+  ChainFwdArgs& a = la.a;
   size_t bytes = 0;
   auto at = [&](int C) { return fwd_chain_bytes(a.cells, R, kThreads, C); };
   const int plan = chain_plan(at, [&] { return at(kWeightsL2); }, &bytes);
   fit[kFitChainA] = plan;
   const int C = plan_blocks(plan);
-  const dim3 grid(((a.n + R - 1) / R) * C, a.cells.count);
+  const dim3 grid(((a.n + R - 1) / R) * C, a.cells.count, lanes);
   if (plan == kStateScratch) {
-    a.state = reserve(scratch,
-                      (long long)grid.x * grid.y * lanes_at_once(lanes),
-                      bytes, &a.slice);
+    a.state = reserve(scratch, (long long)grid.x * grid.y * lanes, bytes,
+                      &a.slice);
     if (a.state == nullptr) return kNeedScratch;
   }
-  using A = ChainFwdArgs;
-  const LaneKernel<A> kernels[6] = {
-      FTT_LANE_KERNEL(A, lstm_chain_fwd_kernel, R, 1, D, true),
-      FTT_LANE_KERNEL(A, lstm_chain_fwd_kernel, R, 1, D, false),
-      FTT_LANE_KERNEL(A, lstm_chain_fwd_kernel, R, 2, D, false),
-      FTT_LANE_KERNEL(A, lstm_chain_fwd_kernel, R, 4, D, false),
-      FTT_LANE_KERNEL(A, lstm_chain_fwd_kernel, R, 8, D, false),
-      FTT_LANE_KERNEL(A, lstm_chain_fwd_kernel, R, 1, D, true, true)};
-  const LaneKernel<A> kernel = chain_kernel(kernels, plan);
+  const bool one = lanes == 1 && chain_rows(D, R, plan, true) != nullptr;
+  const Kernel kernel = chain_rows(D, R, plan, one);
   bytes = plan_smem(plan, bytes);
-  cudaError_t err = allow_lane_smem(kernel, lanes, bytes);
+  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), bytes);
   if (err != cudaSuccess) return (int)err;
-  auto args = [&](int k) {
-    ChainFwdArgs b = a;
-    const ChainFwdArgs l = lane(k);
-    b.x = l.x;
-    b.h0 = l.h0;
-    b.c0 = l.c0;
-    b.w = l.w;
-    b.h_last = l.h_last;
-    b.allh = l.allh;
-    b.allc = l.allc;
-    b.gates = l.gates;
-    return b;
-  };
-  return (int)launch_lane_kernel(kernel, grid, kThreads, bytes, C, stream,
-                                 lanes, args);
+  return (int)launch_clusters(kernel, grid, kThreads, bytes, C, stream, la);
 }
 
-bool valid(int t, int n, int H, int n_cells, const int* cell_dims,
-           int lanes, const long long* lane_strides, const Scratch& scratch,
-           ChainFwdArgs* a) {
-  a->clocks = phase_clocks();
-  a->state = nullptr;
-  a->slice = 0;
-  a->t = t;
-  a->n = n;
-  a->H = H;
-  if (scratch.need == nullptr || lanes < 1 || lane_strides == nullptr)
+// Lane 0's arguments and the strides of the arrays given, in the entry
+// points' lane_strides order (`at`: each array's ChainFwdLane), checked;
+// false where a width, the rows or the lanes are refused.
+template <int N>
+bool make_lanes(const ChainFwdArgs& a, const int (&at)[N], bool D, int rows,
+                int n_cells, const int* cell_dims, int lanes,
+                const long long* lane_strides, const Scratch& scratch,
+                ChainFwdLanes* out) {
+  out->a = a;
+  for (int i = 0; i < kChainFwdLanes; ++i) out->stride[i] = 0;
+  if (scratch.need == nullptr || lanes < 1 || lanes > 65535 ||
+      lane_strides == nullptr || chain_rows(D, rows, 1) == nullptr)
     return false;
+  for (int i = 0; i < N; ++i) out->stride[at[i]] = lane_strides[i];
   *scratch.need = 0;
-  return make_cells(n_cells, cell_dims, H, &a->cells) && t >= 1 && n >= 1;
+  return make_cells(n_cells, cell_dims, a.H, &out->a.cells) && a.t >= 1 &&
+         a.n >= 1;
 }
 
 }  // namespace
 }  // namespace ftt
 
-// All arrays float32 and contiguous, shaped as in ChainFwdArgs, each the
-// array of lane 0 of `lanes`: lane k's lies lane_strides[i] k floats on
-// (host memory, one stride for each array argument in order; 0 where the
-// lanes share it). b is (1, 4H) or (4H,). cell_dims (host memory) lists
-// the n_cells fused hidden widths, summing to H. state (state_floats
-// floats of device memory, or null) is the scratch of the kStateScratch
-// plan; state_need (host memory, one value) gets the floats the plan
-// takes, and the launcher returns kNeedScratch (-1) without launching
-// while state_floats is short of it. fit (host memory, six ints,
-// lstm_common.cuh's Fit) gets the plan the chain ran on (a cluster,
-// kWeightsL2 or kStateScratch), the same for every lane.
+// All arrays float32 and contiguous, shaped as in ChainFwdArgs; b is (1,
+// 4H) or (4H,). cell_dims (host memory) lists the n_cells fused hidden
+// widths, summing to H. rows: the batch rows a block takes, one of
+// kDecoderFwdRowCounts; 0 takes one lane's, kDecoderFwdRows; another
+// count is refused. state (state_floats floats of device memory, or null)
+// is the scratch of the kStateScratch plan; state_need (host memory, one
+// value) gets the floats the plan takes, and the launcher returns
+// kNeedScratch (-1) without launching while state_floats is short of it.
+// fit (host memory, six ints, lstm_common.cuh's Fit) gets the plan the
+// chain ran on (a cluster, kWeightsL2 or kStateScratch), the same for
+// every lane. Each array is the lane-0 one of `lanes`, one launch for them
+// all; lane_strides (host memory) the floats from one lane's array to the
+// next, one for each array argument in order (0: shared).
 extern "C" int decoder_lstm_fwd(const float* h0, const float* c0,
                                 const float* wsum, const float* b,
                                 float* allh, float* allc, float* gates,
                                 float* state, long long state_floats,
                                 long long* state_need, int t, int n, int H,
-                                int n_cells, const int* cell_dims, int lanes,
-                                const long long* lane_strides, int* fit,
-                                void* stream) {
+                                int n_cells, const int* cell_dims, int rows,
+                                int lanes, const long long* lane_strides,
+                                int* fit, void* stream) {
   using namespace ftt;
   clear_fit(fit);
   const Scratch scratch = {state, state_floats, state_need};
-  const long long* ls = lane_strides;
-  auto lane = [=](int k) {
-    return ChainFwdArgs{at_lane(b, ls, 3, k),     0,
-                        0,
-                        at_lane(h0, ls, 0, k),    at_lane(c0, ls, 1, k),
-                        at_lane(wsum, ls, 2, k),  nullptr,
-                        at_lane(allh, ls, 4, k),  at_lane(allc, ls, 5, k),
-                        at_lane(gates, ls, 6, k)};
-  };
-  ChainFwdArgs a = {b, 0, 0, h0, c0, wsum, nullptr, allh, allc, gates};
-  if (!valid(t, n, H, n_cells, cell_dims, lanes, ls, scratch, &a) || !allh ||
-      !allc || !gates)
+  const ChainFwdArgs a = {b,    0,    0,     h0,    c0,
+                          wsum, nullptr, allh, allc, gates,
+                          phase_clocks(), nullptr, 0, t, n, H, {}};
+  const int at[] = {kLaneH0,   kLaneC0,   kLaneW,    kLaneX,
+                    kLaneAllh, kLaneAllc, kLaneGates};
+  const int R = rows != 0 ? rows : kDecoderFwdRows;
+  ChainFwdLanes la;
+  if (!make_lanes(a, at, true, R, n_cells, cell_dims, lanes, lane_strides,
+                  scratch, &la) ||
+      !allh || !allc || !gates)
     return (int)cudaErrorInvalidValue;
-  return launch<kDecoderFwdRows, true>(a, lane, lanes, scratch, fit,
-                                       static_cast<cudaStream_t>(stream));
+  return launch(la, true, R, lanes, scratch, fit,
+                static_cast<cudaStream_t>(stream));
 }
 
 // The same for the encoder cells: with_res 0 is the eval variant (allh,
-// allc and gates may be null), 1 the train variant; lane_strides for xp,
-// wh, h_last, allh, allc and gates.
+// allc and gates may be null), 1 the train variant; rows one of
+// kMultiFwdRowCounts, 0 one lane's (kMultiTrainRows with residuals,
+// kMultiEvalRows without); lane_strides for xp, wh, h_last, allh, allc and
+// gates.
 extern "C" int multi_lstm_fwd(const float* xp, const float* wh,
                               float* h_last, float* allh, float* allc,
                               float* gates, float* state,
                               long long state_floats, long long* state_need,
                               int t, int n, int H, int n_cells,
-                              const int* cell_dims, int with_res, int lanes,
-                              const long long* lane_strides, int* fit,
-                              void* stream) {
+                              const int* cell_dims, int with_res, int rows,
+                              int lanes, const long long* lane_strides,
+                              int* fit, void* stream) {
   using namespace ftt;
   clear_fit(fit);
   const Scratch scratch = {state, state_floats, state_need};
-  const long long* ls = lane_strides;
   if (!with_res) allh = allc = gates = nullptr;
-  auto lane = [=](int k) {
-    return ChainFwdArgs{at_lane(xp, ls, 0, k),     (size_t)n * 4 * H,
-                        4 * H,
-                        nullptr,                   nullptr,
-                        at_lane(wh, ls, 1, k),     at_lane(h_last, ls, 2, k),
-                        at_lane(allh, ls, 3, k),   at_lane(allc, ls, 4, k),
-                        at_lane(gates, ls, 5, k)};
-  };
-  ChainFwdArgs a = lane(0);
-  if (!valid(t, n, H, n_cells, cell_dims, lanes, ls, scratch, &a) ||
+  const ChainFwdArgs a = {xp,     (size_t)n * 4 * H, 4 * H, nullptr,
+                          nullptr, wh, h_last, allh, allc, gates,
+                          phase_clocks(), nullptr, 0, t, n, H, {}};
+  const int at[] = {kLaneX,    kLaneW,    kLaneHLast,
+                    kLaneAllh, kLaneAllc, kLaneGates};
+  const int R = rows != 0 ? rows : with_res ? kMultiTrainRows
+                                            : kMultiEvalRows;
+  ChainFwdLanes la;
+  if (!make_lanes(a, at, false, R, n_cells, cell_dims, lanes, lane_strides,
+                  scratch, &la) ||
       h_last == nullptr || (with_res && (!allh || !allc || !gates)))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return with_res
-             ? launch<kMultiTrainRows, false>(a, lane, lanes, scratch, fit, st)
-             : launch<kMultiEvalRows, false>(a, lane, lanes, scratch, fit, st);
+  return launch(la, false, R, lanes, scratch, fit,
+                static_cast<cudaStream_t>(stream));
+}
+
+// The blocks of the decoders' (decoder 1) or the encoder cells' (0) chain
+// at `rows` rows a block on chain plan `plan` (a cluster of 1, 2, 4 or 8,
+// kWeightsL2 or kStateScratch), `threads` threads and `smem` bytes of
+// dynamic shared memory that the current card holds at once (*wave), as
+// lstm_chain_bwd_wave: the lane plan's waves (cuda_lstm.chain_fwd_plan).
+// The encoder cells' eval and train variants are one instantiation.
+// Refuses a count or plan with no instantiation.
+extern "C" int lstm_chain_fwd_wave(int decoder, int rows, int plan,
+                                   int threads, long long smem, int* wave) {
+  using namespace ftt;
+  if (wave == nullptr || threads < 32 || threads > kThreads ||
+      threads % 32 != 0 || smem < 0 || smem > kMaxSmemBytes ||
+      !known_plan(plan) || (decoder != 0 && decoder != 1))
+    return (int)cudaErrorInvalidValue;
+  const Kernel k = chain_rows(decoder == 1, rows, plan);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)blocks_at_once(reinterpret_cast<const void*>(k), threads,
+                             (size_t)smem, wave);
 }

@@ -53,18 +53,12 @@ MULTI_LAUNCHES = 0
 MULTI_BWD_LAUNCHES = 0
 # the launches of each kernel with a lane axis (``*_lanes`` wrappers and
 # the lane route under ``torch.func.vmap``), by kernel; they are counted in
-# the counters above too
+# the counters above too. Every kernel finds its lane's arrays by stride:
+# one launch a pass for any number of lanes
 LANE_LAUNCHES = {}
-# the lanes one launch of csrc/lstm_fwd.cu's kernels holds
-# (csrc/lstm_common.cuh's kMaxLanes), more lanes one launch a group; the
-# kernels of STRIDED_LANES find their lane's arrays by stride: one launch
-# a pass for any count
-MAX_LANES = 8
-STRIDED_LANES = ("mfm_encode_fwd", "mfm_encode_bwd", "mfm_encode_dw",
-                 "decoder_lstm_bwd", "multi_lstm_bwd")
 # threads per block of the backward chains at the training batch (n = 32),
 # the fastest measured by perf_probe.py (PERF.md); the forward chains'
-# rows and threads are fixed in csrc/lstm_fwd.cu
+# threads are fixed in csrc/lstm_fwd.cu
 BWD_THREADS = 512
 MULTI_BWD_THREADS = 256
 # the plan the last call of each wrapper ran its chain on: the
@@ -94,20 +88,31 @@ STATE_ARGTYPES = [ctypes.c_void_p, ctypes.c_longlong,
 # launch (benchprog.active_paths); chip_smoke.py step 24 holds it against
 # the plans the launchers report in CLUSTERS. The shared memory a block
 # may take (kMaxSmemBytes), the largest cluster, and the rows a block of
-# csrc/lstm_fwd.cu (decoders; encoder cells train, eval) and
+# one lane of csrc/lstm_fwd.cu (decoders; encoder cells train, eval) and
 # csrc/lstm_bwd.cu (decoders, encoder cells) takes
 MAX_SMEM_BYTES = 232448
 MAX_CLUSTER = 8
 FWD_THREADS = 512
 DECODER_FWD_ROWS, MULTI_TRAIN_ROWS, MULTI_EVAL_ROWS = 2, 2, 8
+# the forward chains take one of these row counts a block
+# (csrc/lstm_fwd.cu: kDecoderFwdRowCounts, kMultiFwdRowCounts), chosen by
+# chain_fwd_plan; one lane takes the counts above, the fastest measured
+# (perf_probe.py rows)
+DECODER_FWD_ROW_COUNTS, MULTI_FWD_ROW_COUNTS = (1, 2, 4, 8), (1, 2, 4, 8, 16)
+# a forward chain step's cost beside its gates product (the barriers, the
+# cell update, the next step's copies), in multiply-adds of the product a
+# row, as fitted to the chains' device ms over lanes at every count
+# (perf_probe.py lanes, PERF.md, PR 23); chain_fwd_plan's estimate
+FWD_STEP_COST = 290
 # the backward chains take one of these row counts a block
 # (csrc/lstm_bwd.cu: kDecoderRowCounts, kMultiRowCounts), chosen by
 # chain_bwd_plan; one lane takes DECODER_BWD_ROWS and MULTI_BWD_ROWS, the
 # fastest measured at the training batch (perf_probe.py rows)
 DECODER_BWD_ROW_COUNTS, MULTI_BWD_ROW_COUNTS = (1, 2, 4), (1, 2, 4, 8)
 DECODER_BWD_ROWS, MULTI_BWD_ROWS = 1, 2
-# the last call's plan of each backward chain kernel (chain_bwd_plan)
-BWD_PLAN = {}
+# the last call's plan of each forward and backward chain kernel
+# (chain_fwd_plan, chain_bwd_plan)
+FWD_PLAN, BWD_PLAN = {}, {}
 
 
 def pad4(floats: int) -> int:
@@ -210,21 +215,23 @@ def multi_plans(h_dims, train: bool = True):
     return plans
 
 
-def rows_plan(chain, bytes_at, counts, n, lanes, chains, wave, first=None):
+def rows_plan(chain, bytes_at, counts, n, lanes, chains, wave, first=None,
+              cost=None):
     """A chain's rows a block over ``lanes`` lanes, chosen among ``counts``
     (ascending, the kernel's instantiated ones; ``bytes_at(R)(C)`` its
     shared memory a block at R rows on a cluster of C): one lane the
     one-lane count ``first`` (default ``counts[0]``) at any batch, asking
     the card nothing; more lanes the R whose blocks, lanes x ceil(n / R)
     row tiles x ``chains`` x the plan's cluster, take the fewest waves of
-    what the card holds at once (``wave(chain, R, plan, smem_bytes)``),
+    what the card holds at once (``wave(chain, R, plan, smem_bytes)``) or,
+    given ``cost(R, plan, blocks, held)``, the least of that estimate;
     the smallest such R, among the counts whose chain plan sums in the
     order of the one-lane count's (the same cluster; one block, weights
     from L2 or the scratch plan alike). {"rows", "plan", "row_tiles",
-    "padded_rows", "blocks", "wave", "waves"} ("wave" and "waves" None for
-    one lane)."""
+    "padded_rows", "blocks", "wave", "waves", "cost"} ("wave", "waves"
+    and "cost" None for one lane, "cost" None without ``cost``)."""
     first = counts[0] if first is None else first
-    base, best = chain_plan(bytes_at(first)), None
+    base, best, best_key = chain_plan(bytes_at(first)), None, None
     for R in counts if lanes > 1 else (first,):
         at = bytes_at(R)
         plan = chain_plan(at)
@@ -232,26 +239,32 @@ def rows_plan(chain, bytes_at, counts, n, lanes, chains, wave, first=None):
             continue  # another cluster: another order of summation
         tiles = -(-n // R)
         blocks = lanes * tiles * chains * max(plan, 1)
-        held = waves = None
+        held = waves = estimate = None
         if lanes > 1:
             held = wave(chain, R, plan, 0 if plan == SCRATCH else at(plan))
             waves = -(-blocks // held)
-        if best is None or waves < best["waves"]:
+            if cost is not None:
+                estimate = cost(R, plan, blocks, held)
+        key = waves if estimate is None else estimate
+        if best is None or key < best_key:
+            best_key = key
             best = {"rows": R, "plan": plan, "row_tiles": tiles,
                     "padded_rows": tiles * R, "blocks": blocks,
-                    "wave": held, "waves": waves}
+                    "wave": held, "waves": waves, "cost": estimate}
     return best
 
 
 # the entry points that say what the card holds at once of a chain kernel,
 # by kernel: the C function and its chains, in the order of its `chain`
 # argument (csrc/mfm_encode_fwd.cu, csrc/mfm_encode_bwd.cu,
-# csrc/lstm_bwd.cu)
+# csrc/lstm_fwd.cu, csrc/lstm_bwd.cu)
 WAVE_EXPORTS = {
     "mfm_encode_fwd": ("mfm_encode_fwd_wave",
                        ("lstm_chains", "memory_chain")),
     "mfm_encode_bwd": ("mfm_encode_bwd_wave",
                        ("memory_chain", "lstm_chains")),
+    "lstm_chain_fwd": ("lstm_chain_fwd_wave",
+                       ("multi_lstm_fwd", "decoder_lstm_fwd")),
     "lstm_chain_bwd": ("lstm_chain_bwd_wave",
                        ("multi_lstm_bwd", "decoder_lstm_bwd")),
 }
@@ -279,6 +292,69 @@ def _chain_wave(device, kernel, chain, rows, plan, threads, smem_bytes):
     _build.check(err, f"{export} ({chain}, {rows} rows, plan {plan}, "
                       f"{smem_bytes} bytes)")
     return held[0]
+
+
+def lstm_fwd_wave(chain: str, rows: int, plan: int, smem_bytes: int) -> int:
+    """``chain_wave`` of the forward chain ``"decoder_lstm_fwd"`` or
+    ``"multi_lstm_fwd"`` (eval and train alike) at ``FWD_THREADS``."""
+    return chain_wave("lstm_chain_fwd", chain, rows, plan, FWD_THREADS,
+                      smem_bytes)
+
+
+def chain_fwd_plan(h_dims, n: int, lanes: int = 1, decoder: bool = True,
+                   train: bool = True, wave=None):
+    """The rows a block of the decoders' (``decoder``) or the encoder
+    cells' forward chain over the fused cells ``h_dims`` and ``n`` batch
+    rows, chosen from the lanes by ``rows_plan``: one lane
+    ``DECODER_FWD_ROWS``, or ``MULTI_TRAIN_ROWS`` with residuals
+    (``train``) and ``MULTI_EVAL_ROWS`` without; more lanes among
+    ``DECODER_FWD_ROW_COUNTS`` or ``MULTI_FWD_ROW_COUNTS`` the least of
+    ``fwd_chain_cost``'s estimate, a wave from ``wave`` (default
+    ``lstm_fwd_wave``: the current card's occupancy). The launcher passes
+    the rows."""
+    return _chain_fwd_plan(tuple(h_dims), n, max(lanes, 1), decoder,
+                           train, wave or lstm_fwd_wave)
+
+
+@functools.lru_cache(maxsize=None)
+def _chain_fwd_plan(h_dims, n, lanes, decoder, train, wave):
+    def bytes_at(R):
+        return lambda C: fwd_chain_bytes(h_dims, R, FWD_THREADS, C)
+
+    def cost(R, plan, blocks, held):
+        return fwd_chain_cost(h_dims, R, plan, blocks, held)
+
+    if decoder:
+        return rows_plan("decoder_lstm_fwd", bytes_at,
+                         DECODER_FWD_ROW_COUNTS, n, lanes, len(h_dims),
+                         wave, DECODER_FWD_ROWS, cost)
+    return rows_plan("multi_lstm_fwd", bytes_at, MULTI_FWD_ROW_COUNTS, n,
+                     lanes, len(h_dims), wave,
+                     MULTI_TRAIN_ROWS if train else MULTI_EVAL_ROWS, cost)
+
+
+def fwd_depth(h: int, C: int, threads: int = FWD_THREADS) -> int:
+    """The multiply-adds of a forward chain's gates product that one
+    thread of a block does a row and step on a cell of h units on a
+    cluster of C: its items (a gate column's share of the depth) times
+    each one's depth (csrc/cell_fwd.cuh's fwd_tile and cell_gates_fwd)."""
+    kc = cell_cols(h, max(C, 1))
+    kg = lanes_per_output(kc, threads)
+    while kg > 1 and kg > h:
+        kg >>= 1
+    return -(-kg * kc // threads) * -(-h // kg)
+
+
+def fwd_chain_cost(h_dims, R, plan, blocks, held) -> float:
+    """A forward chain launch's estimated time over lanes, in steps of one
+    multiply-add a row: each block's step ``FWD_STEP_COST`` plus its
+    cell's ``fwd_depth`` times R, and the launch the longer of its widest
+    cell's block and the blocks' sum over what the card holds at once
+    (``held``; ``blocks`` spread evenly over the cells). So more rows a
+    block pay only where the blocks fill more than the card at once: a
+    row costs a block about as much at 8 rows as at 2 (PERF.md, PR 23)."""
+    per = [FWD_STEP_COST + fwd_depth(h, plan) * R for h in h_dims]
+    return max(max(per), blocks / len(h_dims) * sum(per) / held)
 
 
 def lstm_bwd_wave(chain: str, rows: int, plan: int, smem_bytes: int) -> int:
@@ -318,20 +394,10 @@ def _chain_bwd_plan(h_dims, n, lanes, decoder, threads, wave):
                      lanes, len(h_dims), wave, MULTI_BWD_ROWS)
 
 
-def lane_launches(lanes: int, kernel: str = None) -> int:
-    """The launches a call of ``kernel`` over ``lanes`` lanes takes (1 for
-    none): one for any count for the kernels of ``STRIDED_LANES``, else
-    one a group of ``MAX_LANES``."""
-    if kernel in STRIDED_LANES:
-        return 1
-    return max(1, -(-lanes // MAX_LANES))
-
-
 def count_lanes(name: str, lanes: int):
     """Count a lane launch of kernel ``name`` in ``LANE_LAUNCHES``."""
     if lanes:
-        LANE_LAUNCHES[name] = LANE_LAUNCHES.get(name, 0) + lane_launches(
-            lanes, name)
+        LANE_LAUNCHES[name] = LANE_LAUNCHES.get(name, 0) + 1
 
 
 def lane_strides(tensors, lanes: int):
@@ -432,13 +498,14 @@ def decoder_lstm(h0, c0, wsum, b, t: int, h_dims):
 
 def _launch(h0, c0, wsum, b, t, h_dims, lanes: int = 0):
     """The decoder forward's kernel; with ``lanes`` every operand has a
-    leading lane dimension and one launch runs them all."""
+    leading lane dimension and one launch runs them all, the rows a block
+    ``chain_fwd_plan``'s (one lane: the source's own count)."""
     global LAUNCHES
     n, H = h0.shape[-2:]
     fn = _build.kernel(
         "decoder_lstm_fwd",
         [ctypes.c_void_p] * 7 + STATE_ARGTYPES + [ctypes.c_int] * 4
-        + [ctypes.POINTER(ctypes.c_int)] + LANE_ARGTYPES
+        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] + LANE_ARGTYPES
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     lead = (lanes,) if lanes else ()
 
@@ -450,17 +517,19 @@ def _launch(h0, c0, wsum, b, t, h_dims, lanes: int = 0):
     operands = (h0, c0, wsum, b, allh, allc, gates)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
     fit = (ctypes.c_int * 6)()
+    plan = chain_fwd_plan(h_dims, n, lanes, decoder=True)
     with torch.cuda.device(h0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch_chains(
             fn, h0.device, [x.data_ptr() for x in operands],
-            [t, n, H, len(h_dims), dims, max(lanes, 1),
-             lane_strides(operands, lanes), fit, stream])
+            [t, n, H, len(h_dims), dims, rows_arg(plan, lanes),
+             max(lanes, 1), lane_strides(operands, lanes), fit, stream])
     _fit("decoder_lstm_fwd", fit, h_dims)
     _build.check(err, "decoder_lstm_fwd")
-    LAUNCHES += lane_launches(lanes)
+    LAUNCHES += 1
     count_lanes("decoder_lstm_fwd", lanes)
     _count_plans("decoder_lstm_fwd")
+    FWD_PLAN["decoder_lstm_fwd"] = plan
     return allh, allc, gates
 
 
@@ -531,7 +600,7 @@ def _launch_bwd(wsum, gates, allc, dallh, h_dims, lanes: int = 0):
              max(lanes, 1), lane_strides(operands, lanes), fit, stream])
     _fit("decoder_lstm_bwd", fit, h_dims)
     _build.check(err, "decoder_lstm_bwd")
-    BWD_LAUNCHES += lane_launches(lanes, "decoder_lstm_bwd")
+    BWD_LAUNCHES += 1
     count_lanes("decoder_lstm_bwd", lanes)
     _count_plans("decoder_lstm_bwd")
     BWD_PLAN["decoder_lstm_bwd"] = plan
@@ -717,14 +786,15 @@ def _multi_lstm_eval_shape(xp, wh, h_dims):
 
 
 def _launch_multi(xp, wh, h_dims, with_res, lanes: int = 0):
+    """The encoder cells' forward kernel, as ``_launch``."""
     global MULTI_LAUNCHES
     t, n, H4 = xp.shape[-3:]
     H = H4 // 4
     fn = _build.kernel(
         "multi_lstm_fwd",
         [ctypes.c_void_p] * 6 + STATE_ARGTYPES + [ctypes.c_int] * 4
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_int] + LANE_ARGTYPES
-        + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
+        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 2
+        + LANE_ARGTYPES + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
     lead = (lanes,) if lanes else ()
 
     def empty(*shape):
@@ -738,18 +808,21 @@ def _launch_multi(xp, wh, h_dims, with_res, lanes: int = 0):
     operands = (xp, wh, outs[0], *res)
     dims = (ctypes.c_int * len(h_dims))(*h_dims)
     fit = (ctypes.c_int * 6)()
+    plan = chain_fwd_plan(h_dims, n, lanes, decoder=False, train=with_res)
     with torch.cuda.device(xp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = launch_chains(
             fn, xp.device,
             [None if x is None else x.data_ptr() for x in operands],
-            [t, n, H, len(h_dims), dims, int(with_res), max(lanes, 1),
+            [t, n, H, len(h_dims), dims, int(with_res),
+             rows_arg(plan, lanes), max(lanes, 1),
              lane_strides(operands, lanes), fit, stream])
     _fit("multi_lstm_fwd", fit, h_dims)
     _build.check(err, "multi_lstm_fwd")
-    MULTI_LAUNCHES += lane_launches(lanes)
+    MULTI_LAUNCHES += 1
     count_lanes("multi_lstm_fwd", lanes)
     _count_plans("multi_lstm_fwd")
+    FWD_PLAN["multi_lstm_fwd"] = plan
     return tuple(outs) if with_res else outs[0]
 
 
@@ -812,7 +885,7 @@ def _launch_multi_bwd(gates, wh, allc, dhlast, h_dims, lanes: int = 0):
              lane_strides(operands, lanes), fit, stream])
     _fit("multi_lstm_bwd", fit, h_dims)
     _build.check(err, "multi_lstm_bwd")
-    MULTI_BWD_LAUNCHES += lane_launches(lanes, "multi_lstm_bwd")
+    MULTI_BWD_LAUNCHES += 1
     count_lanes("multi_lstm_bwd", lanes)
     _count_plans("multi_lstm_bwd")
     BWD_PLAN["multi_lstm_bwd"] = plan

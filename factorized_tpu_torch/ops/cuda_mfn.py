@@ -71,7 +71,7 @@ from factorized_tpu_torch.ops import cuda_lstm
 from factorized_tpu_torch.ops.cuda_lstm import (
     LANE_ARGTYPES, STATE_ARGTYPES, batched, cell_chain_bytes, cell_columns,
     chain_plan, check_lanes, conflict_free_pitch, count_lanes, count_plans,
-    fwd_chain_bytes, lane_launches, lane_strides, lanes_of,
+    fwd_chain_bytes, lane_strides, lanes_of,
     lanes_per_output, launch_chains, pad4, recurrent_weight_grad_lanes,
     refusal, rows_arg, rows_plan)
 from factorized_tpu_torch.ops.lstm import recurrent_weight_grad
@@ -581,9 +581,9 @@ def _launch_fwd(xp, masks, weights, z_tot, h_dims, layout=None, lanes=0):
          f"s3 + s4 {s3 + s4}")
     _build.check(err, "mfm_encode_fwd")
     if layout == "split":
-        SPLIT_LAUNCHES += lane_launches(lanes, "mfm_encode_fwd")
+        SPLIT_LAUNCHES += 1
     else:
-        LAUNCHES += lane_launches(lanes, "mfm_encode_fwd")
+        LAUNCHES += 1
     count_lanes("mfm_encode_fwd", lanes)
     _count_plans("mfm_encode_fwd")
     FWD_PLAN.clear()

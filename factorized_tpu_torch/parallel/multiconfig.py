@@ -13,8 +13,8 @@ trains as K = configs x seeds lanes of the lane programs of
 ``parallel/multiseed.py``: the step runs under ``torch.func.vmap``, lane
 k's loss built from ``lane_cfg(rep, hp[k])`` with its row of a ``(K,
 n_hp)`` matrix of values (a tensor rate runs its dropout site,
-``ops.core.dropout``), each recurrent kernel launching once for 8 lanes
-(``cuda_lstm.MAX_LANES``), Adam one lr and one step count a lane
+``ops.core.dropout``), each kernel launching once a pass for all the
+lanes, Adam one lr and one step count a lane
 (``train.LaneAdam``). The evaluation and the test predict run on the
 representative config, as the JAX package's ``make_eval_fn(apply_fn,
 rep_cfg)``: in eval mode no value field is read.

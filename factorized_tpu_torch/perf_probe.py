@@ -55,12 +55,17 @@ alone. Prints JSON lines:
   gradients at the training shapes, the encode forward's train (n = 32)
   and eval (n = 256) variants, the decoders' chain backward at n = 32
   and 4n = 128 and the encoder cells' (``m_b``'s and ``kl_ef``'s) at n =
-  32: device ms and events ms, launches a call, the plan each call took
-  (``cuda_mfn.FWD_PLAN``'s, ``BWD_PLAN``'s and ``cuda_lstm.BWD_PLAN``'s
-  rows, the blocks the card holds at once and the waves they take;
-  ``DW_PLAN``), the bound, for the encode forward each of its kernels'
-  device ms (``split_ms``, torch.profiler), and for the weight gradients
-  the library's 7 ``torch.bmm`` and 7 sums; and ``mfn_kernels``, the
+  32, the decoders' chain forward at n = 32 and 4n = 128 and the encoder
+  cells' (``m_b``'s and ``kl_ef``'s) train at n = 32 and eval at n =
+  256: device ms and events ms, launches a call, the plan each call took
+  (``cuda_mfn.FWD_PLAN``'s, ``BWD_PLAN``'s and ``cuda_lstm.FWD_PLAN``'s
+  and ``BWD_PLAN``'s rows, the blocks the card holds at once and the
+  waves they take; ``DW_PLAN``), the bound, for the encode forward each
+  of its kernels' device ms (``split_ms``, torch.profiler), for the
+  weight gradients the library's 7 ``torch.bmm`` and 7 sums, and for the
+  recurrences' forward its plain version (events ms), one
+  ``torch.nn.LSTM`` a cell and lane (cuDNN, events ms) and, over lanes,
+  its device ms at each instantiated row count (``rows_device_ms``); and ``mfn_kernels``, the
   encode's reverse pass and weight gradients for one model with no lane
   axis at n = 128 for both ``best_mfn_mosi_config``s
   (``mfn_kernel_times``: device ms, the plan). Like ``step_times`` it
@@ -76,9 +81,11 @@ alone. Prints JSON lines:
   backward (n = 32), the encode's reverse pass (n = 32), the encode
   forward's train (n = 32) and eval (n = 256) variants, and the
   weight-gradient kernel (n = 32, a step being a chunk of its rows: load
-  and sum); over lanes the decoder backward at K = 2 and 8 and the encode
-  forward at 8 (lane 0's blocks stamp); with the SM clock read just
-  after;
+  and sum); over lanes the decoder backward at K = 2 and 8, the encode
+  forward at 8, and the decoder forward (n = 32) and ``m_b``'s encoder
+  cells' (train n = 32, eval n = 256) at K = 2 at each row count
+  ``csrc/lstm_fwd.cu`` instantiates (lane 0's blocks stamp); with the SM
+  clock read just after;
 - ``scale`` (part ``scale``): the sweep of the fused path against the
   modular one (``models/mfm.py::FUSED`` forced) over
   ``best_acc_mosi_config`` and the scale probe's configs A to E
@@ -100,6 +107,7 @@ alone. Prints JSON lines:
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import itertools
 import json
@@ -134,15 +142,15 @@ CLOCK_ROWS, CLOCK_STEPS, CLOCK_PHASES = 8, 64, 8
 # 256) and with them (n = 32), multi_lstm_bwd's chains (n = 32), and the
 # recurrences' forward chains (csrc/lstm_fwd.cu): the decoders' (n = 32
 # and 256) and the encoder cells' eval (n = 256) and train (n = 32)
-# variants
+# variants, at each count csrc/lstm_fwd.cu instantiates
 ROW_SWEEPS = {"FTT_EVAL_CELL_ROWS": (2, 4, 8, 16),
               "FTT_EVAL_MEM_ROWS": (1, 2, 4, 8),
               "FTT_TRAIN_CELL_ROWS": (2, 4, 8),
               "FTT_TRAIN_MEM_ROWS": (1, 2),
               "FTT_MULTI_ROWS": (1, 2, 4),
               "FTT_DECODER_FWD_ROWS": (1, 2, 4, 8),
-              "FTT_MULTI_EVAL_ROWS": (2, 4, 8, 16),
-              "FTT_MULTI_TRAIN_ROWS": (1, 2, 4)}
+              "FTT_MULTI_EVAL_ROWS": (1, 2, 4, 8, 16),
+              "FTT_MULTI_TRAIN_ROWS": (1, 2, 4, 8, 16)}
 # what each stamped phase of a step ends with, per kernel
 # (a cluster's chains: "dh product" includes the partials' exchange, the
 # memory chains' products the gather of the peers' columns)
@@ -180,17 +188,22 @@ def _ms(fn, reps=50):
 
 def _device_ms(fn, reps=50):
     """Mean device milliseconds of one fn() call: CUDA events around reps
-    calls queued behind a kernel that sleeps (about 0.1 s) until all of
-    them are enqueued, so the card runs them back to back. For wrappers
-    whose host time per call passes their kernels' device time, where
-    ``_ms`` would time the host."""
+    calls queued behind a kernel that sleeps until all of them are
+    enqueued (at least 0.1 s, four times the host's time for reps calls
+    as the warm-up calls took it), so the card runs them back to back.
+    For wrappers whose host time per call passes their kernels' device
+    time, where ``_ms`` would time the host."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     for _ in range(3):
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / 3
     slept, start, end = (torch.cuda.Event(enable_timing=True)
                          for _ in range(3))
     torch.cuda.synchronize()
     slept.record()
-    torch.cuda._sleep(200_000_000)
+    # cycles at up to 2 GHz
+    torch.cuda._sleep(int(max(200_000_000, 4 * host_ms * reps * 2e6)))
     start.record()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -732,6 +745,9 @@ def _plan_of(kernel):
     if kernel in ("decoder_lstm_bwd", "multi_lstm_bwd"):
         plan = getattr(cuda_lstm, "BWD_PLAN", {}).get(kernel)
         return plan and {k: plan.get(k) for k in keep}
+    if kernel in ("decoder_lstm_fwd", "multi_lstm_fwd"):
+        plan = getattr(cuda_lstm, "FWD_PLAN", {}).get(kernel)
+        return plan and {k: plan.get(k) for k in keep}
     plans = getattr(cuda_mfn, "FWD_PLAN" if kernel.startswith(
         "mfm_encode_fwd") else "BWD_PLAN", {})
     return {c: {k: p.get(k) for k in keep}
@@ -805,6 +821,144 @@ def _chain_lanes(cfg, dev, K, t, n, g):
     return calls
 
 
+def _cudnn_lstms(cells, t, n, lanes_from=None):
+    """The recurrences' yardstick, used nowhere in the port: one
+    ``torch.nn.LSTM`` (cuDNN) per cell and lane computing the same steps.
+    ``cells``: (weight_hh (4h, h), bias (4h,) or None, x (s, n, 4h) or
+    None, (h0, c0) or None) each; the decoders' cells take a zero input of
+    width 1 for t - 1 steps from (h0, c0) with ``weight_ih`` zero and the
+    bias b, the encoder cells their xp slice for t steps through an
+    identity ``weight_ih`` from a zero state. Returns the call: the
+    forward of every module."""
+    mods = []
+    for whh, bias, x, state in cells:
+        h = whh.shape[1]
+        m = torch.nn.LSTM(1 if x is None else 4 * h, h).to(whh.device)
+        with torch.no_grad():
+            m.weight_hh_l0.copy_(whh)
+            m.bias_hh_l0.zero_()
+            if x is None:
+                m.weight_ih_l0.zero_()
+                m.bias_ih_l0.copy_(bias)
+                x = torch.zeros((t - 1, n, 1), device=whh.device)
+            else:
+                m.weight_ih_l0.copy_(torch.eye(4 * h, device=whh.device))
+                m.bias_ih_l0.zero_()
+        mods.append((m, x.contiguous(), state))
+    return lambda: [m(x, st) for m, x, st in mods]
+
+
+def _chain_fwd_lanes(cfg, dev, K, t, g):
+    """The recurrences' forward over K lanes (``csrc/lstm_fwd.cu``), lane
+    k a model of seed k: the decoders at n = 32 and at ``missing``'s 4n =
+    128 (their residuals written), ``m_b``'s and ``kl_ef``'s encoder
+    cells train (residuals) at n = 32 and eval at n = 256. {call: (fn,
+    counter, bound)} and {call: (plain fn, cuDNN fn, (decoder, train,
+    dims, n))}; the bound K lanes' useful float32 work (the recurrent
+    products on the diagonal blocks, none into the encoder cells' zero
+    state at step 0) against the inputs, the outputs and the diagonal
+    blocks, once each."""
+    from factorized_tpu_torch.models import ablations
+
+    calls, extras = {}, {}
+    for n in (N_TRAIN, 4 * N_TRAIN):
+        x = torch.randn((t, n, cfg.d_total), generator=g, device=dev)
+        dec = [mfm.kernel_operands(mfm.MFM(cfg, seed=k, device=dev).tree(),
+                                   x, cfg)[1] for k in range(K)]
+        h0, c0, wsum, b = (torch.stack([d[i] for d in dec]) for i in range(4))
+        dims = dec[0][4]
+        H = sum(dims)
+        outs = cuda_lstm._launch(h0, c0, wsum, b, t, dims, K)
+        name = f"decoder_lstm_fwd.n{n}"
+        calls[name] = (
+            lambda h0=h0, c0=c0, wsum=wsum, b=b, dims=dims:
+            cuda_lstm._launch(h0, c0, wsum, b, t, dims, K), "LAUNCHES",
+            _bound(2 * K * (t - 1) * n * 4 * sum(h * h for h in dims),
+                   _nbytes(h0, c0, b, *outs) + K * _diag_bytes(dims)))
+        cells, o = [], 0
+        for h in dims:
+            cols = cuda_lstm.cell_columns(H, o, h, dev)
+            cells += [(wsum[k][o:o + h][:, cols].T, b[k].reshape(-1)[cols],
+                       None, (h0[k][None, :, o:o + h].contiguous(),
+                              c0[k][None, :, o:o + h].contiguous()))
+                      for k in range(K)]
+            o += h
+        extras[name] = (
+            lambda h0=h0, c0=c0, wsum=wsum, b=b:
+            cuda_lstm.decoder_lstm_lanes_plain(h0, c0, wsum, b, t),
+            _cudnn_lstms(cells, t, n), (True, True, dims, n))
+    for model_type in ("m_b", "kl_ef"):
+        for train, n in ((True, N_TRAIN), (False, N)):
+            x = torch.randn((t, n, cfg.d_total), generator=g, device=dev)
+            ops = []
+            for k in range(K):
+                p = mfm.MFM(cfg.replace(model_type=model_type), seed=k,
+                            device=dev).tree()
+                ops.append(ablations.kernel_operands(p, x, cfg, "m_b")[
+                    "multi_lstm"] if model_type == "m_b" else
+                    mfm.multi_lstm_operands(p, x, cfg, model_type))
+            xp, wh = (torch.stack([o[i] for o in ops]) for i in range(2))
+            dims = ops[0][2]
+            H = sum(dims)
+            outs = cuda_lstm._launch_multi(xp, wh, dims, train, K)
+            name = f"multi_lstm_fwd.{model_type}" + ("" if train else ".eval")
+            calls[name] = (
+                lambda xp=xp, wh=wh, dims=dims, train=train:
+                cuda_lstm._launch_multi(xp, wh, dims, train, K),
+                "MULTI_LAUNCHES",
+                _bound(2 * K * (t - 1) * n * 4 * sum(h * h for h in dims),
+                       _nbytes(xp, *(outs if train else (outs,)))
+                       + K * _diag_bytes(dims)))
+            cells, o = [], 0
+            for h in dims:
+                cols = cuda_lstm.cell_columns(H, o, h, dev)
+                cells += [(wh[k][o:o + h][:, cols].T, None,
+                           xp[k][..., cols], None) for k in range(K)]
+                o += h
+            extras[name] = (
+                lambda xp=xp, wh=wh, train=train:
+                cuda_lstm.multi_lstm_lanes_plain(xp, wh, train),
+                _cudnn_lstms(cells, t, n), (False, train, dims, n))
+    return calls, extras
+
+
+@contextlib.contextmanager
+def _forced_fwd_rows(R):
+    """``cuda_lstm.chain_fwd_plan`` with its rows replaced by R, for
+    timing each instantiated count over lanes."""
+    real = cuda_lstm.chain_fwd_plan
+
+    def plan(*args, **kw):
+        return {**real(*args, **kw), "rows": R}
+
+    cuda_lstm.chain_fwd_plan = plan
+    try:
+        yield
+    finally:
+        cuda_lstm.chain_fwd_plan = real
+
+
+def _fwd_rows_ms(fn, case, K):
+    """The forward chain's device ms over K lanes at each instantiated
+    count whose chain plan is the one-lane plan's (the counts the lane
+    plan chooses among): {rows: device ms}; None where the build has no
+    lane plan for it."""
+    decoder, train, dims, n = case
+    if K < 2 or not hasattr(cuda_lstm, "chain_fwd_plan"):
+        return None
+    counts = (cuda_lstm.DECODER_FWD_ROW_COUNTS if decoder
+              else cuda_lstm.MULTI_FWD_ROW_COUNTS)
+    first = cuda_lstm.chain_fwd_plan(dims, n, 1, decoder, train)["plan"]
+    out = {}
+    for R in counts:
+        if cuda_lstm.chain_plan(lambda C: cuda_lstm.fwd_chain_bytes(
+                dims, R, cuda_lstm.FWD_THREADS, C)) != first:
+            continue
+        with _forced_fwd_rows(R):
+            out[R] = _device_ms(fn, 20)
+    return out
+
+
 def _encode_fwd_lanes(cfg, dev, K, t, g):
     """The encode forward over K lanes, lane k a model of seed k: the
     train variant (masks, residuals "cat") at n = 32 and the eval variant
@@ -846,8 +1000,12 @@ def lane_kernel_times(cfg, dev, K):
     encode's reverse pass (``_launch_bwd``) and weight gradients
     (``_launch_dw``) at n = 32; the encode forward, train at n = 32 and
     eval at n = 256; the decoders' chain backward at n = 32 and 4n = 128
-    and the encoder cells' (``m_b``'s and ``kl_ef``'s) at n = 32: {call:
-    numbers} (see the module's doc). The bound counts K lanes' useful
+    and the encoder cells' (``m_b``'s and ``kl_ef``'s) at n = 32; the
+    decoders' chain forward at n = 32 and 4n = 128 and the encoder cells'
+    (``m_b``'s and ``kl_ef``'s) train at n = 32 and eval at n = 256, each
+    beside its plain version, the cuDNN yardstick (``_cudnn_lstms``) and,
+    over lanes, its device ms at each instantiated count
+    (``rows_device_ms``): {call: numbers} (see the module's doc). The bound counts K lanes' useful
     float32 work (the recurrent products on the diagonal blocks, none into
     step 0's zero state) at 67 TFLOP/s against each input read once and
     each output written once at 3.35 TB/s."""
@@ -910,6 +1068,8 @@ def lane_kernel_times(cfg, dev, K):
     calls.update(_encode_fwd_lanes(cfg, dev, K, t, g))
     for rows in (n, 4 * n):
         calls.update(_chain_lanes(cfg, dev, K, t, rows, g))
+    fwd_calls, extras = _chain_fwd_lanes(cfg, dev, K, t, g)
+    calls.update(fwd_calls)
     out = {}
     for name, (fn, counter, bound) in calls.items():
         kernel = name.split(".")[0]
@@ -918,7 +1078,8 @@ def lane_kernel_times(cfg, dev, K):
         fn()
         launches = getattr(module, counter) - before
         # as many launches queued behind the sleeping kernel as at 8 lanes
-        # (a launch of 8-lane groups holds up to 32 KB of arguments)
+        # (a parent's launch of 8-lane groups holds up to 32 KB of
+        # arguments)
         out[name] = {"lanes": K, "launches_per_call": launches,
                      "plan": _plan_of(kernel),
                      "device_ms": _device_ms(fn, 20 // launches),
@@ -928,6 +1089,10 @@ def lane_kernel_times(cfg, dev, K):
             out[name]["split_ms"] = _split_ms(fn)
     out["mfm_encode_dw"]["library_device_ms"] = _device_ms(library, 20)
     out["mfm_encode_dw"]["library_ms"] = _ms(library, 20)
+    for name, (plain, cudnn, case) in extras.items():
+        out[name].update({
+            "plain_ms": _ms(plain, 2), "library_ms": _ms(cudnn, 5),
+            "rows_device_ms": _fwd_rows_ms(calls[name][0], case, K)})
     return out
 
 
@@ -1095,6 +1260,33 @@ def phases(cfg, dev):
         lambda: cuda_mfn.mfm_encode_res_lanes(*lanes(8, xt, masks), lw,
                                               z_tot, h_dims), h_dims,
         N_TRAIN)
+    # the recurrences' forward over 2 lanes at each instantiated count
+    # (lane 0 stamps): the decoders at n = 32, m_b's encoder cells train
+    # at n = 32 and eval at 256
+    from factorized_tpu_torch.models import ablations
+
+    def at_rows(R, fn):
+        def call():
+            with _forced_fwd_rows(R):
+                return fn()
+        return call
+
+    mb = mfm.MFM(cfg.replace(model_type="m_b"), seed=0, device=dev).tree()
+    bxt, bwh, b_dims = ablations.kernel_operands(mb, x32, cfg,
+                                                 "m_b")["multi_lstm"]
+    bxe = ablations.kernel_operands(mb, x, cfg, "m_b")["multi_lstm"][0]
+    for R in cuda_lstm.DECODER_FWD_ROW_COUNTS:
+        calls[f"decoder_lstm_fwd.lanes2.rows{R}"] = (at_rows(
+            R, lambda: cuda_lstm.decoder_lstm_fwd_lanes(
+                *lanes(2, h0t, c0t, wsum, b), t, dec_dims)), dec_dims,
+            N_TRAIN)
+    for R in cuda_lstm.MULTI_FWD_ROW_COUNTS:
+        calls[f"multi_lstm_fwd_train.m_b.lanes2.rows{R}"] = (at_rows(
+            R, lambda: cuda_lstm.multi_lstm_fwd_lanes(
+                *lanes(2, bxt, bwh), b_dims, True)), b_dims, N_TRAIN)
+        calls[f"multi_lstm_fwd.m_b.lanes2.rows{R}"] = (at_rows(
+            R, lambda: cuda_lstm.multi_lstm_fwd_lanes(
+                *lanes(2, bxe, bwh), b_dims)), b_dims, N)
     for model_type in ("kl_ef", "missing"):
         mparams = mfm.MFM(cfg, seed=0, device=dev,
                           model_type=model_type).tree()

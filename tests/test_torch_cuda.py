@@ -1310,8 +1310,7 @@ def _lane_operands(cfg, K, n, dev):
                          ids=["small", "train"])
 def test_lane_kernels_match_plain(cuda, cfg, n, K):
     """Each of the seven kernel entry points over K lanes, one launch a
-    call (the recurrences' forward one a group of 8 lanes), against its
-    plain version lane by lane."""
+    call, against its plain version lane by lane."""
     (xp, masks, w, z_tot, h_dims), (h0, c0, wsum, b, dec_dims), \
         (mxp, mwh, m_dims), g = _lane_operands(cfg, K, n, cuda)
     t = cfg.seqlength
@@ -1370,16 +1369,14 @@ def test_lane_kernels_match_plain(cuda, cfg, n, K):
             cuda_lstm.multi_lstm_bwd_lanes_plain(mref[3], mwh, mref[2],
                                                  dhl), **GRAD)
         torch.cuda.synchronize()
-    # the recurrences' forward one launch a call for 8 lanes; the encode's
-    # kernels and the chains' backward one for any count
+    # every kernel one launch a call for any count of lanes
     delta = counts.since(before)
-    groups = cuda_lstm.lane_launches(K)
     assert delta[(cuda_mfn, "LAUNCHES")] == 2
     assert delta[(cuda_mfn, "BWD_LAUNCHES")] == 1
     assert delta[(cuda_mfn, "DW_LAUNCHES")] == 1
-    assert delta[(cuda_lstm, "LAUNCHES")] == groups
+    assert delta[(cuda_lstm, "LAUNCHES")] == 1
     assert delta[(cuda_lstm, "BWD_LAUNCHES")] == 1
-    assert delta[(cuda_lstm, "MULTI_LAUNCHES")] == 2 * groups
+    assert delta[(cuda_lstm, "MULTI_LAUNCHES")] == 2
     assert delta[(cuda_lstm, "MULTI_BWD_LAUNCHES")] == 1
 
 
@@ -1420,9 +1417,10 @@ def test_the_lane_plan_takes_the_cards_occupancy(cuda, K):
 @pytest.mark.parametrize("K", [8, 32])
 def test_the_forward_and_chain_lane_plans_take_the_cards_occupancy(cuda,
                                                                    K):
-    """The encode forward's lane plans (train at n = 32, eval at 256) and
-    the chains' backward's (the decoders at n = 32, m_b's encoder cells)
-    count their waves in what the card's occupancy calculator says an SM
+    """The encode forward's lane plans (train at n = 32, eval at 256), the
+    chains' backward's (the decoders at n = 32, m_b's encoder cells) and
+    forward's (the decoders at n = 32, m_b's encoder cells train at 32 and
+    eval at 256) count their waves in what the card's occupancy calculator says an SM
     holds: a whole number of blocks an SM, and the plan the same as with
     the default query."""
     cfg = best_acc_mosi_config()
@@ -1445,6 +1443,12 @@ def test_the_forward_and_chain_lane_plans_take_the_cards_occupancy(cuda,
         plan = cuda_lstm.chain_bwd_plan(dims, 32, K, decoder,
                                         checked(cuda_lstm.lstm_bwd_wave))
         assert plan == cuda_lstm.chain_bwd_plan(dims, 32, K, decoder)
+    for decoder, train, dims, n in ((True, True, [104, 24, 24], 32),
+                                    (False, True, [32, 8, 80], 32),
+                                    (False, False, [32, 8, 80], 256)):
+        plan = cuda_lstm.chain_fwd_plan(dims, n, K, decoder, train,
+                                        checked(cuda_lstm.lstm_fwd_wave))
+        assert plan == cuda_lstm.chain_fwd_plan(dims, n, K, decoder, train)
 
 
 def test_lane_train_step_grads_on_the_card_match_the_cpu(cuda):

@@ -2,10 +2,12 @@
 arithmetic on the CPU: ``cuda_mfn.bwd_plan`` (the rows a block of the
 reverse pass's memory chain and LSTM chains), ``cuda_mfn.dw_cluster``
 (the cluster of the weight gradients), ``cuda_mfn.fwd_plan`` (the encode
-forward's LSTM chains and memory chain, train and eval) and
-``cuda_lstm.chain_bwd_plan`` (the decoders' and the encoder cells' chain
+forward's LSTM chains and memory chain, train and eval),
+``cuda_lstm.chain_fwd_plan`` (the decoders' and the encoder cells' chain
+forward, train and eval) and ``cuda_lstm.chain_bwd_plan`` (their chain
 backward), the launches their launchers count, and the rows they pass,
-the kernel call faked (there is no card here). On the card the plans take
+the kernel call faked (there is no card here) and its arguments held to
+the launcher's ctypes types. On the card the plans take
 what the card holds at once from the CUDA occupancy calculator
 (``cuda_lstm.chain_wave`` over each kernel's ``*_wave`` entry point);
 here each test hands them a stand-in, and ``tests/test_torch_cuda.py``
@@ -202,20 +204,23 @@ ARGTYPES = {}
 EXPORTS = dict(cuda_lstm.WAVE_EXPORTS.values())
 # the plans and wave queries cached across calls
 CACHED = (cuda_mfn._bwd_plan, cuda_mfn._fwd_plan, cuda_lstm._chain_bwd_plan,
-          cuda_lstm._chain_wave)
+          cuda_lstm._chain_fwd_plan, cuda_lstm._chain_wave)
 
 
 @pytest.fixture
 def fake_library(monkeypatch):
-    """The kernels' library faked: each call recorded, fit and copy
-    reported as a launch on one block and 16-byte copies. CPU tensors
-    stand in for the card's."""
+    """The kernels' library faked: each call recorded, its arguments
+    converted by ctypes to the launcher's declared types (a wrong type
+    raises, as the real call would), fit and copy reported as a launch on
+    one block and 16-byte copies. CPU tensors stand in for the card's."""
     calls = []
 
     def kernel(name, argtypes, restype=ctypes.c_int):
         ARGTYPES[name] = list(argtypes)
+        typed = ctypes.CFUNCTYPE(restype, *argtypes)(lambda *a: 0)
 
         def fn(*args):
+            typed(*args)
             calls.append((name, args))
             if name in EXPORTS:
                 args[-1][0] = WAVES["by_shared_memory"](
@@ -240,8 +245,9 @@ def fake_library(monkeypatch):
             (cuda_mfn, ("LAUNCHES", "BWD_LAUNCHES", "DW_LAUNCHES",
                         "CLUSTERS", "L2_LAUNCHES", "SCRATCH_LAUNCHES",
                         "BWD_PLAN", "DW_PLAN", "FWD_PLAN")),
-            (cuda_lstm, ("BWD_LAUNCHES", "MULTI_BWD_LAUNCHES", "CLUSTERS",
-                         "L2_LAUNCHES", "SCRATCH_LAUNCHES", "BWD_PLAN",
+            (cuda_lstm, ("LAUNCHES", "MULTI_LAUNCHES", "BWD_LAUNCHES",
+                         "MULTI_BWD_LAUNCHES", "CLUSTERS", "L2_LAUNCHES",
+                         "SCRATCH_LAUNCHES", "FWD_PLAN", "BWD_PLAN",
                          "LANE_LAUNCHES"))):
         for name in names:
             value = getattr(module, name)
@@ -256,8 +262,8 @@ def fake_library(monkeypatch):
 def test_each_lane_kernel_counts_one_launch_a_call(fake_library, K):
     """The reverse pass and the weight gradients over K lanes: one launch
     each, counted once, and the chains' rows of ``bwd_plan`` passed; the
-    recurrences' forward, launched a group of 8 lanes at a time, counts
-    one a group."""
+    recurrences' forward, the decoders' and the encoder cells', one launch
+    a call too, at any K."""
     t, n = 2, 3
     w = _weights(K)
     m2 = w["a1w1"].shape[1]
@@ -299,9 +305,15 @@ def test_each_lane_kernel_counts_one_launch_a_call(fake_library, K):
                 expect.append([c, R, p, cuda_mfn.BWD_THREADS, smem])
     assert [list(a[:5]) for a in asked] == expect
     assert list(dargs[-5:-3]) == [cuda_mfn.dw_cluster(w, t * n), K]
-    for name in cuda_lstm.STRIDED_LANES:
-        assert cuda_lstm.lane_launches(K, name) == 1
-    assert cuda_lstm.lane_launches(K, "decoder_lstm_fwd") == math.ceil(K / 8)
+    Hd, Hm = sum(DEC_DIMS), sum(MULTI_DIMS["m_b"])
+    cuda_lstm._launch(z(K, n, Hd), z(K, n, Hd), z(K, Hd, 4 * Hd),
+                      z(K, 4 * Hd), t, DEC_DIMS, K)
+    cuda_lstm._launch_multi(z(K, t, n, 4 * Hm), z(K, Hm, 4 * Hm),
+                            MULTI_DIMS["m_b"], True, K)
+    assert (cuda_lstm.LAUNCHES, cuda_lstm.MULTI_LAUNCHES) == (1, 1)
+    assert cuda_lstm.LANE_LAUNCHES == {
+        "mfm_encode_bwd": 1, "mfm_encode_dw": 1, "decoder_lstm_fwd": 1,
+        "multi_lstm_fwd": 1}
 
 
 def test_the_wave_query_matches_its_c_prototype(fake_library):
@@ -338,6 +350,14 @@ CHAIN_CASES = [(True, DEC_DIMS, 32), (True, DEC_DIMS, 128),
     (False, dims, 32) for dims in MULTI_DIMS.values()]
 CHAIN_IDS = ["decoders", "decoders_4n", "m_a_decoders",
              *[f"multi_{m}" for m in MULTI_DIMS]]
+# the recurrences' forward chains (csrc/lstm_fwd.cu): (decoder, train,
+# cells, n); the decoders as above, the encoder cells train at n = 32 and
+# eval at the serving batch of 256
+FWD_CHAIN_CASES = [(True, True, dims, n) for _, dims, n in CHAIN_CASES[:3]] + [
+    (False, train, dims, 32 if train else 256)
+    for dims in MULTI_DIMS.values() for train in (True, False)]
+FWD_CHAIN_IDS = CHAIN_IDS[:3] + [f"multi_{m}_{v}" for m in MULTI_DIMS
+                                 for v in ("train", "eval")]
 
 
 def _fwd_bytes(chain, R, C):
@@ -361,6 +381,23 @@ def _fwd_plan(K, n, train, wave=WAVES["by_shared_memory"]):
 
 def _chain_plan(K, decoder, dims, n, wave=WAVES["by_shared_memory"]):
     return cuda_lstm.chain_bwd_plan(dims, n, K, decoder, wave)
+
+
+def _chain_fwd_bytes(dims):
+    return lambda R, C: cuda_lstm.fwd_chain_bytes(dims, R,
+                                                  cuda_lstm.FWD_THREADS, C)
+
+
+def _chain_fwd_plan(K, decoder, train, dims, n,
+                    wave=WAVES["by_shared_memory"]):
+    return cuda_lstm.chain_fwd_plan(dims, n, K, decoder, train, wave)
+
+
+def _fwd_first(decoder, train):
+    """One lane's rows of a forward chain."""
+    if decoder:
+        return cuda_lstm.DECODER_FWD_ROWS
+    return cuda_lstm.MULTI_TRAIN_ROWS if train else cuda_lstm.MULTI_EVAL_ROWS
 
 
 def _held_to(p, chain, K, n, chains, counts, first, bytes_at, wave):
@@ -394,7 +431,8 @@ def test_one_lane_keeps_todays_forward_and_chain_rows(K):
     """One lane takes the source's one-lane rows at any batch, asking the
     card nothing: the forward's LSTM chains and memory chain 2 / 1 rows a
     block with residuals (train) and 8 / 2 without (eval, serving), the
-    decoders' chain backward 1 and the encoder cells' 2; so the one-model
+    decoders' chain forward 2 and backward 1, the encoder cells' chain
+    forward 2 with residuals and 8 without, backward 2; so the one-model
     path, serving and ``Predictor`` do not move. At every K a plan keeps
     the cluster of the one-lane plan."""
     def unasked(*args):
@@ -410,8 +448,17 @@ def test_one_lane_keeps_todays_forward_and_chain_rows(K):
             for decoder, dims, _ in CHAIN_CASES:
                 p = _chain_plan(lanes, decoder, dims, n, unasked)
                 assert p["rows"] == (1 if decoder else 2)
+            for decoder, train, dims, _ in FWD_CHAIN_CASES:
+                p = _chain_fwd_plan(lanes, decoder, train, dims, n, unasked)
+                assert p["rows"] == (2 if decoder or train else 8)
+                assert p["rows"] == _fwd_first(decoder, train)
     assert cuda_mfn.TRAIN_ROWS == (2, 1) and cuda_mfn.EVAL_ROWS == (8, 2)
     assert (cuda_lstm.DECODER_BWD_ROWS, cuda_lstm.MULTI_BWD_ROWS) == (1, 2)
+    assert (cuda_lstm.DECODER_FWD_ROWS, cuda_lstm.MULTI_TRAIN_ROWS,
+            cuda_lstm.MULTI_EVAL_ROWS) == (2, 2, 8)
+    for decoder, train, dims, n in FWD_CHAIN_CASES:
+        assert (_chain_fwd_plan(K, decoder, train, dims, n)["plan"]
+                == _chain_fwd_plan(1, decoder, train, dims, n)["plan"])
     for train, n in FWD_CASES:
         many, one = _fwd_plan(K, n, train), _fwd_plan(1, n, train)
         for chain in many:
@@ -455,6 +502,85 @@ def test_the_chain_backward_blocks_stay_within_the_waves_the_plan_aims_at(
                  1 if decoder else 2, _chain_bytes(decoder, dims), held)
 
 
+@pytest.mark.parametrize("K", [2, 3, 4, 8, 12, 16, 32])
+@pytest.mark.parametrize("case", FWD_CHAIN_CASES, ids=FWD_CHAIN_IDS)
+def test_the_chain_forward_rows_take_the_least_estimated_time(K, case):
+    """The decoders' and the encoder cells' chain forward
+    (csrc/lstm_fwd.cu) over K lanes, for every stand-in of the card: among
+    the instantiated counts of the one-lane plan, the R of the least
+    estimate (the smallest such R), the estimate the longer of the widest
+    cell's block (a step's fixed cost plus its gates product's depth a
+    thread times R) and all the blocks' sum over what the card holds at
+    once."""
+    decoder, train, dims, n = case
+    first = _fwd_first(decoder, train)
+    counts = (cuda_lstm.DECODER_FWD_ROW_COUNTS if decoder
+              else cuda_lstm.MULTI_FWD_ROW_COUNTS)
+    at = _chain_fwd_bytes(dims)
+    base = cuda_lstm.chain_plan(lambda C: at(first, C))
+    for held in WAVES.values():
+        p = _chain_fwd_plan(K, decoder, train, dims, n, held)
+        reach = {}
+        for R in counts:
+            plan = cuda_lstm.chain_plan(lambda C: at(R, C))
+            if plan != base and not (plan <= 0 and base <= 0):
+                continue
+            smem = 0 if plan == cuda_lstm.SCRATCH else at(R, plan)
+            wave = held("decoder_lstm_fwd" if decoder else "multi_lstm_fwd",
+                        R, plan, smem)
+            C = max(plan, 1)
+            tiles = math.ceil(n / R)
+            per = [cuda_lstm.FWD_STEP_COST
+                   + cuda_lstm.fwd_depth(h, plan) * R for h in dims]
+            reach[R] = (plan, max(max(per), K * tiles * C * sum(per) / wave),
+                        K * tiles * len(dims) * C, wave)
+        R = min(reach, key=lambda R: (reach[R][1], R))
+        assert p["rows"] == R
+        assert (p["plan"], p["cost"], p["blocks"], p["wave"]) == reach[R]
+        assert p["waves"] == math.ceil(reach[R][2] / reach[R][3])
+
+
+@pytest.mark.parametrize("h,C,depth", [
+    (104, 1, 104), (24, 1, 6), (80, 1, 80), (32, 1, 8), (8, 1, 1),
+    (120, 1, 120), (120, 2, 60), (80, 2, 40), (336, 1, 1008)])
+def test_the_forward_depths_follow_the_tiles(h, C, depth):
+    """A forward chain thread's multiply-adds a row and step: one column a
+    thread for the 104-, 80- and 120-unit cells (416, 320 and 480 of 512
+    threads), a column's depth split 4 ways for the 24-unit cell and 8
+    ways for the 8-unit one; half a 120- or 80-unit cell's columns on each
+    block of a cluster of 2, each split 2 ways; three columns a thread
+    for a 336-unit cell."""
+    assert cuda_lstm.fwd_depth(h, C) == depth
+
+
+def test_the_forward_plan_takes_the_counts_measured_fastest():
+    """With a stand-in of the card that holds blocks by their shared
+    memory (as the H100 does), the estimate picks the counts PR 23's
+    sweep measured fastest (PERF.md): the decoders 4 rows a block at K =
+    8 and n = 32, then 8, and 8 over 4n rows; m_b's encoder cells 2 at K
+    = 8 with residuals, then 8; kl_ef's 8. One pick is not the fastest:
+    m_b's cells without residuals at n = 256 take 16 at K = 8 too (0.424
+    ms there against 0.394 at 8 rows), as they do at K = 16 and 32."""
+    held = WAVES["by_shared_memory"]
+    picks = {(K, decoder, train, name): _chain_fwd_plan(
+        K, decoder, train, dims, n, held)["rows"]
+        for K in (8, 16, 32)
+        for decoder, train, name, dims, n in (
+            (True, True, "dec", DEC_DIMS, 32),
+            (True, True, "dec4n", DEC_DIMS, 128),
+            (False, True, "m_b", MULTI_DIMS["m_b"], 32),
+            (False, False, "m_b", MULTI_DIMS["m_b"], 256),
+            (False, True, "kl_ef", MULTI_DIMS["kl_ef"], 32),
+            (False, False, "kl_ef", MULTI_DIMS["kl_ef"], 256))}
+    want = {"dec": (4, 8, 8), "dec4n": (8, 8, 8), "kl_ef": (8, 8, 8)}
+    for (K, decoder, train, name), R in picks.items():
+        i = (8, 16, 32).index(K)
+        if name == "m_b":
+            assert R == ((2, 8, 8) if train else (16, 16, 16))[i]
+        else:
+            assert R == want[name][i]
+
+
 @pytest.mark.parametrize("K", LANES)
 @pytest.mark.parametrize("n", [1, 5, 32, 100, 256])
 def test_the_forward_and_chain_rows_tile_the_batch(K, n):
@@ -464,6 +590,8 @@ def test_the_forward_and_chain_rows_tile_the_batch(K, n):
              for p in _fwd_plan(K, n, train).values()]
     plans += [_chain_plan(K, decoder, dims, n)
               for decoder, dims, _ in CHAIN_CASES]
+    plans += [_chain_fwd_plan(K, decoder, train, dims, n)
+              for decoder, train, dims, _ in FWD_CHAIN_CASES]
     for p in plans:
         R, padded = p["rows"], p["padded_rows"]
         assert padded % R == 0 and padded == p["row_tiles"] * R
@@ -473,9 +601,11 @@ def test_the_forward_and_chain_rows_tile_the_batch(K, n):
 def test_no_forward_or_chain_count_that_sums_in_another_order_is_taken():
     """At the main widths the forward's memory chain at 16 rows passes
     one block and would take a cluster of 2, which sums in another order:
-    no lane count takes it; the decoders' 104-unit cell has no count past
-    4 (8 rows do not fit beside its weights); kl_ef's 120-unit cell keeps
-    its cluster of 2 at every count it takes."""
+    no lane count takes it; the decoders' 104-unit cell has no backward
+    count past 4 (8 rows do not fit beside its weights) and no forward
+    count past 8 (16 would take a cluster of 2), nor ``m_b``'s 80-unit
+    cell past 16; kl_ef's 120-unit cell keeps its cluster of 2 at every
+    count it takes, both ways (16 forward rows would take 4)."""
     assert cuda_lstm.chain_plan(lambda C: _fwd_bytes("memory_chain", 16,
                                                      C)) == 2
     assert cuda_lstm.chain_plan(lambda C: _fwd_bytes("memory_chain", 8,
@@ -485,6 +615,15 @@ def test_no_forward_or_chain_count_that_sums_in_another_order_is_taken():
         8, C)) == 2
     kl = MULTI_DIMS["kl_ef"]
     assert _chain_plan(1, False, kl, N)["plan"] == 2
+    fwd = {(tuple(dims), R): cuda_lstm.chain_plan(
+        lambda C, d=dims, R=R: _chain_fwd_bytes(d)(R, C))
+        for dims in (DEC_DIMS, MULTI_DIMS["m_b"], kl) for R in (8, 16, 32)}
+    assert fwd[tuple(DEC_DIMS), 8] == 1 and fwd[tuple(DEC_DIMS), 16] == 2
+    assert fwd[tuple(MULTI_DIMS["m_b"]), 16] == 1
+    assert fwd[tuple(MULTI_DIMS["m_b"]), 32] > 1
+    assert fwd[tuple(kl), 8] == 2 and fwd[tuple(kl), 16] == 4
+    assert _chain_fwd_bytes(DEC_DIMS)(8, 1) == 219648
+    assert _chain_fwd_bytes(DEC_DIMS)(16, 1) == 266240
     for wave in WAVES.values():
         for K in LANES:
             for train, n in FWD_CASES:
@@ -492,17 +631,28 @@ def test_no_forward_or_chain_count_that_sums_in_another_order_is_taken():
                     "rows"] != 16
             assert _chain_plan(K, False, kl, N, wave)["plan"] == 2
             assert _chain_plan(K, True, DEC_DIMS, N, wave)["rows"] <= 4
+            for train, n in ((True, N), (False, 256)):
+                assert _chain_fwd_plan(K, False, train, kl, n,
+                                       wave)["plan"] == 2
+                assert _chain_fwd_plan(K, False, train, MULTI_DIMS["m_b"],
+                                       n, wave)["rows"] <= 16
+            assert _chain_fwd_plan(K, True, True, DEC_DIMS, N,
+                                   wave)["rows"] <= 8
 
 
 @pytest.mark.parametrize("source,name,counts", [
     ("mfm_encode_fwd.cu", "kCellRowCounts", cuda_mfn.FWD_CELL_ROW_COUNTS),
     ("mfm_encode_fwd.cu", "kMemRowCounts", cuda_mfn.FWD_MEM_ROW_COUNTS),
     ("lstm_bwd.cu", "kDecoderRowCounts", cuda_lstm.DECODER_BWD_ROW_COUNTS),
-    ("lstm_bwd.cu", "kMultiRowCounts", cuda_lstm.MULTI_BWD_ROW_COUNTS)])
+    ("lstm_bwd.cu", "kMultiRowCounts", cuda_lstm.MULTI_BWD_ROW_COUNTS),
+    ("lstm_fwd.cu", "kDecoderFwdRowCounts",
+     cuda_lstm.DECODER_FWD_ROW_COUNTS),
+    ("lstm_fwd.cu", "kMultiFwdRowCounts", cuda_lstm.MULTI_FWD_ROW_COUNTS)])
 def test_the_forward_and_chain_row_counts_are_the_sources(source, name,
                                                           counts):
     """The counts the new plans choose among are the ones each source
-    instantiates, and one lane's counts are among them."""
+    instantiates, and one lane's counts are among them; for the
+    recurrences' forward, one lane's counts are the source's defaults."""
     src = (_build.CSRC / source).read_text()
     m = re.search(rf"constexpr int {name}\[\] = \{{([\d, ]+)\}};", src)
     assert tuple(int(v) for v in m.group(1).split(",")) == counts
@@ -512,8 +662,17 @@ def test_the_forward_and_chain_row_counts_are_the_sources(source, name,
               "kMemRowCounts": (cuda_mfn.TRAIN_ROWS[1],
                                 cuda_mfn.EVAL_ROWS[1]),
               "kDecoderRowCounts": (cuda_lstm.DECODER_BWD_ROWS,),
-              "kMultiRowCounts": (cuda_lstm.MULTI_BWD_ROWS,)}[name]
+              "kMultiRowCounts": (cuda_lstm.MULTI_BWD_ROWS,),
+              "kDecoderFwdRowCounts": (cuda_lstm.DECODER_FWD_ROWS,),
+              "kMultiFwdRowCounts": (cuda_lstm.MULTI_TRAIN_ROWS,
+                                     cuda_lstm.MULTI_EVAL_ROWS)}[name]
     assert set(firsts) <= set(counts)
+    if source == "lstm_fwd.cu":
+        defaults = {m: int(v) for m, v in re.findall(
+            r"#define (FTT_\w+_ROWS) (\d+)", src)}
+        assert defaults == {"FTT_DECODER_FWD_ROWS": cuda_lstm.DECODER_FWD_ROWS,
+                            "FTT_MULTI_EVAL_ROWS": cuda_lstm.MULTI_EVAL_ROWS,
+                            "FTT_MULTI_TRAIN_ROWS": cuda_lstm.MULTI_TRAIN_ROWS}
 
 
 def _encode_lanes(K, t, n):
@@ -527,13 +686,11 @@ def _encode_lanes(K, t, n):
 def test_the_forward_and_chain_backward_count_one_launch_a_call(
         fake_library, K):
     """The encode forward (train and eval), the decoders' and the encoder
-    cells' chain backward over K lanes: one launch each, counted once, in
-    ``LANE_LAUNCHES`` too, and listed in ``STRIDED_LANES``; the rows each
-    plan chose passed (0 for one lane, the source's own counts) and
-    recorded in ``FWD_PLAN`` and ``BWD_PLAN``."""
+    cells' chain forward (the encoder cells' train and eval) and backward
+    over K lanes: one launch each, counted once, in ``LANE_LAUNCHES`` too;
+    the rows each plan chose passed (0 for one lane, the source's own
+    counts) and recorded in ``FWD_PLAN`` and ``BWD_PLAN``."""
     t, n = 2, 3
-    for name in ("mfm_encode_fwd", "decoder_lstm_bwd", "multi_lstm_bwd"):
-        assert name in cuda_lstm.STRIDED_LANES
     xp, masks, w = _encode_lanes(K, t, n)
     for train in (True, False):
         before = cuda_mfn.LAUNCHES
@@ -568,9 +725,33 @@ def test_the_forward_and_chain_backward_count_one_launch_a_call(
         # the threads, the rows, the lanes
         assert list(args[-6:-3]) == [threads, plan["rows"] if K > 1 else 0,
                                      K]
+    cuda_lstm._launch(z(K, n, Hd), z(K, n, Hd), z(K, Hd, 4 * Hd),
+                      z(K, 1, 4 * Hd), t, DEC_DIMS, K)
+    fwd_args = [fake_library[-1][1]]
+    for train in (True, False):
+        cuda_lstm._launch_multi(z(K, t, n, 4 * Hm), z(K, Hm, 4 * Hm),
+                                MULTI_DIMS["kl_ef"], train, K)
+        fwd_args.append(fake_library[-1][1])
+    assert (cuda_lstm.LAUNCHES, cuda_lstm.MULTI_LAUNCHES) == (1, 2)
+    for args, decoder, train, name in (
+            (fwd_args[0], True, True, "decoder_lstm_fwd"),
+            (fwd_args[1], False, True, "multi_lstm_fwd"),
+            (fwd_args[2], False, False, "multi_lstm_fwd")):
+        dims = DEC_DIMS if decoder else MULTI_DIMS["kl_ef"]
+        plan = _chain_fwd_plan(K, decoder, train, dims, n)
+        # the rows, the lanes; the encoder cells' variant before them
+        assert list(args[-5:-3]) == [plan["rows"] if K > 1 else 0, K]
+        if not decoder:
+            assert args[-6] == int(train)
+        assert plan["rows"] == (_fwd_first(decoder, train) if K == 1
+                                else plan["rows"])
+    assert cuda_lstm.FWD_PLAN == {
+        "decoder_lstm_fwd": _chain_fwd_plan(K, True, True, DEC_DIMS, n),
+        "multi_lstm_fwd": _chain_fwd_plan(K, False, False,
+                                          MULTI_DIMS["kl_ef"], n)}
     assert cuda_lstm.LANE_LAUNCHES == (
-        {"mfm_encode_fwd": 2, "decoder_lstm_bwd": 1, "multi_lstm_bwd": 1}
-        if K else {})
+        {"mfm_encode_fwd": 2, "decoder_lstm_bwd": 1, "multi_lstm_bwd": 1,
+         "decoder_lstm_fwd": 1, "multi_lstm_fwd": 2} if K else {})
 
 
 @pytest.mark.parametrize("kernel,query,chain,threads", [
@@ -579,12 +760,17 @@ def test_the_forward_and_chain_backward_count_one_launch_a_call(
     ("lstm_chain_bwd_wave", lambda: cuda_lstm.lstm_bwd_wave,
      "decoder_lstm_bwd", lambda: cuda_lstm.BWD_THREADS),
     ("lstm_chain_bwd_wave", lambda: cuda_lstm.lstm_bwd_wave,
-     "multi_lstm_bwd", lambda: cuda_lstm.MULTI_BWD_THREADS)],
-    ids=["fwd_memory_chain", "decoders", "encoder_cells"])
+     "multi_lstm_bwd", lambda: cuda_lstm.MULTI_BWD_THREADS),
+    ("lstm_chain_fwd_wave", lambda: cuda_lstm.lstm_fwd_wave,
+     "decoder_lstm_fwd", lambda: cuda_lstm.FWD_THREADS),
+    ("lstm_chain_fwd_wave", lambda: cuda_lstm.lstm_fwd_wave,
+     "multi_lstm_fwd", lambda: cuda_lstm.FWD_THREADS)],
+    ids=["fwd_memory_chain", "decoders", "encoder_cells", "decoders_fwd",
+         "encoder_cells_fwd"])
 def test_the_new_wave_queries_match_their_c_prototypes(
         fake_library, kernel, query, chain, threads):
-    """``fwd_chain_wave`` and ``lstm_bwd_wave`` call their C entry points
-    with the types of the prototypes, the chain's index, the rows, the
+    """``fwd_chain_wave``, ``lstm_bwd_wave`` and ``lstm_fwd_wave`` call
+    their C entry points with the types of the prototypes, the chain's index, the rows, the
     plan, the wrapper's threads and the bytes, and read the blocks each
     writes; each asked once."""
     query()(chain, 4, 1, 1000)
