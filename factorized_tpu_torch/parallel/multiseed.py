@@ -69,6 +69,7 @@ from factorized_tpu_torch.utils.checkpoint import (restore_checkpoint,
 from factorized_tpu_torch.utils.logging import RunLogger
 from factorized_tpu_torch.utils.metrics import (score_classification,
                                                 score_regression)
+from factorized_tpu_torch.utils.profiling import note_trial, span, trial
 from factorized_tpu_torch.utils.scheduler import plateau_step
 
 # Types whose apply returns the standard (decoded, reg, missing) tuple
@@ -121,48 +122,53 @@ def prepare_bucket_data(X_train, y_train, X_valid, y_valid, X_test, y_test,
     "yte" on the host, and "seed", "batchsize", "task" and the arrays'
     ``data_fingerprint`` (of the mesh where there is one). On a mesh with
     a ``"batch"`` axis ``Xb`` and ``yb`` hold this rank's columns of
-    each batch; the batch must divide the axis."""
-    dev = resolve_device(device)
-    arrays = (X_train, X_valid, X_test, y_train, y_valid, y_test)
-    X_train, y_train = shuffle_and_time_major(X_train, y_train, seed)
-    Xv = np.ascontiguousarray(np.asarray(X_valid).swapaxes(0, 1), np.float32)
-    Xte = np.ascontiguousarray(np.asarray(X_test).swapaxes(0, 1), np.float32)
-    dtype = np.int32 if rep.task == "classification" else np.float32
-    yv, yte = np.asarray(y_valid).astype(dtype), np.asarray(y_test).astype(
-        dtype)
-    Xb, yb, _ = make_batches(X_train, np.asarray(y_train).astype(dtype),
-                             rep.batchsize, False)
-    if mesh is not None and "batch" in mesh.axis_names:
-        b_dev = mesh.shape["batch"]
-        if rep.batchsize % b_dev:
-            raise ValueError(
-                f"batchsize={rep.batchsize} must divide the mesh "
-                f"'batch' axis ({b_dev})")
-        b, j = rep.batchsize // b_dev, mesh.coords["batch"]
-        Xb, yb = Xb[:, :, j * b:(j + 1) * b], yb[:, j * b:(j + 1) * b]
+    each batch; the batch must divide the axis. Span: ``lanes.data``."""
+    with span("lanes.data"):
+        dev = resolve_device(device)
+        arrays = (X_train, X_valid, X_test, y_train, y_valid, y_test)
+        X_train, y_train = shuffle_and_time_major(X_train, y_train, seed)
+        Xv = np.ascontiguousarray(np.asarray(X_valid).swapaxes(0, 1),
+                                  np.float32)
+        Xte = np.ascontiguousarray(np.asarray(X_test).swapaxes(0, 1),
+                                   np.float32)
+        dtype = np.int32 if rep.task == "classification" else np.float32
+        yv = np.asarray(y_valid).astype(dtype)
+        yte = np.asarray(y_test).astype(dtype)
+        Xb, yb, _ = make_batches(X_train, np.asarray(y_train).astype(dtype),
+                                 rep.batchsize, False)
+        if mesh is not None and "batch" in mesh.axis_names:
+            b_dev = mesh.shape["batch"]
+            if rep.batchsize % b_dev:
+                raise ValueError(
+                    f"batchsize={rep.batchsize} must divide the mesh "
+                    f"'batch' axis ({b_dev})")
+            b, j = rep.batchsize // b_dev, mesh.coords["batch"]
+            Xb, yb = Xb[:, :, j * b:(j + 1) * b], yb[:, j * b:(j + 1) * b]
 
-    def on(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        def on(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    Xb = on(Xb)
-    return {"Xb": Xb, "yb": on(yb), "Xv": on(Xv), "yv": on(yv),
-            "Xte": on(Xte), "yte": yte, "seed": seed,
-            "batchsize": rep.batchsize, "task": rep.task,
-            "fingerprint": data_fingerprint(
-                *arrays[:3], Xb.device if mesh is None else mesh,
-                *arrays[3:])}
+        Xb = on(Xb)
+        return {"Xb": Xb, "yb": on(yb), "Xv": on(Xv), "yv": on(yv),
+                "Xte": on(Xte), "yte": yte, "seed": seed,
+                "batchsize": rep.batchsize, "task": rep.task,
+                "fingerprint": data_fingerprint(
+                    *arrays[:3], Xb.device if mesh is None else mesh,
+                    *arrays[3:])}
 
 
 def init_lanes(name: str, cfg, seed: int, n_seeds: int, device=None,
                lanes=None):
     """K initialisations of model ``name``, lane k's from a generator
     seeded from (``seed``, k), stacked into one tree of ``(K, ...)``
-    leaves on the device; ``lanes``: those lanes alone (a rank's)."""
-    init, _ = get_model(name)
-    trees = [init(torch.Generator().manual_seed(_run_seed(seed, k)), cfg)
-             for k in (range(n_seeds) if lanes is None else lanes)]
-    dev = resolve_device(device)
-    return pytree.tree_map(lambda *xs: torch.stack(xs).to(dev), *trees)
+    leaves on the device; ``lanes``: those lanes alone (a rank's). Span:
+    ``lanes.init``."""
+    with span("lanes.init"):
+        init, _ = get_model(name)
+        trees = [init(torch.Generator().manual_seed(_run_seed(seed, k)), cfg)
+                 for k in (range(n_seeds) if lanes is None else lanes)]
+        dev = resolve_device(device)
+        return pytree.tree_map(lambda *xs: torch.stack(xs).to(dev), *trees)
 
 
 def stack_lanes(trees, device=None):
@@ -289,7 +295,10 @@ class LanePrograms:
     ``step`` and ``epoch`` take an optional ``(K, n_hp)`` matrix of lane
     values, lane k's row handed to ``lane_loss`` under vmap (the
     config-bucketed search's ``multiconfig.ConfigBucketProgram``); the
-    evaluation and the predict stay on ``cfg``."""
+    evaluation and the predict stay on ``cfg``. Spans, as
+    ``train.TrainProgram``'s: ``step.forward``, ``step.backward``,
+    ``step.optimizer`` a step, ``epoch.eval``; ``predict`` is
+    ``trainer.score``."""
 
     def __init__(self, apply_fn, cfg, generator, valid_metric="loss"):
         if valid_metric not in ("loss", "accuracy"):
@@ -357,13 +366,14 @@ class LanePrograms:
         draws = draws or {}
         batch = self.batch
         with batch.rows() if batch else contextlib.nullcontext():
-            loss, tracked = self._vmap(
-                lane, (0, None, None, _dims(draws),
-                       None if hps is None else 0))(
-                params, x, y, draws, hps)
-            if batch:
-                loss, tracked = loss * batch.share, tracked * batch.share
-            with warnings.catch_warnings():
+            with span("step.forward"):
+                loss, tracked = self._vmap(
+                    lane, (0, None, None, _dims(draws),
+                           None if hps is None else 0))(
+                    params, x, y, draws, hps)
+                if batch:
+                    loss, tracked = loss * batch.share, tracked * batch.share
+            with span("step.backward"), warnings.catch_warnings():
                 # each leaf's gradient is its lane-major view of the
                 # optimizer's (K, P) buffer, added into in place as the
                 # leaf's layout is
@@ -373,9 +383,11 @@ class LanePrograms:
                 loss.sum().backward()
         tracked = tracked.detach()
         if batch:
-            batch.all_reduce_(optimizer.grad)
+            with span("step.backward"):
+                batch.all_reduce_(optimizer.grad)
             batch.all_reduce_(tracked)
-        optimizer.step()
+        with span("step.optimizer"):
+            optimizer.step()
         return tracked
 
     def epoch(self, params, optimizer, Xb, yb, hps=None):
@@ -405,25 +417,31 @@ class LanePrograms:
 
     def evaluate(self, params, Xv, yv):
         """Each lane's validation metric over the whole set: (K,)."""
-        if self.valid_metric == "accuracy":
-            logits = self.y_hat(params, Xv)
-            return (torch.argmax(logits, dim=2) == yv[None]).to(
-                torch.float32).mean(dim=1)
+        with span("epoch.eval"):
+            if self.valid_metric == "accuracy":
+                logits = self.y_hat(params, Xv)
+                return (torch.argmax(logits, dim=2) == yv[None]).to(
+                    torch.float32).mean(dim=1)
 
-        def lane(p, x, y):
-            return self.eval_fn(p, x, y, generator=self.generator)
+            def lane(p, x, y):
+                return self.eval_fn(p, x, y, generator=self.generator)
 
-        with torch.no_grad():
-            return self._vmap(lane, (0, None, None))(params, Xv, yv)
+            with torch.no_grad():
+                return self._vmap(lane, (0, None, None))(params, Xv, yv)
 
     def predict(self, params, X):
         """Each lane's y_hat over the time-major ``X`` in chunks of
         ``PREDICT_CHUNK`` rows, draws from a generator seeded 0 (the JAX
-        package's ``PRNGKey(0)``): a host array (K, N[, out])."""
-        gen = torch.Generator(device=X.device).manual_seed(0)
-        parts = [self.y_hat(params, X[:, i:i + PREDICT_CHUNK], gen).cpu()
-                 for i in range(0, X.shape[1], PREDICT_CHUNK)]
-        return torch.cat(parts, dim=1).numpy()
+        package's ``PRNGKey(0)``): a host array (K, N[, out]). Spans:
+        ``trainer.score``, of it ``score.forward`` and ``score.read`` (the
+        copy to the host)."""
+        with span("trainer.score"):
+            with span("score.forward"):
+                gen = torch.Generator(device=X.device).manual_seed(0)
+                parts = [self.y_hat(params, X[:, i:i + PREDICT_CHUNK], gen)
+                         for i in range(0, X.shape[1], PREDICT_CHUNK)]
+            with span("score.read"):
+                return torch.cat(parts, dim=1).cpu().numpy()
 
     @staticmethod
     def select(mask, new, old):
@@ -441,8 +459,10 @@ class LaneLoop:
     step (as a minimum, whatever the metric), its lr the optimizer's;
     then a row (tracked, valid, lr), float64 over the lanes, into
     ``records``. On a CUDA card the body is a ``Graphed``: the first
-    epoch eager, each later one a replay; on the CPU, and where a step
-    all-reduces (``programs.collective``), it runs eagerly.
+    epoch eager, each later one a replay (its spans ``graph.eager``,
+    ``graph.capture``, ``graph.replay``); on the CPU, and where a step
+    all-reduces (``programs.collective``), it runs eagerly. ``run`` is
+    the span ``loop.run``, its host read ``loop.read``.
     ``epoch_launches`` holds each epoch's kernel launches. ``hps``: a
     ``(K, n_hp)`` device matrix of lane values that the steps read (the
     graph reads the buffer, so values written into it in place take
@@ -495,13 +515,16 @@ class LaneLoop:
 
     def run(self, n: int):
         """n epochs, then one read of their records: a (n, 3, K) float64
-        array of (tracked, valid, lr)."""
-        self.slot.zero_()
-        for _ in range(n):
-            before = counts.snapshot()
-            self.epoch()
-            self.epoch_launches.append(counts.since(before))
-        return self.records[:n].cpu().numpy()
+        array of (tracked, valid, lr). Spans: ``loop.run`` (its
+        ``epochs``), of it ``loop.read``, the host waiting on the card."""
+        with span("loop.run", epochs=n):
+            self.slot.zero_()
+            for _ in range(n):
+                before = counts.snapshot()
+                self.epoch()
+                self.epoch_launches.append(counts.since(before))
+            with span("loop.read"):
+                return self.records[:n].cpu().numpy()
 
     def eval_flat(self):
         """Each lane's best parameters, a lane with no best yet its live
@@ -628,6 +651,7 @@ class _Null:
         pass
 
 
+@trial
 def train_mfm_multiseed(
         X_train, y_train, X_valid, y_valid, X_test, y_test, cfg, *,
         n_seeds: int = 8,
@@ -676,6 +700,7 @@ def train_mfm_multiseed(
             f"multiseed training supports model types {MULTISEED_TYPES} "
             f"(single-stage joint loss); {name!r} has different training "
             "semantics - use its dedicated trainer with one seed")
+    note_trial(model_type=name, lanes=n_seeds)
     shard = LaneShard(mesh, n_seeds, f"n_seeds={n_seeds}")
     if not shard.member:
         return shard.share_result(None)

@@ -19,8 +19,9 @@ a CUDA card one replay of a CUDA graph (``Graphed``).
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import gc
-import time
 from typing import Callable
 
 import numpy as np
@@ -30,6 +31,7 @@ from factorized_tpu_torch.ops import counts
 from factorized_tpu_torch.ops.losses import (cross_entropy_loss, l1_loss,
                                              l2_loss)
 from factorized_tpu_torch.utils.checkpoint import keeps
+from factorized_tpu_torch.utils.profiling import span
 from factorized_tpu_torch.utils.scheduler import plateau_step
 
 # ------------------------------------------------------------ batching
@@ -560,6 +562,10 @@ class TrainProgram:
     - ``evaluate(params, x, y, generator)`` -> the full-set validation
       loss of the variant.
 
+    A step's phases are spans (``utils.profiling``): ``step.forward``
+    (the loss), ``step.backward`` (with a data group's all-reduce of the
+    gradient) and ``step.optimizer``; ``evaluate`` is ``epoch.eval``.
+
     ``optimizer`` is a ``FlatAdam`` or ``FlatSGD``; an ``lr`` given sets
     its lr first,
     else its lr tensor is read as it stands.
@@ -590,16 +596,23 @@ class TrainProgram:
         optimizer.zero_grad()
         data = self.data
         if data is None:
-            loss, tracked = self.loss_fn(params, x, y, generator=generator)
-            loss.backward()
-        else:
-            with data.rows():
+            with span("step.forward"):
                 loss, tracked = self.loss_fn(params, x, y,
                                              generator=generator)
-                (loss * data.share).backward()
-            data.all_reduce_(optimizer.grad)
+            with span("step.backward"):
+                loss.backward()
+        else:
+            with data.rows():
+                with span("step.forward"):
+                    loss, tracked = self.loss_fn(params, x, y,
+                                                 generator=generator)
+                with span("step.backward"):
+                    (loss * data.share).backward()
+            with span("step.backward"):
+                data.all_reduce_(optimizer.grad)
             tracked = data.all_reduce_(tracked.detach() * data.share)
-        optimizer.step()
+        with span("step.optimizer"):
+            optimizer.step()
         return tracked.detach()
 
     def epoch(self, params, optimizer, Xb, yb, generator, lr=None):
@@ -611,7 +624,7 @@ class TrainProgram:
         return acc / Xb.shape[0]
 
     def evaluate(self, params, x, y, generator):
-        with torch.no_grad():
+        with span("epoch.eval"), torch.no_grad():
             return self.eval_fn(params, x, y, generator=generator)
 
     def train_epoch(self, params, optimizer, Xb, yb, generator, lr=None,
@@ -632,24 +645,73 @@ class TrainProgram:
                                       lr, remainder))
 
 
+@functools.lru_cache(maxsize=None)
+def _driver():
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.argtypes = [ctypes.c_void_p,
+                                    ctypes.POINTER(ctypes.c_void_p),
+                                    ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphGetNodes.restype = ctypes.c_int
+    lib.cuGraphUpload.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.cuGraphUpload.restype = ctypes.c_int
+    return lib
+
+
+def _cu(result, call):
+    if result:
+        raise RuntimeError(f"{call} failed: CUresult {result}")
+
+
+def graph_nodes(graph) -> int:
+    """The nodes of a captured ``torch.cuda.CUDAGraph`` that still holds
+    its graph (``keep_graph=True``): the driver's ``cuGraphGetNodes``.
+    (Counting them by kind takes a driver call a node through ctypes:
+    57-60 ms for the 37,903 nodes of ``best_acc_mosi_config``'s epoch on
+    an H100 machine's host, 4% of the capture, so it is not done.)"""
+    n = ctypes.c_size_t(0)
+    _cu(_driver().cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()),
+                                  None, ctypes.byref(n)), "cuGraphGetNodes")
+    return n.value
+
+
+def upload_graph(graph, stream):
+    """Upload an instantiated ``torch.cuda.CUDAGraph`` to the device in
+    ``stream`` (``cuGraphUpload``), so that its first replay launches as
+    cheaply as every later one."""
+    _cu(_driver().cuGraphUpload(ctypes.c_void_p(graph.raw_cuda_graph_exec()),
+                                ctypes.c_void_p(stream.cuda_stream)),
+        "cuGraphUpload")
+
+
 class Graphed:
     """``fn()`` (no arguments, no result: it reads and writes tensors that
     live as long as this object) as one CUDA graph.
 
-    The first call runs fn eagerly on the graph's stream: the warm-up, in
-    which the kernel library loads, cuBLAS makes its handle and each chain
+    The first call runs fn eagerly on the graph's stream (span
+    ``graph.eager``, the host's time to queue it): the warm-up, in which
+    the kernel library loads, cuBLAS makes its handle and each chain
     kernel's shared memory is allowed (``lstm_common.cuh::allow_smem``),
     none of which may happen under capture. The second call captures fn
-    and replays it; every later call replays it. The ``generators`` fn
-    draws from are registered with the graph, so each replay draws on from
-    where the generator stands, the draws an eager call would make. A
-    replay adds the launches the capture counted to the wrappers' counters
-    (``ops.counts``). ``capture_ms`` (host clock) and ``pool_bytes`` (the
-    device memory the capture reserved, the graph's pool) are kept. A
-    failed capture or replay raises: nothing runs fn eagerly in its
-    place. ``capture_error_mode`` is ``torch.cuda.graph``'s: "global"
-    fails the capture on another thread's unsafe CUDA call too,
-    "thread_local" (a server's worker thread) only on this thread's."""
+    and replays it; every later call replays it (span ``graph.replay``,
+    the host's launch). The capture (span ``graph.capture``) is three
+    spans: ``capture.prepare`` (a collection, a synchronize and
+    ``empty_cache``), ``capture.record`` (fn under ``torch.cuda.graph``)
+    and ``capture.instantiate`` (the instantiation and its upload to the
+    device, ``upload_graph``, which the first replay would do otherwise);
+    between the last two the graph's nodes are counted (``nodes``,
+    ``graph_nodes``), so the graph is made with ``keep_graph=True`` and
+    instantiated apart. The ``generators`` fn draws from are registered
+    with the graph, so each replay draws on from where the generator
+    stands, the draws an eager call would make.
+    A replay adds the launches the capture counted to the wrappers'
+    counters (``ops.counts``). ``capture_ms`` (the ``graph.capture``
+    span's host milliseconds), ``pool_bytes`` (the device memory the
+    capture reserved, the graph's pool) and ``nodes`` are kept, the last
+    two also as the capture span's attributes. A failed capture or
+    replay raises: nothing runs fn eagerly in its place.
+    ``capture_error_mode`` is ``torch.cuda.graph``'s: "global" fails the
+    capture on another thread's unsafe CUDA call too, "thread_local" (a
+    server's worker thread) only on this thread's."""
 
     def __init__(self, fn, generators=(), capture_error_mode="global"):
         self.fn = fn
@@ -661,48 +723,58 @@ class Graphed:
         self.launches = None
         self.capture_ms = None
         self.pool_bytes = None
+        self.nodes = None
 
     def __call__(self):
         if self.graph is None:
             if not self.warm:
-                self.stream.wait_stream(torch.cuda.current_stream())
-                with torch.cuda.stream(self.stream):
-                    self.fn()
-                torch.cuda.current_stream().wait_stream(self.stream)
+                with span("graph.eager"):
+                    self.stream.wait_stream(torch.cuda.current_stream())
+                    with torch.cuda.stream(self.stream):
+                        self.fn()
+                    torch.cuda.current_stream().wait_stream(self.stream)
                 self.warm = True
                 return
             self._capture()
-        self.graph.replay()
+        with span("graph.replay"):
+            self.graph.replay()
         counts.add(self.launches)
 
     def _capture(self):
-        graph = torch.cuda.CUDAGraph()
-        for generator in self.generators:
-            graph.register_generator_state(generator)
-        before = counts.snapshot()
-        # a dead graph left in a reference cycle (an earlier program's
-        # loop) is freed here, not by a collection during the capture,
-        # where freeing its pool breaks the capture
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved()
-        collecting = gc.isenabled()
-        gc.disable()
-        try:
-            t0 = time.perf_counter()
-            with torch.cuda.graph(
-                    graph, stream=self.stream,
-                    capture_error_mode=self.capture_error_mode):
-                self.fn()
-            self.capture_ms = (time.perf_counter() - t0) * 1e3
-        finally:
-            if collecting:
-                gc.enable()
-        self.pool_bytes = torch.cuda.memory_reserved() - reserved
-        # the capture launched nothing: its counts are the replays'
-        self.launches = counts.since(before)
-        counts.restore(before)
+        with span("graph.capture") as cap:
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+            for generator in self.generators:
+                graph.register_generator_state(generator)
+            before = counts.snapshot()
+            with span("capture.prepare"):
+                # a dead graph left in a reference cycle (an earlier
+                # program's loop) is freed here, not by a collection
+                # during the capture, where freeing its pool breaks the
+                # capture
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved()
+            collecting = gc.isenabled()
+            gc.disable()
+            try:
+                with span("capture.record"), torch.cuda.graph(
+                        graph, stream=self.stream,
+                        capture_error_mode=self.capture_error_mode):
+                    self.fn()
+            finally:
+                if collecting:
+                    gc.enable()
+            self.pool_bytes = torch.cuda.memory_reserved() - reserved
+            # the capture launched nothing: its counts are the replays'
+            self.launches = counts.since(before)
+            counts.restore(before)
+            self.nodes = graph_nodes(graph)
+            with span("capture.instantiate"):
+                graph.instantiate()
+                upload_graph(graph, torch.cuda.current_stream())
+            cap.attrs.update(nodes=self.nodes, pool_bytes=self.pool_bytes)
+        self.capture_ms = cap.seconds * 1e3
         self.graph = graph
 
 
@@ -733,7 +805,9 @@ class ChunkedLoop:
     eagerly, then each epoch is one graph replay. On the CPU, and for a
     data-parallel program (its steps all-reduce), each epoch runs the
     body eagerly. ``load`` mirrors the host scheduler and keeper
-    in, ``run(n)`` runs n epochs and reads their records once, ``store``
+    in, ``run(n)`` runs n epochs and reads their records once (spans
+    ``loop.run``, with its ``epochs``, and ``loop.read``, the host
+    waiting on the card), ``store``
     mirrors them back out. ``epoch_launches`` holds each epoch's kernel
     launches (``ops.counts.since``)."""
 
@@ -816,12 +890,14 @@ class ChunkedLoop:
     def run(self, n: int):
         """n epochs, then one read of their records: a (n, 5) float64
         array of (tracked, valid, lr, saved, ok)."""
-        self.slot.zero_()
-        for _ in range(n):
-            before = counts.snapshot()
-            self.epoch()
-            self.epoch_launches.append(counts.since(before))
-        return self.records[:n].cpu().numpy()
+        with span("loop.run", epochs=n):
+            self.slot.zero_()
+            for _ in range(n):
+                before = counts.snapshot()
+                self.epoch()
+                self.epoch_launches.append(counts.since(before))
+            with span("loop.read"):
+                return self.records[:n].cpu().numpy()
 
     def store(self, scheduler, keeper, saved: bool):
         """The device state back into the host scheduler and, where an

@@ -65,6 +65,7 @@ from factorized_tpu_torch.utils.logging import RunLogger
 from factorized_tpu_torch.utils.metrics import (score_classification,
                                                 score_multitrait,
                                                 score_regression)
+from factorized_tpu_torch.utils.profiling import note_trial, span, trial
 from factorized_tpu_torch.utils.scheduler import ReduceLROnPlateau
 
 
@@ -86,10 +87,16 @@ def _labels(y, cfg):
 def _predict_y(params, cfg, model_type, X, dev):
     """y_hat of ``params``' serving forward (``models.predict.YHat``) over
     the time-major (t, n, d) numpy array ``X`` on ``dev``: a host array,
-    squeezed for one-dimensional regression."""
-    forward = YHat(cfg, _to_device(params, dev), model_type, dev)
+    squeezed for one-dimensional regression. Spans: ``score.pack`` (the
+    weights packed), ``score.forward``, ``score.read`` (the copy to the
+    host)."""
+    with span("score.pack"):
+        forward = YHat(cfg, _to_device(params, dev), model_type, dev)
     with torch.no_grad():
-        return forward(torch.from_numpy(X).to(dev)).cpu().numpy()
+        with span("score.forward"):
+            y_hat = forward(torch.from_numpy(X).to(dev))
+        with span("score.read"):
+            return y_hat.cpu().numpy()
 
 
 def _score(y_hat, y_test, cfg, binary_threshold, threshold_mode):
@@ -279,33 +286,44 @@ class _Setup:
     ``cfg.momentum``) and the plateau scheduler. The parameters are the
     registered model ``name``'s, seeded from ``seed``, unless ``params``
     (a tree, e.g. of a model the registry does not hold, whose
-    ``apply_fn`` is then None) are given."""
+    ``apply_fn`` is then None) are given.
+
+    Spans: ``trainer.setup``, of it ``setup.data`` (the shuffle, the
+    batches, the copies to the card) and ``setup.init`` (the parameters,
+    the optimizer); ``score`` is ``trainer.score``. The trial's
+    ``model_type`` is ``name``."""
 
     def __init__(self, data, cfg, name, *, lr, seed, include_remainder,
                  device, labels=_labels, params=None, optimizer="adam"):
-        self.dev = dev = resolve_device(device)
-        self.name, self.cfg = name, cfg
-        Xtr, ytr, Xv, yv, self.Xte, yte = _prep_data(*data, seed)
-        if params is None:
-            _, self.apply_fn = get_model(name)
-            params = MFM(cfg, seed=seed, device=dev, model_type=name).tree()
-        else:
-            self.apply_fn = None
-            params = _to_device(params, dev)
-        self.params = params
-        self.seed = seed
-        self.generator = torch.Generator(device=dev).manual_seed(seed)
-        self.lr = lr = 1e-3 if lr is None else lr
-        self.optimizer = make_optimizer(self.params, lr, optimizer,
-                                        cfg.momentum)
-        self.scheduler = ReduceLROnPlateau(lr)
-        Xb, yb, rem = make_batches(Xtr, labels(ytr, cfg), cfg.batchsize,
-                                   include_remainder)
-        self.Xb, self.yb = self.on_device(Xb), self.on_device(yb)
-        self.rem = (None if rem is None
-                    else (self.on_device(rem[0]), self.on_device(rem[1])))
-        self.Xv, self.yv = self.on_device(Xv), self.on_device(labels(yv, cfg))
-        self.yte = labels(yte, cfg)
+        with span("trainer.setup"):
+            self.dev = dev = resolve_device(device)
+            self.name, self.cfg = name, cfg
+            note_trial(model_type=name, lanes=1)
+            with span("setup.data"):
+                Xtr, ytr, Xv, yv, self.Xte, yte = _prep_data(*data, seed)
+                Xb, yb, rem = make_batches(Xtr, labels(ytr, cfg),
+                                           cfg.batchsize, include_remainder)
+                self.Xb, self.yb = self.on_device(Xb), self.on_device(yb)
+                self.rem = (None if rem is None else
+                            (self.on_device(rem[0]), self.on_device(rem[1])))
+                self.Xv, self.yv = (self.on_device(Xv),
+                                    self.on_device(labels(yv, cfg)))
+                self.yte = labels(yte, cfg)
+            with span("setup.init"):
+                if params is None:
+                    _, self.apply_fn = get_model(name)
+                    params = MFM(cfg, seed=seed, device=dev,
+                                 model_type=name).tree()
+                else:
+                    self.apply_fn = None
+                    params = _to_device(params, dev)
+                self.params = params
+                self.seed = seed
+                self.generator = torch.Generator(device=dev).manual_seed(seed)
+                self.lr = lr = 1e-3 if lr is None else lr
+                self.optimizer = make_optimizer(self.params, lr, optimizer,
+                                                cfg.momentum)
+                self.scheduler = ReduceLROnPlateau(lr)
 
     def on_device(self, a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.dev)
@@ -360,10 +378,12 @@ class _Setup:
               tag="y_hat", X=None):
         """The test metrics of ``params``' y_hat on the test set, or on
         ``X`` (time-major, e.g. the test set with a modality zeroed)."""
-        y_hat = _predict_y(params, cfg, self.name,
-                           self.Xte if X is None else X, self.dev)
-        logger.text(f"scoring {tag}")
-        return _score(y_hat, self.yte, cfg, binary_threshold, threshold_mode)
+        with span("trainer.score"):
+            y_hat = _predict_y(params, cfg, self.name,
+                               self.Xte if X is None else X, self.dev)
+            logger.text(f"scoring {tag}")
+            return _score(y_hat, self.yte, cfg, binary_threshold,
+                          threshold_mode)
 
 
 def _steps(history):
@@ -375,6 +395,7 @@ def _steps(history):
 STANDARD = ("mfm", "kl", "kl_ef", "m_a", "m_b", "m_c", "m_d")
 
 
+@trial
 def train_mfm(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg, *,
               lr: Optional[float] = None,
               logger: Optional[RunLogger] = None,
@@ -412,6 +433,7 @@ def train_mfm(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg, *,
             "best_valid": keeper.best, "step": start + _steps(history)}
 
 
+@trial
 def train_beta_vae(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg,
                    *, lr: Optional[float] = None,
                    logger: Optional[RunLogger] = None,
@@ -460,6 +482,7 @@ def train_beta_vae(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg,
             "step": start + _steps(history)}
 
 
+@trial
 def train_mfm_missing(X_train, y_train, X_valid, y_valid, X_test, y_test,
                       cfg, *, lr: Optional[float] = None,
                       logger: Optional[RunLogger] = None,
@@ -504,6 +527,7 @@ def train_mfm_missing(X_train, y_train, X_valid, y_valid, X_test, y_test,
             "best_valid": keeper.best, "step": start + _steps(history)}
 
 
+@trial
 def train_mfm_test_zeros(X_train, y_train, X_valid, y_valid, X_test,
                          y_test, cfg, *, lr: Optional[float] = None,
                          logger: Optional[RunLogger] = None,
@@ -541,6 +565,7 @@ def train_mfm_test_zeros(X_train, y_train, X_valid, y_valid, X_test,
             "best_valid": keeper.best, "step": start + _steps(history)}
 
 
+@trial
 def train_mfm_ablation(X_train, y_train, X_valid, y_valid, X_test, y_test,
                        cfg, **kw):
     """The ablations ``m_a``..``m_d``: ``train_mfm``'s joint loss and loop
@@ -552,6 +577,7 @@ def train_mfm_ablation(X_train, y_train, X_valid, y_valid, X_test, y_test,
                      cfg, model_type=cfg.model_type, **kw)
 
 
+@trial
 def train_seq2seq(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg,
                   *, lr: Optional[float] = None,
                   logger: Optional[RunLogger] = None,
@@ -585,6 +611,7 @@ def train_seq2seq(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg,
             "best_valid": keeper.best, "step": start + _steps(history)}
 
 
+@trial
 def train_basic_missing(X_train, y_train, X_valid, y_valid, X_test, y_test,
                         cfg, *, lr: Optional[float] = None,
                         logger: Optional[RunLogger] = None,
@@ -634,6 +661,7 @@ def _accuracy_device(apply_fn, cfg):
     return eval_fn
 
 
+@trial
 def train_mfm_acc(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg,
                   *, lr: Optional[float] = None,
                   logger: Optional[RunLogger] = None,
@@ -667,6 +695,7 @@ def train_mfm_acc(X_train, y_train, X_valid, y_valid, X_test, y_test, cfg,
             "best_valid": keeper.best, "step": start + _steps(history)}
 
 
+@trial
 def train_mfm_multitrait(X_train, y_train, X_valid, y_valid, X_test, y_test,
                          cfg, *, lr: Optional[float] = None,
                          logger: Optional[RunLogger] = None,
@@ -743,6 +772,7 @@ def _predictor(kind, cfg, d, h, t, drop, seed):
     return params, forward
 
 
+@trial
 def train_predictor(X_train, y_train, X_valid, y_valid, X_test, y_test, kind,
                     cfg, *, h: int = 128,
                     drop: float = 0.5,

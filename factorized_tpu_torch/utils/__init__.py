@@ -1,2 +1,3 @@
-"""Checkpoints, run logs, metrics, the plateau scheduler, tracing and
-timing (``profiling``) and the FLOPs of a train step (``flops``)."""
+"""Checkpoints, run logs, metrics, the plateau scheduler, tracing and the
+port's host spans (``profiling``) and the FLOPs of a train step
+(``flops``)."""

@@ -962,6 +962,57 @@ def test_graph_replays_draw_new_masks(cuda):
     assert all(torch.equal(a, b) for a, b in zip(got, eager))
 
 
+def test_the_epoch_graph_records_its_spans_and_nodes(cuda):
+    """train_mfm at the flagship widths on 10 batches, 4 epochs: one eager
+    epoch, one capture split into prepare, record and instantiate (the
+    three within 2% of it), a replay an epoch after the first; the step
+    phases only in the eager epoch and under the capture's record; the
+    graph's node count in the capture's attributes, and ``Graphed``'s own
+    ``nodes`` and ``capture_ms`` from the same span."""
+    from factorized_tpu_torch import trainers
+    from factorized_tpu_torch.train import Graphed
+    from factorized_tpu_torch.utils import profiling
+    from factorized_tpu_torch.utils.logging import RunLogger
+
+    cfg = best_acc_mosi_config().replace(num_epochs=4)
+    rng = np.random.default_rng(0)
+    data = []
+    for n in (10 * cfg.batchsize, 64, 64):
+        data += [rng.normal(size=(n, cfg.seqlength, cfg.d_total))
+                 .astype(np.float32), rng.normal(size=n).astype(np.float32)]
+    profiling.clear()
+    trainers.train_mfm(*data, cfg, device=cuda, logger=RunLogger(echo=False))
+    recs = profiling.spans()
+    by = {r.index: r for r in recs}
+
+    def named(name):
+        return [r for r in recs if r.name == name]
+
+    (eager,), (cap,) = named("graph.eager"), named("graph.capture")
+    assert len(named("graph.replay")) == cfg.num_epochs - 1
+    assert cap.attrs["nodes"] > 0 and cap.attrs["pool_bytes"] > 0
+    parts = [named(n) for n in ("capture.prepare", "capture.record",
+                                "capture.instantiate")]
+    assert all(len(p) == 1 and p[0].parent == cap.index for p in parts)
+    assert sum(p[0].seconds for p in parts) == pytest.approx(cap.seconds,
+                                                             rel=0.02)
+    for phase in ("step.forward", "step.backward", "step.optimizer"):
+        assert sorted(by[r.parent].name for r in named(phase)) == \
+            ["capture.record"] * 10 + ["graph.eager"] * 10
+    assert {by[r.parent].name for r in named("epoch.eval")} == {
+        "graph.eager", "capture.record"}
+
+    out = torch.zeros(4, device=cuda)
+    graph = Graphed(lambda: out.add_(1.0))
+    for _ in range(3):
+        graph()
+    (small,) = [r for r in profiling.spans()
+                if r.name == "graph.capture" and r.index > cap.index]
+    assert graph.nodes == small.attrs["nodes"] > 0
+    assert graph.capture_ms == pytest.approx(small.seconds * 1e3)
+    assert out.tolist() == [3.0] * 4
+
+
 # ------------------------------------------------------------ ablations
 
 @pytest.mark.parametrize("model_type", ["m_a", "m_b", "m_c", "m_d"])
